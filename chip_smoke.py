@@ -1,0 +1,446 @@
+"""Smoke run of the PyTorch port's serving path on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure raises and exits non-zero:
+  1. a CUDA card is required; prints its name and power limit (nvidia-smi);
+  2. builds the front-end kernel from csrc/ with nvcc (build seconds);
+  3. holds each of the two front-end launches (spectral: waveform to power
+     mel; epilogue: power mel to features), and the pair, against its plain
+     torch version on the card: the shipped config at B = 1, 17, 256, PCEN,
+     pre-emphasis + delta-deltas, and f_max = 8 kHz; fails above 1e-3
+     max-relative deviation;
+  4. times each launch and the pair, their plain versions and library
+     yardsticks (torch.stft + matmuls, + the torch epilogue for the pair)
+     with CUDA events at B = 256 and 4096, beside each launch's bound at the
+     card's FP32 peak and memory rate;
+  5. serves: a DetectionServer on the card (residual model at full width,
+     random weights from a seed, eager ticks, 8 slots, threshold 0) answers
+     8 streams of 1.25 s from a loopback DetectionClient; its events must
+     equal an in-process StreamingDetector's on the same audio, and both
+     launch counters must have advanced while it served. Then the card's
+     detector scores are held against the CPU's on a few windows, and 256
+     streams run 1600-sample ticks for the p50 tick latency, then 20 more
+     on the host clock alone and 20 under torch.profiler for the device's
+     busy time and idle share;
+  6. prints the kernels' JSON line, then the device line last.
+
+Imports only torch, numpy and the port package; never JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+TOL = 1e-3
+SR = 16000
+CHUNK = 1600
+
+# NVIDIA H100 SXM data sheet peaks (dense, no sparsity), at 700 W.
+PEAK_FP32_FLOPS = 67e12   # FP32 on the CUDA cores, no tensor cores
+PEAK_HBM_BYTES = 3.35e12
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-8)).item()
+
+
+def make_audio(rng: np.random.Generator, n_streams: int, n_samples: int) -> np.ndarray:
+    """Background noise with cough-like bursts: decaying noise plus a
+    low tone, at random places and levels."""
+    out = (rng.standard_normal((n_streams, n_samples)) * 0.01).astype(np.float32)
+    t = np.arange(int(0.3 * SR)) / SR
+    for s in range(n_streams):
+        for _ in range(max(1, n_samples // SR * 2)):
+            start = rng.integers(0, n_samples - t.size)
+            env = np.exp(-t / rng.uniform(0.03, 0.12))
+            burst = rng.standard_normal(t.size) + np.sin(2 * np.pi * rng.uniform(150, 800) * t)
+            out[s, start : start + t.size] += (rng.uniform(0.2, 0.9) * env * burst).astype(np.float32)
+    return out
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    # -- 1. the card ---------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    from cough_detector_tpu_torch.config import FeatureConfig, default_config
+    from cough_detector_tpu_torch.models import count_parameters, create_model
+    from cough_detector_tpu_torch.ops import filters, frontend, frontend_kernel
+    from cough_detector_tpu_torch.serve import DetectionClient, DetectionServer
+    from cough_detector_tpu_torch.stream import StreamingDetector
+    from cough_detector_tpu_torch.utils import kernel_build
+
+    # -- 2. build ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    frontend_kernel.build()
+    print(
+        f"build: {kernel_build.library_path('frontend_kernel').name} in "
+        f"{time.perf_counter() - t0:.3f} s",
+        flush=True,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    shipped = FeatureConfig()
+
+    def waves(b: int) -> torch.Tensor:
+        return torch.from_numpy(make_audio(rng, b, shipped.segment_samples)).to(dev)
+
+    # -- 3. kernels vs plain versions --------------------------------------
+    # Each launch on its own against its plain version on the same input
+    # (launch B is fed the plain power mel), then the pair end to end.
+    checks = [
+        ("shipped", shipped, 1), ("shipped", shipped, 17), ("shipped", shipped, 256),
+        ("pcen", FeatureConfig(use_pcen=True), 17),
+        ("pre_emphasis+delta_delta", FeatureConfig(use_pre_emphasis=True, use_delta_delta=True), 17),
+        ("f_max=8000", FeatureConfig(f_max=8000.0), 17),
+    ]
+    max_abs = {"spectral": 0.0, "epilogue": 0.0}
+    for name, cfg, b in checks:
+        w = waves(b)
+        mel_want = frontend_kernel.power_mel_reference(w, cfg)
+        feat_want = frontend_kernel.mel_epilogue_reference(mel_want, cfg)
+        pairs = {
+            "spectral": (frontend_kernel.power_mel_fused(w, cfg), mel_want),
+            "epilogue": (frontend_kernel.mel_epilogue_fused(mel_want.contiguous(), cfg), feat_want),
+            "pair": (frontend_kernel.extract_features_fused(w, cfg), feat_want),
+        }
+        torch.cuda.synchronize()
+        for part, (got, want) in pairs.items():
+            err = rel_err(got, want)
+            if part in max_abs:
+                max_abs[part] = max(max_abs[part], (got - want).abs().max().item())
+            ok = got.shape == want.shape and bool(torch.isfinite(got).all())
+            print(
+                f"kernel vs plain [{part}, {name}, B={b}]: max-relative {err:.3e} "
+                f"shape {tuple(got.shape)}",
+                flush=True,
+            )
+            if not ok or not err <= TOL:
+                fail(f"{part} kernel disagrees with its plain version on {name} B={b}: {err:.3e}")
+        if pairs["pair"][0].shape != (b, cfg.num_features, cfg.num_frames):
+            fail(f"feature image of shape {tuple(pairs['pair'][0].shape)} on {name}")
+
+    # -- 4. times ----------------------------------------------------------------
+    fb_full = torch.from_numpy(
+        filters.mel_filterbank(
+            shipped.n_fft // 2 + 1, shipped.n_mels, shipped.sample_rate, shipped.f_min, shipped.f_max
+        )
+    ).to(dev)
+    window = torch.hann_window(shipped.win_length, device=dev)
+
+    def library_mel(w: torch.Tensor) -> torch.Tensor:
+        """cuFFT power spectrum and a mel matmul, (B, T, n_mels)."""
+        spec = torch.stft(
+            w, shipped.n_fft, shipped.hop_length, shipped.win_length, window,
+            center=True, pad_mode="reflect", return_complex=True,
+        )
+        return (spec.real**2 + spec.imag**2).transpose(1, 2) @ fb_full
+
+    def library(w: torch.Tensor) -> torch.Tensor:
+        return frontend.stack_features(library_mel(w), shipped)
+
+    consts = frontend_kernel._constants(shipped, dev)
+    t_frames, n_mels, n_mfcc = shipped.num_frames, shipped.n_mels, shipped.n_mfcc
+    taps, n_used = consts.j1 - consts.j0, consts.n_used
+    # Operations each launch needs for one clip. A: the windowed DFT over the
+    # window's nonzero taps (a multiply-add each for re and im), the power
+    # (3 a bin) and the mel matmul. B: the DCT matmul, plus about 8
+    # elementwise operations per log-mel value (log, scale, max, dB clamp and
+    # scale) and 10 per MFCC value (z-norm sums and scale, deltas).
+    flops_a = 4 * t_frames * taps * n_used + 3 * t_frames * n_used + 2 * t_frames * n_used * n_mels
+    flops_b = 2 * t_frames * n_mels * n_mfcc + 8 * n_mels * t_frames + 10 * n_mfcc * t_frames
+    table_a = 4 * sum(c.numel() for c in (consts.cos, consts.sin, consts.fb))
+    table_b = 4 * consts.dct.numel()
+
+    def bound(flops: float, nbytes: float) -> dict:
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+        return dict(
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+        )
+
+    timing = {}
+    for b, iters in ((256, 50), (4096, 10)):
+        w = waves(b)
+        mel = frontend_kernel.power_mel_fused(w, shipped)
+        lib_err = rel_err(library(w), frontend_kernel.extract_features_fused(w, shipped))
+        mel_bytes = 4 * b * n_mels * t_frames
+        feat_bytes = 4 * b * shipped.num_features * t_frames
+        spectral = dict(
+            ms=cuda_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), iters),
+            plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, shipped), iters),
+            library_ms=cuda_ms(lambda: library_mel(w), iters),
+            **bound(b * flops_a, 4 * b * shipped.segment_samples + mel_bytes + table_a),
+        )
+        epilogue = dict(
+            ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), iters),
+            plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, shipped), iters),
+            library_ms=None,
+            **bound(b * flops_b, mel_bytes + feat_bytes + table_b),
+        )
+        pair = dict(
+            ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, shipped), iters),
+            plain_ms=cuda_ms(lambda: frontend_kernel.frontend_kernel_reference(w, shipped), iters),
+            library_ms=cuda_ms(lambda: library(w), iters),
+        )
+        timing[b] = dict(spectral=spectral, epilogue=epilogue)
+        for part, tm in (("spectral", spectral), ("epilogue", epilogue)):
+            lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
+            print(
+                f"times {part} B={b}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
+                f"library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
+                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound",
+                flush=True,
+            )
+        print(
+            f"times pair B={b}: kernels {pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms, "
+            f"library {pair['library_ms']:.4f} ms (torch.stft + matmuls + torch epilogue; "
+            f"vs kernels max-relative {lib_err:.2e}); operations {b * (flops_a + flops_b) / 1e9:.3f} "
+            f"GFLOP at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s FP32, bytes at "
+            f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s",
+            flush=True,
+        )
+
+    # -- 5. the serving path -----------------------------------------------------
+    cfg = default_config("residual")
+    gen = torch.Generator().manual_seed(SEED)
+    torch.manual_seed(SEED)
+    model = create_model("residual")
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.weight.normal_(1.0, 0.2, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+    n_params = count_parameters(model)
+    if n_params != 290370:
+        fail(f"residual model has {n_params} parameters, expected 290370")
+    weights = model.state_dict()
+    n_streams, n_samples = 8, int(1.25 * SR)
+    audio = make_audio(rng, n_streams, n_samples)
+
+    server = DetectionServer(
+        variables=weights, config=cfg, device="cuda", num_streams=n_streams,
+        chunk_size=CHUNK, confidence_threshold=0.0, tick_policy="eager",
+        liveness_seconds=float("inf"),
+    )
+    print(
+        f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}",
+        flush=True,
+    )
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for the model on the card")
+    n_ticks = n_samples // CHUNK
+    server.start()
+    try:
+        frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+        with DetectionClient(*server.address) as client:
+            sids = [client.open_stream() for _ in range(n_streams)]
+            for t in range(n_ticks + 1):
+                for s, sid in enumerate(sids):
+                    client.send_audio(sid, audio[s, t * CHUNK : (t + 1) * CHUNK])
+            deadline = time.time() + 120
+            while server.stats()["ticks"] < n_ticks and time.time() < deadline:
+                time.sleep(0.01)
+            got = []
+            while len(got) < n_streams and time.time() < deadline:
+                got += client.events(timeout=0.5)
+            time.sleep(0.2)
+            got += client.events()
+        launches = {
+            "spectral": frontend_kernel.SPECTRAL_LAUNCHES,
+            "epilogue": frontend_kernel.EPILOGUE_LAUNCHES,
+        }
+        stats = server.stats()
+    finally:
+        server.stop()
+    print(
+        f"server: {stats['ticks']} ticks, {len(got)} events over loopback, "
+        f"kernel launches while serving {launches}, tick_ms_p50 {stats.get('tick_ms_p50')}",
+        flush=True,
+    )
+    if stats["ticks"] < n_ticks or min(launches.values()) < 1:
+        fail("the server did not tick through both front-end kernels")
+
+    ref = StreamingDetector(
+        variables=weights, config=cfg, device="cuda", num_streams=n_streams,
+        chunk_size=CHUNK, confidence_threshold=0.0,
+    )
+    expected = ref.process_chunk(audio[:, : n_ticks * CHUNK])
+    lane = {sid: s for s, sid in enumerate(sids)}
+    got_set = sorted((lane[e["stream"]], round(e["time"], 6), e["confidence"]) for e in got)
+    want_set = sorted((d.stream, round(d.time_seconds, 6), d.confidence) for d in expected)
+    same = len(got_set) == len(want_set) == n_streams and all(
+        g[:2] == w[:2] and abs(g[2] - w[2]) <= 2e-6 for g, w in zip(got_set, want_set)
+    )
+    print(f"server events == in-process detector events: {same} ({len(want_set)} events)", flush=True)
+    if not same:
+        fail(f"server events {got_set} differ from the detector's {want_set}")
+
+    windows = audio[:, :SR]
+    card_p = ref.scores_for(windows)
+    cpu_det = StreamingDetector(variables=weights, config=cfg, device="cpu", num_streams=1)
+    cpu_p = cpu_det.scores_for(windows)
+    p_err = float(np.abs(card_p - cpu_p).max())
+    print(f"card vs CPU cough probabilities on {len(windows)} windows: max abs {p_err:.3e}", flush=True)
+    if not (np.isfinite(card_p).all() and p_err <= TOL):
+        fail(f"card probabilities disagree with the CPU's: {p_err:.3e}")
+
+    det = StreamingDetector(
+        variables=weights, config=cfg, device="cuda", num_streams=256,
+        chunk_size=CHUNK, confidence_threshold=0.5,
+    )
+    n_span = 20  # ticks in each of the two spans below
+    ticks_audio = make_audio(rng, 256, (60 + 2 * n_span) * CHUNK)
+
+    def tick(t: int) -> None:
+        det.collect_events(det.tick_async(ticks_audio[:, t * CHUNK : (t + 1) * CHUNK]))
+
+    lat_all, lat_scoring = [], []
+    for t in range(60):
+        w0 = det._state.windows_emitted
+        t_start = time.perf_counter()
+        tick(t)
+        dt = time.perf_counter() - t_start
+        if t >= 20:
+            lat_all.append(dt)
+            if det._state.windows_emitted > w0:
+                lat_scoring.append(dt)
+    print(
+        f"256 streams x {CHUNK}-sample ticks: p50 {np.percentile(lat_all, 50) * 1e3:.3f} ms over "
+        f"{len(lat_all)} ticks; p50 {np.percentile(lat_scoring, 50) * 1e3:.3f} ms over the "
+        f"{len(lat_scoring)} ticks that score 256 windows (host clock, tick + event fetch)",
+        flush=True,
+    )
+
+    # Device idle share. First the host-clock span of n_span ticks back to
+    # back without the profiler (ending in a synchronize), then n_span more
+    # under torch.profiler: the union of every device kernel's and copy's
+    # interval is the busy time. Only the device-side events count; a CPU
+    # op's device time repeats its kernels'. Both spans hold the same number
+    # of scoring ticks (a window completes every 2.5 ticks). The busy time
+    # over the plain span is the idle share without the profiler's host
+    # overhead; over the profiled span, with it.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def span(first: int) -> tuple:
+        w0 = det._state.windows_emitted
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for t in range(first, first + n_span):
+            tick(t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_start) * 1e3, det._state.windows_emitted - w0
+
+    plain_span_ms, plain_windows = span(60)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_span_ms, prof_windows = span(60 + n_span)
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    if busy_us > 0:
+        busy_ms = busy_us / 1e3
+        top = ", ".join(
+            f"{name[:48]} {us / 1e3 / n_span:.4f}"
+            for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        )
+        ours = ", ".join(
+            f"{name} {sum(us for n, us in by_name.items() if name in n) / 1e3 / n_span:.4f}"
+            for name in ("spectral_kernel", "epilogue_kernel")
+        )
+        print(
+            f"{n_span} ticks: {plain_span_ms:.3f} ms on the host clock without the profiler "
+            f"(windows {plain_windows}), {prof_span_ms:.3f} ms under it (windows {prof_windows}); "
+            f"device busy {busy_ms:.3f} ms under the profiler ({len(spans)} device ops); "
+            f"idle share {1 - busy_ms / plain_span_ms:.3f} against the plain span, "
+            f"{1 - busy_ms / prof_span_ms:.3f} against the profiled span",
+            flush=True,
+        )
+        print(f"device ms a tick: front-end kernels {ours}; top device ops {top}", flush=True)
+    else:
+        print(
+            f"{n_span} ticks: {plain_span_ms:.3f} ms on the host clock; the profiler recorded "
+            f"no device time, idle share not measured",
+            flush=True,
+        )
+    w256 = waves(256)
+    feats256 = frontend_kernel.extract_features_fused(w256, shipped)
+    with torch.no_grad():
+        clf_ms = cuda_ms(lambda: det._model(feats256), 20)
+        score_ms = cuda_ms(lambda: det._score_fn(w256), 20)
+    print(
+        f"256 windows on the card (CUDA events): classifier {clf_ms:.4f} ms, score function "
+        f"(peak normalize + front-end kernels + classifier + softmax) {score_ms:.4f} ms",
+        flush=True,
+    )
+
+    # -- 6. summary ----------------------------------------------------------------
+    main_b = 256
+    kernels = [
+        {
+            "name": f"frontend_{part}",
+            "route": "cuda",
+            "source": "cough_detector_tpu_torch/csrc/frontend_kernel.cu",
+            "replaces": "cough_detector_tpu/ops/pallas/frontend_kernel.py:278",
+            "launches": launches[part],
+            "max_abs_err": max_abs[part],
+            "batch": main_b,
+            **timing[main_b][part],
+        }
+        for part in ("spectral", "epilogue")
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+
+
+if __name__ == "__main__":
+    main()

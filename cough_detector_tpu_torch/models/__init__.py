@@ -1,0 +1,25 @@
+"""Classifier family as torch modules, and weight conversion from Flax."""
+
+from .classifiers import (
+    CoughDetector,
+    CoughDetectorResidual,
+    CoughDetectorSmall,
+    count_parameters,
+    create_model,
+    model_from_config,
+    place_model,
+    predict,
+)
+from .convert import from_jax_variables
+
+__all__ = [
+    "CoughDetector",
+    "CoughDetectorResidual",
+    "CoughDetectorSmall",
+    "count_parameters",
+    "create_model",
+    "from_jax_variables",
+    "model_from_config",
+    "place_model",
+    "predict",
+]

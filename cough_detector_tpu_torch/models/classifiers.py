@@ -1,0 +1,163 @@
+"""The three cough-classifier architectures, as torch modules.
+
+The port of `cough_detector_tpu/models/classifiers.py`: "standard" (plain
+CNN), "small" (depthwise-separable), "residual" (the shipped model). Module
+attributes follow the reference's state-dict keys (reference:
+src/model.py:43-316), so `models/convert.py` output and reference `.pt`
+checkpoints load directly. Inputs are feature images (B, H, W) or NCHW
+(B, 1, H, W).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+from torch import nn
+
+from .layers import BatchNorm, ConvBlock, ResidualBlock, SeparableBlock, global_avg_pool
+
+
+def _as_nchw(x: torch.Tensor) -> torch.Tensor:
+    if x.ndim == 3:
+        return x.unsqueeze(1)
+    if x.ndim == 4 and x.shape[1] == 1:
+        return x
+    raise ValueError(f"Expected (B,H,W) or (B,1,H,W) input, got {tuple(x.shape)}")
+
+
+class CoughDetector(nn.Module):
+    """Plain CNN: 4 ConvBlocks → GAP → FC(→128) → ReLU → Dropout → FC(→2).
+    Reference: src/model.py:43-140. 421,954 parameters."""
+
+    def __init__(self, num_classes: int = 2, dropout: float = 0.5):
+        super().__init__()
+        chans = (1, 32, 64, 128, 256)
+        self.conv_layers = nn.Sequential(
+            *[ConvBlock(chans[i], chans[i + 1]) for i in range(4)]
+        )
+        self.fc = nn.Sequential(
+            nn.Linear(256, 128), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(128, num_classes),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(global_avg_pool(self.conv_layers(_as_nchw(x))))
+
+
+class CoughDetectorSmall(nn.Module):
+    """Lightweight depthwise-separable CNN for realtime inference.
+    Reference: src/model.py:143-207. 21,122 parameters. Its dropout is
+    fixed at 0.3, as the reference's is."""
+
+    def __init__(self, num_classes: int = 2):
+        super().__init__()
+        self.features = nn.Sequential(
+            nn.Conv2d(1, 16, 3, padding=1),
+            BatchNorm(16),
+            nn.ReLU(),
+            nn.MaxPool2d(2),
+            *SeparableBlock(16, 32),
+            *SeparableBlock(32, 64),
+            *SeparableBlock(64, 128, pool=False),
+            nn.AdaptiveAvgPool2d((1, 1)),
+        )
+        self.classifier = nn.Sequential(
+            nn.Flatten(), nn.Linear(128, 64), nn.ReLU(), nn.Dropout(0.3),
+            nn.Linear(64, num_classes),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.classifier(self.features(_as_nchw(x)))
+
+
+class CoughDetectorResidual(nn.Module):
+    """ResNet-style model, the shipped production architecture:
+    Conv7x7(s2, p3) → BN → ReLU → MaxPool(2) → ResBlock(→64, s2) →
+    ResBlock(→128, s2) → GAP → Dropout → FC(→2).
+    Reference: src/model.py:210-265. 290,370 parameters."""
+
+    def __init__(self, num_classes: int = 2, dropout: float = 0.5):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            nn.Conv2d(1, 32, 7, stride=2, padding=3),
+            BatchNorm(32),
+            nn.ReLU(),
+            nn.MaxPool2d(2),
+        )
+        self.res_blocks = nn.ModuleList(
+            [ResidualBlock(32, 64), ResidualBlock(64, 128)]
+        )
+        self.fc = nn.Sequential(
+            nn.Flatten(), nn.Dropout(dropout), nn.Linear(128, num_classes)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv1(_as_nchw(x))
+        for block in self.res_blocks:
+            x = block(x)
+        return self.fc(global_avg_pool(x))
+
+
+_MODELS = {
+    "standard": CoughDetector,
+    "small": CoughDetectorSmall,
+    "residual": CoughDetectorResidual,
+}
+
+
+def create_model(model_type: str = "standard", **kwargs) -> nn.Module:
+    """Factory over {"standard", "small", "residual"}. The reference's
+    n_mels/in_channels kwargs are accepted and ignored: every architecture
+    ends in global average pooling."""
+    kwargs.pop("n_mels", None)
+    kwargs.pop("in_channels", None)
+    if model_type not in _MODELS:
+        raise ValueError(
+            f"Unknown model type: {model_type}. Choose from {list(_MODELS)}"
+        )
+    return _MODELS[model_type](**kwargs)
+
+
+def model_from_config(model_config, precision_mode: str = "high") -> nn.Module:
+    """The classifier a ModelConfig describes: num_classes and dropout
+    (standard/residual; the small model's dropout is fixed) in float32."""
+    if model_config.compute_dtype == "bfloat16" or precision_mode == "serve":
+        raise NotImplementedError(
+            "bfloat16 compute and precision_mode='serve' are not ported yet"
+        )
+    if model_config.compute_dtype != "float32":
+        raise ValueError(
+            f"compute_dtype must be 'float32' or 'bfloat16', "
+            f"got {model_config.compute_dtype!r}"
+        )
+    if precision_mode != "high":
+        raise ValueError(f"unknown precision_mode {precision_mode!r}")
+    kwargs = {"num_classes": model_config.num_classes}
+    if model_config.model_type in ("standard", "residual"):
+        kwargs["dropout"] = model_config.dropout
+    return create_model(model_config.model_type, **kwargs)
+
+
+def place_model(model: nn.Module, device: Union[str, torch.device]) -> nn.Module:
+    """Move `model` to `device` in eval mode. On the card this also turns
+    TF32 off for cuDNN convolutions and cuBLAS matmuls: TF32 keeps about as
+    few mantissa bits as one bf16 pass, which the JAX package measured
+    outside the 1e-3 logits budget."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return model.to(device).eval()
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Trainable-parameter count (reference: src/model.py:319-321)."""
+    return int(sum(p.numel() for p in model.parameters() if p.requires_grad))
+
+
+@torch.inference_mode()
+def predict(model: nn.Module, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(preds, probs): softmax over the logits and the argmax class."""
+    probs = torch.softmax(model(x), dim=-1)
+    return probs.argmax(dim=-1), probs
