@@ -6,14 +6,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. a CUDA card is required; prints its name and power limit (nvidia-smi);
   2. builds the front-end kernel from csrc/ with nvcc (build seconds);
   3. holds each of the two front-end launches (spectral: waveform to power
-     mel; epilogue: power mel to features), and the pair, against its plain
-     torch version on the card: the shipped config at B = 1, 17, 256, PCEN,
-     pre-emphasis + delta-deltas, and f_max = 8 kHz; fails above 1e-3
-     max-relative deviation;
+     mel, 3xTF32 on the tensor cores; epilogue: power mel to features), and
+     the pair, against its plain torch version on the card: the shipped
+     config at B = 1, 17, 256, PCEN, pre-emphasis + delta-deltas, 32 mels,
+     n_fft 256, f_max = 8 kHz, and f_max = 8 kHz on a batch with sine
+     sweeps; fails above 1e-3 max-relative deviation. The spectral launch
+     is also held against power_mel_split_reference, the model of its 3xTF32
+     arithmetic, and the features of a single TF32 pass are printed beside
+     (the reason the kernel splits);
   4. times each launch and the pair, their plain versions and library
      yardsticks (torch.stft + matmuls, + the torch epilogue for the pair)
      with CUDA events at B = 256 and 4096, beside each launch's bound at the
-     card's FP32 peak and memory rate;
+     card's peak rate (TF32 tensor cores for the spectral launch, with its
+     FP32 CUDA-core bound beside it) and memory rate;
   5. serves: a DetectionServer on the card (residual model at full width,
      random weights from a seed, eager ticks, 8 slots, threshold 0) answers
      8 streams of 1.25 s from a loopback DetectionClient; its events must
@@ -45,6 +50,7 @@ CHUNK = 1600
 
 # NVIDIA H100 SXM data sheet peaks (dense, no sparsity), at 700 W.
 PEAK_FP32_FLOPS = 67e12   # FP32 on the CUDA cores, no tensor cores
+PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -69,6 +75,16 @@ def make_audio(rng: np.random.Generator, n_streams: int, n_samples: int) -> np.n
             burst = rng.standard_normal(t.size) + np.sin(2 * np.pi * rng.uniform(150, 800) * t)
             out[s, start : start + t.size] += (rng.uniform(0.2, 0.9) * env * burst).astype(np.float32)
     return out
+
+
+def make_sweeps(rng: np.random.Generator, n_streams: int, n_samples: int) -> np.ndarray:
+    """Log chirps from 100 Hz to 7 kHz at random levels, as in the JAX
+    package's fixture batch (data/synth.py::sine_sweep)."""
+    t = np.linspace(0.0, n_samples / SR, n_samples)
+    k = (7000.0 / 100.0) ** (SR / n_samples)
+    phase = 2 * np.pi * 100.0 * (k**t - 1) / np.log(k)
+    amp = rng.uniform(0.3, 0.9, (n_streams, 1))
+    return (amp * np.sin(phase)[None]).astype(np.float32)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -121,15 +137,27 @@ def main() -> None:
     # -- 3. kernels vs plain versions --------------------------------------
     # Each launch on its own against its plain version on the same input
     # (launch B is fed the plain power mel), then the pair end to end.
+    def sweep_batch(b: int) -> torch.Tensor:
+        """Every other clip a sine sweep, in band at f_max = 8 kHz."""
+        w = make_audio(rng, b, shipped.segment_samples)
+        w[::2] = make_sweeps(rng, len(w[::2]), shipped.segment_samples)
+        return torch.from_numpy(w).to(dev)
+
+    full_band = FeatureConfig(f_max=8000.0)
     checks = [
-        ("shipped", shipped, 1), ("shipped", shipped, 17), ("shipped", shipped, 256),
-        ("pcen", FeatureConfig(use_pcen=True), 17),
-        ("pre_emphasis+delta_delta", FeatureConfig(use_pre_emphasis=True, use_delta_delta=True), 17),
-        ("f_max=8000", FeatureConfig(f_max=8000.0), 17),
+        ("shipped", shipped, waves(1)), ("shipped", shipped, waves(17)),
+        ("shipped", shipped, waves(256)),
+        ("pcen", FeatureConfig(use_pcen=True), waves(17)),
+        ("pre_emphasis+delta_delta", FeatureConfig(use_pre_emphasis=True, use_delta_delta=True), waves(17)),
+        ("n_mels=32", FeatureConfig(n_mels=32, n_mfcc=8), waves(17)),
+        ("n_fft=256", FeatureConfig(n_fft=256, win_length=200, hop_length=80), waves(17)),
+        ("f_max=8000", full_band, waves(17)),
+        ("f_max=8000 sweeps", full_band, sweep_batch(17)),
     ]
     max_abs = {"spectral": 0.0, "epilogue": 0.0}
-    for name, cfg, b in checks:
-        w = waves(b)
+    split_err = 0.0
+    for name, cfg, w in checks:
+        b = w.shape[0]
         mel_want = frontend_kernel.power_mel_reference(w, cfg)
         feat_want = frontend_kernel.mel_epilogue_reference(mel_want, cfg)
         pairs = {
@@ -150,6 +178,18 @@ def main() -> None:
             )
             if not ok or not err <= TOL:
                 fail(f"{part} kernel disagrees with its plain version on {name} B={b}: {err:.3e}")
+        err = rel_err(pairs["spectral"][0], frontend_kernel.power_mel_split_reference(w, cfg))
+        split_err = max(split_err, err)
+        one_pass = frontend_kernel.mel_epilogue_reference(
+            frontend_kernel.power_mel_split_reference(w, cfg, passes=1), cfg
+        )
+        print(
+            f"spectral kernel vs its 3xTF32 model [{name}, B={b}]: max-relative {err:.3e}; "
+            f"features of one TF32 pass (model) vs plain: {rel_err(one_pass, feat_want):.3e}",
+            flush=True,
+        )
+        if not err <= TOL:
+            fail(f"spectral kernel disagrees with its 3xTF32 model on {name} B={b}: {err:.3e}")
         if pairs["pair"][0].shape != (b, cfg.num_features, cfg.num_frames):
             fail(f"feature image of shape {tuple(pairs['pair'][0].shape)} on {name}")
 
@@ -185,8 +225,8 @@ def main() -> None:
     table_a = 4 * sum(c.numel() for c in (consts.cos, consts.sin, consts.fb))
     table_b = 4 * consts.dct.numel()
 
-    def bound(flops: float, nbytes: float) -> dict:
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> dict:
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
         return dict(
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -196,14 +236,20 @@ def main() -> None:
     for b, iters in ((256, 50), (4096, 10)):
         w = waves(b)
         mel = frontend_kernel.power_mel_fused(w, shipped)
+        mel_err = rel_err(mel, frontend_kernel.power_mel_reference(w, shipped))
+        if not mel_err <= TOL:
+            fail(f"spectral kernel disagrees with its plain version at B={b}: {mel_err:.3e}")
         lib_err = rel_err(library(w), frontend_kernel.extract_features_fused(w, shipped))
         mel_bytes = 4 * b * n_mels * t_frames
         feat_bytes = 4 * b * shipped.num_features * t_frames
+        bytes_a = 4 * b * shipped.segment_samples + mel_bytes + table_a
         spectral = dict(
             ms=cuda_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), iters),
             plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, shipped), iters),
             library_ms=cuda_ms(lambda: library_mel(w), iters),
-            **bound(b * flops_a, 4 * b * shipped.segment_samples + mel_bytes + table_a),
+            precision="3xTF32",
+            **bound(b * flops_a, bytes_a, PEAK_TF32_FLOPS),
+            bound_fp32_ms=bound(b * flops_a, bytes_a)["bound_ms"],
         )
         epilogue = dict(
             ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), iters),
@@ -217,19 +263,26 @@ def main() -> None:
             library_ms=cuda_ms(lambda: library(w), iters),
         )
         timing[b] = dict(spectral=spectral, epilogue=epilogue)
+        print(f"spectral kernel vs plain at B={b}: max-relative {mel_err:.3e}", flush=True)
         for part, tm in (("spectral", spectral), ("epilogue", epilogue)):
             lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
+            fp32 = (
+                f"; FP32 CUDA-core bound {tm['bound_fp32_ms']:.4f} ms "
+                f"({100 * tm['bound_fp32_ms'] / tm['ms']:.1f}%)"
+                if "bound_fp32_ms" in tm else ""
+            )
             print(
                 f"times {part} B={b}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
                 f"library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
-                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound",
+                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{fp32}",
                 flush=True,
             )
         print(
             f"times pair B={b}: kernels {pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms, "
             f"library {pair['library_ms']:.4f} ms (torch.stft + matmuls + torch epilogue; "
-            f"vs kernels max-relative {lib_err:.2e}); operations {b * (flops_a + flops_b) / 1e9:.3f} "
-            f"GFLOP at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s FP32, bytes at "
+            f"vs kernels max-relative {lib_err:.2e}); operations {b * flops_a / 1e9:.3f} "
+            f"GFLOP spectral at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (FP32 "
+            f"{PEAK_FP32_FLOPS / 1e12:.0f}), {b * flops_b / 1e9:.3f} GFLOP epilogue, bytes at "
             f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s",
             flush=True,
         )
@@ -431,6 +484,7 @@ def main() -> None:
         }
         for part in ("spectral", "epilogue")
     ]
+    kernels[0]["max_rel_vs_3xtf32_model"] = split_err
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -2,50 +2,92 @@
 // feature image (B, num_features, num_frames), in two launches.
 //
 // Replaces cough_detector_tpu/ops/pallas/frontend_kernel.py::_kernel and
-// its launcher _run (the repo's only Pallas kernel): reflect-padded
-// framing, windowed band-limited rDFT, power, mel projection, log-mel,
-// then the dB branch (clamp to per-clip max - 80, (db+80)/80 in [0, 1]) or
-// the PCEN branch (10-tap zero-padded smoother, compressive formula,
-// per-clip min-max), the DCT-II, the per-clip unbiased z-norm, deltas and
-// optional delta-deltas. Pre-emphasis, which _run applies before the pad,
-// is applied here while the waveform is staged.
+// its launcher _run (the repo's only Pallas kernel). Launch A
+// (spectral_kernel) does _kernel's steps 1-2 and _run's pre-emphasis and
+// reflect pad: framing, windowed band-limited rDFT, power, mel projection.
+// Launch B (epilogue_kernel) does the rest: log-mel, then the dB branch
+// (clamp to per-clip max - 80, (db+80)/80 in [0, 1]) or the PCEN branch
+// (10-tap zero-padded smoother, compressive formula, per-clip min-max), the
+// DCT-II, the per-clip unbiased z-norm, deltas and optional delta-deltas.
 //
-// Bound on an H100 SXM. Per clip of the shipped config (16000 samples,
-// 101 frames, n_fft 512 with a 400-tap window, 128 of 257 bins used,
-// 64 mels, 13 MFCCs) the work is about 22.5 MFLOP: the DFT over the
-// window's 400 nonzero taps 4*101*400*128 = 20.7 M, mel 2*101*128*64 =
-// 1.65 M, DCT 2*101*64*13 = 0.17 M. The bytes the pair must move are
-// about 100 KB (64 KB of waveform in, 36 KB of features out), plus the
-// power mel's round trip below. At 67 TFLOP/s FP32 (no tensor cores)
-// against 3.35 TB/s that is 0.34 us of arithmetic against 0.03 us of
-// memory: launch A is bound by FP32 operations, the DFT 92% of them.
-// Launch B does 0.17 MFLOP of DCT on 62 KB of traffic a clip: bound by
-// bytes.
+// Launch A: the DFT and the mel on the tensor cores, in 3xTF32.
+//  * Bound. Per clip of the shipped config (16000 samples, 101 frames,
+//    n_fft 512 with a 400-tap window, 128 of 257 bins used, 64 mels) the
+//    useful work is 22.3 MFLOP: the DFT over the window's 399 nonzero taps
+//    (20.6 M, 92%), the power and the mel (1.65 M), against 90 KB of bytes
+//    (64 KB of waveform in, 26 KB of power mel out). That is 45 ns a clip
+//    at the TF32 tensor-core peak (495 TFLOP/s) against 27 ns for the bytes
+//    at 3.35 TB/s: bound by operations. The kernel issues every product
+//    three times (below), so it reaches at most a third of that bound.
+//  * The DFT as a GEMM. M: the frames of one clip, padded from 101 to 112
+//    rows (7 MMA tiles of 16), one block per (112-frame tile, clip): the
+//    clip's waveform is staged once and read from device memory once, and
+//    the 11 pad rows cost 10% of the MMAs. K: the window's support, in
+//    k-steps of 8 taps. N: the used bins' cos and -sin columns, interleaved
+//    (column 2k = cos k, 2k+1 = -sin k), so that a thread's m16n8
+//    accumulator fragment holds re and im of one bin in c0/c1 (and c2/c3)
+//    and the power forms in registers. N runs in passes of 256 columns:
+//    one at the shipped config, three at f_max = 8 kHz (257 bins). Eight
+//    warps tile a pass 2 x 4: row tiles 0-3 or 4-6, 64 columns each, so
+//    each A fragment feeds 24 or more MMAs and the two warps that share a
+//    scheduler own different rows.
+//  * A operand. Frames overlap (hop 160 < 400 taps), so A is no plain
+//    matrix: each thread gathers its fragment from the tile's waveform span
+//    in shared memory at row*hop + tap and splits it in registers into
+//    hi = rna(x) and lo = rna(x - hi), rna being cvt.rna.tf32.f32's
+//    rounding done in two integer instructions (raw f32 bits fed to a .tf32
+//    MMA would be truncated, and hi + lo would not rebuild x). The span is
+//    stored with `skew` pad floats after every hop samples, so that the 8
+//    rows of a fragment fall in distinct banks (hop 160 is a multiple of
+//    32).
+//  * B operand. The tables (windowed DFT, then mel filterbank) are split
+//    into hi/lo TF32 on the host once per config and stored in mma.sync
+//    fragment order: per k-step, n-tile and lane, the four floats one
+//    thread needs (hi and lo of its two k rows), one 16-byte shared load.
+//    The DFT table is 800 KB at the shipped config: too large for shared
+//    memory, small enough that every block finds it in L2. It streams
+//    through a ring of 16 KB slots (one DFT k-step each, 2-4 deep as shared
+//    memory allows), then the filterbank through the same ring. Each chunk
+//    lands by one bulk asynchronous copy (TMA, no tensor map: a chunk is
+//    contiguous) on an mbarrier, and the last warp to release a slot refills
+//    it, so no warp waits for another: a barrier per k-step kept all warps
+//    in the same phase, loading fragments together while the tensor cores
+//    idled.
+//  * No branch or predicate in the k-step loop: a guard around each MMA
+//    (live row tile, live column) halved the MMAs' issue rate. Every row
+//    tile is computed, pad rows too; pad columns of the table are zeros;
+//    the row-tile count (4 or 3) and the mel width are template constants.
+//  * 3xTF32: per k-step, acc += a_lo*b_hi, acc += a_hi*b_lo, then
+//    acc += a_hi*b_hi, into one FP32 accumulator; lo*lo is dropped. One
+//    TF32 pass keeps 11 significant bits of each operand, and the DFT
+//    cancels (its terms sum to far more than its result), so one pass
+//    breaks the 1e-3 feature budget of docs/PARITY.md on every config the
+//    tests hold; three hold it. The figures are in PERF.md, from
+//    ops/frontend_kernel.py::power_mel_split_reference, the CPU model of
+//    this arithmetic (tests/test_torch_frontend.py). Three TF32 passes cost
+//    the tensor-core time of the TPU kernel's six bf16 ones and need one
+//    split per operand.
+//  * Power and mel. The power tile (112 rows x the used bins rounded up to
+//    8) goes to shared memory; the mel GEMM (K = bins, N = mels) then runs
+//    on the tensor cores in 3xTF32 too, one warp per 16-row tile. Output
+//    (B, n_mels, n_frames), frames fastest, the layout launch B reads.
+//  * MMA instruction: mma.sync.aligned.m16n8k8 .tf32, Ampere's warp-level
+//    MMA, which Hopper keeps, not wgmma: its A fragment comes from
+//    registers, where the gather and the split leave it, and it beats the
+//    cuFFT yardstick at both batch sizes the smoke run times. Its own
+//    ceiling on the card is below the TF32 peak, and the DFT loop runs
+//    near it (PERF.md, tools/spectral_probe.py).
 //
-// Design.
-//  * Per-clip reductions (dB max, PCEN min/max, MFCC mean/variance) span
-//    all frames of a clip, which do not fit one block's registers once
-//    the DFT is spread over enough blocks to fill 132 SMs. So launch A
-//    (spectral_kernel) runs over (frame tile, clip) and writes the power
-//    mel, and launch B (epilogue_kernel) takes one clip per block and
-//    does everything after the mel.
-//  * Launch A stages its tile's waveform span in shared memory with
-//    reflect indexing (and pre-emphasis): frames never reach device
-//    memory. Each thread owns one DFT bin and FPT frames and accumulates
-//    re/im in registers with FP32 FMAs over the window's support only
-//    (the padded Hann window is zero outside it). The windowed cos/sin
-//    tables are read through the read-only cache: every block of a tile
-//    row reads the same ones, so they stay in L2.
-//  * Band-limiting: the tables are cut to n_used bins, the filterbank's
-//    last nonzero row, so bins that feed no mel band are never computed.
-//  * Precision: plain FP32 FMAs on the CUDA cores. The bf16 operand
-//    splitting of the TPU kernel exists only for the TPU's matrix unit.
-//  * Launch B writes (B, F, T), the reference layout, directly.
+// What a later PR does next on launch A: wgmma (m64nNk8 .tf32, A from
+// registers, B from swizzled shared tiles) for the tensor cores' full
+// rate; the DFT table shared across the blocks of a cluster by multicast;
+// then the power mel's round trip through device memory between the
+// launches, about 52 KB a clip.
 //
-// What a later PR removes first: the power mel's round trip through
-// device memory between the launches, about 52 KB per clip (26 KB
-// written, 26 KB read) against 64 KB of waveform in. Next, the DFT on
-// the tensor cores (wgmma with split operands) instead of FP32 FMAs.
+// Launch B: one block per clip, because the per-clip reductions (dB max,
+// PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
+// cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip). It works in
+// (feature, time) layout and writes (B, F, T), the reference layout.
 //
 // Interface: plain C, loaded with ctypes, one function per launch. The
 // caller allocates every buffer; each function launches its kernel on
@@ -54,17 +96,171 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBinsPerPass = 128;  // threads along the bin axis
-constexpr int kGroups = 2;         // frame groups per block
-constexpr int kFramesPerThread = 13;
-constexpr int kTileFrames = kGroups * kFramesPerThread;  // 26: 4 tiles cover 101
-constexpr int kThreadsA = kBinsPerPass * kGroups;        // 256
+constexpr int kWarpsA = 8;
+constexpr int kThreadsA = 32 * kWarpsA;             // 256
+constexpr int kMTiles = 7;                          // 16-row MMA tiles a block owns
+constexpr int kRows = 16 * kMTiles;                 // 112 frames
+constexpr int kNGroups = 4;                         // warps along N; 2 along M
+constexpr int kMTilesWarp = 4;                      // row tiles a warp owns (4 + 3)
+constexpr int kNTilesWarp = 8;                      // 8-column n-tiles a warp owns
+constexpr int kPassCols = 8 * kNTilesWarp * kNGroups;  // 256 columns, 128 bins
+constexpr int kSlotFloats = (kPassCols / 8) * 32 * 4;  // one DFT k-step: 16 KB
+constexpr int kMaxSlots = 4;
+constexpr int kStageBatch = 24;                     // staging loads in flight
+constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on sm_90
 constexpr int kThreadsB = 256;
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
+
+// Launch A's shared memory, in floats: the ring, the waveform span and the
+// power tile. Each region starts 16-byte aligned.
+struct LayoutA {
+  int skew, rs, span, ps, pow;
+
+  __host__ __device__ LayoutA(int hop, int kpad, int n_bins) {
+    skew = ((4 - hop) % 8 + 8) % 8;  // hop + skew = 4 (mod 8): 8 rows, 8 banks
+    rs = hop + skew;
+    const int len = (kRows - 1) * hop + kpad;  // samples the tile reads
+    span = ((len / hop + 1) * rs + 3) / 4 * 4;
+    ps = n_bins + 4;  // n_bins is a multiple of 8: ps = 4 (mod 8)
+    pow = kRows * ps;
+  }
+
+  // The regions, then kMaxSlots mbarriers (8 bytes) and counters (4 bytes).
+  __host__ __device__ size_t bytes(int n_slots) const {
+    return sizeof(float) * ((size_t)n_slots * kSlotFloats + span + pow) + 12 * kMaxSlots;
+  }
+};
+
+// x rounded to TF32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 for every finite x, in two integer instructions (the
+// cvt's NaN and overflow handling costs four more, and nothing here is
+// infinite).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));  // exact: hi is x rounded
+}
+
+// Not volatile: the compiler may interleave independent MMAs.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// Term `term` of the 3xTF32 product into c: 0 a_lo*b_hi, 1 a_hi*b_lo,
+// 2 a_hi*b_hi (the two small cross terms first). b holds the thread's B
+// fragment as (hi k, hi k+4, lo k, lo k+4). Callers issue term 0 for every
+// tile, then term 1, then term 2, so that no MMA waits on the one before.
+__device__ __forceinline__ void mma_term(int term, float (&c)[4], const uint32_t (&a_hi)[4],
+                                         const uint32_t (&a_lo)[4], float4 b) {
+  if (term == 0) mma_tf32(c, a_lo, b.x, b.y);
+  else if (term == 1) mma_tf32(c, a_hi, b.z, b.w);
+  else mma_tf32(c, a_hi, b.x, b.y);
+}
+
+// A fragment of rows r0 (g) and r1 (g + 8) at k offsets k0 (t), k1 (t + 4).
+__device__ __forceinline__ void load_split_a(const float* r0, const float* r1, int k0,
+                                             int k1, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(r0[k0], hi[0], lo[0]);
+  split_tf32(r1[k0], hi[1], lo[1]);
+  split_tf32(r0[k1], hi[2], lo[2]);
+  split_tf32(r1[k1], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (int spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == (1 << 24)) __trap();  // a copy that never lands must not hang the card
+  }
+}
+
+// The ring of table chunks launch A streams: the DFT table's k-steps, pass
+// by pass (kSlotFloats each), then the filterbank in chunks of whole mel
+// k-steps. Chunk q goes to slot q % n_slots by one bulk asynchronous copy
+// (TMA without a tensor map: a chunk is contiguous), which completes on
+// the slot's `full` mbarrier. The warp that releases a slot last refills
+// it, so a warp waits only for its data, never for the other warps.
+struct Ring {
+  float* slots;
+  uint64_t* full;  // per slot: one arrival (the filling thread) + the bytes
+  int* released;   // per slot: warps done with its current chunk
+  const float* dft;
+  const float* fb;
+  int n_slots, n_dft, fb_chunk, fb_total, n;
+
+  // Issue chunk q into its slot (nothing past the last chunk). One thread.
+  __device__ void fill(int q) const {
+    if (q >= n) return;
+    const int slot = q % n_slots;
+    const float* src = dft + (size_t)q * kSlotFloats;
+    int len = kSlotFloats;
+    if (q >= n_dft) {
+      const int off = (q - n_dft) * fb_chunk;
+      src = fb + off;
+      len = min(fb_chunk, fb_total - off);
+    }
+    const uint32_t bar = smem_addr(full + slot);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(4 * len) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        ::"r"(smem_addr(slots + slot * kSlotFloats)), "l"(src), "r"(4 * len), "r"(bar)
+        : "memory");
+  }
+
+  // Chunk q, in `slot` and its `parity`-th use (q / n_slots), has landed.
+  __device__ const float* wait(int slot, int parity) const {
+    mbar_wait(full + slot, parity);
+    return slots + slot * kSlotFloats;
+  }
+
+  // The calling warp is done with chunk q in `slot`; the last of the
+  // block's warps to say so refills the slot with chunk q + n_slots.
+  __device__ void release(int q, int slot) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      __threadfence_block();
+      if (atomicAdd(released + slot, 1) == kWarpsA - 1) {
+        atomicExch(released + slot, 0);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // reads before the copy
+        fill(q + n_slots);
+      }
+    }
+  }
+
+  // Next chunk: advance slot, and the parity when the slot index wraps.
+  __device__ static void next(int& q, int& slot, int& parity, int n_slots) {
+    ++q;
+    if (++slot == n_slots) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+};
 
 __device__ __forceinline__ float warp_reduce(float v, int op) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -94,78 +290,195 @@ __device__ float block_reduce(float v, int op, float* scratch) {
   return out;
 }
 
-// Launch A. grid (n_tiles, batch), kThreadsA threads.
-// Shared: the tile's waveform span, then the power tile (kTileFrames rows
-// of `pstride` floats; pstride is odd so the mel pass reads conflict-free).
-__global__ void spectral_kernel(
-    const float* __restrict__ wave, int n_samples, int n_frames, int n_fft,
-    int hop, int j0, int j1, const float* __restrict__ cosm,
-    const float* __restrict__ sinm, int n_used,
-    const float* __restrict__ fb, int n_mels, int use_pre, float pre_coef,
-    float* __restrict__ mel_out) {
-  extern __shared__ float smem[];
-  const int span = (kTileFrames - 1) * hop + n_fft;
-  const int pstride = n_used | 1;
-  float* wave_s = smem;
-  float* pow_s = smem + span;
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTileFrames;
-  const int tid = threadIdx.x;
-  const float* x = wave + (size_t)b * n_samples;
-  const int half = n_fft / 2;
-
-  // Stage the span with reflect padding (numpy "reflect": no edge repeat).
-  for (int i = tid; i < span; i += blockDim.x) {
-    int q = t0 * hop + i - half;
-    q = q < 0 ? -q : q;
-    q = q >= n_samples ? 2 * (n_samples - 1) - q : q;
-    float v = 0.0f;  // only frames past n_frames read outside the clip
-    if (q >= 0 && q < n_samples) {
-      v = x[q];
-      if (use_pre && q > 0) v = __fsub_rn(v, __fmul_rn(pre_coef, x[q - 1]));
+// One DFT pass for a warp that owns kM row tiles from mt0 and the 64
+// columns from col0: the pass's k-steps through the ring, then the power of
+// its bins below n_bins into the power tile. No branch in the k-step loop
+// (a branch or predicate between MMAs throttles their issue): every row
+// tile is computed, pad rows too, and the table's pad columns are zeros.
+// The thread's taps 8s + t and 8s + t + 4 sit at span offsets k0 and k1,
+// plus skew once per hop crossed (hop >= 8: at most one per k-step).
+template <int kM>
+__device__ __forceinline__ void dft_pass(const Ring& ring, int& q, int& slot, int& parity,
+                                         const float* span, const LayoutA& lay, int hop,
+                                         int n_ksteps, int mt0, int col0, int n_bins,
+                                         float* pow_s) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int boff = (col0 % kPassCols) * 4 + lane;  // float4s into a slot
+  const float* rows = span + (16 * mt0 + g) * lay.rs;
+  float acc[kM][kNTilesWarp][4] = {};
+  int k0 = t, k1 = t + 4, next0 = hop, next1 = hop;
+  for (int s = 0; s < n_ksteps; ++s) {
+    const float4* bsrc = reinterpret_cast<const float4*>(ring.wait(slot, parity)) + boff;
+    float4 bfrag[kNTilesWarp];
+#pragma unroll
+    for (int j = 0; j < kNTilesWarp; ++j) bfrag[j] = bsrc[32 * j];
+    uint32_t a_hi[kM][4], a_lo[kM][4];
+#pragma unroll
+    for (int i = 0; i < kM; ++i) {
+      const float* r0 = rows + 16 * i * lay.rs;
+      load_split_a(r0, r0 + 8 * lay.rs, k0, k1, a_hi[i], a_lo[i]);
     }
-    wave_s[i] = v;
+#pragma unroll
+    for (int term = 0; term < 3; ++term)
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+#pragma unroll
+        for (int j = 0; j < kNTilesWarp; ++j)
+          mma_term(term, acc[i][j], a_hi[i], a_lo[i], bfrag[j]);
+    ring.release(q, slot);  // the MMAs above have consumed bfrag
+    Ring::next(q, slot, parity, ring.n_slots);
+    const int kk = 8 * (s + 1) + t;  // the taps of the next k-step
+    k0 += 8;
+    k1 += 8;
+    if (kk >= next0) { k0 += lay.skew; next0 += hop; }
+    if (kk + 4 >= next1) { k1 += lay.skew; next1 += hop; }
   }
-  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNTilesWarp; ++j) {
+      const int bin = (col0 + 8 * j) / 2 + t, row = 16 * (mt0 + i) + g;
+      if (bin >= n_bins) continue;
+      pow_s[row * lay.ps + bin] = acc[i][j][0] * acc[i][j][0] + acc[i][j][1] * acc[i][j][1];
+      pow_s[(row + 8) * lay.ps + bin] =
+          acc[i][j][2] * acc[i][j][2] + acc[i][j][3] * acc[i][j][3];
+    }
+  }
+}
 
-  const int g = tid / kBinsPerPass;
-  const float* frame0 = wave_s + g * kFramesPerThread * hop;
-  for (int k0 = 0; k0 < n_used; k0 += kBinsPerPass) {
-    const int k = k0 + tid % kBinsPerPass;
-    if (k < n_used) {
-      float re[kFramesPerThread], im[kFramesPerThread];
+// Launch A. grid (row tiles, batch), kThreadsA threads, LayoutA's shared
+// memory with n_slots ring slots. dft: the fragment-ordered hi/lo DFT
+// table, [pass][k-step][32 n-tiles][32 lanes][4]; fb: the fragment-ordered
+// hi/lo filterbank, [mel k-step][kMelNT n-tiles][32 lanes][4], zero past
+// n_mels. n_bins is n_used rounded up to 8, kpad the window's support
+// rounded up to 8 taps.
+template <int kMelNT>
+__global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
+    const float* __restrict__ wave, int n_samples, int n_frames, int n_fft,
+    int hop, int j0, int kpad, const float* __restrict__ dft, int n_bins,
+    const float* __restrict__ fb, int n_mels, int use_pre, float pre_coef,
+    int n_slots, float* __restrict__ mel_out) {
+  extern __shared__ float4 smem4[];
+  const LayoutA lay(hop, kpad, n_bins);
+  float* slots = reinterpret_cast<float*>(smem4);
+  float* span = slots + n_slots * kSlotFloats;
+  float* pow_s = span + lay.span;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y, t0 = blockIdx.x * kRows;
+  const int n_ksteps = kpad / 8;
+  const int n_passes = (2 * n_bins + kPassCols - 1) / kPassCols;
+  constexpr int kFbChunkKs = 32 / kMelNT;  // mel k-steps in one ring slot
+  const int mel_ks = n_bins / 8;
+  Ring ring;
+  ring.slots = slots;
+  ring.full = reinterpret_cast<uint64_t*>(pow_s + lay.pow);
+  ring.released = reinterpret_cast<int*>(ring.full + kMaxSlots);
+  ring.dft = dft;
+  ring.fb = fb;
+  ring.n_slots = n_slots;
+  ring.n_dft = n_passes * n_ksteps;
+  ring.fb_chunk = kFbChunkKs * kMelNT * 128;
+  ring.fb_total = mel_ks * kMelNT * 128;
+  ring.n = ring.n_dft + (mel_ks + kFbChunkKs - 1) / kFbChunkKs;
+
+  // 1. Start the ring, then stage the span while the first chunks land:
+  // reflect padding (numpy "reflect": no edge repeat) and pre-emphasis,
+  // kStageBatch loads in flight per thread.
+  if (tid == 0) {
+    for (int i = 0; i < n_slots; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(ring.full + i))
+                   : "memory");
+      ring.released[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int q = 0; q < n_slots; ++q) ring.fill(q);
+  }
+  {
+    const float* x = wave + (size_t)b * n_samples;
+    const int base = t0 * hop + j0 - n_fft / 2;
+    const int len = (kRows - 1) * hop + kpad;
+    const int dseg = kThreadsA / hop, doff = kThreadsA % hop;
+    int seg = tid / hop, off = tid % hop;  // sample i sits at seg * rs + off
+    for (int i0 = tid; i0 < len; i0 += kStageBatch * kThreadsA) {
+      float v[kStageBatch];
 #pragma unroll
-      for (int f = 0; f < kFramesPerThread; ++f) re[f] = im[f] = 0.0f;
-      for (int j = j0; j < j1; ++j) {
-        const float c = __ldg(cosm + (size_t)j * n_used + k);
-        const float s = __ldg(sinm + (size_t)j * n_used + k);
-#pragma unroll
-        for (int f = 0; f < kFramesPerThread; ++f) {
-          const float v = frame0[f * hop + j];
-          re[f] = fmaf(v, c, re[f]);
-          im[f] = fmaf(v, s, im[f]);
+      for (int u = 0; u < kStageBatch; ++u) {
+        const int i = i0 + u * kThreadsA;
+        int q = base + i;
+        q = q < 0 ? -q : q;
+        q = q >= n_samples ? 2 * (n_samples - 1) - q : q;
+        v[u] = 0.0f;  // only pad rows and pad taps read outside the clip
+        if (i < len && q >= 0 && q < n_samples) {
+          v[u] = x[q];
+          if (use_pre && q > 0) v[u] = __fsub_rn(v[u], __fmul_rn(pre_coef, x[q - 1]));
         }
       }
 #pragma unroll
-      for (int f = 0; f < kFramesPerThread; ++f) {
-        pow_s[(g * kFramesPerThread + f) * pstride + k] =
-            re[f] * re[f] + im[f] * im[f];
+      for (int u = 0; u < kStageBatch; ++u) {
+        if (i0 + u * kThreadsA < len) span[seg * lay.rs + off] = v[u];
+        seg += dseg;
+        off += doff;
+        if (off >= hop) {
+          off -= hop;
+          ++seg;
+        }
       }
     }
   }
-  __syncthreads();
 
-  // Mel projection; output (B, n_mels, n_frames), frames fastest.
-  for (int o = tid; o < kTileFrames * n_mels; o += blockDim.x) {
-    const int tl = o % kTileFrames, m = o / kTileFrames;
-    const int t = t0 + tl;
-    if (t >= n_frames) continue;
-    const float* p = pow_s + tl * pstride;
-    float acc = 0.0f;
-    for (int k = 0; k < n_used; ++k)
-      acc = fmaf(p[k], __ldg(fb + (size_t)k * n_mels + m), acc);
-    mel_out[((size_t)b * n_mels + m) * n_frames + t] = acc;
+  __syncthreads();  // the span and the ring's barriers are ready
+
+  // 2. DFT. Warp w owns row tiles 4 * (w / 4) + [0, 4 or 3) and the 64
+  // columns (w % 4) * 64 + [0, 64) of each pass: the two warps that share a
+  // scheduler (w and w + 4) own different rows.
+  int q = 0, slot = 0, parity = 0;  // the next chunk, its slot and parity
+  const int mt0 = kMTilesWarp * (warp / kNGroups);
+  for (int p = 0; p < n_passes; ++p) {
+    const int col0 = p * kPassCols + (warp % kNGroups) * 8 * kNTilesWarp;
+    if (mt0 == 0)
+      dft_pass<kMTilesWarp>(ring, q, slot, parity, span, lay, hop, n_ksteps, mt0, col0,
+                            n_bins, pow_s);
+    else
+      dft_pass<kMTiles - kMTilesWarp>(ring, q, slot, parity, span, lay, hop, n_ksteps, mt0,
+                                      col0, n_bins, pow_s);
+  }
+  __syncthreads();  // the power tile is complete
+
+  // 3. Mel: warp w takes row tile w (warp 7 only keeps the ring going).
+  const bool mel_live = warp < kMTiles && 16 * warp < n_frames - t0;
+  const float* p0 = pow_s + (16 * warp + g) * lay.ps + t;
+  float macc[kMelNT][4] = {};
+  for (int c = 0; q < ring.n; ++c) {
+    const float4* bsrc = reinterpret_cast<const float4*>(ring.wait(slot, parity)) + lane;
+    for (int sl = 0; mel_live && sl < kFbChunkKs; ++sl) {
+      const int s = c * kFbChunkKs + sl;
+      if (s >= mel_ks) break;
+      uint32_t a_hi[4], a_lo[4];
+      load_split_a(p0, p0 + 8 * lay.ps, 8 * s, 8 * s + 4, a_hi, a_lo);
+      float4 bfrag[kMelNT];
+#pragma unroll
+      for (int j = 0; j < kMelNT; ++j) bfrag[j] = bsrc[(sl * kMelNT + j) * 32];
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int j = 0; j < kMelNT; ++j) mma_term(term, macc[j], a_hi, a_lo, bfrag[j]);
+    }
+    ring.release(q, slot);
+    Ring::next(q, slot, parity, n_slots);
+  }
+  if (!mel_live) return;
+  const int r0 = t0 + 16 * warp + g, r1 = r0 + 8;
+  float* out = mel_out + (size_t)b * n_mels * n_frames;
+#pragma unroll
+  for (int j = 0; j < kMelNT; ++j) {
+    const int m = 8 * j + 2 * t;
+    for (int h = 0; h < 2; ++h) {
+      if (m + h >= n_mels) continue;
+      if (r0 < n_frames) out[(size_t)(m + h) * n_frames + r0] = macc[j][h];
+      if (r1 < n_frames) out[(size_t)(m + h) * n_frames + r1] = macc[j][2 + h];
+    }
   }
 }
 
@@ -284,12 +597,10 @@ int set_smem(const void* fn, size_t bytes) {
 
 extern "C" {
 
-// Shared-memory bytes each launch needs; the wrapper refuses configs
-// past the card's 227 KB per block.
-size_t cdt_frontend_smem_a(int n_fft, int hop, int n_used) {
-  return sizeof(float) *
-         ((size_t)(kTileFrames - 1) * hop + n_fft +
-          (size_t)kTileFrames * (n_used | 1));
+// Shared-memory bytes each launch needs (launch A: with the smallest ring,
+// two slots); the wrapper refuses configs past the card's 227 KB per block.
+size_t cdt_frontend_smem_a(int hop, int kpad, int n_bins) {
+  return LayoutA(hop, kpad, n_bins).bytes(2);
 }
 
 size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc) {
@@ -297,22 +608,34 @@ size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc) {
          (2 * (size_t)n_mels * n_frames + 2 * (size_t)n_mfcc * n_frames + 33);
 }
 
-// Launch A. wave (B, n_samples); cosm/sinm (n_fft, n_used);
-// fb (n_used, n_mels); mel (B, n_mels, n_frames). All float32,
-// contiguous, on one device.
+// Launch A. wave (B, n_samples); dft and fb: the fragment-ordered hi/lo
+// tables (ops/frontend_kernel.py::_fragments), fb with mel_tiles (4, 8 or
+// 16) n-tiles of 8 mels; mel (B, n_mels, n_frames). All float32,
+// contiguous, on one device. The ring gets as many slots (up to four) as
+// shared memory holds.
 int cdt_frontend_spectral(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft,
-    int hop, int j0, int j1, const float* cosm, const float* sinm,
-    int n_used, const float* fb, int n_mels, int use_pre, float pre_coef,
-    float* mel, cudaStream_t stream) {
-  const size_t smem = cdt_frontend_smem_a(n_fft, hop, n_used);
-  const int err = set_smem((const void*)spectral_kernel, smem);
+    int hop, int j0, int kpad, const float* dft, int n_bins, const float* fb,
+    int n_mels, int mel_tiles, int use_pre, float pre_coef, float* mel,
+    cudaStream_t stream) {
+  if (n_mels > 8 * mel_tiles || kpad % 8 || n_bins % 8 || hop < 8)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = mel_tiles == 4   ? (const void*)spectral_kernel<4>
+                   : mel_tiles == 8 ? (const void*)spectral_kernel<8>
+                   : mel_tiles == 16 ? (const void*)spectral_kernel<16>
+                                     : nullptr;
+  if (!fn) return (int)cudaErrorInvalidValue;
+  const LayoutA lay(hop, kpad, n_bins);
+  int n_slots = kMaxSlots;
+  while (n_slots > 2 && lay.bytes(n_slots) > kMaxSmem) --n_slots;
+  const size_t smem = lay.bytes(n_slots);
+  const int err = set_smem(fn, smem);
   if (err) return err;
-  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, batch);
-  spectral_kernel<<<grid, kThreadsA, smem, stream>>>(
-      wave, n_samples, n_frames, n_fft, hop, j0, j1, cosm, sinm, n_used, fb,
-      n_mels, use_pre, pre_coef, mel);
-  return (int)cudaGetLastError();
+  const dim3 grid((n_frames + kRows - 1) / kRows, batch);
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &dft,
+                  &n_bins, &fb, &n_mels, &use_pre, &pre_coef, &n_slots, &mel};
+  const cudaError_t launched = cudaLaunchKernel(fn, grid, dim3(kThreadsA), args, smem, stream);
+  return launched ? (int)launched : (int)cudaGetLastError();
 }
 
 // Launch B. mel (B, n_mels, n_frames); dct (n_mels, n_mfcc);

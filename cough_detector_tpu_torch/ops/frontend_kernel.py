@@ -6,14 +6,17 @@ every in-kernel branch of the Pallas kernel: the dB and PCEN mel branches,
 MFCCs with deltas and optional delta-deltas, and pre-emphasis.
 
 `extract_features_fused` runs the pair through its two wrappers:
-`power_mel_fused` (launch A: framing, windowed DFT, power, mel) and
-`mel_epilogue_fused` (launch B: log, dB or PCEN, DCT, z-norm, deltas). On
-a CUDA tensor each launches its kernel or raises, and adds one to its
-counter, `SPECTRAL_LAUNCHES` or `EPILOGUE_LAUNCHES`; on a CPU tensor each
-runs its plain version (`power_mel_reference`, `mel_epilogue_reference`):
-the same arithmetic in plain torch ops, with the band-limited windowed DFT
-as two FP32 matmuls and the shared epilogue of ops/frontend.py.
-`frontend_kernel_reference` chains the two plain versions.
+`power_mel_fused` (launch A: framing, windowed DFT, power, mel, on the
+tensor cores in 3xTF32) and `mel_epilogue_fused` (launch B: log, dB or
+PCEN, DCT, z-norm, deltas). On a CUDA tensor each launches its kernel or
+raises, and adds one to its counter, `SPECTRAL_LAUNCHES` or
+`EPILOGUE_LAUNCHES`; on a CPU tensor each runs its plain version
+(`power_mel_reference`, `mel_epilogue_reference`): the same function in
+plain torch ops, with the band-limited windowed DFT as two FP32 matmuls and
+the shared epilogue of ops/frontend.py. `frontend_kernel_reference` chains
+the two plain versions. `power_mel_split_reference` models launch A's
+TF32 operand splitting on any device; tests and chip_smoke.py hold the
+kernel and the JAX package against it.
 
 Unlike the JAX launcher, a config the kernel does not cover (no MFCC, or a
 waveform length other than segment_samples) raises ValueError instead of
@@ -42,6 +45,8 @@ EPILOGUE_LAUNCHES = 0
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _MAX_GRID_Y = 65535
+_MEL_TILES = (4, 8, 16)  # launch A's mel widths, in n-tiles of 8 mels
+_PASS_COLS = 256  # launch A's DFT columns per pass (re and im of 128 bins)
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -72,27 +77,75 @@ class _Constants(NamedTuple):
     n_used: int        # DFT bins that feed any mel band
     j0: int            # window support [j0, j1) within the frame
     j1: int
+    kpad: int          # j1 - j0 rounded up to a k-step of 8 taps
+    n_bins: int        # n_used rounded up to 8 (launch A's power columns)
+    mel_tiles: int     # n_mels in n-tiles of 8, rounded up to _MEL_TILES
+                       # (0: more mels than launch A takes)
+    dft: torch.Tensor  # launch A's DFT table, fragment order, per pass
+    fb_frags: torch.Tensor  # launch A's filterbank, fragment order
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as `cvt.rna.tf32.f32` rounds it (to nearest,
+    ties away from zero): add 0x1000 to the bits and clear the low 13."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple:
+    """hi + lo ≈ x, each a TF32 value; x - hi is exact in float32."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _fragments(m: np.ndarray) -> torch.Tensor:
+    """The hi/lo TF32 split of a (K, N) matrix, K and N multiples of 8, in
+    the order launch A reads its B fragments (mma.sync m16n8k8, .col B):
+    (K/8, N/8, 32, 4), where k-step s, n-tile j and lane 4g + t hold
+    (hi, hi, lo, lo) of m[8s + t, 8j + g] and m[8s + t + 4, 8j + g]."""
+    k, n = m.shape
+    v = torch.from_numpy(np.ascontiguousarray(m, np.float32))
+    v = v.reshape(k // 8, 2, 4, n // 8, 8).permute(0, 3, 4, 2, 1)  # s j g t half
+    hi, lo = _split(v)
+    return torch.cat([hi, lo], dim=-1).reshape(k // 8, n // 8, 32, 4)
 
 
 @functools.lru_cache(maxsize=16)
 def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     """Band-limited tables: bins past the filterbank's last nonzero row feed
     no mel band, so the DFT stops there (128 of 257 bins at f_max=4 kHz).
-    No rounding up: the kernel has no lane width to fill."""
+    Launch A's tables are split into hi/lo TF32 here, once per config:
+    the DFT over the window's support [j0, j0 + kpad), its cos and -sin
+    columns interleaved bin by bin and cut into passes of 256 columns (zero
+    past n_used), and the filterbank padded with zeros to n_bins rows and
+    8 * mel_tiles mels."""
     c, s = filters.dft_matrices(cfg.n_fft, cfg.win_length)
     fb = filters.mel_filterbank(
         cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max
     )
     n_used = int(np.max(np.nonzero(np.any(fb != 0, axis=1))[0])) + 1
     support = np.nonzero(np.any(c != 0, axis=1))[0]
+    j0, j1 = int(support[0]), int(support[-1]) + 1
     dct = filters.dct_matrix(cfg.n_mfcc, cfg.n_mels)
+
+    kpad, n_bins = -(-(j1 - j0) // 8) * 8, -(-n_used // 8) * 8
+    n_passes = -(-2 * n_bins // _PASS_COLS)
+    table = np.zeros((kpad, n_passes * _PASS_COLS), np.float32)
+    table[: j1 - j0, 0 : 2 * n_used : 2] = c[j0:j1, :n_used]
+    table[: j1 - j0, 1 : 2 * n_used : 2] = s[j0:j1, :n_used]
+    dft = _fragments(table).reshape(kpad // 8, n_passes, -1).transpose(0, 1)
+    mel_tiles = next((m for m in _MEL_TILES if 8 * m >= cfg.n_mels), 0)
+    fb_pad = np.zeros((n_bins, 8 * (mel_tiles or -(-cfg.n_mels // 8))), np.float32)
+    fb_pad[:n_used, : cfg.n_mels] = fb[:n_used]
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
     return _Constants(
         dev(c[:, :n_used]), dev(s[:, :n_used]), dev(fb[:n_used]), dev(dct),
-        n_used, int(support[0]), int(support[-1]) + 1,
+        n_used, j0, j1, kpad, n_bins, mel_tiles,
+        dft.contiguous().reshape(-1).to(device),
+        _fragments(fb_pad).reshape(-1).to(device),
     )
 
 
@@ -107,22 +160,57 @@ def _check_mel(cfg: FeatureConfig, mel: torch.Tensor) -> None:
         )
 
 
-def power_mel_reference(
-    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
-) -> torch.Tensor:
-    """Launch A's arithmetic in plain torch ops: (B, segment_samples) →
-    power mel (B, n_mels, num_frames)."""
-    _check_config(cfg, waves.shape[-1])
-    k = _constants(cfg, waves.device)
+def _frames(waves: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(B, segment_samples) → (B, num_frames, n_fft): pre-emphasis, reflect
+    pad, framing."""
     if cfg.use_pre_emphasis:
         waves = pre_emphasis(waves, cfg.pre_emphasis_coef)
     half = cfg.n_fft // 2
-    frames = F.pad(waves, (half, half), mode="reflect").unfold(
+    return F.pad(waves, (half, half), mode="reflect").unfold(
         -1, cfg.n_fft, cfg.hop_length
     )
+
+
+def power_mel_reference(
+    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
+) -> torch.Tensor:
+    """Launch A's function in plain torch ops, FP32 matmuls:
+    (B, segment_samples) → power mel (B, n_mels, num_frames)."""
+    _check_config(cfg, waves.shape[-1])
+    k = _constants(cfg, waves.device)
+    frames = _frames(waves, cfg)
     re = frames @ k.cos
     im = frames @ k.sin
     return ((re * re + im * im) @ k.fb).transpose(1, 2)
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    if passes == 1:
+        return tf32_round(a) @ tf32_round(b)
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def power_mel_split_reference(
+    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig(), passes: int = 3
+) -> torch.Tensor:
+    """Launch A's arithmetic in plain torch ops: (B, segment_samples) →
+    power mel (B, n_mels, num_frames), the DFT and the mel each with TF32
+    operands. passes=3 is the kernel's 3xTF32: both operands split into
+    hi + lo (`tf32_round`), then a_lo·b_hi + a_hi·b_lo and a_hi·b_hi.
+    passes=1 is a single TF32 product. Every product of two TF32 values is
+    exact in float32, so only the sums round: the kernel adds the three
+    products k-step by k-step (8 taps) into one accumulator, this model sums
+    each over all of K first, a difference far below the 1e-3 budget. For
+    tests and chip_smoke.py; nothing on the main path calls it."""
+    _check_config(cfg, waves.shape[-1])
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    k = _constants(cfg, waves.device)
+    frames = _frames(waves, cfg)[..., k.j0 : k.j1]
+    re = _split_matmul(frames, k.cos[k.j0 : k.j1], passes)
+    im = _split_matmul(frames, k.sin[k.j0 : k.j1], passes)
+    return _split_matmul(re * re + im * im, k.fb, passes).transpose(1, 2)
 
 
 def mel_epilogue_reference(
@@ -151,7 +239,7 @@ def build() -> ctypes.CDLL:
     lib = kernel_build.load("frontend_kernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cdt_frontend_spectral.argtypes = [
-        p, i, i, i, i, i, i, i, p, p, i, p, i, i, f, p, p,
+        p, i, i, i, i, i, i, i, p, i, p, i, i, i, f, p, p,
     ]
     lib.cdt_frontend_spectral.restype = i
     lib.cdt_frontend_epilogue.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
@@ -211,14 +299,19 @@ def power_mel_fused(
     mel = torch.empty((b, n_mels, t), dtype=torch.float32, device=waves.device)
     if b == 0:
         return mel
-    lib = build()
     k = _constants(cfg, waves.device)
-    _check_smem(lib.cdt_frontend_smem_a(cfg.n_fft, cfg.hop_length, k.n_used), cfg)
+    if not k.mel_tiles or cfg.hop_length < 8:
+        raise ValueError(
+            f"the spectral kernel takes at most {8 * _MEL_TILES[-1]} mels and a hop "
+            f"of at least 8 samples, got {n_mels} and {cfg.hop_length}"
+        )
+    lib = build()
+    _check_smem(lib.cdt_frontend_smem_a(cfg.hop_length, k.kpad, k.n_bins), cfg)
     with torch.cuda.device(waves.device):
         err = lib.cdt_frontend_spectral(
             waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft,
-            cfg.hop_length, k.j0, k.j1, k.cos.data_ptr(), k.sin.data_ptr(),
-            k.n_used, k.fb.data_ptr(), n_mels, int(cfg.use_pre_emphasis),
+            cfg.hop_length, k.j0, k.kpad, k.dft.data_ptr(), k.n_bins,
+            k.fb_frags.data_ptr(), n_mels, k.mel_tiles, int(cfg.use_pre_emphasis),
             float(cfg.pre_emphasis_coef), mel.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

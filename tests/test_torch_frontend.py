@@ -252,3 +252,95 @@ def test_waveform_stages_vs_jax():
         frontend.pre_emphasis(torch.from_numpy(x), 0.97).numpy(),
         np.asarray(jax_frontend.pre_emphasis(x, 0.97)), atol=1e-6,
     )
+
+
+def _split_features(w: np.ndarray, cfg: FeatureConfig, passes: int = 3) -> np.ndarray:
+    """Features from launch A's TF32 arithmetic (power_mel_split_reference)
+    through launch B's plain version."""
+    mel = frontend_kernel.power_mel_split_reference(torch.from_numpy(w), cfg, passes)
+    return frontend_kernel.mel_epilogue_reference(mel, cfg).numpy()
+
+
+@pytest.mark.parametrize("target", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_split_model_vs_jax(jax_outputs, name, target):
+    """The CUDA spectral launch's 3xTF32 arithmetic holds the budget against
+    the JAX jnp chain and the Pallas kernel on the parity clips."""
+    w, jnp_out, pallas_out = jax_outputs(name)
+    want = jnp_out if target == "jnp" else pallas_out
+    got = _split_features(w, FeatureConfig(**CONFIGS[name]))
+    assert got.shape == want.shape
+    assert _rel(got, want) < TOL
+
+
+def test_split_model_sine_sweeps_in_band():
+    """The fixture batch with its sine sweeps, in band at f_max = 8 kHz: the
+    hardest input for the split (near-empty mel bands after the log)."""
+    w = synth.fixture_batch(8, 1.0, seed=3)
+    jcfg = JaxFeatureConfig(f_max=8000.0)
+    got = _split_features(w, FeatureConfig(f_max=8000.0))
+    assert _rel(got, np.asarray(jax_frontend.extract_features(w, jcfg))) < TOL
+    assert _rel(got, np.asarray(jax_fused(w, jcfg, interpret=True))) < TOL
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_one_pass_tf32_breaks_the_budget(jax_outputs, name):
+    """Why the spectral launch splits its operands: a single TF32 product
+    (11 significant bits) misses the budget on the parity clips of every
+    config, because the DFT cancels."""
+    w, jnp_out, _ = jax_outputs(name)
+    assert _rel(_split_features(w, FeatureConfig(**CONFIGS[name]), passes=1), jnp_out) > TOL
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to nearest, ties away from zero, at 10 mantissa bits; the
+    hi + lo split rebuilds x to 2^-21 of it."""
+    ulp = 2.0**-10
+    x = torch.tensor(
+        [1.0, 1 + ulp / 2, 1 + ulp / 2 - 2.0**-23, -(1 + ulp / 2), 1 + 1.5 * ulp, 3.0e-5],
+        dtype=torch.float32,
+    )
+    got = frontend_kernel.tf32_round(x)
+    want = [1.0, 1 + ulp, 1.0, -(1 + ulp), 1 + 2 * ulp]
+    assert got[:5].tolist() == want
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    hi = frontend_kernel.tf32_round(v)
+    lo = frontend_kernel.tf32_round(v - hi)
+    assert ((hi + lo - v).abs() <= v.abs() * 2.0**-21).all()
+
+
+@pytest.mark.parametrize("name", ["shipped", "full_band", "narrow_mels", "n_fft_256"])
+def test_fragment_tables_hold_the_plain_tables(name):
+    """Launch A's fragment-ordered hi/lo tables, decoded the way the kernel
+    reads them, give the windowed DFT (cos and -sin interleaved bin by bin,
+    zero past n_used) and the filterbank (zero past n_mels)."""
+    cfg = FeatureConfig(**CONFIGS[name])
+    k = frontend_kernel._constants(cfg, torch.device("cpu"))
+
+    def decode(frags, rows, cols):
+        f = frags.reshape(rows // 8, cols // 8, 8, 4, 4)  # s, j, g, t, (hi hi lo lo)
+        v = f[..., :2] + f[..., 2:]  # k rows 8s + t and 8s + t + 4
+        return v.permute(0, 4, 3, 1, 2).reshape(rows, cols)  # (s, half, t) x (j, g)
+
+    n_passes = k.dft.numel() // (k.kpad * 512)  # 256 columns of hi and lo a pass
+    per_kstep = k.dft.reshape(n_passes, k.kpad // 8, -1).transpose(0, 1)
+    dft = decode(per_kstep, k.kpad, 256 * n_passes)
+    taps = k.j1 - k.j0
+    np.testing.assert_allclose(dft[:taps, 0 : 2 * k.n_used : 2], k.cos[k.j0 : k.j1], atol=2e-7)
+    np.testing.assert_allclose(dft[:taps, 1 : 2 * k.n_used : 2], k.sin[k.j0 : k.j1], atol=2e-7)
+    assert not dft[taps:].any() and not dft[:, 2 * k.n_used :].any()
+    fb = decode(k.fb_frags, k.n_bins, 8 * k.mel_tiles)
+    np.testing.assert_allclose(fb[: k.n_used, : cfg.n_mels], k.fb, atol=2e-7)
+    assert not fb[k.n_used :].any() and not fb[:, cfg.n_mels :].any()
+
+
+def test_wide_mel_config_runs_plain_on_cpu():
+    """More mels than the spectral kernel takes (128): its tables are still
+    built, and a CPU tensor runs the plain version."""
+    cfg = FeatureConfig(n_mels=160, f_max=8000.0)
+    w = torch.from_numpy(_clips(2, seed=7))
+    got = frontend_kernel.power_mel_fused(w, cfg)
+    assert got.shape == (2, 160, cfg.num_frames)
+    assert torch.equal(got, frontend_kernel.power_mel_reference(w, cfg))
+    assert frontend_kernel._constants(cfg, torch.device("cpu")).mel_tiles == 0
