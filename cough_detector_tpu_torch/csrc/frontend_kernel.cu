@@ -10,7 +10,7 @@
 // (10-tap zero-padded smoother, compressive formula, per-clip min-max), the
 // DCT-II, the per-clip unbiased z-norm, deltas and optional delta-deltas.
 //
-// Launch A: the DFT and the mel on the tensor cores, in 3xTF32.
+// Launch A: the DFT and the mel on the tensor cores (wgmma), in 3xTF32.
 //  * Bound. Per clip of the shipped config (16000 samples, 101 frames,
 //    n_fft 512 with a 400-tap window, 128 of 257 bins used, 64 mels) the
 //    useful work is 22.3 MFLOP: the DFT over the window's 399 nonzero taps
@@ -18,71 +18,63 @@
 //    (64 KB of waveform in, 26 KB of power mel out). That is 45 ns a clip
 //    at the TF32 tensor-core peak (495 TFLOP/s) against 27 ns for the bytes
 //    at 3.35 TB/s: bound by operations. The kernel issues every product
-//    three times (below), so it reaches at most a third of that bound.
-//  * The DFT as a GEMM. M: the frames of one clip, padded from 101 to 112
-//    rows (7 MMA tiles of 16), one block per (112-frame tile, clip): the
-//    clip's waveform is staged once and read from device memory once, and
-//    the 11 pad rows cost 10% of the MMAs. K: the window's support, in
-//    k-steps of 8 taps. N: the used bins' cos and -sin columns, interleaved
-//    (column 2k = cos k, 2k+1 = -sin k), so that a thread's m16n8
-//    accumulator fragment holds re and im of one bin in c0/c1 (and c2/c3)
-//    and the power forms in registers. N runs in passes of 256 columns:
-//    one at the shipped config, three at f_max = 8 kHz (257 bins). Eight
-//    warps tile a pass 2 x 4: row tiles 0-3 or 4-6, 64 columns each, so
-//    each A fragment feeds 24 or more MMAs and the two warps that share a
-//    scheduler own different rows.
-//  * A operand. Frames overlap (hop 160 < 400 taps), so A is no plain
-//    matrix: each thread gathers its fragment from the tile's waveform span
-//    in shared memory at row*hop + tap and splits it in registers into
-//    hi = rna(x) and lo = rna(x - hi), rna being cvt.rna.tf32.f32's
+//    three times (below) and pads 101 frames to 128 rows, so it reaches at
+//    most a quarter of that bound.
+//  * The DFT as a GEMM. M: the frames of one clip, padded to 128 rows, one
+//    block per (128-frame tile, clip), two warpgroups of 64 rows: the
+//    clip's waveform is staged once and read from device memory once. K:
+//    the window's support, in k-steps of 8 taps (padded to an even count).
+//    N: the used bins' cos and -sin columns, interleaved (column 2k =
+//    cos k, 2k+1 = -sin k), in passes of 256 columns, one wgmma.m64n256k8
+//    a term and k-step: one pass at the shipped config, three at f_max =
+//    8 kHz (257 bins). In the accumulator fragment a thread holds re and
+//    im of one bin side by side, so the power forms in registers.
+//  * A operand, from registers. Frames overlap (hop 160 < 400 taps), so A
+//    is no plain matrix: each thread gathers its four values from the
+//    tile's waveform span in shared memory at row*hop + tap and splits each
+//    into hi = rna(x) and lo = rna(x - hi), rna being cvt.rna.tf32.f32's
 //    rounding done in two integer instructions (raw f32 bits fed to a .tf32
 //    MMA would be truncated, and hi + lo would not rebuild x). The span is
 //    stored with `skew` pad floats after every hop samples, so that the 8
 //    rows of a fragment fall in distinct banks (hop 160 is a multiple of
 //    32).
-//  * B operand. The tables (windowed DFT, then mel filterbank) are split
-//    into hi/lo TF32 on the host once per config and stored in mma.sync
-//    fragment order: per k-step, n-tile and lane, the four floats one
-//    thread needs (hi and lo of its two k rows), one 16-byte shared load.
-//    The DFT table is 800 KB at the shipped config: too large for shared
-//    memory, small enough that every block finds it in L2. It streams
-//    through a ring of 16 KB slots (one DFT k-step each, 2-4 deep as shared
-//    memory allows), then the filterbank through the same ring. Each chunk
-//    lands by one bulk asynchronous copy (TMA, no tensor map: a chunk is
-//    contiguous) on an mbarrier, and the last warp to release a slot refills
-//    it, so no warp waits for another: a barrier per k-step kept all warps
-//    in the same phase, loading fragments together while the tensor cores
-//    idled.
-//  * No branch or predicate in the k-step loop: a guard around each MMA
-//    (live row tile, live column) halved the MMAs' issue rate. Every row
-//    tile is computed, pad rows too; pad columns of the table are zeros;
-//    the row-tile count (4 or 3) and the mel width are template constants.
+//  * B operand, from shared memory. The tables (windowed DFT, filterbank)
+//    are split into hi/lo TF32 on the host once per config, laid out as
+//    K-major tiles without swizzle and streamed, as the 16 KB chunks they
+//    are consumed in, through a ring of 2-4 slots (as shared memory
+//    allows). Each chunk lands by one bulk asynchronous copy (TMA, no tensor
+//    map: a chunk is contiguous) on an mbarrier; the last warp to release
+//    a slot refills it, so a warp waits for data, never for the other
+//    warps. The DFT table is 800 KB at the shipped config: too large for
+//    shared memory, small enough that every block finds it in L2.
 //  * 3xTF32: per k-step, acc += a_lo*b_hi, acc += a_hi*b_lo, then
 //    acc += a_hi*b_hi, into one FP32 accumulator; lo*lo is dropped. One
 //    TF32 pass keeps 11 significant bits of each operand, and the DFT
 //    cancels (its terms sum to far more than its result), so one pass
 //    breaks the 1e-3 feature budget of docs/PARITY.md on every config the
-//    tests hold; three hold it. The figures are in PERF.md, from
-//    ops/frontend_kernel.py::power_mel_split_reference, the CPU model of
-//    this arithmetic (tests/test_torch_frontend.py). Three TF32 passes cost
-//    the tensor-core time of the TPU kernel's six bf16 ones and need one
-//    split per operand.
-//  * Power and mel. The power tile (112 rows x the used bins rounded up to
-//    8) goes to shared memory; the mel GEMM (K = bins, N = mels) then runs
-//    on the tensor cores in 3xTF32 too, one warp per 16-row tile. Output
+//    tests hold; three hold it (PERF.md; the CPU model of this arithmetic
+//    is ops/frontend_kernel.py::power_mel_split_reference). Three TF32
+//    passes cost the tensor-core time of the TPU kernel's six bf16 ones
+//    and need one split per operand.
+//  * The mel never leaves registers. For mel k-step s (bins 8s to 8s + 7)
+//    a thread's wgmma A fragment is the power of bins 8s + t and 8s + t + 4
+//    of its rows g and g + 8: the DFT n-tiles 2s and 2s + 1 that the same
+//    thread holds. So the power is formed, split and fed to wgmma.m64nNk8
+//    (N = 32, 64 or 128 mels) pass by pass, the filterbank's tiles
+//    streaming through the ring after each pass's DFT chunks. Output
 //    (B, n_mels, n_frames), frames fastest, the layout launch B reads.
-//  * MMA instruction: mma.sync.aligned.m16n8k8 .tf32, Ampere's warp-level
-//    MMA, which Hopper keeps, not wgmma: its A fragment comes from
-//    registers, where the gather and the split leave it, and it beats the
-//    cuFFT yardstick at both batch sizes the smoke run times. Its own
-//    ceiling on the card is below the TF32 peak, and the DFT loop runs
-//    near it (PERF.md, tools/spectral_probe.py).
+//  * Issue. One wgmma group (the three terms of a k-step) stays in flight
+//    while the next k-step's A is gathered. Nothing else may write the
+//    accumulators meanwhile, or the compiler serializes the MMAs: the first
+//    product of a sum starts it (scale-d 0, outputs only) instead of a
+//    zeroing loop; the mbarrier wait loop and the lane-0 refill are inside
+//    asm, with predicates, so no C++ branch surrounds an in-flight group.
 //
-// What a later PR does next on launch A: wgmma (m64nNk8 .tf32, A from
-// registers, B from swizzled shared tiles) for the tensor cores' full
-// rate; the DFT table shared across the blocks of a cluster by multicast;
-// then the power mel's round trip through device memory between the
-// launches, about 52 KB a clip.
+// What a later PR does next on launch A: stage the next clip's waveform
+// while this one computes (a persistent block), the largest fixed cost
+// left (tools/spectral_probe.py); rows packed across clips instead of
+// padding 101 frames to 128; then the power mel's round trip through
+// device memory between the launches, about 52 KB a clip.
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
@@ -100,15 +92,11 @@
 
 namespace {
 
-constexpr int kWarpsA = 8;
+constexpr int kWarpsA = 8;                          // two warpgroups
 constexpr int kThreadsA = 32 * kWarpsA;             // 256
-constexpr int kMTiles = 7;                          // 16-row MMA tiles a block owns
-constexpr int kRows = 16 * kMTiles;                 // 112 frames
-constexpr int kNGroups = 4;                         // warps along N; 2 along M
-constexpr int kMTilesWarp = 4;                      // row tiles a warp owns (4 + 3)
-constexpr int kNTilesWarp = 8;                      // 8-column n-tiles a warp owns
-constexpr int kPassCols = 8 * kNTilesWarp * kNGroups;  // 256 columns, 128 bins
-constexpr int kSlotFloats = (kPassCols / 8) * 32 * 4;  // one DFT k-step: 16 KB
+constexpr int kRows = 128;                          // frames a block owns: two wgmma tiles of 64
+constexpr int kPassCols = 256;                      // DFT columns a pass: 128 bins
+constexpr int kSlotFloats = 2 * 8 * kPassCols;      // a ring slot, 16 KB: one DFT k-step
 constexpr int kMaxSlots = 4;
 constexpr int kStageBatch = 24;                     // staging loads in flight
 constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on sm_90
@@ -116,23 +104,21 @@ constexpr int kThreadsB = 256;
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
 
-// Launch A's shared memory, in floats: the ring, the waveform span and the
-// power tile. Each region starts 16-byte aligned.
+// Launch A's shared memory, in floats: the ring, then the waveform span,
+// then the ring's mbarriers and counters. All 128 rows are computed, so the
+// span holds every sample they read: the frames' samples, zeros after them.
 struct LayoutA {
-  int skew, rs, span, ps, pow;
+  int skew, rs, span;
 
-  __host__ __device__ LayoutA(int hop, int kpad, int n_bins) {
+  __host__ __device__ LayoutA(int hop, int kpad) {
     skew = ((4 - hop) % 8 + 8) % 8;  // hop + skew = 4 (mod 8): 8 rows, 8 banks
     rs = hop + skew;
-    const int len = (kRows - 1) * hop + kpad;  // samples the tile reads
+    const int len = (kRows - 1) * hop + kpad;
     span = ((len / hop + 1) * rs + 3) / 4 * 4;
-    ps = n_bins + 4;  // n_bins is a multiple of 8: ps = 4 (mod 8)
-    pow = kRows * ps;
   }
 
-  // The regions, then kMaxSlots mbarriers (8 bytes) and counters (4 bytes).
   __host__ __device__ size_t bytes(int n_slots) const {
-    return sizeof(float) * ((size_t)n_slots * kSlotFloats + span + pow) + 12 * kMaxSlots;
+    return sizeof(float) * ((size_t)n_slots * kSlotFloats + span) + 12 * kMaxSlots;
   }
 };
 
@@ -149,86 +135,183 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));  // exact: hi is x rounded
 }
 
-// Not volatile: the compiler may interleave independent MMAs.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         float b0, float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
-        "r"(__float_as_uint(b1)));
+// Shared-memory matrix descriptor of a K-major B tile without swizzle: core
+// matrices of 8 columns x 4 k (16 bytes a column), 128 bytes apart along K
+// (leading byte offset) and 256 bytes apart along N (stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(const float* tile) {
+  const uint64_t addr = (uint32_t)__cvta_generic_to_shared(tile);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
 }
 
-// Term `term` of the 3xTF32 product into c: 0 a_lo*b_hi, 1 a_hi*b_lo,
-// 2 a_hi*b_hi (the two small cross terms first). b holds the thread's B
-// fragment as (hi k, hi k+4, lo k, lo k+4). Callers issue term 0 for every
-// tile, then term 1, then term 2, so that no MMA waits on the one before.
-__device__ __forceinline__ void mma_term(int term, float (&c)[4], const uint32_t (&a_hi)[4],
-                                         const uint32_t (&a_lo)[4], float4 b) {
-  if (term == 0) mma_tf32(c, a_lo, b.x, b.y);
-  else if (term == 1) mma_tf32(c, a_hi, b.z, b.w);
-  else mma_tf32(c, a_hi, b.x, b.y);
+// d (the warpgroup's 64 x N accumulator fragment, N / 2 floats a thread)
+// = A (64 x 8, this thread's fragment in a, TF32 bits) * B (8 x N at desc)
+// if kStart, else d += A * B, asynchronously; N = 256 for the DFT, 32, 64
+// or 128 for the mel. The first product of a sum starts it (its
+// accumulators are outputs only), so no other instruction writes them while
+// wgmma groups are in flight, and they hold no registers before it.
+// fence_acc is an empty instruction that reads and writes every
+// accumulator register, so that the compiler keeps them in place around an
+// in-flight wgmma group.
+template <bool kStart>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+  if (kStart) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63]), "=f"(d[64]), "=f"(d[65]), "=f"(d[66]), "=f"(d[67]), "=f"(d[68]), "=f"(d[69]), "=f"(d[70]), "=f"(d[71]), "=f"(d[72]), "=f"(d[73]), "=f"(d[74]), "=f"(d[75]), "=f"(d[76]), "=f"(d[77]), "=f"(d[78]), "=f"(d[79]), "=f"(d[80]), "=f"(d[81]), "=f"(d[82]), "=f"(d[83]), "=f"(d[84]), "=f"(d[85]), "=f"(d[86]), "=f"(d[87]), "=f"(d[88]), "=f"(d[89]), "=f"(d[90]), "=f"(d[91]), "=f"(d[92]), "=f"(d[93]), "=f"(d[94]), "=f"(d[95]), "=f"(d[96]), "=f"(d[97]), "=f"(d[98]), "=f"(d[99]), "=f"(d[100]), "=f"(d[101]), "=f"(d[102]), "=f"(d[103]), "=f"(d[104]), "=f"(d[105]), "=f"(d[106]), "=f"(d[107]), "=f"(d[108]), "=f"(d[109]), "=f"(d[110]), "=f"(d[111]), "=f"(d[112]), "=f"(d[113]), "=f"(d[114]), "=f"(d[115]), "=f"(d[116]), "=f"(d[117]), "=f"(d[118]), "=f"(d[119]), "=f"(d[120]), "=f"(d[121]), "=f"(d[122]), "=f"(d[123]), "=f"(d[124]), "=f"(d[125]), "=f"(d[126]), "=f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  }
 }
 
-// A fragment of rows r0 (g) and r1 (g + 8) at k offsets k0 (t), k1 (t + 4).
-__device__ __forceinline__ void load_split_a(const float* r0, const float* r1, int k0,
-                                             int k1, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split_tf32(r0[k0], hi[0], lo[0]);
-  split_tf32(r1[k0], hi[1], lo[1]);
-  split_tf32(r0[k1], hi[2], lo[2]);
-  split_tf32(r1[k1], hi[3], lo[3]);
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) :: "memory");
+}
+
+template <bool kStart>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  if (kStart) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) :: "memory");
+}
+
+template <bool kStart>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  if (kStart) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) :: "memory");
+}
+
+template <bool kStart>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  if (kStart) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) :: "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Wait until the phase of `bar` with this parity has completed.
+// Wait until the phase of `bar` with this parity has completed. The loop
+// lives inside the asm: a C++ loop around it is control flow the compiler
+// must assume divergent, and it then serializes the in-flight wgmma groups.
+// After 2^24 polls it traps: a copy that never lands must not hang the card.
 __device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
-  const uint32_t addr = smem_addr(bar);
-  for (int spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == (1 << 24)) __trap();  // a copy that never lands must not hang the card
-  }
+  asm volatile(
+      "{\n"
+      " .reg .pred p;\n"
+      " .reg .u32 n;\n"
+      " mov.u32 n, 0;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra.uni DONE;\n"
+      " add.u32 n, n, 1;\n"
+      " setp.lt.u32 p, n, 16777216;\n"
+      " @p bra.uni WAIT;\n"
+      " trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity)
+      : "memory");
 }
 
-// The ring of table chunks launch A streams: the DFT table's k-steps, pass
-// by pass (kSlotFloats each), then the filterbank in chunks of whole mel
-// k-steps. Chunk q goes to slot q % n_slots by one bulk asynchronous copy
-// (TMA without a tensor map: a chunk is contiguous), which completes on
-// the slot's `full` mbarrier. The warp that releases a slot last refills
-// it, so a warp waits only for its data, never for the other warps.
+// The ring of table chunks launch A streams, 16 KB each, in the order it
+// consumes them: per pass the DFT table's k-steps, then the filterbank's
+// k-steps for the pass's bins. Chunk q goes to slot q % n_slots by one bulk
+// asynchronous copy (TMA without a tensor map: a chunk is contiguous),
+// which completes on the slot's `full` mbarrier. The warp that releases a
+// slot last refills it, so a warp waits only for its data, never for the
+// other warps.
 struct Ring {
   float* slots;
   uint64_t* full;  // per slot: one arrival (the filling thread) + the bytes
   int* released;   // per slot: warps done with its current chunk
-  const float* dft;
-  const float* fb;
-  int n_slots, n_dft, fb_chunk, fb_total, n;
+  const float* table;
+  int n_slots, n;
 
   // Issue chunk q into its slot (nothing past the last chunk). One thread.
   __device__ void fill(int q) const {
     if (q >= n) return;
     const int slot = q % n_slots;
-    const float* src = dft + (size_t)q * kSlotFloats;
-    int len = kSlotFloats;
-    if (q >= n_dft) {
-      const int off = (q - n_dft) * fb_chunk;
-      src = fb + off;
-      len = min(fb_chunk, fb_total - off);
-    }
     const uint32_t bar = smem_addr(full + slot);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(bar), "r"(4 * len) : "memory");
+                 ::"r"(bar), "r"(4 * kSlotFloats) : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1], %2, [%3];\n"
-        ::"r"(smem_addr(slots + slot * kSlotFloats)), "l"(src), "r"(4 * len), "r"(bar)
+        ::"r"(smem_addr(slots + slot * kSlotFloats)), "l"(table + (size_t)q * kSlotFloats),
+        "r"(4 * kSlotFloats), "r"(bar)
         : "memory");
   }
 
@@ -238,27 +321,40 @@ struct Ring {
     return slots + slot * kSlotFloats;
   }
 
-  // The calling warp is done with chunk q in `slot`; the last of the
-  // block's warps to say so refills the slot with chunk q + n_slots.
-  __device__ void release(int q, int slot) const {
+  // The calling warp is done with chunk q in `slot` (if `live`); the last
+  // of the block's warps to say so refills the slot with chunk q + n_slots.
+  // Lane 0 does the work under predicates, with no branch around it (see
+  // mbar_wait).
+  __device__ __forceinline__ void release(int q, int slot, bool live = true) const {
     __syncwarp();
-    if ((threadIdx.x & 31) == 0) {
-      __threadfence_block();
-      if (atomicAdd(released + slot, 1) == kWarpsA - 1) {
-        atomicExch(released + slot, 0);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // reads before the copy
-        fill(q + n_slots);
-      }
-    }
+    const int bytes = q + n_slots < n ? 4 * kSlotFloats : 0;
+    const uint32_t bar = smem_addr(full + slot);
+    asm volatile(
+        "{\n"
+        " .reg .pred p, last, go;\n"
+        " .reg .u32 old;\n"
+        " setp.ne.u32 p, %0, 0;\n"
+        " @p membar.cta;\n"
+        " @p atom.shared.add.u32 old, [%1], 1;\n"
+        " setp.eq.and.u32 last, old, %6, p;\n"
+        " @last atom.shared.exch.b32 old, [%1], 0;\n"
+        " @last fence.proxy.async.shared::cta;\n"
+        " setp.ne.and.u32 go, %5, 0, last;\n"
+        " @go mbarrier.arrive.expect_tx.shared::cta.b64 _, [%2], %5;\n"
+        " @go cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%3], [%4], %5, [%2];\n"
+        "}\n" ::"r"((uint32_t)(live && (threadIdx.x & 31) == 0)),
+        "r"(smem_addr(released + slot)), "r"(bar),
+        "r"(smem_addr(slots + slot * kSlotFloats)), "l"(table + (size_t)(q + n_slots) * kSlotFloats),
+        "r"(bytes), "r"(kWarpsA - 1)
+        : "memory");
   }
 
   // Next chunk: advance slot, and the parity when the slot index wraps.
   __device__ static void next(int& q, int& slot, int& parity, int n_slots) {
     ++q;
-    if (++slot == n_slots) {
-      slot = 0;
-      parity ^= 1;
-    }
+    slot = slot + 1 == n_slots ? 0 : slot + 1;
+    parity ^= slot == 0;
   }
 };
 
@@ -290,102 +386,152 @@ __device__ float block_reduce(float v, int op, float* scratch) {
   return out;
 }
 
-// One DFT pass for a warp that owns kM row tiles from mt0 and the 64
-// columns from col0: the pass's k-steps through the ring, then the power of
-// its bins below n_bins into the power tile. No branch in the k-step loop
-// (a branch or predicate between MMAs throttles their issue): every row
-// tile is computed, pad rows too, and the table's pad columns are zeros.
-// The thread's taps 8s + t and 8s + t + 4 sit at span offsets k0 and k1,
-// plus skew once per hop crossed (hop >= 8: at most one per k-step).
-template <int kM>
-__device__ __forceinline__ void dft_pass(const Ring& ring, int& q, int& slot, int& parity,
-                                         const float* span, const LayoutA& lay, int hop,
-                                         int n_ksteps, int mt0, int col0, int n_bins,
-                                         float* pow_s) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int boff = (col0 % kPassCols) * 4 + lane;  // float4s into a slot
-  const float* rows = span + (16 * mt0 + g) * lay.rs;
-  float acc[kM][kNTilesWarp][4] = {};
-  int k0 = t, k1 = t + 4, next0 = hop, next1 = hop;
-  for (int s = 0; s < n_ksteps; ++s) {
-    const float4* bsrc = reinterpret_cast<const float4*>(ring.wait(slot, parity)) + boff;
-    float4 bfrag[kNTilesWarp];
-#pragma unroll
-    for (int j = 0; j < kNTilesWarp; ++j) bfrag[j] = bsrc[32 * j];
-    uint32_t a_hi[kM][4], a_lo[kM][4];
-#pragma unroll
-    for (int i = 0; i < kM; ++i) {
-      const float* r0 = rows + 16 * i * lay.rs;
-      load_split_a(r0, r0 + 8 * lay.rs, k0, k1, a_hi[i], a_lo[i]);
-    }
-#pragma unroll
-    for (int term = 0; term < 3; ++term)
-#pragma unroll
-      for (int i = 0; i < kM; ++i)
-#pragma unroll
-        for (int j = 0; j < kNTilesWarp; ++j)
-          mma_term(term, acc[i][j], a_hi[i], a_lo[i], bfrag[j]);
-    ring.release(q, slot);  // the MMAs above have consumed bfrag
+// One DFT pass of a warpgroup: its 64 rows, all 256 columns of the pass, k-step by
+// k-step through the ring, into acc. Per k-step the thread gathers and
+// splits its A fragment (rows g and g + 8 of its warp's 16, taps 8s + t and
+// 8s + t + 4 at span offsets k0 and k1: plus skew once per hop crossed, at
+// most one a k-step since hop >= 8) and issues the three wgmma products as
+// one group. One group stays in flight: step s waits for step s - 1's
+// group, then releases its slot, so the gather of step s + 1 overlaps the
+// MMAs of step s. The A registers alternate between two buffers (the loop
+// runs by pairs of k-steps, so that the buffer index is a constant: kpad is
+// a multiple of 16 taps). Pad rows are computed like the others; pad
+// columns of the table are zeros.
+struct DftPass {
+  const Ring& ring;
+  const LayoutA& lay;
+  const float* r0;  // the thread's row g in the span
+  int hop, prev_slot, k0, k1, next0, next1;
+  float acc[128];
+  uint32_t a_hi[2][4], a_lo[2][4];
+
+  __device__ DftPass(const Ring& ring_, const LayoutA& lay_, const float* r0_, int hop_)
+      : ring(ring_), lay(lay_), r0(r0_), hop(hop_) {}
+
+  template <int kBuf, bool kStart>
+  __device__ __forceinline__ void step(int s, int& q, int& slot, int& parity) {
+    split_tf32(r0[k0], a_hi[kBuf][0], a_lo[kBuf][0]);
+    split_tf32(r0[8 * lay.rs + k0], a_hi[kBuf][1], a_lo[kBuf][1]);
+    split_tf32(r0[k1], a_hi[kBuf][2], a_lo[kBuf][2]);
+    split_tf32(r0[8 * lay.rs + k1], a_hi[kBuf][3], a_lo[kBuf][3]);
+    const float* b = ring.wait(slot, parity);  // hi tile, then lo tile
+    if (!kStart) fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_tf32<kStart>(acc, a_lo[kBuf], b_desc(b));                  // lo * hi
+    wgmma_tf32<false>(acc, a_hi[kBuf], b_desc(b + kSlotFloats / 2));  // hi * lo
+    wgmma_tf32<false>(acc, a_hi[kBuf], b_desc(b));                    // hi * hi
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    ring.release(q - 1, prev_slot, s > 0);  // step s - 1's group is done
+    prev_slot = slot;
     Ring::next(q, slot, parity, ring.n_slots);
-    const int kk = 8 * (s + 1) + t;  // the taps of the next k-step
-    k0 += 8;
-    k1 += 8;
-    if (kk >= next0) { k0 += lay.skew; next0 += hop; }
-    if (kk + 4 >= next1) { k1 += lay.skew; next1 += hop; }
+    const int kk = 8 * (s + 1) + (threadIdx.x & 3);  // the next k-step's taps
+    const bool cross0 = kk >= next0, cross1 = kk + 4 >= next1;
+    k0 += 8 + (cross0 ? lay.skew : 0);
+    k1 += 8 + (cross1 ? lay.skew : 0);
+    next0 += cross0 ? hop : 0;
+    next1 += cross1 ? hop : 0;
   }
-#pragma unroll
-  for (int i = 0; i < kM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kNTilesWarp; ++j) {
-      const int bin = (col0 + 8 * j) / 2 + t, row = 16 * (mt0 + i) + g;
-      if (bin >= n_bins) continue;
-      pow_s[row * lay.ps + bin] = acc[i][j][0] * acc[i][j][0] + acc[i][j][1] * acc[i][j][1];
-      pow_s[(row + 8) * lay.ps + bin] =
-          acc[i][j][2] * acc[i][j][2] + acc[i][j][3] * acc[i][j][3];
+
+  __device__ void run(int& q, int& slot, int& parity, int n_ksteps) {
+    const int t = threadIdx.x & 3;
+    k0 = t;
+    k1 = t + 4;
+    next0 = next1 = hop;
+    step<0, true>(0, q, slot, parity);
+    step<1, false>(1, q, slot, parity);
+    for (int s = 2; s < n_ksteps; s += 2) {  // n_ksteps is even
+      step<0, false>(s, q, slot, parity);
+      step<1, false>(s + 1, q, slot, parity);
     }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    ring.release(q - 1, prev_slot);
   }
+};
+
+// The mel of one pass's 128 bins, added into macc (the warpgroup's 64 x kN
+// fragment; the first pass starts it). The DFT's accumulator already is the mel's A operand: for
+// mel k-step s (bins 8s to 8s + 7 of the pass) the thread's fragment,
+// bins 8s + t and 8s + t + 4 of rows g and g + 8, is the power of the
+// DFT's n-tiles 2s and 2s + 1, which the thread holds. So the power never
+// leaves registers: it is formed, split, and fed to three wgmma products a
+// k-step, the filterbank's tiles (16 k-steps, 256 / kN a ring slot)
+// streaming through the ring like the DFT table.
+template <int kN, bool kFirst>
+__device__ __forceinline__ void mel_pass(const Ring& ring, int& q, int& slot, int& parity,
+                                         const float (&d)[128], float (&macc)[kN / 2]) {
+  constexpr int kKs = 256 / kN;  // mel k-steps a slot
+  uint32_t p_hi[16][4], p_lo[16][4];
+#pragma unroll
+  for (int s = 0; s < 16; ++s)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)  // n-tile 2s + x / 2, row g + 8 * (x % 2)
+      split_tf32(d[8 * s + 2 * x] * d[8 * s + 2 * x] + d[8 * s + 2 * x + 1] * d[8 * s + 2 * x + 1],
+                 p_hi[s][x], p_lo[s][x]);
+  int prev_slot = slot;
+#pragma unroll
+  for (int c = 0; c < 16 / kKs; ++c) {
+    const float* b = ring.wait(slot, parity);
+    if (!kFirst || c > 0) fence_acc(macc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int sl = 0; sl < kKs; ++sl) {
+      const int s = c * kKs + sl;
+      const float* hi = b + sl * 16 * kN;  // hi tile, then lo tile
+      if (kFirst && s == 0)
+        wgmma_tf32<true>(macc, p_lo[s], b_desc(hi));
+      else
+        wgmma_tf32<false>(macc, p_lo[s], b_desc(hi));
+      wgmma_tf32<false>(macc, p_hi[s], b_desc(hi + 8 * kN));
+      wgmma_tf32<false>(macc, p_hi[s], b_desc(hi));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(macc);
+    ring.release(q - 1, prev_slot, c > 0);
+    prev_slot = slot;
+    Ring::next(q, slot, parity, ring.n_slots);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(macc);
+  ring.release(q - 1, prev_slot);
 }
 
 // Launch A. grid (row tiles, batch), kThreadsA threads, LayoutA's shared
-// memory with n_slots ring slots. dft: the fragment-ordered hi/lo DFT
-// table, [pass][k-step][32 n-tiles][32 lanes][4]; fb: the fragment-ordered
-// hi/lo filterbank, [mel k-step][kMelNT n-tiles][32 lanes][4], zero past
-// n_mels. n_bins is n_used rounded up to 8, kpad the window's support
-// rounded up to 8 taps.
+// memory with n_slots ring slots. table: the chunk stream the ring reads
+// (ops/frontend_kernel.py::_constants), per pass kpad / 8 DFT chunks and
+// kMelNT / 2 filterbank chunks; n_bins is n_used rounded up to 8, kpad the
+// window's support rounded up to 16 taps; kMelNT the mel width in n-tiles
+// of 8 (4, 8 or 16), zero past n_mels.
 template <int kMelNT>
 __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft,
-    int hop, int j0, int kpad, const float* __restrict__ dft, int n_bins,
-    const float* __restrict__ fb, int n_mels, int use_pre, float pre_coef,
-    int n_slots, float* __restrict__ mel_out) {
+    int hop, int j0, int kpad, const float* __restrict__ table, int n_bins,
+    int n_mels, int use_pre, float pre_coef, int n_slots, float* __restrict__ mel_out) {
+  constexpr int kN = 8 * kMelNT;
   extern __shared__ float4 smem4[];
-  const LayoutA lay(hop, kpad, n_bins);
+  const LayoutA lay(hop, kpad);
   float* slots = reinterpret_cast<float*>(smem4);
   float* span = slots + n_slots * kSlotFloats;
-  float* pow_s = span + lay.span;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y, t0 = blockIdx.x * kRows;
   const int n_ksteps = kpad / 8;
   const int n_passes = (2 * n_bins + kPassCols - 1) / kPassCols;
-  constexpr int kFbChunkKs = 32 / kMelNT;  // mel k-steps in one ring slot
-  const int mel_ks = n_bins / 8;
   Ring ring;
   ring.slots = slots;
-  ring.full = reinterpret_cast<uint64_t*>(pow_s + lay.pow);
+  ring.full = reinterpret_cast<uint64_t*>(span + lay.span);
   ring.released = reinterpret_cast<int*>(ring.full + kMaxSlots);
-  ring.dft = dft;
-  ring.fb = fb;
+  ring.table = table;
   ring.n_slots = n_slots;
-  ring.n_dft = n_passes * n_ksteps;
-  ring.fb_chunk = kFbChunkKs * kMelNT * 128;
-  ring.fb_total = mel_ks * kMelNT * 128;
-  ring.n = ring.n_dft + (mel_ks + kFbChunkKs - 1) / kFbChunkKs;
+  ring.n = n_passes * (n_ksteps + kN / 16);
 
   // 1. Start the ring, then stage the span while the first chunks land:
   // reflect padding (numpy "reflect": no edge repeat) and pre-emphasis,
-  // kStageBatch loads in flight per thread.
+  // kStageBatch loads in flight per thread; zeros after the tile's frames.
   if (tid == 0) {
     for (int i = 0; i < n_slots; ++i) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(ring.full + i))
@@ -398,7 +544,8 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
   {
     const float* x = wave + (size_t)b * n_samples;
     const int base = t0 * hop + j0 - n_fft / 2;
-    const int len = (kRows - 1) * hop + kpad;
+    const int frames = min(n_frames - t0, kRows);
+    const int live = (frames - 1) * hop + kpad, len = (kRows - 1) * hop + kpad;
     const int dseg = kThreadsA / hop, doff = kThreadsA % hop;
     int seg = tid / hop, off = tid % hop;  // sample i sits at seg * rs + off
     for (int i0 = tid; i0 < len; i0 += kStageBatch * kThreadsA) {
@@ -409,8 +556,8 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
         int q = base + i;
         q = q < 0 ? -q : q;
         q = q >= n_samples ? 2 * (n_samples - 1) - q : q;
-        v[u] = 0.0f;  // only pad rows and pad taps read outside the clip
-        if (i < len && q >= 0 && q < n_samples) {
+        v[u] = 0.0f;
+        if (i < live && q >= 0 && q < n_samples) {
           v[u] = x[q];
           if (use_pre && q > 0) v[u] = __fsub_rn(v[u], __fmul_rn(pre_coef, x[q - 1]));
         }
@@ -427,57 +574,31 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
       }
     }
   }
-
   __syncthreads();  // the span and the ring's barriers are ready
 
-  // 2. DFT. Warp w owns row tiles 4 * (w / 4) + [0, 4 or 3) and the 64
-  // columns (w % 4) * 64 + [0, 64) of each pass: the two warps that share a
-  // scheduler (w and w + 4) own different rows.
+  // 2. Pass by pass: the DFT, then its bins' mel. Warpgroup w / 4 owns rows
+  // 64 * (w / 4) + [0, 64); the thread, rows `row` and row + 8.
+  const int row = 64 * (warp / 4) + 16 * (warp & 3) + g;
   int q = 0, slot = 0, parity = 0;  // the next chunk, its slot and parity
-  const int mt0 = kMTilesWarp * (warp / kNGroups);
-  for (int p = 0; p < n_passes; ++p) {
-    const int col0 = p * kPassCols + (warp % kNGroups) * 8 * kNTilesWarp;
-    if (mt0 == 0)
-      dft_pass<kMTilesWarp>(ring, q, slot, parity, span, lay, hop, n_ksteps, mt0, col0,
-                            n_bins, pow_s);
-    else
-      dft_pass<kMTiles - kMTilesWarp>(ring, q, slot, parity, span, lay, hop, n_ksteps, mt0,
-                                      col0, n_bins, pow_s);
+  float macc[kN / 2];
+  DftPass dft(ring, lay, span + row * lay.rs, hop);
+  dft.run(q, slot, parity, n_ksteps);
+  mel_pass<kN, true>(ring, q, slot, parity, dft.acc, macc);
+  for (int p = 1; p < n_passes; ++p) {
+    dft.run(q, slot, parity, n_ksteps);
+    mel_pass<kN, false>(ring, q, slot, parity, dft.acc, macc);
   }
-  __syncthreads();  // the power tile is complete
 
-  // 3. Mel: warp w takes row tile w (warp 7 only keeps the ring going).
-  const bool mel_live = warp < kMTiles && 16 * warp < n_frames - t0;
-  const float* p0 = pow_s + (16 * warp + g) * lay.ps + t;
-  float macc[kMelNT][4] = {};
-  for (int c = 0; q < ring.n; ++c) {
-    const float4* bsrc = reinterpret_cast<const float4*>(ring.wait(slot, parity)) + lane;
-    for (int sl = 0; mel_live && sl < kFbChunkKs; ++sl) {
-      const int s = c * kFbChunkKs + sl;
-      if (s >= mel_ks) break;
-      uint32_t a_hi[4], a_lo[4];
-      load_split_a(p0, p0 + 8 * lay.ps, 8 * s, 8 * s + 4, a_hi, a_lo);
-      float4 bfrag[kMelNT];
-#pragma unroll
-      for (int j = 0; j < kMelNT; ++j) bfrag[j] = bsrc[(sl * kMelNT + j) * 32];
-#pragma unroll
-      for (int term = 0; term < 3; ++term)
-#pragma unroll
-        for (int j = 0; j < kMelNT; ++j) mma_term(term, macc[j], a_hi, a_lo, bfrag[j]);
-    }
-    ring.release(q, slot);
-    Ring::next(q, slot, parity, n_slots);
-  }
-  if (!mel_live) return;
-  const int r0 = t0 + 16 * warp + g, r1 = r0 + 8;
+  // 3. The mel, (B, n_mels, n_frames), frames fastest.
   float* out = mel_out + (size_t)b * n_mels * n_frames;
+  const int r0 = t0 + row, r1 = r0 + 8;
 #pragma unroll
   for (int j = 0; j < kMelNT; ++j) {
     const int m = 8 * j + 2 * t;
     for (int h = 0; h < 2; ++h) {
       if (m + h >= n_mels) continue;
-      if (r0 < n_frames) out[(size_t)(m + h) * n_frames + r0] = macc[j][h];
-      if (r1 < n_frames) out[(size_t)(m + h) * n_frames + r1] = macc[j][2 + h];
+      if (r0 < n_frames) out[(size_t)(m + h) * n_frames + r0] = macc[4 * j + h];
+      if (r1 < n_frames) out[(size_t)(m + h) * n_frames + r1] = macc[4 * j + 2 + h];
     }
   }
 }
@@ -599,41 +720,37 @@ extern "C" {
 
 // Shared-memory bytes each launch needs (launch A: with the smallest ring,
 // two slots); the wrapper refuses configs past the card's 227 KB per block.
-size_t cdt_frontend_smem_a(int hop, int kpad, int n_bins) {
-  return LayoutA(hop, kpad, n_bins).bytes(2);
-}
+size_t cdt_frontend_smem_a(int hop, int kpad) { return LayoutA(hop, kpad).bytes(2); }
 
 size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc) {
   return sizeof(float) *
          (2 * (size_t)n_mels * n_frames + 2 * (size_t)n_mfcc * n_frames + 33);
 }
 
-// Launch A. wave (B, n_samples); dft and fb: the fragment-ordered hi/lo
-// tables (ops/frontend_kernel.py::_fragments), fb with mel_tiles (4, 8 or
-// 16) n-tiles of 8 mels; mel (B, n_mels, n_frames). All float32,
-// contiguous, on one device. The ring gets as many slots (up to four) as
-// shared memory holds.
+// Launch A. wave (B, n_samples); table: the chunk stream its ring reads
+// (ops/frontend_kernel.py::_constants), with mel_tiles (4, 8 or 16) n-tiles
+// of 8 mels; mel (B, n_mels, n_frames). All float32, contiguous, on one
+// device. The ring gets as many slots (up to four) as shared memory holds.
 int cdt_frontend_spectral(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft,
-    int hop, int j0, int kpad, const float* dft, int n_bins, const float* fb,
-    int n_mels, int mel_tiles, int use_pre, float pre_coef, float* mel,
-    cudaStream_t stream) {
-  if (n_mels > 8 * mel_tiles || kpad % 8 || n_bins % 8 || hop < 8)
+    int hop, int j0, int kpad, const float* table, int n_bins, int n_mels,
+    int mel_tiles, int use_pre, float pre_coef, float* mel, cudaStream_t stream) {
+  if (n_mels > 8 * mel_tiles || kpad % 16 || n_bins % 8 || hop < 8)
     return (int)cudaErrorInvalidValue;
   const void* fn = mel_tiles == 4   ? (const void*)spectral_kernel<4>
                    : mel_tiles == 8 ? (const void*)spectral_kernel<8>
                    : mel_tiles == 16 ? (const void*)spectral_kernel<16>
                                      : nullptr;
   if (!fn) return (int)cudaErrorInvalidValue;
-  const LayoutA lay(hop, kpad, n_bins);
+  const LayoutA lay(hop, kpad);
   int n_slots = kMaxSlots;
   while (n_slots > 2 && lay.bytes(n_slots) > kMaxSmem) --n_slots;
   const size_t smem = lay.bytes(n_slots);
   const int err = set_smem(fn, smem);
   if (err) return err;
   const dim3 grid((n_frames + kRows - 1) / kRows, batch);
-  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &dft,
-                  &n_bins, &fb, &n_mels, &use_pre, &pre_coef, &n_slots, &mel};
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &table,
+                  &n_bins, &n_mels, &use_pre, &pre_coef, &n_slots, &mel};
   const cudaError_t launched = cudaLaunchKernel(fn, grid, dim3(kThreadsA), args, smem, stream);
   return launched ? (int)launched : (int)cudaGetLastError();
 }

@@ -47,6 +47,7 @@ _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _MAX_GRID_Y = 65535
 _MEL_TILES = (4, 8, 16)  # launch A's mel widths, in n-tiles of 8 mels
 _PASS_COLS = 256  # launch A's DFT columns per pass (re and im of 128 bins)
+_CHUNK = 4096  # floats in one chunk of launch A's table stream (16 KB)
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -77,12 +78,11 @@ class _Constants(NamedTuple):
     n_used: int        # DFT bins that feed any mel band
     j0: int            # window support [j0, j1) within the frame
     j1: int
-    kpad: int          # j1 - j0 rounded up to a k-step of 8 taps
-    n_bins: int        # n_used rounded up to 8 (launch A's power columns)
+    kpad: int          # j1 - j0 rounded up to two k-steps of 8 taps
+    n_bins: int        # n_used rounded up to 8 (sets launch A's DFT passes)
     mel_tiles: int     # n_mels in n-tiles of 8, rounded up to _MEL_TILES
                        # (0: more mels than launch A takes)
-    dft: torch.Tensor  # launch A's DFT table, fragment order, per pass
-    fb_frags: torch.Tensor  # launch A's filterbank, fragment order
+    table: torch.Tensor  # launch A's chunk stream (see _constants)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -98,27 +98,29 @@ def _split(x: torch.Tensor) -> tuple:
     return hi, tf32_round(x - hi)
 
 
-def _fragments(m: np.ndarray) -> torch.Tensor:
-    """The hi/lo TF32 split of a (K, N) matrix, K and N multiples of 8, in
-    the order launch A reads its B fragments (mma.sync m16n8k8, .col B):
-    (K/8, N/8, 32, 4), where k-step s, n-tile j and lane 4g + t hold
-    (hi, hi, lo, lo) of m[8s + t, 8j + g] and m[8s + t + 4, 8j + g]."""
+def _tiles(m: np.ndarray) -> torch.Tensor:
+    """The hi/lo TF32 split of a (K, N) matrix, K and N multiples of 8, as
+    the B tiles launch A's wgmma reads (K-major, no swizzle): (K / 8, 16 N),
+    per k-step of 8 rows the hi tile then the lo tile, each N / 8 column
+    groups x 2 row groups of 4 x 8 columns x 4 rows."""
     k, n = m.shape
     v = torch.from_numpy(np.ascontiguousarray(m, np.float32))
-    v = v.reshape(k // 8, 2, 4, n // 8, 8).permute(0, 3, 4, 2, 1)  # s j g t half
-    hi, lo = _split(v)
-    return torch.cat([hi, lo], dim=-1).reshape(k // 8, n // 8, 32, 4)
+    v = v.reshape(k // 8, 2, 4, n // 8, 8).permute(0, 3, 1, 4, 2)  # s nc kc n kk
+    hi, lo = _split(v.contiguous())
+    return torch.stack([hi, lo], dim=1).reshape(k // 8, 16 * n)
 
 
 @functools.lru_cache(maxsize=16)
 def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     """Band-limited tables: bins past the filterbank's last nonzero row feed
     no mel band, so the DFT stops there (128 of 257 bins at f_max=4 kHz).
-    Launch A's tables are split into hi/lo TF32 here, once per config:
-    the DFT over the window's support [j0, j0 + kpad), its cos and -sin
-    columns interleaved bin by bin and cut into passes of 256 columns (zero
-    past n_used), and the filterbank padded with zeros to n_bins rows and
-    8 * mel_tiles mels."""
+    Launch A's tables are split into hi/lo TF32 here, once per config, and
+    laid out as the stream of 16 KB chunks its ring reads: per pass of 256
+    DFT columns (128 bins), one chunk per k-step of the DFT over the
+    window's support [j0, j0 + kpad), its cos and -sin columns interleaved
+    bin by bin (zero past n_used), then the filterbank's rows for the
+    pass's bins (zero past n_used), 16 k-steps of 8 * mel_tiles mels (zero
+    past n_mels), 256 / (8 * mel_tiles) k-steps a chunk."""
     c, s = filters.dft_matrices(cfg.n_fft, cfg.win_length)
     fb = filters.mel_filterbank(
         cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max
@@ -128,24 +130,27 @@ def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     j0, j1 = int(support[0]), int(support[-1]) + 1
     dct = filters.dct_matrix(cfg.n_mfcc, cfg.n_mels)
 
-    kpad, n_bins = -(-(j1 - j0) // 8) * 8, -(-n_used // 8) * 8
+    kpad, n_bins = -(-(j1 - j0) // 16) * 16, -(-n_used // 8) * 8
     n_passes = -(-2 * n_bins // _PASS_COLS)
     table = np.zeros((kpad, n_passes * _PASS_COLS), np.float32)
     table[: j1 - j0, 0 : 2 * n_used : 2] = c[j0:j1, :n_used]
     table[: j1 - j0, 1 : 2 * n_used : 2] = s[j0:j1, :n_used]
-    dft = _fragments(table).reshape(kpad // 8, n_passes, -1).transpose(0, 1)
     mel_tiles = next((m for m in _MEL_TILES if 8 * m >= cfg.n_mels), 0)
-    fb_pad = np.zeros((n_bins, 8 * (mel_tiles or -(-cfg.n_mels // 8))), np.float32)
+    mel_cols = 8 * (mel_tiles or -(-cfg.n_mels // 8))
+    fb_pad = np.zeros((n_passes * _PASS_COLS // 2, mel_cols), np.float32)
     fb_pad[:n_used, : cfg.n_mels] = fb[:n_used]
+    stream = []
+    for p in range(n_passes):
+        stream.append(_tiles(table[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]))
+        bins = slice(p * _PASS_COLS // 2, (p + 1) * _PASS_COLS // 2)
+        stream.append(_tiles(fb_pad[bins]).reshape(-1, _CHUNK))
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
     return _Constants(
         dev(c[:, :n_used]), dev(s[:, :n_used]), dev(fb[:n_used]), dev(dct),
-        n_used, j0, j1, kpad, n_bins, mel_tiles,
-        dft.contiguous().reshape(-1).to(device),
-        _fragments(fb_pad).reshape(-1).to(device),
+        n_used, j0, j1, kpad, n_bins, mel_tiles, torch.cat(stream).reshape(-1).to(device),
     )
 
 
@@ -239,12 +244,12 @@ def build() -> ctypes.CDLL:
     lib = kernel_build.load("frontend_kernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cdt_frontend_spectral.argtypes = [
-        p, i, i, i, i, i, i, i, p, i, p, i, i, i, f, p, p,
+        p, i, i, i, i, i, i, i, p, i, i, i, i, f, p, p,
     ]
     lib.cdt_frontend_spectral.restype = i
     lib.cdt_frontend_epilogue.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
     lib.cdt_frontend_epilogue.restype = i
-    lib.cdt_frontend_smem_a.argtypes = [i, i, i]
+    lib.cdt_frontend_smem_a.argtypes = [i, i]
     lib.cdt_frontend_smem_a.restype = ctypes.c_size_t
     lib.cdt_frontend_smem_b.argtypes = [i, i, i]
     lib.cdt_frontend_smem_b.restype = ctypes.c_size_t
@@ -306,12 +311,12 @@ def power_mel_fused(
             f"of at least 8 samples, got {n_mels} and {cfg.hop_length}"
         )
     lib = build()
-    _check_smem(lib.cdt_frontend_smem_a(cfg.hop_length, k.kpad, k.n_bins), cfg)
+    _check_smem(lib.cdt_frontend_smem_a(cfg.hop_length, k.kpad), cfg)
     with torch.cuda.device(waves.device):
         err = lib.cdt_frontend_spectral(
             waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft,
-            cfg.hop_length, k.j0, k.kpad, k.dft.data_ptr(), k.n_bins,
-            k.fb_frags.data_ptr(), n_mels, k.mel_tiles, int(cfg.use_pre_emphasis),
+            cfg.hop_length, k.j0, k.kpad, k.table.data_ptr(), k.n_bins,
+            n_mels, k.mel_tiles, int(cfg.use_pre_emphasis),
             float(cfg.pre_emphasis_coef), mel.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

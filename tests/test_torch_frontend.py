@@ -311,26 +311,23 @@ def test_tf32_round_is_cvt_rna():
 
 
 @pytest.mark.parametrize("name", ["shipped", "full_band", "narrow_mels", "n_fft_256"])
-def test_fragment_tables_hold_the_plain_tables(name):
-    """Launch A's fragment-ordered hi/lo tables, decoded the way the kernel
-    reads them, give the windowed DFT (cos and -sin interleaved bin by bin,
-    zero past n_used) and the filterbank (zero past n_mels)."""
+def test_table_stream_holds_the_plain_tables(name):
+    """Launch A's chunk stream of hi/lo tiles, decoded the way the kernel
+    reads it, gives the windowed DFT (cos and -sin interleaved bin by bin,
+    zero past n_used) and the filterbank (zero past n_used and n_mels)."""
     cfg = FeatureConfig(**CONFIGS[name])
     k = frontend_kernel._constants(cfg, torch.device("cpu"))
-
-    def decode(frags, rows, cols):
-        f = frags.reshape(rows // 8, cols // 8, 8, 4, 4)  # s, j, g, t, (hi hi lo lo)
-        v = f[..., :2] + f[..., 2:]  # k rows 8s + t and 8s + t + 4
-        return v.permute(0, 4, 3, 1, 2).reshape(rows, cols)  # (s, half, t) x (j, g)
-
-    n_passes = k.dft.numel() // (k.kpad * 512)  # 256 columns of hi and lo a pass
-    per_kstep = k.dft.reshape(n_passes, k.kpad // 8, -1).transpose(0, 1)
-    dft = decode(per_kstep, k.kpad, 256 * n_passes)
-    taps = k.j1 - k.j0
+    taps, ks, n = k.j1 - k.j0, k.kpad // 8, 8 * k.mel_tiles
+    # Per pass: ks DFT chunks, then the filterbank's 16 k-steps; each k-step
+    # a hi and a lo tile of column groups x 2 row groups x 8 columns x 4 rows.
+    passes = k.table.reshape(-1, (ks + n // 16) * 4096)
+    v = passes[:, : ks * 4096].reshape(-1, ks, 2, 32, 2, 8, 4)
+    dft = (v[:, :, 0] + v[:, :, 1]).permute(1, 3, 5, 0, 2, 4).reshape(k.kpad, -1)
     np.testing.assert_allclose(dft[:taps, 0 : 2 * k.n_used : 2], k.cos[k.j0 : k.j1], atol=2e-7)
     np.testing.assert_allclose(dft[:taps, 1 : 2 * k.n_used : 2], k.sin[k.j0 : k.j1], atol=2e-7)
     assert not dft[taps:].any() and not dft[:, 2 * k.n_used :].any()
-    fb = decode(k.fb_frags, k.n_bins, 8 * k.mel_tiles)
+    v = passes[:, ks * 4096 :].reshape(-1, 16, 2, n // 8, 2, 8, 4)
+    fb = (v[:, :, 0] + v[:, :, 1]).permute(0, 1, 3, 5, 2, 4).reshape(-1, n)
     np.testing.assert_allclose(fb[: k.n_used, : cfg.n_mels], k.fb, atol=2e-7)
     assert not fb[k.n_used :].any() and not fb[:, cfg.n_mels :].any()
 

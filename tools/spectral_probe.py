@@ -6,17 +6,23 @@ Times launch A of the front-end kernel (csrc/frontend_kernel.cu) with CUDA
 events at B = 4096 on the shipped config, as built and in variants, each a
 string edit of the source built with the same nvcc flags into
 build/kernels/. The variants compute wrong numbers and are timed only:
-  - one MMA term instead of three: what the tensor-core work costs;
+  - one wgmma term (hi * hi) instead of three: what the DFT's tensor-core
+    work costs;
   - no table copies (the ring's slots keep stale data): what streaming the
     DFT table from L2 costs;
   - no waveform staging;
-  - the DFT cut to one k-step (kpad = 8): staging, mel and fixed costs;
-  - no mel MMAs.
-Then a microbenchmark of the instruction the kernel issues,
-mma.sync.m16n8k8 .tf32, alone: one block of 8 warps on each SM, each warp
-a 4 x 8 tile of accumulators fed the three-term pattern from registers;
-its rate is the ceiling of the kernel's MMAs. Prints the card's name and
-power limit first. Needs a CUDA card and nvcc; imports no JAX.
+  - the DFT cut to one pair of k-steps (kpad = 16): staging, mel and fixed
+    costs;
+  - no mel MMAs (the power is still formed and split, so that the DFT's
+    products stay in use: a variant whose accumulators nobody reads lets
+    the compiler drop the wgmma that writes them).
+Then microbenchmarks of the two MMA instructions alone, one block of 8
+warps on each SM, operands from registers and shared memory that never
+change, the three-term pattern: wgmma m64n256k8 .tf32 (the DFT's, two
+warpgroups, one group in flight) and mma.sync m16n8k8 .tf32 (the mel's,
+each warp a 4 x 8 tile). Their rates are the ceilings of the kernel's
+MMAs. Prints the card's name and power limit first. Needs a CUDA card and
+nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +80,43 @@ __global__ void __launch_bounds__(256, 1) bench(float* out, int iters) {
     for (int j = 0; j < 8; ++j) s += acc[i][j][0] + acc[i][j][1] + acc[i][j][2] + acc[i][j][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
+__global__ void __launch_bounds__(256, 1) bench_wgmma(float* out, int iters) {
+  __shared__ __align__(128) float bs[2 * 2048];
+  for (int i = threadIdx.x; i < 4096; i += 256) bs[i] = __uint_as_float(val(i + 3));
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint64_t base = (uint32_t)__cvta_generic_to_shared(bs);
+  const uint64_t d_hi = ((base & 0x3FFFF) >> 4) | (8ull << 16) | (16ull << 32);
+  const uint64_t d_lo = d_hi + (8192 >> 4);
+  float d[128] = {};
+  uint32_t hi[4], lo[4];
+  for (int x = 0; x < 4; ++x) { hi[x] = val(threadIdx.x * 5 + x); lo[x] = val(threadIdx.x * 7 + x); }
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    WGMMA(lo, d_hi) WGMMA(hi, d_lo) WGMMA(hi, d_hi)
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  float s = 0;
+  for (int i = 0; i < 128; ++i) s += d[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int run_wgmma(int blocks, int iters, float* ms) {
+  float* out;
+  cudaMalloc(&out, blocks * 256 * sizeof(float));
+  cudaEvent_t s, e;
+  cudaEventCreate(&s);
+  cudaEventCreate(&e);
+  bench_wgmma<<<blocks, 256>>>(out, iters);
+  cudaEventRecord(s);
+  bench_wgmma<<<blocks, 256>>>(out, iters);
+  cudaEventRecord(e);
+  cudaEventSynchronize(e);
+  cudaEventElapsedTime(ms, s, e);
+  cudaFree(out);
+  return (int)cudaGetLastError();
+}
 extern "C" int run(int blocks, int iters, float* ms) {
   float* out;
   cudaMalloc(&out, blocks * 256 * sizeof(float));
@@ -90,6 +133,17 @@ extern "C" int run(int blocks, int iters, float* ms) {
   return (int)cudaGetLastError();
 }
 """
+
+
+def wgmma_macro() -> str:
+    """WGMMA(a, desc): d (128 floats) += a (4 TF32 registers) * the tile at desc."""
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(128))
+    regs = ", ".join(f"%{i}" for i in range(128))
+    return (
+        "#define WGMMA(a, desc) asm volatile(\"wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+        f"{{{regs}}}, {{%128, %129, %130, %131}}, %132, 1, 1, 1;\\n\" : {outs} : "
+        '"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc) : "memory");\n'
+    )
 
 
 def build(name: str, source: str) -> ctypes.CDLL:
@@ -117,25 +171,46 @@ def main() -> None:
     ).stdout.strip().splitlines()[0], flush=True)
 
     src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
-    copy_start = src.index('    asm volatile("mbarrier.arrive.expect_tx')
-    copy = src[copy_start : src.index("  }\n", copy_start)]
+    fill_start = src.index('    asm volatile("mbarrier.arrive.expect_tx')
+    fill_copy = src[fill_start : src.index("  }\n", fill_start)]
+    no_copies = edit(
+        src, fill_copy,
+        '    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");\n',
+    )
+    no_copies = edit(
+        no_copies, '" @go mbarrier.arrive.expect_tx.shared::cta.b64 _, [%2], %5;\\n"',
+        '" @go mbarrier.arrive.shared::cta.b64 _, [%2];\\n"',
+    )
+    no_copies = edit(
+        no_copies,
+        '" @go cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"\n'
+        '        " [%3], [%4], %5, [%2];\\n"\n',
+        "",
+    )
     variants = {
         "as built": src,
-        "one MMA term": edit(
-            src, "for (int term = 0; term < 3; ++term)\n#pragma unroll\n      for (int i = 0; i < kM",
-            "for (int term = 2; term < 3; ++term)\n#pragma unroll\n      for (int i = 0; i < kM",
+        "one wgmma term": edit(
+            src,
+            "    wgmma_tf32<kStart>(acc, a_lo[kBuf], b_desc(b));                  // lo * hi\n"
+            "    wgmma_tf32<false>(acc, a_hi[kBuf], b_desc(b + kSlotFloats / 2));  // hi * lo\n"
+            "    wgmma_tf32<false>(acc, a_hi[kBuf], b_desc(b));                    // hi * hi\n",
+            "    wgmma_tf32<kStart>(acc, a_hi[kBuf], b_desc(b));\n",
         ),
-        "no table copies": edit(
-            src, copy,
-            '    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");\n'
-            "    (void)src;\n    (void)len;\n",
-        ),
+        "no table copies": no_copies,
         "no staging": edit(
             src, "if (i0 + u * kThreadsA < len) span[seg * lay.rs + off] = v[u];", "(void)v[u];"
         ),
         "no mel MMAs": edit(
-            src, "for (int sl = 0; mel_live && sl < kFbChunkKs; ++sl)",
-            "for (int sl = 0; false && sl < kFbChunkKs; ++sl)",
+            src,
+            "      if (kFirst && s == 0)\n"
+            "        wgmma_tf32<true>(macc, p_lo[s], b_desc(hi));\n"
+            "      else\n"
+            "        wgmma_tf32<false>(macc, p_lo[s], b_desc(hi));\n"
+            "      wgmma_tf32<false>(macc, p_hi[s], b_desc(hi + 8 * kN));\n"
+            "      wgmma_tf32<false>(macc, p_hi[s], b_desc(hi));\n",
+            # Keep the power, and so the DFT's products, in use: an unused
+            # accumulator lets the compiler drop the wgmma that writes it.
+            "      macc[0] += __uint_as_float(p_hi[s][0] ^ p_lo[s][3]) + hi[0];\n",
         ),
     }
 
@@ -151,7 +226,7 @@ def main() -> None:
         def launch() -> None:
             err = lib.cdt_frontend_spectral(
                 w.data_ptr(), BATCH, cfg.segment_samples, cfg.num_frames, cfg.n_fft,
-                cfg.hop_length, k.j0, kpad, k.dft.data_ptr(), k.n_bins, k.fb_frags.data_ptr(),
+                cfg.hop_length, k.j0, kpad, k.table.data_ptr(), k.n_bins,
                 cfg.n_mels, k.mel_tiles, 0, 0.0, mel.data_ptr(),
                 torch.cuda.current_stream().cuda_stream,
             )
@@ -171,13 +246,21 @@ def main() -> None:
 
     for n, (name, text) in enumerate(variants.items()):
         lib = build(f"spectral_probe_{n}", text)
-        lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, p, i, i, i, f, p, p]
-        for kpad in ([k.kpad, 8] if name == "as built" else [k.kpad]):
+        lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, f, p, p]
+        for kpad in ([k.kpad, 16] if name == "as built" else [k.kpad]):
             print(f"spectral launch B={BATCH}, {name}, kpad={kpad}: {time_variant(lib, kpad):.4f} ms", flush=True)
 
-    lib = build("mma_tf32_probe", MMA_BENCH)
+    lib = build("mma_tf32_probe", wgmma_macro() + MMA_BENCH)
     ms, iters = ctypes.c_float(), 3000
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if lib.run_wgmma(sms, iters, ctypes.byref(ms)):
+        raise RuntimeError("wgmma microbenchmark failed")
+    flops = 2.0 * 64 * 256 * 8 * 3 * iters * 2 * sms
+    print(
+        f"wgmma m64n256k8 tf32 alone (2 warpgroups x {sms} SMs, three terms a group): "
+        f"{ms.value:.3f} ms, {flops / ms.value / 1e9:.1f} TFLOP/s",
+        flush=True,
+    )
     if lib.run(sms, iters, ctypes.byref(ms)):
         raise RuntimeError("mma.sync microbenchmark failed")
     flops = 2.0 * 16 * 8 * 8 * 3 * 32 * iters * 8 * sms
