@@ -78,8 +78,9 @@
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
-// cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip). It works in
-// (feature, time) layout and writes (B, F, T), the reference layout.
+// cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip), frames across
+// threads, the DCT in registers. It writes (B, F, T), the reference layout
+// (the note above epilogue_kernel).
 //
 // Interface: plain C, loaded with ctypes, one function per launch. The
 // caller allocates every buffer; each function launches its kernel on
@@ -100,7 +101,9 @@ constexpr int kSlotFloats = 2 * 8 * kPassCols;      // a ring slot, 16 KB: one D
 constexpr int kMaxSlots = 4;
 constexpr int kStageBatch = 24;                     // staging loads in flight
 constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on sm_90
-constexpr int kThreadsB = 256;
+constexpr int kThreadsB = 128;                      // launch B: 4 warps, one clip
+constexpr int kBatchB = 8;                          // mel rows a launch B thread loads at once
+constexpr int kRedB = 32;                           // floats of launch B's reduction slots
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
 
@@ -119,6 +122,26 @@ struct LayoutA {
 
   __host__ __device__ size_t bytes(int n_slots) const {
     return sizeof(float) * ((size_t)n_slots * kSlotFloats + span) + 12 * kMaxSlots;
+  }
+};
+
+// Launch B's shared memory, in floats: the reduction slots, the DCT table
+// (zero-padded to mp rows, whole batches of kBatchB mel rows, and cp
+// columns, whole chunks of kc MFCCs), the MFCC tile (C x T), the delta
+// tile (C x T, only with delta-deltas), the raw mel (M x T, only for PCEN's
+// smoother).
+struct LayoutB {
+  int kc, cp, mp;
+  size_t mf, d1, mel, floats;
+
+  __host__ __device__ LayoutB(int T, int M, int C, int pcen, int delta_delta) {
+    kc = C <= 8 ? 8 : 16;
+    cp = (C + kc - 1) / kc * kc;
+    mp = (M + kBatchB - 1) / kBatchB * kBatchB;
+    mf = kRedB + (size_t)mp * cp;
+    d1 = mf + (size_t)C * T;
+    mel = d1 + (delta_delta ? (size_t)C * T : 0);
+    floats = mel + (pcen ? (size_t)M * T : 0);
   }
 };
 
@@ -358,33 +381,32 @@ struct Ring {
   }
 };
 
-__device__ __forceinline__ float warp_reduce(float v, int op) {
-  for (int off = 16; off > 0; off >>= 1) {
-    float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = op == 0 ? v + o : (op == 1 ? fmaxf(v, o) : fminf(v, o));
-  }
-  return v;
+// Launch B's reductions over its block of 4 warps: warp_partial folds v
+// across the warp by shuffles and lane 0 leaves it in slot[warp]; after a
+// barrier, gather4 folds the four slots, in the same order in every
+// thread, so that every thread gets the same result. Each reduction of a
+// clip has slots of its own, so none needs a second barrier.
+enum { kSum, kMax, kMin };
+
+template <int kOp>
+__device__ __forceinline__ float fold(float a, float b) {
+  return kOp == kSum ? a + b : (kOp == kMax ? fmaxf(a, b) : fminf(a, b));
 }
 
-// op: 0 sum, 1 max, 2 min. `scratch` holds 32 floats. Every thread gets
-// the result. Ends with a barrier, so `scratch` may be reused at once.
-__device__ float block_reduce(float v, int op, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
-  v = warp_reduce(v, op);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float identity = op == 0 ? 0.0f : (op == 1 ? -INFINITY : INFINITY);
-    float w = lane < n_warps ? scratch[lane] : identity;
-    w = warp_reduce(w, op);
-    if (lane == 0) scratch[32] = w;
-  }
-  __syncthreads();
-  float out = scratch[32];
-  __syncthreads();
-  return out;
+template <int kOp>
+__device__ __forceinline__ void warp_partial(float v, float* slot) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fold<kOp>(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
 }
+
+template <int kOp>
+__device__ __forceinline__ float gather4(const float* slot) {
+  return fold<kOp>(fold<kOp>(slot[0], slot[1]), fold<kOp>(slot[2], slot[3]));
+}
+
+// Every store of launch B's output goes through here.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 // One DFT pass of a warpgroup: its 64 rows, all 256 columns of the pass, k-step by
 // k-step through the ring, into acc. Per k-step the thread gathers and
@@ -603,107 +625,203 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
   }
 }
 
-// Launch B. grid (batch), kThreadsB threads. Works in (feature, time)
-// layout throughout. Shared: mel, log-mel (n_mels*T each), MFCC and
-// delta (n_mfcc*T each), 33 floats of reduction scratch.
-__global__ void epilogue_kernel(
+// Launch B: the epilogue, FP32 on the CUDA cores.
+//  * Replaces the Pallas kernel's steps 4-7 (_kernel, frontend_kernel.py
+//    :152-205): log-mel; the dB branch (clamp to the clip's max - 80,
+//    (db + 80) / 80 in [0, 1]) or the PCEN branch (10-tap zero-padded
+//    smoother, compressive formula, per-clip min-max); the X6 DCT-II of the
+//    log-mel; the unbiased per-clip z-norm of the MFCCs; replicate-padded
+//    deltas and optional delta-deltas; the stack, written as (B, F, T).
+//  * Bound: bytes. A clip of the shipped config is 25.9 KB of power mel in
+//    and 36.4 KB of features out, against 0.17 MFLOP of DCT: 0.0761 ms at
+//    B = 4096 at 3.35 TB/s.
+//  * The earlier design (one 256-thread block a clip, loops over (feature,
+//    time) pairs; 0.257 ms at B = 4096 on an H100, 30% of the bound) was
+//    held back by three things. Shared memory set its occupancy: the raw
+//    mel, log-mel, MFCC and delta tiles took 62 KB at the shipped config,
+//    3 blocks an SM, one at n_fft 256. Each MFCC was a 64-long chain of
+//    dependent FMAs, each behind a shared load and a global one. And a clip
+//    took 11-12 barriers, three in each block reduction, with no other
+//    clip's loads in flight to cover them.
+//  * This design: frames across threads. A block of 128 threads (4 warps)
+//    takes one clip; thread i owns frames i, i + 128, ... . For each frame
+//    it sweeps the clip's power mel row by row, kBatchB rows of loads in
+//    flight: a warp's load is 32 consecutive frames, coalesced. Per row:
+//    one logf, then kc independent FMAs into register accumulators, the
+//    DCT row read from shared memory as float4s at one address across the
+//    warp (a broadcast). The MFCCs past kc (more than 16) take another
+//    sweep. Each accumulator adds its M terms in the order the earlier
+//    design did.
+//  * The dB rows need the clip's max first, so they come from a second
+//    sweep over the clip's power mel, read again from L2 (26 KB a clip,
+//    just read), log recomputed: no log-mel tile. PCEN's smoother reads
+//    neighbouring frames, so PCEN alone (a template parameter) keeps the
+//    raw mel in shared memory, and writes its values before the min-max
+//    and rescales them after, each thread its own.
+//  * Reductions (clip max, PCEN min and max, the MFCCs' sum, then the sum
+//    of squared deviations: the reference's two-pass unbiased form) are
+//    warp shuffles and one 4-value exchange in shared memory, one barrier
+//    each; with the barrier before the deltas a clip of the shipped config
+//    takes 4. Only the z-normed MFCCs (and the first deltas, with
+//    delta-deltas) cross threads through shared memory, for the deltas.
+//  * Shared memory (LayoutB): 9,476 B at the shipped config, so occupancy
+//    is set by registers (__launch_bounds__: at least 8 blocks, 32 warps,
+//    an SM); 48,672 B at 128 mels x 201 frames x 20 MFCCs with
+//    delta-deltas, 151,584 B with PCEN as well.
+template <bool kPcen, int kC>
+__global__ void __launch_bounds__(kThreadsB, 8) epilogue_kernel(
     const float* __restrict__ mel, int n_frames, int n_mels,
-    const float* __restrict__ dct, int n_mfcc, int use_pcen,
-    int delta_delta, int n_features, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int T = n_frames, M = n_mels, C = n_mfcc;
-  const int nm = M * T, nc = C * T;
-  float* mel_s = smem;
-  float* lm_s = mel_s + nm;
-  float* mf_s = lm_s + nm;
-  float* d1_s = mf_s + nc;
-  float* red = d1_s + nc;
+    const float* __restrict__ dct, int n_mfcc, int delta_delta,
+    int n_features, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int T = n_frames, M = n_mels, C = n_mfcc, nc = C * T;
+  const LayoutB lay(T, M, C, kPcen, delta_delta);
+  float* red = reinterpret_cast<float*>(smem4);  // slots: 0 sum, 4 max, 8 min, 12 max, 16 squares
+  float* dct_s = red + kRedB;                    // (mp, cp)
+  float* mf_s = red + lay.mf;                    // (C, T)
+  float* d1_s = red + lay.d1;                    // (C, T), with delta-deltas
+  float* mel_s = red + lay.mel;                  // (M, T), PCEN
+  const int tid = threadIdx.x;
+  const float* src = mel + (size_t)blockIdx.x * M * T;
+  float* o = out + (size_t)blockIdx.x * n_features * T;
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const float* src = mel + (size_t)b * nm;
-  float* o = out + (size_t)b * n_features * T;
-
-  float local_max = -INFINITY;
-  for (int i = tid; i < nm; i += nt) {
-    const float v = src[i];
-    mel_s[i] = v;
-    const float lm = kDbScale * logf(fmaxf(v, kAmin));
-    lm_s[i] = lm;
-    local_max = fmaxf(local_max, lm);
+  for (int i = tid; i < lay.mp * lay.cp; i += kThreadsB) {
+    const int m = i / lay.cp, c = i % lay.cp;
+    dct_s[i] = m < M && c < C ? __ldg(dct + m * C + c) : 0.0f;
   }
   __syncthreads();
 
-  if (!use_pcen) {
-    const float floor_db = block_reduce(local_max, 1, red) - 80.0f;
-    for (int i = tid; i < nm; i += nt) {
-      const float db = fmaxf(lm_s[i], floor_db);
-      o[i] = fminf(fmaxf((db + 80.0f) / 80.0f, 0.0f), 1.0f);
+  // 1. Sweep: log-mel, its max, the DCT into registers; the MFCCs to mf_s.
+  // Rows past M (the last batch's) load 1: a log of 0 times the table's
+  // zero rows.
+  float mx = -INFINITY, sum = 0.0f;
+  for (int t = tid; t < T; t += kThreadsB) {
+    for (int c0 = 0; c0 < C; c0 += kC) {
+      float acc[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
+      for (int m0 = 0; m0 < M; m0 += kBatchB) {
+        float v[kBatchB];
+#pragma unroll
+        for (int u = 0; u < kBatchB; ++u)
+          v[u] = m0 + u < M ? __ldg(src + (size_t)(m0 + u) * T + t) : 1.0f;
+#pragma unroll
+        for (int u = 0; u < kBatchB; ++u) {
+          const bool live = m0 + u < M;
+          if (kPcen && c0 == 0 && live) mel_s[(m0 + u) * T + t] = v[u];
+          const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
+          if (live) mx = fmaxf(mx, lm);
+          const float4* w = reinterpret_cast<const float4*>(dct_s + (m0 + u) * lay.cp + c0);
+#pragma unroll
+          for (int q = 0; q < kC / 4; ++q) {
+            const float4 d = w[q];
+            acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
+            acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
+            acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
+            acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        if (c0 + c < C) {
+          mf_s[(c0 + c) * T + t] = acc[c];
+          sum += acc[c];
+        }
+      }
+    }
+  }
+  warp_partial<kSum>(sum, red);
+  if (!kPcen) warp_partial<kMax>(mx, red + 4);
+  __syncthreads();  // also publishes mel_s
+  const float mean = gather4<kSum>(red) / (float)nc;
+
+  // 2. The mel branch, rows [0, M) of the output.
+  if (!kPcen) {
+    // Second sweep, from L2: dB clamped to the clip's max - 80.
+    const float floor_db = gather4<kMax>(red + 4) - 80.0f;
+    for (int t = tid; t < T; t += kThreadsB) {
+      for (int m0 = 0; m0 < M; m0 += kBatchB) {
+        float v[kBatchB];
+#pragma unroll
+        for (int u = 0; u < kBatchB; ++u)
+          v[u] = m0 + u < M ? __ldg(src + (size_t)(m0 + u) * T + t) : 1.0f;
+#pragma unroll
+        for (int u = 0; u < kBatchB; ++u) {
+          if (m0 + u >= M) break;
+          const float db = fmaxf(kDbScale * logf(fmaxf(v[u], kAmin)), floor_db);
+          put(o + (size_t)(m0 + u) * T + t, fminf(fmaxf((db + 80.0f) / 80.0f, 0.0f), 1.0f));
+        }
+      }
     }
   } else {
     // Smoother: the ten taps in the order the JAX kernel adds them, with
-    // out-of-clip taps counted as zeros.
+    // out-of-clip taps counted as zeros. Values are written, then rescaled
+    // by the same thread once the clip's min and max are known.
     float lo = INFINITY, hi = -INFINITY;
-    for (int i = tid; i < nm; i += nt) {
-      const int m = i / T, t = i % T;
-      const float* row = mel_s + m * T;
-      float s = 0.0f;
-      for (int d = 0; d < 10; ++d) {
-        const int tt = t + d - 5;
-        if (tt >= 0 && tt < T) s += row[tt];
+    for (int t = tid; t < T; t += kThreadsB) {
+      for (int m = 0; m < M; ++m) {
+        const float* row = mel_s + m * T;
+        float s = 0.0f;
+#pragma unroll
+        for (int d = 0; d < 10; ++d) {
+          const int tt = t + d - 5;
+          if (tt >= 0 && tt < T) s += row[tt];
+        }
+        s = s / 10.0f;
+        const float p = sqrtf(row[t] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
+        put(o + (size_t)m * T + t, p);
+        lo = fminf(lo, p);
+        hi = fmaxf(hi, p);
       }
-      s = s / 10.0f;
-      const float p =
-          sqrtf(mel_s[i] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
-      o[i] = p;  // normalized below by this same thread
-      lo = fminf(lo, p);
-      hi = fmaxf(hi, p);
     }
-    lo = block_reduce(lo, 2, red);
-    hi = block_reduce(hi, 1, red);
-    for (int i = tid; i < nm; i += nt) o[i] = (o[i] - lo) / (hi - lo + 1e-8f);
+    warp_partial<kMin>(lo, red + 8);
+    warp_partial<kMax>(hi, red + 12);
+    __syncthreads();
+    lo = gather4<kMin>(red + 8);
+    hi = gather4<kMax>(red + 12);
+    for (int t = tid; t < T; t += kThreadsB)
+      for (int m = 0; m < M; ++m) {
+        float* p = o + (size_t)m * T + t;
+        put(p, (*p - lo) / (hi - lo + 1e-8f));
+      }
   }
 
-  // DCT-II of the log-mel: mf[c, t] = sum_m lm[m, t] * dct[m, c].
-  float local_sum = 0.0f;
-  for (int i = tid; i < nc; i += nt) {
-    const int c = i / T, t = i % T;
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m)
-      acc = fmaf(lm_s[m * T + t], __ldg(dct + m * C + c), acc);
-    mf_s[i] = acc;
-    local_sum += acc;
-  }
-  const float mean = block_reduce(local_sum, 0, red) / (float)nc;
-  float local_sq = 0.0f;
-  for (int i = tid; i < nc; i += nt) {
-    const float dlt = mf_s[i] - mean;
-    local_sq += dlt * dlt;
-  }
-  const float var = block_reduce(local_sq, 0, red) / (float)(nc - 1);
-  const float denom = sqrtf(var) + 1e-8f;
-  for (int i = tid; i < nc; i += nt) {
-    const float z = (mf_s[i] - mean) / denom;
-    mf_s[i] = z;
-    o[nm + i] = z;
-  }
+  // 3. The MFCCs' z-norm (unbiased), rows [M, M + C).
+  float sq = 0.0f;
+  for (int t = tid; t < T; t += kThreadsB)
+    for (int c = 0; c < C; ++c) {
+      const float dv = mf_s[c * T + t] - mean;
+      sq += dv * dv;
+    }
+  warp_partial<kSum>(sq, red + 16);
+  __syncthreads();
+  const float denom = sqrtf(gather4<kSum>(red + 16) / (float)(nc - 1)) + 1e-8f;
+  float* o_mf = o + (size_t)M * T;
+  for (int t = tid; t < T; t += kThreadsB)
+    for (int c = 0; c < C; ++c) {
+      const float z = (mf_s[c * T + t] - mean) / denom;
+      mf_s[c * T + t] = z;
+      put(o_mf + c * T + t, z);
+    }
   __syncthreads();
 
-  // Deltas: replicate-padded central difference along time.
-  for (int i = tid; i < nc; i += nt) {
-    const int t = i % T, row = i - t;
-    const float up = mf_s[row + min(t + 1, T - 1)];
-    const float dn = mf_s[row + max(t - 1, 0)];
-    const float d = (up - dn) / 2.0f;
-    d1_s[i] = d;
-    o[nm + nc + i] = d;
+  // 4. Deltas, rows [M + C, M + 2C), and delta-deltas, [M + 2C, M + 3C):
+  // replicate-padded central differences along time.
+  for (int t = tid; t < T; t += kThreadsB) {
+    const int up = min(t + 1, T - 1), dn = max(t - 1, 0);
+    for (int c = 0; c < C; ++c) {
+      const float d = (mf_s[c * T + up] - mf_s[c * T + dn]) / 2.0f;
+      put(o_mf + nc + c * T + t, d);
+      if (delta_delta) d1_s[c * T + t] = d;
+    }
   }
   if (delta_delta) {
     __syncthreads();
-    for (int i = tid; i < nc; i += nt) {
-      const int t = i % T, row = i - t;
-      const float up = d1_s[row + min(t + 1, T - 1)];
-      const float dn = d1_s[row + max(t - 1, 0)];
-      o[nm + 2 * nc + i] = (up - dn) / 2.0f;
+    for (int t = tid; t < T; t += kThreadsB) {
+      const int up = min(t + 1, T - 1), dn = max(t - 1, 0);
+      for (int c = 0; c < C; ++c)
+        put(o_mf + 2 * nc + c * T + t, (d1_s[c * T + up] - d1_s[c * T + dn]) / 2.0f);
     }
   }
 }
@@ -719,12 +837,14 @@ int set_smem(const void* fn, size_t bytes) {
 extern "C" {
 
 // Shared-memory bytes each launch needs (launch A: with the smallest ring,
-// two slots); the wrapper refuses configs past the card's 227 KB per block.
+// two slots). ops/frontend_kernel.py mirrors both in Python
+// (spectral_smem_bytes, epilogue_smem_bytes) to refuse, and route around,
+// configs past the card's 227 KB per block; chip_smoke.py holds the
+// mirrors against these.
 size_t cdt_frontend_smem_a(int hop, int kpad) { return LayoutA(hop, kpad).bytes(2); }
 
-size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc) {
-  return sizeof(float) *
-         (2 * (size_t)n_mels * n_frames + 2 * (size_t)n_mfcc * n_frames + 33);
+size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int use_pcen, int delta_delta) {
+  return sizeof(float) * LayoutB(n_frames, n_mels, n_mfcc, use_pcen, delta_delta).floats;
 }
 
 // Launch A. wave (B, n_samples); table: the chunk stream its ring reads
@@ -761,13 +881,17 @@ int cdt_frontend_epilogue(
     const float* mel, int batch, int n_frames, int n_mels, const float* dct,
     int n_mfcc, int use_pcen, int delta_delta, int n_features, float* out,
     cudaStream_t stream) {
-  const size_t smem = cdt_frontend_smem_b(n_frames, n_mels, n_mfcc);
-  const int err = set_smem((const void*)epilogue_kernel, smem);
+  const LayoutB lay(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
+  const void* fn = use_pcen ? (lay.kc == 8 ? (const void*)epilogue_kernel<true, 8>
+                                           : (const void*)epilogue_kernel<true, 16>)
+                            : (lay.kc == 8 ? (const void*)epilogue_kernel<false, 8>
+                                           : (const void*)epilogue_kernel<false, 16>);
+  const size_t smem = sizeof(float) * lay.floats;
+  const int err = set_smem(fn, smem);
   if (err) return err;
-  epilogue_kernel<<<batch, kThreadsB, smem, stream>>>(
-      mel, n_frames, n_mels, dct, n_mfcc, use_pcen, delta_delta, n_features,
-      out);
-  return (int)cudaGetLastError();
+  void* args[] = {&mel, &n_frames, &n_mels, &dct, &n_mfcc, &delta_delta, &n_features, &out};
+  const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsB), args, smem, stream);
+  return launched ? (int)launched : (int)cudaGetLastError();
 }
 
 const char* cdt_error_string(int err) {

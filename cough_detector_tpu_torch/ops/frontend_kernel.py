@@ -8,7 +8,7 @@ MFCCs with deltas and optional delta-deltas, and pre-emphasis.
 `extract_features_fused` runs the pair through its two wrappers:
 `power_mel_fused` (launch A: framing, windowed DFT, power, mel, on the
 tensor cores in 3xTF32) and `mel_epilogue_fused` (launch B: log, dB or
-PCEN, DCT, z-norm, deltas). On a CUDA tensor each launches its kernel or
+PCEN, DCT, z-norm, deltas, FP32 with frames across threads). On a CUDA tensor each launches its kernel or
 raises, and adds one to its counter, `SPECTRAL_LAUNCHES` or
 `EPILOGUE_LAUNCHES`; on a CPU tensor each runs its plain version
 (`power_mel_reference`, `mel_epilogue_reference`): the same function in
@@ -21,8 +21,15 @@ kernel and the JAX package against it.
 Unlike the JAX launcher, a config the kernel does not cover (no MFCC, or a
 waveform length other than segment_samples) raises ValueError instead of
 running the plain chain, and spectral contrast raises NotImplementedError
-until the contrast slice is ported. `kernel_supports` is the predicate
-callers route on (ops/frontend.py::extract_features_fast).
+until the contrast slice is ported. On a CUDA tensor the launches also
+raise for what the card cannot take: more than 128 mels or a hop under 8
+samples (launch A), or a block's shared memory past the card's 227 KB
+(either launch). `card_supports` is the predicate callers route on
+(ops/frontend.py::extract_features_fast, the detector's warning): it
+holds exactly when both launches take the config on the card, and is
+computed from the config alone (`spectral_smem_bytes` and
+`epilogue_smem_bytes` mirror the kernel's layouts), so it needs neither
+the built library nor a card.
 """
 
 from __future__ import annotations
@@ -48,6 +55,11 @@ _MAX_GRID_Y = 65535
 _MEL_TILES = (4, 8, 16)  # launch A's mel widths, in n-tiles of 8 mels
 _PASS_COLS = 256  # launch A's DFT columns per pass (re and im of 128 bins)
 _CHUNK = 4096  # floats in one chunk of launch A's table stream (16 KB)
+_ROWS_A = 128  # frames one launch A block owns
+_SLOTS_A = 2  # launch A's smallest ring
+_BARRIERS_A = 12 * 4  # bytes of launch A's ring barriers and counters (4 slots)
+_RED_B = 32  # floats of launch B's reduction slots
+_BATCH_B = 8  # mel rows launch B loads at once (its DCT table's row padding)
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -56,6 +68,70 @@ def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
         cfg.use_mfcc
         and not cfg.use_spectral_contrast
         and n_samples == cfg.segment_samples
+    )
+
+
+def _support(cfg: FeatureConfig) -> tuple:
+    """[j0, j1): the taps where the window is nonzero, and kpad, j1 - j0
+    rounded up to two k-steps of 8 taps (launch A's DFT depth)."""
+    c, _ = filters.dft_matrices(cfg.n_fft, cfg.win_length)
+    support = np.nonzero(np.any(c != 0, axis=1))[0]
+    j0, j1 = int(support[0]), int(support[-1]) + 1
+    return j0, j1, -(-(j1 - j0) // 16) * 16
+
+
+def spectral_smem_bytes(hop: int, kpad: int) -> int:
+    """Launch A's shared memory with its smallest ring, as
+    csrc/frontend_kernel.cu's LayoutA counts it (cdt_frontend_smem_a)."""
+    skew = (4 - hop) % 8
+    span = ((((_ROWS_A - 1) * hop + kpad) // hop + 1) * (hop + skew) + 3) // 4 * 4
+    return 4 * (_SLOTS_A * _CHUNK + span) + _BARRIERS_A
+
+
+def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
+    """Launch B's shared memory, as csrc/frontend_kernel.cu's LayoutB counts
+    it (cdt_frontend_smem_b): reduction slots, the DCT table padded to
+    whole batches of mel rows and whole chunks of MFCCs, the MFCC tile, the
+    delta tile with delta-deltas, the raw mel with PCEN."""
+    m, c, t = cfg.n_mels, cfg.n_mfcc, cfg.num_frames
+    kc = 8 if c <= 8 else 16
+    floats = (
+        _RED_B
+        + -(-m // _BATCH_B) * _BATCH_B * -(-c // kc) * kc
+        + (2 if cfg.use_delta_delta else 1) * c * t
+        + (m * t if cfg.use_pcen else 0)
+    )
+    return 4 * floats
+
+
+def _spectral_refusal(cfg: FeatureConfig) -> str:
+    """Why launch A cannot take this config on the card ('' if it can)."""
+    if cfg.n_mels > 8 * _MEL_TILES[-1] or cfg.hop_length < 8:
+        return (
+            f"the spectral kernel takes at most {8 * _MEL_TILES[-1]} mels and a hop "
+            f"of at least 8 samples, got {cfg.n_mels} and {cfg.hop_length}"
+        )
+    smem = spectral_smem_bytes(cfg.hop_length, _support(cfg)[2])
+    if smem > _MAX_SMEM:
+        return _smem_refusal(smem, cfg)
+    return ""
+
+
+def _smem_refusal(smem: int, cfg: FeatureConfig) -> str:
+    return (
+        f"config needs {smem} bytes of shared memory per block, "
+        f"more than the card's {_MAX_SMEM}: {cfg}"
+    )
+
+
+def card_supports(cfg: FeatureConfig, n_samples: int) -> bool:
+    """Whether both launches take this config at this length on the card:
+    `kernel_supports`, launch A's limits (at most 128 mels, a hop of at
+    least 8 samples, its shared memory) and launch B's shared memory."""
+    return (
+        kernel_supports(cfg, n_samples)
+        and not _spectral_refusal(cfg)
+        and epilogue_smem_bytes(cfg) <= _MAX_SMEM
     )
 
 
@@ -126,11 +202,10 @@ def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
         cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max
     )
     n_used = int(np.max(np.nonzero(np.any(fb != 0, axis=1))[0])) + 1
-    support = np.nonzero(np.any(c != 0, axis=1))[0]
-    j0, j1 = int(support[0]), int(support[-1]) + 1
+    j0, j1, kpad = _support(cfg)
     dct = filters.dct_matrix(cfg.n_mfcc, cfg.n_mels)
 
-    kpad, n_bins = -(-(j1 - j0) // 16) * 16, -(-n_used // 8) * 8
+    n_bins = -(-n_used // 8) * 8
     n_passes = -(-2 * n_bins // _PASS_COLS)
     table = np.zeros((kpad, n_passes * _PASS_COLS), np.float32)
     table[: j1 - j0, 0 : 2 * n_used : 2] = c[j0:j1, :n_used]
@@ -251,7 +326,7 @@ def build() -> ctypes.CDLL:
     lib.cdt_frontend_epilogue.restype = i
     lib.cdt_frontend_smem_a.argtypes = [i, i]
     lib.cdt_frontend_smem_a.restype = ctypes.c_size_t
-    lib.cdt_frontend_smem_b.argtypes = [i, i, i]
+    lib.cdt_frontend_smem_b.argtypes = [i, i, i, i, i]
     lib.cdt_frontend_smem_b.restype = ctypes.c_size_t
     lib.cdt_error_string.argtypes = [i]
     lib.cdt_error_string.restype = ctypes.c_char_p
@@ -268,14 +343,6 @@ def _check_cuda(x: torch.Tensor, ndim: int, name: str) -> None:
         )
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def _check_smem(smem: int, cfg: FeatureConfig) -> None:
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"config needs {smem} bytes of shared memory per block, "
-            f"more than the card's {_MAX_SMEM}: {cfg}"
-        )
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, kernel: str) -> None:
@@ -304,14 +371,11 @@ def power_mel_fused(
     mel = torch.empty((b, n_mels, t), dtype=torch.float32, device=waves.device)
     if b == 0:
         return mel
+    refusal = _spectral_refusal(cfg)
+    if refusal:
+        raise ValueError(refusal)
     k = _constants(cfg, waves.device)
-    if not k.mel_tiles or cfg.hop_length < 8:
-        raise ValueError(
-            f"the spectral kernel takes at most {8 * _MEL_TILES[-1]} mels and a hop "
-            f"of at least 8 samples, got {n_mels} and {cfg.hop_length}"
-        )
     lib = build()
-    _check_smem(lib.cdt_frontend_smem_a(cfg.hop_length, k.kpad), cfg)
     with torch.cuda.device(waves.device):
         err = lib.cdt_frontend_spectral(
             waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft,
@@ -341,9 +405,11 @@ def mel_epilogue_fused(
     out = torch.empty((b, cfg.num_features, t), dtype=torch.float32, device=mel.device)
     if b == 0:
         return out
+    smem = epilogue_smem_bytes(cfg)
+    if smem > _MAX_SMEM:
+        raise ValueError(_smem_refusal(smem, cfg))
     lib = build()
     dct = _constants(cfg, mel.device).dct
-    _check_smem(lib.cdt_frontend_smem_b(t, cfg.n_mels, cfg.n_mfcc), cfg)
     with torch.cuda.device(mel.device):
         err = lib.cdt_frontend_epilogue(
             mel.data_ptr(), b, t, cfg.n_mels, dct.data_ptr(), cfg.n_mfcc,

@@ -97,11 +97,11 @@ class StreamingDetector:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
         self._model = place_model(model, self.device)
         fcfg = config.features
-        if self.device.type == "cuda" and not frontend_kernel.kernel_supports(
+        if self.device.type == "cuda" and not frontend_kernel.card_supports(
             fcfg, self.window_samples
         ):
             warnings.warn(
-                f"the fused CUDA front-end kernel does not cover this feature "
+                f"the fused CUDA front-end kernel does not take this feature "
                 f"config at {self.window_samples}-sample windows; the "
                 f"detector's front end runs the plain torch chain: {fcfg}",
                 stacklevel=2,
