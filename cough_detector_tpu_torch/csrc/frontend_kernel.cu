@@ -102,8 +102,8 @@ constexpr int kMaxSlots = 4;
 constexpr int kStageBatch = 24;                     // staging loads in flight
 constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on sm_90
 constexpr int kThreadsB = 128;                      // launch B: 4 warps, one clip
-constexpr int kBatchB = 8;                          // mel rows a launch B thread loads at once
-constexpr int kRedB = 32;                           // floats of launch B's reduction slots
+constexpr int kRedB = 32;                           // floats of launch B's reduction slots and mbarrier
+constexpr int kBarB = 24;                           // launch B's mbarrier, in those floats
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
 
@@ -125,23 +125,21 @@ struct LayoutA {
   }
 };
 
-// Launch B's shared memory, in floats: the reduction slots, the DCT table
-// (zero-padded to mp rows, whole batches of kBatchB mel rows, and cp
-// columns, whole chunks of kc MFCCs), the MFCC tile (C x T), the delta
-// tile (C x T, only with delta-deltas), the raw mel (M x T, only for PCEN's
-// smoother).
+// Launch B's shared memory, in floats: the reduction slots and the tile's
+// mbarrier, the DCT table (zero-padded to cp columns, whole chunks of kc
+// MFCCs), the clip's power mel (M x T), the MFCC tile (C x T), the delta
+// tile (C x T, only with delta-deltas).
 struct LayoutB {
-  int kc, cp, mp;
-  size_t mf, d1, mel, floats;
+  int kc, cp;
+  size_t tile, mf, d1, floats;
 
-  __host__ __device__ LayoutB(int T, int M, int C, int pcen, int delta_delta) {
+  __host__ __device__ LayoutB(int T, int M, int C, int delta_delta) {
     kc = C <= 8 ? 8 : 16;
     cp = (C + kc - 1) / kc * kc;
-    mp = (M + kBatchB - 1) / kBatchB * kBatchB;
-    mf = kRedB + (size_t)mp * cp;
+    tile = kRedB + (size_t)M * cp;
+    mf = tile + (size_t)M * T;
     d1 = mf + (size_t)C * T;
-    mel = d1 + (delta_delta ? (size_t)C * T : 0);
-    floats = mel + (pcen ? (size_t)M * T : 0);
+    floats = d1 + (delta_delta ? (size_t)C * T : 0);
   }
 };
 
@@ -635,7 +633,7 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
 //  * Bound: bytes. A clip of the shipped config is 25.9 KB of power mel in
 //    and 36.4 KB of features out, against 0.17 MFLOP of DCT: 0.0761 ms at
 //    B = 4096 at 3.35 TB/s.
-//  * The earlier design (one 256-thread block a clip, loops over (feature,
+//  * The first design (one 256-thread block a clip, loops over (feature,
 //    time) pairs; 0.257 ms at B = 4096 on an H100, 30% of the bound) was
 //    held back by three things. Shared memory set its occupancy: the raw
 //    mel, log-mel, MFCC and delta tiles took 62 KB at the shipped config,
@@ -643,83 +641,116 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
 //    dependent FMAs, each behind a shared load and a global one. And a clip
 //    took 11-12 barriers, three in each block reduction, with no other
 //    clip's loads in flight to cover them.
-//  * This design: frames across threads. A block of 128 threads (4 warps)
-//    takes one clip; thread i owns frames i, i + 128, ... . For each frame
-//    it sweeps the clip's power mel row by row, kBatchB rows of loads in
-//    flight: a warp's load is 32 consecutive frames, coalesced. Per row:
-//    one logf, then kc independent FMAs into register accumulators, the
-//    DCT row read from shared memory as float4s at one address across the
-//    warp (a broadcast). The MFCCs past kc (more than 16) take another
-//    sweep. Each accumulator adds its M terms in the order the earlier
-//    design did.
-//  * The dB rows need the clip's max first, so they come from a second
-//    sweep over the clip's power mel, read again from L2 (26 KB a clip,
-//    just read), log recomputed: no log-mel tile. PCEN's smoother reads
-//    neighbouring frames, so PCEN alone (a template parameter) keeps the
-//    raw mel in shared memory, and writes its values before the min-max
-//    and rescales them after, each thread its own.
-//  * Reductions (clip max, PCEN min and max, the MFCCs' sum, then the sum
-//    of squared deviations: the reference's two-pass unbiased form) are
-//    warp shuffles and one 4-value exchange in shared memory, one barrier
-//    each; with the barrier before the deltas a clip of the shipped config
-//    takes 4. Only the z-normed MFCCs (and the first deltas, with
-//    delta-deltas) cross threads through shared memory, for the deltas.
-//  * Shared memory (LayoutB): 9,476 B at the shipped config, so occupancy
-//    is set by registers (__launch_bounds__: at least 8 blocks, 32 warps,
-//    an SM); 48,672 B at 128 mels x 201 frames x 20 MFCCs with
-//    delta-deltas, 151,584 B with PCEN as well.
+//  * A second design, frames across threads for every step (each thread
+//    sweeping its frame's mel row by row from device memory, 8 rows of
+//    loads in flight, then a second sweep for the dB rows once the clip's
+//    max was known), took 0.195 ms: the loads' latency stood in every
+//    thread's way, and the second sweep (from L2, log recomputed) was 43%
+//    of the time (tools/epilogue_probe.py).
+//  * This design. A block of 128 threads (4 warps) takes one clip. One
+//    thread starts a bulk asynchronous copy of the clip's power mel (M x T,
+//    contiguous) into a shared tile on an mbarrier, and the block stages
+//    the DCT table meanwhile: the whole clip is in flight at once, and
+//    while it lands the SM runs other blocks. Steps that are element-wise
+//    run flat over the tile, every lane busy (101 frames fill 128 lanes
+//    only 79%): the log-mel, written back in place, and its max; the dB
+//    rows, written coalesced straight from the tile. The DCT runs frames
+//    across threads: thread i owns frames i, i + 128, ..., and per mel row
+//    reads one log-mel (conflict-free) and the DCT row as float4s at one
+//    address across the warp (a broadcast) into kc independent register
+//    accumulators, in the order the first design added them. MFCCs past kc
+//    (more than 16) take another pass. PCEN (a template parameter) keeps
+//    the raw mel in the tile for its smoother, takes the log in the DCT
+//    pass, writes its values before the min-max and rescales them after,
+//    each thread its own.
+//  * Reductions (clip max, the MFCCs' sum, PCEN's min and max, the sum of
+//    squared deviations: the reference's two-pass unbiased form) are warp
+//    shuffles and one 4-value exchange in shared memory, one barrier each;
+//    a clip of the shipped config takes 5 barriers. Only the z-normed
+//    MFCCs (and the first deltas, with delta-deltas) cross threads again,
+//    through shared memory, for the deltas.
+//  * Shared memory (LayoutB): 35,332 B at the shipped config, 6 blocks (24
+//    warps) an SM; 151,584 B at 128 mels x 201 frames x 20 MFCCs with
+//    delta-deltas.
 template <bool kPcen, int kC>
-__global__ void __launch_bounds__(kThreadsB, 8) epilogue_kernel(
+__global__ void __launch_bounds__(kThreadsB, 6) epilogue_kernel(
     const float* __restrict__ mel, int n_frames, int n_mels,
     const float* __restrict__ dct, int n_mfcc, int delta_delta,
     int n_features, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  const int T = n_frames, M = n_mels, C = n_mfcc, nc = C * T;
-  const LayoutB lay(T, M, C, kPcen, delta_delta);
+  const int T = n_frames, M = n_mels, C = n_mfcc, nm = M * T, nc = C * T;
+  const LayoutB lay(T, M, C, delta_delta);
   float* red = reinterpret_cast<float*>(smem4);  // slots: 0 sum, 4 max, 8 min, 12 max, 16 squares
-  float* dct_s = red + kRedB;                    // (mp, cp)
-  float* mf_s = red + lay.mf;                    // (C, T)
-  float* d1_s = red + lay.d1;                    // (C, T), with delta-deltas
-  float* mel_s = red + lay.mel;                  // (M, T), PCEN
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + kBarB);
+  float* dct_s = red + kRedB;  // (M, cp)
+  float* tile = red + lay.tile;  // (M, T): the power mel; in the dB branch then its log
+  float* mf_s = red + lay.mf;  // (C, T)
+  float* d1_s = red + lay.d1;  // (C, T), with delta-deltas
   const int tid = threadIdx.x;
-  const float* src = mel + (size_t)blockIdx.x * M * T;
+  const float* src = mel + (size_t)blockIdx.x * nm;
   float* o = out + (size_t)blockIdx.x * n_features * T;
 
-  for (int i = tid; i < lay.mp * lay.cp; i += kThreadsB) {
-    const int m = i / lay.cp, c = i % lay.cp;
-    dct_s[i] = m < M && c < C ? __ldg(dct + m * C + c) : 0.0f;
+  // 1. The clip's power mel into the tile: one bulk copy, or plain loads
+  // where the clip is not a whole number of 16-byte units or not aligned
+  // to one.
+  const bool bulk = nm % 4 == 0 && reinterpret_cast<uintptr_t>(mel) % 16 == 0;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (bulk) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(smem_addr(bar)), "r"(4 * nm) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+          ::"r"(smem_addr(tile)), "l"(src), "r"(4 * nm), "r"(smem_addr(bar)) : "memory");
+    }
   }
-  __syncthreads();
+  for (int i = tid; i < M * lay.cp; i += kThreadsB) {
+    const int m = i / lay.cp, c = i % lay.cp;
+    dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
+  }
+  if (!bulk)
+    for (int i = tid; i < nm; i += kThreadsB) tile[i] = __ldg(src + i);
+  __syncthreads();  // the table, and the barrier's init
+  if (bulk) mbar_wait(bar, 0);
 
-  // 1. Sweep: log-mel, its max, the DCT into registers; the MFCCs to mf_s.
-  // Rows past M (the last batch's) load 1: a log of 0 times the table's
-  // zero rows.
-  float mx = -INFINITY, sum = 0.0f;
+  // 2. dB branch, flat over the tile: the log-mel in place and the clip's
+  // max, then rows [0, M) of the output.
+  if (!kPcen) {
+    float mx = -INFINITY;
+    for (int i = tid; i < nm; i += kThreadsB) {
+      const float lm = kDbScale * logf(fmaxf(tile[i], kAmin));
+      tile[i] = lm;
+      mx = fmaxf(mx, lm);
+    }
+    warp_partial<kMax>(mx, red + 4);
+    __syncthreads();
+    const float floor_db = gather4<kMax>(red + 4) - 80.0f;
+    for (int i = tid; i < nm; i += kThreadsB) {
+      const float db = fmaxf(tile[i], floor_db);
+      put(o + i, fminf(fmaxf((db + 80.0f) / 80.0f, 0.0f), 1.0f));
+    }
+  }
+
+  // 3. The DCT, frames across threads, into mf_s; the MFCCs' sum.
+  float sum = 0.0f;
   for (int t = tid; t < T; t += kThreadsB) {
     for (int c0 = 0; c0 < C; c0 += kC) {
       float acc[kC];
 #pragma unroll
       for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
-      for (int m0 = 0; m0 < M; m0 += kBatchB) {
-        float v[kBatchB];
+#pragma unroll 4
+      for (int m = 0; m < M; ++m) {
+        const float v = tile[m * T + t];
+        const float lm = kPcen ? kDbScale * logf(fmaxf(v, kAmin)) : v;
+        const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
 #pragma unroll
-        for (int u = 0; u < kBatchB; ++u)
-          v[u] = m0 + u < M ? __ldg(src + (size_t)(m0 + u) * T + t) : 1.0f;
-#pragma unroll
-        for (int u = 0; u < kBatchB; ++u) {
-          const bool live = m0 + u < M;
-          if (kPcen && c0 == 0 && live) mel_s[(m0 + u) * T + t] = v[u];
-          const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
-          if (live) mx = fmaxf(mx, lm);
-          const float4* w = reinterpret_cast<const float4*>(dct_s + (m0 + u) * lay.cp + c0);
-#pragma unroll
-          for (int q = 0; q < kC / 4; ++q) {
-            const float4 d = w[q];
-            acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
-            acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
-          }
+        for (int q = 0; q < kC / 4; ++q) {
+          const float4 d = w[q];
+          acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
         }
       }
 #pragma unroll
@@ -732,36 +763,16 @@ __global__ void __launch_bounds__(kThreadsB, 8) epilogue_kernel(
     }
   }
   warp_partial<kSum>(sum, red);
-  if (!kPcen) warp_partial<kMax>(mx, red + 4);
-  __syncthreads();  // also publishes mel_s
+  __syncthreads();
   const float mean = gather4<kSum>(red) / (float)nc;
 
-  // 2. The mel branch, rows [0, M) of the output.
-  if (!kPcen) {
-    // Second sweep, from L2: dB clamped to the clip's max - 80.
-    const float floor_db = gather4<kMax>(red + 4) - 80.0f;
-    for (int t = tid; t < T; t += kThreadsB) {
-      for (int m0 = 0; m0 < M; m0 += kBatchB) {
-        float v[kBatchB];
-#pragma unroll
-        for (int u = 0; u < kBatchB; ++u)
-          v[u] = m0 + u < M ? __ldg(src + (size_t)(m0 + u) * T + t) : 1.0f;
-#pragma unroll
-        for (int u = 0; u < kBatchB; ++u) {
-          if (m0 + u >= M) break;
-          const float db = fmaxf(kDbScale * logf(fmaxf(v[u], kAmin)), floor_db);
-          put(o + (size_t)(m0 + u) * T + t, fminf(fmaxf((db + 80.0f) / 80.0f, 0.0f), 1.0f));
-        }
-      }
-    }
-  } else {
-    // Smoother: the ten taps in the order the JAX kernel adds them, with
-    // out-of-clip taps counted as zeros. Values are written, then rescaled
-    // by the same thread once the clip's min and max are known.
+  // 4. PCEN branch, rows [0, M). Smoother: the ten taps in the order the
+  // JAX kernel adds them, with out-of-clip taps counted as zeros.
+  if (kPcen) {
     float lo = INFINITY, hi = -INFINITY;
     for (int t = tid; t < T; t += kThreadsB) {
       for (int m = 0; m < M; ++m) {
-        const float* row = mel_s + m * T;
+        const float* row = tile + m * T;
         float s = 0.0f;
 #pragma unroll
         for (int d = 0; d < 10; ++d) {
@@ -787,41 +798,38 @@ __global__ void __launch_bounds__(kThreadsB, 8) epilogue_kernel(
       }
   }
 
-  // 3. The MFCCs' z-norm (unbiased), rows [M, M + C).
+  // 5. The MFCCs' z-norm (unbiased), flat: rows [M, M + C).
   float sq = 0.0f;
-  for (int t = tid; t < T; t += kThreadsB)
-    for (int c = 0; c < C; ++c) {
-      const float dv = mf_s[c * T + t] - mean;
-      sq += dv * dv;
-    }
+  for (int i = tid; i < nc; i += kThreadsB) {
+    const float dv = mf_s[i] - mean;
+    sq += dv * dv;
+  }
   warp_partial<kSum>(sq, red + 16);
   __syncthreads();
   const float denom = sqrtf(gather4<kSum>(red + 16) / (float)(nc - 1)) + 1e-8f;
-  float* o_mf = o + (size_t)M * T;
-  for (int t = tid; t < T; t += kThreadsB)
-    for (int c = 0; c < C; ++c) {
-      const float z = (mf_s[c * T + t] - mean) / denom;
-      mf_s[c * T + t] = z;
-      put(o_mf + c * T + t, z);
-    }
+  float* o_mf = o + (size_t)nm;
+  for (int i = tid; i < nc; i += kThreadsB) {
+    const float z = (mf_s[i] - mean) / denom;
+    mf_s[i] = z;
+    put(o_mf + i, z);
+  }
   __syncthreads();
 
-  // 4. Deltas, rows [M + C, M + 2C), and delta-deltas, [M + 2C, M + 3C):
-  // replicate-padded central differences along time.
-  for (int t = tid; t < T; t += kThreadsB) {
-    const int up = min(t + 1, T - 1), dn = max(t - 1, 0);
-    for (int c = 0; c < C; ++c) {
-      const float d = (mf_s[c * T + up] - mf_s[c * T + dn]) / 2.0f;
-      put(o_mf + nc + c * T + t, d);
-      if (delta_delta) d1_s[c * T + t] = d;
-    }
+  // 6. Deltas, rows [M + C, M + 2C), and delta-deltas, [M + 2C, M + 3C):
+  // replicate-padded central differences along time, flat over (c, t).
+  for (int i = tid, c = tid / T, t = tid % T; i < nc; i += kThreadsB) {
+    const float* row = mf_s + c * T;
+    const float d = (row[min(t + 1, T - 1)] - row[max(t - 1, 0)]) / 2.0f;
+    put(o_mf + nc + i, d);
+    if (delta_delta) d1_s[i] = d;
+    for (t += kThreadsB; t >= T; t -= T) ++c;
   }
   if (delta_delta) {
     __syncthreads();
-    for (int t = tid; t < T; t += kThreadsB) {
-      const int up = min(t + 1, T - 1), dn = max(t - 1, 0);
-      for (int c = 0; c < C; ++c)
-        put(o_mf + 2 * nc + c * T + t, (d1_s[c * T + up] - d1_s[c * T + dn]) / 2.0f);
+    for (int i = tid, c = tid / T, t = tid % T; i < nc; i += kThreadsB) {
+      const float* row = d1_s + c * T;
+      put(o_mf + 2 * nc + i, (row[min(t + 1, T - 1)] - row[max(t - 1, 0)]) / 2.0f);
+      for (t += kThreadsB; t >= T; t -= T) ++c;
     }
   }
 }
@@ -843,8 +851,8 @@ extern "C" {
 // mirrors against these.
 size_t cdt_frontend_smem_a(int hop, int kpad) { return LayoutA(hop, kpad).bytes(2); }
 
-size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int use_pcen, int delta_delta) {
-  return sizeof(float) * LayoutB(n_frames, n_mels, n_mfcc, use_pcen, delta_delta).floats;
+size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int delta_delta) {
+  return sizeof(float) * LayoutB(n_frames, n_mels, n_mfcc, delta_delta).floats;
 }
 
 // Launch A. wave (B, n_samples); table: the chunk stream its ring reads
@@ -881,7 +889,7 @@ int cdt_frontend_epilogue(
     const float* mel, int batch, int n_frames, int n_mels, const float* dct,
     int n_mfcc, int use_pcen, int delta_delta, int n_features, float* out,
     cudaStream_t stream) {
-  const LayoutB lay(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
+  const LayoutB lay(n_frames, n_mels, n_mfcc, delta_delta);
   const void* fn = use_pcen ? (lay.kc == 8 ? (const void*)epilogue_kernel<true, 8>
                                            : (const void*)epilogue_kernel<true, 16>)
                             : (lay.kc == 8 ? (const void*)epilogue_kernel<false, 8>

@@ -58,8 +58,7 @@ _CHUNK = 4096  # floats in one chunk of launch A's table stream (16 KB)
 _ROWS_A = 128  # frames one launch A block owns
 _SLOTS_A = 2  # launch A's smallest ring
 _BARRIERS_A = 12 * 4  # bytes of launch A's ring barriers and counters (4 slots)
-_RED_B = 32  # floats of launch B's reduction slots
-_BATCH_B = 8  # mel rows launch B loads at once (its DCT table's row padding)
+_RED_B = 32  # floats of launch B's reduction slots and mbarrier
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -90,17 +89,12 @@ def spectral_smem_bytes(hop: int, kpad: int) -> int:
 
 def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
     """Launch B's shared memory, as csrc/frontend_kernel.cu's LayoutB counts
-    it (cdt_frontend_smem_b): reduction slots, the DCT table padded to
-    whole batches of mel rows and whole chunks of MFCCs, the MFCC tile, the
-    delta tile with delta-deltas, the raw mel with PCEN."""
+    it (cdt_frontend_smem_b): reduction slots and an mbarrier, the DCT table
+    padded to whole chunks of MFCCs, the clip's power mel, the MFCC tile,
+    the delta tile with delta-deltas."""
     m, c, t = cfg.n_mels, cfg.n_mfcc, cfg.num_frames
     kc = 8 if c <= 8 else 16
-    floats = (
-        _RED_B
-        + -(-m // _BATCH_B) * _BATCH_B * -(-c // kc) * kc
-        + (2 if cfg.use_delta_delta else 1) * c * t
-        + (m * t if cfg.use_pcen else 0)
-    )
+    floats = _RED_B + m * -(-c // kc) * kc + m * t + (2 if cfg.use_delta_delta else 1) * c * t
     return 4 * floats
 
 
@@ -326,7 +320,7 @@ def build() -> ctypes.CDLL:
     lib.cdt_frontend_epilogue.restype = i
     lib.cdt_frontend_smem_a.argtypes = [i, i]
     lib.cdt_frontend_smem_a.restype = ctypes.c_size_t
-    lib.cdt_frontend_smem_b.argtypes = [i, i, i, i, i]
+    lib.cdt_frontend_smem_b.argtypes = [i, i, i, i]
     lib.cdt_frontend_smem_b.restype = ctypes.c_size_t
     lib.cdt_error_string.argtypes = [i]
     lib.cdt_error_string.restype = ctypes.c_char_p
