@@ -9,16 +9,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      mel, 3xTF32 on the tensor cores; epilogue: power mel to features), and
      the pair, against its plain torch version on the card: the shipped
      config at B = 1, 17, 256, PCEN, pre-emphasis + delta-deltas, 32 mels,
-     n_fft 256, f_max = 8 kHz, and f_max = 8 kHz on a batch with sine
-     sweeps; fails above 1e-3 max-relative deviation. The spectral launch
-     is also held against power_mel_split_reference, the model of its 3xTF32
-     arithmetic, and the features of a single TF32 pass are printed beside
-     (the reason the kernel splits);
+     n_fft 256, 20 MFCCs at n_fft 256, f_max = 8 kHz, 128 mels, 128 mels x
+     201 frames x 20 MFCCs with PCEN and delta-deltas, 36 MFCCs of 40 mels
+     with delta-deltas, and f_max = 8 kHz on a batch with sine sweeps; fails above 1e-3 max-relative deviation. The
+     spectral launch is also held against power_mel_split_reference, the
+     model of its 3xTF32 arithmetic, and the features of a single TF32 pass
+     are printed beside (the reason the kernel splits). Each launch's
+     shared memory is held against its Python mirror, which the card route
+     reads (frontend_kernel.card_supports), and a 160-mel config, more than
+     the spectral launch takes, must run the torch chain on the card;
   4. times each launch and the pair, their plain versions and library
      yardsticks (torch.stft + matmuls, + the torch epilogue for the pair)
      with CUDA events at B = 256 and 4096, beside each launch's bound at the
      card's peak rate (TF32 tensor cores for the spectral launch, with its
-     FP32 CUDA-core bound beside it) and memory rate;
+     FP32 CUDA-core bound beside it) and memory rate; at B = 256 also each
+     launch's device time from torch.profiler (back-to-back calls of a
+     launch this short time the host's dispatch); and the epilogue launch
+     at B = 4096 at n_fft 256 and with PCEN, beside its bound;
   5. serves: a DetectionServer on the card (residual model at full width,
      random weights from a seed, eager ticks, 8 slots, threshold 0) answers
      8 streams of 1.25 s from a loopback DetectionClient; its events must
@@ -100,6 +107,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, kernel: str) -> float:
+    """Mean device time of the kernel whose name holds `kernel` over
+    `iters` calls of fn, from torch.profiler: the card's own clock, with no
+    host dispatch in it. The mean is over the launches the profiler
+    recorded, which may miss one at the edge of its window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == DeviceType.CUDA and kernel in e.name
+    ]
+    if not iters // 2 <= len(times) <= iters:
+        fail(f"the profiler saw {len(times)} launches of {kernel} over {iters} calls")
+    return sum(times) / len(times) / 1e3
+
+
 def main() -> None:
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -144,20 +174,41 @@ def main() -> None:
         return torch.from_numpy(w).to(dev)
 
     full_band = FeatureConfig(f_max=8000.0)
+    n_fft_256 = FeatureConfig(n_fft=256, win_length=200, hop_length=80)
+    widest = FeatureConfig(
+        n_mels=128, f_max=8000.0, n_fft=256, win_length=200, hop_length=80, n_mfcc=20,
+        use_pcen=True, use_delta_delta=True,
+    )
     checks = [
         ("shipped", shipped, waves(1)), ("shipped", shipped, waves(17)),
         ("shipped", shipped, waves(256)),
         ("pcen", FeatureConfig(use_pcen=True), waves(17)),
         ("pre_emphasis+delta_delta", FeatureConfig(use_pre_emphasis=True, use_delta_delta=True), waves(17)),
         ("n_mels=32", FeatureConfig(n_mels=32, n_mfcc=8), waves(17)),
-        ("n_fft=256", FeatureConfig(n_fft=256, win_length=200, hop_length=80), waves(17)),
+        ("n_fft=256", n_fft_256, waves(17)),
+        ("n_fft=256 n_mfcc=20", FeatureConfig(n_fft=256, win_length=200, hop_length=80, n_mfcc=20), waves(17)),
         ("f_max=8000", full_band, waves(17)),
+        ("n_mels=128 f_max=8000", FeatureConfig(n_mels=128, f_max=8000.0), waves(17)),
+        ("n_mels=128 n_fft=256 n_mfcc=20 pcen+delta_delta", widest, waves(17)),
+        # 36 MFCCs: two DCT passes, and tiles after the mel tile (2C > M).
+        ("n_mels=40 n_mfcc=36 delta_delta", FeatureConfig(n_mels=40, n_mfcc=36, use_delta_delta=True), waves(17)),
         ("f_max=8000 sweeps", full_band, sweep_batch(17)),
     ]
     max_abs = {"spectral": 0.0, "epilogue": 0.0}
     split_err = 0.0
+    lib = frontend_kernel.build()
     for name, cfg, w in checks:
         b = w.shape[0]
+        kpad = frontend_kernel._constants(cfg, dev).kpad
+        smem = {
+            "spectral": (lib.cdt_frontend_smem_a(cfg.hop_length, kpad),
+                         frontend_kernel.spectral_smem_bytes(cfg.hop_length, kpad)),
+            "epilogue": (lib.cdt_frontend_smem_b(cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_delta_delta)),
+                         frontend_kernel.epilogue_smem_bytes(cfg)),
+        }
+        print(f"shared memory a block [{name}] (kernel, Python mirror): {smem}", flush=True)
+        if any(c != py for c, py in smem.values()) or not frontend_kernel.card_supports(cfg, cfg.segment_samples):
+            fail(f"the card route's mirror of the kernels' shared memory disagrees on {name}: {smem}")
         mel_want = frontend_kernel.power_mel_reference(w, cfg)
         feat_want = frontend_kernel.mel_epilogue_reference(mel_want, cfg)
         pairs = {
@@ -193,6 +244,18 @@ def main() -> None:
         if pairs["pair"][0].shape != (b, cfg.num_features, cfg.num_frames):
             fail(f"feature image of shape {tuple(pairs['pair'][0].shape)} on {name}")
 
+    # More mels than the spectral launch takes: the card route runs the
+    # torch chain, launches nothing, and raises nothing.
+    wide = FeatureConfig(n_mels=160, f_max=8000.0)
+    w = waves(17)
+    before = (frontend_kernel.SPECTRAL_LAUNCHES, frontend_kernel.EPILOGUE_LAUNCHES)
+    got = frontend.extract_features_fast(w, wide)
+    err = rel_err(got, frontend.extract_features(w, wide))
+    after = (frontend_kernel.SPECTRAL_LAUNCHES, frontend_kernel.EPILOGUE_LAUNCHES)
+    print(f"card route [n_mels=160]: torch chain, max-relative {err:.3e}, launches {before} -> {after}", flush=True)
+    if after != before or not err <= TOL or frontend_kernel.card_supports(wide, wide.segment_samples):
+        fail("a 160-mel config did not run the torch chain on the card")
+
     # -- 4. times ----------------------------------------------------------------
     fb_full = torch.from_numpy(
         filters.mel_filterbank(
@@ -213,17 +276,15 @@ def main() -> None:
         return frontend.stack_features(library_mel(w), shipped)
 
     consts = frontend_kernel._constants(shipped, dev)
-    t_frames, n_mels, n_mfcc = shipped.num_frames, shipped.n_mels, shipped.n_mfcc
+    t_frames, n_mels = shipped.num_frames, shipped.n_mels
     taps, n_used = consts.j1 - consts.j0, consts.n_used
     # Operations each launch needs for one clip. A: the windowed DFT over the
     # window's nonzero taps (a multiply-add each for re and im), the power
-    # (3 a bin) and the mel matmul. B: the DCT matmul, plus about 8
-    # elementwise operations per log-mel value (log, scale, max, dB clamp and
-    # scale) and 10 per MFCC value (z-norm sums and scale, deltas).
+    # (3 a bin) and the mel matmul. B (epilogue_work): the DCT matmul, plus
+    # about 8 elementwise operations per log-mel value (log, scale, max, dB
+    # clamp and scale) and 10 per MFCC value (z-norm sums and scale, deltas).
     flops_a = 4 * t_frames * taps * n_used + 3 * t_frames * n_used + 2 * t_frames * n_used * n_mels
-    flops_b = 2 * t_frames * n_mels * n_mfcc + 8 * n_mels * t_frames + 10 * n_mfcc * t_frames
     table_a = 4 * sum(c.numel() for c in (consts.cos, consts.sin, consts.fb))
-    table_b = 4 * consts.dct.numel()
 
     def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> dict:
         t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
@@ -231,6 +292,13 @@ def main() -> None:
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
         )
+
+    def epilogue_work(cfg: FeatureConfig, b: int) -> tuple:
+        """Launch B's operations and bytes for b clips: the power mel read
+        once, the features written once, the DCT table read once."""
+        t, m, c = cfg.num_frames, cfg.n_mels, cfg.n_mfcc
+        flops = b * (2 * t * m * c + 8 * m * t + 10 * c * t)
+        return flops, 4 * b * (m + cfg.num_features) * t + 4 * m * c
 
     timing = {}
     for b, iters in ((256, 50), (4096, 10)):
@@ -240,9 +308,7 @@ def main() -> None:
         if not mel_err <= TOL:
             fail(f"spectral kernel disagrees with its plain version at B={b}: {mel_err:.3e}")
         lib_err = rel_err(library(w), frontend_kernel.extract_features_fused(w, shipped))
-        mel_bytes = 4 * b * n_mels * t_frames
-        feat_bytes = 4 * b * shipped.num_features * t_frames
-        bytes_a = 4 * b * shipped.segment_samples + mel_bytes + table_a
+        bytes_a = 4 * b * (shipped.segment_samples + n_mels * t_frames) + table_a
         spectral = dict(
             ms=cuda_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), iters),
             plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, shipped), iters),
@@ -255,13 +321,16 @@ def main() -> None:
             ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), iters),
             plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, shipped), iters),
             library_ms=None,
-            **bound(b * flops_b, mel_bytes + feat_bytes + table_b),
+            **bound(*epilogue_work(shipped, b)),
         )
         pair = dict(
             ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, shipped), iters),
             plain_ms=cuda_ms(lambda: frontend_kernel.frontend_kernel_reference(w, shipped), iters),
             library_ms=cuda_ms(lambda: library(w), iters),
         )
+        if b == 256:  # the card's own time, beside the events' host-bound one
+            spectral["device_ms"] = device_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), iters, "spectral_kernel")
+            epilogue["device_ms"] = device_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), iters, "epilogue_kernel")
         timing[b] = dict(spectral=spectral, epilogue=epilogue)
         print(f"spectral kernel vs plain at B={b}: max-relative {mel_err:.3e}", flush=True)
         for part, tm in (("spectral", spectral), ("epilogue", epilogue)):
@@ -271,10 +340,15 @@ def main() -> None:
                 f"({100 * tm['bound_fp32_ms'] / tm['ms']:.1f}%)"
                 if "bound_fp32_ms" in tm else ""
             )
+            dev_ms = (
+                f"; device time (profiler) {tm['device_ms']:.4f} ms, "
+                f"{100 * tm['bound_ms'] / tm['device_ms']:.1f}% of bound"
+                if "device_ms" in tm else ""
+            )
             print(
                 f"times {part} B={b}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
                 f"library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
-                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{fp32}",
+                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{fp32}{dev_ms}",
                 flush=True,
             )
         print(
@@ -282,8 +356,24 @@ def main() -> None:
             f"library {pair['library_ms']:.4f} ms (torch.stft + matmuls + torch epilogue; "
             f"vs kernels max-relative {lib_err:.2e}); operations {b * flops_a / 1e9:.3f} "
             f"GFLOP spectral at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (FP32 "
-            f"{PEAK_FP32_FLOPS / 1e12:.0f}), {b * flops_b / 1e9:.3f} GFLOP epilogue, bytes at "
+            f"{PEAK_FP32_FLOPS / 1e12:.0f}), {epilogue_work(shipped, b)[0] / 1e9:.3f} GFLOP epilogue, bytes at "
             f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s",
+            flush=True,
+        )
+
+    # The epilogue launch on the other layouts it takes, at B = 4096.
+    for name, cfg in (("n_fft=256", n_fft_256), ("pcen", FeatureConfig(use_pcen=True))):
+        w = waves(4096)
+        mel = frontend_kernel.power_mel_fused(w, cfg)
+        tm = dict(
+            ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, cfg), 10),
+            plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, cfg), 10),
+            **bound(*epilogue_work(cfg, 4096)),
+        )
+        print(
+            f"times epilogue B=4096 [{name}]: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms; "
+            f"bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; kernel at "
+            f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of bound",
             flush=True,
         )
 

@@ -78,9 +78,10 @@
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
-// cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip), frames across
-// threads, the DCT in registers. It writes (B, F, T), the reference layout
-// (the note above epilogue_kernel).
+// cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip). The clip sits
+// in one shared tile; the DCT runs frames across threads into registers.
+// It writes (B, F, T), the reference layout (the note above
+// epilogue_kernel).
 //
 // Interface: plain C, loaded with ctypes, one function per launch. The
 // caller allocates every buffer; each function launches its kernel on
@@ -102,8 +103,8 @@ constexpr int kMaxSlots = 4;
 constexpr int kStageBatch = 24;                     // staging loads in flight
 constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on sm_90
 constexpr int kThreadsB = 128;                      // launch B: 4 warps, one clip
-constexpr int kRedB = 32;                           // floats of launch B's reduction slots and mbarrier
-constexpr int kBarB = 24;                           // launch B's mbarrier, in those floats
+constexpr int kLoadB = 16;                          // loads a launch B thread keeps in flight
+constexpr int kRedB = 32;                           // floats of launch B's reduction slots
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
 
@@ -125,21 +126,25 @@ struct LayoutA {
   }
 };
 
-// Launch B's shared memory, in floats: the reduction slots and the tile's
-// mbarrier, the DCT table (zero-padded to cp columns, whole chunks of kc
-// MFCCs), the clip's power mel (M x T), the MFCC tile (C x T), the delta
-// tile (C x T, only with delta-deltas).
+// Launch B's layout. The DCT takes kc MFCCs a pass, its table padded to cp
+// columns. Shared memory, in floats: the reduction slots, the DCT table
+// (M x cp), the clip's power mel (M x T), the MFCC tile (C x T) and, with
+// delta-deltas, the delta tile (C x T). The MFCC and delta tiles take the
+// mel tile's first 2C rows where those fit and the DCT takes one pass (see
+// epilogue_kernel), else they follow it.
 struct LayoutB {
   int kc, cp;
   size_t tile, mf, d1, floats;
 
   __host__ __device__ LayoutB(int T, int M, int C, int delta_delta) {
-    kc = C <= 8 ? 8 : 16;
+    kc = C <= 8 ? 8 : (C <= 16 ? 16 : 32);
     cp = (C + kc - 1) / kc * kc;
     tile = kRedB + (size_t)M * cp;
-    mf = tile + (size_t)M * T;
+    const size_t tile_end = tile + (size_t)M * T;
+    mf = C <= 32 && 2 * C <= M ? tile : tile_end;
     d1 = mf + (size_t)C * T;
-    floats = d1 + (delta_delta ? (size_t)C * T : 0);
+    const size_t end = d1 + (delta_delta ? (size_t)C * T : 0);
+    floats = end > tile_end ? end : tile_end;
   }
 };
 
@@ -403,7 +408,8 @@ __device__ __forceinline__ float gather4(const float* slot) {
   return fold<kOp>(fold<kOp>(slot[0], slot[1]), fold<kOp>(slot[2], slot[3]));
 }
 
-// Every store of launch B's output goes through here.
+// Every store of launch B's output goes through here (tools/epilogue_probe.py
+// empties it to time the launch without them).
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 // One DFT pass of a warpgroup: its 64 rows, all 256 columns of the pass, k-step by
@@ -641,98 +647,116 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
 //    dependent FMAs, each behind a shared load and a global one. And a clip
 //    took 11-12 barriers, three in each block reduction, with no other
 //    clip's loads in flight to cover them.
-//  * A second design, frames across threads for every step (each thread
-//    sweeping its frame's mel row by row from device memory, 8 rows of
-//    loads in flight, then a second sweep for the dB rows once the clip's
-//    max was known), took 0.195 ms: the loads' latency stood in every
-//    thread's way, and the second sweep (from L2, log recomputed) was 43%
-//    of the time (tools/epilogue_probe.py).
-//  * This design. A block of 128 threads (4 warps) takes one clip. One
-//    thread starts a bulk asynchronous copy of the clip's power mel (M x T,
-//    contiguous) into a shared tile on an mbarrier, and the block stages
-//    the DCT table meanwhile: the whole clip is in flight at once, and
-//    while it lands the SM runs other blocks. Steps that are element-wise
-//    run flat over the tile, every lane busy (101 frames fill 128 lanes
-//    only 79%): the log-mel, written back in place, and its max; the dB
-//    rows, written coalesced straight from the tile. The DCT runs frames
-//    across threads: thread i owns frames i, i + 128, ..., and per mel row
-//    reads one log-mel (conflict-free) and the DCT row as float4s at one
-//    address across the warp (a broadcast) into kc independent register
-//    accumulators, in the order the first design added them. MFCCs past kc
-//    (more than 16) take another pass. PCEN (a template parameter) keeps
-//    the raw mel in the tile for its smoother, takes the log in the DCT
-//    pass, writes its values before the min-max and rescales them after,
-//    each thread its own.
-//  * Reductions (clip max, the MFCCs' sum, PCEN's min and max, the sum of
+//  * What lost to this design on the card (tools/epilogue_probe.py,
+//    PERF.md): each thread sweeping its frames' mel from device memory, and
+//    again for the dB rows (the loads' latency in every thread's way); one
+//    bulk asynchronous copy of the clip instead of plain loads; the DCT
+//    table read from L1 under a 64-register cap.
+//  * This design. A block of 128 threads (4 warps) takes one clip and holds
+//    it in one shared tile (M x T). It loads the clip flat, every lane busy
+//    (101 frames would fill 128 lanes only 79%), kLoadB coalesced loads in
+//    flight a thread; the dB branch stores the log-mel and takes the clip's
+//    max as it goes, then writes the dB rows flat from the tile. Then the
+//    DCT, frames across threads: thread i owns frames i, i + 128, ..., and
+//    per mel row reads one log-mel (conflict-free) and the DCT row as
+//    float4s from shared memory at one address across the warp (a
+//    broadcast) into kc independent register accumulators, in the order the
+//    first design added them. MFCCs past 32 take another pass.
+//  * From the DCT on, a thread reads only its own frames' column of the
+//    tile, so the MFCCs (C x T) overwrite the tile's first C rows, and the
+//    deltas the next C, where they fit (C <= 32, 2C <= M): at the shipped
+//    config shared memory is the tile and the DCT table, 30,080 B, 7 blocks
+//    (28 warps) an SM; 119,424 B at 128 mels x 201 frames x 20 MFCCs.
+//  * PCEN (a template parameter) keeps the raw mel in the tile for its
+//    smoother, writes its values before the min-max and rescales them
+//    after, each thread its own, and takes the log in the DCT pass.
+//  * Reductions (clip max, PCEN's min and max, the MFCCs' sum, the sum of
 //    squared deviations: the reference's two-pass unbiased form) are warp
 //    shuffles and one 4-value exchange in shared memory, one barrier each;
-//    a clip of the shipped config takes 5 barriers. Only the z-normed
-//    MFCCs (and the first deltas, with delta-deltas) cross threads again,
-//    through shared memory, for the deltas.
-//  * Shared memory (LayoutB): 35,332 B at the shipped config, 6 blocks (24
-//    warps) an SM; 151,584 B at 128 mels x 201 frames x 20 MFCCs with
-//    delta-deltas.
+//    with the barrier before the DCT and the one before the deltas, a clip
+//    of the shipped config takes 5 barriers.
+//  * Numerics as the reference's, except (db + 80) / 80, taken as a
+//    multiply by 1/80: a unit in the last place at most.
 template <bool kPcen, int kC>
-__global__ void __launch_bounds__(kThreadsB, 6) epilogue_kernel(
+__global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
     const float* __restrict__ mel, int n_frames, int n_mels,
     const float* __restrict__ dct, int n_mfcc, int delta_delta,
     int n_features, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int T = n_frames, M = n_mels, C = n_mfcc, nm = M * T, nc = C * T;
   const LayoutB lay(T, M, C, delta_delta);
-  float* red = reinterpret_cast<float*>(smem4);  // slots: 0 sum, 4 max, 8 min, 12 max, 16 squares
-  uint64_t* bar = reinterpret_cast<uint64_t*>(red + kBarB);
-  float* dct_s = red + kRedB;  // (M, cp)
-  float* tile = red + lay.tile;  // (M, T): the power mel; in the dB branch then its log
-  float* mf_s = red + lay.mf;  // (C, T)
-  float* d1_s = red + lay.d1;  // (C, T), with delta-deltas
+  float* red = reinterpret_cast<float*>(smem4);  // slots: 0 max, 4 min, 8 max, 12 sum, 16 squares
+  float* dct_s = red + kRedB;                    // (M, cp)
+  float* tile = red + lay.tile;                  // (M, T): the power mel; in the dB branch its log
+  float* mf_s = red + lay.mf;                    // (C, T)
+  float* d1_s = red + lay.d1;                    // (C, T), with delta-deltas
   const int tid = threadIdx.x;
   const float* src = mel + (size_t)blockIdx.x * nm;
   float* o = out + (size_t)blockIdx.x * n_features * T;
 
-  // 1. The clip's power mel into the tile: one bulk copy, or plain loads
-  // where the clip is not a whole number of 16-byte units or not aligned
-  // to one.
-  const bool bulk = nm % 4 == 0 && reinterpret_cast<uintptr_t>(mel) % 16 == 0;
-  if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (bulk) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   ::"r"(smem_addr(bar)), "r"(4 * nm) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-          ::"r"(smem_addr(tile)), "l"(src), "r"(4 * nm), "r"(smem_addr(bar)) : "memory");
-    }
-  }
+  // 1. The DCT table, and the clip into the tile, flat; in the dB branch
+  // as its log-mel, with the clip's max.
   for (int i = tid; i < M * lay.cp; i += kThreadsB) {
     const int m = i / lay.cp, c = i % lay.cp;
     dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
   }
-  if (!bulk)
-    for (int i = tid; i < nm; i += kThreadsB) tile[i] = __ldg(src + i);
-  __syncthreads();  // the table, and the barrier's init
-  if (bulk) mbar_wait(bar, 0);
-
-  // 2. dB branch, flat over the tile: the log-mel in place and the clip's
-  // max, then rows [0, M) of the output.
-  if (!kPcen) {
-    float mx = -INFINITY;
-    for (int i = tid; i < nm; i += kThreadsB) {
-      const float lm = kDbScale * logf(fmaxf(tile[i], kAmin));
-      tile[i] = lm;
-      mx = fmaxf(mx, lm);
+  float mx = -INFINITY;
+  for (int i0 = tid; i0 < nm; i0 += kLoadB * kThreadsB) {
+    float v[kLoadB];
+#pragma unroll
+    for (int u = 0; u < kLoadB; ++u) {
+      const int i = i0 + u * kThreadsB;
+      v[u] = i < nm ? __ldg(src + i) : 1.0f;
     }
-    warp_partial<kMax>(mx, red + 4);
-    __syncthreads();
-    const float floor_db = gather4<kMax>(red + 4) - 80.0f;
-    for (int i = tid; i < nm; i += kThreadsB) {
-      const float db = fmaxf(tile[i], floor_db);
-      put(o + i, fminf(fmaxf((db + 80.0f) / 80.0f, 0.0f), 1.0f));
+#pragma unroll
+    for (int u = 0; u < kLoadB; ++u) {
+      const int i = i0 + u * kThreadsB;
+      if (i >= nm) break;
+      if (kPcen) {
+        tile[i] = v[u];
+      } else {
+        const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
+        tile[i] = lm;
+        mx = fmaxf(mx, lm);
+      }
     }
   }
+  if (!kPcen) warp_partial<kMax>(mx, red);
+  __syncthreads();
 
-  // 3. The DCT, frames across threads, into mf_s; the MFCCs' sum.
+  // 2. Rows [0, M). The dB branch: clamped to the clip's max - 80, flat.
+  // The PCEN branch: the smoother's ten taps in the order the JAX kernel
+  // adds them, out-of-clip taps counted as zeros.
+  float lo = INFINITY, hi = -INFINITY;
+  if (!kPcen) {
+    const float floor_db = gather4<kMax>(red) - 80.0f;
+    for (int i = tid; i < nm; i += kThreadsB) {
+      const float db = fmaxf(tile[i], floor_db);
+      put(o + i, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
+    }
+  } else {
+    for (int t = tid; t < T; t += kThreadsB) {
+      for (int m = 0; m < M; ++m) {
+        const float* row = tile + m * T;
+        float s = 0.0f;
+#pragma unroll
+        for (int d = 0; d < 10; ++d) {
+          const int tt = t + d - 5;
+          if (tt >= 0 && tt < T) s += row[tt];
+        }
+        s = s / 10.0f;
+        const float p = sqrtf(row[t] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
+        put(o + (size_t)m * T + t, p);
+        lo = fminf(lo, p);
+        hi = fmaxf(hi, p);
+      }
+    }
+    warp_partial<kMin>(lo, red + 4);
+    warp_partial<kMax>(hi, red + 8);
+  }
+  __syncthreads();  // no thread reads another's frames after this
+
+  // 3. The DCT, frames across threads.
   float sum = 0.0f;
   for (int t = tid; t < T; t += kThreadsB) {
     for (int c0 = 0; c0 < C; c0 += kC) {
@@ -762,35 +786,13 @@ __global__ void __launch_bounds__(kThreadsB, 6) epilogue_kernel(
       }
     }
   }
-  warp_partial<kSum>(sum, red);
+  warp_partial<kSum>(sum, red + 12);
   __syncthreads();
-  const float mean = gather4<kSum>(red) / (float)nc;
+  const float mean = gather4<kSum>(red + 12) / (float)nc;
 
-  // 4. PCEN branch, rows [0, M). Smoother: the ten taps in the order the
-  // JAX kernel adds them, with out-of-clip taps counted as zeros.
-  if (kPcen) {
-    float lo = INFINITY, hi = -INFINITY;
-    for (int t = tid; t < T; t += kThreadsB) {
-      for (int m = 0; m < M; ++m) {
-        const float* row = tile + m * T;
-        float s = 0.0f;
-#pragma unroll
-        for (int d = 0; d < 10; ++d) {
-          const int tt = t + d - 5;
-          if (tt >= 0 && tt < T) s += row[tt];
-        }
-        s = s / 10.0f;
-        const float p = sqrtf(row[t] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
-        put(o + (size_t)m * T + t, p);
-        lo = fminf(lo, p);
-        hi = fmaxf(hi, p);
-      }
-    }
-    warp_partial<kMin>(lo, red + 8);
-    warp_partial<kMax>(hi, red + 12);
-    __syncthreads();
-    lo = gather4<kMin>(red + 8);
-    hi = gather4<kMax>(red + 12);
+  if (kPcen) {  // rescale this thread's PCEN values
+    lo = gather4<kMin>(red + 4);
+    hi = gather4<kMax>(red + 8);
     for (int t = tid; t < T; t += kThreadsB)
       for (int m = 0; m < M; ++m) {
         float* p = o + (size_t)m * T + t;
@@ -798,7 +800,7 @@ __global__ void __launch_bounds__(kThreadsB, 6) epilogue_kernel(
       }
   }
 
-  // 5. The MFCCs' z-norm (unbiased), flat: rows [M, M + C).
+  // 4. The MFCCs' z-norm (unbiased), flat: rows [M, M + C).
   float sq = 0.0f;
   for (int i = tid; i < nc; i += kThreadsB) {
     const float dv = mf_s[i] - mean;
@@ -815,7 +817,7 @@ __global__ void __launch_bounds__(kThreadsB, 6) epilogue_kernel(
   }
   __syncthreads();
 
-  // 6. Deltas, rows [M + C, M + 2C), and delta-deltas, [M + 2C, M + 3C):
+  // 5. Deltas, rows [M + C, M + 2C), and delta-deltas, [M + 2C, M + 3C):
   // replicate-padded central differences along time, flat over (c, t).
   for (int i = tid, c = tid / T, t = tid % T; i < nc; i += kThreadsB) {
     const float* row = mf_s + c * T;
@@ -890,10 +892,13 @@ int cdt_frontend_epilogue(
     int n_mfcc, int use_pcen, int delta_delta, int n_features, float* out,
     cudaStream_t stream) {
   const LayoutB lay(n_frames, n_mels, n_mfcc, delta_delta);
-  const void* fn = use_pcen ? (lay.kc == 8 ? (const void*)epilogue_kernel<true, 8>
-                                           : (const void*)epilogue_kernel<true, 16>)
-                            : (lay.kc == 8 ? (const void*)epilogue_kernel<false, 8>
-                                           : (const void*)epilogue_kernel<false, 16>);
+  const void* fn =
+      use_pcen ? (lay.kc == 8    ? (const void*)epilogue_kernel<true, 8>
+                  : lay.kc == 16 ? (const void*)epilogue_kernel<true, 16>
+                                 : (const void*)epilogue_kernel<true, 32>)
+               : (lay.kc == 8    ? (const void*)epilogue_kernel<false, 8>
+                  : lay.kc == 16 ? (const void*)epilogue_kernel<false, 16>
+                                 : (const void*)epilogue_kernel<false, 32>);
   const size_t smem = sizeof(float) * lay.floats;
   const int err = set_smem(fn, smem);
   if (err) return err;

@@ -58,7 +58,7 @@ _CHUNK = 4096  # floats in one chunk of launch A's table stream (16 KB)
 _ROWS_A = 128  # frames one launch A block owns
 _SLOTS_A = 2  # launch A's smallest ring
 _BARRIERS_A = 12 * 4  # bytes of launch A's ring barriers and counters (4 slots)
-_RED_B = 32  # floats of launch B's reduction slots and mbarrier
+_RED_B = 32  # floats of launch B's reduction slots
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -89,13 +89,17 @@ def spectral_smem_bytes(hop: int, kpad: int) -> int:
 
 def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
     """Launch B's shared memory, as csrc/frontend_kernel.cu's LayoutB counts
-    it (cdt_frontend_smem_b): reduction slots and an mbarrier, the DCT table
-    padded to whole chunks of MFCCs, the clip's power mel, the MFCC tile,
-    the delta tile with delta-deltas."""
+    it (cdt_frontend_smem_b): reduction slots, the DCT table padded to whole
+    passes of its DCT (8, 16 or 32 MFCCs a pass), the clip's power mel; the
+    MFCC tile and, with delta-deltas, the delta tile take the mel tile's
+    rows where n_mfcc <= 32 and 2 * n_mfcc <= n_mels, and follow it
+    otherwise."""
     m, c, t = cfg.n_mels, cfg.n_mfcc, cfg.num_frames
-    kc = 8 if c <= 8 else 16
-    floats = _RED_B + m * -(-c // kc) * kc + m * t + (2 if cfg.use_delta_delta else 1) * c * t
-    return 4 * floats
+    kc = 8 if c <= 8 else 16 if c <= 16 else 32
+    floats = m * -(-c // kc) * kc + m * t
+    if not (c <= 32 and 2 * c <= m):
+        floats += (2 if cfg.use_delta_delta else 1) * c * t
+    return 4 * (_RED_B + floats)
 
 
 def _spectral_refusal(cfg: FeatureConfig) -> str:

@@ -30,6 +30,9 @@ CONFIGS = {
     "full_band": dict(f_max=8000.0),
     "n_fft_256": dict(n_fft=256, win_length=200, hop_length=80),
 }
+# Configs the epilogue's stage test holds beside CONFIGS: the widest mel
+# count the spectral launch takes.
+WIDE = {"wide_mels": dict(n_mels=128, f_max=8000.0)}
 
 
 def _launches():
@@ -69,7 +72,7 @@ def jax_outputs():
 
     def get(name):
         if name not in cache:
-            kw = CONFIGS[name]
+            kw = {**CONFIGS, **WIDE}[name]
             w = _clips(9, seed=4, pcen=kw.get("use_pcen", False))
             cfg = JaxFeatureConfig(**kw)
             cache[name] = (
@@ -187,14 +190,22 @@ def test_power_mel_stage_vs_jax(name):
     assert _rel(got, want) < TOL
 
 
-@pytest.mark.parametrize("name", ["shipped", "pcen", "pre_emphasis_delta_delta", "narrow_mels"])
+@pytest.mark.parametrize(
+    "name",
+    [
+        "shipped", "pcen", "pre_emphasis_delta_delta", "narrow_mels", "n_fft_256",
+        "full_band", "wide_mels",
+    ],
+)
 def test_mel_epilogue_stage_vs_jax(jax_outputs, name):
     """Launch B's wrapper on CPU tensors (its plain version), fed JAX's own
-    power mel, gives JAX's feature image."""
+    power mel, gives JAX's feature image: 32 to 128 mels, 101 and 201
+    frames, PCEN and delta-deltas."""
     w, jnp_out, _ = jax_outputs(name)
-    mel = _jax_power_mel(w, JaxFeatureConfig(**CONFIGS[name]))
+    kw = {**CONFIGS, **WIDE}[name]
+    mel = _jax_power_mel(w, JaxFeatureConfig(**kw))
     got = frontend_kernel.mel_epilogue_fused(
-        torch.from_numpy(np.ascontiguousarray(mel)), FeatureConfig(**CONFIGS[name])
+        torch.from_numpy(np.ascontiguousarray(mel)), FeatureConfig(**kw)
     ).numpy()
     assert got.shape == jnp_out.shape
     assert _rel(got, jnp_out) < TOL
@@ -341,3 +352,64 @@ def test_wide_mel_config_runs_plain_on_cpu():
     assert got.shape == (2, 160, cfg.num_frames)
     assert torch.equal(got, frontend_kernel.power_mel_reference(w, cfg))
     assert frontend_kernel._constants(cfg, torch.device("cpu")).mel_tiles == 0
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_card_supports_the_parity_configs(name):
+    """Both launches take every parity config on the card, as far as the
+    config alone can tell (no library, no card)."""
+    cfg = FeatureConfig(**CONFIGS[name])
+    assert frontend_kernel.card_supports(cfg, cfg.segment_samples)
+    assert not frontend_kernel.card_supports(cfg, cfg.segment_samples - 1)
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(n_mels=160, f_max=8000.0), dict(hop_length=4)], ids=["160_mels", "hop_4"]
+)
+def test_card_refuses_what_the_spectral_launch_cannot_take(kw):
+    """The JAX launcher runs its Pallas kernel for these configs; the port's
+    spectral launch takes at most 128 mels and a hop of at least 8, so the
+    card route sends them to the torch chain."""
+    cfg = FeatureConfig(**kw)
+    assert frontend_kernel.kernel_supports(cfg, cfg.segment_samples)
+    assert not frontend_kernel.card_supports(cfg, cfg.segment_samples)
+
+
+def test_fast_runs_a_wide_mel_config_vs_jax():
+    """extract_features_fast with 160 mels (more than the spectral launch
+    takes) matches the JAX chain."""
+    cfg = FeatureConfig(n_mels=160, f_max=8000.0)
+    w = _clips(3, seed=9)
+    before = _launches()
+    got = frontend.extract_features_fast(w, cfg, device="cpu").numpy()
+    want = np.asarray(
+        jax_frontend.extract_features(w, JaxFeatureConfig(n_mels=160, f_max=8000.0))
+    )
+    assert got.shape == want.shape == (3, cfg.num_features, cfg.num_frames)
+    assert _rel(got, want) < TOL
+    assert _launches() == before
+
+
+def test_epilogue_smem_at_the_shipped_config():
+    """Launch B's shared memory (its Python mirror) stays under the 48 KB a
+    block gets without opting in, so many clips share an SM."""
+    assert frontend_kernel.epilogue_smem_bytes(FeatureConfig()) < 48 * 1024
+
+
+_BIG = dict(n_mels=128, f_max=8000.0, n_fft=256, win_length=200, hop_length=80, n_mfcc=20)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [*CONFIGS.values(), _BIG, {**_BIG, "use_pcen": True},
+     {**_BIG, "use_pcen": True, "use_delta_delta": True}],
+    ids=[*CONFIGS, "128x201x20", "128x201x20_pcen", "128x201x20_pcen_delta_delta"],
+)
+def test_epilogue_smem_fits_the_card(kw):
+    """Launch B's shared memory never limits a config the spectral launch
+    takes: the parity configs and 128 mels x 201 frames x 20 MFCCs (the
+    widest of each), with and without PCEN, fit the card's 232,448 B."""
+    cfg = FeatureConfig(**kw)
+    assert cfg.num_frames in (101, 201)
+    assert frontend_kernel.epilogue_smem_bytes(cfg) <= 232448
+    assert frontend_kernel.card_supports(cfg, cfg.segment_samples)

@@ -1,6 +1,6 @@
 """Where the epilogue launch's time goes, on one NVIDIA card.
 
-    python3 tools/epilogue_probe.py [--baseline PATH]
+    python3 tools/epilogue_probe.py [--baseline PATH ...]
 
 Times launch B of the front-end kernel (csrc/frontend_kernel.cu: log, dB
 or PCEN, DCT, z-norm, deltas) with CUDA events at B = 4096 on the shipped
@@ -8,22 +8,25 @@ config, as built and in variants, each a string edit of the source built
 with the same nvcc flags into build/kernels/ (all builds run at once). The
 variants that remove work keep every result they still compute in use, so
 that the compiler cannot drop more than the variant says:
-  - no DCT: the MFCC accumulators stay zero (the log-mel still feeds the
-    clip's max);
+  - no DCT: the MFCC accumulators stay zero;
   - no output writes: every store of the output becomes an empty asm that
     takes the value, so the value is still computed;
-  - no second sweep: the dB rows are not computed (the clip's max is
-    written once a block).
-Two variants compute the same features by another route and are checked
-against the plain version: the dB rows from a log-mel tile in shared
-memory, or from log-mel values parked in the output rows by the first
-sweep, instead of a second sweep over the power mel with the log
-recomputed. One variant, fast log (__logf), measures the log's share; it
-is off by a few units in the last place. With --baseline, the launch B of
-another copy of the source (the same C interface) is timed in turns with
-this one: baseline, as built, the variants, as built, baseline. Then as
-built at n_fft 256 and with PCEN. Prints the card's name and power limit
-first. Needs a CUDA card and nvcc; imports no JAX.
+  - no dB rows: the flat pass that writes them is left out (the clip's
+    max is written once a block, so the log-mel's max is still taken);
+  - no mel loads: each element of the tile is its own index instead of a
+    load of the power mel (the log and everything after it still run).
+Four variants compute the same features another way and are checked
+against the plain version: (db + 80) / 80 as the reference writes it,
+a division, instead of the kernel's multiply by 1/80 (a unit in the last
+place apart); 8 loads in flight a thread instead of 16; registers capped
+for 6 blocks an SM instead of 7; and a fast log (__logf) in the load pass
+(a few units apart), which measures the log's share. Each --baseline is
+another copy of the source (the same C interface) whose launch B is timed
+in turns with this one: the baselines, as built, the variants, as built,
+the baselines.
+Then as built (and the baselines) at n_fft 256 and with PCEN. Prints the
+card's name and power limit first. Needs a CUDA card and nvcc; imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -49,21 +52,22 @@ BATCH = 4096
 ITERS = 20
 PEAK_HBM_BYTES = 3.35e12
 
-SWEEP_2 = "    // Second sweep, from L2: dB clamped to the clip's max - 80.\n"
-LOAD = "v[u] = m0 + u < M ? __ldg(src + (size_t)(m0 + u) * T + t) : 1.0f;"
-MAX = "          if (live) mx = fmaxf(mx, lm);\n"
-LOG = "logf(fmaxf(v[u], kAmin))"
-DB = "const float db = fmaxf(kDbScale * logf(fmaxf(v[u], kAmin)), floor_db);"
 DCT = (
-    "          const float4* w = reinterpret_cast<const float4*>(dct_s + (m0 + u) * lay.cp + c0);\n"
+    "        const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);\n"
     "#pragma unroll\n"
-    "          for (int q = 0; q < kC / 4; ++q) {\n"
-    "            const float4 d = w[q];\n"
-    "            acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);\n"
-    "            acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);\n"
-    "            acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);\n"
-    "            acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);\n"
-    "          }\n"
+    "        for (int q = 0; q < kC / 4; ++q) {\n"
+    "          const float4 d = w[q];\n"
+    "          acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);\n"
+    "          acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);\n"
+    "          acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);\n"
+    "          acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);\n"
+    "        }\n"
+)
+DB_ROWS = (
+    "    for (int i = tid; i < nm; i += kThreadsB) {\n"
+    "      const float db = fmaxf(tile[i], floor_db);\n"
+    "      put(o + i, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));\n"
+    "    }\n"
 )
 
 
@@ -77,14 +81,6 @@ def edit(src: str, old: str, new: str, after: str = "") -> str:
 
 
 def variants(src: str) -> dict:
-    second = src[src.index(SWEEP_2) : src.index("  } else {", src.index(SWEEP_2))]
-    park = edit(src, MAX, MAX + "          if (!kPcen && c0 == 0 && live) put(o + (size_t)(m0 + u) * T + t, lm);\n")
-    park = edit(park, LOAD, "v[u] = m0 + u < M ? o[(size_t)(m0 + u) * T + t] : 1.0f;", SWEEP_2)
-    park = edit(park, DB, "const float db = fmaxf(v[u], floor_db);")
-    tile = edit(src, "floats = mel + (pcen ? (size_t)M * T : 0);", "floats = mel + (size_t)M * T;")
-    tile = edit(tile, MAX, MAX + "          if (!kPcen && c0 == 0 && live) mel_s[(m0 + u) * T + t] = lm;\n")
-    tile = edit(tile, LOAD, "v[u] = m0 + u < M ? mel_s[(m0 + u) * T + t] : 1.0f;", SWEEP_2)
-    tile = edit(tile, DB, "const float db = fmaxf(v[u], floor_db);")
     return {
         "as built": src,
         "no DCT": edit(src, DCT, ""),
@@ -92,16 +88,14 @@ def variants(src: str) -> dict:
             src, "void put(float* p, float v) { *p = v; }",
             'void put(float* p, float v) { asm volatile("" ::"f"(v), "l"(p)); }',
         ),
-        "no second sweep": edit(
-            src, second,
-            "    const float floor_db = gather4<kMax>(red + 4) - 80.0f;\n"
-            "    if (tid == 0) put(o, floor_db);\n",
+        "no dB rows": edit(src, DB_ROWS, "    if (tid == 0) put(o, floor_db);\n"),
+        "no mel loads": edit(src, "v[u] = i < nm ? __ldg(src + i) : 1.0f;", "v[u] = i < nm ? (float)i : 1.0f;"),
+        "divide by 80": edit(src, "(db + 80.0f) * 0.0125f", "(db + 80.0f) / 80.0f"),
+        "8 loads in flight": edit(src, "constexpr int kLoadB = 16;", "constexpr int kLoadB = 8;"),
+        "registers for 6 blocks an SM": edit(
+            src, "__launch_bounds__(kThreadsB, 7) epilogue_kernel", "__launch_bounds__(kThreadsB, 6) epilogue_kernel"
         ),
-        "dB from a log-mel tile": tile,
-        "dB from values parked in the output": park,
-        "fast log (__logf)": edit(edit(src, LOG, "__" + LOG), LOG, "__" + LOG, SWEEP_2),
-        "batches of 16 mel rows": edit(src, "constexpr int kBatchB = 8;", "constexpr int kBatchB = 16;"),
-        "batches of 4 mel rows": edit(src, "constexpr int kBatchB = 8;", "constexpr int kBatchB = 4;"),
+        "fast log (__logf)": edit(src, "kDbScale * logf(fmaxf(v[u], kAmin))", "kDbScale * __logf(fmaxf(v[u], kAmin))"),
     }
 
 
@@ -126,7 +120,10 @@ def build_all(sources: dict) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--baseline", type=Path, help="another frontend_kernel.cu to time beside this one")
+    parser.add_argument(
+        "--baseline", type=Path, action="append", default=[],
+        help="another frontend_kernel.cu to time beside this one (repeatable)",
+    )
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -136,8 +133,9 @@ def main() -> None:
     ).stdout.strip().splitlines()[0], flush=True)
 
     sources = variants((kernel_build._CSRC / "frontend_kernel.cu").read_text())
-    if args.baseline:
-        sources["baseline"] = args.baseline.read_text()
+    baselines = [f"baseline {path}" for path in args.baseline]
+    for name, path in zip(baselines, args.baseline):
+        sources[name] = path.read_text()
     libs = build_all(sources)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -177,11 +175,7 @@ def main() -> None:
 
     shipped = FeatureConfig()
     state = setup(shipped)
-    order = list(libs)
-    if args.baseline:
-        order = ["baseline"] + order[:-1] + ["as built", "baseline"]
-    else:
-        order.append("as built")
+    order = baselines + [n for n in libs if n not in baselines] + ["as built"] + baselines
     bound = state[4] / PEAK_HBM_BYTES * 1e3
     for name in order:
         ms, err = time_lib(libs[name], shipped, state)
@@ -196,7 +190,7 @@ def main() -> None:
     ):
         state = setup(cfg)
         bound = state[4] / PEAK_HBM_BYTES * 1e3
-        for name in (["baseline", "as built"] if args.baseline else ["as built"]):
+        for name in baselines + ["as built"]:
             ms, err = time_lib(libs[name], cfg, state)
             print(
                 f"epilogue launch B={BATCH}, {label}, {name}: {ms:.4f} ms ({100 * bound / ms:.1f}% of "
