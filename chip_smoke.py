@@ -35,20 +35,48 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      streams run 1600-sample ticks for the p50 tick latency, then 20 more
      on the host clock alone and 20 under torch.profiler for the device's
      busy time and idle share;
-  6. prints the kernels' JSON line, then the device line last.
+  6. trains (the training path): synthesizes a corpus of 2048 training
+     clips (half coughs) and 256 validation clips with data/synth.py and
+     packs it as int16 shards under build/; holds one train step of the
+     residual model (augmentation off, dropout 0, batch 32) on the card
+     against the CPU (loss 1e-5 relative, every grad 1e-3 max-relative,
+     running stats 1e-5), and a padded step (6 rows + 2 masked) against
+     the unpadded one on the card; runs `train()` for 3 epochs at the
+     shipped config and TrainConfig defaults on the resident corpus, then
+     2 epochs and a resume to 3 through the training CLI (with
+     --export-pt), which must equal the uninterrupted run bit for bit
+     (parameters, optimizer state, metrics.jsonl); both front-end launch
+     counters must have advanced once per train and eval step; times the
+     steady train step at batch 32 and 256 (CUDA events), its device time
+     by part (torch.profiler ranges, and each part alone by CUDA events),
+     the epoch wall time and clips/s from metrics.jsonl, and the device's
+     idle share over one profiled epoch; serves the exported `.pt` and the
+     checkpoint directory through StreamingDetector;
+  7. prints the kernels' JSON line, then the device line last.
 
-Imports only torch, numpy and the port package; never JAX.
+Imports only torch, numpy, scipy (data/synth.py) and the port package;
+never JAX.
 """
 
 from __future__ import annotations
 
-import json
-import subprocess
-import sys
-import time
+import os
 
-import numpy as np
-import torch
+# The training phase asks for deterministic algorithms; torch then wants
+# cuBLAS's workspace fixed, which it reads before the first cuBLAS call.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import copy  # noqa: E402
+import itertools  # noqa: E402
+import json  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEED = 0
 TOL = 1e-3
@@ -128,6 +156,322 @@ def device_ms(fn, iters: int, kernel: str) -> float:
     if not iters // 2 <= len(times) <= iters:
         fail(f"the profiler saw {len(times)} launches of {kernel} over {iters} calls")
     return sum(times) / len(times) / 1e3
+
+
+def busy_ms(events, lo: float = float("-inf"), hi: float = float("inf")) -> float:
+    """Union of the device events' intervals inside [lo, hi] (us), in ms.
+    The device-side copies of the trainer's "cdt." profiler ranges span
+    whole epochs and are left out: only kernels, copies and fills count."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("cdt.")
+        and e.time_range.end > lo and e.time_range.start < hi
+    )
+    busy, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return busy / 1e3
+
+
+def hold_grads(model, got, want, tol: float) -> float:
+    """Worst grad error: each grad's max-relative deviation, except the conv
+    biases, whose exact train-mode gradient is 0 (each conv feeds a
+    BatchNorm, whose batch mean removes a per-channel constant): for those,
+    the deviation relative to the model's largest grad. Fails above tol."""
+    named = dict(model.named_parameters())
+    scale = max(float(w.abs().max()) for w in want)
+    worst = 0.0
+    for (name, p), g, w in zip(named.items(), got, want):
+        conv_bias = name.endswith(".bias") and named[name[: -len("bias")] + "weight"].ndim == 4
+        denom = scale if conv_bias else max(float(w.abs().max()), 1e-12)
+        err = float((g - w).abs().max()) / denom
+        worst = max(worst, err)
+        if not err <= tol:
+            fail(f"grad of {name} off by {err:.3e} (limit {tol})")
+    return worst
+
+
+def train_phase(smi: str) -> dict:
+    """Phase 6, the training path; returns what the kernels' JSON line adds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cough_detector_tpu_torch.augment import augment_waveforms, spec_augment
+    from cough_detector_tpu_torch.cli import train as train_cli
+    from cough_detector_tpu_torch.config import Config, FeatureConfig, ModelConfig, TrainConfig
+    from cough_detector_tpu_torch.data import dequantize_torch, pack_arrays, quantize, synth
+    from cough_detector_tpu_torch.models import create_model, init_weights, no_tf32
+    from cough_detector_tpu_torch.ops import frontend, frontend_kernel
+    from cough_detector_tpu_torch.stream import StreamingDetector
+    from cough_detector_tpu_torch.train import (
+        StepRandom, checkpoint, loss_and_grads, make_optimizer, train, train_step,
+    )
+    from cough_detector_tpu_torch.train.loop import deterministic, make_feature_fns
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    no_tf32(dev)
+    root = Path(__file__).resolve().parent / "build" / "smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    shards = root / "corpus"
+    n_train, n_val, bs = 2048, 256, TrainConfig().batch_size
+
+    # -- 6.1 corpus
+    def corpus(n: int, seed0: int) -> tuple:
+        labels = np.arange(n) % 2  # half coughs
+        waves = np.stack([
+            synth.synthetic_cough(seed0 + i, 1.0) if labels[i] else synth.synthetic_non_cough(seed0 + i, 1.0)
+            for i in range(n)
+        ])
+        return waves, labels
+
+    t0 = time.perf_counter()
+    train_w, train_l = corpus(n_train, SEED)
+    pack_arrays(train_w, train_l, str(shards / "train"))
+    pack_arrays(*corpus(n_val, SEED + n_train), str(shards / "val"))
+    print(f"training corpus: {n_train} + {n_val} clips synthesized and packed in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # -- 6.2 one train step, card against CPU (augmentation off, dropout 0)
+    step_cfg = Config(model=ModelConfig(dropout=0.0), train=TrainConfig(p_augment=0.0))
+    waves16 = torch.from_numpy(quantize(train_w[:bs]))
+    labels = torch.from_numpy(train_l[:bs])
+    cw = torch.tensor([1.0, 1.0])  # a balanced corpus's class weights
+    base = init_weights(create_model("residual", dropout=0.0), torch.Generator().manual_seed(SEED))
+    def one_step(d: torch.device, feats: torch.Tensor) -> tuple:
+        model = copy.deepcopy(base).to(d)
+        gen = StepRandom(d).key(SEED, 0, 0).dropout
+        loss, _, grads = loss_and_grads(model, feats.to(d), labels.to(d), cw.to(d), generator=gen)
+        stats = [v.cpu() for k, v in model.state_dict().items() if "running" in k]
+        return loss.cpu(), [g.cpu() for g in grads], stats, model
+
+    feats = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where)
+        feature_fn, _ = make_feature_fns(step_cfg, d)
+        feats[where] = feature_fn(waves16.to(d), StepRandom(d).key(SEED, 0, 0).aug)
+    loss_c, grads_c, stats_c, model_c = one_step(torch.device("cpu"), feats["cpu"])
+    loss_g, grads_g, stats_g, _ = one_step(dev, feats["cuda"])
+    # The same step on the card from the CPU's features: the model's own
+    # arithmetic, without the front ends' difference (phase 3 holds those).
+    _, grads_s, _, _ = one_step(dev, feats["cpu"])
+    feat_err = rel_err(feats["cuda"].cpu(), feats["cpu"])
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_err = hold_grads(model_c, grads_s, grads_c, 1e-3)
+    grad_own = hold_grads(model_c, grads_g, grads_c, float("inf"))
+    stat_err = max(float((a - b).abs().max()) for a, b in zip(stats_g, stats_c))
+    print(
+        f"train step card vs CPU (batch {bs}, residual, augmentation off, dropout 0; each through its own "
+        f"front end, features max-relative {feat_err:.3e}): loss {float(loss_g):.6f} vs {float(loss_c):.6f}, "
+        f"relative {loss_err:.3e} (limit 1e-5); running stats max abs {stat_err:.3e} (limit 1e-5); grads "
+        f"worst {grad_own:.3e} (no limit); from the same features, grads worst {grad_err:.3e} (limit 1e-3)",
+        flush=True,
+    )
+    if not (loss_err <= 1e-5 and stat_err <= 1e-5):
+        fail("the card's train step disagrees with the CPU's")
+    feats_g = feats["cuda"]
+
+    # A padded step on the card: 6 real rows + 2 masked (the explicit
+    # two-pass batch norm) against the 6 rows unmasked (cuDNN's).
+    mask = torch.tensor([1.0] * 6 + [0.0] * 2, device=dev)
+    padded = []
+    for x, y, m in ((feats_g[:8], labels[:8], mask), (feats_g[:6], labels[:6], None)):
+        model = copy.deepcopy(base).to(dev)
+        loss, _, grads = loss_and_grads(model, x, y.to(dev), cw.to(dev), mask=m)
+        padded.append((loss.cpu(), [g.cpu() for g in grads], [v.cpu() for k, v in model.state_dict().items() if "running" in k], model))
+    (loss_p, grads_p, stats_p, model_p), (loss_u, grads_u, stats_u, _) = padded
+    pad_loss = abs(float(loss_p) - float(loss_u)) / abs(float(loss_u))
+    pad_grad = hold_grads(model_p, grads_p, grads_u, 1e-4)
+    pad_stat = max(float((a - b).abs().max()) for a, b in zip(stats_p, stats_u))
+    print(
+        f"padded step on the card (6 rows + 2 masked vs 6 rows, masked two-pass BN vs cuDNN BN): loss "
+        f"relative {pad_loss:.3e}, grads worst {pad_grad:.3e}, running stats max abs {pad_stat:.3e} (limits 1e-5, 1e-4, 1e-5)",
+        flush=True,
+    )
+    if not (pad_loss <= 1e-5 and pad_stat <= 1e-5):
+        fail("a padded step on the card differs from the unpadded one")
+
+    # -- 6.3 train() for 3 epochs; 2 epochs and a resume to 3 through the CLI
+    def records(out: Path) -> list:
+        return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+    out_a, out_b = root / "straight", root / "resumed"
+    steps_per_epoch, val_steps = n_train // bs, -(-n_val // bs)
+    frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    best_a = train(None, str(out_a), config=Config(train=TrainConfig(epochs=3)), shards_dir=str(shards))
+    wall_a = time.perf_counter() - t0
+    launches = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+    recs_a = records(out_a)
+    want_launches = 3 * (steps_per_epoch + val_steps)
+    print(
+        f"train(): 3 epochs in {wall_a:.3f} s; front-end launches {launches}, expected "
+        f"{want_launches} each (3 x ({steps_per_epoch} train + {val_steps} eval steps)); "
+        f"losses {[(r['train_loss'], r['val_loss']) for r in recs_a]}; best {best_a}",
+        flush=True,
+    )
+    if set(launches.values()) != {want_launches}:
+        fail(f"the front-end launches {launches} on the training path are not {want_launches} each")
+    state_a = checkpoint.load_checkpoint(str(out_a / "latest_model"))[0]
+    finite = np.isfinite([v for r in recs_a for v in (r["train_loss"], r["val_loss"])]).all() and all(
+        bool(torch.isfinite(v).all()) for v in state_a["model"].values() if v.is_floating_point()
+    )
+    if len(recs_a) != 3 or not finite:
+        fail("train() did not write 3 epochs of finite losses and parameters")
+
+    train(None, str(out_b), config=Config(train=TrainConfig(epochs=2)), shards_dir=str(shards))
+    train_cli.main([
+        "--shards", str(shards), "--output-dir", str(out_b), "--model-type", "residual",
+        "--epochs", "3", "--batch-size", str(bs), "--lr", str(TrainConfig().learning_rate),
+        "--weight-decay", str(TrainConfig().weight_decay), "--patience", str(TrainConfig().patience),
+        "--resume", str(out_b / "latest_model"), "--export-pt",
+    ])
+    state_b = checkpoint.load_checkpoint(str(out_b / "latest_model"))[0]
+    skip = {"train_clips_per_sec", "val_clips_per_sec", "wall_s", "t"}
+    same_records = [{k: v for k, v in r.items() if k not in skip} for r in recs_a] == [
+        {k: v for k, v in r.items() if k not in skip} for r in records(out_b)
+    ]
+    same_params = all(torch.equal(v, state_b["model"][k]) for k, v in state_a["model"].items())
+    same_opt = all(
+        torch.equal(x, y) for x, y in zip(
+            state_a["optimizer"]["mu"] + state_a["optimizer"]["nu"],
+            state_b["optimizer"]["mu"] + state_b["optimizer"]["nu"],
+        )
+    )
+    print(
+        f"resume (2 epochs, then the CLI to 3) vs 3 straight epochs: parameters bit-equal {same_params}, "
+        f"optimizer state bit-equal {same_opt}, metrics.jsonl records equal {same_records}",
+        flush=True,
+    )
+    if not (same_params and same_opt and same_records):
+        fail("the resumed run differs from the uninterrupted one")
+
+    # -- 6.4 times
+    cfg = Config()
+    model = init_weights(create_model("residual"), torch.Generator().manual_seed(SEED)).to(dev)
+    feature_fn, _ = make_feature_fns(cfg, dev)
+    corpus_d = torch.from_numpy(quantize(train_w[:256])).to(dev)
+    labels_d = torch.from_numpy(train_l[:256]).to(dev)
+    cw_d = cw.to(dev)
+
+    def profiled_busy(fn, n: int = 20) -> float:
+        """Device busy ms a call of fn over n calls, from torch.profiler."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return busy_ms(prof.events()) / n
+
+    times, step_busy = {}, {}
+    with deterministic(dev):
+        for b, iters in ((32, 50), (256, 20)):
+            opt = make_optimizer(model.parameters(), cfg.train, steps_per_epoch)
+            rand, count = StepRandom(dev), itertools.count()
+
+            def one_step(b=b, opt=opt, rand=rand, count=count):
+                train_step(
+                    model, opt, corpus_d[:b], labels_d[:b], cw_d, rand.key(SEED, 0, next(count)),
+                    feature_fn=feature_fn,
+                )
+
+            times[b] = cuda_ms(one_step, iters)
+            step_busy[b] = profiled_busy(one_step)
+
+        # The parts of a batch-32 step, each alone.
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        w32 = frontend.peak_normalize(dequantize_torch(corpus_d[:32]))
+        feats32 = feature_fn(corpus_d[:32], gen)
+        _, _, grads32 = loss_and_grads(model, feats32, labels_d[:32], cw_d, generator=gen)
+        opt = make_optimizer(model.parameters(), cfg.train, steps_per_epoch)
+
+        def augment_alone():
+            waves = augment_waveforms(dequantize_torch(corpus_d[:32]), gen, p=cfg.train.p_augment)
+            frontend.peak_normalize(waves)
+            spec_augment(feats32, gen, p=cfg.train.p_augment)
+
+        parts = {
+            "augment": augment_alone,
+            "frontend": lambda: frontend.extract_features_fast(w32, FeatureConfig(), device=dev),
+            "forward_backward": lambda: loss_and_grads(model, feats32, labels_d[:32], cw_d, generator=gen),
+            "optimizer": lambda: opt.step(grads32),
+        }
+        part_ms = {k: cuda_ms(fn, 50) for k, fn in parts.items()}
+        part_dev = {k: profiled_busy(fn) for k, fn in parts.items()}
+        mel32 = frontend_kernel.power_mel_fused(w32, FeatureConfig())
+        launches_32 = {
+            "spectral": (lambda: frontend_kernel.power_mel_fused(w32, FeatureConfig()), "spectral_kernel"),
+            "epilogue": (lambda: frontend_kernel.mel_epilogue_fused(mel32, FeatureConfig()), "epilogue_kernel"),
+        }
+        launch_ms = {k: cuda_ms(fn, 50) for k, (fn, _) in launches_32.items()}
+        launch_dev = {k: device_ms(fn, 50, name) for k, (fn, name) in launches_32.items()}
+    for b in (32, 256):
+        print(
+            f"[{smi}] train step at batch {b} (CUDA events over back-to-back steps, resident batch, "
+            f"augmentation p=0.3, dropout 0.5): {times[b]:.4f} ms ({b / times[b] * 1e3:,.0f} clips/s); "
+            f"device busy {step_busy[b]:.4f} ms a step (torch.profiler), idle share {1 - step_busy[b] / times[b]:.3f}",
+            flush=True,
+        )
+    print(
+        f"[{smi}] batch-32 step by part, each alone: CUDA events "
+        + ", ".join(f"{k} {v:.4f}" for k, v in part_ms.items())
+        + " ms; device busy (torch.profiler) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in part_dev.items())
+        + (f" ms; the front end {100 * part_dev['frontend'] / step_busy[32]:.1f}% of the step's device time; "
+           if step_busy[32] > 0 else " ms; the profiler recorded no device time, shares not measured; ")
+        + f"its launches at B=32: spectral {launch_ms['spectral']:.4f} ms (device {launch_dev['spectral']:.4f}), "
+        f"epilogue {launch_ms['epilogue']:.4f} ms (device {launch_dev['epilogue']:.4f})",
+        flush=True,
+    )
+    deltas = [b["wall_s"] - a["wall_s"] for a, b in zip(recs_a, recs_a[1:])]
+    print(
+        f"[{smi}] epoch wall (metrics.jsonl wall_s deltas, {n_train} train + {n_val} val clips, checkpoints included): "
+        + ", ".join(f"{d:.3f} s ({n_train / d:,.0f} train clips/s)" for d in deltas),
+        flush=True,
+    )
+
+    # Idle share over one epoch: a resumed run of one more epoch under the
+    # profiler; busy time is the union of device intervals inside its
+    # "cdt.epoch" range (train and validation, no checkpoint writes).
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train(None, str(root / "profiled"), config=Config(train=TrainConfig(epochs=4)),
+              shards_dir=str(shards), resume=str(out_a / "latest_model"))
+    events = prof.events()
+    epoch_ev = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
+    last = recs_a[-1]
+    plain_ms = (n_train / last["train_clips_per_sec"] + n_val / last["val_clips_per_sec"]) * 1e3
+    if len(epoch_ev) == 1:
+        lo, hi = epoch_ev[0].time_range.start, epoch_ev[0].time_range.end
+        busy = busy_ms(events, lo, hi)
+        span = (hi - lo) / 1e3
+        print(
+            f"[{smi}] one epoch under torch.profiler: {span:.3f} ms span, device busy {busy:.3f} ms, "
+            f"idle share {1 - busy / span:.3f}; against the unprofiled epoch 2 of train() "
+            f"({plain_ms:.3f} ms train + val): idle share {1 - busy / plain_ms:.3f}",
+            flush=True,
+        )
+    else:
+        print(f"[{smi}] the profiler recorded {len(epoch_ev)} epoch ranges; idle share not measured", flush=True)
+
+    # -- 6.5 train to serve: the exported .pt and the checkpoint directory
+    windows = train_w[:8]
+    scores = [
+        StreamingDetector(str(path), device="cuda").scores_for(windows)
+        for path in (out_b / "best_model.pt", out_b / "best_model")
+    ]
+    serve_err = float(np.abs(scores[0] - scores[1]).max())
+    print(
+        f"served the trained model: best_model.pt and best_model/ score {len(windows)} windows "
+        f"{np.round(scores[0], 4).tolist()}, max abs difference {serve_err:.3e}",
+        flush=True,
+    )
+    if not (all(np.isfinite(s).all() and s.shape == (8,) for s in scores) and serve_err <= 1e-6):
+        fail("the exported checkpoint and the checkpoint directory do not serve the same scores")
+    print(f"training phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return {"launches": launches, "ms_b32": launch_ms, "device_ms_b32": launch_dev}
 
 
 def main() -> None:
@@ -559,7 +903,10 @@ def main() -> None:
         flush=True,
     )
 
-    # -- 6. summary ----------------------------------------------------------------
+    # -- 6. the training path -------------------------------------------------------
+    trained = train_phase(smi)
+
+    # -- 7. summary ----------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -568,9 +915,12 @@ def main() -> None:
             "source": "cough_detector_tpu_torch/csrc/frontend_kernel.cu",
             "replaces": "cough_detector_tpu/ops/pallas/frontend_kernel.py:278",
             "launches": launches[part],
+            "training_launches": trained["launches"][part],
             "max_abs_err": max_abs[part],
             "batch": main_b,
             **timing[main_b][part],
+            "training_batch_ms": trained["ms_b32"][part],
+            "training_batch_device_ms": trained["device_ms_b32"][part],
         }
         for part in ("spectral", "epilogue")
     ]

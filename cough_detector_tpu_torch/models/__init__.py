@@ -6,7 +6,9 @@ from .classifiers import (
     CoughDetectorSmall,
     count_parameters,
     create_model,
+    init_weights,
     model_from_config,
+    no_tf32,
     place_model,
     predict,
 )
@@ -19,6 +21,8 @@ __all__ = [
     "count_parameters",
     "create_model",
     "from_jax_variables",
+    "init_weights",
+    "no_tf32",
     "model_from_config",
     "place_model",
     "predict",

@@ -6,16 +6,30 @@ attributes follow the reference's state-dict keys (reference:
 src/model.py:43-316), so `models/convert.py` output and reference `.pt`
 checkpoints load directly. Inputs are feature images (B, H, W) or NCHW
 (B, 1, H, W).
+
+`forward(x, mask=None, generator=None)`: in train mode `mask` keeps padded
+rows out of the BatchNorm statistics and the dropout layers draw from
+`generator` (models/layers.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
 from torch import nn
 
-from .layers import BatchNorm, ConvBlock, ResidualBlock, SeparableBlock, global_avg_pool
+from .layers import (
+    BatchNorm,
+    ConvBlock,
+    Dropout,
+    GlobalAvgPool,
+    ResidualBlock,
+    SeparableBlock,
+    global_avg_pool,
+    run,
+)
 
 
 def _as_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -37,12 +51,15 @@ class CoughDetector(nn.Module):
             *[ConvBlock(chans[i], chans[i + 1]) for i in range(4)]
         )
         self.fc = nn.Sequential(
-            nn.Linear(256, 128), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(256, 128), nn.ReLU(), Dropout(dropout),
             nn.Linear(128, num_classes),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc(global_avg_pool(self.conv_layers(_as_nchw(x))))
+    def forward(self, x, mask=None, generator=None) -> torch.Tensor:
+        x = _as_nchw(x)
+        for block in self.conv_layers:
+            x = block(x, mask, generator)
+        return run(self.fc, global_avg_pool(x), mask, generator)
 
 
 class CoughDetectorSmall(nn.Module):
@@ -60,15 +77,16 @@ class CoughDetectorSmall(nn.Module):
             *SeparableBlock(16, 32),
             *SeparableBlock(32, 64),
             *SeparableBlock(64, 128, pool=False),
-            nn.AdaptiveAvgPool2d((1, 1)),
+            GlobalAvgPool(),
         )
         self.classifier = nn.Sequential(
-            nn.Flatten(), nn.Linear(128, 64), nn.ReLU(), nn.Dropout(0.3),
+            nn.Flatten(), nn.Linear(128, 64), nn.ReLU(), Dropout(0.3),
             nn.Linear(64, num_classes),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.classifier(self.features(_as_nchw(x)))
+    def forward(self, x, mask=None, generator=None) -> torch.Tensor:
+        x = run(self.features, _as_nchw(x), mask, generator)
+        return run(self.classifier, x, mask, generator)
 
 
 class CoughDetectorResidual(nn.Module):
@@ -89,14 +107,14 @@ class CoughDetectorResidual(nn.Module):
             [ResidualBlock(32, 64), ResidualBlock(64, 128)]
         )
         self.fc = nn.Sequential(
-            nn.Flatten(), nn.Dropout(dropout), nn.Linear(128, num_classes)
+            nn.Flatten(), Dropout(dropout), nn.Linear(128, num_classes)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(_as_nchw(x))
+    def forward(self, x, mask=None, generator=None) -> torch.Tensor:
+        x = run(self.conv1, _as_nchw(x), mask, generator)
         for block in self.res_blocks:
-            x = block(x)
-        return self.fc(global_avg_pool(x))
+            x = block(x, mask, generator)
+        return run(self.fc, global_avg_pool(x), mask, generator)
 
 
 _MODELS = {
@@ -139,16 +157,35 @@ def model_from_config(model_config, precision_mode: str = "high") -> nn.Module:
     return create_model(model_config.model_type, **kwargs)
 
 
-def place_model(model: nn.Module, device: Union[str, torch.device]) -> nn.Module:
-    """Move `model` to `device` in eval mode. On the card this also turns
-    TF32 off for cuDNN convolutions and cuBLAS matmuls: TF32 keeps about as
-    few mantissa bits as one bf16 pass, which the JAX package measured
-    outside the 1e-3 logits budget."""
-    device = torch.device(device)
-    if device.type == "cuda":
+def no_tf32(device: Union[str, torch.device]) -> None:
+    """On the card, turn TF32 off for cuDNN convolutions and cuBLAS
+    matmuls: TF32 keeps about as few mantissa bits as one bf16 pass, which
+    the JAX package measured outside the 1e-3 logits budget."""
+    if torch.device(device).type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def place_model(model: nn.Module, device: Union[str, torch.device]) -> nn.Module:
+    """Move `model` to `device` in eval mode, with TF32 off (`no_tf32`)."""
+    no_tf32(device)
     return model.to(device).eval()
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every conv and linear layer's weights as torch's own
+    `reset_parameters` does (Kaiming-uniform weights, a = sqrt(5), and
+    U(±1/sqrt(fan_in)) biases), from `generator`, in module order; BatchNorm
+    stays at weight 1, bias 0, running mean 0 and variance 1. A CPU
+    generator gives the same weights whatever device the model then goes to."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
+            fan_in = m.weight[0].numel()
+            bound = 1 / math.sqrt(fan_in)
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+    return model
 
 
 def count_parameters(model: nn.Module) -> int:

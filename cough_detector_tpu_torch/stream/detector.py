@@ -7,9 +7,9 @@ concurrent streams scored in one batched tick on one device. Each tick is
 classifier → softmax.
 
 Weights come as a state dict in the reference `.pt` key layout (what
-`models.convert.from_jax_variables` returns) or from a reference `.pt`
-checkpoint file. Orbax checkpoint directories come with the training slice,
-multi-device serving with a later one.
+`models.convert.from_jax_variables` returns), from a reference `.pt`
+checkpoint file, or from a checkpoint directory the port's trainer wrote
+(train/checkpoint.py). Multi-device serving comes with a later slice.
 """
 
 from __future__ import annotations
@@ -34,17 +34,18 @@ class Detection(NamedTuple):
     confidence: float
 
 
-def _load_pt_checkpoint(model_path: str) -> Tuple[Mapping, Config]:
-    """(state_dict, config) from a reference checkpoint
-    ({epoch, model_state_dict, optimizer_state_dict, metrics, config},
-    reference: src/train.py:192-199)."""
+def _load_checkpoint(model_path: str) -> Tuple[Mapping, Config]:
+    """(state_dict, config) from a checkpoint directory of the port's
+    trainer (its state.pt and meta.json's config_full) or a reference
+    checkpoint file ({epoch, model_state_dict, optimizer_state_dict,
+    metrics, config}, reference: src/train.py:192-199)."""
+    from ..train import checkpoint
+
     if Path(model_path).is_dir():
-        raise NotImplementedError(
-            "Orbax checkpoint directories are not readable by the PyTorch "
-            "port yet; export a .pt checkpoint"
-        )
-    ckpt = torch.load(model_path, map_location="cpu", weights_only=True)
-    return ckpt["model_state_dict"], Config.from_flat_dict(ckpt.get("config", {}))
+        tree, _, _, config = checkpoint.load_checkpoint(model_path)
+        return tree["model"], config
+    state_dict, config, _, _ = checkpoint.import_torch_checkpoint(model_path)
+    return state_dict, config
 
 
 class StreamingDetector:
@@ -72,9 +73,10 @@ class StreamingDetector:
     ):
         """`variables`: a state dict in the reference key layout (tensors or
         numpy arrays), with `config`; or `model_path`, a reference `.pt`
-        file. `device` defaults to the card and raises if there is none."""
+        file or a checkpoint directory of the port's trainer. `device`
+        defaults to the card and raises if there is none."""
         if model_path is not None:
-            variables, config = _load_pt_checkpoint(model_path)
+            variables, config = _load_checkpoint(model_path)
         elif variables is None or config is None:
             raise ValueError("Provide model_path or (variables, config)")
         self.device = resolve_device(device)

@@ -1,15 +1,38 @@
-"""Serving-side latency percentiles.
+"""Serving-side latency percentiles and the trainer's metric stream.
 
-The port of `LatencyTracker` from `cough_detector_tpu/utils/observability.py`,
-which the detection server uses for its tick-cost and delivery-lag stats.
+The port of `LatencyTracker` and `JsonlLogger` from
+`cough_detector_tpu/utils/observability.py`: the detection server's
+tick-cost and delivery-lag stats, and the train loop's per-epoch
+metrics.jsonl.
 """
 
 from __future__ import annotations
 
+import json
+import time
 from collections import deque
+from pathlib import Path
 from typing import Deque, Optional
 
 import numpy as np
+
+
+class JsonlLogger:
+    """Append-only JSONL metric stream; each record gets a wall-clock "t"
+    unless it has one, and is flushed as written."""
+
+    def __init__(self, path: str):
+        self._path = Path(path)
+        self._path.parent.mkdir(parents=True, exist_ok=True)
+        self._fh = self._path.open("a")
+
+    def log(self, **record) -> None:
+        record.setdefault("t", time.time())
+        self._fh.write(json.dumps(record) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        self._fh.close()
 
 
 class LatencyTracker:

@@ -218,7 +218,7 @@ def test_mulaw_dequantization_matches_host_decoder():
 def test_reference_pt_checkpoint_loads(weights, audio, tmp_path):
     """A .pt written by the JAX package's exporter (reference layout, flat
     config inside) serves in the port with the same scores as the carried
-    weights; Orbax directories are refused until training is ported."""
+    weights; a directory that holds no checkpoint is refused."""
     from cough_detector_tpu.train.checkpoint import export_torch_checkpoint
 
     jax_vars, port_weights = weights
@@ -234,8 +234,30 @@ def test_reference_pt_checkpoint_loads(weights, audio, tmp_path):
         _port_detector(port_weights, 0.5).scores_for(windows),
         atol=1e-6,
     )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         StreamingDetector(str(tmp_path), device="cpu")
+
+
+def test_trainer_checkpoint_directory_loads(weights, audio, tmp_path):
+    """A checkpoint directory written by the port's trainer (state.pt and
+    meta.json's config_full) serves with the carried weights' scores."""
+    from cough_detector_tpu_torch.models import create_model
+    from cough_detector_tpu_torch.train import checkpoint, make_optimizer
+
+    _, port_weights = weights
+    model = create_model("small")
+    model.load_state_dict(port_weights)
+    cfg = default_config("small")
+    path = checkpoint.save_checkpoint(
+        str(tmp_path), "best_model", model, make_optimizer(model.parameters(), cfg.train, 4),
+        2, {"f1": 0.5}, cfg,
+    )
+    det = StreamingDetector(path, device="cpu")
+    assert det.config == cfg
+    windows = audio[:, :16000]
+    np.testing.assert_array_equal(
+        det.scores_for(windows), _port_detector(port_weights, 0.5).scores_for(windows)
+    )
 
 
 def test_detector_defaults_to_the_card(weights):
