@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA card.
+"""Smoke run of the PyTorch port on one NVIDIA card: serving, training, and
+files to detections.
 
     python3 chip_smoke.py
 
@@ -52,10 +53,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the epoch wall time and clips/s from metrics.jsonl, and the device's
      idle share over one profiled epoch; serves the exported `.pt` and the
      checkpoint directory through StreamingDetector;
-  7. prints the kernels' JSON line, then the device line last.
+  7. files to detections: writes a WAV data directory with cli.prepare_data
+     (384 coughs, 768 non-coughs of 2 s, 30% hard negatives) and rewrites a
+     quarter of it at 44.1 and 8 kHz; holds ops/resample.py on the card
+     against the CPU (B = 64; 44.1k and 8k to 16k and the four speed
+     factors; 1e-5 max abs, cuDNN's TF32 on at entry) and speed
+     perturbation's apply on the same draws; trains the residual model
+     from the directory through cli.train --data-dir for 3 epochs, then 2
+     and a resume to 3 (bit-equal parameters, moments and metrics.jsonl;
+     both launch counters one per train and eval step), with host decode
+     clips/s, step ms, epoch wall and a profiled epoch's idle share beside
+     phase 6's shard numbers; packs the directory with cli.pack (epoch 0's
+     shard batches in the decode path's order and labels, waves within
+     half an int16 LSB); scores a 10-minute recording with 40 coughs
+     through cli.detect --wav (events at threshold 0 equal the streaming
+     detector's, times exact, confidences 1e-4; probabilities within 1e-3
+     of the CPU's; one launch of each kernel per 1024-window batch;
+     detections at 0.5 against the true times; windows/s, batch ms, idle
+     share); holds and times the kernel pair at B = 1024 and times
+     torch.stft + mel at 1024 and 32; featurizes the directory with
+     cli.featurize at batch 512 (16 clips within 1e-3 of the CPU chain);
+     serves the trained `.pt` through CoughDetectorInference;
+  8. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
-never JAX.
+never JAX. It downloads nothing: the data are synthesized from seeds.
 """
 
 from __future__ import annotations
@@ -66,9 +88,13 @@ import os
 # cuBLAS's workspace fixed, which it reads before the first cuBLAS call.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import concurrent.futures  # noqa: E402
+import contextlib  # noqa: E402
 import copy  # noqa: E402
+import io  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -250,7 +276,7 @@ def train_phase(smi: str) -> dict:
     feats = {}
     for where in ("cpu", "cuda"):
         d = torch.device(where)
-        feature_fn, _ = make_feature_fns(step_cfg, d)
+        feature_fn, _ = make_feature_fns(step_cfg, d, use_time_shift=True)
         feats[where] = feature_fn(waves16.to(d), StepRandom(d).key(SEED, 0, 0).aug)
     loss_c, grads_c, stats_c, model_c = one_step(torch.device("cpu"), feats["cpu"])
     loss_g, grads_g, stats_g, _ = one_step(dev, feats["cuda"])
@@ -351,7 +377,7 @@ def train_phase(smi: str) -> dict:
     # -- 6.4 times
     cfg = Config()
     model = init_weights(create_model("residual"), torch.Generator().manual_seed(SEED)).to(dev)
-    feature_fn, _ = make_feature_fns(cfg, dev)
+    feature_fn, _ = make_feature_fns(cfg, dev, use_time_shift=True)
     corpus_d = torch.from_numpy(quantize(train_w[:256])).to(dev)
     labels_d = torch.from_numpy(train_l[:256]).to(dev)
     cw_d = cw.to(dev)
@@ -443,10 +469,12 @@ def train_phase(smi: str) -> dict:
     epoch_ev = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
     last = recs_a[-1]
     plain_ms = (n_train / last["train_clips_per_sec"] + n_val / last["val_clips_per_sec"]) * 1e3
+    epoch_idle = None
     if len(epoch_ev) == 1:
         lo, hi = epoch_ev[0].time_range.start, epoch_ev[0].time_range.end
         busy = busy_ms(events, lo, hi)
         span = (hi - lo) / 1e3
+        epoch_idle = 1 - busy / plain_ms
         print(
             f"[{smi}] one epoch under torch.profiler: {span:.3f} ms span, device busy {busy:.3f} ms, "
             f"idle share {1 - busy / span:.3f}; against the unprofiled epoch 2 of train() "
@@ -471,7 +499,395 @@ def train_phase(smi: str) -> dict:
     if not (all(np.isfinite(s).all() and s.shape == (8,) for s in scores) and serve_err <= 1e-6):
         fail("the exported checkpoint and the checkpoint directory do not serve the same scores")
     print(f"training phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
-    return {"launches": launches, "ms_b32": launch_ms, "device_ms_b32": launch_dev}
+    return {
+        "launches": launches, "ms_b32": launch_ms, "device_ms_b32": launch_dev,
+        "shard": {
+            "step_ms_b32": times[32], "epoch_wall_s": deltas,
+            "train_clips_per_s": [n_train / d for d in deltas], "idle_share": epoch_idle,
+        },
+    }
+
+
+def run_cli(main, argv, echo: bool = True) -> str:
+    """Run a CLI's main(argv) in this process; returns what it printed,
+    echoed unless `echo` is False."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    out = buf.getvalue()
+    if echo:
+        print(out, end="", flush=True)
+    return out
+
+
+def synth_recording(rng: np.random.Generator, seconds: int, n_coughs: int) -> tuple:
+    """Seeded background (noise at a slowly varying level plus a hum) with
+    `n_coughs` 1 s synthetic coughs at seeded, non-overlapping times;
+    returns (wave, sorted cough start times in seconds)."""
+    from cough_detector_tpu_torch.data import synth
+
+    n = seconds * SR
+    level = np.interp(np.arange(n), np.linspace(0, n, 61), rng.uniform(0.005, 0.03, 61))
+    wave = rng.standard_normal(n) * level + 0.01 * np.sin(2 * np.pi * 60.0 * np.arange(n) / SR)
+    slots = np.sort(rng.choice(np.arange(2, seconds - 2, 3), size=n_coughs, replace=False))
+    starts = slots + rng.uniform(0.0, 1.0, n_coughs)
+    for i, t0 in enumerate(starts):
+        c = synth.synthetic_cough(SEED + 5000 + i, 1.0)
+        lo = int(t0 * SR)
+        wave[lo : lo + c.size] += rng.uniform(0.3, 0.9) * c
+    return (wave / np.abs(wave).max() * 0.9).astype(np.float32), starts
+
+
+def files_phase(smi: str, shard: dict, yard: dict) -> dict:
+    """Phase 7, files to detections; returns what the kernels' JSON line adds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cough_detector_tpu_torch.augment import waveform as augment_wave
+    from cough_detector_tpu_torch.cli import detect as detect_cli
+    from cough_detector_tpu_torch.cli import featurize as featurize_cli
+    from cough_detector_tpu_torch.cli import pack as pack_cli
+    from cough_detector_tpu_torch.cli import prepare_data as prepare_cli
+    from cough_detector_tpu_torch.cli import train as train_cli
+    from cough_detector_tpu_torch.config import FeatureConfig, TrainConfig
+    from cough_detector_tpu_torch.data import (
+        BatchLoader, CoughDataset, ShardLoader, audio_io, dequantize, prepare_dataset_split,
+    )
+    from cough_detector_tpu_torch.models import model_from_config, place_model
+    from cough_detector_tpu_torch.ops import frontend, frontend_kernel, resample
+    from cough_detector_tpu_torch.stream import CoughDetectorInference, StreamingDetector, offline
+    from cough_detector_tpu_torch.stream.detector import _load_checkpoint
+    from cough_detector_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    shipped = FeatureConfig()
+    root = Path(__file__).resolve().parent / "build" / "smoke_files"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    rng = np.random.default_rng(SEED + 7)
+
+    # -- 7.1 a WAV data directory; a quarter of it at 44.1 and 8 kHz
+    t0 = time.perf_counter()
+    run_cli(prepare_cli.main, [
+        "--output-dir", str(data), "--esc50-dir", str(root / "no_esc50"), "--skip-download",
+        "--synthetic-coughs", "384", "--synthetic-non-coughs", "768", "--hard-negatives", "0.3",
+        "--seed", str(SEED),
+    ])
+    wavs = sorted(data.rglob("*.wav"))
+    rates = {}
+    for k, rate in enumerate((44100, 8000)):
+        paths = wavs[1 + 4 * k :: 8]
+        clips = torch.from_numpy(np.stack([audio_io.read_wav(p)[0][0] for p in paths])).to(dev)
+        for path, wave in zip(paths, resample.resample(clips, SR, rate).cpu().numpy()):
+            audio_io.write_wav(path, wave, rate)
+        rates[rate] = len(paths)
+    print(
+        f"data directory: {len(wavs)} clips of 2 s written by cli.prepare_data and {rates} rewritten "
+        f"at other rates in {time.perf_counter() - t0:.3f} s",
+        flush=True,
+    )
+
+    # -- 7.2 the resampler on the card against the CPU (cuDNN's TF32 on at entry)
+    factors = (0.9, 0.95, 1.05, 1.1)
+    pairs = [(44100, SR), (8000, SR)] + [(SR, int(round(SR / f))) for f in factors]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(pairs)) as pool:  # the banks, built at once
+        list(pool.map(lambda p: resample._sinc_kernel(p[0] // math.gcd(*p), p[1] // math.gcd(*p)), pairs))
+    bank_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = True
+    resample_err = {}
+    for orig, new in pairs:
+        x = make_audio(rng, 64, orig)
+        x /= np.abs(x).max(axis=1, keepdims=True)
+        want = resample.resample(torch.from_numpy(x), orig, new)
+        got = resample.resample(torch.from_numpy(x).to(dev), orig, new).cpu()
+        resample_err[f"{orig}->{new}"] = float((got - want).abs().max()) if got.shape == want.shape else float("inf")
+    tf32_after = torch.backends.cudnn.allow_tf32
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.from_numpy(make_audio(rng, 16, SR))
+    draws = augment_wave.speed_draws(gen, 16, 0.7, len(factors))
+    want = augment_wave.speed_apply(x, draws, factors)
+    got = augment_wave.speed_apply(x.to(dev), augment_wave.SpeedDraws(*(d.to(dev) for d in draws)), factors).cpu()
+    speed_err = float((got - want).abs().max())
+    torch.backends.cudnn.allow_tf32 = False  # the models' setting (phase 5)
+    print(
+        f"resample card vs CPU at B=64 on unit-peak audio, cuDNN TF32 on at entry and {tf32_after} after "
+        f"(banks built in {bank_s:.3f} s): max abs {resample_err}; speed_perturbation apply at B=16 on the "
+        f"same draws ({int(draws.apply.sum())} clips stretched): max abs {speed_err:.3e} (limit 1e-5)",
+        flush=True,
+    )
+    if not (max(resample_err.values()) <= 1e-5 and speed_err <= 1e-5 and tf32_after):
+        fail("the resampler on the card disagrees with the CPU's, or left TF32 changed")
+
+    # -- 7.3 training from the data directory through the CLI
+    bs = TrainConfig().batch_size
+    train_ds, val_ds = prepare_dataset_split(str(data))
+    steps_per_epoch, val_steps = len(train_ds) // bs, -(-len(val_ds) // bs)
+    loader = BatchLoader(train_ds, bs, shipped, num_workers=4)
+    t0 = time.perf_counter()
+    n_dec = sum(len(lab) for _, lab in loader)
+    decode_cps = n_dec / (time.perf_counter() - t0)
+    by_rate = {}
+    for path in wavs:
+        rate = audio_io.read_wav(path)[1]
+        if len(by_rate.setdefault(rate, [])) < 16:
+            by_rate[rate].append(path)
+    decode_ms = {}
+    for rate, paths in sorted(by_rate.items()):
+        t0 = time.perf_counter()
+        for path in paths:
+            audio_io.load_mono_16k(path)
+        decode_ms[rate] = (time.perf_counter() - t0) / len(paths) * 1e3
+
+    def train_args(out: Path, epochs: int) -> list:
+        return [
+            "--data-dir", str(data), "--no-esc50", "--output-dir", str(out), "--model-type", "residual",
+            "--epochs", str(epochs), "--batch-size", str(bs), "--lr", str(TrainConfig().learning_rate),
+            "--weight-decay", str(TrainConfig().weight_decay), "--patience", str(TrainConfig().patience),
+            "--num-workers", "4",
+        ]
+
+    def records(out: Path) -> list:
+        return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+    out_a, out_b = root / "straight", root / "resumed"
+    frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    train_cli.main(train_args(out_a, 3) + ["--export-pt"])
+    wall_a = time.perf_counter() - t0
+    train_launches = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+    want_launches = 3 * (steps_per_epoch + val_steps)
+    recs_a = records(out_a)
+    print(
+        f"cli.train --data-dir: 3 epochs in {wall_a:.3f} s ({len(train_ds)} train + {len(val_ds)} val clips); "
+        f"front-end launches {train_launches}, expected {want_launches} each (3 x ({steps_per_epoch} train + "
+        f"{val_steps} eval steps)); losses {[(r['train_loss'], r['val_loss']) for r in recs_a]}",
+        flush=True,
+    )
+    if set(train_launches.values()) != {want_launches}:
+        fail(f"the front-end launches {train_launches} on the decode path are not {want_launches} each")
+    if len(recs_a) != 3 or not np.isfinite([v for r in recs_a for v in (r["train_loss"], r["val_loss"])]).all():
+        fail("cli.train --data-dir did not write 3 epochs of finite losses")
+    run_cli(train_cli.main, train_args(out_b, 2))
+    run_cli(train_cli.main, train_args(out_b, 3) + ["--resume", str(out_b / "latest_model")])
+    state_a = checkpoint.load_checkpoint(str(out_a / "latest_model"))[0]
+    state_b = checkpoint.load_checkpoint(str(out_b / "latest_model"))[0]
+    skip = {"train_clips_per_sec", "val_clips_per_sec", "wall_s", "t"}
+    same_records = [{k: v for k, v in r.items() if k not in skip} for r in recs_a] == [
+        {k: v for k, v in r.items() if k not in skip} for r in records(out_b)
+    ]
+    same_params = all(torch.equal(v, state_b["model"][k]) for k, v in state_a["model"].items())
+    same_opt = all(
+        torch.equal(x, y) for x, y in zip(
+            state_a["optimizer"]["mu"] + state_a["optimizer"]["nu"],
+            state_b["optimizer"]["mu"] + state_b["optimizer"]["nu"],
+        )
+    )
+    print(
+        f"decode path resume (2 epochs, then --resume to 3) vs 3 straight epochs: parameters bit-equal "
+        f"{same_params}, optimizer moments bit-equal {same_opt}, metrics.jsonl records equal {same_records}",
+        flush=True,
+    )
+    if not (same_params and same_opt and same_records):
+        fail("the resumed decode-path run differs from the uninterrupted one")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_cli(train_cli.main, train_args(root / "profiled", 4) + ["--resume", str(out_a / "latest_model")])
+    events = prof.events()
+    epoch_ev = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
+    last = recs_a[-1]
+    plain_ms = (len(train_ds) / last["train_clips_per_sec"] + len(val_ds) / last["val_clips_per_sec"]) * 1e3
+    idle = "not measured"
+    if len(epoch_ev) == 1:
+        busy = busy_ms(events, epoch_ev[0].time_range.start, epoch_ev[0].time_range.end)
+        idle = f"{1 - busy / plain_ms:.3f} (device busy {busy:.3f} ms)"
+    deltas = [b["wall_s"] - a["wall_s"] for a, b in zip(recs_a, recs_a[1:])]
+    print(
+        f"[{smi}] decode path (batch {bs}): host decode {decode_cps:,.0f} clips/s cold (4 threads, one pass over "
+        f"{n_dec} clips); one thread, ms a 2 s clip by source rate "
+        f"{ {r: round(v, 3) for r, v in decode_ms.items()} }; step {[round(bs / r['train_clips_per_sec'] * 1e3, 4) for r in recs_a]} ms (train "
+        f"clips/s {[round(r['train_clips_per_sec'], 1) for r in recs_a]}); epoch wall {[round(d, 3) for d in deltas]} s "
+        f"({[round(len(train_ds) / d, 1) for d in deltas]} train clips/s); idle share over one profiled epoch {idle}. "
+        f"Shard path (phase 6): step {shard['step_ms_b32']:.4f} ms, epoch wall {[round(d, 3) for d in shard['epoch_wall_s']]} s "
+        f"({[round(c, 1) for c in shard['train_clips_per_s']]} train clips/s), idle share {shard['idle_share']}",
+        flush=True,
+    )
+
+    # -- 7.4 pack the same directory: epoch 0's shard batches are the decoded ones
+    run_cli(pack_cli.main, ["--data-dir", str(data), "--output", str(root / "shards"), "--num-workers", "4"])
+    shard_loader = ShardLoader(str(root / "shards" / "train"), bs, weighted=True, drop_last=True, seed=SEED,
+                               feature_config=shipped)
+    decode_loader = BatchLoader(train_ds, bs, shipped, weighted=True, drop_last=True, seed=SEED, num_workers=4)
+    worst, n_batches = 0.0, 0
+    for (sw, sl), (dw, dl) in zip(shard_loader, decode_loader):
+        if not np.array_equal(sl, dl):
+            fail("the packed corpus's batch labels differ from the decode path's")
+        worst = max(worst, float(np.abs(dequantize(sw) - dw).max()))
+        n_batches += 1
+    print(
+        f"cli.pack: {shard_loader.n_clips} train clips; epoch 0 order and labels equal the decode path's over "
+        f"{n_batches} batches; waves max abs {worst:.3e} (limit half an int16 LSB, {0.5 / 32768:.3e})",
+        flush=True,
+    )
+    if n_batches != steps_per_epoch or worst > 0.5 / 32768 + 1e-7:
+        fail("the packed corpus's batches differ from the decode path's")
+
+    # -- 7.5 offline scoring of a 10-minute recording
+    wave, starts = synth_recording(rng, 600, 40)
+    rec = root / "recording.wav"
+    audio_io.write_wav(rec, wave, SR)
+    wave = audio_io.load_mono_16k(rec)
+    model_dir = out_a / "best_model"
+    variables, config = _load_checkpoint(str(model_dir))
+    n_windows = (len(wave) - SR) // 4000 + 1
+    frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+    lines = run_cli(
+        detect_cli.main, ["--model", str(model_dir), "--wav", str(rec), "--threshold", "0"], echo=False
+    ).splitlines()
+    offline_launches = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+    n_batches = -(-n_windows // 1024)
+    if set(offline_launches.values()) != {n_batches}:
+        fail(f"offline scoring launched {offline_launches}, not one of each per 1024-window batch ({n_batches})")
+    t0 = time.perf_counter()
+    events = offline.score_recording(wave, variables, config, threshold=0.0)
+    offline_s = time.perf_counter() - t0
+    streamed = StreamingDetector(
+        str(model_dir), device="cuda", chunk_size=SR, confidence_threshold=0.0,
+    ).process_chunk(wave)
+    same_times = [e.time_seconds for e in events] == [d.time_seconds for d in streamed]
+    printed = [float(line.split("t=")[1].split("s")[0]) for line in lines if line.startswith("cough at")]
+    conf_err = max(abs(e.confidence - d.confidence) for e, d in zip(events, streamed)) if same_times else float("inf")
+    probs = offline.window_probs(wave, variables, config)
+    cpu_probs = offline.window_probs(wave[: 120 * SR], variables, config, device="cpu")
+    prob_err = float(np.abs(probs[: len(cpu_probs)] - cpu_probs).max())
+    print(
+        f"offline scoring ({n_windows} windows, {n_batches} batches of up to 1024; cli.detect launches "
+        f"{offline_launches}): {len(events)} events at threshold 0 (cli.detect printed {len(printed)}); times equal "
+        f"StreamingDetector.process_chunk's {same_times}, confidences max abs {conf_err:.3e} (limit 1e-4); window "
+        f"probabilities card vs CPU over the first {len(cpu_probs)} windows max abs {prob_err:.3e} (limit 1e-3)",
+        flush=True,
+    )
+    if not (same_times and conf_err <= 1e-4 and prob_err <= TOL and len(printed) == len(events)
+            and np.isfinite(probs).all() and len(probs) == n_windows):
+        fail("offline scoring disagrees with the streaming detector or the CPU")
+    found = offline.score_recording(wave, variables, config, threshold=0.5)
+    hit = [any(t0 + 0.9 <= e.time_seconds <= t0 + 2.1 for e in found) for t0 in starts]
+    spurious = [e.time_seconds for e in found if not any(t0 + 0.9 <= e.time_seconds <= t0 + 2.1 for t0 in starts)]
+    print(
+        f"threshold 0.5: {len(found)} detections; {sum(hit)} of the {len(starts)} true coughs found (an event "
+        f"within 0.9-2.1 s of a cough's start), {len(spurious)} others",
+        flush=True,
+    )
+    model = model_from_config(config.model)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
+    model = place_model(model, dev)
+    batch = offline.frame_windows(torch.from_numpy(wave).to(dev), SR, 4000)[:1024].contiguous()
+
+    def score_batch():
+        with torch.no_grad():
+            feats = frontend.extract_features_fast(frontend.peak_normalize(batch), config.features, device=dev)
+            return torch.softmax(model(feats), dim=-1)[:, 1]
+
+    batch_ms = cuda_ms(score_batch, 10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        offline.score_recording(wave, variables, config, threshold=0.5)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    print(
+        f"[{smi}] offline scoring: {n_windows / offline_s:,.0f} windows/s over the whole call ({offline_s:.3f} s, "
+        f"model load included); one 1024-window batch {batch_ms:.4f} ms by CUDA events ({1024 / batch_ms * 1e3:,.0f} "
+        f"windows/s); launches a batch 1 + 1; one call under torch.profiler {call_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / call_ms:.3f}",
+        flush=True,
+    )
+
+    # -- 7.6 the front-end kernel at B = 1024, and torch.stft + mel at 1024 and 32
+    w = torch.from_numpy(make_audio(rng, 1024, SR)).to(dev)
+    pair_err = rel_err(frontend_kernel.extract_features_fused(w, shipped),
+                       frontend_kernel.frontend_kernel_reference(w, shipped))
+    if not pair_err <= TOL:
+        fail(f"the kernel pair disagrees with frontend_kernel_reference at B=1024: {pair_err:.3e}")
+    mel = frontend_kernel.power_mel_fused(w, shipped)
+    b1024 = {
+        "spectral": dict(
+            ms=cuda_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), 20),
+            device_ms=device_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), 20, "spectral_kernel"),
+            plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, shipped), 20),
+            library_ms=cuda_ms(lambda: yard["library_mel"](w), 20),
+            bound=yard["bound_a"](1024),
+        ),
+        "epilogue": dict(
+            ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), 20),
+            device_ms=device_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), 20, "epilogue_kernel"),
+            plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, shipped), 20),
+            library_ms=None,
+            bound=yard["bound_b"](1024),
+        ),
+    }
+    pair_ms = cuda_ms(lambda: frontend_kernel.extract_features_fused(w, shipped), 20)
+    w32 = w[:32].contiguous()
+    lib32 = cuda_ms(lambda: yard["library_mel"](w32), 50)
+    for part, tm in b1024.items():
+        print(
+            f"[{smi}] {part} launch at B=1024: kernel {tm['ms']:.4f} ms (device {tm['device_ms']:.4f}), plain "
+            f"{tm['plain_ms']:.4f} ms, library {'none' if tm['library_ms'] is None else format(tm['library_ms'], '.4f')}"
+            f"; bound {tm['bound']['bound_ms']:.4f} ms by {tm['bound']['bound_by']} (device time at "
+            f"{100 * tm['bound']['bound_ms'] / tm['device_ms']:.1f}% of it); bound at B=32 "
+            f"{(yard['bound_a'] if part == 'spectral' else yard['bound_b'])(32)['bound_ms']:.4f} ms",
+            flush=True,
+        )
+    print(
+        f"[{smi}] kernel pair at B=1024: {pair_ms:.4f} ms, vs frontend_kernel_reference max-relative "
+        f"{pair_err:.3e}; torch.stft + mel matmul {b1024['spectral']['library_ms']:.4f} ms at B=1024, "
+        f"{lib32:.4f} ms at B=32",
+        flush=True,
+    )
+
+    # -- 7.7 featurize the data directory at batch 512
+    frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+    report = json.loads(run_cli(featurize_cli.main, [
+        "--data-dir", str(data), "--output", str(root / "features.npz"), "--batch-size", "512", "--num-workers", "8",
+    ]).strip().splitlines()[-1])
+    feat_launches = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+    feats = np.load(root / "features.npz")["features"][:16]
+    first, _ = next(iter(BatchLoader(CoughDataset(str(data)), 16, shipped, num_workers=4)))
+    want = frontend.extract_features(frontend.peak_normalize(torch.from_numpy(first)), shipped)
+    feat_err = rel_err(torch.from_numpy(feats), want)
+    n_feat_batches = -(-len(wavs) // 512)
+    print(
+        f"[{smi}] cli.featurize: {report['clips']} clips at batch 512, {report['clips_per_sec']} clips/s "
+        f"(steady {report['steady_clips_per_sec']}); launches {feat_launches} for {n_feat_batches} batches; 16 "
+        f"clips' features vs the CPU torch chain max-relative {feat_err:.3e} (limit 1e-3)",
+        flush=True,
+    )
+    if not (feat_err <= TOL and set(feat_launches.values()) == {n_feat_batches}):
+        fail("featurize disagrees with the CPU chain or missed its launches")
+
+    # -- 7.8 the trained model served by the facade
+    facade = CoughDetectorInference(str(out_a / "best_model.pt"), verbose=False)
+    facade.confidence_threshold = 0.0
+    hits = [facade.process_audio_chunk(wave[lo : lo + 1600]) for lo in range(0, 20 * SR, 1600)]
+    hits = [h for h in hits if h is not None]
+    early = [e for e in events if e.time_seconds <= 20.0]
+    first_window = frontend.peak_normalize(torch.from_numpy(wave[None, :SR]).to(dev))
+    p_cough = facade.predict(frontend.extract_features_fast(first_window, shipped, device=dev).cpu().numpy())[1]
+    print(
+        f"CoughDetectorInference(best_model.pt) on the card: {len(hits)} detections over the first 20 s at "
+        f"threshold 0 (offline scoring: {len(early)}), predict on the first window {p_cough:.4f} "
+        f"(offline {probs[0]:.4f})",
+        flush=True,
+    )
+    if len(hits) != len(early) or not abs(p_cough - probs[0]) <= 1e-4:
+        fail("the facade does not serve the trained model as offline scoring does")
+    print(f"files-to-detections phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return {
+        "offline_launches": offline_launches, "offline_batch_ms": batch_ms, "decode_training_launches": train_launches,
+        "b1024": b1024,
+    }
 
 
 def main() -> None:
@@ -643,6 +1059,14 @@ def main() -> None:
         t, m, c = cfg.num_frames, cfg.n_mels, cfg.n_mfcc
         flops = b * (2 * t * m * c + 8 * m * t + 10 * c * t)
         return flops, 4 * b * (m + cfg.num_features) * t + 4 * m * c
+
+    def bound_a(b: int) -> dict:
+        """The spectral launch's bound for b clips: the waveform read and
+        the power mel written once, the tables read once, its operations
+        at the TF32 tensor-core peak."""
+        return bound(b * flops_a, 4 * b * (shipped.segment_samples + n_mels * t_frames) + table_a, PEAK_TF32_FLOPS)
+
+    yard = dict(library_mel=library_mel, bound_a=bound_a, bound_b=lambda b: bound(*epilogue_work(shipped, b)))
 
     timing = {}
     for b, iters in ((256, 50), (4096, 10)):
@@ -906,7 +1330,10 @@ def main() -> None:
     # -- 6. the training path -------------------------------------------------------
     trained = train_phase(smi)
 
-    # -- 7. summary ----------------------------------------------------------------
+    # -- 7. files to detections ----------------------------------------------------------
+    files = files_phase(smi, trained["shard"], yard)
+
+    # -- 8. summary ----------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -921,6 +1348,12 @@ def main() -> None:
             **timing[main_b][part],
             "training_batch_ms": trained["ms_b32"][part],
             "training_batch_device_ms": trained["device_ms_b32"][part],
+            "decode_training_launches": files["decode_training_launches"][part],
+            "offline_launches": files["offline_launches"][part],
+            "offline_batch": 1024,
+            "offline_batch_ms": files["b1024"][part]["ms"],
+            "offline_batch_device_ms": files["b1024"][part]["device_ms"],
+            "offline_batch_bound_ms": files["b1024"][part]["bound"]["bound_ms"],
         }
         for part in ("spectral", "epilogue")
     ]

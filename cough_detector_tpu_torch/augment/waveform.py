@@ -13,8 +13,9 @@ Semantics per op (reference: src/augmentation.py:19-268):
   volume         — gain U[0.7, 1.3], prob p
   gaussian noise — SNR U[10, 30] dB, prob p
   file noise     — random bank clip at SNR U[5, 20] dB, prob p
-Chain order: shift → volume → gaussian → file noise. A clip takes an op
-iff its U[0, 1) gate draw is <= p.
+  speed          — one of (0.9, 0.95, 1.05, 1.1), prob p, opt-in
+Chain order: shift → speed → volume → gaussian → file noise. A clip takes
+an op iff its U[0, 1) gate draw is <= p.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ..ops.frontend import pad_or_trim
+from ..ops.resample import resample
 
 
 def _rand(gen: torch.Generator, *shape: int) -> torch.Tensor:
@@ -179,18 +183,65 @@ def add_file_noise(
 # -- resampling ops --------------------------------------------------------------
 
 
-def speed_perturbation(waves, gen, p, factors=(0.9, 0.95, 1.05, 1.1), sample_rate=16000):
-    """Needs the port of ops/resample.py, which is not done yet."""
-    raise NotImplementedError(
-        "speed_perturbation needs ops/resample.py, not ported yet (ROADMAP Queue 1 item 10b)"
-    )
+class SpeedDraws(NamedTuple):
+    apply: torch.Tensor  # (B,) bool gate
+    pick: torch.Tensor   # (B,) int64 index into the factors
 
 
-def pitch_shift_semitones(waves, semitones, sample_rate=16000):
-    """Needs the port of ops/resample.py, which is not done yet."""
-    raise NotImplementedError(
-        "pitch_shift_semitones needs ops/resample.py, not ported yet (ROADMAP Queue 1 item 10b)"
-    )
+def speed_draws(gen: torch.Generator, b: int, p: float, n_factors: int) -> SpeedDraws:
+    apply = _gate(gen, p, b)
+    pick = torch.randint(0, n_factors, (b,), generator=gen, device=gen.device)
+    return SpeedDraws(apply, pick)
+
+
+def _stretch(waves: torch.Tensor, factor: float, sample_rate: int) -> torch.Tensor:
+    """Play (B, S) back at `factor` times the speed, center pad/trimmed back
+    to S samples. The virtual rate comes from the true time base: a wrong
+    rate would mis-scale the factor and compute the resampler's anti-alias
+    filter for the wrong Nyquist."""
+    virtual_sr = int(round(sample_rate / factor))
+    return pad_or_trim(resample(waves, sample_rate, virtual_sr), waves.shape[-1])
+
+
+def speed_apply(
+    waves: torch.Tensor,
+    d: SpeedDraws,
+    factors: Tuple[float, ...] = (0.9, 0.95, 1.05, 1.1),
+    sample_rate: int = 16000,
+) -> torch.Tensor:
+    """Each clip whose gate opens plays at factors[pick]; the batch is
+    resampled once per factor and each clip takes its own by selection."""
+    out = waves
+    for i, f in enumerate(factors):
+        take = (d.apply & (d.pick == i))[:, None]
+        out = torch.where(take, _stretch(waves, f, sample_rate), out)
+    return out
+
+
+def speed_perturbation(
+    waves: torch.Tensor,
+    gen: torch.Generator,
+    p: float,
+    factors: Tuple[float, ...] = (0.9, 0.95, 1.05, 1.1),
+    sample_rate: int = 16000,
+) -> torch.Tensor:
+    """Opt-in speed perturbation: each clip picks one of a static set of
+    speed factors, or keeps its speed with probability 1 - p (the
+    reference disables its own version, src/augmentation.py:107-117)."""
+    d = speed_draws(gen, waves.shape[0], p, len(factors))
+    return speed_apply(waves, d, factors, sample_rate)
+
+
+def pitch_shift_semitones(
+    waves: torch.Tensor, semitones: int, sample_rate: int = 16000
+) -> torch.Tensor:
+    """Resample-based pitch shift: play back at 2^(semitones/12) times the
+    speed, then pad/trim to the original length (duration turns into
+    pitch). The reference's own no-ops without sox
+    (src/augmentation.py:215-247)."""
+    if semitones == 0:
+        return waves
+    return _stretch(waves, 2.0 ** (semitones / 12.0), sample_rate)
 
 
 # -- chain -----------------------------------------------------------------------
@@ -206,13 +257,16 @@ def augment_waveforms(
     sample_rate: int = 16000,
 ) -> torch.Tensor:
     """The reference chain (reference: src/augmentation.py:249-268) on a
-    (B, S) batch. p <= 0 returns the batch unchanged and draws nothing."""
-    if use_speed_perturbation:
-        speed_perturbation(waves, gen, p, sample_rate=sample_rate)
+    (B, S) batch. p <= 0 returns the batch unchanged and draws nothing.
+    Speed perturbation is off by default, as the reference's is a no-op;
+    `use_time_shift=False` leaves the shift to a loader that crops the
+    full clip (data.datasets.BatchLoader)."""
     if p <= 0:
         return waves
     if use_time_shift:
         waves = time_shift(waves, gen, p)
+    if use_speed_perturbation:
+        waves = speed_perturbation(waves, gen, p, sample_rate=sample_rate)
     waves = volume_perturbation(waves, gen, p)
     waves = add_gaussian_noise(waves, gen, p)
     if noise_bank is not None and noise_bank.shape[0] > 0:

@@ -12,9 +12,10 @@ Layout (format version 2):
     <dir>/waves-00000.npy               int16 (N, segment_samples)
     <dir>/labels-00000.npy              int16 (N,)
 
-`write_shards` (packing a decoded dataset) waits for the decode path
-(ROADMAP Queue 1 item 10a); `pack_arrays` writes the same layout from waveforms
-already in memory, such as a synthetic corpus.
+`write_shards` packs a decoded `ClipDataset` through `BatchLoader` and
+writes the files and manifest the JAX package's writes, so each package's
+`ShardLoader` reads the other's shards; `pack_arrays` writes the same
+layout from waveforms already in memory, such as a synthetic corpus.
 """
 
 from __future__ import annotations
@@ -53,6 +54,49 @@ def dequantize_torch(waves: torch.Tensor) -> torch.Tensor:
     if waves.dtype == torch.int16:
         return waves.to(torch.float32) * (1.0 / INT16_SCALE)
     return waves
+
+
+def write_shards(
+    dataset,
+    out_dir: str,
+    feature_config: FeatureConfig = FeatureConfig(),
+    shard_size: int = 8192,
+    num_workers: int = 8,
+    backend: str = "auto",
+) -> dict:
+    """Pack a ClipDataset into int16 waveform shards; returns the manifest.
+
+    Decode order is the dataset's own (no shuffle): shard row r of the
+    global index is dataset.samples[r], so a seeded split's selection
+    order survives packing."""
+    from .datasets import BatchLoader
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    loader = BatchLoader(
+        dataset, shard_size, feature_config,
+        num_workers=num_workers, backend=backend, cache_bytes=0,
+    )
+    shards = []
+    counts: dict = {}
+    n_total = 0
+    for i, (waves, labels) in enumerate(loader):
+        np.save(out / f"waves-{i:05d}.npy", quantize(waves))
+        np.save(out / f"labels-{i:05d}.npy", labels.astype(np.int16))
+        shards.append({"file": f"waves-{i:05d}.npy", "n": int(len(labels))})
+        for lab in labels:
+            counts[int(lab)] = counts.get(int(lab), 0) + 1
+        n_total += len(labels)
+    manifest = {
+        "version": FORMAT_VERSION,
+        "segment_samples": int(feature_config.segment_samples),
+        "sample_rate": int(feature_config.sample_rate),
+        "n_clips": n_total,
+        "class_counts": {str(k): v for k, v in sorted(counts.items())},
+        "shards": shards,
+    }
+    (out / MANIFEST).write_text(json.dumps(manifest, indent=2))
+    return manifest
 
 
 def pack_arrays(

@@ -1,10 +1,12 @@
-"""Batched multi-stream cough detection engine, in torch.
+"""Streaming cough detection engines, in torch.
 
-The port of `cough_detector_tpu/stream/detector.py::StreamingDetector`: S
-concurrent streams scored in one batched tick on one device. Each tick is
-`ring.stream_step` with this detector's `score_fn`: peak-normalize →
+The port of `cough_detector_tpu/stream/detector.py`. `StreamingDetector`:
+S concurrent streams scored in one batched tick on one device. Each tick
+is `ring.stream_step` with this detector's `score_fn`: peak-normalize →
 `ops.frontend.extract_features_fast` (the fused CUDA kernel on the card) →
-classifier → softmax.
+classifier → softmax. `CoughDetectorInference` wraps it in the reference's
+single-stream API (`predict`, `process_audio_chunk`, `reset`,
+`on_cough_detected`; reference: src/inference.py:39-247).
 
 Weights come as a state dict in the reference `.pt` key layout (what
 `models.convert.from_jax_variables` returns), from a reference `.pt`
@@ -14,9 +16,10 @@ checkpoint file, or from a checkpoint directory the port's trainer wrote
 
 from __future__ import annotations
 
+import datetime
 import warnings
 from pathlib import Path
-from typing import List, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -233,3 +236,94 @@ class StreamingDetector:
         """Raw per-window cough probabilities for a (B, window) batch."""
         windows = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
         return self._score_fn(windows).cpu().numpy()
+
+
+class CoughDetectorInference:
+    """Reference-API single-stream wrapper (reference: src/inference.py:39).
+
+    Debouncing and timestamps use deterministic stream time; the wall-clock
+    timestamp handed to the callback is taken at event time. `device`:
+    "auto" (the reference's default) and "cuda" mean the card, and raise
+    without one; "cpu" is the only way to the CPU."""
+
+    def __init__(
+        self,
+        model_path: str,
+        device: Union[str, torch.device] = "auto",
+        confidence_threshold: float = 0.5,
+        smoothing_window: int = 3,
+        debounce_seconds: float = 0.5,
+        verbose: bool = True,
+    ):
+        self.verbose = verbose
+        self._confidence_threshold = confidence_threshold
+        self.debounce_seconds = debounce_seconds
+        self._engine = StreamingDetector(
+            model_path,
+            device="cuda" if device == "auto" else device,
+            num_streams=1,
+            chunk_size=1600,  # 100 ms at 16 kHz, the reference mic chunk
+            confidence_threshold=confidence_threshold,
+            smoothing_window=smoothing_window,
+            debounce_seconds=debounce_seconds,
+            hop_duration=0.25,
+        )
+        self.device = self._engine.device
+        self.config = self._engine.config.to_flat_dict()
+        self.on_cough_detected: Optional[Callable[[datetime.datetime, float], None]] = None
+        if verbose:
+            print(
+                f"Model loaded: {self._engine.config.model.model_type} "
+                f"({self._engine.num_streams} stream, {self.device})"
+            )
+
+    @property
+    def confidence_threshold(self) -> float:
+        return self._confidence_threshold
+
+    @confidence_threshold.setter
+    def confidence_threshold(self, value: float) -> None:
+        """Live-mutable, like the reference's attribute (read at event time,
+        reference: src/inference.py:70,229): takes effect on the next window
+        without disturbing the ring audio, smoothing history or debounce
+        clock."""
+        self._confidence_threshold = float(value)
+        self._engine.set_thresholds([0], [float(value)])
+
+    @torch.no_grad()
+    def predict(self, features: np.ndarray) -> Tuple[bool, float]:
+        """(is_cough, p_cough) for a (1, H, T) or (B, 1, H, T) feature
+        tensor (reference: src/inference.py:165-189)."""
+        feats = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
+        if feats.ndim == 3:
+            feats = feats[None]
+        p = float(torch.softmax(self._engine._model(feats), dim=-1)[0, 1])
+        return p > 0.5, p
+
+    def process_audio_chunk(
+        self, audio_chunk: np.ndarray
+    ) -> Optional[Tuple[datetime.datetime, float]]:
+        """Feed raw mic samples; returns (timestamp, smoothed_confidence) on
+        a debounced detection, else None (reference: src/inference.py:
+        191-241). The callback fires once per detected cough (the reference
+        returns on the first and drops the rest of the chunk's); the
+        returned tuple is the first event, as the reference returns."""
+        audio_chunk = np.asarray(audio_chunk, np.float32)
+        if audio_chunk.ndim == 2:  # (channels, samples) → mono
+            audio_chunk = audio_chunk.mean(axis=0)
+        detections = self._engine.process_chunk(audio_chunk)
+        if not detections:
+            return None
+        timestamp = datetime.datetime.now()
+        if self.on_cough_detected:
+            for det in detections:
+                self.on_cough_detected(timestamp, det.confidence)
+        return timestamp, detections[0].confidence
+
+    def reset(self) -> None:
+        """Clear audio, history and debounce state. A live-mutated
+        confidence_threshold survives, like the reference's (its reset()
+        never touches the attribute); the engine's reset restores the
+        constructor's, so ours is applied again."""
+        self._engine.reset()
+        self._engine.set_thresholds([0], [self._confidence_threshold])

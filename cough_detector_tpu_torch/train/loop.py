@@ -1,11 +1,14 @@
 """End-to-end training on one device, in torch.
 
-The port of `cough_detector_tpu/train/loop.py::train` for the shard
-corpus: dynamic class weights capped 20:1, class-weighted CE, AdamW +
-cosine warm restarts + grad clip 1.0, best-F1 + latest checkpoints, early
-stopping on val loss, resume. Per step:
+The port of `cough_detector_tpu/train/loop.py::train`: dataset assembly
+(a data directory's seeded split, optional ESC-50 fold 5 for validation)
+or a packed shard corpus, dynamic class weights capped 20:1,
+class-weighted CE, AdamW + cosine warm restarts + grad clip 1.0, best-F1 +
+latest checkpoints, early stopping on val loss, resume. Per step:
 
-  int16 batch (gathered from the corpus on the device, or uploaded)
+  int16 shard batch (gathered from the corpus on the device, or uploaded),
+  or a float32 batch the host decoded, cropped and time-shifted
+  (data.datasets.BatchLoader), uploaded from pinned memory
       → dequantize → waveform augmentation → peak normalize
       → front end (the fused CUDA kernel on the card) → SpecAugment
       → forward/backward → clip + AdamW
@@ -18,9 +21,9 @@ deterministic convolutions, no autotuning) and restores the previous
 settings when it returns. Metrics stay on the device until the epoch ends.
 Per-epoch records go to <output>/metrics.jsonl.
 
-Not ported yet, and raising NotImplementedError: the decode path
-(`data_dir`, ESC-50), the chunked device corpus, and a mesh or several
-processes (ROADMAP Queue 1 items 10a, 10c and 11).
+Not ported yet, and raising NotImplementedError: the chunked device
+corpus, and a mesh or several processes (ROADMAP Queue 1 items 10c and
+11).
 """
 
 from __future__ import annotations
@@ -38,6 +41,13 @@ from torch.profiler import record_function
 
 from ..augment import augment_waveforms, spec_augment
 from ..config import Config
+from ..data.datasets import (
+    BatchLoader,
+    ClipDataset,
+    CombinedDataset,
+    ESC50Dataset,
+    prepare_dataset_split,
+)
 from ..data.shards import ShardLoader, dequantize_torch
 from ..models import count_parameters, init_weights, model_from_config, no_tf32
 from ..ops import frontend
@@ -105,10 +115,11 @@ def _resident_batches(corpus: torch.Tensor, mats) -> Iterator[Batch]:
         yield corpus.index_select(0, idx_d[s]), labels_d[s], None if full[s] else mask_d[s]
 
 
-def _streamed_batches(loader: ShardLoader, epoch: int, dev: torch.device) -> Iterator[Batch]:
-    """One epoch's batches from the loader's prefetch thread, uploaded from
-    pinned memory without blocking; a short tail batch is padded to the
-    batch size under a mask."""
+def _streamed_batches(loader, epoch: int, dev: torch.device) -> Iterator[Batch]:
+    """One epoch's batches from a loader's prefetch thread (int16 from a
+    ShardLoader, float32 from a BatchLoader), uploaded from pinned memory
+    without blocking; a short tail batch is padded to the batch size under
+    a mask."""
     loader.set_epoch(epoch)
     b = loader.batch_size
     for waves, labels in loader:
@@ -141,22 +152,25 @@ def _accumulate(pending) -> EpochAccumulator:
     return acc
 
 
-def make_feature_fns(config: Config, dev: torch.device, noise_bank=None):
+def make_feature_fns(config: Config, dev: torch.device, *, use_time_shift: bool, noise_bank=None):
     """(train_features(waves, generator), eval_features(waves)): int16 or
     float (B, segment) batches on `dev` → (B, F, T) features. Training
     runs the reference's order (reference: src/dataset.py:150-163):
-    dequantize → waveform augmentation (shards hold the cropped window, so
-    the shift is the zero-filled one) → peak normalize → front end →
-    SpecAugment; eval skips both augmentations. The front end is the fused
-    CUDA kernel on the card (ops/frontend.py::extract_features_fast); the
-    features carry no parameters, so nothing differentiates through it."""
+    dequantize → waveform augmentation → peak normalize → front end →
+    SpecAugment; eval skips both augmentations. `use_time_shift`: True for
+    shard batches, which hold only the cropped window, so the shift is the
+    zero-filled one on the device; False for decoded batches, which the
+    loader already shifted against the full clip (a second shift here
+    would move them twice). The front end is the fused CUDA kernel on the
+    card (ops/frontend.py::extract_features_fast); the features carry no
+    parameters, so nothing differentiates through it."""
     fcfg, tcfg = config.features, config.train
     bank = None if noise_bank is None else torch.as_tensor(noise_bank, dtype=torch.float32, device=dev)
 
     def train_features(waves, gen):
         waves = augment_waveforms(
             dequantize_torch(waves), gen, p=tcfg.p_augment, noise_bank=bank,
-            use_time_shift=True, sample_rate=fcfg.sample_rate,
+            use_time_shift=use_time_shift, sample_rate=fcfg.sample_rate,
         )
         feats = frontend.extract_features_fast(frontend.peak_normalize(waves), fcfg, device=dev)
         return spec_augment(
@@ -175,6 +189,28 @@ def make_feature_fns(config: Config, dev: torch.device, noise_bank=None):
     return train_features, eval_features
 
 
+def _build_datasets(
+    data_dir: Optional[str], use_esc50: bool, esc50_dir: Optional[str]
+) -> Tuple[ClipDataset, ClipDataset]:
+    """The reference's dataset assembly (src/train.py:332-392): a data
+    directory's seeded stratified split, plus ESC-50 with fold 5 held out."""
+    trains, vals = [], []
+    if data_dir and Path(data_dir).exists():
+        tr, va = prepare_dataset_split(data_dir, val_split=0.2)
+        trains.append(tr)
+        vals.append(va)
+        print(f"Custom dataset: train {len(tr)}, val {len(va)}")
+    if use_esc50 and esc50_dir and Path(esc50_dir).exists():
+        trains.append(ESC50Dataset(esc50_dir, is_training=True, fold=5, include_all_negatives=True))
+        vals.append(ESC50Dataset(esc50_dir, is_training=False, fold=5, include_all_negatives=True))
+        print(f"ESC-50: train {len(trains[-1])}, val {len(vals[-1])}")
+    if not trains:
+        raise ValueError("No training data found! Provide data_dir or an ESC-50 directory.")
+    if len(trains) > 1:
+        return CombinedDataset(trains), CombinedDataset(vals)
+    return trains[0], vals[0]
+
+
 def train(
     data_dir: Optional[str],
     output_dir: str,
@@ -182,6 +218,7 @@ def train(
     use_esc50: bool = False,
     esc50_dir: Optional[str] = None,
     resume: Optional[str] = None,
+    num_workers: int = 8,
     noise_bank: Optional[np.ndarray] = None,
     max_epochs: Optional[int] = None,
     mesh=None,
@@ -190,15 +227,20 @@ def train(
     device_corpus_budget: Optional[int] = None,
     device="cuda",
 ) -> str:
-    """Train a model from a packed shard corpus (`shards_dir` with `train/`
-    and `val/`); returns the best checkpoint's path.
+    """Train a model; returns the best checkpoint's path.
 
-    `device_corpus`: "auto" uploads the int16 corpus once when it fits
-    `device_corpus_budget` bytes (2 GiB by default), True always does,
-    False streams the loader's batches through pinned memory; both give the
-    same batches. `device` defaults to the card and raises if there is none.
-    `noise_bank` ((N, S >= segment) float waveforms) turns on the file-noise
-    augmentation."""
+    Input: `shards_dir` (a packed corpus with `train/` and `val/`), or else
+    the decode path: `data_dir` (cough/ and non_cough/ clips, split 80/20
+    with seed 42) and, with `use_esc50`, ESC-50 at `esc50_dir`, decoded by
+    `num_workers` host threads. The decode path time-shifts at crop time
+    against the full clip, as the reference does.
+
+    `device_corpus` (shards only): "auto" uploads the int16 corpus once
+    when it fits `device_corpus_budget` bytes (2 GiB by default), True
+    always does, False streams the loader's batches through pinned memory;
+    both give the same batches. `device` defaults to the card and raises
+    if there is none. `noise_bank` ((N, S >= segment) float waveforms)
+    turns on the file-noise augmentation."""
     if device_corpus not in ("auto", True, False, "chunked"):
         raise ValueError(
             f"device_corpus={device_corpus!r}: expected 'auto', True, False or 'chunked'"
@@ -211,42 +253,67 @@ def train(
         and torch.distributed.get_world_size() > 1
     ):
         raise _not_ported("Training over a mesh or several processes (torch.distributed)", "11")
-    if shards_dir is None or use_esc50:
-        raise _not_ported(
-            "The decode path (data_dir, ESC-50, BatchLoader, audio_io; pack a "
-            "shard corpus and pass shards_dir)", "10a",
+    if device_corpus is True and shards_dir is None:
+        raise ValueError(
+            "device_corpus=True requires shards_dir (a packed corpus is what gets "
+            "uploaded); pack one with cli.pack or pass device_corpus='auto'"
         )
     config = config or Config()
     dev = resolve_device(device)
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(config.to_json())
+    if shards_dir is not None:
+        loaders = _shard_loaders(config, shards_dir)
+    else:
+        loaders = _decode_loaders(config, data_dir, use_esc50, esc50_dir, num_workers)
     with deterministic(dev):
         return _train(
-            output_dir, config, dev, resume, noise_bank, max_epochs, shards_dir,
+            output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
             device_corpus,
             _DEVICE_CORPUS_BUDGET if device_corpus_budget is None else int(device_corpus_budget),
         )
 
 
-def _train(output_dir, config, dev, resume, noise_bank, max_epochs, shards_dir,
-           device_corpus, budget) -> str:
+def _shard_loaders(config: Config, shards_dir: str):
+    """(train loader, val loader, train class counts) over a packed corpus."""
     fcfg, tcfg = config.features, config.train
-    out = Path(output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "config.json").write_text(config.to_json())
-
     train_loader = ShardLoader(
         str(Path(shards_dir) / "train"), tcfg.batch_size,
         weighted=True, drop_last=True, seed=tcfg.seed, feature_config=fcfg,
     )
-    val_loader = ShardLoader(
-        str(Path(shards_dir) / "val"), tcfg.batch_size, feature_config=fcfg,
-    )
+    val_loader = ShardLoader(str(Path(shards_dir) / "val"), tcfg.batch_size, feature_config=fcfg)
     print(
         f"Shard corpus {shards_dir}: train {train_loader.n_clips}, "
         f"val {val_loader.n_clips} (pre-decoded int16)"
     )
-    w0, w1 = steps.compute_class_weights(
-        train_loader.class_counts, tcfg.max_class_weight_ratio
+    return train_loader, val_loader, train_loader.class_counts
+
+
+def _decode_loaders(config: Config, data_dir, use_esc50, esc50_dir, num_workers: int):
+    """(train loader, val loader, train class counts) decoding audio files."""
+    fcfg, tcfg = config.features, config.train
+    train_ds, val_ds = _build_datasets(data_dir, use_esc50, esc50_dir)
+    print(f"Total train {len(train_ds)}, val {len(val_ds)}")
+    train_loader = BatchLoader(
+        train_ds, tcfg.batch_size, fcfg, weighted=True, drop_last=True,
+        num_workers=num_workers, seed=tcfg.seed,
+        # The reference shifts the full clip before center-trimming, so
+        # shifted-in content is real adjacent audio
+        # (src/augmentation.py:95-104 + src/dataset.py:156).
+        time_shift_limit=0.2, time_shift_prob=tcfg.p_augment,
     )
+    val_loader = BatchLoader(val_ds, tcfg.batch_size, fcfg, num_workers=num_workers)
+    return train_loader, val_loader, train_ds.class_counts
+
+
+def _train(output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
+           device_corpus, budget) -> str:
+    fcfg, tcfg = config.features, config.train
+    out = Path(output_dir)
+    train_loader, val_loader, class_counts = loaders
+    shards = isinstance(train_loader, ShardLoader)
+    w0, w1 = steps.compute_class_weights(class_counts, tcfg.max_class_weight_ratio)
     class_weights = torch.tensor([w0, w1], dtype=torch.float32, device=dev)
     print(f"Class weights: non-cough={w0:.2f}, cough={w1:.2f}")
 
@@ -257,17 +324,21 @@ def _train(output_dir, config, dev, resume, noise_bank, max_epochs, shards_dir,
     print(f"Model: {config.model.model_type} ({count_parameters(model):,} params)")
     optimizer = steps.make_optimizer(model.parameters(), tcfg, max(len(train_loader), 1))
     mixup_alpha = tcfg.mixup_alpha if tcfg.use_mixup else None
-    train_features, eval_features = make_feature_fns(config, dev, noise_bank)
+    train_features, eval_features = make_feature_fns(
+        config, dev, use_time_shift=shards, noise_bank=noise_bank
+    )
 
-    corpus_bytes = train_loader.corpus_nbytes() + val_loader.corpus_nbytes()
-    resident = device_corpus is True or (device_corpus == "auto" and corpus_bytes <= budget)
-    if device_corpus == "auto" and not resident:
-        raise NotImplementedError(
-            f"a corpus of {corpus_bytes} bytes is past the {budget}-byte device budget, "
-            f"where device_corpus='auto' needs the chunked device corpus, not ported to "
-            f"the PyTorch trainer yet (ROADMAP Queue 1 item 10c); device_corpus=False "
-            f"streams it"
-        )
+    resident = False
+    if shards:
+        corpus_bytes = train_loader.corpus_nbytes() + val_loader.corpus_nbytes()
+        resident = device_corpus is True or (device_corpus == "auto" and corpus_bytes <= budget)
+        if device_corpus == "auto" and not resident:
+            raise NotImplementedError(
+                f"a corpus of {corpus_bytes} bytes is past the {budget}-byte device budget, "
+                f"where device_corpus='auto' needs the chunked device corpus, not ported to "
+                f"the PyTorch trainer yet (ROADMAP Queue 1 item 10c); device_corpus=False "
+                f"streams it"
+            )
     if resident:
         print(f"Device-resident corpus ({corpus_bytes / 2**20:.0f} MB int16)")
         train_corpus = torch.from_numpy(train_loader.corpus()).to(dev)

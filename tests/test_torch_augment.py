@@ -2,10 +2,13 @@
 
 Each op's apply part, fed the draws that the JAX op's key chain makes for
 the same key (replayed here with jax.random), must reproduce the JAX op's
-output within 1e-6. The port's own draws are checked by semantics: gate
+output within 1e-6, and the resampling ops (speed perturbation, pitch
+shift) within 1e-5. The port's own draws are checked by semantics: gate
 rates, SNR, gain and mask bands, p = 0, the same (seed, epoch, step) giving
 the same draws, and MixUp never mixing a real row with padding.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -222,8 +225,44 @@ def test_mixup_protects_real_rows_from_padded_partners():
     assert protected > 0
 
 
-def test_resampling_ops_are_not_ported_yet(waves):
-    with pytest.raises(NotImplementedError):
-        waveform.augment_waveforms(_t(waves), _gen(0), use_speed_perturbation=True)
-    with pytest.raises(NotImplementedError):
-        waveform.pitch_shift_semitones(_t(waves), 2)
+# Speed factors whose resampling banks are small (16000 → 12800, 14545 and
+# 20000 Hz virtual rates); the shipped factors' banks take seconds to build.
+FACTORS = (1.25, 1.1, 0.8)
+
+
+def test_speed_apply_matches_jax(waves):
+    key = jax.random.PRNGKey(7)
+    b = waves.shape[0]
+    k_gate, k_pick = jax.random.split(key)
+    draws = waveform.SpeedDraws(
+        _t(_gate(k_gate, b)), _t(jax.random.randint(k_pick, (b,), 0, len(FACTORS))).long()
+    )
+    assert 0 < int(draws.apply.sum()) < b
+    got = waveform.speed_apply(_t(waves), draws, FACTORS)
+    want = jwave.speed_perturbation(jnp.asarray(waves), key, P, factors=FACTORS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    assert torch.equal(got[~draws.apply], _t(waves)[~draws.apply])
+
+
+@pytest.mark.parametrize("semitones", [12, -12, 0])
+def test_pitch_shift_matches_jax(waves, semitones):
+    got = waveform.pitch_shift_semitones(_t(waves), semitones)
+    want = jwave.pitch_shift_semitones(jnp.asarray(waves), semitones)
+    assert got.shape == waves.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_speed_perturbation_runs_in_the_chain(waves, monkeypatch):
+    """Its place in the chain (after the shift, before the volume) and its
+    draws: the chain with it on equals the chain's ops applied in turn on
+    the same generator stream."""
+    speed = functools.partial(waveform.speed_perturbation, factors=FACTORS)
+    monkeypatch.setattr(waveform, "speed_perturbation", speed)
+    w = _t(waves)
+    got = waveform.augment_waveforms(w, _gen(8), p=1.0, use_speed_perturbation=True, use_time_shift=False)
+    g = _gen(8)
+    x = speed(w, g, 1.0)
+    x = waveform.volume_perturbation(x, g, 1.0)
+    want = waveform.add_gaussian_noise(x, g, 1.0)
+    assert torch.equal(got, want)
+    assert not torch.equal(speed(w, _gen(9), 1.0), w)

@@ -7,8 +7,11 @@ grad ≤1e-3 max-relative, BN stats ≤1e-5) and eval step (confusion counts
 exact), the optimizer on identical grads against optax (≤1e-6 relative,
 across a warm restart), the schedule, loss and class weights, the shard
 loader's batches (identical), checkpoints both ways through the reference
-`.pt`, and `train()` on a shard corpus, whose resume must reproduce the
-uninterrupted run bit for bit.
+`.pt`, and `train()` on a shard corpus and on a data directory (the decode
+path), whose resumes must reproduce the uninterrupted runs bit for bit. On
+the decode path the loader shifts each clip at crop time and the device
+does not shift it again; its first step from a decoded batch matches the
+JAX package's loss and grads (≤1e-3).
 """
 
 import json
@@ -21,15 +24,18 @@ import torch
 
 from cough_detector_tpu.config import TrainConfig as JaxTrainConfig
 from cough_detector_tpu.config import default_config as jax_default_config
+from cough_detector_tpu.data.datasets import BatchLoader as JaxBatchLoader
+from cough_detector_tpu.data.datasets import CoughDataset as JaxCoughDataset
 from cough_detector_tpu.data.shards import ShardLoader as JaxShardLoader
 from cough_detector_tpu.models import convert as jax_convert
 from cough_detector_tpu.models import create_model as jax_create_model
 from cough_detector_tpu.models.layers import BatchNorm as JaxBatchNorm
+from cough_detector_tpu.ops import frontend as jax_frontend
 from cough_detector_tpu.train import checkpoint as jax_ckpt
 from cough_detector_tpu.train import schedule as jax_schedule
 from cough_detector_tpu.train import steps as jax_steps
 from cough_detector_tpu_torch.config import Config, ModelConfig, TrainConfig, default_config
-from cough_detector_tpu_torch.data import ShardLoader, pack_arrays, synth
+from cough_detector_tpu_torch.data import BatchLoader, CoughDataset, ShardLoader, audio_io, pack_arrays, synth
 from cough_detector_tpu_torch.models import create_model, from_jax_variables
 from cough_detector_tpu_torch.models.layers import BatchNorm
 from cough_detector_tpu_torch.stream import StreamingDetector
@@ -46,6 +52,7 @@ from cough_detector_tpu_torch.train import (
     train_step,
     weighted_cross_entropy,
 )
+from cough_detector_tpu_torch.train import loop
 from test_torch_models import one_torch_thread, randomized_jax_variables  # noqa: F401
 
 # The keys of the JAX loop's per-epoch record (train/loop.py epoch_tail),
@@ -531,15 +538,16 @@ def test_streamed_batches_give_the_resident_run(shard_dir, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(data_dir="somewhere"),
+    dict(world_size=2),
     dict(device_corpus="chunked"),
     dict(mesh=object()),
     dict(device_corpus_budget=1000),
 ])
-def test_unported_modes_raise(shard_dir, tmp_path, kwargs):
+def test_unported_modes_raise(shard_dir, tmp_path, kwargs, monkeypatch):
+    if kwargs.pop("world_size", None):  # a process group of several ranks
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     args = dict(data_dir=None, shards_dir=str(shard_dir))
-    if "data_dir" in kwargs:
-        args["shards_dir"] = None
     args.update(kwargs)
     with pytest.raises(NotImplementedError):
         train(output_dir=str(tmp_path), config=_cfg(1), device="cpu", **args)
@@ -559,3 +567,140 @@ def test_cli_trains_exports_and_serves(shard_dir, tmp_path):
         assert det.config.model.model_type == "small"
         p = det.scores_for(windows)
         assert p.shape == (3,) and np.isfinite(p).all()
+
+
+# -- the decode path: train(data_dir=...) ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def clip_dir(tmp_path_factory):
+    """20 coughs and 20 non-coughs of 1.2 s, every fifth at 44.1 kHz."""
+    root = tmp_path_factory.mktemp("clips")
+    for label, gen in (("cough", synth.synthetic_cough), ("non_cough", synth.synthetic_non_cough)):
+        (root / label).mkdir()
+        for i in range(20):
+            rate = 44100 if i % 5 == 4 else 16000
+            audio_io.write_wav(root / label / f"{i:02d}.wav", gen(1000 + i, 1.2, rate), rate)
+    return root
+
+
+def _decode_cfg(epochs: int) -> Config:
+    return Config(
+        model=ModelConfig(model_type="small"),
+        train=TrainConfig(batch_size=8, epochs=epochs, patience=50),
+    )
+
+
+def test_decode_path_step_matches_jax(clip_dir):
+    """One residual step from identical weights on the first decoded batch
+    (crop shifts on, augmentation on the device off): the batch equals
+    the JAX loader's, the features its jnp chain's (1e-3), the loss and
+    every grad JAX's from those features (1e-3)."""
+    cfg = Config(model=ModelConfig(dropout=0.0), train=TrainConfig(p_augment=0.0))
+    kw = dict(weighted=True, drop_last=True, seed=0, time_shift_limit=0.2, time_shift_prob=0.5, num_workers=2)
+    waves, labels = next(iter(BatchLoader(CoughDataset(str(clip_dir)), 8, **kw)))
+    jwaves, jlabels = next(iter(JaxBatchLoader(JaxCoughDataset(str(clip_dir)), 8, backend="python", **kw)))
+    assert np.array_equal(waves, jwaves) and np.array_equal(labels, jlabels)
+
+    train_features, _ = loop.make_feature_fns(cfg, torch.device("cpu"), use_time_shift=False)
+    feats = train_features(torch.from_numpy(waves), torch.Generator().manual_seed(0))
+    jfeats = np.asarray(jax_frontend.extract_features_fast(
+        jax_frontend.peak_normalize(jnp.asarray(jwaves)), jax_default_config().features
+    ))
+    assert _max_rel(feats.numpy(), jfeats) < 1e-3
+
+    variables = randomized_jax_variables("residual", seed=12)
+    cw = np.array([1.0, 1.0], np.float32)
+    jmodel = jax_create_model("residual", dropout=0.0)
+
+    def loss_fn(params):
+        logits, _ = jmodel.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, jfeats,
+            train=True, mutable=["batch_stats"],
+        )
+        return jax_steps.weighted_cross_entropy(logits, jlabels, cw)
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
+    model = _port_model(variables)
+    loss, _, grads = loss_and_grads(model, feats, torch.from_numpy(labels).long(), torch.from_numpy(cw))
+    assert _max_rel(loss, jloss) < 1e-3
+    want = jax_convert.variables_to_torch_state_dict(
+        jax.tree_util.tree_map(np.asarray, {"params": jgrads, "batch_stats": variables["batch_stats"]}),
+        "residual",
+    )
+    assert _check_grads(model, grads, want, 1e-3) == 30
+
+
+def test_make_feature_fns_takes_the_shift_from_the_caller():
+    """Decoded batches were shifted at crop time: their feature function
+    must not shift again; shard batches are shifted on the device."""
+    cfg = Config(train=TrainConfig(p_augment=1.0))
+    waves = torch.from_numpy(synth.fixture_batch(n_clips=4, seed=2).astype(np.float32))
+    feats = {}
+    for shift in (False, True):
+        fn, _ = loop.make_feature_fns(cfg, torch.device("cpu"), use_time_shift=shift)
+        feats[shift] = fn(waves, torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(3)
+    from cough_detector_tpu_torch.augment import augment_waveforms, spec_augment
+    from cough_detector_tpu_torch.ops import frontend
+
+    aug = augment_waveforms(waves, g, p=1.0, use_time_shift=False)
+    want = spec_augment(
+        frontend.extract_features(frontend.peak_normalize(aug), cfg.features), g, p=1.0,
+        freq_mask_param=cfg.train.freq_mask_param, time_mask_param=cfg.train.time_mask_param,
+        n_freq_masks=cfg.train.n_freq_masks, n_time_masks=cfg.train.n_time_masks,
+    )
+    assert torch.equal(feats[False], want) and not torch.equal(feats[True], want)
+
+
+def test_train_shifts_decoded_batches_at_crop_time_only(clip_dir, shard_dir, tmp_path, monkeypatch):
+    seen = []
+    real = loop.augment_waveforms
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["use_time_shift"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(loop, "augment_waveforms", spy)
+    train(str(clip_dir), str(tmp_path / "decode"), config=_decode_cfg(1), num_workers=2, device="cpu")
+    assert seen and not any(seen)
+    seen.clear()
+    train(None, str(tmp_path / "shards"), config=_decode_cfg(1), shards_dir=str(shard_dir), device="cpu")
+    assert seen and all(seen)
+
+
+@pytest.fixture(scope="module")
+def decode_run(clip_dir, tmp_path_factory):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the resumed run's test pins it
+    try:
+        out = tmp_path_factory.mktemp("decode_straight")
+        train(str(clip_dir), str(out), config=_decode_cfg(3), num_workers=2, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    return out
+
+
+def test_train_from_a_data_dir_writes_the_jax_records(decode_run):
+    recs = _records(decode_run)
+    assert [r["epoch"] for r in recs] == [0, 1, 2]
+    for r in recs:
+        assert set(r) == RECORD_KEYS
+        assert np.isfinite([r["train_loss"], r["val_loss"]]).all()
+        assert r["tp"] + r["fp"] + r["fn"] + r["tn"] == 8  # the 20% split of 40 clips
+
+
+def test_decode_path_resume_reproduces_the_uninterrupted_run(decode_run, clip_dir, tmp_path):
+    out = tmp_path / "resumed"
+    train(str(clip_dir), str(out), config=_decode_cfg(2), num_workers=2, device="cpu")
+    train(str(clip_dir), str(out), config=_decode_cfg(3), num_workers=3, device="cpu",
+          resume=str(out / "latest_model"))
+    assert [r["epoch"] for r in _records(out)] == [0, 1, 2]
+    _assert_same_run(decode_run, out)
+
+
+def test_decode_path_input_errors(clip_dir, tmp_path):
+    with pytest.raises(ValueError, match="No training data"):
+        train(str(tmp_path / "nowhere"), str(tmp_path / "o"), config=_decode_cfg(1), device="cpu")
+    with pytest.raises(ValueError, match="shards_dir"):
+        train(str(clip_dir), str(tmp_path / "o"), config=_decode_cfg(1), device="cpu", device_corpus=True)

@@ -63,7 +63,7 @@ def main() -> None:
     labels = torch.from_numpy(np.arange(256) % 2).to(dev)
     cw = torch.tensor([1.0, 1.0], device=dev)
     model = init_weights(create_model("residual"), torch.Generator().manual_seed(0)).to(dev)
-    feature_fn, _ = make_feature_fns(cfg, dev)
+    feature_fn, _ = make_feature_fns(cfg, dev, use_time_shift=True)
     opt = make_optimizer(model.parameters(), cfg.train, 64)
     rand, count = StepRandom(dev), itertools.count()
     fill = torch.utils.deterministic
