@@ -1,11 +1,13 @@
-"""Smoke run of the PyTorch port on one NVIDIA card: serving, training, and
-files to detections.
+"""Smoke run of the PyTorch port on one NVIDIA card: serving, training, files
+to detections, and the serving daemon with the native tiers.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. a CUDA card is required; prints its name and power limit (nvidia-smi);
-  2. builds the front-end kernel from csrc/ with nvcc (build seconds);
+  2. builds the front-end kernel from csrc/ with nvcc and the two C++
+     libraries from native/ with g++ (the decode tier and the daemon's
+     socket plane), all three at once (build seconds);
   3. holds each of the two front-end launches (spectral: waveform to power
      mel, 3xTF32 on the tensor cores; epilogue: power mel to features), and
      the pair, against its plain torch version on the card: the shipped
@@ -27,8 +29,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      launch's device time from torch.profiler (back-to-back calls of a
      launch this short time the host's dispatch); and the epilogue launch
      at B = 4096 at n_fft 256 and with PCEN, beside its bound;
-  5. serves: a DetectionServer on the card (residual model at full width,
-     random weights from a seed, eager ticks, 8 slots, threshold 0) answers
+  5. serves: a DetectionServer on the card (the native socket plane,
+     residual model at full width, random weights from a seed, eager
+     ticks, 8 slots, threshold 0) answers
      8 streams of 1.25 s from a loopback DetectionClient; its events must
      equal an in-process StreamingDetector's on the same audio, and both
      launch counters must have advanced while it served. Then the card's
@@ -59,13 +62,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      against the CPU (B = 64; 44.1k and 8k to 16k and the four speed
      factors; 1e-5 max abs, cuDNN's TF32 on at entry) and speed
      perturbation's apply on the same draws; trains the residual model
-     from the directory through cli.train --data-dir for 3 epochs, then 2
+     from the directory through cli.train --data-dir on the Python decoder
+     (--decode-backend python) for 3 epochs, then 2
      and a resume to 3 (bit-equal parameters, moments and metrics.jsonl;
      both launch counters one per train and eval step), with host decode
      clips/s, step ms, epoch wall and a profiled epoch's idle share beside
      phase 6's shard numbers; packs the directory with cli.pack (epoch 0's
      shard batches in the decode path's order and labels, waves within
-     half an int16 LSB); scores a 10-minute recording with 40 coughs
+     half an int16 LSB of the C++ decoder's, which pack's "auto" takes); scores a 10-minute recording with 40 coughs
      through cli.detect --wav (events at threshold 0 equal the streaming
      detector's, times exact, confidences 1e-4; probabilities within 1e-3
      of the CPU's; one launch of each kernel per 1024-window batch;
@@ -74,7 +78,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      torch.stft + mel at 1024 and 32; featurizes the directory with
      cli.featurize at batch 512 (16 clips within 1e-3 of the CPU chain);
      serves the trained `.pt` through CoughDetectorInference;
-  8. prints the kernels' JSON line, then the device line last.
+  8. the serving daemon and the native tiers: decodes phase 7's train clips
+     cold through the C++ loader (4 and 8 threads) and the Python decoder
+     (clips/s; every row within 2e-5) and trains one decode-path epoch on
+     the native tier under torch.profiler (step ms, idle share); serves 16
+     streams from phase 6's trained model on a DetectionServer for each tick
+     format (float32, int16, μ-law), on the native plane, the python tier
+     and the native plane with 4 ingest workers: events equal the
+     in-process detector's fed the host quantizer's output (times exact,
+     confidences 1e-4) and each other's, and both launch counters equal the
+     ticks that complete windows; starts cli.serve --backend native in its
+     own process (256 slots, timer ticks, --stats-port 0), streams 64
+     clients into it at real time for 5 s, reads /healthz and /stats (tick
+     and delivery-lag percentiles, dropped samples) and stops it with
+     SIGTERM (exit 0, last line serving false); holds the precision modes
+     on the trained checkpoint at B = 256 and 1024 ("serve" vs "high" 1e-3
+     max-relative, BN-folded vs unfolded 2e-4, bf16 + fold vs "high" 1e-2;
+     classifier ms by CUDA events; TF32 flags off after each);
+  9. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
 never JAX. It downloads nothing: the data are synthesized from seeds.
@@ -91,14 +112,18 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import concurrent.futures  # noqa: E402
 import contextlib  # noqa: E402
 import copy  # noqa: E402
+import dataclasses  # noqa: E402
 import io  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import shutil  # noqa: E402
+import signal  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import threading  # noqa: E402
 import time  # noqa: E402
+import urllib.request  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -165,23 +190,27 @@ def device_ms(fn, iters: int, kernel: str) -> float:
     """Mean device time of the kernel whose name holds `kernel` over
     `iters` calls of fn, from torch.profiler: the card's own clock, with no
     host dispatch in it. The mean is over the launches the profiler
-    recorded, which may miss one at the edge of its window."""
+    recorded, which may miss one at the edge of its window. A profile that
+    lost the device's records (it has come back with none) is taken again,
+    up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == DeviceType.CUDA and kernel in e.name
-    ]
-    if not iters // 2 <= len(times) <= iters:
-        fail(f"the profiler saw {len(times)} launches of {kernel} over {iters} calls")
-    return sum(times) / len(times) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and kernel in e.name
+        ]
+        if iters // 2 <= len(times) <= iters:
+            return sum(times) / len(times) / 1e3
+        print(f"the profiler saw {len(times)} launches of {kernel} over {iters} calls", flush=True)
+    fail(f"the profiler saw {len(times)} launches of {kernel} over {iters} calls, three times")
 
 
 def busy_ms(events, lo: float = float("-inf"), hi: float = float("inf")) -> float:
@@ -500,7 +529,7 @@ def train_phase(smi: str) -> dict:
         fail("the exported checkpoint and the checkpoint directory do not serve the same scores")
     print(f"training phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
     return {
-        "launches": launches, "ms_b32": launch_ms, "device_ms_b32": launch_dev,
+        "best_model": out_b / "best_model", "launches": launches, "ms_b32": launch_ms, "device_ms_b32": launch_dev,
         "shard": {
             "step_ms_b32": times[32], "epoch_wall_s": deltas,
             "train_clips_per_s": [n_train / d for d in deltas], "idle_share": epoch_idle,
@@ -624,7 +653,7 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     bs = TrainConfig().batch_size
     train_ds, val_ds = prepare_dataset_split(str(data))
     steps_per_epoch, val_steps = len(train_ds) // bs, -(-len(val_ds) // bs)
-    loader = BatchLoader(train_ds, bs, shipped, num_workers=4)
+    loader = BatchLoader(train_ds, bs, shipped, num_workers=4, backend="python")
     t0 = time.perf_counter()
     n_dec = sum(len(lab) for _, lab in loader)
     decode_cps = n_dec / (time.perf_counter() - t0)
@@ -645,7 +674,7 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
             "--data-dir", str(data), "--no-esc50", "--output-dir", str(out), "--model-type", "residual",
             "--epochs", str(epochs), "--batch-size", str(bs), "--lr", str(TrainConfig().learning_rate),
             "--weight-decay", str(TrainConfig().weight_decay), "--patience", str(TrainConfig().patience),
-            "--num-workers", "4",
+            "--num-workers", "4", "--decode-backend", "python",
         ]
 
     def records(out: Path) -> list:
@@ -698,10 +727,11 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     epoch_ev = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
     last = recs_a[-1]
     plain_ms = (len(train_ds) / last["train_clips_per_sec"] + len(val_ds) / last["val_clips_per_sec"]) * 1e3
-    idle = "not measured"
+    idle, idle_share = "not measured", None
     if len(epoch_ev) == 1:
         busy = busy_ms(events, epoch_ev[0].time_range.start, epoch_ev[0].time_range.end)
-        idle = f"{1 - busy / plain_ms:.3f} (device busy {busy:.3f} ms)"
+        idle_share = 1 - busy / plain_ms
+        idle = f"{idle_share:.3f} (device busy {busy:.3f} ms)"
     deltas = [b["wall_s"] - a["wall_s"] for a, b in zip(recs_a, recs_a[1:])]
     print(
         f"[{smi}] decode path (batch {bs}): host decode {decode_cps:,.0f} clips/s cold (4 threads, one pass over "
@@ -715,10 +745,13 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     )
 
     # -- 7.4 pack the same directory: epoch 0's shard batches are the decoded ones
+    # cli.pack decodes with "auto", the C++ decoder that phase 2 built; the
+    # batches it is held against come from the same decoder.
     run_cli(pack_cli.main, ["--data-dir", str(data), "--output", str(root / "shards"), "--num-workers", "4"])
     shard_loader = ShardLoader(str(root / "shards" / "train"), bs, weighted=True, drop_last=True, seed=SEED,
                                feature_config=shipped)
-    decode_loader = BatchLoader(train_ds, bs, shipped, weighted=True, drop_last=True, seed=SEED, num_workers=4)
+    decode_loader = BatchLoader(train_ds, bs, shipped, weighted=True, drop_last=True, seed=SEED, num_workers=4,
+                                backend="native")
     worst, n_batches = 0.0, 0
     for (sw, sl), (dw, dl) in zip(shard_loader, decode_loader):
         if not np.array_equal(sl, dl):
@@ -886,8 +919,295 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     print(f"files-to-detections phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
     return {
         "offline_launches": offline_launches, "offline_batch_ms": batch_ms, "decode_training_launches": train_launches,
-        "b1024": b1024,
+        "b1024": b1024, "data": data, "decode": {
+            "clips_per_s": decode_cps, "step_ms": [bs / r["train_clips_per_sec"] * 1e3 for r in recs_a],
+            "idle_share": idle_share,
+        },
     }
+
+
+def windows_completed(n_ticks: int, chunk: int, window: int, hop: int) -> list:
+    """For each tick of a lockstep stream (stream/ring.py's arithmetic),
+    whether it completes at least one window: the ticks that launch the
+    front-end kernels."""
+    out, fill = [], 0
+    k_max = (chunk - 1) // hop + 1
+    for _ in range(n_ticks):
+        fill += chunk
+        n_valid = min((fill - window) // hop + 1, k_max) if fill >= window else 0
+        fill -= n_valid * hop
+        out.append(n_valid > 0)
+    return out
+
+
+def serve_streams(server, audio: np.ndarray, n_ticks: int, n_clients: int = 4) -> list:
+    """Feed `audio` (one row a slot) to a started eager server through
+    `n_clients` loopback clients, tick-major; returns (lane, time, confidence)
+    for every event, lane being the audio row."""
+    from cough_detector_tpu_torch.serve import DetectionClient
+
+    n = audio.shape[0]
+    with contextlib.ExitStack() as stack:
+        clients = [stack.enter_context(DetectionClient(*server.address)) for _ in range(n_clients)]
+        owner = [clients[s % n_clients] for s in range(n)]
+        sids = [owner[s].open_stream() for s in range(n)]
+        for t in range(n_ticks):
+            for s in range(n):
+                owner[s].send_audio(sids[s], audio[s, t * CHUNK : (t + 1) * CHUNK])
+        deadline = time.time() + 60
+        while server.stats()["ticks"] < n_ticks and time.time() < deadline:
+            time.sleep(0.01)
+        lane = {sid: s for s, sid in enumerate(sids)}
+        got = []
+        time.sleep(0.2)  # the last tick's frames may still be on the wire
+        for c in clients:
+            got += [(lane[e["stream"]], round(e["time"], 6), e["confidence"]) for e in c.events(timeout=0.5)]
+    return sorted(got)
+
+
+def same_events(got: list, want: list, conf_tol: float) -> tuple:
+    """(equal, worst confidence difference): same lanes and times, each
+    confidence within conf_tol."""
+    if len(got) != len(want) or [g[:2] for g in got] != [w[:2] for w in want]:
+        return False, float("inf")
+    worst = max((abs(g[2] - w[2]) for g, w in zip(got, want)), default=0.0)
+    return worst <= conf_tol, worst
+
+
+def daemon_phase(smi: str, best_model: Path, data: Path, decode: dict, shard: dict) -> dict:
+    """Phase 8, the serving daemon and the native tiers; returns what the
+    kernels' JSON line adds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cough_detector_tpu_torch.config import Config, FeatureConfig, TrainConfig
+    from cough_detector_tpu_torch.data import BatchLoader, native_loader, prepare_dataset_split
+    from cough_detector_tpu_torch.models import fold_batchnorm, model_from_config, place_model
+    from cough_detector_tpu_torch.ops import frontend_kernel
+    from cough_detector_tpu_torch.serve import DetectionClient, DetectionServer, quantize_i16, quantize_mulaw
+    from cough_detector_tpu_torch.stream import StreamingDetector
+    from cough_detector_tpu_torch.stream.detector import _load_checkpoint
+    from cough_detector_tpu_torch.train import train
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    shipped = FeatureConfig()
+    rng = np.random.default_rng(SEED + 8)
+    root = Path(__file__).resolve().parent / "build" / "smoke_daemon"
+    shutil.rmtree(root, ignore_errors=True)
+
+    # -- 8.1 the decode tier: phase 7's train clips, cold, native and Python
+    bs = TrainConfig().batch_size
+    train_ds, _ = prepare_dataset_split(str(data))
+    paths = [p for p, _ in train_ds.samples]
+    rates = {}
+    for threads in (4, 8):
+        t0 = time.perf_counter()
+        native_w, n_ok, errors = native_loader.load_batch(paths, shipped.segment_samples, SR, n_threads=threads)
+        rates[threads] = len(paths) / (time.perf_counter() - t0)
+        if n_ok != len(paths):
+            fail(f"the native loader failed on {len(paths) - n_ok} clips: {errors}")
+    t0 = time.perf_counter()
+    python_w, _ = next(iter(BatchLoader(train_ds, len(paths), shipped, num_workers=4, backend="python", cache_bytes=0)))
+    python_rate = len(paths) / (time.perf_counter() - t0)
+    decode_err = float(np.abs(native_w - python_w).max())
+    print(
+        f"[{smi}] decode tier, {len(paths)} train clips cold: native load_batch {rates[4]:,.0f} clips/s on 4 "
+        f"threads, {rates[8]:,.0f} on 8; the Python decoder {python_rate:,.0f} clips/s on 4 (phase 7: "
+        f"{decode['clips_per_s']:,.0f}); every row native vs Python max abs {decode_err:.3e} (limit 2e-5)",
+        flush=True,
+    )
+    if not decode_err <= 2e-5:
+        fail("the native loader's rows differ from the Python decoder's")
+
+    # One decode-path epoch on the native tier, under the profiler.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train(str(data), str(root / "native_epoch"), config=Config(train=TrainConfig(epochs=1)),
+              num_workers=4, decode_backend="native")
+    rec = json.loads((root / "native_epoch" / "metrics.jsonl").read_text().splitlines()[-1])
+    events = prof.events()
+    epoch_ev = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
+    idle = None
+    if len(epoch_ev) == 1:
+        lo, hi = epoch_ev[0].time_range.start, epoch_ev[0].time_range.end
+        idle = 1 - busy_ms(events, lo, hi) / ((hi - lo) / 1e3)
+    native_step = bs / rec["train_clips_per_sec"] * 1e3
+    print(
+        f"[{smi}] decode path on the native tier (one epoch under torch.profiler, batch {bs}): step "
+        f"{native_step:.4f} ms ({rec['train_clips_per_sec']:.1f} train clips/s), idle share "
+        f"{'not measured' if idle is None else format(idle, '.3f')}; phase 7 on the Python decoder: step "
+        f"{[round(v, 4) for v in decode['step_ms']]} ms, idle share {decode['idle_share']}; shards (phase 6) "
+        f"step {shard['step_ms_b32']:.4f} ms",
+        flush=True,
+    )
+
+    # -- 8.2 the daemon in-process: 16 streams on the native plane, each format
+    variables, config = _load_checkpoint(str(best_model))
+    n_streams, n_ticks = 16, 30
+    audio = make_audio(rng, n_streams, n_ticks * CHUNK)
+    w16 = torch.from_numpy(audio[:, :SR]).to(dev)
+    pair16 = rel_err(frontend_kernel.extract_features_fused(w16, shipped),
+                     frontend_kernel.frontend_kernel_reference(w16, shipped))
+    if not pair16 <= TOL:
+        fail(f"the kernel pair disagrees with its plain version at the daemon's B=16: {pair16:.3e}")
+    window, hop = shipped.segment_samples, SR // 4
+    scoring = sum(windows_completed(n_ticks, CHUNK, window, hop))
+    quantizers = {"float32": lambda x: x, "int16": quantize_i16, "mulaw": quantize_mulaw}
+    wants = {}
+    for fmt, q in quantizers.items():
+        ref = StreamingDetector(variables=variables, config=config, device="cuda", num_streams=n_streams,
+                                chunk_size=CHUNK, confidence_threshold=0.0)
+        dets = []
+        for t in range(n_ticks):
+            dets += ref.collect_events(ref.tick_async(q(audio[:, t * CHUNK : (t + 1) * CHUNK])))
+        wants[fmt] = sorted((d.stream, round(d.time_seconds, 6), d.confidence) for d in dets)
+    runs = [(fmt, backend, workers) for fmt in quantizers for backend, workers in
+            (("native", 1), ("python", 1), ("native", 4))]
+    got, ticks = {}, {}
+    daemon_launches = {"spectral": 0, "epilogue": 0}
+    t0 = time.perf_counter()
+    for fmt, backend, workers in runs:
+        server = DetectionServer(
+            variables=variables, config=config, device="cuda", num_streams=n_streams, chunk_size=CHUNK,
+            confidence_threshold=0.0, tick_policy="eager", liveness_seconds=float("inf"), backend=backend,
+            h2d_dtype=fmt, ingest_workers=workers,
+        )
+        server.start()  # its warm ticks launch the kernels once, before any client
+        try:
+            frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+            got[fmt, backend, workers] = serve_streams(server, audio, n_ticks)
+            daemon_launches["spectral"] += frontend_kernel.SPECTRAL_LAUNCHES
+            daemon_launches["epilogue"] += frontend_kernel.EPILOGUE_LAUNCHES
+            ticks[fmt, backend, workers] = server.stats()["ticks"]
+        finally:
+            server.stop()
+    serve_s = time.perf_counter() - t0
+    for fmt in quantizers:
+        main_run = got[fmt, "native", 1]
+        vs_ref = same_events(main_run, wants[fmt], 1e-4)
+        vs_python = same_events(main_run, got[fmt, "python", 1], 2e-6)
+        vs_workers = same_events(main_run, got[fmt, "native", 4], 2e-6)
+        print(
+            f"daemon [{fmt}] native plane, {n_streams} streams x {n_ticks} eager ticks: {len(main_run)} events; "
+            f"== in-process detector {vs_ref[0]} (confidences max abs {vs_ref[1]:.3e}, limit 1e-4); == python "
+            f"tier {vs_python[0]} ({vs_python[1]:.3e}); == 4 ingest workers {vs_workers[0]} ({vs_workers[1]:.3e})",
+            flush=True,
+        )
+        if not (main_run and vs_ref[0] and vs_python[0] and vs_workers[0]):
+            fail(f"the daemon's events on {fmt} differ between the native plane, the python tier and the detector")
+    want_launches = scoring * len(runs)
+    print(
+        f"daemon front-end launches over the {len(runs)} runs {daemon_launches}, expected {want_launches} "
+        f"({scoring} of each run's {n_ticks} ticks complete windows; ticks {sorted(set(ticks.values()))}); "
+        f"the runs took {serve_s:.3f} s; kernel pair vs plain at B=16 max-relative {pair16:.3e}",
+        flush=True,
+    )
+    if set(daemon_launches.values()) != {want_launches} or set(ticks.values()) != {n_ticks}:
+        fail("the daemon's ticks did not launch the front-end kernels once per scoring tick")
+
+    # -- 8.3 the daemon as users start it: cli.serve in its own process
+    n_slots, n_clients, seconds = 256, 64, 5.0
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cough_detector_tpu_torch.cli.serve", "--model", str(best_model),
+         "--port", "0", "--streams", str(n_slots), "--backend", "native", "--tick-policy", "timer",
+         "--stats-port", "0", "--stats-interval", "1", "--threshold", "0.5"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    err_tail = []
+    drain = threading.Thread(target=lambda: err_tail.append(proc.stderr.read()), daemon=True)
+    drain.start()
+    killer = threading.Timer(120, proc.kill)  # a hung daemon fails the run, never stalls it
+    killer.start()
+    try:
+        t0 = time.perf_counter()
+        first = json.loads(proc.stdout.readline() or "{}")
+        start_s = time.perf_counter() - t0
+        if not first.get("serving") or first.get("backend") != "native":
+            proc.kill()
+            drain.join(timeout=10)
+            fail(f"cli.serve did not start on the native plane: {first}; stderr: {''.join(err_tail)[-2000:]}")
+        base = f"http://{first['stats_http'][0]}:{first['stats_http'][1]}"
+        stream_audio = make_audio(rng, n_clients, int(seconds * SR))
+        with contextlib.ExitStack() as stack:
+            clients = [stack.enter_context(DetectionClient(first["host"], first["port"])) for _ in range(8)]
+            owner = [clients[s % 8] for s in range(n_clients)]
+            sids = [owner[s].open_stream() for s in range(n_clients)]
+            t_start = time.perf_counter()
+            for t in range(int(seconds * SR) // CHUNK):  # real time: one chunk a stream every 100 ms
+                for s in range(n_clients):
+                    owner[s].send_audio(sids[s], stream_audio[s, t * CHUNK : (t + 1) * CHUNK])
+                time.sleep(max(0.0, t_start + (t + 1) * CHUNK / SR - time.perf_counter()))
+            with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                health = (r.status, r.read())
+            with urllib.request.urlopen(base + "/stats", timeout=5) as r:
+                stats = json.loads(r.read())
+            n_events = sum(len(c.events(timeout=0.2)) for c in clients)
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.stdout.read()
+        proc.wait(timeout=60)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    drain.join(timeout=10)
+    last = json.loads(rest.strip().splitlines()[-1])
+    print(
+        f"[{smi}] cli.serve --backend native --tick-policy timer, {n_slots} slots, {n_clients} client streams "
+        f"for {seconds} s of real-time audio: ready in {start_s:.3f} s; /healthz {health}; /stats ticks "
+        f"{stats.get('ticks')}, open_streams {stats.get('open_streams')}, tick_ms_p50 {stats.get('tick_ms_p50')} "
+        f"p99 {stats.get('tick_ms_p99')}, delivery_lag_ms_p50 {stats.get('delivery_lag_ms_p50')} p99 "
+        f"{stats.get('delivery_lag_ms_p99')}, dropped_samples {stats.get('dropped_samples')}, events "
+        f"{stats.get('events')} ({n_events} received at threshold 0.5); SIGTERM: exit {proc.returncode}, last "
+        f"line serving={last.get('serving')}",
+        flush=True,
+    )
+    if not (health == (200, b"ok") and stats.get("backend") == "native" and stats.get("open_streams") == n_clients
+            and stats.get("ticks", 0) > 0 and proc.returncode == 0 and last.get("serving") is False):
+        fail(f"cli.serve did not serve, report or stop as it should; stderr: {''.join(err_tail)[-2000:]}")
+
+    # -- 8.4 the precision modes on phase 6's trained checkpoint
+    folded = fold_batchnorm(variables, config.model.model_type)
+    modes = {
+        "high": (config.model, "high", variables),
+        "serve": (config.model, "serve", variables),
+        "high+fold": (config.model, "high", folded),
+        "bf16+fold": (dataclasses.replace(config.model, compute_dtype="bfloat16"), "high", folded),
+    }
+    models = {}
+    for name, (mcfg, mode, weights) in modes.items():
+        m = model_from_config(mcfg, mode)
+        m.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()})
+        models[name] = place_model(m, dev)
+    precision = {}
+    for b in (256, 1024):
+        feats = frontend_kernel.extract_features_fused(torch.from_numpy(make_audio(rng, b, SR)).to(dev), shipped)
+        with torch.no_grad():
+            logits = {}
+            for name, m in models.items():
+                logits[name] = m(feats)
+                flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+                if any(flags) or logits[name].dtype != torch.float32:
+                    fail(f"the {name} mode left TF32 flags {flags} or gave {logits[name].dtype} logits")
+            ms = {name: cuda_ms(lambda m=m: m(feats), 20) for name, m in models.items()}
+        errs = {
+            "serve_vs_high": rel_err(logits["serve"], logits["high"]),
+            "fold_vs_unfolded": rel_err(logits["high+fold"], logits["high"]),
+            "bf16_fold_vs_high": rel_err(logits["bf16+fold"], logits["high"]),
+        }
+        precision[b] = dict(errs, ms=ms)
+        print(
+            f"[{smi}] precision modes at B={b} (phase 6's trained checkpoint, max|logit| "
+            f"{logits['high'].abs().max().item():.3f}): serve vs high {errs['serve_vs_high']:.3e} (limit 1e-3), "
+            f"folded vs unfolded {errs['fold_vs_unfolded']:.3e} (limit 2e-4), bf16 + fold vs high "
+            f"{errs['bf16_fold_vs_high']:.3e} (limit 1e-2); classifier ms (CUDA events) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + "; TF32 flags False after every mode",
+            flush=True,
+        )
+        if not (errs["serve_vs_high"] <= 1e-3 and errs["fold_vs_unfolded"] <= 2e-4 and errs["bf16_fold_vs_high"] <= 1e-2):
+            fail(f"a precision mode is outside its bound at B={b}: {errs}")
+    print(f"daemon phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return {"launches": daemon_launches, "precision": precision}
 
 
 def main() -> None:
@@ -902,18 +1222,30 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     from cough_detector_tpu_torch.config import FeatureConfig, default_config
+    from cough_detector_tpu_torch.data import native_loader
     from cough_detector_tpu_torch.models import count_parameters, create_model
     from cough_detector_tpu_torch.ops import filters, frontend, frontend_kernel
-    from cough_detector_tpu_torch.serve import DetectionClient, DetectionServer
+    from cough_detector_tpu_torch.serve import DetectionClient, DetectionServer, native_ingest
     from cough_detector_tpu_torch.stream import StreamingDetector
-    from cough_detector_tpu_torch.utils import kernel_build
+    from cough_detector_tpu_torch.utils import kernel_build, native_build
 
-    # -- 2. build ----------------------------------------------------------------
+    # -- 2. build: the CUDA kernel and the two C++ libraries, all at once ----
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    frontend_kernel.build()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = {
+            kernel_build.library_path("frontend_kernel").name: pool.submit(timed, frontend_kernel.build),
+            native_build.library_path("cdt_loader").name: pool.submit(timed, native_loader.require),
+            native_build.library_path("cdt_ingest").name: pool.submit(timed, native_ingest.require),
+        }
+        build_s = {name: f.result() for name, f in builds.items()}
     print(
-        f"build: {kernel_build.library_path('frontend_kernel').name} in "
-        f"{time.perf_counter() - t0:.3f} s",
+        "build: " + ", ".join(f"{name} {s:.3f} s" for name, s in build_s.items())
+        + f" (together {time.perf_counter() - t0:.3f} s)",
         flush=True,
     )
 
@@ -1167,7 +1499,7 @@ def main() -> None:
     server = DetectionServer(
         variables=weights, config=cfg, device="cuda", num_streams=n_streams,
         chunk_size=CHUNK, confidence_threshold=0.0, tick_policy="eager",
-        liveness_seconds=float("inf"),
+        liveness_seconds=float("inf"), backend="native",
     )
     print(
         f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -1333,7 +1665,10 @@ def main() -> None:
     # -- 7. files to detections ----------------------------------------------------------
     files = files_phase(smi, trained["shard"], yard)
 
-    # -- 8. summary ----------------------------------------------------------------
+    # -- 8. the serving daemon and the native tiers -------------------------------
+    daemon = daemon_phase(smi, trained["best_model"], files["data"], files["decode"], trained["shard"])
+
+    # -- 9. summary ----------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -1349,6 +1684,7 @@ def main() -> None:
             "training_batch_ms": trained["ms_b32"][part],
             "training_batch_device_ms": trained["device_ms_b32"][part],
             "decode_training_launches": files["decode_training_launches"][part],
+            "daemon_launches": daemon["launches"][part],
             "offline_launches": files["offline_launches"][part],
             "offline_batch": 1024,
             "offline_batch_ms": files["b1024"][part]["ms"],

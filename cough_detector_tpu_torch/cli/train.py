@@ -4,14 +4,17 @@ reference: src/train.py:521-568), for the modes the port trains:
 
     python -m cough_detector_tpu_torch.cli.train
         (--data-dir DIR [--no-esc50 | --esc50-dir DIR] [--num-workers N]
+         [--decode-backend auto|python|native]
          | --shards DIR [--device-corpus auto|always|off] [--no-device-corpus])
         [--output-dir DIR] [--model-type residual] [--epochs N]
         [--batch-size B] [--lr LR] [--weight-decay WD] [--patience P]
         [--mixup [ALPHA]] [--resume CKPT_DIR] [--export-pt] [--device cuda]
 
 `--data-dir` holds cough/ and non_cough/ clips, decoded on the host each
-epoch (data/datasets.py); without `--no-esc50` or `--esc50-dir`, ESC-50 is
-downloaded to ./datasets, as the JAX CLI does. `--shards` holds `train/`
+epoch (data/datasets.py; `--decode-backend`, which the JAX CLI does not
+have, picks the decoder, "auto" as the JAX package's loader does); without
+`--no-esc50` or `--esc50-dir`, ESC-50 is downloaded to ./datasets, as the
+JAX CLI does. `--shards` holds `train/`
 and `val/` shard directories (data/shards.py, packed by cli/pack.py).
 """
 
@@ -40,6 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; 'cpu' to train on the CPU")
     p.add_argument("--num-workers", type=int, default=4,
                    help="Host decode threads of the data-directory loaders")
+    p.add_argument("--decode-backend", choices=["auto", "python", "native"], default="auto",
+                   help="Decoder of the data-directory loaders: 'native' (C++, "
+                        "raises if it cannot be built), 'python', or 'auto' "
+                        "(native when it builds and every clip is a .wav)")
     p.add_argument("--resume", type=str, default=None,
                    help="Checkpoint directory to resume from (e.g. <out>/latest_model)")
     p.add_argument("--no-device-corpus", action="store_true",
@@ -108,6 +115,7 @@ def main(argv=None) -> None:
             else "auto"
         ),
         device=args.device,
+        decode_backend=args.decode_backend,
     )
     if args.export_pt and Path(best).exists():
         tree, epoch, metrics, cfg = ckpt.load_checkpoint(best)

@@ -15,9 +15,9 @@ Epoch k's sample order and crop-shift draws come from numpy's
 the JAX package's for the same corpus, bit for bit, and a resumed run
 replays exactly the batches an uninterrupted one saw. The seeded stratified
 split is scikit-learn's `train_test_split(stratify=...)` in numpy, with
-the same draws. The native C++ decoder (`native_loader.py`) is not ported
-yet (ROADMAP Queue 1); the multi-host process slicing comes with
-`torch.distributed` (item 11).
+the same draws. `BatchLoader(backend="native")` decodes whole batches in
+C++ (`native_loader.py`), within 2e-5 of the Python decoder; the multi-host
+process slicing comes with `torch.distributed` (ROADMAP Queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -351,8 +351,12 @@ class BatchLoader(_EpochKeyedLoader):
 
     Weighted sampling with replacement is the reference's
     WeightedRandomSampler + drop_last (src/dataset.py:368-418).
-    `backend`: "python" decodes in this process's threads; "auto" means
-    "python" until the native decoder is ported; "native" raises.
+    `backend`: "python" decodes in this process's threads (with an LRU
+    clip cache); "native" decodes each batch in C++ on `num_workers`
+    threads without the interpreter lock (native_loader.py; no clip
+    cache) and raises if the library cannot be built or a sample is not
+    a .wav; "auto" is "native" when every sample is a .wav and the library
+    builds, else "python" (a missing g++ is said once).
     """
 
     def __init__(
@@ -371,13 +375,7 @@ class BatchLoader(_EpochKeyedLoader):
         time_shift_prob: float = 0.0,
         cache_bytes: int = 2 << 30,
     ):
-        if backend == "native":
-            raise NotImplementedError(
-                "the native (C++) decode backend, data/native_loader.py, is not "
-                "ported to the PyTorch package yet (ROADMAP Queue 1, its first "
-                "item); pass backend='python' or 'auto'"
-            )
-        if backend not in ("auto", "python"):
+        if backend not in ("auto", "python", "native"):
             raise ValueError(f"backend={backend!r}: expected 'auto', 'python' or 'native'")
         self.dataset = dataset
         self.batch_size = batch_size
@@ -400,6 +398,21 @@ class BatchLoader(_EpochKeyedLoader):
         self._cache_bytes = cache_bytes
         self._cache_used = 0
         self._cache_lock = threading.Lock()
+        self._native = False
+        if backend in ("auto", "native"):
+            all_wav = len(dataset.samples) > 0 and all(
+                p.lower().endswith(".wav") for p, _ in dataset.samples
+            )
+            if all_wav:
+                from . import native_loader
+
+                if backend == "native":
+                    native_loader.require()  # raises with the build's error
+                    self._native = True
+                else:
+                    self._native = native_loader.available()
+            elif backend == "native":
+                raise RuntimeError("the native loader decodes .wav datasets only")
 
     def _n_samples(self) -> int:
         return len(self.dataset)
@@ -447,6 +460,8 @@ class BatchLoader(_EpochKeyedLoader):
         # Crop-shift draws are always full-batch-shaped: the draws are part
         # of the (seed, epoch) contract.
         fracs = self._shifts_for(len(paths), rng)
+        if self._native:
+            return self._native_batch(paths, fracs), labels
 
         def load_one(args):
             path, frac = args
@@ -460,6 +475,20 @@ class BatchLoader(_EpochKeyedLoader):
             else np.zeros((0, self.cfg.segment_samples), np.float32)
         )
         return waves, labels
+
+    def _native_batch(self, paths: List[str], fracs: np.ndarray) -> np.ndarray:
+        from . import native_loader
+
+        waves, n_ok, errors = native_loader.load_batch(
+            paths, self.cfg.segment_samples, self.cfg.sample_rate,
+            n_threads=self.num_workers,
+            shift_fracs=fracs if np.any(fracs) else None,
+        )
+        if n_ok < len(paths):  # fail as the Python decoder does
+            raise audio_io.AudioDecodeError(
+                f"{len(paths) - n_ok} clip(s) failed to decode: {errors}"
+            )
+        return waves
 
 
 def create_data_loaders(

@@ -13,6 +13,7 @@ from .classifiers import (
     predict,
 )
 from .convert import from_jax_variables
+from .fuse import fold_batchnorm
 
 __all__ = [
     "CoughDetector",
@@ -20,6 +21,7 @@ __all__ = [
     "CoughDetectorSmall",
     "count_parameters",
     "create_model",
+    "fold_batchnorm",
     "from_jax_variables",
     "init_weights",
     "no_tf32",

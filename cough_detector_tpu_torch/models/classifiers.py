@@ -9,7 +9,8 @@ checkpoints load directly. Inputs are feature images (B, H, W) or NCHW
 
 `forward(x, mask=None, generator=None)`: in train mode `mask` keeps padded
 rows out of the BatchNorm statistics and the dropout layers draw from
-`generator` (models/layers.py).
+`generator` (models/layers.py). Logits are float32 in every compute mode
+(`layers.set_precision`, which `model_from_config` applies).
 """
 
 from __future__ import annotations
@@ -22,13 +23,16 @@ from torch import nn
 
 from .layers import (
     BatchNorm,
+    Conv2d,
     ConvBlock,
     Dropout,
     GlobalAvgPool,
+    Linear,
     ResidualBlock,
     SeparableBlock,
     global_avg_pool,
     run,
+    set_precision,
 )
 
 
@@ -51,15 +55,15 @@ class CoughDetector(nn.Module):
             *[ConvBlock(chans[i], chans[i + 1]) for i in range(4)]
         )
         self.fc = nn.Sequential(
-            nn.Linear(256, 128), nn.ReLU(), Dropout(dropout),
-            nn.Linear(128, num_classes),
+            Linear(256, 128), nn.ReLU(), Dropout(dropout),
+            Linear(128, num_classes),
         )
 
     def forward(self, x, mask=None, generator=None) -> torch.Tensor:
         x = _as_nchw(x)
         for block in self.conv_layers:
             x = block(x, mask, generator)
-        return run(self.fc, global_avg_pool(x), mask, generator)
+        return run(self.fc, global_avg_pool(x), mask, generator).float()
 
 
 class CoughDetectorSmall(nn.Module):
@@ -70,7 +74,7 @@ class CoughDetectorSmall(nn.Module):
     def __init__(self, num_classes: int = 2):
         super().__init__()
         self.features = nn.Sequential(
-            nn.Conv2d(1, 16, 3, padding=1),
+            Conv2d(1, 16, 3, padding=1),
             BatchNorm(16),
             nn.ReLU(),
             nn.MaxPool2d(2),
@@ -80,13 +84,13 @@ class CoughDetectorSmall(nn.Module):
             GlobalAvgPool(),
         )
         self.classifier = nn.Sequential(
-            nn.Flatten(), nn.Linear(128, 64), nn.ReLU(), Dropout(0.3),
-            nn.Linear(64, num_classes),
+            nn.Flatten(), Linear(128, 64), nn.ReLU(), Dropout(0.3),
+            Linear(64, num_classes),
         )
 
     def forward(self, x, mask=None, generator=None) -> torch.Tensor:
         x = run(self.features, _as_nchw(x), mask, generator)
-        return run(self.classifier, x, mask, generator)
+        return run(self.classifier, x, mask, generator).float()
 
 
 class CoughDetectorResidual(nn.Module):
@@ -98,7 +102,7 @@ class CoughDetectorResidual(nn.Module):
     def __init__(self, num_classes: int = 2, dropout: float = 0.5):
         super().__init__()
         self.conv1 = nn.Sequential(
-            nn.Conv2d(1, 32, 7, stride=2, padding=3),
+            Conv2d(1, 32, 7, stride=2, padding=3),
             BatchNorm(32),
             nn.ReLU(),
             nn.MaxPool2d(2),
@@ -107,14 +111,14 @@ class CoughDetectorResidual(nn.Module):
             [ResidualBlock(32, 64), ResidualBlock(64, 128)]
         )
         self.fc = nn.Sequential(
-            nn.Flatten(), Dropout(dropout), nn.Linear(128, num_classes)
+            nn.Flatten(), Dropout(dropout), Linear(128, num_classes)
         )
 
     def forward(self, x, mask=None, generator=None) -> torch.Tensor:
         x = run(self.conv1, _as_nchw(x), mask, generator)
         for block in self.res_blocks:
             x = block(x, mask, generator)
-        return run(self.fc, global_avg_pool(x), mask, generator)
+        return run(self.fc, global_avg_pool(x), mask, generator).float()
 
 
 _MODELS = {
@@ -138,23 +142,17 @@ def create_model(model_type: str = "standard", **kwargs) -> nn.Module:
 
 
 def model_from_config(model_config, precision_mode: str = "high") -> nn.Module:
-    """The classifier a ModelConfig describes: num_classes and dropout
-    (standard/residual; the small model's dropout is fixed) in float32."""
-    if model_config.compute_dtype == "bfloat16" or precision_mode == "serve":
-        raise NotImplementedError(
-            "bfloat16 compute and precision_mode='serve' are not ported yet"
-        )
-    if model_config.compute_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype must be 'float32' or 'bfloat16', "
-            f"got {model_config.compute_dtype!r}"
-        )
-    if precision_mode != "high":
-        raise ValueError(f"unknown precision_mode {precision_mode!r}")
+    """The classifier a ModelConfig describes: num_classes, dropout
+    (standard/residual; the small model's dropout is fixed) and
+    compute_dtype, in `precision_mode` ("high": float32 throughout;
+    "serve": TF32 bulk convs on the card, the dense layers and skip
+    projections in float32; see layers.set_precision). Parameters are
+    float32 in every mode."""
     kwargs = {"num_classes": model_config.num_classes}
     if model_config.model_type in ("standard", "residual"):
         kwargs["dropout"] = model_config.dropout
-    return create_model(model_config.model_type, **kwargs)
+    model = create_model(model_config.model_type, **kwargs)
+    return set_precision(model, precision_mode, model_config.compute_dtype)
 
 
 def no_tf32(device: Union[str, torch.device]) -> None:

@@ -9,14 +9,93 @@ Train mode takes two extra arguments the blocks hand down: `mask`, (B,)
 with 1 for a real batch row and 0 for a padded one, which `BatchNorm`
 keeps out of its statistics; and `generator`, the step's
 `torch.Generator`, from which the dropout layers draw their masks.
+
+Every conv and dense layer is a `Conv2d` / `Linear` with a `compute` mode,
+which `set_precision` sets from the serving precision mode and the compute
+dtype (the JAX package's `mxu_precision`, models/layers.py:25-51):
+  "fp32"  float32 throughout (the default; the card runs TF32 off);
+  "tf32"  a conv on the card with cuDNN's TF32 tensor-core path on for
+          that call alone, the flag put back after it (on a CPU, fp32);
+  "bf16"  operands cast to bfloat16 and a bfloat16 result; the parameters
+          stay float32 and BatchNorm normalizes in float32.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+import contextlib
+from typing import Iterable, Iterator, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+PRECISION_MODES = ("high", "serve")
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+@contextlib.contextmanager
+def cudnn_tf32() -> Iterator[None]:
+    """cuDNN's TF32 convolutions on for the block, the flag restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with a compute mode ("fp32", "tf32" or "bf16"; module
+    docstring). `sensitive` marks a site that stays fp32 in the "serve"
+    mode: the residual blocks' skip projections."""
+
+    compute = "fp32"
+    sensitive = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute == "bf16":
+            bf = torch.bfloat16
+            return self._conv_forward(x.to(bf), self.weight.to(bf), self.bias.to(bf))
+        if self.compute == "tf32" and x.is_cuda:
+            with cudnn_tf32():
+                return super().forward(x)
+        return super().forward(x)
+
+
+class Linear(nn.Linear):
+    """nn.Linear with a compute mode: "bf16" casts as Conv2d does; every
+    other mode is float32 (dense layers are fp32 in the "serve" mode)."""
+
+    compute = "fp32"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute == "bf16":
+            bf = torch.bfloat16
+            return F.linear(x.to(bf), self.weight.to(bf), self.bias.to(bf))
+        return super().forward(x)
+
+
+def set_precision(
+    model: nn.Module, precision_mode: str = "high", compute_dtype: str = "float32"
+) -> nn.Module:
+    """Set every Conv2d's and Linear's compute mode: "bf16" throughout for
+    compute_dtype "bfloat16"; for precision_mode "serve", "tf32" on the
+    bulk convs and "fp32" on the sensitive sites (the dense layers and the
+    skip projections, as the JAX package keeps them at full precision);
+    "fp32" for "high"."""
+    if precision_mode not in PRECISION_MODES:
+        raise ValueError(f"unknown precision_mode {precision_mode!r}; expected one of {PRECISION_MODES}")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            if compute_dtype == "bfloat16":
+                m.compute = "bf16"
+            elif precision_mode == "serve" and isinstance(m, Conv2d) and not m.sensitive:
+                m.compute = "tf32"
+            else:
+                m.compute = "fp32"
+    return model
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -31,6 +110,8 @@ class BatchNorm(nn.BatchNorm2d):
     own batch norm (cuDNN on the card)."""
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x.dtype != torch.float32:  # bf16 compute: normalize in float32
+            return self.forward(x.float(), mask).to(x.dtype)
         if not self.training or mask is None:
             return super().forward(x)
         mb = mask.to(x.dtype).reshape(-1, 1, 1, 1)
@@ -105,7 +186,7 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, dropout: float = 0.1):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, features, 3, padding=1)
+        self.conv = Conv2d(in_ch, features, 3, padding=1)
         self.bn = BatchNorm(features)
         self.pool = nn.MaxPool2d(2)
         self.dropout = Dropout2d(dropout)
@@ -124,8 +205,8 @@ class SeparableBlock(nn.Sequential):
 
     def __init__(self, in_ch: int, features: int, pool: bool = True):
         layers = [
-            nn.Conv2d(in_ch, in_ch, 3, padding=1, groups=in_ch),
-            nn.Conv2d(in_ch, features, 1),
+            Conv2d(in_ch, in_ch, 3, padding=1, groups=in_ch),
+            Conv2d(in_ch, features, 1),
             BatchNorm(features),
             nn.ReLU(),
         ]
@@ -143,14 +224,15 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 2):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, features, 3, stride=stride, padding=1)
+        self.conv1 = Conv2d(in_ch, features, 3, stride=stride, padding=1)
         self.bn1 = BatchNorm(features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv2 = Conv2d(features, features, 3, padding=1)
         self.bn2 = BatchNorm(features)
         if in_ch != features or stride != 1:
             self.skip = nn.Sequential(
-                nn.Conv2d(in_ch, features, 1, stride=stride), BatchNorm(features)
+                Conv2d(in_ch, features, 1, stride=stride), BatchNorm(features)
             )
+            self.skip[0].sensitive = True
         else:
             self.skip = nn.Sequential()  # identity
 

@@ -7,11 +7,13 @@ from .server import (
     quantize_i16,
     quantize_mulaw,
 )
+from .stats_http import StatsHttpServer
 
 __all__ = [
     "DetectionClient",
     "DetectionServer",
     "ServerRefused",
+    "StatsHttpServer",
     "dequantize_mulaw",
     "quantize_i16",
     "quantize_mulaw",

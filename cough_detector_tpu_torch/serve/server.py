@@ -1,11 +1,10 @@
 """Multi-client detection server over the batched streaming engine.
 
-The port of `cough_detector_tpu/serve/server.py` with its python socket
-backend. One `StreamingDetector` with a fixed slot capacity serves every
-connected client: each client OPENs one or more stream slots, sends f32 PCM,
-and receives EVENT frames for detections on its slots (wire format:
-docs/PROTOCOL.md). All slots advance in lockstep device ticks; absent audio
-is silence.
+The port of `cough_detector_tpu/serve/server.py`. One `StreamingDetector`
+with a fixed slot capacity serves every connected client: each client
+OPENs one or more stream slots, sends f32 PCM, and receives EVENT frames
+for detections on its slots (wire format: docs/PROTOCOL.md). All slots
+advance in lockstep device ticks; absent audio is silence.
 
 Tick policies:
   * "timer" (production): a tick every chunk duration of wall time on an
@@ -29,13 +28,16 @@ Isolation and containment:
   * A protocol violation gets an ERROR frame, then only that connection
     closes.
 
+Socket tiers (`backend`): "python", this module's reader threads, or
+"native", the C++ epoll plane (serve/native_ingest.py, native/cdt_ingest.cpp)
+that parses frames, buffers each slot's audio and writes events with no
+Python in the per-frame path; the tick thread then assembles a tick with one
+call. Both speak the same wire protocol and keep the same isolation rules.
+
 Pipeline: the tick thread only assembles and enqueues device ticks. A pool
 of fetch workers copies each tick's packed event tensor to the host, and a
 router thread re-serializes completions so clients see events in tick
-order.
-
-Not ported yet: the C++ epoll ingest plane (backend="native") and the stats
-HTTP sidecar.
+order. `serve/stats_http.py` serves `stats()` over HTTP beside the daemon.
 """
 
 from __future__ import annotations
@@ -225,10 +227,19 @@ class DetectionServer:
         delivery_workers: int = 4,
         backend: str = "auto",
         h2d_dtype: str = "float32",
+        ingest_workers: int = 1,
+        precision_mode: str = "high",
     ):
-        """`backend`: "python" (this module's socket tier) or "auto", which
-        is "python" until the C++ ingest plane is ported; "native" raises
-        NotImplementedError.
+        """`backend`: "python" (this module's socket tier), "native" (the
+        C++ epoll plane; raises if its library cannot be built) or "auto"
+        (native when the library builds, else python, said once).
+
+        `ingest_workers` (native only): the plane's epoll I/O threads;
+        connections partition across them, and events are the same at any
+        count.
+
+        `precision_mode`: the classifier's, "high" or "serve" (TF32 bulk
+        convs on the card; models/layers.py).
 
         `h2d_dtype`: the per-tick host→device batch format. "float32"
         (exact), "int16" (16-bit PCM, quantized on assemble, dequantized in
@@ -240,12 +251,15 @@ class DetectionServer:
         (None) is one tick period; float("inf") disables liveness ticks."""
         if tick_policy not in ("timer", "eager"):
             raise ValueError(f"unknown tick_policy {tick_policy!r}")
-        if backend == "native":
-            raise NotImplementedError(
-                "the native ingest plane is not ported to the PyTorch server yet"
-            )
-        if backend not in ("python", "auto"):
+        if backend not in ("python", "native", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
+        if backend != "python":
+            from . import native_ingest
+
+            if backend == "native":
+                native_ingest.require()
+            else:
+                backend = "native" if native_ingest.available() else "python"
         _h2d_dtypes = {
             "float32": np.float32, "int16": np.int16, "mulaw": np.uint8,
         }
@@ -253,7 +267,8 @@ class DetectionServer:
             raise ValueError(f"unknown h2d_dtype {h2d_dtype!r}")
         self.h2d_dtype = h2d_dtype
         self._h2d = _h2d_dtypes[h2d_dtype]
-        self.backend = "python"
+        self.backend = backend
+        self._ingest_workers = max(1, int(ingest_workers))
         self._detector = StreamingDetector(
             model_path,
             variables=variables,
@@ -264,6 +279,7 @@ class DetectionServer:
             confidence_threshold=confidence_threshold,
             smoothing_window=smoothing_window,
             debounce_seconds=debounce_seconds,
+            precision_mode=precision_mode,
         )
         self.num_streams = num_streams
         self.chunk_size = chunk_size
@@ -312,22 +328,60 @@ class DetectionServer:
         self._max_ahead = 3 * self._delivery_workers + 2
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
-        self._listener = socket.create_server((host, port))
-        self.address = self._listener.getsockname()
+        self._host, self._port = host, port
+        self._ingest = None
+        if backend == "native":
+            # The C++ plane accepts and grants slots the moment it binds,
+            # so it is created in start(), after the warm tick: a client
+            # must not stream into a bounded buffer that nothing drains.
+            self._listener = None
+            self.address = None
+            # slot → (generation, open_sample), the router's view for
+            # retiming and generation-checked delivery.
+            self._slot_meta: Dict[int, tuple] = {}
+            # Rotating assembly buffers, one per tick that may sit between
+            # dispatch and routing (_wait_dispatch_slot): a buffer is
+            # reused only after its tick was routed, so an upload that
+            # still reads it is never overwritten.
+            self._assemble_bufs = [
+                np.zeros((num_streams, chunk_size), self._h2d) for _ in range(self._max_ahead)
+            ]
+            # Grants and retunes drained from the plane stay here until
+            # their device call succeeds, so a failed scrub is retried and
+            # never lets a lane serve a new tenant with the old state.
+            self._unscrubbed_grants: List[tuple] = []
+            self._unapplied_retunes: List[tuple] = []
+        else:
+            self._listener = socket.create_server((host, port))
+            self.address = self._listener.getsockname()
 
     # -- lifecycle -------------------------------------------------------
 
     def start(self) -> None:
-        # One warm tick before accepting clients: it builds the front-end
-        # kernel on first use, which must not eat a client's real-time
-        # budget. The accept loop starts after it; earlier connects wait
-        # in the listener's backlog.
-        self._detector.collect_events(self._detector.tick_async(
-            h2d_silence((self.num_streams, self.chunk_size), self._h2d)
-        ))
+        # Warm ticks of silence before accepting clients, up to the first
+        # that completes windows: it is the first to run the front-end
+        # kernels and the classifier at the full batch (cuDNN's algorithm
+        # choice, lazily loaded kernels), a cost that must not eat a
+        # client's real-time budget; the lane scrub and the retune run once
+        # too. The accept loop starts (and the native plane binds) after
+        # them; earlier connects wait in the python listener's backlog.
+        silence = h2d_silence((self.num_streams, self.chunk_size), self._h2d)
+        for _ in range(-(-self._detector.window_samples // self.chunk_size)):
+            self._detector.collect_events(self._detector.tick_async(silence))
+        self._detector.reset_streams([])
+        self._detector.set_thresholds([], [])
         self._detector.reset()
-        self._threads = [
+        if self.backend == "native":
+            from .native_ingest import NativeIngest
+
+            self._ingest = NativeIngest(
+                self._host, self._port, self.num_streams, self.chunk_size,
+                self._buffer_cap, num_workers=self._ingest_workers,
+            )
+            self.address = self._ingest.address
+        self._threads = ([
             threading.Thread(target=self._accept_loop, daemon=True),
+        ] if self._ingest is None else []) + [
             threading.Thread(target=self._tick_loop, daemon=True),
             threading.Thread(target=self._router_loop, daemon=True),
         ] + [
@@ -339,16 +393,17 @@ class DetectionServer:
 
     def stop(self) -> None:
         self._stop.set()
-        try:
-            # shutdown() wakes the accept loop's blocked accept(); close()
-            # alone leaves it blocked until the join below times out.
-            self._listener.shutdown(socket.SHUT_RDWR)
-        except OSError:
-            pass
-        try:
-            self._listener.close()
-        except OSError:
-            pass
+        if self._listener is not None:
+            try:
+                # shutdown() wakes the accept loop's blocked accept();
+                # close() alone leaves it blocked until the join times out.
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                self._listener.close()
+            except OSError:
+                pass
         # Close every live connection: a bare listener close leaves each
         # _client_loop blocked in recv and every remote client hung.
         with self._reg_lock:
@@ -358,6 +413,8 @@ class DetectionServer:
             c.close()
         for t in self._threads:
             t.join(timeout=5.0)
+        if self._ingest is not None:
+            self._ingest.stop()  # closes its connections and joins its threads
 
     def __enter__(self):
         self.start()
@@ -373,14 +430,20 @@ class DetectionServer:
     def stats(self) -> dict:
         """`ticks` counts DELIVERED ticks (events fetched + routed);
         tick_ms_* is the dispatch cost on the tick thread,
-        delivery_lag_ms_* the dispatch→routed pipeline latency."""
-        with self._reg_lock:
-            open_slots = len(self._slots)
+        delivery_lag_ms_* the dispatch→routed pipeline latency. On the
+        native backend the socket counters (connections, refused,
+        dropped_samples, events, events_dropped, open_streams) are the C++
+        plane's."""
+        if self._ingest is not None:
+            socket_side = self._ingest.stats()
+        else:
+            with self._reg_lock:
+                socket_side = {"open_streams": len(self._slots)}
         with self._stats_lock:
             out = {
                 **self._stats,
-                "backend": "python",
-                "open_streams": open_slots,
+                **socket_side,
+                "backend": self.backend,
                 "dispatched": self._dispatched,
                 "routed": self._routed,
             }
@@ -531,6 +594,8 @@ class DetectionServer:
         has a full chunk (tick now); 1 = some open slot is ready while
         another is not (the liveness deadline applies); 0 = no open slot
         has a full chunk (do not tick)."""
+        if self._ingest is not None:
+            return self._ingest.readiness()
         with self._reg_lock:
             slots = list(self._slots.values())
         if not slots:
@@ -572,8 +637,11 @@ class DetectionServer:
             next_t += self._tick_seconds
             if next_t < time.monotonic() - self._tick_seconds:
                 next_t = time.monotonic() + self._tick_seconds
-            with self._reg_lock:
-                any_open = bool(self._slots)
+            if self._ingest is not None:
+                any_open = self._ingest.stats()["open_streams"] > 0
+            else:
+                with self._reg_lock:
+                    any_open = bool(self._slots)
             if any_open:
                 self._tick_once()
 
@@ -612,12 +680,46 @@ class DetectionServer:
         if not self._wait_dispatch_slot():
             return
         try:
-            self._tick_once_python()
+            if self._ingest is not None:
+                self._tick_once_native()
+            else:
+                self._tick_once_python()
         except Exception as err:
             with self._stats_lock:
                 self._stats["tick_dispatch_errors"] += 1
                 self._last_tick_error = repr(err)
             print(f"serve: tick dispatch failed: {err!r}", file=sys.stderr)
+
+    def _tick_once_native(self) -> None:
+        """The native tick: the C++ plane buffered the audio; scrub newly
+        granted lanes, apply retunes, assemble with one call, dispatch.
+        Drained grants and retunes are consumed only after their device
+        call succeeds (the stashes, see __init__); a slot re-granted while
+        its scrub is pending takes its newest tenant."""
+        self._unscrubbed_grants.extend(self._ingest.granted())
+        granted = list({g[0]: g for g in self._unscrubbed_grants}.values())
+        if granted:
+            self._detector.reset_streams(
+                [sid for sid, _, _ in granted], thresholds=[thr for _, _, thr in granted]
+            )
+            start_sample = self._dispatched * self.chunk_size
+            for sid, gen, _ in granted:
+                self._slot_meta[sid] = (gen, start_sample)
+            self._unscrubbed_grants = []
+            # A retune left from a failed earlier tick belongs to the
+            # slot's previous tenant: the fresh grant's scrub supersedes
+            # it (this tick's retunes are drained below, after the purge).
+            sids = {sid for sid, _, _ in granted}
+            self._unapplied_retunes = [r for r in self._unapplied_retunes if r[0] not in sids]
+        self._unapplied_retunes.extend(self._ingest.thresh_updates())
+        retunes = self._unapplied_retunes
+        if retunes:
+            self._detector.set_thresholds([sid for sid, _ in retunes], [thr for _, thr in retunes])
+            self._unapplied_retunes = []
+        buf = self._assemble_bufs[self._dispatched % len(self._assemble_bufs)]
+        self._ingest.assemble(buf)
+        # A snapshot: the router retimes against the metadata of the tick.
+        self._dispatch_tick(buf, dict(self._slot_meta))
 
     def _tick_once_python(self) -> None:
         chunk = np.zeros((self.num_streams, self.chunk_size), np.float32)
@@ -729,6 +831,9 @@ class DetectionServer:
             next_serial += 1
 
     def _deliver(self, live, detections) -> None:
+        if self._ingest is not None:
+            self._deliver_native(live, detections)
+            return
         window_s = self._detector.stream_config.window_duration
         for det in detections:
             slot = live.get(det.stream)
@@ -746,3 +851,28 @@ class DetectionServer:
                 self._bump("events")
             else:
                 self._bump("events_dropped")
+
+    def _deliver_native(self, live, detections) -> None:
+        """Route one tick's detections through the C++ plane: retime each
+        against its slot's open sample (as of the tick), suppress pre-open
+        padding windows, and send the batch; the plane checks each event's
+        generation, so a slot released or re-granted meanwhile never gets
+        another tenant's event."""
+        window_s = self._detector.stream_config.window_duration
+        slots, gens, times, confs = [], [], [], []
+        for det in detections:
+            meta = live.get(det.stream)
+            if meta is None:
+                continue
+            gen, open_sample = meta
+            t_rel = det.time_seconds - open_sample / self._sample_rate
+            if t_rel < window_s - 1e-9:
+                continue
+            slots.append(det.stream)
+            gens.append(gen)
+            times.append(round(t_rel, 6))
+            confs.append(det.confidence)
+        self._ingest.send_events(
+            np.asarray(slots, np.int32), np.asarray(gens, np.uint32),
+            np.asarray(times, np.float64), np.asarray(confs, np.float32),
+        )

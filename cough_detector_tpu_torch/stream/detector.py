@@ -73,11 +73,15 @@ class StreamingDetector:
         smoothing_window: int = 3,
         debounce_seconds: float = 0.5,
         hop_duration: float = 0.25,
+        precision_mode: str = "high",
     ):
         """`variables`: a state dict in the reference key layout (tensors or
         numpy arrays), with `config`; or `model_path`, a reference `.pt`
         file or a checkpoint directory of the port's trainer. `device`
-        defaults to the card and raises if there is none."""
+        defaults to the card and raises if there is none.
+        `precision_mode`: the classifier's ("high", or "serve" for TF32
+        bulk convs on the card; models.layers.set_precision); the config's
+        compute_dtype picks bfloat16 compute."""
         if model_path is not None:
             variables, config = _load_checkpoint(model_path)
         elif variables is None or config is None:
@@ -98,7 +102,7 @@ class StreamingDetector:
             config.features.sample_rate * self.stream_config.window_duration
         )
 
-        model = model_from_config(config.model)
+        model = model_from_config(config.model, precision_mode)
         model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
         self._model = place_model(model, self.device)
         fcfg = config.features

@@ -226,14 +226,17 @@ def train(
     device_corpus="auto",
     device_corpus_budget: Optional[int] = None,
     device="cuda",
+    decode_backend: str = "auto",
 ) -> str:
     """Train a model; returns the best checkpoint's path.
 
     Input: `shards_dir` (a packed corpus with `train/` and `val/`), or else
     the decode path: `data_dir` (cough/ and non_cough/ clips, split 80/20
     with seed 42) and, with `use_esc50`, ESC-50 at `esc50_dir`, decoded by
-    `num_workers` host threads. The decode path time-shifts at crop time
-    against the full clip, as the reference does.
+    `num_workers` host threads through `BatchLoader(backend=decode_backend)`
+    ("auto": the C++ decoder when it builds and every clip is a .wav). The
+    decode path time-shifts at crop time against the full clip, as the
+    reference does.
 
     `device_corpus` (shards only): "auto" uploads the int16 corpus once
     when it fits `device_corpus_budget` bytes (2 GiB by default), True
@@ -266,7 +269,7 @@ def train(
     if shards_dir is not None:
         loaders = _shard_loaders(config, shards_dir)
     else:
-        loaders = _decode_loaders(config, data_dir, use_esc50, esc50_dir, num_workers)
+        loaders = _decode_loaders(config, data_dir, use_esc50, esc50_dir, num_workers, decode_backend)
     with deterministic(dev):
         return _train(
             output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
@@ -290,20 +293,20 @@ def _shard_loaders(config: Config, shards_dir: str):
     return train_loader, val_loader, train_loader.class_counts
 
 
-def _decode_loaders(config: Config, data_dir, use_esc50, esc50_dir, num_workers: int):
+def _decode_loaders(config: Config, data_dir, use_esc50, esc50_dir, num_workers: int, backend: str):
     """(train loader, val loader, train class counts) decoding audio files."""
     fcfg, tcfg = config.features, config.train
     train_ds, val_ds = _build_datasets(data_dir, use_esc50, esc50_dir)
     print(f"Total train {len(train_ds)}, val {len(val_ds)}")
     train_loader = BatchLoader(
         train_ds, tcfg.batch_size, fcfg, weighted=True, drop_last=True,
-        num_workers=num_workers, seed=tcfg.seed,
+        num_workers=num_workers, seed=tcfg.seed, backend=backend,
         # The reference shifts the full clip before center-trimming, so
         # shifted-in content is real adjacent audio
         # (src/augmentation.py:95-104 + src/dataset.py:156).
         time_shift_limit=0.2, time_shift_prob=tcfg.p_augment,
     )
-    val_loader = BatchLoader(val_ds, tcfg.batch_size, fcfg, num_workers=num_workers)
+    val_loader = BatchLoader(val_ds, tcfg.batch_size, fcfg, num_workers=num_workers, backend=backend)
     return train_loader, val_loader, train_ds.class_counts
 
 

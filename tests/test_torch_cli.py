@@ -58,13 +58,9 @@ def test_prepare_data_writes_the_jax_clis_wavs(data_dirs):
     assert sum(1 for p in ours if "synthetic_hard" in str(p)) == 4
 
 
-def test_pack_writes_the_jax_clis_shards(data_dirs, tmp_path, capsys, monkeypatch):
-    # The port decodes in Python ("auto" until the native decoder is
-    # ported); the JAX CLI's native decoder resamples within 2e-5 of it
-    # (tests/test_native_loader.py), which moves some int16 codes.
-    from cough_detector_tpu.data import native_loader
-
-    monkeypatch.setattr(native_loader, "available", lambda: False)
+def test_pack_writes_the_jax_clis_shards(data_dirs, tmp_path, capsys):
+    # Both CLIs decode with "auto": each package's copy of the C++ decoder
+    # (the same source and flags) where g++ builds it, else both in Python.
     reports = []
     for name, cli in (("ours", pack), ("theirs", jpack)):
         cli.main(["--data-dir", str(data_dirs["ours"]), "--output", str(tmp_path / name),

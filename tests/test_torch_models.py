@@ -14,13 +14,17 @@ import torch
 
 import torch_models
 from cough_detector_tpu.config import Config as JaxConfig
+from cough_detector_tpu.config import ModelConfig as JaxModelConfig
 from cough_detector_tpu.config import default_config as jax_default_config
 from cough_detector_tpu.models import create_model as jax_create_model
 from cough_detector_tpu.models import init_model
+from cough_detector_tpu.models import model_from_config as jax_model_from_config
+from cough_detector_tpu.models.fuse import fold_batchnorm as jax_fold_batchnorm
 from cough_detector_tpu_torch.config import Config, ModelConfig, default_config
 from cough_detector_tpu_torch.models import (
     count_parameters,
     create_model,
+    fold_batchnorm,
     from_jax_variables,
     model_from_config,
     predict,
@@ -108,15 +112,103 @@ def test_missing_weight_raises_key_error():
         from_jax_variables(variables, "small")
 
 
+def _compute_modes(model) -> dict:
+    return {n: m.compute for n, m in model.named_modules() if hasattr(m, "compute")}
+
+
 def test_model_from_config_refuses_unported_modes():
-    with pytest.raises(NotImplementedError):
-        model_from_config(ModelConfig(compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError):
-        model_from_config(ModelConfig(), precision_mode="serve")
+    """Unknown dtypes and precision modes raise; "serve" and bfloat16 set
+    each layer's compute mode (the dense layers and skip projections stay
+    float32 in "serve")."""
     with pytest.raises(ValueError):
         model_from_config(ModelConfig(compute_dtype="float16"))
+    with pytest.raises(ValueError, match="precision_mode"):
+        model_from_config(ModelConfig(), precision_mode="highest")
     model = model_from_config(ModelConfig(model_type="standard", dropout=0.25))
     assert model.fc[2].p == 0.25
+    assert set(_compute_modes(model).values()) == {"fp32"}
+    serve = _compute_modes(model_from_config(ModelConfig(model_type="residual"), "serve"))
+    assert {n for n, c in serve.items() if c == "fp32"} == {
+        "res_blocks.0.skip.0", "res_blocks.1.skip.0", "fc.2",
+    }
+    assert len(serve) == 8 and list(serve.values()).count("tf32") == 5
+    bf16 = model_from_config(ModelConfig(model_type="small", compute_dtype="bfloat16"))
+    assert set(_compute_modes(bf16).values()) == {"bf16"}
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+
+
+def _ported(variables, model_type: str, **kw):
+    model = model_from_config(ModelConfig(model_type=model_type, **kw.pop("config", {})), **kw)
+    model.load_state_dict(from_jax_variables(variables, model_type))
+    return model.eval()
+
+
+def _logits(model, x: np.ndarray) -> np.ndarray:
+    with torch.no_grad():
+        out = model(torch.from_numpy(x))
+    assert out.dtype == torch.float32
+    return out.numpy()
+
+
+def _max_rel(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_fold_batchnorm_matches_jax(model_type):
+    """The folded state dict equals the JAX package's folded variables
+    (converted) array by array within 1e-6; folded logits equal the
+    unfolded model's within 2e-4 max-relative (docs/PARITY.md)."""
+    variables = randomized_jax_variables(model_type, seed=21)
+    state = from_jax_variables(variables, model_type)
+    before = {k: v.clone() for k, v in state.items()}
+    folded = fold_batchnorm(state, model_type)
+    want = from_jax_variables(jax_fold_batchnorm(variables, model_type), model_type)
+    assert folded.keys() == want.keys()
+    for k in want:
+        assert folded[k].dtype == want[k].dtype, k
+        torch.testing.assert_close(folded[k], want[k], rtol=0, atol=1e-6)
+    assert all(torch.equal(state[k], v) for k, v in before.items())  # the input is left as it was
+    x = np.random.default_rng(22).standard_normal((4, 90, 101)).astype(np.float32)
+    model = _ported(variables, model_type)
+    unfolded = _logits(model, x)
+    model.load_state_dict(folded)
+    assert _max_rel(_logits(model, x), unfolded) < 2e-4
+    with pytest.raises(ValueError):
+        fold_batchnorm(state, "tiny")
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_serve_mode_matches_jax_serve(model_type):
+    """precision_mode="serve" against the JAX package's: both are full
+    float32 on a CPU (TF32 and the MXU's single pass exist only on the
+    accelerators), held to the port's 1e-3 logits budget."""
+    variables = randomized_jax_variables(model_type, seed=23)
+    x = np.random.default_rng(24).standard_normal((4, 90, 101)).astype(np.float32)
+    jmodel = jax_model_from_config(JaxModelConfig(model_type=model_type), precision_mode="serve")
+    want = np.asarray(jax.jit(jmodel.apply)(variables, x))
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    got = _logits(_ported(variables, model_type, precision_mode="serve"), x)
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    assert _max_rel(got, want) < TOL
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_bfloat16_compute_matches_jax_bfloat16(model_type):
+    """compute_dtype="bfloat16": float32 parameters, bf16 convs and dense
+    layers, float32 logits. The two packages round at different points
+    (the port normalizes BatchNorm in float32), so they are held to 2e-2
+    of max|logit| of each other, and each to 5e-2 of the float32 logits."""
+    variables = randomized_jax_variables(model_type, seed=25)
+    x = np.random.default_rng(26).standard_normal((4, 90, 101)).astype(np.float32)
+    jmodel = jax_model_from_config(JaxModelConfig(model_type=model_type, compute_dtype="bfloat16"))
+    want = np.asarray(jax.jit(jmodel.apply)(variables, x))
+    assert want.dtype == np.float32
+    got = _logits(_ported(variables, model_type, config={"compute_dtype": "bfloat16"}), x)
+    assert _max_rel(got, want) < 2e-2
+    exact = _logits(_ported(variables, model_type), x)
+    assert _max_rel(got, exact) < 5e-2 and _max_rel(want, exact) < 5e-2
+    assert not np.array_equal(got, exact)
 
 
 def test_predict_softmax_argmax():

@@ -598,7 +598,7 @@ def test_decode_path_step_matches_jax(clip_dir):
     every grad JAX's from those features (1e-3)."""
     cfg = Config(model=ModelConfig(dropout=0.0), train=TrainConfig(p_augment=0.0))
     kw = dict(weighted=True, drop_last=True, seed=0, time_shift_limit=0.2, time_shift_prob=0.5, num_workers=2)
-    waves, labels = next(iter(BatchLoader(CoughDataset(str(clip_dir)), 8, **kw)))
+    waves, labels = next(iter(BatchLoader(CoughDataset(str(clip_dir)), 8, backend="python", **kw)))
     jwaves, jlabels = next(iter(JaxBatchLoader(JaxCoughDataset(str(clip_dir)), 8, backend="python", **kw)))
     assert np.array_equal(waves, jwaves) and np.array_equal(labels, jlabels)
 
