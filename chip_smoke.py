@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA card: serving, training, files
-to detections, and the serving daemon with the native tiers.
+to detections, the serving daemon with the native tiers, and the tools
+between training and serving.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      on the trained checkpoint at B = 256 and 1024 ("serve" vs "high" 1e-3
      max-relative, BN-folded vs unfolded 2e-4, bf16 + fold vs "high" 1e-2;
      classifier ms by CUDA events; TF32 flags off after each);
-  9. prints the kernels' JSON line, then the device line last.
+  9. spectral contrast and the tools between training and serving (budget
+     35 s, seconds printed by sub-step, under build/smoke_tools/): the
+     shipped config with spectral contrast (97x101) through the fused
+     launcher's hybrid at B = 256 and 1024 (both launches once a call, the
+     gemm contrast rows appended; against the torch chain with each of its
+     four contrast variants, fft and gemm x select and rank, and against
+     the CPU, 1e-3 max-relative; CUDA-event ms of the hybrid, the pair
+     alone, the contrast rows alone and the torch chain); a contrast-config
+     residual: 8 train steps on phase 6's shards, one 16-stream detector
+     tick (scores 1e-3 from the CPU's), cli.featurize --config on 16 of
+     phase 7's clips (1e-3 from the CPU chain); cli.evaluate on phase 6's
+     trained checkpoint: its 256 validation shards card vs CPU (counts
+     equal, loss 1e-4), --behavioral and --calibrate (its replay
+     self-check) at 0.5 minutes a scenario; cli.audit --model on phase 7's
+     directory plus a planted silent, clipped and DC-offset clip (each
+     flagged); cli.extract_segments --mode energy --threshold-db -20 --model
+     on phase 7's 10-minute recording, card vs CPU (the same segments
+     kept); cli.export
+     --pt --program --fold-bn, the serving.pt2 loaded on the card against
+     the eager serving function at B = 256 (1e-6) and the exported .pt
+     served. Each path's launches are counted from 0;
+ 10. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
 never JAX. It downloads nothing: the data are synthesized from seeds.
@@ -529,7 +551,8 @@ def train_phase(smi: str) -> dict:
         fail("the exported checkpoint and the checkpoint directory do not serve the same scores")
     print(f"training phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
     return {
-        "best_model": out_b / "best_model", "launches": launches, "ms_b32": launch_ms, "device_ms_b32": launch_dev,
+        "best_model": out_b / "best_model", "shards": shards, "launches": launches, "ms_b32": launch_ms,
+        "device_ms_b32": launch_dev,
         "shard": {
             "step_ms_b32": times[32], "epoch_wall_s": deltas,
             "train_clips_per_s": [n_train / d for d in deltas], "idle_share": epoch_idle,
@@ -919,7 +942,7 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     print(f"files-to-detections phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
     return {
         "offline_launches": offline_launches, "offline_batch_ms": batch_ms, "decode_training_launches": train_launches,
-        "b1024": b1024, "data": data, "decode": {
+        "b1024": b1024, "data": data, "recording": rec, "decode": {
             "clips_per_s": decode_cps, "step_ms": [bs / r["train_clips_per_sec"] * 1e3 for r in recs_a],
             "idle_share": idle_share,
         },
@@ -1208,6 +1231,303 @@ def daemon_phase(smi: str, best_model: Path, data: Path, decode: dict, shard: di
             fail(f"a precision mode is outside its bound at B={b}: {errs}")
     print(f"daemon phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
     return {"launches": daemon_launches, "precision": precision}
+
+
+def tools_phase(smi: str, trained: dict, files: dict) -> dict:
+    """Phase 9, spectral contrast through the kernel's hybrid launch on every
+    path, and the tools between training and serving; returns what the
+    kernels' JSON line adds."""
+    from cough_detector_tpu_torch.cli import audit as audit_cli
+    from cough_detector_tpu_torch.cli import evaluate as evaluate_cli
+    from cough_detector_tpu_torch.cli import export as export_cli
+    from cough_detector_tpu_torch.cli import extract_segments as segments_cli
+    from cough_detector_tpu_torch.cli import featurize as featurize_cli
+    from cough_detector_tpu_torch.config import Config, FeatureConfig, TrainConfig
+    from cough_detector_tpu_torch.data import BatchLoader, CoughDataset, ShardLoader, audio_io
+    from cough_detector_tpu_torch.models import create_model, fold_batchnorm, init_weights
+    from cough_detector_tpu_torch.models import export as model_export
+    from cough_detector_tpu_torch.ops import frontend, frontend_kernel
+    from cough_detector_tpu_torch.stream import StreamingDetector
+    from cough_detector_tpu_torch.stream.detector import _load_checkpoint
+    from cough_detector_tpu_torch.train import StepRandom, make_optimizer, train_step
+    from cough_detector_tpu_torch.train.loop import make_feature_fns
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    contrast = FeatureConfig(use_spectral_contrast=True)
+    base = dataclasses.replace(contrast, use_spectral_contrast=False)
+    rng = np.random.default_rng(SEED + 9)
+    root = Path(__file__).resolve().parent / "build" / "smoke_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    best = str(trained["best_model"])
+    seconds, launches = {}, {}
+
+    def counted(name: str, fn):
+        """fn() with both launch counters set to 0 just before and read just
+        after into launches[name]."""
+        frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+        return out
+
+    def once_each(name: str, n: int = 1) -> None:
+        if set(launches[name].values()) != {n}:
+            fail(f"{name}: front-end launches {launches[name]}, not {n} of each")
+
+    # -- 9.1 the hybrid at B = 256 and 1024: against the torch chain's four
+    # contrast variants and the CPU, and timed beside its parts
+    t0 = time.perf_counter()
+    hybrid = {}
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
+    for b, iters in ((256, 50), (1024, 20)):
+        w = torch.from_numpy(make_audio(rng, b, SR)).to(dev)
+        got = counted(f"hybrid_b{b}", lambda: frontend_kernel.extract_features_fused(w, contrast))
+        once_each(f"hybrid_b{b}")
+        chain_rows = frontend.extract_features(w, base)
+        errs, row_errs = {}, {}
+        for method, tails in itertools.product(("fft", "gemm"), ("select", "rank")):
+            rows = frontend.spectral_contrast(w, contrast, method=method, tails=tails).transpose(1, 2)
+            errs[f"{method}/{tails}"] = rel_err(got, torch.cat([chain_rows, rows], dim=1))
+            row_errs[f"{method}/{tails}"] = rel_err(got[:, base.num_features :], rows)
+        cpu_err = rel_err(got.cpu(), frontend_kernel.extract_features_fused(w.cpu(), contrast))
+        frames = frontend.frame_signal(w, contrast.n_fft, contrast.hop_length)
+        dft = frontend._contrast_dft(contrast.n_fft, contrast.win_length, dev)
+        with frontend.fp32_matmul(dev):
+            gemm_ms = cuda_ms(lambda: frames @ dft, iters)
+        hybrid[b] = dict(
+            ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, contrast), iters),
+            pair_ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, base), iters),
+            contrast_ms=cuda_ms(lambda: frontend.spectral_contrast(w, contrast, method="gemm"), iters),
+            gemm_ms=gemm_ms,
+            fft_contrast_ms=cuda_ms(lambda: frontend.spectral_contrast(w, contrast, method="fft"), iters),
+            chain_ms=cuda_ms(lambda: frontend.extract_features(w, contrast), iters),
+            errs=errs, cpu_err=cpu_err,
+        )
+        h = hybrid[b]
+        gflop = 2 * frames.shape[0] * frames.shape[1] * dft.shape[0] * dft.shape[1] / 1e9
+        print(
+            f"[{smi}] contrast hybrid at B={b} (shape {tuple(got.shape)}; launches {launches[f'hybrid_b{b}']}): "
+            f"vs the torch chain max-relative {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}; its contrast "
+            f"rows alone vs each variant's {', '.join(f'{k} {v:.3e}' for k, v in row_errs.items())}; vs the CPU "
+            f"{cpu_err:.3e} (limits 1e-3); CUDA events: hybrid {h['ms']:.4f} ms, the pair alone {h['pair_ms']:.4f} ms, "
+            f"the gemm contrast rows alone {h['contrast_ms']:.4f} ms (of which the FP32 DFT matmul, {gflop:.1f} GFLOP, "
+            f"{gemm_ms:.4f} ms: {gflop / gemm_ms:.1f} TFLOP/s), the fft contrast rows alone {h['fft_contrast_ms']:.4f} "
+            f"ms, the torch chain with contrast {h['chain_ms']:.4f} ms",
+            flush=True,
+        )
+        if not (max(errs.values()) <= TOL and cpu_err <= TOL and got.shape == (b, 97, 101)):
+            fail(f"the contrast hybrid disagrees with the torch chain or the CPU at B={b}")
+    if torch.backends.cuda.matmul.allow_tf32 != tf32_before:
+        fail("the gemm contrast left cuBLAS's TF32 flag changed")
+    seconds["9.1 hybrid checks and times"] = time.perf_counter() - t0
+
+    # -- 9.2 a contrast-config residual: 8 train steps on phase 6's shards,
+    # a detector tick card vs CPU, cli.featurize on 16 clips
+    t0 = time.perf_counter()
+    cfg_c = Config(features=contrast)
+    model = init_weights(create_model("residual"), torch.Generator().manual_seed(SEED)).to(dev)
+    opt = make_optimizer(model.parameters(), cfg_c.train, 64)
+    feature_fn, _ = make_feature_fns(cfg_c, dev, use_time_shift=True)
+    loader = ShardLoader(str(trained["shards"] / "train"), TrainConfig().batch_size, shuffle=True, seed=SEED,
+                         feature_config=contrast)
+    batches = list(itertools.islice(iter(loader), 8))
+    cw = torch.ones(2, device=dev)
+    rand = StepRandom(dev)
+
+    def train8():
+        return [
+            train_step(model, opt, torch.from_numpy(x).to(dev), torch.from_numpy(y.astype(np.int64)).to(dev), cw,
+                       rand.key(SEED, 0, s), feature_fn=feature_fn)["loss"].item()
+            for s, (x, y) in enumerate(batches)
+        ]
+
+    losses = counted("train_steps", train8)
+    once_each("train_steps", 8)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    window_audio = make_audio(rng, 16, SR)
+    det = StreamingDetector(variables=state, config=cfg_c, device="cuda", num_streams=16, chunk_size=SR,
+                            confidence_threshold=0.0)
+    events = counted("tick", lambda: det.collect_events(det.tick_async(window_audio)))
+    once_each("tick")
+    card_p = det.scores_for(window_audio)
+    cpu_p = StreamingDetector(variables=state, config=cfg_c, device="cpu", num_streams=16).scores_for(window_audio)
+    tick_err = float(np.abs(card_p - cpu_p).max())
+    clips = root / "clips16"
+    data = files["data"]
+    for sub in ("cough", "non_cough"):
+        (clips / sub).mkdir(parents=True)
+        for p in sorted((data / sub).glob("*.wav"))[:8]:
+            (clips / sub / p.name).symlink_to(p)
+    (root / "contrast.json").write_text(cfg_c.to_json())
+    report = json.loads(counted("featurize", lambda: run_cli(featurize_cli.main, [
+        "--data-dir", str(clips), "--output", str(root / "contrast.npz"), "--batch-size", "16",
+        "--num-workers", "4", "--config", str(root / "contrast.json"),
+    ], echo=False)).strip().splitlines()[-1])
+    once_each("featurize")
+    feats = np.load(root / "contrast.npz")["features"]
+    first, _ = next(iter(BatchLoader(CoughDataset(str(clips)), 16, contrast, num_workers=4)))
+    want = frontend.extract_features(frontend.peak_normalize(torch.from_numpy(first)), contrast)
+    feat_err = rel_err(torch.from_numpy(feats), want)
+    print(
+        f"contrast residual (97x101 features): 8 train steps on phase 6's shards, losses "
+        f"{[round(v, 4) for v in losses]}, launches {launches['train_steps']}; one 16-stream tick, "
+        f"{len(events)} events at threshold 0, launches {launches['tick']}, scores card vs CPU max abs "
+        f"{tick_err:.3e} (limit 1e-3); cli.featurize --config on 16 clips: shape {report['feature_shape']}, "
+        f"launches {launches['featurize']}, vs the CPU chain max-relative {feat_err:.3e} (limit 1e-3)",
+        flush=True,
+    )
+    if not (np.isfinite(losses).all() and tick_err <= TOL and feat_err <= TOL and len(events) == 16
+            and report["feature_shape"] == [97, 101]):
+        fail("the contrast residual's paths disagree with the CPU")
+    seconds["9.2 contrast residual"] = time.perf_counter() - t0
+
+    # -- 9.3 cli.evaluate on phase 6's trained checkpoint: dataset mode on its
+    # 256 validation clips card vs CPU, --behavioral, --calibrate
+    t0 = time.perf_counter()
+    val = str(trained["shards"] / "val")
+    summaries = {}
+    for where in ("cuda", "cpu"):
+        out = counted(f"evaluate_{where}", lambda: run_cli(evaluate_cli.main, [
+            "--model", best, "--data-dir", val, "--device", where,
+        ], echo=False))
+        summaries[where] = json.loads(out.strip().splitlines()[-1])
+    once_each("evaluate_cuda")
+    card, cpu = summaries["cuda"], summaries["cpu"]
+    counts_equal = all(card[k] == cpu[k] for k in ("tp", "fp", "fn", "tn"))
+    loss_err = abs(card["loss"] - cpu["loss"])
+    print(
+        f"cli.evaluate --data-dir (256 validation shards): card {json.dumps(card)}; counts equal the CPU run's "
+        f"{counts_equal}, loss difference {loss_err:.3e} (limit 1e-4); launches {launches['evaluate_cuda']}",
+        flush=True,
+    )
+    if not (counts_equal and loss_err <= 1e-4 and card["tp"] + card["fp"] + card["fn"] + card["tn"] == 256):
+        fail("cli.evaluate on the card disagrees with the CPU")
+    seconds["9.3 evaluate dataset"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    behavioral = json.loads(counted("behavioral", lambda: run_cli(evaluate_cli.main, [
+        "--model", best, "--behavioral", "--minutes", "0.5",
+    ], echo=False)).strip().splitlines()[-1])
+    seconds["9.3 evaluate --behavioral"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calibrated = json.loads(counted("calibrate", lambda: run_cli(evaluate_cli.main, [
+        "--model", best, "--calibrate", "--minutes", "0.5",
+    ], echo=False)).strip().splitlines()[-1])
+    seconds["9.3 evaluate --calibrate"] = time.perf_counter() - t0
+    print(
+        f"cli.evaluate --behavioral --minutes 0.5: {json.dumps({k: v for k, v in behavioral.items() if k != 'targets'})} "
+        f"(launches {launches['behavioral']}); --calibrate: self-check '{calibrated['self_check']}', passing band "
+        f"{calibrated['passing_band']}, strict {calibrated['passing_band_strict']}, recommended threshold "
+        f"{calibrated['recommended_threshold']} over {len(calibrated['sweep'])} thresholds (launches "
+        f"{launches['calibrate']})",
+        flush=True,
+    )
+    if len(calibrated["sweep"]) != 19 or min(launches["behavioral"].values()) < 1:
+        fail("cli.evaluate's behavioral modes did not run through the kernels")
+
+    # -- 9.4 cli.audit on phase 7's directory plus three planted clips
+    t0 = time.perf_counter()
+    audit_dir = root / "audit"
+    for sub in ("cough", "non_cough"):
+        (audit_dir / sub).mkdir(parents=True)
+        for p in sorted((data / sub).glob("*.wav")):
+            (audit_dir / sub / p.name).symlink_to(p)
+    planted = {
+        "planted_silent.wav": (np.zeros(2 * SR, np.float32), "silent"),
+        "planted_clipped.wav": (np.clip(rng.standard_normal(2 * SR) * 2, -1, 1).astype(np.float32), "clipped"),
+        "planted_dc.wav": ((0.4 + 0.05 * rng.standard_normal(2 * SR)).astype(np.float32), "dc_offset"),
+    }
+    for name, (wave, _) in planted.items():
+        audio_io.write_wav(audit_dir / "cough" / name, wave, SR)
+    out = counted("audit", lambda: run_cli(audit_cli.main, [
+        "--data-dir", str(audit_dir), "--model", best, "--report", str(root / "audit.jsonl"),
+    ], echo=False))
+    audit_counts = json.loads(out.strip().splitlines()[-2])
+    recs = {Path(r["path"]).name: r for r in map(json.loads, (root / "audit.jsonl").read_text().splitlines())}
+    flagged = {name: flag in recs[name]["flags"] for name, (_, flag) in planted.items()}
+    n_audit_batches = -(-audit_counts["total"] // 256)
+    print(
+        f"cli.audit --model ({audit_counts['total']} clips, {n_audit_batches} batches; launches {launches['audit']}): "
+        f"{json.dumps(audit_counts)}; planted clips flagged {flagged}",
+        flush=True,
+    )
+    if not all(flagged.values()):
+        fail("cli.audit missed a planted clip")
+    once_each("audit", n_audit_batches)
+    seconds["9.4 audit"] = time.perf_counter() - t0
+
+    # -- 9.5 cli.extract_segments --mode energy on phase 7's 10-minute recording
+    t0 = time.perf_counter()
+    rec_dir = root / "recordings"
+    rec_dir.mkdir()
+    (rec_dir / "recording.wav").symlink_to(files["recording"])
+    kept, seg_reports = {}, {}
+    for where in ("cuda", "cpu"):
+        out_dir = root / f"segments_{where}"
+        seg_reports[where] = json.loads(counted(f"segments_{where}", lambda: run_cli(segments_cli.main, [
+            "--input-dir", str(rec_dir), "--output-dir", str(out_dir), "--mode", "energy", "--threshold-db", "-20",
+            "--model", best, "--min-confidence", "0.5", "--device", where,
+        ], echo=False)).strip().splitlines()[-1])
+        kept[where] = sorted(p.name for p in out_dir.glob("*.wav"))
+    wave = audio_io.load_mono_16k(files["recording"])
+    spans = segments_cli.find_energy_bursts(wave, SR, -20.0)
+    n_seg_batches = -(-len(spans) // segments_cli.SCORE_BATCH)
+    print(
+        f"cli.extract_segments --mode energy --threshold-db -20 --model --min-confidence 0.5 on the 10-minute "
+        f"recording: "
+        f"{seg_reports['cuda']['candidates']} candidates (first at "
+        f"{[round(lo / SR, 3) for lo, _ in spans[:5]]} s), {seg_reports['cuda']['written']} kept on the card, "
+        f"{seg_reports['cpu']['written']} on the CPU; the same files {kept['cuda'] == kept['cpu']}; launches "
+        f"{launches['segments_cuda']}",
+        flush=True,
+    )
+    if kept["cuda"] != kept["cpu"] or seg_reports["cuda"]["candidates"] != len(spans):
+        fail("cli.extract_segments on the card keeps other segments than on the CPU")
+    once_each("segments_cuda", n_seg_batches)
+    seconds["9.5 extract_segments"] = time.perf_counter() - t0
+
+    # -- 9.6 cli.export --pt --program --fold-bn; the .pt2 loaded on the card
+    t0 = time.perf_counter()
+    exported = root / "export"
+    run_cli(export_cli.main, [
+        "--model", best, "--output-dir", str(exported), "--pt", "--program", "--fold-bn", "--batch-size", "256",
+    ], echo=False)
+    seconds["9.6 export"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = model_export.load_serialized(str(exported / "serving.pt2"))
+    variables, config = _load_checkpoint(best)
+    eager = model_export.make_serving_fn(fold_batchnorm(variables, config.model.model_type), config)
+    w = torch.from_numpy(make_audio(rng, 256, SR)).to(dev)
+    with torch.no_grad():
+        got = counted("exported_program", lambda: loaded(w))
+        want = eager(w)
+    once_each("exported_program")
+    export_err = float((got - want).abs().max())
+    pt_err = float(np.abs(StreamingDetector(str(exported / "model.pt")).scores_for(w) - want[:, 1].cpu().numpy()).max())
+    graph = (exported / "serving.graph.txt").read_text()
+    ops_in_graph = [op for op in ("cdt.power_mel", "cdt.mel_epilogue") if op in graph]
+    with torch.no_grad():
+        program_ms = cuda_ms(lambda: loaded(w), 20)
+        eager_ms = cuda_ms(lambda: eager(w), 20)
+    print(
+        f"[{smi}] cli.export --pt --program --fold-bn: serving.pt2 loaded on the card at B=256 vs the eager serving "
+        f"function max abs {export_err:.3e} (limit 1e-6), launches {launches['exported_program']}, custom ops in "
+        f"the graph {ops_in_graph}; model.pt served by StreamingDetector vs eager max abs {pt_err:.3e}; CUDA events: "
+        f"program {program_ms:.4f} ms, eager {eager_ms:.4f} ms",
+        flush=True,
+    )
+    if not (export_err <= 1e-6 and pt_err <= 1e-6 and len(ops_in_graph) == 2):
+        fail("the exported program disagrees with the eager serving function")
+    seconds["9.6 exported program"] = time.perf_counter() - t0
+
+    total = time.perf_counter() - t_phase
+    print(
+        "tools phase by sub-step (s): " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; phase total {total:.3f} s (budget 35 s)",
+        flush=True,
+    )
+    return {"hybrid": hybrid, "launches": launches, "seconds": total}
 
 
 def main() -> None:
@@ -1668,7 +1988,10 @@ def main() -> None:
     # -- 8. the serving daemon and the native tiers -------------------------------
     daemon = daemon_phase(smi, trained["best_model"], files["data"], files["decode"], trained["shard"])
 
-    # -- 9. summary ----------------------------------------------------------------
+    # -- 9. spectral contrast through the hybrid, and the tools between training and serving
+    tools = tools_phase(smi, trained, files)
+
+    # -- 10. summary ---------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -1690,6 +2013,10 @@ def main() -> None:
             "offline_batch_ms": files["b1024"][part]["ms"],
             "offline_batch_device_ms": files["b1024"][part]["device_ms"],
             "offline_batch_bound_ms": files["b1024"][part]["bound"]["bound_ms"],
+            "tools_launches": {path: n[part] for path, n in tools["launches"].items()},
+            "hybrid_batch_ms": {b: h["ms"] for b, h in tools["hybrid"].items()},
+            "hybrid_pair_ms": {b: h["pair_ms"] for b, h in tools["hybrid"].items()},
+            "hybrid_contrast_ms": {b: h["contrast_ms"] for b, h in tools["hybrid"].items()},
         }
         for part in ("spectral", "epilogue")
     ]

@@ -3,13 +3,17 @@
 features in one .npz, with clips/s.
 
     python -m cough_detector_tpu_torch.cli.featurize --data-dir D --output f.npz
-        [--batch-size 512] [--num-workers 16] [--augment] [--seed S] [--device cuda]
+        [--batch-size 512] [--num-workers 16] [--augment] [--seed S]
+        [--config CONFIG] [--device cuda]
 
 The host decodes and crops (data.datasets.BatchLoader); on the device each
 batch is peak-normalized, optionally augmented with the training chain
 (p = 0.3, draws from a generator seeded with --seed), and featurized by
-`extract_features_fast`: the fused kernel pair on the card. Runs on the
-card unless given `--device cpu`.
+`extract_features_fast`: the fused kernel pair on the card (with the
+contrast rows appended for a config with spectral contrast). The feature
+geometry is the shipped config's, or `--config`'s (a config JSON or a
+checkpoint directory, as cli.pack takes it). Runs on the card unless given
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--augment", action="store_true",
                    help="Apply the training augmentation chain on the device")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--config", type=str, default=None,
+                   help="Config JSON or checkpoint directory whose feature "
+                        "config to use (default: the shipped one)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' to featurize on the CPU")
     return p
@@ -43,14 +50,15 @@ def main(argv=None) -> None:
     import torch
 
     from ..augment import augment_waveforms
-    from ..config import FeatureConfig
     from ..data import audio_io
     from ..data.datasets import BatchLoader, ClipDataset, CoughDataset
     from ..ops import frontend
     from ..utils.device import resolve_device
+    from ..utils.observability import Throughput
+    from .pack import read_feature_config
 
     dev = resolve_device(args.device)
-    cfg = FeatureConfig()
+    cfg = read_feature_config(args.config)
     root = Path(args.data_dir)
     if (root / "cough").exists() or (root / "non_cough").exists():
         dataset = CoughDataset(str(root))
@@ -77,19 +85,17 @@ def main(argv=None) -> None:
     feats_out, labels_out = [], []
     # Steady throughput leaves out the first batch, which builds the
     # kernels on the card.
-    steady_s, steady_n = 0.0, 0
+    steady = Throughput(warmup=1)
     t0 = time.perf_counter()
     n = 0
-    for i, (waves, labels) in enumerate(loader):
-        tb = time.perf_counter()
+    for waves, labels in loader:
+        steady.start()
         w = torch.from_numpy(waves)
         if dev.type == "cuda":
             w = w.pin_memory().to(dev, non_blocking=True)
         feats_out.append(featurize(w).cpu().numpy())
         labels_out.append(labels)
-        if i > 0:
-            steady_s += time.perf_counter() - tb
-            steady_n += len(labels)
+        steady.stop(len(labels))
         n += len(labels)
     dt = time.perf_counter() - t0
 
@@ -106,7 +112,7 @@ def main(argv=None) -> None:
         "feature_shape": list(features.shape[1:]),
         "seconds": round(dt, 3),
         "clips_per_sec": round(n / dt, 1),
-        "steady_clips_per_sec": round(steady_n / steady_s, 1) if steady_s > 0 else None,
+        "steady_clips_per_sec": round(steady.items_per_sec, 1),
         "device": str(dev),
         "output": args.output,
     }))

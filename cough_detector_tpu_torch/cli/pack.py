@@ -45,36 +45,43 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def read_feature_config(path) -> "FeatureConfig":
+    """The FeatureConfig of a config JSON (train's <output>/config.json) or
+    a checkpoint directory (meta.json's config_full, else its flat config);
+    the shipped defaults for None."""
+    import json as _json
+    from pathlib import Path
+
+    from ..config import Config, FeatureConfig
+
+    if not path:
+        return FeatureConfig()
+    path = Path(path)
+    if not path.is_dir():
+        return Config.from_json(path.read_text()).features
+    meta = path / "meta.json"
+    if not meta.exists():
+        raise SystemExit(
+            f"--config {path} is a directory with no meta.json — "
+            "expected a checkpoint directory or a config JSON file"
+        )
+    doc = _json.loads(meta.read_text())
+    full = doc.get("config_full")
+    return (
+        Config.from_json(_json.dumps(full)).features
+        if full
+        else Config.from_flat_dict(doc["config"]).features
+    )
+
+
 def _feature_config(args) -> "FeatureConfig":
     """Resolve the pack geometry: defaults < --config < explicit flags.
     The geometry travels in the manifest; ShardLoader cross-checks it
     against the training FeatureConfig (data/shards.py:158-176), so a
     corpus packed here is verifiably tied to the config it was packed for."""
     import dataclasses
-    import json as _json
-    from pathlib import Path
 
-    from ..config import Config, FeatureConfig
-
-    cfg = FeatureConfig()
-    if args.config:
-        path = Path(args.config)
-        if path.is_dir():  # a checkpoint directory
-            meta = path / "meta.json"
-            if not meta.exists():
-                raise SystemExit(
-                    f"--config {path} is a directory with no meta.json — "
-                    "expected a checkpoint directory or a config JSON file"
-                )
-            doc = _json.loads(meta.read_text())
-            full = doc.get("config_full")
-            cfg = (
-                Config.from_json(_json.dumps(full)).features
-                if full
-                else Config.from_flat_dict(doc["config"]).features
-            )
-        else:
-            cfg = Config.from_json(path.read_text()).features
+    cfg = read_feature_config(args.config)
     overrides = {}
     if args.sample_rate is not None:
         overrides["sample_rate"] = args.sample_rate

@@ -11,13 +11,17 @@ serving path calls: on a CUDA tensor it runs the hand-written fused kernel
 (ops/frontend_kernel.py) for every config both its launches take on the
 card (`frontend_kernel.card_supports`), and this chain for the rest, as
 the JAX launcher falls back for the configs its kernel does not cover.
+For a config with spectral contrast the kernel computes the mel and MFCC
+rows, and `spectral_contrast` the contrast rows, as the JAX launcher's
+hybrid branch does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Optional, Union
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -31,13 +35,29 @@ _AMIN = 1e-10
 _DB_SCALE = 10.0 / math.log(10.0)
 
 
-@functools.lru_cache(maxsize=32)
+def device_cache(build):
+    """Cache a constant tensor per argument tuple (device included), except
+    while torch traces (torch.compile, torch.export): a tensor built then
+    is the trace's own and becomes a constant of its graph, and a cached
+    one would leak into eager calls and later traces."""
+    cached = functools.lru_cache(maxsize=32)(build)
+
+    @functools.wraps(build)
+    def get(*args):
+        if torch.compiler.is_compiling():
+            return build(*args)
+        return cached(*args)
+
+    return get
+
+
+@device_cache
 def _padded_window(win_length: int, n_fft: int, device: torch.device):
     w = filters.padded_window(win_length, n_fft).astype(np.float32)
     return torch.from_numpy(w).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def _mel_fb(cfg: FeatureConfig, device: torch.device) -> torch.Tensor:
     fb = filters.mel_filterbank(
         cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max
@@ -45,7 +65,7 @@ def _mel_fb(cfg: FeatureConfig, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(fb).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def _dct(n_mfcc: int, n_mels: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(filters.dct_matrix(n_mfcc, n_mels)).to(device)
 
@@ -110,6 +130,14 @@ def power_spectrogram(
     frames = frame_signal(waveform, n_fft, hop_length)
     spec = torch.fft.rfft(frames * _padded_window(win_length, n_fft, waveform.device), dim=-1)
     return spec.real**2 + spec.imag**2
+
+
+def magnitude_spectrogram(
+    waveform: torch.Tensor, n_fft: int, hop_length: int, win_length: int
+) -> torch.Tensor:
+    """Windowed magnitude spectrogram |rfft| (torchaudio Spectrogram with
+    power=1)."""
+    return torch.sqrt(power_spectrogram(waveform, n_fft, hop_length, win_length))
 
 
 def mel_spectrogram(waveform: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
@@ -196,29 +224,163 @@ def stack_features(mel: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Full stacked front end
+# Spectral contrast
 # ---------------------------------------------------------------------------
 
 
-def no_contrast(cfg: FeatureConfig) -> None:
-    """Raises for configs with spectral contrast, which waits for its slice."""
-    if cfg.use_spectral_contrast:
-        raise NotImplementedError(
-            "use_spectral_contrast is not ported to the PyTorch front end yet"
-        )
+@contextlib.contextmanager
+def fp32_matmul(device: torch.device) -> Iterator[None]:
+    """cuBLAS's TF32 off on the card for the duration, restored after."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@device_cache
+def _contrast_dft(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
+    """(n_fft, 4 * n_freqs): the win_length-window cos and -sin columns, then
+    the n_fft-window ones."""
+    c4, s4 = filters.dft_matrices(n_fft, win_length)
+    c5, s5 = filters.dft_matrices(n_fft, n_fft)
+    return torch.from_numpy(np.concatenate([c4, s4, c5, s5], axis=1)).to(device)
+
+
+@device_cache
+def _centroid_freqs(sample_rate: int, n_freqs: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.linspace(0, sample_rate // 2, n_freqs, dtype=np.float32)
+    ).to(device)
+
+
+def contrast_band_edges(n_freqs: int, n_bands: int) -> np.ndarray:
+    """torch.logspace(0, log10(n_freqs), n_bands + 2).int() (truncated),
+    clipped to [0, n_freqs]: 1, 2, 4, 10, 23, 52, 116, 257 at n_fft 512."""
+    edges = np.logspace(0.0, np.log10(n_freqs), n_bands + 2)
+    return np.clip(edges.astype(np.int64), 0, n_freqs)
+
+
+def _tail_sums_rank(band: torch.Tensor, n_top: int, n_bot: int) -> tuple:
+    """Exact top-`n_top` / bottom-`n_bot` sums along the last axis from a
+    stable descending rank: element a's rank is |{b : x_b > x_a}| +
+    |{b < a : x_b == x_a}|, a permutation of 0..W-1, so the tail sums equal
+    summing a stable sort's slices. One (W, W) compare serves both tails."""
+    w = band.shape[-1]
+    idx = torch.arange(w, device=band.device)
+    tie = idx[None, :] < idx[:, None]  # [a, b]: b before a
+    a = band[..., :, None]
+    b = band[..., None, :]
+    rank = ((b > a) | ((b == a) & tie)).sum(dim=-1)
+    zero = torch.zeros((), dtype=band.dtype, device=band.device)
+    top = torch.where(rank < n_top, band, zero).sum(dim=-1)
+    bot = torch.where(rank >= w - n_bot, band, zero).sum(dim=-1)
+    return top, bot
+
+
+def spectral_contrast(
+    waveform: torch.Tensor, cfg: FeatureConfig, method: str = "fft",
+    tails: str = "auto",
+) -> torch.Tensor:
+    """(B, S) → (B, T, n_bands+1): per-band peak-valley contrast and the
+    spectral centroid, z-normalized per clip with the unbiased std.
+
+    The reference's hand-rolled contrast (reference:
+    src/preprocessing.py:242-303): log-spaced bands of the power
+    spectrogram, log1p(mean of the top 20% of a band's bins) − log1p(mean
+    of the bottom 20%), and a Nyquist-normalized centroid of the
+    n_fft-window magnitude spectrogram. A single-bin band contributes 0
+    (the reference's empty peak slice is NaN there), and the centroid of a
+    silent frame is 0 (torchaudio's is 0/0).
+
+    `method`: "fft" (torch.fft, the parity reference) or "gemm" (the four
+    DFT projections of both windows as one FP32 matmul over one frames
+    tensor, cuBLAS's TF32 off for the call; what the fused kernel's hybrid
+    runs). `tails`: "select" (torch.topk) or "rank" (stable-rank masked
+    sums, `_tail_sums_rank`); "auto", and any value other than "rank",
+    means "select". Both select exactly and differ only in the order of
+    the sums.
+    """
+    n_freqs = cfg.n_fft // 2 + 1
+    if method == "gemm":
+        frames = frame_signal(waveform, cfg.n_fft, cfg.hop_length)
+        with fp32_matmul(waveform.device):
+            out = frames @ _contrast_dft(cfg.n_fft, cfg.win_length, waveform.device)
+        re4, im4, re5, im5 = out.split(n_freqs, dim=2)
+        spec = re4 * re4 + im4 * im4
+        mag = torch.sqrt(re5 * re5 + im5 * im5)
+    elif method == "fft":
+        spec = power_spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.win_length)
+        mag = magnitude_spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.n_fft)
+    else:
+        raise ValueError(f"Unknown STFT method: {method!r}")
+    t = spec.shape[1]
+    edges = contrast_band_edges(n_freqs, cfg.n_contrast_bands)
+
+    rows = []
+    for i in range(cfg.n_contrast_bands):
+        low, high = int(edges[i]), int(edges[i + 1])
+        high = min(max(high, low + 1), n_freqs)
+        band = spec[:, :, low:high]
+        n_bins = band.shape[2]
+        if n_bins == 1:
+            rows.append(torch.zeros(spec.shape[:2], dtype=spec.dtype, device=spec.device))
+            continue
+        top_idx = min(max(1, int(n_bins * 0.8)), n_bins - 1)
+        bot_idx = max(1, int(n_bins * 0.2))
+        n_top = n_bins - top_idx
+        if tails == "rank" and (n_top > 1 or bot_idx > 1):
+            tops, bots = _tail_sums_rank(band, n_top, bot_idx)
+            peaks, valleys = tops / n_top, bots / bot_idx
+        else:
+            peaks = (
+                band.amax(dim=2) if n_top == 1
+                else band.topk(n_top, dim=2).values.mean(dim=2)
+            )
+            valleys = (
+                band.amin(dim=2) if bot_idx == 1
+                else band.topk(bot_idx, dim=2, largest=False).values.mean(dim=2)
+            )
+        rows.append(torch.log1p(peaks) - torch.log1p(valleys))
+
+    freqs = _centroid_freqs(cfg.sample_rate, n_freqs, waveform.device)
+    mag_sum = mag.sum(dim=2)
+    live = mag_sum > 0
+    centroid = torch.where(
+        live, (mag * freqs).sum(dim=2) / torch.where(live, mag_sum, 1.0), 0.0
+    )
+    rows.append(centroid / (cfg.sample_rate / 2.0))
+
+    contrast = torch.stack(rows, dim=2)[:, :t, :]
+    mean = contrast.mean(dim=(1, 2), keepdim=True)
+    n = contrast.shape[1] * contrast.shape[2]
+    var = ((contrast - mean) ** 2).sum(dim=(1, 2), keepdim=True) / (n - 1)
+    return (contrast - mean) / (torch.sqrt(var) + 1e-8)
+
+
+# ---------------------------------------------------------------------------
+# Full stacked front end
+# ---------------------------------------------------------------------------
 
 
 def extract_features(waveform: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     """(B, segment_samples) → (B, num_features, num_frames) feature image:
     mel (+dB or PCEN) and MFCC (+deltas, +delta-deltas) from the optionally
-    pre-emphasized signal. Shipped config yields (B, 90, 101)."""
-    no_contrast(cfg)
+    pre-emphasized signal, then the spectral contrast rows of the original
+    signal when enabled. Shipped config yields (B, 90, 101)."""
     emph = (
         pre_emphasis(waveform, cfg.pre_emphasis_coef)
         if cfg.use_pre_emphasis
         else waveform
     )
-    return stack_features(mel_spectrogram(emph, cfg), cfg)
+    feats = stack_features(mel_spectrogram(emph, cfg), cfg)
+    if cfg.use_spectral_contrast:
+        feats = torch.cat([feats, spectral_contrast(waveform, cfg).transpose(1, 2)], dim=1)
+    return feats
 
 
 def process(waveform: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:

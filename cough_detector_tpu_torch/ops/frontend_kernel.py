@@ -18,10 +18,16 @@ the two plain versions. `power_mel_split_reference` models launch A's
 TF32 operand splitting on any device; tests and chip_smoke.py hold the
 kernel and the JAX package against it.
 
+For a config with spectral contrast, `extract_features_fused` is the JAX
+launcher's hybrid: the pair runs on the config without contrast, and
+`frontend.spectral_contrast(method="gemm")` of the un-emphasized waves
+appends the contrast rows (torch ops on the same device; the contrast
+stage has no kernel in the JAX package either). The launches themselves
+compute no contrast rows and refuse a contrast config.
+
 Unlike the JAX launcher, a config the kernel does not cover (no MFCC, or a
 waveform length other than segment_samples) raises ValueError instead of
-running the plain chain, and spectral contrast raises NotImplementedError
-until the contrast slice is ported. On a CUDA tensor the launches also
+running the plain chain. On a CUDA tensor the launches also
 raise for what the card cannot take: more than 128 mels or a hop under 8
 samples (launch A), or a block's shared memory past the card's 227 KB
 (either launch). `card_supports` is the predicate callers route on
@@ -30,11 +36,18 @@ holds exactly when both launches take the config on the card, and is
 computed from the config alone (`spectral_smem_bytes` and
 `epilogue_smem_bytes` mirror the kernel's layouts), so it needs neither
 the built library nor a card.
+
+Each launch is also registered as a torch custom op, `cdt::power_mel` and
+`cdt::mel_epilogue`, taking the config as plain numbers: under
+torch.compile or torch.export `extract_features_fused` calls those, so a
+traced program (models/export.py) holds the two launches as opaque nodes
+and runs the same wrappers, counters included, when it is called.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -44,7 +57,7 @@ import torch.nn.functional as F
 
 from ..config import FeatureConfig
 from . import filters
-from .frontend import no_contrast, pre_emphasis, stack_features
+from .frontend import pre_emphasis, spectral_contrast, stack_features
 
 # Launches of each kernel since import (or since a caller last set it to 0).
 SPECTRAL_LAUNCHES = 0
@@ -62,12 +75,9 @@ _RED_B = 32  # floats of launch B's reduction slots
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
-    """Whether the fused kernel computes this config at this length."""
-    return (
-        cfg.use_mfcc
-        and not cfg.use_spectral_contrast
-        and n_samples == cfg.segment_samples
-    )
+    """Whether the fused kernel computes this config at this length (with
+    spectral contrast, through the hybrid)."""
+    return cfg.use_mfcc and n_samples == cfg.segment_samples
 
 
 def _support(cfg: FeatureConfig) -> tuple:
@@ -125,7 +135,9 @@ def _smem_refusal(smem: int, cfg: FeatureConfig) -> str:
 def card_supports(cfg: FeatureConfig, n_samples: int) -> bool:
     """Whether both launches take this config at this length on the card:
     `kernel_supports`, launch A's limits (at most 128 mels, a hop of at
-    least 8 samples, its shared memory) and launch B's shared memory."""
+    least 8 samples, its shared memory) and launch B's shared memory. None
+    of these depends on spectral contrast, so a contrast config is taken
+    exactly when the config without it is."""
     return (
         kernel_supports(cfg, n_samples)
         and not _spectral_refusal(cfg)
@@ -133,8 +145,15 @@ def card_supports(cfg: FeatureConfig, n_samples: int) -> bool:
     )
 
 
+def _no_contrast(cfg: FeatureConfig) -> None:
+    if cfg.use_spectral_contrast:
+        raise ValueError(
+            "the front-end launches compute no spectral contrast rows: pass "
+            "the config without contrast (extract_features_fused appends them)"
+        )
+
+
 def _check_config(cfg: FeatureConfig, n_samples: int) -> None:
-    no_contrast(cfg)
     if not kernel_supports(cfg, n_samples):
         raise ValueError(
             f"the fused front-end kernel needs use_mfcc=True and waveforms of "
@@ -142,6 +161,7 @@ def _check_config(cfg: FeatureConfig, n_samples: int) -> None:
             f"{cfg.use_mfcc} and length {n_samples} "
             f"(ops.frontend.extract_features covers every config)"
         )
+    _no_contrast(cfg)
 
 
 class _Constants(NamedTuple):
@@ -228,7 +248,6 @@ def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
 
 
 def _check_mel(cfg: FeatureConfig, mel: torch.Tensor) -> None:
-    no_contrast(cfg)
     want = (cfg.n_mels, cfg.num_frames)
     if not cfg.use_mfcc or mel.ndim != 3 or tuple(mel.shape[1:]) != want:
         raise ValueError(
@@ -236,6 +255,7 @@ def _check_mel(cfg: FeatureConfig, mel: torch.Tensor) -> None:
             f"num_frames) = (B, {want[0]}, {want[1]}) power mel; got use_mfcc="
             f"{cfg.use_mfcc} and shape {tuple(mel.shape)}"
         )
+    _no_contrast(cfg)
 
 
 def _frames(waves: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
@@ -419,11 +439,83 @@ def mel_epilogue_fused(
     return out
 
 
+# -- the launches as custom ops --------------------------------------------------
+
+
+def _op_args(cfg: FeatureConfig) -> tuple:
+    """The config as the custom ops take it: every field, in order."""
+    return dataclasses.astuple(cfg)
+
+
+@torch.library.custom_op("cdt::power_mel", mutates_args=())
+def _power_mel_op(
+    waves: torch.Tensor, sample_rate: int, n_mels: int, n_fft: int, hop_length: int,
+    win_length: int, f_min: float, f_max: float, segment_duration: float, n_mfcc: int,
+    use_mfcc: bool, use_pcen: bool, use_pre_emphasis: bool, pre_emphasis_coef: float,
+    use_delta_delta: bool, use_spectral_contrast: bool, n_contrast_bands: int,
+) -> torch.Tensor:
+    """Launch A (`power_mel_fused`): the kernel on a CUDA tensor, or a raise;
+    its plain version on a CPU tensor. The result is contiguous, as the
+    fake's is."""
+    cfg = FeatureConfig(
+        sample_rate, n_mels, n_fft, hop_length, win_length, f_min, f_max, segment_duration,
+        n_mfcc, use_mfcc, use_pcen, use_pre_emphasis, pre_emphasis_coef, use_delta_delta,
+        use_spectral_contrast, n_contrast_bands,
+    )
+    return power_mel_fused(waves.contiguous(), cfg).contiguous()
+
+
+@_power_mel_op.register_fake
+def _(waves, *fields):
+    cfg = FeatureConfig(*fields)
+    return waves.new_empty((waves.shape[0], cfg.n_mels, cfg.num_frames))
+
+
+@torch.library.custom_op("cdt::mel_epilogue", mutates_args=())
+def _mel_epilogue_op(
+    mel: torch.Tensor, sample_rate: int, n_mels: int, n_fft: int, hop_length: int,
+    win_length: int, f_min: float, f_max: float, segment_duration: float, n_mfcc: int,
+    use_mfcc: bool, use_pcen: bool, use_pre_emphasis: bool, pre_emphasis_coef: float,
+    use_delta_delta: bool, use_spectral_contrast: bool, n_contrast_bands: int,
+) -> torch.Tensor:
+    """Launch B (`mel_epilogue_fused`): the kernel on a CUDA tensor, or a
+    raise; its plain version on a CPU tensor."""
+    cfg = FeatureConfig(
+        sample_rate, n_mels, n_fft, hop_length, win_length, f_min, f_max, segment_duration,
+        n_mfcc, use_mfcc, use_pcen, use_pre_emphasis, pre_emphasis_coef, use_delta_delta,
+        use_spectral_contrast, n_contrast_bands,
+    )
+    return mel_epilogue_fused(mel.contiguous(), cfg).contiguous()
+
+
+@_mel_epilogue_op.register_fake
+def _(mel, *fields):
+    cfg = FeatureConfig(*fields)
+    return mel.new_empty((mel.shape[0], cfg.num_features, cfg.num_frames))
+
+
+def _pair(waves: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """Both launches; through the custom ops while torch traces."""
+    if torch.compiler.is_compiling():
+        args = _op_args(cfg)
+        return torch.ops.cdt.mel_epilogue(torch.ops.cdt.power_mel(waves, *args), *args)
+    return mel_epilogue_fused(power_mel_fused(waves, cfg), cfg)
+
+
 def extract_features_fused(
     waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
 ) -> torch.Tensor:
     """(B, segment_samples) float32 → (B, num_features, num_frames), through
     both launches on CUDA tensors and both plain versions on CPU tensors.
     The power mel between them is dropped on return: the caching allocator
-    hands its memory out again only to work queued after launch B."""
-    return mel_epilogue_fused(power_mel_fused(waves, cfg), cfg)
+    hands its memory out again only to work queued after launch B.
+
+    A config with spectral contrast runs the hybrid: the pair on the config
+    without contrast, then the contrast rows of the same (un-emphasized)
+    waves by `spectral_contrast(method="gemm")`, stacked last."""
+    if cfg.use_spectral_contrast and kernel_supports(cfg, waves.shape[-1]):
+        base = dataclasses.replace(cfg, use_spectral_contrast=False)
+        feats = _pair(waves, base)
+        con = spectral_contrast(waves, cfg, method="gemm")
+        return torch.cat([feats, con.transpose(1, 2)], dim=1)
+    return _pair(waves, cfg)

@@ -37,7 +37,6 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..augment import augment_waveforms, spec_augment
 from ..config import Config
@@ -52,7 +51,7 @@ from ..data.shards import ShardLoader, dequantize_torch
 from ..models import count_parameters, init_weights, model_from_config, no_tf32
 from ..ops import frontend
 from ..utils.device import resolve_device
-from ..utils.observability import JsonlLogger
+from ..utils.observability import JsonlLogger, trace_span
 from . import checkpoint as ckpt
 from . import steps
 from .metrics import EarlyStopping, EpochAccumulator
@@ -433,7 +432,7 @@ def _train(output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
     try:
         for epoch in range(start_epoch, epochs):
             # The range chip_smoke.py reads the epoch's device idle share in.
-            with record_function("cdt.epoch"):
+            with trace_span("cdt.epoch"):
                 t0 = time.perf_counter()
                 pending = []
                 for step, (waves, labels, mask) in enumerate(train_batches(epoch)):

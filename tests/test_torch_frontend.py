@@ -133,21 +133,30 @@ def test_sine_sweep_in_band():
     [
         (dict(use_mfcc=False), 16000, ValueError),
         ({}, 12000, ValueError),
-        (dict(use_spectral_contrast=True), 16000, NotImplementedError),
+        (dict(use_spectral_contrast=True), 16000, None),
     ],
 )
 def test_unsupported_config_raises(kw, n, exc):
-    """Where the JAX launcher falls back to the jnp chain (or runs its
-    contrast hybrid), the port's fused wrapper raises."""
+    """Where the JAX launcher falls back to the jnp chain, the port's fused
+    wrapper raises. A contrast config runs the hybrid, as the JAX
+    launcher's does: on CPU tensors it equals extract_features and
+    launches nothing."""
     w = np.zeros((2, n), np.float32)
     w[:, ::97] = 0.5
     jax_out = np.asarray(jax_fused(w, JaxFeatureConfig(**kw), interpret=True))
     assert np.isfinite(jax_out).all()
     before = _launches()
-    with pytest.raises(exc):
-        frontend_kernel.extract_features_fused(
-            torch.from_numpy(w), FeatureConfig(**kw)
-        )
+    if exc is None:
+        got = frontend_kernel.extract_features_fused(torch.from_numpy(w), FeatureConfig(**kw))
+        want = frontend.extract_features(torch.from_numpy(w), FeatureConfig(**kw))
+        assert got.shape == want.shape == (2, 97, 101)
+        assert _rel(got.numpy(), want.numpy()) < TOL
+        assert _rel(got.numpy(), jax_out) < TOL
+    else:
+        with pytest.raises(exc):
+            frontend_kernel.extract_features_fused(
+                torch.from_numpy(w), FeatureConfig(**kw)
+            )
     assert _launches() == before
 
 
@@ -157,12 +166,14 @@ def test_unsupported_config_raises(kw, n, exc):
         (dict(use_mfcc=False), (2, 64, 101), ValueError),
         ({}, (2, 101, 64), ValueError),
         ({}, (2, 64, 90), ValueError),
-        (dict(use_spectral_contrast=True), (2, 64, 101), NotImplementedError),
+        (dict(use_spectral_contrast=True), (2, 64, 101), ValueError),
     ],
 )
 def test_epilogue_rejects_what_it_does_not_cover(kw, shape, exc):
     """Launch B's wrapper takes only a (B, n_mels, num_frames) power mel of
-    a config with MFCCs, and launches nothing otherwise."""
+    a config with MFCCs and without spectral contrast (the launch computes
+    no contrast rows; the launcher appends them), and launches nothing
+    otherwise."""
     before = _launches()
     with pytest.raises(exc):
         frontend_kernel.mel_epilogue_fused(torch.ones(shape), FeatureConfig(**kw))

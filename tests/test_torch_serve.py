@@ -202,7 +202,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert 'cough_detector_tpu_torch.train.loop' in sys.modules\n"
         "for m in ('serve.native_ingest', 'serve.stats_http', 'cli.serve', 'data.native_loader',\n"
-        "          'models.fuse', 'utils.native_build'):\n"
+        "          'models.fuse', 'utils.native_build', 'cli.evaluate', 'cli.audit',\n"
+        "          'cli.extract_segments', 'cli.export', 'cli.setup_coughvid', 'models.export',\n"
+        "          'preprocessing', 'augmentation'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print('ok', len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
     )
