@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA card: serving, training, files
-to detections, the serving daemon with the native tiers, and the tools
-between training and serving.
+to detections, the serving daemon with the native tiers, the tools between
+training and serving, and training and scoring across ranks and devices.
 
     python3 chip_smoke.py
 
@@ -117,7 +117,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      --pt --program --fold-bn, the serving.pt2 loaded on the card against
      the eager serving function at B = 256 (1e-6) and the exported .pt
      served. Each path's launches are counted from 0;
- 10. prints the kernels' JSON line, then the device line last.
+ 10. training and scoring across ranks and devices (budget 45 s, seconds
+     printed by sub-step, under build/smoke_parallel/), 2 epochs of phase
+     6's corpus through cli.train each time: the plain trainer, then NCCL
+     at world size 1 through cli.train --distributed (bit-equal
+     checkpoints, moments and metrics.jsonl; the routed gather equal to
+     index_select); two ranks on cuda:0 over gloo, as subprocesses of
+     cli.train --distributed --dist-backend gloo with the row probes on
+     (CDT_DEBUG_STEP_METRICS), the corpus sharded by rows, in two pairs
+     side by side: on the whole corpus (144 steps) every rank's rows equal
+     the one-process run's by CRC, its batch matrices too, rows built sum
+     to one process's, each rank's launches equal its steps, rank 0 alone
+     writes, and the first 5 step losses are within 1e-5; on the first
+     64 + 32 clips (2 + 1 steps an epoch, the geometry of the JAX
+     package's cluster test) the same, and counts, accuracy and F1 exact,
+     epoch losses within 1e-3; chunked windows (8 windows of 8 steps an
+     epoch), one epoch and a resume to two through the background writer,
+     bit-equal to the resident run, with both runs' epoch wall and the
+     device idle share over a profiled epoch; synchronous checkpoint saves
+     against the background writer (epoch walls); the train step's ms of
+     the three runs (the timed runs without the probes, which copy every
+     batch to the host); and a mesh of ["cuda:0", "cuda:0"] against one
+     device: 256 detector streams x 20 ticks (events equal, confidences
+     1e-5), the 10-minute recording through score_recording (events
+     equal, confidences 1e-5), cli.evaluate --mesh on the 256 validation
+     shards (counts equal) and cli.featurize --mesh on 16 clips (1e-6).
+     Each path's launches are counted from 0;
+ 11. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
 never JAX. It downloads nothing: the data are synthesized from seeds.
@@ -139,6 +165,7 @@ import io  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import signal  # noqa: E402
 import subprocess  # noqa: E402
@@ -1530,6 +1557,423 @@ def tools_phase(smi: str, trained: dict, files: dict) -> dict:
     return {"hybrid": hybrid, "launches": launches, "seconds": total}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
+    """Phase 10, training and scoring across ranks and devices (budget 45 s,
+    under build/smoke_parallel/); returns what the kernels' JSON line adds."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cough_detector_tpu_torch import parallel
+    from cough_detector_tpu_torch.cli import evaluate as evaluate_cli
+    from cough_detector_tpu_torch.cli import featurize as featurize_cli
+    from cough_detector_tpu_torch.cli import train as train_cli
+    from cough_detector_tpu_torch.data import ShardLoader, audio_io, dequantize, pack_arrays
+    from cough_detector_tpu_torch.ops import frontend_kernel
+    from cough_detector_tpu_torch.stream import StreamingDetector, offline
+    from cough_detector_tpu_torch.stream.detector import _load_checkpoint
+    from cough_detector_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "smoke_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shards, best = trained["shards"], str(trained["best_model"])
+    n_train, n_val, bs = 2048, 256, 32
+    steps_per_run = {1: n_train // bs + -(-n_val // bs)}  # train + eval steps an epoch
+    steps_per_run[2] = 2 * steps_per_run[1]
+    seconds, launches = {}, {}
+    skip = {"train_clips_per_sec", "val_clips_per_sec", "wall_s", "t"}
+
+    def counted(name: str, fn):
+        frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+        return out
+
+    def each(name: str, n: int) -> None:
+        if set(launches[name].values()) != {n}:
+            fail(f"{name}: front-end launches {launches[name]}, not {n} of each")
+
+    def train_argv(out: str, *extra: str, epochs: int = 2, corpus: Path = shards) -> list:
+        return ["--shards", str(corpus), "--output-dir", out, "--model-type", "residual",
+                "--epochs", str(epochs), "--batch-size", str(bs), *extra]
+
+    def trained_in_process(name: str, out: Path, *extra: str, epochs: int = 2, corpus: Path = shards) -> str:
+        argv = train_argv(str(out), *extra, epochs=epochs, corpus=corpus)
+        return counted(name, lambda: run_cli(train_cli.main, argv, echo=False))
+
+    def records(out: Path) -> list:
+        return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+    def same_run(a: Path, b: Path) -> bool:
+        """Bit-equal best and latest checkpoints (parameters, moments) and
+        metrics.jsonl records."""
+        for name in ("best_model", "latest_model"):
+            ta, tb = (checkpoint.load_checkpoint(str(o / name))[0] for o in (a, b))
+            if any(not torch.equal(tb["model"][k], v) for k, v in ta["model"].items()):
+                return False
+            pairs = zip(ta["optimizer"]["mu"] + ta["optimizer"]["nu"], tb["optimizer"]["mu"] + tb["optimizer"]["nu"])
+            if not all(torch.equal(x, y) for x, y in pairs):
+                return False
+        strip = lambda rs: [{k: v for k, v in r.items() if k not in skip} for r in rs]  # noqa: E731
+        return strip(records(a)) == strip(records(b))
+
+    def step_ms(out: Path) -> float:
+        return bs / records(out)[-1]["train_clips_per_sec"] * 1e3
+
+    def probes(text: str, pattern: str) -> list:
+        return [m.groups() for m in re.finditer(pattern, text)]
+
+    def idle_share(fn):
+        """fn() under torch.profiler, a training run of one epoch: (its
+        result, the device's idle share over its "cdt.epoch" range)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+        events = prof.events()
+        span = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
+        if len(span) != 1:
+            return out, None
+        lo, hi = span[0].time_range.start, span[0].time_range.end
+        return out, 1 - busy_ms(events, lo, hi) / ((hi - lo) / 1e3)
+
+    def probed(fn):
+        """fn() with the CDT_DEBUG_STEP_METRICS probes (train/loop.py) on:
+        the checks of the ranks read them. They copy every batch to the host
+        a step, so no run whose time is reported takes them."""
+        os.environ["CDT_DEBUG_STEP_METRICS"] = "1"
+        try:
+            return fn()
+        finally:
+            os.environ.pop("CDT_DEBUG_STEP_METRICS", None)
+
+    def blocking(key: str, label: str, fn):
+        """fn, noting (label, ms) of each call, the time it holds the
+        caller, in saves_ms[key]."""
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                saves_ms[key].append((label, (time.perf_counter() - t) * 1e3))
+        return run
+
+    # -- 10.a the plain trainer, then NCCL at world size 1 through cli.train --distributed.
+    # The plain run's saves go through the background writer: the seconds
+    # the loop's thread spends queueing them and draining the writer are
+    # held against the synchronous saves' in 10.d.
+    t0 = time.perf_counter()
+    saves_ms = {"background": [], "synchronous": []}
+    submit, drain = checkpoint._submit, checkpoint.drain_pending_saves
+    checkpoint._submit = blocking("background", "queue", submit)
+    checkpoint.drain_pending_saves = blocking("background", "drain", drain)
+    try:
+        trained_in_process("plain", root / "plain")
+    finally:
+        checkpoint._submit, checkpoint.drain_pending_saves = submit, drain
+    each("plain", steps_per_run[2])
+    seconds["10.a plain trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torchrun_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                    "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(torchrun_env)
+    try:
+        trained_in_process("nccl_world1", root / "nccl", "--distributed")
+        if dist.is_initialized():
+            fail("cli.train --distributed left its process group initialized")
+        # The routed gather at world size 1 (NCCL's reduce-scatter) vs index_select.
+        os.environ["MASTER_PORT"] = str(free_port())
+        if not parallel.maybe_initialize_distributed() or dist.get_backend() != "nccl":
+            fail("maybe_initialize_distributed did not join an NCCL group on the card")
+        val_d = torch.from_numpy(ShardLoader(str(shards / "val"), bs).corpus()).cuda()
+        idx = torch.from_numpy(np.random.default_rng(SEED).integers(0, n_val, bs)).cuda()
+        gather_ok = torch.equal(parallel.routed_gather(val_d, idx, parallel.process_group()),
+                                val_d.index_select(0, idx))
+        dist.destroy_process_group()
+    finally:
+        for k in torchrun_env:
+            os.environ.pop(k, None)
+    nccl_same = same_run(root / "plain", root / "nccl")
+    each("nccl_world1", steps_per_run[2])
+    print(
+        f"[{smi}] NCCL at world size 1 (cli.train --distributed, 2 epochs of phase 6's corpus): bit-equal to the "
+        f"plain trainer (best and latest checkpoints, moments, metrics.jsonl with its losses) {nccl_same}; routed "
+        f"gather vs index_select {gather_ok}; launches {launches['nccl_world1']} (steps {steps_per_run[2]})",
+        flush=True,
+    )
+    if not (nccl_same and gather_ok):
+        fail("NCCL at world size 1 does not reproduce the plain trainer")
+    seconds["10.a NCCL world 1"] = time.perf_counter() - t0
+
+    # -- 10.b two ranks on cuda:0 over gloo, the corpus sharded by rows, in
+    # two pairs side by side. On phase 6's whole corpus (72 steps an epoch,
+    # 144 a run) the inputs are held exact: each rank's rows by CRC, the
+    # epochs' batch matrices, the rows built, the launches, rank 0 alone
+    # writing; and the losses of the first 5 steps within rtol 1e-5. Later
+    # losses drift apart by summation order, as any reordered sum does, one
+    # process with BatchNorm's two-pass sums in place of cuDNN's too: Adam's
+    # early steps move a weight by the learning rate whatever its gradient's
+    # size, so a sign that rounding flips moves it the other way
+    # (tools/rank_drift_probe.py). The epochs' counts and losses are held on
+    # the second pair, the first 64 + 32 clips (2 + 1 steps an epoch), the
+    # geometry of tests/test_distributed.py's problem, whose bounds these are.
+    t0 = time.perf_counter()
+    sub = root / "corpus_96"
+    for split, n in (("train", 64), ("val", 32)):
+        loader = ShardLoader(str(shards / split), bs)
+        pack_arrays(dequantize(loader.corpus()[:n]), loader._labels[:n], str(sub / split))
+    budgets = {"gloo": 40 << 20, "gloo_96": 2 << 20}  # past one device's budget, within two's
+    corpora = {"gloo": shards, "gloo_96": sub}
+    procs, logs = [], []
+    for name in ("gloo", "gloo_96"):
+        port = free_port()
+        for r in range(2):
+            env = dict(os.environ, CDT_DEBUG_STEP_METRICS="1")
+            env.update({"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2",
+                        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+            logs.append(open(root / f"{name}_rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "cough_detector_tpu_torch.cli.train", "--distributed",
+                 "--dist-backend", "gloo", "--device", "cuda:0", "--device-corpus-budget", str(budgets[name]),
+                 *train_argv(str(root / name), corpus=corpora[name])],
+                cwd=Path(__file__).resolve().parent, env=env, stdout=logs[-1], stderr=subprocess.STDOUT,
+            ))
+    done_at = {}
+    try:
+        # The one-process references with the probes on, while the ranks start.
+        plain_out = probed(lambda: trained_in_process("plain_probed", root / "plain_probed"))
+        plain_sub = probed(lambda: trained_in_process("plain_96", root / "plain_96", corpus=sub))
+        done_at["references"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 300
+        for i in (2, 3, 0, 1):  # the slice's pair, then the whole corpus's
+            procs[i].wait(timeout=max(1.0, deadline - time.monotonic()))
+            done_at["64 + 32 pair" if i == 3 else "whole-corpus pair"] = time.perf_counter() - t0
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        fail("a gloo rank failed: " + " | ".join(
+            (root / f"{n}_rank{r}.log").read_text()[-3000:] for n in ("gloo", "gloo_96") for r in range(2)))
+    row_pat, mats_pat = r"ROW_HASHES lo=(\d+) (\[.*\])", r"SCAN_MATS epoch=(\d+) crc=(\d+)"
+    built_pat = r"Input rows built \(rank \d+\): train (\d+), val (\d+)"
+    loss_pat = r"STEP_LOSSES epoch=(\d+) (\[.*\])"
+    exact = ("tp", "fp", "fn", "tn", "train_acc", "val_acc", "precision", "recall", "f1")
+    pairs = {}
+    for name, ref, ref_dir, n_steps in (("gloo", plain_out, "plain_probed", steps_per_run[2]),
+                                        ("gloo_96", plain_sub, "plain_96", 6)):
+        ranks = [(root / f"{name}_rank{r}.log").read_text() for r in range(2)]
+        want_rows = probes(ref, row_pat)
+        rows_ok = bool(want_rows)
+        for text in ranks:
+            got = probes(text, row_pat)
+            rows_ok &= len(got) == len(want_rows) and all(
+                json.loads(full)[int(lo) : int(lo) + len(json.loads(part))] == json.loads(part)
+                for (_, full), (lo, part) in zip(want_rows, got)
+            )
+        built = [tuple(map(int, probes(t, built_pat)[0])) for t in [ref] + ranks]
+        s0, d0 = (np.array(json.loads(probes(t, loss_pat)[0][1])) for t in (ref, ranks[0]))
+        step_errs = np.abs(d0 - s0) / np.abs(s0) if len(d0) == len(s0) else np.array([np.inf])
+        recs_s, recs_d = records(root / ref_dir), records(root / name)
+        rank_launches = [tuple(map(int, probes(t, r"KERNEL_LAUNCHES rank=\d+ spectral=(\d+) epilogue=(\d+)")[0]))
+                         for t in ranks]
+        for r, n in enumerate(rank_launches):
+            launches[f"{name}_rank{r}"] = {"spectral": n[0], "epilogue": n[1]}
+        pairs[name] = {
+            "sharded": all("sharded by rows over 2 ranks" in t for t in ranks),
+            "rows": rows_ok,
+            "mats": all(probes(t, mats_pat) == probes(ref, mats_pat) for t in ranks),
+            "built": tuple(a + b for a, b in zip(built[1], built[2])) == built[0],
+            "launches": all(n == (n_steps,) * 2 for n in rank_launches),
+            "rank0_only": "Epoch 0" in ranks[0] and "Epoch 0" not in ranks[1] and sorted(
+                p.name for p in (root / name).iterdir()) == sorted(p.name for p in (root / ref_dir).iterdir()),
+            "step_errs": step_errs,
+            "counts": len(recs_d) == 2 and all(rd[k] == rs[k] for rs, rd in zip(recs_s, recs_d) for k in exact),
+            "epoch_err": max(abs(rd[k] - rs[k]) / abs(rs[k]) for rs, rd in zip(recs_s, recs_d)
+                             for k in ("train_loss", "val_loss")),
+            "built_rows": built, "rank_launches": rank_launches,
+        }
+    full, small = pairs["gloo"], pairs["gloo_96"]
+    exact_checks = ("sharded", "rows", "mats", "built", "launches", "rank0_only")
+    gloo_ms = step_ms(root / "gloo")
+    print(
+        f"[{smi}] two ranks on cuda:0 over gloo (cli.train --distributed --dist-backend gloo, every step through "
+        f"routed_gather), phase 6's 2048 + 256 clips, 144 steps: "
+        + ", ".join(f"{k} {full[k]}" for k in exact_checks)
+        + f" (rows built {full['built_rows'][1]} + {full['built_rows'][2]} = {full['built_rows'][0]}; launches "
+        f"{full['rank_launches']}, steps {steps_per_run[2]}); epoch-0 step losses relative, steps 0-4 "
+        f"{np.array2string(full['step_errs'][:5], precision=3)} (limit 1e-5), all {len(full['step_errs'])} max "
+        f"{full['step_errs'].max():.3e}; epoch losses max-relative {full['epoch_err']:.3e}, counts equal "
+        f"{full['counts']} (summation order, not held); the first 64 + 32 clips, 6 steps: "
+        + ", ".join(f"{k} {small[k]}" for k in exact_checks)
+        + f"; step losses relative {np.array2string(small['step_errs'], precision=3)} (limit 1e-5), "
+        f"counts/accuracy/F1 exact {small['counts']}, epoch losses max-relative {small['epoch_err']:.3e} "
+        f"(limit 1e-3); done after (s) " + ", ".join(f"{k} {v:.3f}" for k, v in done_at.items()),
+        flush=True,
+    )
+    if not (all(full[k] and small[k] for k in exact_checks) and full["step_errs"][:5].max() <= 1e-5
+            and small["step_errs"].max() <= 1e-5 and small["counts"] and small["epoch_err"] <= 1e-3):
+        fail("two ranks over gloo do not reproduce the one-process run")
+    seconds["10.b two ranks over gloo"] = time.perf_counter() - t0
+
+    # -- 10.c chunked windows against the resident corpus, one process
+    # (1 epoch, then a resume to 2 through the background writer)
+    t0 = time.perf_counter()
+    chunk_budget = 16_384_000  # windows of 8 steps: 8 an epoch, 1 for validation
+    chunked = ("--device-corpus", "chunked", "--device-corpus-budget", str(chunk_budget))
+    trained_in_process("chunked", root / "chunked", *chunked, epochs=1)
+    each("chunked", steps_per_run[1])
+    # The resumed epoch under torch.profiler, and one more resident epoch
+    # resumed in a copy of the plain run.
+    _, chunk_idle = idle_share(lambda: trained_in_process(
+        "chunked_resume", root / "chunked", *chunked, "--resume", str(root / "chunked" / "latest_model")))
+    each("chunked_resume", steps_per_run[1])
+    chunked_same = same_run(root / "plain", root / "chunked")
+    chunk_wall = records(root / "chunked")[0]["wall_s"]
+    plain_recs = records(root / "plain")
+    plain_wall = plain_recs[0]["wall_s"]
+    shutil.copytree(root / "plain", root / "plain_profiled")
+    _, plain_idle = idle_share(lambda: run_cli(train_cli.main, train_argv(
+        str(root / "plain_profiled"), "--resume", str(root / "plain_profiled" / "latest_model"), epochs=3),
+        echo=False))
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f}"  # noqa: E731
+    print(
+        f"[{smi}] chunked windows (budget {chunk_budget} bytes: 8 windows of 8 steps an epoch, each uploaded on a "
+        f"side stream while the window before runs), 1 epoch + a resume to 2: bit-equal to the resident run "
+        f"{chunked_same}; epoch-0 wall {chunk_wall:.3f} s chunked, {plain_wall:.3f} s resident; device idle share "
+        f"over a profiled epoch {fmt(chunk_idle)} chunked, {fmt(plain_idle)} resident (the probes off)",
+        flush=True,
+    )
+    if not chunked_same:
+        fail("chunked windows do not reproduce the resident run")
+    seconds["10.c chunked"] = time.perf_counter() - t0
+
+    # -- 10.d the checkpoint writer: the background thread against synchronous saves
+    t0 = time.perf_counter()
+    # each save committed at once, on the loop's thread
+    checkpoint._submit = blocking("synchronous", "save", lambda fn: fn())
+    checkpoint.drain_pending_saves = blocking("synchronous", "drain", drain)
+    try:
+        trained_in_process("sync_saves", root / "sync")
+    finally:
+        checkpoint._submit, checkpoint.drain_pending_saves = submit, drain
+    sync_same = same_run(root / "plain", root / "sync")
+    sync_recs = records(root / "sync")
+    walls = {
+        "background": [plain_recs[0]["wall_s"], plain_recs[1]["wall_s"] - plain_recs[0]["wall_s"]],
+        "synchronous": [sync_recs[0]["wall_s"], sync_recs[1]["wall_s"] - sync_recs[0]["wall_s"]],
+    }
+    print(
+        f"[{smi}] checkpoint writes over 2 epochs (the probes off): the loop's thread held by saves "
+        + "; ".join(f"{k} {sum(ms for _, ms in v):.3f} ms (" + ", ".join(f"{n} {ms:.3f}" for n, ms in v) + ")"
+                    for k, v in saves_ms.items())
+        + " (the drains: before each epoch's snapshot and before train() returns); epoch walls "
+        "(metrics.jsonl; epoch 1's holds epoch 0's saves; the background run is the phase's first) "
+        + "; ".join(f"{k} {v[0]:.3f} s, {v[1]:.3f} s" for k, v in walls.items())
+        + f"; the synchronous run bit-equal to the background one {sync_same}; the resumed chunked run above went "
+        f"through the background writer",
+        flush=True,
+    )
+    if not sync_same:
+        fail("synchronous checkpoint saves change the run")
+    seconds["10.d checkpoint writer"] = time.perf_counter() - t0
+    plain_ms, nccl_ms = step_ms(root / "plain"), step_ms(root / "nccl")
+    print(
+        f"[{smi}] train step at batch 32 (metrics.jsonl, epoch 1): plain {plain_ms:.4f} ms, NCCL at world size 1 "
+        f"{nccl_ms:.4f} ms (both with the probes off), two ranks on one card over gloo {gloo_ms:.4f} ms (16 rows a "
+        f"rank, phase 6's corpus, with the probes' copy of every batch to the host; gloo stages every collective "
+        f"through host memory: its time is the host transport's, not NCCL's between cards)",
+        flush=True,
+    )
+
+    # -- 10.e a mesh of ["cuda:0", "cuda:0"] against one device
+    t0 = time.perf_counter()
+    mesh = ["cuda:0", "cuda:0"]
+    variables, config = _load_checkpoint(best)
+    rng = np.random.default_rng(SEED + 10)
+    audio = make_audio(rng, 256, 20 * CHUNK)
+    detections = {}
+    for name, m in (("detector_one", False), ("detector_mesh", mesh)):
+        det = StreamingDetector(variables=variables, config=config, num_streams=256, chunk_size=CHUNK,
+                                confidence_threshold=0.0, mesh=m)
+        detections[name] = counted(name, lambda: det.process_chunk(audio))
+    det_same, det_err = same_events(detections["detector_mesh"], detections["detector_one"], 1e-5)
+    scoring_ticks = sum(windows_completed(20, CHUNK, SR, SR // 4))  # ticks that launch the kernels
+    each("detector_mesh", 2 * scoring_ticks)
+    wave = audio_io.load_mono_16k(files["recording"])
+    events = {
+        name: counted(name, lambda: offline.score_recording(wave, variables, config, threshold=0.5, mesh=m))
+        for name, m in (("offline_one", False), ("offline_mesh", mesh))
+    }
+    off_same, off_err = same_events(
+        [(0, *e) for e in events["offline_mesh"]], [(0, *e) for e in events["offline_one"]], 1e-5
+    )
+    n_windows = (len(wave) - SR) // (SR // 4) + 1
+    each("offline_mesh", 2 * -(-n_windows // 1024))
+    val = str(shards / "val")
+    summaries = {
+        name: json.loads(counted(name, lambda: run_cli(evaluate_cli.main, ["--model", best, "--data-dir", val, *flag],
+                                                       echo=False)).strip().splitlines()[-1])
+        for name, flag in (("evaluate_one", ["--single-device"]), ("evaluate_mesh", ["--mesh", ",".join(mesh)]))
+    }
+    eval_same = all(summaries["evaluate_mesh"][k] == summaries["evaluate_one"][k] for k in ("tp", "fp", "fn", "tn"))
+    each("evaluate_mesh", 2)
+    clips = root / "clips16"
+    for sub in ("cough", "non_cough"):
+        (clips / sub).mkdir(parents=True)
+        for p in sorted((files["data"] / sub).glob("*.wav"))[:8]:
+            (clips / sub / p.name).symlink_to(p)
+    feats = {}
+    for name, flag in (("featurize_one", []), ("featurize_mesh", ["--mesh", ",".join(mesh)])):
+        counted(name, lambda: run_cli(featurize_cli.main, [
+            "--data-dir", str(clips), "--output", str(root / f"{name}.npz"), "--num-workers", "4", *flag,
+        ], echo=False))
+        feats[name] = np.load(root / f"{name}.npz")["features"]
+    feat_err = float(np.abs(feats["featurize_mesh"] - feats["featurize_one"]).max())
+    each("featurize_mesh", 2)
+    print(
+        f"[{smi}] a mesh of {mesh} against one device: 256 detector streams x 20 ticks, {len(detections['detector_one'])} "
+        f"events equal {det_same} (confidences max abs {det_err:.3e}, limit 1e-5; launches {launches['detector_mesh']}); "
+        f"the 10-minute recording through score_recording: {len(events['offline_one'])} events equal {off_same} "
+        f"(max abs {off_err:.3e}, limit 1e-5; launches {launches['offline_mesh']}); cli.evaluate on the 256 validation "
+        f"shards: counts equal {eval_same} ({json.dumps({k: summaries['evaluate_mesh'][k] for k in ('tp', 'fp', 'fn', 'tn')})}, "
+        f"loss {summaries['evaluate_mesh']['loss']:.6f} vs {summaries['evaluate_one']['loss']:.6f}); cli.featurize on 16 "
+        f"clips: max abs {feat_err:.3e} (limit 1e-6)",
+        flush=True,
+    )
+    if not (det_same and detections["detector_one"] and off_same and eval_same and feat_err <= 1e-6):
+        fail("a mesh of two devices does not score as one device")
+    seconds["10.e mesh"] = time.perf_counter() - t0
+
+    total = time.perf_counter() - t_phase
+    print(
+        "parallel phase by sub-step (s): " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; phase total {total:.3f} s (budget 45 s)",
+        flush=True,
+    )
+    return {
+        "launches": launches, "seconds": total,
+        "step_ms": {"plain": plain_ms, "nccl_world1": nccl_ms, "gloo_two_ranks": gloo_ms},
+        "epoch_wall_s": {"resident": plain_wall, "chunked": chunk_wall, **walls},
+        "saves_block_ms": {k: sum(ms for _, ms in v) for k, v in saves_ms.items()},
+        "idle_share": {"resident": plain_idle, "chunked": chunk_idle},
+    }
+
+
 def main() -> None:
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1991,7 +2435,10 @@ def main() -> None:
     # -- 9. spectral contrast through the hybrid, and the tools between training and serving
     tools = tools_phase(smi, trained, files)
 
-    # -- 10. summary ---------------------------------------------------------------
+    # -- 10. training and scoring across ranks and devices --------------------------------
+    par = parallel_phase(smi, trained, files)
+
+    # -- 11. summary ---------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -2017,6 +2464,7 @@ def main() -> None:
             "hybrid_batch_ms": {b: h["ms"] for b, h in tools["hybrid"].items()},
             "hybrid_pair_ms": {b: h["pair_ms"] for b, h in tools["hybrid"].items()},
             "hybrid_contrast_ms": {b: h["contrast_ms"] for b, h in tools["hybrid"].items()},
+            "parallel_launches": {path: n[part] for path, n in par["launches"].items()},
         }
         for part in ("spectral", "epilogue")
     ]

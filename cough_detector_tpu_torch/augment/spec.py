@@ -6,6 +6,10 @@ mask_along_axis (reference: src/augmentation.py:271-331): width
 ~ U[0, param), start ~ U[0, dim - width), both truncated to integers, the
 band set to 0; one gate a clip covers all its masks. MixUp's λ and partner
 come from a numpy Generator (torch's Beta sampler takes no generator).
+
+Inside `parallel.batch_slice` the draws are the global batch's, cut to the
+rows in hand; MixUp's partners may be any row of the global batch, so under
+data-parallel training it gathers the feature rows of every rank first.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import parallel
 
 
 class MaskDraws(NamedTuple):
@@ -82,10 +88,12 @@ def spec_augment(
     and draws nothing."""
     if p <= 0:
         return feats
+    sl = parallel.rows_of(feats.shape[0])
     d = spec_augment_draws(
-        gen, tuple(feats.shape), freq_mask_param, time_mask_param,
+        gen, (sl.total,) + tuple(feats.shape[1:]), freq_mask_param, time_mask_param,
         n_freq_masks, n_time_masks, p,
     )
+    d = MaskDraws(sl.take(d.apply), *(sl.take(t, 1) for t in d[1:]))
     return spec_augment_apply(feats, d)
 
 
@@ -123,8 +131,20 @@ def mixup(
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch MixUp (reference: src/augmentation.py:334-369, opt-in via
-    TrainConfig.use_mixup)."""
-    lam, perm = mixup_draws(rng, x.shape[0], alpha)
+    TrainConfig.use_mixup). On a rank's rows of a data-parallel batch the
+    rows, labels and mask of every rank are gathered first (no gradient
+    flows to features), the global batch is mixed, and the rank keeps its
+    rows."""
+    sl = parallel.rows_of(x.shape[0])
+    lam, perm = mixup_draws(rng, sl.total, alpha)
     lam = torch.from_numpy(lam).to(x.device)
     perm = torch.from_numpy(perm).to(x.device)
-    return mixup_apply(x, y_onehot, lam, perm, mask)
+    if sl.total == x.shape[0]:
+        return mixup_apply(x, y_onehot, lam, perm, mask)
+    if sl.group is None:
+        raise ValueError("MixUp of a batch slice needs the process group that holds the other rows")
+    x_all = parallel.all_gather_rows(x.detach(), sl.group)
+    y_all = parallel.all_gather_rows(y_onehot, sl.group)
+    m_all = None if mask is None else parallel.all_gather_rows(mask, sl.group)
+    mixed_x, mixed_y = mixup_apply(x_all, y_all, lam, perm, m_all)
+    return sl.take(mixed_x), sl.take(mixed_y)

@@ -16,6 +16,10 @@ Semantics per op (reference: src/augmentation.py:19-268):
   speed          — one of (0.9, 0.95, 1.05, 1.1), prob p, opt-in
 Chain order: shift → speed → volume → gaussian → file noise. A clip takes
 an op iff its U[0, 1) gate draw is <= p.
+
+Inside `parallel.batch_slice` (a rank's rows of a data-parallel batch, or a
+mesh device's block) each op draws for the global batch and keeps the rows
+in hand, so every row gets the draws the whole batch would give it.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import parallel
 from ..ops.frontend import pad_or_trim
 from ..ops.resample import resample
 
@@ -38,6 +43,14 @@ def _uniform(gen: torch.Generator, b: int, lo: float, hi: float) -> torch.Tensor
 
 def _gate(gen: torch.Generator, p: float, b: int) -> torch.Tensor:
     return _rand(gen, b) <= p
+
+
+def _local(draws, sl: parallel.BatchSlice):
+    """The rows in hand of global-batch draws (a tensor or a tuple of
+    tensors, batch axis first)."""
+    if isinstance(draws, torch.Tensor):
+        return sl.take(draws)
+    return type(draws)(*(sl.take(t) for t in draws))
 
 
 # -- time shift ------------------------------------------------------------------
@@ -65,8 +78,9 @@ def time_shift_apply(waves: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
 def time_shift(
     waves: torch.Tensor, gen: torch.Generator, p: float, shift_limit: float = 0.2
 ) -> torch.Tensor:
-    b, s = waves.shape
-    return time_shift_apply(waves, time_shift_draws(gen, b, s, p, shift_limit))
+    sl = parallel.rows_of(waves.shape[0])
+    amt = time_shift_draws(gen, sl.total, waves.shape[1], p, shift_limit)
+    return time_shift_apply(waves, _local(amt, sl))
 
 
 # -- volume ----------------------------------------------------------------------
@@ -91,7 +105,8 @@ def volume_perturbation(
     p: float,
     gain_range: Tuple[float, float] = (0.7, 1.3),
 ) -> torch.Tensor:
-    return volume_apply(waves, volume_draws(gen, waves.shape[0], p, gain_range))
+    sl = parallel.rows_of(waves.shape[0])
+    return volume_apply(waves, _local(volume_draws(gen, sl.total, p, gain_range), sl))
 
 
 # -- gaussian noise --------------------------------------------------------------
@@ -130,8 +145,9 @@ def add_gaussian_noise(
     waves: torch.Tensor, gen: torch.Generator, p: float,
     snr_range: Tuple[float, float] = (10.0, 30.0),
 ) -> torch.Tensor:
-    b, s = waves.shape
-    return gaussian_noise_apply(waves, gaussian_noise_draws(gen, b, s, p, snr_range))
+    sl = parallel.rows_of(waves.shape[0])
+    d = gaussian_noise_draws(gen, sl.total, waves.shape[1], p, snr_range)
+    return gaussian_noise_apply(waves, _local(d, sl))
 
 
 # -- file noise ------------------------------------------------------------------
@@ -175,9 +191,9 @@ def add_file_noise(
 ) -> torch.Tensor:
     """Mix a random clip of a (N, S_bank >= S) noise bank at random SNR
     (reference: src/augmentation.py:119-163)."""
-    b, s = waves.shape
-    d = file_noise_draws(gen, b, s, p, tuple(noise_bank.shape), snr_range)
-    return file_noise_apply(waves, d, noise_bank)
+    sl = parallel.rows_of(waves.shape[0])
+    d = file_noise_draws(gen, sl.total, waves.shape[1], p, tuple(noise_bank.shape), snr_range)
+    return file_noise_apply(waves, _local(d, sl), noise_bank)
 
 
 # -- resampling ops --------------------------------------------------------------
@@ -228,7 +244,8 @@ def speed_perturbation(
     """Opt-in speed perturbation: each clip picks one of a static set of
     speed factors, or keeps its speed with probability 1 - p (the
     reference disables its own version, src/augmentation.py:107-117)."""
-    d = speed_draws(gen, waves.shape[0], p, len(factors))
+    sl = parallel.rows_of(waves.shape[0])
+    d = _local(speed_draws(gen, sl.total, p, len(factors)), sl)
     return speed_apply(waves, d, factors, sample_rate)
 
 

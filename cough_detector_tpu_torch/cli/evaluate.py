@@ -19,8 +19,10 @@ Three modes (reference: src/train.py:114-180; IMPROVEMENT_PLAN.md:199-216,
    --threshold before any sweep number is printed.
 
 `--model` is a checkpoint directory of the port's trainer or a reference
-`.pt`. Runs on the card unless given `--device cpu`; one device
-(`--single-device` is accepted and changes nothing).
+`.pt`. Runs on the card unless given `--device cpu`. Dataset mode splits
+each batch over a mesh of devices (`--mesh`, or every visible card when
+there are several), padded to a multiple of them with the padded rows
+masked, unless `--single-device` is given; the counts equal one device's.
 """
 
 from __future__ import annotations
@@ -45,8 +47,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "scenarios and report the operating band meeting "
                         "all targets + a recommended threshold")
     p.add_argument("--single-device", action="store_true",
-                   help="Accepted for the JAX CLI's command lines; the port "
-                        "evaluates on one device")
+                   help="Dataset mode on --device alone, not split over the "
+                        "visible cards")
+    p.add_argument("--mesh", type=str, default=None, metavar="DEV,DEV,...",
+                   help="Devices dataset-mode batches split over (e.g. "
+                        "cuda:0,cuda:1; a device may repeat); default every "
+                        "visible card with --device cuda")
     p.add_argument("--threshold", type=float, default=0.7)
     p.add_argument("--grid-step", type=float, default=0.05,
                    help="--calibrate threshold sweep granularity over "
@@ -60,23 +66,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _dataset_eval(args) -> None:
+    import copy
     from pathlib import Path
 
+    import numpy as np
     import torch
 
+    from .. import parallel
     from ..data.datasets import BatchLoader, CoughDataset
     from ..data.shards import MANIFEST, ShardLoader
     from ..models import model_from_config, place_model
     from ..stream.detector import _load_checkpoint
     from ..train import steps
-    from ..train.loop import _accumulate, _streamed_batches, make_feature_fns
+    from ..train.loop import _accumulate, make_feature_fns
     from ..utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    mesh = None if args.single_device else parallel.resolve_mesh(parallel.mesh_arg(args.mesh), args.device)
+    devices = [resolve_device(args.device)] if mesh is None else mesh.devices
     variables, config = _load_checkpoint(args.model)
     model = model_from_config(config.model)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
-    model = place_model(model, dev)
+    replicas = [place_model(copy.deepcopy(model), d) for d in devices]
     if (Path(args.data_dir) / MANIFEST).exists():
         # A packed shard directory (cli.pack): decode-free bulk scoring.
         loader = ShardLoader(args.data_dir, args.batch_size, feature_config=config.features)
@@ -88,15 +98,29 @@ def _dataset_eval(args) -> None:
     if n_clips == 0:
         raise SystemExit(f"No clips under {args.data_dir}")
 
-    _, eval_features = make_feature_fns(config, dev, use_time_shift=False)
-    class_weights = torch.ones(2, device=dev)
-    # A short tail batch is padded to the batch size under a mask, which
-    # keeps the padded rows out of the loss and the counts.
-    pending = [
-        steps.eval_step(model, waves, labels, class_weights, feature_fn=eval_features, mask=mask)
-        for waves, labels, mask in _streamed_batches(loader, 0, dev)
-    ]
-    print(json.dumps(_accumulate(pending).summary()))
+    features = [make_feature_fns(config, d, use_time_shift=False)[1] for d in devices]
+    home = devices[0]
+    class_weights = torch.ones(2, device=home)
+    # Every batch pads to one shape, a multiple of the devices, under a mask
+    # that keeps the padded rows out of the loss and the counts. Each device
+    # scores its block; the metrics come from the joined logits.
+    pad_to = -(-args.batch_size // len(devices)) * len(devices)
+    bounds = [(0, pad_to)] if mesh is None else mesh.blocks(pad_to)
+    pending = []
+    with torch.no_grad():
+        for waves, labels in loader:
+            n = len(labels)
+            waves = np.pad(waves, ((0, pad_to - n), (0, 0)))
+            labels = torch.from_numpy(np.pad(labels, (0, pad_to - n)).astype(np.int64)).to(home)
+            mask = None if n == pad_to else torch.from_numpy((np.arange(pad_to) < n).astype(np.float32)).to(home)
+            logits = []
+            for replica, feature_fn, d, (lo, hi) in zip(replicas, features, devices, bounds):
+                w = torch.from_numpy(waves[lo:hi])
+                if d.type == "cuda":
+                    w = w.pin_memory().to(d, non_blocking=True)
+                logits.append(replica(feature_fn(w)).to(home))
+            pending.append(steps.eval_metrics(torch.cat(logits), labels, class_weights, mask))
+    print(json.dumps(_accumulate(pending)[0].summary()))
 
 
 def match_detections(det_times, event_starts, span: float = 3.0):

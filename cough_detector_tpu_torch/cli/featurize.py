@@ -4,7 +4,7 @@ features in one .npz, with clips/s.
 
     python -m cough_detector_tpu_torch.cli.featurize --data-dir D --output f.npz
         [--batch-size 512] [--num-workers 16] [--augment] [--seed S]
-        [--config CONFIG] [--device cuda]
+        [--config CONFIG] [--device cuda] [--mesh DEV,DEV,...]
 
 The host decodes and crops (data.datasets.BatchLoader); on the device each
 batch is peak-normalized, optionally augmented with the training chain
@@ -13,7 +13,10 @@ batch is peak-normalized, optionally augmented with the training chain
 contrast rows appended for a config with spectral contrast). The feature
 geometry is the shipped config's, or `--config`'s (a config JSON or a
 checkpoint directory, as cli.pack takes it). Runs on the card unless given
-`--device cpu`.
+`--device cpu`. Each batch splits over a mesh of devices in contiguous
+blocks (`--mesh`, or every visible card when there are several), each
+device featurizing its rows; the augmentation draws are the whole batch's
+on every device, so the features equal one device's.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "config to use (default: the shipped one)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' to featurize on the CPU")
+    p.add_argument("--mesh", type=str, default=None, metavar="DEV,DEV,...",
+                   help="Devices each batch splits over (e.g. cuda:0,cuda:1; a "
+                        "device may repeat); default every visible card with "
+                        "--device cuda")
     return p
 
 
@@ -49,6 +56,7 @@ def main(argv=None) -> None:
     import numpy as np
     import torch
 
+    from .. import parallel
     from ..augment import augment_waveforms
     from ..data import audio_io
     from ..data.datasets import BatchLoader, ClipDataset, CoughDataset
@@ -58,6 +66,8 @@ def main(argv=None) -> None:
     from .pack import read_feature_config
 
     dev = resolve_device(args.device)
+    mesh = parallel.resolve_mesh(parallel.mesh_arg(args.mesh), args.device)
+    devices = [dev] if mesh is None else mesh.devices
     cfg = read_feature_config(args.config)
     root = Path(args.data_dir)
     if (root / "cough").exists() or (root / "non_cough").exists():
@@ -73,14 +83,26 @@ def main(argv=None) -> None:
         raise SystemExit(f"No audio clips found under {args.data_dir}")
 
     loader = BatchLoader(dataset, args.batch_size, cfg, num_workers=args.num_workers)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # A generator a device, each drawing for the whole batch: all advance
+    # together, and each device keeps the draws of its rows.
+    gens = [torch.Generator(device=d).manual_seed(args.seed) for d in devices]
 
     @torch.no_grad()
-    def featurize(waves: torch.Tensor) -> torch.Tensor:
-        waves = frontend.peak_normalize(waves)
-        if args.augment:
-            waves = augment_waveforms(waves, gen, p=0.3, sample_rate=cfg.sample_rate)
-        return frontend.extract_features_fast(waves, cfg, device=dev)
+    def featurize(waves: np.ndarray) -> np.ndarray:
+        n = len(waves)
+        out = []
+        for i, (d, gen) in enumerate(zip(devices, gens)):
+            lo, hi = i * n // len(devices), (i + 1) * n // len(devices)
+            w = torch.from_numpy(waves[lo:hi])
+            if d.type == "cuda":
+                w = w.pin_memory().to(d, non_blocking=True)
+            with parallel.batch_slice(parallel.BatchSlice(lo, hi, n)):
+                w = frontend.peak_normalize(w)
+                if args.augment:
+                    w = augment_waveforms(w, gen, p=0.3, sample_rate=cfg.sample_rate)
+                if hi > lo:
+                    out.append(frontend.extract_features_fast(w, cfg, device=d).cpu().numpy())
+        return np.concatenate(out)
 
     feats_out, labels_out = [], []
     # Steady throughput leaves out the first batch, which builds the
@@ -90,10 +112,7 @@ def main(argv=None) -> None:
     n = 0
     for waves, labels in loader:
         steady.start()
-        w = torch.from_numpy(waves)
-        if dev.type == "cuda":
-            w = w.pin_memory().to(dev, non_blocking=True)
-        feats_out.append(featurize(w).cpu().numpy())
+        feats_out.append(featurize(waves))
         labels_out.append(labels)
         steady.stop(len(labels))
         n += len(labels)
@@ -113,7 +132,7 @@ def main(argv=None) -> None:
         "seconds": round(dt, 3),
         "clips_per_sec": round(n / dt, 1),
         "steady_clips_per_sec": round(steady.items_per_sec, 1),
-        "device": str(dev),
+        "device": str(dev) if mesh is None else [str(d) for d in devices],
         "output": args.output,
     }))
 

@@ -5,10 +5,12 @@ reference: src/train.py:521-568), for the modes the port trains:
     python -m cough_detector_tpu_torch.cli.train
         (--data-dir DIR [--no-esc50 | --esc50-dir DIR] [--num-workers N]
          [--decode-backend auto|python|native]
-         | --shards DIR [--device-corpus auto|always|off] [--no-device-corpus])
+         | --shards DIR [--device-corpus auto|always|chunked|off]
+           [--device-corpus-budget BYTES] [--no-device-corpus])
         [--output-dir DIR] [--model-type residual] [--epochs N]
         [--batch-size B] [--lr LR] [--weight-decay WD] [--patience P]
         [--mixup [ALPHA]] [--resume CKPT_DIR] [--export-pt] [--device cuda]
+        [--distributed [--dist-backend nccl|gloo]]
 
 `--data-dir` holds cough/ and non_cough/ clips, decoded on the host each
 epoch (data/datasets.py; `--decode-backend`, which the JAX CLI does not
@@ -16,11 +18,23 @@ have, picks the decoder, "auto" as the JAX package's loader does); without
 `--no-esc50` or `--esc50-dir`, ESC-50 is downloaded to ./datasets, as the
 JAX CLI does. `--shards` holds `train/`
 and `val/` shard directories (data/shards.py, packed by cli/pack.py).
+
+Data-parallel training on a node of N cards, one process a card:
+
+    torchrun --nproc_per_node=N -m cough_detector_tpu_torch.cli.train \
+        --distributed --shards DIR ...
+
+`--distributed` joins the process group torchrun's environment describes
+(and raises without one); each rank trains on `cuda:LOCAL_RANK` and on its
+rows of every global batch of --batch-size. NCCL takes one rank a card;
+two ranks that share one card need `--dist-backend gloo` and an explicit
+`--device cuda:0`.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 
@@ -51,10 +65,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Checkpoint directory to resume from (e.g. <out>/latest_model)")
     p.add_argument("--no-device-corpus", action="store_true",
                    help="Stream batches from the host (= --device-corpus off)")
-    p.add_argument("--device-corpus", choices=["auto", "always", "off"], default="auto",
-                   help="'auto' uploads the int16 corpus once when it fits the "
-                        "2 GiB device budget; 'always' uploads it at any size; "
-                        "'off' streams batches from the host")
+    p.add_argument("--device-corpus", choices=["auto", "always", "chunked", "off"], default="auto",
+                   help="'auto' keeps the int16 corpus on the device when it fits "
+                        "the device budget times the ranks (sharded by rows over "
+                        "the ranks past one device's) and streams it through "
+                        "windows beyond; 'always' keeps it resident at any size; "
+                        "'chunked' always streams windows; 'off' streams batches "
+                        "from the host")
+    p.add_argument("--device-corpus-budget", type=int, default=None, metavar="BYTES",
+                   help="Bytes of int16 corpus one device holds (default 2 GiB)")
+    p.add_argument("--distributed", action="store_true",
+                   help="Join the torch.distributed process group torchrun's "
+                        "environment describes and train data-parallel over its "
+                        "ranks; raises without that environment")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="Backend of --distributed: default nccl with a card a "
+                        "rank, gloo on the CPU; gloo for ranks that share a card")
     p.add_argument("--mixup", nargs="?", const=0.2, type=float, default=None,
                    metavar="ALPHA",
                    help="Feature-space MixUp with λ ~ Beta(α, α) (default α 0.2)")
@@ -67,7 +93,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.distributed:
+        from ..parallel import maybe_initialize_distributed
 
+        if not maybe_initialize_distributed(args.dist_backend):
+            raise SystemExit(
+                "--distributed: no torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                "MASTER_ADDR, MASTER_PORT); launch with torchrun --nproc_per_node=N"
+            )
+    try:
+        _run(args)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args) -> None:
     from ..config import Config, ModelConfig, TrainConfig
     from ..train import checkpoint as ckpt
     from ..train import train
@@ -112,12 +155,14 @@ def main(argv=None) -> None:
         device_corpus=(
             False if (args.no_device_corpus or args.device_corpus == "off")
             else True if args.device_corpus == "always"
-            else "auto"
+            else args.device_corpus
         ),
+        device_corpus_budget=args.device_corpus_budget,
         device=args.device,
         decode_backend=args.decode_backend,
     )
-    if args.export_pt and Path(best).exists():
+    rank0 = not args.distributed or int(os.environ["RANK"]) == 0
+    if args.export_pt and rank0 and Path(best).exists():
         tree, epoch, metrics, cfg = ckpt.load_checkpoint(best)
         out = Path(args.output_dir) / "best_model.pt"
         ckpt.export_torch_checkpoint(str(out), tree["model"], cfg, epoch, metrics)

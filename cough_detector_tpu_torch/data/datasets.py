@@ -16,8 +16,10 @@ the JAX package's for the same corpus, bit for bit, and a resumed run
 replays exactly the batches an uninterrupted one saw. The seeded stratified
 split is scikit-learn's `train_test_split(stratify=...)` in numpy, with
 the same draws. `BatchLoader(backend="native")` decodes whole batches in
-C++ (`native_loader.py`), within 2e-5 of the Python decoder; the multi-host
-process slicing comes with `torch.distributed` (ROADMAP Queue 1, item 11).
+C++ (`native_loader.py`), within 2e-5 of the Python decoder. Under
+data-parallel training each rank builds only its rows of every global
+batch (`set_process_slice`), while the order and the crop-shift draws stay
+those of the global batch.
 """
 
 from __future__ import annotations
@@ -268,6 +270,39 @@ class _EpochKeyedLoader:
     and `_batch_at(idxs, scope, rng)` (build one batch).
     """
 
+    # Rows [lo, hi) of each batch padded to pad_to that this process builds
+    # (set_process_slice); None builds whole batches.
+    _local_rows = None
+    # Real rows this loader built (decoded and cropped, or gathered). Under
+    # process slicing the ranks' counts sum to the one-process count.
+    rows_built = 0
+
+    def set_process_slice(self, lo: int, hi: int, pad_to: int) -> None:
+        """Build only rows [lo, hi) of each batch padded to `pad_to` rows:
+        this rank's rows under data-parallel training. The epoch order and
+        every draw that shapes it (sampling, crop shifts) stay the global
+        batch's, so the rows equal the one-process batch's rows bit for
+        bit. Batches then come as (local waves, local labels, n_global),
+        the real rows zero-padded to hi - lo; n_global, the global batch's
+        real row count, decides the mask."""
+        if not (0 <= lo <= hi <= pad_to):
+            raise ValueError(f"bad process slice [{lo}, {hi}) of {pad_to}")
+        self._local_rows = (int(lo), int(hi), int(pad_to))
+
+    def _slice_bounds(self, n_global: int) -> Tuple[int, int]:
+        """This rank's rows of a batch with n_global real rows, clamped
+        (the tail batch can end inside or before the slice)."""
+        lo, hi, _ = self._local_rows
+        return min(lo, n_global), min(hi, n_global)
+
+    def _pad_local(self, waves: np.ndarray, labels: np.ndarray, n_global: int):
+        lo, hi, _ = self._local_rows
+        w_out = np.zeros((hi - lo, waves.shape[1]), waves.dtype)
+        l_out = np.zeros(hi - lo, np.int32)
+        w_out[: waves.shape[0]] = waves
+        l_out[: waves.shape[0]] = labels
+        return w_out, l_out, n_global
+
     def __len__(self) -> int:
         n = self._n_samples()
         if self.drop_last:
@@ -457,11 +492,24 @@ class BatchLoader(_EpochKeyedLoader):
     def _make_batch(self, idxs: np.ndarray, pool, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
         paths = [self.dataset.samples[i][0] for i in idxs]
         labels = np.asarray([self.dataset.samples[i][1] for i in idxs], np.int32)
-        # Crop-shift draws are always full-batch-shaped: the draws are part
-        # of the (seed, epoch) contract.
+        # Crop-shift draws are always full-batch-shaped, before any process
+        # slicing: the draws are part of the (seed, epoch) contract.
         fracs = self._shifts_for(len(paths), rng)
+        n_global = len(idxs)
+        if self._local_rows is not None:
+            s_lo, s_hi = self._slice_bounds(n_global)
+            paths, fracs, labels = paths[s_lo:s_hi], fracs[s_lo:s_hi], labels[s_lo:s_hi]
+        self.rows_built += len(paths)
+        waves = self._decode(paths, fracs, pool)
+        if self._local_rows is None:
+            return waves, labels
+        return self._pad_local(waves, labels, n_global)
+
+    def _decode(self, paths: List[str], fracs: np.ndarray, pool) -> np.ndarray:
+        if not paths:
+            return np.zeros((0, self.cfg.segment_samples), np.float32)
         if self._native:
-            return self._native_batch(paths, fracs), labels
+            return self._native_batch(paths, fracs)
 
         def load_one(args):
             path, frac = args
@@ -469,12 +517,7 @@ class BatchLoader(_EpochKeyedLoader):
             shift = int(round(float(frac) * clip.shape[0]))
             return _crop_window(clip, self.cfg.segment_samples, shift)
 
-        loaded = list(pool.map(load_one, zip(paths, fracs)))
-        waves = (
-            np.stack(loaded) if loaded
-            else np.zeros((0, self.cfg.segment_samples), np.float32)
-        )
-        return waves, labels
+        return np.stack(list(pool.map(load_one, zip(paths, fracs))))
 
     def _native_batch(self, paths: List[str], fracs: np.ndarray) -> np.ndarray:
         from . import native_loader

@@ -227,7 +227,15 @@ class ShardLoader(_EpochKeyedLoader):
         return contextlib.nullcontext()
 
     def _batch_at(self, idxs, scope, rng):
-        return self._gather(idxs)
+        if self._local_rows is None:
+            self.rows_built += len(idxs)
+            return self._gather(idxs)
+        # Process slicing (set_process_slice): only this rank's rows.
+        n_global = len(idxs)
+        s_lo, s_hi = self._slice_bounds(n_global)
+        waves, labels = self._gather(idxs[s_lo:s_hi])
+        self.rows_built += s_hi - s_lo
+        return self._pad_local(waves, labels, n_global)
 
     @property
     def n_clips(self) -> int:
@@ -241,7 +249,15 @@ class ShardLoader(_EpochKeyedLoader):
         device-resident training."""
         if not self._waves:
             return np.zeros((0, self.segment_samples), np.int16)
+        self.rows_built += self.n_clips
         return np.concatenate([np.asarray(w) for w in self._waves])
+
+    def corpus_rows(self, idxs: np.ndarray) -> np.ndarray:
+        """The int16 rows of the given global clip indices, read from the
+        memory-mapped shards: a chunked window's rows, or a rank's shard of
+        a corpus sharded by rows."""
+        self.rows_built += len(idxs)
+        return self._gather(np.asarray(idxs, np.int64))[0]
 
     def epoch_batches(self, epoch: int):
         """(idx_mat, labels_mat, mask_mat), each (steps, B), defining this

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
+
 PRECISION_MODES = ("high", "serve")
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -107,19 +109,37 @@ class BatchNorm(nn.BatchNorm2d):
     them), so a padded step's loss, gradients and running stats are the
     unpadded batch's; a fully padded batch leaves the running stats and
     `num_batches_tracked` untouched. Without a mask, train mode is torch's
-    own batch norm (cuDNN on the card)."""
+    own batch norm (cuDNN on the card).
+
+    Under data-parallel training over more than one rank
+    (`parallel.reducing_group`), the statistics are the global batch's, as
+    the JAX BatchNorm's are under a sharded batch: the masked count and sum
+    are summed across the ranks for the mean, then the squared deviations
+    for the variance. The sums are differentiable all-reduces, so the
+    backward pass sums dy and dy·x̂ across the ranks, and the running stats
+    move by the global values on every rank."""
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if x.dtype != torch.float32:  # bf16 compute: normalize in float32
             return self.forward(x.float(), mask).to(x.dtype)
-        if not self.training or mask is None:
+        group = parallel.reducing_group() if self.training else None
+        if not self.training or (mask is None and group is None):
             return super().forward(x)
+        if mask is None:
+            mask = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
         mb = mask.to(x.dtype).reshape(-1, 1, 1, 1)
         n = mb.sum() * (x.shape[2] * x.shape[3])
+        total = (x * mb).sum(dim=(0, 2, 3))
+        if group is not None:
+            n_total = parallel.all_reduce_sum(torch.cat([n[None], total]), group)
+            n, total = n_total[0].detach(), n_total[1:]
         n_safe = n.clamp_min(1.0)
-        mean = (x * mb).sum(dim=(0, 2, 3)) / n_safe
+        mean = total / n_safe
         centred = x - mean[None, :, None, None]
-        var = (centred * centred * mb).sum(dim=(0, 2, 3)) / n_safe
+        squares = (centred * centred * mb).sum(dim=(0, 2, 3))
+        if group is not None:
+            squares = parallel.all_reduce_sum(squares, group)
+        var = squares / n_safe
         with torch.no_grad():
             live = n > 0
             m = self.momentum
@@ -136,7 +156,12 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 def _keep_scaled(x: torch.Tensor, p: float, shape, generator: torch.Generator) -> torch.Tensor:
-    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    """Inverted dropout of `x` with a mask of `shape` (batch axis first).
+    The mask is drawn for the global batch and cut to the rows in hand
+    (parallel.rows_of), so a rank's rows drop what the one-process run
+    drops."""
+    sl = parallel.rows_of(shape[0])
+    keep = sl.take(torch.rand((sl.total,) + tuple(shape[1:]), generator=generator, device=x.device) >= p)
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

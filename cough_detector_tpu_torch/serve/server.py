@@ -229,6 +229,7 @@ class DetectionServer:
         h2d_dtype: str = "float32",
         ingest_workers: int = 1,
         precision_mode: str = "high",
+        mesh=None,
     ):
         """`backend`: "python" (this module's socket tier), "native" (the
         C++ epoll plane; raises if its library cannot be built) or "auto"
@@ -240,6 +241,10 @@ class DetectionServer:
 
         `precision_mode`: the classifier's, "high" or "serve" (TF32 bulk
         convs on the card; models/layers.py).
+
+        `mesh`: the devices the stream slots split over, as
+        StreamingDetector takes it (None: every visible card when there
+        are several and their count divides num_streams; False: one).
 
         `h2d_dtype`: the per-tick host→device batch format. "float32"
         (exact), "int16" (16-bit PCM, quantized on assemble, dequantized in
@@ -280,6 +285,7 @@ class DetectionServer:
             smoothing_window=smoothing_window,
             debounce_seconds=debounce_seconds,
             precision_mode=precision_mode,
+            mesh=mesh,
         )
         self.num_streams = num_streams
         self.chunk_size = chunk_size

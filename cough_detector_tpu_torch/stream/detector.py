@@ -11,7 +11,13 @@ single-stream API (`predict`, `process_audio_chunk`, `reset`,
 Weights come as a state dict in the reference `.pt` key layout (what
 `models.convert.from_jax_variables` returns), from a reference `.pt`
 checkpoint file, or from a checkpoint directory the port's trainer wrote
-(train/checkpoint.py). Multi-device serving comes with a later slice.
+(train/checkpoint.py).
+
+Over a mesh of devices (`parallel.Mesh`) the constructor builds a
+`MeshDetector` instead: the streams split into contiguous equal blocks, one
+a device, each a `StreamingDetector` of its own (model replica and ring
+state) that runs its block's share of every tick; the events come back in
+stream order, as one device gives them.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Callable, List, Mapping, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config, StreamConfig
 from ..models import model_from_config, place_model
 from ..ops import frontend, frontend_kernel
@@ -60,6 +67,19 @@ class StreamingDetector:
     collect_events on an earlier tick's events may.
     """
 
+    mesh = None  # one device; a mesh builds a MeshDetector
+
+    def __new__(cls, *args, mesh=None, **kwargs):
+        """A `MeshDetector` when `mesh` resolves to devices (see __init__),
+        else a StreamingDetector on one device."""
+        if cls is StreamingDetector:
+            resolved = parallel.resolve_mesh(
+                mesh, kwargs.get("device", "cuda"), divides=kwargs.get("num_streams", 1)
+            )
+            if resolved is not None:
+                return MeshDetector(*args, mesh=resolved, **kwargs)
+        return super().__new__(cls)
+
     def __init__(
         self,
         model_path: Optional[str] = None,
@@ -74,6 +94,7 @@ class StreamingDetector:
         debounce_seconds: float = 0.5,
         hop_duration: float = 0.25,
         precision_mode: str = "high",
+        mesh=None,
     ):
         """`variables`: a state dict in the reference key layout (tensors or
         numpy arrays), with `config`; or `model_path`, a reference `.pt`
@@ -81,7 +102,13 @@ class StreamingDetector:
         defaults to the card and raises if there is none.
         `precision_mode`: the classifier's ("high", or "serve" for TF32
         bulk convs on the card; models.layers.set_precision); the config's
-        compute_dtype picks bfloat16 compute."""
+        compute_dtype picks bfloat16 compute.
+
+        `mesh` splits the streams over devices, and is read by __new__: a
+        `parallel.Mesh` or a list of devices (a MeshDetector, which raises
+        unless its size divides num_streams); None takes every visible card
+        when `device` is "cuda", more than one is visible and their count
+        divides num_streams; False, one device."""
         if model_path is not None:
             variables, config = _load_checkpoint(model_path)
         elif variables is None or config is None:
@@ -126,6 +153,11 @@ class StreamingDetector:
         self.reset()
 
     # -- engine ----------------------------------------------------------
+
+    @property
+    def windows_emitted(self) -> int:
+        """Windows scored per stream so far."""
+        return self._state.windows_emitted
 
     def reset(self) -> None:
         self._state = ring.init_state(
@@ -240,6 +272,96 @@ class StreamingDetector:
         """Raw per-window cough probabilities for a (B, window) batch."""
         windows = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
         return self._score_fn(windows).cpu().numpy()
+
+
+class MeshDetector:
+    """StreamingDetector's interface over a mesh: the streams in contiguous
+    equal blocks, one per mesh device, each block a StreamingDetector on its
+    device. `StreamingDetector(mesh=...)` builds one."""
+
+    def __init__(self, model_path: Optional[str] = None, *, mesh: parallel.Mesh,
+                 variables: Optional[Mapping] = None, config: Optional[Config] = None,
+                 num_streams: int = 1, chunk_size: int = 1600, **kwargs):
+        """`mesh` must divide `num_streams` (raises otherwise); `kwargs` are
+        StreamingDetector's, `device` aside (each block takes its mesh
+        device)."""
+        if num_streams % mesh.size:
+            raise ValueError(
+                f"num_streams={num_streams} is not divisible by the mesh's "
+                f"{mesh.size} devices; pad num_streams or pass mesh=False"
+            )
+        if model_path is not None:
+            variables, config = _load_checkpoint(model_path)
+        kwargs.pop("device", None)
+        self.mesh = mesh
+        self._bounds = mesh.blocks(num_streams)
+        self._blocks = [
+            StreamingDetector(variables=variables, config=config, device=d, num_streams=hi - lo,
+                              chunk_size=chunk_size, mesh=False, **kwargs)
+            for d, (lo, hi) in zip(mesh.devices, self._bounds)
+        ]
+        first = self._blocks[0]
+        self.device, self.config, self.stream_config = first.device, first.config, first.stream_config
+        self.num_streams, self.chunk_size = num_streams, chunk_size
+        self.window_samples = first.window_samples
+        self._pending = np.zeros((num_streams, 0), np.float32)
+
+    def _split_lanes(self, indices, thresholds):
+        """(block, its lanes, their thresholds) for each block a lane
+        subset touches."""
+        idx = np.asarray(list(indices), np.int64)
+        thr = None if thresholds is None else list(thresholds)
+        for block, (lo, hi) in zip(self._blocks, self._bounds):
+            sel = np.nonzero((idx >= lo) & (idx < hi))[0]
+            if len(sel):
+                yield block, idx[sel] - lo, None if thr is None else [thr[i] for i in sel]
+
+    @property
+    def windows_emitted(self) -> int:
+        return self._blocks[0].windows_emitted
+
+    def reset(self) -> None:
+        for block in self._blocks:
+            block.reset()
+        self._pending = np.zeros((self.num_streams, 0), np.float32)
+
+    def reset_streams(self, indices, thresholds=None) -> None:
+        for block, lanes, thr in self._split_lanes(indices, thresholds):
+            block.reset_streams(lanes, thr)
+        self._pending[np.asarray(list(indices), np.int64)] = 0.0
+
+    def set_thresholds(self, indices, thresholds) -> None:
+        for block, lanes, thr in self._split_lanes(indices, thresholds):
+            block.set_thresholds(lanes, thr)
+
+    def current_thresholds(self) -> np.ndarray:
+        return np.concatenate([b.current_thresholds() for b in self._blocks])
+
+    def tick_async(self, tick: np.ndarray) -> dict:
+        """Each device enqueues its block's rows of the tick."""
+        return {"blocks": [b.tick_async(tick[lo:hi]) for b, (lo, hi) in zip(self._blocks, self._bounds)]}
+
+    def collect_events(self, events: dict) -> List[Detection]:
+        """The blocks' events (one device-to-host copy a device) in the
+        order one device gives them."""
+        merged = [
+            Detection(d.stream + lo, d.time_seconds, d.confidence)
+            for b, (lo, _), ev in zip(self._blocks, self._bounds, events["blocks"])
+            for d in b.collect_events(ev)
+        ]
+        return sorted(merged, key=lambda d: (d.time_seconds, d.stream))
+
+    process_chunk = StreamingDetector.process_chunk
+
+    def scores_for(self, chunk: np.ndarray) -> np.ndarray:
+        """The batch split over the devices, zero-padded to a multiple of
+        them."""
+        if isinstance(chunk, torch.Tensor):
+            chunk = chunk.detach().cpu().numpy()
+        padded, n = parallel.pad_to_multiple(np.asarray(chunk, np.float32), self.mesh.size)
+        return np.concatenate([
+            b.scores_for(padded[lo:hi]) for b, (lo, hi) in zip(self._blocks, self.mesh.blocks(len(padded)))
+        ])[:n]
 
 
 class CoughDetectorInference:

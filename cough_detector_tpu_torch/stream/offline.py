@@ -7,18 +7,21 @@ time through the detector's score function (peak normalize → the fused
 front-end kernel pair on the card → classifier → softmax). Smoothing,
 threshold and debounce then run on the host over the per-window
 probabilities, with the streaming detector's event semantics exactly.
-Scoring over several cards waits for multi-device serving (ROADMAP
-Queue 1 item 11).
+Over a mesh of devices each batch is padded to a multiple of them and
+split in contiguous blocks, one a device, each scored by that device's
+model replica; the probabilities come back in window order.
 """
 
 from __future__ import annotations
 
+import copy
 from collections import deque
 from typing import List, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
 from ..models import model_from_config, place_model
 from ..ops import frontend
@@ -75,30 +78,44 @@ def window_probs(
     hop_duration: float = 0.25,
     batch_size: int = 1024,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[parallel.Mesh] = None,
 ) -> np.ndarray:
     """Cough probability of every sliding window of one mono recording;
-    `variables` is a state dict in the reference key layout."""
-    dev = resolve_device(device)
+    `variables` is a state dict in the reference key layout. With `mesh`,
+    each batch is split over its devices (`device` is then unused)."""
     fcfg = config.features
+    devices = [resolve_device(device)] if mesh is None else mesh.devices
+    if mesh is not None:
+        # Every batch splits evenly: the batch size rounds up to a multiple.
+        batch_size = -(-batch_size // mesh.size) * mesh.size
     model = model_from_config(config.model)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
-    model = place_model(model, dev)
-
-    wave_d = torch.as_tensor(np.asarray(wave, np.float32)).to(dev)
-    windows = frame_windows(wave_d, fcfg.segment_samples, int(fcfg.sample_rate * hop_duration))
-    n = windows.shape[0]
+    replicas = [place_model(copy.deepcopy(model), d) for d in devices]
+    host = torch.as_tensor(np.asarray(wave, np.float32))
+    hop = int(fcfg.sample_rate * hop_duration)
+    uploaded = {}
+    windows = []
+    for d in devices:  # the recording once on each distinct device
+        if d not in uploaded:
+            uploaded[d] = frame_windows(host.to(d), fcfg.segment_samples, hop)
+        windows.append(uploaded[d])
+    n = windows[0].shape[0]
     probs = np.empty(n, np.float32)
     with torch.no_grad():
         for start in range(0, n, batch_size):
-            chunk = windows[start : start + batch_size].contiguous()
-            real = chunk.shape[0]
+            real = min(batch_size, n - start)
             # The JAX package's rule: one batch shape across the batches of
-            # a recording longer than one batch.
-            if real < batch_size and n > batch_size:
-                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, batch_size - real))
-            feats = frontend.extract_features_fast(frontend.peak_normalize(chunk), fcfg, device=dev)
-            p = torch.softmax(model(feats), dim=-1)[:, 1]
-            probs[start : start + real] = p[:real].cpu().numpy()
+            # a recording longer than one batch, and under a mesh always.
+            pad = batch_size - real if (n > batch_size or mesh is not None) else 0
+            bounds = [(0, real + pad)] if mesh is None else mesh.blocks(real + pad)
+            parts = []
+            for model_d, win, (lo, hi) in zip(replicas, windows, bounds):
+                chunk = win[start + lo : start + min(hi, real)].contiguous()
+                if chunk.shape[0] < hi - lo:
+                    chunk = torch.nn.functional.pad(chunk, (0, 0, 0, hi - lo - chunk.shape[0]))
+                feats = frontend.extract_features_fast(frontend.peak_normalize(chunk), fcfg, device=chunk.device)
+                parts.append(torch.softmax(model_d(feats), dim=-1)[:, 1])
+            probs[start : start + real] = np.concatenate([p.cpu().numpy() for p in parts])[:real]
     return probs
 
 
@@ -120,12 +137,11 @@ def score_recording(
     debounced detections streaming it chunk by chunk would give.
     Weights: a state dict in the reference key layout with `config`, or
     `model_path` (a reference `.pt` file or a checkpoint directory).
-    `device` defaults to the card and raises if there is none."""
-    if mesh not in (None, False):
-        raise NotImplementedError(
-            "scoring over several devices is not ported to the PyTorch package yet "
-            "(ROADMAP Queue 1 item 11)"
-        )
+    `device` defaults to the card and raises if there is none. `mesh`: a
+    `parallel.Mesh` or device list the batches split over; None takes
+    every visible card when `device` is "cuda" and there are several;
+    False, one device."""
+    mesh = parallel.resolve_mesh(mesh, device)
     if model_path is not None:
         from .detector import _load_checkpoint
 
@@ -134,7 +150,7 @@ def score_recording(
         raise ValueError("Provide model_path or (variables, config)")
     probs = window_probs(
         wave, variables, config, hop_duration=hop_duration,
-        batch_size=batch_size, device=device,
+        batch_size=batch_size, device=device, mesh=mesh,
     )
     fcfg = config.features
     return smooth_and_debounce(

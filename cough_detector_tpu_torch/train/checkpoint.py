@@ -12,7 +12,11 @@ src/train.py:183-199, src/inference.py:89-152). Layout:
 
 Each file is written whole to a temporary name and renamed into place,
 meta.json after state.pt, so a meta.json never describes a tree that is
-not there. `import_torch_checkpoint` / `export_torch_checkpoint` read and
+not there. A save with `block=False` copies the state to host memory at
+once and writes the files on one background thread (the JAX package's
+writer, train/checkpoint.py), so a one-process trainer's disk writes
+overlap its next epoch; `drain_pending_saves` waits for them, and
+`load_checkpoint` drains first. `import_torch_checkpoint` / `export_torch_checkpoint` read and
 write the reference's single-file `.pt`
 ({epoch, model_state_dict, optimizer_state_dict, metrics, config}).
 """
@@ -21,8 +25,10 @@ from __future__ import annotations
 
 import json
 import os
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -38,26 +44,78 @@ def _replace_into(path: Path, write) -> None:
     os.replace(tmp, path)
 
 
+# One writer thread commits the non-blocking saves in submission order
+# (best_model before latest_model); the trainer drains it once an epoch and
+# before it returns, so at most one epoch's saves are in flight.
+_writer_lock = threading.Lock()
+_writer: Optional[ThreadPoolExecutor] = None
+_pending: List[Future] = []
+
+
+def _submit(fn) -> None:
+    global _writer
+    with _writer_lock:
+        if _writer is None:
+            _writer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cdt-ckpt")
+        _pending.append(_writer.submit(fn))
+
+
+def drain_pending_saves() -> None:
+    """Wait until every queued save has committed and stop the writer
+    thread (the next save starts another); re-raise the first failure
+    (after waiting for the others, whose failures are noted on it)."""
+    global _writer
+    with _writer_lock:
+        pending, _pending[:] = _pending[:], []
+        writer, _writer = _writer, None
+    if writer is not None:
+        writer.shutdown(wait=True)
+    first = None
+    for f in pending:
+        try:
+            f.result()
+        except BaseException as e:  # every save is waited on before raising
+            if first is None:
+                first = e
+            else:
+                first.add_note(f"another pending save failed too: {e!r}")
+    if first is not None:
+        raise first
+
+
+def snapshot(model: torch.nn.Module, optimizer: Any) -> Dict[str, Any]:
+    """The checkpoint tree, copied to host memory now: the model's state
+    dict in the reference key layout, the optimizer's state and its step."""
+    return {
+        "model": {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()},
+        "optimizer": optimizer.state_dict(),
+        "step": int(optimizer.count),
+    }
+
+
 def save_checkpoint(
     directory: str,
     name: str,
-    model: torch.nn.Module,
+    model: Optional[torch.nn.Module],
     optimizer: Any,
     epoch: int,
     metrics: Mapping[str, float],
     config: Config,
     extra: Optional[Dict[str, Any]] = None,
+    *,
+    tree: Optional[Dict[str, Any]] = None,
+    block: bool = True,
 ) -> str:
     """Write `<directory>/<name>/` (e.g. "best_model", "latest_model") from
-    the model's state dict and the optimizer's state, both copied to the
-    host."""
+    `tree` (a `snapshot`), or from a snapshot of the model and optimizer
+    taken now. `block=False` hands the writes to the background writer
+    (failures surface at the next `drain_pending_saves`); the snapshot is
+    taken before it returns either way, so the caller may go on updating
+    the parameters in place."""
     base = Path(directory) / name
     base.mkdir(parents=True, exist_ok=True)
-    tree = {
-        "model": {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()},
-        "optimizer": optimizer.state_dict(),
-        "step": int(optimizer.count),
-    }
+    if tree is None:
+        tree = snapshot(model, optimizer)
     meta = {
         "epoch": int(epoch),
         "metrics": {k: float(v) for k, v in metrics.items()},
@@ -68,8 +126,15 @@ def save_checkpoint(
     }
     if extra:
         meta["extra"] = extra  # loop state an exact resume needs (early stopping)
-    _replace_into(base / STATE, lambda p: torch.save(tree, p))
-    _replace_into(base / META, lambda p: p.write_text(json.dumps(meta, indent=2)))
+
+    def commit() -> None:
+        _replace_into(base / STATE, lambda p: torch.save(tree, p))
+        _replace_into(base / META, lambda p: p.write_text(json.dumps(meta, indent=2)))
+
+    if block:
+        commit()
+    else:
+        _submit(commit)
     return str(base)
 
 
@@ -79,7 +144,8 @@ def read_meta(path: str) -> dict:
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], int, Dict[str, float], Config]:
     """(tree, epoch, metrics, config) from a checkpoint directory; the
-    tree's tensors are on the CPU."""
+    tree's tensors are on the CPU. Pending background saves land first."""
+    drain_pending_saves()
     meta = read_meta(path)
     tree = torch.load(Path(path) / STATE, map_location="cpu", weights_only=True)
     if "config_full" in meta:

@@ -1,4 +1,4 @@
-"""End-to-end training on one device, in torch.
+"""End-to-end training, on one device or data-parallel over ranks, in torch.
 
 The port of `cough_detector_tpu/train/loop.py::train`: dataset assembly
 (a data directory's seeded split, optional ESC-50 fold 5 for validation)
@@ -6,24 +6,40 @@ or a packed shard corpus, dynamic class weights capped 20:1,
 class-weighted CE, AdamW + cosine warm restarts + grad clip 1.0, best-F1 +
 latest checkpoints, early stopping on val loss, resume. Per step:
 
-  int16 shard batch (gathered from the corpus on the device, or uploaded),
+  int16 shard batch (gathered from a corpus on the device, or uploaded),
   or a float32 batch the host decoded, cropped and time-shifted
   (data.datasets.BatchLoader), uploaded from pinned memory
       → dequantize → waveform augmentation → peak normalize
       → front end (the fused CUDA kernel on the card) → SpecAugment
       → forward/backward → clip + AdamW
 
+A shard corpus is placed as the JAX loop places it, against a per-device
+budget (2 GiB by default): resident and replicated when it fits one
+device; resident and sharded by rows over the ranks when it fits the
+budget times their number, each step's rows read through
+`parallel.routed_gather`; past that (or with device_corpus="chunked") in
+windows of steps whose rows are gathered from the memory-mapped shards
+into pinned memory, each uploaded on a side stream while the steps of the
+window before run. Every placement gives the same batches.
+
 Sample order is the JAX loader's ((seed, epoch) numpy draws) and every
 random draw of step s of epoch e is keyed by (seed, e, s) (steps.StepRandom),
-so a run resumed from a checkpoint replays the uninterrupted run. On the
-card the run also asks torch for deterministic algorithms (cuDNN's
-deterministic convolutions, no autotuning) and restores the previous
-settings when it returns. Metrics stay on the device until the epoch ends.
-Per-epoch records go to <output>/metrics.jsonl.
+so a run resumed from a checkpoint replays the uninterrupted run, and a
+chunked run the resident one. On the card the run also asks torch for
+deterministic algorithms (cuDNN's deterministic convolutions, no
+autotuning) and restores the previous settings when it returns. Metrics
+stay on the device until the epoch ends. Per-epoch records go to
+<output>/metrics.jsonl.
 
-Not ported yet, and raising NotImplementedError: the chunked device
-corpus, and a mesh or several processes (ROADMAP Queue 1 items 10c and
-11).
+With a `torch.distributed` process group initialized (cli.train
+--distributed under torchrun), every rank runs this loop data-parallel:
+each builds or gathers only its rows of every global batch, and the step
+reduces across the ranks (train/steps.py), so the run computes what one
+process computes on the global batch, up to the order of the reductions.
+Rank 0 alone writes metrics.jsonl, config.json and the checkpoints, each
+save followed by a barrier; one process writes its checkpoints on a
+background thread instead. CDT_DEBUG_STEP_METRICS=1 prints the probes the
+multi-rank tests read (STEP_LOSSES, ROW_HASHES, SCAN_MATS, KERNEL_LAUNCHES).
 """
 
 from __future__ import annotations
@@ -32,12 +48,15 @@ import contextlib
 import json
 import os
 import time
+import zlib
 from pathlib import Path
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from ..augment import augment_waveforms, spec_augment
 from ..config import Config
 from ..data.datasets import (
@@ -55,11 +74,6 @@ from ..utils.observability import JsonlLogger, trace_span
 from . import checkpoint as ckpt
 from . import steps
 from .metrics import EarlyStopping, EpochAccumulator
-
-_DEVICE_CORPUS_BUDGET = 2 << 30  # bytes of int16 corpus uploaded whole ("auto")
-
-Batch = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
-
 
 @contextlib.contextmanager
 def deterministic(dev: torch.device):
@@ -94,61 +108,151 @@ def deterministic(dev: torch.device):
         fill.fill_uninitialized_memory = prev[4]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch trainer yet (ROADMAP Queue 1 item {item})"
-    )
+_DEVICE_CORPUS_BUDGET = 2 << 30  # bytes of int16 corpus a device holds ("auto")
+
+Batch = steps.Batch
 
 
-def _resident_batches(corpus: torch.Tensor, mats) -> Iterator[Batch]:
-    """One epoch's batches gathered on the device from a resident corpus;
-    (steps, B) index/label/mask matrices from `ShardLoader.epoch_batches`.
-    A row with no padding carries mask None (the unmasked BatchNorm)."""
-    idx, labels, mask = mats
-    full = mask.all(axis=1)
-    dev = corpus.device
-    idx_d = torch.from_numpy(idx.astype(np.int64)).to(dev)
-    labels_d = torch.from_numpy(labels.astype(np.int64)).to(dev)
-    mask_d = torch.from_numpy(mask).to(dev)
-    for s in range(idx.shape[0]):
-        yield corpus.index_select(0, idx_d[s]), labels_d[s], None if full[s] else mask_d[s]
+class _Ranks(NamedTuple):
+    """The run's data-parallel layout: `group` (None in one process), this
+    rank, the rank count, the global batch padded to `pad_to` rows (a
+    multiple of `world`) and this rank's rows [lo, hi) of it."""
+
+    group: Optional[dist.ProcessGroup]
+    rank: int
+    world: int
+    pad_to: int
+    lo: int
+    hi: int
+
+    def rows(self) -> Optional[parallel.BatchSlice]:
+        """The slice the steps run under; None in one process."""
+        if self.group is None:
+            return None
+        return parallel.BatchSlice(self.lo, self.hi, self.pad_to, self.group)
 
 
-def _streamed_batches(loader, epoch: int, dev: torch.device) -> Iterator[Batch]:
+def _debug() -> bool:
+    return bool(os.environ.get("CDT_DEBUG_STEP_METRICS"))
+
+
+def _debug_row_hashes(lo: int, waves, labels) -> None:
+    """CDT_DEBUG_STEP_METRICS probe: a CRC of every batch row this rank
+    holds (float32 bytes, xor the label), with its first global row. Each
+    rank's block must equal the same rows of a one-process run's."""
+    w = np.ascontiguousarray(np.asarray(waves, np.float32))
+    crcs = [zlib.crc32(w[i].tobytes()) ^ int(labels[i]) for i in range(w.shape[0])]
+    print(f"ROW_HASHES lo={lo} {json.dumps(crcs)}", flush=True)
+
+
+def _hashed(batches: Iterator[Batch], lo: int) -> Iterator[Batch]:
+    """`batches` unchanged; with CDT_DEBUG_STEP_METRICS, each one's row
+    CRCs printed (a copy to the host a step, for the probe alone)."""
+    for waves, labels, mask in batches:
+        if _debug():
+            _debug_row_hashes(lo, waves.cpu().numpy(), labels.cpu().numpy())
+        yield waves, labels, mask
+
+
+def _streamed_batches(loader, epoch: int, dev: torch.device, ranks: _Ranks) -> Iterator[Batch]:
     """One epoch's batches from a loader's prefetch thread (int16 from a
-    ShardLoader, float32 from a BatchLoader), uploaded from pinned memory
-    without blocking; a short tail batch is padded to the batch size under
-    a mask."""
+    ShardLoader, float32 from a BatchLoader), this rank's rows of each
+    (across ranks the loader's process slice builds only those), uploaded
+    from pinned memory without blocking. A batch with fewer real rows than
+    `ranks.pad_to` is zero-padded under a mask."""
     loader.set_epoch(epoch)
-    b = loader.batch_size
-    for waves, labels in loader:
-        n = len(labels)
-        mask = None
-        if n < b:
-            waves = np.pad(waves, ((0, b - n), (0, 0)))
-            labels = np.pad(labels, (0, b - n))
-            mask = torch.from_numpy((np.arange(b) < n).astype(np.float32))
+    lo, hi = ranks.lo, ranks.hi
+    for item in loader:
+        if ranks.group is not None:
+            waves, labels, n = item
+        else:
+            waves, labels = item
+            n = len(labels)
+            if n < hi - lo:
+                waves = np.pad(waves, ((0, hi - lo - n), (0, 0)))
+                labels = np.pad(labels, (0, hi - lo - n))
+        if _debug():
+            _debug_row_hashes(lo, waves, labels)
         tensors = [torch.from_numpy(waves), torch.from_numpy(labels.astype(np.int64))]
-        if mask is not None:
-            tensors.append(mask)
+        if n < ranks.pad_to:
+            tensors.append(torch.from_numpy((np.arange(lo, hi) < n).astype(np.float32)))
         if dev.type == "cuda":
             tensors = [t.pin_memory().to(dev, non_blocking=True) for t in tensors]
-        yield tensors[0], tensors[1], tensors[2] if mask is not None else None
+        yield tensors[0], tensors[1], tensors[2] if len(tensors) == 3 else None
 
 
-def _accumulate(pending) -> EpochAccumulator:
+def _window_batches(mats, win_steps: int, fetch_rows, segment: int, pinned: bool):
+    """An epoch's (steps, B) batch matrices cut into runs of at most
+    `win_steps` steps, each with a fixed-capacity int16 buffer holding
+    exactly the rows the run touches, gathered by `fetch_rows(global
+    indices)` from the memory-mapped shards (into pinned memory for the
+    card), and its index matrix renumbered to buffer rows: the host side of
+    chunked device-corpus training (JAX: `_window_batches`). Yields
+    (first step, buffer, (idx, labels, mask)); capacity past the unique
+    rows stays zero and is never indexed."""
+    idx_mat, labels_mat, mask_mat = mats
+    b = idx_mat.shape[1]
+    for s0 in range(0, idx_mat.shape[0], win_steps):
+        idx_w = idx_mat[s0 : s0 + win_steps]
+        uniq, inv = np.unique(idx_w, return_inverse=True)
+        buf = torch.empty((idx_w.shape[0] * b, segment), dtype=torch.int16, pin_memory=pinned)
+        view = buf.numpy()
+        view[: len(uniq)] = fetch_rows(uniq)
+        view[len(uniq) :] = 0
+        yield s0, buf, (
+            inv.reshape(idx_w.shape).astype(np.int32),
+            labels_mat[s0 : s0 + win_steps],
+            mask_mat[s0 : s0 + win_steps],
+        )
+
+
+def _uploaded_windows(windows, dev: torch.device):
+    """Host windows (`_window_batches`) as device windows, one ahead: window
+    w+1's buffer uploads on a side stream, without blocking, while the
+    steps of window w run, and the steps wait on an event for their own
+    window's upload (JAX: `_device_prefetch`). Yields (first step, buffer
+    on the device, matrices)."""
+    if dev.type != "cuda":
+        for s0, buf, mats in windows:
+            yield s0, buf.to(dev), mats
+        return
+    copy_stream = torch.cuda.Stream(dev)
+    main = torch.cuda.current_stream(dev)
+
+    def put(window):
+        s0, buf, mats = window
+        with torch.cuda.stream(copy_stream):
+            buf_d = buf.to(dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        buf_d.record_stream(main)  # read there: its memory waits for those reads
+        return s0, buf_d, mats, ready
+
+    it = iter(windows)
+    nxt = next(it, None)
+    nxt = None if nxt is None else put(nxt)
+    while nxt is not None:
+        cur = nxt
+        following = next(it, None)
+        nxt = None if following is None else put(following)
+        s0, buf_d, mats, ready = cur
+        main.wait_event(ready)
+        yield s0, buf_d, mats
+
+
+def _accumulate(pending) -> Tuple[EpochAccumulator, list]:
     """Fold a list of per-step device metric dicts into an accumulator,
-    with one device-to-host copy."""
+    with one device-to-host copy; also returns the per-step losses."""
     acc = EpochAccumulator()
     if not pending:
-        return acc
+        return acc, []
     keys = list(pending[0])
     rows = torch.stack(
         [torch.stack([m[k].to(torch.float64) for k in keys]) for m in pending]
     ).cpu().numpy()
     for row in rows:
         acc.update(dict(zip(keys, row)))
-    return acc
+    return acc, [float(np.float32(r[keys.index("loss")])) for r in rows]
 
 
 def make_feature_fns(config: Config, dev: torch.device, *, use_time_shift: bool, noise_bank=None):
@@ -237,41 +341,54 @@ def train(
     decode path time-shifts at crop time against the full clip, as the
     reference does.
 
-    `device_corpus` (shards only): "auto" uploads the int16 corpus once
-    when it fits `device_corpus_budget` bytes (2 GiB by default), True
-    always does, False streams the loader's batches through pinned memory;
-    both give the same batches. `device` defaults to the card and raises
-    if there is none. `noise_bank` ((N, S >= segment) float waveforms)
-    turns on the file-noise augmentation."""
+    `device_corpus` (shards only): "auto" keeps the int16 corpus on the
+    device when it fits `device_corpus_budget` bytes a device (2 GiB by
+    default) times the ranks, sharded by rows past one device's budget,
+    and runs chunked windows past that; True keeps it resident at any
+    size; "chunked" always runs windows; False streams the loader's
+    batches through pinned memory. All give the same batches.
+
+    Data parallelism: with a `torch.distributed` process group initialized
+    the run is data-parallel over its ranks (at any world size); `mesh=False`
+    forces one device in one process all the same. The rank's device is
+    `device`, `cuda:LOCAL_RANK` for an unindexed "cuda". `device` defaults
+    to the card and raises if there is none. `noise_bank` ((N, S >=
+    segment) float waveforms) turns on the file-noise augmentation."""
     if device_corpus not in ("auto", True, False, "chunked"):
         raise ValueError(
             f"device_corpus={device_corpus!r}: expected 'auto', True, False or 'chunked'"
         )
-    if device_corpus == "chunked":
-        raise _not_ported("device_corpus='chunked' (a corpus streamed through device windows)", "10c")
-    if mesh not in (None, False) or (
-        torch.distributed.is_available()
-        and torch.distributed.is_initialized()
-        and torch.distributed.get_world_size() > 1
-    ):
-        raise _not_ported("Training over a mesh or several processes (torch.distributed)", "11")
-    if device_corpus is True and shards_dir is None:
+    if mesh not in (None, False):
         raise ValueError(
-            "device_corpus=True requires shards_dir (a packed corpus is what gets "
-            "uploaded); pack one with cli.pack or pass device_corpus='auto'"
+            f"mesh={mesh!r}: train() runs data-parallel over the initialized process "
+            f"group (one process a card, cli.train --distributed); mesh takes None or False"
+        )
+    if device_corpus in (True, "chunked") and shards_dir is None:
+        raise ValueError(
+            f"device_corpus={device_corpus!r} requires shards_dir (a packed corpus is what "
+            f"goes to the device); pack one with cli.pack or pass device_corpus='auto'"
         )
     config = config or Config()
-    dev = resolve_device(device)
+    group = None if mesh is False else parallel.process_group()
+    rank, world = (dist.get_rank(group), dist.get_world_size(group)) if group is not None else (0, 1)
+    dev = resolve_device(parallel.rank_device(device) if group is not None else device)
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "config.json").write_text(config.to_json())
+    if rank == 0:
+        (out / "config.json").write_text(config.to_json())
+    bs = config.train.batch_size
+    pad_to = -(-bs // world) * world
+    lo, hi = parallel.local_row_bounds(pad_to, rank, world)
+    ranks = _Ranks(group, rank, world, pad_to, lo, hi)
+    if group is not None:
+        print(f"Data-parallel over {world} ranks ({dist.get_backend(group)}): rank {rank} on {dev}", flush=True)
     if shards_dir is not None:
         loaders = _shard_loaders(config, shards_dir)
     else:
         loaders = _decode_loaders(config, data_dir, use_esc50, esc50_dir, num_workers, decode_backend)
     with deterministic(dev):
         return _train(
-            output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
+            output_dir, config, dev, ranks, resume, noise_bank, max_epochs, loaders,
             device_corpus,
             _DEVICE_CORPUS_BUDGET if device_corpus_budget is None else int(device_corpus_budget),
         )
@@ -309,12 +426,36 @@ def _decode_loaders(config: Config, data_dir, use_esc50, esc50_dir, num_workers:
     return train_loader, val_loader, train_ds.class_counts
 
 
-def _train(output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
+def _placement(train_loader, val_loader, device_corpus, budget: int, ranks: _Ranks) -> str:
+    """Where a shard corpus goes (JAX: train/loop.py:421-462): "resident"
+    (replicated: it fits one device's budget, or device_corpus=True),
+    "sharded" (by rows over the ranks: past one device's budget and within
+    the budget times the ranks, or device_corpus=True past one device's),
+    "chunked" (windows: past the ranks' total, or asked for), or
+    "streamed" (device_corpus=False; or "auto" with a batch that does not
+    split over the ranks)."""
+    if not isinstance(train_loader, ShardLoader) or device_corpus is False:
+        return "streamed"
+    if ranks.pad_to != train_loader.batch_size:
+        if device_corpus == "auto":
+            return "streamed"
+        raise ValueError(
+            f"device_corpus={device_corpus!r} needs a batch size that splits over the "
+            f"{ranks.world} ranks: batch_size={train_loader.batch_size}"
+        )
+    corpus_bytes = train_loader.corpus_nbytes() + val_loader.corpus_nbytes()
+    if device_corpus == "chunked" or (device_corpus == "auto" and corpus_bytes > budget * ranks.world):
+        return "chunked"
+    return "sharded" if ranks.world > 1 and corpus_bytes > budget else "resident"
+
+
+def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epochs, loaders,
            device_corpus, budget) -> str:
     fcfg, tcfg = config.features, config.train
     out = Path(output_dir)
+    is_main = ranks.rank == 0
+    group, rows = ranks.group, ranks.rows()
     train_loader, val_loader, class_counts = loaders
-    shards = isinstance(train_loader, ShardLoader)
     w0, w1 = steps.compute_class_weights(class_counts, tcfg.max_class_weight_ratio)
     class_weights = torch.tensor([w0, w1], dtype=torch.float32, device=dev)
     print(f"Class weights: non-cough={w0:.2f}, cough={w1:.2f}")
@@ -326,38 +467,68 @@ def _train(output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
     print(f"Model: {config.model.model_type} ({count_parameters(model):,} params)")
     optimizer = steps.make_optimizer(model.parameters(), tcfg, max(len(train_loader), 1))
     mixup_alpha = tcfg.mixup_alpha if tcfg.use_mixup else None
+    placement = _placement(train_loader, val_loader, device_corpus, budget, ranks)
     train_features, eval_features = make_feature_fns(
-        config, dev, use_time_shift=shards, noise_bank=noise_bank
+        config, dev, use_time_shift=isinstance(train_loader, ShardLoader), noise_bank=noise_bank
     )
 
-    resident = False
-    if shards:
+    gather = None  # index_select, unless the corpus is sharded by rows
+    if placement in ("resident", "sharded", "chunked"):
         corpus_bytes = train_loader.corpus_nbytes() + val_loader.corpus_nbytes()
-        resident = device_corpus is True or (device_corpus == "auto" and corpus_bytes <= budget)
-        if device_corpus == "auto" and not resident:
-            raise NotImplementedError(
-                f"a corpus of {corpus_bytes} bytes is past the {budget}-byte device budget, "
-                f"where device_corpus='auto' needs the chunked device corpus, not ported to "
-                f"the PyTorch trainer yet (ROADMAP Queue 1 item 10c); device_corpus=False "
-                f"streams it"
-            )
-    if resident:
-        print(f"Device-resident corpus ({corpus_bytes / 2**20:.0f} MB int16)")
-        train_corpus = torch.from_numpy(train_loader.corpus()).to(dev)
-        val_corpus = torch.from_numpy(val_loader.corpus()).to(dev)
+    if placement == "chunked":
+        seg = train_loader.segment_samples
+        # Half the per-device budget a window buffer, so the window in use
+        # and the one uploading behind it fit together.
+        win_steps = max(1, (budget // 2) // (2 * seg) // tcfg.batch_size)
+        print(
+            f"Chunked device corpus ({corpus_bytes / 2**20:.0f} MB int16, budget {budget} bytes "
+            f"a device): windows of {win_steps} steps ({win_steps * tcfg.batch_size} rows)"
+        )
+        pinned = dev.type == "cuda"
+        val_windows = list(_window_batches(
+            val_loader.epoch_batches(0), win_steps, val_loader.corpus_rows, seg, pinned
+        ))
+
+        def windows(epoch):
+            mats = train_loader.epoch_batches(epoch)
+            return _uploaded_windows(
+                _window_batches(mats, win_steps, train_loader.corpus_rows, seg, pinned), dev
+            ), mats
+
+        def val_windows_d():
+            return _uploaded_windows(val_windows, dev)
+    elif placement in ("resident", "sharded"):
+        if placement == "sharded":
+            def load(loader):
+                shard = parallel.corpus_shard(loader.corpus_rows, loader.n_clips, ranks.rank, ranks.world)
+                return torch.from_numpy(shard).to(dev)
+
+            def gather(shard, idx):
+                return parallel.routed_gather(shard, idx, group)
+
+            layout = f"sharded by rows over {ranks.world} ranks"
+        else:
+            def load(loader):
+                return torch.from_numpy(loader.corpus()).to(dev)
+
+            layout = "replicated"
+        print(f"Device-resident corpus ({corpus_bytes / 2**20:.0f} MB int16, {layout})")
+        train_corpus, val_corpus = load(train_loader), load(val_loader)
         val_mats = val_loader.epoch_batches(0)
 
-        def train_batches(epoch):
-            return _resident_batches(train_corpus, train_loader.epoch_batches(epoch))
+        def windows(epoch):
+            mats = train_loader.epoch_batches(epoch)
+            return [(0, train_corpus, mats)], mats
 
-        def val_batches():
-            return _resident_batches(val_corpus, val_mats)
-    else:
-        def train_batches(epoch):
-            return _streamed_batches(train_loader, epoch, dev)
+        def val_windows_d():
+            return [(0, val_corpus, val_mats)]
+    elif group is not None:
+        train_loader.set_process_slice(ranks.lo, ranks.hi, ranks.pad_to)
+        val_loader.set_process_slice(ranks.lo, ranks.hi, ranks.pad_to)
+        print(f"Input sharding: rank {ranks.rank} builds batch rows [{ranks.lo}, {ranks.hi}) of {ranks.pad_to}")
 
-        def val_batches():
-            return _streamed_batches(val_loader, 0, dev)
+    def window_steps(corpus, mats):
+        return _hashed(steps.window_batches(corpus, mats, ranks.lo, ranks.hi, gather), ranks.lo)
 
     early = EarlyStopping(tcfg.patience, tcfg.early_stop_min_delta)
     # -1, not the reference's 0.0: a fresh run always writes best_model at
@@ -378,10 +549,13 @@ def _train(output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
             best_f1 = max(best_f1, json.loads(best_meta.read_text())["metrics"].get("f1", 0.0))
         print(f"Resumed from {resume} at epoch {start_epoch} (best F1 {best_f1:.4f})")
 
-    metrics_log = JsonlLogger(str(out / "metrics.jsonl"))
+    metrics_log = JsonlLogger(str(out / "metrics.jsonl")) if is_main else None
     epochs = max_epochs if max_epochs is not None else tcfg.epochs
     best_path = str(out / "best_model")
     rand = steps.StepRandom(dev)
+    # One process writes on the background thread; across ranks rank 0
+    # writes synchronously and a barrier follows before any rank reads.
+    background = ranks.world == 1
     loop_t0 = time.perf_counter()
 
     def epoch_tail(ep, acc, vacc, train_time, val_time) -> bool:
@@ -406,52 +580,113 @@ def _train(output_dir, config, dev, resume, noise_bank, max_epochs, loaders,
             # records is the whole epoch's cost, checkpoint writes included.
             "wall_s": round(time.perf_counter() - loop_t0, 3),
         }
-        metrics_log.log(**record)
-        print(
-            f"Epoch {ep}: train loss {train_m['loss']:.4f} "
-            f"acc {train_m['accuracy']:.2f}% | val loss {val_m['loss']:.4f} "
-            f"acc {val_m['accuracy']:.2f}% P {val_m['precision']:.4f} "
-            f"R {val_m['recall']:.4f} F1 {val_m['f1']:.4f} | "
-            f"{record['train_clips_per_sec']:,.0f} clips/s"
-        )
+        if is_main:
+            metrics_log.log(**record)
+            print(
+                f"Epoch {ep}: train loss {train_m['loss']:.4f} "
+                f"acc {train_m['accuracy']:.2f}% | val loss {val_m['loss']:.4f} "
+                f"acc {val_m['accuracy']:.2f}% P {val_m['precision']:.4f} "
+                f"R {val_m['recall']:.4f} F1 {val_m['f1']:.4f} | "
+                f"{record['train_clips_per_sec']:,.0f} clips/s"
+            )
         # Advance early stopping before latest_model is written, so its
         # counters already count this epoch and a resume continues them.
         stop = early(val_m["loss"])
+        # The previous epoch's writes land before this epoch's snapshot,
+        # which both saves share; it is taken before the next step updates
+        # the parameters in place.
+        if background:
+            ckpt.drain_pending_saves()
+        tree = ckpt.snapshot(model, optimizer) if is_main else None
+        save = dict(tree=tree, block=not background)
         if val_m["f1"] > best_f1:
             best_f1 = val_m["f1"]
-            ckpt.save_checkpoint(output_dir, "best_model", model, optimizer, ep, val_m, config)
-            print(f"  Saved best model (F1: {best_f1:.4f})")
-        ckpt.save_checkpoint(
-            output_dir, "latest_model", model, optimizer, ep, val_m, config,
-            extra={"early_stop": {"best_loss": early.best_loss, "counter": early.counter}},
-        )
-        if stop:
+            if is_main:
+                ckpt.save_checkpoint(output_dir, "best_model", None, None, ep, val_m, config, **save)
+                print(f"  Saved best model (F1: {best_f1:.4f})")
+        if is_main:
+            ckpt.save_checkpoint(
+                output_dir, "latest_model", None, None, ep, val_m, config,
+                extra={"early_stop": {"best_loss": early.best_loss, "counter": early.counter}},
+                **save,
+            )
+        if ranks.world > 1:
+            dist.barrier(group)
+        if stop and is_main:
             print(f"Early stopping at epoch {ep}")
         return stop
+
+    def run_train(epoch):
+        if placement == "streamed":
+            return steps.train_steps(
+                model, optimizer, _streamed_batches(train_loader, epoch, dev, ranks),
+                class_weights, rand, tcfg.seed, epoch, 0, train_features, mixup_alpha, rows,
+            )
+        ws, mats = windows(epoch)
+        if _debug():
+            crc = 0
+            for m in mats:
+                crc = zlib.crc32(np.ascontiguousarray(m).tobytes(), crc)
+            print(f"SCAN_MATS epoch={epoch} crc={crc}", flush=True)
+        pending = []
+        for s0, corpus, mats_w in ws:
+            pending += steps.train_steps(
+                model, optimizer, window_steps(corpus, mats_w), class_weights, rand,
+                tcfg.seed, epoch, s0, train_features, mixup_alpha, rows,
+            )
+        return pending
+
+    def run_eval():
+        if placement == "streamed":
+            return steps.eval_steps(
+                model, _streamed_batches(val_loader, 0, dev, ranks), class_weights, eval_features, rows
+            )
+        pending = []
+        for _, corpus, mats_w in val_windows_d():
+            pending += steps.eval_steps(model, window_steps(corpus, mats_w), class_weights, eval_features, rows)
+        return pending
 
     try:
         for epoch in range(start_epoch, epochs):
             # The range chip_smoke.py reads the epoch's device idle share in.
             with trace_span("cdt.epoch"):
                 t0 = time.perf_counter()
-                pending = []
-                for step, (waves, labels, mask) in enumerate(train_batches(epoch)):
-                    pending.append(steps.train_step(
-                        model, optimizer, waves, labels, class_weights,
-                        rand.key(tcfg.seed, epoch, step), feature_fn=train_features,
-                        mask=mask, mixup_alpha=mixup_alpha,
-                    ))
-                acc = _accumulate(pending)
+                acc, losses = _accumulate(run_train(epoch))
                 train_time = time.perf_counter() - t0
                 t0 = time.perf_counter()
-                vacc = _accumulate([
-                    steps.eval_step(model, w, lab, class_weights, eval_features, m)
-                    for w, lab, m in val_batches()
-                ])
+                vacc, _ = _accumulate(run_eval())
                 val_time = time.perf_counter() - t0
+            if _debug():
+                print(f"STEP_LOSSES epoch={epoch} {json.dumps(losses)}", flush=True)
             if epoch_tail(epoch, acc, vacc, train_time, val_time):
                 break
+    except BaseException as err:
+        # No writer outlives train(), and the loop's error is the one raised.
+        try:
+            ckpt.drain_pending_saves()
+        except BaseException as save_err:
+            err.add_note(f"a pending checkpoint save failed too: {save_err!r}")
+        raise
     finally:
-        metrics_log.close()
-    print(f"Training complete! Best F1: {best_f1:.4f}")
+        if metrics_log is not None:
+            metrics_log.close()
+    # Rows this rank read from the shards or decoded: the ranks' counts sum
+    # to one process's on the streamed path and for a corpus sharded by rows.
+    print(
+        f"Input rows built (rank {ranks.rank}): train {train_loader.rows_built}, "
+        f"val {val_loader.rows_built}",
+        flush=True,
+    )
+    if _debug():
+        from ..ops import frontend_kernel
+
+        print(
+            f"KERNEL_LAUNCHES rank={ranks.rank} spectral={frontend_kernel.SPECTRAL_LAUNCHES} "
+            f"epilogue={frontend_kernel.EPILOGUE_LAUNCHES}",
+            flush=True,
+        )
+    # The returned best_path is committed: callers load it at once.
+    ckpt.drain_pending_saves()
+    if is_main:
+        print(f"Training complete! Best F1: {best_f1:.4f}")
     return best_path

@@ -9,20 +9,30 @@ norm reaches max_norm (torch's clip_grad_norm_ divides by norm + 1e-6),
 the decay is added to the Adam direction before the learning rate scales
 it, and the rate is the schedule's at the update count before the update.
 
-The JAX package's whole-epoch scan programs become plain per-step
-iteration in train/loop.py.
+The JAX package's scanned programs become plain per-step iteration:
+`train_steps` / `eval_steps` run a run of steps (an epoch, or one chunked
+window of it) over batches that `window_batches` gathers from a corpus on
+the device, or that the loop streams from a loader.
 
 Every random draw of a step comes from `StepRandom`, keyed by
 (seed, epoch, step), never from torch's global generator.
+
+Under data-parallel training the step runs inside `parallel.batch_slice`
+with the process group: each rank holds its rows of the global batch, the
+loss is normalized by the global batch's weight sum, and the gradients,
+the loss and the counts are summed across the ranks before the clip, so
+the clip norm, the update and the metrics are the global batch's on every
+rank (the JAX package's DP step under a sharded batch).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..augment.spec import mixup
 from ..config import TrainConfig
 from .schedule import make_epoch_schedule
@@ -68,7 +78,11 @@ def weighted_cross_entropy(
     `mask` (B,) zeroes padded rows; `soft_labels` (B, C) replaces the hard
     labels (nll_i = -Σ_c y_ic log p_ic, weight Σ_c y_ic w_c). Hard labels
     go through the same formula as one-hot rows, which gives the hard
-    formula's values exactly and needs no scatter in the backward pass."""
+    formula's values exactly and needs no scatter in the backward pass.
+
+    Inside a `parallel.batch_slice` with a process group the rows are one
+    rank's: the weight sum is the global batch's, so the value is this
+    rank's share, and the shares of the ranks sum to the global loss."""
     log_probs = torch.log_softmax(logits, dim=-1)
     if soft_labels is None:
         soft_labels = one_hot(labels, logits.shape[-1], log_probs.dtype)
@@ -79,7 +93,11 @@ def weighted_cross_entropy(
         w = (soft_labels * class_weights).sum(dim=-1)
     if mask is not None:
         w = w * mask.to(w.dtype)
-    return (w * nll).sum() / w.sum().clamp_min(1e-12)
+    total = w.sum()
+    sl = parallel.active_slice()
+    if sl is not None and sl.group is not None:
+        total = parallel.all_reduce_sum(total.detach(), sl.group)
+    return (w * nll).sum() / total.clamp_min(1e-12)
 
 
 def compute_class_weights(
@@ -192,7 +210,9 @@ def loss_and_grads(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
     """(loss, logits, one gradient per `model.parameters()`) of the
-    class-weighted CE in train mode; updates the BatchNorm running stats."""
+    class-weighted CE in train mode; updates the BatchNorm running stats.
+    Inside a `parallel.batch_slice` with a process group the loss and the
+    gradients are this rank's shares (`train_step` sums them)."""
     model.train()
     logits = model(feats, mask=mask, generator=generator)
     loss = weighted_cross_entropy(logits, labels, class_weights, mask, soft_labels)
@@ -205,6 +225,29 @@ def _counts(hit: torch.Tensor, mask: Optional[torch.Tensor]) -> Tuple[torch.Tens
         return hit.sum(), torch.full((), hit.shape[0], device=hit.device)
     m = mask > 0
     return (hit & m).sum(), m.sum()
+
+
+def _sum_over_ranks(
+    group, metrics: Dict[str, torch.Tensor], grads: Sequence[torch.Tensor] = ()
+) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+    """The metrics and gradients summed over the group's ranks, in one
+    all-reduce of one flat float32 buffer (counts up to 2^24 are exact in
+    it). With one rank the all-reduce is a copy, and every value comes back
+    bit for bit."""
+    keys = list(metrics)
+    flat = torch.cat(
+        [g.reshape(-1) for g in grads]
+        + [torch.stack([metrics[k].to(torch.float32) for k in keys])]
+    )
+    torch.distributed.all_reduce(flat, group=group)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at : at + g.numel()].view_as(g))
+        at += g.numel()
+    summed = {
+        k: flat[at + i].to(metrics[k].dtype) for i, k in enumerate(keys)
+    }
+    return summed, out
 
 
 def train_step(
@@ -236,9 +279,13 @@ def train_step(
     loss, logits, grads = loss_and_grads(
         model, feats, labels, class_weights, mask, soft, rand.dropout
     )
-    optimizer.step(grads)
     correct, count = _counts(logits.argmax(dim=-1) == labels, mask)
-    return {"loss": loss, "correct": correct, "count": count}
+    metrics = {"loss": loss, "correct": correct, "count": count}
+    sl = parallel.active_slice()
+    if sl is not None and sl.group is not None:
+        metrics, grads = _sum_over_ranks(sl.group, metrics, grads)
+    optimizer.step(grads)
+    return metrics
 
 
 @torch.no_grad()
@@ -251,15 +298,28 @@ def eval_step(
     mask: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Loss and confusion counts for the cough class, on the device
-    (reference: src/train.py:114-180); `mask` leaves padded rows out."""
+    (reference: src/train.py:114-180); `mask` leaves padded rows out.
+    Inside a `parallel.batch_slice` with a process group they are the
+    global batch's, summed over the ranks."""
     feats = feature_fn(waves_or_feats) if feature_fn is not None else waves_or_feats
     model.eval()
-    logits = model(feats)
+    return eval_metrics(model(feats), labels, class_weights, mask)
+
+
+@torch.no_grad()
+def eval_metrics(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    class_weights: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """`eval_step`'s metrics from the logits (a batch scored in blocks on
+    several devices is scored here once, on the concatenated logits)."""
     loss = weighted_cross_entropy(logits, labels, class_weights, mask)
     preds = logits.argmax(dim=-1)
     real = torch.ones_like(labels, dtype=torch.bool) if mask is None else mask > 0
     correct, count = _counts(preds == labels, mask)
-    return {
+    metrics = {
         "loss": loss,
         "correct": correct,
         "count": count,
@@ -268,3 +328,82 @@ def eval_step(
         "fn": ((preds == 0) & (labels == 1) & real).sum(),
         "tn": ((preds == 0) & (labels == 0) & real).sum(),
     }
+    sl = parallel.active_slice()
+    if sl is not None and sl.group is not None:
+        metrics, _ = _sum_over_ranks(sl.group, metrics)
+    return metrics
+
+
+# -- runs of steps -----------------------------------------------------------------
+
+Batch = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+
+
+def window_batches(
+    corpus: torch.Tensor,
+    mats: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    lo: int = 0,
+    hi: Optional[int] = None,
+    gather: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+) -> Iterator[Batch]:
+    """The batches of a run of steps over a corpus on the device: the whole
+    corpus with global indices, or one chunked window's buffer with the
+    window's own (JAX: train_window_scan). `mats`: the (steps, B) index,
+    label and mask matrices (ShardLoader.epoch_batches); each batch is
+    columns [lo, hi) of a row (a rank's rows), gathered by `gather(corpus,
+    idx)` (`index_select` by default; parallel.routed_gather for a corpus
+    sharded over the ranks). A row with no padding carries mask None (the
+    unmasked BatchNorm) on every rank."""
+    idx, labels, mask = mats
+    full = mask.all(axis=1)
+    hi = idx.shape[1] if hi is None else hi
+    dev = corpus.device
+    idx_d = torch.from_numpy(idx[:, lo:hi].astype(np.int64)).to(dev)
+    labels_d = torch.from_numpy(labels[:, lo:hi].astype(np.int64)).to(dev)
+    mask_d = torch.from_numpy(np.ascontiguousarray(mask[:, lo:hi])).to(dev)
+    for s in range(idx.shape[0]):
+        rows = corpus.index_select(0, idx_d[s]) if gather is None else gather(corpus, idx_d[s])
+        yield rows, labels_d[s], None if full[s] else mask_d[s]
+
+
+def train_steps(
+    model: torch.nn.Module,
+    optimizer: ClippedAdamW,
+    batches: Iterable[Batch],
+    class_weights: torch.Tensor,
+    rand: StepRandom,
+    seed: int,
+    epoch: int,
+    step0: int = 0,
+    feature_fn: Optional[Callable] = None,
+    mixup_alpha: Optional[float] = None,
+    rows: Optional[parallel.BatchSlice] = None,
+) -> List[Dict[str, torch.Tensor]]:
+    """`train_step` over `batches`, step step0 + s keyed by (seed, epoch,
+    step0 + s): a window that starts at step0 draws what the same steps of
+    the whole epoch draw. `rows`: this rank's slice of each global batch
+    under data-parallel training. Returns the per-step metrics, on the
+    device."""
+    out = []
+    with parallel.batch_slice(rows):
+        for s, (waves, labels, mask) in enumerate(batches):
+            out.append(train_step(
+                model, optimizer, waves, labels, class_weights,
+                rand.key(seed, epoch, step0 + s), feature_fn=feature_fn,
+                mask=mask, mixup_alpha=mixup_alpha,
+            ))
+    return out
+
+
+def eval_steps(
+    model: torch.nn.Module,
+    batches: Iterable[Batch],
+    class_weights: torch.Tensor,
+    feature_fn: Optional[Callable] = None,
+    rows: Optional[parallel.BatchSlice] = None,
+) -> List[Dict[str, torch.Tensor]]:
+    """`eval_step` over `batches`; per-step metrics on the device."""
+    with parallel.batch_slice(rows):
+        return [
+            eval_step(model, w, lab, class_weights, feature_fn, m) for w, lab, m in batches
+        ]

@@ -131,6 +131,22 @@ def test_featurize_matches_the_jax_cli(data_dirs, tmp_path, capsys):
     assert np.isfinite(aug).all() and not np.array_equal(aug, ours["features"])
 
 
+@pytest.mark.parametrize("augment", [False, True])
+def test_featurize_over_a_mesh_equals_one_device(data_dirs, tmp_path, capsys, augment):
+    """Batches of 8 (and the 1-clip tail) split over ["cpu", "cpu", "cpu"]:
+    the features of one device within 1e-6, with the training augmentation
+    too (its draws are the whole batch's on each device)."""
+    args = ["--data-dir", str(data_dirs["ours"]), "--batch-size", "8", "--num-workers", "2",
+            "--device", "cpu"] + (["--augment"] if augment else [])
+    featurize.main(args + ["--output", str(tmp_path / "one.npz")])
+    featurize.main(args + ["--output", str(tmp_path / "mesh.npz"), "--mesh", "cpu,cpu,cpu"])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["device"] == ["cpu", "cpu", "cpu"] and report["clips"] == 25
+    one, split = np.load(tmp_path / "one.npz")["features"], np.load(tmp_path / "mesh.npz")["features"]
+    assert split.shape == one.shape == (25, 90, 101)
+    assert _max_rel(split, one) <= 1e-6
+
+
 def test_train_from_a_data_dir_then_detect(data_dirs, pt_and_wavs, tmp_path, capsys):
     out = tmp_path / "run"
     train_cli.main([

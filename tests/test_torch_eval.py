@@ -84,6 +84,23 @@ def test_dataset_mode_matches_the_jax_cli(pt_model, clip_dir, tmp_path, capsys, 
         assert abs(ours[k] - theirs[k]) <= 1e-4, k
 
 
+def test_dataset_mode_over_a_mesh_equals_one_device(pt_model, clip_dir, capsys):
+    """Batches of 5 split over ["cpu", "cpu"] and ["cpu", "cpu", "cpu"] (padded
+    to 6, the padded rows masked): the counts of one device exactly, the
+    loss and rates within rtol 1e-5 (tests/test_sharding.py's bound; each
+    device's convolutions see another batch size)."""
+    args = ["--model", pt_model, "--data-dir", str(clip_dir), "--batch-size", "5",
+            "--num-workers", "2", "--device", "cpu"]
+    evaluate.main(args + ["--single-device"])
+    one = _last_json(capsys)
+    for mesh in ("cpu,cpu", "cpu,cpu,cpu"):
+        evaluate.main(args + ["--mesh", mesh])
+        split = _last_json(capsys)
+        assert {k: split[k] for k in COUNTS} == {k: one[k] for k in COUNTS}
+        for k in FLOATS:
+            assert abs(split[k] - one[k]) <= 1e-5 * abs(one[k]), (mesh, k)
+
+
 def test_dataset_mode_needs_a_data_dir(pt_model):
     with pytest.raises(SystemExit, match="--data-dir"):
         evaluate.main(["--model", pt_model, "--device", "cpu"])

@@ -110,10 +110,25 @@ def test_score_recording_loads_checkpoints_and_refuses_a_mesh(weights, recording
     kw = dict(threshold=0.0, device="cpu")
     want = offline.score_recording(short, weights[1], default_config("small"), **kw)
     assert offline.score_recording(short, model_path=str(pt), **kw) == want
-    with pytest.raises(NotImplementedError):
+    # A mesh is a parallel.Mesh or a device list (the mesh test below);
+    # anything else is refused.
+    with pytest.raises(TypeError):
         offline.score_recording(short, weights[1], default_config("small"), mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         offline.score_recording(short, device="cpu")
+
+
+@pytest.mark.parametrize("mesh", [["cpu", "cpu"], ["cpu", "cpu", "cpu"]])
+def test_score_recording_over_a_mesh_equals_one_device(weights, recording, mesh):  # noqa: F811
+    """Batches of 16 split over the mesh (the 3-device mesh pads each to
+    18, the tail batch too): the events of one device, times exact and
+    confidences within rtol 1e-5 (tests/test_sharding.py's bounds)."""
+    kw = dict(threshold=0.0, smoothing_window=3, debounce_seconds=0.5, batch_size=16)
+    single = offline.score_recording(recording, weights[1], default_config("small"), mesh=False, device="cpu", **kw)
+    split = offline.score_recording(recording, weights[1], default_config("small"), mesh=mesh, **kw)
+    assert len(single) == len(split) > 5
+    assert [e.time_seconds for e in split] == [e.time_seconds for e in single]
+    np.testing.assert_allclose([e.confidence for e in split], [e.confidence for e in single], rtol=1e-5)
 
 
 # -- the reference-API facade ------------------------------------------------------

@@ -746,3 +746,36 @@ def test_cli_native_daemon_serves_reports_and_stops_on_sigterm(weights, pt_path,
     assert want and [d[:2] for d in daemon] == [p[:2] for p in python] == [w[:2] for w in want]
     np.testing.assert_allclose([d[2] for d in daemon], [w[2] for w in want], rtol=1e-4)
     np.testing.assert_allclose([d[2] for d in daemon], [p[2] for p in python], rtol=1e-6)
+
+
+def test_server_over_a_mesh_equals_one_device(weights):
+    """Four slots over ["cpu", "cpu"], two a device: every stream's events
+    equal the one-device detector's on the same audio."""
+    state_dict, cfg = weights
+    waves = np.stack([synth.synthetic_cough(7 + i, 1.5) * (0.4 + 0.2 * i) for i in range(4)])
+    n_chunks = waves.shape[1] // CHUNK
+    waves = waves[:, : n_chunks * CHUNK].astype(np.float32)
+    ref = StreamingDetector(
+        variables=state_dict, config=cfg, device="cpu", num_streams=4, chunk_size=CHUNK,
+        confidence_threshold=0.0, debounce_seconds=0.5, mesh=False,
+    )
+    expected = ref.process_chunk(waves)
+    assert expected
+    with _make_server(weights, mesh=["cpu", "cpu"], liveness_seconds=float("inf")) as srv:
+        assert srv._detector.mesh.size == 2
+        with DetectionClient(*srv.address) as c:
+            sids = [c.open_stream() for _ in range(4)]
+            for t in range(n_chunks):
+                for i, sid in enumerate(sids):
+                    c.send_audio(sid, waves[i, t * CHUNK : (t + 1) * CHUNK])
+            assert _wait(lambda: srv.stats()["ticks"] >= n_chunks)
+            got = []
+            _wait(lambda: got.extend(c.events()) or len(got) >= len(expected), 5.0)
+            time.sleep(0.1)
+            got += c.events()
+    assert sorted(sids) == [0, 1, 2, 3] and len(got) == len(expected)
+    key = lambda e: (e[1], e[0])  # noqa: E731
+    got = sorted(((ev["stream"], ev["time"], ev["confidence"]) for ev in got), key=key)
+    want = sorted(((d.stream, d.time_seconds, d.confidence) for d in expected), key=key)
+    for (s, t, p), (ws, wt, wp) in zip(got, want):
+        assert s == ws and t == pytest.approx(wt, abs=1e-6) and p == pytest.approx(wp, rel=1e-4)

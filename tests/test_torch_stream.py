@@ -21,6 +21,7 @@ from cough_detector_tpu_torch.config import FeatureConfig, StreamConfig, default
 from cough_detector_tpu_torch.models import from_jax_variables
 from cough_detector_tpu_torch.serve import dequantize_mulaw
 from cough_detector_tpu_torch.stream import (
+    MeshDetector,
     StreamingDetector,
     init_state,
     make_stream_step,
@@ -265,3 +266,46 @@ def test_detector_defaults_to_the_card(weights):
         pytest.skip("a card is present; the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamingDetector(variables=weights[1], config=default_config("small"))
+
+
+# -- over a mesh of devices ------------------------------------------------------------
+
+
+def _mesh_kw(weights):
+    return dict(
+        variables=weights[1], config=default_config("small"), device="cpu",
+        num_streams=4, chunk_size=CHUNK, confidence_threshold=0.0,
+        smoothing_window=3, debounce_seconds=0.5,
+    )
+
+
+def test_detector_over_a_mesh_equals_one_device(weights, audio):
+    """4 streams in two blocks over ["cpu", "cpu"] (tests/test_sharding.py's
+    check): the detections of one device in stream order, times exact and
+    confidences within rtol 1e-5; lane resets, thresholds and raw scores
+    reach the right block."""
+    four = np.concatenate([audio, audio[:1] * 0.5])
+    one = StreamingDetector(mesh=False, **_mesh_kw(weights))
+    two = StreamingDetector(mesh=["cpu", "cpu"], **_mesh_kw(weights))
+    assert one.mesh is None and two.mesh.size == 2
+    assert type(one) is StreamingDetector and isinstance(two, MeshDetector)
+    for det in (one, two):
+        det.process_chunk(four[:, :16000])
+        det.reset_streams([1, 2], [0.3, None])
+        det.set_thresholds([3], [0.9])
+    np.testing.assert_array_equal(two.current_thresholds(), one.current_thresholds())
+    want, got = one.process_chunk(four[:, 16000:]), two.process_chunk(four[:, 16000:])
+    assert len(want) > 5 and len(got) == len(want)
+    assert [(d.stream, d.time_seconds) for d in got] == [(d.stream, d.time_seconds) for d in want]
+    np.testing.assert_allclose([d.confidence for d in got], [d.confidence for d in want], rtol=1e-5)
+    assert two.windows_emitted == one.windows_emitted
+    windows = four[:, :16000][:3]
+    np.testing.assert_allclose(two.scores_for(windows), one.scores_for(windows), rtol=1e-5)
+
+
+def test_explicit_indivisible_mesh_raises(weights):
+    kw = _mesh_kw(weights)
+    kw["num_streams"] = 3
+    with pytest.raises(ValueError, match="not divisible"):
+        StreamingDetector(mesh=["cpu", "cpu"], **kw)
+    assert StreamingDetector(**kw).mesh is None  # no card: the default is one device

@@ -53,6 +53,7 @@ from cough_detector_tpu_torch.train import (
     weighted_cross_entropy,
 )
 from cough_detector_tpu_torch.train import loop
+from cough_detector_tpu_torch.train import steps as steps_mod
 from test_torch_models import one_torch_thread, randomized_jax_variables  # noqa: F401
 
 # The keys of the JAX loop's per-epoch record (train/loop.py epoch_tail),
@@ -537,20 +538,112 @@ def test_streamed_batches_give_the_resident_run(shard_dir, tmp_path):
     _assert_same_run(*runs)
 
 
+def test_chunked_windows_give_the_resident_run(straight_run, shard_dir, tmp_path):
+    """Windows of 1 step (a budget of 1.1 MB: 4 train windows an epoch and
+    2 val windows, each buffer holding only its rows, renumbered) reproduce
+    the resident run bit for bit: parameters, moments and records
+    (tests/test_shards.py's chunked-vs-resident guard, at bit equality)."""
+    out = tmp_path / "chunked"
+    train(None, str(out), config=_cfg(2), shards_dir=str(shard_dir), device="cpu",
+          device_corpus="chunked", device_corpus_budget=1_100_000)
+    _assert_same_run(straight_run[0], out)
+
+
+def test_auto_picks_chunked_windows_past_the_budget(straight_run, shard_dir, tmp_path, capsys):
+    """"auto" with a corpus past the budget runs chunked windows (2 steps
+    each here), not the streamed loop, and still gives the resident run."""
+    out = tmp_path / "auto"
+    train(None, str(out), config=_cfg(2), shards_dir=str(shard_dir), device="cpu",
+          device_corpus_budget=2_100_000)
+    assert "Chunked device corpus" in capsys.readouterr().out
+    _assert_same_run(straight_run[0], out)
+
+
+def test_chunked_resume_through_the_background_writer_is_bit_exact(straight_run, shard_dir, tmp_path, monkeypatch):
+    """One process writes every checkpoint on the background writer; a
+    chunked run of 1 epoch resumed to 2 equals the resident run."""
+    submitted = []
+    real = checkpoint._submit
+    monkeypatch.setattr(checkpoint, "_submit", lambda fn: submitted.append(1) or real(fn))
+    out = tmp_path / "resumed"
+    kw = dict(shards_dir=str(shard_dir), device="cpu", device_corpus="chunked", device_corpus_budget=1_100_000)
+    train(None, str(out), config=_cfg(1), **kw)
+    train(None, str(out), config=_cfg(2), resume=str(out / "latest_model"), **kw)
+    assert len(submitted) >= 3  # best and latest at epoch 0, latest at 1
+    _assert_same_run(straight_run[0], out)
+
+
+def test_best_path_is_committed_when_train_returns(shard_dir, tmp_path, monkeypatch):
+    """Slow background writes: train() returns only after they land, so
+    the path it returns loads at once, and no writer thread outlives it."""
+    import threading
+    import time
+
+    real = checkpoint._replace_into
+
+    def slow(path, write):
+        time.sleep(0.2)
+        real(path, write)
+
+    monkeypatch.setattr(checkpoint, "_replace_into", slow)
+    best = train(None, str(tmp_path / "run"), config=_cfg(1, "small"), shards_dir=str(shard_dir), device="cpu")
+    assert not list((tmp_path / "run").rglob("*.tmp"))
+    assert not [t for t in threading.enumerate() if t.name.startswith("cdt-ckpt")]  # the writer stopped
+    tree, epoch, _, config = checkpoint.load_checkpoint(best)
+    assert epoch == 0 and config.model.model_type == "small" and tree["model"]
+
+
+@pytest.mark.parametrize("save_fails", [False, True])
+def test_a_failed_train_stops_the_writer_and_raises_its_own_error(save_fails, shard_dir, tmp_path, monkeypatch):
+    """An error in epoch 1, after epoch 0's saves were queued: train()
+    waits for them and stops the writer before the error leaves it, and a
+    save that failed too is noted on the loop's error, not raised instead."""
+    import threading
+    import time
+
+    real_replace, real_steps = checkpoint._replace_into, steps_mod.train_steps
+
+    def slow(path, write):
+        time.sleep(0.2)
+        if save_fails:
+            raise OSError("disk full")
+        real_replace(path, write)
+
+    def steps_then_fail(*args):
+        if args[6] == 1:  # the epoch
+            raise RuntimeError("step failed")
+        return real_steps(*args)
+
+    monkeypatch.setattr(checkpoint, "_replace_into", slow)
+    monkeypatch.setattr(steps_mod, "train_steps", steps_then_fail)
+    with pytest.raises(RuntimeError, match="step failed") as info:
+        train(None, str(tmp_path / "run"), config=_cfg(2, "small"), shards_dir=str(shard_dir), device="cpu")
+    assert not [t for t in threading.enumerate() if t.name.startswith("cdt-ckpt")]
+    notes = getattr(info.value, "__notes__", [])
+    if save_fails:
+        assert len(notes) == 1 and "disk full" in notes[0]
+    else:
+        assert not notes and checkpoint.load_checkpoint(str(tmp_path / "run" / "latest_model"))[1] == 0
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(world_size=2),
-    dict(device_corpus="chunked"),
+    dict(device_corpus="resident"),
+    dict(device_corpus="chunked", shards_dir=None),
     dict(mesh=object()),
-    dict(device_corpus_budget=1000),
+    dict(device_corpus=True, shards_dir=None),
 ])
-def test_unported_modes_raise(shard_dir, tmp_path, kwargs, monkeypatch):
-    if kwargs.pop("world_size", None):  # a process group of several ranks
-        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+def test_unported_modes_raise(shard_dir, tmp_path, kwargs):
+    """Every corpus mode and data parallelism are ported now (the chunked
+    and past-budget modes run in the tests below, several ranks in
+    test_torch_parallel.py); what still raises, before any work, is a
+    request no placement satisfies: an unknown mode, a device corpus with
+    no shards to put there, and a mesh (the trainer's data parallelism is
+    the process group's)."""
     args = dict(data_dir=None, shards_dir=str(shard_dir))
     args.update(kwargs)
-    with pytest.raises(NotImplementedError):
-        train(output_dir=str(tmp_path), config=_cfg(1), device="cpu", **args)
+    with pytest.raises(ValueError):
+        train(output_dir=str(tmp_path / "out"), config=_cfg(1), device="cpu", **args)
+    assert not (tmp_path / "out").exists()
 
 
 def test_cli_trains_exports_and_serves(shard_dir, tmp_path):
