@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card: serving, training, files
 to detections, the serving daemon with the native tiers, the tools between
-training and serving, and training and scoring across ranks and devices.
+training and serving, training and scoring across ranks and devices, and
+the captured programs (CUDA graphs) of the tick and the train step.
 
     python3 chip_smoke.py
 
@@ -143,7 +144,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      equal, confidences 1e-5), cli.evaluate --mesh on the 256 validation
      shards (counts equal) and cli.featurize --mesh on 16 clips (1e-6).
      Each path's launches are counted from 0;
- 11. prints the kernels' JSON line, then the device line last.
+ 11. captured programs (budget 30 s, seconds printed by sub-step, under
+     build/smoke_graphs/): on the card the streaming tick and the train and
+     eval steps run as CUDA graphs (utils/graphs.py), which every phase
+     above already runs through, their launches counted through replays.
+     Here each is held against its eager version on the card: a graphed
+     and an eager 256-stream detector over 44 ticks in float32, int16 and
+     μ-law with reset_streams and set_thresholds mid-run (every tick's
+     packed tensor bit-equal, events equal, launches one a scoring tick,
+     one graph a (dtype, fill) key), their tick p50 / p99 and idle shares;
+     train() for 2 epochs on phase 6's corpus on the graphs and eagerly
+     (losses, parameters, BN statistics and moments bit-equal, 144 launches
+     each), the epoch walls and a profiled epoch's idle share of each, and
+     the batch-32 step by CUDA events and the host clock. Phase 8 checks
+     that every daemon tick of every format and tier replays a graph its
+     warm ticks captured, and that cli.serve reports its tick graphs;
+ 12. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
 never JAX. It downloads nothing: the data are synthesized from seeds.
@@ -1035,7 +1051,7 @@ def daemon_phase(smi: str, best_model: Path, data: Path, decode: dict, shard: di
     from cough_detector_tpu_torch.models import fold_batchnorm, model_from_config, place_model
     from cough_detector_tpu_torch.ops import frontend_kernel
     from cough_detector_tpu_torch.serve import DetectionClient, DetectionServer, quantize_i16, quantize_mulaw
-    from cough_detector_tpu_torch.stream import StreamingDetector
+    from cough_detector_tpu_torch.stream import StreamingDetector, ring
     from cough_detector_tpu_torch.stream.detector import _load_checkpoint
     from cough_detector_tpu_torch.train import train
 
@@ -1113,7 +1129,7 @@ def daemon_phase(smi: str, best_model: Path, data: Path, decode: dict, shard: di
         wants[fmt] = sorted((d.stream, round(d.time_seconds, 6), d.confidence) for d in dets)
     runs = [(fmt, backend, workers) for fmt in quantizers for backend, workers in
             (("native", 1), ("python", 1), ("native", 4))]
-    got, ticks = {}, {}
+    got, ticks, graph_runs = {}, {}, {}
     daemon_launches = {"spectral": 0, "epilogue": 0}
     t0 = time.perf_counter()
     for fmt, backend, workers in runs:
@@ -1129,6 +1145,14 @@ def daemon_phase(smi: str, best_model: Path, data: Path, decode: dict, shard: di
             daemon_launches["spectral"] += frontend_kernel.SPECTRAL_LAUNCHES
             daemon_launches["epilogue"] += frontend_kernel.EPILOGUE_LAUNCHES
             ticks[fmt, backend, workers] = server.stats()["ticks"]
+            # The ticks ran as graphs of this format's dtype, every key
+            # captured by the warm ticks: each client tick a replay.
+            progs = server._detector.tick_programs()
+            graph_runs[fmt, backend, workers] = bool(progs) and progs[0].graphed and (
+                {k[0] for k in progs[0].keys} == {{"mulaw": "uint8"}.get(fmt, fmt)}
+                and len(progs[0].keys) == len(ring.tick_fills(CHUNK, window, hop))
+                and sum(progs[0].replays().values()) == n_ticks
+            )
         finally:
             server.stop()
     serve_s = time.perf_counter() - t0
@@ -1154,6 +1178,13 @@ def daemon_phase(smi: str, best_model: Path, data: Path, decode: dict, shard: di
     )
     if set(daemon_launches.values()) != {want_launches} or set(ticks.values()) != {n_ticks}:
         fail("the daemon's ticks did not launch the front-end kernels once per scoring tick")
+    print(
+        f"daemon ticks on captured graphs, every client tick a replay of a key its warm ticks captured "
+        f"({len(ring.tick_fills(CHUNK, window, hop))} keys a format): {graph_runs}",
+        flush=True,
+    )
+    if not all(graph_runs.values()):
+        fail("a daemon run's ticks did not all replay graphs its warm ticks captured")
 
     # -- 8.3 the daemon as users start it: cli.serve in its own process
     n_slots, n_clients, seconds = 256, 64, 5.0
@@ -1208,12 +1239,15 @@ def daemon_phase(smi: str, best_model: Path, data: Path, decode: dict, shard: di
         f"{stats.get('ticks')}, open_streams {stats.get('open_streams')}, tick_ms_p50 {stats.get('tick_ms_p50')} "
         f"p99 {stats.get('tick_ms_p99')}, delivery_lag_ms_p50 {stats.get('delivery_lag_ms_p50')} p99 "
         f"{stats.get('delivery_lag_ms_p99')}, dropped_samples {stats.get('dropped_samples')}, events "
-        f"{stats.get('events')} ({n_events} received at threshold 0.5); SIGTERM: exit {proc.returncode}, last "
-        f"line serving={last.get('serving')}",
+        f"{stats.get('events')} ({n_events} received at threshold 0.5); tick graphs {stats.get('tick_graphs')}, "
+        f"replays {stats.get('tick_replays')}; SIGTERM: exit {proc.returncode}, last line "
+        f"serving={last.get('serving')}",
         flush=True,
     )
     if not (health == (200, b"ok") and stats.get("backend") == "native" and stats.get("open_streams") == n_clients
-            and stats.get("ticks", 0) > 0 and proc.returncode == 0 and last.get("serving") is False):
+            and stats.get("ticks", 0) > 0 and proc.returncode == 0 and last.get("serving") is False
+            and stats.get("tick_graphs") == len(ring.tick_fills(CHUNK, window, hop))
+            and stats.get("tick_replays", 0) >= stats.get("ticks", 0)):
         fail(f"cli.serve did not serve, report or stop as it should; stderr: {''.join(err_tail)[-2000:]}")
 
     # -- 8.4 the precision modes on phase 6's trained checkpoint
@@ -1687,7 +1721,7 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
                     "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
     os.environ.update(torchrun_env)
     try:
-        trained_in_process("nccl_world1", root / "nccl", "--distributed")
+        nccl_graphed = "Steps: captured CUDA graphs" in trained_in_process("nccl_world1", root / "nccl", "--distributed")
         if dist.is_initialized():
             fail("cli.train --distributed left its process group initialized")
         # The routed gather at world size 1 (NCCL's reduce-scatter) vs index_select.
@@ -1707,10 +1741,11 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
     print(
         f"[{smi}] NCCL at world size 1 (cli.train --distributed, 2 epochs of phase 6's corpus): bit-equal to the "
         f"plain trainer (best and latest checkpoints, moments, metrics.jsonl with its losses) {nccl_same}; routed "
-        f"gather vs index_select {gather_ok}; launches {launches['nccl_world1']} (steps {steps_per_run[2]})",
+        f"gather vs index_select {gather_ok}; launches {launches['nccl_world1']} (steps {steps_per_run[2]}); "
+        f"steps on captured graphs, the NCCL all-reduces inside them {nccl_graphed}",
         flush=True,
     )
-    if not (nccl_same and gather_ok):
+    if not (nccl_same and gather_ok and nccl_graphed):
         fail("NCCL at world size 1 does not reproduce the plain trainer")
     seconds["10.a NCCL world 1"] = time.perf_counter() - t0
 
@@ -1795,6 +1830,7 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
             launches[f"{name}_rank{r}"] = {"spectral": n[0], "epilogue": n[1]}
         pairs[name] = {
             "sharded": all("sharded by rows over 2 ranks" in t for t in ranks),
+            "eager_steps": all("Steps: eager (gloo's collectives cannot be captured)" in t for t in ranks),
             "rows": rows_ok,
             "mats": all(probes(t, mats_pat) == probes(ref, mats_pat) for t in ranks),
             "built": tuple(a + b for a, b in zip(built[1], built[2])) == built[0],
@@ -1808,7 +1844,7 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
             "built_rows": built, "rank_launches": rank_launches,
         }
     full, small = pairs["gloo"], pairs["gloo_96"]
-    exact_checks = ("sharded", "rows", "mats", "built", "launches", "rank0_only")
+    exact_checks = ("sharded", "eager_steps", "rows", "mats", "built", "launches", "rank0_only")
     gloo_ms = step_ms(root / "gloo")
     print(
         f"[{smi}] two ranks on cuda:0 over gloo (cli.train --distributed --dist-backend gloo, every step through "
@@ -1971,6 +2007,272 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
         "epoch_wall_s": {"resident": plain_wall, "chunked": chunk_wall, **walls},
         "saves_block_ms": {k: sum(ms for _, ms in v) for k, v in saves_ms.items()},
         "idle_share": {"resident": plain_idle, "chunked": chunk_idle},
+    }
+
+
+def graphs_phase(smi: str, trained: dict, weights: dict, cfg) -> dict:
+    """Phase 11, captured programs (budget 30 s, seconds printed by sub-step,
+    under build/smoke_graphs/): on the card the tick and the train and eval
+    steps run as CUDA graphs (utils/graphs.py); here each is held against its
+    eager version on the card. The tick: a graphed and an eager 256-stream
+    detector (the residual model at full width, phase 5's random weights,
+    threshold 0) over 44 ticks of 1600 samples in float32, int16 and μ-law,
+    with reset_streams at tick 15 and set_thresholds at tick 25: every
+    tick's packed tensor bit-equal, events equal, both launch counters one
+    a scoring tick, the graphs one a (dtype, fill) key; then p50 / p99 of
+    tick_async + collect_events on the host clock over 2 x 20 ticks each,
+    in turns, and the device's idle share over 20 ticks under the profiler.
+    Training: train() for 2 epochs on phase 6's corpus on the graphs and
+    eagerly: losses, parameters (BatchNorm statistics too) and Adam's
+    moments bit-equal, 144 launches of each kernel each; each run's epoch
+    walls, and the idle share over one more profiled epoch of each; the
+    batch-32 step by CUDA events and the host clock over 30 steps, graphed
+    and eager. Resume (phase 6), chunked windows and NCCL at world size 1
+    (phase 10) run on the graphs in their own phases."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cough_detector_tpu_torch.config import Config, FeatureConfig, TrainConfig
+    from cough_detector_tpu_torch.data import ShardLoader
+    from cough_detector_tpu_torch.models import create_model, init_weights
+    from cough_detector_tpu_torch.ops import frontend_kernel
+    from cough_detector_tpu_torch.serve.server import quantize_i16, quantize_mulaw
+    from cough_detector_tpu_torch.stream import StreamingDetector, ring
+    from cough_detector_tpu_torch.train import checkpoint, loop, steps
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    dev = torch.device("cuda")
+    root = Path(__file__).resolve().parent / "build" / "smoke_graphs"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 11)
+
+    def launches() -> tuple:
+        return frontend_kernel.SPECTRAL_LAUNCHES, frontend_kernel.EPILOGUE_LAUNCHES
+
+    def zero_launches() -> None:
+        frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+
+    # -- 11.1 the tick, graphed and eager
+    t0 = time.perf_counter()
+    n_streams, n_ticks = 256, 44
+    audio = make_audio(rng, n_streams, n_ticks * CHUNK)
+    quantizers = {"float32": lambda x: x, "int16": quantize_i16, "mulaw": quantize_mulaw}
+    window, hop = cfg.features.segment_samples, SR // 4
+    scoring = sum(windows_completed(n_ticks, CHUNK, window, hop))
+
+    def detector(graphed: bool):
+        det = StreamingDetector(variables=weights, config=cfg, device="cuda", num_streams=n_streams,
+                                chunk_size=CHUNK, confidence_threshold=0.0)
+        if not graphed:
+            det._step = ring.make_stream_step(det._score_fn, cfg.features, det.stream_config, graphed=False)
+        return det
+
+    dets = {"graph": detector(True), "eager": detector(False)}
+
+    def run(det, q) -> tuple:
+        det.reset()
+        out = []
+        zero_launches()
+        for t in range(n_ticks):
+            if t == 15:
+                det.reset_streams([3, 100, 255])
+            if t == 25:
+                det.set_thresholds([7, 200, 201], [1.1, 0.3, None])
+            ev = det.tick_async(q(audio[:, t * CHUNK : (t + 1) * CHUNK]))
+            out.append((ev["packed"].cpu().numpy(), det.collect_events(ev)))
+        return out, launches()
+
+    tick_ok, tick_launches = True, {}
+    for fmt, q in quantizers.items():
+        (g, g_n), (e, e_n) = run(dets["graph"], q), run(dets["eager"], q)
+        same_packed = all(np.array_equal(a[0], b[0]) for a, b in zip(g, e))
+        same_events = [a[1] for a in g] == [b[1] for b in e]
+        n_events = sum(len(a[1]) for a in g)
+        tick_launches[fmt] = {"graph": g_n, "eager": e_n}
+        ok = same_packed and same_events and n_events > 0 and g_n == e_n == (scoring, scoring)
+        tick_ok &= ok
+        print(
+            f"graphed tick [{fmt}] {n_streams} streams x {n_ticks} ticks (reset_streams at 15, set_thresholds at "
+            f"25): packed bit-equal to the eager tick {same_packed}, events equal {same_events} ({n_events}); "
+            f"launches graph {g_n}, eager {e_n}, expected {scoring} each",
+            flush=True,
+        )
+    progs = dets["graph"].tick_programs()[0]
+    fills = ring.tick_fills(CHUNK, window, hop)
+    keys_ok = progs.graphed and len(progs.keys) == len(quantizers) * len(fills)
+    replay_launches = [sum(v) for v in zip(*progs.launches().values())]
+    print(
+        f"graphed tick keys: {len(progs.keys)} ({len(fills)} fills x {len(quantizers)} dtypes; fills {fills}); "
+        f"replays {sum(progs.replays().values())}, launches through replays (captured x replays) "
+        f"{replay_launches}",
+        flush=True,
+    )
+    if not (tick_ok and keys_ok):
+        fail("the graphed tick differs from the eager tick, or its keys are not the predicted ones")
+
+    lat = {"graph": [], "eager": []}
+    for rep in range(2):
+        for name, det in dets.items():
+            for t in range(20):
+                chunk = audio[:, (t % n_ticks) * CHUNK : (t % n_ticks + 1) * CHUNK]
+                t1 = time.perf_counter()
+                det.collect_events(det.tick_async(chunk))
+                lat[name].append(time.perf_counter() - t1)
+    idle = {}
+    for name, det in dets.items():
+        def span(det=det) -> float:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for t in range(20):
+                det.collect_events(det.tick_async(audio[:, t * CHUNK : (t + 1) * CHUNK]))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) * 1e3
+
+        plain_ms = span()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            span()
+        busy = busy_ms(prof.events())
+        idle[name] = None if busy == 0 else 1 - busy / plain_ms
+    tick_ms = {
+        name: {"p50": float(np.percentile(v, 50) * 1e3), "p99": float(np.percentile(v, 99) * 1e3)}
+        for name, v in lat.items()
+    }
+    for name in dets:
+        print(
+            f"[{smi}] {n_streams}-stream tick, {name}: tick_async + collect_events p50 "
+            f"{tick_ms[name]['p50']:.4f} ms, p99 {tick_ms[name]['p99']:.4f} ms (host clock, 2 x 20 ticks in "
+            f"turns); device idle share over 20 ticks "
+            f"{'not measured' if idle[name] is None else format(idle[name], '.3f')}",
+            flush=True,
+        )
+    seconds["tick"] = time.perf_counter() - t0
+
+    # -- 11.2 training, graphed and eager, on phase 6's corpus
+    t0 = time.perf_counter()
+    shards = trained["shards"]
+    real_graphed = loop._graphed_steps
+
+    def trained_run(name: str, graphed: bool, epochs: int, resume=None, out=None):
+        out = out or root / name
+        loop._graphed_steps = real_graphed if graphed else (lambda dev, group: False)
+        try:
+            loop.train(None, str(out), config=Config(train=TrainConfig(epochs=epochs)), shards_dir=str(shards),
+                       resume=resume)
+        finally:
+            loop._graphed_steps = real_graphed
+        return out
+
+    def records(out: Path) -> list:
+        return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+    runs, train_launches, walls = {}, {}, {}
+    for name in ("graph", "eager"):
+        zero_launches()
+        runs[name] = trained_run(name, name == "graph", 2)
+        train_launches[name] = launches()
+        w = [r["wall_s"] for r in records(runs[name])]
+        walls[name] = [w[0]] + [b - a for a, b in zip(w, w[1:])]
+    skip = {"train_clips_per_sec", "val_clips_per_sec", "wall_s", "t"}
+    strip = lambda rs: [{k: v for k, v in r.items() if k not in skip} for r in rs]  # noqa: E731
+    same = {"records": strip(records(runs["graph"])) == strip(records(runs["eager"]))}
+    for ck in ("best_model", "latest_model"):
+        ta, tb = (checkpoint.load_checkpoint(str(runs[n] / ck))[0] for n in ("graph", "eager"))
+        same[ck + " parameters and BN stats"] = all(torch.equal(tb["model"][k], v) for k, v in ta["model"].items())
+        same[ck + " moments"] = all(
+            torch.equal(x, y) for x, y in zip(ta["optimizer"]["mu"] + ta["optimizer"]["nu"],
+                                             tb["optimizer"]["mu"] + tb["optimizer"]["nu"])
+        )
+    want = 2 * (64 + 8)
+    print(
+        f"train() 2 epochs of phase 6's corpus on the graphs vs eagerly: {same}; launches graph "
+        f"{train_launches['graph']}, eager {train_launches['eager']}, expected {want} each; losses "
+        f"{[(r['train_loss'], r['val_loss']) for r in records(runs['graph'])]}",
+        flush=True,
+    )
+    if not (all(same.values()) and set(train_launches["graph"] + train_launches["eager"]) == {want}):
+        fail("the graphed training run differs from the eager one")
+
+    epoch_idle = {}
+    for name in ("graph", "eager"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trained_run(name, name == "graph", 3, resume=str(runs[name] / "latest_model"),
+                        out=root / f"{name}_profiled")
+        events = prof.events()
+        span = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
+        if len(span) == 1:
+            lo, hi = span[0].time_range.start, span[0].time_range.end
+            epoch_idle[name] = 1 - busy_ms(events, lo, hi) / ((hi - lo) / 1e3)
+        else:
+            epoch_idle[name] = None
+    for name in ("graph", "eager"):
+        print(
+            f"[{smi}] train() {name}: epoch walls (metrics.jsonl wall_s; epoch 0 holds the loop's set-up"
+            f"{' and the captures' if name == 'graph' else ''}) {[round(w, 3) for w in walls[name]]} s; idle "
+            f"share over one profiled epoch "
+            f"{'not measured' if epoch_idle[name] is None else format(epoch_idle[name], '.3f')}",
+            flush=True,
+        )
+
+    # The batch-32 step alone: 30 steps on the resident corpus, graphed and eager.
+    corpus_d = torch.from_numpy(ShardLoader(str(shards / "train"), 32, feature_config=FeatureConfig()).corpus()).to(dev)
+    tcfg = TrainConfig()
+    cw = torch.tensor([1.0, 1.0], device=dev)
+    feature_fn, eval_fn = loop.make_feature_fns(Config(), dev, use_time_shift=True)
+    idx = np.random.default_rng(SEED).integers(0, corpus_d.shape[0], (40, 32)).astype(np.int64)
+    labels = (idx % 2).astype(np.int64)
+    step_ms = {}
+    with loop.deterministic(dev):
+        for name in ("graph", "eager", "graph", "eager"):
+            model = init_weights(create_model("residual"), torch.Generator().manual_seed(SEED)).to(dev)
+            opt = steps.make_optimizer(model.parameters(), tcfg, 64)
+            rand = steps.StepRandom(dev)
+            programs = steps.StepPrograms(model, opt, cw, rand, feature_fn, eval_fn)
+            idx_d, labels_d = torch.from_numpy(idx).to(dev), torch.from_numpy(labels).to(dev)
+
+            def one(s: int, name=name, model=model, opt=opt, rand=rand, programs=programs):
+                if name == "graph":
+                    programs.train(corpus_d, idx[s], labels[s], None, SEED, 0, s)
+                else:
+                    steps.train_step(model, opt, corpus_d.index_select(0, idx_d[s]), labels_d[s], cw,
+                                     rand.key(SEED, 0, s), feature_fn=feature_fn)
+
+            for s in range(10):  # the graph's capture, and warm caches
+                one(s)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            start.record()
+            for s in range(10, 40):
+                one(s)
+            end.record()
+            enqueue = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            step_ms.setdefault(name, []).append(
+                {"events": start.elapsed_time(end) / 30, "host": wall * 1e3 / 30, "enqueue": enqueue * 1e3 / 30}
+            )
+            if name == "graph":
+                step_launches = [sum(v) for v in zip(*programs.programs.launches().values())]
+    for name, ms in step_ms.items():
+        print(
+            f"[{smi}] batch-32 train step, {name}, 30 steps on the resident corpus, two turns: CUDA events "
+            f"{[round(m['events'], 4) for m in ms]} ms, host clock to a synchronize "
+            f"{[round(m['host'], 4) for m in ms]} ms, host enqueue {[round(m['enqueue'], 4) for m in ms]} ms a step",
+            flush=True,
+        )
+    seconds["training"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(
+        "captured-programs phase by sub-step (s): " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; phase total {total:.3f} s (budget 30 s)",
+        flush=True,
+    )
+    return {
+        "tick_launches": tick_launches, "tick_replay_launches": replay_launches,
+        "train_launches": train_launches, "step_replay_launches": step_launches,
+        "tick_ms": tick_ms, "tick_idle": idle, "epoch_walls": walls, "epoch_idle": epoch_idle,
+        "step_ms": step_ms,
     }
 
 
@@ -2438,7 +2740,10 @@ def main() -> None:
     # -- 10. training and scoring across ranks and devices --------------------------------
     par = parallel_phase(smi, trained, files)
 
-    # -- 11. summary ---------------------------------------------------------------
+    # -- 11. captured programs: the graphed tick and steps against the eager ones --------
+    graphed = graphs_phase(smi, trained, weights, cfg)
+
+    # -- 12. summary ---------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -2465,8 +2770,14 @@ def main() -> None:
             "hybrid_pair_ms": {b: h["pair_ms"] for b, h in tools["hybrid"].items()},
             "hybrid_contrast_ms": {b: h["contrast_ms"] for b, h in tools["hybrid"].items()},
             "parallel_launches": {path: n[part] for path, n in par["launches"].items()},
+            "graphed_launches": {
+                "tick_per_format": {fmt: n["graph"][i] for fmt, n in graphed["tick_launches"].items()},
+                "tick_captured_x_replays": graphed["tick_replay_launches"][i],
+                "train_2_epochs": graphed["train_launches"]["graph"][i],
+                "step_captured_x_replays": graphed["step_replay_launches"][i],
+            },
         }
-        for part in ("spectral", "epilogue")
+        for i, part in enumerate(("spectral", "epilogue"))
     ]
     kernels[0]["max_rel_vs_3xtf32_model"] = split_err
     print(json.dumps({"kernels": kernels}))

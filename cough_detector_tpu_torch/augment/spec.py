@@ -135,10 +135,20 @@ def mixup(
     rows, labels and mask of every rank are gathered first (no gradient
     flows to features), the global batch is mixed, and the rank keeps its
     rows."""
+    lam, perm = mixup_draws(rng, parallel.rows_of(x.shape[0]).total, alpha)
+    return mixup_drawn(x, y_onehot, torch.from_numpy(lam).to(x.device), torch.from_numpy(perm).to(x.device), mask)
+
+
+def mixup_drawn(
+    x: torch.Tensor,
+    y_onehot: torch.Tensor,
+    lam: torch.Tensor,
+    perm: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`mixup` with the global batch's draws (`mixup_draws`) already on the
+    device (a captured train step stages them in)."""
     sl = parallel.rows_of(x.shape[0])
-    lam, perm = mixup_draws(rng, sl.total, alpha)
-    lam = torch.from_numpy(lam).to(x.device)
-    perm = torch.from_numpy(perm).to(x.device)
     if sl.total == x.shape[0]:
         return mixup_apply(x, y_onehot, lam, perm, mask)
     if sl.group is None:

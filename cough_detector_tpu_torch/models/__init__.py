@@ -6,6 +6,7 @@ from .classifiers import (
     CoughDetectorSmall,
     count_parameters,
     create_model,
+    init_model,
     init_weights,
     model_from_config,
     no_tf32,
@@ -23,6 +24,7 @@ __all__ = [
     "create_model",
     "fold_batchnorm",
     "from_jax_variables",
+    "init_model",
     "init_weights",
     "no_tf32",
     "model_from_config",

@@ -186,6 +186,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def init_model(model: nn.Module, generator=0, feature_shape=None) -> nn.Module:
+    """The JAX package's `init_model(model, rng, feature_shape)`: `model`
+    with freshly drawn weights (`init_weights`) from `generator`, a
+    torch.Generator or an int seed. `feature_shape` is accepted for the
+    reference's signature and unused: the classifiers end in global average
+    pooling and hold no shape-dependent weight. Returns the module."""
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator().manual_seed(int(generator))
+    return init_weights(model, generator)
+
+
 def count_parameters(model: nn.Module) -> int:
     """Trainable-parameter count (reference: src/model.py:319-321)."""
     return int(sum(p.numel() for p in model.parameters() if p.requires_grad))

@@ -390,6 +390,18 @@ def process(waveform: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     return extract_features(waveform, cfg)
 
 
+def make_feature_fn(cfg: FeatureConfig):
+    """The JAX package's jitted feature extractor, as a plain callable:
+    (B, segment_samples) → (B, H, T) through `extract_features`."""
+    return functools.partial(extract_features, cfg=cfg)
+
+
+def make_process_fn(cfg: FeatureConfig):
+    """The JAX package's jitted normalize → pad/trim → features pipeline for
+    raw 16 kHz batches, as a plain callable (`process`)."""
+    return functools.partial(process, cfg=cfg)
+
+
 def extract_features_fast(
     waveform: Union[torch.Tensor, np.ndarray],
     cfg: FeatureConfig,

@@ -59,9 +59,12 @@ from ..config import FeatureConfig
 from . import filters
 from .frontend import pre_emphasis, spectral_contrast, stack_features
 
-# Launches of each kernel since import (or since a caller last set it to 0).
+# Launches of each kernel since import (or since a caller last set it to 0),
+# replays of captured programs included (utils/graphs.py adds a graph's
+# captured launches on every replay).
 SPECTRAL_LAUNCHES = 0
 EPILOGUE_LAUNCHES = 0
+LAUNCH_COUNTERS = ("SPECTRAL_LAUNCHES", "EPILOGUE_LAUNCHES")
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _MAX_GRID_Y = 65535

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..stream import ring
 from ..stream.detector import StreamingDetector
 from ..utils.observability import LatencyTracker
 from . import protocol
@@ -364,16 +365,22 @@ class DetectionServer:
     # -- lifecycle -------------------------------------------------------
 
     def start(self) -> None:
-        # Warm ticks of silence before accepting clients, up to the first
-        # that completes windows: it is the first to run the front-end
-        # kernels and the classifier at the full batch (cuDNN's algorithm
-        # choice, lazily loaded kernels), a cost that must not eat a
-        # client's real-time budget; the lane scrub and the retune run once
-        # too. The accept loop starts (and the native plane binds) after
-        # them; earlier connects wait in the python listener's backlog.
+        # Warm ticks of silence before accepting clients, one for every
+        # fill the ring passes through until it cycles: on the card each is
+        # the first tick of its key, which captures the tick's graph, and
+        # the first that completes windows runs the front-end kernels and
+        # the classifier at the full batch (cuDNN's algorithm choice,
+        # lazily loaded kernels) for the first time, costs that must not
+        # eat a client's real-time budget; the lane scrub and the retune
+        # run once too. The accept loop starts (and the native plane binds)
+        # after them; earlier connects wait in the python listener's
+        # backlog. The reset after them empties the ring in place, so the
+        # captured ticks stay valid.
         silence = h2d_silence((self.num_streams, self.chunk_size), self._h2d)
-        for _ in range(-(-self._detector.window_samples // self.chunk_size)):
-            self._detector.collect_events(self._detector.tick_async(silence))
+        det = self._detector
+        hop = int(det.config.features.sample_rate * det.stream_config.hop_duration)
+        for _ in ring.tick_fills(self.chunk_size, det.window_samples, hop):
+            det.collect_events(det.tick_async(silence))
         self._detector.reset_streams([])
         self._detector.set_thresholds([], [])
         self._detector.reset()
@@ -435,6 +442,8 @@ class DetectionServer:
 
     def stats(self) -> dict:
         """`ticks` counts DELIVERED ticks (events fetched + routed);
+        tick_graphs and tick_replays count the tick's captured CUDA graphs
+        (one a key) and their replays (0 while the tick runs eagerly);
         tick_ms_* is the dispatch cost on the tick thread,
         delivery_lag_ms_* the dispatch→routed pipeline latency. On the
         native backend the socket counters (connections, refused,
@@ -455,6 +464,9 @@ class DetectionServer:
             }
             ticks = self._tick_times.snapshot()
             lags = self._lag_times.snapshot()
+        graphed = [p for p in self._detector.tick_programs() if p.graphed]
+        out["tick_graphs"] = sum(len(p.keys) for p in graphed)
+        out["tick_replays"] = sum(sum(p.replays().values()) for p in graphed)
         if self._last_tick_error is not None:
             out["last_tick_error"] = self._last_tick_error
         if ticks.size:

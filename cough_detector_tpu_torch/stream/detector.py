@@ -2,7 +2,8 @@
 
 The port of `cough_detector_tpu/stream/detector.py`. `StreamingDetector`:
 S concurrent streams scored in one batched tick on one device. Each tick
-is `ring.stream_step` with this detector's `score_fn`: peak-normalize →
+is `ring.stream_step` with this detector's `score_fn` (on the card a
+captured CUDA graph of it, one a tick key): peak-normalize →
 `ops.frontend.extract_features_fast` (the fused CUDA kernel on the card) →
 classifier → softmax. `CoughDetectorInference` wraps it in the reference's
 single-stream API (`predict`, `process_audio_chunk`, `reset`,
@@ -160,14 +161,20 @@ class StreamingDetector:
         return self._state.windows_emitted
 
     def reset(self) -> None:
-        self._state = ring.init_state(
-            self.num_streams,
-            self.chunk_size,
-            self.window_samples,
-            self.stream_config.smoothing_window,
-            self.stream_config.confidence_threshold,
-            device=self.device,
-        )
+        """Empty every lane and restore the constructor's thresholds, in
+        place: the captured ticks keep reading and writing the same state."""
+        state = getattr(self, "_state", None)
+        if state is None:
+            self._state = ring.init_state(
+                self.num_streams,
+                self.chunk_size,
+                self.window_samples,
+                self.stream_config.smoothing_window,
+                self.stream_config.confidence_threshold,
+                device=self.device,
+            )
+        else:
+            self._state = ring.reset_state(state, self.stream_config.confidence_threshold)
         self._pending = np.zeros((self.num_streams, 0), np.float32)
 
     def _lane_mask_and_thresholds(self, indices, thresholds):
@@ -221,11 +228,19 @@ class StreamingDetector:
         """The live per-lane thresholds."""
         return self._state.threshold.cpu().numpy()
 
+    def tick_programs(self) -> list:
+        """The tick's captured programs (utils.graphs.Programs), one a
+        device block; none while the tick runs eagerly."""
+        return [] if self._step.programs is None else [self._step.programs]
+
     @torch.no_grad()
     def tick_async(self, tick: np.ndarray) -> dict:
         """Enqueue exactly one device tick, (num_streams, chunk_size)
         samples as f32, int16 PCM or uint8 μ-law, without waiting for it;
-        returns the events dict for a later `collect_events`."""
+        returns the events dict for a later `collect_events`. On the card
+        the tick is a captured graph (ring.StreamStep): the samples go up
+        through a pinned staging buffer, and the events' `packed` is a copy
+        that later ticks do not overwrite."""
         self._state, events = self._step(self._state, tick)
         return events
 
@@ -336,6 +351,9 @@ class MeshDetector:
 
     def current_thresholds(self) -> np.ndarray:
         return np.concatenate([b.current_thresholds() for b in self._blocks])
+
+    def tick_programs(self) -> list:
+        return [p for b in self._blocks for p in b.tick_programs()]
 
     def tick_async(self, tick: np.ndarray) -> dict:
         """Each device enqueues its block's rows of the tick."""

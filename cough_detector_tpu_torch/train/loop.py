@@ -132,6 +132,12 @@ class _Ranks(NamedTuple):
         return parallel.BatchSlice(self.lo, self.hi, self.pad_to, self.group)
 
 
+def _graphed_steps(dev: torch.device, group: Optional[dist.ProcessGroup]) -> bool:
+    """Whether the trainer runs its steps as captured programs: on the card,
+    in one process or over NCCL (whose collectives a graph holds)."""
+    return dev.type == "cuda" and (group is None or dist.get_backend(group) == "nccl")
+
+
 def _debug() -> bool:
     return bool(os.environ.get("CDT_DEBUG_STEP_METRICS"))
 
@@ -154,12 +160,12 @@ def _hashed(batches: Iterator[Batch], lo: int) -> Iterator[Batch]:
         yield waves, labels, mask
 
 
-def _streamed_batches(loader, epoch: int, dev: torch.device, ranks: _Ranks) -> Iterator[Batch]:
+def _host_batches(loader, epoch: int, ranks: _Ranks) -> Iterator[tuple]:
     """One epoch's batches from a loader's prefetch thread (int16 from a
     ShardLoader, float32 from a BatchLoader), this rank's rows of each
-    (across ranks the loader's process slice builds only those), uploaded
-    from pinned memory without blocking. A batch with fewer real rows than
-    `ranks.pad_to` is zero-padded under a mask."""
+    (across ranks the loader's process slice builds only those), as host
+    arrays (waves, int64 labels, float32 mask or None). A batch with fewer
+    real rows than `ranks.pad_to` is zero-padded under a mask."""
     loader.set_epoch(epoch)
     lo, hi = ranks.lo, ranks.hi
     for item in loader:
@@ -173,9 +179,14 @@ def _streamed_batches(loader, epoch: int, dev: torch.device, ranks: _Ranks) -> I
                 labels = np.pad(labels, (0, hi - lo - n))
         if _debug():
             _debug_row_hashes(lo, waves, labels)
-        tensors = [torch.from_numpy(waves), torch.from_numpy(labels.astype(np.int64))]
-        if n < ranks.pad_to:
-            tensors.append(torch.from_numpy((np.arange(lo, hi) < n).astype(np.float32)))
+        mask = (np.arange(lo, hi) < n).astype(np.float32) if n < ranks.pad_to else None
+        yield waves, labels.astype(np.int64), mask
+
+
+def _streamed_batches(loader, epoch: int, dev: torch.device, ranks: _Ranks) -> Iterator[Batch]:
+    """`_host_batches` uploaded from pinned memory without blocking."""
+    for waves, labels, mask in _host_batches(loader, epoch, ranks):
+        tensors = [torch.from_numpy(a) for a in (waves, labels) + (() if mask is None else (mask,))]
         if dev.type == "cuda":
             tensors = [t.pin_memory().to(dev, non_blocking=True) for t in tensors]
         yield tensors[0], tensors[1], tensors[2] if len(tensors) == 3 else None
@@ -241,15 +252,18 @@ def _uploaded_windows(windows, dev: torch.device):
 
 
 def _accumulate(pending) -> Tuple[EpochAccumulator, list]:
-    """Fold a list of per-step device metric dicts into an accumulator,
-    with one device-to-host copy; also returns the per-step losses."""
+    """Fold per-step device metrics, a list of dicts (the eager steps) or
+    (keys, (steps, k) rows) (the captured ones), into an accumulator, with
+    one device-to-host copy; also returns the per-step losses."""
     acc = EpochAccumulator()
-    if not pending:
+    if isinstance(pending, tuple):
+        keys, rows = pending
+        rows = rows.cpu().numpy()
+    elif not pending:
         return acc, []
-    keys = list(pending[0])
-    rows = torch.stack(
-        [torch.stack([m[k].to(torch.float64) for k in keys]) for m in pending]
-    ).cpu().numpy()
+    else:
+        keys = list(pending[0])
+        rows = torch.stack([steps.metric_row(m, keys) for m in pending]).cpu().numpy()
     for row in rows:
         acc.update(dict(zip(keys, row)))
     return acc, [float(np.float32(r[keys.index("loss")])) for r in rows]
@@ -527,8 +541,70 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
         val_loader.set_process_slice(ranks.lo, ranks.hi, ranks.pad_to)
         print(f"Input sharding: rank {ranks.rank} builds batch rows [{ranks.lo}, {ranks.hi}) of {ranks.pad_to}")
 
+    rand = steps.StepRandom(dev)
+
     def window_steps(corpus, mats):
         return _hashed(steps.window_batches(corpus, mats, ranks.lo, ranks.hi, gather), ranks.lo)
+
+    # The steps as captured CUDA graphs on the card (the JAX package's
+    # jitted and scanned steps), unless the process group is gloo, whose
+    # collectives a graph cannot hold: decided here, from the backend,
+    # before any capture.
+    graphed = _graphed_steps(dev, group)
+    if graphed:
+        def probe(waves, labels):
+            if _debug():
+                _debug_row_hashes(ranks.lo, waves.cpu().numpy(), labels.cpu().numpy())
+
+        programs = steps.StepPrograms(
+            model, optimizer, class_weights, rand, train_features, eval_features,
+            mixup_alpha=mixup_alpha, rows=rows, gather=gather,
+            probe=None if placement == "streamed" else probe,
+        )
+        train_window, eval_window = steps.make_window_fns(programs)
+        statics = {}  # chunked windows: one corpus buffer a role, so its graphs read one address
+        print(
+            "Steps: captured CUDA graphs, one a (train or eval, masked or not, batch, input) key"
+            if dev.type == "cuda" else "Steps: captured programs, called directly on the CPU",
+            flush=True,
+        )
+    elif dev.type != "cuda":
+        print("Steps: eager (the CPU runs the plain steps)", flush=True)
+    elif group is not None:
+        print(f"Steps: eager ({dist.get_backend(group)}'s collectives cannot be captured)", flush=True)
+    else:
+        print("Steps: eager", flush=True)
+
+    def static_window(role, corpus):
+        if placement != "chunked":
+            return corpus
+        buf = statics.get(role)
+        if buf is None or buf.shape[0] < corpus.shape[0]:
+            buf = statics[role] = torch.empty_like(corpus)
+        buf[: corpus.shape[0]].copy_(corpus)
+        return buf
+
+    def run_train_graphed(epoch, ws):
+        if placement == "streamed":
+            rows_ = [
+                programs.train(None, None, labels, mask, tcfg.seed, epoch, s, waves=waves)
+                for s, (waves, labels, mask) in enumerate(_host_batches(train_loader, epoch, ranks))
+            ]
+            return steps.TRAIN_KEYS, torch.stack(rows_)
+        return steps.TRAIN_KEYS, torch.cat([
+            train_window(static_window("train", corpus), mats_w, tcfg.seed, epoch, s0) for s0, corpus, mats_w in ws
+        ])
+
+    def run_eval_graphed():
+        if placement == "streamed":
+            rows_ = [
+                programs.eval(None, None, labels, mask, waves=waves)
+                for waves, labels, mask in _host_batches(val_loader, 0, ranks)
+            ]
+            return steps.EVAL_KEYS, torch.stack(rows_)
+        return steps.EVAL_KEYS, torch.cat([
+            eval_window(static_window("val", corpus), mats_w) for _, corpus, mats_w in val_windows_d()
+        ])
 
     early = EarlyStopping(tcfg.patience, tcfg.early_stop_min_delta)
     # -1, not the reference's 0.0: a fresh run always writes best_model at
@@ -552,7 +628,6 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
     metrics_log = JsonlLogger(str(out / "metrics.jsonl")) if is_main else None
     epochs = max_epochs if max_epochs is not None else tcfg.epochs
     best_path = str(out / "best_model")
-    rand = steps.StepRandom(dev)
     # One process writes on the background thread; across ranks rank 0
     # writes synchronously and a barrier follows before any rank reads.
     background = ranks.world == 1
@@ -617,6 +692,8 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
         return stop
 
     def run_train(epoch):
+        if graphed and placement == "streamed":
+            return run_train_graphed(epoch, None)
         if placement == "streamed":
             return steps.train_steps(
                 model, optimizer, _streamed_batches(train_loader, epoch, dev, ranks),
@@ -628,6 +705,8 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
             for m in mats:
                 crc = zlib.crc32(np.ascontiguousarray(m).tobytes(), crc)
             print(f"SCAN_MATS epoch={epoch} crc={crc}", flush=True)
+        if graphed:
+            return run_train_graphed(epoch, ws)
         pending = []
         for s0, corpus, mats_w in ws:
             pending += steps.train_steps(
@@ -637,6 +716,8 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
         return pending
 
     def run_eval():
+        if graphed:
+            return run_eval_graphed()
         if placement == "streamed":
             return steps.eval_steps(
                 model, _streamed_batches(val_loader, 0, dev, ranks), class_weights, eval_features, rows

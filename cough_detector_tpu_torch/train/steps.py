@@ -33,8 +33,9 @@ import numpy as np
 import torch
 
 from .. import parallel
-from ..augment.spec import mixup
+from ..augment.spec import mixup, mixup_draws as draw_mixup, mixup_drawn
 from ..config import TrainConfig
+from ..utils import graphs
 from .schedule import make_epoch_schedule
 
 
@@ -119,9 +120,13 @@ class ClippedAdamW:
     semantics without parameter groups, as the reference uses it).
 
     `step(grads)` updates the parameters in place from one gradient per
-    parameter; the update count `count` stays on the host, so reading the
-    schedule costs no device sync. Adam's b1, b2 and eps are optax's
-    defaults, which the JAX package uses."""
+    parameter. It is `advance()`, which counts the update on the host and
+    gives its scalars (minus the learning rate and Adam's two bias
+    corrections, computed in float64 and stored as float32), then
+    `update(grads, scalars)` with the scalars as a device tensor: a
+    captured step stages them in before each replay, so no host value is
+    baked into the graph. Reading the schedule costs no device sync. Adam's
+    b1, b2 and eps are optax's defaults, which the JAX package uses."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -151,23 +156,34 @@ class ClippedAdamW:
         torch._foreach_mul_(out, torch.where(keep, one, one * self.max_norm))
         return out
 
-    @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
-        g = self.clip(grads)
+    def advance(self) -> np.ndarray:
+        """Count one update; its scalars [-lr, 1 - b1^t, 1 - b2^t] as
+        float32, with lr the schedule's at the count before the update."""
         lr = self.schedule(self.count)
         self.count += 1
+        t = self.count
+        return np.array([-lr, 1 - self.B1**t, 1 - self.B2**t], np.float64).astype(np.float32)
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], scalars: torch.Tensor) -> None:
+        """The update from `grads` with `advance()`'s scalars, a (3,)
+        float32 tensor on the parameters' device."""
+        g = self.clip(grads)
         b1, b2 = self.B1, self.B2
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, g, alpha=1 - b1)
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, g, g, value=1 - b2)
-        mu_hat = torch._foreach_div(self.mu, 1 - b1**self.count)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1 - b2**self.count))
+        mu_hat = torch._foreach_div(self.mu, scalars[1])
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, scalars[2]))
         torch._foreach_add_(denom, self.EPS)
         update = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_mul_(update, -lr)
+        torch._foreach_mul_(update, scalars[0])
         torch._foreach_add_(self.params, update)
+
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        self.update(grads, torch.from_numpy(self.advance()).to(self.params[0].device))
 
     def state_dict(self) -> dict:
         return {
@@ -260,6 +276,8 @@ def train_step(
     feature_fn: Optional[Callable] = None,
     mask: Optional[torch.Tensor] = None,
     mixup_alpha: Optional[float] = None,
+    mixup_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    opt_scalars: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """One optimization step; returns its metrics as device tensors (no
     sync). `feature_fn(waves, generator)` featurizes raw waveforms on the
@@ -268,14 +286,21 @@ def train_step(
     `mask` keeps padded rows out of the loss, the metrics and the BatchNorm
     statistics. `mixup_alpha` mixes the feature images and one-hot labels
     with partners drawn from `rand.mixup` and switches the loss to soft
-    labels; accuracy stays against the hard labels."""
+    labels; accuracy stays against the hard labels.
+
+    A captured step (StepPrograms) passes what the host draws and counts as
+    device tensors: `mixup_draws` (λ, partners) from `rand.mixup`, and
+    `opt_scalars` from `optimizer.advance()`, which it then does not call."""
     feats = (
         feature_fn(waves_or_feats, rand.aug) if feature_fn is not None else waves_or_feats
     )
     soft = None
     if mixup_alpha is not None:
         onehot = one_hot(labels, class_weights.shape[0], feats.dtype)
-        feats, soft = mixup(feats, onehot, rand.mixup, mixup_alpha, mask=mask)
+        if mixup_draws is None:
+            feats, soft = mixup(feats, onehot, rand.mixup, mixup_alpha, mask=mask)
+        else:
+            feats, soft = mixup_drawn(feats, onehot, *mixup_draws, mask=mask)
     loss, logits, grads = loss_and_grads(
         model, feats, labels, class_weights, mask, soft, rand.dropout
     )
@@ -284,7 +309,10 @@ def train_step(
     sl = parallel.active_slice()
     if sl is not None and sl.group is not None:
         metrics, grads = _sum_over_ranks(sl.group, metrics, grads)
-    optimizer.step(grads)
+    if opt_scalars is None:
+        optimizer.step(grads)
+    else:
+        optimizer.update(grads, opt_scalars)
     return metrics
 
 
@@ -407,3 +435,170 @@ def eval_steps(
         return [
             eval_step(model, w, lab, class_weights, feature_fn, m) for w, lab, m in batches
         ]
+
+
+# -- the steps as captured programs ---------------------------------------------------
+
+TRAIN_KEYS = ("loss", "correct", "count")
+EVAL_KEYS = ("loss", "correct", "count", "tp", "fp", "fn", "tn")
+
+
+def metric_row(metrics: Dict[str, torch.Tensor], keys: Sequence[str]) -> torch.Tensor:
+    """A step's metrics as one float64 row in `keys`' order."""
+    return torch.stack([metrics[k].to(torch.float64) for k in keys])
+
+
+class StepPrograms:
+    """`train_step` and `eval_step` as captured programs (utils.graphs):
+    the port's counterpart of the JAX package's jitted and scanned steps.
+
+    One graph a (train or eval, masked or not, rows in hand, input) key,
+    where the input is a corpus on the device (its rows gathered inside the
+    program by `gather(corpus, idx)`, `index_select` by default) or a batch
+    of waves handed in. Before each replay the host reseeds `rand`'s
+    generators (registered with every graph) for (seed, epoch, step),
+    counts the optimizer's update, and stages the batch's indices and
+    labels, its mask, the optimizer's scalars and MixUp's draws into the
+    static inputs. The program is the eager step itself, so a replay
+    equals it bit for bit. On the CPU the same object calls the steps on
+    the static buffers.
+
+    `rows`: this rank's slice of each global batch (data parallelism over
+    NCCL, whose collectives are captured with the step; gloo's cannot be,
+    and the trainer runs the eager steps then). `probe(waves, labels)`, when
+    given, sees each step's gathered batch after its replay (the trainer's
+    row-hash probe)."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        optimizer: ClippedAdamW,
+        class_weights: torch.Tensor,
+        rand: StepRandom,
+        train_features: Optional[Callable] = None,
+        eval_features: Optional[Callable] = None,
+        *,
+        mixup_alpha: Optional[float] = None,
+        rows: Optional[parallel.BatchSlice] = None,
+        gather: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+        probe: Optional[Callable[[torch.Tensor, torch.Tensor], None]] = None,
+    ):
+        dev = class_weights.device
+        self.model, self.optimizer, self.class_weights, self.rand = model, optimizer, class_weights, rand
+        self.train_features, self.eval_features = train_features, eval_features
+        self.mixup_alpha, self.rows, self.probe = mixup_alpha, rows, probe
+        self.gather = gather or (lambda corpus, idx: corpus.index_select(0, idx))
+        gens = (rand.aug, rand.dropout) if dev.type == "cuda" else ()
+        self.programs = graphs.Programs(dev, generators=gens, name="step")
+
+    def _inputs(self, corpus, idx, labels, mask, waves) -> Tuple[tuple, dict]:
+        b = len(labels)
+        batch = np.stack([np.zeros(b, np.int64) if idx is None else np.asarray(idx, np.int64),
+                          np.asarray(labels, np.int64)])
+        inputs = {"batch": batch}
+        if mask is not None:
+            inputs["mask"] = mask
+        if corpus is None:
+            inputs["waves"] = waves
+            source = ("waves", str(waves.dtype))
+        else:
+            source = ("corpus", corpus.data_ptr(), tuple(corpus.shape), str(corpus.dtype))
+        return (mask is not None, b) + source, inputs
+
+    def _batch(self, corpus, static):
+        waves = static["waves"] if corpus is None else self.gather(corpus, static["batch"][0])
+        return waves, static["batch"][1], static.get("mask")
+
+    def train(self, corpus: Optional[torch.Tensor], idx, labels, mask, seed: int, epoch: int, step: int,
+              waves=None) -> torch.Tensor:
+        """Train step `step` of `epoch` on the rows `idx` of `corpus` (or on
+        `waves`, with corpus None); `idx`, `labels`, `mask` (None: a full
+        batch) are host arrays of the rows in hand. Returns the step's
+        TRAIN_KEYS row on the device."""
+        key, inputs = self._inputs(corpus, idx, labels, mask, waves)
+        mixed = self.mixup_alpha is not None
+        self.rand.key(seed, epoch, step)
+        inputs["opt"] = self.optimizer.advance()
+        if mixed:
+            total = len(labels) if self.rows is None else self.rows.total
+            inputs["lam"], inputs["perm"] = draw_mixup(self.rand.mixup, total, self.mixup_alpha)
+
+        def program(static):
+            waves, labels, mask = self._batch(corpus, static)
+            with parallel.batch_slice(self.rows):
+                m = train_step(
+                    self.model, self.optimizer, waves, labels, self.class_weights, self.rand,
+                    self.train_features, mask, self.mixup_alpha,
+                    mixup_draws=(static["lam"], static["perm"]) if mixed else None,
+                    opt_scalars=static["opt"],
+                )
+            return metric_row(m, TRAIN_KEYS), waves, labels
+
+        return self._run(("train",) + key, program, inputs)
+
+    def eval(self, corpus: Optional[torch.Tensor], idx, labels, mask, waves=None) -> torch.Tensor:
+        """`eval_step` on a batch given as to `train`; its EVAL_KEYS row."""
+        key, inputs = self._inputs(corpus, idx, labels, mask, waves)
+
+        def program(static):
+            waves, labels, mask = self._batch(corpus, static)
+            with parallel.batch_slice(self.rows):
+                m = eval_step(self.model, waves, labels, self.class_weights, self.eval_features, mask)
+            return metric_row(m, EVAL_KEYS), waves, labels
+
+        return self._run(("eval",) + key, program, inputs)
+
+    def _run(self, key, program, inputs) -> torch.Tensor:
+        row, waves, labels = self.programs(key, program, inputs, copy=(True, False, False))
+        if self.probe is not None:
+            self.probe(waves, labels)
+        return row
+
+
+Mats = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+def _rank_rows(mats: Mats, rows: Optional[parallel.BatchSlice]) -> Iterator[tuple]:
+    """(idx, labels, mask or None) of each step of (steps, B) matrices,
+    cut to the rank's columns; a step with no padding carries mask None."""
+    idx, labels, mask = mats
+    lo, hi = (0, idx.shape[1]) if rows is None else (rows.lo, rows.hi)
+    full = mask.all(axis=1)
+    for s in range(idx.shape[0]):
+        yield idx[s, lo:hi], labels[s, lo:hi], None if full[s] else np.ascontiguousarray(mask[s, lo:hi])
+
+
+def make_window_fns(programs: StepPrograms) -> Tuple[Callable, Callable]:
+    """(train_window(corpus, mats, seed, epoch, step0), eval_window(corpus,
+    mats)): the captured steps replayed over one run of steps, the (steps,
+    B) index, label and mask matrices of a corpus on the device (a whole
+    resident corpus, or one chunked window with its own indices; JAX:
+    `make_window_fns`). Step s of a train window is keyed by (seed, epoch,
+    step0 + s), so windows carry the step offset. Each returns the
+    window's (steps, k) metric rows, kept on the device."""
+
+    def train_window(corpus, mats: Mats, seed: int, epoch: int, step0: int = 0) -> torch.Tensor:
+        return torch.stack([
+            programs.train(corpus, idx, labels, mask, seed, epoch, step0 + s)
+            for s, (idx, labels, mask) in enumerate(_rank_rows(mats, programs.rows))
+        ])
+
+    def eval_window(corpus, mats: Mats) -> torch.Tensor:
+        return torch.stack([
+            programs.eval(corpus, idx, labels, mask) for idx, labels, mask in _rank_rows(mats, programs.rows)
+        ])
+
+    return train_window, eval_window
+
+
+def make_fused_epoch_fn(programs: StepPrograms) -> Callable:
+    """epoch_fn(train_corpus, mats, val_corpus, val_mats, seed, epoch) →
+    (train rows, val rows): the train graph replayed over an epoch's
+    matrices, then the eval graph over the validation pass, the metrics
+    kept on the device for one fetch (JAX: `make_fused_epoch_fn`)."""
+    train_window, eval_window = make_window_fns(programs)
+
+    def epoch_fn(train_corpus, mats: Mats, val_corpus, val_mats: Mats, seed: int, epoch: int):
+        return train_window(train_corpus, mats, seed, epoch), eval_window(val_corpus, val_mats)
+
+    return epoch_fn

@@ -13,8 +13,14 @@ the order a b c c b a):
   c. no deterministic mode (cuDNN may pick nondeterministic algorithms).
 Then, under torch.profiler over 5 batch-32 steps in settings a and b: the
 device kernels and the aten calls (nested ones included) a step, the
-device's busy time a step and the largest device items. Prints the card's
-name and power limit first. Needs a CUDA card and nvcc; imports no JAX.
+device's busy time a step and the largest device items. Last, in setting
+b, the batch-32 step as the trainer runs it on the card, a captured CUDA
+graph (train/steps.py::StepPrograms: the batch's rows gathered from the
+corpus inside the graph), beside the eager step, in turns (eager, graphed,
+graphed, eager): CUDA events, the host clock to a synchronize and the
+host's enqueue time over 30 steps, and under torch.profiler the device
+kernels and aten calls a step. Prints the card's name and power limit
+first. Needs a CUDA card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import itertools
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -39,6 +46,7 @@ from cough_detector_tpu_torch.data import quantize, synth  # noqa: E402
 from cough_detector_tpu_torch.models import create_model, init_weights, no_tf32  # noqa: E402
 from cough_detector_tpu_torch.ops import frontend_kernel  # noqa: E402
 from cough_detector_tpu_torch.train import StepRandom, make_optimizer, train_step  # noqa: E402
+from cough_detector_tpu_torch.train.steps import StepPrograms  # noqa: E402
 from cough_detector_tpu_torch.train.loop import deterministic, make_feature_fns  # noqa: E402
 
 SETTINGS = ("deterministic+fill", "deterministic", "plain")
@@ -115,6 +123,44 @@ def main() -> None:
             f"and {len(aten) / 5:.1f} aten calls a step, device busy {busy_ms(kernels) / 5:.4f} ms a step; "
             f"largest device items (ms a step): {top}"
         )
+
+    programs = StepPrograms(model, opt, cw, rand, feature_fn)
+    idx, lab = np.arange(32), np.arange(32) % 2
+    ways = {
+        "eager": lambda: step(32),
+        "graphed": lambda: programs.train(corpus, idx, lab, None, 0, 0, next(count)),
+    }
+
+    def timed(fn) -> tuple:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(30):
+            fn()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return enqueue * 1e3 / 30, (time.perf_counter() - t0) * 1e3 / 30, cuda_ms(fn, 30)
+
+    with deterministic(dev):
+        runs = {}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            runs.setdefault(name, []).append(timed(ways[name]))
+        for name, fn in ways.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.events()
+            kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("cdt.")]
+            aten = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("aten::")]
+            print(
+                f"batch-32 step, {name} [deterministic]: host enqueue "
+                + ", ".join(f"{r[0]:.4f}" for r in runs[name]) + " ms, host clock to a synchronize "
+                + ", ".join(f"{r[1]:.4f}" for r in runs[name]) + " ms, CUDA events "
+                + ", ".join(f"{r[2]:.4f}" for r in runs[name]) + " ms a step (30 steps, two turns); "
+                f"torch.profiler over 5 steps: {len(kernels) / 5:.1f} device kernels and "
+                f"{len(aten) / 5:.1f} aten calls a step, device busy {busy_ms(kernels) / 5:.4f} ms a step"
+            )
 
 
 if __name__ == "__main__":
