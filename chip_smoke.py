@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA card: serving, training, files
 to detections, the serving daemon with the native tiers, the tools between
-training and serving, training and scoring across ranks and devices, and
-the captured programs (CUDA graphs) of the tick and the train step.
+training and serving, training and scoring across ranks and devices, the
+captured programs (CUDA graphs) of the tick and the train step, and the
+pipelined epochs and the scoring programs.
 
     python3 chip_smoke.py
 
@@ -159,7 +160,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the batch-32 step by CUDA events and the host clock. Phase 8 checks
      that every daemon tick of every format and tier replays a graph its
      warm ticks captured, and that cli.serve reports its tick graphs;
- 12. prints the kernels' JSON line, then the device line last.
+ 12. pipelined epochs and the scoring programs (budget 30 s, seconds
+     printed by sub-step, under build/smoke_pipeline/): train() for 3
+     epochs of phase 6's corpus pipelined one deep (the loop's choice for
+     one process with a resident corpus) and synchronous, then both with an
+     early stop forced at epoch 1 by patience: per-step losses, parameters
+     with BN statistics, moments, both checkpoints and metrics.jsonl (less
+     timings) bit-equal, launches one a finished epoch's step, the
+     in-memory model and optimizer count the last finished epoch's, every
+     epoch e+1's first replay before epoch e's fetch; epoch walls, the host
+     time from epoch e's metrics in hand to e+1's first replay (negative
+     pipelined, and below every synchronous one), the idle share over
+     epochs 1-2 of a profiled run of each. Every scoring path as captured
+     programs against its eager function, bit for bit: score_recording on
+     phase 7's recording (windows/s of the call and of a 1024-window batch,
+     peak device memory, graphed beside eager), cli.evaluate on the 256
+     validation shards, cli.featurize on 16 clips with and without
+     --augment, extract-segments' scorer, CoughDetectorInference.predict;
+     each path's keys, replays and launches through replays. Phases 5, 7,
+     9 and 10 score through the same programs;
+ 13. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
 never JAX. It downloads nothing: the data are synthesized from seeds.
@@ -561,8 +581,10 @@ def train_phase(smi: str) -> dict:
               shards_dir=str(shards), resume=str(out_a / "latest_model"))
     events = prof.events()
     epoch_ev = [e for e in events if e.device_type == DeviceType.CPU and e.name == "cdt.epoch"]
-    last = recs_a[-1]
-    plain_ms = (n_train / last["train_clips_per_sec"] + n_val / last["val_clips_per_sec"]) * 1e3
+    # The unprofiled epoch: epoch 2's wall_s delta. The pipelined loop's
+    # rates both denominate over a window that holds the epoch before's
+    # tail, so they are not this epoch's time.
+    plain_ms = deltas[-1] * 1e3
     epoch_idle = None
     if len(epoch_ev) == 1:
         lo, hi = epoch_ev[0].time_range.start, epoch_ev[0].time_range.end
@@ -572,7 +594,7 @@ def train_phase(smi: str) -> dict:
         print(
             f"[{smi}] one epoch under torch.profiler: {span:.3f} ms span, device busy {busy:.3f} ms, "
             f"idle share {1 - busy / span:.3f}; against the unprofiled epoch 2 of train() "
-            f"({plain_ms:.3f} ms train + val): idle share {1 - busy / plain_ms:.3f}",
+            f"({plain_ms:.3f} ms, its wall_s delta): idle share {1 - busy / plain_ms:.3f}",
             flush=True,
         )
     else:
@@ -1662,8 +1684,15 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
         strip = lambda rs: [{k: v for k, v in r.items() if k not in skip} for r in rs]  # noqa: E731
         return strip(records(a)) == strip(records(b))
 
-    def step_ms(out: Path) -> float:
-        return bs / records(out)[-1]["train_clips_per_sec"] * 1e3
+    def step_ms(out: Path, pipelined: bool = False) -> float:
+        """The batch-32 step's ms from epoch 1's record: a synchronous run's
+        train pass over its steps; a pipelined run's wall_s delta over its
+        train and eval steps (its rates denominate over a window that holds
+        epoch 0's tail)."""
+        r = records(out)
+        if pipelined:
+            return (r[-1]["wall_s"] - r[-2]["wall_s"]) / steps_per_run[1] * 1e3
+        return bs / r[-1]["train_clips_per_sec"] * 1e3
 
     def probes(text: str, pattern: str) -> list:
         return [m.groups() for m in re.finditer(pattern, text)]
@@ -1927,9 +1956,10 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
     if not sync_same:
         fail("synchronous checkpoint saves change the run")
     seconds["10.d checkpoint writer"] = time.perf_counter() - t0
-    plain_ms, nccl_ms = step_ms(root / "plain"), step_ms(root / "nccl")
+    plain_ms, nccl_ms = step_ms(root / "plain", True), step_ms(root / "nccl", True)
     print(
-        f"[{smi}] train step at batch 32 (metrics.jsonl, epoch 1): plain {plain_ms:.4f} ms, NCCL at world size 1 "
+        f"[{smi}] train step at batch 32 (metrics.jsonl, epoch 1; the one-process runs pipelined: wall_s delta over "
+        f"the epoch's train and eval steps): plain {plain_ms:.4f} ms, NCCL at world size 1 "
         f"{nccl_ms:.4f} ms (both with the probes off), two ranks on one card over gloo {gloo_ms:.4f} ms (16 rows a "
         f"rank, phase 6's corpus, with the probes' copy of every batch to the host; gloo stages every collective "
         f"through host memory: its time is the host transport's, not NCCL's between cards)",
@@ -2207,8 +2237,9 @@ def graphs_phase(smi: str, trained: dict, weights: dict, cfg) -> dict:
             epoch_idle[name] = None
     for name in ("graph", "eager"):
         print(
-            f"[{smi}] train() {name}: epoch walls (metrics.jsonl wall_s; epoch 0 holds the loop's set-up"
-            f"{' and the captures' if name == 'graph' else ''}) {[round(w, 3) for w in walls[name]]} s; idle "
+            f"[{smi}] train() {name}: epoch walls (metrics.jsonl wall_s, both runs pipelined; epoch 0 holds the "
+            f"loop's set-up{' and the captures' if name == 'graph' else ' and epoch 1, whose eager steps wait on the card one by one before epoch 0 is recorded'}"
+            f") {[round(w, 3) for w in walls[name]]} s; idle "
             f"share over one profiled epoch "
             f"{'not measured' if epoch_idle[name] is None else format(epoch_idle[name], '.3f')}",
             flush=True,
@@ -2273,6 +2304,367 @@ def graphs_phase(smi: str, trained: dict, weights: dict, cfg) -> dict:
         "train_launches": train_launches, "step_replay_launches": step_launches,
         "tick_ms": tick_ms, "tick_idle": idle, "epoch_walls": walls, "epoch_idle": epoch_idle,
         "step_ms": step_ms,
+    }
+
+
+def pipeline_phase(smi: str, trained: dict, files: dict) -> dict:
+    """Phase 12, pipelined epochs and the scoring programs (budget 30 s,
+    seconds printed by sub-step, under build/smoke_pipeline/). Training:
+    train() for 3 epochs on phase 6's corpus pipelined one deep (the loop's
+    own choice for one process with a resident corpus) and synchronous
+    (`loop._PIPELINED` False), then both with an early stop forced at epoch
+    1 by patience: per-step losses, parameters with BatchNorm statistics,
+    moments, both checkpoints and metrics.jsonl (less timings) bit-equal,
+    launches one a finished epoch's step (none of a discarded epoch's), the
+    in-memory model and optimizer count the last finished epoch's; every
+    epoch e+1's first replay before epoch e's fetch when pipelined; the
+    epoch walls, the host time from epoch e's metrics in hand to e+1's
+    first replay (negative pipelined, below every synchronous one), and the
+    device idle share from epoch 0's results to epoch 1's in a profiled
+    2-epoch run of each and against the unprofiled epoch walls.
+    Scoring: each path as captured programs against its eager function
+    (graphs.Programs calling it on its static buffers), bit for bit: phase
+    7's 10-minute recording through score_recording (events, window
+    probabilities; windows/s of the call and of a 1024-window batch, peak
+    device memory), cli.evaluate on phase 6's 256 validation shards,
+    cli.featurize on 16 clips with and without --augment, extract-segments'
+    scorer on two sets of candidates and CoughDetectorInference.predict;
+    each path's keys, replays and launches through replays."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cough_detector_tpu_torch.cli import evaluate as evaluate_cli
+    from cough_detector_tpu_torch.cli import extract_segments as segments_cli
+    from cough_detector_tpu_torch.cli import featurize as featurize_cli
+    from cough_detector_tpu_torch.config import Config, TrainConfig
+    from cough_detector_tpu_torch.data import audio_io
+    from cough_detector_tpu_torch.models import model_from_config, place_model
+    from cough_detector_tpu_torch.ops import frontend, frontend_kernel
+    from cough_detector_tpu_torch.stream import CoughDetectorInference, offline
+    from cough_detector_tpu_torch.stream.detector import _load_checkpoint
+    from cough_detector_tpu_torch.train import checkpoint, loop, steps
+    from cough_detector_tpu_torch.utils import graphs
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    dev = torch.device("cuda")
+    root = Path(__file__).resolve().parent / "build" / "smoke_pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shards, best = trained["shards"], str(trained["best_model"])
+    n_steps = 2048 // 32 + 256 // 32  # train + eval steps an epoch
+    skip = {"train_clips_per_sec", "val_clips_per_sec", "wall_s", "t"}
+
+    def launches() -> tuple:
+        return frontend_kernel.SPECTRAL_LAUNCHES, frontend_kernel.EPILOGUE_LAUNCHES
+
+    def zero_launches() -> None:
+        frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+
+    def records(out: Path) -> list:
+        return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+    # -- 12.1 pipelined epochs against the synchronous loop
+    t0 = time.perf_counter()
+    log = []  # (host start, host end, "train" / "eval" / "fetch") of each step call and fetch
+    real = dict(call=graphs.Programs.__call__, fetch=graphs.fetch, accumulate=loop._accumulate,
+                model=loop.model_from_config, optimizer=steps.make_optimizer)
+
+    def logged(kind_of, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                kind = kind_of(args)
+                if kind is not None:
+                    log.append((t, time.perf_counter(), kind))
+        return call
+
+    def train_run(name: str, pipelined: bool, tcfg, profiled: bool = False) -> dict:
+        held = {"losses": []}
+        log.clear()
+
+        def accumulate(pending):
+            t = time.perf_counter()
+            acc, losses = real["accumulate"](pending)
+            held["losses"].append(losses)
+            log.append((t, time.perf_counter(), "accumulate"))
+            return acc, losses
+
+        def model(*args, **kwargs):
+            held["model"] = real["model"](*args, **kwargs)
+            return held["model"]
+
+        def optimizer(*args, **kwargs):
+            held["optimizer"] = real["optimizer"](*args, **kwargs)
+            return held["optimizer"]
+
+        loop._PIPELINED = pipelined
+        graphs.Programs.__call__ = logged(lambda a: a[1][0] if a[0].name == "step" else None, real["call"])
+        graphs.fetch = logged(lambda a: "fetch", real["fetch"])
+        loop._accumulate, loop.model_from_config, steps.make_optimizer = accumulate, model, optimizer
+        zero_launches()
+        try:
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+                  else contextlib.nullcontext()) as prof:
+                loop.train(None, str(root / name), config=Config(train=tcfg), shards_dir=str(shards))
+        finally:
+            loop._PIPELINED = True
+            graphs.Programs.__call__, graphs.fetch = real["call"], real["fetch"]
+            loop._accumulate, loop.model_from_config, steps.make_optimizer = (
+                real["accumulate"], real["model"], real["optimizer"])
+        held.update(out=root / name, launches=launches(), log=list(log), prof=prof)
+        return held
+
+    def same_runs(a: dict, b: dict) -> dict:
+        same = {"losses": a["losses"] == b["losses"], "launches": a["launches"] == b["launches"]}
+        strip = lambda rs: [{k: v for k, v in r.items() if k not in skip} for r in rs]  # noqa: E731
+        same["metrics.jsonl"] = strip(records(a["out"])) == strip(records(b["out"]))
+        for ck in ("best_model", "latest_model"):
+            (ta, ea, _, _), (tb, eb, _, _) = (checkpoint.load_checkpoint(str(r["out"] / ck)) for r in (a, b))
+            same[ck] = ea == eb and ta["step"] == tb["step"] and all(
+                torch.equal(tb["model"][k], v) for k, v in ta["model"].items()) and all(
+                torch.equal(x, y) for x, y in zip(ta["optimizer"]["mu"] + ta["optimizer"]["nu"],
+                                                  tb["optimizer"]["mu"] + tb["optimizer"]["nu"]))
+        return same
+
+    def in_memory_is_latest(run: dict) -> bool:
+        tree = checkpoint.load_checkpoint(str(run["out"] / "latest_model"))[0]
+        opt = run["optimizer"]
+        return opt.count == tree["optimizer"]["count"] and all(
+            torch.equal(v.cpu(), tree["model"][k]) for k, v in run["model"].state_dict().items()) and all(
+            torch.equal(x.cpu(), y) for x, y in zip(opt.mu + opt.nu, tree["optimizer"]["mu"] + tree["optimizer"]["nu"]))
+
+    def first_replays(run: dict) -> list:
+        """Host start of each dispatched epoch's first train replay."""
+        kinds = [None] + [c[2] for c in run["log"]]
+        return [c[0] for prev, c in zip(kinds, run["log"]) if c[2] == "train" and prev != "train"]
+
+    def epoch_gaps(run: dict) -> list:
+        """Host ms from each epoch's metrics in hand (its validation rows
+        folded) to the next epoch's first train replay: negative when the
+        next epoch was dispatched before."""
+        in_hand = [c[1] for c in run["log"] if c[2] == "accumulate"][1::2]
+        return [(b - a) * 1e3 for a, b in zip(in_hand, first_replays(run)[1:])]
+
+    def dispatched_before_fetch(run: dict) -> bool:
+        """Every epoch e+1's first train replay came before epoch e's fetch."""
+        fetches = [c[0] for c in run["log"] if c[2] == "fetch"]
+        firsts = first_replays(run)
+        return 0 < len(fetches) <= len(firsts) and all(f > s for f, s in zip(fetches, firsts[1:]))
+
+    def epoch_1(run: dict):
+        """A profiled 2-epoch run's device busy ms and span ms from epoch 0's
+        "cdt.epoch" range's end to epoch 1's, and the busy ms inside epoch
+        1's own range (a synchronous epoch's range holds its work and no
+        more: one epoch's device time)."""
+        events = run["prof"].events()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == DeviceType.CPU and e.name == "cdt.epoch")
+        if len(spans) != 2:
+            return None
+        lo, hi = spans[0][1], spans[1][1]
+        return dict(busy=busy_ms(events, lo, hi), span=(hi - lo) / 1e3, own=busy_ms(events, *spans[1]))
+
+    three, stop = TrainConfig(epochs=3), TrainConfig(epochs=3, patience=1, early_stop_min_delta=1e9)
+    runs = {(mode, name): train_run(f"{mode}_{name}", mode == "pipelined", tcfg)
+            for name, tcfg in (("three", three), ("stop", stop)) for mode in ("pipelined", "synchronous")}
+    ok = True
+    for name, n_epochs in (("three", 3), ("stop", 2)):
+        p, s = runs[("pipelined", name)], runs[("synchronous", name)]
+        same = same_runs(p, s)
+        memory = {"pipelined": in_memory_is_latest(p), "synchronous": in_memory_is_latest(s)}
+        epochs_ok = [r["epoch"] for r in records(p["out"])] == list(range(n_epochs))
+        counts_ok = set(p["launches"]) == {n_epochs * n_steps} and p["optimizer"].count == n_epochs * 64
+        before = dispatched_before_fetch(p)
+        ok &= all(same.values()) and all(memory.values()) and epochs_ok and counts_ok and before
+        print(
+            f"train() {'3 epochs' if name == 'three' else 'an early stop forced at epoch 1 (3 asked)'} of phase 6's "
+            f"corpus, pipelined vs synchronous: {same}; epochs {len(records(p['out']))}; launches pipelined "
+            f"{p['launches']}, synchronous {s['launches']}, expected {n_epochs * n_steps} each; the in-memory model "
+            f"(BN statistics too), moments and count {p['optimizer'].count} the last finished epoch's {memory}; every "
+            f"epoch e+1's first replay before epoch e's fetch (pipelined) {before}",
+            flush=True,
+        )
+    seconds["12.1 runs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    profiled = {mode: epoch_1(train_run(f"{mode}_profiled", mode == "pipelined", TrainConfig(epochs=2),
+                                        profiled=True))
+                for mode in ("pipelined", "synchronous")}
+    # One epoch's device time, from the synchronous epoch's range (its work and no more).
+    epoch_busy = None if profiled["synchronous"] is None else profiled["synchronous"]["own"]
+    walls, gaps, idle = {}, {}, {}
+    for mode in ("pipelined", "synchronous"):
+        w = [r["wall_s"] for r in records(runs[(mode, "three")]["out"])]
+        walls[mode] = [w[0]] + [b - a for a, b in zip(w, w[1:])]
+        gaps[mode] = epoch_gaps(runs[(mode, "three")])
+        prof_idle = None if profiled[mode] is None else 1 - profiled[mode]["busy"] / profiled[mode]["span"]
+        wall_idle = None if epoch_busy is None else [1 - epoch_busy / (x * 1e3) for x in walls[mode][1:]]
+        idle[mode] = {"profiled": prof_idle, "unprofiled_walls": wall_idle}
+        print(
+            f"[{smi}] train() {mode}, 3 epochs: epoch walls (metrics.jsonl wall_s; epoch 0 holds the set-up and the "
+            f"captures) {[round(x, 4) for x in walls[mode]]} s; host ms from epoch e's metrics in hand to e+1's first "
+            f"replay (negative: e+1 dispatched before) {[round(g, 3) for g in gaps[mode]]}; device idle share from "
+            f"epoch 0's results to epoch 1's in a profiled 2-epoch run "
+            f"{'not measured' if prof_idle is None else format(prof_idle, '.3f')} (the profiler's host cost in it); "
+            f"against epochs 1-2's unprofiled walls, with one epoch's device time "
+            f"{'not measured' if epoch_busy is None else format(epoch_busy, '.3f') + ' ms'} (the synchronous "
+            f"profiled epoch's): {'not measured' if wall_idle is None else [round(x, 3) for x in wall_idle]}",
+            flush=True,
+        )
+    shorter = max(gaps["pipelined"]) < min(gaps["synchronous"])
+    if not (ok and shorter):
+        fail("pipelined epochs differ from the synchronous loop, or e+1 was not dispatched before e's fetch")
+    seconds["12.1 profiled runs"] = time.perf_counter() - t0
+
+    # -- 12.2 the scoring programs against their eager functions
+    t0 = time.perf_counter()
+    made = []
+    real_init = graphs.Programs.__init__
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        made.append(self)
+
+    class Eager(graphs.Programs):
+        """The function called on the static buffers, no graph."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.graphed = False
+
+    def scored(mode: str, fn):
+        """fn() with the paths' programs graphed or eager: (its result, the
+        launches it counted, the Programs it made)."""
+        made.clear()
+        graphs.Programs.__init__ = init
+        saved = graphs.Programs
+        if mode == "eager":
+            graphs.Programs = Eager
+        zero_launches()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            graphs.Programs = saved
+            graphs.Programs.__init__ = real_init
+        return out, launches(), list(made)
+
+    wave = audio_io.load_mono_16k(files["recording"])
+    variables, config = _load_checkpoint(best)
+    n_windows = (len(wave) - SR) // 4000 + 1
+    results, paths = {}, {}
+    call_s, peak = {"graph": [], "eager": []}, {}
+    for mode in ("graph", "eager", "graph", "eager"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = scored(mode, lambda: offline.score_recording(wave, variables, config, threshold=0.0))
+        call_s[mode].append(time.perf_counter() - t1)
+        peak[mode] = torch.cuda.max_memory_allocated() - base
+        results.setdefault(("offline", mode), out)
+    for mode in ("graph", "eager"):
+        results[("offline probabilities", mode)] = scored(mode, lambda: offline.window_probs(wave, variables, config))
+    val = str(shards / "val")
+    for mode in ("graph", "eager"):
+        results[("evaluate", mode)] = scored(mode, lambda: json.loads(run_cli(
+            evaluate_cli.main, ["--model", best, "--data-dir", val, "--batch-size", "64"],
+            echo=False).strip().splitlines()[-1]))
+    clips = root / "clips16"
+    for sub in ("cough", "non_cough"):
+        (clips / sub).mkdir(parents=True)
+        for p in sorted((files["data"] / sub).glob("*.wav"))[:8]:
+            (clips / sub / p.name).symlink_to(p)
+    for aug in ((), ("--augment",)):
+        for mode in ("graph", "eager"):
+            npz = root / f"features_{mode}{len(aug)}.npz"
+
+            def feats(npz=npz, aug=aug):
+                run_cli(featurize_cli.main, ["--data-dir", str(clips), "--output", str(npz), "--num-workers", "4",
+                                             "--batch-size", "4", "--seed", "5", *aug], echo=False)
+                return np.load(npz)["features"]
+
+            results[("featurize" + "".join(aug), mode)] = scored(mode, feats)
+    segments = offline.frame_windows(torch.from_numpy(wave), SR, 4000)[:600].numpy()
+    window_feats = frontend.extract_features_fast(
+        frontend.peak_normalize(torch.from_numpy(segments[:4]).to(dev)), config.features, device=dev).cpu().numpy()
+    for mode in ("graph", "eager"):
+        def segment_scores():  # two recordings' candidates, 300 and 290 windows
+            scorer = segments_cli._make_scorer(best, "cuda")
+            return np.concatenate([scorer(segments[:300]), scorer(segments[300:590])])
+
+        def predicted():
+            facade = CoughDetectorInference(best, verbose=False)
+            return [facade.predict(x)[1] for x in (window_feats[0][None], window_feats[:, None], window_feats[1][None])]
+
+        results[("extract_segments", mode)] = scored(mode, segment_scores)
+        results[("predict", mode)] = scored(mode, predicted)
+    scoring_ok, scoring_launches, replay_launches = True, {}, {}
+    for path in dict.fromkeys(k for k, _ in results):
+        (g, g_n, g_progs), (e, e_n, _) = results[(path, "graph")], results[(path, "eager")]
+        if isinstance(g, np.ndarray):
+            same = g.shape == e.shape and np.array_equal(g, e)
+        else:
+            same = g == e
+        graphed = bool(g_progs) and all(p.graphed for p in g_progs)
+        keys = [k for p in g_progs for k in p.keys]
+        replays = sum(sum(p.replays().values()) for p in g_progs)
+        through = [sum(n) for n in zip(*[v for p in g_progs for v in p.launches().values()])] or [0, 0]
+        scoring_launches[path], replay_launches[path] = g_n, through
+        scoring_ok &= same and graphed and g_n == e_n
+        print(
+            f"scoring programs [{path}]: graphed bit-equal to eager {same}; programs {[p.name for p in g_progs]} "
+            f"on graphs {graphed}; keys {keys}; replays {replays}; launches graphed {g_n}, eager {e_n}, through "
+            f"replays (captured x replays) {through}",
+            flush=True,
+        )
+    if not (scoring_ok and results[("offline", "graph")][0] and not np.array_equal(
+            results[("featurize", "graph")][0], results[("featurize--augment", "graph")][0])):
+        fail("a scoring path's programs differ from its eager function")
+
+    # A 1024-window batch, its program's replay against the eager function.
+    model = place_model(model_from_config(config.model), dev)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
+    batch = offline.frame_windows(torch.from_numpy(wave).to(dev), SR, 4000)[:1024].contiguous()
+
+    def score(static):
+        feats = frontend.extract_features_fast(frontend.peak_normalize(static["windows"]), config.features, device=dev)
+        return (torch.softmax(model(feats), dim=-1)[:, 1],)
+
+    progs = graphs.Programs(dev, name="offline score", pool=graphs.scoring_pool(dev))
+    batch_ms = {}
+    with torch.no_grad():
+        for mode in ("graph", "eager", "graph", "eager"):
+            if mode == "graph":
+                ms = cuda_ms(lambda: progs(((1024, SR), "float32"), score, {"windows": batch}, copy=(False,)), 20)
+            else:
+                ms = cuda_ms(lambda: score({"windows": batch}), 20)
+            batch_ms.setdefault(mode, []).append(ms)
+    print(
+        f"[{smi}] score_recording, the 10-minute recording ({n_windows} windows, 3 batches of 1024), two calls each "
+        f"in turns: graphed {[round(n_windows / s) for s in call_s['graph']]} windows/s over the call "
+        f"({[round(s, 4) for s in call_s['graph']]} s; the captures included), eager "
+        f"{[round(n_windows / s) for s in call_s['eager']]} ({[round(s, 4) for s in call_s['eager']]} s); one "
+        f"1024-window batch by CUDA events: graphed {[round(m, 4) for m in batch_ms['graph']]} ms, eager "
+        f"{[round(m, 4) for m in batch_ms['eager']]} ms; peak device memory over a call above what was allocated "
+        f"before it (the call's first key captured) graphed {peak['graph'] / 2**20:.1f} MiB, eager "
+        f"{peak['eager'] / 2**20:.1f} MiB",
+        flush=True,
+    )
+    seconds["12.2 scoring programs"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(
+        "pipelined-epochs and scoring-programs phase by sub-step (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()) + f"; phase total {total:.3f} s (budget 30 s)",
+        flush=True,
+    )
+    return {
+        "train_launches": {name: runs[("pipelined", name)]["launches"] for name in ("three", "stop")},
+        "scoring_launches": scoring_launches, "scoring_replay_launches": replay_launches,
+        "epoch_walls": walls, "epoch_gaps_ms": gaps, "idle": idle, "call_s": call_s, "batch_ms": batch_ms,
+        "peak_bytes": peak,
     }
 
 
@@ -2743,7 +3135,10 @@ def main() -> None:
     # -- 11. captured programs: the graphed tick and steps against the eager ones --------
     graphed = graphs_phase(smi, trained, weights, cfg)
 
-    # -- 12. summary ---------------------------------------------------------------
+    # -- 12. pipelined epochs and the scoring programs ------------------------------------
+    pipelined = pipeline_phase(smi, trained, files)
+
+    # -- 13. summary ---------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -2776,6 +3171,12 @@ def main() -> None:
                 "train_2_epochs": graphed["train_launches"]["graph"][i],
                 "step_captured_x_replays": graphed["step_replay_launches"][i],
             },
+            "pipelined_launches": {
+                "train_3_epochs": pipelined["train_launches"]["three"][i],
+                "early_stop_2_of_3_epochs": pipelined["train_launches"]["stop"][i],
+            },
+            "scoring_launches": {path: n[i] for path, n in pipelined["scoring_launches"].items()},
+            "scoring_captured_x_replays": {path: n[i] for path, n in pipelined["scoring_replay_launches"].items()},
         }
         for i, part in enumerate(("spectral", "epilogue"))
     ]

@@ -23,6 +23,9 @@ Three modes (reference: src/train.py:114-180; IMPROVEMENT_PLAN.md:199-216,
 each batch over a mesh of devices (`--mesh`, or every visible card when
 there are several), padded to a multiple of them with the padded rows
 masked, unless `--single-device` is given; the counts equal one device's.
+Every batch pads to one shape, and each device's features and logits run
+as its replica's captured program (utils.graphs, the JAX CLI's jitted
+`step`).
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ def _dataset_eval(args) -> None:
     from ..stream.detector import _load_checkpoint
     from ..train import steps
     from ..train.loop import _accumulate, make_feature_fns
+    from ..utils import graphs
     from ..utils.device import resolve_device
 
     mesh = None if args.single_device else parallel.resolve_mesh(parallel.mesh_arg(args.mesh), args.device)
@@ -99,6 +103,8 @@ def _dataset_eval(args) -> None:
         raise SystemExit(f"No clips under {args.data_dir}")
 
     features = [make_feature_fns(config, d, use_time_shift=False)[1] for d in devices]
+    # A replica's graphs hold its parameters' addresses: programs of its own.
+    programs = [graphs.Programs(d, name="evaluate", pool=graphs.scoring_pool(d)) for d in devices]
     home = devices[0]
     class_weights = torch.ones(2, device=home)
     # Every batch pads to one shape, a multiple of the devices, under a mask
@@ -114,11 +120,14 @@ def _dataset_eval(args) -> None:
             labels = torch.from_numpy(np.pad(labels, (0, pad_to - n)).astype(np.int64)).to(home)
             mask = None if n == pad_to else torch.from_numpy((np.arange(pad_to) < n).astype(np.float32)).to(home)
             logits = []
-            for replica, feature_fn, d, (lo, hi) in zip(replicas, features, devices, bounds):
-                w = torch.from_numpy(waves[lo:hi])
-                if d.type == "cuda":
-                    w = w.pin_memory().to(d, non_blocking=True)
-                logits.append(replica(feature_fn(w)).to(home))
+            for replica, feature_fn, progs, (lo, hi) in zip(replicas, features, programs, bounds):
+                w = waves[lo:hi]
+                (out,) = progs(
+                    (w.shape, str(w.dtype)),
+                    lambda s, replica=replica, feature_fn=feature_fn: (replica(feature_fn(s["waves"])),),
+                    {"waves": w},
+                )
+                logits.append(out.to(home))
             pending.append(steps.eval_metrics(torch.cat(logits), labels, class_weights, mask))
     print(json.dumps(_accumulate(pending)[0].summary()))
 

@@ -16,7 +16,11 @@ checkpoint directory, as cli.pack takes it). Runs on the card unless given
 `--device cpu`. Each batch splits over a mesh of devices in contiguous
 blocks (`--mesh`, or every visible card when there are several), each
 device featurizing its rows; the augmentation draws are the whole batch's
-on every device, so the features equal one device's.
+on every device, so the features equal one device's. Each device's share
+of a batch runs as a captured program (utils.graphs, the JAX CLI's jitted
+`featurize`), one a (rows, dtype, augmentation, share of the batch) key,
+its generator registered with the graph, so a replay draws what the eager
+call draws.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ def main(argv=None) -> None:
     from ..data import audio_io
     from ..data.datasets import BatchLoader, ClipDataset, CoughDataset
     from ..ops import frontend
+    from ..utils import graphs
     from ..utils.device import resolve_device
     from ..utils.observability import Throughput
     from .pack import read_feature_config
@@ -86,22 +91,32 @@ def main(argv=None) -> None:
     # A generator a device, each drawing for the whole batch: all advance
     # together, and each device keeps the draws of its rows.
     gens = [torch.Generator(device=d).manual_seed(args.seed) for d in devices]
+    programs = [
+        graphs.Programs(d, generators=(gen,) if d.type == "cuda" else (), name="featurize",
+                        pool=graphs.scoring_pool(d))
+        for d, gen in zip(devices, gens)
+    ]
+
+    def program(gen, lo: int, hi: int, n: int):
+        def fn(static):
+            with parallel.batch_slice(parallel.BatchSlice(lo, hi, n)):
+                w = frontend.peak_normalize(static["waves"])
+                if args.augment:
+                    w = augment_waveforms(w, gen, p=0.3, sample_rate=cfg.sample_rate)
+                return (frontend.extract_features_fast(w, cfg, device=w.device),)
+
+        return fn
 
     @torch.no_grad()
     def featurize(waves: np.ndarray) -> np.ndarray:
         n = len(waves)
         out = []
-        for i, (d, gen) in enumerate(zip(devices, gens)):
+        for i, (gen, progs) in enumerate(zip(gens, programs)):
             lo, hi = i * n // len(devices), (i + 1) * n // len(devices)
-            w = torch.from_numpy(waves[lo:hi])
-            if d.type == "cuda":
-                w = w.pin_memory().to(d, non_blocking=True)
-            with parallel.batch_slice(parallel.BatchSlice(lo, hi, n)):
-                w = frontend.peak_normalize(w)
-                if args.augment:
-                    w = augment_waveforms(w, gen, p=0.3, sample_rate=cfg.sample_rate)
-                if hi > lo:
-                    out.append(frontend.extract_features_fast(w, cfg, device=d).cpu().numpy())
+            if hi > lo:
+                w = waves[lo:hi]
+                key = (w.shape, str(w.dtype), args.augment, lo, n)
+                out.append(progs(key, program(gen, lo, hi, n), {"waves": w}, copy=(False,))[0].cpu().numpy())
         return np.concatenate(out)
 
     feats_out, labels_out = [], []

@@ -97,3 +97,48 @@ def dft_matrices(n_fft: int, win_length: int, dtype=np.dtype(np.float32)):
     c = (np.cos(ang) * w[:, None]).astype(dtype)
     s = (-np.sin(ang) * w[:, None]).astype(dtype)
     return c, s
+
+
+@functools.lru_cache(maxsize=8)
+def four_step_dft_matrices(n_fft: int, win_length: int, n1: int = 16, dtype=np.dtype(np.float32)):
+    """Two-stage (four-step, Bailey) rDFT as dense matmuls with exact zeros.
+
+    Returns (M1c, M1s, twc, tws, M2c, M2s) such that for a frame x (n_fft,):
+        B = x @ (M1c + i·M1s)          stage-1 DFT over n1, window folded in
+        C = B ⊙ (twc + i·tws)          twiddle, elementwise
+        X = C @ (M2c + i·M2s)          stage-2 DFT over n2 → the rfft bins
+    with layouts j = k1*n2_len + n2 and output k in [0, n_fft//2 + 1). The
+    stage sums are 16 and 32 terms long where the plain DFT's is n_fft, so
+    the error follows an FFT's. The arrays are shared by every caller:
+    treat them as read-only.
+    """
+    if n_fft % n1:
+        raise ValueError(f"n_fft={n_fft} is not a multiple of n1={n1}")
+    n2 = n_fft // n1
+    n_freqs = n_fft // 2 + 1
+    w = padded_window(win_length, n_fft)
+
+    n = np.arange(n_fft)
+    n1_of, n2_of = n // n2, n % n2
+    j = np.arange(n_fft)  # j = k1*n2 + n2
+    k1_of_j, n2_of_j = j // n2, j % n2
+
+    # M1[n, j] = win[n] · ω_{n1}^{n1(n)·k1(j)} · [n2(n) == n2(j)]
+    ang1 = -2.0 * np.pi * np.outer(n1_of, k1_of_j) / n1
+    delta1 = (n2_of[:, None] == n2_of_j[None, :]).astype(np.float64)
+    m1c = (np.cos(ang1) * delta1 * w[:, None]).astype(dtype)
+    m1s = (np.sin(ang1) * delta1 * w[:, None]).astype(dtype)
+
+    # tw[j] = ω_N^{k1(j)·n2(j)}
+    ang_t = -2.0 * np.pi * k1_of_j * n2_of_j / n_fft
+    twc = np.cos(ang_t).astype(dtype)[None, :]
+    tws = np.sin(ang_t).astype(dtype)[None, :]
+
+    # M2[j, k] = ω_{n2}^{n2(j)·k2(k)} · [k1(k) == k1(j)], k = k2*n1 + k1
+    k = np.arange(n_freqs)
+    k1_of_k, k2_of_k = k % n1, k // n1
+    ang2 = -2.0 * np.pi * np.outer(n2_of_j, k2_of_k) / n2
+    delta2 = (k1_of_j[:, None] == k1_of_k[None, :]).astype(np.float64)
+    m2c = (np.cos(ang2) * delta2).astype(dtype)
+    m2s = (np.sin(ang2) * delta2).astype(dtype)
+    return m1c, m1s, twc, tws, m2c, m2s

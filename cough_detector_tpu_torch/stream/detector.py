@@ -5,9 +5,12 @@ S concurrent streams scored in one batched tick on one device. Each tick
 is `ring.stream_step` with this detector's `score_fn` (on the card a
 captured CUDA graph of it, one a tick key): peak-normalize →
 `ops.frontend.extract_features_fast` (the fused CUDA kernel on the card) →
-classifier → softmax. `CoughDetectorInference` wraps it in the reference's
-single-stream API (`predict`, `process_audio_chunk`, `reset`,
-`on_cough_detected`; reference: src/inference.py:39-247).
+classifier → softmax. `scores_for` runs the score function alone as
+captured programs too (the JAX package's `_score_jit`), one a padded batch
+shape (`utils.graphs.bucket_rows`). `CoughDetectorInference` wraps it in
+the reference's single-stream API (`predict`, its own programs, one a
+feature shape; `process_audio_chunk`, `reset`, `on_cough_detected`;
+reference: src/inference.py:39-247).
 
 Weights come as a state dict in the reference `.pt` key layout (what
 `models.convert.from_jax_variables` returns), from a reference `.pt`
@@ -35,6 +38,7 @@ from .. import parallel
 from ..config import Config, StreamConfig
 from ..models import model_from_config, place_model
 from ..ops import frontend, frontend_kernel
+from ..utils import graphs
 from ..utils.device import resolve_device
 from . import ring
 
@@ -151,6 +155,9 @@ class StreamingDetector:
 
         self._score_fn = score_fn
         self._step = ring.make_stream_step(score_fn, fcfg, self.stream_config)
+        self.score_programs = graphs.Programs(
+            self.device, name="scores_for", pool=graphs.scoring_pool(self.device)
+        )
         self.reset()
 
     # -- engine ----------------------------------------------------------
@@ -284,9 +291,21 @@ class StreamingDetector:
 
     @torch.no_grad()
     def scores_for(self, chunk: np.ndarray) -> np.ndarray:
-        """Raw per-window cough probabilities for a (B, window) batch."""
-        windows = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
-        return self._score_fn(windows).cpu().numpy()
+        """Raw per-window cough probabilities for a (B, window) batch, as
+        the score function's captured program for the batch padded to
+        `graphs.bucket_rows(B)` rows (on the card; a CPU detector calls the
+        function on the padded batch)."""
+        if isinstance(chunk, torch.Tensor):
+            windows = chunk.detach().to(self.device, torch.float32)
+        else:
+            windows = np.asarray(chunk, np.float32)
+        n = windows.shape[0]
+        windows = graphs.pad_rows(windows, graphs.bucket_rows(n))
+        (probs,) = self.score_programs(
+            (tuple(windows.shape), "float32"), lambda s: (self._score_fn(s["windows"]),),
+            {"windows": windows}, copy=(False,),
+        )
+        return probs[:n].cpu().numpy()
 
 
 class MeshDetector:
@@ -414,6 +433,9 @@ class CoughDetectorInference:
         )
         self.device = self._engine.device
         self.config = self._engine.config.to_flat_dict()
+        self.predict_programs = graphs.Programs(
+            self.device, name="predict", pool=graphs.scoring_pool(self.device)
+        )
         self.on_cough_detected: Optional[Callable[[datetime.datetime, float], None]] = None
         if verbose:
             print(
@@ -437,11 +459,18 @@ class CoughDetectorInference:
     @torch.no_grad()
     def predict(self, features: np.ndarray) -> Tuple[bool, float]:
         """(is_cough, p_cough) for a (1, H, T) or (B, 1, H, T) feature
-        tensor (reference: src/inference.py:165-189)."""
-        feats = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
+        tensor (reference: src/inference.py:165-189), the first row's, as
+        the classifier's captured program, one a feature shape (the JAX
+        package's `_predict_jit`)."""
+        feats = np.asarray(features, np.float32)
         if feats.ndim == 3:
             feats = feats[None]
-        p = float(torch.softmax(self._engine._model(feats), dim=-1)[0, 1])
+        model = self._engine._model
+        (probs,) = self.predict_programs(
+            tuple(feats.shape), lambda s: (torch.softmax(model(s["feats"]), dim=-1)[:, 1],),
+            {"feats": feats}, copy=(False,),
+        )
+        p = float(probs[0])
         return p > 0.5, p
 
     def process_audio_chunk(

@@ -4,12 +4,20 @@ The port of `cough_detector_tpu/stream/offline.py`: instead of streaming a
 long file through the ring buffer, frame the whole waveform into its
 (n_windows, window) sliding-window batch and score the windows 1024 at a
 time through the detector's score function (peak normalize → the fused
-front-end kernel pair on the card → classifier → softmax). Smoothing,
-threshold and debounce then run on the host over the per-window
-probabilities, with the streaming detector's event semantics exactly.
-Over a mesh of devices each batch is padded to a multiple of them and
-split in contiguous blocks, one a device, each scored by that device's
-model replica; the probabilities come back in window order.
+front-end kernel pair on the card → classifier → softmax), run as a
+captured program a batch shape (utils.graphs, the JAX package's jitted
+`score`). Smoothing, threshold and debounce then run on the host over the
+per-window probabilities, with the streaming detector's event semantics
+exactly. Over a mesh of devices each batch is padded to a multiple of them
+and split in contiguous blocks, one a device, each scored by that device's
+model replica and its own programs; the probabilities come back in window
+order.
+
+Batch shapes: a recording longer than one batch, or scored over a mesh,
+pads every batch to the batch size, as the JAX package does; a shorter one
+pads its one batch to `graphs.bucket_rows` (the next power of two, at
+least 16), where the JAX package compiles each length's own shape, so that
+many short recordings share a few graphs.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from .. import parallel
 from ..config import Config
 from ..models import model_from_config, place_model
 from ..ops import frontend
+from ..utils import graphs
 from ..utils.device import resolve_device
 
 
@@ -91,6 +100,19 @@ def window_probs(
     model = model_from_config(config.model)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
     replicas = [place_model(copy.deepcopy(model), d) for d in devices]
+    # A replica's graphs hold its parameters' addresses: programs of its own.
+    programs = [graphs.Programs(d, name="offline score", pool=graphs.scoring_pool(d)) for d in devices]
+
+    def score_fn(model_d):
+        def fn(static):
+            feats = frontend.extract_features_fast(
+                frontend.peak_normalize(static["windows"]), fcfg, device=static["windows"].device
+            )
+            return (torch.softmax(model_d(feats), dim=-1)[:, 1],)
+
+        return fn
+
+    fns = [score_fn(m) for m in replicas]
     host = torch.as_tensor(np.asarray(wave, np.float32))
     hop = int(fcfg.sample_rate * hop_duration)
     uploaded = {}
@@ -104,18 +126,16 @@ def window_probs(
     with torch.no_grad():
         for start in range(0, n, batch_size):
             real = min(batch_size, n - start)
-            # The JAX package's rule: one batch shape across the batches of
-            # a recording longer than one batch, and under a mesh always.
-            pad = batch_size - real if (n > batch_size or mesh is not None) else 0
-            bounds = [(0, real + pad)] if mesh is None else mesh.blocks(real + pad)
+            # One batch shape across the batches of a recording longer than
+            # one batch, and under a mesh always (the JAX package's rule); a
+            # shorter recording's bucket (see the module docstring).
+            rows = batch_size if (n > batch_size or mesh is not None) else graphs.bucket_rows(real, batch_size)
+            bounds = [(0, rows)] if mesh is None else mesh.blocks(rows)
             parts = []
-            for model_d, win, (lo, hi) in zip(replicas, windows, bounds):
-                chunk = win[start + lo : start + min(hi, real)].contiguous()
-                if chunk.shape[0] < hi - lo:
-                    chunk = torch.nn.functional.pad(chunk, (0, 0, 0, hi - lo - chunk.shape[0]))
-                feats = frontend.extract_features_fast(frontend.peak_normalize(chunk), fcfg, device=chunk.device)
-                parts.append(torch.softmax(model_d(feats), dim=-1)[:, 1])
-            probs[start : start + real] = np.concatenate([p.cpu().numpy() for p in parts])[:real]
+            for progs, fn, win, (lo, hi) in zip(programs, fns, windows, bounds):
+                chunk = graphs.pad_rows(win[start + lo : start + min(hi, real)], hi - lo)
+                parts.append(progs((tuple(chunk.shape), "float32"), fn, {"windows": chunk}, copy=(False,))[0].cpu())
+            probs[start : start + real] = torch.cat(parts).numpy()[:real]
     return probs
 
 

@@ -83,12 +83,17 @@ def drain_pending_saves() -> None:
         raise first
 
 
-def snapshot(model: torch.nn.Module, optimizer: Any) -> Dict[str, Any]:
+def snapshot(model: torch.nn.Module, optimizer: Any, on_device: bool = False) -> Dict[str, Any]:
     """The checkpoint tree, copied to host memory now: the model's state
-    dict in the reference key layout, the optimizer's state and its step."""
+    dict in the reference key layout, the optimizer's state and its step.
+    With `on_device` the tensors are copied on their device instead, in
+    stream order: the state once the work enqueued so far has run, which
+    the steps enqueued after it leave as it is (a pipelined epoch's
+    snapshot, fetched while the next epoch runs)."""
+    copy = (lambda v: v.detach().clone()) if on_device else (lambda v: v.detach().to("cpu", copy=True))
     return {
-        "model": {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()},
-        "optimizer": optimizer.state_dict(),
+        "model": {k: copy(v) for k, v in model.state_dict().items()},
+        "optimizer": optimizer.state_dict(on_device=True) if on_device else optimizer.state_dict(),
         "step": int(optimizer.count),
     }
 

@@ -31,6 +31,19 @@ autotuning) and restores the previous settings when it returns. Metrics
 stay on the device until the epoch ends. Per-epoch records go to
 <output>/metrics.jsonl.
 
+One process with its corpus resident on the device runs its epochs
+pipelined one deep, as the JAX loop's epoch scan does: epoch e+1's steps
+are enqueued before epoch e's metrics and state are fetched, so the fetch,
+the record and the checkpoint queueing overlap e+1 on the card. Epoch e's
+state is a copy taken on the device between the two epochs; early
+stopping decides from epoch e, and a stop discards the dispatched e+1 (the
+model, its BatchNorm statistics and the optimizer go back to epoch e's
+copy, and e+1 leaves nothing in the launch counters or the probes). Losses,
+checkpoints, early stopping and resume are the synchronous loop's;
+train_clips_per_sec and val_clips_per_sec both denominate over the epoch's
+window, dispatch to fetch. Chunked windows, streamed batches and runs
+across ranks stay synchronous.
+
 With a `torch.distributed` process group initialized (cli.train
 --distributed under torchrun), every rank runs this loop data-parallel:
 each builds or gathers only its rows of every global batch, and the step
@@ -69,6 +82,7 @@ from ..data.datasets import (
 from ..data.shards import ShardLoader, dequantize_torch
 from ..models import count_parameters, init_weights, model_from_config, no_tf32
 from ..ops import frontend
+from ..utils import graphs
 from ..utils.device import resolve_device
 from ..utils.observability import JsonlLogger, trace_span
 from . import checkpoint as ckpt
@@ -110,6 +124,10 @@ def deterministic(dev: torch.device):
 
 _DEVICE_CORPUS_BUDGET = 2 << 30  # bytes of int16 corpus a device holds ("auto")
 
+# Epochs pipelined one deep where the run allows it (one process, resident
+# corpus); the tests set it False for the synchronous loop to compare with.
+_PIPELINED = True
+
 Batch = steps.Batch
 
 
@@ -142,21 +160,25 @@ def _debug() -> bool:
     return bool(os.environ.get("CDT_DEBUG_STEP_METRICS"))
 
 
-def _debug_row_hashes(lo: int, waves, labels) -> None:
+def _say(line: str) -> None:
+    print(line, flush=True)
+
+
+def _debug_row_hashes(lo: int, waves, labels, say=_say) -> None:
     """CDT_DEBUG_STEP_METRICS probe: a CRC of every batch row this rank
     holds (float32 bytes, xor the label), with its first global row. Each
     rank's block must equal the same rows of a one-process run's."""
     w = np.ascontiguousarray(np.asarray(waves, np.float32))
     crcs = [zlib.crc32(w[i].tobytes()) ^ int(labels[i]) for i in range(w.shape[0])]
-    print(f"ROW_HASHES lo={lo} {json.dumps(crcs)}", flush=True)
+    say(f"ROW_HASHES lo={lo} {json.dumps(crcs)}")
 
 
-def _hashed(batches: Iterator[Batch], lo: int) -> Iterator[Batch]:
+def _hashed(batches: Iterator[Batch], lo: int, say=_say) -> Iterator[Batch]:
     """`batches` unchanged; with CDT_DEBUG_STEP_METRICS, each one's row
-    CRCs printed (a copy to the host a step, for the probe alone)."""
+    CRCs said (a copy to the host a step, for the probe alone)."""
     for waves, labels, mask in batches:
         if _debug():
-            _debug_row_hashes(lo, waves.cpu().numpy(), labels.cpu().numpy())
+            _debug_row_hashes(lo, waves.cpu().numpy(), labels.cpu().numpy(), say)
         yield waves, labels, mask
 
 
@@ -251,10 +273,20 @@ def _uploaded_windows(windows, dev: torch.device):
         yield s0, buf_d, mats
 
 
+def _metric_rows(pending):
+    """Per-step device metrics, a list of dicts (the eager steps) or (keys,
+    (steps, k) rows) (the captured ones), as (keys, rows); [] for none."""
+    if isinstance(pending, tuple) or not pending:
+        return pending
+    keys = list(pending[0])
+    return keys, torch.stack([steps.metric_row(m, keys) for m in pending])
+
+
 def _accumulate(pending) -> Tuple[EpochAccumulator, list]:
-    """Fold per-step device metrics, a list of dicts (the eager steps) or
-    (keys, (steps, k) rows) (the captured ones), into an accumulator, with
-    one device-to-host copy; also returns the per-step losses."""
+    """Fold per-step metrics, a list of dicts (the eager steps) or (keys,
+    (steps, k) rows on the device or the host) (the captured ones), into an
+    accumulator, with one device-to-host copy; also returns the per-step
+    losses."""
     acc = EpochAccumulator()
     if isinstance(pending, tuple):
         keys, rows = pending
@@ -542,9 +574,17 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
         print(f"Input sharding: rank {ranks.rank} builds batch rows [{ranks.lo}, {ranks.hi}) of {ranks.pad_to}")
 
     rand = steps.StepRandom(dev)
+    pipelined = _PIPELINED and ranks.world == 1 and placement == "resident"
+    held: Optional[list] = None  # a pipelined epoch's probe lines, printed when it is finished
+
+    def say(line: str) -> None:
+        if held is None:
+            _say(line)
+        else:
+            held.append(line)
 
     def window_steps(corpus, mats):
-        return _hashed(steps.window_batches(corpus, mats, ranks.lo, ranks.hi, gather), ranks.lo)
+        return _hashed(steps.window_batches(corpus, mats, ranks.lo, ranks.hi, gather), ranks.lo, say)
 
     # The steps as captured CUDA graphs on the card (the JAX package's
     # jitted and scanned steps), unless the process group is gloo, whose
@@ -554,7 +594,7 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
     if graphed:
         def probe(waves, labels):
             if _debug():
-                _debug_row_hashes(ranks.lo, waves.cpu().numpy(), labels.cpu().numpy())
+                _debug_row_hashes(ranks.lo, waves.cpu().numpy(), labels.cpu().numpy(), say)
 
         programs = steps.StepPrograms(
             model, optimizer, class_weights, rand, train_features, eval_features,
@@ -633,9 +673,11 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
     background = ranks.world == 1
     loop_t0 = time.perf_counter()
 
-    def epoch_tail(ep, acc, vacc, train_time, val_time) -> bool:
+    def epoch_tail(ep, acc, vacc, train_time, val_time, tree=None) -> bool:
         """JSONL record, console line, early-stop advance, best/latest
-        checkpoints. True when early stopping fires at epoch `ep`."""
+        checkpoints from `tree` (a pipelined epoch's fetched snapshot) or
+        from a snapshot taken now. True when early stopping fires at epoch
+        `ep`."""
         nonlocal best_f1
         train_m, val_m = acc.summary(), vacc.summary()
         record = {
@@ -672,7 +714,8 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
         # the parameters in place.
         if background:
             ckpt.drain_pending_saves()
-        tree = ckpt.snapshot(model, optimizer) if is_main else None
+        if tree is None and is_main:
+            tree = ckpt.snapshot(model, optimizer)
         save = dict(tree=tree, block=not background)
         if val_m["f1"] > best_f1:
             best_f1 = val_m["f1"]
@@ -704,7 +747,7 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
             crc = 0
             for m in mats:
                 crc = zlib.crc32(np.ascontiguousarray(m).tobytes(), crc)
-            print(f"SCAN_MATS epoch={epoch} crc={crc}", flush=True)
+            say(f"SCAN_MATS epoch={epoch} crc={crc}")
         if graphed:
             return run_train_graphed(epoch, ws)
         pending = []
@@ -727,20 +770,92 @@ def _train(output_dir, config, dev, ranks: _Ranks, resume, noise_bank, max_epoch
             pending += steps.eval_steps(model, window_steps(corpus, mats_w), class_weights, eval_features, rows)
         return pending
 
+    def dispatch(epoch: int) -> dict:
+        """Enqueue epoch `epoch`'s train and validation steps, then a device
+        copy of the state they leave and an event behind it (pipelined);
+        nothing here waits for the card. Returns what `finish` fetches."""
+        nonlocal held
+        held = []
+        # The range chip_smoke.py reads the epoch's device idle share in,
+        # open from dispatch to fetch: a pipelined epoch's overlaps the next.
+        span = torch.profiler.record_function("cdt.epoch")
+        span.__enter__()
+        before = graphs._launches()
+        t0 = time.perf_counter()
+        metrics = (_metric_rows(run_train(epoch)), _metric_rows(run_eval()))
+        tree = ckpt.snapshot(model, optimizer, on_device=True)
+        done = None
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        launched = tuple(a - b for a, b in zip(graphs._launches(), before))
+        return dict(epoch=epoch, t0=t0, span=span, metrics=metrics, tree=tree, done=done,
+                    launched=launched, lines=held)
+
+    def finish(f: dict) -> bool:
+        """Fetch a dispatched epoch's metrics and state on a side stream
+        behind its own work alone (graphs.fetch), print its probe lines and
+        run its tail. True when early stopping fires."""
+        metrics, tree = graphs.fetch((f["metrics"], f["tree"]), f["done"])
+        f["span"].__exit__(None, None, None)
+        # One window for both rates, as the JAX loop's: the two passes are
+        # in flight together and are not timed apart.
+        window = time.perf_counter() - f["t0"]
+        acc, losses = _accumulate(metrics[0])
+        vacc, _ = _accumulate(metrics[1])
+        for line in f["lines"]:
+            _say(line)
+        if _debug():
+            _say(f"STEP_LOSSES epoch={f['epoch']} {json.dumps(losses)}")
+        return epoch_tail(f["epoch"], acc, vacc, window, window, tree)
+
+    def discard(f: dict, stopped: dict) -> None:
+        """Drop epoch `f`, dispatched before `stopped` (the epoch before it)
+        stopped the run: its launches come off the counters, its probe
+        lines go unprinted, and the model, its BatchNorm statistics and the
+        optimizer go back to `stopped`'s device copy, enqueued behind it."""
+        f["span"].__exit__(None, None, None)
+        graphs._add_launches(tuple(-n for n in f["launched"]))
+        model.load_state_dict(stopped["tree"]["model"])
+        optimizer.load_state_dict(stopped["tree"]["optimizer"])
+
     try:
-        for epoch in range(start_epoch, epochs):
-            # The range chip_smoke.py reads the epoch's device idle share in.
-            with trace_span("cdt.epoch"):
-                t0 = time.perf_counter()
-                acc, losses = _accumulate(run_train(epoch))
-                train_time = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                vacc, _ = _accumulate(run_eval())
-                val_time = time.perf_counter() - t0
-            if _debug():
-                print(f"STEP_LOSSES epoch={epoch} {json.dumps(losses)}", flush=True)
-            if epoch_tail(epoch, acc, vacc, train_time, val_time):
-                break
+        if pipelined:
+            inflight = None
+            for epoch in range(start_epoch, epochs):
+                try:
+                    cur = dispatch(epoch)
+                except BaseException as err:
+                    # A failed epoch leaves the one before it recorded and
+                    # saved, as the synchronous loop does.
+                    if inflight is not None:
+                        try:
+                            finish(inflight)
+                        except BaseException as tail_err:
+                            err.add_note(f"finishing epoch {inflight['epoch']} failed too: {tail_err!r}")
+                    raise
+                if inflight is not None and finish(inflight):
+                    discard(cur, inflight)
+                    inflight = None
+                    break
+                inflight = cur
+            held = None
+            if inflight is not None:
+                finish(inflight)
+        else:
+            for epoch in range(start_epoch, epochs):
+                # The range chip_smoke.py reads the epoch's device idle share in.
+                with trace_span("cdt.epoch"):
+                    t0 = time.perf_counter()
+                    acc, losses = _accumulate(run_train(epoch))
+                    train_time = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    vacc, _ = _accumulate(run_eval())
+                    val_time = time.perf_counter() - t0
+                if _debug():
+                    _say(f"STEP_LOSSES epoch={epoch} {json.dumps(losses)}")
+                if epoch_tail(epoch, acc, vacc, train_time, val_time):
+                    break
     except BaseException as err:
         # No writer outlives train(), and the loop's error is the one raised.
         try:

@@ -56,8 +56,13 @@ class StepRandom:
         a, d = np.random.SeedSequence([seed, epoch, step]).generate_state(2, np.uint64)
         self.aug.manual_seed(int(a))
         self.dropout.manual_seed(int(d))
-        self.mixup = np.random.default_rng([seed, epoch, step, 2])
+        self.mixup = self.mixup_rng(seed, epoch, step)
         return self
+
+    @staticmethod
+    def mixup_rng(seed: int, epoch: int, step: int) -> np.random.Generator:
+        """The MixUp generator `key(seed, epoch, step)` sets, on its own."""
+        return np.random.default_rng([seed, epoch, step, 2])
 
 
 def one_hot(labels: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
@@ -185,12 +190,12 @@ class ClippedAdamW:
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         self.update(grads, torch.from_numpy(self.advance()).to(self.params[0].device))
 
-    def state_dict(self) -> dict:
-        return {
-            "count": self.count,
-            "mu": [t.detach().cpu().clone() for t in self.mu],
-            "nu": [t.detach().cpu().clone() for t in self.nu],
-        }
+    def state_dict(self, on_device: bool = False) -> dict:
+        """The count and copies of the moments, in host memory, or with
+        `on_device` on the parameters' device (copies in stream order, which
+        later updates leave as they are)."""
+        copy = (lambda t: t.detach().clone()) if on_device else (lambda t: t.detach().cpu().clone())
+        return {"count": self.count, "mu": [copy(t) for t in self.mu], "nu": [copy(t) for t in self.nu]}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -459,9 +464,12 @@ class StepPrograms:
     generators (registered with every graph) for (seed, epoch, step),
     counts the optimizer's update, and stages the batch's indices and
     labels, its mask, the optimizer's scalars and MixUp's draws into the
-    static inputs. The program is the eager step itself, so a replay
-    equals it bit for bit. On the CPU the same object calls the steps on
-    the static buffers.
+    static inputs. A run of steps over a corpus (`train_run`, `eval_run`)
+    builds every step's inputs up front and uploads them in one copy
+    (graphs.upload), so the host enqueues the whole run without waiting on
+    the card. The program is the eager step itself, so a replay equals it
+    bit for bit. On the CPU the same object calls the steps on the static
+    buffers.
 
     `rows`: this rank's slice of each global batch (data parallelism over
     NCCL, whose collectives are captured with the step; gloo's cannot be,
@@ -515,13 +523,44 @@ class StepPrograms:
         `waves`, with corpus None); `idx`, `labels`, `mask` (None: a full
         batch) are host arrays of the rows in hand. Returns the step's
         TRAIN_KEYS row on the device."""
+        key, inputs = self._train_inputs(corpus, idx, labels, mask, seed, epoch, step, waves)
+        return self._train(corpus, key, inputs, seed, epoch, step)
+
+    def train_run(self, corpus: torch.Tensor, mats, seed: int, epoch: int, step0: int = 0) -> torch.Tensor:
+        """The train steps of (steps, B) index, label and mask matrices over
+        `corpus`, step s keyed by (seed, epoch, step0 + s), their inputs
+        uploaded in one copy; the run's (steps, k) TRAIN_KEYS rows."""
+        planned = [
+            self._train_inputs(corpus, idx, labels, mask, seed, epoch, step0 + s)
+            for s, (idx, labels, mask) in enumerate(_rank_rows(mats, self.rows))
+        ]
+        staged = graphs.upload([inputs for _, inputs in planned], self.programs.device)
+        return torch.stack([
+            self._train(corpus, key, inputs, seed, epoch, step0 + s)
+            for s, ((key, _), inputs) in enumerate(zip(planned, staged))
+        ])
+
+    def eval_run(self, corpus: torch.Tensor, mats) -> torch.Tensor:
+        """`eval_step` over the matrices' batches as `train_run` takes them;
+        the (steps, k) EVAL_KEYS rows."""
+        planned = [self._inputs(corpus, idx, labels, mask, None) for idx, labels, mask in _rank_rows(mats, self.rows)]
+        staged = graphs.upload([inputs for _, inputs in planned], self.programs.device)
+        return torch.stack([self._eval(corpus, key, inputs) for (key, _), inputs in zip(planned, staged)])
+
+    def _train_inputs(self, corpus, idx, labels, mask, seed: int, epoch: int, step: int, waves=None):
+        """(key, host inputs) of a train step; counts the optimizer's update."""
         key, inputs = self._inputs(corpus, idx, labels, mask, waves)
+        inputs["opt"] = self.optimizer.advance()
+        if self.mixup_alpha is not None:
+            total = len(labels) if self.rows is None else self.rows.total
+            inputs["lam"], inputs["perm"] = draw_mixup(
+                StepRandom.mixup_rng(seed, epoch, step), total, self.mixup_alpha
+            )
+        return ("train",) + key, inputs
+
+    def _train(self, corpus, key, inputs, seed: int, epoch: int, step: int) -> torch.Tensor:
         mixed = self.mixup_alpha is not None
         self.rand.key(seed, epoch, step)
-        inputs["opt"] = self.optimizer.advance()
-        if mixed:
-            total = len(labels) if self.rows is None else self.rows.total
-            inputs["lam"], inputs["perm"] = draw_mixup(self.rand.mixup, total, self.mixup_alpha)
 
         def program(static):
             waves, labels, mask = self._batch(corpus, static)
@@ -534,12 +573,13 @@ class StepPrograms:
                 )
             return metric_row(m, TRAIN_KEYS), waves, labels
 
-        return self._run(("train",) + key, program, inputs)
+        return self._run(key, program, inputs)
 
     def eval(self, corpus: Optional[torch.Tensor], idx, labels, mask, waves=None) -> torch.Tensor:
         """`eval_step` on a batch given as to `train`; its EVAL_KEYS row."""
-        key, inputs = self._inputs(corpus, idx, labels, mask, waves)
+        return self._eval(corpus, *self._inputs(corpus, idx, labels, mask, waves))
 
+    def _eval(self, corpus, key, inputs) -> torch.Tensor:
         def program(static):
             waves, labels, mask = self._batch(corpus, static)
             with parallel.batch_slice(self.rows):
@@ -575,20 +615,9 @@ def make_window_fns(programs: StepPrograms) -> Tuple[Callable, Callable]:
     resident corpus, or one chunked window with its own indices; JAX:
     `make_window_fns`). Step s of a train window is keyed by (seed, epoch,
     step0 + s), so windows carry the step offset. Each returns the
-    window's (steps, k) metric rows, kept on the device."""
-
-    def train_window(corpus, mats: Mats, seed: int, epoch: int, step0: int = 0) -> torch.Tensor:
-        return torch.stack([
-            programs.train(corpus, idx, labels, mask, seed, epoch, step0 + s)
-            for s, (idx, labels, mask) in enumerate(_rank_rows(mats, programs.rows))
-        ])
-
-    def eval_window(corpus, mats: Mats) -> torch.Tensor:
-        return torch.stack([
-            programs.eval(corpus, idx, labels, mask) for idx, labels, mask in _rank_rows(mats, programs.rows)
-        ])
-
-    return train_window, eval_window
+    window's (steps, k) metric rows, kept on the device (StepPrograms'
+    `train_run` and `eval_run`)."""
+    return programs.train_run, programs.eval_run
 
 
 def make_fused_epoch_fn(programs: StepPrograms) -> Callable:

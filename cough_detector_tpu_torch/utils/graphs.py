@@ -27,20 +27,32 @@ one path (the tick of one detector, the steps of one training run):
 On the CPU the same object copies the inputs into the same static buffers
 and calls the function on them, so the buffer plumbing runs in the CPU
 tests too. Graphs must not be captured from two threads at once.
+
+Around the programs: `upload` puts a whole run of steps' host inputs on the
+card in one copy (the pipelined epochs' matrices, JAX's `put_mats`),
+`fetch` brings results back on a side stream without waiting for work
+enqueued after them, and the scoring paths (offline batches, the
+detector's `scores_for`, `predict`, evaluate, featurize) share one memory
+pool a device (`scoring_pool`) and pad their batches to a bounded set of
+shapes (`bucket_rows`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Hashable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 Outputs = Tuple[torch.Tensor, ...]
 
 # Pinned staging buffers an input: how many calls the host may run ahead of
 # the card's copies before it waits for the oldest.
 STAGING_DEPTH = 4
+
+# The smallest batch a scoring path pads to (bucket_rows).
+MIN_BUCKET = 16
 
 
 def _launches() -> Tuple[int, ...]:
@@ -90,7 +102,9 @@ class _Program:
 class Programs:
     """One path's programs, a graph a key on the card (see the module
     docstring). `generators`: the device generators the functions draw
-    from; `name` names the path in errors."""
+    from; `name` names the path in errors; `pool`: the memory pool the
+    graphs capture into (`scoring_pool`), one of the path's own by
+    default."""
 
     def __init__(
         self,
@@ -98,6 +112,7 @@ class Programs:
         *,
         generators: Sequence[torch.Generator] = (),
         name: str = "program",
+        pool: Optional[tuple] = None,
     ):
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
@@ -107,7 +122,7 @@ class Programs:
         self._inputs: Dict[tuple, torch.Tensor] = {}
         self._staging: Dict[tuple, _Staging] = {}
         if self.graphed:
-            self._pool = torch.cuda.graph_pool_handle()
+            self._pool = pool if pool is not None else torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
 
     @property
@@ -197,3 +212,98 @@ class Programs:
             _add_launches(tuple(-n for n in captured))
         prog.graph, prog.outputs, prog.captured = graph, outputs, captured
         return first
+
+
+_scoring_pools: Dict[torch.device, tuple] = {}
+
+
+def scoring_pool(device: Union[str, torch.device]) -> Optional[tuple]:
+    """The one memory pool every scoring path of the process captures into
+    on `device` (None off the card). The scoring graphs run one after
+    another on the caller's stream, so their intermediates may share
+    memory: a batch's activations (about 1.2 GB for the residual model at
+    1024 windows in FP32) are held once, not once a path."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _scoring_pools:
+        _scoring_pools[dev] = torch.cuda.graph_pool_handle()
+    return _scoring_pools[dev]
+
+
+def bucket_rows(n: int, cap: Optional[int] = None) -> int:
+    """The rows a scoring batch of n pads to: the next power of two, at
+    least MIN_BUCKET, at most `cap` (when given, n <= cap). A graph a
+    shape: this keeps a process that scores batches of many sizes (short
+    recordings, segment candidates, a sweep's last chunk) to a few graphs.
+    Scores are per row (BatchNorm in eval mode), so padded rows change no
+    real row."""
+    rows = max(MIN_BUCKET, 1 << max(n - 1, 0).bit_length())
+    return rows if cap is None else min(rows, cap)
+
+
+def pad_rows(x: Union[np.ndarray, torch.Tensor], rows: int) -> Union[np.ndarray, torch.Tensor]:
+    """`x` zero-padded along its first axis to `rows`."""
+    extra = rows - x.shape[0]
+    if extra <= 0:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+    return np.pad(x, [(0, extra)] + [(0, 0)] * (x.ndim - 1))
+
+
+def upload(steps: Sequence[Mapping[str, np.ndarray]], device: Union[str, torch.device]) -> List[Dict[str, torch.Tensor]]:
+    """A run of steps' host inputs on `device` in one copy: every array
+    packed into one byte buffer (pinned on the card), uploaded without
+    blocking, each step's inputs handed back as typed views of the device
+    buffer. `Programs` copies a device tensor into its static input on the
+    device, so the host never waits on this upload or on a staging buffer:
+    it may enqueue the whole run, an epoch ahead of the card."""
+    dev = torch.device(device)
+    arrays = [[(name, np.ascontiguousarray(a)) for name, a in inputs.items()] for inputs in steps]
+    offsets, at = [], 0
+    for step in arrays:
+        offsets.append([])
+        for _, a in step:
+            at = -(-at // 8) * 8  # every view aligned for an 8-byte dtype
+            offsets[-1].append(at)
+            at += a.nbytes
+    host = torch.empty(at, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    view = host.numpy()
+    for step, offs in zip(arrays, offsets):
+        for (_, a), off in zip(step, offs):
+            view[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(dev, non_blocking=True)
+    return [
+        {
+            name: buf[off : off + a.nbytes].view(torch.from_numpy(np.empty(0, a.dtype)).dtype).view(a.shape)
+            for (name, a), off in zip(step, offs)
+        }
+        for step, offs in zip(arrays, offsets)
+    ]
+
+
+def fetch(tree: Any, after: Optional["torch.cuda.Event"]) -> Any:
+    """`tree` (nested dicts, lists and tuples) with its card tensors copied
+    to pinned host memory on a side stream that waits only on `after`, an
+    event recorded once they were computed: work the compute stream
+    enqueued later (the next epoch) runs on while they copy, where a
+    `.cpu()` would wait for it. Returns once the copies have landed. Off
+    the card (or with no event) the tree comes back as it is."""
+    leaves, spec = pytree.tree_flatten(tree)
+    cards = [i for i, t in enumerate(leaves) if isinstance(t, torch.Tensor) and t.device.type == "cuda"]
+    if not cards or after is None:
+        return tree
+    stream = torch.cuda.Stream(leaves[cards[0]].device)
+    stream.wait_event(after)
+    with torch.cuda.stream(stream):
+        for i in cards:
+            host = torch.empty(leaves[i].shape, dtype=leaves[i].dtype, pin_memory=True)
+            host.copy_(leaves[i], non_blocking=True)
+            leaves[i] = host
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return pytree.tree_unflatten(leaves, spec)

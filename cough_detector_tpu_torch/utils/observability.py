@@ -3,7 +3,7 @@
 The port of `cough_detector_tpu/utils/observability.py`:
   * `JsonlLogger` — the train loop's per-epoch metrics.jsonl;
   * `LatencyTracker` — the detection server's tick-cost and delivery-lag
-    stats;
+    stats, and their percentiles;
   * `Throughput` — the featurize CLI's steady clips/s (first batch, which
     builds the kernels, discarded);
   * `trace_span` / `capture_trace` — a named range in a torch.profiler
@@ -17,7 +17,7 @@ import json
 import time
 from collections import deque
 from pathlib import Path
-from typing import Deque, Iterator, Optional
+from typing import Deque, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -108,3 +108,16 @@ class LatencyTracker:
     def snapshot(self) -> np.ndarray:
         """The retained samples as an array (copy, safe to reduce)."""
         return np.asarray(self._samples, dtype=np.float64)
+
+    def percentiles(self) -> Dict[str, float]:
+        """p50, p90 and p99 of the retained samples, and their count (all 0
+        when there are none)."""
+        arr = self.snapshot()
+        if not arr.size:
+            return {"p50": 0.0, "p90": 0.0, "p99": 0.0, "n": 0}
+        return {
+            "p50": float(np.percentile(arr, 50)),
+            "p90": float(np.percentile(arr, 90)),
+            "p99": float(np.percentile(arr, 99)),
+            "n": int(arr.size),
+        }

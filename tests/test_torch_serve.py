@@ -723,6 +723,9 @@ def test_cli_native_daemon_serves_reports_and_stops_on_sigterm(weights, pt_path,
         with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
             assert r.status == 200
         daemon = serve((first["host"], first["port"]), http_stats)
+        # The plane handles the clients' closes on its own threads: wait
+        # for the count to reach 0 rather than reading it once.
+        assert _wait(lambda: http_stats()["open_streams"] == 0)
         stats = http_stats()
         assert stats["backend"] == "native" and stats["dispatched"] >= n_chunks and stats["open_streams"] == 0
         proc.send_signal(signal.SIGTERM)
