@@ -1,16 +1,17 @@
 """Smoke run of the PyTorch port on one NVIDIA card: serving, training, files
 to detections, the serving daemon with the native tiers, the tools between
 training and serving, training and scoring across ranks and devices, the
-captured programs (CUDA graphs) of the tick and the train step, and the
-pipelined epochs and the scoring programs.
+captured programs (CUDA graphs) of the tick and the train step, the
+pipelined epochs and the scoring programs, and the port's bench.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. a CUDA card is required; prints its name and power limit (nvidia-smi);
-  2. builds the front-end kernel from csrc/ with nvcc and the two C++
-     libraries from native/ with g++ (the decode tier and the daemon's
-     socket plane), all three at once (build seconds);
+  2. builds the front-end kernel from csrc/ with nvcc, and with g++ the two
+     C++ libraries from native/ (the decode tier and the daemon's socket
+     plane) and the bench's load generator, all four at once (build
+     seconds);
   3. holds each of the two front-end launches (spectral: waveform to power
      mel, 3xTF32 on the tensor cores; epilogue: power mel to features), and
      the pair, against its plain torch version on the card: the shipped
@@ -127,10 +128,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      index_select); two ranks on cuda:0 over gloo, as subprocesses of
      cli.train --distributed --dist-backend gloo with the row probes on
      (CDT_DEBUG_STEP_METRICS), the corpus sharded by rows, in two pairs
-     side by side: on the whole corpus (144 steps) every rank's rows equal
-     the one-process run's by CRC, its batch matrices too, rows built sum
-     to one process's, each rank's launches equal its steps, rank 0 alone
-     writes, and the first 5 step losses are within 1e-5; on the first
+     side by side: on the whole corpus (one epoch, 72 steps) every rank's
+     rows equal the one-process run's by CRC, its batch matrices too, rows
+     built sum to one process's, each rank's launches equal its steps,
+     rank 0 alone writes, and the first 5 step losses are within 1e-5; on the first
      64 + 32 clips (2 + 1 steps an epoch, the geometry of the JAX
      package's cluster test) the same, and counts, accuracy and F1 exact,
      epoch losses within 1e-3; chunked windows (8 windows of 8 steps an
@@ -179,7 +180,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      --augment, extract-segments' scorer, CoughDetectorInference.predict;
      each path's keys, replays and launches through replays. Phases 5, 7,
      9 and 10 score through the same programs;
- 13. prints the kernels' JSON line, then the device line last.
+ 13. the port's bench (budget 45 s, seconds printed by sub-step, under
+     build/smoke_bench/): cli/bench.py's headline at B = 16384 in "high"
+     (with the ingest-inclusive record), "serve" and bf16 (records, the
+     card's name, one launch of each kernel a timed replay, "high"'s logits
+     on 256 rows within 1e-3 of the plain version, the pair's device time
+     inside the program); extract_features_fast at B = 70,000, past the old
+     65,535-clip limit (rows 65,000-69,999 within 1e-3 of the plain version
+     on those rows); the serving bench at 256 and 20,480 streams (no tick
+     captured inside the timed loops); `python -m
+     cough_detector_tpu_torch.cli.bench --daemon --backend native --loadgen
+     native --streams 512 --seconds 5` as a subprocess beside them;
+ 14. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
 never JAX. It downloads nothing: the data are synthesized from seeds.
@@ -197,6 +209,7 @@ import concurrent.futures  # noqa: E402
 import contextlib  # noqa: E402
 import copy  # noqa: E402
 import dataclasses  # noqa: E402
+import gc  # noqa: E402
 import io  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
@@ -1779,9 +1792,11 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
     seconds["10.a NCCL world 1"] = time.perf_counter() - t0
 
     # -- 10.b two ranks on cuda:0 over gloo, the corpus sharded by rows, in
-    # two pairs side by side. On phase 6's whole corpus (72 steps an epoch,
-    # 144 a run) the inputs are held exact: each rank's rows by CRC, the
-    # epochs' batch matrices, the rows built, the launches, rank 0 alone
+    # two pairs side by side. On phase 6's whole corpus (one epoch of 72
+    # steps: the ranks' eager, host-staged steps are the phase's longest
+    # path, and every check below holds on one epoch) the inputs are held
+    # exact: each rank's rows by CRC, the epochs' batch matrices, the rows
+    # built, the launches, rank 0 alone
     # writing; and the losses of the first 5 steps within rtol 1e-5. Later
     # losses drift apart by summation order, as any reordered sum does, one
     # process with BatchNorm's two-pass sums in place of cuDNN's too: Adam's
@@ -1797,6 +1812,7 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
         pack_arrays(dequantize(loader.corpus()[:n]), loader._labels[:n], str(sub / split))
     budgets = {"gloo": 40 << 20, "gloo_96": 2 << 20}  # past one device's budget, within two's
     corpora = {"gloo": shards, "gloo_96": sub}
+    pair_epochs = {"gloo": 1, "gloo_96": 2}
     procs, logs = [], []
     for name in ("gloo", "gloo_96"):
         port = free_port()
@@ -1808,13 +1824,13 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "cough_detector_tpu_torch.cli.train", "--distributed",
                  "--dist-backend", "gloo", "--device", "cuda:0", "--device-corpus-budget", str(budgets[name]),
-                 *train_argv(str(root / name), corpus=corpora[name])],
+                 *train_argv(str(root / name), epochs=pair_epochs[name], corpus=corpora[name])],
                 cwd=Path(__file__).resolve().parent, env=env, stdout=logs[-1], stderr=subprocess.STDOUT,
             ))
     done_at = {}
     try:
         # The one-process references with the probes on, while the ranks start.
-        plain_out = probed(lambda: trained_in_process("plain_probed", root / "plain_probed"))
+        plain_out = probed(lambda: trained_in_process("plain_probed", root / "plain_probed", epochs=1))
         plain_sub = probed(lambda: trained_in_process("plain_96", root / "plain_96", corpus=sub))
         done_at["references"] = time.perf_counter() - t0
         deadline = time.monotonic() + 300
@@ -1838,7 +1854,7 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
     loss_pat = r"STEP_LOSSES epoch=(\d+) (\[.*\])"
     exact = ("tp", "fp", "fn", "tn", "train_acc", "val_acc", "precision", "recall", "f1")
     pairs = {}
-    for name, ref, ref_dir, n_steps in (("gloo", plain_out, "plain_probed", steps_per_run[2]),
+    for name, ref, ref_dir, n_steps in (("gloo", plain_out, "plain_probed", steps_per_run[1]),
                                         ("gloo_96", plain_sub, "plain_96", 6)):
         ranks = [(root / f"{name}_rank{r}.log").read_text() for r in range(2)]
         want_rows = probes(ref, row_pat)
@@ -1867,7 +1883,7 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
             "rank0_only": "Epoch 0" in ranks[0] and "Epoch 0" not in ranks[1] and sorted(
                 p.name for p in (root / name).iterdir()) == sorted(p.name for p in (root / ref_dir).iterdir()),
             "step_errs": step_errs,
-            "counts": len(recs_d) == 2 and all(rd[k] == rs[k] for rs, rd in zip(recs_s, recs_d) for k in exact),
+            "counts": len(recs_d) == pair_epochs[name] and all(rd[k] == rs[k] for rs, rd in zip(recs_s, recs_d) for k in exact),
             "epoch_err": max(abs(rd[k] - rs[k]) / abs(rs[k]) for rs, rd in zip(recs_s, recs_d)
                              for k in ("train_loss", "val_loss")),
             "built_rows": built, "rank_launches": rank_launches,
@@ -1877,10 +1893,10 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
     gloo_ms = step_ms(root / "gloo")
     print(
         f"[{smi}] two ranks on cuda:0 over gloo (cli.train --distributed --dist-backend gloo, every step through "
-        f"routed_gather), phase 6's 2048 + 256 clips, 144 steps: "
+        f"routed_gather), phase 6's 2048 + 256 clips, one epoch of {steps_per_run[1]} steps: "
         + ", ".join(f"{k} {full[k]}" for k in exact_checks)
         + f" (rows built {full['built_rows'][1]} + {full['built_rows'][2]} = {full['built_rows'][0]}; launches "
-        f"{full['rank_launches']}, steps {steps_per_run[2]}); epoch-0 step losses relative, steps 0-4 "
+        f"{full['rank_launches']}, steps {steps_per_run[1]}); epoch-0 step losses relative, steps 0-4 "
         f"{np.array2string(full['step_errs'][:5], precision=3)} (limit 1e-5), all {len(full['step_errs'])} max "
         f"{full['step_errs'].max():.3e}; epoch losses max-relative {full['epoch_err']:.3e}, counts equal "
         f"{full['counts']} (summation order, not held); the first 64 + 32 clips, 6 steps: "
@@ -1960,8 +1976,8 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
     print(
         f"[{smi}] train step at batch 32 (metrics.jsonl, epoch 1; the one-process runs pipelined: wall_s delta over "
         f"the epoch's train and eval steps): plain {plain_ms:.4f} ms, NCCL at world size 1 "
-        f"{nccl_ms:.4f} ms (both with the probes off), two ranks on one card over gloo {gloo_ms:.4f} ms (16 rows a "
-        f"rank, phase 6's corpus, with the probes' copy of every batch to the host; gloo stages every collective "
+        f"{nccl_ms:.4f} ms (both with the probes off), two ranks on one card over gloo {gloo_ms:.4f} ms (epoch 0, "
+        f"its only one; 16 rows a rank, phase 6's corpus, with the probes' copy of every batch to the host; gloo stages every collective "
         f"through host memory: its time is the host transport's, not NCCL's between cards)",
         flush=True,
     )
@@ -2668,6 +2684,208 @@ def pipeline_phase(smi: str, trained: dict, files: dict) -> dict:
     }
 
 
+def bench_phase(smi: str, yard: dict) -> dict:
+    """Phase 13, the port's bench (budget 45 s, seconds printed by sub-step,
+    under build/smoke_bench/); returns what the kernels' JSON line adds.
+
+    The bench's own entry points, in process: the headline at B = 16384 in
+    "high" (with the ingest-inclusive record), "serve" and bf16, each record
+    checked for its keys and for naming this card, the launches over the
+    timed replays one each a replay, and "high"'s logits on 256 rows held
+    against the plain version (frontend_kernel_reference, then the eager
+    model) within 1e-3; the pair's device time inside the headline program
+    by torch.profiler, beside its bound at B = 16384. The front end at
+    B = 70,000, past grid y's 65,535 clips: rows 65,000-69,999 against the
+    plain version on those rows alone. The serving bench at 256 and 20,480
+    streams, every fill key's replays equal to the timed ticks it ran (no
+    capture inside the timed loops). And `python -m
+    cough_detector_tpu_torch.cli.bench --daemon --backend native --loadgen
+    native --streams 512 --seconds 5` as a subprocess, started first and run
+    beside the in-process steps (its cadence is not held here: the
+    daemon-ramp command measures the socket tier on an idle card), its last
+    line parsed. Each path's launches are counted from 0."""
+    from cough_detector_tpu_torch.cli import bench
+    from cough_detector_tpu_torch.config import default_config
+    from cough_detector_tpu_torch.ops import frontend, frontend_kernel
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "smoke_bench"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    seconds, launches = {}, {}
+    card = torch.cuda.get_device_name(0)
+    fcfg = default_config("residual").features
+
+    def counted(name: str, fn):
+        frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+        return out
+
+    def released() -> None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def program_device_ms(replay, kernel: str, iters: int = 3):
+        """Mean device time of `kernel` inside `iters` replays of a captured
+        program, from torch.profiler; None where it recorded no launch of
+        it (a profile may not see into a graph)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                replay()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        return sum(times) / len(times) / 1e3 if times else None
+
+    # -- 13.0 the daemon bench in its own process, beside the steps below
+    daemon_out = open(root / "daemon.out", "w")
+    daemon_err = open(root / "daemon.err", "w")
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "cough_detector_tpu_torch.cli.bench", "--daemon", "--backend", "native",
+         "--loadgen", "native", "--streams", "512", "--seconds", "5"],
+        cwd=Path(__file__).resolve().parent, stdout=daemon_out, stderr=daemon_err,
+    )
+    try:
+        # -- 13.1 the headline in each mode at B = 16384
+        t0 = time.perf_counter()
+        batch, n_iters = 16384, 20
+        heads = {}
+        # TF32 off going in (the "high" claim): each mode must leave it off.
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        for mode in bench.MODES:
+            h = counted(f"headline_{mode}", lambda: bench.main(batch=batch, n_iters=n_iters, mode=mode,
+                                                              fresh_h2d=mode == "high"))
+            recs = [h.record] + ([h.ingest_record] if mode == "high" else [])
+            keys_ok = all(
+                {"metric", "value", "unit", "vs_baseline", "device"} <= set(r) and r["device"] == card
+                and r["value"] > 0 and r["vs_baseline"] == round(r["value"] / 10_000.0, 3)
+                and r.get("mode", "high") == mode for r in recs
+            )
+            want = {"spectral": n_iters, "epilogue": n_iters}
+            # around the call: the warm call's eager run, the 20 timed replays
+            # (and the ingest program's warm call and 4 replays)
+            around = 1 + n_iters + (5 if mode == "high" else 0)
+            heads[mode] = dict(
+                records=recs, keys_ok=keys_ok, launches_ok=h.launches == want
+                and set(launches[f"headline_{mode}"].values()) == {around},
+                event_ms=h.event_ms,
+                tf32=(torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32),
+            )
+            if mode == "high":
+                with torch.no_grad():
+                    want_logits = h.model(frontend_kernel.frontend_kernel_reference(h.waves[:256], fcfg))
+                heads[mode]["logits_err"] = rel_err(h.logits[:256].float(), want_logits)
+                heads[mode]["finite"] = bool(torch.isfinite(h.logits).all()) and tuple(h.logits.shape) == (batch, 2)
+                heads[mode]["device_ms"] = {
+                    part: program_device_ms(h.replay, f"{part}_kernel") for part in ("spectral", "epilogue")
+                }
+            del h
+            released()
+        high = heads["high"]
+        bounds = {"spectral": yard["bound_a"](batch), "epilogue": yard["bound_b"](batch)}
+        for mode, r in heads.items():
+            print(f"[{smi}] bench headline [{mode}] B={batch}: " + "; ".join(json.dumps(x) for x in r["records"])
+                  + f"; CUDA events {r['event_ms']:.4f} ms a replay; keys and device {r['keys_ok']}; launches over "
+                  f"the timed replays one each a replay {r['launches_ok']} (around the call "
+                  f"{launches[f'headline_{mode}']}); TF32 flags after {r['tf32']}", flush=True)
+        print(
+            f"[{smi}] bench headline [high] logits on rows 0-255 of the timed program vs the plain version "
+            f"(frontend_kernel_reference, then the eager model): max-relative {high['logits_err']:.3e} (limit 1e-3); "
+            "the pair inside the program (torch.profiler device ms a replay, beside its bound at B=16384): "
+            + ", ".join(f"{part} {'not measured' if ms is None else format(ms, '.4f')} (bound "
+                        f"{bounds[part]['bound_ms']:.4f} ms by {bounds[part]['bound_by']})"
+                        for part, ms in high["device_ms"].items()),
+            flush=True,
+        )
+        if not (all(r["keys_ok"] and r["launches_ok"] and r["tf32"] == (False, False) for r in heads.values())
+                and high["finite"] and high["logits_err"] <= TOL):
+            fail("the bench's headline did not hold its records, launches or parity")
+        seconds["13.1 headline x3 + ingest"] = time.perf_counter() - t0
+
+        # -- 13.2 the front end past 65,535 clips
+        t0 = time.perf_counter()
+        big = 70_000
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        base = torch.from_numpy(make_audio(np.random.default_rng(SEED + 13), 256, fcfg.segment_samples)).cuda()
+        waves_big = base.repeat(-(-big // 256), 1)[:big]
+        waves_big = waves_big * torch.empty((big, 1), device="cuda").uniform_(0.25, 1.0, generator=gen)
+        waves_big += torch.randn(waves_big.shape, device="cuda", generator=gen) * 0.01
+        feats_big = counted("features_b70000", lambda: frontend.extract_features_fast(waves_big, fcfg))
+        rows = slice(65_000, 70_000)
+        big_err = rel_err(feats_big[rows], frontend_kernel.frontend_kernel_reference(waves_big[rows].contiguous(), fcfg))
+        big_ok = tuple(feats_big.shape) == (big, fcfg.num_features, fcfg.num_frames) and bool(
+            torch.isfinite(feats_big).all())
+        print(
+            f"[{smi}] front end at B={big} ({waves_big.numel() * 4 / 1e9:.2f} GB of waveforms; launch A's "
+            f"{frontend_kernel.spectral_grid(big, fcfg.num_frames)} blocks on grid x): shape {tuple(feats_big.shape)}, "
+            f"rows 65000-69999 vs frontend_kernel_reference on those rows alone max-relative {big_err:.3e} (limit 1e-3); "
+            f"launches {launches['features_b70000']}",
+            flush=True,
+        )
+        if not (big_ok and big_err <= TOL and set(launches["features_b70000"].values()) == {1}):
+            fail(f"the front end at B={big} does not hold: {big_err:.3e}, {launches['features_b70000']}")
+        del waves_big, feats_big, base
+        released()
+        seconds["13.2 B=70000"] = time.perf_counter() - t0
+
+        # -- 13.3 the serving bench at 256 and 20,480 streams
+        t0 = time.perf_counter()
+        serving = {}
+        for s in (256, 20480):
+            run = counted(f"serving_{s}", lambda: bench.serving_bench(num_streams=s))
+            scoring = sum(windows_completed(len(run.fills), CHUNK, SR, SR // 4))
+            serving[s] = dict(
+                record=run.record, no_capture=bool(run.timed_by_fill) and run.timed_by_fill == run.replays_by_fill,
+                launches_ok=set(launches[f"serving_{s}"].values()) == {scoring}, scoring=scoring,
+                keys_ok=run.record["device"] == card and run.record["num_streams"] == s,
+            )
+            del run
+            released()
+        for s, r in serving.items():
+            print(f"[{smi}] bench --serving {s} streams: {json.dumps(r['record'])}; every fill key's replays equal "
+                  f"its timed ticks {r['no_capture']}; launches {launches[f'serving_{s}']} (scoring ticks "
+                  f"{r['scoring']})", flush=True)
+        if not all(r["no_capture"] and r["launches_ok"] and r["keys_ok"] for r in serving.values()):
+            fail("the serving bench captured inside its timed loops, or miscounted its launches")
+        seconds["13.3 serving 256 + 20480"] = time.perf_counter() - t0
+
+        # -- 13.4 the daemon bench's subprocess
+        t0 = time.perf_counter()
+        try:
+            rc = daemon.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc = None
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+        daemon_out.close()
+        daemon_err.close()
+    out_lines = (root / "daemon.out").read_text().strip().splitlines()
+    rec = json.loads(out_lines[-1]) if out_lines and out_lines[-1].startswith("{") else {}
+    daemon_ok = (rc == 0 and rec.get("metric") == "serving_daemon_socket_tier" and rec.get("ticks", 0) > 0
+                 and rec.get("device") == card and (rec.get("backend"), rec.get("loadgen")) == ("native", "native"))
+    print(f"[{smi}] bench --daemon --backend native --loadgen native --streams 512 --seconds 5 (a subprocess beside "
+          f"13.1-13.3): exit {rc}, last line {json.dumps(rec)}", flush=True)
+    if not daemon_ok:
+        fail("the daemon bench failed: " + (root / "daemon.err").read_text()[-3000:])
+    seconds["13.4 daemon wait"] = time.perf_counter() - t0
+
+    total = time.perf_counter() - t_phase
+    print(
+        "bench phase by sub-step (s): " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; phase total {total:.3f} s (budget 45 s)",
+        flush=True,
+    )
+    return {"launches": launches, "batch": batch, "program_device_ms": high["device_ms"], "bounds": bounds}
+
+
 def main() -> None:
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2687,18 +2905,21 @@ def main() -> None:
     from cough_detector_tpu_torch.stream import StreamingDetector
     from cough_detector_tpu_torch.utils import kernel_build, native_build
 
-    # -- 2. build: the CUDA kernel and the two C++ libraries, all at once ----
+    # -- 2. build: the CUDA kernel, the two C++ libraries and the bench's load
+    # generator, all at once ----
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = {
             kernel_build.library_path("frontend_kernel").name: pool.submit(timed, frontend_kernel.build),
             native_build.library_path("cdt_loader").name: pool.submit(timed, native_loader.require),
             native_build.library_path("cdt_ingest").name: pool.submit(timed, native_ingest.require),
+            native_build.executable_path("cdt_loadgen").name: pool.submit(
+                timed, lambda: native_build.build_executable("cdt_loadgen")),
         }
         build_s = {name: f.result() for name, f in builds.items()}
     print(
@@ -3138,7 +3359,10 @@ def main() -> None:
     # -- 12. pipelined epochs and the scoring programs ------------------------------------
     pipelined = pipeline_phase(smi, trained, files)
 
-    # -- 13. summary ---------------------------------------------------------------
+    # -- 13. the port's bench --------------------------------------------------------------
+    benched = bench_phase(smi, yard)
+
+    # -- 14. summary ---------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -3177,6 +3401,11 @@ def main() -> None:
             },
             "scoring_launches": {path: n[i] for path, n in pipelined["scoring_launches"].items()},
             "scoring_captured_x_replays": {path: n[i] for path, n in pipelined["scoring_replay_launches"].items()},
+            "bench_launches": {path: n[part] for path, n in benched["launches"].items()},
+            "bench_batch": benched["batch"],
+            "bench_program_device_ms": benched["program_device_ms"][part],
+            "bench_bound_ms": benched["bounds"][part]["bound_ms"],
+            "bench_bound_by": benched["bounds"][part]["bound_by"],
         }
         for i, part in enumerate(("spectral", "epilogue"))
     ]

@@ -89,6 +89,7 @@
 // error of a refused attribute call).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -525,7 +526,10 @@ __device__ __forceinline__ void mel_pass(const Ring& ring, int& q, int& slot, in
   ring.release(q - 1, prev_slot);
 }
 
-// Launch A. grid (row tiles, batch), kThreadsA threads, LayoutA's shared
+// Launch A. grid (batch x row tiles): block i takes clip i / tiles and its
+// row tile i % tiles, the clip folded into grid x, which holds 2^31 - 1
+// blocks where grid y holds 65,535 (ops/frontend_kernel.py's spectral_grid
+// and spectral_block mirror it); kThreadsA threads, LayoutA's shared
 // memory with n_slots ring slots. table: the chunk stream the ring reads
 // (ops/frontend_kernel.py::_constants), per pass kpad / 8 DFT chunks and
 // kMelNT / 2 filterbank chunks; n_bins is n_used rounded up to 8, kpad the
@@ -544,7 +548,8 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y, t0 = blockIdx.x * kRows;
+  const int tiles = (n_frames + kRows - 1) / kRows;
+  const int b = blockIdx.x / tiles, t0 = (blockIdx.x % tiles) * kRows;
   const int n_ksteps = kpad / 8;
   const int n_passes = (2 * n_bins + kPassCols - 1) / kPassCols;
   Ring ring;
@@ -878,7 +883,9 @@ int cdt_frontend_spectral(
   const size_t smem = lay.bytes(n_slots);
   const int err = set_smem(fn, smem);
   if (err) return err;
-  const dim3 grid((n_frames + kRows - 1) / kRows, batch);
+  const long long blocks = (long long)((n_frames + kRows - 1) / kRows) * batch;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
   void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &table,
                   &n_bins, &n_mels, &use_pre, &pre_coef, &n_slots, &mel};
   const cudaError_t launched = cudaLaunchKernel(fn, grid, dim3(kThreadsA), args, smem, stream);

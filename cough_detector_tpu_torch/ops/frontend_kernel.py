@@ -67,7 +67,7 @@ EPILOGUE_LAUNCHES = 0
 LAUNCH_COUNTERS = ("SPECTRAL_LAUNCHES", "EPILOGUE_LAUNCHES")
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
-_MAX_GRID_Y = 65535
+_MAX_BLOCKS = 2**31 - 1  # a launch's grid x; launch A folds the clip into it
 _MEL_TILES = (4, 8, 16)  # launch A's mel widths, in n-tiles of 8 mels
 _PASS_COLS = 256  # launch A's DFT columns per pass (re and im of 128 bins)
 _CHUNK = 4096  # floats in one chunk of launch A's table stream (16 KB)
@@ -113,6 +113,21 @@ def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
     if not (c <= 32 and 2 * c <= m):
         floats += (2 if cfg.use_delta_delta else 1) * c * t
     return 4 * (_RED_B + floats)
+
+
+def spectral_grid(batch: int, n_frames: int) -> int:
+    """Launch A's blocks, all on grid x: `batch` clips of `n_frames`
+    frames, each in ceil(n_frames / 128) row tiles. The kernel folds the
+    clip into grid x (block i is clip i // tiles, row tile i % tiles), so a
+    batch is bounded by grid x's 2^31 - 1 blocks, not by grid y's 65,535."""
+    return batch * -(-n_frames // _ROWS_A)
+
+
+def spectral_block(block: int, n_frames: int) -> tuple:
+    """(clip, first frame) of launch A's block `block`, as the kernel
+    computes them from blockIdx.x."""
+    tiles = -(-n_frames // _ROWS_A)
+    return block // tiles, block % tiles * _ROWS_A
 
 
 def _spectral_refusal(cfg: FeatureConfig) -> str:
@@ -386,9 +401,9 @@ def power_mel_fused(
         return power_mel_reference(waves, cfg)
     _check_cuda(waves, 2, "waves")
     b = waves.shape[0]
-    if b > _MAX_GRID_Y:
-        raise ValueError(f"batch {b} exceeds the kernel's {_MAX_GRID_Y} clips")
     t, n_mels = cfg.num_frames, cfg.n_mels
+    if spectral_grid(b, t) > _MAX_BLOCKS:
+        raise ValueError(f"batch {b} needs more than the spectral kernel's {_MAX_BLOCKS} blocks")
     mel = torch.empty((b, n_mels, t), dtype=torch.float32, device=waves.device)
     if b == 0:
         return mel
