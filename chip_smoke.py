@@ -2,7 +2,8 @@
 to detections, the serving daemon with the native tiers, the tools between
 training and serving, training and scoring across ranks and devices, the
 captured programs (CUDA graphs) of the tick and the train step, the
-pipelined epochs and the scoring programs, and the port's bench.
+pipelined epochs and the scoring programs, the port's bench, and training
+over a mesh from one call.
 
     python3 chip_smoke.py
 
@@ -191,7 +192,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      captured inside the timed loops); `python -m
      cough_detector_tpu_torch.cli.bench --daemon --backend native --loadgen
      native --streams 512 --seconds 5` as a subprocess beside them;
- 14. prints the kernels' JSON line, then the device line last.
+ 14. training over a mesh (budget 30 s, seconds printed by sub-step, under
+     build/smoke_mesh/), on phase 10's 64 + 32-clip corpus for 2 epochs:
+     train(mesh=["cuda:0"]) bit-equal to train(device="cuda:0") (one
+     process, pipelined); train(mesh=["cuda:0", "cuda:0"]), two gloo ranks
+     started by the call, bit-equal to phase 10's pair of the same
+     arguments run under torchrun's environment, each rank's launches one a
+     train and eval step, rank 0 alone writing; cli.train --mesh
+     cuda:0,cuda:0 --compile-cache DIR, a subprocess beside them,
+     bit-equal to the pair too; the host time from each call's entry to
+     rank 0 joining the group, its step loop and its first step, and the
+     epoch walls of the mesh beside the one-process run;
+ 15. prints the kernels' JSON line, then the device line last.
 
 Imports only torch, numpy, scipy (data/synth.py) and the port package;
 never JAX. It downloads nothing: the data are synthesized from seeds.
@@ -2049,6 +2061,7 @@ def parallel_phase(smi: str, trained: dict, files: dict) -> dict:
     )
     return {
         "launches": launches, "seconds": total,
+        "pair_96": {"out": root / "gloo_96", "corpus": corpora["gloo_96"], "budget": budgets["gloo_96"]},
         "step_ms": {"plain": plain_ms, "nccl_world1": nccl_ms, "gloo_two_ranks": gloo_ms},
         "epoch_wall_s": {"resident": plain_wall, "chunked": chunk_wall, **walls},
         "saves_block_ms": {k: sum(ms for _, ms in v) for k, v in saves_ms.items()},
@@ -2886,6 +2899,211 @@ def bench_phase(smi: str, yard: dict) -> dict:
     return {"launches": launches, "batch": batch, "program_device_ms": high["device_ms"], "bounds": bounds}
 
 
+class Stamped(io.StringIO):
+    """A stdout that notes the host time each line arrives (rank 0's lines
+    of a mesh call come through the launcher's reader as the rank prints)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def write(self, s: str) -> int:
+        now = time.perf_counter()
+        self.stamps += [now] * s.count("\n")
+        return super().write(s)
+
+    def first(self, prefix: str) -> float:
+        """Host time of the first whole line that starts with `prefix`."""
+        return next(t for t, line in zip(self.stamps, self.getvalue().splitlines()) if line.startswith(prefix))
+
+
+def mesh_phase(smi: str, par: dict) -> dict:
+    """Phase 14, training over a mesh (budget 30 s, seconds printed by
+    sub-step, under build/smoke_mesh/); returns what the kernels' JSON line
+    adds.
+
+    On phase 10's 64 + 32-clip corpus, 2 epochs, with the config phase 10's
+    second gloo pair ran: train(device="cuda:0") against train(mesh=
+    ["cuda:0"]) (a mesh of one device is the one-process run, pipelined:
+    metrics.jsonl less timings, best and latest checkpoints' tensors and
+    moments bit-equal, launches one a step); train(mesh=["cuda:0",
+    "cuda:0"]), whose call starts two gloo ranks on the card, with the row
+    probes on, bit-equal to that pair (cli.train --distributed under
+    torchrun's environment), each rank's launches from its log one a train
+    and eval step, rank 0 alone writing; `python -m
+    cough_detector_tpu_torch.cli.train --mesh cuda:0,cuda:0 --compile-cache
+    DIR` as a subprocess, without the probes, started first and run beside
+    the rest (a process takes ~9 s to import torch on the card's host, so
+    two mesh calls in turn would spend most of the phase starting),
+    bit-equal to the pair too. The host time from each in-process call's
+    entry to rank 0 joining the process group, to its "Steps:" line (the
+    model built and the corpus on the card) and to its first step (its
+    first row probe); the epoch walls (metrics.jsonl)."""
+    from cough_detector_tpu_torch.config import Config
+    from cough_detector_tpu_torch.ops import frontend_kernel
+    from cough_detector_tpu_torch.train import checkpoint, train
+
+    t_phase = time.perf_counter()
+    seconds, launches, starts = {}, {}, {}
+    root = Path(__file__).resolve().parent / "build" / "smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    pair = par["pair_96"]
+    corpus, budget = pair["corpus"], pair["budget"]
+    config = Config.from_json((pair["out"] / "config.json").read_text())
+    n_steps = 2 * (64 // 32 + 32 // 32)  # 2 epochs of 2 train and 1 eval steps
+    skip = {"train_clips_per_sec", "val_clips_per_sec", "wall_s", "t"}
+
+    def records(out: Path) -> list:
+        return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+    def walls(out: Path) -> list:
+        w = [r["wall_s"] for r in records(out)]
+        return [w[0]] + [b - a for a, b in zip(w, w[1:])]
+
+    def same_run(a: Path, b: Path) -> bool:
+        """metrics.jsonl less timings, and the best and latest checkpoints'
+        parameters, BatchNorm statistics and moments, bit for bit."""
+        strip = lambda rs: [{k: v for k, v in r.items() if k not in skip} for r in rs]  # noqa: E731
+        if strip(records(a)) != strip(records(b)):
+            return False
+        for ck in ("best_model", "latest_model"):
+            ta, tb = (checkpoint.load_checkpoint(str(o / ck))[0] for o in (a, b))
+            if ta["model"].keys() != tb["model"].keys() or any(
+                    not torch.equal(tb["model"][k], v) for k, v in ta["model"].items()):
+                return False
+            if not all(torch.equal(x, y) for x, y in zip(ta["optimizer"]["mu"] + ta["optimizer"]["nu"],
+                                                         tb["optimizer"]["mu"] + tb["optimizer"]["nu"])):
+                return False
+        return True
+
+    def run(name: str, fn, probes: bool = False) -> Stamped:
+        """fn() with its output stamped and the launch counters from 0 (the
+        parent's: a mesh of two launches in its ranks); with `probes`, the
+        row probes on and each rank's output under <root>/<name>_logs."""
+        out = Stamped()
+        env = {"CDT_DEBUG_STEP_METRICS": "1", "CDT_RANK_LOG_DIR": str(root / f"{name}_logs")} if probes else {}
+        os.environ.update(env)
+        frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                fn()
+            torch.cuda.synchronize()
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        launches[name] = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+        starts[name] = {"steps_line_s": out.first("Steps:") - t}
+        if probes:
+            starts[name]["joined_s"] = out.first("Rank 0 of 2 joined") - t
+            starts[name]["first_step_s"] = out.first("ROW_HASHES") - t
+        return out
+
+    # -- 14.c (started first) cli.train --mesh cuda:0,cuda:0 as a subprocess, the probes off
+    t_cli = time.perf_counter()
+    cli_out = root / "cli_mesh"
+    cli_log = open(root / "cli_mesh.log", "w")
+    cli_proc = subprocess.Popen(
+        [sys.executable, "-m", "cough_detector_tpu_torch.cli.train", "--shards", str(corpus), "--output-dir",
+         str(cli_out), "--model-type", "residual", "--epochs", "2", "--batch-size", "32",
+         "--device-corpus-budget", str(budget), "--mesh", "cuda:0,cuda:0", "--compile-cache",
+         str(root / "compile_cache")],
+        cwd=Path(__file__).resolve().parent, stdout=cli_log, stderr=subprocess.STDOUT,
+    )
+    try:
+        # -- 14.a a mesh of one device against the plain call (one process, pipelined)
+        t0 = time.perf_counter()
+        for name, kw in (("one_device", dict(device="cuda:0")), ("mesh_one", dict(mesh=["cuda:0"]))):
+            run(name, lambda: train(None, str(root / name), config=config, shards_dir=str(corpus), **kw))
+        one_same = same_run(root / "one_device", root / "mesh_one")
+        one_launches_ok = launches["one_device"] == launches["mesh_one"] == {"spectral": n_steps, "epilogue": n_steps}
+        one_walls = walls(root / "mesh_one")
+        print(
+            f"[{smi}] train(mesh=['cuda:0']) vs train(device='cuda:0'), phase 10's 64 + 32 clips, 2 epochs: bit-equal "
+            f"(metrics.jsonl less timings, best and latest checkpoints with moments) {one_same}; launches "
+            f"{launches['mesh_one']} (steps {n_steps}); entry to the 'Steps:' line "
+            f"{starts['one_device']['steps_line_s']:.3f} s and {starts['mesh_one']['steps_line_s']:.3f} s; epoch "
+            f"walls {[round(w, 4) for w in walls(root / 'one_device')]} and {[round(w, 4) for w in one_walls]} s "
+            f"(pipelined one deep)",
+            flush=True,
+        )
+        if not (one_same and one_launches_ok):
+            fail("a mesh of one device does not reproduce the one-device run")
+        seconds["14.a mesh of one device"] = time.perf_counter() - t0
+
+        # -- 14.b a mesh of two ranks on cuda:0 against phase 10's torchrun-environment gloo pair
+        t0 = time.perf_counter()
+        two = run("mesh_two", lambda: train(None, str(root / "mesh_two"), config=config, shards_dir=str(corpus),
+                                            device_corpus_budget=budget, mesh=["cuda:0", "cuda:0"]), probes=True)
+        logs = [(root / "mesh_two_logs" / f"rank{r}.log").read_text() for r in range(2)]
+        per_rank = [
+            {"spectral": int(m.group(1)), "epilogue": int(m.group(2))} if m else None
+            for m in (re.search(r"KERNEL_LAUNCHES rank=\d+ spectral=(\d+) epilogue=(\d+)", t) for t in logs)
+        ]
+        launches.update({f"mesh_two_rank{r}": n for r, n in enumerate(per_rank)})
+        two_checks = {
+            "bit_equal_to_the_pair": same_run(pair["out"], root / "mesh_two"),
+            "gloo_eager": all("Steps: eager (gloo's collectives cannot be captured)" in t for t in logs),
+            "sharded": all("sharded by rows over 2 ranks" in t for t in logs),
+            "launches": per_rank == [{"spectral": n_steps, "epilogue": n_steps}] * 2,
+            "parent_launched_none": launches["mesh_two"] == {"spectral": 0, "epilogue": 0},
+            "rank0_only": "Epoch 0" in logs[0] and "Epoch 0" not in logs[1] and "Epoch 0" in two.getvalue()
+            and sorted(p.name for p in (root / "mesh_two").iterdir()) == sorted(p.name for p in pair["out"].iterdir()),
+        }
+        mesh_walls = walls(root / "mesh_two")
+        st = starts["mesh_two"]
+        print(
+            f"[{smi}] train(mesh=['cuda:0', 'cuda:0']) (two gloo ranks started by the call, the row probes on; the "
+            f"cli.train subprocess starting beside it), the same 2 epochs: "
+            + ", ".join(f"{k} {v}" for k, v in two_checks.items())
+            + f"; launches a rank {per_rank} (steps {n_steps}: one of each kernel a train and eval step); from entry, "
+            f"rank 0 joined the group {st['joined_s']:.3f} s, its 'Steps:' line {st['steps_line_s']:.3f} s, its "
+            f"first step {st['first_step_s']:.3f} s (one process: {starts['mesh_one']['steps_line_s']:.3f} s to its "
+            f"'Steps:' line); epoch walls {[round(w, 4) for w in mesh_walls]} s synchronous on each rank, against "
+            f"{[round(w, 4) for w in one_walls]} s for the one-process run pipelined one deep (2 epochs: "
+            f"{sum(mesh_walls):.3f} s and {sum(one_walls):.3f} s)",
+            flush=True,
+        )
+        if not all(two_checks.values()):
+            fail("train(mesh=['cuda:0', 'cuda:0']) does not reproduce the gloo pair: "
+                 + " | ".join(t[-3000:] for t in logs))
+        seconds["14.b mesh of two ranks"] = time.perf_counter() - t0
+
+        # -- 14.c the subprocess's end
+        t0 = time.perf_counter()
+        cli_rc = cli_proc.wait(timeout=max(1.0, 180 - (time.perf_counter() - t_cli)))
+    except subprocess.TimeoutExpired:
+        cli_rc = None
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+        cli_log.close()
+    cli_wall = time.perf_counter() - t_cli
+    cli_text = (root / "cli_mesh.log").read_text()
+    cli_same = cli_rc == 0 and same_run(pair["out"], cli_out)
+    print(
+        f"[{smi}] python -m cough_detector_tpu_torch.cli.train --mesh cuda:0,cuda:0 --compile-cache DIR (a "
+        f"subprocess beside 14.a-14.b): exit {cli_rc}, bit-equal to the gloo pair {cli_same}; spawn to exit "
+        f"{cli_wall:.3f} s; epoch walls {[round(w, 4) for w in walls(cli_out)] if cli_rc == 0 else None} s without "
+        f"the probes",
+        flush=True,
+    )
+    if not (cli_same and "one rank a device" in cli_text):
+        fail("cli.train --mesh does not reproduce the gloo pair: " + cli_text[-3000:])
+    seconds["14.c cli.train --mesh wait"] = time.perf_counter() - t0
+
+    total = time.perf_counter() - t_phase
+    print(
+        "mesh phase by sub-step (s): " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; phase total {total:.3f} s (budget 30 s)",
+        flush=True,
+    )
+    return {"launches": launches, "seconds": total, "starts": starts, "cli_wall_s": cli_wall,
+            "epoch_wall_s": {"mesh_two_ranks": mesh_walls, "one_process_pipelined": one_walls}}
+
+
 def main() -> None:
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3362,7 +3580,10 @@ def main() -> None:
     # -- 13. the port's bench --------------------------------------------------------------
     benched = bench_phase(smi, yard)
 
-    # -- 14. summary ---------------------------------------------------------------
+    # -- 14. training over a mesh -----------------------------------------------------------
+    meshed = mesh_phase(smi, par)
+
+    # -- 15. summary ---------------------------------------------------------------
     main_b = 256
     kernels = [
         {
@@ -3406,6 +3627,7 @@ def main() -> None:
             "bench_program_device_ms": benched["program_device_ms"][part],
             "bench_bound_ms": benched["bounds"][part]["bound_ms"],
             "bench_bound_by": benched["bounds"][part]["bound_by"],
+            "mesh_launches": {path: n[part] for path, n in meshed["launches"].items()},
         }
         for i, part in enumerate(("spectral", "epilogue"))
     ]

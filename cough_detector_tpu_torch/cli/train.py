@@ -10,7 +10,8 @@ reference: src/train.py:521-568), for the modes the port trains:
         [--output-dir DIR] [--model-type residual] [--epochs N]
         [--batch-size B] [--lr LR] [--weight-decay WD] [--patience P]
         [--mixup [ALPHA]] [--resume CKPT_DIR] [--export-pt] [--device cuda]
-        [--distributed [--dist-backend nccl|gloo]]
+        [--mesh DEV,DEV,... | --distributed [--dist-backend nccl|gloo]]
+        [--compile-cache DIR]
 
 `--data-dir` holds cough/ and non_cough/ clips, decoded on the host each
 epoch (data/datasets.py; `--decode-backend`, which the JAX CLI does not
@@ -19,16 +20,23 @@ have, picks the decoder, "auto" as the JAX package's loader does); without
 JAX CLI does. `--shards` holds `train/`
 and `val/` shard directories (data/shards.py, packed by cli/pack.py).
 
-Data-parallel training on a node of N cards, one process a card:
+Data-parallel training, one process a card, either way:
 
+    python -m cough_detector_tpu_torch.cli.train --shards DIR ...
+    python -m cough_detector_tpu_torch.cli.train --mesh cuda:0,cuda:1 --shards DIR ...
     torchrun --nproc_per_node=N -m cough_detector_tpu_torch.cli.train \
         --distributed --shards DIR ...
 
-`--distributed` joins the process group torchrun's environment describes
-(and raises without one); each rank trains on `cuda:LOCAL_RANK` and on its
-rows of every global batch of --batch-size. NCCL takes one rank a card;
-two ranks that share one card need `--dist-backend gloo` and an explicit
-`--device cuda:0`.
+Without `--mesh` or `--distributed` the command trains over every visible
+card when there is more than one (`--device cuda`, the default), as the
+JAX CLI does; `--mesh` names the devices (a device may repeat, two ranks
+then share it over gloo; `cpu,cpu` on a host without a card). Either starts
+one rank a device itself and prints rank 0's output. `--distributed`
+instead joins the process group torchrun's environment describes (and
+raises without one); each rank trains on `cuda:LOCAL_RANK`. Every rank
+trains on its rows of every global batch of --batch-size. NCCL takes one
+rank a card; two torchrun ranks that share one card need `--dist-backend
+gloo` and an explicit `--device cuda:0`.
 """
 
 from __future__ import annotations
@@ -81,6 +89,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                    help="Backend of --distributed: default nccl with a card a "
                         "rank, gloo on the CPU; gloo for ranks that share a card")
+    p.add_argument("--mesh", type=str, default=None, metavar="DEV,DEV,...",
+                   help="Train data-parallel over these devices, one rank a "
+                        "device (default: every visible card when there are "
+                        "several and --device is cuda)")
+    p.add_argument("--compile-cache", type=str, default=None,
+                   help="Accepted for command-line compatibility with the JAX "
+                        "CLI and ignored: the port caches its one compiled "
+                        "kernel by source hash under build/kernels/")
     p.add_argument("--mixup", nargs="?", const=0.2, type=float, default=None,
                    metavar="ALPHA",
                    help="Feature-space MixUp with λ ~ Beta(α, α) (default α 0.2)")
@@ -92,7 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.distributed and args.mesh is not None:
+        parser.error("--mesh starts its own ranks; under torchrun's --distributed the ranks are torchrun's")
     if args.distributed:
         from ..parallel import maybe_initialize_distributed
 
@@ -112,6 +131,7 @@ def main(argv=None) -> None:
 
 def _run(args) -> None:
     from ..config import Config, ModelConfig, TrainConfig
+    from ..parallel import mesh_arg
     from ..train import checkpoint as ckpt
     from ..train import train
 
@@ -160,6 +180,7 @@ def _run(args) -> None:
         device_corpus_budget=args.device_corpus_budget,
         device=args.device,
         decode_backend=args.decode_backend,
+        mesh=mesh_arg(args.mesh),
     )
     rank0 = not args.distributed or int(os.environ["RANK"]) == 0
     if args.export_pt and rank0 and Path(best).exists():

@@ -1,5 +1,7 @@
 """Processes, devices and collectives: data-parallel training over
-torch.distributed and scoring over a mesh of devices."""
+torch.distributed and scoring over a mesh of devices. `launch.run_ranks`
+(imported from `parallel.launch`, the module its child ranks run) starts
+the ranks of a training mesh."""
 
 from .mesh import (
     BatchSlice,
@@ -19,6 +21,7 @@ from .mesh import (
     reduce_scatter_rows,
     reducing_group,
     resolve_mesh,
+    resolve_train_mesh,
     routed_gather,
     rows_of,
 )
@@ -28,5 +31,5 @@ __all__ = [
     "batch_slice", "corpus_shard", "local_row_bounds", "make_mesh",
     "maybe_initialize_distributed", "mesh_arg", "pad_to_multiple", "process_group",
     "rank_device", "reduce_scatter_rows", "reducing_group", "resolve_mesh",
-    "routed_gather", "rows_of",
+    "resolve_train_mesh", "routed_gather", "rows_of",
 ]

@@ -18,7 +18,9 @@ process over a list of devices for scoring:
     one-process run gives it.
   * `Mesh` is an ordered list of devices the stream or batch axis splits
     over, in contiguous equal blocks (the detector, offline scoring,
-    evaluate and featurize). A device may appear twice.
+    evaluate and featurize). A device may appear twice. Training over a
+    mesh (`resolve_train_mesh`) runs one rank a device, started by
+    `parallel/launch.py::run_ranks`.
   * `routed_gather` reads batch rows from a corpus sharded by rows over the
     ranks, equal bit for bit to `index_select` on the whole corpus.
 """
@@ -40,7 +42,9 @@ _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT
 # -- processes ---------------------------------------------------------------------
 
 
-def maybe_initialize_distributed(backend: Optional[str] = None) -> bool:
+def maybe_initialize_distributed(
+    backend: Optional[str] = None, device: Optional[Union[str, torch.device]] = None
+) -> bool:
     """Join the process group torchrun's environment describes; False (and
     nothing done) without that environment, True once joined. A failed
     init raises.
@@ -48,7 +52,8 @@ def maybe_initialize_distributed(backend: Optional[str] = None) -> bool:
     `backend`: None means "nccl" when CUDA is available, each rank taking
     the card `LOCAL_RANK` (it raises when more ranks share the node than it
     has cards: NCCL refuses two ranks on one card, so that case asks for
-    "gloo" explicitly), and "gloo" on a host without a card."""
+    "gloo" explicitly), and "gloo" on a host without a card. `device`: the
+    card an NCCL rank takes instead of `cuda:LOCAL_RANK` (a mesh's device)."""
     if not all(os.environ.get(k) for k in _TORCHRUN_ENV):
         return False
     local_rank = int(os.environ["LOCAL_RANK"])
@@ -64,7 +69,7 @@ def maybe_initialize_distributed(backend: Optional[str] = None) -> bool:
         else:
             backend = "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(local_rank if device is None else torch.device(device))
     dist.init_process_group(
         backend, init_method="env://",
         world_size=int(os.environ["WORLD_SIZE"]), rank=int(os.environ["RANK"]),
@@ -308,3 +313,53 @@ def resolve_mesh(mesh, device: Union[str, torch.device], divides: Optional[int] 
     if isinstance(mesh, (list, tuple)):
         return Mesh(mesh)
     raise TypeError(f"mesh={mesh!r}: expected a Mesh, a list of devices, None or False")
+
+
+def resolve_train_mesh(mesh, device: Union[str, torch.device], batch_size: Optional[int] = None) -> Optional[Mesh]:
+    """The mesh `train()` runs data-parallel over, one rank a device, or
+    None for one process (JAX: train/loop.py's mesh). `mesh`: False (one
+    device); None: every visible card when `device` names the card without
+    an index, more than one card is visible and no process group is
+    initialized (inside one, the group's ranks are the run's), else one
+    device; a Mesh or a device list, used as given (a device may repeat:
+    ["cuda:0", "cuda:0"] puts two ranks on one card, ["cpu", "cpu"] two on
+    the host). A card without an index gets the current one.
+
+    Raises ValueError, before any work, for a mesh inside an initialized
+    process group, a mesh that mixes the CPU and cards, a card past the
+    visible ones, any other type, and a `batch_size` (given when the
+    batches cannot pad: a corpus on the device) that the mesh does not
+    divide; RuntimeError for cards on a host without one."""
+    if mesh is None and process_group() is not None:
+        return None
+    try:
+        mesh = resolve_mesh(mesh, device)
+    except (RuntimeError, TypeError) as err:  # a bad device string, or not a mesh at all
+        raise ValueError(f"not a training mesh: {err}") from err
+    if mesh is None:
+        return None
+    if process_group() is not None:
+        raise ValueError(
+            f"a mesh of {mesh.size} devices inside an initialized process group: the group's ranks "
+            f"already train data-parallel (pass mesh=None), and a mesh would start ranks inside ranks"
+        )
+    kinds = {d.type for d in mesh.devices}
+    if not kinds <= {"cpu", "cuda"} or len(kinds) > 1:
+        raise ValueError(
+            f"mesh {[str(d) for d in mesh.devices]}: a training mesh is all cards or all the CPU"
+        )
+    devices = mesh.devices
+    if kinds == {"cuda"}:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass a mesh of 'cpu' devices to train on the CPU")
+        current = torch.cuda.current_device() if torch.cuda.is_initialized() else 0
+        devices = [torch.device("cuda", current if d.index is None else d.index) for d in devices]
+        past = [str(d) for d in devices if d.index >= torch.cuda.device_count()]
+        if past:
+            raise ValueError(f"mesh names {past}, past the {torch.cuda.device_count()} visible card(s)")
+    if batch_size is not None and batch_size % mesh.size:
+        raise ValueError(
+            f"batch_size={batch_size} does not split over the mesh's {mesh.size} devices, and a corpus "
+            f"on the device takes whole per-device blocks of every batch"
+        )
+    return Mesh(devices)

@@ -44,8 +44,10 @@ train_clips_per_sec and val_clips_per_sec both denominate over the epoch's
 window, dispatch to fetch. Chunked windows, streamed batches and runs
 across ranks stay synchronous.
 
-With a `torch.distributed` process group initialized (cli.train
---distributed under torchrun), every rank runs this loop data-parallel:
+Over a mesh of devices (`train(mesh=...)`, the default with several
+cards) the call starts one rank a device (parallel/launch.py), and with a
+`torch.distributed` process group initialized (those ranks, or cli.train
+--distributed under torchrun) every rank runs this loop data-parallel:
 each builds or gathers only its rows of every global batch, and the step
 reduces across the ranks (train/steps.py), so the run computes what one
 process computes on the global batch, up to the order of the reductions.
@@ -394,20 +396,29 @@ def train(
     size; "chunked" always runs windows; False streams the loader's
     batches through pinned memory. All give the same batches.
 
-    Data parallelism: with a `torch.distributed` process group initialized
-    the run is data-parallel over its ranks (at any world size); `mesh=False`
-    forces one device in one process all the same. The rank's device is
-    `device`, `cuda:LOCAL_RANK` for an unindexed "cuda". `device` defaults
-    to the card and raises if there is none. `noise_bank` ((N, S >=
-    segment) float waveforms) turns on the file-noise augmentation."""
+    Data parallelism is the default, as in the JAX package: with more than
+    one visible card, no process group and `device` the card without an
+    index, the run is data-parallel over every card; an explicit `mesh` (a
+    `parallel.Mesh` or a device list, a device may repeat) runs over its
+    devices; `mesh=False` forces one device. Over a mesh of two or more
+    devices this call starts one rank a device (`parallel.launch.run_ranks`:
+    NCCL over distinct cards, gloo where a card repeats or on the CPU),
+    each running this function in the process group, and returns rank 0's
+    best checkpoint; a failed rank makes it raise. Each rank builds or
+    gathers its rows of every global batch and the step reduces across the
+    ranks, so the run computes what one device computes on the global
+    batch, up to the order of the reductions; a batch the mesh does not
+    divide pads under a mask (a corpus on the device needs one it divides).
+    A mesh of one device is the one-process run on that device. With a
+    `torch.distributed` process group initialized (torchrun, cli.train
+    --distributed) the run is data-parallel over its ranks, the rank's
+    device `device` (`cuda:LOCAL_RANK` for an unindexed "cuda"), and a mesh
+    raises. `device` defaults to the card and raises if there is none.
+    `noise_bank` ((N, S >= segment) float waveforms) turns on the
+    file-noise augmentation."""
     if device_corpus not in ("auto", True, False, "chunked"):
         raise ValueError(
             f"device_corpus={device_corpus!r}: expected 'auto', True, False or 'chunked'"
-        )
-    if mesh not in (None, False):
-        raise ValueError(
-            f"mesh={mesh!r}: train() runs data-parallel over the initialized process "
-            f"group (one process a card, cli.train --distributed); mesh takes None or False"
         )
     if device_corpus in (True, "chunked") and shards_dir is None:
         raise ValueError(
@@ -415,7 +426,26 @@ def train(
             f"goes to the device); pack one with cli.pack or pass device_corpus='auto'"
         )
     config = config or Config()
-    group = None if mesh is False else parallel.process_group()
+    on_mesh = parallel.resolve_train_mesh(
+        mesh, device, config.train.batch_size if device_corpus in (True, "chunked") else None
+    )
+    if on_mesh is not None and on_mesh.size > 1:
+        from ..parallel import launch
+
+        print(
+            f"Data-parallel over a mesh of {on_mesh.size} devices "
+            f"{[str(d) for d in on_mesh.devices]} ({launch.mesh_backend(on_mesh)}): one rank a device",
+            flush=True,
+        )
+        return launch.run_ranks(on_mesh, train, dict(
+            data_dir=data_dir, output_dir=output_dir, config=config, use_esc50=use_esc50,
+            esc50_dir=esc50_dir, resume=resume, num_workers=num_workers, noise_bank=noise_bank,
+            max_epochs=max_epochs, mesh=None, shards_dir=shards_dir, device_corpus=device_corpus,
+            device_corpus_budget=device_corpus_budget, decode_backend=decode_backend,
+        ))
+    if on_mesh is not None:
+        device = on_mesh.devices[0]
+    group = parallel.process_group() if mesh is None else None
     rank, world = (dist.get_rank(group), dist.get_world_size(group)) if group is not None else (0, 1)
     dev = resolve_device(parallel.rank_device(device) if group is not None else device)
     out = Path(output_dir)

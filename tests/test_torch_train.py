@@ -635,10 +635,10 @@ def test_a_failed_train_stops_the_writer_and_raises_its_own_error(save_fails, sh
 def test_unported_modes_raise(shard_dir, tmp_path, kwargs):
     """Every corpus mode and data parallelism are ported now (the chunked
     and past-budget modes run in the tests below, several ranks in
-    test_torch_parallel.py); what still raises, before any work, is a
-    request no placement satisfies: an unknown mode, a device corpus with
-    no shards to put there, and a mesh (the trainer's data parallelism is
-    the process group's)."""
+    test_torch_parallel.py, meshes in test_torch_mesh_train.py); what still
+    raises, before any work, is a request no placement satisfies: an
+    unknown mode, a device corpus with no shards to put there, and a mesh
+    of the wrong type (neither a Mesh, a device list, None nor False)."""
     args = dict(data_dir=None, shards_dir=str(shard_dir))
     args.update(kwargs)
     with pytest.raises(ValueError):
