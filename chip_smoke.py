@@ -25,7 +25,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      are printed beside (the reason the kernel splits). Each launch's
      shared memory is held against its Python mirror, which the card route
      reads (frontend_kernel.card_supports), and a 160-mel config, more than
-     the spectral launch takes, must run the torch chain on the card;
+     the spectral launch takes, must run the torch chain on the card. The
+     contrast launch (the launcher's contrast rows) is held against its
+     plain version (the gemm rows, 1e-3) and its 3xTF32 model
+     (spectral_contrast_split_reference, 1e-4: one TF32 pass would miss
+     it), with one TF32 pass's model printed beside, on the shipped config with
+     contrast at B = 1, 17, 256, 1024, every flag (pre-emphasis must not
+     reach the rows), n_fft 256 and 1024, 4 and 8 bands, and a batch of
+     sine sweeps, a silent clip, a half-silent clip and a click train
+     (ties); its shared memory against its mirror; a 17-band config, which
+     it refuses, must run the torch chain;
   4. times each launch and the pair, their plain versions and library
      yardsticks (torch.stft + matmuls, + the torch epilogue for the pair)
      with CUDA events at B = 256 and 4096, beside each launch's bound at the
@@ -33,7 +42,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      FP32 CUDA-core bound beside it) and memory rate; at B = 256 also each
      launch's device time from torch.profiler (back-to-back calls of a
      launch this short time the host's dispatch); and the epilogue launch
-     at B = 4096 at n_fft 256 and with PCEN, beside its bound;
+     at B = 4096 at n_fft 256 and with PCEN, beside its bound; the contrast
+     launch at B = 32, 256, 1024 and 4096 (device time at 256 and 1024)
+     beside its bound (an FFT of each window at the FP32 CUDA-core peak,
+     the tails as selections), its GEMM design's own ceiling, its plain
+     version, the fft rows, the pair, the hybrid of all three launches and
+     the torch chain with contrast;
   5. serves: a DetectionServer on the card (the native socket plane,
      residual model at full width, random weights from a seed, eager
      ticks, 8 slots, threshold 0) answers
@@ -103,14 +117,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   9. spectral contrast and the tools between training and serving (budget
      35 s, seconds printed by sub-step, under build/smoke_tools/): the
      shipped config with spectral contrast (97x101) through the fused
-     launcher's hybrid at B = 256 and 1024 (both launches once a call, the
-     gemm contrast rows appended; against the torch chain with each of its
+     launcher's hybrid at B = 256 and 1024 (each of its three launches once
+     a call; against the torch chain with each of its
      four contrast variants, fft and gemm x select and rank, and against
-     the CPU, 1e-3 max-relative; CUDA-event ms of the hybrid, the pair
-     alone, the contrast rows alone and the torch chain); a contrast-config
+     the CPU, 1e-3 max-relative; phase 4 times it); a contrast-config
      residual: 8 train steps on phase 6's shards, one 16-stream detector
-     tick (scores 1e-3 from the CPU's), cli.featurize --config on 16 of
-     phase 7's clips (1e-3 from the CPU chain); cli.evaluate on phase 6's
+     tick (scores 1e-3 from the CPU's, a replay of its scoring program
+     bit-equal), cli.featurize --config on 16 of phase 7's clips (1e-3
+     from the CPU chain), its serving function exported by torch.export
+     (three custom-op nodes; 1e-6 from eager), each launch once a call or
+     step; cli.evaluate on phase 6's
      trained checkpoint: its 256 validation shards card vs CPU (counts
      equal, loss 1e-4), --behavioral and --calibrate (its replay
      self-check) at 0.5 minutes a scenario; cli.audit --model on phase 7's
@@ -241,6 +257,9 @@ import torch  # noqa: E402
 
 SEED = 0
 TOL = 1e-3
+# The contrast launch against its 3xTF32 model: sound runs read ~3e-6, one
+# TF32 pass ~7e-4 (tests/test_torch_contrast_kernel.py).
+SPLIT_TOL = 1e-4
 SR = 16000
 CHUNK = 1600
 
@@ -1372,24 +1391,34 @@ def tools_phase(smi: str, trained: dict, files: dict) -> dict:
     seconds, launches = {}, {}
 
     def counted(name: str, fn):
-        """fn() with both launch counters set to 0 just before and read just
+        """fn() with the launch counters set to 0 just before and read just
         after into launches[name]."""
         frontend_kernel.SPECTRAL_LAUNCHES = frontend_kernel.EPILOGUE_LAUNCHES = 0
+        frontend_kernel.CONTRAST_LAUNCHES = 0
         out = fn()
         torch.cuda.synchronize()
-        launches[name] = {"spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES}
+        launches[name] = {
+            "spectral": frontend_kernel.SPECTRAL_LAUNCHES, "epilogue": frontend_kernel.EPILOGUE_LAUNCHES,
+            "contrast": frontend_kernel.CONTRAST_LAUNCHES,
+        }
         return out
 
-    def once_each(name: str, n: int = 1) -> None:
-        if set(launches[name].values()) != {n}:
-            fail(f"{name}: front-end launches {launches[name]}, not {n} of each")
+    # The paths on the contrast config run all three launches; the others,
+    # on the shipped config, the pair alone.
+    contrast_paths = ("hybrid_b256", "hybrid_b1024", "train_steps", "tick", "scores_replay", "featurize",
+                      "contrast_program")
 
-    # -- 9.1 the hybrid at B = 256 and 1024: against the torch chain's four
-    # contrast variants and the CPU, and timed beside its parts
+    def once_each(name: str, n: int = 1) -> None:
+        want = {"spectral": n, "epilogue": n, "contrast": n if name in contrast_paths else 0}
+        if launches[name] != want:
+            fail(f"{name}: front-end launches {launches[name]}, not {want}")
+
+    # -- 9.1 the hybrid at B = 256 and 1024 against the torch chain's four
+    # contrast variants, and its first 256 clips against the CPU (phase 4
+    # times it)
     t0 = time.perf_counter()
-    hybrid = {}
     tf32_before = torch.backends.cuda.matmul.allow_tf32
-    for b, iters in ((256, 50), (1024, 20)):
+    for b in (256, 1024):
         w = torch.from_numpy(make_audio(rng, b, SR)).to(dev)
         got = counted(f"hybrid_b{b}", lambda: frontend_kernel.extract_features_fused(w, contrast))
         once_each(f"hybrid_b{b}")
@@ -1399,37 +1428,19 @@ def tools_phase(smi: str, trained: dict, files: dict) -> dict:
             rows = frontend.spectral_contrast(w, contrast, method=method, tails=tails).transpose(1, 2)
             errs[f"{method}/{tails}"] = rel_err(got, torch.cat([chain_rows, rows], dim=1))
             row_errs[f"{method}/{tails}"] = rel_err(got[:, base.num_features :], rows)
-        cpu_err = rel_err(got.cpu(), frontend_kernel.extract_features_fused(w.cpu(), contrast))
-        frames = frontend.frame_signal(w, contrast.n_fft, contrast.hop_length)
-        dft = frontend._contrast_dft(contrast.n_fft, contrast.win_length, dev)
-        with frontend.fp32_matmul(dev):
-            gemm_ms = cuda_ms(lambda: frames @ dft, iters)
-        hybrid[b] = dict(
-            ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, contrast), iters),
-            pair_ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, base), iters),
-            contrast_ms=cuda_ms(lambda: frontend.spectral_contrast(w, contrast, method="gemm"), iters),
-            gemm_ms=gemm_ms,
-            fft_contrast_ms=cuda_ms(lambda: frontend.spectral_contrast(w, contrast, method="fft"), iters),
-            chain_ms=cuda_ms(lambda: frontend.extract_features(w, contrast), iters),
-            errs=errs, cpu_err=cpu_err,
-        )
-        h = hybrid[b]
-        gflop = 2 * frames.shape[0] * frames.shape[1] * dft.shape[0] * dft.shape[1] / 1e9
+        cpu_err = rel_err(got[:256].cpu(), frontend_kernel.extract_features_fused(w[:256].cpu(), contrast))
         print(
-            f"[{smi}] contrast hybrid at B={b} (shape {tuple(got.shape)}; launches {launches[f'hybrid_b{b}']}): "
+            f"contrast hybrid at B={b} (shape {tuple(got.shape)}; launches {launches[f'hybrid_b{b}']}): "
             f"vs the torch chain max-relative {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}; its contrast "
-            f"rows alone vs each variant's {', '.join(f'{k} {v:.3e}' for k, v in row_errs.items())}; vs the CPU "
-            f"{cpu_err:.3e} (limits 1e-3); CUDA events: hybrid {h['ms']:.4f} ms, the pair alone {h['pair_ms']:.4f} ms, "
-            f"the gemm contrast rows alone {h['contrast_ms']:.4f} ms (of which the FP32 DFT matmul, {gflop:.1f} GFLOP, "
-            f"{gemm_ms:.4f} ms: {gflop / gemm_ms:.1f} TFLOP/s), the fft contrast rows alone {h['fft_contrast_ms']:.4f} "
-            f"ms, the torch chain with contrast {h['chain_ms']:.4f} ms",
+            f"rows alone vs each variant's {', '.join(f'{k} {v:.3e}' for k, v in row_errs.items())}; the first 256 vs the CPU "
+            f"{cpu_err:.3e} (limits 1e-3)",
             flush=True,
         )
         if not (max(errs.values()) <= TOL and cpu_err <= TOL and got.shape == (b, 97, 101)):
             fail(f"the contrast hybrid disagrees with the torch chain or the CPU at B={b}")
     if torch.backends.cuda.matmul.allow_tf32 != tf32_before:
         fail("the gemm contrast left cuBLAS's TF32 flag changed")
-    seconds["9.1 hybrid checks and times"] = time.perf_counter() - t0
+    seconds["9.1 hybrid checks"] = time.perf_counter() - t0
 
     # -- 9.2 a contrast-config residual: 8 train steps on phase 6's shards,
     # a detector tick card vs CPU, cli.featurize on 16 clips
@@ -1460,6 +1471,8 @@ def tools_phase(smi: str, trained: dict, files: dict) -> dict:
     events = counted("tick", lambda: det.collect_events(det.tick_async(window_audio)))
     once_each("tick")
     card_p = det.scores_for(window_audio)
+    replayed = counted("scores_replay", lambda: det.scores_for(window_audio))  # its program's first replay
+    once_each("scores_replay")
     cpu_p = StreamingDetector(variables=state, config=cfg_c, device="cpu", num_streams=16).scores_for(window_audio)
     tick_err = float(np.abs(card_p - cpu_p).max())
     clips = root / "clips16"
@@ -1482,14 +1495,40 @@ def tools_phase(smi: str, trained: dict, files: dict) -> dict:
         f"contrast residual (97x101 features): 8 train steps on phase 6's shards, losses "
         f"{[round(v, 4) for v in losses]}, launches {launches['train_steps']}; one 16-stream tick, "
         f"{len(events)} events at threshold 0, launches {launches['tick']}, scores card vs CPU max abs "
-        f"{tick_err:.3e} (limit 1e-3); cli.featurize --config on 16 clips: shape {report['feature_shape']}, "
-        f"launches {launches['featurize']}, vs the CPU chain max-relative {feat_err:.3e} (limit 1e-3)",
+        f"{tick_err:.3e} (limit 1e-3), a replay of the scoring program bit-equal {np.array_equal(replayed, card_p)} "
+        f"(launches {launches['scores_replay']}); cli.featurize --config on 16 clips: shape "
+        f"{report['feature_shape']}, launches {launches['featurize']}, vs the CPU chain max-relative "
+        f"{feat_err:.3e} (limit 1e-3)",
         flush=True,
     )
     if not (np.isfinite(losses).all() and tick_err <= TOL and feat_err <= TOL and len(events) == 16
-            and report["feature_shape"] == [97, 101]):
+            and report["feature_shape"] == [97, 101] and np.array_equal(replayed, card_p)):
         fail("the contrast residual's paths disagree with the CPU")
     seconds["9.2 contrast residual"] = time.perf_counter() - t0
+
+    # The contrast residual's serving function traced by torch.export on the
+    # card: the three launches as custom-op nodes, the loaded program
+    # against eager at B = 256. Budget 6 s.
+    t0 = time.perf_counter()
+    serving_c = model_export.make_serving_fn(state, cfg_c, "cuda")
+    program_c = model_export.aot_compile(serving_c, 256)
+    ops_c = [op for op in ("cdt.power_mel", "cdt.mel_epilogue", "cdt.spectral_contrast")
+             if op in model_export.graph_text(program_c)]
+    loaded_c = model_export.load_serialized(model_export.export_serialized(program_c, str(root / "contrast.pt2")))
+    w = torch.from_numpy(make_audio(rng, 256, SR)).to(dev)
+    with torch.no_grad():
+        got = counted("contrast_program", lambda: loaded_c(w))
+        want = serving_c(w)
+    once_each("contrast_program")
+    program_c_err = float((got - want).abs().max())
+    print(
+        f"contrast residual's serving program (torch.export, B=256): custom ops in the graph {ops_c}, launches "
+        f"{launches['contrast_program']}, vs the eager serving function max abs {program_c_err:.3e} (limit 1e-6)",
+        flush=True,
+    )
+    if not (program_c_err <= 1e-6 and len(ops_c) == 3):
+        fail("the contrast config's exported program disagrees with the eager serving function")
+    seconds["9.2 contrast program"] = time.perf_counter() - t0
 
     # -- 9.3 cli.evaluate on phase 6's trained checkpoint: dataset mode on its
     # 256 validation clips card vs CPU, --behavioral, --calibrate
@@ -1531,7 +1570,8 @@ def tools_phase(smi: str, trained: dict, files: dict) -> dict:
         f"{launches['calibrate']})",
         flush=True,
     )
-    if len(calibrated["sweep"]) != 19 or min(launches["behavioral"].values()) < 1:
+    behavioral_pair = [launches["behavioral"][k] for k in ("spectral", "epilogue")]
+    if len(calibrated["sweep"]) != 19 or min(behavioral_pair) < 1 or launches["behavioral"]["contrast"]:
         fail("cli.evaluate's behavioral modes did not run through the kernels")
 
     # -- 9.4 cli.audit on phase 7's directory plus three planted clips
@@ -1635,7 +1675,7 @@ def tools_phase(smi: str, trained: dict, files: dict) -> dict:
         + f"; phase total {total:.3f} s (budget 35 s)",
         flush=True,
     )
-    return {"hybrid": hybrid, "launches": launches, "seconds": total}
+    return {"launches": launches, "seconds": total}
 
 
 def free_port() -> int:
@@ -3245,6 +3285,79 @@ def main() -> None:
     if after != before or not err <= TOL or frontend_kernel.card_supports(wide, wide.segment_samples):
         fail("a 160-mel config did not run the torch chain on the card")
 
+    # The contrast launch (launch C) against its plain version (the gemm
+    # rows) and its 3xTF32 model, and its shared memory against the Python
+    # mirror the card route reads. Budget 10 s.
+    t0 = time.perf_counter()
+    contrast = FeatureConfig(use_spectral_contrast=True)
+
+    def ties_batch(b: int) -> torch.Tensor:
+        """Four sine sweeps, a digitally silent clip, a clip silent in its
+        first half, a click train (its frames repeat; silent frames tie in
+        every bin), then noise with bursts."""
+        n = shipped.segment_samples
+        w = make_audio(rng, b, n)
+        w[:4] = make_sweeps(rng, 4, n)
+        w[4] = 0.0
+        w[5, : n // 2] = 0.0
+        w[6] = 0.0
+        w[6, :: shipped.hop_length] = 0.5
+        return torch.from_numpy(w).to(dev)
+
+    contrast_checks = [
+        ("shipped + contrast", contrast, waves(1)), ("shipped + contrast", contrast, waves(17)),
+        ("shipped + contrast", contrast, waves(256)), ("shipped + contrast", contrast, waves(1024)),
+        ("all flags", FeatureConfig(use_pcen=True, use_pre_emphasis=True, use_delta_delta=True,
+                                    use_spectral_contrast=True), waves(17)),
+        ("n_fft=256", dataclasses.replace(n_fft_256, use_spectral_contrast=True), waves(17)),
+        ("n_fft=1024", FeatureConfig(n_fft=1024, use_spectral_contrast=True), waves(17)),
+        ("4 bands", FeatureConfig(n_contrast_bands=4, use_spectral_contrast=True), waves(17)),
+        ("8 bands", FeatureConfig(n_contrast_bands=8, use_spectral_contrast=True), waves(17)),
+        ("sweeps, silence, ties", contrast, ties_batch(17)),
+    ]
+    max_abs["contrast"] = 0.0
+    contrast_split_err = 0.0
+    for name, cfg, w in contrast_checks:
+        b, geo = w.shape[0], frontend_kernel._geometry(cfg)
+        smem = (lib.cdt_frontend_smem_c(cfg.hop_length, geo.kpad, geo.n_pow, cfg.num_frames, cfg.n_contrast_bands),
+                frontend_kernel.contrast_smem_bytes(cfg))
+        if smem[0] != smem[1] or not frontend_kernel.card_supports(cfg, cfg.segment_samples):
+            fail(f"the card route's mirror of the contrast launch's shared memory disagrees on {name}: {smem}")
+        got = frontend_kernel.spectral_contrast_fused(w, cfg)
+        torch.cuda.synchronize()
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        err = rel_err(got, want)
+        split = rel_err(got, frontend_kernel.spectral_contrast_split_reference(w, cfg))
+        one_pass = rel_err(got, frontend_kernel.spectral_contrast_split_reference(w, cfg, passes=1))
+        max_abs["contrast"] = max(max_abs["contrast"], (got - want).abs().max().item())
+        contrast_split_err = max(contrast_split_err, split)
+        silent_ok = name != "sweeps, silence, ties" or bool((got[4] == 0).all())
+        print(
+            f"kernel vs plain [contrast, {name}, B={b}]: max-relative {err:.3e}, vs its 3xTF32 model "
+            f"{split:.3e} (limit {SPLIT_TOL:g}), vs one TF32 pass's model {one_pass:.3e}; shape {tuple(got.shape)}; shared memory a block (kernel, Python mirror) {smem}",
+            flush=True,
+        )
+        ok = got.shape == (b, cfg.n_contrast_bands + 1, cfg.num_frames) and bool(torch.isfinite(got).all())
+        if not (ok and silent_ok and err <= TOL and split <= SPLIT_TOL):
+            fail(f"contrast kernel disagrees with its plain version or its model on {name} B={b}: {err:.3e}, {split:.3e}")
+
+    # A contrast config the contrast launch refuses (17 bands): the card
+    # route runs the torch chain, launches nothing, and raises nothing.
+    refused = FeatureConfig(use_spectral_contrast=True, n_contrast_bands=17)
+    w = waves(17)
+    counters = frontend_kernel.LAUNCH_COUNTERS
+    before = tuple(getattr(frontend_kernel, c) for c in counters)
+    got = frontend.extract_features_fast(w, refused)
+    err = rel_err(got, frontend.extract_features(w, refused))
+    after = tuple(getattr(frontend_kernel, c) for c in counters)
+    print(
+        f"card route [17 contrast bands]: torch chain, max-relative {err:.3e}, launches {before} -> {after}; "
+        f"contrast launch checks {time.perf_counter() - t0:.3f} s (budget 10 s)",
+        flush=True,
+    )
+    if after != before or not err <= TOL or frontend_kernel.card_supports(refused, refused.segment_samples):
+        fail("a 17-band contrast config did not run the torch chain on the card")
+
     # -- 4. times ----------------------------------------------------------------
     fb_full = torch.from_numpy(
         filters.mel_filterbank(
@@ -3373,6 +3486,67 @@ def main() -> None:
             f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of bound",
             flush=True,
         )
+
+    # The contrast launch at B = 32-4096 beside its bound, its plain version
+    # (the gemm rows), the fft rows (cuFFT: its library yardstick), the
+    # torch chain with contrast, the pair alone and the hybrid (all three
+    # launches). Its bound counts the operations the function needs, not
+    # those of its design: for each frame a real FFT of each window (2.5 n
+    # log2 n for n = n_fft, at the FP32 CUDA-core peak, as cuFFT runs it)
+    # after the window's multiplies, 3 an element for the bands' power, 6
+    # for the magnitude (square, add, sqrt) and the centroid's sums, each
+    # band's two tails as selections (a compare a bin for each, then an add
+    # a selected bin) and 5 a value for the z-norm; bytes: the waveform read
+    # and the rows written once. The GEMM design's own ceiling, its DFT as
+    # a GEMM over both windows' nonzero taps at the TF32 tensor-core peak,
+    # is printed beside. Budget 10 s.
+    t0 = time.perf_counter()
+    geo = frontend_kernel._geometry(contrast)
+    taps4 = int(np.count_nonzero(filters.padded_window(contrast.win_length, contrast.n_fft)))
+    taps5 = int(np.count_nonzero(filters.padded_window(contrast.n_fft, contrast.n_fft)))
+    rows_c = contrast.n_contrast_bands + 1
+    fft_c = 2 * (2.5 * contrast.n_fft * np.log2(contrast.n_fft) + contrast.n_fft)
+    tails_c = sum(2 * n + top + bot for n, top, bot in zip(geo.widths, geo.tops, geo.bots))
+    flops_c = t_frames * (fft_c + 3 * geo.n_pow + 6 * geo.n_freqs + tails_c + 5 * rows_c)
+    gemm_c = t_frames * (2 * taps4 * 2 * geo.n_pow + 2 * taps5 * 2 * geo.n_freqs)
+    base_c = dataclasses.replace(contrast, use_spectral_contrast=False)
+
+    def bound_c(b: int) -> dict:
+        return bound(b * flops_c, 4 * b * (contrast.segment_samples + rows_c * t_frames))
+
+    contrast_timing = {}
+    for b, iters in ((32, 20), (256, 20), (1024, 10), (4096, 3)):
+        w = waves(b)
+        tm = dict(
+            ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_fused(w, contrast), iters),
+            plain_ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_reference(w, contrast), iters),
+            library_ms=cuda_ms(lambda: frontend.spectral_contrast(w, contrast, method="fft"), iters),
+            chain_ms=cuda_ms(lambda: frontend.extract_features(w, contrast), iters),
+            pair_ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, base_c), iters),
+            hybrid_ms=cuda_ms(lambda: frontend_kernel.extract_features_fused(w, contrast), iters),
+            precision="3xTF32",
+            gemm_ceiling_ms=b * gemm_c / PEAK_TF32_FLOPS * 1e3,
+            **bound_c(b),
+        )
+        if b in (256, 1024):
+            tm["device_ms"] = device_ms(
+                lambda: frontend_kernel.spectral_contrast_fused(w, contrast), iters, "contrast_kernel")
+        contrast_timing[b] = tm
+        dev_ms = (
+            f"; device time (profiler) {tm['device_ms']:.4f} ms, {100 * tm['bound_ms'] / tm['device_ms']:.1f}% of bound"
+            if "device_ms" in tm else ""
+        )
+        print(
+            f"[{smi}] times contrast B={b}: kernel {tm['ms']:.4f} ms, plain (gemm rows) {tm['plain_ms']:.4f} ms, "
+            f"fft rows {tm['library_ms']:.4f} ms; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']} "
+            f"({b * flops_c / 1e9:.4f} GFLOP at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s FP32); kernel at "
+            f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{dev_ms}; its GEMM design's ceiling "
+            f"{tm['gemm_ceiling_ms']:.4f} ms ({b * gemm_c / 1e9:.3f} GFLOP at {PEAK_TF32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s TF32), {100 * tm['gemm_ceiling_ms'] / tm['ms']:.1f}% of it. Hybrid (three launches) {tm['hybrid_ms']:.4f} "
+            f"ms, the pair alone {tm['pair_ms']:.4f} ms, the torch chain with contrast {tm['chain_ms']:.4f} ms",
+            flush=True,
+        )
+    print(f"contrast launch times: {time.perf_counter() - t0:.3f} s (budget 10 s)", flush=True)
 
     # -- 5. the serving path -----------------------------------------------------
     cfg = default_config("residual")
@@ -3606,9 +3780,6 @@ def main() -> None:
             "offline_batch_device_ms": files["b1024"][part]["device_ms"],
             "offline_batch_bound_ms": files["b1024"][part]["bound"]["bound_ms"],
             "tools_launches": {path: n[part] for path, n in tools["launches"].items()},
-            "hybrid_batch_ms": {b: h["ms"] for b, h in tools["hybrid"].items()},
-            "hybrid_pair_ms": {b: h["pair_ms"] for b, h in tools["hybrid"].items()},
-            "hybrid_contrast_ms": {b: h["contrast_ms"] for b, h in tools["hybrid"].items()},
             "parallel_launches": {path: n[part] for path, n in par["launches"].items()},
             "graphed_launches": {
                 "tick_per_format": {fmt: n["graph"][i] for fmt, n in graphed["tick_launches"].items()},
@@ -3632,6 +3803,26 @@ def main() -> None:
         for i, part in enumerate(("spectral", "epilogue"))
     ]
     kernels[0]["max_rel_vs_3xtf32_model"] = split_err
+    # The contrast launch's path is the contrast config's: phase 9 drives
+    # each of its paths with the counters set to 0 just before.
+    contrast_launches = {
+        path: n["contrast"] for path, n in tools["launches"].items() if n["contrast"]
+    }
+    kernels.append({
+        "name": "frontend_contrast",
+        "route": "cuda",
+        "source": "cough_detector_tpu_torch/csrc/frontend_kernel.cu",
+        "replaces": "cough_detector_tpu/ops/pallas/frontend_kernel.py:326",
+        "launches": sum(contrast_launches.values()),
+        "tools_launches": contrast_launches,
+        "max_abs_err": max_abs["contrast"],
+        "max_rel_vs_3xtf32_model": contrast_split_err,
+        "batch": main_b,
+        **{k: contrast_timing[main_b][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "precision")},
+        "library": "spectral_contrast(method='fft'): cuFFT and torch.topk",
+        "by_batch": contrast_timing,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -1,5 +1,7 @@
 // Fused front end for Hopper (sm_90a): raw waveform batch → stacked
-// feature image (B, num_features, num_frames), in two launches.
+// feature image (B, num_features, num_frames), in two launches; for a
+// config with spectral contrast a third (contrast_kernel, launch C, its
+// note above it) computes the contrast rows the launcher appends.
 //
 // Replaces cough_detector_tpu/ops/pallas/frontend_kernel.py::_kernel and
 // its launcher _run (the repo's only Pallas kernel). Launch A
@@ -106,6 +108,9 @@ constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on 
 constexpr int kThreadsB = 128;                      // launch B: 4 warps, one clip
 constexpr int kLoadB = 16;                          // loads a launch B thread keeps in flight
 constexpr int kRedB = 32;                           // floats of launch B's reduction slots
+constexpr int kRedC = 16;                           // floats of launch C's reduction slots
+constexpr int kMaxBands = 16;                       // launch C: contrast bands
+constexpr int kMaxBandBins = 128;                   // launch C: a band's bins, 4 a lane
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
 
@@ -841,6 +846,276 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
   }
 }
 
+// Launch C, the contrast rows: the launcher's spectral contrast, which the
+// JAX package appends to the Pallas kernel's rows in jnp
+// (cough_detector_tpu/ops/pallas/frontend_kernel.py:326-348, computing
+// ops/frontend.py::spectral_contrast with method="gemm").
+//  * Function. Per clip, from the waveform (not pre-emphasized): frames
+//    (reflect pad, hop), the win_length-Hann power over the bins the bands
+//    read, the n_fft-Hann magnitude over all bins; per frame and band,
+//    log1p(mean of the band's top tail) - log1p(mean of its bottom tail)
+//    (0 for a one-bin band); the centroid sum f|X| / sum |X| (0 where
+//    sum |X| is 0) over sr / 2; then the clip's unbiased z-norm over all
+//    its frames and rows. Output (B, n_bands + 1, n_frames).
+//  * Bound: operations. At the shipped config (n_fft 512, 6 bands) a clip
+//    is 2 * 101 * (399 * 230 + 511 * 514) = 71.6 MFLOP of DFT against 67 KB
+//    of bytes: 0.148 ms at B = 1024 at the TF32 tensor-core peak, 20 us for
+//    the bytes.
+//  * The DFT is one GEMM, as launch A's: M the clip's frames in 128-row
+//    tiles (two warpgroups), K the union of both windows' supports (511
+//    taps, 64 k-steps), N the power bins' cos and -sin columns (bins 1-115,
+//    230 columns) then every bin's for the magnitude (514), interleaved bin
+//    by bin: 744 columns in three passes of m64n256k8. It reuses launch A's
+//    machinery as it is: the span staged with its bank skew (LayoutA), the
+//    hi/lo TF32 tables streamed through the Ring of 16 KB chunks, DftPass's
+//    3xTF32 issue loop (one TF32 pass is modelled on the CPU by
+//    ops/frontend_kernel.py::spectral_contrast_split_reference; PERF.md
+//    gives the choice). Three passes of a 128-row tile for 101 frames put
+//    the reachable ceiling near 3.8x the bound.
+//  * After each pass, in registers: a thread holds re and im of one bin of
+//    rows g and g + 8 side by side. A power bin goes to the tile's power
+//    rows in shared memory (128 x n_pow); a magnitude bin is folded, after
+//    its sqrt, into the thread's running sums |X| and f|X|, which the quad
+//    adds up after the last pass: the magnitude never leaves registers.
+//  * Band tails: a warp a frame, a band at a time, by stable rank (element
+//    a's rank counts the bins above it and the equal ones before it, the
+//    formulation of ops/frontend.py::_tail_sums_rank): lane l holds bins
+//    l, l + 32, ... (as many as the band needs, band_contrast) and counts
+//    over the band read from shared memory by broadcast; the tails' sums
+//    are two warp reductions. Exact selections: the means do not depend on
+//    how ties are broken.
+//  * One block a clip (the z-norm spans every frame), looping over its row
+//    tiles; the ring restarts at each tile's first chunk (its chunk count a
+//    multiple of its slots). The clip's rows stay in shared memory until
+//    the z-norm writes them.
+struct Bands {
+  int n;
+  int off[kMaxBands], width[kMaxBands], top[kMaxBands], bot[kMaxBands];
+};
+
+// Launch C's shared memory, in floats after the ring's slots: the span
+// (LayoutA's), the tile's power (128 rows of n_pow bins), the clip's
+// contrast rows (n_rows x T), the reduction slots, then the ring's
+// mbarriers and counters.
+struct LayoutC {
+  LayoutA a;
+  int pow, con, red, end;
+
+  __host__ __device__ LayoutC(int hop, int kpad, int n_pow, int n_frames, int n_rows)
+      : a(hop, kpad) {
+    pow = a.span;
+    con = pow + (kRows * n_pow + 3) / 4 * 4;
+    red = con + (n_frames * n_rows + 3) / 4 * 4;
+    end = red + kRedC;
+  }
+
+  __host__ __device__ size_t bytes(int n_slots) const {
+    return sizeof(float) * ((size_t)n_slots * kSlotFloats + end) + 12 * kMaxSlots;
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One frame's contrast in one band of w bins at pb, by a warp: lane l
+// ranks bins l, l + 32, ... (kK of them, ceil(w / 32)) against the band
+// read by broadcast, then the two tails' sums are warp reductions.
+template <int kK>
+__device__ __forceinline__ float band_contrast(const float* pb, int w, int n_top, int n_bot, int lane) {
+  float xs[kK];
+  int rank[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    xs[k] = lane + 32 * k < w ? pb[lane + 32 * k] : 0.0f;
+    rank[k] = 0;
+  }
+  for (int b = 0; b < w; ++b) {
+    const float y = pb[b];
+#pragma unroll
+    for (int k = 0; k < kK; ++k) rank[k] += (y > xs[k]) | ((y == xs[k]) & (b < lane + 32 * k));
+  }
+  float top = 0.0f, bot = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const bool in = lane + 32 * k < w;
+    top += in && rank[k] < n_top ? xs[k] : 0.0f;
+    bot += in && rank[k] >= w - n_bot ? xs[k] : 0.0f;
+  }
+  return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
+}
+
+// A row tile's span, as launch A stages it (reflect padding, zeros after
+// the tile's live samples, `skew` pad floats after every hop samples),
+// without pre-emphasis: the contrast rows read the waveform as it is.
+__device__ void stage_span(float* span, const LayoutA& lay, const float* x, int n_samples,
+                           int base, int live, int len, int hop) {
+  const int tid = threadIdx.x;
+  const int dseg = kThreadsA / hop, doff = kThreadsA % hop;
+  int seg = tid / hop, off = tid % hop;  // sample i sits at seg * rs + off
+  for (int i0 = tid; i0 < len; i0 += kStageBatch * kThreadsA) {
+    float v[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int i = i0 + u * kThreadsA;
+      int q = base + i;
+      q = q < 0 ? -q : q;
+      q = q >= n_samples ? 2 * (n_samples - 1) - q : q;
+      v[u] = i < live && q >= 0 && q < n_samples ? x[q] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      if (i0 + u * kThreadsA < len) span[seg * lay.rs + off] = v[u];
+      seg += dseg;
+      off += doff;
+      if (off >= hop) {
+        off -= hop;
+        ++seg;
+      }
+    }
+  }
+}
+
+// Launch C. grid (batch): block b takes clip b; kThreadsA threads,
+// LayoutC's shared memory with n_slots ring slots (a divisor of the
+// tile's n_passes * kpad / 8 chunks). table: the chunk stream
+// (ops/frontend_kernel.py::_contrast_constants), n_passes passes of kpad / 8
+// chunks, the first n_pow column pairs the bands' power bins from their
+// first, the next n_freqs the magnitude's; freqs the centroid's bin
+// frequencies; bands' offsets from the first power bin.
+__global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
+    const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop, int j0,
+    int kpad, const float* __restrict__ table, int n_passes, int n_pow, int n_freqs,
+    const float* __restrict__ freqs, float half_sr, Bands bands, int n_slots,
+    float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int n_rows = bands.n + 1;
+  const LayoutC lay(hop, kpad, n_pow, n_frames, n_rows);
+  float* slots = reinterpret_cast<float*>(smem4);
+  float* span = slots + n_slots * kSlotFloats;
+  float* pw = span + lay.pow;
+  float* con = span + lay.con;
+  float* red = span + lay.red;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_ksteps = kpad / 8;
+  Ring ring;
+  ring.slots = slots;
+  ring.full = reinterpret_cast<uint64_t*>(span + lay.end);
+  ring.released = reinterpret_cast<int*>(ring.full + kMaxSlots);
+  ring.table = table;
+  ring.n_slots = n_slots;
+  ring.n = n_passes * n_ksteps;
+  if (tid == 0) {
+    for (int i = 0; i < n_slots; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(ring.full + i))
+                   : "memory");
+      ring.released[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  const float* x = wave + (size_t)blockIdx.x * n_samples;
+  const int row = 64 * (warp / 4) + 16 * (warp & 3) + g;  // and row + 8
+  int slot = 0, parity = 0;  // the ring's next slot and its parity
+  DftPass dft(ring, lay.a, span + row * lay.a.rs, hop);
+  for (int t0 = 0; t0 < n_frames; t0 += kRows) {
+    // 1. Start the tile's chunks, then stage its span while they land.
+    if (t0 > 0) __syncthreads();  // every warp is done with the last tile
+    if (tid == 0)
+      for (int q = 0; q < n_slots; ++q) ring.fill(q);
+    const int frames = min(n_frames - t0, kRows);
+    stage_span(span, lay.a, x, n_samples, t0 * hop + j0 - n_fft / 2, (frames - 1) * hop + kpad,
+               (kRows - 1) * hop + kpad, hop);
+    __syncthreads();
+
+    // 2. The DFT pass by pass; power bins to shared memory, magnitude bins
+    // into the running sums.
+    float msum[2] = {0.0f, 0.0f}, fsum[2] = {0.0f, 0.0f};
+    int q = 0;
+    for (int p = 0; p < n_passes; ++p) {
+      dft.run(q, slot, parity, n_ksteps);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int bin = 128 * p + 4 * j + t;  // column pair
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float re = dft.acc[4 * j + 2 * h], im = dft.acc[4 * j + 2 * h + 1];
+          const float sq = re * re + im * im;
+          if (bin < n_pow) {
+            pw[(row + 8 * h) * n_pow + bin] = sq;
+          } else if (bin < n_pow + n_freqs) {
+            const float m = sqrtf(sq);
+            msum[h] += m;
+            fsum[h] += __ldg(freqs + bin - n_pow) * m;
+          }
+        }
+      }
+    }
+
+    // 3. The centroid of rows row and row + 8: the quad's four sums.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float ms = msum[h], fs = fsum[h];
+      ms += __shfl_xor_sync(0xffffffffu, ms, 1);
+      fs += __shfl_xor_sync(0xffffffffu, fs, 1);
+      ms += __shfl_xor_sync(0xffffffffu, ms, 2);
+      fs += __shfl_xor_sync(0xffffffffu, fs, 2);
+      const int r = row + 8 * h;
+      if (t == 0 && r < frames) con[bands.n * n_frames + t0 + r] = (ms > 0.0f ? fs / ms : 0.0f) / half_sr;
+    }
+    __syncthreads();  // the tile's power rows are in shared memory
+
+    // 4. The bands' tails, a warp a frame.
+    for (int r = warp; r < frames; r += kWarpsA) {
+      for (int i = 0; i < bands.n; ++i) {
+        const int w = bands.width[i], nt = bands.top[i], nb = bands.bot[i];
+        const float* pb = pw + r * n_pow + bands.off[i];
+        float v = 0.0f;  // a one-bin band's
+        if (w > 96)
+          v = band_contrast<4>(pb, w, nt, nb, lane);
+        else if (w > 64)
+          v = band_contrast<3>(pb, w, nt, nb, lane);
+        else if (w > 32)
+          v = band_contrast<2>(pb, w, nt, nb, lane);
+        else if (w > 1)
+          v = band_contrast<1>(pb, w, nt, nb, lane);
+        if (lane == 0) con[i * n_frames + t0 + r] = v;
+      }
+    }
+  }
+  __syncthreads();  // the clip's rows are complete
+
+  // 5. The clip's z-norm (unbiased std), written as (n_rows, n_frames).
+  const int n = n_rows * n_frames;
+  float s = 0.0f;
+  for (int i = tid; i < n; i += kThreadsA) s += con[i];
+  s = warp_sum(s);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarpsA; ++w) total += red[w];
+  const float mean = total / (float)n;
+  float sq = 0.0f;
+  for (int i = tid; i < n; i += kThreadsA) {
+    const float d = con[i] - mean;
+    sq += d * d;
+  }
+  sq = warp_sum(sq);
+  if (lane == 0) red[kWarpsA + warp] = sq;
+  __syncthreads();
+  float var = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarpsA; ++w) var += red[kWarpsA + w];
+  const float denom = sqrtf(var / (float)(n - 1)) + 1e-8f;
+  float* o = out + (size_t)blockIdx.x * n;
+  for (int i = tid; i < n; i += kThreadsA) o[i] = (con[i] - mean) / denom;
+}
+
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
@@ -851,9 +1126,10 @@ int set_smem(const void* fn, size_t bytes) {
 
 extern "C" {
 
-// Shared-memory bytes each launch needs (launch A: with the smallest ring,
-// two slots). ops/frontend_kernel.py mirrors both in Python
-// (spectral_smem_bytes, epilogue_smem_bytes) to refuse, and route around,
+// Shared-memory bytes each launch needs (launches A and C: with the
+// smallest ring, two slots). ops/frontend_kernel.py mirrors each in Python
+// (spectral_smem_bytes, epilogue_smem_bytes, contrast_smem_bytes) to
+// refuse, and route around,
 // configs past the card's 227 KB per block; chip_smoke.py holds the
 // mirrors against these.
 size_t cdt_frontend_smem_a(int hop, int kpad) { return LayoutA(hop, kpad).bytes(2); }
@@ -911,6 +1187,51 @@ int cdt_frontend_epilogue(
   if (err) return err;
   void* args[] = {&mel, &n_frames, &n_mels, &dct, &n_mfcc, &delta_delta, &n_features, &out};
   const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsB), args, smem, stream);
+  return launched ? (int)launched : (int)cudaGetLastError();
+}
+
+size_t cdt_frontend_smem_c(int hop, int kpad, int n_pow, int n_frames, int n_bands) {
+  return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).bytes(2);
+}
+
+// Launch C. wave (B, n_samples); table: the chunk stream its ring reads
+// (ops/frontend_kernel.py::_contrast_constants), n_passes passes of kpad / 8
+// chunks; freqs (n_freqs,); per band its first bin (from the first power
+// bin), bins, top and bottom tail lengths (host arrays of n_bands);
+// out (B, n_bands + 1, n_frames). All device buffers float32, contiguous,
+// on one device. The ring gets as many slots (up to four) as shared memory
+// holds and the tile's chunk count divides by.
+int cdt_frontend_contrast(
+    const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop, int j0,
+    int kpad, const float* table, int n_passes, int n_pow, int n_freqs, const float* freqs,
+    float half_sr, int n_bands, const int* offsets, const int* widths, const int* tops,
+    const int* bots, float* out, cudaStream_t stream) {
+  if (kpad % 16 || hop < 8 || n_bands < 0 || n_bands > kMaxBands || n_pow < 0 ||
+      n_passes < 1 || 2 * (n_pow + n_freqs) > n_passes * kPassCols)
+    return (int)cudaErrorInvalidValue;
+  Bands bands = {};
+  bands.n = n_bands;
+  for (int i = 0; i < n_bands; ++i) {
+    if (widths[i] < 1 || widths[i] > kMaxBandBins || offsets[i] < 0 ||
+        offsets[i] + widths[i] > n_pow || tops[i] < 1 || bots[i] < 1)
+      return (int)cudaErrorInvalidValue;
+    bands.off[i] = offsets[i];
+    bands.width[i] = widths[i];
+    bands.top[i] = tops[i];
+    bands.bot[i] = bots[i];
+  }
+  const LayoutC lay(hop, kpad, n_pow, n_frames, n_bands + 1);
+  const int chunks = n_passes * (kpad / 8);
+  int n_slots = kMaxSlots;
+  while (n_slots > 2 && (lay.bytes(n_slots) > kMaxSmem || chunks % n_slots)) --n_slots;
+  const size_t smem = lay.bytes(n_slots);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)contrast_kernel;
+  const int err = set_smem(fn, smem);
+  if (err) return err;
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &table, &n_passes,
+                  &n_pow, &n_freqs, &freqs, &half_sr, &bands, &n_slots, &out};
+  const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsA), args, smem, stream);
   return launched ? (int)launched : (int)cudaGetLastError();
 }
 

@@ -3,9 +3,10 @@
 The port of `cough_detector_tpu/models/export.py`. The JAX package lowers
 and compiles its serving function ahead of time and persists the
 executable; here `torch.export` traces it into an `ExportedProgram` for one
-batch geometry and one device. The front end's two kernel launches are
-custom ops (`cdt::power_mel`, `cdt::mel_epilogue`,
-ops/frontend_kernel.py), so the program holds them as opaque nodes and,
+batch geometry and one device. The front end's kernel launches are
+custom ops (`cdt::power_mel`, `cdt::mel_epilogue` and, for a config with
+spectral contrast, `cdt::spectral_contrast`; ops/frontend_kernel.py), so
+the program holds them as opaque nodes and,
 when called, runs the same wrappers: the kernels on a card, their plain
 versions on the CPU, with the launch counters counting.
 """

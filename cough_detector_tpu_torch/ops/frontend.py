@@ -8,12 +8,13 @@ unbiased-std z-normalization).
 
 `extract_features` is the plain chain. `extract_features_fast` is what the
 serving path calls: on a CUDA tensor it runs the hand-written fused kernel
-(ops/frontend_kernel.py) for every config both its launches take on the
+(ops/frontend_kernel.py) for every config its launches take on the
 card (`frontend_kernel.card_supports`), and this chain for the rest, as
 the JAX launcher falls back for the configs its kernel does not cover.
-For a config with spectral contrast the kernel computes the mel and MFCC
-rows, and `spectral_contrast` the contrast rows, as the JAX launcher's
-hybrid branch does.
+For a config with spectral contrast the kernel pair computes the mel and
+MFCC rows and a third launch the contrast rows, as the JAX launcher's
+hybrid branch appends them; `spectral_contrast` is that launch's plain
+version.
 """
 
 from __future__ import annotations
@@ -299,8 +300,8 @@ def spectral_contrast(
 
     `method`: "fft" (torch.fft, the parity reference) or "gemm" (the four
     DFT projections of both windows as one FP32 matmul over one frames
-    tensor, cuBLAS's TF32 off for the call; what the fused kernel's hybrid
-    runs). `tails`: "select" (torch.topk) or "rank" (stable-rank masked
+    tensor, cuBLAS's TF32 off for the call; the plain version of the
+    contrast launch, ops/frontend_kernel.py::spectral_contrast_fused). `tails`: "select" (torch.topk) or "rank" (stable-rank masked
     sums, `_tail_sums_rank`); "auto", and any value other than "rank",
     means "select". Both select exactly and differ only in the order of
     the sums.
@@ -318,6 +319,16 @@ def spectral_contrast(
         mag = magnitude_spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.n_fft)
     else:
         raise ValueError(f"Unknown STFT method: {method!r}")
+    return contrast_from_spectra(spec, mag, cfg, tails)
+
+
+def contrast_from_spectra(
+    spec: torch.Tensor, mag: torch.Tensor, cfg: FeatureConfig, tails: str = "auto"
+) -> torch.Tensor:
+    """`spectral_contrast` after its two spectrograms: the win_length-window
+    power `spec` and the n_fft-window magnitude `mag`, each
+    (B, T, n_freqs), → (B, T, n_bands+1), z-normalized per clip."""
+    n_freqs = cfg.n_fft // 2 + 1
     t = spec.shape[1]
     edges = contrast_band_edges(n_freqs, cfg.n_contrast_bands)
 
@@ -347,7 +358,7 @@ def spectral_contrast(
             )
         rows.append(torch.log1p(peaks) - torch.log1p(valleys))
 
-    freqs = _centroid_freqs(cfg.sample_rate, n_freqs, waveform.device)
+    freqs = _centroid_freqs(cfg.sample_rate, n_freqs, spec.device)
     mag_sum = mag.sum(dim=2)
     live = mag_sum > 0
     centroid = torch.where(
@@ -409,7 +420,7 @@ def extract_features_fast(
 ) -> torch.Tensor:
     """The serving front end. `waveform` is placed on `device` (default the
     card; raises if there is none), then routed by that device: the fused
-    CUDA kernel on the card for every config both its launches take, the
+    CUDA kernel on the card for every config its launches take, the
     plain chain otherwise."""
     from . import frontend_kernel
 

@@ -1,9 +1,10 @@
-"""Fused front end: raw waveform batch → stacked feature image, in one
-hand-written CUDA kernel pair (csrc/frontend_kernel.cu).
+"""Fused front end: raw waveform batch → stacked feature image, in
+hand-written CUDA kernels (csrc/frontend_kernel.cu).
 
 The port of `cough_detector_tpu/ops/pallas/frontend_kernel.py`. It covers
 every in-kernel branch of the Pallas kernel: the dB and PCEN mel branches,
-MFCCs with deltas and optional delta-deltas, and pre-emphasis.
+MFCCs with deltas and optional delta-deltas, and pre-emphasis; and the
+contrast rows its launcher appends.
 
 `extract_features_fused` runs the pair through its two wrappers:
 `power_mel_fused` (launch A: framing, windowed DFT, power, mel, on the
@@ -19,29 +20,34 @@ TF32 operand splitting on any device; tests and chip_smoke.py hold the
 kernel and the JAX package against it.
 
 For a config with spectral contrast, `extract_features_fused` is the JAX
-launcher's hybrid: the pair runs on the config without contrast, and
-`frontend.spectral_contrast(method="gemm")` of the un-emphasized waves
-appends the contrast rows (torch ops on the same device; the contrast
-stage has no kernel in the JAX package either). The launches themselves
-compute no contrast rows and refuse a contrast config.
+launcher's hybrid in three launches: the pair runs on the config without
+contrast, and the contrast launch (`spectral_contrast_fused`: framing, one
+3xTF32 DFT over both windows, band tails by stable rank, centroid, z-norm;
+counter `CONTRAST_LAUNCHES`) appends the contrast rows of the
+un-emphasized waves. Its plain version is `spectral_contrast_reference`
+(`frontend.spectral_contrast(method="gemm")`), its arithmetic's model
+`spectral_contrast_split_reference`. The pair's launches compute no
+contrast rows and refuse a contrast config.
 
 Unlike the JAX launcher, a config the kernel does not cover (no MFCC, or a
 waveform length other than segment_samples) raises ValueError instead of
 running the plain chain. On a CUDA tensor the launches also
 raise for what the card cannot take: more than 128 mels or a hop under 8
-samples (launch A), or a block's shared memory past the card's 227 KB
-(either launch). `card_supports` is the predicate callers route on
+samples (launch A), more than 16 contrast bands or a band past 128 bins
+(the contrast launch), or a block's shared memory past the card's 227 KB
+(any launch). `card_supports` is the predicate callers route on
 (ops/frontend.py::extract_features_fast, the detector's warning): it
-holds exactly when both launches take the config on the card, and is
-computed from the config alone (`spectral_smem_bytes` and
-`epilogue_smem_bytes` mirror the kernel's layouts), so it needs neither
-the built library nor a card.
+holds exactly when every launch the config needs takes it on the card,
+and is computed from the config alone (`spectral_smem_bytes`,
+`epilogue_smem_bytes` and `contrast_smem_bytes` mirror the kernels'
+layouts), so it needs neither the built library nor a card.
 
-Each launch is also registered as a torch custom op, `cdt::power_mel` and
-`cdt::mel_epilogue`, taking the config as plain numbers: under
-torch.compile or torch.export `extract_features_fused` calls those, so a
-traced program (models/export.py) holds the two launches as opaque nodes
-and runs the same wrappers, counters included, when it is called.
+Each launch is also registered as a torch custom op, `cdt::power_mel`,
+`cdt::mel_epilogue` and `cdt::spectral_contrast`, taking the config as
+plain numbers: under torch.compile or torch.export
+`extract_features_fused` calls those, so a traced program
+(models/export.py) holds the launches as opaque nodes and runs the same
+wrappers, counters included, when it is called.
 """
 
 from __future__ import annotations
@@ -57,14 +63,18 @@ import torch.nn.functional as F
 
 from ..config import FeatureConfig
 from . import filters
-from .frontend import pre_emphasis, spectral_contrast, stack_features
+from .frontend import (
+    contrast_band_edges, contrast_from_spectra, frame_signal, pre_emphasis,
+    spectral_contrast, stack_features,
+)
 
 # Launches of each kernel since import (or since a caller last set it to 0),
 # replays of captured programs included (utils/graphs.py adds a graph's
 # captured launches on every replay).
 SPECTRAL_LAUNCHES = 0
 EPILOGUE_LAUNCHES = 0
-LAUNCH_COUNTERS = ("SPECTRAL_LAUNCHES", "EPILOGUE_LAUNCHES")
+CONTRAST_LAUNCHES = 0
+LAUNCH_COUNTERS = ("SPECTRAL_LAUNCHES", "EPILOGUE_LAUNCHES", "CONTRAST_LAUNCHES")
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _MAX_BLOCKS = 2**31 - 1  # a launch's grid x; launch A folds the clip into it
@@ -75,6 +85,9 @@ _ROWS_A = 128  # frames one launch A block owns
 _SLOTS_A = 2  # launch A's smallest ring
 _BARRIERS_A = 12 * 4  # bytes of launch A's ring barriers and counters (4 slots)
 _RED_B = 32  # floats of launch B's reduction slots
+_RED_C = 16  # floats of the contrast launch's reduction slots
+_MAX_BANDS = 16  # contrast bands the contrast launch takes
+_MAX_BAND_BINS = 128  # bins of its widest band: 4 a lane of the warp that selects it
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -92,12 +105,17 @@ def _support(cfg: FeatureConfig) -> tuple:
     return j0, j1, -(-(j1 - j0) // 16) * 16
 
 
+def _span_floats(hop: int, kpad: int) -> int:
+    """The staged waveform span of a 128-frame tile, as LayoutA counts it:
+    `skew` pad floats after every hop samples."""
+    skew = (4 - hop) % 8
+    return ((((_ROWS_A - 1) * hop + kpad) // hop + 1) * (hop + skew) + 3) // 4 * 4
+
+
 def spectral_smem_bytes(hop: int, kpad: int) -> int:
     """Launch A's shared memory with its smallest ring, as
     csrc/frontend_kernel.cu's LayoutA counts it (cdt_frontend_smem_a)."""
-    skew = (4 - hop) % 8
-    span = ((((_ROWS_A - 1) * hop + kpad) // hop + 1) * (hop + skew) + 3) // 4 * 4
-    return 4 * (_SLOTS_A * _CHUNK + span) + _BARRIERS_A
+    return 4 * (_SLOTS_A * _CHUNK + _span_floats(hop, kpad)) + _BARRIERS_A
 
 
 def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
@@ -151,15 +169,16 @@ def _smem_refusal(smem: int, cfg: FeatureConfig) -> str:
 
 
 def card_supports(cfg: FeatureConfig, n_samples: int) -> bool:
-    """Whether both launches take this config at this length on the card:
-    `kernel_supports`, launch A's limits (at most 128 mels, a hop of at
-    least 8 samples, its shared memory) and launch B's shared memory. None
-    of these depends on spectral contrast, so a contrast config is taken
-    exactly when the config without it is."""
+    """Whether every launch the config needs takes it at this length on the
+    card: `kernel_supports`, launch A's limits (at most 128 mels, a hop of
+    at least 8 samples, its shared memory), launch B's shared memory and,
+    for a config with spectral contrast, the contrast launch's limits (at
+    most 16 bands of at most 128 bins, its shared memory)."""
     return (
         kernel_supports(cfg, n_samples)
         and not _spectral_refusal(cfg)
         and epilogue_smem_bytes(cfg) <= _MAX_SMEM
+        and not (cfg.use_spectral_contrast and _contrast_refusal(cfg))
     )
 
 
@@ -364,6 +383,13 @@ def build() -> ctypes.CDLL:
     lib.cdt_frontend_smem_a.restype = ctypes.c_size_t
     lib.cdt_frontend_smem_b.argtypes = [i, i, i, i]
     lib.cdt_frontend_smem_b.restype = ctypes.c_size_t
+    ints = ctypes.POINTER(i)
+    lib.cdt_frontend_contrast.argtypes = [
+        p, i, i, i, i, i, i, i, p, i, i, i, p, f, i, ints, ints, ints, ints, p, p,
+    ]
+    lib.cdt_frontend_contrast.restype = i
+    lib.cdt_frontend_smem_c.argtypes = [i, i, i, i, i]
+    lib.cdt_frontend_smem_c.restype = ctypes.c_size_t
     lib.cdt_error_string.argtypes = [i]
     lib.cdt_error_string.restype = ctypes.c_char_p
     return lib
@@ -457,6 +483,205 @@ def mel_epilogue_fused(
     return out
 
 
+# -- the contrast launch ------------------------------------------------------------
+
+
+class _ContrastGeometry(NamedTuple):
+    j0: int          # [j0, j1): taps where either window is nonzero
+    j1: int
+    kpad: int        # j1 - j0 rounded up to two k-steps of 8 taps
+    pow_lo: int      # the bands read power bins [pow_lo, pow_lo + n_pow)
+    n_pow: int
+    n_freqs: int     # magnitude bins, all of them, for the centroid
+    n_passes: int    # DFT passes of 256 columns: power pairs, then magnitude pairs
+    offsets: tuple   # per band: first bin, from pow_lo
+    widths: tuple    # per band: bins
+    tops: tuple      # per band: bins in the top tail
+    bots: tuple      # per band: bins in the bottom tail
+
+
+@functools.lru_cache(maxsize=32)
+def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
+    """The contrast launch's shapes, from the bands of
+    ops/frontend.py::contrast_from_spectra and the supports of its two
+    windows (the win_length Hann for the bands' power, the n_fft Hann for
+    the centroid's magnitude)."""
+    n_freqs = cfg.n_fft // 2 + 1
+    edges = contrast_band_edges(n_freqs, cfg.n_contrast_bands)
+    lows, widths, tops, bots = [], [], [], []
+    for i in range(cfg.n_contrast_bands):
+        low = int(edges[i])
+        high = min(max(int(edges[i + 1]), low + 1), n_freqs)
+        n = high - low
+        lows.append(low)
+        widths.append(n)
+        tops.append(n - min(max(1, int(n * 0.8)), n - 1) if n > 1 else 1)
+        bots.append(max(1, int(n * 0.2)))
+    pow_lo = int(edges[0])
+    n_pow = max((lo + n for lo, n in zip(lows, widths)), default=pow_lo) - pow_lo
+    c4, _ = filters.dft_matrices(cfg.n_fft, cfg.win_length)
+    c5, _ = filters.dft_matrices(cfg.n_fft, cfg.n_fft)
+    support = np.nonzero(np.any(c4 != 0, axis=1) | np.any(c5 != 0, axis=1))[0]
+    j0, j1 = int(support[0]), int(support[-1]) + 1
+    return _ContrastGeometry(
+        j0, j1, -(-(j1 - j0) // 16) * 16, pow_lo, n_pow, n_freqs,
+        -(-2 * (n_pow + n_freqs) // _PASS_COLS), tuple(lo - pow_lo for lo in lows),
+        tuple(widths), tuple(tops), tuple(bots),
+    )
+
+
+def contrast_smem_bytes(cfg: FeatureConfig) -> int:
+    """The contrast launch's shared memory with its smallest ring, as
+    csrc/frontend_kernel.cu's LayoutC counts it (cdt_frontend_smem_c): the
+    ring's two slots, the tile's waveform span, the tile's power over the
+    bands' bins (128 rows), the clip's contrast rows, reduction slots."""
+    g = _geometry(cfg)
+    rows = (_ROWS_A * g.n_pow + 3) // 4 * 4
+    con = (cfg.num_frames * (cfg.n_contrast_bands + 1) + 3) // 4 * 4
+    span = _span_floats(cfg.hop_length, g.kpad)
+    return 4 * (_SLOTS_A * _CHUNK + span + rows + con + _RED_C) + _BARRIERS_A
+
+
+def contrast_grid(batch: int, n_frames: int) -> tuple:
+    """(blocks, row tiles a block): the contrast launch takes one clip a
+    block, on grid x, and loops over its ceil(n_frames / 128) row tiles,
+    since the per-clip z-norm spans every frame."""
+    return batch, -(-n_frames // _ROWS_A)
+
+
+def _contrast_refusal(cfg: FeatureConfig) -> str:
+    """Why the contrast launch cannot take this config on the card ('' if
+    it can)."""
+    g = _geometry(cfg)
+    if cfg.n_contrast_bands > _MAX_BANDS or max(g.widths, default=0) > _MAX_BAND_BINS:
+        return (
+            f"the contrast kernel takes at most {_MAX_BANDS} bands of at most "
+            f"{_MAX_BAND_BINS} bins, got {cfg.n_contrast_bands} of up to {max(g.widths)}"
+        )
+    if cfg.hop_length < 8:
+        return f"the contrast kernel takes a hop of at least 8 samples, got {cfg.hop_length}"
+    smem = contrast_smem_bytes(cfg)
+    if smem > _MAX_SMEM:
+        return _smem_refusal(smem, cfg)
+    return ""
+
+
+class _ContrastConstants(NamedTuple):
+    cols: torch.Tensor   # (j1 - j0, 2 (n_pow + n_freqs)): the DFT columns
+    table: torch.Tensor  # the chunk stream the contrast launch's ring reads
+    freqs: torch.Tensor  # (n_freqs,): the centroid's bin frequencies
+
+
+@functools.lru_cache(maxsize=16)
+def _contrast_constants(cfg: FeatureConfig, device: torch.device) -> _ContrastConstants:
+    """The contrast launch's DFT over both windows' support [j0, j1): per
+    power bin of the bands (win_length window) its cos and -sin columns,
+    interleaved, then the same for every bin of the n_fft window, zero
+    past them. Split into hi/lo TF32 here, once per config, and laid out
+    as launch A's tables are (`_tiles`): per pass of 256 columns, one 16 KB
+    chunk per k-step of 8 taps over [j0, j0 + kpad)."""
+    g = _geometry(cfg)
+    c4, s4 = filters.dft_matrices(cfg.n_fft, cfg.win_length)
+    c5, s5 = filters.dft_matrices(cfg.n_fft, cfg.n_fft)
+    taps, bins, p2 = slice(g.j0, g.j1), slice(g.pow_lo, g.pow_lo + g.n_pow), 2 * g.n_pow
+    table = np.zeros((g.kpad, g.n_passes * _PASS_COLS), np.float32)
+    table[: g.j1 - g.j0, 0:p2:2] = c4[taps, bins]
+    table[: g.j1 - g.j0, 1:p2:2] = s4[taps, bins]
+    table[: g.j1 - g.j0, p2 : p2 + 2 * g.n_freqs : 2] = c5[taps]
+    table[: g.j1 - g.j0, p2 + 1 : p2 + 2 * g.n_freqs : 2] = s5[taps]
+    stream = torch.cat([
+        _tiles(table[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]) for p in range(g.n_passes)
+    ])
+    freqs = np.linspace(0, cfg.sample_rate // 2, g.n_freqs, dtype=np.float32)
+    cols = table[: g.j1 - g.j0, : 2 * (g.n_pow + g.n_freqs)]
+    return _ContrastConstants(
+        torch.from_numpy(np.ascontiguousarray(cols)).to(device),
+        stream.reshape(-1).to(device), torch.from_numpy(freqs).to(device),
+    )
+
+
+def _check_contrast(cfg: FeatureConfig, n_samples: int) -> None:
+    if n_samples != cfg.segment_samples:
+        raise ValueError(
+            f"the contrast kernel needs waveforms of segment_samples="
+            f"{cfg.segment_samples}, got length {n_samples} "
+            f"(ops.frontend.spectral_contrast covers every length)"
+        )
+
+
+def spectral_contrast_reference(
+    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig(use_spectral_contrast=True)
+) -> torch.Tensor:
+    """The contrast launch's function in plain torch ops:
+    (B, segment_samples) → contrast rows (B, n_contrast_bands + 1,
+    num_frames), by `spectral_contrast(method="gemm")` (one FP32 DFT
+    matmul over both windows, cuBLAS's TF32 off, `torch.topk` tails)."""
+    _check_contrast(cfg, waves.shape[-1])
+    return spectral_contrast(waves, cfg, method="gemm").transpose(1, 2)
+
+
+def spectral_contrast_split_reference(
+    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig(use_spectral_contrast=True),
+    passes: int = 3,
+) -> torch.Tensor:
+    """The contrast launch's arithmetic in plain torch ops: (B,
+    segment_samples) → (B, n_contrast_bands + 1, num_frames), its DFT with
+    TF32 operands over both windows' support (passes=3: the kernel's
+    3xTF32, as `power_mel_split_reference` models launch A's; passes=1: one
+    TF32 product), its tails by stable rank as the kernel selects them.
+    For tests and chip_smoke.py; nothing on the main path calls it."""
+    _check_contrast(cfg, waves.shape[-1])
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    g = _geometry(cfg)
+    k = _contrast_constants(cfg, waves.device)
+    frames = frame_signal(waves, cfg.n_fft, cfg.hop_length)[..., g.j0 : g.j1]
+    out = _split_matmul(frames, k.cols, passes)
+    sq = out[..., 0::2] ** 2 + out[..., 1::2] ** 2
+    spec = torch.zeros(sq.shape[:2] + (g.n_freqs,), dtype=sq.dtype, device=sq.device)
+    spec[..., g.pow_lo : g.pow_lo + g.n_pow] = sq[..., : g.n_pow]
+    mag = torch.sqrt(sq[..., g.n_pow :])
+    return contrast_from_spectra(spec, mag, cfg, tails="rank").transpose(1, 2)
+
+
+def spectral_contrast_fused(
+    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig(use_spectral_contrast=True)
+) -> torch.Tensor:
+    """The contrast launch: (B, segment_samples) float32, not pre-emphasized
+    → contrast rows (B, n_contrast_bands + 1, num_frames). CUDA tensors
+    launch the kernel on the current stream (no synchronise); CPU tensors
+    run spectral_contrast_reference."""
+    global CONTRAST_LAUNCHES
+    _check_contrast(cfg, waves.shape[-1])
+    if waves.device.type == "cpu":
+        return spectral_contrast_reference(waves, cfg)
+    _check_cuda(waves, 2, "waves")
+    b, t = waves.shape[0], cfg.num_frames
+    if contrast_grid(b, t)[0] > _MAX_BLOCKS:
+        raise ValueError(f"batch {b} needs more than the contrast kernel's {_MAX_BLOCKS} blocks")
+    out = torch.empty((b, cfg.n_contrast_bands + 1, t), dtype=torch.float32, device=waves.device)
+    if b == 0:
+        return out
+    refusal = _contrast_refusal(cfg)
+    if refusal:
+        raise ValueError(refusal)
+    g = _geometry(cfg)
+    k = _contrast_constants(cfg, waves.device)
+    lib = build()
+    n = cfg.n_contrast_bands
+    bands = [(ctypes.c_int * max(n, 1))(*v) for v in (g.offsets, g.widths, g.tops, g.bots)]
+    with torch.cuda.device(waves.device):
+        err = lib.cdt_frontend_contrast(
+            waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
+            g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs,
+            k.freqs.data_ptr(), float(cfg.sample_rate / 2.0), n, *bands,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, lib, "contrast")
+    CONTRAST_LAUNCHES += 1
+    return out
+
+
 # -- the launches as custom ops --------------------------------------------------
 
 
@@ -512,6 +737,29 @@ def _(mel, *fields):
     return mel.new_empty((mel.shape[0], cfg.num_features, cfg.num_frames))
 
 
+@torch.library.custom_op("cdt::spectral_contrast", mutates_args=())
+def _spectral_contrast_op(
+    waves: torch.Tensor, sample_rate: int, n_mels: int, n_fft: int, hop_length: int,
+    win_length: int, f_min: float, f_max: float, segment_duration: float, n_mfcc: int,
+    use_mfcc: bool, use_pcen: bool, use_pre_emphasis: bool, pre_emphasis_coef: float,
+    use_delta_delta: bool, use_spectral_contrast: bool, n_contrast_bands: int,
+) -> torch.Tensor:
+    """The contrast launch (`spectral_contrast_fused`): the kernel on a CUDA
+    tensor, or a raise; its plain version on a CPU tensor."""
+    cfg = FeatureConfig(
+        sample_rate, n_mels, n_fft, hop_length, win_length, f_min, f_max, segment_duration,
+        n_mfcc, use_mfcc, use_pcen, use_pre_emphasis, pre_emphasis_coef, use_delta_delta,
+        use_spectral_contrast, n_contrast_bands,
+    )
+    return spectral_contrast_fused(waves.contiguous(), cfg).contiguous()
+
+
+@_spectral_contrast_op.register_fake
+def _(waves, *fields):
+    cfg = FeatureConfig(*fields)
+    return waves.new_empty((waves.shape[0], cfg.n_contrast_bands + 1, cfg.num_frames))
+
+
 def _pair(waves: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     """Both launches; through the custom ops while torch traces."""
     if torch.compiler.is_compiling():
@@ -520,20 +768,26 @@ def _pair(waves: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     return mel_epilogue_fused(power_mel_fused(waves, cfg), cfg)
 
 
+def _contrast(waves: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """The contrast launch; through its custom op while torch traces."""
+    if torch.compiler.is_compiling():
+        return torch.ops.cdt.spectral_contrast(waves, *_op_args(cfg))
+    return spectral_contrast_fused(waves, cfg)
+
+
 def extract_features_fused(
     waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
 ) -> torch.Tensor:
     """(B, segment_samples) float32 → (B, num_features, num_frames), through
-    both launches on CUDA tensors and both plain versions on CPU tensors.
+    the launches on CUDA tensors and their plain versions on CPU tensors.
     The power mel between them is dropped on return: the caching allocator
     hands its memory out again only to work queued after launch B.
 
-    A config with spectral contrast runs the hybrid: the pair on the config
-    without contrast, then the contrast rows of the same (un-emphasized)
-    waves by `spectral_contrast(method="gemm")`, stacked last."""
+    A config with spectral contrast runs three launches, the JAX
+    launcher's hybrid: the pair on the config without contrast, then the
+    contrast launch on the same (un-emphasized) waves, its rows stacked
+    last."""
     if cfg.use_spectral_contrast and kernel_supports(cfg, waves.shape[-1]):
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
-        feats = _pair(waves, base)
-        con = spectral_contrast(waves, cfg, method="gemm")
-        return torch.cat([feats, con.transpose(1, 2)], dim=1)
+        return torch.cat([_pair(waves, base), _contrast(waves, cfg)], dim=1)
     return _pair(waves, cfg)

@@ -3,8 +3,8 @@ the CPU.
 
 The `.pt2` written by `models/export.py` (torch.export of peak normalize →
 front end → classifier → softmax) is loaded back and must equal the eager
-serving function within 1e-6; the front end's two launches are custom ops
-(`cdt::power_mel`, `cdt::mel_epilogue`) whose fake implementations give
+serving function within 1e-6; the front end's launches are custom ops
+(`cdt::power_mel`, `cdt::mel_epilogue`, `cdt::spectral_contrast`) whose fake implementations give
 the real shapes (torch.library.opcheck) and which a traced program calls.
 `cli.export --pt` writes a reference `.pt` that the JAX package's
 `import_torch_checkpoint` loads to the same logits within 1e-3.
@@ -81,10 +81,10 @@ def test_pt2_round_trip_equals_eager(weights, tmp_path, name):
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_traced_launcher_calls_the_custom_ops(tmp_path, name):
-    """A traced extract_features_fused holds both launches as custom-op
-    nodes (the contrast rows as plain torch ops beside them), and the
-    loaded program runs the same wrappers: on CPU tensors their plain
-    versions, equal to the eager launcher."""
+    """A traced extract_features_fused holds its launches as custom-op
+    nodes (the pair's two, and the contrast launch's on a contrast
+    config), and the loaded program runs the same wrappers: on CPU tensors
+    their plain versions, equal to the eager launcher."""
     fcfg = CONFIGS[name].features
 
     class Fused(torch.nn.Module):
@@ -94,7 +94,8 @@ def test_traced_launcher_calls_the_custom_ops(tmp_path, name):
     w = torch.from_numpy(_clips(3, seed=12))
     program = torch.export.export(Fused(), (w,))
     ops = [str(n.target) for n in program.graph.nodes if "cdt" in str(n.target)]
-    assert ops == ["cdt.power_mel.default", "cdt.mel_epilogue.default"]
+    contrast = ["cdt.spectral_contrast.default"] if fcfg.use_spectral_contrast else []
+    assert ops == ["cdt.power_mel.default", "cdt.mel_epilogue.default"] + contrast
     torch.export.save(program, str(tmp_path / "fused.pt2"))
     loaded = export.load_serialized(str(tmp_path / "fused.pt2"))
     got = loaded(w)

@@ -1,0 +1,158 @@
+"""Where the contrast launch's time goes, on one NVIDIA card.
+
+    python3 tools/contrast_probe.py [--baseline PATH ...]
+
+Times launch C of the front-end kernel (csrc/frontend_kernel.cu:
+contrast_kernel, the launcher's spectral-contrast rows) with CUDA events
+at B = 1024 and 4096 on the shipped config with contrast, as built and in
+variants, each a string edit of the source built with the same nvcc flags
+into build/kernels/ (all builds run at once):
+  - 4 bins a lane: every band ranked with four bins a lane, as the
+    launch's first design did (the same rows);
+  - no band tails: the band stage left out (its inputs still taken by an
+    empty asm), so the rows are wrong and the time is what the rest costs;
+  - one DFT pass: the tile's DFT stops after its first pass of 256
+    columns (the shipped config's clips are one row tile, so the ring is
+    never restarted), which measures a pass's share.
+Each --baseline is another copy of the source (the same C interface for
+launch C) timed in turns with this one: the baselines, as built, the
+variants, as built, the baselines. Prints the card's name and power limit
+first, and each build's max-relative deviation from the plain version.
+Needs a CUDA card and nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from cough_detector_tpu_torch.config import FeatureConfig  # noqa: E402
+from cough_detector_tpu_torch.ops import frontend_kernel  # noqa: E402
+from cough_detector_tpu_torch.utils import kernel_build  # noqa: E402
+
+ITERS = {1024: 20, 4096: 10}
+
+BANDS = (
+    "        if (w > 96)\n"
+    "          v = band_contrast<4>(pb, w, nt, nb, lane);\n"
+    "        else if (w > 64)\n"
+    "          v = band_contrast<3>(pb, w, nt, nb, lane);\n"
+    "        else if (w > 32)\n"
+    "          v = band_contrast<2>(pb, w, nt, nb, lane);\n"
+    "        else if (w > 1)\n"
+    "          v = band_contrast<1>(pb, w, nt, nb, lane);\n"
+)
+
+
+def edit(src: str, old: str, new: str) -> str:
+    if old not in src:
+        raise SystemExit(f"the source no longer holds the text this variant edits: {old[:60]!r}")
+    return src.replace(old, new, 1)
+
+
+def variants(src: str) -> dict:
+    one_pass = edit(src, "ring.n = n_passes * n_ksteps;", "ring.n = n_ksteps;")
+    return {
+        "as built": src,
+        "4 bins a lane": edit(src, BANDS, "        if (w > 1) v = band_contrast<4>(pb, w, nt, nb, lane);\n"),
+        "no band tails": edit(src, BANDS, '        asm volatile("" ::"l"(pb), "r"(w + nt + nb + lane));\n'),
+        "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
+    }
+
+
+def build_all(sources: dict) -> dict:
+    kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def one(item):
+        n, (name, text) = item
+        path = kernel_build.BUILD_DIR / f"contrast_probe_{n}.cu"
+        path.write_text(text)
+        lib = path.with_suffix(".so")
+        cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(lib), str(path)]
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        handle = ctypes.CDLL(str(lib))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ints = ctypes.POINTER(i)
+        handle.cdt_frontend_contrast.argtypes = [
+            p, i, i, i, i, i, i, i, p, i, i, i, p, f, i, ints, ints, ints, ints, p, p,
+        ]
+        return name, handle
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, enumerate(sources.items())))
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--baseline", type=Path, action="append", default=[],
+        help="another frontend_kernel.cu to time beside this one (repeatable)",
+    )
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0], flush=True)
+
+    sources = variants((kernel_build._CSRC / "frontend_kernel.cu").read_text())
+    baselines = [f"baseline {path}" for path in args.baseline]
+    for name, path in zip(baselines, args.baseline):
+        sources[name] = path.read_text()
+    libs = build_all(sources)
+    dev = torch.device("cuda")
+    cfg = FeatureConfig(use_spectral_contrast=True)
+    g = frontend_kernel._geometry(cfg)
+    k = frontend_kernel._contrast_constants(cfg, dev)
+    n = cfg.n_contrast_bands
+    bands = [(ctypes.c_int * n)(*v) for v in (g.offsets, g.widths, g.tops, g.bots)]
+    rng = np.random.default_rng(0)
+    order = baselines + ["as built"] + [v for v in libs if v not in baselines and v != "as built"]
+    order += ["as built"] + baselines
+    for b, iters in ITERS.items():
+        w = torch.from_numpy((rng.standard_normal((b, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        out = torch.empty((b, n + 1, cfg.num_frames), device=dev)
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        for name in order:
+            lib = libs[name]
+
+            def launch() -> None:
+                err = lib.cdt_frontend_contrast(
+                    w.data_ptr(), b, cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
+                    g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs, k.freqs.data_ptr(),
+                    float(cfg.sample_rate / 2.0), n, *bands, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream,
+                )
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+            for _ in range(3):
+                launch()
+            torch.cuda.synchronize()
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            print(
+                f"contrast launch B={b}, shipped + contrast, {name}: {start.elapsed_time(end) / iters:.4f} ms, "
+                f"max-relative vs plain {err:.2e}",
+                flush=True,
+            )
+
+
+if __name__ == "__main__":
+    main()
