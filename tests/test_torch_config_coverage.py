@@ -1,0 +1,272 @@
+"""Every config the JAX launcher sends to its Pallas kernel, on the port's
+card route, on the CPU.
+
+The JAX launcher (cough_detector_tpu/ops/pallas/frontend_kernel.py) runs
+its kernel for every config with MFCCs at segment length, and appends the
+contrast rows for a contrast config. The port's three launches take the
+same set: more than 128 mels in mel groups, n_fft 2048 with the waveform
+gathered from device memory, clips past 4 s over a thread-block cluster
+(or in device memory past 8 blocks), a hop of 4, and any contrast bands.
+The kernels run only on the card (chip_smoke.py holds them there); here
+the same numpy inputs go through the port's card route with device="cpu"
+(the launches' plain versions) and through the JAX package, and the
+launches' plans are held against the values the card's library returned.
+
+JAX references at B = 2: the Pallas kernel in interpret mode (the hybrid
+for contrast configs) where it runs in a few seconds here (1.5-6.1 s a
+config), the jnp chain for the 10 s clip (14.8 s interpreted) and the hop
+of 4 (4001 frames, 59.2 s interpreted: too slow for Tier-1), which compute
+the same function. Budget: 1e-3 max-relative (docs/PARITY.md).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from cough_detector_tpu.config import FeatureConfig as JaxFeatureConfig
+from cough_detector_tpu.data import synth
+from cough_detector_tpu.ops import frontend as jax_frontend
+from cough_detector_tpu.ops.pallas import frontend_kernel as jax_kernel
+from cough_detector_tpu_torch.config import FeatureConfig
+from cough_detector_tpu_torch.ops import frontend, frontend_kernel
+from test_torch_frontend import _rel
+from test_torch_models import one_torch_thread  # noqa: F401
+
+TOL = 1e-3
+CONTRAST = dict(use_spectral_contrast=True)
+NFFT2048 = dict(n_fft=2048, win_length=2048, hop_length=512, n_mels=128, f_max=8000.0)
+CONFIGS = {
+    "mels160": dict(n_mels=160, f_max=8000.0),
+    "mels256": dict(n_mels=256, f_max=8000.0),
+    "nfft2048": NFFT2048,
+    "librosa22k": dict(NFFT2048, sample_rate=22050, f_max=11025.0),
+    "clip5s_128": dict(segment_duration=5.0, n_mels=128, f_max=8000.0),
+    "clip10s": dict(segment_duration=10.0),
+    "hop4": dict(hop_length=4),
+    "nfft1024_contrast": dict(n_fft=1024, win_length=1024, hop_length=256, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft2048_contrast": dict(NFFT2048, **CONTRAST),
+    "bands17": dict(n_contrast_bands=17, **CONTRAST),
+}
+# Configs chip_smoke.py adds for the plans no config above reaches.
+EXTRA = {
+    "clip60s_128_all_flags": dict(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
+                                  use_pre_emphasis=True, use_delta_delta=True, **CONTRAST),
+    "hop4_contrast": dict(hop_length=4, **CONTRAST),
+    "nfft4096_contrast": dict(n_fft=4096, win_length=4096, hop_length=1024, n_mels=128, f_max=8000.0, **CONTRAST),
+}
+JNP = ("clip10s", "hop4")  # too long in interpret mode: the JAX jnp chain instead
+
+# What the card's library returned for each config (chip_smoke.py's
+# every-config checks, NVIDIA H100 80GB HBM3): launch A's shared memory and
+# whether it stages its span; launch B's shared memory a block and its
+# blocks a clip (0: device memory); the contrast launch's shared memory and
+# LayoutC level.
+PLANS_ON_CARD = {
+    "mels160": (118096, 1, 75008, 1, None, None),
+    "mels256": (118096, 1, 119936, 1, None, None),
+    "nfft2048": (32816, 0, 24704, 1, None, None),
+    "librosa22k": (32816, 0, 30848, 1, None, None),
+    "clip5s_128": (118096, 1, 136832, 2, None, None),
+    "clip10s": (118096, 1, 132480, 2, None, None),
+    "hop4": (36464, 1, 209280, 5, None, None),
+    "nfft1024_contrast": (170096, 1, 40576, 1, 141664, 1),
+    "nfft2048_contrast": (32816, 0, 24704, 1, 227824, 1),
+    "bands17": (118096, 1, 30080, 1, 221840, 0),
+    "clip60s_128_all_flags": (118096, 1, 128, 0, 91760, 2),
+    "hop4_contrast": (36464, 1, 209280, 5, 207888, 0),
+    "nfft4096_contrast": (32816, 0, 16512, 1, 32880, 3),
+}
+SMEM = 232448  # bytes of shared memory a block may use on sm_90
+
+
+def _cfg(name: str) -> FeatureConfig:
+    return FeatureConfig(**{**CONFIGS, **EXTRA}[name])
+
+
+def _waves(cfg: FeatureConfig, n: int, seed: int) -> np.ndarray:
+    """n clips of the config's segment length and sample rate: a synthetic
+    cough, then a non-cough."""
+    dur = cfg.segment_duration
+    return np.stack([
+        (synth.synthetic_cough if i % 2 == 0 else synth.synthetic_non_cough)(seed + i, dur, cfg.sample_rate)
+        for i in range(n)
+    ]).astype(np.float32)
+
+
+def _launches() -> tuple:
+    return tuple(getattr(frontend_kernel, c) for c in frontend_kernel.LAUNCH_COUNTERS)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_card_route_matches_jax(name):
+    """extract_features_fast, the route every path calls, on the CPU (the
+    launches' plain versions) against the JAX package at B = 2."""
+    cfg = _cfg(name)
+    w = _waves(cfg, 2, seed=11)
+    before = _launches()
+    got = frontend.extract_features_fast(w, cfg, device="cpu").numpy()
+    assert _launches() == before
+    jcfg = JaxFeatureConfig(**{**CONFIGS, **EXTRA}[name])
+    if name in JNP:
+        want = np.asarray(jax_frontend.extract_features(w, jcfg))
+    else:
+        want = np.asarray(jax_kernel.extract_features_fused(w, jcfg, interpret=True))
+    assert got.shape == want.shape == (2, cfg.num_features, cfg.num_frames)
+    assert _rel(got, want) < TOL
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_split_models_hold_the_plain_versions(name):
+    """The 3xTF32 models of launch A and the contrast launch, which
+    chip_smoke.py holds the kernels against, agree with the plain versions
+    at each config's geometry (2048-tap frames, 256 mels)."""
+    cfg = _cfg(name)
+    base = dataclasses.replace(cfg, use_spectral_contrast=False)
+    w = torch.from_numpy(_waves(cfg, 2, seed=13))
+    mel = frontend_kernel.power_mel_reference(w, base)
+    model = frontend_kernel.power_mel_split_reference(w, base)
+    assert _rel(model.numpy(), mel.numpy()) < 1e-4
+    if cfg.use_spectral_contrast:
+        want = frontend_kernel.spectral_contrast_reference(w, cfg).numpy()
+        got = frontend_kernel.spectral_contrast_split_reference(w, cfg).numpy()
+        assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("name", list(PLANS_ON_CARD))
+def test_plans_match_the_card(name):
+    """Each launch's shared memory and plan, from the Python mirrors,
+    equal what the card's library returned; each fits a block."""
+    cfg = _cfg(name)
+    kpad = frontend_kernel._support(cfg)[2]
+    got = (
+        frontend_kernel.spectral_smem_bytes(cfg.hop_length, kpad),
+        int(frontend_kernel.spectral_staged(cfg.hop_length, kpad)),
+        frontend_kernel.epilogue_smem_bytes(cfg),
+        frontend_kernel.epilogue_blocks(cfg),
+    )
+    if cfg.use_spectral_contrast:
+        got += (frontend_kernel.contrast_smem_bytes(cfg), frontend_kernel.contrast_level(cfg))
+    else:
+        got += (None, None)
+    assert got == PLANS_ON_CARD[name]
+    assert all(v <= SMEM for v in (got[0], got[2], got[4] or 0))
+
+
+@pytest.mark.parametrize("n_mels, want", [
+    (32, (4, 1)), (64, (8, 1)), (128, (16, 1)), (129, (16, 2)), (160, (16, 2)),
+    (256, (16, 2)), (257, (16, 3)), (300, (16, 3)), (200, (16, 2)), (96, (16, 1)),
+])
+def test_mel_groups(n_mels, want):
+    """Launch A's mel groups: the fewest groups of at most 128 mels, each
+    of the narrowest width (32, 64 or 128) that holds its share."""
+    tiles, groups = frontend_kernel.mel_groups(n_mels)
+    assert (tiles, groups) == want
+    assert 8 * tiles * groups >= n_mels and 8 * tiles * (groups - 1) < n_mels
+
+
+def test_table_stream_per_mel_group():
+    """At 160 mels launch A's chunk stream is one stream a mel group: the
+    same DFT chunks, then the filterbank's columns of the group's mels."""
+    cfg = _cfg("mels160")
+    k = frontend_kernel._constants(cfg, torch.device("cpu"))
+    assert (k.mel_tiles, k.n_groups) == (16, 2)
+    n_passes = -(-2 * k.n_bins // 256)
+    ks, width = k.kpad // 8, 8 * k.mel_tiles
+    per_pass = (ks + width // 16) * 4096
+    groups = k.table.reshape(k.n_groups, n_passes, per_pass)
+    assert torch.equal(groups[0, :, : ks * 4096], groups[1, :, : ks * 4096])
+    for g in range(k.n_groups):
+        v = groups[g, :, ks * 4096 :].reshape(n_passes, 16, 2, width // 8, 2, 8, 4)
+        fb = (v[:, :, 0] + v[:, :, 1]).permute(0, 1, 3, 5, 2, 4).reshape(-1, width)
+        cols = slice(g * width, min((g + 1) * width, cfg.n_mels))
+        n = cols.stop - cols.start
+        np.testing.assert_allclose(fb[: k.n_used, :n], k.fb[:, cols], atol=2e-7)
+        assert not fb[:, n:].any()
+
+
+@pytest.mark.parametrize("batch, n_frames, groups", [(3, 101, 2), (5, 4001, 1), (2, 201, 3)])
+def test_spectral_grid_with_mel_groups(batch, n_frames, groups):
+    """Every (clip, row tile, mel group) is one block of launch A's grid x,
+    as the kernel maps blockIdx.x."""
+    tiles = -(-n_frames // 128)
+    blocks = frontend_kernel.spectral_grid(batch, n_frames, groups)
+    assert blocks == batch * tiles * groups
+    clip, t0, grp = frontend_kernel.spectral_block(np.arange(blocks), n_frames, groups)
+    assert np.unique(clip * tiles * groups + grp * tiles + t0 // 128).size == blocks
+    assert clip.max() == batch - 1 and grp.max() == groups - 1 and t0.max() == (tiles - 1) * 128
+
+
+@pytest.mark.parametrize("name, blocks, frames", [
+    ("clip5s_128", 2, 251), ("clip10s", 2, 501), ("hop4", 5, 801),
+])
+def test_epilogue_cluster_takes_the_fewest_blocks(name, blocks, frames):
+    """Launch B's cluster: the fewest blocks whose share of the clip's
+    frames fits one block's shared memory; one block fewer would not."""
+    cfg = _cfg(name)
+    assert frontend_kernel.epilogue_blocks(cfg) == blocks
+    assert -(-cfg.num_frames // blocks) == frames
+    m, c, dd = cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta
+    assert 4 * frontend_kernel._layout_b_floats(frames, m, c, dd) == frontend_kernel.epilogue_smem_bytes(cfg) <= SMEM
+    fewer = -(-cfg.num_frames // (blocks - 1))
+    assert 4 * frontend_kernel._layout_b_floats(fewer, m, c, dd) > SMEM
+
+
+def test_contrast_bands_in_device_memory():
+    """The contrast launch reads its bands from one int32 table: per band
+    its first bin (from the first power bin), bins, top and bottom tail
+    lengths; 17 bands, more than the 16 it once took by value."""
+    cfg = _cfg("bands17")
+    g = frontend_kernel._geometry(cfg)
+    bands = frontend_kernel._contrast_constants(cfg, torch.device("cpu")).bands
+    assert bands.dtype == torch.int32 and bands.shape == (17, 4) and bands.is_contiguous()
+    assert bands.T.tolist() == [list(g.offsets), list(g.widths), list(g.tops), list(g.bots)]
+    assert max(frontend_kernel._geometry(_cfg("nfft2048_contrast")).widths) == 239
+
+
+def test_kernel_supports_is_the_jax_launchers_test(monkeypatch):
+    """Over a grid of configs and lengths, kernel_supports (the card route)
+    holds exactly where the JAX launcher calls its Pallas kernel: with
+    MFCCs at segment length, for a contrast config too (its hybrid). The
+    JAX launcher's kernel and chains are stubbed to record the call."""
+    called = []
+
+    def run(waves, cfg, interpret):
+        called.append("kernel")
+        return np.zeros((waves.shape[0], cfg.num_features, cfg.num_frames), np.float32)
+
+    def chain(waves, cfg):
+        called.append("chain")
+        return np.zeros((waves.shape[0], cfg.num_features, cfg.num_frames), np.float32)
+
+    monkeypatch.setattr(jax_kernel, "_run", run)
+    monkeypatch.setattr(jax_frontend, "extract_features", chain)
+    monkeypatch.setattr(
+        jax_frontend, "spectral_contrast",
+        lambda waves, cfg, method="fft": np.zeros((waves.shape[0], cfg.num_frames, cfg.n_contrast_bands + 1)),
+    )
+    grid = [
+        dict(use_mfcc=mfcc, use_spectral_contrast=con, use_pcen=pcen, n_mels=mels, hop_length=hop)
+        for mfcc in (True, False) for con in (True, False) for pcen in (True, False)
+        for mels, hop in ((64, 160), (256, 4))
+    ]
+    for kw in grid:
+        cfg, jcfg = FeatureConfig(**kw), JaxFeatureConfig(**kw)
+        for n in (cfg.segment_samples, cfg.segment_samples - 1, cfg.segment_samples + 400):
+            called.clear()
+            jax_kernel.extract_features_fused(np.zeros((1, n), np.float32), jcfg, interpret=True)
+            assert frontend_kernel.kernel_supports(cfg, n) == ("kernel" in called), (kw, n, called)
+
+
+@pytest.mark.parametrize("name", ["mels160", "clip10s"])
+def test_custom_ops_fakes_at_the_new_geometry(name):
+    """The custom ops' fakes (what torch.export traces) give the real
+    shapes at more than 128 mels and at 1001 frames."""
+    cfg = _cfg(name)
+    args = frontend_kernel._op_args(cfg)
+    w = torch.from_numpy(_waves(cfg, 2, seed=3))
+    mel = torch.ops.cdt.power_mel(w, *args)
+    assert mel.shape == (2, cfg.n_mels, cfg.num_frames)
+    torch.library.opcheck(torch.ops.cdt.power_mel.default, (w, *args))
+    torch.library.opcheck(torch.ops.cdt.mel_epilogue.default, (mel, *args))

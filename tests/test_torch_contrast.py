@@ -143,14 +143,14 @@ def test_hybrid_cpu_path_vs_chain_and_jax_launcher(clips, name, kw):
 
 
 def test_card_route_takes_a_contrast_config_with_its_base():
-    """`card_supports` holds for a contrast config exactly when it holds for
-    the config without contrast; without MFCCs it does not, and
-    extract_features_fast runs the plain chain for it."""
+    """The card route (`kernel_supports`) takes a contrast config exactly
+    when it takes the config without contrast; without MFCCs it does not,
+    and extract_features_fast runs the plain chain for it."""
     for kw in (dict(), dict(n_mels=160, f_max=8000.0), dict(use_mfcc=False)):
         base = FeatureConfig(**kw)
         cfg = dataclasses.replace(base, use_spectral_contrast=True)
-        assert frontend_kernel.card_supports(cfg, 16000) == frontend_kernel.card_supports(base, 16000)
-    assert not frontend_kernel.card_supports(FeatureConfig(use_mfcc=False, **CONTRAST), 16000)
+        assert frontend_kernel.kernel_supports(cfg, 16000) == frontend_kernel.kernel_supports(base, 16000)
+    assert not frontend_kernel.kernel_supports(FeatureConfig(use_mfcc=False, **CONTRAST), 16000)
     w = _clips(2, seed=9)
     cfg = FeatureConfig(use_mfcc=False, **CONTRAST)
     got = frontend.extract_features_fast(w, cfg, device="cpu").numpy()

@@ -192,24 +192,27 @@ def test_geometry_of_the_shipped_bands():
 def test_smem_mirror_and_grid(name):
     cfg = _cfg(name)
     assert frontend_kernel.contrast_smem_bytes(cfg) == SMEM_ON_CARD[name]
-    tiles = 2 if name == "n_fft_256" else 1  # 201 frames at hop 80
-    assert frontend_kernel.contrast_grid(70_000, cfg.num_frames) == (70_000, tiles)
+    # One block a clip, looping over its row tiles (2 at 201 frames), all in
+    # shared memory (level 0).
+    assert frontend_kernel.contrast_level(cfg) == 0
 
 
-@pytest.mark.parametrize("kw, takes", [
-    ({}, True), (dict(n_fft=1024), True), (dict(n_contrast_bands=16), True),
-    (dict(n_contrast_bands=17), False),  # more bands than the launch takes
-    (dict(n_fft=2048), False),           # a band of 239 bins
-    (dict(n_fft=1024, n_contrast_bands=8), False),  # 254,992 bytes of shared memory
+@pytest.mark.parametrize("kw, level", [
+    ({}, 0), (dict(n_fft=1024), 0), (dict(n_contrast_bands=16), 0),
+    (dict(n_contrast_bands=17), 0),  # the bands are read from device memory
+    (dict(n_fft=2048), 1),           # a band of 239 bins; the span past shared memory
+    (dict(n_fft=1024, n_contrast_bands=8), 1),  # 254,992 bytes if the span were staged
 ])
-def test_card_route_on_contrast_configs(kw, takes):
-    """card_supports takes a contrast config only when the contrast launch
-    takes it too; the config without contrast is taken either way."""
+def test_card_route_on_contrast_configs(kw, level):
+    """The card route takes every contrast config the JAX launcher's hybrid
+    takes, and so does the contrast launch: at the level of its layout
+    that fits shared memory."""
     cfg = FeatureConfig(use_spectral_contrast=True, **kw)
     base = dataclasses.replace(cfg, use_spectral_contrast=False)
-    assert frontend_kernel.card_supports(base, 16000)
-    assert frontend_kernel.card_supports(cfg, 16000) is takes
-    assert (frontend_kernel._contrast_refusal(cfg) == "") is takes
+    assert frontend_kernel.kernel_supports(base, 16000)
+    assert frontend_kernel.kernel_supports(cfg, 16000)
+    assert frontend_kernel.contrast_level(cfg) == level
+    assert frontend_kernel.contrast_smem_bytes(cfg) <= 232448
 
 
 def test_custom_op_fake_gives_the_real_shape(waves):

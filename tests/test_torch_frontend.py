@@ -355,35 +355,47 @@ def test_table_stream_holds_the_plain_tables(name):
 
 
 def test_wide_mel_config_runs_plain_on_cpu():
-    """More mels than the spectral kernel takes (128): its tables are still
-    built, and a CPU tensor runs the plain version."""
+    """More mels than one mel group of the spectral kernel (128): its
+    tables are built in two groups of 80 mels (in 16 n-tiles of 8), and a
+    CPU tensor runs the plain version."""
     cfg = FeatureConfig(n_mels=160, f_max=8000.0)
     w = torch.from_numpy(_clips(2, seed=7))
     got = frontend_kernel.power_mel_fused(w, cfg)
     assert got.shape == (2, 160, cfg.num_frames)
     assert torch.equal(got, frontend_kernel.power_mel_reference(w, cfg))
-    assert frontend_kernel._constants(cfg, torch.device("cpu")).mel_tiles == 0
+    k = frontend_kernel._constants(cfg, torch.device("cpu"))
+    assert (k.mel_tiles, k.n_groups) == frontend_kernel.mel_groups(160) == (16, 2)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_card_supports_the_parity_configs(name):
-    """Both launches take every parity config on the card, as far as the
-    config alone can tell (no library, no card)."""
+    """Both launches take every parity config on the card in their first
+    plans (the span staged, one block a clip), as far as the config alone
+    can tell (no library, no card); the route is the JAX launcher's."""
     cfg = FeatureConfig(**CONFIGS[name])
-    assert frontend_kernel.card_supports(cfg, cfg.segment_samples)
-    assert not frontend_kernel.card_supports(cfg, cfg.segment_samples - 1)
+    assert frontend_kernel.kernel_supports(cfg, cfg.segment_samples)
+    assert not frontend_kernel.kernel_supports(cfg, cfg.segment_samples - 1)
+    kpad = frontend_kernel._support(cfg)[2]
+    assert frontend_kernel.spectral_staged(cfg.hop_length, kpad)
+    assert frontend_kernel.epilogue_blocks(cfg) == 1
 
 
 @pytest.mark.parametrize(
     "kw", [dict(n_mels=160, f_max=8000.0), dict(hop_length=4)], ids=["160_mels", "hop_4"]
 )
 def test_card_refuses_what_the_spectral_launch_cannot_take(kw):
-    """The JAX launcher runs its Pallas kernel for these configs; the port's
-    spectral launch takes at most 128 mels and a hop of at least 8, so the
-    card route sends them to the torch chain."""
+    """The JAX launcher runs its Pallas kernel for these configs, and the
+    spectral launch now takes them too, so the card refuses nothing: 160
+    mels in two mel groups, a hop of 4 with no bank skew (32 row tiles of
+    its 4001 frames), each with its span staged. The card route is
+    kernel_supports alone (card_supports is gone)."""
     cfg = FeatureConfig(**kw)
     assert frontend_kernel.kernel_supports(cfg, cfg.segment_samples)
-    assert not frontend_kernel.card_supports(cfg, cfg.segment_samples)
+    assert not hasattr(frontend_kernel, "card_supports")
+    kpad = frontend_kernel._support(cfg)[2]
+    assert frontend_kernel.spectral_staged(cfg.hop_length, kpad)
+    groups = frontend_kernel.mel_groups(cfg.n_mels)[1]
+    assert frontend_kernel.spectral_grid(3, cfg.num_frames, groups) == 3 * -(-cfg.num_frames // 128) * groups
 
 
 def test_fast_runs_a_wide_mel_config_vs_jax():
@@ -423,4 +435,4 @@ def test_epilogue_smem_fits_the_card(kw):
     cfg = FeatureConfig(**kw)
     assert cfg.num_frames in (101, 201)
     assert frontend_kernel.epilogue_smem_bytes(cfg) <= 232448
-    assert frontend_kernel.card_supports(cfg, cfg.segment_samples)
+    assert frontend_kernel.epilogue_blocks(cfg) == 1

@@ -82,9 +82,8 @@ def build_all(sources: dict) -> dict:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
         handle = ctypes.CDLL(str(lib))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        ints = ctypes.POINTER(i)
         handle.cdt_frontend_contrast.argtypes = [
-            p, i, i, i, i, i, i, i, p, i, i, i, p, f, i, ints, ints, ints, ints, p, p,
+            p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
         ]
         return name, handle
 
@@ -116,7 +115,6 @@ def main() -> None:
     g = frontend_kernel._geometry(cfg)
     k = frontend_kernel._contrast_constants(cfg, dev)
     n = cfg.n_contrast_bands
-    bands = [(ctypes.c_int * n)(*v) for v in (g.offsets, g.widths, g.tops, g.bots)]
     rng = np.random.default_rng(0)
     order = baselines + ["as built"] + [v for v in libs if v not in baselines and v != "as built"]
     order += ["as built"] + baselines
@@ -131,7 +129,7 @@ def main() -> None:
                 err = lib.cdt_frontend_contrast(
                     w.data_ptr(), b, cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
                     g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs, k.freqs.data_ptr(),
-                    float(cfg.sample_rate / 2.0), n, *bands, out.data_ptr(),
+                    float(cfg.sample_rate / 2.0), k.bands.data_ptr(), n, None, out.data_ptr(),
                     torch.cuda.current_stream().cuda_stream,
                 )
                 if err:

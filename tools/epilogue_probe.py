@@ -53,19 +53,19 @@ ITERS = 20
 PEAK_HBM_BYTES = 3.35e12
 
 DCT = (
-    "        const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);\n"
+    "          const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);\n"
     "#pragma unroll\n"
-    "        for (int q = 0; q < kC / 4; ++q) {\n"
-    "          const float4 d = w[q];\n"
-    "          acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);\n"
-    "          acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);\n"
-    "          acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);\n"
-    "          acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);\n"
-    "        }\n"
+    "          for (int q = 0; q < kC / 4; ++q) {\n"
+    "            const float4 d = w[q];\n"
+    "            acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);\n"
+    "            acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);\n"
+    "            acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);\n"
+    "            acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);\n"
+    "          }\n"
 )
 DB_ROWS = (
     "    for (int i = tid; i < nm; i += kThreadsB) {\n"
-    "      const float db = fmaxf(tile[i], floor_db);\n"
+    "      const float db = fmaxf(log_mel(i), floor_db);\n"
     "      put(o + i, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));\n"
     "    }\n"
 )

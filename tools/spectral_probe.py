@@ -227,7 +227,7 @@ def main() -> None:
             err = lib.cdt_frontend_spectral(
                 w.data_ptr(), BATCH, cfg.segment_samples, cfg.num_frames, cfg.n_fft,
                 cfg.hop_length, k.j0, kpad, k.table.data_ptr(), k.n_bins,
-                cfg.n_mels, k.mel_tiles, 0, 0.0, mel.data_ptr(),
+                cfg.n_mels, k.mel_tiles, k.n_groups, 0, 0.0, mel.data_ptr(),
                 torch.cuda.current_stream().cuda_stream,
             )
             if err:
@@ -246,7 +246,7 @@ def main() -> None:
 
     for n, (name, text) in enumerate(variants.items()):
         lib = build(f"spectral_probe_{n}", text)
-        lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, f, p, p]
+        lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p]
         for kpad in ([k.kpad, 16] if name == "as built" else [k.kpad]):
             print(f"spectral launch B={BATCH}, {name}, kpad={kpad}: {time_variant(lib, kpad):.4f} ms", flush=True)
 
