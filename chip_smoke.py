@@ -36,14 +36,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      torch chain (budget 15 s; coverage_configs: 160 and 256 mels, n_fft
      2048 at 16 and 22.05 kHz, 5 and 10 s clips, a hop of 4, n_fft 1024
      and 2048 with contrast, 17 bands; each at B = 17 and 256; and at
-     B = 17 a 60 s clip with every flag, contrast at a hop of 4 and at
-     n_fft 4096, for the plans no other config reaches) through
+     B = 17 a 60 s clip with every flag, contrast at a hop of 4, at n_fft
+     4096, 2000 and 3000 and on 30 s clips at n_fft 1024, for the plans no
+     other config reaches) through
      extract_features_fast: every launch it needs once a call, the
      features within 1e-3 of the plain versions and of the torch chain,
-     each launch alone within 1e-3 of its plain version and SPLIT_TOL of
-     its 3xTF32 model, each launch's shared memory and plan (span staged
-     or not, blocks a clip, LayoutC's level) equal to its Python mirror;
-     and the main path on 160 mels and 10 s clips, features into the
+     each launch alone within 1e-3 of its plain version and of the CPU
+     model of its plan (FFT_TOL for the FFT plans' models, SPLIT_TOL for
+     the 3xTF32 models), each launch's shared memory and plan (the FFT or
+     the GEMM's span staged or not, blocks a clip, LayoutC's level or the
+     FFT) equal to its Python mirror; and the main path on 160 mels, 10 s
+     clips, n_fft 2048 and n_fft 2048 with contrast, features into the
      residual model through a captured graphs.Programs program (one eager
      call, two replays, launches counted through them, logits within 1e-3
      of eager);
@@ -56,8 +59,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      B = 256 also each launch's device time from torch.profiler
      (back-to-back calls of a launch this short time the host's
      dispatch); the spectral and epilogue launches at B = 1024 on 256
-     mels, n_fft 2048 and 10 s clips, the contrast launch on n_fft 2048
-     with contrast, each beside its bound, its plain version and
+     mels (both of launch A's plans), n_fft 2048 at 16 and 22.05 kHz,
+     n_fft 1024 and 10 s clips, the contrast launch's FFT plan on n_fft
+     2048 with contrast, each beside its bound, its plain version and
      torch.stft + mel (the fft rows for contrast); the epilogue launch
      at B = 4096 at n_fft 256 and with PCEN, beside its bound; the contrast
      launch at B = 256, 1024 and 4096 (device time at 256 and 1024)
@@ -277,6 +281,10 @@ TOL = 1e-3
 # The contrast launch against its 3xTF32 model: sound runs read ~3e-6, one
 # TF32 pass ~7e-4 (tests/test_torch_contrast_kernel.py).
 SPLIT_TOL = 1e-4
+# The FFT plans against their CPU models (power_mel_fft_reference,
+# spectral_contrast_fft_reference), which round each multiply and add where
+# the kernels may fuse them: the card read 6.1e-8 to 3.5e-7 (NVIDIA H100).
+FFT_TOL = 1e-5
 SR = 16000
 CHUNK = 1600
 
@@ -3186,14 +3194,19 @@ def mesh_phase(smi: str, par: dict) -> dict:
 def coverage_configs() -> dict:
     """name -> (config, batches). The configs the JAX launcher sends to its
     Pallas kernel that the card once ran on the torch chain: more than 128
-    mels, n_fft 2048 (the 128-frame span past shared memory), clips past
-    4 s (launch B's tile past one block), a hop of 4, and contrast configs
-    past the contrast launch's old limits; each at B = 17 and 256. Then
-    three at B = 17 that reach what no config above does: launch B in
-    device memory (past a cluster of 8) with PCEN and delta-deltas, and the
-    contrast launch's level 2 (its rows in the output), in one 60 s config;
-    the contrast launch at a hop of 4; its level 3 (its power rows in
-    device memory, 458-bin bands)."""
+    mels and n_fft 2048 at 16 and 22.05 kHz (launch A's FFT plan), clips
+    past 4 s (launch B's tile past one block), a hop of 4, and contrast
+    configs past the contrast launch's old limits (its FFT plan at n_fft
+    1024 and 2048); each at B = 17 and 256. Then six at B = 17 that reach
+    what no config above does: launch B in device memory (past a cluster
+    of 8) with PCEN and delta-deltas, and the contrast launch's level 2
+    (its rows in the output), in one 60 s config; the contrast launch at a
+    hop of 4; its FFT plan at n_fft 4096 (458-bin bands); and, at an n_fft
+    that is not a power of two, the GEMM plans' spans from device memory:
+    launch A unstaged with the contrast launch's level 1 (n_fft 2000), and
+    with its level 3, its power rows in device memory (n_fft 3000); and the
+    contrast launch's FFT plan with its rows in the output (30 s clips at
+    hop 80, 6001 frames)."""
     from cough_detector_tpu_torch.config import FeatureConfig
 
     both, one = (17, 256), (17,)
@@ -3217,7 +3230,34 @@ def coverage_configs() -> dict:
         "hop4_contrast": (FeatureConfig(hop_length=4, use_spectral_contrast=True), one),
         "nfft4096_contrast": (FeatureConfig(n_fft=4096, win_length=4096, hop_length=1024, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
+        "nfft2000_contrast": (FeatureConfig(n_fft=2000, win_length=2000, hop_length=500, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft3000_contrast": (FeatureConfig(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "clip30s_nfft1024_contrast": (FeatureConfig(n_fft=1024, hop_length=80, segment_duration=30.0,
+                                                    use_spectral_contrast=True), one),
     }
+
+
+def spectral_model(fk, w: torch.Tensor, cfg) -> tuple:
+    """(the CPU model of launch A's plan at cfg on w, its tolerance, its
+    name): the FFT plan's or the 3xTF32 GEMM's."""
+    if fk.spectral_plan(cfg) == fk.PLAN_FFT:
+        return fk.power_mel_fft_reference(w, cfg), FFT_TOL, "FFT model"
+    return fk.power_mel_split_reference(w, cfg), SPLIT_TOL, "3xTF32 model"
+
+
+def contrast_model(fk, w: torch.Tensor, cfg) -> tuple:
+    """The same for the contrast launch."""
+    if fk.contrast_level(cfg) >= fk.CONTRAST_FFT:
+        return fk.spectral_contrast_fft_reference(w, cfg), FFT_TOL, "FFT model"
+    return fk.spectral_contrast_split_reference(w, cfg), SPLIT_TOL, "3xTF32 model"
+
+
+def plan_name(fk, part: str, cfg) -> str:
+    if part == "spectral":
+        return "fft" if fk.spectral_plan(cfg) == fk.PLAN_FFT else "gemm"
+    return "fft" if fk.contrast_level(cfg) >= fk.CONTRAST_FFT else "gemm"
 
 
 def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
@@ -3225,13 +3265,14 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     config of coverage_configs through extract_features_fast on the card,
     every launch it needs once a call (counted from 0 around the call), its
     features within 1e-3 of the plain versions and of the torch chain; each
-    launch alone against its plain version (1e-3) and its 3xTF32 model
-    (SPLIT_TOL); each launch's shared memory and plan against its Python
-    mirror. Then the main path at full width on mels160 and clip10s:
-    features into the residual model (290,370 parameters, seeded weights)
-    through a captured graphs.Programs program, one eager call and two
-    replays, the launches counted through the replays, the logits within
-    1e-3 of the same weights eagerly."""
+    launch alone against its plain version (1e-3) and the CPU model of its
+    plan (FFT_TOL for the FFT plans, SPLIT_TOL for the 3xTF32 GEMM); each
+    launch's shared memory and plan against its Python mirror. Then the
+    main path at full width on mels160, clip10s, nfft2048 and
+    nfft2048_contrast: features into the residual model (290,370
+    parameters, seeded weights) through a captured graphs.Programs program,
+    one eager call and two replays, the launches counted through the
+    replays, the logits within 1e-3 of the same weights eagerly."""
     from cough_detector_tpu_torch.models import count_parameters, create_model, place_model
     from cough_detector_tpu_torch.ops import frontend, frontend_kernel as fk
     from cough_detector_tpu_torch.utils import graphs
@@ -3248,27 +3289,33 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
         for c in counters:
             setattr(fk, c, 0)
 
-    max_abs = {"spectral": 0.0, "epilogue": 0.0, "contrast": 0.0}
-    split_err = {"spectral": 0.0, "contrast": 0.0}
-    launches = {}
+    # Keyed by launch and plan: "spectral" (the GEMM) and "spectral_fft".
+    max_abs = {"spectral": 0.0, "spectral_fft": 0.0, "epilogue": 0.0, "contrast": 0.0, "contrast_fft": 0.0}
+    model_err = {"spectral": 0.0, "spectral_fft": 0.0, "contrast": 0.0, "contrast_fft": 0.0}
+    launches, plans = {}, {}
     for name, (cfg, batches) in coverage_configs().items():
         t_cfg = time.perf_counter()
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
-        hop, kpad = cfg.hop_length, fk._constants(base, dev).kpad
+        hop, kpad = cfg.hop_length, fk._support(base)[2]
         t, m, c, dd = cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_delta_delta)
+        a_args = (cfg.n_fft, hop, kpad, m)
         mirrors = {
-            "spectral smem": (lib.cdt_frontend_smem_a(hop, kpad), fk.spectral_smem_bytes(hop, kpad)),
-            "spectral staged": (lib.cdt_frontend_plan_a(hop, kpad), int(fk.spectral_staged(hop, kpad))),
+            "spectral smem": (lib.cdt_frontend_smem_a(*a_args), fk.spectral_smem_bytes(base)),
+            "spectral plan": (lib.cdt_frontend_plan_a(*a_args), fk.spectral_plan(base)),
             "epilogue smem": (lib.cdt_frontend_smem_b(t, m, c, dd), fk.epilogue_smem_bytes(cfg)),
             "epilogue blocks": (lib.cdt_frontend_plan_b(t, m, c, dd), fk.epilogue_blocks(cfg)),
         }
         if cfg.use_spectral_contrast:
             geo = fk._geometry(cfg)
-            args = (hop, geo.kpad, geo.n_pow, t, cfg.n_contrast_bands)
+            args = (cfg.n_fft, hop, geo.kpad, geo.n_pow, t, cfg.n_contrast_bands)
             mirrors["contrast smem"] = (lib.cdt_frontend_smem_c(*args), fk.contrast_smem_bytes(cfg))
             mirrors["contrast level"] = (lib.cdt_frontend_plan_c(*args), fk.contrast_level(cfg))
         if any(a != b for a, b in mirrors.values()):
             fail(f"a launch's plan disagrees with its Python mirror on {name}: {mirrors}")
+        plans[name] = {k: v[0] for k, v in mirrors.items()}
+        keys = {"spectral": "spectral" + ("_fft" if plan_name(fk, "spectral", base) == "fft" else ""),
+                "epilogue": "epilogue",
+                "contrast": "contrast" + ("_fft" if cfg.use_spectral_contrast and plan_name(fk, "contrast", cfg) == "fft" else "")}
         want_moved = (1, 1, int(cfg.use_spectral_contrast))
         for b in batches:
             w = make_audio_bulk(rng, b, cfg.segment_samples, dev)
@@ -3284,27 +3331,29 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             chain = frontend.extract_features(w, cfg)
             errs = {"plain": rel_err(got, plain), "chain": rel_err(got, chain)}
             parts = {
-                "spectral": (fk.power_mel_fused(w, base), mel_want, fk.power_mel_split_reference(w, base)),
+                "spectral": (fk.power_mel_fused(w, base), mel_want, spectral_model(fk, w, base)),
                 "epilogue": (fk.mel_epilogue_fused(mel_want.contiguous(), base),
                              fk.mel_epilogue_reference(mel_want, base), None),
             }
             if cfg.use_spectral_contrast:
-                parts["contrast"] = (fk.spectral_contrast_fused(w, cfg), con_want,
-                                     fk.spectral_contrast_split_reference(w, cfg))
+                parts["contrast"] = (fk.spectral_contrast_fused(w, cfg), con_want, contrast_model(fk, w, cfg))
             torch.cuda.synchronize()
+            limits = {}
             for part, (k_out, want, model) in parts.items():
                 errs[part] = rel_err(k_out, want)
-                max_abs[part] = max(max_abs[part], (k_out - want).abs().max().item())
+                max_abs[keys[part]] = max(max_abs[keys[part]], (k_out - want).abs().max().item())
                 if model is not None:
-                    errs[f"{part} vs 3xTF32 model"] = rel_err(k_out, model)
-                    split_err[part] = max(split_err[part], errs[f"{part} vs 3xTF32 model"])
+                    out, tol, label = model
+                    errs[f"{part} vs {label}"] = rel_err(k_out, out)
+                    limits[f"{part} vs {label}"] = tol
+                    model_err[keys[part]] = max(model_err[keys[part]], errs[f"{part} vs {label}"])
             ok = (
                 moved == want_moved and got.shape == (b, cfg.num_features, t) and bool(torch.isfinite(got).all())
-                and all(v <= (SPLIT_TOL if "model" in k else TOL) for k, v in errs.items())
+                and all(v <= limits.get(k, TOL) for k, v in errs.items())
             )
             print(
                 f"[{smi}] config {name} B={b}: launches a call {dict(zip(counters, moved))}; max-relative "
-                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + ", ".join(f"{k} {v:.3e}" + (f" (limit {limits[k]:g})" if k in limits else "") for k, v in errs.items())
                 + f"; plans {mirrors}; {time.perf_counter() - t_cfg:.3f} s into the config",
                 flush=True,
             )
@@ -3319,7 +3368,7 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
         fail(f"residual model has {count_parameters(model)} parameters, expected 290370")
     model = place_model(model, dev)
     main_path = {}
-    for name in ("mels160", "clip10s"):
+    for name in ("mels160", "clip10s", "nfft2048", "nfft2048_contrast"):
         cfg = coverage_configs()[name][0]
         w = make_audio_bulk(rng, 256, cfg.segment_samples, dev)
 
@@ -3342,11 +3391,11 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             f"vs eager max-relative {err:.3e}",
             flush=True,
         )
-        want = (3, 3, 0)
+        want = (3, 3, 3 if cfg.use_spectral_contrast else 0)
         if counted != want or progs.replays()[name] != 2 or not err <= TOL or not bool(torch.isfinite(logits).all()):
             fail(f"the main path on {name}: launches {counted} (want {want}), logits vs eager {err:.3e}")
     print(f"every-config checks: {time.perf_counter() - t_phase:.3f} s (budget 15 s)", flush=True)
-    return dict(max_abs=max_abs, split_err=split_err, launches=launches, main_path=main_path)
+    return dict(max_abs=max_abs, model_err=model_err, launches=launches, main_path=main_path, plans=plans)
 
 
 def main() -> None:
@@ -3433,10 +3482,10 @@ def main() -> None:
     lib = frontend_kernel.build()
     for name, cfg, w in checks:
         b = w.shape[0]
-        kpad = frontend_kernel._constants(cfg, dev).kpad
+        kpad = frontend_kernel._support(cfg)[2]
         smem = {
-            "spectral": (lib.cdt_frontend_smem_a(cfg.hop_length, kpad),
-                         frontend_kernel.spectral_smem_bytes(cfg.hop_length, kpad)),
+            "spectral": (lib.cdt_frontend_smem_a(cfg.n_fft, cfg.hop_length, kpad, cfg.n_mels),
+                         frontend_kernel.spectral_smem_bytes(cfg)),
             "epilogue": (lib.cdt_frontend_smem_b(cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_delta_delta)),
                          frontend_kernel.epilogue_smem_bytes(cfg)),
         }
@@ -3508,30 +3557,35 @@ def main() -> None:
         ("8 bands", FeatureConfig(n_contrast_bands=8, use_spectral_contrast=True), waves(17)),
         ("sweeps, silence, ties", contrast, ties_batch(17)),
     ]
-    max_abs["contrast"] = 0.0
+    max_abs["contrast"] = max_abs["contrast_fft"] = 0.0
     contrast_split_err = 0.0
     for name, cfg, w in contrast_checks:
         b, geo = w.shape[0], frontend_kernel._geometry(cfg)
-        smem = (lib.cdt_frontend_smem_c(cfg.hop_length, geo.kpad, geo.n_pow, cfg.num_frames, cfg.n_contrast_bands),
-                frontend_kernel.contrast_smem_bytes(cfg))
-        if smem[0] != smem[1]:
-            fail(f"the Python mirror of the contrast launch's shared memory disagrees on {name}: {smem}")
+        args = (cfg.n_fft, cfg.hop_length, geo.kpad, geo.n_pow, cfg.num_frames, cfg.n_contrast_bands)
+        smem = (lib.cdt_frontend_smem_c(*args), frontend_kernel.contrast_smem_bytes(cfg))
+        plan = (lib.cdt_frontend_plan_c(*args), frontend_kernel.contrast_level(cfg))
+        if smem[0] != smem[1] or plan[0] != plan[1]:
+            fail(f"the Python mirror of the contrast launch's plan disagrees on {name}: {smem}, {plan}")
         got = frontend_kernel.spectral_contrast_fused(w, cfg)
         torch.cuda.synchronize()
         want = frontend_kernel.spectral_contrast_reference(w, cfg)
         err = rel_err(got, want)
-        split = rel_err(got, frontend_kernel.spectral_contrast_split_reference(w, cfg))
+        model, model_tol, label = contrast_model(frontend_kernel, w, cfg)
+        split = rel_err(got, model)
         one_pass = rel_err(got, frontend_kernel.spectral_contrast_split_reference(w, cfg, passes=1))
-        max_abs["contrast"] = max(max_abs["contrast"], (got - want).abs().max().item())
-        contrast_split_err = max(contrast_split_err, split)
+        fft = plan[0] >= frontend_kernel.CONTRAST_FFT
+        key = "contrast_fft" if fft else "contrast"
+        max_abs[key] = max(max_abs[key], (got - want).abs().max().item())
+        if not fft:
+            contrast_split_err = max(contrast_split_err, split)
         silent_ok = name != "sweeps, silence, ties" or bool((got[4] == 0).all())
         print(
-            f"kernel vs plain [contrast, {name}, B={b}]: max-relative {err:.3e}, vs its 3xTF32 model "
-            f"{split:.3e} (limit {SPLIT_TOL:g}), vs one TF32 pass's model {one_pass:.3e}; shape {tuple(got.shape)}; shared memory a block (kernel, Python mirror) {smem}",
+            f"kernel vs plain [contrast, {name}, B={b}, plan {plan[0]}]: max-relative {err:.3e}, vs its {label} "
+            f"{split:.3e} (limit {model_tol:g}), vs one TF32 pass's model {one_pass:.3e}; shape {tuple(got.shape)}; shared memory a block (kernel, Python mirror) {smem}",
             flush=True,
         )
         ok = got.shape == (b, cfg.n_contrast_bands + 1, cfg.num_frames) and bool(torch.isfinite(got).all())
-        if not (ok and silent_ok and err <= TOL and split <= SPLIT_TOL):
+        if not (ok and silent_ok and err <= TOL and split <= model_tol):
             fail(f"contrast kernel disagrees with its plain version or its model on {name} B={b}: {err:.3e}, {split:.3e}")
 
     print(f"contrast launch checks {time.perf_counter() - t0:.3f} s (budget 10 s)", flush=True)
@@ -3686,16 +3740,25 @@ def main() -> None:
             flush=True,
         )
 
-    # Each launch at B = 1024 on four configs the card once ran on the torch
+    # Each launch at B = 1024 on configs the card once ran on the torch
     # chain, beside its bound and torch.stft + mel (the spectral launch's
     # library yardstick), its plain version and, for the contrast launch,
-    # the fft rows. nfft2048_contrast's pair is nfft2048's (the same config
-    # without contrast): only its contrast launch is timed.
+    # the fft rows: launch A's FFT plan on n_fft 2048 at 16 and 22.05 kHz
+    # and on n_fft 1024 (nfft1024_contrast's base), 10 s clips (the GEMM),
+    # and the contrast launch's FFT plan on n_fft 1024, 2048 and 4096. Where the
+    # FFT plan's threshold and its 128-mel rule are set (n_fft 1024 and
+    # 2048, 256 mels; every contrast config here), the GEMM plan too,
+    # called through its C function.
+    # A contrast config's pair is its base's: only its contrast launch is
+    # timed.
     t0 = time.perf_counter()
     coverage_timing = {}
-    for name in ("mels256", "nfft2048", "clip10s", "nfft2048_contrast"):
+    covered_cfgs = dict(coverage_configs())
+    covered_cfgs["nfft1024"] = (dataclasses.replace(covered_cfgs["nfft1024_contrast"][0], use_spectral_contrast=False), ())
+    for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft1024_contrast", "nfft2048_contrast",
+                 "nfft4096_contrast"):
         t_cfg = time.perf_counter()
-        cfg = coverage_configs()[name][0]
+        cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
         # 64 clips repeated to 1024 rows: the times do not depend on the
         # content.
@@ -3709,8 +3772,27 @@ def main() -> None:
                 plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, base), 2, warmup=1),
                 library_ms=cuda_ms(lambda: lib_mel(w), 5),
                 **bound(*spectral_work(base, 1024)),
-                gemm_ceiling_ms=spectral_gemm_ceiling_ms(base, 1024),
+                plan=plan_name(frontend_kernel, "spectral", base),
             )
+            if rows["spectral"]["plan"] == "gemm":
+                rows["spectral"]["gemm_ceiling_ms"] = spectral_gemm_ceiling_ms(base, 1024)
+            if name in ("mels256", "nfft1024", "nfft2048"):  # its GEMM plan too, through its C function
+                k = frontend_kernel._constants(base, dev)
+                gemm_out = torch.empty_like(mel)
+
+                def gemm_plan() -> None:
+                    err = lib.cdt_frontend_spectral(
+                        w.data_ptr(), 1024, w.shape[1], base.num_frames, base.n_fft, base.hop_length, k.j0, k.kpad,
+                        k.table.data_ptr(), k.n_bins, base.n_mels, k.mel_tiles, k.n_groups, 0, 0.0,
+                        gemm_out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                    )
+                    if err:
+                        fail(f"the GEMM plan's launch failed on {name}: cudaError {err}")
+
+                rows["spectral"]["gemm_plan_ms"] = cuda_ms(gemm_plan, 5)
+                rows["spectral"]["gemm_ceiling_ms"] = spectral_gemm_ceiling_ms(base, 1024)
+                if not rel_err(gemm_out, mel) <= TOL:
+                    fail(f"launch A's two plans disagree on {name}: {rel_err(gemm_out, mel):.3e}")
             rows["epilogue"] = dict(
                 ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, base), 5),
                 plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, base), 2, warmup=1),
@@ -3719,24 +3801,46 @@ def main() -> None:
                 **bound(*epilogue_work(base, 1024)),
             )
         else:
+            out = frontend_kernel.spectral_contrast_fused(w, cfg)
             rows["contrast"] = dict(
-                ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_fused(w, cfg), 3),
+                ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_fused(w, cfg), 5),
                 plain_ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_reference(w, cfg), 2, warmup=1),
                 library_ms=cuda_ms(lambda: frontend.spectral_contrast(w, cfg, method="fft"), 2, warmup=1),
                 level=frontend_kernel.contrast_level(cfg),
+                plan=plan_name(frontend_kernel, "contrast", cfg),
                 **bound(*contrast_work(cfg, 1024)),
             )
+            # Its GEMM plan too, through its C function (at LayoutC's level).
+            geo, kc = frontend_kernel._geometry(cfg), frontend_kernel._contrast_constants(cfg, dev)
+            gemm_level = frontend_kernel._contrast_gemm_plan(cfg)[0]
+            scratch = torch.empty((1024, 128, geo.n_pow), device=dev) if gemm_level == 3 else None
+            gemm_out = torch.empty_like(out)
+
+            def gemm_plan() -> None:
+                err = lib.cdt_frontend_contrast(
+                    w.data_ptr(), 1024, w.shape[1], cfg.num_frames, cfg.n_fft, cfg.hop_length, geo.j0, geo.kpad,
+                    kc.table.data_ptr(), geo.n_passes, geo.n_pow, geo.n_freqs, kc.freqs.data_ptr(),
+                    float(cfg.sample_rate / 2.0), kc.bands.data_ptr(), cfg.n_contrast_bands,
+                    None if scratch is None else scratch.data_ptr(), gemm_out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream,
+                )
+                if err:
+                    fail(f"the contrast launch's GEMM plan failed on {name}: cudaError {err}")
+
+            rows["contrast"]["gemm_plan_ms"] = cuda_ms(gemm_plan, 3, warmup=1)
+            if not rel_err(gemm_out, out) <= TOL:
+                fail(f"the contrast launch's two plans disagree on {name}: {rel_err(gemm_out, out):.3e}")
         coverage_timing[name] = rows
         for part, tm in rows.items():
             lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
             gemm = (
                 f"; its GEMM design's ceiling {tm['gemm_ceiling_ms']:.4f} ms"
                 if "gemm_ceiling_ms" in tm else ""
-            )
+            ) + (f"; the GEMM plan {tm['gemm_plan_ms']:.4f} ms" if "gemm_plan_ms" in tm else "")
             print(
-                f"[{smi}] times {part} B=1024 [{name}]: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
-                f"library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; kernel at "
-                f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{gemm}; {time.perf_counter() - t_cfg:.3f} s "
+                f"[{smi}] times {part} B=1024 [{name}, {tm.get('plan', 'one')} plan]: kernel {tm['ms']:.4f} ms, "
+                f"plain {tm['plain_ms']:.4f} ms, library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
+                f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{gemm}; {time.perf_counter() - t_cfg:.3f} s "
                 "into the config",
                 flush=True,
             )
@@ -4068,16 +4172,20 @@ def main() -> None:
             "bench_bound_ms": benched["bounds"][part]["bound_ms"],
             "bench_bound_by": benched["bounds"][part]["bound_by"],
             "mesh_launches": {path: n[part] for path, n in meshed["launches"].items()},
+            # Launch A's GEMM plan here; its FFT plan has its own entry below.
             "coverage_main_path_launches": {name: n[f"{part.upper()}_LAUNCHES"]
-                                            for name, n in covered["main_path"].items()},
-            "coverage_launches_a_call": {f"{name} B={b}": n[i] for (name, b), n in covered["launches"].items()},
+                                            for name, n in covered["main_path"].items()
+                                            if part == "epilogue" or covered["plans"][name]["spectral plan"] < 2},
+            "coverage_launches_a_call": {f"{name} B={b}": n[i] for (name, b), n in covered["launches"].items()
+                                         if part == "epilogue" or covered["plans"][name]["spectral plan"] < 2},
             "coverage_max_abs_err": covered["max_abs"][part],
-            "coverage_b1024": {name: rows[part] for name, rows in coverage_timing.items() if part in rows},
+            "coverage_b1024": {name: rows[part] for name, rows in coverage_timing.items()
+                               if part in rows and rows[part].get("plan", "gemm") == "gemm"},
         }
         for i, part in enumerate(("spectral", "epilogue"))
     ]
     kernels[0]["max_rel_vs_3xtf32_model"] = split_err
-    kernels[0]["coverage_max_rel_vs_3xtf32_model"] = covered["split_err"]["spectral"]
+    kernels[0]["coverage_max_rel_vs_3xtf32_model"] = covered["model_err"]["spectral"]
     # The contrast launch's path is the contrast config's: phase 9 drives
     # each of its paths with the counters set to 0 just before.
     contrast_launches = {
@@ -4097,11 +4205,42 @@ def main() -> None:
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "precision")},
         "library": "spectral_contrast(method='fft'): cuFFT and torch.topk",
         "by_batch": contrast_timing,
-        "coverage_launches_a_call": {f"{name} B={b}": n[2] for (name, b), n in covered["launches"].items() if n[2]},
+        "coverage_launches_a_call": {f"{name} B={b}": n[2] for (name, b), n in covered["launches"].items()
+                                     if n[2] and covered["plans"][name]["contrast level"] < 4},
         "coverage_max_abs_err": covered["max_abs"]["contrast"],
-        "coverage_max_rel_vs_3xtf32_model": covered["split_err"]["contrast"],
-        "coverage_b1024": {name: rows["contrast"] for name, rows in coverage_timing.items() if "contrast" in rows},
+        "coverage_max_rel_vs_3xtf32_model": covered["model_err"]["contrast"],
     })
+    # The FFT plans (spectral_fft_kernel, contrast_fft_kernel): their main
+    # path is the captured one of phase 3 on n_fft 2048 (with contrast for
+    # launch C), the counters set to 0 just before; their times phase 4's
+    # at B = 1024 on that config.
+    for part, cfg_name, launch_name, kernel, counter in (
+        ("spectral", "nfft2048", "frontend_spectral_fft", "spectral_fft_kernel", "SPECTRAL_LAUNCHES"),
+        ("contrast", "nfft2048_contrast", "frontend_contrast_fft", "contrast_fft_kernel", "CONTRAST_LAUNCHES"),
+    ):
+        row = coverage_timing[cfg_name][part]
+        kernels.append({
+            "name": launch_name,
+            "route": "cuda",
+            "source": f"cough_detector_tpu_torch/csrc/frontend_kernel.cu ({kernel})",
+            "replaces": "cough_detector_tpu/ops/pallas/frontend_kernel.py:278" if part == "spectral"
+                        else "cough_detector_tpu/ops/pallas/frontend_kernel.py:326",
+            "launches": covered["main_path"][cfg_name][counter],
+            "main_path": f"coverage {cfg_name}, captured: 1 eager call + 2 replays",
+            "max_abs_err": max(covered["max_abs"][f"{part}_fft"], max_abs.get(f"{part}_fft", 0.0)),
+            "max_rel_vs_fft_model": covered["model_err"][f"{part}_fft"],
+            "fft_model_tol": FFT_TOL,
+            "batch": 1024,
+            "config": cfg_name,
+            **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "coverage_launches_a_call": {
+                f"{name} B={b}": n[0 if part == "spectral" else 2] for (name, b), n in covered["launches"].items()
+                if covered["plans"][name].get("spectral plan" if part == "spectral" else "contrast level", -1)
+                in ((2,) if part == "spectral" else (4, 5))
+            },
+            "coverage_b1024": {name: rows[part] for name, rows in coverage_timing.items()
+                               if part in rows and rows[part].get("plan") == "fft"},
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -5,8 +5,9 @@
 //
 // Replaces cough_detector_tpu/ops/pallas/frontend_kernel.py::_kernel and
 // its launcher _run (the repo's only Pallas kernel). Launch A
-// (spectral_kernel) does _kernel's steps 1-2 and _run's pre-emphasis and
-// reflect pad: framing, windowed band-limited rDFT, power, mel projection.
+// (spectral_kernel, or spectral_fft_kernel: its FFT plan) does _kernel's
+// steps 1-2 and _run's pre-emphasis and reflect pad: framing, windowed
+// band-limited rDFT, power, mel projection.
 // Launch B (epilogue_kernel) does the rest: log-mel, then the dB branch
 // (clamp to per-clip max - 80, (db+80)/80 in [0, 1]) or the PCEN branch
 // (10-tap zero-padded smoother, compressive formula, per-clip min-max), the
@@ -74,18 +75,27 @@
 //    zeroing loop; the mbarrier wait loop and the lane-0 refill are inside
 //    asm, with predicates, so no C++ branch surrounds an in-flight group.
 //
-//  * Every config. More than 128 mels take mel groups of at most 128, each
-//    its own blocks on grid x, the DFT run again for each (the registers
-//    hold one group's mel accumulators beside the DFT's). A hop under 8
-//    takes no bank skew. A tile whose waveform span passes shared memory
-//    (n_fft 2048: 268 KB) gathers its A fragments from device memory
-//    instead of the span (DftPass<false>, staged_a).
+//  * Every config. A power-of-two n_fft from 1024 on, or more than 128
+//    mels, takes the FFT plan (spectral_fft_kernel, plan_a; its note with
+//    the FFT plans below): at n_fft 2048 this GEMM ran 13.75 ms at B =
+//    1024 where cuFFT and a mel matmul take 1.06, and on 256 mels its two
+//    mel groups 1.34 ms against the FFT plan's 0.67. Otherwise more than
+//    128 mels take mel groups of at most 128, each its own blocks on grid
+//    x, the DFT run again for each (the registers hold one group's mel
+//    accumulators beside the DFT's). A hop under 8 takes no bank skew. A
+//    tile whose waveform span passes shared memory (an n_fft that is not
+//    a power of two, as 1,500 at hop 375) gathers its A fragments from
+//    device memory instead of the span (DftPass<false>, staged_a).
 //
 // What a later PR does next on launch A: stage the next clip's waveform
 // while this one computes (a persistent block), the largest fixed cost
 // left (tools/spectral_probe.py); rows packed across clips instead of
 // padding 101 frames to 128; then the power mel's round trip through
-// device memory between the launches, about 52 KB a clip.
+// device memory between the launches, about 52 KB a clip. The FFT plan
+// runs the shipped config in 1.73 ms at B = 4096 against this design's
+// 1.00, so the shipped config keeps it. On the FFT plans: fewer stages
+// (radix 8 and 16 in registers: fewer barriers and passes over shared
+// memory) and stores that meet no bank conflicts.
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
@@ -125,6 +135,10 @@ constexpr int kRedB = 32;                           // floats of launch B's redu
 constexpr int kMaxCluster = 8;                      // launch B: blocks a clip, the portable cluster
 constexpr int kRedC = 16;                           // floats of launch C's reduction slots
 constexpr int kBandChunk = 128;                     // launch C: a band's bins a selection pass, 4 a lane
+constexpr int kFftPoints = 8192;                    // FFT plans: complex points a block holds (64 KB)
+constexpr int kFftMaxFrames = 32;                   // FFT plans: frames a block takes at most
+constexpr int kFftMinNfft = 1024;                   // FFT plans: the least n_fft (a power of two) they take
+constexpr int kPostItems = kFftPoints / kThreadsA + 1;  // launch A's FFT plan: power values a thread holds
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
 
@@ -1158,7 +1172,11 @@ __global__ void __launch_bounds__(kThreadsB, 1) epilogue_cluster_kernel(
 // Launch C, the contrast rows: the launcher's spectral contrast, which the
 // JAX package appends to the Pallas kernel's rows in jnp
 // (cough_detector_tpu/ops/pallas/frontend_kernel.py:326-348, computing
-// ops/frontend.py::spectral_contrast with method="gemm").
+// ops/frontend.py::spectral_contrast with method="gemm"). This note is its
+// GEMM plan's; a power-of-two n_fft from 1024 on takes its FFT plan
+// (contrast_fft_kernel, plan_c; its note with the FFT plans below): at
+// n_fft 2048 this design ran 20.4-20.6 ms at B = 1024 against cuFFT's
+// 4.2.
 //  * Function. Per clip, from the waveform (not pre-emphasized): frames
 //    (reflect pad, hop), the win_length-Hann power over the bins the bands
 //    read, the n_fft-Hann magnitude over all bins; per frame and band,
@@ -1274,6 +1292,48 @@ __device__ __forceinline__ float band_contrast(const float* pb, int w, int n_top
   return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
 }
 
+// One frame's contrast in one band, by a warp: pb the frame's power rows
+// from the first power bin, bd the band (first bin from pb, bins, top and
+// bottom tail lengths). A one-bin band's is 0.
+__device__ __forceinline__ float band_value(const float* pb, int4 bd, int lane) {
+  const int w = bd.y, nt = bd.z, nb = bd.w;
+  pb += bd.x;
+  if (w > 96) return band_contrast<4>(pb, w, nt, nb, lane);
+  if (w > 64) return band_contrast<3>(pb, w, nt, nb, lane);
+  if (w > 32) return band_contrast<2>(pb, w, nt, nb, lane);
+  if (w > 1) return band_contrast<1>(pb, w, nt, nb, lane);
+  return 0.0f;
+}
+
+// The clip's z-norm (unbiased std) of its n contrast values `con` (shared
+// or device memory), written to o; red: 2 * kWarpsA floats of shared memory.
+// Called by every thread of the block, after the barrier that completes con.
+__device__ void znorm_rows(const float* con, int n, float* red, float* o) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float s = 0.0f;
+  for (int i = tid; i < n; i += kThreadsA) s += con[i];
+  s = warp_sum(s);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarpsA; ++w) total += red[w];
+  const float mean = total / (float)n;
+  float sq = 0.0f;
+  for (int i = tid; i < n; i += kThreadsA) {
+    const float d = con[i] - mean;
+    sq += d * d;
+  }
+  sq = warp_sum(sq);
+  if (lane == 0) red[kWarpsA + warp] = sq;
+  __syncthreads();
+  float var = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarpsA; ++w) var += red[kWarpsA + w];
+  const float denom = sqrtf(var / (float)(n - 1)) + 1e-8f;
+  for (int i = tid; i < n; i += kThreadsA) o[i] = (con[i] - mean) / denom;
+}
+
 // Launch C. grid (batch): block b takes clip b; kThreadsA threads,
 // LayoutC's shared memory with n_slots ring slots (a divisor of the
 // tile's n_passes * kpad / 8 chunks). table: the chunk stream
@@ -1375,50 +1435,465 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
     __syncthreads();  // the tile's power rows are in place
 
     // 4. The bands' tails, a warp a frame.
-    for (int r = warp; r < frames; r += kWarpsA) {
+    for (int r = warp; r < frames; r += kWarpsA)
       for (int i = 0; i < n_bands; ++i) {
-        const int4 bd = __ldg(bands + i);  // first bin, bins, top, bottom
-        const int w = bd.y, nt = bd.z, nb = bd.w;
-        const float* pb = pw + r * n_pow + bd.x;
-        float v = 0.0f;  // a one-bin band's
-        if (w > 96)
-          v = band_contrast<4>(pb, w, nt, nb, lane);
-        else if (w > 64)
-          v = band_contrast<3>(pb, w, nt, nb, lane);
-        else if (w > 32)
-          v = band_contrast<2>(pb, w, nt, nb, lane);
-        else if (w > 1)
-          v = band_contrast<1>(pb, w, nt, nb, lane);
+        const float v = band_value(pw + r * n_pow, __ldg(bands + i), lane);
         if (lane == 0) con[i * n_frames + t0 + r] = v;
       }
+  }
+  __syncthreads();  // the clip's rows are complete
+
+  // 5. The clip's z-norm, written as (n_rows, n_frames).
+  znorm_rows(con, n, red, out + (size_t)blockIdx.x * n);
+}
+
+// -- The FFT plans of launches A and C ------------------------------------------
+//
+// For a power-of-two n_fft from kFftMinNfft on, launches A and C compute
+// their spectra by FFT instead of the DFT as a GEMM (plan_a, plan_c): the
+// GEMM costs O(n_fft) a bin, and at n_fft 2048 it pads 32 frames to 128
+// rows, runs 256 k-steps over 2,048 taps and 9 passes over 1,025 bins,
+// three TF32 products each, where an FFT costs O(log n_fft) a bin.
+//  * A block takes `frames` consecutive frames of one clip (kFftPoints
+//    complex points a block, at most kFftMaxFrames frames) and stages their
+//    span once in shared memory by WaveSrc (reflect pad, pre-emphasis),
+//    then packs each windowed frame into complex points, in shared memory.
+//  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (one of
+//    radix 2 first when log2 of the points is odd, then radix 4), every
+//    frame of the block at once, each stage in place: a thread reads its
+//    butterflies' points into registers, the block meets at a barrier,
+//    then it writes their outputs. Twiddles e^{-2 pi i k / n_fft} for k in
+//    [0, n_fft / 2] come from a table the host builds in float64 and
+//    rounds once (ops/frontend_kernel.py::_twiddles), staged in shared
+//    memory; k past n_fft / 2 is the negated entry of k - n_fft / 2.
+//  * Launch A (spectral_fft_kernel) packs the frame's n_fft reals as
+//    n_fft / 2 complex (even samples real, odd imaginary), and the real
+//    FFT's bin k is (Z[k] + conj Z[m - k]) / 2 + w^k (-i) (Z[k] - conj
+//    Z[m - k]) / 2 (m = n_fft / 2, w = e^{-2 pi i / n_fft}); the power of
+//    bins [0, n_used) replaces the points in shared memory, then the mel
+//    is FP32 FMAs over each filter's nonzero bins (the filters are
+//    triangles: about 2 n_used products a frame), read from a packed table
+//    (_fft_constants). Output (B, n_mels, n_frames), as the GEMM plan's.
+//  * Launch C (contrast_fft_kernel) runs both windows of a frame through
+//    one complex FFT of n_fft points, z = w_win x + i w_nfft x, and splits
+//    the two real spectra by conjugate symmetry: (Z[k] + conj Z[n - k]) / 2
+//    is the win_length window's (its power over the bands' bins goes to
+//    the power rows), (Z[k] - conj Z[n - k]) / 2i the n_fft window's (its
+//    magnitude into the frame's centroid sums). One block a clip loops
+//    over its frame groups; a warp takes a (frame, band) and sorts the
+//    band in registers (band_sorted: ranking the 239-bin band of n_fft
+//    2048 by band_value took 48% of the launch, 1.10 of 2.29 ms at B =
+//    1024; sorted, the band stage takes 0.24 of 1.41, tools/contrast_probe.py);
+//    the centroid and the z-norm are the GEMM plan's (znorm_rows).
+//  * Bound: operations at n_fft 2048 (an FFT a frame at the FP32 peak,
+//    0.0320 ms for launch A at B = 1024 on 128 mels; 0.0611 for launch C,
+//    both windows and the tails as selections), with the bytes close
+//    behind. The FFT stages take about half of launch A (0.30 of 0.63 ms
+//    at B = 1024, n_fft 2048) and two thirds of launch C (0.98 of 1.41):
+//    each stage's barrier pair, and its strided shared-memory writes
+//    (radix 4 at a stride of ns points, bank conflicts while ns < 32).
+//  * The CPU models of this arithmetic, the same packing, stages, table
+//    and post-twiddles in torch ops: ops/frontend_kernel.py's
+//    power_mel_fft_reference and spectral_contrast_fft_reference.
+
+__host__ __device__ inline bool pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
+
+// The FFT plans' shared memory, in floats: the points (2 floats each,
+// frames x points a frame), the frames' waveform span, the twiddles
+// (n_fft / 2 + 1 float2), then for launch C the group's power rows
+// (frames x n_pow), the clip's contrast rows (n_rows x n_frames) where
+// they fit (`rows_in_smem`; else in the output, z-normed in place) and the
+// reduction slots. `frames` halves from its most until the layout fits.
+struct LayoutF {
+  int frames, span, tw, pow, con, red, end;
+  bool rows_in_smem;
+
+  // Launch A (points a frame n_fft / 2; no power or contrast rows).
+  __host__ __device__ LayoutF(int n_fft, int hop) { fit(n_fft / 2, n_fft, hop, 0, 0); }
+
+  // Launch C (points a frame n_fft).
+  __host__ __device__ LayoutF(int n_fft, int hop, int n_pow, int n_frames, int n_rows) {
+    fit(n_fft, n_fft, hop, n_pow, n_frames * n_rows);
+  }
+
+  __host__ __device__ void fit(int points, int n_fft, int hop, int n_pow, int n_con) {
+    for (frames = kFftPoints / points < kFftMaxFrames ? kFftPoints / points : kFftMaxFrames;; frames /= 2) {
+      span = 2 * frames * points;
+      tw = span + ((frames - 1) * hop + n_fft + 3) / 4 * 4;
+      pow = tw + n_fft + 2;
+      con = pow + (frames * n_pow + 3) / 4 * 4;
+      red = con;
+      end = n_con ? red + kRedC : pow;
+      if (frames <= 1 || sizeof(float) * end <= kMaxSmem) break;
+    }
+    rows_in_smem = n_con && sizeof(float) * (end + (n_con + 3) / 4 * 4) <= kMaxSmem;
+    if (rows_in_smem) {
+      red = con + (n_con + 3) / 4 * 4;
+      end = red + kRedC;
+    }
+  }
+
+  __host__ __device__ size_t bytes() const { return sizeof(float) * end; }
+};
+
+// Whether an n_fft can take an FFT plan: a power of two (from 64) whose
+// frame fits a block's points. plan_a and plan_c take it from kFftMinNfft
+// on, and launch A also past 128 mels, where its GEMM plan runs the DFT
+// again for each mel group (1.34 ms at B = 1024 on 256 mels, the FFT plan
+// 0.67).
+__host__ __device__ inline bool fft_nfft(int n_fft, int points_a_frame) {
+  return pow2(n_fft) && n_fft >= 64 && points_a_frame <= kFftPoints;
+}
+
+// Launch A's plan: the FFT, else the GEMM with its span staged or not.
+enum { kPlanGemmUnstaged = 0, kPlanGemmStaged = 1, kPlanFft = 2 };
+
+__host__ __device__ inline int plan_a(int n_fft, int hop, int kpad, int n_mels) {
+  if (fft_nfft(n_fft, n_fft / 2) && (n_fft >= kFftMinNfft || n_mels > 128) &&
+      LayoutF(n_fft, hop).bytes() <= kMaxSmem)
+    return kPlanFft;
+  return staged_a(hop, kpad) ? kPlanGemmStaged : kPlanGemmUnstaged;
+}
+
+// Launch C's plan: LayoutC's level 0-3 (the GEMM), or the FFT with the
+// contrast rows in shared memory (4) or in the output (5).
+enum { kPlanCFft = 4, kPlanCFftRowsOut = 5 };
+
+__host__ __device__ inline int plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, int n_bands) {
+  if (fft_nfft(n_fft, n_fft) && n_fft >= kFftMinNfft) {
+    const LayoutF lay(n_fft, hop, n_pow, n_frames, n_bands + 1);
+    if (lay.bytes() <= kMaxSmem) return lay.rows_in_smem ? kPlanCFft : kPlanCFftRowsOut;
+  }
+  return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).level;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// e^{-2 pi i idx / n_fft} for idx in [0, n_fft), from the table of idx in
+// [0, half], half = n_fft / 2.
+__device__ __forceinline__ float2 twiddle(const float2* tw, int idx, int half) {
+  const bool lo = idx <= half;
+  const float2 t = tw[lo ? idx : idx - half];
+  return lo ? t : make_float2(-t.x, -t.y);
+}
+
+// One Stockham stage of radix R over `total` points in rows of p (a power
+// of two), in place: butterfly j of a row reads points j + r p / R,
+// multiplies point r by w_{ns R}^{r (j mod ns)} (the table's entry r (j mod
+// ns) n_fft / (ns R)), takes their R-point DFT and writes output r to (j -
+// j mod ns) R + j mod ns + r ns. All reads, a barrier, all writes, a barrier.
+template <int R>
+__device__ __forceinline__ void fft_stage(float2* buf, int total, int log2p, int ns, int n_fft, const float2* tw) {
+  constexpr int kItems = kFftPoints / R / kThreadsA;
+  const int q = (1 << log2p) / R, lq = log2p - (R == 4 ? 2 : 1);
+  const int step = n_fft / (ns * R), half = n_fft / 2;
+  float2 v[kItems][R];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int e = threadIdx.x + it * kThreadsA;
+    if (e < total / R) {
+      const int row = e >> lq, j = e & (q - 1), k = j & (ns - 1);
+      const float2* src = buf + (row << log2p) + j;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[it][r] = src[r * q];
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[it][r] = cmul(v[it][r], twiddle(tw, r * k * step, half));
+      if constexpr (R == 2) {
+        const float2 a = v[it][0], b = v[it][1];
+        v[it][0] = make_float2(a.x + b.x, a.y + b.y);
+        v[it][1] = make_float2(a.x - b.x, a.y - b.y);
+      } else {
+        const float2 a0 = make_float2(v[it][0].x + v[it][2].x, v[it][0].y + v[it][2].y);
+        const float2 a1 = make_float2(v[it][0].x - v[it][2].x, v[it][0].y - v[it][2].y);
+        const float2 a2 = make_float2(v[it][1].x + v[it][3].x, v[it][1].y + v[it][3].y);
+        const float2 d = make_float2(v[it][1].x - v[it][3].x, v[it][1].y - v[it][3].y);
+        const float2 a3 = make_float2(d.y, -d.x);  // -i d
+        v[it][0] = make_float2(a0.x + a2.x, a0.y + a2.y);
+        v[it][1] = make_float2(a1.x + a3.x, a1.y + a3.y);
+        v[it][2] = make_float2(a0.x - a2.x, a0.y - a2.y);
+        v[it][3] = make_float2(a1.x - a3.x, a1.y - a3.y);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int e = threadIdx.x + it * kThreadsA;
+    if (e < total / R) {
+      const int row = e >> lq, j = e & (q - 1), k = j & (ns - 1);
+      float2* dst = buf + (row << log2p) + (j - k) * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dst[r * ns] = v[it][r];
+    }
+  }
+  __syncthreads();
+}
+
+// The FFT of each row of 2^log2p points in buf (rows x points <= kFftPoints),
+// in natural order, in place; w = e^{-2 pi i / n_fft} from the table.
+__device__ void fft_rows(float2* buf, int rows, int log2p, int n_fft, const float2* tw) {
+  const int total = rows << log2p;
+  int ns = 1;
+  if (log2p & 1) {
+    fft_stage<2>(buf, total, log2p, 1, n_fft, tw);
+    ns = 2;
+  }
+  for (; ns < (1 << log2p); ns *= 4) fft_stage<4>(buf, total, log2p, ns, n_fft, tw);
+}
+
+// One frame's contrast in one band of w <= 32 kK bins at pb, by a warp:
+// the band sorted in registers, descending, by a bitonic network (element
+// i = 32 r + lane in v[r], -1 past w: a power is never negative), then the
+// top tail is elements [0, n_top) and the bottom tail [w - n_bot, w). An
+// exact selection: the tails' values do not depend on how ties are broken.
+// 32 kK log2(32 kK)^2 / 4 compare-exchanges, where ranking takes w^2
+// compares (band_tails).
+template <int kK>
+__device__ __forceinline__ float band_sorted(const float* pb, int w, int n_top, int n_bot, int lane) {
+  constexpr int kN = 32 * kK;
+  float v[kK];
+#pragma unroll
+  for (int r = 0; r < kK; ++r) v[r] = 32 * r + lane < w ? pb[32 * r + lane] : -1.0f;
+#pragma unroll
+  for (int k = 2; k <= kN; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j >= 32; j >>= 1) {  // the partner is register r ^ (j / 32) of this lane
+#pragma unroll
+      for (int r = 0; r < kK; ++r) {
+        const int p = r ^ (j >> 5);
+        if (p < r) continue;
+        const bool desc = ((32 * r) & k) == 0;  // this block of k sorts descending
+        const float a = v[r], b = v[p];
+        v[r] = desc ? fmaxf(a, b) : fminf(a, b);
+        v[p] = desc ? fminf(a, b) : fmaxf(a, b);
+      }
+    }
+    // The partner is lane ^ j: a loop, not unrolled, keeps the code small.
+#pragma unroll 1
+    for (int j = (k >> 1) < 16 ? k >> 1 : 16; j > 0; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < kK; ++r) {
+        const bool desc = ((32 * r + lane) & k) == 0;
+        const float y = __shfl_xor_sync(0xffffffffu, v[r], j);
+        v[r] = desc == ((lane & j) == 0) ? fmaxf(v[r], y) : fminf(v[r], y);
+      }
+    }
+  }
+  float top = 0.0f, bot = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kK; ++r) {
+    const int i = 32 * r + lane;
+    top += i < n_top ? v[r] : 0.0f;
+    bot += i >= w - n_bot && i < w ? v[r] : 0.0f;
+  }
+  return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
+}
+
+// band_value for the FFT plan: bands of up to 512 bins by band_sorted,
+// wider ones by rank (band_value).
+__device__ __forceinline__ float band_value_sorted(const float* pb, int4 bd, int lane) {
+  const int w = bd.y, nt = bd.z, nb = bd.w;
+  const float* b = pb + bd.x;
+  if (w > 512) return band_value(pb, bd, lane);
+  if (w > 256) return band_sorted<16>(b, w, nt, nb, lane);
+  if (w > 128) return band_sorted<8>(b, w, nt, nb, lane);
+  if (w > 64) return band_sorted<4>(b, w, nt, nb, lane);
+  if (w > 32) return band_sorted<2>(b, w, nt, nb, lane);
+  if (w > 1) return band_sorted<1>(b, w, nt, nb, lane);
+  return 0.0f;
+}
+
+// A group's span into shared memory: samples [0, len) of `src`.
+__device__ __forceinline__ void stage_flat(float* span, const WaveSrc& src, int len) {
+  for (int i = threadIdx.x; i < len; i += kThreadsA) span[i] = src.at(i);
+}
+
+// Launch A, FFT plan. grid (batch x groups): block i takes clip i / groups
+// and its frames [t0, t0 + frames) from t0 = (i % groups) * frames (LayoutF's
+// frames); window (n_fft) the padded win_length Hann; twiddles (n_fft / 2 +
+// 1 float2); fb_w the filters' nonzero weights, mel by mel, and fb_ranges
+// (n_mels x 3) per mel its first bin, bins and offset in fb_w.
+__global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
+    const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
+    const float* __restrict__ window, const float2* __restrict__ twiddles, int n_used,
+    const float* __restrict__ fb_w, const int* __restrict__ fb_ranges, int n_mels, int use_pre,
+    float pre_coef, float* __restrict__ mel_out) {
+  extern __shared__ float4 smem4[];
+  const LayoutF lay(n_fft, hop);
+  float* base = reinterpret_cast<float*>(smem4);
+  float2* buf = reinterpret_cast<float2*>(base);
+  float* span = base + lay.span;
+  float2* tw = reinterpret_cast<float2*>(base + lay.tw);
+  const int F = lay.frames, m = n_fft / 2, half = n_fft / 2, log2m = __ffs(m) - 1;
+  const int groups = (n_frames + F - 1) / F;
+  const int b = blockIdx.x / groups, t0 = blockIdx.x % groups * F, frames = min(F, n_frames - t0);
+  const int tid = threadIdx.x;
+
+  // 1. The twiddles, and the group's span: reflect padding and
+  // pre-emphasis, zeros past its last frame.
+  for (int i = tid; i <= half; i += kThreadsA) tw[i] = twiddles[i];
+  WaveSrc src;
+  src.x = wave + (size_t)b * n_samples;
+  src.n_samples = n_samples;
+  src.base = t0 * hop - n_fft / 2;
+  src.live = (frames - 1) * hop + n_fft;
+  src.use_pre = use_pre;
+  src.pre_coef = pre_coef;
+  stage_flat(span, src, (F - 1) * hop + n_fft);
+  __syncthreads();
+
+  // 2. Each windowed frame's n_fft reals as m complex points.
+  for (int e = tid; e < F * m; e += kThreadsA) {
+    const int f = e >> log2m, n = 2 * (e & (m - 1));
+    const float* x = span + f * hop + n;
+    buf[e] = make_float2(x[0] * __ldg(window + n), x[1] * __ldg(window + n + 1));
+  }
+  __syncthreads();
+
+  // 3. The FFT of each frame's m points.
+  fft_rows(buf, F, log2m, n_fft, tw);
+
+  // 4. The real FFT's bins [0, n_used), their power in registers, then in
+  // place of the points: F rows of an odd stride, so that the mel's reads
+  // of consecutive frames fall in distinct banks.
+  const int stride = n_used | 1;
+  float pw[kPostItems];
+#pragma unroll
+  for (int it = 0; it < kPostItems; ++it) {
+    const int e = tid + it * kThreadsA;
+    if (e < F * n_used) {
+      const int f = e / n_used, k = e - f * n_used;
+      const float2 a = buf[(f << log2m) + (k & (m - 1))], c = buf[(f << log2m) + ((m - k) & (m - 1))];
+      const float2 ev = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+      const float2 d = make_float2(0.5f * (a.x - c.x), 0.5f * (a.y + c.y));
+      const float2 od = cmul(tw[k], make_float2(d.y, -d.x));  // w^k (-i d)
+      const float re = ev.x + od.x, im = ev.y + od.y;
+      pw[it] = re * re + im * im;
+    }
+  }
+  __syncthreads();
+  float* power = base;
+#pragma unroll
+  for (int it = 0; it < kPostItems; ++it) {
+    const int e = tid + it * kThreadsA;
+    if (e < F * n_used) {
+      const int f = e / n_used;
+      power[f * stride + e - f * n_used] = pw[it];
+    }
+  }
+  __syncthreads();
+
+  // 5. The mel over each filter's nonzero bins, (B, n_mels, n_frames),
+  // frames fastest.
+  for (int e = tid; e < F * n_mels; e += kThreadsA) {
+    const int mel = e / F, f = e - mel * F;
+    if (f >= frames) continue;
+    const int lo = __ldg(fb_ranges + 3 * mel), cnt = __ldg(fb_ranges + 3 * mel + 1);
+    const float* w = fb_w + __ldg(fb_ranges + 3 * mel + 2);
+    const float* p = power + f * stride + lo;
+    float acc = 0.0f;
+    for (int i = 0; i < cnt; ++i) acc = fmaf(__ldg(w + i), p[i], acc);
+    mel_out[((size_t)b * n_mels + mel) * n_frames + t0 + f] = acc;
+  }
+}
+
+// Launch C, FFT plan. grid (batch): block b takes clip b and loops over its
+// groups of LayoutF's frames; windows (2 x n_fft): the padded win_length
+// Hann (the bands' power), then the n_fft Hann (the centroid's magnitude);
+// twiddles (n_fft / 2 + 1 float2); the power rows cover bins [pow_lo, pow_lo
+// + n_pow); freqs, bands and out as contrast_kernel's.
+__global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
+    const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
+    const float* __restrict__ windows, const float2* __restrict__ twiddles, int pow_lo, int n_pow,
+    const float* __restrict__ freqs, float half_sr, const int4* __restrict__ bands, int n_bands,
+    float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int n_rows = n_bands + 1, n = n_rows * n_frames, half = n_fft / 2, log2n = __ffs(n_fft) - 1;
+  const LayoutF lay(n_fft, hop, n_pow, n_frames, n_rows);
+  float* base = reinterpret_cast<float*>(smem4);
+  float2* buf = reinterpret_cast<float2*>(base);
+  float* span = base + lay.span;
+  float2* tw = reinterpret_cast<float2*>(base + lay.tw);
+  float* pw = base + lay.pow;
+  float* con = lay.rows_in_smem ? base + lay.con : out + (size_t)blockIdx.x * n;
+  float* red = base + lay.red;
+  const int F = lay.frames, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tpf = kThreadsA / F;  // threads a frame in the split
+  const int f_own = tid / tpf, l_own = tid - f_own * tpf;
+
+  for (int i = tid; i <= half; i += kThreadsA) tw[i] = twiddles[i];
+  WaveSrc src;
+  src.x = wave + (size_t)blockIdx.x * n_samples;
+  src.n_samples = n_samples;
+  src.use_pre = 0;
+  src.pre_coef = 0.0f;
+  for (int t0 = 0; t0 < n_frames; t0 += F) {
+    // 1. The group's span, then its frames through both windows.
+    const int frames = min(F, n_frames - t0);
+    __syncthreads();  // the twiddles are in place; the last group's rows are read
+    src.base = t0 * hop - half;
+    src.live = (frames - 1) * hop + n_fft;
+    stage_flat(span, src, (F - 1) * hop + n_fft);
+    __syncthreads();
+    for (int e = tid; e < F << log2n; e += kThreadsA) {
+      const int f = e >> log2n, k = e & (n_fft - 1);
+      const float x = span[f * hop + k];
+      buf[e] = make_float2(__ldg(windows + k) * x, __ldg(windows + n_fft + k) * x);
+    }
+    __syncthreads();
+
+    // 2. The FFT of each frame's n_fft points.
+    fft_rows(buf, F, log2n, n_fft, tw);
+
+    // 3. The two spectra: the power rows over the bands' bins, the
+    // magnitude into the frame's sums; tpf threads a frame.
+    const float2* z = buf + (f_own << log2n);
+    float ms = 0.0f, fs = 0.0f;
+    for (int k = l_own; k <= half; k += tpf) {
+      const float2 a = z[k], c = z[(n_fft - k) & (n_fft - 1)];
+      if (k >= pow_lo && k < pow_lo + n_pow) {
+        const float re = 0.5f * (a.x + c.x), im = 0.5f * (a.y - c.y);
+        pw[f_own * n_pow + k - pow_lo] = re * re + im * im;
+      }
+      const float dre = 0.5f * (a.x - c.x), dim = 0.5f * (a.y + c.y);  // |(Z[k] - conj Z[n - k]) / 2i|
+      const float mg = sqrtf(dre * dre + dim * dim);
+      ms += mg;
+      fs += __ldg(freqs + k) * mg;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      if (off < tpf) {
+        ms += __shfl_xor_sync(0xffffffffu, ms, off);
+        fs += __shfl_xor_sync(0xffffffffu, fs, off);
+      }
+    if (tpf > 32) {  // a frame's warps add up their partial sums
+      if (lane == 0) {
+        red[warp] = ms;
+        red[kWarpsA + warp] = fs;
+      }
+      __syncthreads();
+      if (l_own == 0)
+        for (int w = 1; w < tpf / 32; ++w) {
+          ms += red[warp + w];
+          fs += red[kWarpsA + warp + w];
+        }
+    }
+    if (l_own == 0 && f_own < frames) con[n_bands * n_frames + t0 + f_own] = (ms > 0.0f ? fs / ms : 0.0f) / half_sr;
+    __syncthreads();  // the group's power rows are in place
+
+    // 4. The bands' tails, a warp a (frame, band).
+    for (int item = warp; item < frames * n_bands; item += kWarpsA) {
+      const int f = item / n_bands, i = item - f * n_bands;
+      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands + i), lane);
+      if (lane == 0) con[i * n_frames + t0 + f] = v;
     }
   }
   __syncthreads();  // the clip's rows are complete
 
-  // 5. The clip's z-norm (unbiased std), written as (n_rows, n_frames).
-  float s = 0.0f;
-  for (int i = tid; i < n; i += kThreadsA) s += con[i];
-  s = warp_sum(s);
-  if (lane == 0) red[warp] = s;
-  __syncthreads();
-  float total = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarpsA; ++w) total += red[w];
-  const float mean = total / (float)n;
-  float sq = 0.0f;
-  for (int i = tid; i < n; i += kThreadsA) {
-    const float d = con[i] - mean;
-    sq += d * d;
-  }
-  sq = warp_sum(sq);
-  if (lane == 0) red[kWarpsA + warp] = sq;
-  __syncthreads();
-  float var = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarpsA; ++w) var += red[kWarpsA + w];
-  const float denom = sqrtf(var / (float)(n - 1)) + 1e-8f;
-  float* o = out + (size_t)blockIdx.x * n;
-  for (int i = tid; i < n; i += kThreadsA) o[i] = (con[i] - mean) / denom;
+  // 5. The clip's z-norm, written as (n_rows, n_frames).
+  znorm_rows(con, n, red, out + (size_t)blockIdx.x * n);
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -1431,18 +1906,21 @@ int set_smem(const void* fn, size_t bytes) {
 
 extern "C" {
 
-// Shared-memory bytes each launch needs (launches A and C: with the
-// smallest ring, two slots), and the plan each launch takes: staged or not
-// (A), one block, a cluster of n or device memory (B), LayoutC's level
-// (C). ops/frontend_kernel.py mirrors each in Python (spectral_smem_bytes,
-// spectral_staged, epilogue_smem_bytes, epilogue_blocks,
+// Shared-memory bytes each launch needs (the GEMM plans of launches A and
+// C: with the smallest ring, two slots), and the plan each launch takes:
+// the FFT or the GEMM staged or not (A, plan_a), one block, a cluster of n
+// or device memory (B), LayoutC's level or the FFT (C, plan_c).
+// ops/frontend_kernel.py mirrors each in Python (spectral_smem_bytes,
+// spectral_plan, epilogue_smem_bytes, epilogue_blocks,
 // contrast_smem_bytes, contrast_level) to size buffers and grids from the
 // config alone; chip_smoke.py holds the mirrors against these.
-size_t cdt_frontend_smem_a(int hop, int kpad) {
-  return LayoutA(hop, kpad, staged_a(hop, kpad)).bytes(2);
+size_t cdt_frontend_smem_a(int n_fft, int hop, int kpad, int n_mels) {
+  const int plan = plan_a(n_fft, hop, kpad, n_mels);
+  if (plan == kPlanFft) return LayoutF(n_fft, hop).bytes();
+  return LayoutA(hop, kpad, plan == kPlanGemmStaged).bytes(2);
 }
 
-int cdt_frontend_plan_a(int hop, int kpad) { return staged_a(hop, kpad); }
+int cdt_frontend_plan_a(int n_fft, int hop, int kpad, int n_mels) { return plan_a(n_fft, hop, kpad, n_mels); }
 
 size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int delta_delta) {
   const int n = plan_b(n_frames, n_mels, n_mfcc, delta_delta);
@@ -1490,6 +1968,31 @@ int cdt_frontend_spectral(
   void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &table,
                   &n_bins, &n_mels, &n_groups, &use_pre, &pre_coef, &n_slots, &mel};
   const cudaError_t launched = cudaLaunchKernel(fn, grid, dim3(kThreadsA), args, smem, stream);
+  return launched ? (int)launched : (int)cudaGetLastError();
+}
+
+// Launch A, FFT plan (spectral_fft_kernel). wave (B, n_samples); window
+// (n_fft); twiddles (n_fft / 2 + 1, 2); fb_w and fb_ranges (n_mels, 3) int32
+// (ops/frontend_kernel.py::_fft_constants); mel (B, n_mels, n_frames). All
+// contiguous, on one device. Takes any n_fft that fft_nfft and LayoutF
+// take, whatever plan_a says (tools/spectral_probe.py times it on the
+// shipped config).
+int cdt_frontend_spectral_fft(
+    const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
+    const float* window, const float* twiddles, int n_used, const float* fb_w, const int* fb_ranges,
+    int n_mels, int use_pre, float pre_coef, float* mel, cudaStream_t stream) {
+  const LayoutF lay(n_fft, hop);
+  if (!fft_nfft(n_fft, n_fft / 2) || hop < 1 || n_used < 1 || n_used > n_fft / 2 + 1 ||
+      lay.bytes() > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)spectral_fft_kernel;
+  const int err = set_smem(fn, lay.bytes());
+  if (err) return err;
+  const long long blocks = (long long)((n_frames + lay.frames - 1) / lay.frames) * batch;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &window, &twiddles, &n_used,
+                  &fb_w, &fb_ranges, &n_mels, &use_pre, &pre_coef, &mel};
+  const cudaError_t launched = cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(kThreadsA), args, lay.bytes(), stream);
   return launched ? (int)launched : (int)cudaGetLastError();
 }
 
@@ -1552,12 +2055,35 @@ int cdt_frontend_epilogue(
   return launched ? (int)launched : (int)cudaGetLastError();
 }
 
-size_t cdt_frontend_smem_c(int hop, int kpad, int n_pow, int n_frames, int n_bands) {
+size_t cdt_frontend_smem_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, int n_bands) {
+  if (plan_c(n_fft, hop, kpad, n_pow, n_frames, n_bands) >= kPlanCFft)
+    return LayoutF(n_fft, hop, n_pow, n_frames, n_bands + 1).bytes();
   return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).bytes(2);
 }
 
-int cdt_frontend_plan_c(int hop, int kpad, int n_pow, int n_frames, int n_bands) {
-  return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).level;
+int cdt_frontend_plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, int n_bands) {
+  return plan_c(n_fft, hop, kpad, n_pow, n_frames, n_bands);
+}
+
+// Launch C, FFT plan (contrast_fft_kernel). wave (B, n_samples); windows
+// (2, n_fft); twiddles (n_fft / 2 + 1, 2) (ops/frontend_kernel.py's
+// _fft_constants); freqs (n_fft / 2 + 1); bands as cdt_frontend_contrast's;
+// out (B, n_bands + 1, n_frames). All contiguous, on one device.
+int cdt_frontend_contrast_fft(
+    const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
+    const float* windows, const float* twiddles, int pow_lo, int n_pow, const float* freqs,
+    float half_sr, const int* bands, int n_bands, float* out, cudaStream_t stream) {
+  const LayoutF lay(n_fft, hop, n_pow, n_frames, n_bands + 1);
+  if (!fft_nfft(n_fft, n_fft) || hop < 1 || n_bands < 0 || n_pow < 0 || pow_lo < 0 ||
+      pow_lo + n_pow > n_fft / 2 + 1 || lay.bytes() > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)contrast_fft_kernel;
+  const int err = set_smem(fn, lay.bytes());
+  if (err) return err;
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &windows, &twiddles, &pow_lo, &n_pow,
+                  &freqs, &half_sr, &bands, &n_bands, &out};
+  const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsA), args, lay.bytes(), stream);
+  return launched ? (int)launched : (int)cudaGetLastError();
 }
 
 // Launch C. wave (B, n_samples); table: the chunk stream its ring reads

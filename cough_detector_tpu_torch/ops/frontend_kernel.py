@@ -8,25 +8,29 @@ contrast rows its launcher appends.
 
 `extract_features_fused` runs the pair through its two wrappers:
 `power_mel_fused` (launch A: framing, windowed DFT, power, mel, on the
-tensor cores in 3xTF32) and `mel_epilogue_fused` (launch B: log, dB or
-PCEN, DCT, z-norm, deltas, FP32 with frames across threads). On a CUDA tensor each launches its kernel or
+tensor cores in 3xTF32, or by FFT: `spectral_plan`) and
+`mel_epilogue_fused` (launch B: log, dB or PCEN, DCT, z-norm, deltas, FP32
+with frames across threads). On a CUDA tensor each launches its kernel or
 raises, and adds one to its counter, `SPECTRAL_LAUNCHES` or
 `EPILOGUE_LAUNCHES`; on a CPU tensor each runs its plain version
 (`power_mel_reference`, `mel_epilogue_reference`): the same function in
 plain torch ops, with the band-limited windowed DFT as two FP32 matmuls and
 the shared epilogue of ops/frontend.py. `frontend_kernel_reference` chains
 the two plain versions. `power_mel_split_reference` models launch A's
-TF32 operand splitting on any device; tests and chip_smoke.py hold the
-kernel and the JAX package against it.
+TF32 operand splitting on any device, `power_mel_fft_reference` its FFT
+plan's arithmetic; tests and chip_smoke.py hold the kernel and the JAX
+package against them.
 
 For a config with spectral contrast, `extract_features_fused` is the JAX
 launcher's hybrid in three launches: the pair runs on the config without
 contrast, and the contrast launch (`spectral_contrast_fused`: framing, one
 3xTF32 DFT over both windows, band tails by stable rank, centroid, z-norm;
-counter `CONTRAST_LAUNCHES`) appends the contrast rows of the
+or its FFT plan: both windows through one FFT, each band sorted; counter
+`CONTRAST_LAUNCHES`) appends the contrast rows of the
 un-emphasized waves. Its plain version is `spectral_contrast_reference`
 (`frontend.spectral_contrast(method="gemm")`), its arithmetic's model
-`spectral_contrast_split_reference`. The pair's launches compute no
+`spectral_contrast_split_reference` (the FFT plan's:
+`spectral_contrast_fft_reference`). The pair's launches compute no
 contrast rows and refuse a contrast config.
 
 Unlike the JAX launcher, a config the kernel does not cover (no MFCC, or a
@@ -34,14 +38,17 @@ waveform length other than segment_samples) raises ValueError instead of
 running the plain chain. Every config the JAX launcher sends to its Pallas
 kernel (`kernel_supports`) runs the launches on the card: each launch picks,
 from the config alone, a plan that fits the card's 227 KB of shared memory
-a block. Launch A takes more than 128 mels in groups of at most 128, each
-its own blocks (`mel_groups`), and gathers its frames from device memory
-where a 128-frame tile's waveform span passes shared memory
-(`spectral_staged`); launch B holds a clip in one block, across a
-thread-block cluster of up to 8 (`epilogue_blocks`), or past that works
-in device memory; the contrast launch moves its span, its contrast rows
-and its power rows out of shared memory in that order
-(`contrast_level`), and takes any number of bands of any width. The
+a block. Launches A and C compute their spectra by FFT for a
+power-of-two n_fft from 1024 on (launch A also past 128 mels): the FFT
+plans (`spectral_plan`, `contrast_level` 4 and 5). Otherwise launch A
+takes more than 128 mels in groups of at most 128, each its own blocks
+(`mel_groups`), and gathers its frames from device memory where a
+128-frame tile's waveform span passes shared memory (`spectral_staged`);
+launch B holds a clip in one block, across a thread-block cluster of up
+to 8 (`epilogue_blocks`), or past that works in device memory; the
+contrast launch moves its span, its contrast rows and its power rows out
+of shared memory in that order (`contrast_level`), and takes any number
+of bands of any width. The
 mirrors (`spectral_smem_bytes`, `epilogue_smem_bytes`,
 `contrast_smem_bytes` and the plans) follow the kernels' layouts, so
 buffers and grids are sized without the built library or a card;
@@ -92,6 +99,15 @@ _BARRIERS_A = 12 * 4  # bytes of launch A's ring barriers and counters (4 slots)
 _RED_B = 32  # floats of launch B's reduction slots
 _MAX_CLUSTER = 8  # launch B's largest cluster: blocks a clip
 _RED_C = 16  # floats of the contrast launch's reduction slots
+_FFT_POINTS = 8192  # the FFT plans: complex points a block holds (64 KB)
+_FFT_MAX_FRAMES = 32  # the FFT plans: frames a block takes at most
+_FFT_MIN_NFFT = 1024  # the FFT plans: the least n_fft (a power of two) they take
+
+# Launch A's plans (cdt_frontend_plan_a).
+PLAN_GEMM_UNSTAGED, PLAN_GEMM_STAGED, PLAN_FFT = 0, 1, 2
+# The contrast launch's FFT plans (cdt_frontend_plan_c; 0-3 are LayoutC's
+# levels): the contrast rows in shared memory, or in the output.
+CONTRAST_FFT, CONTRAST_FFT_ROWS_OUT = 4, 5
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -127,10 +143,62 @@ def spectral_staged(hop: int, kpad: int) -> bool:
     return _ring_bytes(_span_floats(hop, kpad)) <= _MAX_SMEM
 
 
-def spectral_smem_bytes(hop: int, kpad: int) -> int:
-    """Launch A's shared memory with its smallest ring, as
-    csrc/frontend_kernel.cu's LayoutA counts it (cdt_frontend_smem_a)."""
-    return _ring_bytes(_span_floats(hop, kpad) if spectral_staged(hop, kpad) else 0)
+def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, n_con: int = 0) -> tuple:
+    """(frames, bytes, rows_in_smem): csrc/frontend_kernel.cu's LayoutF. In
+    floats: the points (2 each, frames x points a frame), the frames'
+    waveform span, the twiddles (n_fft + 2); for the contrast launch (n_con
+    contrast values a clip) the group's power rows (frames x n_pow), the
+    contrast rows where they fit and the reduction slots. `frames` halves
+    from the most a block takes until the layout fits."""
+    def up4(n):
+        return (n + 3) // 4 * 4
+
+    frames = min(_FFT_POINTS // points, _FFT_MAX_FRAMES)
+    while True:
+        end = 2 * frames * points + up4((frames - 1) * hop + n_fft) + n_fft + 2
+        if n_con:
+            end += up4(frames * n_pow) + _RED_C
+        if frames <= 1 or 4 * end <= _MAX_SMEM:
+            break
+        frames //= 2
+    rows = bool(n_con) and 4 * (end + up4(n_con)) <= _MAX_SMEM
+    return frames, 4 * (end + (up4(n_con) if rows else 0)), rows
+
+
+def _fft_nfft(n_fft: int, points: int) -> bool:
+    """Whether an n_fft takes an FFT plan at all (fft_nfft): a power of two
+    whose frame of `points` complex points fits a block."""
+    return n_fft >= 64 and n_fft & (n_fft - 1) == 0 and points <= _FFT_POINTS
+
+
+def spectral_plan(cfg: FeatureConfig) -> int:
+    """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for a
+    power-of-two n_fft from 1024 on, or past 128 mels, where its layout
+    fits; else the GEMM, PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED
+    (`spectral_staged`). The shipped config (n_fft 512, 64 mels) and every
+    n_fft that is not a power of two take the GEMM."""
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    if (_fft_nfft(n_fft, n_fft // 2) and (n_fft >= _FFT_MIN_NFFT or cfg.n_mels > 128)
+            and _fft_layout(n_fft // 2, n_fft, hop)[1] <= _MAX_SMEM):
+        return PLAN_FFT
+    return PLAN_GEMM_STAGED if spectral_staged(hop, _support(cfg)[2]) else PLAN_GEMM_UNSTAGED
+
+
+def spectral_fft_frames(cfg: FeatureConfig) -> int:
+    """Frames a block of launch A's FFT plan takes (LayoutF's frames); its
+    grid is batch x ceil(num_frames / frames) blocks."""
+    return _fft_layout(cfg.n_fft // 2, cfg.n_fft, cfg.hop_length)[0]
+
+
+def spectral_smem_bytes(cfg: FeatureConfig) -> int:
+    """Launch A's shared memory under its plan, as csrc/frontend_kernel.cu
+    counts it (cdt_frontend_smem_a): LayoutF's, or LayoutA's with its
+    smallest ring."""
+    plan = spectral_plan(cfg)
+    if plan == PLAN_FFT:
+        return _fft_layout(cfg.n_fft // 2, cfg.n_fft, cfg.hop_length)[1]
+    kpad = _support(cfg)[2]
+    return _ring_bytes(_span_floats(cfg.hop_length, kpad) if plan == PLAN_GEMM_STAGED else 0)
 
 
 def mel_groups(n_mels: int) -> tuple:
@@ -217,7 +285,6 @@ class _Constants(NamedTuple):
     cos: torch.Tensor  # (n_fft, n_used) windowed cos
     sin: torch.Tensor  # (n_fft, n_used) windowed -sin
     fb: torch.Tensor   # (n_used, n_mels)
-    dct: torch.Tensor  # (n_mels, n_mfcc)
     n_used: int        # DFT bins that feed any mel band
     j0: int            # window support [j0, j1) within the frame
     j1: int
@@ -272,7 +339,6 @@ def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     )
     n_used = int(np.max(np.nonzero(np.any(fb != 0, axis=1))[0])) + 1
     j0, j1, kpad = _support(cfg)
-    dct = filters.dct_matrix(cfg.n_mfcc, cfg.n_mels)
 
     n_bins = -(-n_used // 8) * 8
     n_passes = -(-2 * n_bins // _PASS_COLS)
@@ -295,7 +361,7 @@ def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
     return _Constants(
-        dev(c[:, :n_used]), dev(s[:, :n_used]), dev(fb[:n_used]), dev(dct),
+        dev(c[:, :n_used]), dev(s[:, :n_used]), dev(fb[:n_used]),
         n_used, j0, j1, kpad, n_bins, mel_tiles, n_groups,
         torch.cat(stream).reshape(-1).to(device),
     )
@@ -365,6 +431,144 @@ def power_mel_split_reference(
     return _split_matmul(re * re + im * im, k.fb, passes).transpose(1, 2)
 
 
+# -- the FFT plans' constants and arithmetic -------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _twiddles(n_fft: int) -> np.ndarray:
+    """(n_fft // 2 + 1, 2) float32: e^{-2 pi i k / n_fft} for k in [0, n_fft
+    / 2] as (cos, -sin), computed in float64 and rounded once. The FFT
+    plans read entry k - n_fft / 2, negated, for k past n_fft / 2."""
+    ang = 2.0 * np.pi * np.arange(n_fft // 2 + 1, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def _filter_ranges(fb: np.ndarray) -> tuple:
+    """The filterbank's columns as launch A's FFT plan reads them:
+    (weights, ranges), ranges (n_mels, 3) int32 per mel its first nonzero
+    bin, the bins from there to its last nonzero one and their offset in
+    weights, where they lie one mel after another (a mel with no nonzero
+    bin has none)."""
+    weights, ranges, off = [], [], 0
+    for m in range(fb.shape[1]):
+        nz = np.nonzero(fb[:, m])[0]
+        lo, n = (int(nz[0]), int(nz[-1] - nz[0]) + 1) if nz.size else (0, 0)
+        weights.append(fb[lo : lo + n, m])
+        ranges.append((lo, n, off))
+        off += n
+    return np.concatenate(weights).astype(np.float32), np.array(ranges, np.int32).reshape(-1, 3)
+
+
+class _FftConstants(NamedTuple):
+    window: torch.Tensor     # (n_fft,) the padded win_length Hann
+    twiddles: torch.Tensor   # (n_fft // 2 + 1, 2), _twiddles
+    fb_w: torch.Tensor       # the filters' nonzero weights, mel by mel
+    fb_ranges: torch.Tensor  # (n_mels, 3) int32: first bin, bins, offset in fb_w
+    n_used: int              # bins that feed any mel band
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
+    """Launch A's FFT plan's tables: the window, the twiddles and the
+    filterbank over its n_used bins, packed by `_filter_ranges`."""
+    fb = filters.mel_filterbank(cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max)
+    n_used = int(np.max(np.nonzero(np.any(fb != 0, axis=1))[0])) + 1
+    weights, ranges = _filter_ranges(fb[:n_used])
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return _FftConstants(
+        dev(filters.padded_window(cfg.win_length, cfg.n_fft).astype(np.float32)),
+        dev(_twiddles(cfg.n_fft)), dev(weights), dev(ranges), n_used,
+    )
+
+
+def _fft_radices(points: int) -> list:
+    """The FFT plans' Stockham stages: one of radix 2 first when log2 of
+    the points is odd, then radix 4."""
+    log2 = points.bit_length() - 1
+    return [2] * (log2 % 2) + [4] * (log2 // 2)
+
+
+def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) -> tuple:
+    """The FFT plans' FFT along the last axis (a power-of-two count of
+    points) in float32, as csrc/frontend_kernel.cu's fft_rows runs it:
+    stage by stage, butterfly j reads points j + r p / R, multiplies point
+    r > 0 by the table's entry r (j mod ns) n_fft / (ns R) (k past n_fft /
+    2: entry k - n_fft / 2, negated), takes the R-point DFT and writes
+    output r to (j - j mod ns) R + j mod ns + r ns."""
+    p = re.shape[-1]
+    half = n_fft // 2
+    ns = 1
+    for r in _fft_radices(p):
+        q = p // r
+        j = torch.arange(q, device=re.device)
+        k = j % ns
+        vr = list(re.reshape(*re.shape[:-1], r, q).unbind(-2))
+        vi = list(im.reshape(*im.shape[:-1], r, q).unbind(-2))
+        for i in range(1, r):
+            idx = i * k * (n_fft // (ns * r))
+            low = idx <= half
+            t = tw[torch.where(low, idx, idx - half)]
+            sign = torch.where(low, 1.0, -1.0).to(tw.dtype)
+            wr, wi = t[:, 0] * sign, t[:, 1] * sign
+            vr[i], vi[i] = vr[i] * wr - vi[i] * wi, vr[i] * wi + vi[i] * wr
+        if r == 2:
+            yr = [vr[0] + vr[1], vr[0] - vr[1]]
+            yi = [vi[0] + vi[1], vi[0] - vi[1]]
+        else:
+            a0r, a0i = vr[0] + vr[2], vi[0] + vi[2]
+            a1r, a1i = vr[0] - vr[2], vi[0] - vi[2]
+            a2r, a2i = vr[1] + vr[3], vi[1] + vi[3]
+            a3r, a3i = vi[1] - vi[3], -(vr[1] - vr[3])  # -i (v1 - v3)
+            yr = [a0r + a2r, a1r + a3r, a0r - a2r, a1r - a3r]
+            yi = [a0i + a2i, a1i + a3i, a0i - a2i, a1i - a3i]
+        dst = torch.stack([(j - k) * r + k + i * ns for i in range(r)])  # (r, q)
+        re, im = torch.empty_like(re), torch.empty_like(im)
+        re[..., dst] = torch.stack(yr, dim=-2)
+        im[..., dst] = torch.stack(yi, dim=-2)
+        ns *= r
+    return re, im
+
+
+def power_mel_fft_reference(
+    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
+) -> torch.Tensor:
+    """Launch A's FFT plan's arithmetic in plain torch ops: (B,
+    segment_samples) → power mel (B, n_mels, num_frames). Each windowed
+    frame's n_fft reals packed as n_fft / 2 complex points (even samples
+    real, odd imaginary), the plan's Stockham stages and twiddle table
+    (`_stockham`), the real FFT's post-twiddle for bins [0, n_used), their
+    power, then the mel from the packed filters. The kernel may fuse a
+    multiply and an add where this model rounds both, and it adds each
+    mel's products in bin order: differences far below the 1e-3 budget.
+    For any config (the kernel takes it where spectral_plan says so); for
+    tests and chip_smoke.py, nothing on the main path calls it."""
+    _check_config(cfg, waves.shape[-1])
+    k = _fft_constants(cfg, waves.device)
+    x = _frames(waves, cfg) * k.window
+    re, im = _stockham(x[..., 0::2], x[..., 1::2], k.twiddles, cfg.n_fft)
+    m = cfg.n_fft // 2
+    bins = torch.arange(k.n_used, device=waves.device)
+    a, c = bins % m, (m - bins) % m
+    er, ei = 0.5 * (re[..., a] + re[..., c]), 0.5 * (im[..., a] - im[..., c])
+    dr, di = 0.5 * (re[..., a] - re[..., c]), 0.5 * (im[..., a] + im[..., c])
+    wr, wi = k.twiddles[: k.n_used, 0], k.twiddles[: k.n_used, 1]
+    xr = er + (wr * di - wi * -dr)  # w^k (-i d): -i d = (d_im, -d_re)
+    xi = ei + (wr * -dr + wi * di)
+    fb = torch.zeros((k.n_used, cfg.n_mels), dtype=torch.float32, device=waves.device)
+    for mel, (lo, n, off) in enumerate(k.fb_ranges.tolist()):
+        fb[lo : lo + n, mel] = k.fb_w[off : off + n]
+    return ((xr * xr + xi * xi) @ fb).transpose(1, 2)
+
+
+@functools.lru_cache(maxsize=16)
+def _dct(n_mfcc: int, n_mels: int, device: torch.device) -> torch.Tensor:
+    """Launch B's DCT table (n_mels, n_mfcc), apart from launch A's tables."""
+    return torch.from_numpy(filters.dct_matrix(n_mfcc, n_mels)).to(device)
+
+
 def mel_epilogue_reference(
     mel: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
 ) -> torch.Tensor:
@@ -400,7 +604,11 @@ def build() -> ctypes.CDLL:
         p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
     ]
     lib.cdt_frontend_contrast.restype = i
-    for name, n_args in (("a", 2), ("b", 4), ("c", 5)):
+    lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
+    lib.cdt_frontend_spectral_fft.restype = i
+    lib.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i, p, p]
+    lib.cdt_frontend_contrast_fft.restype = i
+    for name, n_args in (("a", 4), ("b", 4), ("c", 6)):
         getattr(lib, f"cdt_frontend_smem_{name}").argtypes = [i] * n_args
         getattr(lib, f"cdt_frontend_smem_{name}").restype = ctypes.c_size_t
         getattr(lib, f"cdt_frontend_plan_{name}").argtypes = [i] * n_args
@@ -443,22 +651,34 @@ def power_mel_fused(
     _check_cuda(waves, 2, "waves")
     b = waves.shape[0]
     t, n_mels = cfg.num_frames, cfg.n_mels
-    mel_tiles, n_groups = mel_groups(n_mels)
-    if spectral_grid(b, t, n_groups) > _MAX_BLOCKS:
+    fft = spectral_plan(cfg) == PLAN_FFT
+    if fft:
+        blocks = b * -(-t // spectral_fft_frames(cfg))
+    else:
+        blocks = spectral_grid(b, t, mel_groups(n_mels)[1])
+    if blocks > _MAX_BLOCKS:
         raise ValueError(f"batch {b} needs more than the spectral kernel's {_MAX_BLOCKS} blocks")
     mel = torch.empty((b, n_mels, t), dtype=torch.float32, device=waves.device)
     if b == 0:
         return mel
-    k = _constants(cfg, waves.device)
     lib = build()
+    stream = torch.cuda.current_stream(waves.device).cuda_stream
+    pre, coef = int(cfg.use_pre_emphasis), float(cfg.pre_emphasis_coef)
     with torch.cuda.device(waves.device):
-        err = lib.cdt_frontend_spectral(
-            waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft,
-            cfg.hop_length, k.j0, k.kpad, k.table.data_ptr(), k.n_bins,
-            n_mels, k.mel_tiles, k.n_groups, int(cfg.use_pre_emphasis),
-            float(cfg.pre_emphasis_coef), mel.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        if fft:
+            f = _fft_constants(cfg, waves.device)
+            err = lib.cdt_frontend_spectral_fft(
+                waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
+                f.window.data_ptr(), f.twiddles.data_ptr(), f.n_used, f.fb_w.data_ptr(),
+                f.fb_ranges.data_ptr(), n_mels, pre, coef, mel.data_ptr(), stream,
+            )
+        else:
+            k = _constants(cfg, waves.device)
+            err = lib.cdt_frontend_spectral(
+                waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft,
+                cfg.hop_length, k.j0, k.kpad, k.table.data_ptr(), k.n_bins,
+                n_mels, k.mel_tiles, k.n_groups, pre, coef, mel.data_ptr(), stream,
+            )
     _raise_on(err, lib, "spectral")
     SPECTRAL_LAUNCHES += 1
     return mel
@@ -483,7 +703,7 @@ def mel_epilogue_fused(
     if b == 0:
         return out
     lib = build()
-    dct = _constants(cfg, mel.device).dct
+    dct = _dct(cfg.n_mfcc, cfg.n_mels, mel.device)
     with torch.cuda.device(mel.device):
         err = lib.cdt_frontend_epilogue(
             mel.data_ptr(), b, t, cfg.n_mels, dct.data_ptr(), cfg.n_mfcc,
@@ -543,13 +763,26 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
 
 
 def _contrast_plan(cfg: FeatureConfig) -> tuple:
-    """(level, bytes): csrc/frontend_kernel.cu's LayoutC. Its shared memory
-    with the smallest ring is the ring's two slots, the tile's waveform
-    span, the tile's power over the bands' bins (128 rows), the clip's
-    contrast rows and the reduction slots; at the first level that fits,
-    0 all of them, 1 without the span (read from device memory), 2 without
-    the contrast rows too (in the output), 3 without the power rows too (in
-    a scratch buffer)."""
+    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For a power-of-two
+    n_fft from 1024 on, the FFT plan where LayoutF fits: CONTRAST_FFT with
+    the clip's contrast rows in shared memory, CONTRAST_FFT_ROWS_OUT with
+    them in the output. Else the GEMM's (`_contrast_gemm_plan`)."""
+    n_fft, n_con = cfg.n_fft, cfg.num_frames * (cfg.n_contrast_bands + 1)
+    if _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT:
+        _, smem, rows = _fft_layout(n_fft, n_fft, cfg.hop_length, _geometry(cfg).n_pow, n_con)
+        if smem <= _MAX_SMEM:
+            return (CONTRAST_FFT if rows else CONTRAST_FFT_ROWS_OUT), smem
+    return _contrast_gemm_plan(cfg)
+
+
+def _contrast_gemm_plan(cfg: FeatureConfig) -> tuple:
+    """(level, bytes) of the GEMM plan, csrc/frontend_kernel.cu's LayoutC:
+    its shared memory with the smallest ring is the ring's two slots, the
+    tile's waveform span, the tile's power over the bands' bins (128 rows),
+    the clip's contrast rows and the reduction slots; at the first level
+    that fits, 0 all of them, 1 without the span (read from device memory),
+    2 without the contrast rows too (in the output), 3 without the power
+    rows too (in a scratch buffer)."""
     g = _geometry(cfg)
     rows = (_ROWS_A * g.n_pow + 3) // 4 * 4
     con = (cfg.num_frames * (cfg.n_contrast_bands + 1) + 3) // 4 * 4
@@ -563,14 +796,15 @@ def _contrast_plan(cfg: FeatureConfig) -> tuple:
 
 
 def contrast_level(cfg: FeatureConfig) -> int:
-    """The contrast launch's LayoutC level (cdt_frontend_plan_c): how much
-    of it moves from shared memory to device memory (see _contrast_plan)."""
+    """The contrast launch's plan (cdt_frontend_plan_c): LayoutC's level,
+    how much of the GEMM plan moves from shared memory to device memory, or
+    an FFT plan (4 or 5; see _contrast_plan)."""
     return _contrast_plan(cfg)[0]
 
 
 def contrast_smem_bytes(cfg: FeatureConfig) -> int:
-    """The contrast launch's shared memory with its smallest ring at its
-    level (cdt_frontend_smem_c; see _contrast_plan)."""
+    """The contrast launch's shared memory under its plan (with the GEMM's
+    smallest ring; cdt_frontend_smem_c; see _contrast_plan)."""
     return _contrast_plan(cfg)[1]
 
 
@@ -601,14 +835,22 @@ def _contrast_constants(cfg: FeatureConfig, device: torch.device) -> _ContrastCo
     stream = torch.cat([
         _tiles(table[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]) for p in range(g.n_passes)
     ])
-    freqs = np.linspace(0, cfg.sample_rate // 2, g.n_freqs, dtype=np.float32)
     cols = table[: g.j1 - g.j0, : 2 * (g.n_pow + g.n_freqs)]
-    bands = np.array([g.offsets, g.widths, g.tops, g.bots], np.int32).T.reshape(-1, 4)
     return _ContrastConstants(
         torch.from_numpy(np.ascontiguousarray(cols)).to(device),
-        stream.reshape(-1).to(device), torch.from_numpy(freqs).to(device),
-        torch.from_numpy(np.ascontiguousarray(bands)).to(device),
+        stream.reshape(-1).to(device), *_centroid_and_bands(cfg, device),
     )
+
+
+@functools.lru_cache(maxsize=16)
+def _centroid_and_bands(cfg: FeatureConfig, device: torch.device) -> tuple:
+    """(freqs, bands), both plans': the centroid's bin frequencies
+    (n_freqs,) and the bands (n_bands, 4) int32, per band its first bin
+    (from the first power bin), bins, top and bottom tail lengths."""
+    g = _geometry(cfg)
+    freqs = np.linspace(0, cfg.sample_rate // 2, g.n_freqs, dtype=np.float32)
+    bands = np.array([g.offsets, g.widths, g.tops, g.bots], np.int32).T.reshape(-1, 4)
+    return torch.from_numpy(freqs).to(device), torch.from_numpy(np.ascontiguousarray(bands)).to(device)
 
 
 def _check_contrast(cfg: FeatureConfig, n_samples: int) -> None:
@@ -655,6 +897,42 @@ def spectral_contrast_split_reference(
     return contrast_from_spectra(spec, mag, cfg, tails="rank").transpose(1, 2)
 
 
+@functools.lru_cache(maxsize=16)
+def _contrast_fft_constants(cfg: FeatureConfig, device: torch.device) -> tuple:
+    """(windows, twiddles): the contrast launch's FFT plan's windows, (2,
+    n_fft) the padded win_length Hann (the bands' power) then the n_fft
+    Hann (the centroid's magnitude), and its twiddles (`_twiddles`)."""
+    windows = np.stack([filters.padded_window(cfg.win_length, cfg.n_fft), filters.padded_window(cfg.n_fft, cfg.n_fft)])
+    return (
+        torch.from_numpy(windows.astype(np.float32)).to(device),
+        torch.from_numpy(_twiddles(cfg.n_fft)).to(device),
+    )
+
+
+def spectral_contrast_fft_reference(
+    waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig(use_spectral_contrast=True)
+) -> torch.Tensor:
+    """The contrast launch's FFT plan's arithmetic in plain torch ops: (B,
+    segment_samples) → (B, n_contrast_bands + 1, num_frames). Both windows
+    of each frame through one complex FFT of n_fft points, z = w_win x + i
+    w_nfft x, by the plan's Stockham stages and twiddle table
+    (`_stockham`); the two real spectra split by conjugate symmetry,
+    (Z[k] + conj Z[n - k]) / 2 the power's and |Z[k] - conj Z[n - k]| / 2
+    the magnitude; the tails by stable rank, an exact selection as the
+    kernel's sort is (the sums' order differs). For tests and
+    chip_smoke.py; nothing on the main path calls it."""
+    _check_contrast(cfg, waves.shape[-1])
+    windows, tw = _contrast_fft_constants(cfg, waves.device)
+    frames = frame_signal(waves, cfg.n_fft, cfg.hop_length)
+    re, im = _stockham(frames * windows[0], frames * windows[1], tw, cfg.n_fft)
+    n = cfg.n_fft
+    bins = torch.arange(n // 2 + 1, device=waves.device)
+    c = (n - bins) % n
+    ar, ai = 0.5 * (re[..., bins] + re[..., c]), 0.5 * (im[..., bins] - im[..., c])
+    dr, di = 0.5 * (re[..., bins] - re[..., c]), 0.5 * (im[..., bins] + im[..., c])
+    return contrast_from_spectra(ar * ar + ai * ai, torch.sqrt(dr * dr + di * di), cfg, tails="rank").transpose(1, 2)
+
+
 def spectral_contrast_fused(
     waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig(use_spectral_contrast=True)
 ) -> torch.Tensor:
@@ -674,19 +952,31 @@ def spectral_contrast_fused(
     if b == 0:
         return out
     g = _geometry(cfg)
-    k = _contrast_constants(cfg, waves.device)
-    scratch = None
-    if contrast_level(cfg) == 3:  # the power rows in device memory, 128 a clip
-        scratch = torch.empty((b, _ROWS_A, g.n_pow), dtype=torch.float32, device=waves.device)
+    level = contrast_level(cfg)
     lib = build()
+    stream = torch.cuda.current_stream(waves.device).cuda_stream
+    half_sr = float(cfg.sample_rate / 2.0)
     with torch.cuda.device(waves.device):
-        err = lib.cdt_frontend_contrast(
-            waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
-            g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs,
-            k.freqs.data_ptr(), float(cfg.sample_rate / 2.0), k.bands.data_ptr(),
-            cfg.n_contrast_bands, None if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
+        if level >= CONTRAST_FFT:
+            windows, tw = _contrast_fft_constants(cfg, waves.device)
+            freqs, bands = _centroid_and_bands(cfg, waves.device)
+            err = lib.cdt_frontend_contrast_fft(
+                waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
+                windows.data_ptr(), tw.data_ptr(), g.pow_lo, g.n_pow, freqs.data_ptr(), half_sr,
+                bands.data_ptr(), cfg.n_contrast_bands, out.data_ptr(), stream,
+            )
+        else:
+            k = _contrast_constants(cfg, waves.device)
+            scratch = None
+            if level == 3:  # the power rows in device memory, 128 a clip
+                scratch = torch.empty((b, _ROWS_A, g.n_pow), dtype=torch.float32, device=waves.device)
+            err = lib.cdt_frontend_contrast(
+                waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
+                g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs,
+                k.freqs.data_ptr(), half_sr, k.bands.data_ptr(),
+                cfg.n_contrast_bands, None if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), stream,
+            )
     _raise_on(err, lib, "contrast")
     CONTRAST_LAUNCHES += 1
     return out

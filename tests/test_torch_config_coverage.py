@@ -4,9 +4,11 @@ card route, on the CPU.
 The JAX launcher (cough_detector_tpu/ops/pallas/frontend_kernel.py) runs
 its kernel for every config with MFCCs at segment length, and appends the
 contrast rows for a contrast config. The port's three launches take the
-same set: more than 128 mels in mel groups, n_fft 2048 with the waveform
-gathered from device memory, clips past 4 s over a thread-block cluster
-(or in device memory past 8 blocks), a hop of 4, and any contrast bands.
+same set: more than 128 mels and a power-of-two n_fft from 1024 on by
+FFT (launches A and C's FFT plans), a non-power-of-two n_fft past shared
+memory with the waveform gathered from device memory, clips past 4 s over
+a thread-block cluster (or in device memory past 8 blocks), a hop of 4,
+and any contrast bands.
 The kernels run only on the card (chip_smoke.py holds them there); here
 the same numpy inputs go through the port's card route with device="cpu"
 (the launches' plain versions) and through the JAX package, and the
@@ -32,7 +34,6 @@ from cough_detector_tpu.ops.pallas import frontend_kernel as jax_kernel
 from cough_detector_tpu_torch.config import FeatureConfig
 from cough_detector_tpu_torch.ops import frontend, frontend_kernel
 from test_torch_frontend import _rel
-from test_torch_models import one_torch_thread  # noqa: F401
 
 TOL = 1e-3
 CONTRAST = dict(use_spectral_contrast=True)
@@ -49,34 +50,45 @@ CONFIGS = {
     "nfft2048_contrast": dict(NFFT2048, **CONTRAST),
     "bands17": dict(n_contrast_bands=17, **CONTRAST),
 }
-# Configs chip_smoke.py adds for the plans no config above reaches.
+# Configs chip_smoke.py adds for the plans no config above reaches: since
+# the FFT plans took the power-of-two n_fft, the GEMM plans' span from
+# device memory (launch A unstaged, the contrast launch's levels 1 and 3)
+# is reached by an n_fft that is not a power of two; the contrast launch's
+# FFT plan puts its rows in the output past shared memory (6001 frames).
 EXTRA = {
     "clip60s_128_all_flags": dict(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
                                   use_pre_emphasis=True, use_delta_delta=True, **CONTRAST),
     "hop4_contrast": dict(hop_length=4, **CONTRAST),
     "nfft4096_contrast": dict(n_fft=4096, win_length=4096, hop_length=1024, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft2000_contrast": dict(n_fft=2000, win_length=2000, hop_length=500, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft3000_contrast": dict(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0, **CONTRAST),
+    "clip30s_nfft1024_contrast": dict(n_fft=1024, hop_length=80, segment_duration=30.0, **CONTRAST),
 }
 JNP = ("clip10s", "hop4")  # too long in interpret mode: the JAX jnp chain instead
 
 # What the card's library returned for each config (chip_smoke.py's
 # every-config checks, NVIDIA H100 80GB HBM3): launch A's shared memory and
-# whether it stages its span; launch B's shared memory a block and its
-# blocks a clip (0: device memory); the contrast launch's shared memory and
-# LayoutC level.
+# its plan (0 the GEMM with its span from device memory, 1 staged, 2 the
+# FFT); launch B's shared memory a block and its blocks a clip (0: device
+# memory); the contrast launch's shared memory and plan (LayoutC's level
+# 0-3, 4 the FFT, 5 the FFT with the rows in the output).
 PLANS_ON_CARD = {
-    "mels160": (118096, 1, 75008, 1, None, None),
-    "mels256": (118096, 1, 119936, 1, None, None),
-    "nfft2048": (32816, 0, 24704, 1, None, None),
-    "librosa22k": (32816, 0, 30848, 1, None, None),
+    "mels160": (89480, 2, 75008, 1, None, None),
+    "mels256": (89480, 2, 119936, 1, None, None),
+    "nfft2048": (96264, 2, 24704, 1, None, None),
+    "librosa22k": (96264, 2, 30848, 1, None, None),
     "clip5s_128": (118096, 1, 136832, 2, None, None),
     "clip10s": (118096, 1, 132480, 2, None, None),
     "hop4": (36464, 1, 209280, 5, None, None),
-    "nfft1024_contrast": (170096, 1, 40576, 1, 141664, 1),
-    "nfft2048_contrast": (32816, 0, 24704, 1, 227824, 1),
+    "nfft1024_contrast": (89096, 2, 40576, 1, 89432, 4),
+    "nfft2048_contrast": (96264, 2, 24704, 1, 95096, 4),
     "bands17": (118096, 1, 30080, 1, 221840, 0),
     "clip60s_128_all_flags": (118096, 1, 128, 0, 91760, 2),
     "hop4_contrast": (36464, 1, 209280, 5, 207888, 0),
-    "nfft4096_contrast": (32816, 0, 16512, 1, 32880, 3),
+    "nfft4096_contrast": (110600, 2, 16512, 1, 108424, 4),
+    "nfft2000_contrast": (32816, 0, 25216, 1, 224272, 1),
+    "nfft3000_contrast": (32816, 0, 19584, 1, 32880, 3),
+    "clip30s_nfft1024_contrast": (78536, 2, 223872, 7, 82728, 5),
 }
 SMEM = 232448  # bytes of shared memory a block may use on sm_90
 
@@ -97,6 +109,16 @@ def _waves(cfg: FeatureConfig, n: int, seed: int) -> np.ndarray:
 
 def _launches() -> tuple:
     return tuple(getattr(frontend_kernel, c) for c in frontend_kernel.LAUNCH_COUNTERS)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small tensors: one intra-op thread for the module (its module-scoped
+    work included), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -139,10 +161,10 @@ def test_plans_match_the_card(name):
     """Each launch's shared memory and plan, from the Python mirrors,
     equal what the card's library returned; each fits a block."""
     cfg = _cfg(name)
-    kpad = frontend_kernel._support(cfg)[2]
+    base = dataclasses.replace(cfg, use_spectral_contrast=False)
     got = (
-        frontend_kernel.spectral_smem_bytes(cfg.hop_length, kpad),
-        int(frontend_kernel.spectral_staged(cfg.hop_length, kpad)),
+        frontend_kernel.spectral_smem_bytes(base),
+        frontend_kernel.spectral_plan(base),
         frontend_kernel.epilogue_smem_bytes(cfg),
         frontend_kernel.epilogue_blocks(cfg),
     )

@@ -29,7 +29,6 @@ from cough_detector_tpu.ops.pallas.frontend_kernel import (
 from cough_detector_tpu_torch.config import FeatureConfig
 from cough_detector_tpu_torch.ops import frontend_kernel
 from test_torch_frontend import _rel
-from test_torch_models import one_torch_thread  # noqa: F401
 
 TOL = 1e-3
 CONFIGS = {
@@ -40,12 +39,24 @@ CONFIGS = {
     "bands_4": dict(n_contrast_bands=4),
     "bands_8": dict(n_contrast_bands=8),
 }
-# What cdt_frontend_smem_c returned on the card for each config (an NVIDIA
-# H100's run of chip_smoke.py phase 3); the Python mirror must equal it.
+# What cdt_frontend_smem_c and cdt_frontend_plan_c returned on the card for
+# each config (an NVIDIA H100's run of chip_smoke.py phase 3); the Python
+# mirrors must equal them. n_fft 1024 takes the FFT plan (4).
 SMEM_ON_CARD = {
     "contrast": 180528, "all_flags": 180528, "n_fft_256": 114784,
-    "n_fft_1024": 230624, "bands_4": 163344, "bands_8": 192608,
+    "n_fft_1024": 87800, "bands_4": 163344, "bands_8": 192608,
 }
+PLAN_ON_CARD = {"contrast": 0, "all_flags": 0, "n_fft_256": 0, "n_fft_1024": 4, "bands_4": 0, "bands_8": 0}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small tensors: one intra-op thread for the module (its module-scoped
+    JAX rows and waves included), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(name: str) -> FeatureConfig:
@@ -192,16 +203,18 @@ def test_geometry_of_the_shipped_bands():
 def test_smem_mirror_and_grid(name):
     cfg = _cfg(name)
     assert frontend_kernel.contrast_smem_bytes(cfg) == SMEM_ON_CARD[name]
-    # One block a clip, looping over its row tiles (2 at 201 frames), all in
-    # shared memory (level 0).
-    assert frontend_kernel.contrast_level(cfg) == 0
+    # One block a clip, looping over its row tiles (2 at 201 frames) or its
+    # FFT plan's frame groups, all in shared memory (level 0, plan 4).
+    assert frontend_kernel.contrast_level(cfg) == PLAN_ON_CARD[name]
 
 
 @pytest.mark.parametrize("kw, level", [
-    ({}, 0), (dict(n_fft=1024), 0), (dict(n_contrast_bands=16), 0),
+    ({}, 0), (dict(n_fft=1024), 4), (dict(n_contrast_bands=16), 0),
     (dict(n_contrast_bands=17), 0),  # the bands are read from device memory
-    (dict(n_fft=2048), 1),           # a band of 239 bins; the span past shared memory
-    (dict(n_fft=1024, n_contrast_bands=8), 1),  # 254,992 bytes if the span were staged
+    (dict(n_fft=2048), 4),           # a band of 239 bins, by FFT
+    (dict(n_fft=1024, n_contrast_bands=8), 4),  # by FFT (the GEMM's span would pass shared memory)
+    (dict(n_fft=2000, win_length=2000, hop_length=500), 1),  # the GEMM's span past shared memory
+    (dict(n_fft=3000, win_length=3000, hop_length=750), 3),  # and its power rows too
 ])
 def test_card_route_on_contrast_configs(kw, level):
     """The card route takes every contrast config the JAX launcher's hybrid

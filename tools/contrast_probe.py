@@ -16,9 +16,18 @@ into build/kernels/ (all builds run at once):
     never restarted), which measures a pass's share.
 Each --baseline is another copy of the source (the same C interface for
 launch C) timed in turns with this one: the baselines, as built, the
-variants, as built, the baselines. Prints the card's name and power limit
-first, and each build's max-relative deviation from the plain version.
-Needs a CUDA card and nvcc; imports no JAX.
+variants, as built, the baselines.
+
+Then launch C's FFT plan (contrast_fft_kernel) at B = 1024 on n_fft 2048
+and 4096 with contrast (hop n_fft / 4, 6 bands; the frames of 64 clips
+repeated), as built and in variants that split its time:
+  - ranked tails: the bands' tails by stable rank (band_value, the GEMM
+    plan's) instead of the sort in registers;
+  - no band tails: each (frame, band)'s row takes one power value;
+  - no FFT stages; no staging (the span left as it was).
+Prints the card's name and power limit first, and each build's
+max-relative deviation from the plain version (the variants' rows are
+wrong by design). Needs a CUDA card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -43,15 +52,18 @@ from cough_detector_tpu_torch.utils import kernel_build  # noqa: E402
 ITERS = {1024: 20, 4096: 10}
 
 BANDS = (
-    "        if (w > 96)\n"
-    "          v = band_contrast<4>(pb, w, nt, nb, lane);\n"
-    "        else if (w > 64)\n"
-    "          v = band_contrast<3>(pb, w, nt, nb, lane);\n"
-    "        else if (w > 32)\n"
-    "          v = band_contrast<2>(pb, w, nt, nb, lane);\n"
-    "        else if (w > 1)\n"
-    "          v = band_contrast<1>(pb, w, nt, nb, lane);\n"
+    "  if (w > 96) return band_contrast<4>(pb, w, nt, nb, lane);\n"
+    "  if (w > 64) return band_contrast<3>(pb, w, nt, nb, lane);\n"
+    "  if (w > 32) return band_contrast<2>(pb, w, nt, nb, lane);\n"
+    "  if (w > 1) return band_contrast<1>(pb, w, nt, nb, lane);\n"
 )
+GEMM_TAILS = "        const float v = band_value(pw + r * n_pow, __ldg(bands + i), lane);\n"
+FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands + i), lane);\n"
+FFT_CONFIGS = {
+    n_fft: FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
+                         use_spectral_contrast=True)
+    for n_fft in (2048, 4096)
+}
 
 
 def edit(src: str, old: str, new: str) -> str:
@@ -64,9 +76,13 @@ def variants(src: str) -> dict:
     one_pass = edit(src, "ring.n = n_passes * n_ksteps;", "ring.n = n_ksteps;")
     return {
         "as built": src,
-        "4 bins a lane": edit(src, BANDS, "        if (w > 1) v = band_contrast<4>(pb, w, nt, nb, lane);\n"),
-        "no band tails": edit(src, BANDS, '        asm volatile("" ::"l"(pb), "r"(w + nt + nb + lane));\n'),
+        "4 bins a lane": edit(src, BANDS, "  if (w > 1) return band_contrast<4>(pb, w, nt, nb, lane);\n"),
+        "no band tails": edit(src, GEMM_TAILS, "        const float v = pw[r * n_pow + lane];\n"),
         "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
+        "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
+        "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
+        "FFT plan, no FFT stages": edit(src, "    fft_rows(buf, F, log2n, n_fft, tw);\n", ""),
+        "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
     }
 
 
@@ -85,6 +101,7 @@ def build_all(sources: dict) -> dict:
         handle.cdt_frontend_contrast.argtypes = [
             p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
         ]
+        handle.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i, p, p]
         return name, handle
 
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -116,8 +133,8 @@ def main() -> None:
     k = frontend_kernel._contrast_constants(cfg, dev)
     n = cfg.n_contrast_bands
     rng = np.random.default_rng(0)
-    order = baselines + ["as built"] + [v for v in libs if v not in baselines and v != "as built"]
-    order += ["as built"] + baselines
+    gemm = [v for v in libs if v not in baselines and v != "as built" and not v.startswith("FFT plan")]
+    order = baselines + ["as built"] + gemm + ["as built"] + baselines
     for b, iters in ITERS.items():
         w = torch.from_numpy((rng.standard_normal((b, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
         out = torch.empty((b, n + 1, cfg.num_frames), device=dev)
@@ -147,6 +164,49 @@ def main() -> None:
             torch.cuda.synchronize()
             print(
                 f"contrast launch B={b}, shipped + contrast, {name}: {start.elapsed_time(end) / iters:.4f} ms, "
+                f"max-relative vs plain {err:.2e}",
+                flush=True,
+            )
+    fft_section(libs, rng, dev)
+
+
+def fft_section(libs: dict, rng: np.random.Generator, dev: torch.device) -> None:
+    """The FFT plan as built and its variants, in turns, at B = 1024."""
+    names = ["as built"] + [v for v in libs if v.startswith("FFT plan")] + ["as built"]
+    for n_fft, cfg in FFT_CONFIGS.items():
+        g = frontend_kernel._geometry(cfg)
+        windows, tw = frontend_kernel._contrast_fft_constants(cfg, dev)
+        freqs, bands = frontend_kernel._centroid_and_bands(cfg, dev)
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        out = torch.empty((1024, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        for name in names:
+            lib = libs[name]
+
+            def launch() -> None:
+                err = lib.cdt_frontend_contrast_fft(
+                    w.data_ptr(), 1024, cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
+                    windows.data_ptr(), tw.data_ptr(), g.pow_lo, g.n_pow, freqs.data_ptr(),
+                    float(cfg.sample_rate / 2.0), bands.data_ptr(), cfg.n_contrast_bands, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream,
+                )
+                if err:
+                    raise RuntimeError(f"launch failed: cudaError {err}")
+
+            for _ in range(3):
+                launch()
+            torch.cuda.synchronize()
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            print(
+                f"contrast launch B=1024, n_fft {n_fft} + contrast (widest band {max(g.widths)} bins), "
+                f"{'FFT plan as built' if name == 'as built' else name}: {start.elapsed_time(end) / 10:.4f} ms, "
                 f"max-relative vs plain {err:.2e}",
                 flush=True,
             )

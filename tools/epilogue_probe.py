@@ -145,7 +145,7 @@ def main() -> None:
         mel = frontend_kernel.power_mel_fused(w.to(dev), cfg)
         out = torch.empty((BATCH, cfg.num_features, cfg.num_frames), device=dev)
         want = frontend_kernel.mel_epilogue_reference(mel, cfg)
-        dct = frontend_kernel._constants(cfg, dev).dct
+        dct = frontend_kernel._dct(cfg.n_mfcc, cfg.n_mels, dev)
         nbytes = 4 * BATCH * (cfg.n_mels + cfg.num_features) * cfg.num_frames
         return mel, out, want, dct, nbytes
 

@@ -21,8 +21,17 @@ warps on each SM, operands from registers and shared memory that never
 change, the three-term pattern: wgmma m64n256k8 .tf32 (the DFT's, two
 warpgroups, one group in flight) and mma.sync m16n8k8 .tf32 (the mel's,
 each warp a 4 x 8 tile). Their rates are the ceilings of the kernel's
-MMAs. Prints the card's name and power limit first. Needs a CUDA card and
-nvcc; imports no JAX.
+MMAs.
+
+Then launch A's FFT plan (spectral_fft_kernel) at B = 1024 on n_fft 2048
+(hop 512, 128 mels, f_max 8 kHz; the frames of 64 clips repeated), as
+built and in variants that split its time: no waveform staging, no FFT
+stages, no power and mel (the post-twiddle, the power and the mel left
+out; a frame's first point written instead). And the FFT plan on the
+shipped config at B = 4096 beside its GEMM plan, each called through its
+C function directly, in turns: for the record, since the shipped config
+keeps the GEMM (spectral_plan). All builds run at once. Prints the card's
+name and power limit first. Needs a CUDA card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -162,6 +172,21 @@ def edit(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
+def fft_variants(src: str) -> dict:
+    """Launch A's FFT plan as built and with a part of it left out."""
+    start = src.index("  // 4. The real FFT's bins [0, n_used)")
+    end_text = "    mel_out[((size_t)b * n_mels + mel) * n_frames + t0 + f] = acc;\n  }\n"
+    stop = src.index(end_text, start) + len(end_text)
+    return {
+        "FFT plan as built": src,
+        "FFT plan, no staging": edit(src, "stage_flat(span, src, (F - 1) * hop + n_fft);", ""),
+        "FFT plan, no FFT stages": edit(src, "  fft_rows(buf, F, log2m, n_fft, tw);\n", ""),
+        "FFT plan, no power and mel": src[:start] + (
+            "  if (tid < frames) mel_out[(size_t)b * n_mels * n_frames + t0 + tid] = buf[tid << log2m].x;\n"
+        ) + src[stop:],
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -214,6 +239,13 @@ def main() -> None:
         ),
     }
 
+    variants.update(fft_variants(src))
+    with ThreadPoolExecutor(len(variants) + 1) as pool:
+        built = {name: pool.submit(build, f"spectral_probe_{n}", text) for n, (name, text) in enumerate(variants.items())}
+        mma = pool.submit(build, "mma_tf32_probe", wgmma_macro() + MMA_BENCH)
+        libs = {name: f.result() for name, f in built.items()}
+        mma_lib = mma.result()
+
     cfg = FeatureConfig()
     dev = torch.device("cuda")
     k = frontend_kernel._constants(cfg, dev)
@@ -244,13 +276,15 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / ITERS
 
-    for n, (name, text) in enumerate(variants.items()):
-        lib = build(f"spectral_probe_{n}", text)
+    for name, lib in libs.items():
         lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p]
+        lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
+        if name.startswith("FFT plan"):
+            continue
         for kpad in ([k.kpad, 16] if name == "as built" else [k.kpad]):
             print(f"spectral launch B={BATCH}, {name}, kpad={kpad}: {time_variant(lib, kpad):.4f} ms", flush=True)
 
-    lib = build("mma_tf32_probe", wgmma_macro() + MMA_BENCH)
+    lib = mma_lib
     ms, iters = ctypes.c_float(), 3000
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if lib.run_wgmma(sms, iters, ctypes.byref(ms)):
@@ -267,6 +301,75 @@ def main() -> None:
     print(
         f"mma.sync m16n8k8 tf32 alone (8 warps x {sms} SMs, 4x8 tile, three terms): "
         f"{ms.value:.3f} ms, {flops / ms.value / 1e9:.1f} TFLOP/s",
+        flush=True,
+    )
+    fft_section(libs, rng, dev)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, mel: torch.Tensor):
+    k = frontend_kernel._fft_constants(cfg, w.device)
+
+    def launch() -> None:
+        err = lib.cdt_frontend_spectral_fft(
+            w.data_ptr(), w.shape[0], w.shape[1], cfg.num_frames, cfg.n_fft, cfg.hop_length,
+            k.window.data_ptr(), k.twiddles.data_ptr(), k.n_used, k.fb_w.data_ptr(), k.fb_ranges.data_ptr(),
+            cfg.n_mels, 0, 0.0, mel.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    return launch
+
+
+def fft_section(libs: dict, rng: np.random.Generator, dev: torch.device) -> None:
+    """The FFT plan's parts at B = 1024 on n_fft 2048, then the FFT plan
+    on the shipped config beside its GEMM plan at B = 4096, in turns."""
+    cfg = FeatureConfig(n_fft=2048, win_length=2048, hop_length=512, n_mels=128, f_max=8000.0)
+    w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+    w = w.repeat(16, 1)
+    mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+    want = frontend_kernel.power_mel_reference(w, cfg)
+    for name in [n for n in libs if n.startswith("FFT plan")] + ["FFT plan as built"]:
+        launch = fft_launch(libs[name], w, cfg, mel)
+        t = cuda_ms(launch, 20)
+        err = ((mel - want).abs().max() / want.abs().max()).item()
+        print(f"spectral launch B=1024, n_fft 2048, {name}: {t:.4f} ms, max-relative vs plain {err:.2e}", flush=True)
+
+    shipped = FeatureConfig()
+    k = frontend_kernel._constants(shipped, dev)
+    w = torch.from_numpy((rng.standard_normal((BATCH, shipped.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+    mel = torch.empty((BATCH, shipped.n_mels, shipped.num_frames), device=dev)
+    lib = libs["as built"]
+
+    def gemm() -> None:
+        err = lib.cdt_frontend_spectral(
+            w.data_ptr(), BATCH, shipped.segment_samples, shipped.num_frames, shipped.n_fft, shipped.hop_length,
+            k.j0, k.kpad, k.table.data_ptr(), k.n_bins, shipped.n_mels, k.mel_tiles, k.n_groups, 0, 0.0,
+            mel.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    fft = fft_launch(lib, w, shipped, mel)
+    times = {"GEMM plan": [], "FFT plan": []}
+    for name, fn in (("GEMM plan", gemm), ("FFT plan", fft), ("FFT plan", fft), ("GEMM plan", gemm)):
+        times[name].append(cuda_ms(fn, ITERS))
+    print(
+        f"spectral launch B={BATCH}, shipped config (plan {frontend_kernel.spectral_plan(shipped)}: the GEMM staged), "
+        f"through each plan's C function in turns: " + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items()),
         flush=True,
     )
 
