@@ -37,9 +37,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      2048 at 16 and 22.05 kHz, 5 and 10 s clips, a hop of 4, n_fft 1024
      and 2048 with contrast, 17 bands; each at B = 17 and 256; and at
      B = 17 a 60 s clip with every flag, contrast at a hop of 4, at n_fft
-     4096, 2000 and 3000 and on 30 s clips at n_fft 1024, for the plans no
+     4096, 2000 and 3000, and 256 mels at n_fft 768, for the plans no
      other config reaches) through
-     extract_features_fast: every launch it needs once a call, the
+     extract_features_fast: every launch it needs once a call (the FFT
+     plans' kernels counted on their own too), the
      features within 1e-3 of the plain versions and of the torch chain,
      each launch alone within 1e-3 of its plain version and of the CPU
      model of its plan (FFT_TOL for the FFT plans' models, SPLIT_TOL for
@@ -59,10 +60,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      B = 256 also each launch's device time from torch.profiler
      (back-to-back calls of a launch this short time the host's
      dispatch); the spectral and epilogue launches at B = 1024 on 256
-     mels (both of launch A's plans), n_fft 2048 at 16 and 22.05 kHz,
-     n_fft 1024 and 10 s clips, the contrast launch's FFT plan on n_fft
-     2048 with contrast, each beside its bound, its plain version and
-     torch.stft + mel (the fft rows for contrast); the epilogue launch
+     mels and n_fft 1024 (both of launch A's plans), n_fft 2048 at 16 and
+     22.05 kHz, 10 s clips, n_fft 2000 and 256 mels at n_fft 768 (the
+     GEMM), the contrast launch on n_fft 1024 (both plans), 2048, 4096
+     (the FFT) and 2000 (the GEMM), each beside its bound, its plain
+     version and torch.stft + mel (the fft rows for contrast); the epilogue launch
      at B = 4096 at n_fft 256 and with PCEN, beside its bound; the contrast
      launch at B = 256, 1024 and 4096 (device time at 256 and 1024)
      beside its bound (an FFT of each window at the FP32 CUDA-core peak,
@@ -3204,9 +3206,9 @@ def coverage_configs() -> dict:
     hop of 4; its FFT plan at n_fft 4096 (458-bin bands); and, at an n_fft
     that is not a power of two, the GEMM plans' spans from device memory:
     launch A unstaged with the contrast launch's level 1 (n_fft 2000), and
-    with its level 3, its power rows in device memory (n_fft 3000); and the
-    contrast launch's FFT plan with its rows in the output (30 s clips at
-    hop 80, 6001 frames)."""
+    with its level 3, its power rows in device memory (n_fft 3000); and
+    launch A's GEMM plan over two mel groups, its span staged (n_fft 768,
+    256 mels)."""
     from cough_detector_tpu_torch.config import FeatureConfig
 
     both, one = (17, 256), (17,)
@@ -3234,8 +3236,7 @@ def coverage_configs() -> dict:
                                             use_spectral_contrast=True), one),
         "nfft3000_contrast": (FeatureConfig(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
-        "clip30s_nfft1024_contrast": (FeatureConfig(n_fft=1024, hop_length=80, segment_duration=30.0,
-                                                    use_spectral_contrast=True), one),
+        "nfft768_mels256": (FeatureConfig(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0), one),
     }
 
 
@@ -3249,7 +3250,7 @@ def spectral_model(fk, w: torch.Tensor, cfg) -> tuple:
 
 def contrast_model(fk, w: torch.Tensor, cfg) -> tuple:
     """The same for the contrast launch."""
-    if fk.contrast_level(cfg) >= fk.CONTRAST_FFT:
+    if fk.contrast_level(cfg) == fk.CONTRAST_FFT:
         return fk.spectral_contrast_fft_reference(w, cfg), FFT_TOL, "FFT model"
     return fk.spectral_contrast_split_reference(w, cfg), SPLIT_TOL, "3xTF32 model"
 
@@ -3257,13 +3258,14 @@ def contrast_model(fk, w: torch.Tensor, cfg) -> tuple:
 def plan_name(fk, part: str, cfg) -> str:
     if part == "spectral":
         return "fft" if fk.spectral_plan(cfg) == fk.PLAN_FFT else "gemm"
-    return "fft" if fk.contrast_level(cfg) >= fk.CONTRAST_FFT else "gemm"
+    return "fft" if fk.contrast_level(cfg) == fk.CONTRAST_FFT else "gemm"
 
 
 def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     """Phase 3's every-config checks (budget 15 s, seconds printed): each
     config of coverage_configs through extract_features_fast on the card,
-    every launch it needs once a call (counted from 0 around the call), its
+    every launch it needs once a call (counted around the call, the FFT
+    plans' kernels by their own counters too, fk.PLAN_COUNTERS), its
     features within 1e-3 of the plain versions and of the torch chain; each
     launch alone against its plain version (1e-3) and the CPU model of its
     plan (FFT_TOL for the FFT plans, SPLIT_TOL for the 3xTF32 GEMM); each
@@ -3282,11 +3284,11 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     lib = fk.build()
     counters = fk.LAUNCH_COUNTERS
 
-    def counts() -> tuple:
-        return tuple(getattr(fk, c) for c in counters)
+    def counts(names=counters) -> tuple:
+        return tuple(getattr(fk, c) for c in names)
 
     def zero() -> None:
-        for c in counters:
+        for c in counters + fk.PLAN_COUNTERS:
             setattr(fk, c, 0)
 
     # Keyed by launch and plan: "spectral" (the GEMM) and "spectral_fft".
@@ -3317,12 +3319,15 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
                 "epilogue": "epilogue",
                 "contrast": "contrast" + ("_fft" if cfg.use_spectral_contrast and plan_name(fk, "contrast", cfg) == "fft" else "")}
         want_moved = (1, 1, int(cfg.use_spectral_contrast))
+        # The FFT plans' kernels among them (fk.PLAN_COUNTERS).
+        want_fft = (int(keys["spectral"] == "spectral_fft"), int(keys["contrast"] == "contrast_fft"))
         for b in batches:
             w = make_audio_bulk(rng, b, cfg.segment_samples, dev)
-            before = counts()
+            before, before_fft = counts(), counts(fk.PLAN_COUNTERS)
             got = frontend.extract_features_fast(w, cfg)
             torch.cuda.synchronize()
             moved = tuple(x - y for x, y in zip(counts(), before))
+            moved_fft = tuple(x - y for x, y in zip(counts(fk.PLAN_COUNTERS), before_fft))
             mel_want = fk.power_mel_reference(w, base)
             plain = fk.mel_epilogue_reference(mel_want, base)
             if cfg.use_spectral_contrast:
@@ -3348,20 +3353,22 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
                     limits[f"{part} vs {label}"] = tol
                     model_err[keys[part]] = max(model_err[keys[part]], errs[f"{part} vs {label}"])
             ok = (
-                moved == want_moved and got.shape == (b, cfg.num_features, t) and bool(torch.isfinite(got).all())
-                and all(v <= limits.get(k, TOL) for k, v in errs.items())
+                moved == want_moved and moved_fft == want_fft and got.shape == (b, cfg.num_features, t)
+                and bool(torch.isfinite(got).all()) and all(v <= limits.get(k, TOL) for k, v in errs.items())
             )
             print(
-                f"[{smi}] config {name} B={b}: launches a call {dict(zip(counters, moved))}; max-relative "
+                f"[{smi}] config {name} B={b}: launches a call "
+                f"{dict(zip(counters + fk.PLAN_COUNTERS, moved + moved_fft))}; max-relative "
                 + ", ".join(f"{k} {v:.3e}" + (f" (limit {limits[k]:g})" if k in limits else "") for k, v in errs.items())
                 + f"; plans {mirrors}; {time.perf_counter() - t_cfg:.3f} s into the config",
                 flush=True,
             )
             if not ok:
-                fail(f"config {name} B={b}: launches {moved} (want {want_moved}) or errors {errs} off")
+                fail(f"config {name} B={b}: launches {moved} (want {want_moved}), FFT plans' {moved_fft} (want "
+                     f"{want_fft}) or errors {errs} off")
             launches[(name, b)] = moved
 
-    # The main path on two of them at full width, through a captured program.
+    # The main path on four of them at full width, through a captured program.
     torch.manual_seed(SEED)
     model = create_model("residual")
     if count_parameters(model) != 290370:
@@ -3381,10 +3388,10 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             for _ in range(3):  # one eager call (and the capture), two replays
                 (logits,) = progs(name, score, {"waves": w})
             torch.cuda.synchronize()
-            counted = counts()
+            counted, counted_fft = counts(), counts(fk.PLAN_COUNTERS)
             eager = model(frontend.extract_features_fast(w, cfg, device=dev))
         err = rel_err(logits, eager)
-        main_path[name] = dict(zip(counters, counted))
+        main_path[name] = dict(zip(counters + fk.PLAN_COUNTERS, counted + counted_fft))
         print(
             f"[{smi}] main path {name}: residual logits (256, {cfg.num_features}, {cfg.num_frames}) features through "
             f"a captured program, 1 eager call + {progs.replays()[name]} replays: launches {main_path[name]}; logits "
@@ -3392,8 +3399,13 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             flush=True,
         )
         want = (3, 3, 3 if cfg.use_spectral_contrast else 0)
-        if counted != want or progs.replays()[name] != 2 or not err <= TOL or not bool(torch.isfinite(logits).all()):
-            fail(f"the main path on {name}: launches {counted} (want {want}), logits vs eager {err:.3e}")
+        base = dataclasses.replace(cfg, use_spectral_contrast=False)
+        want_fft = (3 * (plan_name(fk, "spectral", base) == "fft"),
+                    3 * (cfg.use_spectral_contrast and plan_name(fk, "contrast", cfg) == "fft"))
+        if (counted != want or counted_fft != want_fft or progs.replays()[name] != 2 or not err <= TOL
+                or not bool(torch.isfinite(logits).all())):
+            fail(f"the main path on {name}: launches {counted} (want {want}), FFT plans' {counted_fft} (want "
+                 f"{want_fft}), logits vs eager {err:.3e}")
     print(f"every-config checks: {time.perf_counter() - t_phase:.3f} s (budget 15 s)", flush=True)
     return dict(max_abs=max_abs, model_err=model_err, launches=launches, main_path=main_path, plans=plans)
 
@@ -3573,7 +3585,7 @@ def main() -> None:
         model, model_tol, label = contrast_model(frontend_kernel, w, cfg)
         split = rel_err(got, model)
         one_pass = rel_err(got, frontend_kernel.spectral_contrast_split_reference(w, cfg, passes=1))
-        fft = plan[0] >= frontend_kernel.CONTRAST_FFT
+        fft = plan[0] == frontend_kernel.CONTRAST_FFT
         key = "contrast_fft" if fft else "contrast"
         max_abs[key] = max(max_abs[key], (got - want).abs().max().item())
         if not fft:
@@ -3744,19 +3756,22 @@ def main() -> None:
     # chain, beside its bound and torch.stft + mel (the spectral launch's
     # library yardstick), its plain version and, for the contrast launch,
     # the fft rows: launch A's FFT plan on n_fft 2048 at 16 and 22.05 kHz
-    # and on n_fft 1024 (nfft1024_contrast's base), 10 s clips (the GEMM),
-    # and the contrast launch's FFT plan on n_fft 1024, 2048 and 4096. Where the
-    # FFT plan's threshold and its 128-mel rule are set (n_fft 1024 and
-    # 2048, 256 mels; every contrast config here), the GEMM plan too,
-    # called through its C function.
+    # and on n_fft 1024 (nfft1024_contrast's base), its GEMM plan on 10 s
+    # clips, on n_fft 2000 (the span from device memory) and over two mel
+    # groups (n_fft 768, 256 mels); the contrast launch's FFT plan on n_fft
+    # 1024, 2048 and 4096, its GEMM plan on n_fft 2000. Where the FFT plan's
+    # threshold and its 128-mel rule are set (n_fft 1024, 256 mels), the
+    # GEMM plan too, called through its C function.
     # A contrast config's pair is its base's: only its contrast launch is
     # timed.
     t0 = time.perf_counter()
     coverage_timing = {}
     covered_cfgs = dict(coverage_configs())
-    covered_cfgs["nfft1024"] = (dataclasses.replace(covered_cfgs["nfft1024_contrast"][0], use_spectral_contrast=False), ())
-    for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft1024_contrast", "nfft2048_contrast",
-                 "nfft4096_contrast"):
+    for name in ("nfft1024", "nfft2000"):
+        cfg = covered_cfgs[f"{name}_contrast"][0]
+        covered_cfgs[name] = (dataclasses.replace(cfg, use_spectral_contrast=False), ())
+    for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft2000", "nfft768_mels256",
+                 "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast"):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -3776,7 +3791,7 @@ def main() -> None:
             )
             if rows["spectral"]["plan"] == "gemm":
                 rows["spectral"]["gemm_ceiling_ms"] = spectral_gemm_ceiling_ms(base, 1024)
-            if name in ("mels256", "nfft1024", "nfft2048"):  # its GEMM plan too, through its C function
+            if name in ("mels256", "nfft1024"):  # its GEMM plan too, through its C function
                 k = frontend_kernel._constants(base, dev)
                 gemm_out = torch.empty_like(mel)
 
@@ -3810,26 +3825,27 @@ def main() -> None:
                 plan=plan_name(frontend_kernel, "contrast", cfg),
                 **bound(*contrast_work(cfg, 1024)),
             )
-            # Its GEMM plan too, through its C function (at LayoutC's level).
-            geo, kc = frontend_kernel._geometry(cfg), frontend_kernel._contrast_constants(cfg, dev)
-            gemm_level = frontend_kernel._contrast_gemm_plan(cfg)[0]
-            scratch = torch.empty((1024, 128, geo.n_pow), device=dev) if gemm_level == 3 else None
-            gemm_out = torch.empty_like(out)
+            if name == "nfft1024_contrast":
+                # Its GEMM plan too, through its C function (at LayoutC's level).
+                geo, kc = frontend_kernel._geometry(cfg), frontend_kernel._contrast_constants(cfg, dev)
+                gemm_level = frontend_kernel._contrast_gemm_plan(cfg)[0]
+                scratch = torch.empty((1024, 128, geo.n_pow), device=dev) if gemm_level == 3 else None
+                gemm_out = torch.empty_like(out)
 
-            def gemm_plan() -> None:
-                err = lib.cdt_frontend_contrast(
-                    w.data_ptr(), 1024, w.shape[1], cfg.num_frames, cfg.n_fft, cfg.hop_length, geo.j0, geo.kpad,
-                    kc.table.data_ptr(), geo.n_passes, geo.n_pow, geo.n_freqs, kc.freqs.data_ptr(),
-                    float(cfg.sample_rate / 2.0), kc.bands.data_ptr(), cfg.n_contrast_bands,
-                    None if scratch is None else scratch.data_ptr(), gemm_out.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream,
-                )
-                if err:
-                    fail(f"the contrast launch's GEMM plan failed on {name}: cudaError {err}")
+                def gemm_plan() -> None:
+                    err = lib.cdt_frontend_contrast(
+                        w.data_ptr(), 1024, w.shape[1], cfg.num_frames, cfg.n_fft, cfg.hop_length, geo.j0, geo.kpad,
+                        kc.table.data_ptr(), geo.n_passes, geo.n_pow, geo.n_freqs, kc.freqs.data_ptr(),
+                        float(cfg.sample_rate / 2.0), kc.bands.data_ptr(), cfg.n_contrast_bands,
+                        None if scratch is None else scratch.data_ptr(), gemm_out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream,
+                    )
+                    if err:
+                        fail(f"the contrast launch's GEMM plan failed on {name}: cudaError {err}")
 
-            rows["contrast"]["gemm_plan_ms"] = cuda_ms(gemm_plan, 3, warmup=1)
-            if not rel_err(gemm_out, out) <= TOL:
-                fail(f"the contrast launch's two plans disagree on {name}: {rel_err(gemm_out, out):.3e}")
+                rows["contrast"]["gemm_plan_ms"] = cuda_ms(gemm_plan, 3, warmup=1)
+                if not rel_err(gemm_out, out) <= TOL:
+                    fail(f"the contrast launch's two plans disagree on {name}: {rel_err(gemm_out, out):.3e}")
         coverage_timing[name] = rows
         for part, tm in rows.items():
             lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
@@ -4209,14 +4225,16 @@ def main() -> None:
                                      if n[2] and covered["plans"][name]["contrast level"] < 4},
         "coverage_max_abs_err": covered["max_abs"]["contrast"],
         "coverage_max_rel_vs_3xtf32_model": covered["model_err"]["contrast"],
+        "coverage_b1024": {name: rows["contrast"] for name, rows in coverage_timing.items()
+                           if "contrast" in rows and rows["contrast"]["plan"] == "gemm"},
     })
     # The FFT plans (spectral_fft_kernel, contrast_fft_kernel): their main
     # path is the captured one of phase 3 on n_fft 2048 (with contrast for
     # launch C), the counters set to 0 just before; their times phase 4's
     # at B = 1024 on that config.
     for part, cfg_name, launch_name, kernel, counter in (
-        ("spectral", "nfft2048", "frontend_spectral_fft", "spectral_fft_kernel", "SPECTRAL_LAUNCHES"),
-        ("contrast", "nfft2048_contrast", "frontend_contrast_fft", "contrast_fft_kernel", "CONTRAST_LAUNCHES"),
+        ("spectral", "nfft2048", "frontend_spectral_fft", "spectral_fft_kernel", "SPECTRAL_FFT_LAUNCHES"),
+        ("contrast", "nfft2048_contrast", "frontend_contrast_fft", "contrast_fft_kernel", "CONTRAST_FFT_LAUNCHES"),
     ):
         row = coverage_timing[cfg_name][part]
         kernels.append({
@@ -4236,7 +4254,7 @@ def main() -> None:
             "coverage_launches_a_call": {
                 f"{name} B={b}": n[0 if part == "spectral" else 2] for (name, b), n in covered["launches"].items()
                 if covered["plans"][name].get("spectral plan" if part == "spectral" else "contrast level", -1)
-                in ((2,) if part == "spectral" else (4, 5))
+                == (2 if part == "spectral" else 4)
             },
             "coverage_b1024": {name: rows[part] for name, rows in coverage_timing.items()
                                if part in rows and rows[part].get("plan") == "fft"},

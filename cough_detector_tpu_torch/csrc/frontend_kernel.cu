@@ -95,7 +95,11 @@
 // runs the shipped config in 1.73 ms at B = 4096 against this design's
 // 1.00, so the shipped config keeps it. On the FFT plans: fewer stages
 // (radix 8 and 16 in registers: fewer barriers and passes over shared
-// memory) and stores that meet no bank conflicts.
+// memory) and stores that meet no bank conflicts. The GEMM plans left to
+// an n_fft that is not a power of two lose to cuFFT as n_fft 2048's did
+// (n_fft 2000: launch A 12.49 ms at B = 1024 against 1.24, launch C 20.32
+// against 4.50; n_fft 768 with two mel groups 3.13 against 1.35): an FFT
+// plan with mixed-radix (3, 5) Stockham stages would take them.
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
@@ -1484,7 +1488,11 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    band in registers (band_sorted: ranking the 239-bin band of n_fft
 //    2048 by band_value took 48% of the launch, 1.10 of 2.29 ms at B =
 //    1024; sorted, the band stage takes 0.24 of 1.41, tools/contrast_probe.py);
-//    the centroid and the z-norm are the GEMM plan's (znorm_rows).
+//    the centroid and the z-norm are the GEMM plan's (znorm_rows). The
+//    clip's contrast rows go to the output and are z-normed there in
+//    place, for every config: kept in shared memory where they fit, they
+//    ran 1.4511-1.4514 ms against 1.4542-1.4573 at n_fft 2048 and B =
+//    1024 (tools/contrast_probe.py, in turns), a second layout for 0.3%.
 //  * Bound: operations at n_fft 2048 (an FFT a frame at the FP32 peak,
 //    0.0320 ms for launch A at B = 1024 on 128 mels; 0.0611 for launch C,
 //    both windows and the tails as selections), with the bytes close
@@ -1501,35 +1509,26 @@ __host__ __device__ inline bool pow2(int n) { return n > 0 && (n & (n - 1)) == 0
 // The FFT plans' shared memory, in floats: the points (2 floats each,
 // frames x points a frame), the frames' waveform span, the twiddles
 // (n_fft / 2 + 1 float2), then for launch C the group's power rows
-// (frames x n_pow), the clip's contrast rows (n_rows x n_frames) where
-// they fit (`rows_in_smem`; else in the output, z-normed in place) and the
-// reduction slots. `frames` halves from its most until the layout fits.
+// (frames x n_pow) and the reduction slots (its contrast rows go to the
+// output and are z-normed there in place). `frames` halves from its most
+// until the layout fits.
 struct LayoutF {
-  int frames, span, tw, pow, con, red, end;
-  bool rows_in_smem;
+  int frames, span, tw, pow, red, end;
 
-  // Launch A (points a frame n_fft / 2; no power or contrast rows).
-  __host__ __device__ LayoutF(int n_fft, int hop) { fit(n_fft / 2, n_fft, hop, 0, 0); }
+  // Launch A (points a frame n_fft / 2; no power rows).
+  __host__ __device__ LayoutF(int n_fft, int hop) { fit(n_fft / 2, n_fft, hop, 0, false); }
 
   // Launch C (points a frame n_fft).
-  __host__ __device__ LayoutF(int n_fft, int hop, int n_pow, int n_frames, int n_rows) {
-    fit(n_fft, n_fft, hop, n_pow, n_frames * n_rows);
-  }
+  __host__ __device__ LayoutF(int n_fft, int hop, int n_pow) { fit(n_fft, n_fft, hop, n_pow, true); }
 
-  __host__ __device__ void fit(int points, int n_fft, int hop, int n_pow, int n_con) {
+  __host__ __device__ void fit(int points, int n_fft, int hop, int n_pow, bool contrast) {
     for (frames = kFftPoints / points < kFftMaxFrames ? kFftPoints / points : kFftMaxFrames;; frames /= 2) {
       span = 2 * frames * points;
       tw = span + ((frames - 1) * hop + n_fft + 3) / 4 * 4;
       pow = tw + n_fft + 2;
-      con = pow + (frames * n_pow + 3) / 4 * 4;
-      red = con;
-      end = n_con ? red + kRedC : pow;
+      red = pow + (frames * n_pow + 3) / 4 * 4;
+      end = contrast ? red + kRedC : pow;
       if (frames <= 1 || sizeof(float) * end <= kMaxSmem) break;
-    }
-    rows_in_smem = n_con && sizeof(float) * (end + (n_con + 3) / 4 * 4) <= kMaxSmem;
-    if (rows_in_smem) {
-      red = con + (n_con + 3) / 4 * 4;
-      end = red + kRedC;
     }
   }
 
@@ -1555,15 +1554,12 @@ __host__ __device__ inline int plan_a(int n_fft, int hop, int kpad, int n_mels) 
   return staged_a(hop, kpad) ? kPlanGemmStaged : kPlanGemmUnstaged;
 }
 
-// Launch C's plan: LayoutC's level 0-3 (the GEMM), or the FFT with the
-// contrast rows in shared memory (4) or in the output (5).
-enum { kPlanCFft = 4, kPlanCFftRowsOut = 5 };
+// Launch C's plan: LayoutC's level 0-3 (the GEMM), or the FFT (4).
+enum { kPlanCFft = 4 };
 
 __host__ __device__ inline int plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, int n_bands) {
-  if (fft_nfft(n_fft, n_fft) && n_fft >= kFftMinNfft) {
-    const LayoutF lay(n_fft, hop, n_pow, n_frames, n_bands + 1);
-    if (lay.bytes() <= kMaxSmem) return lay.rows_in_smem ? kPlanCFft : kPlanCFftRowsOut;
-  }
+  if (fft_nfft(n_fft, n_fft) && n_fft >= kFftMinNfft && LayoutF(n_fft, hop, n_pow).bytes() <= kMaxSmem)
+    return kPlanCFft;
   return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).level;
 }
 
@@ -1811,13 +1807,13 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int n_rows = n_bands + 1, n = n_rows * n_frames, half = n_fft / 2, log2n = __ffs(n_fft) - 1;
-  const LayoutF lay(n_fft, hop, n_pow, n_frames, n_rows);
+  const LayoutF lay(n_fft, hop, n_pow);
   float* base = reinterpret_cast<float*>(smem4);
   float2* buf = reinterpret_cast<float2*>(base);
   float* span = base + lay.span;
   float2* tw = reinterpret_cast<float2*>(base + lay.tw);
   float* pw = base + lay.pow;
-  float* con = lay.rows_in_smem ? base + lay.con : out + (size_t)blockIdx.x * n;
+  float* con = out + (size_t)blockIdx.x * n;  // the clip's rows, z-normed in place at the end
   float* red = base + lay.red;
   const int F = lay.frames, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tpf = kThreadsA / F;  // threads a frame in the split
@@ -2056,8 +2052,8 @@ int cdt_frontend_epilogue(
 }
 
 size_t cdt_frontend_smem_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, int n_bands) {
-  if (plan_c(n_fft, hop, kpad, n_pow, n_frames, n_bands) >= kPlanCFft)
-    return LayoutF(n_fft, hop, n_pow, n_frames, n_bands + 1).bytes();
+  if (plan_c(n_fft, hop, kpad, n_pow, n_frames, n_bands) == kPlanCFft)
+    return LayoutF(n_fft, hop, n_pow).bytes();
   return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).bytes(2);
 }
 
@@ -2073,7 +2069,7 @@ int cdt_frontend_contrast_fft(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
     const float* windows, const float* twiddles, int pow_lo, int n_pow, const float* freqs,
     float half_sr, const int* bands, int n_bands, float* out, cudaStream_t stream) {
-  const LayoutF lay(n_fft, hop, n_pow, n_frames, n_bands + 1);
+  const LayoutF lay(n_fft, hop, n_pow);
   if (!fft_nfft(n_fft, n_fft) || hop < 1 || n_bands < 0 || n_pow < 0 || pow_lo < 0 ||
       pow_lo + n_pow > n_fft / 2 + 1 || lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;

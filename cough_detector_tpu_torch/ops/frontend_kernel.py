@@ -26,7 +26,8 @@ launcher's hybrid in three launches: the pair runs on the config without
 contrast, and the contrast launch (`spectral_contrast_fused`: framing, one
 3xTF32 DFT over both windows, band tails by stable rank, centroid, z-norm;
 or its FFT plan: both windows through one FFT, each band sorted; counter
-`CONTRAST_LAUNCHES`) appends the contrast rows of the
+`CONTRAST_LAUNCHES`, and `CONTRAST_FFT_LAUNCHES` for the FFT plan as
+`SPECTRAL_FFT_LAUNCHES` is launch A's) appends the contrast rows of the
 un-emphasized waves. Its plain version is `spectral_contrast_reference`
 (`frontend.spectral_contrast(method="gemm")`), its arithmetic's model
 `spectral_contrast_split_reference` (the FFT plan's:
@@ -87,6 +88,11 @@ SPECTRAL_LAUNCHES = 0
 EPILOGUE_LAUNCHES = 0
 CONTRAST_LAUNCHES = 0
 LAUNCH_COUNTERS = ("SPECTRAL_LAUNCHES", "EPILOGUE_LAUNCHES", "CONTRAST_LAUNCHES")
+# Of those, the launches of the FFT plans' kernels (spectral_fft_kernel,
+# contrast_fft_kernel), counted the same way.
+SPECTRAL_FFT_LAUNCHES = 0
+CONTRAST_FFT_LAUNCHES = 0
+PLAN_COUNTERS = ("SPECTRAL_FFT_LAUNCHES", "CONTRAST_FFT_LAUNCHES")
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _MAX_BLOCKS = 2**31 - 1  # a launch's grid x; launch A folds the clip into it
@@ -105,9 +111,9 @@ _FFT_MIN_NFFT = 1024  # the FFT plans: the least n_fft (a power of two) they tak
 
 # Launch A's plans (cdt_frontend_plan_a).
 PLAN_GEMM_UNSTAGED, PLAN_GEMM_STAGED, PLAN_FFT = 0, 1, 2
-# The contrast launch's FFT plans (cdt_frontend_plan_c; 0-3 are LayoutC's
-# levels): the contrast rows in shared memory, or in the output.
-CONTRAST_FFT, CONTRAST_FFT_ROWS_OUT = 4, 5
+# The contrast launch's FFT plan (cdt_frontend_plan_c; 0-3 are LayoutC's
+# levels).
+CONTRAST_FFT = 4
 
 
 def kernel_supports(cfg: FeatureConfig, n_samples: int) -> bool:
@@ -143,26 +149,24 @@ def spectral_staged(hop: int, kpad: int) -> bool:
     return _ring_bytes(_span_floats(hop, kpad)) <= _MAX_SMEM
 
 
-def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, n_con: int = 0) -> tuple:
-    """(frames, bytes, rows_in_smem): csrc/frontend_kernel.cu's LayoutF. In
-    floats: the points (2 each, frames x points a frame), the frames'
-    waveform span, the twiddles (n_fft + 2); for the contrast launch (n_con
-    contrast values a clip) the group's power rows (frames x n_pow), the
-    contrast rows where they fit and the reduction slots. `frames` halves
-    from the most a block takes until the layout fits."""
+def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: bool = False) -> tuple:
+    """(frames, bytes): csrc/frontend_kernel.cu's LayoutF. In floats: the
+    points (2 each, frames x points a frame), the frames' waveform span,
+    the twiddles (n_fft + 2); for the contrast launch the group's power
+    rows (frames x n_pow) and the reduction slots (its contrast rows go to
+    the output). `frames` halves from the most a block takes until the
+    layout fits."""
     def up4(n):
         return (n + 3) // 4 * 4
 
     frames = min(_FFT_POINTS // points, _FFT_MAX_FRAMES)
     while True:
         end = 2 * frames * points + up4((frames - 1) * hop + n_fft) + n_fft + 2
-        if n_con:
+        if contrast:
             end += up4(frames * n_pow) + _RED_C
         if frames <= 1 or 4 * end <= _MAX_SMEM:
-            break
+            return frames, 4 * end
         frames //= 2
-    rows = bool(n_con) and 4 * (end + up4(n_con)) <= _MAX_SMEM
-    return frames, 4 * (end + (up4(n_con) if rows else 0)), rows
 
 
 def _fft_nfft(n_fft: int, points: int) -> bool:
@@ -644,7 +648,7 @@ def power_mel_fused(
     """Launch A: (B, segment_samples) float32 → power mel
     (B, n_mels, num_frames). CUDA tensors launch the kernel on the current
     stream (no synchronise); CPU tensors run power_mel_reference."""
-    global SPECTRAL_LAUNCHES
+    global SPECTRAL_LAUNCHES, SPECTRAL_FFT_LAUNCHES
     _check_config(cfg, waves.shape[-1])
     if waves.device.type == "cpu":
         return power_mel_reference(waves, cfg)
@@ -681,6 +685,7 @@ def power_mel_fused(
             )
     _raise_on(err, lib, "spectral")
     SPECTRAL_LAUNCHES += 1
+    SPECTRAL_FFT_LAUNCHES += fft
     return mel
 
 
@@ -764,14 +769,13 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
 
 def _contrast_plan(cfg: FeatureConfig) -> tuple:
     """(level, bytes): csrc/frontend_kernel.cu's plan_c. For a power-of-two
-    n_fft from 1024 on, the FFT plan where LayoutF fits: CONTRAST_FFT with
-    the clip's contrast rows in shared memory, CONTRAST_FFT_ROWS_OUT with
-    them in the output. Else the GEMM's (`_contrast_gemm_plan`)."""
-    n_fft, n_con = cfg.n_fft, cfg.num_frames * (cfg.n_contrast_bands + 1)
+    n_fft from 1024 on, CONTRAST_FFT where LayoutF fits; else the GEMM's
+    (`_contrast_gemm_plan`)."""
+    n_fft = cfg.n_fft
     if _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT:
-        _, smem, rows = _fft_layout(n_fft, n_fft, cfg.hop_length, _geometry(cfg).n_pow, n_con)
+        _, smem = _fft_layout(n_fft, n_fft, cfg.hop_length, _geometry(cfg).n_pow, contrast=True)
         if smem <= _MAX_SMEM:
-            return (CONTRAST_FFT if rows else CONTRAST_FFT_ROWS_OUT), smem
+            return CONTRAST_FFT, smem
     return _contrast_gemm_plan(cfg)
 
 
@@ -798,7 +802,7 @@ def _contrast_gemm_plan(cfg: FeatureConfig) -> tuple:
 def contrast_level(cfg: FeatureConfig) -> int:
     """The contrast launch's plan (cdt_frontend_plan_c): LayoutC's level,
     how much of the GEMM plan moves from shared memory to device memory, or
-    an FFT plan (4 or 5; see _contrast_plan)."""
+    CONTRAST_FFT (see _contrast_plan)."""
     return _contrast_plan(cfg)[0]
 
 
@@ -940,7 +944,7 @@ def spectral_contrast_fused(
     → contrast rows (B, n_contrast_bands + 1, num_frames). CUDA tensors
     launch the kernel on the current stream (no synchronise); CPU tensors
     run spectral_contrast_reference."""
-    global CONTRAST_LAUNCHES
+    global CONTRAST_LAUNCHES, CONTRAST_FFT_LAUNCHES
     _check_contrast(cfg, waves.shape[-1])
     if waves.device.type == "cpu":
         return spectral_contrast_reference(waves, cfg)
@@ -957,7 +961,7 @@ def spectral_contrast_fused(
     stream = torch.cuda.current_stream(waves.device).cuda_stream
     half_sr = float(cfg.sample_rate / 2.0)
     with torch.cuda.device(waves.device):
-        if level >= CONTRAST_FFT:
+        if level == CONTRAST_FFT:
             windows, tw = _contrast_fft_constants(cfg, waves.device)
             freqs, bands = _centroid_and_bands(cfg, waves.device)
             err = lib.cdt_frontend_contrast_fft(
@@ -979,6 +983,7 @@ def spectral_contrast_fused(
             )
     _raise_on(err, lib, "contrast")
     CONTRAST_LAUNCHES += 1
+    CONTRAST_FFT_LAUNCHES += level == CONTRAST_FFT
     return out
 
 

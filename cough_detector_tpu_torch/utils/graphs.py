@@ -58,13 +58,14 @@ MIN_BUCKET = 16
 def _launches() -> Tuple[int, ...]:
     from ..ops import frontend_kernel
 
-    return tuple(getattr(frontend_kernel, name) for name in frontend_kernel.LAUNCH_COUNTERS)
+    names = frontend_kernel.LAUNCH_COUNTERS + frontend_kernel.PLAN_COUNTERS
+    return tuple(getattr(frontend_kernel, name) for name in names)
 
 
 def _add_launches(counts: Sequence[int]) -> None:
     from ..ops import frontend_kernel
 
-    for name, n in zip(frontend_kernel.LAUNCH_COUNTERS, counts):
+    for name, n in zip(frontend_kernel.LAUNCH_COUNTERS + frontend_kernel.PLAN_COUNTERS, counts):
         setattr(frontend_kernel, name, getattr(frontend_kernel, name) + n)
 
 
@@ -132,7 +133,8 @@ class Programs:
 
     def launches(self) -> Dict[Hashable, Tuple[int, ...]]:
         """Each graph's front-end launches over its replays, a count a
-        kernel (frontend_kernel.LAUNCH_COUNTERS): captured times replays.
+        counter (frontend_kernel.LAUNCH_COUNTERS, then PLAN_COUNTERS):
+        captured times replays.
         A key's first call launches eagerly and is not among them."""
         return {k: tuple(n * p.replays for n in p.captured) for k, p in list(self._programs.items())}
 

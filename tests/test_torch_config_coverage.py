@@ -53,8 +53,8 @@ CONFIGS = {
 # Configs chip_smoke.py adds for the plans no config above reaches: since
 # the FFT plans took the power-of-two n_fft, the GEMM plans' span from
 # device memory (launch A unstaged, the contrast launch's levels 1 and 3)
-# is reached by an n_fft that is not a power of two; the contrast launch's
-# FFT plan puts its rows in the output past shared memory (6001 frames).
+# and launch A's GEMM plan over two mel groups are reached by an n_fft that
+# is not a power of two.
 EXTRA = {
     "clip60s_128_all_flags": dict(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
                                   use_pre_emphasis=True, use_delta_delta=True, **CONTRAST),
@@ -62,7 +62,7 @@ EXTRA = {
     "nfft4096_contrast": dict(n_fft=4096, win_length=4096, hop_length=1024, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft2000_contrast": dict(n_fft=2000, win_length=2000, hop_length=500, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft3000_contrast": dict(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0, **CONTRAST),
-    "clip30s_nfft1024_contrast": dict(n_fft=1024, hop_length=80, segment_duration=30.0, **CONTRAST),
+    "nfft768_mels256": dict(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0),
 }
 JNP = ("clip10s", "hop4")  # too long in interpret mode: the JAX jnp chain instead
 
@@ -71,7 +71,7 @@ JNP = ("clip10s", "hop4")  # too long in interpret mode: the JAX jnp chain inste
 # its plan (0 the GEMM with its span from device memory, 1 staged, 2 the
 # FFT); launch B's shared memory a block and its blocks a clip (0: device
 # memory); the contrast launch's shared memory and plan (LayoutC's level
-# 0-3, 4 the FFT, 5 the FFT with the rows in the output).
+# 0-3, 4 the FFT).
 PLANS_ON_CARD = {
     "mels160": (89480, 2, 75008, 1, None, None),
     "mels256": (89480, 2, 119936, 1, None, None),
@@ -80,15 +80,15 @@ PLANS_ON_CARD = {
     "clip5s_128": (118096, 1, 136832, 2, None, None),
     "clip10s": (118096, 1, 132480, 2, None, None),
     "hop4": (36464, 1, 209280, 5, None, None),
-    "nfft1024_contrast": (89096, 2, 40576, 1, 89432, 4),
-    "nfft2048_contrast": (96264, 2, 24704, 1, 95096, 4),
+    "nfft1024_contrast": (89096, 2, 40576, 1, 87656, 4),
+    "nfft2048_contrast": (96264, 2, 24704, 1, 94200, 4),
     "bands17": (118096, 1, 30080, 1, 221840, 0),
     "clip60s_128_all_flags": (118096, 1, 128, 0, 91760, 2),
     "hop4_contrast": (36464, 1, 209280, 5, 207888, 0),
-    "nfft4096_contrast": (110600, 2, 16512, 1, 108424, 4),
+    "nfft4096_contrast": (110600, 2, 16512, 1, 107976, 4),
     "nfft2000_contrast": (32816, 0, 25216, 1, 224272, 1),
     "nfft3000_contrast": (32816, 0, 19584, 1, 32880, 3),
-    "clip30s_nfft1024_contrast": (78536, 2, 223872, 7, 82728, 5),
+    "nfft768_mels256": (136304, 1, 102528, 1, None, None),
 }
 SMEM = 232448  # bytes of shared memory a block may use on sm_90
 

@@ -44,7 +44,7 @@ CONFIGS = {
 # mirrors must equal them. n_fft 1024 takes the FFT plan (4).
 SMEM_ON_CARD = {
     "contrast": 180528, "all_flags": 180528, "n_fft_256": 114784,
-    "n_fft_1024": 87800, "bands_4": 163344, "bands_8": 192608,
+    "n_fft_1024": 84968, "bands_4": 163344, "bands_8": 192608,
 }
 PLAN_ON_CARD = {"contrast": 0, "all_flags": 0, "n_fft_256": 0, "n_fft_1024": 4, "bands_4": 0, "bands_8": 0}
 

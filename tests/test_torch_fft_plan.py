@@ -36,8 +36,7 @@ NFFT1024 = dict(n_fft=1024, win_length=1024, hop_length=256, n_mels=128, f_max=8
 NFFT4096 = dict(n_fft=4096, win_length=4096, hop_length=1024, n_mels=128, f_max=8000.0)
 # chip_smoke.py's coverage_configs, by name, and what launch A's plan and
 # the contrast launch's plan are for each (0 GEMM unstaged, 1 GEMM staged,
-# 2 FFT; contrast 0-3 the GEMM's LayoutC levels, 4 FFT, 5 FFT with its
-# rows in the output).
+# 2 FFT; contrast 0-3 the GEMM's LayoutC levels, 4 FFT).
 COVERAGE = {
     "mels160": (dict(n_mels=160, f_max=8000.0), 2, None),
     "mels256": (dict(n_mels=256, f_max=8000.0), 2, None),
@@ -53,7 +52,11 @@ COVERAGE = {
                                    use_pre_emphasis=True, use_delta_delta=True, **CONTRAST), 1, 2),
     "hop4_contrast": (dict(hop_length=4, **CONTRAST), 1, 0),
     "nfft4096_contrast": (dict(NFFT4096, **CONTRAST), 2, 4),
-    "clip30s_nfft1024_contrast": (dict(n_fft=1024, hop_length=80, segment_duration=30.0, **CONTRAST), 2, 5),
+    "nfft2000_contrast": (dict(n_fft=2000, win_length=2000, hop_length=500, n_mels=128, f_max=8000.0, **CONTRAST),
+                          0, 1),
+    "nfft3000_contrast": (dict(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0, **CONTRAST),
+                          0, 3),
+    "nfft768_mels256": (dict(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0), 1, None),
     "shipped": ({}, 1, None),
     "shipped_contrast": (dict(CONTRAST), 1, 0),
 }
@@ -233,7 +236,7 @@ def _c_plan_rules():
   while (scanf("%d %d %d %d %d %d %d", &n_fft, &hop, &kpad, &n_mels, &n_pow, &n_frames, &n_bands) == 7) {
     const int a = plan_a(n_fft, hop, kpad, n_mels), c = plan_c(n_fft, hop, kpad, n_pow, n_frames, n_bands);
     const size_t sa = a == kPlanFft ? LayoutF(n_fft, hop).bytes() : LayoutA(hop, kpad, a == kPlanGemmStaged).bytes(2);
-    const size_t sc = c >= kPlanCFft ? LayoutF(n_fft, hop, n_pow, n_frames, n_bands + 1).bytes()
+    const size_t sc = c == kPlanCFft ? LayoutF(n_fft, hop, n_pow).bytes()
                                      : LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).bytes(2);
     printf("%d %zu %d %zu\n", a, sa, c, sc);
   }
@@ -273,7 +276,7 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
         assert (a, sa) == (frontend_kernel.spectral_plan(c), frontend_kernel.spectral_smem_bytes(c)), c
         assert (cl, sc) == (frontend_kernel.contrast_level(c), frontend_kernel.contrast_smem_bytes(c)), c
         seen.update({("a", a), ("c", cl)})
-    assert {("a", 0), ("a", 1), ("a", 2), ("c", 4), ("c", 5)} <= seen
+    assert {("a", 0), ("a", 1), ("a", 2), ("c", 0), ("c", 1), ("c", 4)} <= seen
 
 
 def test_twiddle_table_layout():
@@ -319,12 +322,29 @@ def test_wrappers_on_cpu_run_the_plain_versions(name):
     cfg = _cfg(name)
     base = dataclasses.replace(cfg, use_spectral_contrast=False)
     w = torch.from_numpy(_waves(cfg, 2, seed=24))
-    before = tuple(getattr(frontend_kernel, c) for c in frontend_kernel.LAUNCH_COUNTERS)
+    counters = frontend_kernel.LAUNCH_COUNTERS + frontend_kernel.PLAN_COUNTERS
+    before = tuple(getattr(frontend_kernel, c) for c in counters)
     assert torch.equal(frontend_kernel.power_mel_fused(w, base), frontend_kernel.power_mel_reference(w, base))
     if cfg.use_spectral_contrast:
         assert torch.equal(frontend_kernel.spectral_contrast_fused(w, cfg),
                            frontend_kernel.spectral_contrast_reference(w, cfg))
-    assert tuple(getattr(frontend_kernel, c) for c in frontend_kernel.LAUNCH_COUNTERS) == before
+    assert tuple(getattr(frontend_kernel, c) for c in counters) == before
+
+
+def test_graph_replays_count_the_fft_plans(monkeypatch):
+    """A captured program's replay adds its captured launches to every
+    counter, the FFT plans' own (PLAN_COUNTERS) among them, so a main path
+    through a graph shows which plan's kernel ran."""
+    from cough_detector_tpu_torch.utils import graphs
+
+    names = frontend_kernel.LAUNCH_COUNTERS + frontend_kernel.PLAN_COUNTERS
+    assert frontend_kernel.PLAN_COUNTERS == ("SPECTRAL_FFT_LAUNCHES", "CONTRAST_FFT_LAUNCHES")
+    for n in names:
+        monkeypatch.setattr(frontend_kernel, n, 0)
+    graphs._add_launches((1, 1, 1, 1, 1))
+    graphs._add_launches((1, 1, 0, 0, 0))
+    assert graphs._launches() == (2, 2, 1, 1, 1)
+    assert (frontend_kernel.SPECTRAL_FFT_LAUNCHES, frontend_kernel.CONTRAST_FFT_LAUNCHES) == (1, 1)
 
 
 @pytest.mark.parametrize("name", ["nfft2048", "nfft2048_contrast"])

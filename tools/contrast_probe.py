@@ -15,8 +15,8 @@ into build/kernels/ (all builds run at once):
     columns (the shipped config's clips are one row tile, so the ring is
     never restarted), which measures a pass's share.
 Each --baseline is another copy of the source (the same C interface for
-launch C) timed in turns with this one: the baselines, as built, the
-variants, as built, the baselines.
+launch C and its FFT plan) timed in turns with this one: the baselines,
+as built, the variants, as built, the baselines.
 
 Then launch C's FFT plan (contrast_fft_kernel) at B = 1024 on n_fft 2048
 and 4096 with contrast (hop n_fft / 4, 6 bands; the frames of 64 clips
@@ -167,12 +167,13 @@ def main() -> None:
                 f"max-relative vs plain {err:.2e}",
                 flush=True,
             )
-    fft_section(libs, rng, dev)
+    fft_section(libs, baselines, rng, dev)
 
 
-def fft_section(libs: dict, rng: np.random.Generator, dev: torch.device) -> None:
-    """The FFT plan as built and its variants, in turns, at B = 1024."""
-    names = ["as built"] + [v for v in libs if v.startswith("FFT plan")] + ["as built"]
+def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
+    """The FFT plan as built and its variants, in turns, at B = 1024,
+    between the baselines' (through the same C function)."""
+    names = baselines + ["as built"] + [v for v in libs if v.startswith("FFT plan")] + ["as built"] + baselines
     for n_fft, cfg in FFT_CONFIGS.items():
         g = frontend_kernel._geometry(cfg)
         windows, tw = frontend_kernel._contrast_fft_constants(cfg, dev)
