@@ -12,7 +12,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. builds the front-end kernel from csrc/ with nvcc, and with g++ the two
      C++ libraries from native/ (the decode tier and the daemon's socket
      plane) and the bench's load generator, all four at once (build
-     seconds);
+     seconds), and beside them the host work of later phases (phase 6's
+     corpus, phase 7's resample banks and its data directory, the last in
+     a process of its own); the phases' seconds are printed at the end;
   3. holds each of the two front-end launches (spectral: waveform to power
      mel, 3xTF32 on the tensor cores; epilogue: power mel to features), and
      the pair, against its plain torch version on the card: the shipped
@@ -37,8 +39,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      2048 at 16 and 22.05 kHz, 5 and 10 s clips, a hop of 4, n_fft 1024
      and 2048 with contrast, 17 bands; each at B = 17 and 256; and at
      B = 17 a 60 s clip with every flag, contrast at a hop of 4, at n_fft
-     4096, 2000 and 3000, and 256 mels at n_fft 768, for the plans no
-     other config reaches) through
+     4096, 2000 and 3000 (the FFT plans' radix-3 and radix-5 stages), 256
+     mels at n_fft 768, and the GEMM plans' spans from device memory and
+     mel groups at n_fft 1792, 2744 and 896 (a factor of 7), for the plans
+     no other config reaches) through
      extract_features_fast: every launch it needs once a call (the FFT
      plans' kernels counted on their own too), the
      features within 1e-3 of the plain versions and of the torch chain,
@@ -61,9 +65,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (back-to-back calls of a launch this short time the host's
      dispatch); the spectral and epilogue launches at B = 1024 on 256
      mels and n_fft 1024 (both of launch A's plans), n_fft 2048 at 16 and
-     22.05 kHz, 10 s clips, n_fft 2000 and 256 mels at n_fft 768 (the
-     GEMM), the contrast launch on n_fft 1024 (both plans), 2048, 4096
-     (the FFT) and 2000 (the GEMM), each beside its bound, its plain
+     22.05 kHz, 10 s clips (the GEMM), n_fft 2000, 3000 and 256 mels at
+     n_fft 768 (the FFT's radix-3 and radix-5 stages), the contrast launch
+     on n_fft 1024 (both plans), 2048, 4096, 2000 and 3000 (the FFT), each
+     beside its bound, its plain
      version and torch.stft + mel (the fft rows for contrast); the epilogue launch
      at B = 4096 at n_fft 256 and with PCEN, beside its bound; the contrast
      launch at B = 256, 1024 and 4096 (device time at 256 and 1024)
@@ -251,11 +256,47 @@ never JAX. It downloads nothing: the data are synthesized from seeds.
 from __future__ import annotations
 
 import os
+import threading
+import time
+from pathlib import Path
+
+T_IMPORTS = time.time()  # main() prints the seconds its imports took
+
+
+def _start_kernel_build() -> tuple:
+    """(thread, result): the front-end kernel's nvcc build, started before
+    torch is imported (about 8 s of the run). utils/kernel_build.py imports
+    only the standard library, so it is loaded from its file, without the
+    package (which imports torch). Phase 2 joins the thread; result holds
+    the build's seconds, or the error phase 2 raises."""
+    import importlib.util
+
+    result = {}
+
+    def build() -> None:
+        t0 = time.perf_counter()
+        try:
+            path = Path(__file__).resolve().parent / "cough_detector_tpu_torch" / "utils" / "kernel_build.py"
+            spec = importlib.util.spec_from_file_location("_chip_smoke_kernel_build", path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            module.load("frontend_kernel")
+            result["seconds"] = time.perf_counter() - t0
+        except Exception as e:  # raised in phase 2, after the card's check
+            result["error"] = e
+
+    thread = threading.Thread(target=build, name="kernel-build")
+    thread.start()
+    return thread, result
+
+
+KERNEL_BUILD = _start_kernel_build()
 
 # The training phase asks for deterministic algorithms; torch then wants
 # cuBLAS's workspace fixed, which it reads before the first cuBLAS call.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import atexit  # noqa: E402
 import concurrent.futures  # noqa: E402
 import contextlib  # noqa: E402
 import copy  # noqa: E402
@@ -270,10 +311,7 @@ import shutil  # noqa: E402
 import signal  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
-import threading  # noqa: E402
-import time  # noqa: E402
 import urllib.request  # noqa: E402
-from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -427,15 +465,63 @@ def hold_grads(model, got, want, tol: float) -> float:
     return worst
 
 
-def train_phase(smi: str) -> dict:
-    """Phase 6, the training path; returns what the kernels' JSON line adds."""
+# Phase 7's resampling: 16 kHz clips rewritten at 44.1 and 8 kHz, those read
+# back to 16 kHz, and speed perturbation's factors (0.9, 0.95, 1.05, 1.1).
+SPEED_FACTORS = (0.9, 0.95, 1.05, 1.1)
+RESAMPLE_PAIRS = [(SR, 44100), (SR, 8000), (44100, SR), (8000, SR)] + [(SR, int(round(SR / f))) for f in SPEED_FACTORS]
+
+
+def resample_banks() -> None:
+    """The polyphase banks of RESAMPLE_PAIRS (cached by ops/resample.py),
+    built on the host, at once: phase 2 runs this beside the kernel build."""
+    from cough_detector_tpu_torch.ops import resample
+
+    with concurrent.futures.ThreadPoolExecutor(len(RESAMPLE_PAIRS)) as pool:
+        list(pool.map(lambda p: resample._sinc_kernel(p[0] // math.gcd(*p), p[1] // math.gcd(*p)), RESAMPLE_PAIRS))
+
+
+def training_corpus() -> tuple:
+    """Phase 6's corpus, (train waves, labels, val waves, labels): 2048 + 256
+    synthetic clips of 1 s, half coughs, made on the host from SEED (phase 2
+    runs this beside the kernel build)."""
+    from cough_detector_tpu_torch.data import synth
+
+    def corpus(n: int, seed0: int) -> tuple:
+        labels = np.arange(n) % 2  # half coughs
+        waves = np.stack([
+            synth.synthetic_cough(seed0 + i, 1.0) if labels[i] else synth.synthetic_non_cough(seed0 + i, 1.0)
+            for i in range(n)
+        ])
+        return waves, labels
+
+    return (*corpus(2048, SEED), *corpus(256, SEED + 2048))
+
+
+def start_prepare_data() -> subprocess.Popen:
+    """Phase 7's WAV data directory, written by cli.prepare_data in a process
+    of its own (the card hidden) into a fresh build/smoke_files/data: phase 2
+    starts it beside the kernel build, phase 7 waits for it."""
+    root = Path(__file__).resolve().parent / "build" / "smoke_files"
+    shutil.rmtree(root, ignore_errors=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "cough_detector_tpu_torch.cli.prepare_data", "--output-dir", str(root / "data"),
+         "--esc50-dir", str(root / "no_esc50"), "--skip-download", "--synthetic-coughs", "384",
+         "--synthetic-non-coughs", "768", "--hard-negatives", "0.3", "--seed", str(SEED)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=Path(__file__).resolve().parent,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+
+
+def train_phase(smi: str, made: tuple) -> dict:
+    """Phase 6, the training path, on `made` (training_corpus's); returns
+    what the kernels' JSON line adds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cough_detector_tpu_torch.augment import augment_waveforms, spec_augment
     from cough_detector_tpu_torch.cli import train as train_cli
     from cough_detector_tpu_torch.config import Config, FeatureConfig, ModelConfig, TrainConfig
-    from cough_detector_tpu_torch.data import dequantize_torch, pack_arrays, quantize, synth
+    from cough_detector_tpu_torch.data import dequantize_torch, pack_arrays, quantize
     from cough_detector_tpu_torch.models import create_model, init_weights, no_tf32
     from cough_detector_tpu_torch.ops import frontend, frontend_kernel
     from cough_detector_tpu_torch.stream import StreamingDetector
@@ -452,20 +538,13 @@ def train_phase(smi: str) -> dict:
     shards = root / "corpus"
     n_train, n_val, bs = 2048, 256, TrainConfig().batch_size
 
-    # -- 6.1 corpus
-    def corpus(n: int, seed0: int) -> tuple:
-        labels = np.arange(n) % 2  # half coughs
-        waves = np.stack([
-            synth.synthetic_cough(seed0 + i, 1.0) if labels[i] else synth.synthetic_non_cough(seed0 + i, 1.0)
-            for i in range(n)
-        ])
-        return waves, labels
-
+    # -- 6.1 corpus (synthesized in phase 2)
     t0 = time.perf_counter()
-    train_w, train_l = corpus(n_train, SEED)
+    train_w, train_l, val_w, val_l = made
     pack_arrays(train_w, train_l, str(shards / "train"))
-    pack_arrays(*corpus(n_val, SEED + n_train), str(shards / "val"))
-    print(f"training corpus: {n_train} + {n_val} clips synthesized and packed in {time.perf_counter() - t0:.3f} s", flush=True)
+    pack_arrays(val_w, val_l, str(shards / "val"))
+    print(f"training corpus: {n_train} + {n_val} clips (synthesized in phase 2) packed in {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     # -- 6.2 one train step, card against CPU (augmentation off, dropout 0)
     step_cfg = Config(model=ModelConfig(dropout=0.0), train=TrainConfig(p_augment=0.0))
@@ -748,8 +827,10 @@ def synth_recording(rng: np.random.Generator, seconds: int, n_coughs: int) -> tu
     return (wave / np.abs(wave).max() * 0.9).astype(np.float32), starts
 
 
-def files_phase(smi: str, shard: dict, yard: dict) -> dict:
-    """Phase 7, files to detections; returns what the kernels' JSON line adds."""
+def files_phase(smi: str, shard: dict, yard: dict, prepare: subprocess.Popen) -> dict:
+    """Phase 7, files to detections, from the data directory `prepare`
+    (start_prepare_data's process) writes; returns what the kernels' JSON
+    line adds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -757,7 +838,6 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     from cough_detector_tpu_torch.cli import detect as detect_cli
     from cough_detector_tpu_torch.cli import featurize as featurize_cli
     from cough_detector_tpu_torch.cli import pack as pack_cli
-    from cough_detector_tpu_torch.cli import prepare_data as prepare_cli
     from cough_detector_tpu_torch.cli import train as train_cli
     from cough_detector_tpu_torch.config import FeatureConfig, TrainConfig
     from cough_detector_tpu_torch.data import (
@@ -773,17 +853,16 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     dev = torch.device("cuda")
     shipped = FeatureConfig()
     root = Path(__file__).resolve().parent / "build" / "smoke_files"
-    shutil.rmtree(root, ignore_errors=True)
     data = root / "data"
     rng = np.random.default_rng(SEED + 7)
 
-    # -- 7.1 a WAV data directory; a quarter of it at 44.1 and 8 kHz
+    # -- 7.1 a WAV data directory (cli.prepare_data, started in phase 2); a
+    # quarter of it at 44.1 and 8 kHz
     t0 = time.perf_counter()
-    run_cli(prepare_cli.main, [
-        "--output-dir", str(data), "--esc50-dir", str(root / "no_esc50"), "--skip-download",
-        "--synthetic-coughs", "384", "--synthetic-non-coughs", "768", "--hard-negatives", "0.3",
-        "--seed", str(SEED),
-    ])
+    prepared = prepare.communicate(timeout=600)[0]
+    print(prepared, end="", flush=True)
+    if prepare.returncode:
+        fail(f"cli.prepare_data exited {prepare.returncode}")
     wavs = sorted(data.rglob("*.wav"))
     rates = {}
     for k, rate in enumerate((44100, 8000)):
@@ -793,18 +872,14 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
             audio_io.write_wav(path, wave, rate)
         rates[rate] = len(paths)
     print(
-        f"data directory: {len(wavs)} clips of 2 s written by cli.prepare_data and {rates} rewritten "
-        f"at other rates in {time.perf_counter() - t0:.3f} s",
+        f"data directory: {len(wavs)} clips of 2 s written by cli.prepare_data (its process started in phase 2) "
+        f"and {rates} rewritten at other rates in {time.perf_counter() - t0:.3f} s",
         flush=True,
     )
 
-    # -- 7.2 the resampler on the card against the CPU (cuDNN's TF32 on at entry)
-    factors = (0.9, 0.95, 1.05, 1.1)
-    pairs = [(44100, SR), (8000, SR)] + [(SR, int(round(SR / f))) for f in factors]
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(pairs)) as pool:  # the banks, built at once
-        list(pool.map(lambda p: resample._sinc_kernel(p[0] // math.gcd(*p), p[1] // math.gcd(*p)), pairs))
-    bank_s = time.perf_counter() - t0
+    # -- 7.2 the resampler on the card against the CPU (cuDNN's TF32 on at
+    # entry; the banks built in phase 2)
+    pairs = RESAMPLE_PAIRS[2:]
     torch.backends.cudnn.allow_tf32 = True
     resample_err = {}
     for orig, new in pairs:
@@ -816,14 +891,14 @@ def files_phase(smi: str, shard: dict, yard: dict) -> dict:
     tf32_after = torch.backends.cudnn.allow_tf32
     gen = torch.Generator().manual_seed(SEED)
     x = torch.from_numpy(make_audio(rng, 16, SR))
-    draws = augment_wave.speed_draws(gen, 16, 0.7, len(factors))
-    want = augment_wave.speed_apply(x, draws, factors)
-    got = augment_wave.speed_apply(x.to(dev), augment_wave.SpeedDraws(*(d.to(dev) for d in draws)), factors).cpu()
+    draws = augment_wave.speed_draws(gen, 16, 0.7, len(SPEED_FACTORS))
+    want = augment_wave.speed_apply(x, draws, SPEED_FACTORS)
+    got = augment_wave.speed_apply(x.to(dev), augment_wave.SpeedDraws(*(d.to(dev) for d in draws)), SPEED_FACTORS).cpu()
     speed_err = float((got - want).abs().max())
     torch.backends.cudnn.allow_tf32 = False  # the models' setting (phase 5)
     print(
         f"resample card vs CPU at B=64 on unit-peak audio, cuDNN TF32 on at entry and {tf32_after} after "
-        f"(banks built in {bank_s:.3f} s): max abs {resample_err}; speed_perturbation apply at B=16 on the "
+        f"(banks built in phase 2): max abs {resample_err}; speed_perturbation apply at B=16 on the "
         f"same draws ({int(draws.apply.sum())} clips stretched): max abs {speed_err:.3e} (limit 1e-5)",
         flush=True,
     )
@@ -3203,11 +3278,13 @@ def coverage_configs() -> dict:
     what no config above does: launch B in device memory (past a cluster
     of 8) with PCEN and delta-deltas, and the contrast launch's level 2
     (its rows in the output), in one 60 s config; the contrast launch at a
-    hop of 4; its FFT plan at n_fft 4096 (458-bin bands); and, at an n_fft
-    that is not a power of two, the GEMM plans' spans from device memory:
-    launch A unstaged with the contrast launch's level 1 (n_fft 2000), and
-    with its level 3, its power rows in device memory (n_fft 3000); and
-    launch A's GEMM plan over two mel groups, its span staged (n_fft 768,
+    hop of 4; its FFT plan at n_fft 4096 (458-bin bands); the FFT plans'
+    radix-3 and radix-5 stages at n_fft 2000 and 3000 with contrast and at
+    n_fft 768 on 256 mels; and, at an n_fft with a factor of 7 (the FFT
+    plans take only 2, 3 and 5), the GEMM plans' spans from device memory:
+    launch A unstaged with the contrast launch's level 1 (n_fft 1792), and
+    with its level 3, its power rows in device memory (n_fft 2744); and
+    launch A's GEMM plan over two mel groups, its span staged (n_fft 896,
     256 mels)."""
     from cough_detector_tpu_torch.config import FeatureConfig
 
@@ -3237,6 +3314,11 @@ def coverage_configs() -> dict:
         "nfft3000_contrast": (FeatureConfig(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
         "nfft768_mels256": (FeatureConfig(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0), one),
+        "nfft1792_contrast": (FeatureConfig(n_fft=1792, win_length=1792, hop_length=448, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft2744_contrast": (FeatureConfig(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft896_mels256": (FeatureConfig(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), one),
     }
 
 
@@ -3411,6 +3493,14 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
 
 
 def main() -> None:
+    # Host seconds from each phase's start to the next's, printed before the
+    # summary: where the smoke run's time goes (its target is 260 s).
+    starts = [("1-2 card and build", time.perf_counter())]
+    imports_s = time.time() - T_IMPORTS
+
+    def phase(name: str) -> None:
+        starts.append((name, time.perf_counter()))
+
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -3430,25 +3520,46 @@ def main() -> None:
     from cough_detector_tpu_torch.utils import kernel_build, native_build
 
     # -- 2. build: the CUDA kernel, the two C++ libraries and the bench's load
-    # generator, all at once ----
+    # generator, all at once; beside them (their threads wait on the
+    # compilers), host work of later phases: phase 6's corpus, phase 7's
+    # resample banks and data directory (cli.prepare_data's process) ----
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
 
+    def kernel() -> float:
+        """The build started before the imports: its seconds, then the
+        library loaded as every caller loads it."""
+        KERNEL_BUILD[0].join()
+        if "error" in KERNEL_BUILD[1]:
+            raise KERNEL_BUILD[1]["error"]
+        frontend_kernel.build()
+        return KERNEL_BUILD[1]["seconds"]
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    prepare = start_prepare_data()
+    atexit.register(prepare.kill)  # a run that fails first leaves it no orphan
+    made = []
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = {
-            kernel_build.library_path("frontend_kernel").name: pool.submit(timed, frontend_kernel.build),
+            kernel_build.library_path("frontend_kernel").name: pool.submit(kernel),
             native_build.library_path("cdt_loader").name: pool.submit(timed, native_loader.require),
             native_build.library_path("cdt_ingest").name: pool.submit(timed, native_ingest.require),
             native_build.executable_path("cdt_loadgen").name: pool.submit(
                 timed, lambda: native_build.build_executable("cdt_loadgen")),
         }
+        host = {
+            "phase 6's corpus": pool.submit(timed, lambda: made.extend(training_corpus())),
+            "phase 7's resample banks": pool.submit(timed, resample_banks),
+        }
         build_s = {name: f.result() for name, f in builds.items()}
+        host_s = {name: f.result() for name, f in host.items()}
     print(
         "build: " + ", ".join(f"{name} {s:.3f} s" for name, s in build_s.items())
-        + f" (together {time.perf_counter() - t0:.3f} s)",
+        + f" (the first started before the imports; together {time.perf_counter() - t0:.3f} s from here); "
+        "host work beside it: "
+        + ", ".join(f"{name} {s:.3f} s" for name, s in host_s.items()),
         flush=True,
     )
 
@@ -3459,6 +3570,7 @@ def main() -> None:
     def waves(b: int) -> torch.Tensor:
         return torch.from_numpy(make_audio(rng, b, shipped.segment_samples)).to(dev)
 
+    phase("3 kernels vs plain")
     # -- 3. kernels vs plain versions --------------------------------------
     # Each launch on its own against its plain version on the same input
     # (launch B is fed the plain power mel), then the pair end to end.
@@ -3607,6 +3719,7 @@ def main() -> None:
     # once ran on the torch chain).
     covered = coverage_phase(smi, rng)
 
+    phase("4 times")
     # -- 4. times ----------------------------------------------------------------
     def library_mel_fn(cfg: FeatureConfig):
         """cuFFT power spectrum and a mel matmul, (B, T, n_mels): the library
@@ -3692,6 +3805,7 @@ def main() -> None:
 
     yard = dict(library_mel=library_mel, bound_a=bound_a, bound_b=lambda b: bound(*epilogue_work(shipped, b)))
 
+    t0 = time.perf_counter()
     timing = {}
     for b, iters in ((256, 50), (4096, 10)):
         w = make_audio_bulk(rng, b, SR, dev)
@@ -3752,14 +3866,17 @@ def main() -> None:
             flush=True,
         )
 
+    print(f"shipped-config launch times: {time.perf_counter() - t0:.3f} s", flush=True)
+
     # Each launch at B = 1024 on configs the card once ran on the torch
     # chain, beside its bound and torch.stft + mel (the spectral launch's
     # library yardstick), its plain version and, for the contrast launch,
     # the fft rows: launch A's FFT plan on n_fft 2048 at 16 and 22.05 kHz
-    # and on n_fft 1024 (nfft1024_contrast's base), its GEMM plan on 10 s
-    # clips, on n_fft 2000 (the span from device memory) and over two mel
-    # groups (n_fft 768, 256 mels); the contrast launch's FFT plan on n_fft
-    # 1024, 2048 and 4096, its GEMM plan on n_fft 2000. Where the FFT plan's
+    # and on n_fft 1024 (nfft1024_contrast's base), 2000 and 3000 and on
+    # n_fft 768 at 256 mels (radix-3 and radix-5 stages), its GEMM plan on
+    # 10 s clips; the contrast launch's FFT plan on n_fft 1024, 2048, 4096,
+    # 2000 and 3000. The GEMM plans these n_fft took until their FFT plans
+    # are not timed again (PERF.md keeps their times). Where the FFT plan's
     # threshold and its 128-mel rule are set (n_fft 1024, 256 mels), the
     # GEMM plan too, called through its C function.
     # A contrast config's pair is its base's: only its contrast launch is
@@ -3767,11 +3884,12 @@ def main() -> None:
     t0 = time.perf_counter()
     coverage_timing = {}
     covered_cfgs = dict(coverage_configs())
-    for name in ("nfft1024", "nfft2000"):
+    for name in ("nfft1024", "nfft2000", "nfft3000"):
         cfg = covered_cfgs[f"{name}_contrast"][0]
         covered_cfgs[name] = (dataclasses.replace(cfg, use_spectral_contrast=False), ())
-    for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft2000", "nfft768_mels256",
-                 "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast"):
+    for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft2000", "nfft3000", "nfft768_mels256",
+                 "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
+                 "nfft3000_contrast"):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -3937,6 +4055,7 @@ def main() -> None:
         )
     print(f"contrast launch times: {time.perf_counter() - t0:.3f} s (budget 10 s)", flush=True)
 
+    phase("5 serving")
     # -- 5. the serving path -----------------------------------------------------
     cfg = default_config("residual")
     gen = torch.Generator().manual_seed(SEED)
@@ -4119,33 +4238,43 @@ def main() -> None:
         flush=True,
     )
 
+    phase("6 training")
     # -- 6. the training path -------------------------------------------------------
-    trained = train_phase(smi)
+    trained = train_phase(smi, tuple(made))
 
+    phase("7 files")
     # -- 7. files to detections ----------------------------------------------------------
-    files = files_phase(smi, trained["shard"], yard)
+    files = files_phase(smi, trained["shard"], yard, prepare)
 
+    phase("8 daemon")
     # -- 8. the serving daemon and the native tiers -------------------------------
     daemon = daemon_phase(smi, trained["best_model"], files["data"], files["decode"], trained["shard"])
 
+    phase("9 tools")
     # -- 9. spectral contrast through the hybrid, and the tools between training and serving
     tools = tools_phase(smi, trained, files)
 
+    phase("10 parallel")
     # -- 10. training and scoring across ranks and devices --------------------------------
     par = parallel_phase(smi, trained, files)
 
+    phase("11 graphs")
     # -- 11. captured programs: the graphed tick and steps against the eager ones --------
     graphed = graphs_phase(smi, trained, weights, cfg)
 
+    phase("12 pipelined")
     # -- 12. pipelined epochs and the scoring programs ------------------------------------
     pipelined = pipeline_phase(smi, trained, files)
 
+    phase("13 bench")
     # -- 13. the port's bench --------------------------------------------------------------
     benched = bench_phase(smi, yard)
 
+    phase("14 mesh")
     # -- 14. training over a mesh -----------------------------------------------------------
     meshed = mesh_phase(smi, par)
 
+    phase("15 summary")
     # -- 15. summary ---------------------------------------------------------------
     main_b = 256
     kernels = [
@@ -4259,6 +4388,9 @@ def main() -> None:
             "coverage_b1024": {name: rows[part] for name, rows in coverage_timing.items()
                                if part in rows and rows[part].get("plan") == "fft"},
         })
+    phase("end")
+    print("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(starts, starts[1:]))
+          + f"; total {starts[-1][1] - starts[0][1]:.1f} s, after {imports_s:.1f} s of imports", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

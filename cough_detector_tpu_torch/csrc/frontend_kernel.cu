@@ -75,17 +75,18 @@
 //    zeroing loop; the mbarrier wait loop and the lane-0 refill are inside
 //    asm, with predicates, so no C++ branch surrounds an in-flight group.
 //
-//  * Every config. A power-of-two n_fft from 1024 on, or more than 128
-//    mels, takes the FFT plan (spectral_fft_kernel, plan_a; its note with
-//    the FFT plans below): at n_fft 2048 this GEMM ran 13.75 ms at B =
-//    1024 where cuFFT and a mel matmul take 1.06, and on 256 mels its two
-//    mel groups 1.34 ms against the FFT plan's 0.67. Otherwise more than
-//    128 mels take mel groups of at most 128, each its own blocks on grid
-//    x, the DFT run again for each (the registers hold one group's mel
-//    accumulators beside the DFT's). A hop under 8 takes no bank skew. A
-//    tile whose waveform span passes shared memory (an n_fft that is not
-//    a power of two, as 1,500 at hop 375) gathers its A fragments from
-//    device memory instead of the span (DftPass<false>, staged_a).
+//  * Every config. An even n_fft of prime factors 2, 3 and 5 from 640 on,
+//    or past 128 mels, takes the FFT plan (spectral_fft_kernel, plan_a;
+//    its note with the FFT plans below): at n_fft 2048 this GEMM ran 13.75
+//    ms at B = 1024 where cuFFT and a mel matmul take 1.06, and on 256
+//    mels its two mel groups 1.34 ms against the FFT plan's 0.67. Any
+//    other n_fft (odd, or with a prime factor of 7 or more) stays here:
+//    more than 128 mels take mel groups of at most 128, each its own
+//    blocks on grid x, the DFT run again for each (the registers hold one
+//    group's mel accumulators beside the DFT's); a tile whose waveform
+//    span passes shared memory (as 1,792 at hop 448) gathers its A
+//    fragments from device memory instead of the span (DftPass<false>,
+//    staged_a). A hop under 8 takes no bank skew.
 //
 // What a later PR does next on launch A: stage the next clip's waveform
 // while this one computes (a persistent block), the largest fixed cost
@@ -95,11 +96,11 @@
 // runs the shipped config in 1.73 ms at B = 4096 against this design's
 // 1.00, so the shipped config keeps it. On the FFT plans: fewer stages
 // (radix 8 and 16 in registers: fewer barriers and passes over shared
-// memory) and stores that meet no bank conflicts. The GEMM plans left to
-// an n_fft that is not a power of two lose to cuFFT as n_fft 2048's did
-// (n_fft 2000: launch A 12.49 ms at B = 1024 against 1.24, launch C 20.32
-// against 4.50; n_fft 768 with two mel groups 3.13 against 1.35): an FFT
-// plan with mixed-radix (3, 5) Stockham stages would take them.
+// memory) and stores that meet no bank conflicts. Until the FFT plans'
+// radix-3 and radix-5 stages, the GEMM plans lost to cuFFT on n_fft 2000
+// (launch A 12.49 ms at B = 1024 against 1.24, launch C 20.32 against
+// 4.50) and on n_fft 768 with two mel groups (3.13 against 1.35); an n_fft
+// with a prime factor of 7 or more still takes them.
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
@@ -141,7 +142,7 @@ constexpr int kRedC = 16;                           // floats of launch C's redu
 constexpr int kBandChunk = 128;                     // launch C: a band's bins a selection pass, 4 a lane
 constexpr int kFftPoints = 8192;                    // FFT plans: complex points a block holds (64 KB)
 constexpr int kFftMaxFrames = 32;                   // FFT plans: frames a block takes at most
-constexpr int kFftMinNfft = 1024;                   // FFT plans: the least n_fft (a power of two) they take
+constexpr int kFftMinNfft = 640;                    // FFT plans: the least n_fft they take (past 128 mels any)
 constexpr int kPostItems = kFftPoints / kThreadsA + 1;  // launch A's FFT plan: power values a thread holds
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
@@ -1177,7 +1178,7 @@ __global__ void __launch_bounds__(kThreadsB, 1) epilogue_cluster_kernel(
 // JAX package appends to the Pallas kernel's rows in jnp
 // (cough_detector_tpu/ops/pallas/frontend_kernel.py:326-348, computing
 // ops/frontend.py::spectral_contrast with method="gemm"). This note is its
-// GEMM plan's; a power-of-two n_fft from 1024 on takes its FFT plan
+// GEMM plan's; an even 5-smooth n_fft from 640 on takes its FFT plan
 // (contrast_fft_kernel, plan_c; its note with the FFT plans below): at
 // n_fft 2048 this design ran 20.4-20.6 ms at B = 1024 against cuFFT's
 // 4.2.
@@ -1453,23 +1454,27 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 
 // -- The FFT plans of launches A and C ------------------------------------------
 //
-// For a power-of-two n_fft from kFftMinNfft on, launches A and C compute
-// their spectra by FFT instead of the DFT as a GEMM (plan_a, plan_c): the
-// GEMM costs O(n_fft) a bin, and at n_fft 2048 it pads 32 frames to 128
-// rows, runs 256 k-steps over 2,048 taps and 9 passes over 1,025 bins,
-// three TF32 products each, where an FFT costs O(log n_fft) a bin.
+// For an even n_fft of prime factors 2, 3 and 5 from kFftMinNfft on
+// (fft_nfft), launches A and C compute their spectra by FFT instead of the
+// DFT as a GEMM (plan_a, plan_c): the GEMM costs O(n_fft) a bin, and at
+// n_fft 2048 it pads 32 frames to 128 rows, runs 256 k-steps over 2,048
+// taps and 9 passes over 1,025 bins, three TF32 products each, where an
+// FFT costs O(log n_fft) a bin.
 //  * A block takes `frames` consecutive frames of one clip (kFftPoints
 //    complex points a block, at most kFftMaxFrames frames) and stages their
 //    span once in shared memory by WaveSrc (reflect pad, pre-emphasis),
 //    then packs each windowed frame into complex points, in shared memory.
 //  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (one of
-//    radix 2 first when log2 of the points is odd, then radix 4), every
-//    frame of the block at once, each stage in place: a thread reads its
+//    radix 2 first when the points hold an odd power of two, then radix 4,
+//    then radix 3 and radix 5, each R-point DFT in registers), every frame
+//    of the block at once, each stage in place: a thread reads its
 //    butterflies' points into registers, the block meets at a barrier,
-//    then it writes their outputs. Twiddles e^{-2 pi i k / n_fft} for k in
-//    [0, n_fft / 2] come from a table the host builds in float64 and
-//    rounds once (ops/frontend_kernel.py::_twiddles), staged in shared
-//    memory; k past n_fft / 2 is the negated entry of k - n_fft / 2.
+//    then it writes their outputs. Rows and butterfly indices come by
+//    shifts for a power of two, else by a multiply (DivBy). Twiddles
+//    e^{-2 pi i k / n_fft} for k in [0, n_fft / 2] come from a table the
+//    host builds in float64 and rounds once (ops/frontend_kernel.py::
+//    _twiddles), staged in shared memory; k past n_fft / 2 is the negated
+//    entry of k - n_fft / 2.
 //  * Launch A (spectral_fft_kernel) packs the frame's n_fft reals as
 //    n_fft / 2 complex (even samples real, odd imaginary), and the real
 //    FFT's bin k is (Z[k] + conj Z[m - k]) / 2 + w^k (-i) (Z[k] - conj
@@ -1504,14 +1509,22 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    and post-twiddles in torch ops: ops/frontend_kernel.py's
 //    power_mel_fft_reference and spectral_contrast_fft_reference.
 
-__host__ __device__ inline bool pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
+// Whether n's only prime factors are 2, 3 and 5 (n >= 1).
+__host__ __device__ inline bool smooth235(int n) {
+  if (n < 1) return false;
+  while (n % 2 == 0) n /= 2;
+  while (n % 3 == 0) n /= 3;
+  while (n % 5 == 0) n /= 5;
+  return n == 1;
+}
 
 // The FFT plans' shared memory, in floats: the points (2 floats each,
 // frames x points a frame), the frames' waveform span, the twiddles
 // (n_fft / 2 + 1 float2), then for launch C the group's power rows
 // (frames x n_pow) and the reduction slots (its contrast rows go to the
 // output and are z-normed there in place). `frames` halves from its most
-// until the layout fits.
+// until the layout fits; launch C's most is rounded down to a power of
+// two, since its threads split evenly over the frames (tpf).
 struct LayoutF {
   int frames, span, tw, pow, red, end;
 
@@ -1522,7 +1535,10 @@ struct LayoutF {
   __host__ __device__ LayoutF(int n_fft, int hop, int n_pow) { fit(n_fft, n_fft, hop, n_pow, true); }
 
   __host__ __device__ void fit(int points, int n_fft, int hop, int n_pow, bool contrast) {
-    for (frames = kFftPoints / points < kFftMaxFrames ? kFftPoints / points : kFftMaxFrames;; frames /= 2) {
+    frames = kFftPoints / points < kFftMaxFrames ? kFftPoints / points : kFftMaxFrames;
+    if (contrast)
+      while (frames & (frames - 1)) frames &= frames - 1;
+    for (;; frames /= 2) {
       span = 2 * frames * points;
       tw = span + ((frames - 1) * hop + n_fft + 3) / 4 * 4;
       pow = tw + n_fft + 2;
@@ -1535,13 +1551,18 @@ struct LayoutF {
   __host__ __device__ size_t bytes() const { return sizeof(float) * end; }
 };
 
-// Whether an n_fft can take an FFT plan: a power of two (from 64) whose
-// frame fits a block's points. plan_a and plan_c take it from kFftMinNfft
-// on, and launch A also past 128 mels, where its GEMM plan runs the DFT
-// again for each mel group (1.34 ms at B = 1024 on 256 mels, the FFT plan
-// 0.67).
+// Whether an n_fft can take an FFT plan: an even n_fft (from 64) of
+// prime factors 2, 3 and 5 whose frame fits a block's points (the stages
+// are of radix 2, 4, 3 and 5; the twiddle table's negated half needs n_fft
+// / 2 whole). plan_a and plan_c take it from kFftMinNfft on, and launch A
+// also past 128 mels, where its GEMM plan runs the DFT again for each mel
+// group (1.34 ms at B = 1024 on 256 mels, the FFT plan 0.67). At 128 mels
+// and hop n_fft / 4 the FFT plan beat the GEMM at B = 1024 and 4096 on
+// n_fft 640 (launch A 1.5x, launch C 1.2x), 768 and 1000 (2.1-3.1x), where
+// the GEMM keeps n_fft 512 (the shipped config: 0.99 ms against the FFT's
+// 1.74 at B = 4096; tools/spectral_probe.py, tools/contrast_probe.py).
 __host__ __device__ inline bool fft_nfft(int n_fft, int points_a_frame) {
-  return pow2(n_fft) && n_fft >= 64 && points_a_frame <= kFftPoints;
+  return n_fft >= 64 && n_fft % 2 == 0 && smooth235(n_fft) && points_a_frame <= kFftPoints;
 }
 
 // Launch A's plan: the FFT, else the GEMM with its span staged or not.
@@ -1575,51 +1596,97 @@ __device__ __forceinline__ float2 twiddle(const float2* tw, int idx, int half) {
   return lo ? t : make_float2(-t.x, -t.y);
 }
 
-// One Stockham stage of radix R over `total` points in rows of p (a power
-// of two), in place: butterfly j of a row reads points j + r p / R,
-// multiplies point r by w_{ns R}^{r (j mod ns)} (the table's entry r (j mod
-// ns) n_fft / (ns R)), takes their R-point DFT and writes output r to (j -
-// j mod ns) R + j mod ns + r ns. All reads, a barrier, all writes, a barrier.
+// n / d for 0 <= n and 1 <= d with n d < 2^31 (points and counts of a
+// block's FFT, at most kFftPoints each), by a multiply: m = ceil(2^31 / d)
+// overestimates 2^31 / d by less than 1, so 2n m / 2^32 passes n / d by
+// less than n / 2^31 < 1 / d, never reaching the next whole number.
+struct DivBy {
+  unsigned m;
+  __device__ __forceinline__ explicit DivBy(int d) : m((0x7FFFFFFFu + d) / d) {}
+  __device__ __forceinline__ int operator()(int n) const { return (int)__umulhi((unsigned)n << 1, m); }
+};
+
+// cos and sin of 2 pi / 3, 2 pi / 5 and 4 pi / 5, from float64 values,
+// rounded once (ops/frontend_kernel.py's _stockham uses the same).
+constexpr float kSin3 = 0.86602540378443865;
+constexpr float kCos5a = 0.30901699437494742, kSin5a = 0.95105651629515357;
+constexpr float kCos5b = -0.80901699437494742, kSin5b = 0.58778525229247314;
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+
+// The R-point DFT (w = e^{-2 pi i / R}) of v, in place.
 template <int R>
-__device__ __forceinline__ void fft_stage(float2* buf, int total, int log2p, int ns, int n_fft, const float2* tw) {
-  constexpr int kItems = kFftPoints / R / kThreadsA;
-  const int q = (1 << log2p) / R, lq = log2p - (R == 4 ? 2 : 1);
-  const int step = n_fft / (ns * R), half = n_fft / 2;
+__device__ __forceinline__ void dft_points(float2 (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = v[0], b = v[1];
+    v[0] = cadd(a, b);
+    v[1] = csub(a, b);
+  } else if constexpr (R == 3) {
+    const float2 s = cadd(v[1], v[2]), d = csub(v[1], v[2]);
+    const float2 t = make_float2(v[0].x - 0.5f * s.x, v[0].y - 0.5f * s.y);  // v0 + cos(2 pi / 3) s
+    const float2 u = make_float2(kSin3 * d.y, -(kSin3 * d.x));                // -i sin(2 pi / 3) d
+    v[0] = cadd(v[0], s);
+    v[1] = cadd(t, u);
+    v[2] = csub(t, u);
+  } else if constexpr (R == 4) {
+    const float2 a0 = cadd(v[0], v[2]), a1 = csub(v[0], v[2]), a2 = cadd(v[1], v[3]);
+    const float2 d = csub(v[1], v[3]);
+    const float2 a3 = make_float2(d.y, -d.x);  // -i d
+    v[0] = cadd(a0, a2);
+    v[1] = cadd(a1, a3);
+    v[2] = csub(a0, a2);
+    v[3] = csub(a1, a3);
+  } else {
+    static_assert(R == 5, "radix 2, 3, 4 or 5");
+    const float2 t1 = cadd(v[1], v[4]), t2 = csub(v[1], v[4]), t3 = cadd(v[2], v[3]), t4 = csub(v[2], v[3]);
+    const float2 m1 = make_float2(v[0].x + kCos5a * t1.x + kCos5b * t3.x, v[0].y + kCos5a * t1.y + kCos5b * t3.y);
+    const float2 m2 = make_float2(v[0].x + kCos5b * t1.x + kCos5a * t3.x, v[0].y + kCos5b * t1.y + kCos5a * t3.y);
+    const float2 n1 = make_float2(kSin5a * t2.x + kSin5b * t4.x, kSin5a * t2.y + kSin5b * t4.y);
+    const float2 n2 = make_float2(kSin5b * t2.x - kSin5a * t4.x, kSin5b * t2.y - kSin5a * t4.y);
+    v[0] = cadd(cadd(v[0], t1), t3);
+    v[1] = make_float2(m1.x + n1.y, m1.y - n1.x);  // m1 - i n1
+    v[4] = make_float2(m1.x - n1.y, m1.y + n1.x);  // m1 + i n1
+    v[2] = make_float2(m2.x + n2.y, m2.y - n2.x);
+    v[3] = make_float2(m2.x - n2.y, m2.y + n2.x);
+  }
+}
+
+// One Stockham stage of radix R over `total` points in rows of p, in
+// place: butterfly j of a row reads points j + r p / R, multiplies point r
+// by w_{ns R}^{r (j mod ns)} (the table's entry r (j mod ns) n_fft / (ns
+// R)), takes their R-point DFT and writes output r to (j - j mod ns) R + j
+// mod ns + r ns. All reads, a barrier, all writes, a barrier. Butterfly e
+// of the block (row e / q, j = e mod q, q = p / R, a multiple of ns) reads
+// from e + (e / q)(p - q) and writes to e + (e / ns)(R - 1) ns, with j mod
+// ns = e mod ns: the divisions by shifts where p is a power of two
+// (kPow2), else by DivBy.
+template <int R, bool kPow2>
+__device__ __forceinline__ void fft_stage(float2* buf, int total, int p, int ns, int n_fft, const float2* tw) {
+  constexpr int kItems = (kFftPoints / R + kThreadsA - 1) / kThreadsA;
+  const int q = p / R, n = total / R, step = n_fft / (ns * R), half = n_fft / 2;
+  const int lq = __ffs(q) - 1, lns = __ffs(ns) - 1;  // log2 q and log2 ns, where kPow2
+  const DivBy by_q(q), by_ns(ns);
   float2 v[kItems][R];
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const int e = threadIdx.x + it * kThreadsA;
-    if (e < total / R) {
-      const int row = e >> lq, j = e & (q - 1), k = j & (ns - 1);
-      const float2* src = buf + (row << log2p) + j;
+    if (e < n) {
+      const float2* src = buf + e + (kPow2 ? e >> lq : by_q(e)) * (p - q);
+      const int k = kPow2 ? e & (ns - 1) : e - by_ns(e) * ns;
 #pragma unroll
       for (int r = 0; r < R; ++r) v[it][r] = src[r * q];
 #pragma unroll
       for (int r = 1; r < R; ++r) v[it][r] = cmul(v[it][r], twiddle(tw, r * k * step, half));
-      if constexpr (R == 2) {
-        const float2 a = v[it][0], b = v[it][1];
-        v[it][0] = make_float2(a.x + b.x, a.y + b.y);
-        v[it][1] = make_float2(a.x - b.x, a.y - b.y);
-      } else {
-        const float2 a0 = make_float2(v[it][0].x + v[it][2].x, v[it][0].y + v[it][2].y);
-        const float2 a1 = make_float2(v[it][0].x - v[it][2].x, v[it][0].y - v[it][2].y);
-        const float2 a2 = make_float2(v[it][1].x + v[it][3].x, v[it][1].y + v[it][3].y);
-        const float2 d = make_float2(v[it][1].x - v[it][3].x, v[it][1].y - v[it][3].y);
-        const float2 a3 = make_float2(d.y, -d.x);  // -i d
-        v[it][0] = make_float2(a0.x + a2.x, a0.y + a2.y);
-        v[it][1] = make_float2(a1.x + a3.x, a1.y + a3.y);
-        v[it][2] = make_float2(a0.x - a2.x, a0.y - a2.y);
-        v[it][3] = make_float2(a1.x - a3.x, a1.y - a3.y);
-      }
+      dft_points<R>(v[it]);
     }
   }
   __syncthreads();
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const int e = threadIdx.x + it * kThreadsA;
-    if (e < total / R) {
-      const int row = e >> lq, j = e & (q - 1), k = j & (ns - 1);
-      float2* dst = buf + (row << log2p) + (j - k) * R + k;
+    if (e < n) {
+      float2* dst = buf + e + (kPow2 ? (e >> lns) << lns : by_ns(e) * ns) * (R - 1);
 #pragma unroll
       for (int r = 0; r < R; ++r) dst[r * ns] = v[it][r];
     }
@@ -1627,16 +1694,42 @@ __device__ __forceinline__ void fft_stage(float2* buf, int total, int log2p, int
   __syncthreads();
 }
 
-// The FFT of each row of 2^log2p points in buf (rows x points <= kFftPoints),
-// in natural order, in place; w = e^{-2 pi i / n_fft} from the table.
-__device__ void fft_rows(float2* buf, int rows, int log2p, int n_fft, const float2* tw) {
-  const int total = rows << log2p;
+// fft_rows for p = 2^a 3^b 5^c that is not a power of two: one of radix 2
+// when a is odd, then radix 4, then the 3s, then the 5s.
+__device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, int n_fft, const float2* tw) {
+  int twos = 0, threes = 0;
+  for (int r = p; r % 2 == 0; r /= 2) ++twos;
+  for (int r = p >> twos; r % 3 == 0; r /= 3) ++threes;
   int ns = 1;
-  if (log2p & 1) {
-    fft_stage<2>(buf, total, log2p, 1, n_fft, tw);
+  if (twos & 1) {
+    fft_stage<2, false>(buf, total, p, ns, n_fft, tw);
     ns = 2;
   }
-  for (; ns < (1 << log2p); ns *= 4) fft_stage<4>(buf, total, log2p, ns, n_fft, tw);
+  for (int i = 0; i < twos / 2; ++i, ns *= 4) fft_stage<4, false>(buf, total, p, ns, n_fft, tw);
+  for (int i = 0; i < threes; ++i, ns *= 3) fft_stage<3, false>(buf, total, p, ns, n_fft, tw);
+  for (; ns < p; ns *= 5) fft_stage<5, false>(buf, total, p, ns, n_fft, tw);
+}
+
+// The FFT of each row of p = 2^a 3^b 5^c points in buf (rows x p <=
+// kFftPoints), in natural order, in place; w = e^{-2 pi i / n_fft} from
+// the table. The stages (ops/frontend_kernel.py::_fft_radices): for a
+// power of two, one of radix 2 when log2 p is odd, then radix 4; else
+// fft_rows_mixed's. The power-of-two path keeps its shifts: with DivBy's
+// multiplies there, in the same kernel as the mixed stages, the registers
+// crowd and launch C's power-of-two plans lose time
+// (tools/contrast_probe.py's "DivBy for a power of two" variant; PERF.md).
+__device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft, const float2* tw) {
+  const int total = rows * p;
+  if (p & (p - 1)) {
+    fft_rows_mixed(buf, total, p, n_fft, tw);
+    return;
+  }
+  int ns = 1;
+  if ((__ffs(p) - 1) & 1) {
+    fft_stage<2, true>(buf, total, p, ns, n_fft, tw);
+    ns = 2;
+  }
+  for (; ns < p; ns *= 4) fft_stage<4, true>(buf, total, p, ns, n_fft, tw);
 }
 
 // One frame's contrast in one band of w <= 32 kK bins at pb, by a warp:
@@ -1722,7 +1815,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   float2* buf = reinterpret_cast<float2*>(base);
   float* span = base + lay.span;
   float2* tw = reinterpret_cast<float2*>(base + lay.tw);
-  const int F = lay.frames, m = n_fft / 2, half = n_fft / 2, log2m = __ffs(m) - 1;
+  const int F = lay.frames, m = n_fft / 2, half = n_fft / 2;
   const int groups = (n_frames + F - 1) / F;
   const int b = blockIdx.x / groups, t0 = blockIdx.x % groups * F, frames = min(F, n_frames - t0);
   const int tid = threadIdx.x;
@@ -1741,15 +1834,16 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   __syncthreads();
 
   // 2. Each windowed frame's n_fft reals as m complex points.
+  const DivBy by_m(m);
   for (int e = tid; e < F * m; e += kThreadsA) {
-    const int f = e >> log2m, n = 2 * (e & (m - 1));
+    const int f = by_m(e), n = 2 * (e - f * m);
     const float* x = span + f * hop + n;
     buf[e] = make_float2(x[0] * __ldg(window + n), x[1] * __ldg(window + n + 1));
   }
   __syncthreads();
 
   // 3. The FFT of each frame's m points.
-  fft_rows(buf, F, log2m, n_fft, tw);
+  fft_rows(buf, F, m, n_fft, tw);
 
   // 4. The real FFT's bins [0, n_used), their power in registers, then in
   // place of the points: F rows of an odd stride, so that the mel's reads
@@ -1761,7 +1855,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
     const int e = tid + it * kThreadsA;
     if (e < F * n_used) {
       const int f = e / n_used, k = e - f * n_used;
-      const float2 a = buf[(f << log2m) + (k & (m - 1))], c = buf[(f << log2m) + ((m - k) & (m - 1))];
+      const float2 a = buf[f * m + (k == m ? 0 : k)], c = buf[f * m + (k == 0 ? 0 : m - k)];  // Z[k], Z[m - k] mod m
       const float2 ev = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
       const float2 d = make_float2(0.5f * (a.x - c.x), 0.5f * (a.y + c.y));
       const float2 od = cmul(tw[k], make_float2(d.y, -d.x));  // w^k (-i d)
@@ -1806,7 +1900,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     const float* __restrict__ freqs, float half_sr, const int4* __restrict__ bands, int n_bands,
     float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  const int n_rows = n_bands + 1, n = n_rows * n_frames, half = n_fft / 2, log2n = __ffs(n_fft) - 1;
+  const int n_rows = n_bands + 1, n = n_rows * n_frames, half = n_fft / 2;
   const LayoutF lay(n_fft, hop, n_pow);
   float* base = reinterpret_cast<float*>(smem4);
   float2* buf = reinterpret_cast<float2*>(base);
@@ -1816,8 +1910,9 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
   float* con = out + (size_t)blockIdx.x * n;  // the clip's rows, z-normed in place at the end
   float* red = base + lay.red;
   const int F = lay.frames, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tpf = kThreadsA / F;  // threads a frame in the split
+  const int tpf = kThreadsA / F;  // threads a frame in the split (F a power of two: LayoutF)
   const int f_own = tid / tpf, l_own = tid - f_own * tpf;
+  const DivBy by_n(n_fft);
 
   for (int i = tid; i <= half; i += kThreadsA) tw[i] = twiddles[i];
   WaveSrc src;
@@ -1833,22 +1928,22 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     src.live = (frames - 1) * hop + n_fft;
     stage_flat(span, src, (F - 1) * hop + n_fft);
     __syncthreads();
-    for (int e = tid; e < F << log2n; e += kThreadsA) {
-      const int f = e >> log2n, k = e & (n_fft - 1);
+    for (int e = tid; e < F * n_fft; e += kThreadsA) {
+      const int f = by_n(e), k = e - f * n_fft;
       const float x = span[f * hop + k];
       buf[e] = make_float2(__ldg(windows + k) * x, __ldg(windows + n_fft + k) * x);
     }
     __syncthreads();
 
     // 2. The FFT of each frame's n_fft points.
-    fft_rows(buf, F, log2n, n_fft, tw);
+    fft_rows(buf, F, n_fft, n_fft, tw);
 
     // 3. The two spectra: the power rows over the bands' bins, the
     // magnitude into the frame's sums; tpf threads a frame.
-    const float2* z = buf + (f_own << log2n);
+    const float2* z = buf + f_own * n_fft;
     float ms = 0.0f, fs = 0.0f;
     for (int k = l_own; k <= half; k += tpf) {
-      const float2 a = z[k], c = z[(n_fft - k) & (n_fft - 1)];
+      const float2 a = z[k], c = z[k == 0 ? 0 : n_fft - k];
       if (k >= pow_lo && k < pow_lo + n_pow) {
         const float re = 0.5f * (a.x + c.x), im = 0.5f * (a.y - c.y);
         pw[f_own * n_pow + k - pow_lo] = re * re + im * im;

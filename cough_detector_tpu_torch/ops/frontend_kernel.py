@@ -39,11 +39,12 @@ waveform length other than segment_samples) raises ValueError instead of
 running the plain chain. Every config the JAX launcher sends to its Pallas
 kernel (`kernel_supports`) runs the launches on the card: each launch picks,
 from the config alone, a plan that fits the card's 227 KB of shared memory
-a block. Launches A and C compute their spectra by FFT for a
-power-of-two n_fft from 1024 on (launch A also past 128 mels): the FFT
-plans (`spectral_plan`, `contrast_level` 4 and 5). Otherwise launch A
-takes more than 128 mels in groups of at most 128, each its own blocks
-(`mel_groups`), and gathers its frames from device memory where a
+a block. Launches A and C compute their spectra by FFT for an even n_fft
+of prime factors 2, 3 and 5 from 640 on (launch A also past 128 mels):
+the FFT plans (`spectral_plan`, `contrast_level` 4), Stockham stages of
+radix 2, 4, 3 and 5. At any other n_fft launch A takes more than 128
+mels in groups of at most 128, each its own blocks (`mel_groups`), and
+gathers its frames from device memory where a
 128-frame tile's waveform span passes shared memory (`spectral_staged`);
 launch B holds a clip in one block, across a thread-block cluster of up
 to 8 (`epilogue_blocks`), or past that works in device memory; the
@@ -107,7 +108,7 @@ _MAX_CLUSTER = 8  # launch B's largest cluster: blocks a clip
 _RED_C = 16  # floats of the contrast launch's reduction slots
 _FFT_POINTS = 8192  # the FFT plans: complex points a block holds (64 KB)
 _FFT_MAX_FRAMES = 32  # the FFT plans: frames a block takes at most
-_FFT_MIN_NFFT = 1024  # the FFT plans: the least n_fft (a power of two) they take
+_FFT_MIN_NFFT = 640  # the FFT plans: the least n_fft they take (launch A past 128 mels: any)
 
 # Launch A's plans (cdt_frontend_plan_a).
 PLAN_GEMM_UNSTAGED, PLAN_GEMM_STAGED, PLAN_FFT = 0, 1, 2
@@ -155,11 +156,14 @@ def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: boo
     the twiddles (n_fft + 2); for the contrast launch the group's power
     rows (frames x n_pow) and the reduction slots (its contrast rows go to
     the output). `frames` halves from the most a block takes until the
-    layout fits."""
+    layout fits; the contrast launch's most is rounded down to a power of
+    two (its threads split evenly over the frames)."""
     def up4(n):
         return (n + 3) // 4 * 4
 
     frames = min(_FFT_POINTS // points, _FFT_MAX_FRAMES)
+    if contrast and frames:
+        frames = 1 << (frames.bit_length() - 1)
     while True:
         end = 2 * frames * points + up4((frames - 1) * hop + n_fft) + n_fft + 2
         if contrast:
@@ -169,18 +173,31 @@ def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: boo
         frames //= 2
 
 
+def _factors235(n: int) -> tuple:
+    """(a, b, c, rest): n = 2^a 3^b 5^c rest, rest free of 2, 3 and 5."""
+    counts = []
+    for f in (2, 3, 5):
+        counts.append(0)
+        while n % f == 0:
+            n //= f
+            counts[-1] += 1
+    return (*counts, n)
+
+
 def _fft_nfft(n_fft: int, points: int) -> bool:
-    """Whether an n_fft takes an FFT plan at all (fft_nfft): a power of two
-    whose frame of `points` complex points fits a block."""
-    return n_fft >= 64 and n_fft & (n_fft - 1) == 0 and points <= _FFT_POINTS
+    """Whether an n_fft takes an FFT plan at all (fft_nfft): an even n_fft
+    from 64 of prime factors 2, 3 and 5, whose frame of `points` complex
+    points fits a block."""
+    return n_fft >= 64 and n_fft % 2 == 0 and _factors235(n_fft)[3] == 1 and points <= _FFT_POINTS
 
 
 def spectral_plan(cfg: FeatureConfig) -> int:
-    """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for a
-    power-of-two n_fft from 1024 on, or past 128 mels, where its layout
-    fits; else the GEMM, PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED
-    (`spectral_staged`). The shipped config (n_fft 512, 64 mels) and every
-    n_fft that is not a power of two take the GEMM."""
+    """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for an even
+    n_fft of prime factors 2, 3 and 5 (`_fft_nfft`) from 640 on, or past
+    128 mels, where its layout fits; else the GEMM, PLAN_GEMM_STAGED or
+    PLAN_GEMM_UNSTAGED (`spectral_staged`). The shipped config (n_fft 512,
+    64 mels), and an odd n_fft or one with a prime factor of 7 or more,
+    take the GEMM."""
     n_fft, hop = cfg.n_fft, cfg.hop_length
     if (_fft_nfft(n_fft, n_fft // 2) and (n_fft >= _FFT_MIN_NFFT or cfg.n_mels > 128)
             and _fft_layout(n_fft // 2, n_fft, hop)[1] <= _MAX_SMEM):
@@ -489,19 +506,61 @@ def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
 
 
 def _fft_radices(points: int) -> list:
-    """The FFT plans' Stockham stages: one of radix 2 first when log2 of
-    the points is odd, then radix 4."""
-    log2 = points.bit_length() - 1
-    return [2] * (log2 % 2) + [4] * (log2 // 2)
+    """The FFT plans' Stockham stages for points = 2^a 3^b 5^c (fft_rows):
+    one of radix 2 first when a is odd, then radix 4, then the 3s, then the
+    5s."""
+    twos, threes, fives, rest = _factors235(points)
+    if rest != 1:
+        raise ValueError("the FFT plans take only points of prime factors 2, 3 and 5")
+    return [2] * (twos % 2) + [4] * (twos // 2) + [3] * threes + [5] * fives
+
+
+# The radix-3 and radix-5 butterflies' constants, as the kernel rounds them
+# (float64 values to float32 once): sin(2 pi / 3); cos and sin of 2 pi / 5
+# and 4 pi / 5.
+_SIN3, _COS5A, _SIN5A, _COS5B, _SIN5B = (float(np.float32(v)) for v in (
+    0.86602540378443865, 0.30901699437494742, 0.95105651629515357, -0.80901699437494742, 0.58778525229247314,
+))
+
+
+def _dft_points(vr: list, vi: list) -> tuple:
+    """The kernel's R-point DFT (dft_points, R = len(vr) in 2-5) of the
+    points (vr[r], vi[r]), with its order of operations."""
+    r = len(vr)
+    if r == 2:
+        return [vr[0] + vr[1], vr[0] - vr[1]], [vi[0] + vi[1], vi[0] - vi[1]]
+    if r == 3:
+        sr, si = vr[1] + vr[2], vi[1] + vi[2]
+        dr, di = vr[1] - vr[2], vi[1] - vi[2]
+        tr, ti = vr[0] - 0.5 * sr, vi[0] - 0.5 * si  # v0 + cos(2 pi / 3) s
+        ur, ui = _SIN3 * di, -(_SIN3 * dr)  # -i sin(2 pi / 3) d
+        return [vr[0] + sr, tr + ur, tr - ur], [vi[0] + si, ti + ui, ti - ui]
+    if r == 4:
+        a0r, a0i = vr[0] + vr[2], vi[0] + vi[2]
+        a1r, a1i = vr[0] - vr[2], vi[0] - vi[2]
+        a2r, a2i = vr[1] + vr[3], vi[1] + vi[3]
+        a3r, a3i = vi[1] - vi[3], -(vr[1] - vr[3])  # -i (v1 - v3)
+        return [a0r + a2r, a1r + a3r, a0r - a2r, a1r - a3r], [a0i + a2i, a1i + a3i, a0i - a2i, a1i - a3i]
+    t1r, t1i, t2r, t2i = vr[1] + vr[4], vi[1] + vi[4], vr[1] - vr[4], vi[1] - vi[4]
+    t3r, t3i, t4r, t4i = vr[2] + vr[3], vi[2] + vi[3], vr[2] - vr[3], vi[2] - vi[3]
+    m1r, m1i = vr[0] + _COS5A * t1r + _COS5B * t3r, vi[0] + _COS5A * t1i + _COS5B * t3i
+    m2r, m2i = vr[0] + _COS5B * t1r + _COS5A * t3r, vi[0] + _COS5B * t1i + _COS5A * t3i
+    n1r, n1i = _SIN5A * t2r + _SIN5B * t4r, _SIN5A * t2i + _SIN5B * t4i
+    n2r, n2i = _SIN5B * t2r - _SIN5A * t4r, _SIN5B * t2i - _SIN5A * t4i
+    return (
+        [vr[0] + t1r + t3r, m1r + n1i, m2r + n2i, m2r - n2i, m1r - n1i],  # m - i n, then m + i n
+        [vi[0] + t1i + t3i, m1i - n1r, m2i - n2r, m2i + n2r, m1i + n1r],
+    )
 
 
 def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) -> tuple:
-    """The FFT plans' FFT along the last axis (a power-of-two count of
-    points) in float32, as csrc/frontend_kernel.cu's fft_rows runs it:
-    stage by stage, butterfly j reads points j + r p / R, multiplies point
-    r > 0 by the table's entry r (j mod ns) n_fft / (ns R) (k past n_fft /
-    2: entry k - n_fft / 2, negated), takes the R-point DFT and writes
-    output r to (j - j mod ns) R + j mod ns + r ns."""
+    """The FFT plans' FFT along the last axis (2^a 3^b 5^c points) in
+    float32, as csrc/frontend_kernel.cu's fft_rows runs it: stage by stage
+    (`_fft_radices`), butterfly j reads points j + r p / R, multiplies
+    point r > 0 by the table's entry r (j mod ns) n_fft / (ns R) (k past
+    n_fft / 2: entry k - n_fft / 2, negated), takes the R-point DFT
+    (`_dft_points`) and writes output r to (j - j mod ns) R + j mod ns + r
+    ns."""
     p = re.shape[-1]
     half = n_fft // 2
     ns = 1
@@ -518,16 +577,7 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) 
             sign = torch.where(low, 1.0, -1.0).to(tw.dtype)
             wr, wi = t[:, 0] * sign, t[:, 1] * sign
             vr[i], vi[i] = vr[i] * wr - vi[i] * wi, vr[i] * wi + vi[i] * wr
-        if r == 2:
-            yr = [vr[0] + vr[1], vr[0] - vr[1]]
-            yi = [vi[0] + vi[1], vi[0] - vi[1]]
-        else:
-            a0r, a0i = vr[0] + vr[2], vi[0] + vi[2]
-            a1r, a1i = vr[0] - vr[2], vi[0] - vi[2]
-            a2r, a2i = vr[1] + vr[3], vi[1] + vi[3]
-            a3r, a3i = vi[1] - vi[3], -(vr[1] - vr[3])  # -i (v1 - v3)
-            yr = [a0r + a2r, a1r + a3r, a0r - a2r, a1r - a3r]
-            yi = [a0i + a2i, a1i + a3i, a0i - a2i, a1i - a3i]
+        yr, yi = _dft_points(vr, vi)
         dst = torch.stack([(j - k) * r + k + i * ns for i in range(r)])  # (r, q)
         re, im = torch.empty_like(re), torch.empty_like(im)
         re[..., dst] = torch.stack(yr, dim=-2)
@@ -768,9 +818,9 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
 
 
 def _contrast_plan(cfg: FeatureConfig) -> tuple:
-    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For a power-of-two
-    n_fft from 1024 on, CONTRAST_FFT where LayoutF fits; else the GEMM's
-    (`_contrast_gemm_plan`)."""
+    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an even n_fft
+    of prime factors 2, 3 and 5 (`_fft_nfft`) from 640 on, CONTRAST_FFT
+    where LayoutF fits; else the GEMM's (`_contrast_gemm_plan`)."""
     n_fft = cfg.n_fft
     if _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT:
         _, smem = _fft_layout(n_fft, n_fft, cfg.hop_length, _geometry(cfg).n_pow, contrast=True)

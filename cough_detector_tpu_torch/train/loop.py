@@ -99,7 +99,12 @@ def deterministic(dev: torch.device):
     earlier cuBLAS call in the process fixed. torch's fill of every new
     tensor's memory, which it turns on with deterministic algorithms, stays
     off: it guards reads of memory no op wrote, which the trainer does not
-    make, and it doubled the kernels of a train step (PERF.md)."""
+    make, and it doubled the kernels of a train step (PERF.md). The flag is
+    set through its core, torch._C._set_deterministic_algorithms:
+    torch.use_deterministic_algorithms also sets torch.compile's inductor
+    option, and importing torch._inductor for it (with dynamo, sympy and
+    triton) took ~8 s of every fresh training process's start on the card's
+    host (tools/rank_start_probe.py); nothing here compiles."""
     if dev.type != "cuda":
         yield
         return
@@ -113,13 +118,13 @@ def deterministic(dev: torch.device):
         cudnn.benchmark,
         fill.fill_uninitialized_memory,
     )
-    torch.use_deterministic_algorithms(True)
+    torch._C._set_deterministic_algorithms(True)
     cudnn.deterministic, cudnn.benchmark = True, False
     fill.fill_uninitialized_memory = False
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch._C._set_deterministic_algorithms(prev[0], warn_only=prev[1])
         cudnn.deterministic, cudnn.benchmark = prev[2], prev[3]
         fill.fill_uninitialized_memory = prev[4]
 

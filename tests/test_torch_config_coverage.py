@@ -4,9 +4,9 @@ card route, on the CPU.
 The JAX launcher (cough_detector_tpu/ops/pallas/frontend_kernel.py) runs
 its kernel for every config with MFCCs at segment length, and appends the
 contrast rows for a contrast config. The port's three launches take the
-same set: more than 128 mels and a power-of-two n_fft from 1024 on by
-FFT (launches A and C's FFT plans), a non-power-of-two n_fft past shared
-memory with the waveform gathered from device memory, clips past 4 s over
+same set: more than 128 mels and an even n_fft of prime factors 2, 3 and 5
+from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
+shared memory with the waveform gathered from device memory, clips past 4 s over
 a thread-block cluster (or in device memory past 8 blocks), a hop of 4,
 and any contrast bands.
 The kernels run only on the card (chip_smoke.py holds them there); here
@@ -50,11 +50,12 @@ CONFIGS = {
     "nfft2048_contrast": dict(NFFT2048, **CONTRAST),
     "bands17": dict(n_contrast_bands=17, **CONTRAST),
 }
-# Configs chip_smoke.py adds for the plans no config above reaches: since
-# the FFT plans took the power-of-two n_fft, the GEMM plans' span from
-# device memory (launch A unstaged, the contrast launch's levels 1 and 3)
-# and launch A's GEMM plan over two mel groups are reached by an n_fft that
-# is not a power of two.
+# Configs chip_smoke.py adds for the plans no config above reaches: the
+# FFT plans at n_fft 4096, 2000, 3000 (radix-3 and radix-5 stages) and 768
+# at 256 mels; and since the FFT plans took every even 5-smooth n_fft, the
+# GEMM plans' span from device memory (launch A unstaged, the contrast
+# launch's levels 1 and 3) and launch A's GEMM plan over two mel groups,
+# reached by an n_fft with a factor of 7.
 EXTRA = {
     "clip60s_128_all_flags": dict(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
                                   use_pre_emphasis=True, use_delta_delta=True, **CONTRAST),
@@ -63,6 +64,9 @@ EXTRA = {
     "nfft2000_contrast": dict(n_fft=2000, win_length=2000, hop_length=500, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft3000_contrast": dict(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft768_mels256": dict(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0),
+    "nfft1792_contrast": dict(n_fft=1792, win_length=1792, hop_length=448, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft2744_contrast": dict(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft896_mels256": dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0),
 }
 JNP = ("clip10s", "hop4")  # too long in interpret mode: the JAX jnp chain instead
 
@@ -86,9 +90,12 @@ PLANS_ON_CARD = {
     "clip60s_128_all_flags": (118096, 1, 128, 0, 91760, 2),
     "hop4_contrast": (36464, 1, 209280, 5, 207888, 0),
     "nfft4096_contrast": (110600, 2, 16512, 1, 107976, 4),
-    "nfft2000_contrast": (32816, 0, 25216, 1, 224272, 1),
-    "nfft3000_contrast": (32816, 0, 19584, 1, 32880, 3),
-    "nfft768_mels256": (136304, 1, 102528, 1, None, None),
+    "nfft2000_contrast": (94008, 2, 25216, 1, 92024, 4),
+    "nfft3000_contrast": (96008, 2, 19584, 1, 79288, 4),
+    "nfft768_mels256": (86024, 2, 102528, 1, None, None),
+    "nfft1792_contrast": (32816, 0, 26752, 1, 206944, 1),
+    "nfft2744_contrast": (32816, 0, 20608, 1, 32880, 3),
+    "nfft896_mels256": (153200, 1, 90240, 1, None, None),
 }
 SMEM = 232448  # bytes of shared memory a block may use on sm_90
 

@@ -53,14 +53,20 @@ COVERAGE = {
     "hop4_contrast": (dict(hop_length=4, **CONTRAST), 1, 0),
     "nfft4096_contrast": (dict(NFFT4096, **CONTRAST), 2, 4),
     "nfft2000_contrast": (dict(n_fft=2000, win_length=2000, hop_length=500, n_mels=128, f_max=8000.0, **CONTRAST),
-                          0, 1),
+                          2, 4),
     "nfft3000_contrast": (dict(n_fft=3000, win_length=3000, hop_length=750, n_mels=128, f_max=8000.0, **CONTRAST),
+                          2, 4),
+    "nfft768_mels256": (dict(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0), 2, None),
+    "nfft1792_contrast": (dict(n_fft=1792, win_length=1792, hop_length=448, n_mels=128, f_max=8000.0, **CONTRAST),
+                          0, 1),
+    "nfft2744_contrast": (dict(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0, **CONTRAST),
                           0, 3),
-    "nfft768_mels256": (dict(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0), 1, None),
+    "nfft896_mels256": (dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), 1, None),
     "shipped": ({}, 1, None),
     "shipped_contrast": (dict(CONTRAST), 1, 0),
 }
-JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast")
+JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
+             "nfft3000_contrast", "nfft768_mels256")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,7 +108,7 @@ def _frames64(w: np.ndarray, cfg: FeatureConfig, pre: bool) -> np.ndarray:
 
 @pytest.mark.parametrize("name, pre", [
     ("nfft2048", False), ("librosa22k", False), ("mels256", False), ("nfft1024_contrast", True),
-    ("nfft4096_contrast", False),
+    ("nfft4096_contrast", False), ("nfft2000_contrast", False), ("nfft3000_contrast", True), ("nfft768_mels256", False),
 ])
 def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     """Launch A's FFT plan's model against the float64 rfft power and mel
@@ -119,7 +125,9 @@ def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     assert _rel(got, plain) < 2e-6
 
 
-@pytest.mark.parametrize("name", ["nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast"])
+@pytest.mark.parametrize("name", [
+    "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast",
+])
 def test_contrast_fft_model_vs_float64_rfft(name):
     """The contrast launch's FFT plan's model (both windows through one
     complex FFT, split by conjugate symmetry) against the contrast rows of
@@ -140,20 +148,33 @@ def test_contrast_fft_model_vs_float64_rfft(name):
     assert _rel(got, plain) < 1e-5
 
 
-@pytest.mark.parametrize("n_fft, points", [(64, 32), (512, 256), (1024, 1024), (2048, 1024), (4096, 4096), (4096, 2048)])
+@pytest.mark.parametrize("n_fft, points", [
+    (64, 32), (512, 256), (1024, 1024), (2048, 1024), (4096, 4096), (4096, 2048), (2000, 1000), (2000, 2000),
+    (3000, 1500), (3000, 3000), (768, 384), (768, 768), (1000, 500),
+])
 def test_stockham_stages_are_the_fft(n_fft, points):
-    """The plans' stages (one of radix 2 when log2 of the points is odd,
-    then radix 4) with the table of w = e^{-2 pi i / n_fft} make the FFT of
-    n_fft / 2 points (launch A) and of n_fft points (launch C)."""
+    """The plans' stages for points = 2^a 3^b 5^c (one of radix 2 when a is
+    odd, then radix 4, then the 3s, then the 5s) with the table of w =
+    e^{-2 pi i / n_fft} make the FFT of n_fft / 2 points (launch A) and of
+    n_fft points (launch C)."""
     rng = np.random.default_rng(points)
     z = rng.standard_normal((3, points)) + 1j * rng.standard_normal((3, points))
     re, im = frontend_kernel._stockham(
         torch.from_numpy(z.real.astype(np.float32)), torch.from_numpy(z.imag.astype(np.float32)),
         torch.from_numpy(frontend_kernel._twiddles(n_fft)), n_fft,
     )
-    log2 = int(np.log2(points))
-    assert frontend_kernel._fft_radices(points) == [2] * (log2 % 2) + [4] * (log2 // 2)
+    a, b, c = (next(e for e in range(14) if points % f ** (e + 1)) for f in (2, 3, 5))
+    assert points == 2**a * 3**b * 5**c
+    assert frontend_kernel._fft_radices(points) == [2] * (a % 2) + [4] * (a // 2) + [3] * b + [5] * c
     assert _rel(re.numpy() + 1j * im.numpy(), np.fft.fft(z, axis=-1)) < 1e-6
+
+
+def test_fft_radices_refuse_other_primes():
+    """A count of points with a prime factor of 7 or more has no stage
+    list: the plan rule sends such an n_fft to the GEMM."""
+    for points in (7, 896, 1372, 1001):
+        with pytest.raises(ValueError):
+            frontend_kernel._fft_radices(points)
 
 
 @pytest.mark.parametrize("name", JAX_STACK)
@@ -179,9 +200,10 @@ def test_feature_stack_through_the_fft_models_matches_jax(name):
 @pytest.mark.parametrize("name", list(COVERAGE))
 def test_plan_mirror(name):
     """Each coverage config's plans, from the config alone: the shipped
-    config and everything off a power-of-two n_fft from 1024 (or past 128
+    config and everything off an even 5-smooth n_fft from 640 (or past 128
     mels for launch A) on the GEMM, the rest on the FFT; the FFT layouts
-    fit a block, two blocks an SM."""
+    fit a block, two blocks an SM, and launch C's frames a block are a
+    power of two."""
     cfg = _cfg(name)
     base = dataclasses.replace(cfg, use_spectral_contrast=False)
     plan_a, plan_c = COVERAGE[name][1:]
@@ -197,15 +219,21 @@ def test_plan_mirror(name):
     if plan_c is not None:
         assert frontend_kernel.contrast_level(cfg) == plan_c
         assert frontend_kernel.contrast_smem_bytes(cfg) <= 232448
+        if plan_c == frontend_kernel.CONTRAST_FFT:
+            frames = frontend_kernel._fft_layout(cfg.n_fft, cfg.n_fft, cfg.hop_length,
+                                                 frontend_kernel._geometry(cfg).n_pow, contrast=True)[0]
+            assert frames & (frames - 1) == 0 and frames * cfg.n_fft <= 8192
 
 
 def test_shipped_config_keeps_its_gemm_plans():
     """The shipped config (n_fft 512, 64 mels) keeps its GEMM plans, staged,
-    and so does every n_fft that is not a power of two."""
+    and so does every n_fft with a prime factor of 7 or more, and every odd
+    one."""
     shipped = FeatureConfig()
     assert frontend_kernel.spectral_plan(shipped) == frontend_kernel.PLAN_GEMM_STAGED
     assert frontend_kernel.contrast_level(FeatureConfig(use_spectral_contrast=True)) == 0
-    for kw in (dict(n_fft=1536, win_length=1536, hop_length=384), dict(n_fft=3000, n_mels=256, f_max=8000.0)):
+    for kw in (dict(n_fft=1792, win_length=1792, hop_length=448), dict(n_fft=2744, n_mels=256, f_max=8000.0),
+               dict(n_fft=1125, win_length=1125, hop_length=281, n_mels=256, f_max=8000.0)):
         cfg = FeatureConfig(use_spectral_contrast=True, **kw)
         assert frontend_kernel.spectral_plan(cfg) != frontend_kernel.PLAN_FFT
         assert frontend_kernel.contrast_level(cfg) < frontend_kernel.CONTRAST_FFT
@@ -215,7 +243,8 @@ def _c_plan_rules():
     """The plan rules of csrc/frontend_kernel.cu, built for the host with
     g++ (its layouts and plans are plain C++): a program that reads
     (n_fft, hop, kpad, n_mels, n_pow, n_frames, n_bands) lines and prints
-    plan_a, its shared memory, plan_c and its shared memory."""
+    plan_a, its shared memory, plan_c, its shared memory, and LayoutF's
+    frames for each launch."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -230,7 +259,7 @@ def _c_plan_rules():
         between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
         between("struct LayoutA {", "// Launch B's layout."),
         between("struct LayoutC {", "__device__ __forceinline__ float warp_sum"),
-        between("__host__ __device__ inline bool pow2", "__device__ __forceinline__ float2 cmul"),
+        between("// Whether n's only prime factors are 2, 3 and 5", "__device__ __forceinline__ float2 cmul"),
         r"""int main() {
   int n_fft, hop, kpad, n_mels, n_pow, n_frames, n_bands;
   while (scanf("%d %d %d %d %d %d %d", &n_fft, &hop, &kpad, &n_mels, &n_pow, &n_frames, &n_bands) == 7) {
@@ -238,7 +267,7 @@ def _c_plan_rules():
     const size_t sa = a == kPlanFft ? LayoutF(n_fft, hop).bytes() : LayoutA(hop, kpad, a == kPlanGemmStaged).bytes(2);
     const size_t sc = c == kPlanCFft ? LayoutF(n_fft, hop, n_pow).bytes()
                                      : LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).bytes(2);
-    printf("%d %zu %d %zu\n", a, sa, c, sc);
+    printf("%d %zu %d %zu %d %d\n", a, sa, c, sc, LayoutF(n_fft, hop).frames, LayoutF(n_fft, hop, n_pow).frames);
   }
 }""",
     ])
@@ -248,16 +277,19 @@ def _c_plan_rules():
 def test_plan_mirrors_equal_the_c_rules(tmp_path):
     """Launch A's and the contrast launch's plans and shared memory, from
     the Python mirrors, equal the kernel source's own rules (compiled for
-    the host) over a grid of configs: n_fft from 256 to 4096, powers of two
-    and not, hops from 4 to past n_fft, 32 to 256 mels, 1 and 10 s clips, 6
-    and 17 bands."""
+    the host) over a grid of configs: n_fft from 256 to 4096, powers of two,
+    other even 5-smooth counts (640 to 3000), one with a factor of 7 and an
+    odd one, hops from 4 to past n_fft, 32 to 256 mels, 1 and 10 s clips, 6
+    and 17 bands; and so do LayoutF's frames a block for each launch, launch
+    C's rounded down to a power of two (8 at n_fft 768, 4 at 1200)."""
     gxx, code = _c_plan_rules()
     (tmp_path / "plans.cpp").write_text(code)
     subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plans"), str(tmp_path / "plans.cpp")], check=True)
     cfgs = [
         FeatureConfig(n_fft=n, win_length=min(win, n), hop_length=hop, n_mels=mels, f_max=8000.0,
                       segment_duration=dur, use_spectral_contrast=True, n_contrast_bands=bands)
-        for n, win in ((256, 200), (512, 400), (768, 768), (1024, 1024), (1024, 400), (2048, 2048), (4096, 4096))
+        for n, win in ((256, 200), (512, 400), (768, 768), (1024, 1024), (1024, 400), (2048, 2048), (4096, 4096),
+                       (640, 640), (1000, 1000), (1200, 1200), (2000, 2000), (3000, 3000), (1792, 1792), (1125, 1125))
         for hop in (4, 160, 512, 3000) for mels in (32, 128, 256) for dur in (1.0, 10.0) for bands in (6, 17)
         if not (hop == 4 and dur == 10.0)
     ]
@@ -269,14 +301,28 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
         lines.append(f"{c.n_fft} {c.hop_length} {g.kpad} {c.n_mels} {g.n_pow} {c.num_frames} {c.n_contrast_bands}")
     out = subprocess.run([str(tmp_path / "plans")], input="\n".join(lines), capture_output=True, text=True,
                          check=True).stdout.split("\n")
-    seen = set()
+    seen, frames_c = set(), {}
     for i, c in enumerate(cfgs):
-        a, sa = map(int, out[2 * i].split()[:2])
-        cl, sc = map(int, out[2 * i + 1].split()[2:])
+        a, sa, _, _, fa, _ = map(int, out[2 * i].split())
+        _, _, cl, sc, _, fc = map(int, out[2 * i + 1].split())
         assert (a, sa) == (frontend_kernel.spectral_plan(c), frontend_kernel.spectral_smem_bytes(c)), c
         assert (cl, sc) == (frontend_kernel.contrast_level(c), frontend_kernel.contrast_smem_bytes(c)), c
-        seen.update({("a", a), ("c", cl)})
-    assert {("a", 0), ("a", 1), ("a", 2), ("c", 0), ("c", 1), ("c", 4)} <= seen
+        n_pow = frontend_kernel._geometry(c).n_pow
+        assert fa == frontend_kernel._fft_layout(c.n_fft // 2, c.n_fft, c.hop_length)[0], c
+        assert fc == frontend_kernel._fft_layout(c.n_fft, c.n_fft, c.hop_length, n_pow, contrast=True)[0], c
+        assert fc & (fc - 1) == 0, c
+        seen.update({("a", a, c.n_fft), ("c", cl, c.n_fft)})
+        frames_c.setdefault(c.n_fft, set()).add(fc)
+    plans = {(x, plan) for x, plan, _ in seen}
+    assert {("a", 0), ("a", 1), ("a", 2), ("c", 0), ("c", 1), ("c", 3), ("c", 4)} <= plans
+    for n_fft in (1200, 2000, 3000):  # radix-3 and radix-5 stages
+        assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
+    for n_fft in (640, 768, 1000):  # from kFftMinNfft (640) on
+        assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
+    assert ("c", 4, 512) not in seen and ("a", 1, 512) in seen  # under it: the GEMM
+    for n_fft in (1792, 1125):  # a factor of 7, an odd n_fft: the GEMM
+        assert not {("a", 2, n_fft), ("c", 4, n_fft)} & seen
+    assert max(frames_c[768]) == 8 and max(frames_c[1200]) == 4
 
 
 def test_twiddle_table_layout():

@@ -797,3 +797,35 @@ def test_decode_path_input_errors(clip_dir, tmp_path):
         train(str(tmp_path / "nowhere"), str(tmp_path / "o"), config=_decode_cfg(1), device="cpu")
     with pytest.raises(ValueError, match="shards_dir"):
         train(str(clip_dir), str(tmp_path / "o"), config=_decode_cfg(1), device="cpu", device_corpus=True)
+
+
+def test_deterministic_sets_the_flags_without_importing_inductor():
+    """loop.deterministic on a card: deterministic algorithms and cuDNN's
+    deterministic, non-benchmarked convolutions for the duration, warn_only
+    and every flag restored after, and torch._inductor (with dynamo, sympy
+    and triton, ~8 s of a fresh rank's start) never imported. Run in a fresh
+    interpreter, since the flags set no device state: it needs no card."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = r'''
+import sys, torch
+from cough_detector_tpu_torch.train.loop import deterministic
+cudnn, fill = torch.backends.cudnn, torch.utils.deterministic
+torch._C._set_deterministic_algorithms(False, warn_only=True)  # the flag alone: no inductor import
+cudnn.deterministic, cudnn.benchmark = False, True
+before = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+          cudnn.deterministic, cudnn.benchmark, fill.fill_uninitialized_memory)
+with deterministic(torch.device("cuda")):
+    inside = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+              cudnn.deterministic, cudnn.benchmark, fill.fill_uninitialized_memory)
+after = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+         cudnn.deterministic, cudnn.benchmark, fill.fill_uninitialized_memory)
+print(before, inside, after, "torch._inductor" in sys.modules)
+'''
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=repo, check=True,
+                         env={**__import__("os").environ, "PYTHONPATH": str(repo)}).stdout.split("\n")[0]
+    before = "(False, True, False, True, True)"
+    assert out == f"{before} (True, False, True, False, False) {before} False", out

@@ -18,14 +18,21 @@ Each --baseline is another copy of the source (the same C interface for
 launch C and its FFT plan) timed in turns with this one: the baselines,
 as built, the variants, as built, the baselines.
 
-Then launch C's FFT plan (contrast_fft_kernel) at B = 1024 on n_fft 2048
-and 4096 with contrast (hop n_fft / 4, 6 bands; the frames of 64 clips
-repeated), as built and in variants that split its time:
+Then launch C's FFT plan (contrast_fft_kernel) at B = 1024 on n_fft 2048,
+4096 and 2000 with contrast (hop n_fft / 4, 6 bands; the frames of 64
+clips repeated; 2000 runs radix-4 and radix-5 stages), as built and in
+variants that split its time:
   - ranked tails: the bands' tails by stable rank (band_value, the GEMM
     plan's) instead of the sort in registers;
   - no band tails: each (frame, band)'s row takes one power value;
-  - no FFT stages; no staging (the span left as it was).
-Prints the card's name and power limit first, and each build's
+  - no FFT stages; no staging (the span left as it was);
+  - DivBy for a power of two: the power-of-two stages index their
+    butterflies by DivBy's multiplies, as the mixed stages do, instead
+    of shifts.
+Then where the FFT plan's threshold (kFftMinNfft) lies: both plans on
+n_fft 640, 768, 1000 and 1024 with contrast, hop n_fft / 4, at
+B = 1024 and 4096, through their C functions, in turns (GEMM, FFT, FFT,
+GEMM). Prints the card's name and power limit first, and each build's
 max-relative deviation from the plain version (the variants' rows are
 wrong by design). Needs a CUDA card and nvcc; imports no JAX.
 """
@@ -62,7 +69,7 @@ FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands
 FFT_CONFIGS = {
     n_fft: FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
                          use_spectral_contrast=True)
-    for n_fft in (2048, 4096)
+    for n_fft in (2048, 4096, 2000, 640, 768, 1000, 1024)
 }
 
 
@@ -81,8 +88,11 @@ def variants(src: str) -> dict:
         "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
         "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
         "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
-        "FFT plan, no FFT stages": edit(src, "    fft_rows(buf, F, log2n, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "    fft_rows(buf, F, n_fft, n_fft, tw);\n", ""),
         "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
+        "FFT plan, DivBy for a power of two": edit(
+            edit(src, "fft_stage<2, true>(", "fft_stage<2, false>("), "fft_stage<4, true>(", "fft_stage<4, false>("
+        ),
     }
 
 
@@ -168,34 +178,102 @@ def main() -> None:
                 flush=True,
             )
     fft_section(libs, baselines, rng, dev)
+    threshold_section(libs["as built"], rng, dev)
+
+
+def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor):
+    g = frontend_kernel._geometry(cfg)
+    windows, tw = frontend_kernel._contrast_fft_constants(cfg, w.device)
+    freqs, bands = frontend_kernel._centroid_and_bands(cfg, w.device)
+
+    def launch() -> None:
+        err = lib.cdt_frontend_contrast_fft(
+            w.data_ptr(), w.shape[0], cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
+            windows.data_ptr(), tw.data_ptr(), g.pow_lo, g.n_pow, freqs.data_ptr(),
+            float(cfg.sample_rate / 2.0), bands.data_ptr(), cfg.n_contrast_bands, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    return launch
+
+
+def gemm_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor):
+    """The GEMM plan through its C function, at LayoutC's level (a scratch
+    buffer for the power rows at level 3)."""
+    g = frontend_kernel._geometry(cfg)
+    k = frontend_kernel._contrast_constants(cfg, w.device)
+    level = frontend_kernel._contrast_gemm_plan(cfg)[0]
+    scratch = torch.empty((w.shape[0], 128, g.n_pow), device=w.device) if level == 3 else None
+
+    def launch() -> None:
+        err = lib.cdt_frontend_contrast(
+            w.data_ptr(), w.shape[0], cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
+            g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs, k.freqs.data_ptr(),
+            float(cfg.sample_rate / 2.0), k.bands.data_ptr(), cfg.n_contrast_bands,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    return launch
+
+
+def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device) -> None:
+    """Both plans around the FFT plan's threshold, in turns, each checked
+    against the plain version."""
+    for n_fft in (640, 768, 1000, 1024):
+        cfg = FFT_CONFIGS[n_fft]
+        for b, iters in ITERS.items():
+            w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+            w = w.repeat(b // 64, 1)
+            out = torch.empty((b, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
+            want = frontend_kernel.spectral_contrast_reference(w, cfg)
+            plans = {"GEMM plan": gemm_launch(lib, w, cfg, out), "FFT plan": fft_launch(lib, w, cfg, out)}
+            times = {"GEMM plan": [], "FFT plan": []}
+            for name in ("GEMM plan", "FFT plan", "FFT plan", "GEMM plan"):
+                plans[name]()
+                torch.cuda.synchronize()
+                err = ((out - want).abs().max() / want.abs().max()).item()
+                if err > 1e-3:
+                    raise SystemExit(f"the contrast launch's {name} disagrees with plain at n_fft {n_fft}: {err:.2e}")
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    plans[name]()
+                end.record()
+                torch.cuda.synchronize()
+                times[name].append(start.elapsed_time(end) / iters)
+            print(
+                f"contrast launch B={b}, n_fft {n_fft} + contrast (plan {frontend_kernel.contrast_level(cfg)}, GEMM "
+                f"level {frontend_kernel._contrast_gemm_plan(cfg)[0]}), through each plan's C function in turns: "
+                + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items()),
+                flush=True,
+            )
 
 
 def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
     """The FFT plan as built and its variants, in turns, at B = 1024,
-    between the baselines' (through the same C function)."""
-    names = baselines + ["as built"] + [v for v in libs if v.startswith("FFT plan")] + ["as built"] + baselines
-    for n_fft, cfg in FFT_CONFIGS.items():
+    between the baselines' (through the same C function; at n_fft 2000
+    only where a baseline takes it)."""
+    variants = [v for v in libs if v.startswith("FFT plan")]
+    for n_fft in (2048, 4096, 2000):
+        cfg = FFT_CONFIGS[n_fft]
         g = frontend_kernel._geometry(cfg)
-        windows, tw = frontend_kernel._contrast_fft_constants(cfg, dev)
-        freqs, bands = frontend_kernel._centroid_and_bands(cfg, dev)
         w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
         w = w.repeat(16, 1)
         out = torch.empty((1024, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
         want = frontend_kernel.spectral_contrast_reference(w, cfg)
-        for name in names:
-            lib = libs[name]
-
-            def launch() -> None:
-                err = lib.cdt_frontend_contrast_fft(
-                    w.data_ptr(), 1024, cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
-                    windows.data_ptr(), tw.data_ptr(), g.pow_lo, g.n_pow, freqs.data_ptr(),
-                    float(cfg.sample_rate / 2.0), bands.data_ptr(), cfg.n_contrast_bands, out.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream,
-                )
-                if err:
-                    raise RuntimeError(f"launch failed: cudaError {err}")
-
-            for _ in range(3):
+        for name in baselines + ["as built"] + variants + ["as built"] + baselines:
+            launch = fft_launch(libs[name], w, cfg, out)
+            try:
+                launch()
+            except RuntimeError:
+                if name in baselines:  # a source before the radix-3 and radix-5 stages
+                    continue
+                raise
+            for _ in range(2):
                 launch()
             torch.cuda.synchronize()
             err = ((out - want).abs().max() / want.abs().max()).item()

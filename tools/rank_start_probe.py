@@ -12,9 +12,12 @@ would see it, and prints the host seconds of each part:
   cuda         the first tensor on the card (the CUDA context);
   kernel       loading the front-end kernel's library (built first, in
                this process, so the child only loads it);
-  determinism  `torch.use_deterministic_algorithms(True)`, which the
-               trainer sets on the card, and which torch modules it
-               imports (torch._inductor, torch._dynamo, sympy, triton);
+  determinism  the flag as the trainer sets it on the card, its core
+               `torch._C._set_deterministic_algorithms(True)`;
+  determinism_public  `torch.use_deterministic_algorithms(True)` after
+               it, which also sets torch.compile's inductor option, and
+               which torch modules that imports (torch._inductor,
+               torch._dynamo, sympy, triton);
   to_steps     train() on 64 + 32 synthetic clips (one epoch, batch 32)
                from entry to its "Steps:" line, with all the above paid.
 Prints the card's name and power limit first. Needs a CUDA card and nvcc;
@@ -54,10 +57,14 @@ marks["kernel"] = time.perf_counter() - t
 watched = ("torch._inductor", "torch._dynamo", "sympy", "triton")
 before = {m for m in watched if m in sys.modules}
 t = time.perf_counter()
-torch.use_deterministic_algorithms(True)
+torch._C._set_deterministic_algorithms(True)
 marks["determinism"] = time.perf_counter() - t
+torch._C._set_deterministic_algorithms(False)
+t = time.perf_counter()
+torch.use_deterministic_algorithms(True)
+marks["determinism_public"] = time.perf_counter() - t
 torch.use_deterministic_algorithms(False)
-marks["determinism_imported"] = [m for m in watched if m in sys.modules and m not in before]
+marks["determinism_public_imported"] = [m for m in watched if m in sys.modules and m not in before]
 print(json.dumps(marks), flush=True)
 '''
 

@@ -23,15 +23,20 @@ warpgroups, one group in flight) and mma.sync m16n8k8 .tf32 (the mel's,
 each warp a 4 x 8 tile). Their rates are the ceilings of the kernel's
 MMAs.
 
+The FFT plans' kernels' registers and stack frame, as built (cuobjdump).
 Then launch A's FFT plan (spectral_fft_kernel) at B = 1024 on n_fft 2048
-(hop 512, 128 mels, f_max 8 kHz; the frames of 64 clips repeated), as
+and 2000 (hop n_fft / 4, 128 mels, f_max 8 kHz; the frames of 64 clips
+repeated; 2048 runs radix-2 and radix-4 stages, 2000 radix 2, 4 and 5), as
 built and in variants that split its time: no waveform staging, no FFT
 stages, no power and mel (the post-twiddle, the power and the mel left
-out; a frame's first point written instead). And the FFT plan on the
-shipped config at B = 4096 beside its GEMM plan, each called through its
-C function directly, in turns: for the record, since the shipped config
-keeps the GEMM (spectral_plan). All builds run at once. Prints the card's
-name and power limit first. Needs a CUDA card and nvcc; imports no JAX.
+out; a frame's first point written instead). Then where the FFT plan's
+threshold (kFftMinNfft) lies: both plans at 128 mels, hop n_fft / 4, on
+n_fft 640, 768, 1000 and 1024, at B = 1024 and 4096. And
+the FFT plan on the shipped config at B = 4096 beside its GEMM plan: for
+the record, since the shipped config keeps the GEMM (spectral_plan). Both
+plans are called through their C functions directly, in turns. All builds
+run at once. Prints the card's name and power limit first. Needs a CUDA
+card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -166,6 +171,19 @@ def build(name: str, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+def resource_usage(name: str) -> None:
+    """Print the FFT plans' kernels' registers and stack frame (where
+    spills go) in build `name`, from cuobjdump beside nvcc."""
+    cuobjdump = Path(kernel_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(kernel_build.BUILD_DIR / f"{name}.so")],
+                         check=True, capture_output=True, text=True).stdout.splitlines()
+    for i, line in enumerate(out):
+        for kernel in ("spectral_fft_kernel", "contrast_fft_kernel"):
+            if "Function" in line and kernel in line:
+                print(f"{kernel} as built: {' '.join(out[i + 1].split()[:3])} (cuobjdump --dump-resource-usage; "
+                      f"__launch_bounds__(256, 2) caps a thread at 128 registers)", flush=True)
+
+
 def edit(src: str, old: str, new: str) -> str:
     if old not in src:
         raise SystemExit(f"the source no longer holds the text this variant edits: {old[:60]!r}")
@@ -180,9 +198,9 @@ def fft_variants(src: str) -> dict:
     return {
         "FFT plan as built": src,
         "FFT plan, no staging": edit(src, "stage_flat(span, src, (F - 1) * hop + n_fft);", ""),
-        "FFT plan, no FFT stages": edit(src, "  fft_rows(buf, F, log2m, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "  fft_rows(buf, F, m, n_fft, tw);\n", ""),
         "FFT plan, no power and mel": src[:start] + (
-            "  if (tid < frames) mel_out[(size_t)b * n_mels * n_frames + t0 + tid] = buf[tid << log2m].x;\n"
+            "  if (tid < frames) mel_out[(size_t)b * n_mels * n_frames + t0 + tid] = buf[tid * m].x;\n"
         ) + src[stop:],
     }
 
@@ -245,6 +263,7 @@ def main() -> None:
         mma = pool.submit(build, "mma_tf32_probe", wgmma_macro() + MMA_BENCH)
         libs = {name: f.result() for name, f in built.items()}
         mma_lib = mma.result()
+    resource_usage("spectral_probe_0")  # "as built"
 
     cfg = FeatureConfig()
     dev = torch.device("cuda")
@@ -334,42 +353,77 @@ def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, mel: torch
     return launch
 
 
-def fft_section(libs: dict, rng: np.random.Generator, dev: torch.device) -> None:
-    """The FFT plan's parts at B = 1024 on n_fft 2048, then the FFT plan
-    on the shipped config beside its GEMM plan at B = 4096, in turns."""
-    cfg = FeatureConfig(n_fft=2048, win_length=2048, hop_length=512, n_mels=128, f_max=8000.0)
-    w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
-    w = w.repeat(16, 1)
-    mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
-    want = frontend_kernel.power_mel_reference(w, cfg)
-    for name in [n for n in libs if n.startswith("FFT plan")] + ["FFT plan as built"]:
-        launch = fft_launch(libs[name], w, cfg, mel)
-        t = cuda_ms(launch, 20)
-        err = ((mel - want).abs().max() / want.abs().max()).item()
-        print(f"spectral launch B=1024, n_fft 2048, {name}: {t:.4f} ms, max-relative vs plain {err:.2e}", flush=True)
+def gemm_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, mel: torch.Tensor):
+    k = frontend_kernel._constants(cfg, w.device)
 
-    shipped = FeatureConfig()
-    k = frontend_kernel._constants(shipped, dev)
-    w = torch.from_numpy((rng.standard_normal((BATCH, shipped.segment_samples)) * 0.3).astype(np.float32)).to(dev)
-    mel = torch.empty((BATCH, shipped.n_mels, shipped.num_frames), device=dev)
-    lib = libs["as built"]
-
-    def gemm() -> None:
+    def launch() -> None:
         err = lib.cdt_frontend_spectral(
-            w.data_ptr(), BATCH, shipped.segment_samples, shipped.num_frames, shipped.n_fft, shipped.hop_length,
-            k.j0, k.kpad, k.table.data_ptr(), k.n_bins, shipped.n_mels, k.mel_tiles, k.n_groups, 0, 0.0,
+            w.data_ptr(), w.shape[0], w.shape[1], cfg.num_frames, cfg.n_fft, cfg.hop_length,
+            k.j0, k.kpad, k.table.data_ptr(), k.n_bins, cfg.n_mels, k.mel_tiles, k.n_groups, 0, 0.0,
             mel.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
-    fft = fft_launch(lib, w, shipped, mel)
+    return launch
+
+
+def n_fft_config(n_fft: int) -> FeatureConfig:
+    return FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0)
+
+
+def both_plans(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, iters: int) -> str:
+    """Both plans through their C functions, in turns (GEMM, FFT, FFT,
+    GEMM), each checked against the plain version."""
+    mel = torch.empty((w.shape[0], cfg.n_mels, cfg.num_frames), device=w.device)
+    want = frontend_kernel.power_mel_reference(w, cfg)
+    plans = {"GEMM plan": gemm_launch(lib, w, cfg, mel), "FFT plan": fft_launch(lib, w, cfg, mel)}
     times = {"GEMM plan": [], "FFT plan": []}
-    for name, fn in (("GEMM plan", gemm), ("FFT plan", fft), ("FFT plan", fft), ("GEMM plan", gemm)):
-        times[name].append(cuda_ms(fn, ITERS))
+    for name in ("GEMM plan", "FFT plan", "FFT plan", "GEMM plan"):
+        plans[name]()
+        torch.cuda.synchronize()
+        err = ((mel - want).abs().max() / want.abs().max()).item()
+        if err > 1e-3:
+            raise SystemExit(f"the {name} disagrees with the plain version at n_fft {cfg.n_fft}: {err:.2e}")
+        times[name].append(cuda_ms(plans[name], iters))
+    return ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
+
+
+def fft_section(libs: dict, rng: np.random.Generator, dev: torch.device) -> None:
+    """The FFT plan's parts at B = 1024 on n_fft 2048 and 2000, both plans
+    around the FFT plan's threshold, then the FFT plan on the shipped
+    config beside its GEMM plan at B = 4096, in turns."""
+    for n_fft in (2048, 2000):
+        cfg = n_fft_config(n_fft)
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+        want = frontend_kernel.power_mel_reference(w, cfg)
+        for name in [n for n in libs if n.startswith("FFT plan")] + ["FFT plan as built"]:
+            launch = fft_launch(libs[name], w, cfg, mel)
+            t = cuda_ms(launch, 20)
+            err = ((mel - want).abs().max() / want.abs().max()).item()
+            print(f"spectral launch B=1024, n_fft {n_fft}, {name}: {t:.4f} ms, max-relative vs plain {err:.2e}",
+                  flush=True)
+
+    lib = libs["as built"]
+    for n_fft in (640, 768, 1000, 1024):
+        cfg = n_fft_config(n_fft)
+        for b, iters in ((1024, 20), (BATCH, ITERS)):
+            w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+            w = w.repeat(b // 64, 1)
+            print(
+                f"spectral launch B={b}, n_fft {n_fft}, hop {cfg.hop_length}, 128 mels (plan "
+                f"{frontend_kernel.spectral_plan(cfg)}), through each plan's C function in turns: "
+                + both_plans(lib, w, cfg, iters),
+                flush=True,
+            )
+
+    shipped = FeatureConfig()
+    w = torch.from_numpy((rng.standard_normal((BATCH, shipped.segment_samples)) * 0.3).astype(np.float32)).to(dev)
     print(
         f"spectral launch B={BATCH}, shipped config (plan {frontend_kernel.spectral_plan(shipped)}: the GEMM staged), "
-        f"through each plan's C function in turns: " + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items()),
+        f"through each plan's C function in turns: " + both_plans(lib, w, shipped, ITERS),
         flush=True,
     )
 
