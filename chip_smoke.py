@@ -40,9 +40,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      and 2048 with contrast, 17 bands; each at B = 17 and 256; and at
      B = 17 a 60 s clip with every flag, contrast at a hop of 4, at n_fft
      4096, 2000 and 3000 (the FFT plans' radix-3 and radix-5 stages), 256
-     mels at n_fft 768, and the GEMM plans' spans from device memory and
-     mel groups at n_fft 1792, 2744 and 896 (a factor of 7), for the plans
-     no other config reaches) through
+     mels at n_fft 768, the GEMM plans' spans from device memory and
+     mel groups at n_fft 1792, 2744 and 896 (a factor of 7), and 10 s clips
+     with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
+     (launch B's cluster route's other branches), 120 s at 128 mels (launch
+     B in device memory), for the plans no other config reaches) through
      extract_features_fast: every launch it needs once a call (the FFT
      plans' kernels counted on their own too), the
      features within 1e-3 of the plain versions and of the torch chain,
@@ -66,10 +68,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      dispatch); the spectral and epilogue launches at B = 1024 on 256
      mels and n_fft 1024 (both of launch A's plans), n_fft 2048 at 16 and
      22.05 kHz, 10 s clips (the GEMM), n_fft 2000, 3000 and 256 mels at
-     n_fft 768 (the FFT's radix-3 and radix-5 stages), the contrast launch
-     on n_fft 1024 (both plans), 2048, 4096, 2000 and 3000 (the FFT), each
-     beside its bound, its plain
-     version and torch.stft + mel (the fft rows for contrast); the epilogue launch
+     n_fft 768 (the FFT's radix-3 and radix-5 stages), 896 at 256 mels
+     (the GEMM), the contrast launch on n_fft 1024 (both plans), 2048,
+     4096, 2000 and 3000 (the FFT), 1792 and 2744 (the GEMM), each beside
+     its bound, its plain version and torch.stft + mel (the fft rows for
+     contrast); the epilogue launch alone on its cluster route (5 s at 128
+     mels, 10 s with PCEN, delta-deltas and 20 MFCCs at B = 1024, a hop of
+     4 at B = 256, 60 s at 128 mels with every flag at B = 64) and in
+     device memory (120 s at 128 mels, B = 32), beside its bound and plain
+     version; the epilogue launch
      at B = 4096 at n_fft 256 and with PCEN, beside its bound; the contrast
      launch at B = 256, 1024 and 4096 (device time at 256 and 1024)
      beside its bound (an FFT of each window at the FP32 CUDA-core peak,
@@ -3274,18 +3281,22 @@ def coverage_configs() -> dict:
     mels and n_fft 2048 at 16 and 22.05 kHz (launch A's FFT plan), clips
     past 4 s (launch B's tile past one block), a hop of 4, and contrast
     configs past the contrast launch's old limits (its FFT plan at n_fft
-    1024 and 2048); each at B = 17 and 256. Then six at B = 17 that reach
-    what no config above does: launch B in device memory (past a cluster
-    of 8) with PCEN and delta-deltas, and the contrast launch's level 2
-    (its rows in the output), in one 60 s config; the contrast launch at a
-    hop of 4; its FFT plan at n_fft 4096 (458-bin bands); the FFT plans'
+    1024 and 2048); each at B = 17 and 256. Then, at B = 17, those that
+    reach what no config above does: launch B on a non-portable cluster
+    (15 blocks, one an SM) with PCEN and delta-deltas, and the contrast
+    launch's level 2 (its rows in the output), in one 60 s config; the
+    contrast launch at a hop of 4; its FFT plan at n_fft 4096 (458-bin bands); the FFT plans'
     radix-3 and radix-5 stages at n_fft 2000 and 3000 with contrast and at
     n_fft 768 on 256 mels; and, at an n_fft with a factor of 7 (the FFT
     plans take only 2, 3 and 5), the GEMM plans' spans from device memory:
     launch A unstaged with the contrast launch's level 1 (n_fft 1792), and
     with its level 3, its power rows in device memory (n_fft 2744); and
     launch A's GEMM plan over two mel groups, its span staged (n_fft 896,
-    256 mels)."""
+    256 mels). Last, two 10 s clips for launch B's cluster route's other
+    branches: PCEN with delta-deltas and 20 MFCCs (its 32-MFCC DCT), and 36
+    MFCCs of 40 mels with delta-deltas (two DCT passes, the MFCC and delta
+    tiles after the mel tile); and a 120 s clip at 128 mels with PCEN and
+    delta-deltas, past a cluster of 16: launch B in device memory."""
     from cough_detector_tpu_torch.config import FeatureConfig
 
     both, one = (17, 256), (17,)
@@ -3319,6 +3330,11 @@ def coverage_configs() -> dict:
         "nfft2744_contrast": (FeatureConfig(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
         "nfft896_mels256": (FeatureConfig(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), one),
+        "clip10s_pcen_dd20": (FeatureConfig(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), one),
+        "clip10s_mels40_mfcc36_dd": (FeatureConfig(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
+                                     one),
+        "clip120s_128_pcen_dd": (FeatureConfig(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
+                                               use_delta_delta=True), one),
     }
 
 
@@ -3374,20 +3390,22 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             setattr(fk, c, 0)
 
     # Keyed by launch and plan: "spectral" (the GEMM) and "spectral_fft".
-    max_abs = {"spectral": 0.0, "spectral_fft": 0.0, "epilogue": 0.0, "contrast": 0.0, "contrast_fft": 0.0}
+    max_abs = {"spectral": 0.0, "spectral_fft": 0.0, "epilogue": 0.0, "epilogue_cluster": 0.0, "contrast": 0.0,
+               "contrast_fft": 0.0}
     model_err = {"spectral": 0.0, "spectral_fft": 0.0, "contrast": 0.0, "contrast_fft": 0.0}
     launches, plans = {}, {}
     for name, (cfg, batches) in coverage_configs().items():
         t_cfg = time.perf_counter()
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
         hop, kpad = cfg.hop_length, fk._support(base)[2]
-        t, m, c, dd = cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_delta_delta)
-        a_args = (cfg.n_fft, hop, kpad, m)
+        t = cfg.num_frames
+        a_args = (cfg.n_fft, hop, kpad, cfg.n_mels)
+        b_args = (t, cfg.n_mels, cfg.n_mfcc, int(cfg.use_pcen), int(cfg.use_delta_delta))
         mirrors = {
             "spectral smem": (lib.cdt_frontend_smem_a(*a_args), fk.spectral_smem_bytes(base)),
             "spectral plan": (lib.cdt_frontend_plan_a(*a_args), fk.spectral_plan(base)),
-            "epilogue smem": (lib.cdt_frontend_smem_b(t, m, c, dd), fk.epilogue_smem_bytes(cfg)),
-            "epilogue blocks": (lib.cdt_frontend_plan_b(t, m, c, dd), fk.epilogue_blocks(cfg)),
+            "epilogue smem": (lib.cdt_frontend_smem_b(*b_args), fk.epilogue_smem_bytes(cfg)),
+            "epilogue blocks": (lib.cdt_frontend_plan_b(*b_args), fk.epilogue_blocks(cfg)),
         }
         if cfg.use_spectral_contrast:
             geo = fk._geometry(cfg)
@@ -3398,7 +3416,7 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             fail(f"a launch's plan disagrees with its Python mirror on {name}: {mirrors}")
         plans[name] = {k: v[0] for k, v in mirrors.items()}
         keys = {"spectral": "spectral" + ("_fft" if plan_name(fk, "spectral", base) == "fft" else ""),
-                "epilogue": "epilogue",
+                "epilogue": "epilogue" + ("_cluster" if fk.epilogue_blocks(cfg) >= 2 else ""),
                 "contrast": "contrast" + ("_fft" if cfg.use_spectral_contrast and plan_name(fk, "contrast", cfg) == "fft" else "")}
         want_moved = (1, 1, int(cfg.use_spectral_contrast))
         # The FFT plans' kernels among them (fk.PLAN_COUNTERS).
@@ -3610,7 +3628,8 @@ def main() -> None:
         smem = {
             "spectral": (lib.cdt_frontend_smem_a(cfg.n_fft, cfg.hop_length, kpad, cfg.n_mels),
                          frontend_kernel.spectral_smem_bytes(cfg)),
-            "epilogue": (lib.cdt_frontend_smem_b(cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_delta_delta)),
+            "epilogue": (lib.cdt_frontend_smem_b(cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_pcen),
+                                                 int(cfg.use_delta_delta)),
                          frontend_kernel.epilogue_smem_bytes(cfg)),
         }
         print(f"shared memory a block [{name}] (kernel, Python mirror): {smem}", flush=True)
@@ -3874,30 +3893,39 @@ def main() -> None:
     # the fft rows: launch A's FFT plan on n_fft 2048 at 16 and 22.05 kHz
     # and on n_fft 1024 (nfft1024_contrast's base), 2000 and 3000 and on
     # n_fft 768 at 256 mels (radix-3 and radix-5 stages), its GEMM plan on
-    # 10 s clips; the contrast launch's FFT plan on n_fft 1024, 2048, 4096,
-    # 2000 and 3000. The GEMM plans these n_fft took until their FFT plans
-    # are not timed again (PERF.md keeps their times). Where the FFT plan's
-    # threshold and its 128-mel rule are set (n_fft 1024, 256 mels), the
-    # GEMM plan too, called through its C function.
+    # 10 s clips and at n_fft 896 on 256 mels (a factor of 7); the contrast
+    # launch's FFT plan on n_fft 1024, 2048, 4096, 2000 and 3000, its GEMM
+    # plan at n_fft 1792 and 2744. The GEMM plans these n_fft took until
+    # their FFT plans are not timed again (PERF.md keeps their times).
+    # Where the FFT plan's threshold and its 128-mel rule are set (n_fft
+    # 1024, 256 mels), the GEMM plan too, called through its C function.
     # A contrast config's pair is its base's: only its contrast launch is
-    # timed.
+    # timed. Launch B alone on the other configs its cluster route takes (5 s
+    # at 128 mels, 10 s with PCEN, delta-deltas and 20 MFCCs; a hop of 4 at
+    # B = 256 and 60 s at 128 mels with every flag at B = 64, on
+    # non-portable clusters) and in device memory (120 s, B = 32).
     t0 = time.perf_counter()
     coverage_timing = {}
     covered_cfgs = dict(coverage_configs())
     for name in ("nfft1024", "nfft2000", "nfft3000"):
         cfg = covered_cfgs[f"{name}_contrast"][0]
         covered_cfgs[name] = (dataclasses.replace(cfg, use_spectral_contrast=False), ())
+    epilogue_only = {"clip5s_128": 1024, "clip10s_pcen_dd20": 1024, "hop4": 256, "clip60s_128_all_flags": 64,
+                     "clip120s_128_pcen_dd": 32}
     for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft2000", "nfft3000", "nfft768_mels256",
-                 "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
-                 "nfft3000_contrast"):
+                 "nfft896_mels256", "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
+                 "nfft3000_contrast", "nfft1792_contrast", "nfft2744_contrast", *epilogue_only):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
-        # 64 clips repeated to 1024 rows: the times do not depend on the
+        batch = epilogue_only.get(name, 1024)
+        # 64 clips repeated to the batch: the times do not depend on the
         # content.
-        w = make_audio_bulk(rng, 64, cfg.segment_samples, dev).repeat(16, 1)
+        w = make_audio_bulk(rng, min(batch, 64), cfg.segment_samples, dev).repeat(max(batch // 64, 1), 1)
         rows = {}
-        if not cfg.use_spectral_contrast:
+        if name in epilogue_only:
+            mel = frontend_kernel.power_mel_fused(w, base)
+        elif not cfg.use_spectral_contrast:
             mel = frontend_kernel.power_mel_fused(w, base)
             lib_mel = library_mel_fn(cfg)
             rows["spectral"] = dict(
@@ -3926,13 +3954,6 @@ def main() -> None:
                 rows["spectral"]["gemm_ceiling_ms"] = spectral_gemm_ceiling_ms(base, 1024)
                 if not rel_err(gemm_out, mel) <= TOL:
                     fail(f"launch A's two plans disagree on {name}: {rel_err(gemm_out, mel):.3e}")
-            rows["epilogue"] = dict(
-                ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, base), 5),
-                plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, base), 2, warmup=1),
-                library_ms=None,
-                blocks_a_clip=frontend_kernel.epilogue_blocks(base),
-                **bound(*epilogue_work(base, 1024)),
-            )
         else:
             out = frontend_kernel.spectral_contrast_fused(w, cfg)
             rows["contrast"] = dict(
@@ -3964,6 +3985,18 @@ def main() -> None:
                 rows["contrast"]["gemm_plan_ms"] = cuda_ms(gemm_plan, 3, warmup=1)
                 if not rel_err(gemm_out, out) <= TOL:
                     fail(f"the contrast launch's two plans disagree on {name}: {rel_err(gemm_out, out):.3e}")
+        if not cfg.use_spectral_contrast or name in epilogue_only:
+            rows["epilogue"] = dict(
+                ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, base), 5),
+                plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, base), 2, warmup=1),
+                library_ms=None,
+                blocks_a_clip=frontend_kernel.epilogue_blocks(base),
+                batch=batch,
+                **bound(*epilogue_work(base, batch)),
+            )
+            if not rel_err(frontend_kernel.mel_epilogue_fused(mel, base),
+                           frontend_kernel.mel_epilogue_reference(mel, base)) <= TOL:
+                fail(f"launch B disagrees with its plain version on {name} B={batch}")
         coverage_timing[name] = rows
         for part, tm in rows.items():
             lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
@@ -3971,8 +4004,12 @@ def main() -> None:
                 f"; its GEMM design's ceiling {tm['gemm_ceiling_ms']:.4f} ms"
                 if "gemm_ceiling_ms" in tm else ""
             ) + (f"; the GEMM plan {tm['gemm_plan_ms']:.4f} ms" if "gemm_plan_ms" in tm else "")
+            plan = tm.get("plan", "one")
+            if part == "epilogue":
+                n = tm["blocks_a_clip"]
+                plan = "device memory" if n == 0 else "one block" if n == 1 else f"a cluster of {n} blocks"
             print(
-                f"[{smi}] times {part} B=1024 [{name}, {tm.get('plan', 'one')} plan]: kernel {tm['ms']:.4f} ms, "
+                f"[{smi}] times {part} B={batch} [{name}, {plan} plan]: kernel {tm['ms']:.4f} ms, "
                 f"plain {tm['plain_ms']:.4f} ms, library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
                 f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{gemm}; {time.perf_counter() - t_cfg:.3f} s "
                 "into the config",
@@ -4388,6 +4425,25 @@ def main() -> None:
             "coverage_b1024": {name: rows[part] for name, rows in coverage_timing.items()
                                if part in rows and rows[part].get("plan") == "fft"},
         })
+    # Launch B's cluster route (epilogue_cluster_kernel): its main path is
+    # the captured one of phase 3 on 10 s clips, the counters set to 0 just
+    # before; its time phase 4's at B = 1024 on that config.
+    row = coverage_timing["clip10s"]["epilogue"]
+    kernels.append({
+        "name": "frontend_epilogue_cluster",
+        "route": "cuda",
+        "source": "cough_detector_tpu_torch/csrc/frontend_kernel.cu (epilogue_cluster_kernel)",
+        "replaces": "cough_detector_tpu/ops/pallas/frontend_kernel.py:278",
+        "launches": covered["main_path"]["clip10s"]["EPILOGUE_LAUNCHES"],
+        "main_path": "coverage clip10s, captured: 1 eager call + 2 replays",
+        "max_abs_err": covered["max_abs"]["epilogue_cluster"],
+        "config": "clip10s",
+        **{k: row[k] for k in ("batch", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "blocks_a_clip")},
+        "coverage_launches_a_call": {f"{name} B={b}": n[1] for (name, b), n in covered["launches"].items()
+                                     if covered["plans"][name]["epilogue blocks"] >= 2},
+        "coverage_times": {name: rows["epilogue"] for name, rows in coverage_timing.items()
+                           if rows.get("epilogue", {}).get("blocks_a_clip", 1) != 1},
+    })
     phase("end")
     print("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(starts, starts[1:]))
           + f"; total {starts[-1][1] - starts[0][1]:.1f} s, after {imports_s:.1f} s of imports", flush=True)

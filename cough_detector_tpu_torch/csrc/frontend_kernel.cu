@@ -107,10 +107,16 @@
 // cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip). The clip sits
 // in one shared tile; the DCT runs frames across threads into registers.
 // It writes (B, F, T), the reference layout (the note above
-// epilogue_kernel). A clip whose tile passes one block (past 4 s at 128
-// mels) runs on a thread-block cluster, the reductions and the frames at
-// the blocks' edges in distributed shared memory; past a cluster of 8, one
-// block a clip works in device memory (plan_b).
+// epilogue_kernel). A clip whose tile passes one block (past 4.3 s at
+// 128 mels, 8.9 s at 64) runs on a thread-block cluster
+// (epilogue_cluster_kernel, its note): the fewest blocks of 256 threads
+// (up to 16) whose share of the frames, with a few frames more on each
+// side loaded from device memory, fits three blocks an SM (else two, else
+// one), so that only the reductions cross the blocks, in distributed
+// shared memory, 2-3 cluster barriers a clip. On an H100, 10 s clips read
+// 43% of their bytes bound at B = 1024 (0.43 ms; the first cluster design
+// 1.72; tools/epilogue_probe.py). Past a cluster of 16, one block a clip
+// works in device memory (plan_b), at 0.6% of its bound on 120 s clips.
 //
 // Interface: plain C, loaded with ctypes, one function per launch, and one
 // per launch for its shared memory and its plan (the Python mirrors' check).
@@ -137,7 +143,14 @@ constexpr size_t kMaxSmem = 232448;                 // bytes a block may use on 
 constexpr int kThreadsB = 128;                      // launch B: 4 warps, one clip
 constexpr int kLoadB = 16;                          // loads a launch B thread keeps in flight
 constexpr int kRedB = 32;                           // floats of launch B's reduction slots
-constexpr int kMaxCluster = 8;                      // launch B: blocks a clip, the portable cluster
+constexpr int kMaxCluster = 16;                     // launch B: blocks a clip (past 8, a non-portable cluster)
+constexpr int kPortableCluster = 8;                 // past it, the kernel needs the non-portable attribute
+constexpr int kThreadsBC = 256;                     // launch B's cluster route: 8 warps a block
+constexpr int kWarpsBC = kThreadsBC / 32;
+constexpr int kRanksBC = 5 * kWarpsBC;              // its slots: 5 reductions' warp partials, then their ranks'
+constexpr int kRedBC = kRanksBC + 5 * kMaxCluster;  // 120 floats of reduction slots
+constexpr int kSmemSM = 233472;                     // shared memory of an SM, 1 KB of it reserved a block
+constexpr int kBlocksSM = 3;                        // launch B's cluster blocks an SM at most
 constexpr int kRedC = 16;                           // floats of launch C's reduction slots
 constexpr int kBandChunk = 128;                     // launch C: a band's bins a selection pass, 4 a lane
 constexpr int kFftPoints = 8192;                    // FFT plans: complex points a block holds (64 KB)
@@ -177,37 +190,66 @@ __host__ __device__ inline bool staged_a(int hop, int kpad) {
 }
 
 // Launch B's layout. The DCT takes kc MFCCs a pass, its table padded to cp
-// columns. Shared memory, in floats: the reduction slots, the DCT table
-// (M x cp), the clip's power mel (M x T), the MFCC tile (C x T) and, with
-// delta-deltas, the delta tile (C x T). The MFCC and delta tiles take the
-// mel tile's first 2C rows where those fit and the DCT takes one pass (see
-// epilogue_kernel), else they follow it.
+// columns. Shared memory, in floats: the reduction slots (red floats), the
+// DCT table (M x cp), the clip's power mel (M x cols), the MFCC tile
+// (C x cols) and, with delta-deltas, the delta tile (C x cols). The MFCC
+// and delta tiles take the mel tile's first 2C rows where those fit and the
+// DCT takes one pass (see epilogue_kernel), else they follow it. One block
+// holds a clip's T frames (cols = T); a block of a cluster its T frames
+// and `halo` more on each side (epilogue_cluster_kernel).
 struct LayoutB {
-  int kc, cp;
+  int kc, cp, cols;
   size_t tile, mf, d1, floats;
 
-  __host__ __device__ LayoutB(int T, int M, int C, int delta_delta) {
+  __host__ __device__ LayoutB(int T, int M, int C, int delta_delta, int halo = 0, int red = kRedB) {
     kc = C <= 8 ? 8 : (C <= 16 ? 16 : 32);
     cp = (C + kc - 1) / kc * kc;
-    tile = kRedB + (size_t)M * cp;
-    const size_t tile_end = tile + (size_t)M * T;
+    cols = T + 2 * halo;
+    tile = red + (size_t)M * cp;
+    const size_t tile_end = tile + (size_t)M * cols;
     mf = C <= 32 && 2 * C <= M ? tile : tile_end;
-    d1 = mf + (size_t)C * T;
-    const size_t end = d1 + (delta_delta ? (size_t)C * T : 0);
+    d1 = mf + (size_t)C * cols;
+    const size_t end = d1 + (delta_delta ? (size_t)C * cols : 0);
     floats = end > tile_end ? end : tile_end;
   }
 };
 
+// The frames a cluster block holds on each side of its own: PCEN's
+// smoother reads 5 before a frame and 4 after; a delta reads the MFCCs of
+// the frames beside it, a delta-delta the deltas beside it.
+__host__ __device__ inline int halo_b(int use_pcen, int delta_delta) { return use_pcen ? 5 : 1 + delta_delta; }
+
+// Shared-memory bytes of a block of launch B's cluster route with n blocks a clip.
+__host__ __device__ inline size_t cluster_bytes_b(int T, int M, int C, int use_pcen, int delta_delta, int n) {
+  const LayoutB lay((T + n - 1) / n, M, C, delta_delta, halo_b(use_pcen, delta_delta), kRedBC);
+  return sizeof(float) * lay.floats;
+}
+
 // Launch B's plan for a clip of T frames: 1, one block holds the clip
 // (epilogue_kernel's design); 2 to kMaxCluster, a thread-block cluster of
-// that many blocks, each holding ceil(T / n) of its frames in the same
-// layout (epilogue_cluster_kernel); 0, not even that fits, and one block
-// a clip works in device memory (epilogue_kernel<..., true>).
-__host__ __device__ inline int plan_b(int T, int M, int C, int delta_delta) {
-  for (int n = 1; n <= kMaxCluster; ++n)
-    if (sizeof(float) * LayoutB((T + n - 1) / n, M, C, delta_delta).floats <= kMaxSmem) return n;
+// that many blocks, each holding ceil(T / n) of its frames
+// (epilogue_cluster_kernel): for k = kBlocksSM, then fewer, the fewest
+// blocks that fit k an SM; 0, not even one an SM fits, and one block a
+// clip works in device memory (epilogue_kernel<..., true>).
+__host__ __device__ inline int plan_b(int T, int M, int C, int use_pcen, int delta_delta) {
+  if (sizeof(float) * LayoutB(T, M, C, delta_delta).floats <= kMaxSmem) return 1;
+  for (int k = kBlocksSM; k >= 1; --k)
+    for (int n = 2; n <= kMaxCluster; ++n)
+      if (cluster_bytes_b(T, M, C, use_pcen, delta_delta, n) <= (size_t)(kSmemSM / k - 1024)) return n;
   return 0;
 }
+
+// Launch B's shared memory a block under its plan: LayoutB at the clip's
+// frames, a cluster block's, or the reduction slots alone in device memory.
+__host__ __device__ inline size_t smem_b(int T, int M, int C, int use_pcen, int delta_delta) {
+  const int n = plan_b(T, M, C, use_pcen, delta_delta);
+  if (n == 0) return sizeof(float) * kRedB;
+  if (n == 1) return sizeof(float) * LayoutB(T, M, C, delta_delta).floats;
+  return cluster_bytes_b(T, M, C, use_pcen, delta_delta, n);
+}
+
+// Launch B's threads a block under plan n.
+__host__ __device__ inline int threads_b(int n) { return n >= 2 ? kThreadsBC : kThreadsB; }
 
 // x rounded to TF32, to nearest with ties away from zero: the bits of
 // cvt.rna.tf32.f32 for every finite x, in two integer instructions (the
@@ -981,128 +1023,222 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
 
 // Launch B over a thread-block cluster, for a clip whose M x T tile passes
 // one block's shared memory (5 s at 128 mels: 265 KB; 10 s at 64 mels;
-// hop 4: 1 MB). plan_b picks the fewest blocks n (2 to kMaxCluster) whose
-// share of the clip, Tb = ceil(T / n) consecutive frames each, fits
-// epilogue_kernel's layout (LayoutB at Tb frames); the cluster is the
-// clip's n blocks, rank r holding frames [r Tb, r Tb + Tb). The steps are
-// epilogue_kernel's, over the block's frames, with what crosses the blocks
-// in distributed shared memory (DSMEM):
-//  * each reduction (dB max, PCEN min and max, the MFCCs' sum, the squared
-//    deviations) leaves its 4 warp partials in the block's slots as
-//    before; after a cluster barrier every thread folds all n blocks'
-//    slots, rank by rank, so every block holds the same value;
-//  * PCEN's smoother (frames t - 5 to t + 4) and the deltas' and
-//    delta-deltas' neighbours (t - 1, t + 1) read a frame of another rank
-//    from that rank's tile (map_shared_rank), after a cluster barrier;
-//  * a block exits only after the cluster's last barrier, so no rank's
-//    shared memory goes while another reads it.
-// The sums run in another order than one block's (a rank's partials, then
+// hop 4: 1 MB). The steps and numerics are epilogue_kernel's; only the
+// per-clip reductions cross the blocks.
+//  * Bound: bytes, as one block's (the power mel read once, the features
+//    written once): 0.1885 ms for 10 s clips at B = 1024, 0.1727 for 5 s
+//    at 128 mels (3.35 TB/s). The DCT is 2.1 GFLOP there, 0.03 ms at the
+//    FP32 peak.
+//  * The first design (the fewest blocks that fit, 128 threads,
+//    up to 209 KB each) read 11% of the bound, 1.72 ms on 10 s clips: one
+//    4-warp block an SM, one load in flight a thread, a division an
+//    element, 5-7 cluster barriers a clip with nothing beside them to fill
+//    the wait, and every delta's neighbours read through a rank test.
+//  * Occupancy. plan_b takes, for k = kBlocksSM (3), then 2, then 1, the
+//    fewest blocks (2 to kMaxCluster) whose share fits k blocks an SM: at
+//    10 s 4 blocks of 251 frames, 69 KB each, 24 warps an SM; blocks of
+//    256 threads (kThreadsBC). Past 8 blocks the cluster is non-portable
+//    (cudaFuncAttributeNonPortableClusterSizeAllowed; an H100 takes 16): a
+//    hop of 4 runs 15 blocks three an SM, 0.53 ms at B = 256 against 0.74
+//    on 5 blocks one an SM; 60 s at 128 mels with PCEN 15 blocks one an SM,
+//    1.56 ms at B = 64 against 10.8 in device memory. At most two blocks
+//    an SM read 0.52 ms at 10 s, four (registers capped at 64) 0.45, three
+//    0.43 (tools/epilogue_probe.py, NVIDIA H100).
+//  * Halo. Rank r holds frames [r Tb, r Tb + Tb) and `halo` frames
+//    (halo_b) more on each side, loaded from device memory as its own are
+//    (zeros past the clip). So PCEN's smoother, the deltas and the
+//    delta-deltas read only the block's own tile: the block runs the DCT
+//    and the z-norm over the hd = 1 + delta_delta frames beside its own
+//    too (the same arithmetic as the rank that owns them, so the same
+//    bits), and no frame crosses the cluster.
+//  * Loads: the tile (M rows of the block's columns, each contiguous at a
+//    stride of T, odd on every cluster config, so no 16-byte copies) flat
+//    over (row, column), kLoadB coalesced loads in flight a thread. Every
+//    flat loop steps its (row, column) by the block's threads with no
+//    division past the first (each_b); stores stay coalesced.
+//  * Reductions. Each warp folds its partial by shuffles into the block's
+//    slots; after a block barrier, thread k of each block folds the 8 warp
+//    partials and writes the block's into rank k's slots (distributed
+//    shared memory); after one cluster barrier every thread folds the n
+//    ranks' partials, rank by rank, so every rank holds the same value.
+//    The dB branch takes the clip max, then the MFCCs' sum, then their
+//    squared deviations: 3 cluster barriers a clip. PCEN's min and max go
+//    with the sum (its log-mel is taken in the DCT, its outputs rescaled
+//    after): 2. Three blocks an SM fill one block's wait. Nothing is read
+//    from another rank, and every write into one comes before a barrier
+//    its owner waits at, so a block exits after its last barrier with no
+//    barrier at its end; an arrive at the start, waited on before the
+//    first write, makes sure every rank has started.
+// The sums run in another order than one block's (a block's warps, then
 // the ranks): within float rounding of it.
+
+// Calls f(r, c) for every r in [0, rows), c in [c0, c1) that this thread
+// of a kThreadsBC-thread block takes: flat, the block's threads on
+// consecutive columns, with no division past the first.
+template <class F>
+__device__ __forceinline__ void each_b(int rows, int c0, int c1, F f) {
+  const int cols = c1 - c0;
+  if (cols <= 0) return;
+  int r = (int)threadIdx.x / cols, c = (int)threadIdx.x - r * cols;
+  const int dr = kThreadsBC / cols, dc = kThreadsBC - dr * cols;
+  while (r < rows) {
+    f(r, c0 + c);
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire).
+__device__ __forceinline__ void cluster_sync_b() {
+  asm volatile("barrier.cluster.arrive.aligned;\n barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Reduction q of the cluster route: thread k < n folds the block's warp
+// partials at red[kWarpsBC q ...] in warp order and writes the block's
+// into rank k's slot red[kRanksBC + kMaxCluster q + rank]. After a block
+// barrier, before a cluster barrier.
+template <int kOp>
+__device__ __forceinline__ void push_b(float* red, int q, int n, int rank) {
+  if ((int)threadIdx.x < n) {
+    const float* w = red + kWarpsBC * q;
+    float v = w[0];
+#pragma unroll
+    for (int i = 1; i < kWarpsBC; ++i) v = fold<kOp>(v, w[i]);
+    cooperative_groups::this_cluster().map_shared_rank(red, (unsigned)threadIdx.x)[kRanksBC + kMaxCluster * q + rank] = v;
+  }
+}
+
+// Reduction q's value over the clip, after the cluster barrier: the n
+// ranks' partials, rank by rank.
+template <int kOp>
+__device__ __forceinline__ float total_b(const float* red, int q, int n) {
+  const float* r = red + kRanksBC + kMaxCluster * q;
+  float v = r[0];
+  for (int k = 1; k < n; ++k) v = fold<kOp>(v, r[k]);
+  return v;
+}
+
 template <bool kPcen, int kC>
-__global__ void __launch_bounds__(kThreadsB, 1) epilogue_cluster_kernel(
+__global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
     const float* __restrict__ mel, int n_frames, int n_mels,
     const float* __restrict__ dct, int n_mfcc, int delta_delta,
     int n_features, float* __restrict__ out) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  const int n = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int T = n_frames, M = n_mels, C = n_mfcc, nm = M * T, nc = C * T;
+  // Every rank has started before any writes into another's slots: this
+  // arrive is waited on before the first write.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int n = (int)cooperative_groups::this_cluster().num_blocks();
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int T = n_frames, M = n_mels, C = n_mfcc, nc = C * T;
+  const int H = halo_b(kPcen, delta_delta), hd = 1 + delta_delta;
   const int Tb = (T + n - 1) / n, f0 = rank * Tb, nf = max(0, min(T - f0, Tb));
-  const LayoutB lay(Tb, M, C, delta_delta);
-  float* red = reinterpret_cast<float*>(smem4);  // slots: 0 max, 4 min, 8 max, 12 sum, 16 squares
-  float* dct_s = red + kRedB;                    // (M, cp)
-  float* tile = red + lay.tile;                  // (M, Tb): the block's frames of the power mel (dB: log)
-  float* mf_s = red + lay.mf;                    // (C, Tb)
-  float* d1_s = red + lay.d1;                    // (C, Tb), with delta-deltas
+  const LayoutB lay(Tb, M, C, delta_delta, H, kRedBC);
+  const int W = lay.cols, g0 = f0 - H;  // tile column j holds frame g0 + j
+  // Columns: the block's own frames [a0, a1); the DCT's and the z-norm's,
+  // hd more each side within the clip, [e0, e1).
+  const int a0 = H, a1 = H + nf;
+  const int e0 = max(a0 - hd, -g0), e1 = min(a1 + hd, T - g0);
+  float* red = reinterpret_cast<float*>(smem4);  // warp slots: 0 max, 1 min, 2 max, 3 sum, 4 squares
+  float* dct_s = red + kRedBC;                   // (M, cp)
+  float* tile = red + lay.tile;                  // (M, W): the power mel; in the dB branch its log
+  float* mf_s = red + lay.mf;                    // (C, W)
+  float* d1_s = red + lay.d1;                    // (C, W), with delta-deltas
   const int tid = threadIdx.x;
   const int clip = blockIdx.x / n;
-  const float* src = mel + (size_t)clip * nm;
+  const float* src = mel + (size_t)clip * M * T;
   float* o = out + (size_t)clip * n_features * T;
-  float* o_mf = o + (size_t)nm;
+  float* o_mf = o + (size_t)M * T;
 
-  // Frame t (of the clip) of row `r` of the tile `local` names, from whichever rank holds it.
-  auto frame = [&](float* local, int r, int t) {
-    const int k = t / Tb;
-    const float* p = k == rank ? local : cluster.map_shared_rank(local, k);
-    return p[r * Tb + t - k * Tb];
-  };
-  // A reduction's value: every rank's 4 warp partials at `slot`, rank by rank.
-  auto fold_ranks = [&](auto op, int slot, float init) {
-    float v = init;
-    for (int k = 0; k < n; ++k) {
-      const float* r = cluster.map_shared_rank(red + slot, k);
-      v = op(v, op(op(r[0], r[1]), op(r[2], r[3])));
-    }
-    return v;
-  };
-  auto fmax_ = [](float a, float b) { return fmaxf(a, b); };
-  auto fmin_ = [](float a, float b) { return fminf(a, b); };
-  auto fadd_ = [](float a, float b) { return a + b; };
-
-  // 1. The DCT table, and the block's frames into the tile; in the dB
-  // branch as their log-mel, with the block's max.
-  for (int i = tid; i < M * lay.cp; i += kThreadsB) {
+  // 1. The DCT table, and the block's columns into the tile; in the dB
+  // branch as their log-mel, with their max. The halo's frames are the
+  // clip's too, and a column past the clip holds the log of kAmin, the
+  // least a log-mel can be: neither moves the clip's max.
+  for (int i = tid; i < M * lay.cp; i += kThreadsBC) {
     const int m = i / lay.cp, c = i % lay.cp;
     dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
   }
   float mx = -INFINITY;
-  for (int i = tid; i < M * nf; i += kThreadsB) {
-    const int m = i / nf, l = i - m * nf;
-    const float v = __ldg(src + m * T + f0 + l);
-    if (kPcen) {
-      tile[m * Tb + l] = v;
-    } else {
-      const float lm = kDbScale * logf(fmaxf(v, kAmin));
-      tile[m * Tb + l] = lm;
-      mx = fmaxf(mx, lm);
-    }
-  }
-  if (!kPcen) warp_partial<kMax>(mx, red);
-  cluster.sync();  // every rank's tile and max partials are in place
-
-  // 2. Rows [0, M) of the block's frames.
-  float lo = INFINITY, hi = -INFINITY;
-  if (!kPcen) {
-    const float floor_db = fold_ranks(fmax_, 0, -INFINITY) - 80.0f;
-    for (int i = tid; i < M * nf; i += kThreadsB) {
-      const int m = i / nf, l = i - m * nf;
-      const float db = fmaxf(tile[m * Tb + l], floor_db);
-      put(o + (size_t)m * T + f0 + l, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
-    }
-  } else {
-    for (int l = tid; l < nf; l += kThreadsB) {
-      const int t = f0 + l;
-      for (int m = 0; m < M; ++m) {
-        float s = 0.0f;
+  {
+    int r = tid / W, c = tid - r * W;
+    const int dr = kThreadsBC / W, dc = kThreadsBC - dr * W;
+    while (r < M) {
+      float v[kLoadB];
+      int at[kLoadB];
 #pragma unroll
-        for (int d = 0; d < 10; ++d) {
-          const int tt = t + d - 5;
-          if (tt >= 0 && tt < T) s += tt >= f0 && tt < f0 + nf ? tile[m * Tb + tt - f0] : frame(tile, m, tt);
+      for (int u = 0; u < kLoadB; ++u) {
+        const int t = g0 + c;
+        at[u] = r < M ? r * W + c : -1;
+        v[u] = r < M && t >= 0 && t < T ? __ldg(src + (size_t)r * T + t) : 0.0f;
+        r += dr;
+        c += dc;
+        if (c >= W) {
+          c -= W;
+          ++r;
         }
-        s = s / 10.0f;
-        const float p = sqrtf(tile[m * Tb + l] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
-        put(o + (size_t)m * T + t, p);
-        lo = fminf(lo, p);
-        hi = fmaxf(hi, p);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadB; ++u) {
+        if (at[u] < 0) break;
+        if (kPcen) {
+          tile[at[u]] = v[u];
+        } else {
+          const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
+          tile[at[u]] = lm;
+          mx = fmaxf(mx, lm);
+        }
       }
     }
-    warp_partial<kMin>(lo, red + 4);
-    warp_partial<kMax>(hi, red + 8);
-    cluster.sync();  // no rank reads another's tile after this
   }
-  __syncthreads();
+  float lo = INFINITY, hi = -INFINITY;
+  if (!kPcen) {
+    warp_partial<kMax>(mx, red);
+    __syncthreads();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    push_b<kMax>(red, 0, n, rank);
+    cluster_sync_b();
+    // 2. The dB rows of the block's frames.
+    const float floor_db = total_b<kMax>(red, 0, n) - 80.0f;
+    each_b(M, a0, a1, [&](int m, int j) {
+      const float db = fmaxf(tile[m * W + j], floor_db);
+      put(o + (size_t)m * T + g0 + j, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
+    });
+  } else {
+    __syncthreads();
+    // 2. PCEN of the block's frames: the smoother's ten taps in the order
+    // the JAX kernel adds them, a tap past the clip a zero column.
+    each_b(M, a0, a1, [&](int m, int j) {
+      const float* row = tile + m * W + j - 5;
+      float s = 0.0f;
+#pragma unroll
+      for (int d = 0; d < 10; ++d) s += row[d];
+      s = s / 10.0f;
+      const float p = sqrtf(row[5] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
+      put(o + (size_t)m * T + g0 + j, p);
+      lo = fminf(lo, p);
+      hi = fmaxf(hi, p);
+    });
+    warp_partial<kMin>(lo, red + kWarpsBC);
+    warp_partial<kMax>(hi, red + 2 * kWarpsBC);
+  }
+  __syncthreads();  // no thread reads another's column of the tile after this
 
-  // 3. The DCT, the block's frames across threads.
+  // 3. The DCT, a column a thread, over the block's frames and hd beside
+  // them; the sum over its own.
   float sum = 0.0f;
-  for (int l = tid; l < nf; l += kThreadsB) {
+  for (int j = e0 + tid; j < e1; j += kThreadsBC) {
+    const bool own = j >= a0 && j < a1;
     for (int c0 = 0; c0 < C; c0 += kC) {
       float acc[kC];
 #pragma unroll
       for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
 #pragma unroll 4
       for (int m = 0; m < M; ++m) {
-        const float v = tile[m * Tb + l];
+        const float v = tile[m * W + j];
         const float lm = kPcen ? kDbScale * logf(fmaxf(v, kAmin)) : v;
         const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
 #pragma unroll
@@ -1117,61 +1253,69 @@ __global__ void __launch_bounds__(kThreadsB, 1) epilogue_cluster_kernel(
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         if (c0 + c < C) {
-          mf_s[(c0 + c) * Tb + l] = acc[c];
-          sum += acc[c];
+          mf_s[(c0 + c) * W + j] = acc[c];
+          if (own) sum += acc[c];
         }
       }
     }
   }
-  warp_partial<kSum>(sum, red + 12);
-  cluster.sync();
-  const float mean = fold_ranks(fadd_, 12, 0.0f) / (float)nc;
+  warp_partial<kSum>(sum, red + 3 * kWarpsBC);
+  __syncthreads();
+  if (kPcen) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    push_b<kMin>(red, 1, n, rank);
+    push_b<kMax>(red, 2, n, rank);
+  }
+  push_b<kSum>(red, 3, n, rank);
+  cluster_sync_b();
+  const float mean = total_b<kSum>(red, 3, n) / (float)nc;
 
-  if (kPcen) {  // rescale this thread's PCEN values
-    lo = fold_ranks(fmin_, 4, INFINITY);
-    hi = fold_ranks(fmax_, 8, -INFINITY);
-    for (int l = tid; l < nf; l += kThreadsB)
-      for (int m = 0; m < M; ++m) {
-        float* p = o + (size_t)m * T + f0 + l;
-        put(p, (*p - lo) / (hi - lo + 1e-8f));
-      }
+  if (kPcen) {  // rescale the block's PCEN values
+    lo = total_b<kMin>(red, 1, n);
+    hi = total_b<kMax>(red, 2, n);
+    each_b(M, a0, a1, [&](int m, int j) {
+      float* p = o + (size_t)m * T + g0 + j;
+      put(p, (*p - lo) / (hi - lo + 1e-8f));
+    });
   }
 
   // 4. The MFCCs' z-norm (unbiased) over the clip.
   float sq = 0.0f;
-  for (int i = tid; i < C * nf; i += kThreadsB) {
-    const int c = i / nf, l = i - c * nf;
-    const float dv = mf_s[c * Tb + l] - mean;
+  each_b(C, a0, a1, [&](int c, int j) {
+    const float dv = mf_s[c * W + j] - mean;
     sq += dv * dv;
-  }
-  warp_partial<kSum>(sq, red + 16);
-  cluster.sync();
-  const float denom = sqrtf(fold_ranks(fadd_, 16, 0.0f) / (float)(nc - 1)) + 1e-8f;
-  for (int i = tid; i < C * nf; i += kThreadsB) {
-    const int c = i / nf, l = i - c * nf;
-    const float z = (mf_s[c * Tb + l] - mean) / denom;
-    mf_s[c * Tb + l] = z;
-    put(o_mf + (size_t)c * T + f0 + l, z);
-  }
-  cluster.sync();  // every rank's z-normed MFCCs are in place
+  });
+  warp_partial<kSum>(sq, red + 4 * kWarpsBC);
+  __syncthreads();
+  push_b<kSum>(red, 4, n, rank);
+  cluster_sync_b();  // the last: nothing crosses the cluster after it
+  const float denom = sqrtf(total_b<kSum>(red, 4, n) / (float)(nc - 1)) + 1e-8f;
+  each_b(C, e0, e1, [&](int c, int j) {
+    const float z = (mf_s[c * W + j] - mean) / denom;
+    mf_s[c * W + j] = z;
+    if (j >= a0 && j < a1) put(o_mf + (size_t)c * T + g0 + j, z);
+  });
+  __syncthreads();
 
-  // 5. Deltas and delta-deltas of the block's frames; a neighbour frame
-  // past the block's edge from the rank that holds it.
-  for (int i = tid; i < C * nf; i += kThreadsB) {
-    const int c = i / nf, l = i - c * nf, t = f0 + l;
-    const float d = (frame(mf_s, c, min(t + 1, T - 1)) - frame(mf_s, c, max(t - 1, 0))) / 2.0f;
-    put(o_mf + nc + (size_t)c * T + t, d);
-    if (delta_delta) d1_s[c * Tb + l] = d;
+  // 5. Deltas of the block's frames (and, with delta-deltas, of the frame
+  // beside each edge), then delta-deltas: replicate-padded central
+  // differences along time, a neighbour past the clip's edge clamped to it.
+  const int dd = delta_delta;
+  each_b(C, max(a0 - dd, -g0), min(a1 + dd, T - g0), [&](int c, int j) {
+    const int t = g0 + j;
+    const float* row = mf_s + c * W;
+    const float d = (row[min(t + 1, T - 1) - g0] - row[max(t - 1, 0) - g0]) / 2.0f;
+    if (j >= a0 && j < a1) put(o_mf + nc + (size_t)c * T + t, d);
+    if (dd) d1_s[c * W + j] = d;
+  });
+  if (dd) {
+    __syncthreads();
+    each_b(C, a0, a1, [&](int c, int j) {
+      const int t = g0 + j;
+      const float* row = d1_s + c * W;
+      put(o_mf + 2 * nc + (size_t)c * T + t, (row[min(t + 1, T - 1) - g0] - row[max(t - 1, 0) - g0]) / 2.0f);
+    });
   }
-  if (delta_delta) {
-    cluster.sync();
-    for (int i = tid; i < C * nf; i += kThreadsB) {
-      const int c = i / nf, l = i - c * nf, t = f0 + l;
-      put(o_mf + 2 * nc + (size_t)c * T + t,
-          (frame(d1_s, c, min(t + 1, T - 1)) - frame(d1_s, c, max(t - 1, 0))) / 2.0f);
-    }
-  }
-  cluster.sync();  // no rank's shared memory goes while another may read it
 }
 
 // Launch C, the contrast rows: the launcher's spectral contrast, which the
@@ -2013,14 +2157,12 @@ size_t cdt_frontend_smem_a(int n_fft, int hop, int kpad, int n_mels) {
 
 int cdt_frontend_plan_a(int n_fft, int hop, int kpad, int n_mels) { return plan_a(n_fft, hop, kpad, n_mels); }
 
-size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int delta_delta) {
-  const int n = plan_b(n_frames, n_mels, n_mfcc, delta_delta);
-  if (n == 0) return sizeof(float) * kRedB;
-  return sizeof(float) * LayoutB((n_frames + n - 1) / n, n_mels, n_mfcc, delta_delta).floats;
+size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int use_pcen, int delta_delta) {
+  return smem_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
 }
 
-int cdt_frontend_plan_b(int n_frames, int n_mels, int n_mfcc, int delta_delta) {
-  return plan_b(n_frames, n_mels, n_mfcc, delta_delta);
+int cdt_frontend_plan_b(int n_frames, int n_mels, int n_mfcc, int use_pcen, int delta_delta) {
+  return plan_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
 }
 
 // Launch A. wave (B, n_samples); table: the chunk stream its ring reads
@@ -2089,50 +2231,55 @@ int cdt_frontend_spectral_fft(
 
 // Launch B. mel (B, n_mels, n_frames); dct (n_mels, n_mfcc);
 // out (B, n_features, n_frames). All float32, contiguous, on one device.
-// plan_b: one block a clip, a cluster of n blocks a clip (launched through
-// cudaLaunchKernelEx with the cluster's dimension), or one block a clip in
-// device memory.
+// plan_b: one block a clip, a cluster of n blocks of kThreadsBC threads a
+// clip (launched through cudaLaunchKernelEx with the cluster's dimension,
+// allowed past the portable 8 by the kernel's attribute), or one block a
+// clip in device memory.
 int cdt_frontend_epilogue(
     const float* mel, int batch, int n_frames, int n_mels, const float* dct,
     int n_mfcc, int use_pcen, int delta_delta, int n_features, float* out,
     cudaStream_t stream) {
-  const int n = plan_b(n_frames, n_mels, n_mfcc, delta_delta);
-  const LayoutB lay(n ? (n_frames + n - 1) / n : n_frames, n_mels, n_mfcc, delta_delta);
+  const int n = plan_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
+  const int kc = LayoutB(n_frames, n_mels, n_mfcc, delta_delta).kc;
   const void* fn;
   if (n == 1)
-    fn = use_pcen ? (lay.kc == 8    ? (const void*)epilogue_kernel<true, 8, false>
-                     : lay.kc == 16 ? (const void*)epilogue_kernel<true, 16, false>
-                                    : (const void*)epilogue_kernel<true, 32, false>)
-                  : (lay.kc == 8    ? (const void*)epilogue_kernel<false, 8, false>
-                     : lay.kc == 16 ? (const void*)epilogue_kernel<false, 16, false>
-                                    : (const void*)epilogue_kernel<false, 32, false>);
+    fn = use_pcen ? (kc == 8    ? (const void*)epilogue_kernel<true, 8, false>
+                     : kc == 16 ? (const void*)epilogue_kernel<true, 16, false>
+                                : (const void*)epilogue_kernel<true, 32, false>)
+                  : (kc == 8    ? (const void*)epilogue_kernel<false, 8, false>
+                     : kc == 16 ? (const void*)epilogue_kernel<false, 16, false>
+                                : (const void*)epilogue_kernel<false, 32, false>);
   else if (n == 0)
-    fn = use_pcen ? (lay.kc == 8    ? (const void*)epilogue_kernel<true, 8, true>
-                     : lay.kc == 16 ? (const void*)epilogue_kernel<true, 16, true>
-                                    : (const void*)epilogue_kernel<true, 32, true>)
-                  : (lay.kc == 8    ? (const void*)epilogue_kernel<false, 8, true>
-                     : lay.kc == 16 ? (const void*)epilogue_kernel<false, 16, true>
-                                    : (const void*)epilogue_kernel<false, 32, true>);
+    fn = use_pcen ? (kc == 8    ? (const void*)epilogue_kernel<true, 8, true>
+                     : kc == 16 ? (const void*)epilogue_kernel<true, 16, true>
+                                : (const void*)epilogue_kernel<true, 32, true>)
+                  : (kc == 8    ? (const void*)epilogue_kernel<false, 8, true>
+                     : kc == 16 ? (const void*)epilogue_kernel<false, 16, true>
+                                : (const void*)epilogue_kernel<false, 32, true>);
   else
-    fn = use_pcen ? (lay.kc == 8    ? (const void*)epilogue_cluster_kernel<true, 8>
-                     : lay.kc == 16 ? (const void*)epilogue_cluster_kernel<true, 16>
-                                    : (const void*)epilogue_cluster_kernel<true, 32>)
-                  : (lay.kc == 8    ? (const void*)epilogue_cluster_kernel<false, 8>
-                     : lay.kc == 16 ? (const void*)epilogue_cluster_kernel<false, 16>
-                                    : (const void*)epilogue_cluster_kernel<false, 32>);
-  const size_t smem = cdt_frontend_smem_b(n_frames, n_mels, n_mfcc, delta_delta);
+    fn = use_pcen ? (kc == 8    ? (const void*)epilogue_cluster_kernel<true, 8>
+                     : kc == 16 ? (const void*)epilogue_cluster_kernel<true, 16>
+                                : (const void*)epilogue_cluster_kernel<true, 32>)
+                  : (kc == 8    ? (const void*)epilogue_cluster_kernel<false, 8>
+                     : kc == 16 ? (const void*)epilogue_cluster_kernel<false, 16>
+                                : (const void*)epilogue_cluster_kernel<false, 32>);
+  const size_t smem = smem_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
   const int err = set_smem(fn, smem);
   if (err) return err;
   void* args[] = {&mel, &n_frames, &n_mels, &dct, &n_mfcc, &delta_delta, &n_features, &out};
   if (n <= 1) {
-    const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsB), args, smem, stream);
+    const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(threads_b(n)), args, smem, stream);
     return launched ? (int)launched : (int)cudaGetLastError();
   }
   const long long blocks = (long long)batch * n;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (n > kPortableCluster) {
+    const cudaError_t allowed = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (allowed) return (int)allowed;
+  }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned)blocks);
-  config.blockDim = dim3(kThreadsB);
+  config.blockDim = dim3(threads_b(n));
   config.dynamicSmemBytes = smem;
   config.stream = stream;
   cudaLaunchAttribute attr[1];

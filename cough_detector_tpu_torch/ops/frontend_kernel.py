@@ -47,7 +47,8 @@ mels in groups of at most 128, each its own blocks (`mel_groups`), and
 gathers its frames from device memory where a
 128-frame tile's waveform span passes shared memory (`spectral_staged`);
 launch B holds a clip in one block, across a thread-block cluster of up
-to 8 (`epilogue_blocks`), or past that works in device memory; the
+to 16 (`epilogue_blocks`: the fewest whose blocks fit three an SM, else
+two, else one), or past that works in device memory; the
 contrast launch moves its span, its contrast rows and its power rows out
 of shared memory in that order (`contrast_level`), and takes any number
 of bands of any width. The
@@ -104,7 +105,11 @@ _ROWS_A = 128  # frames one launch A block owns
 _SLOTS_A = 2  # launch A's smallest ring
 _BARRIERS_A = 12 * 4  # bytes of launch A's ring barriers and counters (4 slots)
 _RED_B = 32  # floats of launch B's reduction slots
-_MAX_CLUSTER = 8  # launch B's largest cluster: blocks a clip
+_MAX_CLUSTER = 16  # launch B's largest cluster: blocks a clip (past 8, non-portable)
+_THREADS_B, _THREADS_BC = 128, 256  # launch B's threads a block: one block a clip, a cluster's block
+_RED_BC = 120  # floats of launch B's cluster blocks' reduction slots
+_SMEM_SM = 233472  # shared memory of an SM, 1 KB of it reserved a block
+_BLOCKS_SM = 3  # launch B's cluster blocks an SM at most
 _RED_C = 16  # floats of the contrast launch's reduction slots
 _FFT_POINTS = 8192  # the FFT plans: complex points a block holds (64 KB)
 _FFT_MAX_FRAMES = 32  # the FFT plans: frames a block takes at most
@@ -232,38 +237,61 @@ def mel_groups(n_mels: int) -> tuple:
     return next(m for m in _MEL_TILES if 8 * m >= per), n_groups
 
 
-def _layout_b_floats(t: int, m: int, c: int, delta_delta: bool) -> int:
-    """csrc/frontend_kernel.cu's LayoutB: reduction slots, the DCT table
-    padded to whole passes of its DCT (8, 16 or 32 MFCCs a pass), the
-    power mel (m x t); the MFCC tile and, with delta-deltas, the delta tile
-    take the mel tile's rows where c <= 32 and 2c <= m, and follow it
-    otherwise."""
+def _layout_b_floats(t: int, m: int, c: int, delta_delta: bool, halo: int = 0, red: int = _RED_B) -> int:
+    """csrc/frontend_kernel.cu's LayoutB: reduction slots (`red` floats),
+    the DCT table padded to whole passes of its DCT (8, 16 or 32 MFCCs a
+    pass), the power mel (m x cols, cols = t + 2 halo); the MFCC tile and,
+    with delta-deltas, the delta tile take the mel tile's rows where
+    c <= 32 and 2c <= m, and follow it otherwise."""
     kc = 8 if c <= 8 else 16 if c <= 16 else 32
-    floats = m * -(-c // kc) * kc + m * t
+    cols = t + 2 * halo
+    floats = m * -(-c // kc) * kc + m * cols
     if not (c <= 32 and 2 * c <= m):
-        floats += (2 if delta_delta else 1) * c * t
-    return _RED_B + floats
+        floats += (2 if delta_delta else 1) * c * cols
+    return red + floats
+
+
+def _cluster_bytes(cfg: FeatureConfig, n: int) -> int:
+    """Shared memory of a block of launch B's cluster route at n blocks a
+    clip (cluster_bytes_b): ceil(T / n) frames and halo_b more on each
+    side (5 with PCEN, else 1, or 2 with delta-deltas)."""
+    dd = cfg.use_delta_delta
+    halo = 5 if cfg.use_pcen else 1 + int(dd)
+    return 4 * _layout_b_floats(-(-cfg.num_frames // n), cfg.n_mels, cfg.n_mfcc, dd, halo, _RED_BC)
 
 
 def epilogue_blocks(cfg: FeatureConfig) -> int:
     """Launch B's plan (plan_b, cdt_frontend_plan_b): 1, one block holds a
-    clip; 2 to 8, a cluster of that many blocks holds it, ceil(T / n)
-    frames each; 0, not even 8 do, and one block a clip works in device
-    memory."""
+    clip; 2 to 16, a cluster of that many blocks holds it, ceil(T / n)
+    frames each: for k = 3, 2, 1, the fewest whose blocks fit k an SM; 0,
+    not even 16 do, and one block a clip works in device memory."""
     t, m, c, dd = cfg.num_frames, cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta
-    return next(
-        (n for n in range(1, _MAX_CLUSTER + 1) if 4 * _layout_b_floats(-(-t // n), m, c, dd) <= _MAX_SMEM), 0
-    )
+    if 4 * _layout_b_floats(t, m, c, dd) <= _MAX_SMEM:
+        return 1
+    for k in range(_BLOCKS_SM, 0, -1):
+        for n in range(2, _MAX_CLUSTER + 1):
+            if _cluster_bytes(cfg, n) <= _SMEM_SM // k - 1024:
+                return n
+    return 0
 
 
 def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
     """Launch B's shared memory a block under its plan, as
     csrc/frontend_kernel.cu counts it (cdt_frontend_smem_b): LayoutB at the
-    frames a block holds, or the reduction slots alone in device memory."""
+    clip's frames, a cluster block's, or the reduction slots alone in
+    device memory."""
     n = epilogue_blocks(cfg)
     if n == 0:
         return 4 * _RED_B
-    return 4 * _layout_b_floats(-(-cfg.num_frames // n), cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta)
+    if n == 1:
+        return 4 * _layout_b_floats(cfg.num_frames, cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta)
+    return _cluster_bytes(cfg, n)
+
+
+def epilogue_threads(cfg: FeatureConfig) -> int:
+    """Launch B's threads a block under its plan (threads_b): 128 for one
+    block a clip or device memory, 256 for a cluster's blocks."""
+    return _THREADS_BC if epilogue_blocks(cfg) >= 2 else _THREADS_B
 
 
 def spectral_grid(batch: int, n_frames: int, n_groups: int = 1) -> int:
@@ -662,7 +690,7 @@ def build() -> ctypes.CDLL:
     lib.cdt_frontend_spectral_fft.restype = i
     lib.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i, p, p]
     lib.cdt_frontend_contrast_fft.restype = i
-    for name, n_args in (("a", 4), ("b", 4), ("c", 6)):
+    for name, n_args in (("a", 4), ("b", 5), ("c", 6)):
         getattr(lib, f"cdt_frontend_smem_{name}").argtypes = [i] * n_args
         getattr(lib, f"cdt_frontend_smem_{name}").restype = ctypes.c_size_t
         getattr(lib, f"cdt_frontend_plan_{name}").argtypes = [i] * n_args

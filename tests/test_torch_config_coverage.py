@@ -7,7 +7,7 @@ contrast rows for a contrast config. The port's three launches take the
 same set: more than 128 mels and an even n_fft of prime factors 2, 3 and 5
 from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
 shared memory with the waveform gathered from device memory, clips past 4 s over
-a thread-block cluster (or in device memory past 8 blocks), a hop of 4,
+a thread-block cluster (or in device memory past 16 blocks), a hop of 4,
 and any contrast bands.
 The kernels run only on the card (chip_smoke.py holds them there); here
 the same numpy inputs go through the port's card route with device="cpu"
@@ -55,7 +55,10 @@ CONFIGS = {
 # at 256 mels; and since the FFT plans took every even 5-smooth n_fft, the
 # GEMM plans' span from device memory (launch A unstaged, the contrast
 # launch's levels 1 and 3) and launch A's GEMM plan over two mel groups,
-# reached by an n_fft with a factor of 7.
+# reached by an n_fft with a factor of 7; two 10 s clips for launch B's
+# cluster route's other branches (PCEN with delta-deltas and its 32-MFCC
+# DCT; 36 MFCCs of 40 mels, the MFCC and delta tiles after the mel tile);
+# and a 120 s clip, past a cluster of 16: launch B in device memory.
 EXTRA = {
     "clip60s_128_all_flags": dict(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
                                   use_pre_emphasis=True, use_delta_delta=True, **CONTRAST),
@@ -67,6 +70,10 @@ EXTRA = {
     "nfft1792_contrast": dict(n_fft=1792, win_length=1792, hop_length=448, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft2744_contrast": dict(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft896_mels256": dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0),
+    "clip10s_pcen_dd20": dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20),
+    "clip10s_mels40_mfcc36_dd": dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
+    "clip120s_128_pcen_dd": dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
+                                 use_delta_delta=True),
 }
 JNP = ("clip10s", "hop4")  # too long in interpret mode: the JAX jnp chain instead
 
@@ -81,14 +88,14 @@ PLANS_ON_CARD = {
     "mels256": (89480, 2, 119936, 1, None, None),
     "nfft2048": (96264, 2, 24704, 1, None, None),
     "librosa22k": (96264, 2, 30848, 1, None, None),
-    "clip5s_128": (118096, 1, 136832, 2, None, None),
-    "clip10s": (118096, 1, 132480, 2, None, None),
-    "hop4": (36464, 1, 209280, 5, None, None),
+    "clip5s_128": (118096, 1, 74208, 4, None, None),
+    "clip10s": (118096, 1, 69344, 4, None, None),
+    "hop4": (36464, 1, 73440, 15, None, None),
     "nfft1024_contrast": (89096, 2, 40576, 1, 87656, 4),
     "nfft2048_contrast": (96264, 2, 24704, 1, 94200, 4),
     "bands17": (118096, 1, 30080, 1, 221840, 0),
-    "clip60s_128_all_flags": (118096, 1, 128, 0, 91760, 2),
-    "hop4_contrast": (36464, 1, 209280, 5, 207888, 0),
+    "clip60s_128_all_flags": (118096, 1, 219104, 15, 91760, 2),
+    "hop4_contrast": (36464, 1, 73440, 15, 207888, 0),
     "nfft4096_contrast": (110600, 2, 16512, 1, 107976, 4),
     "nfft2000_contrast": (94008, 2, 25216, 1, 92024, 4),
     "nfft3000_contrast": (96008, 2, 19584, 1, 79288, 4),
@@ -96,6 +103,9 @@ PLANS_ON_CARD = {
     "nfft1792_contrast": (32816, 0, 26752, 1, 206944, 1),
     "nfft2744_contrast": (32816, 0, 20608, 1, 32880, 3),
     "nfft896_mels256": (153200, 1, 90240, 1, None, None),
+    "clip10s_pcen_dd20": (118096, 1, 75488, 4, None, None),
+    "clip10s_mels40_mfcc36_dd": (118096, 1, 76576, 7, None, None),
+    "clip120s_128_pcen_dd": (118096, 1, 128, 0, None, None),
 }
 SMEM = 232448  # bytes of shared memory a block may use on sm_90
 
@@ -227,19 +237,45 @@ def test_spectral_grid_with_mel_groups(batch, n_frames, groups):
     assert clip.max() == batch - 1 and grp.max() == groups - 1 and t0.max() == (tiles - 1) * 128
 
 
-@pytest.mark.parametrize("name, blocks, frames", [
-    ("clip5s_128", 2, 251), ("clip10s", 2, 501), ("hop4", 5, 801),
+@pytest.mark.parametrize("name, blocks, frames, per_sm", [
+    ("clip5s_128", 4, 126, 3), ("clip10s", 4, 251, 3), ("clip10s_pcen_dd20", 4, 251, 3),
+    ("clip10s_mels40_mfcc36_dd", 7, 143, 3), ("hop4", 15, 267, 3), ("clip60s_128_all_flags", 15, 401, 1),
 ])
-def test_epilogue_cluster_takes_the_fewest_blocks(name, blocks, frames):
-    """Launch B's cluster: the fewest blocks whose share of the clip's
-    frames fits one block's shared memory; one block fewer would not."""
+def test_epilogue_cluster_takes_the_fewest_blocks(name, blocks, frames, per_sm):
+    """Launch B's cluster: for per_sm = 3, 2, 1 blocks an SM (233,472 B an
+    SM, 1 KB reserved a block), the fewest blocks (up to 16) whose share of
+    the clip's frames, with its halo (5 frames a side with PCEN, else 1 +
+    delta_delta), fits per_sm an SM. One block fewer would not, and no
+    cluster of 16 fits more an SM. 256 threads a block."""
     cfg = _cfg(name)
     assert frontend_kernel.epilogue_blocks(cfg) == blocks
+    assert frontend_kernel.epilogue_threads(cfg) == 256
     assert -(-cfg.num_frames // blocks) == frames
     m, c, dd = cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta
-    assert 4 * frontend_kernel._layout_b_floats(frames, m, c, dd) == frontend_kernel.epilogue_smem_bytes(cfg) <= SMEM
-    fewer = -(-cfg.num_frames // (blocks - 1))
-    assert 4 * frontend_kernel._layout_b_floats(fewer, m, c, dd) > SMEM
+    halo = 5 if cfg.use_pcen else 1 + int(dd)
+    smem = 4 * frontend_kernel._layout_b_floats(frames, m, c, dd, halo, frontend_kernel._RED_BC)
+    assert smem == frontend_kernel.epilogue_smem_bytes(cfg) <= SMEM
+
+    def share(k):
+        return 233472 // k - 1024
+
+    assert smem <= share(per_sm) and frontend_kernel._cluster_bytes(cfg, blocks - 1) > share(per_sm)
+    if per_sm < 3:
+        assert frontend_kernel._cluster_bytes(cfg, 16) > share(per_sm + 1)
+
+
+@pytest.mark.parametrize("name", ["clip10s_pcen_dd20", "clip10s_mels40_mfcc36_dd"])
+def test_cluster_branches_match_jax(name):
+    """The configs that reach launch B's cluster route's PCEN,
+    delta-delta, 32-MFCC and two-pass DCT branches on the card, through the
+    port's card route on the CPU (the plain versions) against the JAX jnp
+    chain at B = 2 (10 s clips: too long in interpret mode, as clip10s)."""
+    cfg = _cfg(name)
+    w = _waves(cfg, 2, seed=17)
+    got = frontend.extract_features_fast(w, cfg, device="cpu").numpy()
+    want = np.asarray(jax_frontend.extract_features(w, JaxFeatureConfig(**EXTRA[name])))
+    assert got.shape == want.shape == (2, cfg.num_features, cfg.num_frames)
+    assert _rel(got, want) < TOL
 
 
 def test_contrast_bands_in_device_memory():

@@ -62,6 +62,10 @@ COVERAGE = {
     "nfft2744_contrast": (dict(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0, **CONTRAST),
                           0, 3),
     "nfft896_mels256": (dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), 1, None),
+    "clip10s_pcen_dd20": (dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), 1, None),
+    "clip10s_mels40_mfcc36_dd": (dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True), 1, None),
+    "clip120s_128_pcen_dd": (dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
+                                  use_delta_delta=True), 1, None),
     "shipped": ({}, 1, None),
     "shipped_contrast": (dict(CONTRAST), 1, 0),
 }
@@ -242,9 +246,11 @@ def test_shipped_config_keeps_its_gemm_plans():
 def _c_plan_rules():
     """The plan rules of csrc/frontend_kernel.cu, built for the host with
     g++ (its layouts and plans are plain C++): a program that reads
-    (n_fft, hop, kpad, n_mels, n_pow, n_frames, n_bands) lines and prints
+    "a n_fft hop kpad n_mels n_pow n_frames n_bands" lines and prints
     plan_a, its shared memory, plan_c, its shared memory, and LayoutF's
-    frames for each launch."""
+    frames for each launch; and "b n_frames n_mels n_mfcc use_pcen
+    delta_delta" lines, for which it prints launch B's plan_b, its shared
+    memory a block and its threads a block."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -257,12 +263,21 @@ def _c_plan_rules():
     code = "\n".join([
         "#include <cstddef>\n#include <cstdio>\n#include <cstdint>\n#define __host__\n#define __device__",
         between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
-        between("struct LayoutA {", "// Launch B's layout."),
+        between("struct LayoutA {", "// x rounded to TF32"),
         between("struct LayoutC {", "__device__ __forceinline__ float warp_sum"),
         between("// Whether n's only prime factors are 2, 3 and 5", "__device__ __forceinline__ float2 cmul"),
         r"""int main() {
   int n_fft, hop, kpad, n_mels, n_pow, n_frames, n_bands;
-  while (scanf("%d %d %d %d %d %d %d", &n_fft, &hop, &kpad, &n_mels, &n_pow, &n_frames, &n_bands) == 7) {
+  char kind;
+  while (scanf(" %c", &kind) == 1) {
+    if (kind == 'b') {
+      int T, M, C, pcen, dd;
+      if (scanf("%d %d %d %d %d", &T, &M, &C, &pcen, &dd) != 5) return 1;
+      const int n = plan_b(T, M, C, pcen, dd);
+      printf("%d %zu %d\n", n, smem_b(T, M, C, pcen, dd), threads_b(n));
+      continue;
+    }
+    if (scanf("%d %d %d %d %d %d %d", &n_fft, &hop, &kpad, &n_mels, &n_pow, &n_frames, &n_bands) != 7) return 1;
     const int a = plan_a(n_fft, hop, kpad, n_mels), c = plan_c(n_fft, hop, kpad, n_pow, n_frames, n_bands);
     const size_t sa = a == kPlanFft ? LayoutF(n_fft, hop).bytes() : LayoutA(hop, kpad, a == kPlanGemmStaged).bytes(2);
     const size_t sc = c == kPlanCFft ? LayoutF(n_fft, hop, n_pow).bytes()
@@ -296,9 +311,9 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     lines = []
     for c in cfgs:
         g = frontend_kernel._geometry(c)
-        lines.append(f"{c.n_fft} {c.hop_length} {frontend_kernel._support(c)[2]} {c.n_mels} {g.n_pow} {c.num_frames} "
-                     f"{c.n_contrast_bands}")
-        lines.append(f"{c.n_fft} {c.hop_length} {g.kpad} {c.n_mels} {g.n_pow} {c.num_frames} {c.n_contrast_bands}")
+        lines.append(f"a {c.n_fft} {c.hop_length} {frontend_kernel._support(c)[2]} {c.n_mels} {g.n_pow} "
+                     f"{c.num_frames} {c.n_contrast_bands}")
+        lines.append(f"a {c.n_fft} {c.hop_length} {g.kpad} {c.n_mels} {g.n_pow} {c.num_frames} {c.n_contrast_bands}")
     out = subprocess.run([str(tmp_path / "plans")], input="\n".join(lines), capture_output=True, text=True,
                          check=True).stdout.split("\n")
     seen, frames_c = set(), {}
@@ -323,6 +338,38 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     for n_fft in (1792, 1125):  # a factor of 7, an odd n_fft: the GEMM
         assert not {("a", 2, n_fft), ("c", 4, n_fft)} & seen
     assert max(frames_c[768]) == 8 and max(frames_c[1200]) == 4
+
+
+def test_epilogue_plan_mirrors_equal_the_c_rules(tmp_path):
+    """Launch B's plan (blocks a clip), shared memory a block and threads a
+    block, from the Python mirrors, equal the kernel source's own rules
+    (compiled for the host) over a grid of configs: clips of 1 to 60 s at
+    hops of 160 and 4, 32 to 256 mels, 8 to 36 MFCCs, PCEN and
+    delta-deltas. The grid reaches every plan: one block, portable and
+    non-portable clusters (blocks that fit three, two and one an SM),
+    device memory."""
+    gxx, code = _c_plan_rules()
+    (tmp_path / "plans.cpp").write_text(code)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plans"), str(tmp_path / "plans.cpp")], check=True)
+    cfgs = [
+        FeatureConfig(segment_duration=dur, hop_length=hop, n_mels=mels, f_max=8000.0, n_mfcc=c, use_pcen=pcen,
+                      use_delta_delta=dd)
+        for dur, hop in ((1.0, 160), (2.0, 160), (3.0, 160), (4.5, 160), (5.0, 160), (10.0, 160), (20.0, 160),
+                         (30.0, 160), (60.0, 160), (1.0, 4))
+        for mels in (32, 40, 64, 128, 256) for c in (8, 13, 20, 36) for pcen in (False, True) for dd in (False, True)
+    ]
+    lines = [f"b {c.num_frames} {c.n_mels} {c.n_mfcc} {int(c.use_pcen)} {int(c.use_delta_delta)}" for c in cfgs]
+    out = subprocess.run([str(tmp_path / "plans")], input="\n".join(lines), capture_output=True, text=True,
+                         check=True).stdout.split("\n")
+    seen = set()
+    for i, c in enumerate(cfgs):
+        n, smem, threads = map(int, out[i].split())
+        assert (n, smem, threads) == (frontend_kernel.epilogue_blocks(c), frontend_kernel.epilogue_smem_bytes(c),
+                                      frontend_kernel.epilogue_threads(c)), c
+        assert smem <= 232448, c
+        seen.add((n, max(k for k in (1, 2, 3) if smem <= 233472 // k - 1024)))
+    assert {0, 1, 4, 8, 9, 16} <= {n for n, _ in seen}
+    assert {k for n, k in seen if n >= 2} == {1, 2, 3}
 
 
 def test_twiddle_table_layout():

@@ -24,15 +24,29 @@ for 6 blocks an SM instead of 7; and a fast log (__logf) in the load pass
 another copy of the source (the same C interface) whose launch B is timed
 in turns with this one: the baselines, as built, the variants, as built,
 the baselines.
-Then as built (and the baselines) at n_fft 256 and with PCEN. Prints the
-card's name and power limit first. Needs a CUDA card and nvcc; imports no
-JAX.
+Then as built (and the baselines) at n_fft 256 and with PCEN.
+
+The cluster section (alone with --cluster): launch B's cluster route
+(epilogue_cluster_kernel, a clip over 2-16 blocks) on 5 s clips at 128
+mels, 10 s clips, 10 s with PCEN, delta-deltas and 20 MFCCs, 10 s with 36
+MFCCs of 40 mels and delta-deltas, at B = 1024, a hop of 4 at B = 256, 60
+s at 128 mels with PCEN, pre-emphasis and delta-deltas at B = 64, and, in
+device memory past a cluster of 16, 120 s at B = 32; each with the plan
+the library returns (blocks a clip, shared memory a block); in turns the
+baselines, as built, three variants (at most two blocks an SM, or four
+with registers capped to match; portable clusters alone, up to 8 blocks),
+as built, the baselines. Then every build's
+launch B kernels' registers and stack frame (cuobjdump
+--dump-resource-usage).
+Prints the card's name and power limit first. Needs a CUDA card and nvcc;
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -51,6 +65,20 @@ from cough_detector_tpu_torch.utils import kernel_build  # noqa: E402
 BATCH = 4096
 ITERS = 20
 PEAK_HBM_BYTES = 3.35e12
+# The cluster section's configs (chip_smoke.py's coverage_configs) and
+# their batches.
+CLUSTER = {
+    "clip5s_128": (dict(segment_duration=5.0, n_mels=128, f_max=8000.0), 1024),
+    "clip10s": (dict(segment_duration=10.0), 1024),
+    "clip10s_pcen_dd20": (dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), 1024),
+    "clip10s_mels40_mfcc36_dd": (dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True), 1024),
+    "hop4": (dict(hop_length=4), 256),
+    "clip60s_128_pcen_dd": (dict(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
+                                 use_pre_emphasis=True, use_delta_delta=True), 64),
+    "clip120s_128_pcen_dd": (dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
+                                  use_delta_delta=True), 32),
+}
+BLOCKS_SM = "constexpr int kBlocksSM = 3;"
 
 DCT = (
     "          const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);\n"
@@ -99,6 +127,40 @@ def variants(src: str) -> dict:
     }
 
 
+def cluster_variants(src: str) -> dict:
+    """The cluster route's plan for at most two or four blocks an SM (four
+    with registers capped to match), and with portable clusters alone."""
+    four = edit(src, BLOCKS_SM, "constexpr int kBlocksSM = 4;")
+    return {
+        "cluster as built": src,
+        "cluster, 2 blocks an SM at most": edit(src, BLOCKS_SM, "constexpr int kBlocksSM = 2;"),
+        "cluster, 4 blocks an SM at most": edit(
+            four, "__launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel",
+            "__launch_bounds__(kThreadsBC, 4) epilogue_cluster_kernel",
+        ),
+        "cluster, portable clusters only (8 blocks)": edit(
+            src, "constexpr int kMaxCluster = 16;", "constexpr int kMaxCluster = 8;"
+        ),
+    }
+
+
+def resources(path: Path) -> list:
+    """(kernel, registers and stack) of each launch B kernel in a build."""
+    cuobjdump = Path(kernel_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(path)],
+                         check=True, capture_output=True, text=True).stdout.splitlines()
+
+    def name(kernel: str, line: str) -> str:  # the template arguments of a mangled name, as written
+        args = re.findall(r"L([bi])(\d+)E", line.split(kernel)[1].split("EEv")[0] + "E")
+        return f"{kernel}<{', '.join(('true' if v == '1' else 'false') if t == 'b' else v for t, v in args)}>"
+
+    return [
+        (name(kernel, line), " ".join(out[i + 1].split()[:2]))
+        for i, line in enumerate(out) if "Function" in line
+        for kernel in ("epilogue_kernel", "epilogue_cluster_kernel") if kernel + "I" in line
+    ]
+
+
 def build_all(sources: dict) -> dict:
     kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
@@ -108,10 +170,13 @@ def build_all(sources: dict) -> dict:
         path.write_text(text)
         lib = path.with_suffix(".so")
         cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(lib), str(path)]
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
         handle = ctypes.CDLL(str(lib))
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.cdt_frontend_epilogue.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
+        handle.path = lib
         return name, handle
 
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -124,6 +189,7 @@ def main() -> None:
         "--baseline", type=Path, action="append", default=[],
         help="another frontend_kernel.cu to time beside this one (repeatable)",
     )
+    parser.add_argument("--cluster", action="store_true", help="only the cluster route's section")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -132,7 +198,9 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
 
-    sources = variants((kernel_build._CSRC / "frontend_kernel.cu").read_text())
+    src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
+    sources = {} if args.cluster else variants(src)
+    sources.update(cluster_variants(src))
     baselines = [f"baseline {path}" for path in args.baseline]
     for name, path in zip(baselines, args.baseline):
         sources[name] = path.read_text()
@@ -140,21 +208,25 @@ def main() -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
-    def setup(cfg: FeatureConfig):
-        w = torch.from_numpy((rng.standard_normal((BATCH, cfg.segment_samples)) * 0.3).astype(np.float32))
-        mel = frontend_kernel.power_mel_fused(w.to(dev), cfg)
-        out = torch.empty((BATCH, cfg.num_features, cfg.num_frames), device=dev)
+    def setup(cfg: FeatureConfig, batch: int = BATCH):
+        # 64 clips repeated to the batch: the times do not depend on the content.
+        w = torch.from_numpy((rng.standard_normal((min(batch, 64), cfg.segment_samples)) * 0.3).astype(np.float32))
+        w = w.to(dev).repeat(-(-batch // 64), 1)[:batch].contiguous()
+        mel = frontend_kernel.power_mel_fused(w, cfg)
+        del w
+        out = torch.empty((batch, cfg.num_features, cfg.num_frames), device=dev)
         want = frontend_kernel.mel_epilogue_reference(mel, cfg)
         dct = frontend_kernel._dct(cfg.n_mfcc, cfg.n_mels, dev)
-        nbytes = 4 * BATCH * (cfg.n_mels + cfg.num_features) * cfg.num_frames
+        nbytes = 4 * batch * (cfg.n_mels + cfg.num_features) * cfg.num_frames
         return mel, out, want, dct, nbytes
 
     def time_lib(lib: ctypes.CDLL, cfg: FeatureConfig, state) -> tuple:
         mel, out, want, dct, _ = state
+        batch = mel.shape[0]
 
         def launch() -> None:
             err = lib.cdt_frontend_epilogue(
-                mel.data_ptr(), BATCH, cfg.num_frames, cfg.n_mels, dct.data_ptr(), cfg.n_mfcc,
+                mel.data_ptr(), batch, cfg.num_frames, cfg.n_mels, dct.data_ptr(), cfg.n_mfcc,
                 int(cfg.use_pcen), int(cfg.use_delta_delta), cfg.num_features, out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream,
             )
@@ -173,9 +245,37 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / ITERS, err
 
+    if not args.cluster:
+        one_block(libs, baselines, setup, time_lib)
+    lib = frontend_kernel.build()
+    turns = baselines + ["cluster as built", *[n for n in libs if n.startswith("cluster,")],
+                         "cluster as built"] + baselines
+    for label, (kw, batch) in CLUSTER.items():
+        cfg = FeatureConfig(**kw)
+        state = setup(cfg, batch)
+        bound = state[4] / PEAK_HBM_BYTES * 1e3
+        b_args = (cfg.num_frames, cfg.n_mels, cfg.n_mfcc, int(cfg.use_pcen), int(cfg.use_delta_delta))
+        plan = f"{lib.cdt_frontend_plan_b(*b_args)} blocks a clip, {lib.cdt_frontend_smem_b(*b_args)} B a block"
+        for name in turns:
+            ms, err = time_lib(libs[name], cfg, state)
+            print(
+                f"epilogue launch B={batch}, {label} (as built: {plan}), {name}: {ms:.4f} ms ({100 * bound / ms:.1f}% "
+                f"of the {bound:.4f} ms bytes bound), max-relative vs plain {err:.2e}",
+                flush=True,
+            )
+        del state
+        torch.cuda.empty_cache()
+    for name in dict.fromkeys(["cluster as built"] + baselines):
+        for kernel, usage in resources(libs[name].path):
+            print(f"{name}: {kernel}: {usage} (cuobjdump --dump-resource-usage)", flush=True)
+
+
+def one_block(libs: dict, baselines: list, setup, time_lib) -> None:
+    """The one-block route's section, on the shipped config, n_fft 256 and
+    PCEN."""
     shipped = FeatureConfig()
     state = setup(shipped)
-    order = baselines + [n for n in libs if n not in baselines] + ["as built"] + baselines
+    order = baselines + [n for n in libs if n not in baselines and not n.startswith("cluster")] + ["as built"] + baselines
     bound = state[4] / PEAK_HBM_BYTES * 1e3
     for name in order:
         ms, err = time_lib(libs[name], shipped, state)
