@@ -40,8 +40,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      and 2048 with contrast, 17 bands; each at B = 17 and 256; and at
      B = 17 a 60 s clip with every flag, contrast at a hop of 4, at n_fft
      4096, 2000 and 3000 (the FFT plans' radix-3 and radix-5 stages), 256
-     mels at n_fft 768, the GEMM plans' spans from device memory and
-     mel groups at n_fft 1792, 2744 and 896 (a factor of 7), and 10 s clips
+     mels at n_fft 768, n_fft 1792 and 2744 with contrast and 896 at 256
+     mels (radix-7 stages), 44.1 kHz at n_fft 1764 with contrast and at
+     882 (40 and 20 ms windows, a 10 ms hop; 441 points a frame of launch
+     A, odd), the GEMM plans' spans from device memory and mel groups at
+     n_fft 1760, 2662 and 880 (a factor of 11) and at an odd n_fft (1323,
+     30 ms at 44.1 kHz), and 10 s clips
      with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
      (launch B's cluster route's other branches), 120 s at 128 mels (launch
      B in device memory), for the plans no other config reaches) through
@@ -53,7 +57,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the 3xTF32 models), each launch's shared memory and plan (the FFT or
      the GEMM's span staged or not, blocks a clip, LayoutC's level or the
      FFT) equal to its Python mirror; and the main path on 160 mels, 10 s
-     clips, n_fft 2048 and n_fft 2048 with contrast, features into the
+     clips, n_fft 2048, n_fft 2048 with contrast and 44.1 kHz at n_fft 1764
+     with contrast (radix-7 stages in both FFT plans), features into the
      residual model through a captured graphs.Programs program (one eager
      call, two replays, launches counted through them, logits within 1e-3
      of eager);
@@ -68,9 +73,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      dispatch); the spectral and epilogue launches at B = 1024 on 256
      mels and n_fft 1024 (both of launch A's plans), n_fft 2048 at 16 and
      22.05 kHz, 10 s clips (the GEMM), n_fft 2000, 3000 and 256 mels at
-     n_fft 768 (the FFT's radix-3 and radix-5 stages), 896 at 256 mels
-     (the GEMM), the contrast launch on n_fft 1024 (both plans), 2048,
-     4096, 2000 and 3000 (the FFT), 1792 and 2744 (the GEMM), each beside
+     n_fft 768 (the FFT's radix-3 and radix-5 stages), 896 at 256 mels,
+     1792, 2744 and 44.1 kHz at 1764 and 882 (radix 7), 880 at 256 mels and
+     44.1 kHz at 1323 (the GEMM), the contrast launch on n_fft 1024 (both
+     plans), 2048, 4096, 2000, 3000, 1792, 2744 and 44.1 kHz at 1764 (the
+     FFT), 1760 and 2662 (the GEMM), each beside
      its bound, its plain version and torch.stft + mel (the fft rows for
      contrast); the epilogue launch alone on its cluster route (5 s at 128
      mels, 10 s with PCEN, delta-deltas and 20 MFCCs at B = 1024, a hop of
@@ -3287,12 +3294,16 @@ def coverage_configs() -> dict:
     launch's level 2 (its rows in the output), in one 60 s config; the
     contrast launch at a hop of 4; its FFT plan at n_fft 4096 (458-bin bands); the FFT plans'
     radix-3 and radix-5 stages at n_fft 2000 and 3000 with contrast and at
-    n_fft 768 on 256 mels; and, at an n_fft with a factor of 7 (the FFT
-    plans take only 2, 3 and 5), the GEMM plans' spans from device memory:
-    launch A unstaged with the contrast launch's level 1 (n_fft 1792), and
-    with its level 3, its power rows in device memory (n_fft 2744); and
-    launch A's GEMM plan over two mel groups, its span staged (n_fft 896,
-    256 mels). Last, two 10 s clips for launch B's cluster route's other
+    n_fft 768 on 256 mels; their radix-7 stages at n_fft 1792 and 2744 with
+    contrast and 896 on 256 mels, and at 44.1 kHz as users set it, a 40 ms
+    window with contrast (n_fft 1764) and a 20 ms one (n_fft 882: launch A's
+    frame of 441 points, odd), a 10 ms hop; at an n_fft with a factor of 11
+    (the FFT plans take only 2, 3, 5 and 7), the GEMM plans' spans from
+    device memory: launch A unstaged with the contrast launch's level 1
+    (n_fft 1760), and with its level 3, its power rows in device memory
+    (n_fft 2662); launch A's GEMM plan over two mel groups, its span staged
+    (n_fft 880, 256 mels); and launch A's GEMM on an odd n_fft, 30 ms at
+    44.1 kHz (1323). Last, two 10 s clips for launch B's cluster route's other
     branches: PCEN with delta-deltas and 20 MFCCs (its 32-MFCC DCT), and 36
     MFCCs of 40 mels with delta-deltas (two DCT passes, the MFCC and delta
     tiles after the mel tile); and a 120 s clip at 128 mels with PCEN and
@@ -3330,6 +3341,17 @@ def coverage_configs() -> dict:
         "nfft2744_contrast": (FeatureConfig(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
         "nfft896_mels256": (FeatureConfig(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), one),
+        "sr44k_nfft1764_contrast": (FeatureConfig(sample_rate=44100, n_fft=1764, win_length=1764, hop_length=441,
+                                                  n_mels=128, f_max=22050.0, use_spectral_contrast=True), one),
+        "sr44k_nfft882": (FeatureConfig(sample_rate=44100, n_fft=882, win_length=882, hop_length=441, n_mels=128,
+                                        f_max=22050.0), one),
+        "nfft1760_contrast": (FeatureConfig(n_fft=1760, win_length=1760, hop_length=440, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft2662_contrast": (FeatureConfig(n_fft=2662, win_length=2662, hop_length=665, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft880_mels256": (FeatureConfig(n_fft=880, win_length=880, hop_length=220, n_mels=256, f_max=8000.0), one),
+        "sr44k_nfft1323": (FeatureConfig(sample_rate=44100, n_fft=1323, win_length=1323, hop_length=441, n_mels=128,
+                                         f_max=22050.0), one),
         "clip10s_pcen_dd20": (FeatureConfig(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), one),
         "clip10s_mels40_mfcc36_dd": (FeatureConfig(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
                                      one),
@@ -3368,8 +3390,8 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     launch alone against its plain version (1e-3) and the CPU model of its
     plan (FFT_TOL for the FFT plans, SPLIT_TOL for the 3xTF32 GEMM); each
     launch's shared memory and plan against its Python mirror. Then the
-    main path at full width on mels160, clip10s, nfft2048 and
-    nfft2048_contrast: features into the residual model (290,370
+    main path at full width on mels160, clip10s, nfft2048,
+    nfft2048_contrast and sr44k_nfft1764_contrast: features into the residual model (290,370
     parameters, seeded weights) through a captured graphs.Programs program,
     one eager call and two replays, the launches counted through the
     replays, the logits within 1e-3 of the same weights eagerly."""
@@ -3468,14 +3490,14 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
                      f"{want_fft}) or errors {errs} off")
             launches[(name, b)] = moved
 
-    # The main path on four of them at full width, through a captured program.
+    # The main path on five of them at full width, through a captured program.
     torch.manual_seed(SEED)
     model = create_model("residual")
     if count_parameters(model) != 290370:
         fail(f"residual model has {count_parameters(model)} parameters, expected 290370")
     model = place_model(model, dev)
     main_path = {}
-    for name in ("mels160", "clip10s", "nfft2048", "nfft2048_contrast"):
+    for name in ("mels160", "clip10s", "nfft2048", "nfft2048_contrast", "sr44k_nfft1764_contrast"):
         cfg = coverage_configs()[name][0]
         w = make_audio_bulk(rng, 256, cfg.segment_samples, dev)
 
@@ -3892,11 +3914,14 @@ def main() -> None:
     # library yardstick), its plain version and, for the contrast launch,
     # the fft rows: launch A's FFT plan on n_fft 2048 at 16 and 22.05 kHz
     # and on n_fft 1024 (nfft1024_contrast's base), 2000 and 3000 and on
-    # n_fft 768 at 256 mels (radix-3 and radix-5 stages), its GEMM plan on
-    # 10 s clips and at n_fft 896 on 256 mels (a factor of 7); the contrast
-    # launch's FFT plan on n_fft 1024, 2048, 4096, 2000 and 3000, its GEMM
-    # plan at n_fft 1792 and 2744. The GEMM plans these n_fft took until
-    # their FFT plans are not timed again (PERF.md keeps their times).
+    # n_fft 768 at 256 mels (radix-3 and radix-5 stages), on n_fft 1792,
+    # 2744, 896 at 256 mels and 44.1 kHz at 1764 and 882 (radix 7), its
+    # GEMM plan on 10 s clips, at n_fft 880 on 256 mels (a factor of 11) and
+    # at 44.1 kHz on the odd 1323; the contrast launch's FFT plan on n_fft
+    # 1024, 2048, 4096, 2000, 3000, 1792, 2744 and 44.1 kHz at 1764, its
+    # GEMM plan at n_fft 1760 and 2662 (a factor of 11). The GEMM plans
+    # these n_fft took until their FFT plans are not timed again (PERF.md
+    # keeps their times).
     # Where the FFT plan's threshold and its 128-mel rule are set (n_fft
     # 1024, 256 mels), the GEMM plan too, called through its C function.
     # A contrast config's pair is its base's: only its contrast launch is
@@ -3907,14 +3932,16 @@ def main() -> None:
     t0 = time.perf_counter()
     coverage_timing = {}
     covered_cfgs = dict(coverage_configs())
-    for name in ("nfft1024", "nfft2000", "nfft3000"):
+    for name in ("nfft1024", "nfft2000", "nfft3000", "nfft1792", "nfft2744", "sr44k_nfft1764"):
         cfg = covered_cfgs[f"{name}_contrast"][0]
         covered_cfgs[name] = (dataclasses.replace(cfg, use_spectral_contrast=False), ())
     epilogue_only = {"clip5s_128": 1024, "clip10s_pcen_dd20": 1024, "hop4": 256, "clip60s_128_all_flags": 64,
                      "clip120s_128_pcen_dd": 32}
     for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft2000", "nfft3000", "nfft768_mels256",
-                 "nfft896_mels256", "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
-                 "nfft3000_contrast", "nfft1792_contrast", "nfft2744_contrast", *epilogue_only):
+                 "nfft896_mels256", "nfft1792", "nfft2744", "sr44k_nfft1764", "sr44k_nfft882", "nfft880_mels256",
+                 "sr44k_nfft1323", "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
+                 "nfft3000_contrast", "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast",
+                 "nfft1760_contrast", "nfft2662_contrast", *epilogue_only):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -4395,22 +4422,25 @@ def main() -> None:
                            if "contrast" in rows and rows["contrast"]["plan"] == "gemm"},
     })
     # The FFT plans (spectral_fft_kernel, contrast_fft_kernel): their main
-    # path is the captured one of phase 3 on n_fft 2048 (with contrast for
-    # launch C), the counters set to 0 just before; their times phase 4's
-    # at B = 1024 on that config.
+    # paths are the captured ones of phase 3 on n_fft 2048 (with contrast for
+    # launch C) and on 44.1 kHz at n_fft 1764 with contrast (the radix-7
+    # stages), the counters set to 0 just before each; their times phase 4's
+    # at B = 1024 on n_fft 2048.
     for part, cfg_name, launch_name, kernel, counter in (
         ("spectral", "nfft2048", "frontend_spectral_fft", "spectral_fft_kernel", "SPECTRAL_FFT_LAUNCHES"),
         ("contrast", "nfft2048_contrast", "frontend_contrast_fft", "contrast_fft_kernel", "CONTRAST_FFT_LAUNCHES"),
     ):
         row = coverage_timing[cfg_name][part]
+        paths = (cfg_name, "sr44k_nfft1764_contrast")
         kernels.append({
             "name": launch_name,
             "route": "cuda",
             "source": f"cough_detector_tpu_torch/csrc/frontend_kernel.cu ({kernel})",
             "replaces": "cough_detector_tpu/ops/pallas/frontend_kernel.py:278" if part == "spectral"
                         else "cough_detector_tpu/ops/pallas/frontend_kernel.py:326",
-            "launches": covered["main_path"][cfg_name][counter],
-            "main_path": f"coverage {cfg_name}, captured: 1 eager call + 2 replays",
+            "launches": sum(covered["main_path"][name][counter] for name in paths),
+            "main_path_launches": {name: covered["main_path"][name][counter] for name in paths},
+            "main_path": f"coverage {' and '.join(paths)}, captured: 1 eager call + 2 replays each",
             "max_abs_err": max(covered["max_abs"][f"{part}_fft"], max_abs.get(f"{part}_fft", 0.0)),
             "max_rel_vs_fft_model": covered["model_err"][f"{part}_fft"],
             "fft_model_tol": FFT_TOL,

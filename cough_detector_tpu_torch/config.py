@@ -59,12 +59,19 @@ class FeatureConfig:
 
     @property
     def num_frames(self) -> int:
-        """Number of STFT frames for a full segment (center=True).
+        """Number of STFT frames for a full segment (center=True): the
+        segment reflect-padded by n_fft // 2 a side, cut into frames of
+        n_fft samples a hop apart.
 
-        Matches reference get_expected_time_frames
-        (reference: src/preprocessing.py:532-534).
+        For an even n_fft this is reference get_expected_time_frames
+        (reference: src/preprocessing.py:532-534), segment_samples //
+        hop_length + 1. An odd n_fft pads one sample less than a frame
+        spans, so where the hop divides the segment (1323 at a 441 hop,
+        44.1 kHz) there is one frame fewer: torch.stft's count, and the
+        frames the JAX package's jnp chain returns, where its config
+        counts one more.
         """
-        return self.segment_samples // self.hop_length + 1
+        return (self.segment_samples + 2 * (self.n_fft // 2) - self.n_fft) // self.hop_length + 1
 
     @property
     def num_features(self) -> int:

@@ -1598,7 +1598,7 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 
 // -- The FFT plans of launches A and C ------------------------------------------
 //
-// For an even n_fft of prime factors 2, 3 and 5 from kFftMinNfft on
+// For an even n_fft of prime factors 2, 3, 5 and 7 from kFftMinNfft on
 // (fft_nfft), launches A and C compute their spectra by FFT instead of the
 // DFT as a GEMM (plan_a, plan_c): the GEMM costs O(n_fft) a bin, and at
 // n_fft 2048 it pads 32 frames to 128 rows, runs 256 k-steps over 2,048
@@ -1610,7 +1610,7 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    then packs each windowed frame into complex points, in shared memory.
 //  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (one of
 //    radix 2 first when the points hold an odd power of two, then radix 4,
-//    then radix 3 and radix 5, each R-point DFT in registers), every frame
+//    then radix 3, 5 and 7, each R-point DFT in registers), every frame
 //    of the block at once, each stage in place: a thread reads its
 //    butterflies' points into registers, the block meets at a barrier,
 //    then it writes their outputs. Rows and butterfly indices come by
@@ -1620,7 +1620,8 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    _twiddles), staged in shared memory; k past n_fft / 2 is the negated
 //    entry of k - n_fft / 2.
 //  * Launch A (spectral_fft_kernel) packs the frame's n_fft reals as
-//    n_fft / 2 complex (even samples real, odd imaginary), and the real
+//    n_fft / 2 complex (even samples real, odd imaginary; an odd count
+//    where n_fft / 2 is odd, as 441 at n_fft 882), and the real
 //    FFT's bin k is (Z[k] + conj Z[m - k]) / 2 + w^k (-i) (Z[k] - conj
 //    Z[m - k]) / 2 (m = n_fft / 2, w = e^{-2 pi i / n_fft}); the power of
 //    bins [0, n_used) replaces the points in shared memory, then the mel
@@ -1653,12 +1654,13 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    and post-twiddles in torch ops: ops/frontend_kernel.py's
 //    power_mel_fft_reference and spectral_contrast_fft_reference.
 
-// Whether n's only prime factors are 2, 3 and 5 (n >= 1).
-__host__ __device__ inline bool smooth235(int n) {
+// Whether n's only prime factors are 2, 3, 5 and 7 (n >= 1).
+__host__ __device__ inline bool smooth2357(int n) {
   if (n < 1) return false;
   while (n % 2 == 0) n /= 2;
   while (n % 3 == 0) n /= 3;
   while (n % 5 == 0) n /= 5;
+  while (n % 7 == 0) n /= 7;
   return n == 1;
 }
 
@@ -1696,17 +1698,19 @@ struct LayoutF {
 };
 
 // Whether an n_fft can take an FFT plan: an even n_fft (from 64) of
-// prime factors 2, 3 and 5 whose frame fits a block's points (the stages
-// are of radix 2, 4, 3 and 5; the twiddle table's negated half needs n_fft
-// / 2 whole). plan_a and plan_c take it from kFftMinNfft on, and launch A
-// also past 128 mels, where its GEMM plan runs the DFT again for each mel
-// group (1.34 ms at B = 1024 on 256 mels, the FFT plan 0.67). At 128 mels
-// and hop n_fft / 4 the FFT plan beat the GEMM at B = 1024 and 4096 on
-// n_fft 640 (launch A 1.5x, launch C 1.2x), 768 and 1000 (2.1-3.1x), where
-// the GEMM keeps n_fft 512 (the shipped config: 0.99 ms against the FFT's
-// 1.74 at B = 4096; tools/spectral_probe.py, tools/contrast_probe.py).
+// prime factors 2, 3, 5 and 7 whose frame fits a block's points (the
+// stages are of radix 2, 4, 3, 5 and 7; the twiddle table's negated half
+// needs n_fft / 2 whole). plan_a and plan_c take it from kFftMinNfft on,
+// and launch A also past 128 mels, where its GEMM plan runs the DFT again
+// for each mel group (1.34 ms at B = 1024 on 256 mels, the FFT plan 0.67).
+// At 128 mels and hop n_fft / 4 the FFT plan beat the GEMM at B = 1024 and
+// 4096 on n_fft 640 (launch A 1.5x, launch C 1.2x), 768 and 1000
+// (2.1-3.1x), and with a factor of 7 on 672 (A 1.8-1.9x, C 1.15-1.17x) and
+// 784 (A 2.4-2.5x, C 2.2-2.3x), so one threshold serves both; the GEMM
+// keeps n_fft 512 (the shipped config: 0.99 ms against the FFT's 1.74 at
+// B = 4096; tools/spectral_probe.py, tools/contrast_probe.py).
 __host__ __device__ inline bool fft_nfft(int n_fft, int points_a_frame) {
-  return n_fft >= 64 && n_fft % 2 == 0 && smooth235(n_fft) && points_a_frame <= kFftPoints;
+  return n_fft >= 64 && n_fft % 2 == 0 && smooth2357(n_fft) && points_a_frame <= kFftPoints;
 }
 
 // Launch A's plan: the FFT, else the GEMM with its span staged or not.
@@ -1750,11 +1754,15 @@ struct DivBy {
   __device__ __forceinline__ int operator()(int n) const { return (int)__umulhi((unsigned)n << 1, m); }
 };
 
-// cos and sin of 2 pi / 3, 2 pi / 5 and 4 pi / 5, from float64 values,
-// rounded once (ops/frontend_kernel.py's _stockham uses the same).
+// cos and sin of 2 pi / 3, 2 pi / 5, 4 pi / 5, 2 pi / 7, 4 pi / 7 and 6 pi
+// / 7, from float64 values, rounded once (ops/frontend_kernel.py's
+// _stockham uses the same).
 constexpr float kSin3 = 0.86602540378443865;
 constexpr float kCos5a = 0.30901699437494742, kSin5a = 0.95105651629515357;
 constexpr float kCos5b = -0.80901699437494742, kSin5b = 0.58778525229247314;
+constexpr float kCos7a = 0.62348980185873359, kSin7a = 0.78183148246802980;
+constexpr float kCos7b = -0.22252093395631434, kSin7b = 0.97492791218182362;
+constexpr float kCos7c = -0.90096886790241903, kSin7c = 0.43388373911755823;
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
@@ -1781,8 +1789,7 @@ __device__ __forceinline__ void dft_points(float2 (&v)[R]) {
     v[1] = cadd(a1, a3);
     v[2] = csub(a0, a2);
     v[3] = csub(a1, a3);
-  } else {
-    static_assert(R == 5, "radix 2, 3, 4 or 5");
+  } else if constexpr (R == 5) {
     const float2 t1 = cadd(v[1], v[4]), t2 = csub(v[1], v[4]), t3 = cadd(v[2], v[3]), t4 = csub(v[2], v[3]);
     const float2 m1 = make_float2(v[0].x + kCos5a * t1.x + kCos5b * t3.x, v[0].y + kCos5a * t1.y + kCos5b * t3.y);
     const float2 m2 = make_float2(v[0].x + kCos5b * t1.x + kCos5a * t3.x, v[0].y + kCos5b * t1.y + kCos5a * t3.y);
@@ -1793,6 +1800,32 @@ __device__ __forceinline__ void dft_points(float2 (&v)[R]) {
     v[4] = make_float2(m1.x - n1.y, m1.y + n1.x);  // m1 + i n1
     v[2] = make_float2(m2.x + n2.y, m2.y - n2.x);
     v[3] = make_float2(m2.x - n2.y, m2.y + n2.x);
+  } else {
+    static_assert(R == 7, "radix 2, 3, 4, 5 or 7");
+    // Pairs a_r = v_r + v_{7-r}, b_r = v_r - v_{7-r}; output k in 1-3 is
+    // m_k - i n_k and output 7 - k is m_k + i n_k, with m_k = v0 + sum_r
+    // cos(2 pi r k / 7) a_r and n_k = sum_r sin(2 pi r k / 7) b_r.
+    const float2 a1 = cadd(v[1], v[6]), b1 = csub(v[1], v[6]), a2 = cadd(v[2], v[5]), b2 = csub(v[2], v[5]);
+    const float2 a3 = cadd(v[3], v[4]), b3 = csub(v[3], v[4]);
+    const float2 m1 = make_float2(v[0].x + kCos7a * a1.x + kCos7b * a2.x + kCos7c * a3.x,
+                                  v[0].y + kCos7a * a1.y + kCos7b * a2.y + kCos7c * a3.y);
+    const float2 m2 = make_float2(v[0].x + kCos7b * a1.x + kCos7c * a2.x + kCos7a * a3.x,
+                                  v[0].y + kCos7b * a1.y + kCos7c * a2.y + kCos7a * a3.y);
+    const float2 m3 = make_float2(v[0].x + kCos7c * a1.x + kCos7a * a2.x + kCos7b * a3.x,
+                                  v[0].y + kCos7c * a1.y + kCos7a * a2.y + kCos7b * a3.y);
+    const float2 n1 = make_float2(kSin7a * b1.x + kSin7b * b2.x + kSin7c * b3.x,
+                                  kSin7a * b1.y + kSin7b * b2.y + kSin7c * b3.y);
+    const float2 n2 = make_float2(kSin7b * b1.x - kSin7c * b2.x - kSin7a * b3.x,
+                                  kSin7b * b1.y - kSin7c * b2.y - kSin7a * b3.y);
+    const float2 n3 = make_float2(kSin7c * b1.x - kSin7a * b2.x + kSin7b * b3.x,
+                                  kSin7c * b1.y - kSin7a * b2.y + kSin7b * b3.y);
+    v[0] = cadd(cadd(cadd(v[0], a1), a2), a3);
+    v[1] = make_float2(m1.x + n1.y, m1.y - n1.x);  // m1 - i n1
+    v[6] = make_float2(m1.x - n1.y, m1.y + n1.x);  // m1 + i n1
+    v[2] = make_float2(m2.x + n2.y, m2.y - n2.x);
+    v[5] = make_float2(m2.x - n2.y, m2.y + n2.x);
+    v[3] = make_float2(m3.x + n3.y, m3.y - n3.x);
+    v[4] = make_float2(m3.x - n3.y, m3.y + n3.x);
   }
 }
 
@@ -1838,12 +1871,16 @@ __device__ __forceinline__ void fft_stage(float2* buf, int total, int p, int ns,
   __syncthreads();
 }
 
-// fft_rows for p = 2^a 3^b 5^c that is not a power of two: one of radix 2
-// when a is odd, then radix 4, then the 3s, then the 5s.
+// fft_rows for p = 2^a 3^b 5^c 7^d that is not a power of two: one of
+// radix 2 when a is odd, then radix 4, then the 3s, the 5s and the 7s. The
+// 7s only where kSeven (d = 0 otherwise): see fft_rows.
+template <bool kSeven>
 __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, int n_fft, const float2* tw) {
-  int twos = 0, threes = 0;
+  int twos = 0, threes = 0, sevens = 1;  // sevens: 7^d
   for (int r = p; r % 2 == 0; r /= 2) ++twos;
   for (int r = p >> twos; r % 3 == 0; r /= 3) ++threes;
+  if constexpr (kSeven)
+    for (int r = p; r % 7 == 0; r /= 7) sevens *= 7;
   int ns = 1;
   if (twos & 1) {
     fft_stage<2, false>(buf, total, p, ns, n_fft, tw);
@@ -1851,10 +1888,12 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
   }
   for (int i = 0; i < twos / 2; ++i, ns *= 4) fft_stage<4, false>(buf, total, p, ns, n_fft, tw);
   for (int i = 0; i < threes; ++i, ns *= 3) fft_stage<3, false>(buf, total, p, ns, n_fft, tw);
-  for (; ns < p; ns *= 5) fft_stage<5, false>(buf, total, p, ns, n_fft, tw);
+  for (; ns < p / sevens; ns *= 5) fft_stage<5, false>(buf, total, p, ns, n_fft, tw);
+  if constexpr (kSeven)
+    for (; ns < p; ns *= 7) fft_stage<7, false>(buf, total, p, ns, n_fft, tw);
 }
 
-// The FFT of each row of p = 2^a 3^b 5^c points in buf (rows x p <=
+// The FFT of each row of p = 2^a 3^b 5^c 7^d points in buf (rows x p <=
 // kFftPoints), in natural order, in place; w = e^{-2 pi i / n_fft} from
 // the table. The stages (ops/frontend_kernel.py::_fft_radices): for a
 // power of two, one of radix 2 when log2 p is odd, then radix 4; else
@@ -1862,10 +1901,17 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
 // multiplies there, in the same kernel as the mixed stages, the registers
 // crowd and launch C's power-of-two plans lose time
 // (tools/contrast_probe.py's "DivBy for a power of two" variant; PERF.md).
+// The radix-7 stages: launch A keeps them in its kSeven instance, which
+// its launcher takes for an n_fft with a factor of 7, so that its other
+// instance compiles as before them (with them, its 2, 3 and 5 plans lost
+// 0.3-1.0%); launch C compiles them into its one kernel, which so built
+// ran its 2, 3 and 5 plans as fast or up to 2.4% faster, its spills moved
+// (tools/spectral_probe.py, tools/contrast_probe.py, in turns; PERF.md).
+template <bool kSeven>
 __device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft, const float2* tw) {
   const int total = rows * p;
   if (p & (p - 1)) {
-    fft_rows_mixed(buf, total, p, n_fft, tw);
+    fft_rows_mixed<kSeven>(buf, total, p, n_fft, tw);
     return;
   }
   int ns = 1;
@@ -1947,7 +1993,9 @@ __device__ __forceinline__ void stage_flat(float* span, const WaveSrc& src, int 
 // and its frames [t0, t0 + frames) from t0 = (i % groups) * frames (LayoutF's
 // frames); window (n_fft) the padded win_length Hann; twiddles (n_fft / 2 +
 // 1 float2); fb_w the filters' nonzero weights, mel by mel, and fb_ranges
-// (n_mels x 3) per mel its first bin, bins and offset in fb_w.
+// (n_mels x 3) per mel its first bin, bins and offset in fb_w. kSeven: the
+// instance with radix-7 stages (fft_rows).
+template <bool kSeven>
 __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
     const float* __restrict__ window, const float2* __restrict__ twiddles, int n_used,
@@ -1987,7 +2035,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   __syncthreads();
 
   // 3. The FFT of each frame's m points.
-  fft_rows(buf, F, m, n_fft, tw);
+  fft_rows<kSeven>(buf, F, m, n_fft, tw);
 
   // 4. The real FFT's bins [0, n_used), their power in registers, then in
   // place of the points: F rows of an odd stride, so that the mel's reads
@@ -2080,7 +2128,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     __syncthreads();
 
     // 2. The FFT of each frame's n_fft points.
-    fft_rows(buf, F, n_fft, n_fft, tw);
+    fft_rows<true>(buf, F, n_fft, n_fft, tw);
 
     // 3. The two spectra: the power rows over the bands' bins, the
     // magnitude into the frame's sums; tpf threads a frame.
@@ -2218,7 +2266,7 @@ int cdt_frontend_spectral_fft(
   if (!fft_nfft(n_fft, n_fft / 2) || hop < 1 || n_used < 1 || n_used > n_fft / 2 + 1 ||
       lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)spectral_fft_kernel;
+  const void* fn = n_fft % 7 ? (const void*)spectral_fft_kernel<false> : (const void*)spectral_fft_kernel<true>;
   const int err = set_smem(fn, lay.bytes());
   if (err) return err;
   const long long blocks = (long long)((n_frames + lay.frames - 1) / lay.frames) * batch;

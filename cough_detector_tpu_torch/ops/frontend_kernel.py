@@ -40,9 +40,9 @@ running the plain chain. Every config the JAX launcher sends to its Pallas
 kernel (`kernel_supports`) runs the launches on the card: each launch picks,
 from the config alone, a plan that fits the card's 227 KB of shared memory
 a block. Launches A and C compute their spectra by FFT for an even n_fft
-of prime factors 2, 3 and 5 from 640 on (launch A also past 128 mels):
+of prime factors 2, 3, 5 and 7 from 640 on (launch A also past 128 mels):
 the FFT plans (`spectral_plan`, `contrast_level` 4), Stockham stages of
-radix 2, 4, 3 and 5. At any other n_fft launch A takes more than 128
+radix 2, 4, 3, 5 and 7. At any other n_fft launch A takes more than 128
 mels in groups of at most 128, each its own blocks (`mel_groups`), and
 gathers its frames from device memory where a
 128-frame tile's waveform span passes shared memory (`spectral_staged`);
@@ -178,10 +178,11 @@ def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: boo
         frames //= 2
 
 
-def _factors235(n: int) -> tuple:
-    """(a, b, c, rest): n = 2^a 3^b 5^c rest, rest free of 2, 3 and 5."""
+def _factors2357(n: int) -> tuple:
+    """(a, b, c, d, rest): n = 2^a 3^b 5^c 7^d rest, rest free of 2, 3, 5
+    and 7."""
     counts = []
-    for f in (2, 3, 5):
+    for f in (2, 3, 5, 7):
         counts.append(0)
         while n % f == 0:
             n //= f
@@ -191,18 +192,18 @@ def _factors235(n: int) -> tuple:
 
 def _fft_nfft(n_fft: int, points: int) -> bool:
     """Whether an n_fft takes an FFT plan at all (fft_nfft): an even n_fft
-    from 64 of prime factors 2, 3 and 5, whose frame of `points` complex
+    from 64 of prime factors 2, 3, 5 and 7, whose frame of `points` complex
     points fits a block."""
-    return n_fft >= 64 and n_fft % 2 == 0 and _factors235(n_fft)[3] == 1 and points <= _FFT_POINTS
+    return n_fft >= 64 and n_fft % 2 == 0 and _factors2357(n_fft)[4] == 1 and points <= _FFT_POINTS
 
 
 def spectral_plan(cfg: FeatureConfig) -> int:
     """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for an even
-    n_fft of prime factors 2, 3 and 5 (`_fft_nfft`) from 640 on, or past
-    128 mels, where its layout fits; else the GEMM, PLAN_GEMM_STAGED or
-    PLAN_GEMM_UNSTAGED (`spectral_staged`). The shipped config (n_fft 512,
-    64 mels), and an odd n_fft or one with a prime factor of 7 or more,
-    take the GEMM."""
+    7-smooth n_fft, of prime factors 2, 3, 5 and 7 (`_fft_nfft`), from 640
+    on, or past 128 mels, where its layout fits; else the GEMM,
+    PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED (`spectral_staged`). The shipped
+    config (n_fft 512, 64 mels), and an odd n_fft or one with a prime
+    factor of 11 or more, take the GEMM."""
     n_fft, hop = cfg.n_fft, cfg.hop_length
     if (_fft_nfft(n_fft, n_fft // 2) and (n_fft >= _FFT_MIN_NFFT or cfg.n_mels > 128)
             and _fft_layout(n_fft // 2, n_fft, hop)[1] <= _MAX_SMEM):
@@ -369,7 +370,7 @@ def _tiles(m: np.ndarray) -> torch.Tensor:
     return torch.stack([hi, lo], dim=1).reshape(k // 8, 16 * n)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=32)  # chip_smoke.py's every-config checks, then timings, run 30 configs
 def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     """Band-limited tables: bins past the filterbank's last nonzero row feed
     no mel band, so the DFT stops there (128 of 257 bins at f_max=4 kHz).
@@ -534,26 +535,30 @@ def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
 
 
 def _fft_radices(points: int) -> list:
-    """The FFT plans' Stockham stages for points = 2^a 3^b 5^c (fft_rows):
-    one of radix 2 first when a is odd, then radix 4, then the 3s, then the
-    5s."""
-    twos, threes, fives, rest = _factors235(points)
+    """The FFT plans' Stockham stages for points = 2^a 3^b 5^c 7^d
+    (fft_rows): one of radix 2 first when a is odd, then radix 4, then the
+    3s, the 5s and the 7s."""
+    twos, threes, fives, sevens, rest = _factors2357(points)
     if rest != 1:
-        raise ValueError("the FFT plans take only points of prime factors 2, 3 and 5")
-    return [2] * (twos % 2) + [4] * (twos // 2) + [3] * threes + [5] * fives
+        raise ValueError("the FFT plans take only points of prime factors 2, 3, 5 and 7")
+    return [2] * (twos % 2) + [4] * (twos // 2) + [3] * threes + [5] * fives + [7] * sevens
 
 
-# The radix-3 and radix-5 butterflies' constants, as the kernel rounds them
-# (float64 values to float32 once): sin(2 pi / 3); cos and sin of 2 pi / 5
-# and 4 pi / 5.
+# The radix-3, radix-5 and radix-7 butterflies' constants, as the kernel
+# rounds them (float64 values to float32 once): sin(2 pi / 3); cos and sin
+# of 2 pi / 5 and 4 pi / 5; of 2 pi / 7, 4 pi / 7 and 6 pi / 7.
 _SIN3, _COS5A, _SIN5A, _COS5B, _SIN5B = (float(np.float32(v)) for v in (
     0.86602540378443865, 0.30901699437494742, 0.95105651629515357, -0.80901699437494742, 0.58778525229247314,
+))
+_COS7A, _SIN7A, _COS7B, _SIN7B, _COS7C, _SIN7C = (float(np.float32(v)) for v in (
+    0.62348980185873359, 0.78183148246802980, -0.22252093395631434, 0.97492791218182362, -0.90096886790241903,
+    0.43388373911755823,
 ))
 
 
 def _dft_points(vr: list, vi: list) -> tuple:
-    """The kernel's R-point DFT (dft_points, R = len(vr) in 2-5) of the
-    points (vr[r], vi[r]), with its order of operations."""
+    """The kernel's R-point DFT (dft_points, R = len(vr): 2, 3, 4, 5 or 7)
+    of the points (vr[r], vi[r]), with its order of operations."""
     r = len(vr)
     if r == 2:
         return [vr[0] + vr[1], vr[0] - vr[1]], [vi[0] + vi[1], vi[0] - vi[1]]
@@ -569,6 +574,23 @@ def _dft_points(vr: list, vi: list) -> tuple:
         a2r, a2i = vr[1] + vr[3], vi[1] + vi[3]
         a3r, a3i = vi[1] - vi[3], -(vr[1] - vr[3])  # -i (v1 - v3)
         return [a0r + a2r, a1r + a3r, a0r - a2r, a1r - a3r], [a0i + a2i, a1i + a3i, a0i - a2i, a1i - a3i]
+    if r == 7:  # pairs a = v_r + v_{7-r}, b = v_r - v_{7-r}; outputs k and 7 - k are m_k -+ i n_k
+        a1r, a1i, b1r, b1i = vr[1] + vr[6], vi[1] + vi[6], vr[1] - vr[6], vi[1] - vi[6]
+        a2r, a2i, b2r, b2i = vr[2] + vr[5], vi[2] + vi[5], vr[2] - vr[5], vi[2] - vi[5]
+        a3r, a3i, b3r, b3i = vr[3] + vr[4], vi[3] + vi[4], vr[3] - vr[4], vi[3] - vi[4]
+        m1r = vr[0] + _COS7A * a1r + _COS7B * a2r + _COS7C * a3r
+        m1i = vi[0] + _COS7A * a1i + _COS7B * a2i + _COS7C * a3i
+        m2r = vr[0] + _COS7B * a1r + _COS7C * a2r + _COS7A * a3r
+        m2i = vi[0] + _COS7B * a1i + _COS7C * a2i + _COS7A * a3i
+        m3r = vr[0] + _COS7C * a1r + _COS7A * a2r + _COS7B * a3r
+        m3i = vi[0] + _COS7C * a1i + _COS7A * a2i + _COS7B * a3i
+        n1r, n1i = _SIN7A * b1r + _SIN7B * b2r + _SIN7C * b3r, _SIN7A * b1i + _SIN7B * b2i + _SIN7C * b3i
+        n2r, n2i = _SIN7B * b1r - _SIN7C * b2r - _SIN7A * b3r, _SIN7B * b1i - _SIN7C * b2i - _SIN7A * b3i
+        n3r, n3i = _SIN7C * b1r - _SIN7A * b2r + _SIN7B * b3r, _SIN7C * b1i - _SIN7A * b2i + _SIN7B * b3i
+        return (
+            [vr[0] + a1r + a2r + a3r, m1r + n1i, m2r + n2i, m3r + n3i, m3r - n3i, m2r - n2i, m1r - n1i],
+            [vi[0] + a1i + a2i + a3i, m1i - n1r, m2i - n2r, m3i - n3r, m3i + n3r, m2i + n2r, m1i + n1r],
+        )
     t1r, t1i, t2r, t2i = vr[1] + vr[4], vi[1] + vi[4], vr[1] - vr[4], vi[1] - vi[4]
     t3r, t3i, t4r, t4i = vr[2] + vr[3], vi[2] + vi[3], vr[2] - vr[3], vi[2] - vi[3]
     m1r, m1i = vr[0] + _COS5A * t1r + _COS5B * t3r, vi[0] + _COS5A * t1i + _COS5B * t3i
@@ -582,7 +604,7 @@ def _dft_points(vr: list, vi: list) -> tuple:
 
 
 def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) -> tuple:
-    """The FFT plans' FFT along the last axis (2^a 3^b 5^c points) in
+    """The FFT plans' FFT along the last axis (2^a 3^b 5^c 7^d points) in
     float32, as csrc/frontend_kernel.cu's fft_rows runs it: stage by stage
     (`_fft_radices`), butterfly j reads points j + r p / R, multiplies
     point r > 0 by the table's entry r (j mod ns) n_fft / (ns R) (k past
@@ -846,9 +868,10 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
 
 
 def _contrast_plan(cfg: FeatureConfig) -> tuple:
-    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an even n_fft
-    of prime factors 2, 3 and 5 (`_fft_nfft`) from 640 on, CONTRAST_FFT
-    where LayoutF fits; else the GEMM's (`_contrast_gemm_plan`)."""
+    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an even
+    7-smooth n_fft, of prime factors 2, 3, 5 and 7 (`_fft_nfft`), from 640
+    on, CONTRAST_FFT where LayoutF fits; else the GEMM's
+    (`_contrast_gemm_plan`)."""
     n_fft = cfg.n_fft
     if _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT:
         _, smem = _fft_layout(n_fft, n_fft, cfg.hop_length, _geometry(cfg).n_pow, contrast=True)

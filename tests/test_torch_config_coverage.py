@@ -4,8 +4,8 @@ card route, on the CPU.
 The JAX launcher (cough_detector_tpu/ops/pallas/frontend_kernel.py) runs
 its kernel for every config with MFCCs at segment length, and appends the
 contrast rows for a contrast config. The port's three launches take the
-same set: more than 128 mels and an even n_fft of prime factors 2, 3 and 5
-from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
+same set: more than 128 mels and an even n_fft of prime factors 2, 3, 5
+and 7 from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
 shared memory with the waveform gathered from device memory, clips past 4 s over
 a thread-block cluster (or in device memory past 16 blocks), a hop of 4,
 and any contrast bands.
@@ -38,6 +38,7 @@ from test_torch_frontend import _rel
 TOL = 1e-3
 CONTRAST = dict(use_spectral_contrast=True)
 NFFT2048 = dict(n_fft=2048, win_length=2048, hop_length=512, n_mels=128, f_max=8000.0)
+SR44K = dict(sample_rate=44100, hop_length=441, n_mels=128, f_max=22050.0)  # a 10 ms hop at 44.1 kHz
 CONFIGS = {
     "mels160": dict(n_mels=160, f_max=8000.0),
     "mels256": dict(n_mels=256, f_max=8000.0),
@@ -52,10 +53,13 @@ CONFIGS = {
 }
 # Configs chip_smoke.py adds for the plans no config above reaches: the
 # FFT plans at n_fft 4096, 2000, 3000 (radix-3 and radix-5 stages) and 768
-# at 256 mels; and since the FFT plans took every even 5-smooth n_fft, the
-# GEMM plans' span from device memory (launch A unstaged, the contrast
-# launch's levels 1 and 3) and launch A's GEMM plan over two mel groups,
-# reached by an n_fft with a factor of 7; two 10 s clips for launch B's
+# at 256 mels, and at n_fft 1792, 2744 and 896 at 256 mels (radix-7
+# stages), 1764 with contrast and 882 at 44.1 kHz (a 40 and a 20 ms window
+# at a 10 ms hop; 441 points, odd, a frame of launch A); since the FFT plans
+# took every even 7-smooth n_fft, the GEMM plans' span from device memory
+# (launch A unstaged, the contrast launch's levels 1 and 3) and launch A's
+# GEMM plan over two mel groups, reached by an n_fft with a factor of 11,
+# and launch A's GEMM on an odd n_fft (30 ms at 44.1 kHz); two 10 s clips for launch B's
 # cluster route's other branches (PCEN with delta-deltas and its 32-MFCC
 # DCT; 36 MFCCs of 40 mels, the MFCC and delta tiles after the mel tile);
 # and a 120 s clip, past a cluster of 16: launch B in device memory.
@@ -70,6 +74,12 @@ EXTRA = {
     "nfft1792_contrast": dict(n_fft=1792, win_length=1792, hop_length=448, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft2744_contrast": dict(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft896_mels256": dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0),
+    "nfft1760_contrast": dict(n_fft=1760, win_length=1760, hop_length=440, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft2662_contrast": dict(n_fft=2662, win_length=2662, hop_length=665, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft880_mels256": dict(n_fft=880, win_length=880, hop_length=220, n_mels=256, f_max=8000.0),
+    "sr44k_nfft1764_contrast": dict(SR44K, n_fft=1764, win_length=1764, **CONTRAST),
+    "sr44k_nfft882": dict(SR44K, n_fft=882, win_length=882),
+    "sr44k_nfft1323": dict(SR44K, n_fft=1323, win_length=1323),
     "clip10s_pcen_dd20": dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20),
     "clip10s_mels40_mfcc36_dd": dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
     "clip120s_128_pcen_dd": dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -100,9 +110,15 @@ PLANS_ON_CARD = {
     "nfft2000_contrast": (94008, 2, 25216, 1, 92024, 4),
     "nfft3000_contrast": (96008, 2, 19584, 1, 79288, 4),
     "nfft768_mels256": (86024, 2, 102528, 1, None, None),
-    "nfft1792_contrast": (32816, 0, 26752, 1, 206944, 1),
-    "nfft2744_contrast": (32816, 0, 20608, 1, 32880, 3),
-    "nfft896_mels256": (153200, 1, 90240, 1, None, None),
+    "nfft1792_contrast": (93192, 2, 26752, 1, 82536, 4),
+    "nfft2744_contrast": (87816, 2, 20608, 1, 72584, 4),
+    "nfft896_mels256": (86920, 2, 90240, 1, None, None),
+    "nfft1760_contrast": (32816, 0, 27264, 1, 204416, 1),
+    "nfft2662_contrast": (32816, 0, 21120, 1, 32880, 3),
+    "nfft880_mels256": (148976, 1, 91264, 1, None, None),
+    "sr44k_nfft1764_contrast": (91736, 2, 60032, 1, 81272, 4),
+    "sr44k_nfft882": (100560, 2, 60032, 1, None, None),
+    "sr44k_nfft1323": (32816, 0, 59520, 1, None, None),
     "clip10s_pcen_dd20": (118096, 1, 75488, 4, None, None),
     "clip10s_mels40_mfcc36_dd": (118096, 1, 76576, 7, None, None),
     "clip120s_128_pcen_dd": (118096, 1, 128, 0, None, None),
@@ -191,6 +207,32 @@ def test_plans_match_the_card(name):
         got += (None, None)
     assert got == PLANS_ON_CARD[name]
     assert all(v <= SMEM for v in (got[0], got[2], got[4] or 0))
+
+
+@pytest.mark.parametrize("n_fft, hop", [(1323, 441), (882, 441), (1764, 441), (1125, 281), (1001, 147), (2048, 512)])
+def test_num_frames_counts_the_framing(n_fft, hop):
+    """num_frames is the count of frames the reflect-padded segment holds
+    (torch.stft's, center=True): the JAX config's segment // hop + 1 for an
+    even n_fft, one fewer for an odd n_fft whose hop divides the segment
+    (its padding is a sample short of the last frame)."""
+    kw = dict(sample_rate=44100, n_fft=n_fft, win_length=n_fft, hop_length=hop, n_mels=128, f_max=22050.0)
+    cfg = FeatureConfig(**kw)
+    frames = frontend.frame_signal(torch.zeros((1, cfg.segment_samples)), n_fft, hop)
+    assert cfg.num_frames == frames.shape[1]
+    short = n_fft % 2 == 1 and cfg.segment_samples % hop == 0
+    assert cfg.num_frames == JaxFeatureConfig(**kw).num_frames - short
+
+
+def test_odd_n_fft_matches_the_jax_chain():
+    """An odd n_fft (30 ms at 44.1 kHz, a 10 ms hop: 100 frames) through
+    the card route on the CPU against the JAX jnp chain at B = 2 (the JAX
+    Pallas kernel refuses an odd n_fft: its frames are a sample short)."""
+    cfg = _cfg("sr44k_nfft1323")
+    w = _waves(cfg, 2, seed=19)
+    got = frontend.extract_features_fast(w, cfg, device="cpu").numpy()
+    want = np.asarray(jax_frontend.extract_features(w, JaxFeatureConfig(**EXTRA["sr44k_nfft1323"])))
+    assert got.shape == want.shape == (2, cfg.num_features, cfg.num_frames) == (2, 154, 100)
+    assert _rel(got, want) < TOL
 
 
 @pytest.mark.parametrize("n_mels, want", [

@@ -34,6 +34,7 @@ CONTRAST = dict(use_spectral_contrast=True)
 NFFT2048 = dict(n_fft=2048, win_length=2048, hop_length=512, n_mels=128, f_max=8000.0)
 NFFT1024 = dict(n_fft=1024, win_length=1024, hop_length=256, n_mels=128, f_max=8000.0)
 NFFT4096 = dict(n_fft=4096, win_length=4096, hop_length=1024, n_mels=128, f_max=8000.0)
+SR44K = dict(sample_rate=44100, hop_length=441, n_mels=128, f_max=22050.0)  # a 10 ms hop at 44.1 kHz
 # chip_smoke.py's coverage_configs, by name, and what launch A's plan and
 # the contrast launch's plan are for each (0 GEMM unstaged, 1 GEMM staged,
 # 2 FFT; contrast 0-3 the GEMM's LayoutC levels, 4 FFT).
@@ -58,10 +59,18 @@ COVERAGE = {
                           2, 4),
     "nfft768_mels256": (dict(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0), 2, None),
     "nfft1792_contrast": (dict(n_fft=1792, win_length=1792, hop_length=448, n_mels=128, f_max=8000.0, **CONTRAST),
-                          0, 1),
+                          2, 4),
     "nfft2744_contrast": (dict(n_fft=2744, win_length=2744, hop_length=686, n_mels=128, f_max=8000.0, **CONTRAST),
+                          2, 4),
+    "nfft896_mels256": (dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), 2, None),
+    "nfft1760_contrast": (dict(n_fft=1760, win_length=1760, hop_length=440, n_mels=128, f_max=8000.0, **CONTRAST),
+                          0, 1),
+    "nfft2662_contrast": (dict(n_fft=2662, win_length=2662, hop_length=665, n_mels=128, f_max=8000.0, **CONTRAST),
                           0, 3),
-    "nfft896_mels256": (dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), 1, None),
+    "nfft880_mels256": (dict(n_fft=880, win_length=880, hop_length=220, n_mels=256, f_max=8000.0), 1, None),
+    "sr44k_nfft1764_contrast": (dict(SR44K, n_fft=1764, win_length=1764, **CONTRAST), 2, 4),
+    "sr44k_nfft882": (dict(SR44K, n_fft=882, win_length=882), 2, None),
+    "sr44k_nfft1323": (dict(SR44K, n_fft=1323, win_length=1323), 0, None),
     "clip10s_pcen_dd20": (dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), 1, None),
     "clip10s_mels40_mfcc36_dd": (dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True), 1, None),
     "clip120s_128_pcen_dd": (dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -70,7 +79,7 @@ COVERAGE = {
     "shipped_contrast": (dict(CONTRAST), 1, 0),
 }
 JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
-             "nfft3000_contrast", "nfft768_mels256")
+             "nfft3000_contrast", "nfft768_mels256", "nfft1792_contrast", "nfft896_mels256", "sr44k_nfft1764_contrast")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,6 +122,7 @@ def _frames64(w: np.ndarray, cfg: FeatureConfig, pre: bool) -> np.ndarray:
 @pytest.mark.parametrize("name, pre", [
     ("nfft2048", False), ("librosa22k", False), ("mels256", False), ("nfft1024_contrast", True),
     ("nfft4096_contrast", False), ("nfft2000_contrast", False), ("nfft3000_contrast", True), ("nfft768_mels256", False),
+    ("nfft896_mels256", False), ("sr44k_nfft882", True), ("sr44k_nfft1764_contrast", False),
 ])
 def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     """Launch A's FFT plan's model against the float64 rfft power and mel
@@ -131,6 +141,7 @@ def test_power_mel_fft_model_vs_float64_rfft(name, pre):
 
 @pytest.mark.parametrize("name", [
     "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast",
+    "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast",
 ])
 def test_contrast_fft_model_vs_float64_rfft(name):
     """The contrast launch's FFT plan's model (both windows through one
@@ -155,28 +166,29 @@ def test_contrast_fft_model_vs_float64_rfft(name):
 @pytest.mark.parametrize("n_fft, points", [
     (64, 32), (512, 256), (1024, 1024), (2048, 1024), (4096, 4096), (4096, 2048), (2000, 1000), (2000, 2000),
     (3000, 1500), (3000, 3000), (768, 384), (768, 768), (1000, 500),
+    (896, 448), (1792, 1792), (2744, 1372), (2744, 2744), (882, 441), (1764, 882), (1764, 1764),
 ])
 def test_stockham_stages_are_the_fft(n_fft, points):
-    """The plans' stages for points = 2^a 3^b 5^c (one of radix 2 when a is
-    odd, then radix 4, then the 3s, then the 5s) with the table of w =
-    e^{-2 pi i / n_fft} make the FFT of n_fft / 2 points (launch A) and of
-    n_fft points (launch C)."""
+    """The plans' stages for points = 2^a 3^b 5^c 7^d (one of radix 2 when a
+    is odd, then radix 4, then the 3s, the 5s and the 7s) with the table of
+    w = e^{-2 pi i / n_fft} make the FFT of n_fft / 2 points (launch A; an
+    odd count, 441, at n_fft 882) and of n_fft points (launch C)."""
     rng = np.random.default_rng(points)
     z = rng.standard_normal((3, points)) + 1j * rng.standard_normal((3, points))
     re, im = frontend_kernel._stockham(
         torch.from_numpy(z.real.astype(np.float32)), torch.from_numpy(z.imag.astype(np.float32)),
         torch.from_numpy(frontend_kernel._twiddles(n_fft)), n_fft,
     )
-    a, b, c = (next(e for e in range(14) if points % f ** (e + 1)) for f in (2, 3, 5))
-    assert points == 2**a * 3**b * 5**c
-    assert frontend_kernel._fft_radices(points) == [2] * (a % 2) + [4] * (a // 2) + [3] * b + [5] * c
+    a, b, c, d = (next(e for e in range(14) if points % f ** (e + 1)) for f in (2, 3, 5, 7))
+    assert points == 2**a * 3**b * 5**c * 7**d
+    assert frontend_kernel._fft_radices(points) == [2] * (a % 2) + [4] * (a // 2) + [3] * b + [5] * c + [7] * d
     assert _rel(re.numpy() + 1j * im.numpy(), np.fft.fft(z, axis=-1)) < 1e-6
 
 
 def test_fft_radices_refuse_other_primes():
-    """A count of points with a prime factor of 7 or more has no stage
+    """A count of points with a prime factor of 11 or more has no stage
     list: the plan rule sends such an n_fft to the GEMM."""
-    for points in (7, 896, 1372, 1001):
+    for points in (11, 13, 880, 1001, 1331):
         with pytest.raises(ValueError):
             frontend_kernel._fft_radices(points)
 
@@ -231,12 +243,12 @@ def test_plan_mirror(name):
 
 def test_shipped_config_keeps_its_gemm_plans():
     """The shipped config (n_fft 512, 64 mels) keeps its GEMM plans, staged,
-    and so does every n_fft with a prime factor of 7 or more, and every odd
-    one."""
+    and so does every n_fft with a prime factor of 11 or more, and every
+    odd one."""
     shipped = FeatureConfig()
     assert frontend_kernel.spectral_plan(shipped) == frontend_kernel.PLAN_GEMM_STAGED
     assert frontend_kernel.contrast_level(FeatureConfig(use_spectral_contrast=True)) == 0
-    for kw in (dict(n_fft=1792, win_length=1792, hop_length=448), dict(n_fft=2744, n_mels=256, f_max=8000.0),
+    for kw in (dict(n_fft=1760, win_length=1760, hop_length=440), dict(n_fft=2662, n_mels=256, f_max=8000.0),
                dict(n_fft=1125, win_length=1125, hop_length=281, n_mels=256, f_max=8000.0)):
         cfg = FeatureConfig(use_spectral_contrast=True, **kw)
         assert frontend_kernel.spectral_plan(cfg) != frontend_kernel.PLAN_FFT
@@ -265,7 +277,7 @@ def _c_plan_rules():
         between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
         between("struct LayoutA {", "// x rounded to TF32"),
         between("struct LayoutC {", "__device__ __forceinline__ float warp_sum"),
-        between("// Whether n's only prime factors are 2, 3 and 5", "__device__ __forceinline__ float2 cmul"),
+        between("// Whether n's only prime factors are 2, 3, 5 and 7", "__device__ __forceinline__ float2 cmul"),
         r"""int main() {
   int n_fft, hop, kpad, n_mels, n_pow, n_frames, n_bands;
   char kind;
@@ -293,10 +305,11 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     """Launch A's and the contrast launch's plans and shared memory, from
     the Python mirrors, equal the kernel source's own rules (compiled for
     the host) over a grid of configs: n_fft from 256 to 4096, powers of two,
-    other even 5-smooth counts (640 to 3000), one with a factor of 7 and an
-    odd one, hops from 4 to past n_fft, 32 to 256 mels, 1 and 10 s clips, 6
-    and 17 bands; and so do LayoutF's frames a block for each launch, launch
-    C's rounded down to a power of two (8 at n_fft 768, 4 at 1200)."""
+    other even 5-smooth counts (640 to 3000), even ones with a factor of 7
+    (672 to 2744), one with a factor of 11 and an odd one, hops from 4 to
+    past n_fft, 32 to 256 mels, 1 and 10 s clips, 6 and 17 bands; and so do
+    LayoutF's frames a block for each launch, launch C's rounded down to a
+    power of two (8 at n_fft 768, 4 at 1200)."""
     gxx, code = _c_plan_rules()
     (tmp_path / "plans.cpp").write_text(code)
     subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plans"), str(tmp_path / "plans.cpp")], check=True)
@@ -304,7 +317,8 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
         FeatureConfig(n_fft=n, win_length=min(win, n), hop_length=hop, n_mels=mels, f_max=8000.0,
                       segment_duration=dur, use_spectral_contrast=True, n_contrast_bands=bands)
         for n, win in ((256, 200), (512, 400), (768, 768), (1024, 1024), (1024, 400), (2048, 2048), (4096, 4096),
-                       (640, 640), (1000, 1000), (1200, 1200), (2000, 2000), (3000, 3000), (1792, 1792), (1125, 1125))
+                       (640, 640), (1000, 1000), (1200, 1200), (2000, 2000), (3000, 3000), (1792, 1792), (1125, 1125),
+                       (896, 896), (1764, 1764), (2744, 2744), (672, 672), (1760, 1760))
         for hop in (4, 160, 512, 3000) for mels in (32, 128, 256) for dur in (1.0, 10.0) for bands in (6, 17)
         if not (hop == 4 and dur == 10.0)
     ]
@@ -335,7 +349,9 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     for n_fft in (640, 768, 1000):  # from kFftMinNfft (640) on
         assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
     assert ("c", 4, 512) not in seen and ("a", 1, 512) in seen  # under it: the GEMM
-    for n_fft in (1792, 1125):  # a factor of 7, an odd n_fft: the GEMM
+    for n_fft in (672, 896, 1764, 1792, 2744):  # radix-7 stages
+        assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
+    for n_fft in (1760, 1125):  # a factor of 11, an odd n_fft: the GEMM
         assert not {("a", 2, n_fft), ("c", 4, n_fft)} & seen
     assert max(frames_c[768]) == 8 and max(frames_c[1200]) == 4
 

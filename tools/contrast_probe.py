@@ -19,9 +19,11 @@ launch C and its FFT plan) timed in turns with this one: the baselines,
 as built, the variants, as built, the baselines.
 
 Then launch C's FFT plan (contrast_fft_kernel) at B = 1024 on n_fft 2048,
-4096 and 2000 with contrast (hop n_fft / 4, 6 bands; the frames of 64
-clips repeated; 2000 runs radix-4 and radix-5 stages), as built and in
-variants that split its time:
+4096, 2000, 3000, 1792 and 2744 with contrast (hop n_fft / 4, 6 bands;
+the frames of 64 clips repeated; 2000 runs radix-4 and radix-5 stages,
+1792 and 2744 radix-7 ones) and at 44.1 kHz on n_fft 1764 (a 40 ms window,
+a 10 ms hop), as built and, on 2048, 4096 and 2000, in variants that split
+its time:
   - ranked tails: the bands' tails by stable rank (band_value, the GEMM
     plan's) instead of the sort in registers;
   - no band tails: each (frame, band)'s row takes one power value;
@@ -29,8 +31,9 @@ variants that split its time:
   - DivBy for a power of two: the power-of-two stages index their
     butterflies by DivBy's multiplies, as the mixed stages do, instead
     of shifts.
+A baseline that refuses an n_fft is left out there.
 Then where the FFT plan's threshold (kFftMinNfft) lies: both plans on
-n_fft 640, 768, 1000 and 1024 with contrast, hop n_fft / 4, at
+n_fft 640, 672, 768, 784, 1000 and 1024 with contrast, hop n_fft / 4, at
 B = 1024 and 4096, through their C functions, in turns (GEMM, FFT, FFT,
 GEMM). Prints the card's name and power limit first, and each build's
 max-relative deviation from the plain version (the variants' rows are
@@ -69,8 +72,11 @@ FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands
 FFT_CONFIGS = {
     n_fft: FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
                          use_spectral_contrast=True)
-    for n_fft in (2048, 4096, 2000, 640, 768, 1000, 1024)
+    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, 640, 672, 768, 784, 1000, 1024)
 }
+FFT_CONFIGS["44.1 kHz, 1764"] = FeatureConfig(sample_rate=44100, n_fft=1764, win_length=1764, hop_length=441,
+                                              n_mels=128, f_max=22050.0, use_spectral_contrast=True)
+
 
 
 def edit(src: str, old: str, new: str) -> str:
@@ -88,7 +94,7 @@ def variants(src: str) -> dict:
         "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
         "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
         "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
-        "FFT plan, no FFT stages": edit(src, "    fft_rows(buf, F, n_fft, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "    fft_rows<true>(buf, F, n_fft, n_fft, tw);\n", ""),
         "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
         "FFT plan, DivBy for a power of two": edit(
             edit(src, "fft_stage<2, true>(", "fft_stage<2, false>("), "fft_stage<4, true>(", "fft_stage<4, false>("
@@ -223,7 +229,7 @@ def gemm_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torc
 def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device) -> None:
     """Both plans around the FFT plan's threshold, in turns, each checked
     against the plain version."""
-    for n_fft in (640, 768, 1000, 1024):
+    for n_fft in (640, 672, 768, 784, 1000, 1024):
         cfg = FFT_CONFIGS[n_fft]
         for b, iters in ITERS.items():
             w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
@@ -255,11 +261,12 @@ def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.dev
 
 def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
     """The FFT plan as built and its variants, in turns, at B = 1024,
-    between the baselines' (through the same C function; at n_fft 2000
-    only where a baseline takes it)."""
-    variants = [v for v in libs if v.startswith("FFT plan")]
-    for n_fft in (2048, 4096, 2000):
+    between the baselines' (through the same C function; only where a
+    baseline takes the n_fft)."""
+    parts = [v for v in libs if v.startswith("FFT plan")]
+    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, "44.1 kHz, 1764"):
         cfg = FFT_CONFIGS[n_fft]
+        variants = parts if n_fft in (2048, 4096, 2000) else []
         g = frontend_kernel._geometry(cfg)
         w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
         w = w.repeat(16, 1)
@@ -270,7 +277,7 @@ def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torc
             try:
                 launch()
             except RuntimeError:
-                if name in baselines:  # a source before the radix-3 and radix-5 stages
+                if name in baselines:  # a source before this n_fft's stages
                     continue
                 raise
             for _ in range(2):
@@ -284,7 +291,8 @@ def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torc
             end.record()
             torch.cuda.synchronize()
             print(
-                f"contrast launch B=1024, n_fft {n_fft} + contrast (widest band {max(g.widths)} bins), "
+                f"contrast launch B=1024, n_fft {n_fft} + contrast (stages {frontend_kernel._fft_radices(cfg.n_fft)}, "
+                f"widest band {max(g.widths)} bins), "
                 f"{'FFT plan as built' if name == 'as built' else name}: {start.elapsed_time(end) / 10:.4f} ms, "
                 f"max-relative vs plain {err:.2e}",
                 flush=True,

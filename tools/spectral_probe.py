@@ -1,6 +1,6 @@
 """Where the spectral launch's time goes, on one NVIDIA card.
 
-    python3 tools/spectral_probe.py
+    python3 tools/spectral_probe.py [--baseline PATH ...]
 
 Times launch A of the front-end kernel (csrc/frontend_kernel.cu) with CUDA
 events at B = 4096 on the shipped config, as built and in variants, each a
@@ -23,15 +23,23 @@ warpgroups, one group in flight) and mma.sync m16n8k8 .tf32 (the mel's,
 each warp a 4 x 8 tile). Their rates are the ceilings of the kernel's
 MMAs.
 
-The FFT plans' kernels' registers and stack frame, as built (cuobjdump).
-Then launch A's FFT plan (spectral_fft_kernel) at B = 1024 on n_fft 2048
-and 2000 (hop n_fft / 4, 128 mels, f_max 8 kHz; the frames of 64 clips
-repeated; 2048 runs radix-2 and radix-4 stages, 2000 radix 2, 4 and 5), as
-built and in variants that split its time: no waveform staging, no FFT
-stages, no power and mel (the post-twiddle, the power and the mel left
-out; a frame's first point written instead). Then where the FFT plan's
-threshold (kFftMinNfft) lies: both plans at 128 mels, hop n_fft / 4, on
-n_fft 640, 768, 1000 and 1024, at B = 1024 and 4096. And
+The FFT plans' kernels' registers and stack frame, each instance, as
+built and in each baseline (cuobjdump). Then launch A's FFT plan
+(spectral_fft_kernel) at B = 1024 on n_fft 2048 and 2000 (hop n_fft / 4,
+128 mels, f_max 8 kHz; the frames of 64 clips repeated; 2048 runs radix-2
+and radix-4 stages, 2000 radix 2, 4 and 5), as built and in variants that
+split its time: no waveform staging, no FFT stages, no power and mel (the
+post-twiddle, the power and the mel left out; a frame's first point
+written instead); and, there and on n_fft 3000, 768 at 256 mels, 896 at
+256 mels, 1792, 2744 and 44.1 kHz at 1764 and 882 (a 10 ms hop; radix-7
+stages), with every n_fft through the kernel's kSeven instance (its
+radix-7 stages compiled in). Each --baseline is another copy of the
+source (the same C interface for the FFT plan) timed in turns with this
+one on those configs: the baselines, as built, the variants, as built,
+the baselines (a baseline that refuses an n_fft is left out there). Then
+where the FFT plan's threshold (kFftMinNfft) lies: both plans at 128
+mels, hop n_fft / 4, on n_fft 640, 672, 768, 784, 1000 and 1024, at B =
+1024 and 4096. And
 the FFT plan on the shipped config at B = 4096 beside its GEMM plan: for
 the record, since the shipped config keeps the GEMM (spectral_plan). Both
 plans are called through their C functions directly, in turns. All builds
@@ -41,6 +49,7 @@ card and nvcc; imports no JAX.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -171,17 +180,19 @@ def build(name: str, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def resource_usage(name: str) -> None:
+def resource_usage(name: str, label: str) -> None:
     """Print the FFT plans' kernels' registers and stack frame (where
-    spills go) in build `name`, from cuobjdump beside nvcc."""
+    spills go), each instance, in build `name`, from cuobjdump beside
+    nvcc."""
     cuobjdump = Path(kernel_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(kernel_build.BUILD_DIR / f"{name}.so")],
                          check=True, capture_output=True, text=True).stdout.splitlines()
     for i, line in enumerate(out):
         for kernel in ("spectral_fft_kernel", "contrast_fft_kernel"):
             if "Function" in line and kernel in line:
-                print(f"{kernel} as built: {' '.join(out[i + 1].split()[:3])} (cuobjdump --dump-resource-usage; "
-                      f"__launch_bounds__(256, 2) caps a thread at 128 registers)", flush=True)
+                symbol = line.split("Function", 1)[1].strip(" :")
+                print(f"{kernel} ({symbol}) {label}: {' '.join(out[i + 1].split()[:3])} (cuobjdump "
+                      f"--dump-resource-usage; __launch_bounds__(256, 2) caps a thread at 128 registers)", flush=True)
 
 
 def edit(src: str, old: str, new: str) -> str:
@@ -198,14 +209,22 @@ def fft_variants(src: str) -> dict:
     return {
         "FFT plan as built": src,
         "FFT plan, no staging": edit(src, "stage_flat(span, src, (F - 1) * hop + n_fft);", ""),
-        "FFT plan, no FFT stages": edit(src, "  fft_rows(buf, F, m, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "  fft_rows<kSeven>(buf, F, m, n_fft, tw);\n", ""),
         "FFT plan, no power and mel": src[:start] + (
             "  if (tid < frames) mel_out[(size_t)b * n_mels * n_frames + t0 + tid] = buf[tid * m].x;\n"
         ) + src[stop:],
+        ONE_INSTANCE: edit(src, "n_fft % 7 ? (const void*)spectral_fft_kernel<false>",
+                           "false ? (const void*)spectral_fft_kernel<false>"),
     }
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--baseline", type=Path, action="append", default=[],
+        help="another frontend_kernel.cu to time beside this one (repeatable)",
+    )
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     print(subprocess.run(
@@ -258,12 +277,16 @@ def main() -> None:
     }
 
     variants.update(fft_variants(src))
+    baselines = [f"baseline {path}" for path in args.baseline]
+    variants.update({name: path.read_text() for name, path in zip(baselines, args.baseline)})
     with ThreadPoolExecutor(len(variants) + 1) as pool:
         built = {name: pool.submit(build, f"spectral_probe_{n}", text) for n, (name, text) in enumerate(variants.items())}
         mma = pool.submit(build, "mma_tf32_probe", wgmma_macro() + MMA_BENCH)
         libs = {name: f.result() for name, f in built.items()}
         mma_lib = mma.result()
-    resource_usage("spectral_probe_0")  # "as built"
+    for n, name in enumerate(variants):
+        if name == "as built" or name in baselines:
+            resource_usage(f"spectral_probe_{n}", name)
 
     cfg = FeatureConfig()
     dev = torch.device("cuda")
@@ -298,7 +321,7 @@ def main() -> None:
     for name, lib in libs.items():
         lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p]
         lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
-        if name.startswith("FFT plan"):
+        if name.startswith("FFT plan") or name in baselines:
             continue
         for kpad in ([k.kpad, 16] if name == "as built" else [k.kpad]):
             print(f"spectral launch B={BATCH}, {name}, kpad={kpad}: {time_variant(lib, kpad):.4f} ms", flush=True)
@@ -322,7 +345,7 @@ def main() -> None:
         f"{ms.value:.3f} ms, {flops / ms.value / 1e9:.1f} TFLOP/s",
         flush=True,
     )
-    fft_section(libs, rng, dev)
+    fft_section(libs, baselines, rng, dev)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -372,6 +395,24 @@ def n_fft_config(n_fft: int) -> FeatureConfig:
     return FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0)
 
 
+ONE_INSTANCE = "FFT plan, one instance for every n_fft"
+# The FFT section's configs: hop n_fft / 4 and 128 mels but for 256 mels
+# at n_fft 768 and 896, and 44.1 kHz at a 10 ms hop (40 and 20 ms windows).
+FFT_CONFIGS = {
+    "n_fft 2048": n_fft_config(2048),
+    "n_fft 2000": n_fft_config(2000),
+    "n_fft 3000": n_fft_config(3000),
+    "n_fft 768, 256 mels": FeatureConfig(n_fft=768, win_length=768, hop_length=192, n_mels=256, f_max=8000.0),
+    "n_fft 896, 256 mels": FeatureConfig(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0),
+    "n_fft 1792": n_fft_config(1792),
+    "n_fft 2744": n_fft_config(2744),
+    "44.1 kHz, n_fft 1764": FeatureConfig(sample_rate=44100, n_fft=1764, win_length=1764, hop_length=441, n_mels=128,
+                                          f_max=22050.0),
+    "44.1 kHz, n_fft 882": FeatureConfig(sample_rate=44100, n_fft=882, win_length=882, hop_length=441, n_mels=128,
+                                         f_max=22050.0),
+}
+
+
 def both_plans(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, iters: int) -> str:
     """Both plans through their C functions, in turns (GEMM, FFT, FFT,
     GEMM), each checked against the plain version."""
@@ -389,25 +430,34 @@ def both_plans(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, iters: int
     return ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
 
 
-def fft_section(libs: dict, rng: np.random.Generator, dev: torch.device) -> None:
-    """The FFT plan's parts at B = 1024 on n_fft 2048 and 2000, both plans
-    around the FFT plan's threshold, then the FFT plan on the shipped
-    config beside its GEMM plan at B = 4096, in turns."""
-    for n_fft in (2048, 2000):
-        cfg = n_fft_config(n_fft)
+def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
+    """The FFT plan's parts at B = 1024 on n_fft 2048 and 2000, and the
+    FFT plan on FFT_CONFIGS with every n_fft through its kSeven instance,
+    between the baselines'; both plans around the FFT plan's threshold,
+    then the FFT plan on the shipped config beside its GEMM plan at B =
+    4096, in turns."""
+    parts = [n for n in libs if n.startswith("FFT plan") and n not in ("FFT plan as built", ONE_INSTANCE)]
+    for label, cfg in FFT_CONFIGS.items():
         w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
         w = w.repeat(16, 1)
         mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
         want = frontend_kernel.power_mel_reference(w, cfg)
-        for name in [n for n in libs if n.startswith("FFT plan")] + ["FFT plan as built"]:
+        split = parts if label in ("n_fft 2048", "n_fft 2000") else []
+        for name in baselines + ["FFT plan as built"] + split + [ONE_INSTANCE, "FFT plan as built"] + baselines:
             launch = fft_launch(libs[name], w, cfg, mel)
+            try:
+                launch()
+            except RuntimeError:
+                if name in baselines:  # a source before this n_fft's stages
+                    continue
+                raise
             t = cuda_ms(launch, 20)
             err = ((mel - want).abs().max() / want.abs().max()).item()
-            print(f"spectral launch B=1024, n_fft {n_fft}, {name}: {t:.4f} ms, max-relative vs plain {err:.2e}",
-                  flush=True)
+            print(f"spectral launch B=1024, {label} (stages {frontend_kernel._fft_radices(cfg.n_fft // 2)}), {name}: "
+                  f"{t:.4f} ms, max-relative vs plain {err:.2e}", flush=True)
 
     lib = libs["as built"]
-    for n_fft in (640, 768, 1000, 1024):
+    for n_fft in (640, 672, 768, 784, 1000, 1024):
         cfg = n_fft_config(n_fft)
         for b, iters in ((1024, 20), (BATCH, ITERS)):
             w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
