@@ -14,7 +14,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      plane) and the bench's load generator, all four at once (build
      seconds), and beside them the host work of later phases (phase 6's
      corpus, phase 7's resample banks and its data directory, the last in
-     a process of its own); the phases' seconds are printed at the end;
+     a process of its own, phase 3's DFT tables, and one profiler session,
+     whose start the first device time of phase 4 would pay); the phases'
+     seconds are printed at the end;
   3. holds each of the two front-end launches (spectral: waveform to power
      mel, 3xTF32 on the tensor cores; epilogue: power mel to features), and
      the pair, against its plain torch version on the card: the shipped
@@ -43,10 +45,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      mels at n_fft 768, n_fft 1792 and 2744 with contrast and 896 at 256
      mels (radix-7 stages), 44.1 kHz at n_fft 1764 with contrast and at
      882 (40 and 20 ms windows, a 10 ms hop; 441 points a frame of launch
-     A, odd), the GEMM plans' spans from device memory and mel groups at
-     n_fft 1760, 2662 and 880 (a factor of 11) and at an odd n_fft (1323,
-     30 ms at 44.1 kHz), and 10 s clips
-     with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
+     A, odd), n_fft 1760 and 2662 with contrast and 880 at 256 mels
+     (radix-11 stages), an odd n_fft (launch A two frames a row): 44.1 kHz
+     at 1323 with and without contrast and at 2205 with contrast (30 and
+     50 ms windows), n_fft 1125 (57 frames, a lone last one), the GEMM
+     plans' spans from device memory and mel groups at n_fft 1664, 2704
+     and 832 (a factor of 13) and at an odd n_fft (1365 at 44.1 kHz), and
+     10 s clips with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
      (launch B's cluster route's other branches), 120 s at 128 mels (launch
      B in device memory), for the plans no other config reaches) through
      extract_features_fast: every launch it needs once a call (the FFT
@@ -57,8 +62,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the 3xTF32 models), each launch's shared memory and plan (the FFT or
      the GEMM's span staged or not, blocks a clip, LayoutC's level or the
      FFT) equal to its Python mirror; and the main path on 160 mels, 10 s
-     clips, n_fft 2048, n_fft 2048 with contrast and 44.1 kHz at n_fft 1764
-     with contrast (radix-7 stages in both FFT plans), features into the
+     clips, n_fft 2048, n_fft 2048 with contrast, 44.1 kHz at n_fft 1764
+     with contrast (radix-7 stages in both FFT plans) and at the odd 1323
+     with contrast (launch A's two frames a row, launch C's odd FFT),
+     features into the
      residual model through a captured graphs.Programs program (one eager
      call, two replays, launches counted through them, logits within 1e-3
      of eager);
@@ -74,10 +81,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      mels and n_fft 1024 (both of launch A's plans), n_fft 2048 at 16 and
      22.05 kHz, 10 s clips (the GEMM), n_fft 2000, 3000 and 256 mels at
      n_fft 768 (the FFT's radix-3 and radix-5 stages), 896 at 256 mels,
-     1792, 2744 and 44.1 kHz at 1764 and 882 (radix 7), 880 at 256 mels and
-     44.1 kHz at 1323 (the GEMM), the contrast launch on n_fft 1024 (both
-     plans), 2048, 4096, 2000, 3000, 1792, 2744 and 44.1 kHz at 1764 (the
-     FFT), 1760 and 2662 (the GEMM), each beside
+     1792, 2744 and 44.1 kHz at 1764 and 882 (radix 7), 880 at 256 mels
+     (radix 11) and 44.1 kHz at the odd 1323, the contrast launch on n_fft
+     1024 (both plans), 2048, 4096, 2000, 3000, 1792, 2744, 1760 and 2662
+     and 44.1 kHz at 1764, 1323 and 2205 (the FFT), each beside
      its bound, its plain version and torch.stft + mel (the fft rows for
      contrast); the epilogue launch alone on its cluster route (5 s at 128
      mels, 10 s with PCEN, delta-deltas and 20 MFCCs at B = 1024, a hop of
@@ -509,6 +516,31 @@ def training_corpus() -> tuple:
         return waves, labels
 
     return (*corpus(2048, SEED), *corpus(256, SEED + 2048))
+
+
+def coverage_tables() -> None:
+    """The DFT matrices of every coverage config (ops/filters.py caches
+    them: 2.7 s of float64 cosines on the host, most of it at n_fft 2000 to
+    4096), which phase 3's plain versions and models read. Phase 2 runs
+    this beside the kernel build."""
+    from cough_detector_tpu_torch.ops import filters
+
+    for cfg, _ in coverage_configs().values():
+        filters.dft_matrices(cfg.n_fft, cfg.win_length)
+        if cfg.use_spectral_contrast:
+            filters.dft_matrices(cfg.n_fft, cfg.n_fft)
+
+
+def start_profiler() -> None:
+    """One torch.profiler session on the card: a process's first starts the
+    profiler's device tracing, 11-13 s on an H100's host (phase 4's first
+    device time took 12.9 s where later ones take about 1; PERF.md). Phase
+    2 runs this beside the kernel build."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
 
 
 def start_prepare_data() -> subprocess.Popen:
@@ -3297,16 +3329,21 @@ def coverage_configs() -> dict:
     n_fft 768 on 256 mels; their radix-7 stages at n_fft 1792 and 2744 with
     contrast and 896 on 256 mels, and at 44.1 kHz as users set it, a 40 ms
     window with contrast (n_fft 1764) and a 20 ms one (n_fft 882: launch A's
-    frame of 441 points, odd), a 10 ms hop; at an n_fft with a factor of 11
-    (the FFT plans take only 2, 3, 5 and 7), the GEMM plans' spans from
-    device memory: launch A unstaged with the contrast launch's level 1
-    (n_fft 1760), and with its level 3, its power rows in device memory
-    (n_fft 2662); launch A's GEMM plan over two mel groups, its span staged
-    (n_fft 880, 256 mels); and launch A's GEMM on an odd n_fft, 30 ms at
-    44.1 kHz (1323). Last, two 10 s clips for launch B's cluster route's other
-    branches: PCEN with delta-deltas and 20 MFCCs (its 32-MFCC DCT), and 36
-    MFCCs of 40 mels with delta-deltas (two DCT passes, the MFCC and delta
-    tiles after the mel tile); and a 120 s clip at 128 mels with PCEN and
+    frame of 441 points, odd), a 10 ms hop; their radix-11 stages at n_fft
+    1760 and 2662 with contrast and 880 on 256 mels (110 and 55 ms windows
+    at 16 kHz); an odd n_fft, launch A two frames a row of n_fft points: 30
+    ms at 44.1 kHz (1323) with and without contrast, 50 ms with contrast
+    (2205), and n_fft 1125 (57 frames: launch A's lone last frame, paired
+    with zeros); at an n_fft with a factor of 13 (the FFT plans take only
+    2, 3, 5, 7 and 11), the GEMM plans' spans from device memory: launch A
+    unstaged with the contrast launch's level 1 (n_fft 1664), and with its
+    level 3, its power rows in device memory (n_fft 2704); launch A's GEMM
+    plan over two mel groups, its span staged (n_fft 832, 256 mels); and
+    launch A's GEMM on an odd n_fft, 31 ms at 44.1 kHz (1365). Last, two
+    10 s clips for launch B's cluster route's other branches: PCEN with
+    delta-deltas and 20 MFCCs (its 32-MFCC DCT), and 36 MFCCs of 40 mels
+    with delta-deltas (two DCT passes, the MFCC and delta tiles after the
+    mel tile); and a 120 s clip at 128 mels with PCEN and
     delta-deltas, past a cluster of 16: launch B in device memory."""
     from cough_detector_tpu_torch.config import FeatureConfig
 
@@ -3352,6 +3389,18 @@ def coverage_configs() -> dict:
         "nfft880_mels256": (FeatureConfig(n_fft=880, win_length=880, hop_length=220, n_mels=256, f_max=8000.0), one),
         "sr44k_nfft1323": (FeatureConfig(sample_rate=44100, n_fft=1323, win_length=1323, hop_length=441, n_mels=128,
                                          f_max=22050.0), one),
+        "sr44k_nfft1323_contrast": (FeatureConfig(sample_rate=44100, n_fft=1323, win_length=1323, hop_length=441,
+                                                  n_mels=128, f_max=22050.0, use_spectral_contrast=True), one),
+        "sr44k_nfft2205_contrast": (FeatureConfig(sample_rate=44100, n_fft=2205, win_length=2205, hop_length=441,
+                                                  n_mels=128, f_max=22050.0, use_spectral_contrast=True), one),
+        "nfft1125": (FeatureConfig(n_fft=1125, win_length=1125, hop_length=281, n_mels=128, f_max=8000.0), one),
+        "nfft1664_contrast": (FeatureConfig(n_fft=1664, win_length=1664, hop_length=416, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft2704_contrast": (FeatureConfig(n_fft=2704, win_length=2704, hop_length=676, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft832_mels256": (FeatureConfig(n_fft=832, win_length=832, hop_length=208, n_mels=256, f_max=8000.0), one),
+        "sr44k_nfft1365": (FeatureConfig(sample_rate=44100, n_fft=1365, win_length=1365, hop_length=441, n_mels=128,
+                                         f_max=22050.0), one),
         "clip10s_pcen_dd20": (FeatureConfig(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), one),
         "clip10s_mels40_mfcc36_dd": (FeatureConfig(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
                                      one),
@@ -3391,7 +3440,8 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     plan (FFT_TOL for the FFT plans, SPLIT_TOL for the 3xTF32 GEMM); each
     launch's shared memory and plan against its Python mirror. Then the
     main path at full width on mels160, clip10s, nfft2048,
-    nfft2048_contrast and sr44k_nfft1764_contrast: features into the residual model (290,370
+    nfft2048_contrast, sr44k_nfft1764_contrast and sr44k_nfft1323_contrast:
+    features into the residual model (290,370
     parameters, seeded weights) through a captured graphs.Programs program,
     one eager call and two replays, the launches counted through the
     replays, the logits within 1e-3 of the same weights eagerly."""
@@ -3490,14 +3540,15 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
                      f"{want_fft}) or errors {errs} off")
             launches[(name, b)] = moved
 
-    # The main path on five of them at full width, through a captured program.
+    # The main path on six of them at full width, through a captured program.
     torch.manual_seed(SEED)
     model = create_model("residual")
     if count_parameters(model) != 290370:
         fail(f"residual model has {count_parameters(model)} parameters, expected 290370")
     model = place_model(model, dev)
     main_path = {}
-    for name in ("mels160", "clip10s", "nfft2048", "nfft2048_contrast", "sr44k_nfft1764_contrast"):
+    for name in ("mels160", "clip10s", "nfft2048", "nfft2048_contrast", "sr44k_nfft1764_contrast",
+                 "sr44k_nfft1323_contrast"):
         cfg = coverage_configs()[name][0]
         w = make_audio_bulk(rng, 256, cfg.segment_samples, dev)
 
@@ -3562,7 +3613,9 @@ def main() -> None:
     # -- 2. build: the CUDA kernel, the two C++ libraries and the bench's load
     # generator, all at once; beside them (their threads wait on the
     # compilers), host work of later phases: phase 6's corpus, phase 7's
-    # resample banks and data directory (cli.prepare_data's process) ----
+    # resample banks and data directory (cli.prepare_data's process), phase
+    # 3's DFT tables, and the profiler's start that phase 4's first device
+    # time paid ----
     def timed(fn):
         t0 = time.perf_counter()
         fn()
@@ -3581,7 +3634,7 @@ def main() -> None:
     prepare = start_prepare_data()
     atexit.register(prepare.kill)  # a run that fails first leaves it no orphan
     made = []
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
         builds = {
             kernel_build.library_path("frontend_kernel").name: pool.submit(kernel),
             native_build.library_path("cdt_loader").name: pool.submit(timed, native_loader.require),
@@ -3592,6 +3645,8 @@ def main() -> None:
         host = {
             "phase 6's corpus": pool.submit(timed, lambda: made.extend(training_corpus())),
             "phase 7's resample banks": pool.submit(timed, resample_banks),
+            "phase 3's DFT tables": pool.submit(timed, coverage_tables),
+            "the profiler's start": pool.submit(timed, start_profiler),
         }
         build_s = {name: f.result() for name, f in builds.items()}
         host_s = {name: f.result() for name, f in host.items()}
@@ -3847,8 +3902,9 @@ def main() -> None:
     yard = dict(library_mel=library_mel, bound_a=bound_a, bound_b=lambda b: bound(*epilogue_work(shipped, b)))
 
     t0 = time.perf_counter()
-    timing = {}
+    timing, parts_s = {}, {}  # host seconds by part, printed with the total
     for b, iters in ((256, 50), (4096, 10)):
+        t_b = time.perf_counter()
         w = make_audio_bulk(rng, b, SR, dev)
         mel = frontend_kernel.power_mel_fused(w, shipped)
         mel_err = rel_err(mel, frontend_kernel.power_mel_reference(w, shipped))
@@ -3874,9 +3930,12 @@ def main() -> None:
             plain_ms=cuda_ms(lambda: frontend_kernel.frontend_kernel_reference(w, shipped), iters),
             library_ms=cuda_ms(lambda: library(w), iters),
         )
+        parts_s[f"B={b} events"] = time.perf_counter() - t_b
         if b == 256:  # the card's own time, beside the events' host-bound one
+            t_b = time.perf_counter()
             spectral["device_ms"] = device_ms(lambda: frontend_kernel.power_mel_fused(w, shipped), iters, "spectral_kernel")
             epilogue["device_ms"] = device_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, shipped), iters, "epilogue_kernel")
+            parts_s[f"B={b} profiler"] = time.perf_counter() - t_b
         timing[b] = dict(spectral=spectral, epilogue=epilogue)
         print(f"spectral kernel vs plain at B={b}: max-relative {mel_err:.3e}", flush=True)
         for part, tm in (("spectral", spectral), ("epilogue", epilogue)):
@@ -3907,7 +3966,8 @@ def main() -> None:
             flush=True,
         )
 
-    print(f"shipped-config launch times: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"shipped-config launch times: {time.perf_counter() - t0:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts_s.items()) + ")", flush=True)
 
     # Each launch at B = 1024 on configs the card once ran on the torch
     # chain, beside its bound and torch.stft + mel (the spectral launch's
@@ -3915,13 +3975,15 @@ def main() -> None:
     # the fft rows: launch A's FFT plan on n_fft 2048 at 16 and 22.05 kHz
     # and on n_fft 1024 (nfft1024_contrast's base), 2000 and 3000 and on
     # n_fft 768 at 256 mels (radix-3 and radix-5 stages), on n_fft 1792,
-    # 2744, 896 at 256 mels and 44.1 kHz at 1764 and 882 (radix 7), its
-    # GEMM plan on 10 s clips, at n_fft 880 on 256 mels (a factor of 11) and
-    # at 44.1 kHz on the odd 1323; the contrast launch's FFT plan on n_fft
-    # 1024, 2048, 4096, 2000, 3000, 1792, 2744 and 44.1 kHz at 1764, its
-    # GEMM plan at n_fft 1760 and 2662 (a factor of 11). The GEMM plans
-    # these n_fft took until their FFT plans are not timed again (PERF.md
-    # keeps their times).
+    # 2744, 896 at 256 mels and 44.1 kHz at 1764 and 882 (radix 7), on
+    # n_fft 880 at 256 mels (radix 11) and at 44.1 kHz on the odd 1323 (two
+    # frames a row), its GEMM plan on 10 s clips; the contrast launch's FFT
+    # plan on n_fft 1024, 2048, 4096, 2000, 3000, 1792, 2744, 1760 and 2662
+    # (radix 11) and 44.1 kHz at 1764, 1323 and 2205 (odd). The GEMM plans
+    # these n_fft took until their FFT plans, and those left to a factor of
+    # 13, are not timed here (PERF.md keeps their times;
+    # tools/spectral_probe.py and tools/contrast_probe.py time the ones
+    # left beside their library calls).
     # Where the FFT plan's threshold and its 128-mel rule are set (n_fft
     # 1024, 256 mels), the GEMM plan too, called through its C function.
     # A contrast config's pair is its base's: only its contrast launch is
@@ -3941,7 +4003,8 @@ def main() -> None:
                  "nfft896_mels256", "nfft1792", "nfft2744", "sr44k_nfft1764", "sr44k_nfft882", "nfft880_mels256",
                  "sr44k_nfft1323", "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
                  "nfft3000_contrast", "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast",
-                 "nfft1760_contrast", "nfft2662_contrast", *epilogue_only):
+                 "nfft1760_contrast", "nfft2662_contrast", "sr44k_nfft1323_contrast", "sr44k_nfft2205_contrast",
+                 *epilogue_only):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -4423,15 +4486,15 @@ def main() -> None:
     })
     # The FFT plans (spectral_fft_kernel, contrast_fft_kernel): their main
     # paths are the captured ones of phase 3 on n_fft 2048 (with contrast for
-    # launch C) and on 44.1 kHz at n_fft 1764 with contrast (the radix-7
-    # stages), the counters set to 0 just before each; their times phase 4's
-    # at B = 1024 on n_fft 2048.
+    # launch C) and on 44.1 kHz at n_fft 1764 (the radix-7 stages) and 1323
+    # (odd: launch A's two frames a row) with contrast, the counters set to
+    # 0 just before each; their times phase 4's at B = 1024 on n_fft 2048.
     for part, cfg_name, launch_name, kernel, counter in (
         ("spectral", "nfft2048", "frontend_spectral_fft", "spectral_fft_kernel", "SPECTRAL_FFT_LAUNCHES"),
         ("contrast", "nfft2048_contrast", "frontend_contrast_fft", "contrast_fft_kernel", "CONTRAST_FFT_LAUNCHES"),
     ):
         row = coverage_timing[cfg_name][part]
-        paths = (cfg_name, "sr44k_nfft1764_contrast")
+        paths = (cfg_name, "sr44k_nfft1764_contrast", "sr44k_nfft1323_contrast")
         kernels.append({
             "name": launch_name,
             "route": "cuda",

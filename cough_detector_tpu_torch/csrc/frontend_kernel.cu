@@ -75,12 +75,13 @@
 //    zeroing loop; the mbarrier wait loop and the lane-0 refill are inside
 //    asm, with predicates, so no C++ branch surrounds an in-flight group.
 //
-//  * Every config. An even n_fft of prime factors 2, 3 and 5 from 640 on,
-//    or past 128 mels, takes the FFT plan (spectral_fft_kernel, plan_a;
-//    its note with the FFT plans below): at n_fft 2048 this GEMM ran 13.75
-//    ms at B = 1024 where cuFFT and a mel matmul take 1.06, and on 256
-//    mels its two mel groups 1.34 ms against the FFT plan's 0.67. Any
-//    other n_fft (odd, or with a prime factor of 7 or more) stays here:
+//  * Every config. An n_fft of prime factors 2, 3, 5, 7 and 11, odd or
+//    even, from 640 on, or past 128 mels, takes the FFT plan
+//    (spectral_fft_kernel, plan_a; its note with the FFT plans below): at
+//    n_fft 2048 this GEMM ran 13.75 ms at B = 1024 where cuFFT and a mel
+//    matmul take 1.06, and on 256 mels its two mel groups 1.34 ms against
+//    the FFT plan's 0.67. Any other n_fft (one with a prime factor of 13
+//    or more) stays here:
 //    more than 128 mels take mel groups of at most 128, each its own
 //    blocks on grid x, the DFT run again for each (the registers hold one
 //    group's mel accumulators beside the DFT's); a tile whose waveform
@@ -99,8 +100,10 @@
 // memory) and stores that meet no bank conflicts. Until the FFT plans'
 // radix-3 and radix-5 stages, the GEMM plans lost to cuFFT on n_fft 2000
 // (launch A 12.49 ms at B = 1024 against 1.24, launch C 20.32 against
-// 4.50) and on n_fft 768 with two mel groups (3.13 against 1.35); an n_fft
-// with a prime factor of 7 or more still takes them.
+// 4.50) and on n_fft 768 with two mel groups (3.13 against 1.35); until
+// their radix-11 stages and odd frames, on n_fft 2662 with contrast (22.9
+// against 4.5) and the odd 1323 at 44.1 kHz (10.9-11.5 against 2.9). An
+// n_fft with a prime factor of 13 or more still takes them.
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
@@ -1598,8 +1601,9 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 
 // -- The FFT plans of launches A and C ------------------------------------------
 //
-// For an even n_fft of prime factors 2, 3, 5 and 7 from kFftMinNfft on
-// (fft_nfft), launches A and C compute their spectra by FFT instead of the
+// For an n_fft of prime factors 2, 3, 5, 7 and 11, odd or even, from
+// kFftMinNfft on (fft_nfft), launches A and C compute their spectra by FFT
+// instead of the
 // DFT as a GEMM (plan_a, plan_c): the GEMM costs O(n_fft) a bin, and at
 // n_fft 2048 it pads 32 frames to 128 rows, runs 256 k-steps over 2,048
 // taps and 9 passes over 1,025 bins, three TF32 products each, where an
@@ -1610,20 +1614,25 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    then packs each windowed frame into complex points, in shared memory.
 //  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (one of
 //    radix 2 first when the points hold an odd power of two, then radix 4,
-//    then radix 3, 5 and 7, each R-point DFT in registers), every frame
-//    of the block at once, each stage in place: a thread reads its
+//    then radix 3, 5, 7 and 11, each R-point DFT in registers), every
+//    frame of the block at once, each stage in place: a thread reads its
 //    butterflies' points into registers, the block meets at a barrier,
 //    then it writes their outputs. Rows and butterfly indices come by
 //    shifts for a power of two, else by a multiply (DivBy). Twiddles
 //    e^{-2 pi i k / n_fft} for k in [0, n_fft / 2] come from a table the
 //    host builds in float64 and rounds once (ops/frontend_kernel.py::
-//    _twiddles), staged in shared memory; k past n_fft / 2 is the negated
-//    entry of k - n_fft / 2.
-//  * Launch A (spectral_fft_kernel) packs the frame's n_fft reals as
-//    n_fft / 2 complex (even samples real, odd imaginary; an odd count
-//    where n_fft / 2 is odd, as 441 at n_fft 882), and the real
+//    _twiddles), staged in shared memory; k past n_fft / 2 is the
+//    conjugate of entry n_fft - k, which holds for an odd n_fft too.
+//  * Launch A (spectral_fft_kernel) packs an even n_fft's frame of n_fft
+//    reals as n_fft / 2 complex (even samples real, odd imaginary; an odd
+//    count where n_fft / 2 is odd, as 441 at n_fft 882), and the real
 //    FFT's bin k is (Z[k] + conj Z[m - k]) / 2 + w^k (-i) (Z[k] - conj
-//    Z[m - k]) / 2 (m = n_fft / 2, w = e^{-2 pi i / n_fft}); the power of
+//    Z[m - k]) / 2 (m = n_fft / 2, w = e^{-2 pi i / n_fft}). On an odd
+//    n_fft, frames 2j and 2j + 1 are the real and imaginary parts of one
+//    FFT of n_fft points, split as launch C splits its two windows: X_2j[k]
+//    = (Z[k] + conj Z[n - k]) / 2, X_2j+1[k] = (Z[k] - conj Z[n - k]) / 2i,
+//    no post-twiddle; a clip's odd last frame pairs with zeros. Either way
+//    a frame costs n_fft / 2 points of FFT. The power of
 //    bins [0, n_used) replaces the points in shared memory, then the mel
 //    is FP32 FMAs over each filter's nonzero bins (the filters are
 //    triangles: about 2 n_used products a frame), read from a packed table
@@ -1633,7 +1642,8 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    the two real spectra by conjugate symmetry: (Z[k] + conj Z[n - k]) / 2
 //    is the win_length window's (its power over the bands' bins goes to
 //    the power rows), (Z[k] - conj Z[n - k]) / 2i the n_fft window's (its
-//    magnitude into the frame's centroid sums). One block a clip loops
+//    magnitude into the frame's centroid sums), for an odd n_fft as for an
+//    even one. One block a clip loops
 //    over its frame groups; a warp takes a (frame, band) and sorts the
 //    band in registers (band_sorted: ranking the 239-bin band of n_fft
 //    2048 by band_value took 48% of the launch, 1.10 of 2.29 ms at B =
@@ -1654,70 +1664,80 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    and post-twiddles in torch ops: ops/frontend_kernel.py's
 //    power_mel_fft_reference and spectral_contrast_fft_reference.
 
-// Whether n's only prime factors are 2, 3, 5 and 7 (n >= 1).
-__host__ __device__ inline bool smooth2357(int n) {
+// Whether n's only prime factors are 2, 3, 5, 7 and 11 (n >= 1).
+__host__ __device__ inline bool smooth11(int n) {
   if (n < 1) return false;
   while (n % 2 == 0) n /= 2;
   while (n % 3 == 0) n /= 3;
   while (n % 5 == 0) n /= 5;
   while (n % 7 == 0) n /= 7;
+  while (n % 11 == 0) n /= 11;
   return n == 1;
 }
 
+// Launch A's complex points a row of its FFT: n_fft / 2 for an even n_fft
+// (a frame packed as complex), n_fft for an odd one (two frames a row).
+__host__ __device__ inline int fft_points_a(int n_fft) { return n_fft % 2 ? n_fft : n_fft / 2; }
+
 // The FFT plans' shared memory, in floats: the points (2 floats each,
-// frames x points a frame), the frames' waveform span, the twiddles
-// (n_fft / 2 + 1 float2), then for launch C the group's power rows
-// (frames x n_pow) and the reduction slots (its contrast rows go to the
-// output and are z-normed there in place). `frames` halves from its most
-// until the layout fits; launch C's most is rounded down to a power of
-// two, since its threads split evenly over the frames (tpf).
+// rows x points a row), the frames' waveform span, the twiddles (n_fft / 2
+// + 1 float2), then for launch C the group's power rows (frames x n_pow)
+// and the reduction slots (its contrast rows go to the output and are
+// z-normed there in place). A row holds a frame, or two for launch A on an
+// odd n_fft. `rows` halves from its most until the layout fits; launch C's
+// most is rounded down to a power of two, since its threads split evenly
+// over the frames (tpf).
 struct LayoutF {
-  int frames, span, tw, pow, red, end;
+  int rows, frames, span, tw, pow, red, end;
 
-  // Launch A (points a frame n_fft / 2; no power rows).
-  __host__ __device__ LayoutF(int n_fft, int hop) { fit(n_fft / 2, n_fft, hop, 0, false); }
+  // Launch A (fft_points_a a row; no power rows).
+  __host__ __device__ LayoutF(int n_fft, int hop) { fit(fft_points_a(n_fft), 1 + n_fft % 2, n_fft, hop, 0, false); }
 
-  // Launch C (points a frame n_fft).
-  __host__ __device__ LayoutF(int n_fft, int hop, int n_pow) { fit(n_fft, n_fft, hop, n_pow, true); }
+  // Launch C (a frame of n_fft points a row).
+  __host__ __device__ LayoutF(int n_fft, int hop, int n_pow) { fit(n_fft, 1, n_fft, hop, n_pow, true); }
 
-  __host__ __device__ void fit(int points, int n_fft, int hop, int n_pow, bool contrast) {
-    frames = kFftPoints / points < kFftMaxFrames ? kFftPoints / points : kFftMaxFrames;
+  __host__ __device__ void fit(int points, int per_row, int n_fft, int hop, int n_pow, bool contrast) {
+    rows = kFftPoints / points < kFftMaxFrames / per_row ? kFftPoints / points : kFftMaxFrames / per_row;
     if (contrast)
-      while (frames & (frames - 1)) frames &= frames - 1;
-    for (;; frames /= 2) {
-      span = 2 * frames * points;
+      while (rows & (rows - 1)) rows &= rows - 1;
+    for (;; rows /= 2) {
+      frames = rows * per_row;
+      span = 2 * rows * points;
       tw = span + ((frames - 1) * hop + n_fft + 3) / 4 * 4;
       pow = tw + n_fft + 2;
       red = pow + (frames * n_pow + 3) / 4 * 4;
       end = contrast ? red + kRedC : pow;
-      if (frames <= 1 || sizeof(float) * end <= kMaxSmem) break;
+      if (rows <= 1 || sizeof(float) * end <= kMaxSmem) break;
     }
   }
 
   __host__ __device__ size_t bytes() const { return sizeof(float) * end; }
 };
 
-// Whether an n_fft can take an FFT plan: an even n_fft (from 64) of
-// prime factors 2, 3, 5 and 7 whose frame fits a block's points (the
-// stages are of radix 2, 4, 3, 5 and 7; the twiddle table's negated half
-// needs n_fft / 2 whole). plan_a and plan_c take it from kFftMinNfft on,
-// and launch A also past 128 mels, where its GEMM plan runs the DFT again
-// for each mel group (1.34 ms at B = 1024 on 256 mels, the FFT plan 0.67).
-// At 128 mels and hop n_fft / 4 the FFT plan beat the GEMM at B = 1024 and
+// Whether an n_fft can take an FFT plan: an n_fft (from 64) of prime
+// factors 2, 3, 5, 7 and 11, odd or even, whose row of points (fft_points_a
+// for launch A, n_fft for launch C) fits a block's points (the stages are
+// of radix 2, 4, 3, 5, 7 and 11; the twiddle table's conjugate half holds
+// for any n_fft). plan_a and plan_c take it from kFftMinNfft on, and
+// launch A also past 128 mels, where its GEMM plan runs the DFT again for
+// each mel group (1.34 ms at B = 1024 on 256 mels, the FFT plan 0.67). At
+// 128 mels and hop n_fft / 4 the FFT plan beat the GEMM at B = 1024 and
 // 4096 on n_fft 640 (launch A 1.5x, launch C 1.2x), 768 and 1000
-// (2.1-3.1x), and with a factor of 7 on 672 (A 1.8-1.9x, C 1.15-1.17x) and
-// 784 (A 2.4-2.5x, C 2.2-2.3x), so one threshold serves both; the GEMM
-// keeps n_fft 512 (the shipped config: 0.99 ms against the FFT's 1.74 at
-// B = 4096; tools/spectral_probe.py, tools/contrast_probe.py).
-__host__ __device__ inline bool fft_nfft(int n_fft, int points_a_frame) {
-  return n_fft >= 64 && n_fft % 2 == 0 && smooth2357(n_fft) && points_a_frame <= kFftPoints;
+// (2.1-3.1x), with a factor of 7 on 672 (A 1.8-1.9x, C 1.15-1.17x) and 784
+// (A 2.4-2.5x, C 2.2-2.3x), with a factor of 11 on 704 (A 1.9-2.0x, C
+// 1.8x), and odd on 675 (A 1.8-1.9x, C 1.4-1.5x) and 693 (3^2 7 11: A
+// 1.5-1.9x, C 1.5-1.7x), so one threshold serves all; the GEMM keeps n_fft
+// 512 (the shipped config: 0.99 ms against the FFT's 1.74 at B = 4096;
+// tools/spectral_probe.py, tools/contrast_probe.py).
+__host__ __device__ inline bool fft_nfft(int n_fft, int points_a_row) {
+  return n_fft >= 64 && smooth11(n_fft) && points_a_row <= kFftPoints;
 }
 
 // Launch A's plan: the FFT, else the GEMM with its span staged or not.
 enum { kPlanGemmUnstaged = 0, kPlanGemmStaged = 1, kPlanFft = 2 };
 
 __host__ __device__ inline int plan_a(int n_fft, int hop, int kpad, int n_mels) {
-  if (fft_nfft(n_fft, n_fft / 2) && (n_fft >= kFftMinNfft || n_mels > 128) &&
+  if (fft_nfft(n_fft, fft_points_a(n_fft)) && (n_fft >= kFftMinNfft || n_mels > 128) &&
       LayoutF(n_fft, hop).bytes() <= kMaxSmem)
     return kPlanFft;
   return staged_a(hop, kpad) ? kPlanGemmStaged : kPlanGemmUnstaged;
@@ -1737,11 +1757,15 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 }
 
 // e^{-2 pi i idx / n_fft} for idx in [0, n_fft), from the table of idx in
-// [0, half], half = n_fft / 2.
-__device__ __forceinline__ float2 twiddle(const float2* tw, int idx, int half) {
-  const bool lo = idx <= half;
-  const float2 t = tw[lo ? idx : idx - half];
-  return lo ? t : make_float2(-t.x, -t.y);
+// [0, n_fft / 2]: past it, the conjugate of entry n_fft - idx, for an odd
+// n_fft as for an even one. One rule for both: with the negated entry of
+// idx - n_fft / 2 kept for an even n_fft (a branch on its parity), the
+// two launches ran slower on 19 of 23 configs, by up to 9%, in turns
+// (tools/spectral_probe.py, tools/contrast_probe.py; PERF.md).
+__device__ __forceinline__ float2 twiddle(const float2* tw, int idx, int n_fft) {
+  const bool lo = 2 * idx <= n_fft;
+  const float2 t = tw[lo ? idx : n_fft - idx];
+  return make_float2(t.x, lo ? t.y : -t.y);
 }
 
 // n / d for 0 <= n and 1 <= d with n d < 2^31 (points and counts of a
@@ -1755,14 +1779,31 @@ struct DivBy {
 };
 
 // cos and sin of 2 pi / 3, 2 pi / 5, 4 pi / 5, 2 pi / 7, 4 pi / 7 and 6 pi
-// / 7, from float64 values, rounded once (ops/frontend_kernel.py's
-// _stockham uses the same).
+// / 7, and of 2 pi j / 11 for j in 1-5, from float64 values, rounded once
+// (ops/frontend_kernel.py's _stockham uses the same).
 constexpr float kSin3 = 0.86602540378443865;
 constexpr float kCos5a = 0.30901699437494742, kSin5a = 0.95105651629515357;
 constexpr float kCos5b = -0.80901699437494742, kSin5b = 0.58778525229247314;
 constexpr float kCos7a = 0.62348980185873359, kSin7a = 0.78183148246802980;
 constexpr float kCos7b = -0.22252093395631434, kSin7b = 0.97492791218182362;
 constexpr float kCos7c = -0.90096886790241903, kSin7c = 0.43388373911755823;
+constexpr float kCos11a = 0.84125353283118121, kSin11a = 0.54064081745559756;
+constexpr float kCos11b = 0.41541501300188644, kSin11b = 0.90963199535451833;
+constexpr float kCos11c = -0.142314838273285, kSin11c = 0.9898214418809328;
+constexpr float kCos11d = -0.65486073394528499, kSin11d = 0.75574957435425827;
+constexpr float kCos11e = -0.95949297361449737, kSin11e = 0.28173255684142967;
+
+// cos and sin of 2 pi j / 11 for j in [1, 11), from the five above (the
+// radix-11 DFT's j is a constant once its loops unroll).
+__device__ __forceinline__ constexpr float cos11(int j) {
+  const int a = j <= 5 ? j : 11 - j;
+  return a == 1 ? kCos11a : a == 2 ? kCos11b : a == 3 ? kCos11c : a == 4 ? kCos11d : kCos11e;
+}
+__device__ __forceinline__ constexpr float sin11(int j) {
+  const int a = j <= 5 ? j : 11 - j;
+  const float s = a == 1 ? kSin11a : a == 2 ? kSin11b : a == 3 ? kSin11c : a == 4 ? kSin11d : kSin11e;
+  return j <= 5 ? s : -s;
+}
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
@@ -1800,8 +1841,36 @@ __device__ __forceinline__ void dft_points(float2 (&v)[R]) {
     v[4] = make_float2(m1.x - n1.y, m1.y + n1.x);  // m1 + i n1
     v[2] = make_float2(m2.x + n2.y, m2.y - n2.x);
     v[3] = make_float2(m2.x - n2.y, m2.y + n2.x);
+  } else if constexpr (R == 11) {
+    // Pairs a_r = v_r + v_{11-r}, b_r = v_r - v_{11-r} for r in 1-5; output
+    // k in 1-5 is m_k - i n_k and output 11 - k is m_k + i n_k, with m_k =
+    // v0 + sum_r cos(2 pi r k / 11) a_r and n_k = sum_r sin(2 pi r k / 11)
+    // b_r, each summed in r's order.
+    float2 a[5], b[5];
+#pragma unroll
+    for (int r = 1; r <= 5; ++r) {
+      a[r - 1] = cadd(v[r], v[11 - r]);
+      b[r - 1] = csub(v[r], v[11 - r]);
+    }
+    const float2 v0 = v[0];
+#pragma unroll
+    for (int k = 1; k <= 5; ++k) {
+      float2 m = v0, n = make_float2(sin11(k) * b[0].x, sin11(k) * b[0].y);
+#pragma unroll
+      for (int r = 1; r <= 5; ++r) {
+        const float c = cos11(r * k % 11);
+        m = make_float2(m.x + c * a[r - 1].x, m.y + c * a[r - 1].y);
+        if (r > 1) {
+          const float sn = sin11(r * k % 11);
+          n = make_float2(n.x + sn * b[r - 1].x, n.y + sn * b[r - 1].y);
+        }
+      }
+      v[k] = make_float2(m.x + n.y, m.y - n.x);       // m_k - i n_k
+      v[11 - k] = make_float2(m.x - n.y, m.y + n.x);  // m_k + i n_k
+    }
+    v[0] = cadd(cadd(cadd(cadd(cadd(v0, a[0]), a[1]), a[2]), a[3]), a[4]);
   } else {
-    static_assert(R == 7, "radix 2, 3, 4, 5 or 7");
+    static_assert(R == 7, "radix 2, 3, 4, 5, 7 or 11");
     // Pairs a_r = v_r + v_{7-r}, b_r = v_r - v_{7-r}; output k in 1-3 is
     // m_k - i n_k and output 7 - k is m_k + i n_k, with m_k = v0 + sum_r
     // cos(2 pi r k / 7) a_r and n_k = sum_r sin(2 pi r k / 7) b_r.
@@ -1841,7 +1910,7 @@ __device__ __forceinline__ void dft_points(float2 (&v)[R]) {
 template <int R, bool kPow2>
 __device__ __forceinline__ void fft_stage(float2* buf, int total, int p, int ns, int n_fft, const float2* tw) {
   constexpr int kItems = (kFftPoints / R + kThreadsA - 1) / kThreadsA;
-  const int q = p / R, n = total / R, step = n_fft / (ns * R), half = n_fft / 2;
+  const int q = p / R, n = total / R, step = n_fft / (ns * R);
   const int lq = __ffs(q) - 1, lns = __ffs(ns) - 1;  // log2 q and log2 ns, where kPow2
   const DivBy by_q(q), by_ns(ns);
   float2 v[kItems][R];
@@ -1854,7 +1923,7 @@ __device__ __forceinline__ void fft_stage(float2* buf, int total, int p, int ns,
 #pragma unroll
       for (int r = 0; r < R; ++r) v[it][r] = src[r * q];
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[it][r] = cmul(v[it][r], twiddle(tw, r * k * step, half));
+      for (int r = 1; r < R; ++r) v[it][r] = cmul(v[it][r], twiddle(tw, r * k * step, n_fft));
       dft_points<R>(v[it]);
     }
   }
@@ -1871,16 +1940,19 @@ __device__ __forceinline__ void fft_stage(float2* buf, int total, int p, int ns,
   __syncthreads();
 }
 
-// fft_rows for p = 2^a 3^b 5^c 7^d that is not a power of two: one of
-// radix 2 when a is odd, then radix 4, then the 3s, the 5s and the 7s. The
-// 7s only where kSeven (d = 0 otherwise): see fft_rows.
-template <bool kSeven>
+// fft_rows for p = 2^a 3^b 5^c 7^d 11^e that is not a power of two: one of
+// radix 2 when a is odd, then radix 4, then the 3s, the 5s, the 7s and the
+// 11s. kRadix, the instance's largest odd radix (7 or 11), leaves out the
+// radix-11 stages where it is 7 (e = 0 then): see fft_rows.
+template <int kRadix>
 __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, int n_fft, const float2* tw) {
-  int twos = 0, threes = 0, sevens = 1;  // sevens: 7^d
+  static_assert(kRadix == 7 || kRadix == 11, "an instance of radix 7 or 11");
+  int twos = 0, threes = 0, sevens = 1, elevens = 1;  // sevens: 7^d, elevens: 11^e
   for (int r = p; r % 2 == 0; r /= 2) ++twos;
   for (int r = p >> twos; r % 3 == 0; r /= 3) ++threes;
-  if constexpr (kSeven)
-    for (int r = p; r % 7 == 0; r /= 7) sevens *= 7;
+  for (int r = p; r % 7 == 0; r /= 7) sevens *= 7;
+  if constexpr (kRadix == 11)
+    for (int r = p; r % 11 == 0; r /= 11) elevens *= 11;
   int ns = 1;
   if (twos & 1) {
     fft_stage<2, false>(buf, total, p, ns, n_fft, tw);
@@ -1888,12 +1960,13 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
   }
   for (int i = 0; i < twos / 2; ++i, ns *= 4) fft_stage<4, false>(buf, total, p, ns, n_fft, tw);
   for (int i = 0; i < threes; ++i, ns *= 3) fft_stage<3, false>(buf, total, p, ns, n_fft, tw);
-  for (; ns < p / sevens; ns *= 5) fft_stage<5, false>(buf, total, p, ns, n_fft, tw);
-  if constexpr (kSeven)
-    for (; ns < p; ns *= 7) fft_stage<7, false>(buf, total, p, ns, n_fft, tw);
+  for (; ns < p / (sevens * elevens); ns *= 5) fft_stage<5, false>(buf, total, p, ns, n_fft, tw);
+  for (; ns < p / elevens; ns *= 7) fft_stage<7, false>(buf, total, p, ns, n_fft, tw);
+  if constexpr (kRadix == 11)
+    for (; ns < p; ns *= 11) fft_stage<11, false>(buf, total, p, ns, n_fft, tw);
 }
 
-// The FFT of each row of p = 2^a 3^b 5^c 7^d points in buf (rows x p <=
+// The FFT of each row of p = 2^a 3^b 5^c 7^d 11^e points in buf (rows x p <=
 // kFftPoints), in natural order, in place; w = e^{-2 pi i / n_fft} from
 // the table. The stages (ops/frontend_kernel.py::_fft_radices): for a
 // power of two, one of radix 2 when log2 p is odd, then radix 4; else
@@ -1901,17 +1974,21 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
 // multiplies there, in the same kernel as the mixed stages, the registers
 // crowd and launch C's power-of-two plans lose time
 // (tools/contrast_probe.py's "DivBy for a power of two" variant; PERF.md).
-// The radix-7 stages: launch A keeps them in its kSeven instance, which
-// its launcher takes for an n_fft with a factor of 7, so that its other
-// instance compiles as before them (with them, its 2, 3 and 5 plans lost
-// 0.3-1.0%); launch C compiles them into its one kernel, which so built
-// ran its 2, 3 and 5 plans as fast or up to 2.4% faster, its spills moved
-// (tools/spectral_probe.py, tools/contrast_probe.py, in turns; PERF.md).
-template <bool kSeven>
+// The instances, by the numbers (tools/spectral_probe.py,
+// tools/contrast_probe.py, in turns with the earlier sources; PERF.md):
+// launch A runs every n_fft through one instance of radix 11 (with radix 7
+// in one instance its 2, 3 and 5 plans had lost 0.3-1.0%; with radix 11
+// and its odd rows they ran as fast as in their own instances, within 1%
+// either way); launch C keeps its instance of radix 7 for every n_fft
+// without a factor of 11 (radix 7 compiled in ran its 2, 3 and 5 plans as
+// fast or up to 2.4% faster, its spills moved), and takes its instance of
+// radix 11 for a factor of 11 (through it, n_fft 3000 lost 5-7% in two
+// runs, 2000 0-8%).
+template <int kRadix>
 __device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft, const float2* tw) {
   const int total = rows * p;
   if (p & (p - 1)) {
-    fft_rows_mixed<kSeven>(buf, total, p, n_fft, tw);
+    fft_rows_mixed<kRadix>(buf, total, p, n_fft, tw);
     return;
   }
   int ns = 1;
@@ -1993,9 +2070,9 @@ __device__ __forceinline__ void stage_flat(float* span, const WaveSrc& src, int 
 // and its frames [t0, t0 + frames) from t0 = (i % groups) * frames (LayoutF's
 // frames); window (n_fft) the padded win_length Hann; twiddles (n_fft / 2 +
 // 1 float2); fb_w the filters' nonzero weights, mel by mel, and fb_ranges
-// (n_mels x 3) per mel its first bin, bins and offset in fb_w. kSeven: the
-// instance with radix-7 stages (fft_rows).
-template <bool kSeven>
+// (n_mels x 3) per mel its first bin, bins and offset in fb_w. One
+// instance for every n_fft: its stages of radix 2 to 11 (fft_rows), and on
+// an odd n_fft two frames a row of n_fft points.
 __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
     const float* __restrict__ window, const float2* __restrict__ twiddles, int n_used,
@@ -2008,6 +2085,8 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   float* span = base + lay.span;
   float2* tw = reinterpret_cast<float2*>(base + lay.tw);
   const int F = lay.frames, m = n_fft / 2, half = n_fft / 2;
+  const bool pairs = n_fft % 2;  // two frames a row (F is even)
+  const int points = pairs ? n_fft : m;
   const int groups = (n_frames + F - 1) / F;
   const int b = blockIdx.x / groups, t0 = blockIdx.x % groups * F, frames = min(F, n_frames - t0);
   const int tid = threadIdx.x;
@@ -2025,21 +2104,36 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   stage_flat(span, src, (F - 1) * hop + n_fft);
   __syncthreads();
 
-  // 2. Each windowed frame's n_fft reals as m complex points.
-  const DivBy by_m(m);
-  for (int e = tid; e < F * m; e += kThreadsA) {
-    const int f = by_m(e), n = 2 * (e - f * m);
-    const float* x = span + f * hop + n;
-    buf[e] = make_float2(x[0] * __ldg(window + n), x[1] * __ldg(window + n + 1));
+  // 2. Each windowed frame's n_fft reals as m complex points; on an odd
+  // n_fft, frames 2j and 2j + 1 of the group as the real and imaginary
+  // parts of row j's n_fft points, zeros for a frame past the clip's last.
+  if (pairs) {
+    const DivBy by_n(n_fft);
+    for (int e = tid; e < lay.rows * n_fft; e += kThreadsA) {
+      const int j = by_n(e), n = e - j * n_fft;
+      const float* x = span + 2 * j * hop + n;
+      const float wn = __ldg(window + n);
+      buf[e] = make_float2(2 * j < frames ? x[0] * wn : 0.0f, 2 * j + 1 < frames ? x[hop] * wn : 0.0f);
+    }
+  } else {
+    const DivBy by_m(m);
+    for (int e = tid; e < F * m; e += kThreadsA) {
+      const int f = by_m(e), n = 2 * (e - f * m);
+      const float* x = span + f * hop + n;
+      buf[e] = make_float2(x[0] * __ldg(window + n), x[1] * __ldg(window + n + 1));
+    }
   }
   __syncthreads();
 
-  // 3. The FFT of each frame's m points.
-  fft_rows<kSeven>(buf, F, m, n_fft, tw);
+  // 3. The FFT of each row's points.
+  fft_rows<11>(buf, pairs ? lay.rows : F, points, n_fft, tw);
 
   // 4. The real FFT's bins [0, n_used), their power in registers, then in
   // place of the points: F rows of an odd stride, so that the mel's reads
-  // of consecutive frames fall in distinct banks.
+  // of consecutive frames fall in distinct banks. On an odd n_fft, frame
+  // 2j's bin k is (Z[k] + conj Z[n - k]) / 2 and frame 2j + 1's (Z[k] -
+  // conj Z[n - k]) / 2i of row j, whose power is that of (Z[k].y + Z[n -
+  // k].y, Z[k].x - Z[n - k].x) / 2.
   const int stride = n_used | 1;
   float pw[kPostItems];
 #pragma unroll
@@ -2047,11 +2141,20 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
     const int e = tid + it * kThreadsA;
     if (e < F * n_used) {
       const int f = e / n_used, k = e - f * n_used;
-      const float2 a = buf[f * m + (k == m ? 0 : k)], c = buf[f * m + (k == 0 ? 0 : m - k)];  // Z[k], Z[m - k] mod m
-      const float2 ev = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
-      const float2 d = make_float2(0.5f * (a.x - c.x), 0.5f * (a.y + c.y));
-      const float2 od = cmul(tw[k], make_float2(d.y, -d.x));  // w^k (-i d)
-      const float re = ev.x + od.x, im = ev.y + od.y;
+      float re, im;
+      if (pairs) {
+        const float2* z = buf + (f >> 1) * n_fft;
+        const float2 a = z[k], c = z[k == 0 ? 0 : n_fft - k];  // Z[k], Z[n - k] mod n
+        re = 0.5f * (f & 1 ? a.y + c.y : a.x + c.x);
+        im = 0.5f * (f & 1 ? a.x - c.x : a.y - c.y);
+      } else {
+        const float2 a = buf[f * m + (k == m ? 0 : k)], c = buf[f * m + (k == 0 ? 0 : m - k)];  // Z[k], Z[m - k] mod m
+        const float2 ev = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+        const float2 d = make_float2(0.5f * (a.x - c.x), 0.5f * (a.y + c.y));
+        const float2 od = cmul(tw[k], make_float2(d.y, -d.x));  // w^k (-i d)
+        re = ev.x + od.x;
+        im = ev.y + od.y;
+      }
       pw[it] = re * re + im * im;
     }
   }
@@ -2085,7 +2188,9 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
 // groups of LayoutF's frames; windows (2 x n_fft): the padded win_length
 // Hann (the bands' power), then the n_fft Hann (the centroid's magnitude);
 // twiddles (n_fft / 2 + 1 float2); the power rows cover bins [pow_lo, pow_lo
-// + n_pow); freqs, bands and out as contrast_kernel's.
+// + n_pow); freqs, bands and out as contrast_kernel's. kRadix: the
+// instance's largest odd radix (fft_rows).
+template <int kRadix>
 __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
     const float* __restrict__ windows, const float2* __restrict__ twiddles, int pow_lo, int n_pow,
@@ -2128,7 +2233,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     __syncthreads();
 
     // 2. The FFT of each frame's n_fft points.
-    fft_rows<true>(buf, F, n_fft, n_fft, tw);
+    fft_rows<kRadix>(buf, F, n_fft, n_fft, tw);
 
     // 3. The two spectra: the power rows over the bands' bins, the
     // magnitude into the frame's sums; tpf threads a frame.
@@ -2263,10 +2368,10 @@ int cdt_frontend_spectral_fft(
     const float* window, const float* twiddles, int n_used, const float* fb_w, const int* fb_ranges,
     int n_mels, int use_pre, float pre_coef, float* mel, cudaStream_t stream) {
   const LayoutF lay(n_fft, hop);
-  if (!fft_nfft(n_fft, n_fft / 2) || hop < 1 || n_used < 1 || n_used > n_fft / 2 + 1 ||
+  if (!fft_nfft(n_fft, fft_points_a(n_fft)) || hop < 1 || n_used < 1 || n_used > n_fft / 2 + 1 ||
       lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const void* fn = n_fft % 7 ? (const void*)spectral_fft_kernel<false> : (const void*)spectral_fft_kernel<true>;
+  const void* fn = (const void*)spectral_fft_kernel;
   const int err = set_smem(fn, lay.bytes());
   if (err) return err;
   const long long blocks = (long long)((n_frames + lay.frames - 1) / lay.frames) * batch;
@@ -2354,7 +2459,8 @@ int cdt_frontend_plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, i
 // Launch C, FFT plan (contrast_fft_kernel). wave (B, n_samples); windows
 // (2, n_fft); twiddles (n_fft / 2 + 1, 2) (ops/frontend_kernel.py's
 // _fft_constants); freqs (n_fft / 2 + 1); bands as cdt_frontend_contrast's;
-// out (B, n_bands + 1, n_frames). All contiguous, on one device.
+// out (B, n_bands + 1, n_frames). All contiguous, on one device. The
+// instance: radix 11 for a factor of 11, else radix 7.
 int cdt_frontend_contrast_fft(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
     const float* windows, const float* twiddles, int pow_lo, int n_pow, const float* freqs,
@@ -2363,7 +2469,7 @@ int cdt_frontend_contrast_fft(
   if (!fft_nfft(n_fft, n_fft) || hop < 1 || n_bands < 0 || n_pow < 0 || pow_lo < 0 ||
       pow_lo + n_pow > n_fft / 2 + 1 || lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)contrast_fft_kernel;
+  const void* fn = n_fft % 11 ? (const void*)contrast_fft_kernel<7> : (const void*)contrast_fft_kernel<11>;
   const int err = set_smem(fn, lay.bytes());
   if (err) return err;
   void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &windows, &twiddles, &pow_lo, &n_pow,

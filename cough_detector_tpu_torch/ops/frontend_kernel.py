@@ -39,10 +39,12 @@ waveform length other than segment_samples) raises ValueError instead of
 running the plain chain. Every config the JAX launcher sends to its Pallas
 kernel (`kernel_supports`) runs the launches on the card: each launch picks,
 from the config alone, a plan that fits the card's 227 KB of shared memory
-a block. Launches A and C compute their spectra by FFT for an even n_fft
-of prime factors 2, 3, 5 and 7 from 640 on (launch A also past 128 mels):
-the FFT plans (`spectral_plan`, `contrast_level` 4), Stockham stages of
-radix 2, 4, 3, 5 and 7. At any other n_fft launch A takes more than 128
+a block. Launches A and C compute their spectra by FFT for an n_fft of
+prime factors 2, 3, 5, 7 and 11, odd or even, from 640 on (launch A also
+past 128 mels): the FFT plans (`spectral_plan`, `contrast_level` 4),
+Stockham stages of radix 2, 4, 3, 5, 7 and 11 (on an odd n_fft launch A
+runs two frames through one FFT). At any other n_fft (a prime factor of
+13 or more) launch A takes more than 128
 mels in groups of at most 128, each its own blocks (`mel_groups`), and
 gathers its frames from device memory where a
 128-frame tile's waveform span passes shared memory (`spectral_staged`);
@@ -155,34 +157,49 @@ def spectral_staged(hop: int, kpad: int) -> bool:
     return _ring_bytes(_span_floats(hop, kpad)) <= _MAX_SMEM
 
 
-def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: bool = False) -> tuple:
+def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: bool = False,
+                per_row: int = 1) -> tuple:
     """(frames, bytes): csrc/frontend_kernel.cu's LayoutF. In floats: the
-    points (2 each, frames x points a frame), the frames' waveform span,
-    the twiddles (n_fft + 2); for the contrast launch the group's power
-    rows (frames x n_pow) and the reduction slots (its contrast rows go to
-    the output). `frames` halves from the most a block takes until the
-    layout fits; the contrast launch's most is rounded down to a power of
-    two (its threads split evenly over the frames)."""
+    points (2 each, rows x points a row), the frames' waveform span, the
+    twiddles (n_fft + 2); for the contrast launch the group's power rows
+    (frames x n_pow) and the reduction slots (its contrast rows go to the
+    output). A row holds `per_row` frames: one, or two for launch A on an
+    odd n_fft (`_spectral_layout`). `rows` halves from the most a block
+    takes until the layout fits; the contrast launch's most is rounded
+    down to a power of two (its threads split evenly over the frames)."""
     def up4(n):
         return (n + 3) // 4 * 4
 
-    frames = min(_FFT_POINTS // points, _FFT_MAX_FRAMES)
-    if contrast and frames:
-        frames = 1 << (frames.bit_length() - 1)
+    rows = min(_FFT_POINTS // points, _FFT_MAX_FRAMES // per_row)
+    if contrast and rows:
+        rows = 1 << (rows.bit_length() - 1)
     while True:
-        end = 2 * frames * points + up4((frames - 1) * hop + n_fft) + n_fft + 2
+        frames = rows * per_row
+        end = 2 * rows * points + up4((frames - 1) * hop + n_fft) + n_fft + 2
         if contrast:
             end += up4(frames * n_pow) + _RED_C
-        if frames <= 1 or 4 * end <= _MAX_SMEM:
+        if rows <= 1 or 4 * end <= _MAX_SMEM:
             return frames, 4 * end
-        frames //= 2
+        rows //= 2
 
 
-def _factors2357(n: int) -> tuple:
-    """(a, b, c, d, rest): n = 2^a 3^b 5^c 7^d rest, rest free of 2, 3, 5
-    and 7."""
+def _spectral_points(n_fft: int) -> int:
+    """Launch A's complex points a row of its FFT (fft_points_a): n_fft / 2
+    for an even n_fft (a frame's reals packed as complex), n_fft for an odd
+    one (two frames a row, the real and imaginary parts)."""
+    return n_fft if n_fft % 2 else n_fft // 2
+
+
+def _spectral_layout(n_fft: int, hop: int) -> tuple:
+    """(frames, bytes) of launch A's FFT plan (LayoutF(n_fft, hop))."""
+    return _fft_layout(_spectral_points(n_fft), n_fft, hop, per_row=1 + n_fft % 2)
+
+
+def _radix_factors(n: int) -> tuple:
+    """(a, b, c, d, e, rest): n = 2^a 3^b 5^c 7^d 11^e rest, rest free of
+    the primes the FFT plans' stages take (2, 3, 5, 7 and 11)."""
     counts = []
-    for f in (2, 3, 5, 7):
+    for f in (2, 3, 5, 7, 11):
         counts.append(0)
         while n % f == 0:
             n //= f
@@ -191,30 +208,31 @@ def _factors2357(n: int) -> tuple:
 
 
 def _fft_nfft(n_fft: int, points: int) -> bool:
-    """Whether an n_fft takes an FFT plan at all (fft_nfft): an even n_fft
-    from 64 of prime factors 2, 3, 5 and 7, whose frame of `points` complex
-    points fits a block."""
-    return n_fft >= 64 and n_fft % 2 == 0 and _factors2357(n_fft)[4] == 1 and points <= _FFT_POINTS
+    """Whether an n_fft takes an FFT plan at all (fft_nfft): an n_fft from
+    64 of prime factors 2, 3, 5, 7 and 11, odd or even, whose row of
+    `points` complex points fits a block."""
+    return n_fft >= 64 and _radix_factors(n_fft)[-1] == 1 and points <= _FFT_POINTS
 
 
 def spectral_plan(cfg: FeatureConfig) -> int:
-    """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for an even
-    7-smooth n_fft, of prime factors 2, 3, 5 and 7 (`_fft_nfft`), from 640
-    on, or past 128 mels, where its layout fits; else the GEMM,
-    PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED (`spectral_staged`). The shipped
-    config (n_fft 512, 64 mels), and an odd n_fft or one with a prime
-    factor of 11 or more, take the GEMM."""
+    """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for an
+    11-smooth n_fft, of prime factors 2, 3, 5, 7 and 11, odd or even
+    (`_fft_nfft`), from 640 on, or past 128 mels, where its layout fits;
+    else the GEMM, PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED
+    (`spectral_staged`). The shipped config (n_fft 512, 64 mels), and an
+    n_fft with a prime factor of 13 or more, take the GEMM."""
     n_fft, hop = cfg.n_fft, cfg.hop_length
-    if (_fft_nfft(n_fft, n_fft // 2) and (n_fft >= _FFT_MIN_NFFT or cfg.n_mels > 128)
-            and _fft_layout(n_fft // 2, n_fft, hop)[1] <= _MAX_SMEM):
+    if (_fft_nfft(n_fft, _spectral_points(n_fft)) and (n_fft >= _FFT_MIN_NFFT or cfg.n_mels > 128)
+            and _spectral_layout(n_fft, hop)[1] <= _MAX_SMEM):
         return PLAN_FFT
     return PLAN_GEMM_STAGED if spectral_staged(hop, _support(cfg)[2]) else PLAN_GEMM_UNSTAGED
 
 
 def spectral_fft_frames(cfg: FeatureConfig) -> int:
-    """Frames a block of launch A's FFT plan takes (LayoutF's frames); its
-    grid is batch x ceil(num_frames / frames) blocks."""
-    return _fft_layout(cfg.n_fft // 2, cfg.n_fft, cfg.hop_length)[0]
+    """Frames a block of launch A's FFT plan takes (LayoutF's frames, even
+    on an odd n_fft); its grid is batch x ceil(num_frames / frames)
+    blocks."""
+    return _spectral_layout(cfg.n_fft, cfg.hop_length)[0]
 
 
 def spectral_smem_bytes(cfg: FeatureConfig) -> int:
@@ -223,7 +241,7 @@ def spectral_smem_bytes(cfg: FeatureConfig) -> int:
     smallest ring."""
     plan = spectral_plan(cfg)
     if plan == PLAN_FFT:
-        return _fft_layout(cfg.n_fft // 2, cfg.n_fft, cfg.hop_length)[1]
+        return _spectral_layout(cfg.n_fft, cfg.hop_length)[1]
     kpad = _support(cfg)[2]
     return _ring_bytes(_span_floats(cfg.hop_length, kpad) if plan == PLAN_GEMM_STAGED else 0)
 
@@ -370,7 +388,7 @@ def _tiles(m: np.ndarray) -> torch.Tensor:
     return torch.stack([hi, lo], dim=1).reshape(k // 8, 16 * n)
 
 
-@functools.lru_cache(maxsize=32)  # chip_smoke.py's every-config checks, then timings, run 30 configs
+@functools.lru_cache(maxsize=48)  # chip_smoke.py's every-config checks, then timings, run 37 configs
 def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     """Band-limited tables: bins past the filterbank's last nonzero row feed
     no mel band, so the DFT stops there (128 of 257 bins at f_max=4 kHz).
@@ -487,8 +505,9 @@ def power_mel_split_reference(
 @functools.lru_cache(maxsize=16)
 def _twiddles(n_fft: int) -> np.ndarray:
     """(n_fft // 2 + 1, 2) float32: e^{-2 pi i k / n_fft} for k in [0, n_fft
-    / 2] as (cos, -sin), computed in float64 and rounded once. The FFT
-    plans read entry k - n_fft / 2, negated, for k past n_fft / 2."""
+    // 2] as (cos, -sin), computed in float64 and rounded once. The FFT
+    plans read the conjugate of entry n_fft - k for k past n_fft / 2, for
+    an odd n_fft as for an even one."""
     ang = 2.0 * np.pi * np.arange(n_fft // 2 + 1, dtype=np.float64) / n_fft
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
 
@@ -535,18 +554,19 @@ def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
 
 
 def _fft_radices(points: int) -> list:
-    """The FFT plans' Stockham stages for points = 2^a 3^b 5^c 7^d
+    """The FFT plans' Stockham stages for points = 2^a 3^b 5^c 7^d 11^e
     (fft_rows): one of radix 2 first when a is odd, then radix 4, then the
-    3s, the 5s and the 7s."""
-    twos, threes, fives, sevens, rest = _factors2357(points)
+    3s, the 5s, the 7s and the 11s."""
+    twos, threes, fives, sevens, elevens, rest = _radix_factors(points)
     if rest != 1:
-        raise ValueError("the FFT plans take only points of prime factors 2, 3, 5 and 7")
-    return [2] * (twos % 2) + [4] * (twos // 2) + [3] * threes + [5] * fives + [7] * sevens
+        raise ValueError("the FFT plans take only points of prime factors 2, 3, 5, 7 and 11")
+    return [2] * (twos % 2) + [4] * (twos // 2) + [3] * threes + [5] * fives + [7] * sevens + [11] * elevens
 
 
-# The radix-3, radix-5 and radix-7 butterflies' constants, as the kernel
-# rounds them (float64 values to float32 once): sin(2 pi / 3); cos and sin
-# of 2 pi / 5 and 4 pi / 5; of 2 pi / 7, 4 pi / 7 and 6 pi / 7.
+# The radix-3, radix-5, radix-7 and radix-11 butterflies' constants, as the
+# kernel rounds them (float64 values to float32 once): sin(2 pi / 3); cos
+# and sin of 2 pi / 5 and 4 pi / 5; of 2 pi / 7, 4 pi / 7 and 6 pi / 7; of
+# 2 pi j / 11 for j in 1-5 (_COS11[j - 1], _SIN11[j - 1]).
 _SIN3, _COS5A, _SIN5A, _COS5B, _SIN5B = (float(np.float32(v)) for v in (
     0.86602540378443865, 0.30901699437494742, 0.95105651629515357, -0.80901699437494742, 0.58778525229247314,
 ))
@@ -554,12 +574,45 @@ _COS7A, _SIN7A, _COS7B, _SIN7B, _COS7C, _SIN7C = (float(np.float32(v)) for v in 
     0.62348980185873359, 0.78183148246802980, -0.22252093395631434, 0.97492791218182362, -0.90096886790241903,
     0.43388373911755823,
 ))
+_COS11 = tuple(float(np.float32(v)) for v in (
+    0.84125353283118121, 0.41541501300188644, -0.142314838273285, -0.65486073394528499, -0.95949297361449737,
+))
+_SIN11 = tuple(float(np.float32(v)) for v in (
+    0.54064081745559756, 0.90963199535451833, 0.9898214418809328, 0.75574957435425827, 0.28173255684142967,
+))
+
+
+def _cos_sin11(j: int) -> tuple:
+    """cos and sin of 2 pi j / 11 for j in [1, 11), from _COS11 and _SIN11
+    (the kernel's cos11 and sin11)."""
+    if j <= 5:
+        return _COS11[j - 1], _SIN11[j - 1]
+    return _COS11[10 - j], -_SIN11[10 - j]
 
 
 def _dft_points(vr: list, vi: list) -> tuple:
-    """The kernel's R-point DFT (dft_points, R = len(vr): 2, 3, 4, 5 or 7)
-    of the points (vr[r], vi[r]), with its order of operations."""
+    """The kernel's R-point DFT (dft_points, R = len(vr): 2, 3, 4, 5, 7 or
+    11) of the points (vr[r], vi[r]), with its order of operations."""
     r = len(vr)
+    if r == 11:  # pairs a = v_r + v_{11-r}, b = v_r - v_{11-r}; outputs k and 11 - k are m_k -+ i n_k
+        ar = [vr[j] + vr[11 - j] for j in range(1, 6)]
+        ai = [vi[j] + vi[11 - j] for j in range(1, 6)]
+        br = [vr[j] - vr[11 - j] for j in range(1, 6)]
+        bi = [vi[j] - vi[11 - j] for j in range(1, 6)]
+        yr, yi = [None] * 11, [None] * 11
+        for k in range(1, 6):
+            mr, mi = vr[0], vi[0]
+            s = _cos_sin11(k)[1]
+            nr, ni = s * br[0], s * bi[0]
+            for j in range(1, 6):
+                c, s = _cos_sin11(j * k % 11)
+                mr, mi = mr + c * ar[j - 1], mi + c * ai[j - 1]
+                if j > 1:
+                    nr, ni = nr + s * br[j - 1], ni + s * bi[j - 1]
+            yr[k], yi[k] = mr + ni, mi - nr
+            yr[11 - k], yi[11 - k] = mr - ni, mi + nr
+        yr[0], yi[0] = vr[0] + ar[0] + ar[1] + ar[2] + ar[3] + ar[4], vi[0] + ai[0] + ai[1] + ai[2] + ai[3] + ai[4]
+        return yr, yi
     if r == 2:
         return [vr[0] + vr[1], vr[0] - vr[1]], [vi[0] + vi[1], vi[0] - vi[1]]
     if r == 3:
@@ -604,13 +657,13 @@ def _dft_points(vr: list, vi: list) -> tuple:
 
 
 def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) -> tuple:
-    """The FFT plans' FFT along the last axis (2^a 3^b 5^c 7^d points) in
-    float32, as csrc/frontend_kernel.cu's fft_rows runs it: stage by stage
-    (`_fft_radices`), butterfly j reads points j + r p / R, multiplies
-    point r > 0 by the table's entry r (j mod ns) n_fft / (ns R) (k past
-    n_fft / 2: entry k - n_fft / 2, negated), takes the R-point DFT
-    (`_dft_points`) and writes output r to (j - j mod ns) R + j mod ns + r
-    ns."""
+    """The FFT plans' FFT along the last axis (2^a 3^b 5^c 7^d 11^e points)
+    in float32, as csrc/frontend_kernel.cu's fft_rows runs it: stage by
+    stage (`_fft_radices`), butterfly j reads points j + r p / R,
+    multiplies point r > 0 by the table's entry r (j mod ns) n_fft / (ns R)
+    (k past n_fft / 2: the conjugate of entry n_fft - k), takes the R-point
+    DFT (`_dft_points`) and writes output r to (j - j mod ns) R + j mod ns
+    + r ns."""
     p = re.shape[-1]
     half = n_fft // 2
     ns = 1
@@ -623,9 +676,8 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) 
         for i in range(1, r):
             idx = i * k * (n_fft // (ns * r))
             low = idx <= half
-            t = tw[torch.where(low, idx, idx - half)]
-            sign = torch.where(low, 1.0, -1.0).to(tw.dtype)
-            wr, wi = t[:, 0] * sign, t[:, 1] * sign
+            t = tw[torch.where(low, idx, n_fft - idx)]
+            wr, wi = t[:, 0], torch.where(low, t[:, 1], -t[:, 1])
             vr[i], vi[i] = vr[i] * wr - vi[i] * wi, vr[i] * wi + vi[i] * wr
         yr, yi = _dft_points(vr, vi)
         dst = torch.stack([(j - k) * r + k + i * ns for i in range(r)])  # (r, q)
@@ -640,31 +692,47 @@ def power_mel_fft_reference(
     waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
 ) -> torch.Tensor:
     """Launch A's FFT plan's arithmetic in plain torch ops: (B,
-    segment_samples) → power mel (B, n_mels, num_frames). Each windowed
-    frame's n_fft reals packed as n_fft / 2 complex points (even samples
-    real, odd imaginary), the plan's Stockham stages and twiddle table
-    (`_stockham`), the real FFT's post-twiddle for bins [0, n_used), their
-    power, then the mel from the packed filters. The kernel may fuse a
-    multiply and an add where this model rounds both, and it adds each
-    mel's products in bin order: differences far below the 1e-3 budget.
-    For any config (the kernel takes it where spectral_plan says so); for
-    tests and chip_smoke.py, nothing on the main path calls it."""
+    segment_samples) → power mel (B, n_mels, num_frames). On an even n_fft
+    each windowed frame's n_fft reals packed as n_fft / 2 complex points
+    (even samples real, odd imaginary), the plan's Stockham stages and
+    twiddle table (`_stockham`), the real FFT's post-twiddle for bins [0,
+    n_used); on an odd n_fft frames 2j and 2j + 1 as the real and
+    imaginary parts of one FFT of n_fft points (a lone last frame with
+    zeros), split by conjugate symmetry. Then their power, and the mel from
+    the packed filters. The kernel may fuse a multiply and an add where
+    this model rounds both, and it adds each mel's products in bin order:
+    differences far below the 1e-3 budget. For any config (the kernel takes
+    it where spectral_plan says so); for tests and chip_smoke.py, nothing
+    on the main path calls it."""
     _check_config(cfg, waves.shape[-1])
     k = _fft_constants(cfg, waves.device)
     x = _frames(waves, cfg) * k.window
-    re, im = _stockham(x[..., 0::2], x[..., 1::2], k.twiddles, cfg.n_fft)
-    m = cfg.n_fft // 2
+    n_fft = cfg.n_fft
     bins = torch.arange(k.n_used, device=waves.device)
-    a, c = bins % m, (m - bins) % m
-    er, ei = 0.5 * (re[..., a] + re[..., c]), 0.5 * (im[..., a] - im[..., c])
-    dr, di = 0.5 * (re[..., a] - re[..., c]), 0.5 * (im[..., a] + im[..., c])
-    wr, wi = k.twiddles[: k.n_used, 0], k.twiddles[: k.n_used, 1]
-    xr = er + (wr * di - wi * -dr)  # w^k (-i d): -i d = (d_im, -d_re)
-    xi = ei + (wr * -dr + wi * di)
+    if n_fft % 2:
+        t = x.shape[1]
+        x = F.pad(x, (0, 0, 0, t % 2))  # an odd count's last frame pairs with zeros
+        re, im = _stockham(x[:, 0::2], x[:, 1::2], k.twiddles, n_fft)
+        c = (n_fft - bins) % n_fft
+        ar, ai, cr, ci = re[..., bins], im[..., bins], re[..., c], im[..., c]
+        er, ei = 0.5 * (ar + cr), 0.5 * (ai - ci)  # (Z[k] + conj Z[n - k]) / 2
+        odr, odi = 0.5 * (ai + ci), 0.5 * (ar - cr)  # (Z[k] - conj Z[n - k]) / 2i, up to the sign of its im
+        power = torch.stack([er * er + ei * ei, odr * odr + odi * odi], dim=2)
+        power = power.reshape(x.shape[0], -1, k.n_used)[:, :t]
+    else:
+        re, im = _stockham(x[..., 0::2], x[..., 1::2], k.twiddles, n_fft)
+        m = n_fft // 2
+        a, c = bins % m, (m - bins) % m
+        er, ei = 0.5 * (re[..., a] + re[..., c]), 0.5 * (im[..., a] - im[..., c])
+        dr, di = 0.5 * (re[..., a] - re[..., c]), 0.5 * (im[..., a] + im[..., c])
+        wr, wi = k.twiddles[: k.n_used, 0], k.twiddles[: k.n_used, 1]
+        xr = er + (wr * di - wi * -dr)  # w^k (-i d): -i d = (d_im, -d_re)
+        xi = ei + (wr * -dr + wi * di)
+        power = xr * xr + xi * xi
     fb = torch.zeros((k.n_used, cfg.n_mels), dtype=torch.float32, device=waves.device)
     for mel, (lo, n, off) in enumerate(k.fb_ranges.tolist()):
         fb[lo : lo + n, mel] = k.fb_w[off : off + n]
-    return ((xr * xr + xi * xi) @ fb).transpose(1, 2)
+    return (power @ fb).transpose(1, 2)
 
 
 @functools.lru_cache(maxsize=16)
@@ -868,9 +936,9 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
 
 
 def _contrast_plan(cfg: FeatureConfig) -> tuple:
-    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an even
-    7-smooth n_fft, of prime factors 2, 3, 5 and 7 (`_fft_nfft`), from 640
-    on, CONTRAST_FFT where LayoutF fits; else the GEMM's
+    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an 11-smooth
+    n_fft, of prime factors 2, 3, 5, 7 and 11, odd or even (`_fft_nfft`),
+    from 640 on, CONTRAST_FFT where LayoutF fits; else the GEMM's
     (`_contrast_gemm_plan`)."""
     n_fft = cfg.n_fft
     if _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT:
@@ -901,9 +969,10 @@ def _contrast_gemm_plan(cfg: FeatureConfig) -> tuple:
 
 
 def contrast_level(cfg: FeatureConfig) -> int:
-    """The contrast launch's plan (cdt_frontend_plan_c): LayoutC's level,
-    how much of the GEMM plan moves from shared memory to device memory, or
-    CONTRAST_FFT (see _contrast_plan)."""
+    """The contrast launch's plan (cdt_frontend_plan_c): CONTRAST_FFT for an
+    11-smooth n_fft, odd or even, from 640 on where its layout fits; else
+    LayoutC's level, how much of the GEMM plan moves from shared memory to
+    device memory (see _contrast_plan)."""
     return _contrast_plan(cfg)[0]
 
 
@@ -1021,7 +1090,8 @@ def spectral_contrast_fft_reference(
     segment_samples) → (B, n_contrast_bands + 1, num_frames). Both windows
     of each frame through one complex FFT of n_fft points, z = w_win x + i
     w_nfft x, by the plan's Stockham stages and twiddle table
-    (`_stockham`); the two real spectra split by conjugate symmetry,
+    (`_stockham`); the two real spectra split by conjugate symmetry (for an
+    odd n_fft as for an even one),
     (Z[k] + conj Z[n - k]) / 2 the power's and |Z[k] - conj Z[n - k]| / 2
     the magnitude; the tails by stable rank, an exact selection as the
     kernel's sort is (the sums' order differs). For tests and

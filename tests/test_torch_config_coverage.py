@@ -4,8 +4,8 @@ card route, on the CPU.
 The JAX launcher (cough_detector_tpu/ops/pallas/frontend_kernel.py) runs
 its kernel for every config with MFCCs at segment length, and appends the
 contrast rows for a contrast config. The port's three launches take the
-same set: more than 128 mels and an even n_fft of prime factors 2, 3, 5
-and 7 from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
+same set: more than 128 mels and an n_fft of prime factors 2, 3, 5, 7 and
+11, odd or even, from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
 shared memory with the waveform gathered from device memory, clips past 4 s over
 a thread-block cluster (or in device memory past 16 blocks), a hop of 4,
 and any contrast bands.
@@ -55,11 +55,15 @@ CONFIGS = {
 # FFT plans at n_fft 4096, 2000, 3000 (radix-3 and radix-5 stages) and 768
 # at 256 mels, and at n_fft 1792, 2744 and 896 at 256 mels (radix-7
 # stages), 1764 with contrast and 882 at 44.1 kHz (a 40 and a 20 ms window
-# at a 10 ms hop; 441 points, odd, a frame of launch A); since the FFT plans
-# took every even 7-smooth n_fft, the GEMM plans' span from device memory
-# (launch A unstaged, the contrast launch's levels 1 and 3) and launch A's
-# GEMM plan over two mel groups, reached by an n_fft with a factor of 11,
-# and launch A's GEMM on an odd n_fft (30 ms at 44.1 kHz); two 10 s clips for launch B's
+# at a 10 ms hop; 441 points, odd, a frame of launch A); at n_fft 1760 and
+# 2662 with contrast and 880 at 256 mels (radix-11 stages), and on an odd
+# n_fft, launch A two frames a row: 30 ms at 44.1 kHz with and without
+# contrast (1323), 50 ms with contrast (2205) and n_fft 1125 (57 frames, a
+# lone last one); since the FFT plans took every 11-smooth n_fft, the GEMM
+# plans' span from device memory (launch A unstaged, the contrast launch's
+# levels 1 and 3) and launch A's GEMM plan over two mel groups, reached by
+# an n_fft with a factor of 13 (1664, 2704, 832 at 256 mels), and launch
+# A's GEMM on an odd n_fft (1365 at 44.1 kHz); two 10 s clips for launch B's
 # cluster route's other branches (PCEN with delta-deltas and its 32-MFCC
 # DCT; 36 MFCCs of 40 mels, the MFCC and delta tiles after the mel tile);
 # and a 120 s clip, past a cluster of 16: launch B in device memory.
@@ -80,6 +84,13 @@ EXTRA = {
     "sr44k_nfft1764_contrast": dict(SR44K, n_fft=1764, win_length=1764, **CONTRAST),
     "sr44k_nfft882": dict(SR44K, n_fft=882, win_length=882),
     "sr44k_nfft1323": dict(SR44K, n_fft=1323, win_length=1323),
+    "sr44k_nfft1323_contrast": dict(SR44K, n_fft=1323, win_length=1323, **CONTRAST),
+    "sr44k_nfft2205_contrast": dict(SR44K, n_fft=2205, win_length=2205, **CONTRAST),
+    "nfft1125": dict(n_fft=1125, win_length=1125, hop_length=281, n_mels=128, f_max=8000.0),
+    "nfft1664_contrast": dict(n_fft=1664, win_length=1664, hop_length=416, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft2704_contrast": dict(n_fft=2704, win_length=2704, hop_length=676, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft832_mels256": dict(n_fft=832, win_length=832, hop_length=208, n_mels=256, f_max=8000.0),
+    "sr44k_nfft1365": dict(SR44K, n_fft=1365, win_length=1365),
     "clip10s_pcen_dd20": dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20),
     "clip10s_mels40_mfcc36_dd": dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
     "clip120s_128_pcen_dd": dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -113,12 +124,19 @@ PLANS_ON_CARD = {
     "nfft1792_contrast": (93192, 2, 26752, 1, 82536, 4),
     "nfft2744_contrast": (87816, 2, 20608, 1, 72584, 4),
     "nfft896_mels256": (86920, 2, 90240, 1, None, None),
-    "nfft1760_contrast": (32816, 0, 27264, 1, 204416, 1),
-    "nfft2662_contrast": (32816, 0, 21120, 1, 32880, 3),
-    "nfft880_mels256": (148976, 1, 91264, 1, None, None),
+    "nfft1760_contrast": (91528, 2, 27264, 1, 81080, 4),
+    "nfft2662_contrast": (98496, 2, 21120, 1, 70432, 4),
+    "nfft880_mels256": (85368, 2, 91264, 1, None, None),
     "sr44k_nfft1764_contrast": (91736, 2, 60032, 1, 81272, 4),
     "sr44k_nfft882": (100560, 2, 60032, 1, None, None),
-    "sr44k_nfft1323": (32816, 0, 59520, 1, None, None),
+    "sr44k_nfft1323": (93508, 2, 59520, 1, None, None),
+    "sr44k_nfft1323_contrast": (93508, 2, 59520, 1, 62452, 4),
+    "sr44k_nfft2205_contrast": (79396, 2, 59520, 1, 57996, 4),
+    "nfft1125": (86628, 2, 37504, 1, None, None),
+    "nfft1664_contrast": (32816, 0, 28288, 1, 196288, 1),
+    "nfft2704_contrast": (32816, 0, 20608, 1, 32880, 3),
+    "nfft832_mels256": (144752, 1, 95360, 1, None, None),
+    "sr44k_nfft1365": (32816, 0, 59520, 1, None, None),
     "clip10s_pcen_dd20": (118096, 1, 75488, 4, None, None),
     "clip10s_mels40_mfcc36_dd": (118096, 1, 76576, 7, None, None),
     "clip120s_128_pcen_dd": (118096, 1, 128, 0, None, None),
@@ -223,16 +241,30 @@ def test_num_frames_counts_the_framing(n_fft, hop):
     assert cfg.num_frames == JaxFeatureConfig(**kw).num_frames - short
 
 
-def test_odd_n_fft_matches_the_jax_chain():
-    """An odd n_fft (30 ms at 44.1 kHz, a 10 ms hop: 100 frames) through
-    the card route on the CPU against the JAX jnp chain at B = 2 (the JAX
-    Pallas kernel refuses an odd n_fft: its frames are a sample short)."""
-    cfg = _cfg("sr44k_nfft1323")
+@pytest.mark.parametrize("name, frames", [("sr44k_nfft1323", 100), ("sr44k_nfft1323_contrast", 100), ("nfft1125", 57)])
+def test_odd_n_fft_matches_the_jax_chain(name, frames):
+    """An odd n_fft (30 ms at 44.1 kHz, a 10 ms hop: 100 frames, with and
+    without contrast; n_fft 1125, 57 frames) against the JAX jnp chain at
+    B = 2 (the JAX Pallas kernel refuses an odd n_fft whose hop divides the
+    segment: its frames are a sample short): the card route on the CPU
+    (the launches' plain versions), and the whole feature image as the card
+    computes it there (launch A's FFT model, two frames through one FFT and
+    a lone last frame with zeros; launch B's plain version; the contrast
+    launch's FFT model)."""
+    cfg = _cfg(name)
+    base = dataclasses.replace(cfg, use_spectral_contrast=False)
+    assert frontend_kernel.spectral_plan(base) == frontend_kernel.PLAN_FFT
     w = _waves(cfg, 2, seed=19)
     got = frontend.extract_features_fast(w, cfg, device="cpu").numpy()
-    want = np.asarray(jax_frontend.extract_features(w, JaxFeatureConfig(**EXTRA["sr44k_nfft1323"])))
-    assert got.shape == want.shape == (2, cfg.num_features, cfg.num_frames) == (2, 154, 100)
+    t = torch.from_numpy(w)
+    card = frontend_kernel.mel_epilogue_reference(frontend_kernel.power_mel_fft_reference(t, base), base)
+    if cfg.use_spectral_contrast:
+        assert frontend_kernel.contrast_level(cfg) == frontend_kernel.CONTRAST_FFT
+        card = torch.cat([card, frontend_kernel.spectral_contrast_fft_reference(t, cfg)], dim=1)
+    want = np.asarray(jax_frontend.extract_features(w, JaxFeatureConfig(**EXTRA[name])))
+    assert got.shape == card.shape == want.shape == (2, cfg.num_features, frames)
     assert _rel(got, want) < TOL
+    assert _rel(card.numpy(), want) < TOL
 
 
 @pytest.mark.parametrize("n_mels, want", [

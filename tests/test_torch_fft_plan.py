@@ -64,13 +64,22 @@ COVERAGE = {
                           2, 4),
     "nfft896_mels256": (dict(n_fft=896, win_length=896, hop_length=224, n_mels=256, f_max=8000.0), 2, None),
     "nfft1760_contrast": (dict(n_fft=1760, win_length=1760, hop_length=440, n_mels=128, f_max=8000.0, **CONTRAST),
-                          0, 1),
+                          2, 4),
     "nfft2662_contrast": (dict(n_fft=2662, win_length=2662, hop_length=665, n_mels=128, f_max=8000.0, **CONTRAST),
-                          0, 3),
-    "nfft880_mels256": (dict(n_fft=880, win_length=880, hop_length=220, n_mels=256, f_max=8000.0), 1, None),
+                          2, 4),
+    "nfft880_mels256": (dict(n_fft=880, win_length=880, hop_length=220, n_mels=256, f_max=8000.0), 2, None),
     "sr44k_nfft1764_contrast": (dict(SR44K, n_fft=1764, win_length=1764, **CONTRAST), 2, 4),
     "sr44k_nfft882": (dict(SR44K, n_fft=882, win_length=882), 2, None),
-    "sr44k_nfft1323": (dict(SR44K, n_fft=1323, win_length=1323), 0, None),
+    "sr44k_nfft1323": (dict(SR44K, n_fft=1323, win_length=1323), 2, None),
+    "sr44k_nfft1323_contrast": (dict(SR44K, n_fft=1323, win_length=1323, **CONTRAST), 2, 4),
+    "sr44k_nfft2205_contrast": (dict(SR44K, n_fft=2205, win_length=2205, **CONTRAST), 2, 4),
+    "nfft1125": (dict(n_fft=1125, win_length=1125, hop_length=281, n_mels=128, f_max=8000.0), 2, None),
+    "nfft1664_contrast": (dict(n_fft=1664, win_length=1664, hop_length=416, n_mels=128, f_max=8000.0, **CONTRAST),
+                          0, 1),
+    "nfft2704_contrast": (dict(n_fft=2704, win_length=2704, hop_length=676, n_mels=128, f_max=8000.0, **CONTRAST),
+                          0, 3),
+    "nfft832_mels256": (dict(n_fft=832, win_length=832, hop_length=208, n_mels=256, f_max=8000.0), 1, None),
+    "sr44k_nfft1365": (dict(SR44K, n_fft=1365, win_length=1365), 0, None),
     "clip10s_pcen_dd20": (dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), 1, None),
     "clip10s_mels40_mfcc36_dd": (dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True), 1, None),
     "clip120s_128_pcen_dd": (dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -79,7 +88,8 @@ COVERAGE = {
     "shipped_contrast": (dict(CONTRAST), 1, 0),
 }
 JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
-             "nfft3000_contrast", "nfft768_mels256", "nfft1792_contrast", "nfft896_mels256", "sr44k_nfft1764_contrast")
+             "nfft3000_contrast", "nfft768_mels256", "nfft1792_contrast", "nfft896_mels256", "sr44k_nfft1764_contrast",
+             "nfft880_mels256", "nfft1760_contrast")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,10 +133,13 @@ def _frames64(w: np.ndarray, cfg: FeatureConfig, pre: bool) -> np.ndarray:
     ("nfft2048", False), ("librosa22k", False), ("mels256", False), ("nfft1024_contrast", True),
     ("nfft4096_contrast", False), ("nfft2000_contrast", False), ("nfft3000_contrast", True), ("nfft768_mels256", False),
     ("nfft896_mels256", False), ("sr44k_nfft882", True), ("sr44k_nfft1764_contrast", False),
+    ("nfft880_mels256", False), ("sr44k_nfft1323", True), ("nfft1125", False),
 ])
 def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     """Launch A's FFT plan's model against the float64 rfft power and mel
-    of the same windowed frames, and against the plain version."""
+    of the same windowed frames, and against the plain version: on an odd
+    n_fft two frames through one FFT, 57 frames at n_fft 1125 (its last
+    with zeros)."""
     cfg = dataclasses.replace(_cfg(name), use_spectral_contrast=False, use_pre_emphasis=pre)
     w = _waves(cfg, 2, seed=21)
     spec = np.fft.rfft(_frames64(w, cfg, pre) * filters.padded_window(cfg.win_length, cfg.n_fft), axis=-1)
@@ -141,7 +154,8 @@ def test_power_mel_fft_model_vs_float64_rfft(name, pre):
 
 @pytest.mark.parametrize("name", [
     "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast",
-    "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast",
+    "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast", "nfft1760_contrast", "nfft2662_contrast",
+    "sr44k_nfft1323_contrast", "sr44k_nfft2205_contrast",
 ])
 def test_contrast_fft_model_vs_float64_rfft(name):
     """The contrast launch's FFT plan's model (both windows through one
@@ -167,28 +181,38 @@ def test_contrast_fft_model_vs_float64_rfft(name):
     (64, 32), (512, 256), (1024, 1024), (2048, 1024), (4096, 4096), (4096, 2048), (2000, 1000), (2000, 2000),
     (3000, 1500), (3000, 3000), (768, 384), (768, 768), (1000, 500),
     (896, 448), (1792, 1792), (2744, 1372), (2744, 2744), (882, 441), (1764, 882), (1764, 1764),
+    (880, 440), (1760, 880), (1760, 1760), (2662, 1331), (2662, 2662), (1323, 1323), (2205, 2205), (1125, 1125),
 ])
 def test_stockham_stages_are_the_fft(n_fft, points):
-    """The plans' stages for points = 2^a 3^b 5^c 7^d (one of radix 2 when a
-    is odd, then radix 4, then the 3s, the 5s and the 7s) with the table of
-    w = e^{-2 pi i / n_fft} make the FFT of n_fft / 2 points (launch A; an
-    odd count, 441, at n_fft 882) and of n_fft points (launch C)."""
+    """The plans' stages for points = 2^a 3^b 5^c 7^d 11^e (one of radix 2
+    when a is odd, then radix 4, then the 3s, the 5s, the 7s and the 11s)
+    with the table of w = e^{-2 pi i / n_fft} make the FFT of n_fft / 2
+    points (launch A on an even n_fft; an odd count, 441, at n_fft 882) and
+    of n_fft points (launch C, and launch A on an odd n_fft). The table
+    holds w^k for k up to n_fft / 2; past it the stages read the conjugate
+    of entry n_fft - k, for an odd n_fft as for an even one."""
     rng = np.random.default_rng(points)
     z = rng.standard_normal((3, points)) + 1j * rng.standard_normal((3, points))
+    tw = frontend_kernel._twiddles(n_fft)
     re, im = frontend_kernel._stockham(
         torch.from_numpy(z.real.astype(np.float32)), torch.from_numpy(z.imag.astype(np.float32)),
-        torch.from_numpy(frontend_kernel._twiddles(n_fft)), n_fft,
+        torch.from_numpy(tw), n_fft,
     )
-    a, b, c, d = (next(e for e in range(14) if points % f ** (e + 1)) for f in (2, 3, 5, 7))
-    assert points == 2**a * 3**b * 5**c * 7**d
-    assert frontend_kernel._fft_radices(points) == [2] * (a % 2) + [4] * (a // 2) + [3] * b + [5] * c + [7] * d
+    a, b, c, d, e = (next(e for e in range(14) if points % f ** (e + 1)) for f in (2, 3, 5, 7, 11))
+    assert points == 2**a * 3**b * 5**c * 7**d * 11**e
+    assert frontend_kernel._fft_radices(points) == (
+        [2] * (a % 2) + [4] * (a // 2) + [3] * b + [5] * c + [7] * d + [11] * e
+    )
     assert _rel(re.numpy() + 1j * im.numpy(), np.fft.fft(z, axis=-1)) < 1e-6
+    k = np.arange(n_fft // 2 + 1, n_fft)  # the conjugate rule: w^k = conj w^(n_fft - k)
+    w = np.exp(-2j * np.pi * k / n_fft)
+    np.testing.assert_allclose(tw[n_fft - k, 0] - 1j * tw[n_fft - k, 1], w, rtol=0, atol=1e-7)
 
 
 def test_fft_radices_refuse_other_primes():
-    """A count of points with a prime factor of 11 or more has no stage
+    """A count of points with a prime factor of 13 or more has no stage
     list: the plan rule sends such an n_fft to the GEMM."""
-    for points in (11, 13, 880, 1001, 1331):
+    for points in (13, 17, 832, 1365, 2704):
         with pytest.raises(ValueError):
             frontend_kernel._fft_radices(points)
 
@@ -216,10 +240,10 @@ def test_feature_stack_through_the_fft_models_matches_jax(name):
 @pytest.mark.parametrize("name", list(COVERAGE))
 def test_plan_mirror(name):
     """Each coverage config's plans, from the config alone: the shipped
-    config and everything off an even 5-smooth n_fft from 640 (or past 128
-    mels for launch A) on the GEMM, the rest on the FFT; the FFT layouts
-    fit a block, two blocks an SM, and launch C's frames a block are a
-    power of two."""
+    config and everything off an 11-smooth n_fft from 640 (or past 128 mels
+    for launch A) on the GEMM, the rest on the FFT; the FFT layouts fit a
+    block, two blocks an SM, and launch C's frames a block are a power of
+    two."""
     cfg = _cfg(name)
     base = dataclasses.replace(cfg, use_spectral_contrast=False)
     plan_a, plan_c = COVERAGE[name][1:]
@@ -243,13 +267,13 @@ def test_plan_mirror(name):
 
 def test_shipped_config_keeps_its_gemm_plans():
     """The shipped config (n_fft 512, 64 mels) keeps its GEMM plans, staged,
-    and so does every n_fft with a prime factor of 11 or more, and every
-    odd one."""
+    and so does every n_fft with a prime factor of 13 or more, odd or
+    even."""
     shipped = FeatureConfig()
     assert frontend_kernel.spectral_plan(shipped) == frontend_kernel.PLAN_GEMM_STAGED
     assert frontend_kernel.contrast_level(FeatureConfig(use_spectral_contrast=True)) == 0
-    for kw in (dict(n_fft=1760, win_length=1760, hop_length=440), dict(n_fft=2662, n_mels=256, f_max=8000.0),
-               dict(n_fft=1125, win_length=1125, hop_length=281, n_mels=256, f_max=8000.0)):
+    for kw in (dict(n_fft=1664, win_length=1664, hop_length=416), dict(n_fft=2704, n_mels=256, f_max=8000.0),
+               dict(n_fft=1365, win_length=1365, hop_length=441, sample_rate=44100, n_mels=256, f_max=8000.0)):
         cfg = FeatureConfig(use_spectral_contrast=True, **kw)
         assert frontend_kernel.spectral_plan(cfg) != frontend_kernel.PLAN_FFT
         assert frontend_kernel.contrast_level(cfg) < frontend_kernel.CONTRAST_FFT
@@ -277,7 +301,7 @@ def _c_plan_rules():
         between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
         between("struct LayoutA {", "// x rounded to TF32"),
         between("struct LayoutC {", "__device__ __forceinline__ float warp_sum"),
-        between("// Whether n's only prime factors are 2, 3, 5 and 7", "__device__ __forceinline__ float2 cmul"),
+        between("// Whether n's only prime factors are 2, 3, 5, 7 and 11", "__device__ __forceinline__ float2 cmul"),
         r"""int main() {
   int n_fft, hop, kpad, n_mels, n_pow, n_frames, n_bands;
   char kind;
@@ -306,10 +330,12 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     the Python mirrors, equal the kernel source's own rules (compiled for
     the host) over a grid of configs: n_fft from 256 to 4096, powers of two,
     other even 5-smooth counts (640 to 3000), even ones with a factor of 7
-    (672 to 2744), one with a factor of 11 and an odd one, hops from 4 to
-    past n_fft, 32 to 256 mels, 1 and 10 s clips, 6 and 17 bands; and so do
-    LayoutF's frames a block for each launch, launch C's rounded down to a
-    power of two (8 at n_fft 768, 4 at 1200)."""
+    (672 to 2744) or of 11 (704 to 2662), odd ones (675 to 2205), and ones
+    with a factor of 13 (832 to 2704, odd 1365), hops from 4 to past n_fft,
+    32 to 256 mels, 1 and 10 s clips, 6 and 17 bands; and so do LayoutF's
+    frames a block for each launch, launch C's rounded down to a power of
+    two (8 at n_fft 768, 4 at 1200), launch A's even on an odd n_fft (two
+    frames a row)."""
     gxx, code = _c_plan_rules()
     (tmp_path / "plans.cpp").write_text(code)
     subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plans"), str(tmp_path / "plans.cpp")], check=True)
@@ -318,7 +344,9 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
                       segment_duration=dur, use_spectral_contrast=True, n_contrast_bands=bands)
         for n, win in ((256, 200), (512, 400), (768, 768), (1024, 1024), (1024, 400), (2048, 2048), (4096, 4096),
                        (640, 640), (1000, 1000), (1200, 1200), (2000, 2000), (3000, 3000), (1792, 1792), (1125, 1125),
-                       (896, 896), (1764, 1764), (2744, 2744), (672, 672), (1760, 1760))
+                       (896, 896), (1764, 1764), (2744, 2744), (672, 672), (1760, 1760), (880, 880), (2662, 2662),
+                       (1323, 1323), (2205, 2205), (704, 704), (675, 675), (693, 693), (832, 832), (1365, 1365),
+                       (1664, 1664), (2704, 2704))
         for hop in (4, 160, 512, 3000) for mels in (32, 128, 256) for dur in (1.0, 10.0) for bands in (6, 17)
         if not (hop == 4 and dur == 10.0)
     ]
@@ -337,7 +365,8 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
         assert (a, sa) == (frontend_kernel.spectral_plan(c), frontend_kernel.spectral_smem_bytes(c)), c
         assert (cl, sc) == (frontend_kernel.contrast_level(c), frontend_kernel.contrast_smem_bytes(c)), c
         n_pow = frontend_kernel._geometry(c).n_pow
-        assert fa == frontend_kernel._fft_layout(c.n_fft // 2, c.n_fft, c.hop_length)[0], c
+        assert fa == frontend_kernel._spectral_layout(c.n_fft, c.hop_length)[0], c
+        assert fa % 2 == 0 or c.n_fft % 2 == 0, c
         assert fc == frontend_kernel._fft_layout(c.n_fft, c.n_fft, c.hop_length, n_pow, contrast=True)[0], c
         assert fc & (fc - 1) == 0, c
         seen.update({("a", a, c.n_fft), ("c", cl, c.n_fft)})
@@ -351,7 +380,11 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     assert ("c", 4, 512) not in seen and ("a", 1, 512) in seen  # under it: the GEMM
     for n_fft in (672, 896, 1764, 1792, 2744):  # radix-7 stages
         assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
-    for n_fft in (1760, 1125):  # a factor of 11, an odd n_fft: the GEMM
+    for n_fft in (704, 880, 1760, 2662, 693):  # radix-11 stages
+        assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
+    for n_fft in (675, 693, 1125, 1323, 2205):  # an odd n_fft: launch A's two frames a row
+        assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
+    for n_fft in (832, 1365, 1664, 2704):  # a factor of 13: the GEMM
         assert not {("a", 2, n_fft), ("c", 4, n_fft)} & seen
     assert max(frames_c[768]) == 8 and max(frames_c[1200]) == 4
 

@@ -19,11 +19,15 @@ launch C and its FFT plan) timed in turns with this one: the baselines,
 as built, the variants, as built, the baselines.
 
 Then launch C's FFT plan (contrast_fft_kernel) at B = 1024 on n_fft 2048,
-4096, 2000, 3000, 1792 and 2744 with contrast (hop n_fft / 4, 6 bands;
-the frames of 64 clips repeated; 2000 runs radix-4 and radix-5 stages,
-1792 and 2744 radix-7 ones) and at 44.1 kHz on n_fft 1764 (a 40 ms window,
-a 10 ms hop), as built and, on 2048, 4096 and 2000, in variants that split
-its time:
+4096, 2000, 3000, 1792, 2744, 1760 and 2662 with contrast (hop n_fft / 4,
+6 bands; the frames of 64 clips repeated; 2000 runs radix-4 and radix-5
+stages, 1792 and 2744 radix-7 ones, 1760 and 2662 radix-11 ones) and at
+44.1 kHz on n_fft 1764, 1323 and 2205 (40, 30 and 50 ms windows, a 10 ms
+hop; the last two odd), as built, with every n_fft through the kernel's
+instance of radix 11, with the twiddle rule before an odd n_fft on an
+even one (past n_fft / 2 the negated entry of k - n_fft / 2, not the
+conjugate of entry n_fft - k), and, on 2048, 4096 and 2000, in variants
+that split its time:
   - ranked tails: the bands' tails by stable rank (band_value, the GEMM
     plan's) instead of the sort in registers;
   - no band tails: each (frame, band)'s row takes one power value;
@@ -33,9 +37,15 @@ its time:
     of shifts.
 A baseline that refuses an n_fft is left out there.
 Then where the FFT plan's threshold (kFftMinNfft) lies: both plans on
-n_fft 640, 672, 768, 784, 1000 and 1024 with contrast, hop n_fft / 4, at
+n_fft 640, 672, 675, 693, 704, 768, 784, 1000 and 1024 with contrast, hop
+n_fft / 4, at
 B = 1024 and 4096, through their C functions, in turns (GEMM, FFT, FFT,
-GEMM). Prints the card's name and power limit first, and each build's
+GEMM). Then the routes of ROUTES, configs users set whose plan is timed
+once beside its library call: the launch as its plan takes it
+(contrast_level), through its C function, and the fft rows
+(`spectral_contrast(method="fft")`: cuFFT and torch.topk), in turns, at B
+= 1024. `--routes` builds the source as built alone and runs that section
+only. Prints the card's name and power limit first, and each build's
 max-relative deviation from the plain version (the variants' rows are
 wrong by design). Needs a CUDA card and nvcc; imports no JAX.
 """
@@ -56,7 +66,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from cough_detector_tpu_torch.config import FeatureConfig  # noqa: E402
-from cough_detector_tpu_torch.ops import frontend_kernel  # noqa: E402
+from cough_detector_tpu_torch.ops import frontend, frontend_kernel  # noqa: E402
 from cough_detector_tpu_torch.utils import kernel_build  # noqa: E402
 
 ITERS = {1024: 20, 4096: 10}
@@ -72,11 +82,47 @@ FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands
 FFT_CONFIGS = {
     n_fft: FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
                          use_spectral_contrast=True)
-    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, 640, 672, 768, 784, 1000, 1024)
+    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, 1760, 2662, 640, 672, 675, 693, 704, 768, 784, 1000, 1024)
 }
-FFT_CONFIGS["44.1 kHz, 1764"] = FeatureConfig(sample_rate=44100, n_fft=1764, win_length=1764, hop_length=441,
-                                              n_mels=128, f_max=22050.0, use_spectral_contrast=True)
+ONE_INSTANCE = "FFT plan, the radix-11 instance for every n_fft"
+# The twiddle lookup as built (past n_fft / 2, the conjugate of entry n_fft
+# - idx) and as the variant TWIDDLE_NEGATED reads it on an even n_fft (the
+# negated entry of idx - n_fft / 2, the rule before odd n_fft).
+TWIDDLE = """\
+  const bool lo = 2 * idx <= n_fft;
+  const float2 t = tw[lo ? idx : n_fft - idx];
+  return make_float2(t.x, lo ? t.y : -t.y);
+"""
+TWIDDLE_NEGATED_RULE = """\
+  if (n_fft % 2 == 0) {  // the negated entry of idx - n_fft / 2
+    const int half = n_fft / 2;
+    const bool lo = idx <= half;
+    const float2 t = tw[lo ? idx : idx - half];
+    return lo ? t : make_float2(-t.x, -t.y);
+  }
+""" + TWIDDLE
+TWIDDLE_NEGATED = "FFT plan, the negated twiddle rule for an even n_fft"
 
+
+def _sr44k(n_fft: int) -> FeatureConfig:
+    """44.1 kHz as users set it: a 10 ms hop, 128 mels to 22.05 kHz."""
+    return FeatureConfig(sample_rate=44100, n_fft=n_fft, win_length=n_fft, hop_length=441, n_mels=128,
+                         f_max=22050.0, use_spectral_contrast=True)
+
+
+for _n in (1764, 1323, 2205):
+    FFT_CONFIGS[f"44.1 kHz, {_n}"] = _sr44k(_n)
+
+# Configs users set whose plan is timed once beside its library call: 30
+# and 50 ms windows at 44.1 kHz (odd), and n_fft with a prime factor of 13.
+ROUTES = {
+    "44.1 kHz, 1323 (30 ms, odd)": _sr44k(1323),
+    "44.1 kHz, 2205 (50 ms, odd)": _sr44k(2205),
+    "n_fft 1664 (2^7 13)": FeatureConfig(n_fft=1664, win_length=1664, hop_length=416, n_mels=128, f_max=8000.0,
+                                         use_spectral_contrast=True),
+    "n_fft 2704 (2^4 13^2)": FeatureConfig(n_fft=2704, win_length=2704, hop_length=676, n_mels=128, f_max=8000.0,
+                                           use_spectral_contrast=True),
+}
 
 
 def edit(src: str, old: str, new: str) -> str:
@@ -94,11 +140,14 @@ def variants(src: str) -> dict:
         "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
         "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
         "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
-        "FFT plan, no FFT stages": edit(src, "    fft_rows<true>(buf, F, n_fft, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix>(buf, F, n_fft, n_fft, tw);\n", ""),
         "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
         "FFT plan, DivBy for a power of two": edit(
             edit(src, "fft_stage<2, true>(", "fft_stage<2, false>("), "fft_stage<4, true>(", "fft_stage<4, false>("
         ),
+        ONE_INSTANCE: edit(src, "n_fft % 11 ? (const void*)contrast_fft_kernel<7>",
+                           "false ? (const void*)contrast_fft_kernel<7>"),
+        TWIDDLE_NEGATED: edit(src, TWIDDLE, TWIDDLE_NEGATED_RULE),
     }
 
 
@@ -111,7 +160,9 @@ def build_all(sources: dict) -> dict:
         path.write_text(text)
         lib = path.with_suffix(".so")
         cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(lib), str(path)]
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
         handle = ctypes.CDLL(str(lib))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         handle.cdt_frontend_contrast.argtypes = [
@@ -130,6 +181,7 @@ def main() -> None:
         "--baseline", type=Path, action="append", default=[],
         help="another frontend_kernel.cu to time beside this one (repeatable)",
     )
+    parser.add_argument("--routes", action="store_true", help="the routes section alone (ROUTES)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -138,7 +190,11 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
 
-    sources = variants((kernel_build._CSRC / "frontend_kernel.cu").read_text())
+    src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
+    if args.routes:
+        routes_section(build_all({"as built": src})["as built"], np.random.default_rng(0), torch.device("cuda"))
+        return
+    sources = variants(src)
     baselines = [f"baseline {path}" for path in args.baseline]
     for name, path in zip(baselines, args.baseline):
         sources[name] = path.read_text()
@@ -185,6 +241,7 @@ def main() -> None:
             )
     fft_section(libs, baselines, rng, dev)
     threshold_section(libs["as built"], rng, dev)
+    routes_section(libs["as built"], rng, dev)
 
 
 def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor):
@@ -229,7 +286,7 @@ def gemm_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torc
 def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device) -> None:
     """Both plans around the FFT plan's threshold, in turns, each checked
     against the plain version."""
-    for n_fft in (640, 672, 768, 784, 1000, 1024):
+    for n_fft in (640, 672, 675, 693, 704, 768, 784, 1000, 1024):
         cfg = FFT_CONFIGS[n_fft]
         for b, iters in ITERS.items():
             w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
@@ -259,14 +316,57 @@ def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.dev
             )
 
 
+def cuda_ms(fn, iters: int) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def routes_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device) -> None:
+    """Each ROUTES config's launch as its plan takes it, checked against the
+    plain version, and the fft rows, in turns (launch, fft rows, fft rows,
+    launch), at B = 1024."""
+    for label, cfg in ROUTES.items():
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        out = torch.empty((1024, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
+        level = frontend_kernel.contrast_level(cfg)
+        fft = level == frontend_kernel.CONTRAST_FFT
+        launch = (fft_launch if fft else gemm_launch)(lib, w, cfg, out)
+        launch()
+        torch.cuda.synchronize()
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        err = ((out - want).abs().max() / want.abs().max()).item()
+        if err > 1e-3:
+            raise SystemExit(f"the contrast launch disagrees with its plain version on {label}: {err:.2e}")
+        runs = {"launch": launch, "fft rows": lambda: frontend.spectral_contrast(w, cfg, method="fft")}
+        times = {"launch": [], "fft rows": []}
+        for name in ("launch", "fft rows", "fft rows", "launch"):
+            times[name].append(cuda_ms(runs[name], 5))
+        plan = f"FFT, stages {frontend_kernel._fft_radices(cfg.n_fft)}" if fft else f"GEMM level {level}"
+        print(
+            f"contrast launch B=1024, {label} + contrast ({cfg.num_frames} frames; plan {plan}), in turns: "
+            + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
+            + f"; max-relative vs plain {err:.2e}",
+            flush=True,
+        )
+
+
 def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
     """The FFT plan as built and its variants, in turns, at B = 1024,
     between the baselines' (through the same C function; only where a
     baseline takes the n_fft)."""
-    parts = [v for v in libs if v.startswith("FFT plan")]
-    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, "44.1 kHz, 1764"):
+    parts = [v for v in libs if v.startswith("FFT plan") and v not in (ONE_INSTANCE, TWIDDLE_NEGATED)]
+    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, 1760, 2662, "44.1 kHz, 1764", "44.1 kHz, 1323", "44.1 kHz, 2205"):
         cfg = FFT_CONFIGS[n_fft]
-        variants = parts if n_fft in (2048, 4096, 2000) else []
+        variants = (parts if n_fft in (2048, 4096, 2000) else []) + [ONE_INSTANCE, TWIDDLE_NEGATED]
         g = frontend_kernel._geometry(cfg)
         w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
         w = w.repeat(16, 1)

@@ -32,19 +32,27 @@ split its time: no waveform staging, no FFT stages, no power and mel (the
 post-twiddle, the power and the mel left out; a frame's first point
 written instead); and, there and on n_fft 3000, 768 at 256 mels, 896 at
 256 mels, 1792, 2744 and 44.1 kHz at 1764 and 882 (a 10 ms hop; radix-7
-stages), with every n_fft through the kernel's kSeven instance (its
-radix-7 stages compiled in). Each --baseline is another copy of the
+stages), 880 at 256 mels (radix 11), 44.1 kHz at the odd 1323 and the odd
+1125 (two frames a row of n_fft points), as built and with the twiddle
+rule before an odd n_fft on an even one (past n_fft / 2 the negated entry
+of k - n_fft / 2, not the conjugate of entry n_fft - k). Each --baseline
+is another copy of the
 source (the same C interface for the FFT plan) timed in turns with this
 one on those configs: the baselines, as built, the variants, as built,
 the baselines (a baseline that refuses an n_fft is left out there). Then
 where the FFT plan's threshold (kFftMinNfft) lies: both plans at 128
-mels, hop n_fft / 4, on n_fft 640, 672, 768, 784, 1000 and 1024, at B =
-1024 and 4096. And
+mels, hop n_fft / 4, on n_fft 640, 672, 675 (odd), 693 (odd, a factor of
+11), 704 (a factor of 11), 768, 784, 1000 and 1024, at B = 1024 and 4096.
+And
 the FFT plan on the shipped config at B = 4096 beside its GEMM plan: for
 the record, since the shipped config keeps the GEMM (spectral_plan). Both
-plans are called through their C functions directly, in turns. All builds
-run at once. Prints the card's name and power limit first. Needs a CUDA
-card and nvcc; imports no JAX.
+plans are called through their C functions directly, in turns. Then the
+routes of ROUTES, configs users set whose plan is timed once beside its
+library call: the launch as its plan takes it (spectral_plan), through its
+C function, and `torch.stft` + a mel matmul, in turns, at B = 1024.
+`--routes` builds the source as built alone and runs that section only.
+All builds run at once. Prints the card's name and power limit first.
+Needs a CUDA card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -176,7 +184,9 @@ def build(name: str, source: str) -> ctypes.CDLL:
     path.write_text(source)
     lib = path.with_suffix(".so")
     cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", str(lib), str(path)]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
     return ctypes.CDLL(str(lib))
 
 
@@ -209,12 +219,11 @@ def fft_variants(src: str) -> dict:
     return {
         "FFT plan as built": src,
         "FFT plan, no staging": edit(src, "stage_flat(span, src, (F - 1) * hop + n_fft);", ""),
-        "FFT plan, no FFT stages": edit(src, "  fft_rows<kSeven>(buf, F, m, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "  fft_rows<11>(buf, pairs ? lay.rows : F, points, n_fft, tw);\n", ""),
         "FFT plan, no power and mel": src[:start] + (
             "  if (tid < frames) mel_out[(size_t)b * n_mels * n_frames + t0 + tid] = buf[tid * m].x;\n"
         ) + src[stop:],
-        ONE_INSTANCE: edit(src, "n_fft % 7 ? (const void*)spectral_fft_kernel<false>",
-                           "false ? (const void*)spectral_fft_kernel<false>"),
+        TWIDDLE_NEGATED: edit(src, TWIDDLE, TWIDDLE_NEGATED_RULE),
     }
 
 
@@ -224,6 +233,7 @@ def main() -> None:
         "--baseline", type=Path, action="append", default=[],
         help="another frontend_kernel.cu to time beside this one (repeatable)",
     )
+    parser.add_argument("--routes", action="store_true", help="the routes section alone (ROUTES)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -233,6 +243,9 @@ def main() -> None:
     ).stdout.strip().splitlines()[0], flush=True)
 
     src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
+    if args.routes:
+        routes_section(build("spectral_probe_routes", src), np.random.default_rng(0), torch.device("cuda"))
+        return
     fill_start = src.index('    asm volatile("mbarrier.arrive.expect_tx')
     fill_copy = src[fill_start : src.index("  }\n", fill_start)]
     no_copies = edit(
@@ -346,6 +359,7 @@ def main() -> None:
         flush=True,
     )
     fft_section(libs, baselines, rng, dev)
+    routes_section(libs["as built"], rng, dev)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -395,9 +409,26 @@ def n_fft_config(n_fft: int) -> FeatureConfig:
     return FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0)
 
 
-ONE_INSTANCE = "FFT plan, one instance for every n_fft"
+# The twiddle lookup as built (past n_fft / 2, the conjugate of entry n_fft
+# - idx) and as the variant TWIDDLE_NEGATED reads it on an even n_fft (the
+# negated entry of idx - n_fft / 2, the rule before odd n_fft).
+TWIDDLE = """\
+  const bool lo = 2 * idx <= n_fft;
+  const float2 t = tw[lo ? idx : n_fft - idx];
+  return make_float2(t.x, lo ? t.y : -t.y);
+"""
+TWIDDLE_NEGATED_RULE = """\
+  if (n_fft % 2 == 0) {  // the negated entry of idx - n_fft / 2
+    const int half = n_fft / 2;
+    const bool lo = idx <= half;
+    const float2 t = tw[lo ? idx : idx - half];
+    return lo ? t : make_float2(-t.x, -t.y);
+  }
+""" + TWIDDLE
+TWIDDLE_NEGATED = "FFT plan, the negated twiddle rule for an even n_fft"
 # The FFT section's configs: hop n_fft / 4 and 128 mels but for 256 mels
-# at n_fft 768 and 896, and 44.1 kHz at a 10 ms hop (40 and 20 ms windows).
+# at n_fft 768, 896 and 880, and 44.1 kHz at a 10 ms hop (40, 20 and 30 ms
+# windows).
 FFT_CONFIGS = {
     "n_fft 2048": n_fft_config(2048),
     "n_fft 2000": n_fft_config(2000),
@@ -410,7 +441,75 @@ FFT_CONFIGS = {
                                           f_max=22050.0),
     "44.1 kHz, n_fft 882": FeatureConfig(sample_rate=44100, n_fft=882, win_length=882, hop_length=441, n_mels=128,
                                          f_max=22050.0),
+    "n_fft 880, 256 mels": FeatureConfig(n_fft=880, win_length=880, hop_length=220, n_mels=256, f_max=8000.0),
+    "44.1 kHz, n_fft 1323": FeatureConfig(sample_rate=44100, n_fft=1323, win_length=1323, hop_length=441, n_mels=128,
+                                          f_max=22050.0),
+    "n_fft 1125": FeatureConfig(n_fft=1125, win_length=1125, hop_length=281, n_mels=128, f_max=8000.0),
 }
+
+
+# Configs users set whose plan is timed once beside its library call:
+# n_fft with a prime factor of 13, 52 ms at 16 kHz on 256 mels and an odd
+# 31 ms at 44.1 kHz.
+ROUTES = {
+    "n_fft 832 (2^6 13), 256 mels": FeatureConfig(n_fft=832, win_length=832, hop_length=208, n_mels=256,
+                                                  f_max=8000.0),
+    "44.1 kHz, n_fft 1365 (3 5 7 13, odd)": FeatureConfig(sample_rate=44100, n_fft=1365, win_length=1365,
+                                                          hop_length=441, n_mels=128, f_max=22050.0),
+}
+
+
+def library_mel_fn(cfg: FeatureConfig, dev: torch.device):
+    """`torch.stft` (cuFFT) power and a mel matmul: launch A's library call."""
+    from cough_detector_tpu_torch.ops import filters
+
+    fb = torch.from_numpy(
+        filters.mel_filterbank(cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max)
+    ).to(dev)
+    window = torch.hann_window(cfg.win_length, device=dev)
+
+    def library_mel(w: torch.Tensor) -> torch.Tensor:
+        spec = torch.stft(w, cfg.n_fft, cfg.hop_length, cfg.win_length, window, center=True, pad_mode="reflect",
+                          return_complex=True)
+        return (spec.real**2 + spec.imag**2).transpose(1, 2) @ fb
+
+    return library_mel
+
+
+def routes_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device) -> None:
+    """Each ROUTES config's launch as its plan takes it, checked against the
+    plain version, and its library call, in turns (launch, library,
+    library, launch), at B = 1024."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p]
+    lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
+    for label, cfg in ROUTES.items():
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+        plan = frontend_kernel.spectral_plan(cfg)
+        fft = plan == frontend_kernel.PLAN_FFT
+        launch = (fft_launch if fft else gemm_launch)(lib, w, cfg, mel)
+        launch()
+        torch.cuda.synchronize()
+        want = frontend_kernel.power_mel_reference(w, cfg)
+        err = ((mel - want).abs().max() / want.abs().max()).item()
+        if err > 1e-3:
+            raise SystemExit(f"launch A disagrees with its plain version on {label}: {err:.2e}")
+        library = library_mel_fn(cfg, dev)
+        runs = {"launch": launch, "torch.stft + mel": lambda: library(w)}
+        times = {name: [] for name in runs}
+        for name in ("launch", "torch.stft + mel", "torch.stft + mel", "launch"):
+            times[name].append(cuda_ms(runs[name], 5))
+        route = (f"FFT, stages {frontend_kernel._fft_radices(frontend_kernel._spectral_points(cfg.n_fft))}" if fft
+                 else f"GEMM {'staged' if plan else 'span from device memory'}, "
+                      f"{frontend_kernel.mel_groups(cfg.n_mels)[1]} mel groups")
+        print(
+            f"spectral launch B=1024, {label} ({cfg.num_frames} frames; plan {route}), in turns: "
+            + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
+            + f"; max-relative vs plain {err:.2e}",
+            flush=True,
+        )
 
 
 def both_plans(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, iters: int) -> str:
@@ -432,18 +531,18 @@ def both_plans(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, iters: int
 
 def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
     """The FFT plan's parts at B = 1024 on n_fft 2048 and 2000, and the
-    FFT plan on FFT_CONFIGS with every n_fft through its kSeven instance,
-    between the baselines'; both plans around the FFT plan's threshold,
+    FFT plan on FFT_CONFIGS as built and with the negated twiddle rule on
+    an even n_fft, between the baselines'; both plans around the FFT plan's threshold,
     then the FFT plan on the shipped config beside its GEMM plan at B =
     4096, in turns."""
-    parts = [n for n in libs if n.startswith("FFT plan") and n not in ("FFT plan as built", ONE_INSTANCE)]
+    parts = [n for n in libs if n.startswith("FFT plan") and n not in ("FFT plan as built", TWIDDLE_NEGATED)]
     for label, cfg in FFT_CONFIGS.items():
         w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
         w = w.repeat(16, 1)
         mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
         want = frontend_kernel.power_mel_reference(w, cfg)
         split = parts if label in ("n_fft 2048", "n_fft 2000") else []
-        for name in baselines + ["FFT plan as built"] + split + [ONE_INSTANCE, "FFT plan as built"] + baselines:
+        for name in baselines + ["FFT plan as built"] + split + [TWIDDLE_NEGATED, "FFT plan as built"] + baselines:
             launch = fft_launch(libs[name], w, cfg, mel)
             try:
                 launch()
@@ -453,11 +552,12 @@ def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torc
                 raise
             t = cuda_ms(launch, 20)
             err = ((mel - want).abs().max() / want.abs().max()).item()
-            print(f"spectral launch B=1024, {label} (stages {frontend_kernel._fft_radices(cfg.n_fft // 2)}), {name}: "
+            stages = frontend_kernel._fft_radices(frontend_kernel._spectral_points(cfg.n_fft))
+            print(f"spectral launch B=1024, {label} (stages {stages}), {name}: "
                   f"{t:.4f} ms, max-relative vs plain {err:.2e}", flush=True)
 
     lib = libs["as built"]
-    for n_fft in (640, 672, 768, 784, 1000, 1024):
+    for n_fft in (640, 672, 675, 693, 704, 768, 784, 1000, 1024):
         cfg = n_fft_config(n_fft)
         for b, iters in ((1024, 20), (BATCH, ITERS)):
             w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
