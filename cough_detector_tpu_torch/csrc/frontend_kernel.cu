@@ -75,13 +75,13 @@
 //    zeroing loop; the mbarrier wait loop and the lane-0 refill are inside
 //    asm, with predicates, so no C++ branch surrounds an in-flight group.
 //
-//  * Every config. An n_fft of prime factors 2, 3, 5, 7 and 11, odd or
-//    even, from 640 on, or past 128 mels, takes the FFT plan
-//    (spectral_fft_kernel, plan_a; its note with the FFT plans below): at
-//    n_fft 2048 this GEMM ran 13.75 ms at B = 1024 where cuFFT and a mel
-//    matmul take 1.06, and on 256 mels its two mel groups 1.34 ms against
-//    the FFT plan's 0.67. Any other n_fft (one with a prime factor of 13
-//    or more) stays here:
+//  * Every config. An n_fft whose largest prime factor is at most
+//    kFftMaxPrime, odd or even, from 640 on, or past 128 mels, takes the
+//    FFT plan (spectral_fft_kernel, plan_a; its note with the FFT plans
+//    below): at n_fft 2048 this GEMM ran 13.75 ms at B = 1024 where cuFFT
+//    and a mel matmul take 1.06, and on 256 mels its two mel groups 1.34
+//    ms against the FFT plan's 0.67. Any other n_fft (one with a prime
+//    factor past the cap) stays here:
 //    more than 128 mels take mel groups of at most 128, each its own
 //    blocks on grid x, the DFT run again for each (the registers hold one
 //    group's mel accumulators beside the DFT's); a tile whose waveform
@@ -102,8 +102,10 @@
 // (launch A 12.49 ms at B = 1024 against 1.24, launch C 20.32 against
 // 4.50) and on n_fft 768 with two mel groups (3.13 against 1.35); until
 // their radix-11 stages and odd frames, on n_fft 2662 with contrast (22.9
-// against 4.5) and the odd 1323 at 44.1 kHz (10.9-11.5 against 2.9). An
-// n_fft with a prime factor of 13 or more still takes them.
+// against 4.5) and the odd 1323 at 44.1 kHz (10.9-11.5 against 2.9);
+// until their generic prime stage, on a factor of 13 (2704 with contrast
+// 22.9 against 4.4). An n_fft with a prime factor past kFftMaxPrime still
+// takes them, and loses (2192 at 256 mels: 29.4 ms against 1.8).
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
@@ -159,6 +161,7 @@ constexpr int kBandChunk = 128;                     // launch C: a band's bins a
 constexpr int kFftPoints = 8192;                    // FFT plans: complex points a block holds (64 KB)
 constexpr int kFftMaxFrames = 32;                   // FFT plans: frames a block takes at most
 constexpr int kFftMinNfft = 640;                    // FFT plans: the least n_fft they take (past 128 mels any)
+constexpr int kFftMaxPrime = 127;                   // FFT plans: the largest prime factor of an n_fft they take
 constexpr int kPostItems = kFftPoints / kThreadsA + 1;  // launch A's FFT plan: power values a thread holds
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
@@ -1601,11 +1604,10 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 
 // -- The FFT plans of launches A and C ------------------------------------------
 //
-// For an n_fft of prime factors 2, 3, 5, 7 and 11, odd or even, from
-// kFftMinNfft on (fft_nfft), launches A and C compute their spectra by FFT
-// instead of the
-// DFT as a GEMM (plan_a, plan_c): the GEMM costs O(n_fft) a bin, and at
-// n_fft 2048 it pads 32 frames to 128 rows, runs 256 k-steps over 2,048
+// For an n_fft whose largest prime factor is at most kFftMaxPrime, odd or
+// even, from kFftMinNfft on (fft_nfft), launches A and C compute their
+// spectra by FFT instead of the DFT as a GEMM (plan_a, plan_c): the GEMM
+// costs O(n_fft) a bin, and at n_fft 2048 it pads 32 frames to 128 rows, runs 256 k-steps over 2,048
 // taps and 9 passes over 1,025 bins, three TF32 products each, where an
 // FFT costs O(log n_fft) a bin.
 //  * A block takes `frames` consecutive frames of one clip (kFftPoints
@@ -1614,8 +1616,9 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    then packs each windowed frame into complex points, in shared memory.
 //  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (one of
 //    radix 2 first when the points hold an odd power of two, then radix 4,
-//    then radix 3, 5, 7 and 11, each R-point DFT in registers), every
-//    frame of the block at once, each stage in place: a thread reads its
+//    then radix 3, 5, 7 and 11, each R-point DFT in registers, then one
+//    stage of each larger prime factor, fft_stage_prime), every frame of
+//    the block at once, each stage in place: a thread reads its
 //    butterflies' points into registers, the block meets at a barrier,
 //    then it writes their outputs. Rows and butterfly indices come by
 //    shifts for a power of two, else by a multiply (DivBy). Twiddles
@@ -1664,15 +1667,15 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    and post-twiddles in torch ops: ops/frontend_kernel.py's
 //    power_mel_fft_reference and spectral_contrast_fft_reference.
 
-// Whether n's only prime factors are 2, 3, 5, 7 and 11 (n >= 1).
-__host__ __device__ inline bool smooth11(int n) {
-  if (n < 1) return false;
-  while (n % 2 == 0) n /= 2;
-  while (n % 3 == 0) n /= 3;
-  while (n % 5 == 0) n /= 5;
-  while (n % 7 == 0) n /= 7;
-  while (n % 11 == 0) n /= 11;
-  return n == 1;
+// The largest prime factor of n (n >= 1; 1 for n = 1).
+__host__ __device__ inline int largest_prime(int n) {
+  int p = 1;
+  for (int f = 2; f * f <= n; f += 1 + (f > 2))
+    while (n % f == 0) {
+      p = f;
+      n /= f;
+    }
+  return n > 1 ? n : p;
 }
 
 // Launch A's complex points a row of its FFT: n_fft / 2 for an even n_fft
@@ -1714,11 +1717,18 @@ struct LayoutF {
   __host__ __device__ size_t bytes() const { return sizeof(float) * end; }
 };
 
-// Whether an n_fft can take an FFT plan: an n_fft (from 64) of prime
-// factors 2, 3, 5, 7 and 11, odd or even, whose row of points (fft_points_a
-// for launch A, n_fft for launch C) fits a block's points (the stages are
-// of radix 2, 4, 3, 5, 7 and 11; the twiddle table's conjugate half holds
-// for any n_fft). plan_a and plan_c take it from kFftMinNfft on, and
+// Whether the FFT plans' kernels take an n_fft at all: from 64, odd or
+// even, any prime factors (a prime past 11 runs fft_stage_prime), a row of
+// points (fft_points_a for launch A, n_fft for launch C) that fits a
+// block's points; the twiddle table's conjugate half holds for any n_fft.
+// Their C entry points take what this takes, whatever the plan says.
+__host__ __device__ inline bool fft_fits(int n_fft, int points_a_row) {
+  return n_fft >= 64 && points_a_row <= kFftPoints;
+}
+
+// Whether an n_fft takes an FFT plan: one that fft_fits, whose largest
+// prime factor is at most kFftMaxPrime. plan_a and plan_c take it from
+// kFftMinNfft on, and
 // launch A also past 128 mels, where its GEMM plan runs the DFT again for
 // each mel group (1.34 ms at B = 1024 on 256 mels, the FFT plan 0.67). At
 // 128 mels and hop n_fft / 4 the FFT plan beat the GEMM at B = 1024 and
@@ -1729,8 +1739,28 @@ struct LayoutF {
 // 1.5-1.9x, C 1.5-1.7x), so one threshold serves all; the GEMM keeps n_fft
 // 512 (the shipped config: 0.99 ms against the FFT's 1.74 at B = 4096;
 // tools/spectral_probe.py, tools/contrast_probe.py).
+// kFftMaxPrime, by the probes' --primes sections: at B = 1024, 128 mels,
+// hop n_fft / 4, on the 16 kHz window of p ms (n_fft 16 p), each plan in
+// turns with the library call (launch A: torch.stft + mel; C: the fft
+// rows), ms (H100 at 700 W; PERF.md):
+//     p  n_fft   A: FFT  GEMM  library   C: FFT  GEMM  fft rows
+//    13    208     1.00  0.51     1.28     2.37  1.89      6.04
+//    17    272     0.94  0.71     1.20     2.28  1.61      5.82
+//    23    368     0.88  0.86     1.22     2.08  2.01      5.42
+//    31    496     0.99  1.09     1.32     2.15  2.29      5.43
+//    43    688     1.12  1.06     1.71     2.25  2.33      5.97
+//    61    976     1.27  1.87     1.66     2.60  4.88      5.61
+//    89   1424     1.56  6.66     1.79     3.10  9.50      5.95
+//   127   2032     1.63 12.23     2.00     3.49 20.33      6.02
+// The FFT plans beat the library call at every probed prime, and the GEMM
+// at every one from kFftMinNfft on but launch A's 43 (688 taps, 5-7%);
+// 127, the largest probed, is the cap. fft_stage_prime costs P / 2
+// iterations a point, so past it the FFT plans near the library call
+// (launch A 1.63 against 2.00 at 127). The threshold held on a factor of
+// 13 at 676 and 715 for both launches and at 650 for launch A; at 650
+// launch C's FFT plan ran 1.99-2.07 against the GEMM's 1.95-1.97 ms.
 __host__ __device__ inline bool fft_nfft(int n_fft, int points_a_row) {
-  return n_fft >= 64 && smooth11(n_fft) && points_a_row <= kFftPoints;
+  return fft_fits(n_fft, points_a_row) && largest_prime(n_fft) <= kFftMaxPrime;
 }
 
 // Launch A's plan: the FFT, else the GEMM with its span staged or not.
@@ -1940,19 +1970,115 @@ __device__ __forceinline__ void fft_stage(float2* buf, int total, int p, int ns,
   __syncthreads();
 }
 
-// fft_rows for p = 2^a 3^b 5^c 7^d 11^e that is not a power of two: one of
-// radix 2 when a is odd, then radix 4, then the 3s, the 5s, the 7s and the
-// 11s. kRadix, the instance's largest odd radix (7 or 11), leaves out the
-// radix-11 stages where it is 7 (e = 0 then): see fft_rows.
-template <int kRadix>
+// Output pairs a thread holds in fft_stage_prime: a butterfly of prime
+// radix P >= 11 has (P + 1) / 2 of them, at most 6 / 11 of its points.
+constexpr int kPrimeItems = (kFftPoints / 11 * 6 + kThreadsA - 1) / kThreadsA;  // 18
+
+// One Stockham stage of an odd prime radix P >= 11, a runtime value, over
+// `total` points in rows of p, in place, with fft_stage's reads, twiddles
+// and writes (butterfly e of the block reads from e + (e / q)(p - q) and
+// writes to e + (e / ns)(P - 1) ns, q = p / P). Its P-point DFT is not
+// held in registers: output k is sum_s x_s w_P^{(k s) mod P}, each power of
+// w_P the table's entry ((k s) mod P) n_fft / P (P divides n_fft), so no
+// instance's registers grow with P.
+//  1. Points r and P - r of each butterfly (r in [1, P / 2]) times their
+//     twiddles, replaced by a_r = x_r + x_{P-r} and b_r = x_r - x_{P-r};
+//     a barrier.
+//  2. The work splits by output pair: item (k, e) for k in [0, P / 2]
+//     sums m_k = x_0 + sum_r cos(2 pi r k / P) a_r and n_k = sum_r sin(2 pi
+//     r k / P) b_r, in r's order, into four floats (kPrimeItems items a
+//     thread at most); consecutive threads take consecutive butterflies of
+//     one k, so their reads are consecutive and their power of w_P one
+//     broadcast. A barrier, then output k is m_k - i n_k and output P - k
+//     m_k + i n_k (k = 0: m_0 alone), as dft_points<11> forms them; a
+//     barrier.
+// A stage costs P / 2 + 1 multiply-add pairs a point where dft_points<R>
+// costs about R / 2.
+__device__ __forceinline__ void fft_stage_prime(float2* buf, int total, int p, int ns, int n_fft,
+                                                const float2* tw, int P) {
+  const int q = p / P, nb = total / P, h = P / 2, step = n_fft / (ns * P), wstep = n_fft / P;
+  const DivBy by_q(q), by_ns(ns), by_nb(nb);
+  for (int e = threadIdx.x; e < nb * h; e += kThreadsA) {
+    const int r = by_nb(e) + 1, j = e - (r - 1) * nb;
+    float2* src = buf + j + by_q(j) * (p - q);
+    const int k = j - by_ns(j) * ns;
+    const float2 x = cmul(src[r * q], twiddle(tw, r * k * step, n_fft));
+    const float2 y = cmul(src[(P - r) * q], twiddle(tw, (P - r) * k * step, n_fft));
+    src[r * q] = cadd(x, y);
+    src[(P - r) * q] = csub(x, y);
+  }
+  __syncthreads();
+  float4 acc[kPrimeItems];
+#pragma unroll
+  for (int it = 0; it < kPrimeItems; ++it) {
+    const int e = threadIdx.x + it * kThreadsA;
+    if (e < nb * (h + 1)) {
+      const int k = by_nb(e), j = e - k * nb;
+      const float2* src = buf + j + by_q(j) * (p - q);
+      float2 m = src[0], n = make_float2(0.0f, 0.0f);
+      int idx = 0;  // (k r) mod P
+#pragma unroll 1
+      for (int r = 1; r <= h; ++r) {
+        idx += k;
+        if (idx >= P) idx -= P;
+        const float2 w = twiddle(tw, idx * wstep, n_fft);  // (cos, -sin) of 2 pi idx / P
+        const float2 a = src[r * q], b = src[(P - r) * q];
+        m = make_float2(m.x + w.x * a.x, m.y + w.x * a.y);
+        n = make_float2(n.x - w.y * b.x, n.y - w.y * b.y);
+      }
+      acc[it] = make_float4(m.x, m.y, n.x, n.y);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < kPrimeItems; ++it) {
+    const int e = threadIdx.x + it * kThreadsA;
+    if (e < nb * (h + 1)) {
+      const int k = by_nb(e), j = e - k * nb;
+      float2* dst = buf + j + by_ns(j) * ns * (P - 1);
+      const float4 v = acc[it];
+      dst[k * ns] = make_float2(v.x + v.w, v.y - v.z);  // m_k - i n_k
+      if (k) dst[(P - k) * ns] = make_float2(v.x - v.w, v.y + v.z);  // m_k + i n_k
+    }
+  }
+  __syncthreads();
+}
+
+// fft_stage_prime as a call, not inlined.
+__device__ __noinline__ void fft_stage_prime_call(float2* buf, int total, int p, int ns, int n_fft, const float2* tw,
+                                                  int P) {
+  fft_stage_prime(buf, total, p, ns, n_fft, tw, P);
+}
+
+// fft_stage_prime in launch C's instance for a prime factor past 11
+// (contrast_fft_kernel<11, true>): inlined (1) or called (2). Called, it
+// ran n_fft 1664 with contrast in 2.02 ms against 2.20 inlined, 650 in 2.06
+// against 2.26, 2704 in 2.13 against 2.14 (B = 1024, in turns,
+// tools/contrast_probe.py --primes); launch A inlines it: called, its 832
+// at 256 mels and odd 1365 ran 4-6% slower (tools/spectral_probe.py).
+constexpr int kPrimeC = 2;
+
+// fft_rows for p = 2^a 3^b 5^c 7^d 11^e P1 P2 ... (primes P_i > 11) that is
+// not a power of two: one of radix 2 when a is odd, then radix 4, then the
+// 3s, the 5s, the 7s, the 11s, then one fft_stage_prime for each larger
+// prime factor, smallest first, with multiplicity. kRadix, the instance's
+// largest odd radix in registers (7 or 11); kPrime, whether the instance
+// runs the primes past it by fft_stage_prime (0 not at all: p then has
+// none; 1 inlined; 2 called): see fft_rows.
+template <int kRadix, int kPrime>
 __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, int n_fft, const float2* tw) {
   static_assert(kRadix == 7 || kRadix == 11, "an instance of radix 7 or 11");
-  int twos = 0, threes = 0, sevens = 1, elevens = 1;  // sevens: 7^d, elevens: 11^e
+  int twos = 0, threes = 0, sevens = 1, elevens = 1, rest = 1;  // 7^d, 11^e, and the primes past kRadix's product
   for (int r = p; r % 2 == 0; r /= 2) ++twos;
   for (int r = p >> twos; r % 3 == 0; r /= 3) ++threes;
   for (int r = p; r % 7 == 0; r /= 7) sevens *= 7;
   if constexpr (kRadix == 11)
     for (int r = p; r % 11 == 0; r /= 11) elevens *= 11;
+  if constexpr (kPrime != 0) {
+    for (rest = p >> twos; rest % 3 == 0;) rest /= 3;
+    while (rest % 5 == 0) rest /= 5;
+    rest /= sevens * elevens;
+  }
   int ns = 1;
   if (twos & 1) {
     fft_stage<2, false>(buf, total, p, ns, n_fft, tw);
@@ -1960,15 +2086,27 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
   }
   for (int i = 0; i < twos / 2; ++i, ns *= 4) fft_stage<4, false>(buf, total, p, ns, n_fft, tw);
   for (int i = 0; i < threes; ++i, ns *= 3) fft_stage<3, false>(buf, total, p, ns, n_fft, tw);
-  for (; ns < p / (sevens * elevens); ns *= 5) fft_stage<5, false>(buf, total, p, ns, n_fft, tw);
-  for (; ns < p / elevens; ns *= 7) fft_stage<7, false>(buf, total, p, ns, n_fft, tw);
+  for (; ns < p / (sevens * elevens * rest); ns *= 5) fft_stage<5, false>(buf, total, p, ns, n_fft, tw);
+  for (; ns < p / (elevens * rest); ns *= 7) fft_stage<7, false>(buf, total, p, ns, n_fft, tw);
   if constexpr (kRadix == 11)
-    for (; ns < p; ns *= 11) fft_stage<11, false>(buf, total, p, ns, n_fft, tw);
+    for (; ns < p / rest; ns *= 11) fft_stage<11, false>(buf, total, p, ns, n_fft, tw);
+  if constexpr (kPrime != 0)
+    while (rest > 1) {  // its smallest prime factor
+      int f = 11;
+      while (f * f <= rest && rest % f) f += 2;
+      if (f * f > rest) f = rest;
+      if constexpr (kPrime == 1)
+        fft_stage_prime(buf, total, p, ns, n_fft, tw, f);
+      else
+        fft_stage_prime_call(buf, total, p, ns, n_fft, tw, f);
+      ns *= f;
+      rest /= f;
+    }
 }
 
-// The FFT of each row of p = 2^a 3^b 5^c 7^d 11^e points in buf (rows x p <=
-// kFftPoints), in natural order, in place; w = e^{-2 pi i / n_fft} from
-// the table. The stages (ops/frontend_kernel.py::_fft_radices): for a
+// The FFT of each row of p points in buf (rows x p <= kFftPoints), in
+// natural order, in place; w = e^{-2 pi i / n_fft} from the table. The
+// stages (ops/frontend_kernel.py::_fft_radices): for a
 // power of two, one of radix 2 when log2 p is odd, then radix 4; else
 // fft_rows_mixed's. The power-of-two path keeps its shifts: with DivBy's
 // multiplies there, in the same kernel as the mixed stages, the registers
@@ -1983,12 +2121,18 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
 // without a factor of 11 (radix 7 compiled in ran its 2, 3 and 5 plans as
 // fast or up to 2.4% faster, its spills moved), and takes its instance of
 // radix 11 for a factor of 11 (through it, n_fft 3000 lost 5-7% in two
-// runs, 2000 0-8%).
-template <int kRadix>
+// runs, 2000 0-8%), and a third instance, radix 11 with fft_stage_prime,
+// for a prime factor past 11: compiled into its radix-11 instance, the
+// generic stage cost that instance's plans 15-17% (n_fft 2662 and 1760,
+// inlined or called), and into its radix-7 one 25-30% (2048, 2000, 1792,
+// 1323), in turns with the source before it (tools/contrast_probe.py
+// --primes);
+// compiled into launch A's one instance it moved its plans 0.4-2.4%.
+template <int kRadix, int kPrime>
 __device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft, const float2* tw) {
   const int total = rows * p;
   if (p & (p - 1)) {
-    fft_rows_mixed<kRadix>(buf, total, p, n_fft, tw);
+    fft_rows_mixed<kRadix, kPrime>(buf, total, p, n_fft, tw);
     return;
   }
   int ns = 1;
@@ -2071,8 +2215,8 @@ __device__ __forceinline__ void stage_flat(float* span, const WaveSrc& src, int 
 // frames); window (n_fft) the padded win_length Hann; twiddles (n_fft / 2 +
 // 1 float2); fb_w the filters' nonzero weights, mel by mel, and fb_ranges
 // (n_mels x 3) per mel its first bin, bins and offset in fb_w. One
-// instance for every n_fft: its stages of radix 2 to 11 (fft_rows), and on
-// an odd n_fft two frames a row of n_fft points.
+// instance for every n_fft: its stages of radix 2 to 11 and of larger
+// primes (fft_rows), and on an odd n_fft two frames a row of n_fft points.
 __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
     const float* __restrict__ window, const float2* __restrict__ twiddles, int n_used,
@@ -2126,7 +2270,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   __syncthreads();
 
   // 3. The FFT of each row's points.
-  fft_rows<11>(buf, pairs ? lay.rows : F, points, n_fft, tw);
+  fft_rows<11, 1>(buf, pairs ? lay.rows : F, points, n_fft, tw);
 
   // 4. The real FFT's bins [0, n_used), their power in registers, then in
   // place of the points: F rows of an odd stride, so that the mel's reads
@@ -2189,8 +2333,9 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
 // Hann (the bands' power), then the n_fft Hann (the centroid's magnitude);
 // twiddles (n_fft / 2 + 1 float2); the power rows cover bins [pow_lo, pow_lo
 // + n_pow); freqs, bands and out as contrast_kernel's. kRadix: the
-// instance's largest odd radix (fft_rows).
-template <int kRadix>
+// instance's largest odd radix in registers; kPrime: whether it runs the
+// prime factors past 11 by fft_stage_prime (fft_rows).
+template <int kRadix, bool kPrime>
 __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
     const float* __restrict__ windows, const float2* __restrict__ twiddles, int pow_lo, int n_pow,
@@ -2233,7 +2378,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     __syncthreads();
 
     // 2. The FFT of each frame's n_fft points.
-    fft_rows<kRadix>(buf, F, n_fft, n_fft, tw);
+    fft_rows<kRadix, kPrime ? kPrimeC : 0>(buf, F, n_fft, n_fft, tw);
 
     // 3. The two spectra: the power rows over the bands' bins, the
     // magnitude into the frame's sums; tpf threads a frame.
@@ -2360,7 +2505,7 @@ int cdt_frontend_spectral(
 // Launch A, FFT plan (spectral_fft_kernel). wave (B, n_samples); window
 // (n_fft); twiddles (n_fft / 2 + 1, 2); fb_w and fb_ranges (n_mels, 3) int32
 // (ops/frontend_kernel.py::_fft_constants); mel (B, n_mels, n_frames). All
-// contiguous, on one device. Takes any n_fft that fft_nfft and LayoutF
+// contiguous, on one device. Takes any n_fft that fft_fits and LayoutF
 // take, whatever plan_a says (tools/spectral_probe.py times it on the
 // shipped config).
 int cdt_frontend_spectral_fft(
@@ -2368,7 +2513,7 @@ int cdt_frontend_spectral_fft(
     const float* window, const float* twiddles, int n_used, const float* fb_w, const int* fb_ranges,
     int n_mels, int use_pre, float pre_coef, float* mel, cudaStream_t stream) {
   const LayoutF lay(n_fft, hop);
-  if (!fft_nfft(n_fft, fft_points_a(n_fft)) || hop < 1 || n_used < 1 || n_used > n_fft / 2 + 1 ||
+  if (!fft_fits(n_fft, fft_points_a(n_fft)) || hop < 1 || n_used < 1 || n_used > n_fft / 2 + 1 ||
       lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const void* fn = (const void*)spectral_fft_kernel;
@@ -2459,17 +2604,22 @@ int cdt_frontend_plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, i
 // Launch C, FFT plan (contrast_fft_kernel). wave (B, n_samples); windows
 // (2, n_fft); twiddles (n_fft / 2 + 1, 2) (ops/frontend_kernel.py's
 // _fft_constants); freqs (n_fft / 2 + 1); bands as cdt_frontend_contrast's;
-// out (B, n_bands + 1, n_frames). All contiguous, on one device. The
-// instance: radix 11 for a factor of 11, else radix 7.
+// out (B, n_bands + 1, n_frames). All contiguous, on one device. Takes
+// any n_fft that fft_fits and LayoutF take, whatever plan_c says. The
+// instance by the n_fft's largest prime factor: radix 7 up to 7, radix 11
+// at 11, and past 11 radix 11 with fft_stage_prime.
 int cdt_frontend_contrast_fft(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
     const float* windows, const float* twiddles, int pow_lo, int n_pow, const float* freqs,
     float half_sr, const int* bands, int n_bands, float* out, cudaStream_t stream) {
   const LayoutF lay(n_fft, hop, n_pow);
-  if (!fft_nfft(n_fft, n_fft) || hop < 1 || n_bands < 0 || n_pow < 0 || pow_lo < 0 ||
+  if (!fft_fits(n_fft, n_fft) || hop < 1 || n_bands < 0 || n_pow < 0 || pow_lo < 0 ||
       pow_lo + n_pow > n_fft / 2 + 1 || lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const void* fn = n_fft % 11 ? (const void*)contrast_fft_kernel<7> : (const void*)contrast_fft_kernel<11>;
+  const int lp = largest_prime(n_fft);
+  const void* fn = lp <= 7    ? (const void*)contrast_fft_kernel<7, false>
+                   : lp == 11 ? (const void*)contrast_fft_kernel<11, false>
+                              : (const void*)contrast_fft_kernel<11, true>;
   const int err = set_smem(fn, lay.bytes());
   if (err) return err;
   void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &windows, &twiddles, &pow_lo, &n_pow,

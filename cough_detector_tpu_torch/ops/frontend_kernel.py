@@ -39,14 +39,14 @@ waveform length other than segment_samples) raises ValueError instead of
 running the plain chain. Every config the JAX launcher sends to its Pallas
 kernel (`kernel_supports`) runs the launches on the card: each launch picks,
 from the config alone, a plan that fits the card's 227 KB of shared memory
-a block. Launches A and C compute their spectra by FFT for an n_fft of
-prime factors 2, 3, 5, 7 and 11, odd or even, from 640 on (launch A also
-past 128 mels): the FFT plans (`spectral_plan`, `contrast_level` 4),
-Stockham stages of radix 2, 4, 3, 5, 7 and 11 (on an odd n_fft launch A
-runs two frames through one FFT). At any other n_fft (a prime factor of
-13 or more) launch A takes more than 128
-mels in groups of at most 128, each its own blocks (`mel_groups`), and
-gathers its frames from device memory where a
+a block. Launches A and C compute their spectra by FFT for an n_fft whose
+largest prime factor is at most 127 (`_FFT_MAX_PRIME`), odd or even, from
+640 on (launch A also past 128 mels): the FFT plans (`spectral_plan`,
+`contrast_level` 4), Stockham stages of radix 2, 4, 3, 5, 7 and 11 and one
+of each larger prime factor (on an odd n_fft launch A runs two frames
+through one FFT). At any other n_fft (a prime factor past the cap) launch
+A takes more than 128 mels in groups of at most 128, each its own blocks
+(`mel_groups`), and gathers its frames from device memory where a
 128-frame tile's waveform span passes shared memory (`spectral_staged`);
 launch B holds a clip in one block, across a thread-block cluster of up
 to 16 (`epilogue_blocks`: the fewest whose blocks fit three an SM, else
@@ -116,6 +116,7 @@ _RED_C = 16  # floats of the contrast launch's reduction slots
 _FFT_POINTS = 8192  # the FFT plans: complex points a block holds (64 KB)
 _FFT_MAX_FRAMES = 32  # the FFT plans: frames a block takes at most
 _FFT_MIN_NFFT = 640  # the FFT plans: the least n_fft they take (launch A past 128 mels: any)
+_FFT_MAX_PRIME = 127  # the FFT plans: the largest prime factor of an n_fft they take
 
 # Launch A's plans (cdt_frontend_plan_a).
 PLAN_GEMM_UNSTAGED, PLAN_GEMM_STAGED, PLAN_FFT = 0, 1, 2
@@ -195,37 +196,47 @@ def _spectral_layout(n_fft: int, hop: int) -> tuple:
     return _fft_layout(_spectral_points(n_fft), n_fft, hop, per_row=1 + n_fft % 2)
 
 
-def _radix_factors(n: int) -> tuple:
-    """(a, b, c, d, e, rest): n = 2^a 3^b 5^c 7^d 11^e rest, rest free of
-    the primes the FFT plans' stages take (2, 3, 5, 7 and 11)."""
-    counts = []
-    for f in (2, 3, 5, 7, 11):
-        counts.append(0)
+def _prime_factors(n: int) -> list:
+    """n's prime factors with multiplicity, smallest first (n >= 1)."""
+    out, f = [], 2
+    while f * f <= n:
         while n % f == 0:
+            out.append(f)
             n //= f
-            counts[-1] += 1
-    return (*counts, n)
+        f += 1 + (f > 2)
+    return out + [n] * (n > 1)
+
+
+def _largest_prime(n: int) -> int:
+    """The largest prime factor of n (largest_prime; 1 for n = 1)."""
+    return max(_prime_factors(n), default=1)
 
 
 def _fft_nfft(n_fft: int, points: int) -> bool:
     """Whether an n_fft takes an FFT plan at all (fft_nfft): an n_fft from
-    64 of prime factors 2, 3, 5, 7 and 11, odd or even, whose row of
-    `points` complex points fits a block."""
-    return n_fft >= 64 and _radix_factors(n_fft)[-1] == 1 and points <= _FFT_POINTS
+    64, odd or even, whose largest prime factor is at most _FFT_MAX_PRIME
+    and whose row of `points` complex points fits a block."""
+    return n_fft >= 64 and _largest_prime(n_fft) <= _FFT_MAX_PRIME and points <= _FFT_POINTS
+
+
+def _spectral_fft(n_fft: int, hop: int, n_mels: int) -> bool:
+    """Whether launch A takes its FFT plan (plan_a's first branch): an
+    n_fft `_fft_nfft` takes, from 640 on or past 128 mels, whose layout
+    fits."""
+    return (_fft_nfft(n_fft, _spectral_points(n_fft)) and (n_fft >= _FFT_MIN_NFFT or n_mels > 128)
+            and _spectral_layout(n_fft, hop)[1] <= _MAX_SMEM)
 
 
 def spectral_plan(cfg: FeatureConfig) -> int:
-    """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for an
-    11-smooth n_fft, of prime factors 2, 3, 5, 7 and 11, odd or even
-    (`_fft_nfft`), from 640 on, or past 128 mels, where its layout fits;
-    else the GEMM, PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED
+    """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for an n_fft
+    whose largest prime factor is at most _FFT_MAX_PRIME, odd or even
+    (`_spectral_fft`), from 640 on, or past 128 mels, where its layout
+    fits; else the GEMM, PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED
     (`spectral_staged`). The shipped config (n_fft 512, 64 mels), and an
-    n_fft with a prime factor of 13 or more, take the GEMM."""
-    n_fft, hop = cfg.n_fft, cfg.hop_length
-    if (_fft_nfft(n_fft, _spectral_points(n_fft)) and (n_fft >= _FFT_MIN_NFFT or cfg.n_mels > 128)
-            and _spectral_layout(n_fft, hop)[1] <= _MAX_SMEM):
+    n_fft with a prime factor past the cap, take the GEMM."""
+    if _spectral_fft(cfg.n_fft, cfg.hop_length, cfg.n_mels):
         return PLAN_FFT
-    return PLAN_GEMM_STAGED if spectral_staged(hop, _support(cfg)[2]) else PLAN_GEMM_UNSTAGED
+    return PLAN_GEMM_STAGED if spectral_staged(cfg.hop_length, _support(cfg)[2]) else PLAN_GEMM_UNSTAGED
 
 
 def spectral_fft_frames(cfg: FeatureConfig) -> int:
@@ -388,7 +399,7 @@ def _tiles(m: np.ndarray) -> torch.Tensor:
     return torch.stack([hi, lo], dim=1).reshape(k // 8, 16 * n)
 
 
-@functools.lru_cache(maxsize=48)  # chip_smoke.py's every-config checks, then timings, run 37 configs
+@functools.lru_cache(maxsize=48)  # chip_smoke.py's every-config checks, then timings, run 40 configs
 def _constants(cfg: FeatureConfig, device: torch.device) -> _Constants:
     """Band-limited tables: bins past the filterbank's last nonzero row feed
     no mel band, so the DFT stops there (128 of 257 bins at f_max=4 kHz).
@@ -554,13 +565,15 @@ def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
 
 
 def _fft_radices(points: int) -> list:
-    """The FFT plans' Stockham stages for points = 2^a 3^b 5^c 7^d 11^e
-    (fft_rows): one of radix 2 first when a is odd, then radix 4, then the
-    3s, the 5s, the 7s and the 11s."""
-    twos, threes, fives, sevens, elevens, rest = _radix_factors(points)
-    if rest != 1:
-        raise ValueError("the FFT plans take only points of prime factors 2, 3, 5, 7 and 11")
-    return [2] * (twos % 2) + [4] * (twos // 2) + [3] * threes + [5] * fives + [7] * sevens + [11] * elevens
+    """The FFT plans' Stockham stages for `points` (fft_rows): one of radix
+    2 first when the count of 2s is odd, then radix 4, then the 3s, the 5s,
+    the 7s and the 11s, then one stage of each larger prime factor (of
+    fft_stage_prime), smallest first. Raises past _FFT_MAX_PRIME."""
+    factors = _prime_factors(points)
+    if max(factors, default=1) > _FFT_MAX_PRIME:
+        raise ValueError(f"the FFT plans take only points whose prime factors are at most {_FFT_MAX_PRIME}")
+    twos = factors.count(2)
+    return [2] * (twos % 2) + [4] * (twos // 2) + [f for f in factors if f > 2]
 
 
 # The radix-3, radix-5, radix-7 and radix-11 butterflies' constants, as the
@@ -588,6 +601,31 @@ def _cos_sin11(j: int) -> tuple:
     if j <= 5:
         return _COS11[j - 1], _SIN11[j - 1]
     return _COS11[10 - j], -_SIN11[10 - j]
+
+
+def _dft_prime(vr: list, vi: list, cos: torch.Tensor, sin: torch.Tensor) -> tuple:
+    """fft_stage_prime's P-point DFT (P = len(vr), an odd prime past 11) of
+    the twiddled points (vr[r], vi[r]), with its order of operations: a_r =
+    v_r + v_{P-r}, b_r = v_r - v_{P-r} for r in [1, P / 2]; m_k = v_0 + sum_r
+    cos_k,r a_r and n_k = sum_r sin_k,r b_r in r's order, for k in [0, P /
+    2] at once ((P / 2 + 1, P / 2) tables cos and sin of 2 pi (k r mod P) /
+    P, as the kernel reads them from the twiddle table); outputs k and P -
+    k are m_k -+ i n_k."""
+    r, h = len(vr), len(vr) // 2
+    ar = [vr[j] + vr[r - j] for j in range(1, h + 1)]
+    ai = [vi[j] + vi[r - j] for j in range(1, h + 1)]
+    br = [vr[j] - vr[r - j] for j in range(1, h + 1)]
+    bi = [vi[j] - vi[r - j] for j in range(1, h + 1)]
+    mr = vr[0].unsqueeze(-2).expand(*vr[0].shape[:-1], h + 1, vr[0].shape[-1])
+    mi = vi[0].unsqueeze(-2).expand_as(mr)
+    nr, ni = torch.zeros_like(mr), torch.zeros_like(mr)
+    for j in range(h):
+        c, s = cos[:, j, None], sin[:, j, None]
+        mr, mi = mr + c * ar[j].unsqueeze(-2), mi + c * ai[j].unsqueeze(-2)
+        nr, ni = nr + s * br[j].unsqueeze(-2), ni + s * bi[j].unsqueeze(-2)
+    lo_r, lo_i = (mr + ni).unbind(-2), (mi - nr).unbind(-2)  # m_k - i n_k
+    hi_r, hi_i = (mr - ni).unbind(-2), (mi + nr).unbind(-2)  # m_k + i n_k
+    return list(lo_r) + list(hi_r[1:][::-1]), list(lo_i) + list(hi_i[1:][::-1])
 
 
 def _dft_points(vr: list, vi: list) -> tuple:
@@ -657,15 +695,22 @@ def _dft_points(vr: list, vi: list) -> tuple:
 
 
 def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) -> tuple:
-    """The FFT plans' FFT along the last axis (2^a 3^b 5^c 7^d 11^e points)
-    in float32, as csrc/frontend_kernel.cu's fft_rows runs it: stage by
-    stage (`_fft_radices`), butterfly j reads points j + r p / R,
-    multiplies point r > 0 by the table's entry r (j mod ns) n_fft / (ns R)
-    (k past n_fft / 2: the conjugate of entry n_fft - k), takes the R-point
-    DFT (`_dft_points`) and writes output r to (j - j mod ns) R + j mod ns
+    """The FFT plans' FFT along the last axis in float32, as
+    csrc/frontend_kernel.cu's fft_rows runs it: stage by stage
+    (`_fft_radices`), butterfly j reads points j + r p / R, multiplies
+    point r > 0 by the table's entry r (j mod ns) n_fft / (ns R) (k past
+    n_fft / 2: the conjugate of entry n_fft - k), takes the R-point DFT
+    (`_dft_points`, or `_dft_prime` past 11 with w_R from the table's
+    entries k n_fft / R) and writes output r to (j - j mod ns) R + j mod ns
     + r ns."""
     p = re.shape[-1]
     half = n_fft // 2
+
+    def table(idx: torch.Tensor) -> tuple:
+        low = idx <= half
+        t = tw[torch.where(low, idx, n_fft - idx)]
+        return t[..., 0], torch.where(low, t[..., 1], -t[..., 1])
+
     ns = 1
     for r in _fft_radices(p):
         q = p // r
@@ -674,12 +719,14 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) 
         vr = list(re.reshape(*re.shape[:-1], r, q).unbind(-2))
         vi = list(im.reshape(*im.shape[:-1], r, q).unbind(-2))
         for i in range(1, r):
-            idx = i * k * (n_fft // (ns * r))
-            low = idx <= half
-            t = tw[torch.where(low, idx, n_fft - idx)]
-            wr, wi = t[:, 0], torch.where(low, t[:, 1], -t[:, 1])
+            wr, wi = table(i * k * (n_fft // (ns * r)))
             vr[i], vi[i] = vr[i] * wr - vi[i] * wi, vr[i] * wi + vi[i] * wr
-        yr, yi = _dft_points(vr, vi)
+        if r > 11:
+            kr = torch.arange(r // 2 + 1, device=re.device)[:, None] * torch.arange(1, r // 2 + 1, device=re.device)
+            cos, msin = table(kr % r * (n_fft // r))
+            yr, yi = _dft_prime(vr, vi, cos, -msin)
+        else:
+            yr, yi = _dft_points(vr, vi)
         dst = torch.stack([(j - k) * r + k + i * ns for i in range(r)])  # (r, q)
         re, im = torch.empty_like(re), torch.empty_like(im)
         re[..., dst] = torch.stack(yr, dim=-2)
@@ -935,17 +982,21 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
     )
 
 
+def _contrast_fft(n_fft: int, hop: int, n_pow: int) -> tuple:
+    """(takes it, bytes): whether the contrast launch takes its FFT plan
+    (plan_c's first branch: an n_fft `_fft_nfft` takes, from 640 on, whose
+    LayoutF fits) and LayoutF's bytes."""
+    smem = _fft_layout(n_fft, n_fft, hop, n_pow, contrast=True)[1]
+    return _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT and smem <= _MAX_SMEM, smem
+
+
 def _contrast_plan(cfg: FeatureConfig) -> tuple:
-    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an 11-smooth
-    n_fft, of prime factors 2, 3, 5, 7 and 11, odd or even (`_fft_nfft`),
-    from 640 on, CONTRAST_FFT where LayoutF fits; else the GEMM's
+    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an n_fft whose
+    largest prime factor is at most _FFT_MAX_PRIME, odd or even, from 640
+    on, CONTRAST_FFT where LayoutF fits (`_contrast_fft`); else the GEMM's
     (`_contrast_gemm_plan`)."""
-    n_fft = cfg.n_fft
-    if _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT:
-        _, smem = _fft_layout(n_fft, n_fft, cfg.hop_length, _geometry(cfg).n_pow, contrast=True)
-        if smem <= _MAX_SMEM:
-            return CONTRAST_FFT, smem
-    return _contrast_gemm_plan(cfg)
+    fft, smem = _contrast_fft(cfg.n_fft, cfg.hop_length, _geometry(cfg).n_pow)
+    return (CONTRAST_FFT, smem) if fft else _contrast_gemm_plan(cfg)
 
 
 def _contrast_gemm_plan(cfg: FeatureConfig) -> tuple:
@@ -970,7 +1021,8 @@ def _contrast_gemm_plan(cfg: FeatureConfig) -> tuple:
 
 def contrast_level(cfg: FeatureConfig) -> int:
     """The contrast launch's plan (cdt_frontend_plan_c): CONTRAST_FFT for an
-    11-smooth n_fft, odd or even, from 640 on where its layout fits; else
+    n_fft whose largest prime factor is at most _FFT_MAX_PRIME, odd or
+    even, from 640 on where its layout fits; else
     LayoutC's level, how much of the GEMM plan moves from shared memory to
     device memory (see _contrast_plan)."""
     return _contrast_plan(cfg)[0]

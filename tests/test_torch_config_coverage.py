@@ -4,8 +4,8 @@ card route, on the CPU.
 The JAX launcher (cough_detector_tpu/ops/pallas/frontend_kernel.py) runs
 its kernel for every config with MFCCs at segment length, and appends the
 contrast rows for a contrast config. The port's three launches take the
-same set: more than 128 mels and an n_fft of prime factors 2, 3, 5, 7 and
-11, odd or even, from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
+same set: more than 128 mels and an n_fft whose largest prime factor is at
+most the cap (kFftMaxPrime), odd or even, from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
 shared memory with the waveform gathered from device memory, clips past 4 s over
 a thread-block cluster (or in device memory past 16 blocks), a hop of 4,
 and any contrast bands.
@@ -59,11 +59,14 @@ CONFIGS = {
 # 2662 with contrast and 880 at 256 mels (radix-11 stages), and on an odd
 # n_fft, launch A two frames a row: 30 ms at 44.1 kHz with and without
 # contrast (1323), 50 ms with contrast (2205) and n_fft 1125 (57 frames, a
-# lone last one); since the FFT plans took every 11-smooth n_fft, the GEMM
-# plans' span from device memory (launch A unstaged, the contrast launch's
-# levels 1 and 3) and launch A's GEMM plan over two mel groups, reached by
-# an n_fft with a factor of 13 (1664, 2704, 832 at 256 mels), and launch
-# A's GEMM on an odd n_fft (1365 at 44.1 kHz); two 10 s clips for launch B's
+# lone last one); n_fft with a prime factor of 13, on the FFT plans since
+# their generic prime stage (1664 and 2704 with contrast, 832 at 256 mels,
+# the odd 1365 at 44.1 kHz); since the FFT plans took every n_fft whose
+# prime factors are at most the cap, the GEMM plans' span from device
+# memory (launch A unstaged, the contrast launch's levels 1 and 3) and
+# launch A's GEMM plan over two mel groups, reached by an n_fft with a
+# prime factor past it (131 and 137 ms windows at 16 kHz with contrast,
+# 2096 and 2192; 1048 at 256 mels); two 10 s clips for launch B's
 # cluster route's other branches (PCEN with delta-deltas and its 32-MFCC
 # DCT; 36 MFCCs of 40 mels, the MFCC and delta tiles after the mel tile);
 # and a 120 s clip, past a cluster of 16: launch B in device memory.
@@ -91,6 +94,9 @@ EXTRA = {
     "nfft2704_contrast": dict(n_fft=2704, win_length=2704, hop_length=676, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft832_mels256": dict(n_fft=832, win_length=832, hop_length=208, n_mels=256, f_max=8000.0),
     "sr44k_nfft1365": dict(SR44K, n_fft=1365, win_length=1365),
+    "nfft2096_contrast": dict(n_fft=2096, win_length=2096, hop_length=524, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft2192_contrast": dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft1048_mels256": dict(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0),
     "clip10s_pcen_dd20": dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20),
     "clip10s_mels40_mfcc36_dd": dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
     "clip120s_128_pcen_dd": dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -133,10 +139,13 @@ PLANS_ON_CARD = {
     "sr44k_nfft1323_contrast": (93508, 2, 59520, 1, 62452, 4),
     "sr44k_nfft2205_contrast": (79396, 2, 59520, 1, 57996, 4),
     "nfft1125": (86628, 2, 37504, 1, None, None),
-    "nfft1664_contrast": (32816, 0, 28288, 1, 196288, 1),
-    "nfft2704_contrast": (32816, 0, 20608, 1, 32880, 3),
-    "nfft832_mels256": (144752, 1, 95360, 1, None, None),
-    "sr44k_nfft1365": (32816, 0, 59520, 1, None, None),
+    "nfft1664_contrast": (86536, 2, 28288, 1, 76696, 4),
+    "nfft2704_contrast": (100056, 2, 20608, 1, 71528, 4),
+    "nfft832_mels256": (84872, 2, 95360, 1, None, None),
+    "sr44k_nfft1365": (95852, 2, 59520, 1, None, None),
+    "nfft2096_contrast": (32816, 0, 24192, 1, 231904, 1),
+    "nfft2192_contrast": (32816, 0, 23680, 1, 32880, 3),
+    "nfft1048_mels256": (174320, 1, 80000, 1, None, None),
     "clip10s_pcen_dd20": (118096, 1, 75488, 4, None, None),
     "clip10s_mels40_mfcc36_dd": (118096, 1, 76576, 7, None, None),
     "clip120s_128_pcen_dd": (118096, 1, 128, 0, None, None),

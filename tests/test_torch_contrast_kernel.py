@@ -213,8 +213,8 @@ def test_smem_mirror_and_grid(name):
     (dict(n_contrast_bands=17), 0),  # the bands are read from device memory
     (dict(n_fft=2048), 4),           # a band of 239 bins, by FFT
     (dict(n_fft=1024, n_contrast_bands=8), 4),  # by FFT (the GEMM's span would pass shared memory)
-    (dict(n_fft=1664, win_length=1664, hop_length=416), 1),  # the GEMM's span past shared memory (a factor 13)
-    (dict(n_fft=2704, win_length=2704, hop_length=676), 3),  # and its power rows too
+    (dict(n_fft=2096, win_length=2096, hop_length=524), 1),  # the GEMM's span past shared memory (a prime 131)
+    (dict(n_fft=2192, win_length=2192, hop_length=548), 3),  # and its power rows too (a prime 137)
     (dict(n_fft=2000, win_length=2000, hop_length=500), 4),  # by FFT: radix-5 stages
     (dict(n_fft=3000, win_length=3000, hop_length=750), 4),  # by FFT: radix-3 and radix-5 stages
     (dict(n_fft=1792, win_length=1792, hop_length=448), 4),  # by FFT: radix-7 stages
@@ -222,6 +222,8 @@ def test_smem_mirror_and_grid(name):
     (dict(n_fft=1760, win_length=1760, hop_length=440), 4),  # by FFT: radix-11 stages
     (dict(n_fft=2662, win_length=2662, hop_length=665), 4),  # by FFT: radix-11 stages, two frames a block
     (dict(n_fft=1125, win_length=1125, hop_length=281), 4),  # by FFT: an odd n_fft
+    (dict(n_fft=1664, win_length=1664, hop_length=416), 4),  # by FFT: a radix-13 stage
+    (dict(n_fft=2704, win_length=2704, hop_length=676), 4),  # by FFT: two radix-13 stages
 ])
 def test_card_route_on_contrast_configs(kw, level):
     """The card route takes every contrast config the JAX launcher's hybrid

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from cough_detector_tpu.config import FeatureConfig as JaxFeatureConfig
+from cough_detector_tpu.ops import frontend as jax_frontend
 from cough_detector_tpu.ops.pallas import frontend_kernel as jax_kernel
 from cough_detector_tpu_torch.config import FeatureConfig
 from cough_detector_tpu_torch.ops import filters, frontend, frontend_kernel
@@ -75,11 +76,16 @@ COVERAGE = {
     "sr44k_nfft2205_contrast": (dict(SR44K, n_fft=2205, win_length=2205, **CONTRAST), 2, 4),
     "nfft1125": (dict(n_fft=1125, win_length=1125, hop_length=281, n_mels=128, f_max=8000.0), 2, None),
     "nfft1664_contrast": (dict(n_fft=1664, win_length=1664, hop_length=416, n_mels=128, f_max=8000.0, **CONTRAST),
-                          0, 1),
+                          2, 4),
     "nfft2704_contrast": (dict(n_fft=2704, win_length=2704, hop_length=676, n_mels=128, f_max=8000.0, **CONTRAST),
+                          2, 4),
+    "nfft832_mels256": (dict(n_fft=832, win_length=832, hop_length=208, n_mels=256, f_max=8000.0), 2, None),
+    "sr44k_nfft1365": (dict(SR44K, n_fft=1365, win_length=1365), 2, None),
+    "nfft2096_contrast": (dict(n_fft=2096, win_length=2096, hop_length=524, n_mels=128, f_max=8000.0, **CONTRAST),
+                          0, 1),
+    "nfft2192_contrast": (dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0, **CONTRAST),
                           0, 3),
-    "nfft832_mels256": (dict(n_fft=832, win_length=832, hop_length=208, n_mels=256, f_max=8000.0), 1, None),
-    "sr44k_nfft1365": (dict(SR44K, n_fft=1365, win_length=1365), 0, None),
+    "nfft1048_mels256": (dict(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0), 1, None),
     "clip10s_pcen_dd20": (dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), 1, None),
     "clip10s_mels40_mfcc36_dd": (dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True), 1, None),
     "clip120s_128_pcen_dd": (dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -89,7 +95,10 @@ COVERAGE = {
 }
 JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
              "nfft3000_contrast", "nfft768_mels256", "nfft1792_contrast", "nfft896_mels256", "sr44k_nfft1764_contrast",
-             "nfft880_mels256", "nfft1760_contrast")
+             "nfft880_mels256", "nfft1760_contrast", "nfft832_mels256", "sr44k_nfft1365")
+# The JAX Pallas kernel refuses an odd n_fft whose hop divides the segment
+# (its frames are a sample short): these take the JAX jnp chain.
+JAX_CHAIN = ("sr44k_nfft1365",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -133,7 +142,8 @@ def _frames64(w: np.ndarray, cfg: FeatureConfig, pre: bool) -> np.ndarray:
     ("nfft2048", False), ("librosa22k", False), ("mels256", False), ("nfft1024_contrast", True),
     ("nfft4096_contrast", False), ("nfft2000_contrast", False), ("nfft3000_contrast", True), ("nfft768_mels256", False),
     ("nfft896_mels256", False), ("sr44k_nfft882", True), ("sr44k_nfft1764_contrast", False),
-    ("nfft880_mels256", False), ("sr44k_nfft1323", True), ("nfft1125", False),
+    ("nfft880_mels256", False), ("sr44k_nfft1323", True), ("nfft1125", False), ("nfft832_mels256", False),
+    ("sr44k_nfft1365", True),
 ])
 def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     """Launch A's FFT plan's model against the float64 rfft power and mel
@@ -155,7 +165,7 @@ def test_power_mel_fft_model_vs_float64_rfft(name, pre):
 @pytest.mark.parametrize("name", [
     "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast",
     "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast", "nfft1760_contrast", "nfft2662_contrast",
-    "sr44k_nfft1323_contrast", "sr44k_nfft2205_contrast",
+    "sr44k_nfft1323_contrast", "sr44k_nfft2205_contrast", "nfft1664_contrast", "nfft2704_contrast",
 ])
 def test_contrast_fft_model_vs_float64_rfft(name):
     """The contrast launch's FFT plan's model (both windows through one
@@ -209,12 +219,48 @@ def test_stockham_stages_are_the_fft(n_fft, points):
     np.testing.assert_allclose(tw[n_fft - k, 0] - 1j * tw[n_fft - k, 1], w, rtol=0, atol=1e-7)
 
 
+# The generic prime stage (fft_stage_prime): (n_fft, points) with a prime
+# factor past 11, the four configs it took from the GEMM among them (832
+# and 1365 for launch A, 1664 and 2704 for launch C), and the largest
+# prime the plans take (the cap) alone and beside 2s.
+PRIME_POINTS = [
+    (26, 13), (52, 26), (338, 169), (416, 208), (832, 416), (1365, 1365), (1664, 832), (1664, 1664), (2704, 1352),
+    (2704, 2704), (2 * frontend_kernel._FFT_MAX_PRIME, frontend_kernel._FFT_MAX_PRIME),
+    (16 * frontend_kernel._FFT_MAX_PRIME, 16 * frontend_kernel._FFT_MAX_PRIME), (2 * 3 * 17 * 19, 3 * 17 * 19),
+]
+
+
+@pytest.mark.parametrize("n_fft, points", PRIME_POINTS)
+def test_prime_stages_are_the_fft(n_fft, points):
+    """With a prime factor P past 11, the stages end in one of radix P for
+    each such factor, smallest first (fft_stage_prime: the twiddled points
+    summed in pairs, each output pair a sum over them with powers of w_P
+    from the twiddle table), and make the FFT of the points against
+    float64 `numpy.fft.fft`."""
+    rng = np.random.default_rng(points)
+    z = rng.standard_normal((3, points)) + 1j * rng.standard_normal((3, points))
+    tw = frontend_kernel._twiddles(n_fft)
+    re, im = frontend_kernel._stockham(
+        torch.from_numpy(z.real.astype(np.float32)), torch.from_numpy(z.imag.astype(np.float32)),
+        torch.from_numpy(tw), n_fft,
+    )
+    radices = frontend_kernel._fft_radices(points)
+    big = [r for r in radices if r > 11]
+    assert big and big == sorted(big) and radices[-len(big):] == big and np.prod(radices) == points
+    assert _rel(re.numpy() + 1j * im.numpy(), np.fft.fft(z, axis=-1)) < 1e-6
+
+
 def test_fft_radices_refuse_other_primes():
-    """A count of points with a prime factor of 13 or more has no stage
-    list: the plan rule sends such an n_fft to the GEMM."""
-    for points in (13, 17, 832, 1365, 2704):
+    """A count of points with a prime factor past the cap (_FFT_MAX_PRIME,
+    the C source's kFftMaxPrime) has no stage list: the plan rule sends
+    such an n_fft to the GEMM. Every prime up to the cap has one."""
+    cap = frontend_kernel._FFT_MAX_PRIME
+    past = next(n for n in range(cap + 1, 2 * cap + 2) if frontend_kernel._prime_factors(n) == [n])
+    for points in (past, 2 * past, 3 * 5 * past, 4 * past * 2):
         with pytest.raises(ValueError):
             frontend_kernel._fft_radices(points)
+    for p in (13, 17, 19, 23, cap):
+        assert frontend_kernel._fft_radices(p) == [p] and frontend_kernel._fft_radices(8 * p) == [2, 4, p]
 
 
 @pytest.mark.parametrize("name", JAX_STACK)
@@ -222,7 +268,8 @@ def test_feature_stack_through_the_fft_models_matches_jax(name):
     """The whole feature image as the card computes it on these configs
     (launch A's FFT model, launch B's plain version, and the contrast
     launch's FFT model on contrast configs) against the JAX package's
-    launcher with its Pallas kernel in interpret mode, at B = 2."""
+    launcher with its Pallas kernel in interpret mode (the jnp chain for
+    JAX_CHAIN), at B = 2."""
     cfg = _cfg(name)
     base = dataclasses.replace(cfg, use_spectral_contrast=False)
     assert frontend_kernel.spectral_plan(base) == frontend_kernel.PLAN_FFT
@@ -232,7 +279,11 @@ def test_feature_stack_through_the_fft_models_matches_jax(name):
     if cfg.use_spectral_contrast:
         assert frontend_kernel.contrast_level(cfg) == frontend_kernel.CONTRAST_FFT
         got = torch.cat([got, frontend_kernel.spectral_contrast_fft_reference(t, cfg)], dim=1)
-    want = np.asarray(jax_kernel.extract_features_fused(w, JaxFeatureConfig(**COVERAGE[name][0]), interpret=True))
+    jcfg = JaxFeatureConfig(**COVERAGE[name][0])
+    if name in JAX_CHAIN:
+        want = np.asarray(jax_frontend.extract_features(w, jcfg))
+    else:
+        want = np.asarray(jax_kernel.extract_features_fused(w, jcfg, interpret=True))
     assert got.shape == want.shape == (2, cfg.num_features, cfg.num_frames)
     assert _rel(got.numpy(), want) < TOL
 
@@ -240,8 +291,9 @@ def test_feature_stack_through_the_fft_models_matches_jax(name):
 @pytest.mark.parametrize("name", list(COVERAGE))
 def test_plan_mirror(name):
     """Each coverage config's plans, from the config alone: the shipped
-    config and everything off an 11-smooth n_fft from 640 (or past 128 mels
-    for launch A) on the GEMM, the rest on the FFT; the FFT layouts fit a
+    config and everything off an n_fft from 640 (or past 128 mels for
+    launch A) whose largest prime factor is at most the cap on the GEMM,
+    the rest on the FFT; the FFT layouts fit a
     block, two blocks an SM, and launch C's frames a block are a power of
     two."""
     cfg = _cfg(name)
@@ -267,13 +319,15 @@ def test_plan_mirror(name):
 
 def test_shipped_config_keeps_its_gemm_plans():
     """The shipped config (n_fft 512, 64 mels) keeps its GEMM plans, staged,
-    and so does every n_fft with a prime factor of 13 or more, odd or
-    even."""
+    and so does every n_fft with a prime factor past the cap
+    (_FFT_MAX_PRIME), odd or even: 131 ms at 16 kHz, 137 ms on 256 mels, an
+    odd 3 x 5 x 131 at 44.1 kHz."""
     shipped = FeatureConfig()
     assert frontend_kernel.spectral_plan(shipped) == frontend_kernel.PLAN_GEMM_STAGED
     assert frontend_kernel.contrast_level(FeatureConfig(use_spectral_contrast=True)) == 0
-    for kw in (dict(n_fft=1664, win_length=1664, hop_length=416), dict(n_fft=2704, n_mels=256, f_max=8000.0),
-               dict(n_fft=1365, win_length=1365, hop_length=441, sample_rate=44100, n_mels=256, f_max=8000.0)):
+    assert frontend_kernel._FFT_MAX_PRIME < 131
+    for kw in (dict(n_fft=2096, win_length=2096, hop_length=524), dict(n_fft=2192, n_mels=256, f_max=8000.0),
+               dict(n_fft=1965, win_length=1965, hop_length=441, sample_rate=44100, n_mels=256, f_max=8000.0)):
         cfg = FeatureConfig(use_spectral_contrast=True, **kw)
         assert frontend_kernel.spectral_plan(cfg) != frontend_kernel.PLAN_FFT
         assert frontend_kernel.contrast_level(cfg) < frontend_kernel.CONTRAST_FFT
@@ -284,9 +338,12 @@ def _c_plan_rules():
     g++ (its layouts and plans are plain C++): a program that reads
     "a n_fft hop kpad n_mels n_pow n_frames n_bands" lines and prints
     plan_a, its shared memory, plan_c, its shared memory, and LayoutF's
-    frames for each launch; and "b n_frames n_mels n_mfcc use_pcen
+    frames for each launch; "b n_frames n_mels n_mfcc use_pcen
     delta_delta" lines, for which it prints launch B's plan_b, its shared
-    memory a block and its threads a block."""
+    memory a block and its threads a block; and "f n_fft hop n_mels n_pow"
+    lines, for which it prints the n_fft's largest prime factor, whether
+    plan_a and plan_c take their FFT plans, and LayoutF's frames and bytes
+    for each launch."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -301,11 +358,19 @@ def _c_plan_rules():
         between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
         between("struct LayoutA {", "// x rounded to TF32"),
         between("struct LayoutC {", "__device__ __forceinline__ float warp_sum"),
-        between("// Whether n's only prime factors are 2, 3, 5, 7 and 11", "__device__ __forceinline__ float2 cmul"),
+        between("// The largest prime factor of n (n >= 1", "__device__ __forceinline__ float2 cmul"),
         r"""int main() {
   int n_fft, hop, kpad, n_mels, n_pow, n_frames, n_bands;
   char kind;
   while (scanf(" %c", &kind) == 1) {
+    if (kind == 'f') {
+      int P;
+      if (scanf("%d %d %d %d", &n_fft, &hop, &n_mels, &P) != 4) return 1;
+      const LayoutF fa(n_fft, hop), fc(n_fft, hop, P);
+      printf("%d %d %d %d %zu %d %zu\n", largest_prime(n_fft), plan_a(n_fft, hop, 16, n_mels) == kPlanFft,
+             plan_c(n_fft, hop, 16, P, 1, 6) == kPlanCFft, fa.frames, fa.bytes(), fc.frames, fc.bytes());
+      continue;
+    }
     if (kind == 'b') {
       int T, M, C, pcen, dd;
       if (scanf("%d %d %d %d %d", &T, &M, &C, &pcen, &dd) != 5) return 1;
@@ -330,8 +395,10 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     the Python mirrors, equal the kernel source's own rules (compiled for
     the host) over a grid of configs: n_fft from 256 to 4096, powers of two,
     other even 5-smooth counts (640 to 3000), even ones with a factor of 7
-    (672 to 2744) or of 11 (704 to 2662), odd ones (675 to 2205), and ones
-    with a factor of 13 (832 to 2704, odd 1365), hops from 4 to past n_fft,
+    (672 to 2744) or of 11 (704 to 2662), odd ones (675 to 2205), ones
+    with a factor of 13 (832 to 2704, odd 1365), now on the FFT plans, and
+    ones with a prime factor past the cap (1048, 2096, 2192 and the odd
+    1965: the GEMM), hops from 4 to past n_fft,
     32 to 256 mels, 1 and 10 s clips, 6 and 17 bands; and so do LayoutF's
     frames a block for each launch, launch C's rounded down to a power of
     two (8 at n_fft 768, 4 at 1200), launch A's even on an odd n_fft (two
@@ -346,7 +413,7 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
                        (640, 640), (1000, 1000), (1200, 1200), (2000, 2000), (3000, 3000), (1792, 1792), (1125, 1125),
                        (896, 896), (1764, 1764), (2744, 2744), (672, 672), (1760, 1760), (880, 880), (2662, 2662),
                        (1323, 1323), (2205, 2205), (704, 704), (675, 675), (693, 693), (832, 832), (1365, 1365),
-                       (1664, 1664), (2704, 2704))
+                       (1664, 1664), (2704, 2704), (1048, 1048), (2096, 2096), (2192, 2192), (1965, 1965))
         for hop in (4, 160, 512, 3000) for mels in (32, 128, 256) for dur in (1.0, 10.0) for bands in (6, 17)
         if not (hop == 4 and dur == 10.0)
     ]
@@ -384,9 +451,41 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
         assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
     for n_fft in (675, 693, 1125, 1323, 2205):  # an odd n_fft: launch A's two frames a row
         assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
-    for n_fft in (832, 1365, 1664, 2704):  # a factor of 13: the GEMM
+    for n_fft in (832, 1365, 1664, 2704):  # a factor of 13: fft_stage_prime
+        assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
+    for n_fft in (1048, 2096, 2192, 1965):  # a prime factor past the cap: the GEMM
         assert not {("a", 2, n_fft), ("c", 4, n_fft)} & seen
     assert max(frames_c[768]) == 8 and max(frames_c[1200]) == 4
+
+
+def test_fft_plan_rule_over_every_n_fft(tmp_path):
+    """For every n_fft from 64 to 8192, at hop n_fft / 4 and 160, on 128
+    and 256 mels: the n_fft's largest prime factor, whether launches A and
+    C take their FFT plans, and LayoutF's frames and bytes for each launch,
+    from the Python mirrors, equal the kernel source's own rules (compiled
+    for the host); and no n_fft from 640 whose largest prime factor is at
+    most the cap (kFftMaxPrime, _FFT_MAX_PRIME) takes a GEMM plan, nor any
+    past the cap an FFT plan."""
+    gxx, code = _c_plan_rules()
+    (tmp_path / "plans.cpp").write_text(code)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plans"), str(tmp_path / "plans.cpp")], check=True)
+    cases = [(n, hop, mels, n // 4 + 1) for n in range(64, 8193) for hop in (max(n // 4, 1), 160) for mels in (128, 256)]
+    out = subprocess.run([str(tmp_path / "plans")], input="\n".join(f"f {n} {h} {m} {p}" for n, h, m, p in cases),
+                         capture_output=True, text=True, check=True).stdout.split("\n")
+    cap, fk = frontend_kernel._FFT_MAX_PRIME, frontend_kernel
+    taken = 0
+    for (n, hop, mels, n_pow), line in zip(cases, out):
+        got = tuple(map(int, line.split()))
+        fa, fc = fk._spectral_layout(n, hop), fk._fft_layout(n, n, hop, n_pow, contrast=True)
+        want = (fk._largest_prime(n), int(fk._spectral_fft(n, hop, mels)), int(fk._contrast_fft(n, hop, n_pow)[0]),
+                *fa, *fc)
+        assert got == want, (n, hop, mels, got, want)
+        if n >= 640:
+            assert got[1] == got[2] == int(got[0] <= cap), (n, hop, mels, got)
+            taken += got[1]
+        elif mels > 128:
+            assert got[1] == int(got[0] <= cap), (n, hop, mels, got)
+    assert len(out) >= len(cases) and taken > 0
 
 
 def test_epilogue_plan_mirrors_equal_the_c_rules(tmp_path):

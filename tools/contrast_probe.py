@@ -1,6 +1,6 @@
 """Where the contrast launch's time goes, on one NVIDIA card.
 
-    python3 tools/contrast_probe.py [--baseline PATH ...]
+    python3 tools/contrast_probe.py [--baseline PATH ...] [--routes | --primes]
 
 Times launch C of the front-end kernel (csrc/frontend_kernel.cu:
 contrast_kernel, the launcher's spectral-contrast rows) with CUDA events
@@ -45,7 +45,18 @@ once beside its library call: the launch as its plan takes it
 (contrast_level), through its C function, and the fft rows
 (`spectral_contrast(method="fft")`: cuFFT and torch.topk), in turns, at B
 = 1024. `--routes` builds the source as built alone and runs that section
-only. Prints the card's name and power limit first, and each build's
+only. `--primes` builds the source as built and the baselines and runs:
+the FFT plan on n_fft 2048, 2000, 1792, 2662 and 44.1 kHz at the odd 1323
+in turns with the baselines; where the largest prime factor the plans
+take may lie (kFftMaxPrime): at B = 1024 on the 16 kHz window of p ms for
+p in PRIMES (n_fft 16 p, hop n_fft / 4, contrast), the GEMM plan, the FFT
+plan and the fft rows in turns, the largest p at which the FFT plan beats
+both, and the primes at which it loses to either from kFftMinNfft on
+(under it the GEMM keeps the config whatever the cap); both plans near
+kFftMinNfft on n_fft with a factor of 13 (650, 676 and the odd 715); and
+the routes section. In that mode the FFT plan is also timed with
+fft_stage_prime inlined, not called (prime_variants), in turns with the
+baselines, on those n_fft and on 1760, 1664, 2704 and 650. Prints the card's name and power limit first, and each build's
 max-relative deviation from the plain version (the variants' rows are
 wrong by design). Needs a CUDA card and nvcc; imports no JAX.
 """
@@ -79,10 +90,12 @@ BANDS = (
 )
 GEMM_TAILS = "        const float v = band_value(pw + r * n_pow, __ldg(bands + i), lane);\n"
 FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands + i), lane);\n"
+PRIMES = (13, 17, 23, 31, 43, 61, 89, 127)  # the cap's probe: a window of p ms at 16 kHz, n_fft 16 p
 FFT_CONFIGS = {
     n_fft: FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
                          use_spectral_contrast=True)
-    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, 1760, 2662, 640, 672, 675, 693, 704, 768, 784, 1000, 1024)
+    for n_fft in (2048, 4096, 2000, 3000, 1792, 2744, 1760, 2662, 640, 650, 672, 675, 676, 693, 704, 715, 768, 784,
+                  1000, 1024, *(16 * p for p in PRIMES))
 }
 ONE_INSTANCE = "FFT plan, the radix-11 instance for every n_fft"
 # The twiddle lookup as built (past n_fft / 2, the conjugate of entry n_fft
@@ -114,7 +127,9 @@ for _n in (1764, 1323, 2205):
     FFT_CONFIGS[f"44.1 kHz, {_n}"] = _sr44k(_n)
 
 # Configs users set whose plan is timed once beside its library call: 30
-# and 50 ms windows at 44.1 kHz (odd), and n_fft with a prime factor of 13.
+# and 50 ms windows at 44.1 kHz (odd), n_fft with a prime factor of 13 (the
+# FFT plan's generic prime stage), and one past the cap (the GEMM, level
+# 3).
 ROUTES = {
     "44.1 kHz, 1323 (30 ms, odd)": _sr44k(1323),
     "44.1 kHz, 2205 (50 ms, odd)": _sr44k(2205),
@@ -122,7 +137,12 @@ ROUTES = {
                                          use_spectral_contrast=True),
     "n_fft 2704 (2^4 13^2)": FeatureConfig(n_fft=2704, win_length=2704, hop_length=676, n_mels=128, f_max=8000.0,
                                            use_spectral_contrast=True),
+    "n_fft 2192 (2^4 137)": FeatureConfig(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0,
+                                          use_spectral_contrast=True),
 }
+
+
+ROUTES_BY_NFFT = {1664: ROUTES["n_fft 1664 (2^7 13)"], 2704: ROUTES["n_fft 2704 (2^4 13^2)"]}
 
 
 def edit(src: str, old: str, new: str) -> str:
@@ -140,15 +160,24 @@ def variants(src: str) -> dict:
         "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
         "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
         "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
-        "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix>(buf, F, n_fft, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix, kPrime ? kPrimeC : 0>(buf, F, n_fft, n_fft, tw);\n", ""),
         "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
         "FFT plan, DivBy for a power of two": edit(
             edit(src, "fft_stage<2, true>(", "fft_stage<2, false>("), "fft_stage<4, true>(", "fft_stage<4, false>("
         ),
-        ONE_INSTANCE: edit(src, "n_fft % 11 ? (const void*)contrast_fft_kernel<7>",
-                           "false ? (const void*)contrast_fft_kernel<7>"),
+        ONE_INSTANCE: edit(edit(src, "lp <= 7    ? (const void*)contrast_fft_kernel<7, false>",
+                                "false      ? (const void*)contrast_fft_kernel<7, false>"), "lp == 11 ?", "lp <= 11 ?"),
         TWIDDLE_NEGATED: edit(src, TWIDDLE, TWIDDLE_NEGATED_RULE),
     }
+
+
+PRIME_STAGE = "constexpr int kPrimeC = 2;"
+
+
+def prime_variants(src: str) -> dict:
+    """Launch C's instance for a prime factor past 11 with fft_stage_prime
+    inlined, not called."""
+    return {"FFT plan, the prime stage inlined": edit(src, PRIME_STAGE, "constexpr int kPrimeC = 1;")}
 
 
 def build_all(sources: dict) -> dict:
@@ -182,6 +211,7 @@ def main() -> None:
         help="another frontend_kernel.cu to time beside this one (repeatable)",
     )
     parser.add_argument("--routes", action="store_true", help="the routes section alone (ROUTES)")
+    parser.add_argument("--primes", action="store_true", help="the prime stage's sections alone (see above)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -193,6 +223,16 @@ def main() -> None:
     src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
     if args.routes:
         routes_section(build_all({"as built": src})["as built"], np.random.default_rng(0), torch.device("cuda"))
+        return
+    if args.primes:
+        baselines = {f"baseline {path}": path.read_text() for path in args.baseline}
+        sources = {"as built": src, **prime_variants(src), **baselines}
+        libs = build_all(sources)
+        from spectral_probe import resource_usage
+
+        for n, name in enumerate(sources):
+            resource_usage(f"contrast_probe_{n}", name)
+        primes_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"))
         return
     sources = variants(src)
     baselines = [f"baseline {path}" for path in args.baseline]
@@ -283,10 +323,11 @@ def gemm_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torc
     return launch
 
 
-def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device) -> None:
+def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device,
+                      sizes: tuple = (640, 672, 675, 693, 704, 768, 784, 1000, 1024)) -> None:
     """Both plans around the FFT plan's threshold, in turns, each checked
     against the plain version."""
-    for n_fft in (640, 672, 675, 693, 704, 768, 784, 1000, 1024):
+    for n_fft in sizes:
         cfg = FFT_CONFIGS[n_fft]
         for b, iters in ITERS.items():
             w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
@@ -397,6 +438,68 @@ def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torc
                 f"max-relative vs plain {err:.2e}",
                 flush=True,
             )
+
+
+def primes_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
+    """n_fft 2048, 2000, 1792, 2662 and 44.1 kHz at 1323 as built between
+    the baselines; the cap's probe on PRIMES; both plans near kFftMinNfft
+    on a factor of 13; the routes."""
+    lib = libs["as built"]
+    variants = [name for name in libs if name.startswith("FFT plan")]
+    for n_fft in (2048, 2000, 1792, 2662, "44.1 kHz, 1323", 1760, 1664, 2704, 650):
+        cfg = FFT_CONFIGS[n_fft] if n_fft in FFT_CONFIGS else ROUTES_BY_NFFT[n_fft]
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        out = torch.empty((1024, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        for name in baselines + ["as built"] + variants + ["as built"] + baselines:
+            launch = fft_launch(libs[name], w, cfg, out)
+            try:
+                launch()
+            except RuntimeError:
+                if name in baselines:  # a source before this n_fft's stages
+                    continue
+                raise
+            t = cuda_ms(launch, 10)
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            print(f"contrast launch B=1024, n_fft {n_fft} + contrast (stages {frontend_kernel._fft_radices(cfg.n_fft)}), "
+                  f"{'FFT plan as built' if name == 'as built' else name}: {t:.4f} ms, max-relative vs plain {err:.2e}",
+                  flush=True)
+
+    wins = []
+    for p in PRIMES:
+        cfg = FFT_CONFIGS[16 * p]
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        out = torch.empty((1024, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        runs = {"GEMM plan": gemm_launch(lib, w, cfg, out), "FFT plan": fft_launch(lib, w, cfg, out),
+                "fft rows": lambda: frontend.spectral_contrast(w, cfg, method="fft")}
+        for name in ("GEMM plan", "FFT plan"):
+            runs[name]()
+            torch.cuda.synchronize()
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            if err > 1e-3:
+                raise SystemExit(f"the contrast launch's {name} disagrees with plain at n_fft {cfg.n_fft}: {err:.2e}")
+        times = {name: [] for name in runs}
+        for name in ("GEMM plan", "FFT plan", "fft rows", "fft rows", "FFT plan", "GEMM plan"):
+            times[name].append(cuda_ms(runs[name], 5))
+        fft = max(times["FFT plan"])
+        beats = (fft < min(times["GEMM plan"]), fft < min(times["fft rows"]))
+        wins.append(beats)
+        print(f"contrast launch B=1024, a window of {p} ms at 16 kHz: n_fft {cfg.n_fft} + contrast, hop "
+              f"{cfg.hop_length} (GEMM level {frontend_kernel._contrast_gemm_plan(cfg)[0]}; prime factors "
+              f"{frontend_kernel._prime_factors(cfg.n_fft)}), in turns: "
+              + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
+              + f"; the FFT plan beats the GEMM: {beats[0]}, the fft rows: {beats[1]}", flush=True)
+    both = [p for p, (gemm, library) in zip(PRIMES, wins) if gemm and library]
+    lost = [(p, "GEMM" if not gemm else "fft rows") for p, (gemm, library) in zip(PRIMES, wins)
+            if (16 * p >= frontend_kernel._FFT_MIN_NFFT and not gemm) or not library]
+    print(f"launch C's cap: the largest probed prime at which the FFT plan beats the GEMM and the fft rows: "
+          f"{max(both, default=None)}; from n_fft {frontend_kernel._FFT_MIN_NFFT} it loses to (prime, call): {lost}",
+          flush=True)
+    threshold_section(lib, rng, dev, (650, 676, 715))
+    routes_section(lib, rng, dev)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Where the spectral launch's time goes, on one NVIDIA card.
 
-    python3 tools/spectral_probe.py [--baseline PATH ...]
+    python3 tools/spectral_probe.py [--baseline PATH ...] [--routes | --primes]
 
 Times launch A of the front-end kernel (csrc/frontend_kernel.cu) with CUDA
 events at B = 4096 on the shipped config, as built and in variants, each a
@@ -51,7 +51,19 @@ routes of ROUTES, configs users set whose plan is timed once beside its
 library call: the launch as its plan takes it (spectral_plan), through its
 C function, and `torch.stft` + a mel matmul, in turns, at B = 1024.
 `--routes` builds the source as built alone and runs that section only.
-All builds run at once. Prints the card's name and power limit first.
+`--primes` builds the source as built, with fft_stage_prime called
+(PRIME_CALLED), and the baselines, and runs, after their cuobjdump lines:
+launch A's FFT plan on PRIME_KEEP (n_fft 2048, 2000, 1792, 2662, the odd
+1323, 832 at 256 mels and the odd 1365 at 44.1 kHz) in turns with the
+baselines; where its
+largest prime factor may lie (kFftMaxPrime): at B = 1024 on the 16 kHz
+window of p ms for p in PRIMES (n_fft 16 p, hop n_fft / 4, 128 mels), the
+GEMM plan, the FFT plan and `torch.stft` + mel in turns, the largest p
+at which the FFT plan beats both, and the primes at which it loses to
+either from kFftMinNfft on (under it the GEMM keeps 128 mels whatever
+the cap); both plans near kFftMinNfft on n_fft
+with a factor of 13 (650, 676 and the odd 715) at B = 1024 and 4096; and
+the routes section. All builds run at once. Prints the card's name and power limit first.
 Needs a CUDA card and nvcc; imports no JAX.
 """
 
@@ -219,7 +231,7 @@ def fft_variants(src: str) -> dict:
     return {
         "FFT plan as built": src,
         "FFT plan, no staging": edit(src, "stage_flat(span, src, (F - 1) * hop + n_fft);", ""),
-        "FFT plan, no FFT stages": edit(src, "  fft_rows<11>(buf, pairs ? lay.rows : F, points, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, FFT_ROWS_A, ""),
         "FFT plan, no power and mel": src[:start] + (
             "  if (tid < frames) mel_out[(size_t)b * n_mels * n_frames + t0 + tid] = buf[tid * m].x;\n"
         ) + src[stop:],
@@ -234,6 +246,7 @@ def main() -> None:
         help="another frontend_kernel.cu to time beside this one (repeatable)",
     )
     parser.add_argument("--routes", action="store_true", help="the routes section alone (ROUTES)")
+    parser.add_argument("--primes", action="store_true", help="the prime stage's sections alone (see above)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -245,6 +258,20 @@ def main() -> None:
     src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
     if args.routes:
         routes_section(build("spectral_probe_routes", src), np.random.default_rng(0), torch.device("cuda"))
+        return
+    if args.primes:
+        sources = {"FFT plan as built": src, PRIME_CALLED: edit(src, FFT_ROWS_A, FFT_ROWS_A.replace("<11, 1>", "<11, 2>"))}
+        sources.update({f"baseline {path}": path.read_text() for path in args.baseline})
+        with ThreadPoolExecutor(len(sources)) as pool:
+            built = {name: pool.submit(build, f"spectral_probe_{n}", text) for n, (name, text) in enumerate(sources.items())}
+            libs = {name: f.result() for name, f in built.items()}
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for n, (name, lib) in enumerate(libs.items()):
+            lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p]
+            lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
+            resource_usage(f"spectral_probe_{n}", name)
+        primes_section(libs, [name for name in libs if name.startswith("baseline")], np.random.default_rng(0),
+                       torch.device("cuda"))
         return
     fill_start = src.index('    asm volatile("mbarrier.arrive.expect_tx')
     fill_copy = src[fill_start : src.index("  }\n", fill_start)]
@@ -450,12 +477,30 @@ FFT_CONFIGS = {
 
 # Configs users set whose plan is timed once beside its library call:
 # n_fft with a prime factor of 13, 52 ms at 16 kHz on 256 mels and an odd
-# 31 ms at 44.1 kHz.
+# 31 ms at 44.1 kHz (the FFT plan's generic prime stage), and a prime past
+# the cap, 137 ms at 16 kHz on 256 mels (the GEMM).
 ROUTES = {
     "n_fft 832 (2^6 13), 256 mels": FeatureConfig(n_fft=832, win_length=832, hop_length=208, n_mels=256,
                                                   f_max=8000.0),
     "44.1 kHz, n_fft 1365 (3 5 7 13, odd)": FeatureConfig(sample_rate=44100, n_fft=1365, win_length=1365,
                                                           hop_length=441, n_mels=128, f_max=22050.0),
+    "n_fft 2192 (2^4 137), 256 mels": FeatureConfig(n_fft=2192, win_length=2192, hop_length=548, n_mels=256,
+                                                    f_max=8000.0),
+}
+# Launch A's FFT stages as built (fft_stage_prime inlined) and, as the
+# variant PRIME_CALLED, with the prime stage called.
+FFT_ROWS_A = "  fft_rows<11, 1>(buf, pairs ? lay.rows : F, points, n_fft, tw);\n"
+PRIME_CALLED = "FFT plan, the prime stage called"
+# The primes of the cap's probe (a window of p ms at 16 kHz: n_fft 16 p),
+# and the FFT plans an earlier source ran, timed against it (--baseline) in turns.
+PRIMES = (13, 17, 23, 31, 43, 61, 89, 127)
+PRIME_KEEP = {
+    "n_fft 2048": n_fft_config(2048),
+    "n_fft 2000": n_fft_config(2000),
+    "n_fft 1792": n_fft_config(1792),
+    "n_fft 2662": n_fft_config(2662),
+    "44.1 kHz, n_fft 1323": FFT_CONFIGS["44.1 kHz, n_fft 1323"],
+    **{label: ROUTES[label] for label in ("n_fft 832 (2^6 13), 256 mels", "44.1 kHz, n_fft 1365 (3 5 7 13, odd)")},
 }
 
 
@@ -576,6 +621,82 @@ def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torc
         f"through each plan's C function in turns: " + both_plans(lib, w, shipped, ITERS),
         flush=True,
     )
+
+
+def in_turns(runs: dict, order: tuple, iters: int) -> dict:
+    times = {name: [] for name in runs}
+    for name in order:
+        times[name].append(cuda_ms(runs[name], iters))
+    return times
+
+
+def primes_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
+    """PRIME_KEEP as built between the baselines; the cap's probe on
+    PRIMES; both plans near kFftMinNfft on a factor of 13; the routes."""
+    lib = libs["FFT plan as built"]
+    for label, cfg in PRIME_KEEP.items():
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+        want = frontend_kernel.power_mel_reference(w, cfg)
+        stages = frontend_kernel._fft_radices(frontend_kernel._spectral_points(cfg.n_fft))
+        for name in baselines + ["FFT plan as built", PRIME_CALLED, "FFT plan as built"] + baselines:
+            launch = fft_launch(libs[name], w, cfg, mel)
+            try:
+                launch()
+            except RuntimeError:
+                if name in baselines:  # a source before this n_fft's stages
+                    continue
+                raise
+            t = cuda_ms(launch, 20)
+            err = ((mel - want).abs().max() / want.abs().max()).item()
+            print(f"spectral launch B=1024, {label} (stages {stages}), {name}: {t:.4f} ms, max-relative vs plain "
+                  f"{err:.2e}", flush=True)
+
+    wins = []
+    for p in PRIMES:
+        cfg = n_fft_config(16 * p)
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+        want = frontend_kernel.power_mel_reference(w, cfg)
+        library = library_mel_fn(cfg, dev)
+        runs = {"GEMM plan": gemm_launch(lib, w, cfg, mel), "FFT plan": fft_launch(lib, w, cfg, mel),
+                "torch.stft + mel": lambda: library(w)}
+        for name in ("GEMM plan", "FFT plan"):
+            runs[name]()
+            torch.cuda.synchronize()
+            err = ((mel - want).abs().max() / want.abs().max()).item()
+            if err > 1e-3:
+                raise SystemExit(f"the {name} disagrees with the plain version at n_fft {cfg.n_fft}: {err:.2e}")
+        times = in_turns(runs, ("GEMM plan", "FFT plan", "torch.stft + mel", "torch.stft + mel", "FFT plan",
+                                "GEMM plan"), 10)
+        fft = max(times["FFT plan"])
+        beats = (fft < min(times["GEMM plan"]), fft < min(times["torch.stft + mel"]))
+        wins.append(beats)
+        print(f"spectral launch B=1024, a window of {p} ms at 16 kHz: n_fft {cfg.n_fft}, hop {cfg.hop_length}, 128 mels "
+              f"(points' prime factors {frontend_kernel._prime_factors(frontend_kernel._spectral_points(cfg.n_fft))}), "
+              "in turns: " + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
+              + f"; the FFT plan beats the GEMM: {beats[0]}, the library: {beats[1]}", flush=True)
+    both = [p for p, (gemm, library) in zip(PRIMES, wins) if gemm and library]
+    lost = [(p, "GEMM" if not gemm else "torch.stft + mel") for p, (gemm, library) in zip(PRIMES, wins)
+            if (16 * p >= frontend_kernel._FFT_MIN_NFFT and not gemm) or not library]
+    print(f"launch A's cap: the largest probed prime at which the FFT plan beats the GEMM and the torch.stft + mel: "
+          f"{max(both, default=None)}; from n_fft {frontend_kernel._FFT_MIN_NFFT} it loses to (prime, call): {lost}",
+          flush=True)
+
+    for n_fft in (650, 676, 715):
+        cfg = n_fft_config(n_fft)
+        for b, iters in ((1024, 20), (BATCH, ITERS)):
+            w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+            w = w.repeat(b // 64, 1)
+            print(
+                f"spectral launch B={b}, n_fft {n_fft}, hop {cfg.hop_length}, 128 mels (plan "
+                f"{frontend_kernel.spectral_plan(cfg)}), through each plan's C function in turns: "
+                + both_plans(lib, w, cfg, iters),
+                flush=True,
+            )
+    routes_section(lib, rng, dev)
 
 
 if __name__ == "__main__":
