@@ -50,10 +50,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      at 1323 with and without contrast and at 2205 with contrast (30 and
      50 ms windows), n_fft 1125 (57 frames, a lone last one), a prime
      factor of 13 (the FFT plans' generic prime stage) at n_fft 1664 and
-     2704 with contrast, 832 at 256 mels and the odd 1365 at 44.1 kHz, the
-     GEMM plans' spans from device memory and mel groups at n_fft 2096
-     and 2192 with contrast and 1048 at 256 mels (a prime factor past the
-     FFT plans' cap: 131 and 137), and 10 s clips with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
+     2704 with contrast, 832 at 256 mels and the odd 1365 at 44.1 kHz, a
+     prime factor past the generic stage's cap (the FFT plans' Bluestein
+     stage) at n_fft 2096 and 2192 with contrast, 2192 and 1048 at 256
+     mels and the odd 1965 at 44.1 kHz, the GEMM plans' spans from device
+     memory, contrast levels 1 and 3 and mel groups where the FFT plans do
+     not fit (a 25 ms hop with contrast; the prime n_fft 2129 at 256 mels
+     with contrast), and 10 s clips with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
      (launch B's cluster route's other branches), 120 s at 128 mels (launch
      B in device memory), for the plans no other config reaches) through
      extract_features_fast: every launch it needs once a call (the FFT
@@ -66,8 +69,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      FFT) equal to its Python mirror; and the main path on 160 mels, 10 s
      clips, n_fft 2048, n_fft 2048 with contrast, 44.1 kHz at n_fft 1764
      with contrast (radix-7 stages in both FFT plans), at the odd 1323
-     with contrast (launch A's two frames a row, launch C's odd FFT) and
-     n_fft 2704 with contrast (two radix-13 stages in both FFT plans),
+     with contrast (launch A's two frames a row, launch C's odd FFT),
+     n_fft 2704 with contrast (two radix-13 stages in both FFT plans) and
+     2192 with contrast (Bluestein's stage in both),
      features into the
      residual model through a captured graphs.Programs program (one eager
      call, two replays, launches counted through them, logits within 1e-3
@@ -86,10 +90,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      n_fft 768 (the FFT's radix-3 and radix-5 stages), 896 at 256 mels,
      1792, 2744 and 44.1 kHz at 1764 and 882 (radix 7), 880 at 256 mels
      (radix 11) and 44.1 kHz at the odd 1323, 832 at 256 mels and 44.1 kHz
-     at the odd 1365 (a radix-13 stage), the contrast launch on n_fft 1024
-     (both plans), 2048, 4096, 2000, 3000, 1792, 2744, 1760 and 2662, 44.1
-     kHz at 1764, 1323 and 2205, and 1664 and 2704 (radix 13; the FFT),
-     each beside
+     at the odd 1365 (a radix-13 stage), 2192 and 1048 at 256 mels and
+     44.1 kHz at the odd 1965 on 256 mels (Bluestein's stage), the
+     contrast launch on n_fft 1024 (both plans), 2048, 4096, 2000, 3000,
+     1792, 2744, 1760 and 2662, 44.1 kHz at 1764, 1323 and 2205, 1664 and
+     2704 (radix 13), and 2192 and 2096 (Bluestein's stage; the FFT), each
+     beside
      its bound, its plain version and torch.stft + mel (the fft rows for
      contrast); the epilogue launch alone on its cluster route (5 s at 128
      mels, 10 s with PCEN, delta-deltas and 20 MFCCs at B = 1024, a hop of
@@ -3342,12 +3348,16 @@ def coverage_configs() -> dict:
     with zeros); a prime factor of 13, the FFT plans' generic prime stage
     (fft_stage_prime): n_fft 1664 (2^7 13) and 2704 (2^4 13^2) with
     contrast, 832 (2^6 13) on 256 mels and 31 ms at 44.1 kHz (1365, odd);
-    at an n_fft with a prime factor past the FFT plans' cap (kFftMaxPrime),
-    the GEMM plans' spans from device memory: launch A unstaged with the
-    contrast launch's level 1 (n_fft 2096, a 131 ms window), and with its
-    level 3, its power rows in device memory (n_fft 2192, 137 ms); launch
-    A's GEMM plan over two mel groups, its span staged (n_fft 1048, 256
-    mels). Last, two
+    a prime factor past the generic stage's cap (kFftMaxPrime), the FFT
+    plans' Bluestein stage: n_fft 2096 (2^4 131, a 131 ms window) and 2192
+    (2^4 137) with contrast, 2192 and 1048 (2^3 131) on 256 mels and 1965
+    (3 5 131, odd) at 44.1 kHz on 256 mels. The GEMM plans where the FFT
+    plans do not fit: a 25 ms hop with contrast (the shipped window; launch
+    A's span from device memory, the contrast launch's level 1), and the
+    prime n_fft 2129 (133 ms; past Bluestein's 1997) on
+    256 mels with contrast (launch A's span from device memory over two
+    mel groups, the contrast launch's level 3, its power rows in device
+    memory). Last, two
     10 s clips for launch B's cluster route's other branches: PCEN with
     delta-deltas and 20 MFCCs (its 32-MFCC DCT), and 36 MFCCs of 40 mels
     with delta-deltas (two DCT passes, the MFCC and delta tiles after the
@@ -3413,7 +3423,13 @@ def coverage_configs() -> dict:
                                             use_spectral_contrast=True), one),
         "nfft2192_contrast": (FeatureConfig(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
+        "nfft2192_mels256": (FeatureConfig(n_fft=2192, win_length=2192, hop_length=548, n_mels=256, f_max=8000.0), one),
         "nfft1048_mels256": (FeatureConfig(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0), one),
+        "sr44k_nfft1965_mels256": (FeatureConfig(sample_rate=44100, n_fft=1965, win_length=1965, hop_length=441,
+                                                 n_mels=256, f_max=22050.0), one),
+        "hop400_contrast": (FeatureConfig(hop_length=400, use_spectral_contrast=True), one),
+        "nfft2129_mels256_contrast": (FeatureConfig(n_fft=2129, win_length=2129, hop_length=532, n_mels=256,
+                                                    f_max=8000.0, use_spectral_contrast=True), one),
         "clip10s_pcen_dd20": (FeatureConfig(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), one),
         "clip10s_mels40_mfcc36_dd": (FeatureConfig(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
                                      one),
@@ -3453,8 +3469,8 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     plan (FFT_TOL for the FFT plans, SPLIT_TOL for the 3xTF32 GEMM); each
     launch's shared memory and plan against its Python mirror. Then the
     main path at full width on mels160, clip10s, nfft2048,
-    nfft2048_contrast, sr44k_nfft1764_contrast, sr44k_nfft1323_contrast and
-    nfft2704_contrast:
+    nfft2048_contrast, sr44k_nfft1764_contrast, sr44k_nfft1323_contrast,
+    nfft2704_contrast and nfft2192_contrast (Bluestein's stage):
     features into the residual model (290,370
     parameters, seeded weights) through a captured graphs.Programs program,
     one eager call and two replays, the launches counted through the
@@ -3554,7 +3570,7 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
                      f"{want_fft}) or errors {errs} off")
             launches[(name, b)] = moved
 
-    # The main path on seven of them at full width, through a captured program.
+    # The main path on eight of them at full width, through a captured program.
     torch.manual_seed(SEED)
     model = create_model("residual")
     if count_parameters(model) != 290370:
@@ -3562,7 +3578,7 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     model = place_model(model, dev)
     main_path = {}
     for name in ("mels160", "clip10s", "nfft2048", "nfft2048_contrast", "sr44k_nfft1764_contrast",
-                 "sr44k_nfft1323_contrast", "nfft2704_contrast"):
+                 "sr44k_nfft1323_contrast", "nfft2704_contrast", "nfft2192_contrast"):
         cfg = coverage_configs()[name][0]
         w = make_audio_bulk(rng, 256, cfg.segment_samples, dev)
 
@@ -3996,7 +4012,10 @@ def main() -> None:
     # (radix 11) and 44.1 kHz at 1764, 1323 and 2205 (odd); both FFT plans
     # on a prime factor of 13 (fft_stage_prime): launch A on n_fft 832 at
     # 256 mels and 44.1 kHz at the odd 1365, the contrast launch on n_fft
-    # 1664 and 2704. The GEMM plans these n_fft took until their FFT plans
+    # 1664 and 2704; both FFT plans on a prime factor past the cap
+    # (Bluestein's stage): launch A on 2192 and 1048 at 256 mels and 44.1
+    # kHz at the odd 1965 on 256 mels, the contrast launch on 2192 and
+    # 2096. The GEMM plans these n_fft took until their FFT plans
     # are not timed here (PERF.md keeps their times; tools/spectral_probe.py
     # and tools/contrast_probe.py time the GEMM on n_fft past the FFT
     # plans' cap beside both).
@@ -4020,7 +4039,8 @@ def main() -> None:
                  "sr44k_nfft1323", "nfft832_mels256", "sr44k_nfft1365", "nfft1024_contrast", "nfft2048_contrast",
                  "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast", "nfft1792_contrast", "nfft2744_contrast",
                  "sr44k_nfft1764_contrast", "nfft1760_contrast", "nfft2662_contrast", "sr44k_nfft1323_contrast",
-                 "sr44k_nfft2205_contrast", "nfft1664_contrast", "nfft2704_contrast", *epilogue_only):
+                 "sr44k_nfft2205_contrast", "nfft1664_contrast", "nfft2704_contrast", "nfft2192_mels256",
+                 "nfft1048_mels256", "sr44k_nfft1965_mels256", "nfft2192_contrast", "nfft2096_contrast", *epilogue_only):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -4503,15 +4523,17 @@ def main() -> None:
     # The FFT plans (spectral_fft_kernel, contrast_fft_kernel): their main
     # paths are the captured ones of phase 3 on n_fft 2048 (with contrast for
     # launch C), on 44.1 kHz at n_fft 1764 (the radix-7 stages) and 1323
-    # (odd: launch A's two frames a row) with contrast, and on n_fft 2704
-    # with contrast (fft_stage_prime), the counters set to 0 just before
-    # each; their times phase 4's at B = 1024 on n_fft 2048.
+    # (odd: launch A's two frames a row) with contrast, on n_fft 2704 with
+    # contrast (fft_stage_prime) and on 2192 with contrast (Bluestein's
+    # stage), the counters set to 0 just before each; their times phase 4's
+    # at B = 1024 on n_fft 2048.
     for part, cfg_name, launch_name, kernel, counter in (
         ("spectral", "nfft2048", "frontend_spectral_fft", "spectral_fft_kernel", "SPECTRAL_FFT_LAUNCHES"),
         ("contrast", "nfft2048_contrast", "frontend_contrast_fft", "contrast_fft_kernel", "CONTRAST_FFT_LAUNCHES"),
     ):
         row = coverage_timing[cfg_name][part]
-        paths = (cfg_name, "sr44k_nfft1764_contrast", "sr44k_nfft1323_contrast", "nfft2704_contrast")
+        paths = (cfg_name, "sr44k_nfft1764_contrast", "sr44k_nfft1323_contrast", "nfft2704_contrast",
+                 "nfft2192_contrast")
         kernels.append({
             "name": launch_name,
             "route": "cuda",

@@ -75,13 +75,13 @@
 //    zeroing loop; the mbarrier wait loop and the lane-0 refill are inside
 //    asm, with predicates, so no C++ branch surrounds an in-flight group.
 //
-//  * Every config. An n_fft whose largest prime factor is at most
-//    kFftMaxPrime, odd or even, from 640 on, or past 128 mels, takes the
-//    FFT plan (spectral_fft_kernel, plan_a; its note with the FFT plans
-//    below): at n_fft 2048 this GEMM ran 13.75 ms at B = 1024 where cuFFT
-//    and a mel matmul take 1.06, and on 256 mels its two mel groups 1.34
-//    ms against the FFT plan's 0.67. Any other n_fft (one with a prime
-//    factor past the cap) stays here:
+//  * Every config. An n_fft that the FFT plans fit (fft_fits, LayoutF: a
+//    prime factor up to 1997), odd or even, from 640 on, or past 128 mels,
+//    takes the FFT plan (spectral_fft_kernel, plan_a; its note with the
+//    FFT plans below): at n_fft 2048 this GEMM ran 13.75 ms at B = 1024
+//    where cuFFT and a mel matmul take 1.06, and on 256 mels its two mel
+//    groups 1.34 ms against the FFT plan's 0.67. Any other n_fft (a prime
+//    factor past 1997, past 16384) stays here:
 //    more than 128 mels take mel groups of at most 128, each its own
 //    blocks on grid x, the DFT run again for each (the registers hold one
 //    group's mel accumulators beside the DFT's); a tile whose waveform
@@ -104,8 +104,9 @@
 // their radix-11 stages and odd frames, on n_fft 2662 with contrast (22.9
 // against 4.5) and the odd 1323 at 44.1 kHz (10.9-11.5 against 2.9);
 // until their generic prime stage, on a factor of 13 (2704 with contrast
-// 22.9 against 4.4). An n_fft with a prime factor past kFftMaxPrime still
-// takes them, and loses (2192 at 256 mels: 29.4 ms against 1.8).
+// 22.9 against 4.4); until their Bluestein stage, on a prime factor past
+// 127 (2192 at 256 mels: 29.4 ms against 1.8). An n_fft the FFT plans do
+// not fit (a prime factor past 1997) still takes them.
 //
 // Launch B: one block per clip, because the per-clip reductions (dB max,
 // PCEN min/max, MFCC mean/variance) span all frames; FP32 on the CUDA
@@ -161,7 +162,9 @@ constexpr int kBandChunk = 128;                     // launch C: a band's bins a
 constexpr int kFftPoints = 8192;                    // FFT plans: complex points a block holds (64 KB)
 constexpr int kFftMaxFrames = 32;                   // FFT plans: frames a block takes at most
 constexpr int kFftMinNfft = 640;                    // FFT plans: the least n_fft they take (past 128 mels any)
-constexpr int kFftMaxPrime = 127;                   // FFT plans: the largest prime factor of an n_fft they take
+constexpr int kFftMaxPrime = 113;                   // FFT plans: the largest prime of fft_stage_prime; past it Bluestein
+constexpr int kSmemTwo = kSmemSM / 2 - 1024;        // bytes a block may use for two blocks an SM
+constexpr int kBluesteinPoints = 4096;              // Bluestein's convolution: its m points at most
 constexpr int kPostItems = kFftPoints / kThreadsA + 1;  // launch A's FFT plan: power values a thread holds
 constexpr float kAmin = 1e-10f;
 constexpr float kDbScale = 4.3429448190325175f;  // 10 / ln(10)
@@ -1604,9 +1607,10 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 
 // -- The FFT plans of launches A and C ------------------------------------------
 //
-// For an n_fft whose largest prime factor is at most kFftMaxPrime, odd or
-// even, from kFftMinNfft on (fft_nfft), launches A and C compute their
-// spectra by FFT instead of the DFT as a GEMM (plan_a, plan_c): the GEMM
+// For an n_fft whose rows, Bluestein scratch and tables fit a block, odd
+// or even, from kFftMinNfft on (fft_fits, LayoutF), launches A and C
+// compute their spectra by FFT instead of the DFT as a GEMM (plan_a,
+// plan_c): the GEMM
 // costs O(n_fft) a bin, and at n_fft 2048 it pads 32 frames to 128 rows, runs 256 k-steps over 2,048
 // taps and 9 passes over 1,025 bins, three TF32 products each, where an
 // FFT costs O(log n_fft) a bin.
@@ -1617,7 +1621,9 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (one of
 //    radix 2 first when the points hold an odd power of two, then radix 4,
 //    then radix 3, 5, 7 and 11, each R-point DFT in registers, then one
-//    stage of each larger prime factor, fft_stage_prime), every frame of
+//    stage of each larger prime factor up to kFftMaxPrime, fft_stage_prime,
+//    and last one of a prime past it by Bluestein's chirp-z,
+//    fft_stage_bluestein), every frame of
 //    the block at once, each stage in place: a thread reads its
 //    butterflies' points into registers, the block meets at a barrier,
 //    then it writes their outputs. Rows and butterfly indices come by
@@ -1678,20 +1684,60 @@ __host__ __device__ inline int largest_prime(int n) {
   return n > 1 ? n : p;
 }
 
+// Whether n's prime factors are all at most 11 (the radix stages').
+__host__ __device__ inline bool smooth11(int n) {
+  for (int f = 2; f <= 11; ++f)
+    while (n % f == 0) n /= f;
+  return n == 1;
+}
+
+// The prime factor of an n_fft that the FFT plans compute by Bluestein's
+// stage (fft_stage_bluestein): its largest, where it passes kFftMaxPrime;
+// else 0. A row holds at most kFftPoints points and kFftMaxPrime^2 passes
+// that, so a row's points have at most one such factor.
+static_assert(kFftMaxPrime * kFftMaxPrime > kFftPoints, "at most one prime factor past the cap a row");
+__host__ __device__ inline int bluestein_prime(int n_fft) {
+  const int p = largest_prime(n_fft);
+  return p > kFftMaxPrime ? p : 0;
+}
+
+// Bluestein's convolution length for a prime P: the smallest odd 11-smooth
+// m >= 2 P - 1, so the radix stages compute its FFT and a butterfly's row
+// of m points starts 2m words after its neighbour's, in another bank pair
+// (an even m put up to 8 of a warp's 16 float2 writes in one bank).
+__host__ __device__ inline int bluestein_points(int P) {
+  int m = 2 * P - 1;
+  while (!smooth11(m)) m += 2;
+  return m;
+}
+
 // Launch A's complex points a row of its FFT: n_fft / 2 for an even n_fft
 // (a frame packed as complex), n_fft for an odd one (two frames a row).
 __host__ __device__ inline int fft_points_a(int n_fft) { return n_fft % 2 ? n_fft : n_fft / 2; }
 
 // The FFT plans' shared memory, in floats: the points (2 floats each,
-// rows x points a row), the frames' waveform span, the twiddles (n_fft / 2
-// + 1 float2), then for launch C the group's power rows (frames x n_pow)
-// and the reduction slots (its contrast rows go to the output and are
-// z-normed there in place). A row holds a frame, or two for launch A on an
-// odd n_fft. `rows` halves from its most until the layout fits; launch C's
-// most is rounded down to a power of two, since its threads split evenly
-// over the frames (tpf).
+// rows x points a row), the frames' waveform span, the tables (n_fft / 2 +
+// 1 float2 of twiddles, then for a prime past kFftMaxPrime Bluestein's
+// chirp, B^ and m-point twiddles: P + m + m / 2 + 1 float2), then for
+// launch C the group's power rows (frames x n_pow) and the reduction slots
+// (its contrast rows go to the output and are z-normed there in place). A
+// row holds a frame, or two for launch A on an odd n_fft. Bluestein's
+// scratch takes the span's place (the span is read before the FFT) and
+// grows it where it needs more room: `group` rows of m points, a
+// butterfly's each, then a buffer of m points for each of `warps` warps.
+// Of the rows that fit while two blocks still fit an SM (kSmemTwo; a block
+// an SM's kMaxSmem where the rest passes that already), half go to warps'
+// buffers, up to kWarpsA, at least one, and the rest to the butterflies,
+// at least one, in whole rounds of the warps (with 10 rows to 8 warps a
+// pass took two rounds), then spread evenly over the passes.
+// `rows` halves from its most until the layout fits; launch C's most is
+// rounded down to a power of two, since its threads split evenly over the
+// frames (tpf). The host builds it and the kernels take it as an
+// argument: no thread computes it, nor searches for the prime (a prime
+// search in every thread cost the older plans 1.6-4.8%, PERF.md).
 struct LayoutF {
   int rows, frames, span, tw, pow, red, end;
+  int bp, bm, group, warps, tables;  // Bluestein's prime (0: none), its m, butterflies a pass, warps; tables' float2
 
   // Launch A (fft_points_a a row; no power rows).
   __host__ __device__ LayoutF(int n_fft, int hop) { fit(fft_points_a(n_fft), 1 + n_fft % 2, n_fft, hop, 0, false); }
@@ -1700,14 +1746,36 @@ struct LayoutF {
   __host__ __device__ LayoutF(int n_fft, int hop, int n_pow) { fit(n_fft, 1, n_fft, hop, n_pow, true); }
 
   __host__ __device__ void fit(int points, int per_row, int n_fft, int hop, int n_pow, bool contrast) {
+    bp = bluestein_prime(n_fft);
+    bm = bp ? bluestein_points(bp) : 0;
+    tables = n_fft / 2 + 1 + (bp ? bp + bm + bm / 2 + 1 : 0);
+    const int twf = n_fft + 2 + 2 * (tables - n_fft / 2 - 1);
     rows = kFftPoints / points < kFftMaxFrames / per_row ? kFftPoints / points : kFftMaxFrames / per_row;
     if (contrast)
       while (rows & (rows - 1)) rows &= rows - 1;
     for (;; rows /= 2) {
       frames = rows * per_row;
+      const int spanf = ((frames - 1) * hop + n_fft + 3) / 4 * 4;
+      const int rest = 2 * rows * points + twf + (contrast ? (frames * n_pow + 3) / 4 * 4 + kRedC : 0);
+      int region = spanf;
+      group = warps = 0;
+      if (bp) {
+        int nb = rows * points / bp;
+        nb = nb < 1 ? 1 : nb;  // (rows 0: fft_fits refuses the n_fft)
+        const int most = rest + spanf <= kSmemTwo / 4 ? kSmemTwo / 4 : (int)(kMaxSmem / 4);
+        const int room = most - rest > spanf ? most - rest : spanf;
+        const int fit = room / (2 * bm);  // rows of m points
+        warps = fit / 2 < 1 ? 1 : fit / 2 < kWarpsA ? fit / 2 : kWarpsA;
+        int g = fit - warps < 1 ? 1 : fit - warps < nb ? fit - warps : nb;
+        if (g > warps) g -= g % warps;  // whole rounds of the warps
+        const int passes = (nb + g - 1) / g;
+        group = (nb + passes - 1) / passes;
+        warps = warps < group ? warps : group;
+        if (2 * (group + warps) * bm > region) region = (2 * (group + warps) * bm + 3) / 4 * 4;
+      }
       span = 2 * rows * points;
-      tw = span + ((frames - 1) * hop + n_fft + 3) / 4 * 4;
-      pow = tw + n_fft + 2;
+      tw = span + region;
+      pow = tw + twf;
       red = pow + (frames * n_pow + 3) / 4 * 4;
       end = contrast ? red + kRedC : pow;
       if (rows <= 1 || sizeof(float) * end <= kMaxSmem) break;
@@ -1718,17 +1786,19 @@ struct LayoutF {
 };
 
 // Whether the FFT plans' kernels take an n_fft at all: from 64, odd or
-// even, any prime factors (a prime past 11 runs fft_stage_prime), a row of
-// points (fft_points_a for launch A, n_fft for launch C) that fits a
-// block's points; the twiddle table's conjugate half holds for any n_fft.
-// Their C entry points take what this takes, whatever the plan says.
+// even, any prime factors (past 11 fft_stage_prime, past kFftMaxPrime
+// Bluestein's stage), a row of points (fft_points_a for launch A, n_fft
+// for launch C) that fits a block's points, and Bluestein's m at most
+// kBluesteinPoints; the twiddle table's conjugate half holds for any
+// n_fft. Their C entry points take what this takes where LayoutF fits,
+// whatever the plan says.
 __host__ __device__ inline bool fft_fits(int n_fft, int points_a_row) {
-  return n_fft >= 64 && points_a_row <= kFftPoints;
+  const int bp = bluestein_prime(n_fft);
+  return n_fft >= 64 && points_a_row <= kFftPoints && (!bp || bluestein_points(bp) <= kBluesteinPoints);
 }
 
-// Whether an n_fft takes an FFT plan: one that fft_fits, whose largest
-// prime factor is at most kFftMaxPrime. plan_a and plan_c take it from
-// kFftMinNfft on, and
+// The plan rule: an n_fft takes an FFT plan where fft_fits and LayoutF
+// fits a block; plan_a and plan_c take it from kFftMinNfft on, and
 // launch A also past 128 mels, where its GEMM plan runs the DFT again for
 // each mel group (1.34 ms at B = 1024 on 256 mels, the FFT plan 0.67). At
 // 128 mels and hop n_fft / 4 the FFT plan beat the GEMM at B = 1024 and
@@ -1738,36 +1808,44 @@ __host__ __device__ inline bool fft_fits(int n_fft, int points_a_row) {
 // 1.8x), and odd on 675 (A 1.8-1.9x, C 1.4-1.5x) and 693 (3^2 7 11: A
 // 1.5-1.9x, C 1.5-1.7x), so one threshold serves all; the GEMM keeps n_fft
 // 512 (the shipped config: 0.99 ms against the FFT's 1.74 at B = 4096;
-// tools/spectral_probe.py, tools/contrast_probe.py).
+// tools/spectral_probe.py, tools/contrast_probe.py). An n_fft that nothing
+// fits keeps its GEMM (launch A past 16384, launch C past 8192, or a
+// prime whose Bluestein tables and scratch pass shared memory).
 // kFftMaxPrime, by the probes' --primes sections: at B = 1024, 128 mels,
 // hop n_fft / 4, on the 16 kHz window of p ms (n_fft 16 p), each plan in
 // turns with the library call (launch A: torch.stft + mel; C: the fft
-// rows), ms (H100 at 700 W; PERF.md):
-//     p  n_fft   A: FFT  GEMM  library   C: FFT  GEMM  fft rows
-//    13    208     1.00  0.51     1.28     2.37  1.89      6.04
-//    17    272     0.94  0.71     1.20     2.28  1.61      5.82
-//    23    368     0.88  0.86     1.22     2.08  2.01      5.42
-//    31    496     0.99  1.09     1.32     2.15  2.29      5.43
-//    43    688     1.12  1.06     1.71     2.25  2.33      5.97
-//    61    976     1.27  1.87     1.66     2.60  4.88      5.61
-//    89   1424     1.56  6.66     1.79     3.10  9.50      5.95
-//   127   2032     1.63 12.23     2.00     3.49 20.33      6.02
-// The FFT plans beat the library call at every probed prime, and the GEMM
-// at every one from kFftMinNfft on but launch A's 43 (688 taps, 5-7%);
-// 127, the largest probed, is the cap. fft_stage_prime costs P / 2
-// iterations a point, so past it the FFT plans near the library call
-// (launch A 1.63 against 2.00 at 127). The threshold held on a factor of
-// 13 at 676 and 715 for both launches and at 650 for launch A; at 650
-// launch C's FFT plan ran 1.99-2.07 against the GEMM's 1.95-1.97 ms.
-__host__ __device__ inline bool fft_nfft(int n_fft, int points_a_row) {
-  return fft_fits(n_fft, points_a_row) && largest_prime(n_fft) <= kFftMaxPrime;
-}
-
+// rows) and the other prime stage (generic to the cap, Bluestein's past
+// it: variants of kFftMaxPrime), the slower of two reads, ms (H100 at
+// 700 W; PERF.md):
+//     p  n_fft   A: generic Bluestein  GEMM  library   C: generic Bluestein  GEMM  fft rows
+//    13    208         1.01         -  0.51     1.29         2.32         -  1.89      6.06
+//    43    688         1.12         -  1.06     1.70         2.20         -  2.34      6.03
+//    89   1424         1.55         -  6.69     1.78         3.02         -  9.53      5.99
+//   101   1616         1.42      1.88  8.79     1.90         3.04      4.07 11.66      5.90
+//   113   1808         1.56      1.74 10.91     1.96         3.25      3.81 16.95      5.99
+//   127   2032         1.63      1.45 12.27     2.02         3.39      3.60 20.44      6.17
+//   131   2096         1.94      1.61 14.18     1.56         3.94      3.38 22.66      5.06
+//   137   2192         2.11      1.42 14.84     1.69         3.87      3.23 15.66      5.27
+//   173   2768         2.26      1.86 22.60     1.61         4.59      3.90 23.72      5.05
+//   257   4112         3.40      2.01 49.91     1.77         6.65      4.30 49.67      5.28
+//   409   6544         4.29      2.23 123.6     1.53        17.99     22.65 119.0      4.90
+// (tools/spectral_probe.py, tools/contrast_probe.py --primes, PERF.md has
+// every probed prime). The generic stage costs P / 2 + 1 multiply-add
+// pairs a point, Bluestein's two FFTs of m ~ 2P points a butterfly: the
+// generic stage's plans beat the GEMM and the library to 127 (launch A
+// loses to its library from 131), and Bluestein's plans beat the generic
+// ones from 127 on launch A (from 131 on launch C, 4-7% slower at 127).
+// The cap is where Bluestein's stage starts to win: 113, the largest
+// probed prime under 127. Bluestein's launch A still loses to its library
+// from 131 but at 137 (2192); its launch C beats the fft rows to 257. The
+// threshold held on a factor of 13 at 676 and 715 for both launches and
+// at 650 for launch A; at 650 launch C's FFT plan ran 1.99-2.07 against
+// the GEMM's 1.95-1.97 ms.
 // Launch A's plan: the FFT, else the GEMM with its span staged or not.
 enum { kPlanGemmUnstaged = 0, kPlanGemmStaged = 1, kPlanFft = 2 };
 
 __host__ __device__ inline int plan_a(int n_fft, int hop, int kpad, int n_mels) {
-  if (fft_nfft(n_fft, fft_points_a(n_fft)) && (n_fft >= kFftMinNfft || n_mels > 128) &&
+  if (fft_fits(n_fft, fft_points_a(n_fft)) && (n_fft >= kFftMinNfft || n_mels > 128) &&
       LayoutF(n_fft, hop).bytes() <= kMaxSmem)
     return kPlanFft;
   return staged_a(hop, kpad) ? kPlanGemmStaged : kPlanGemmUnstaged;
@@ -1777,7 +1855,7 @@ __host__ __device__ inline int plan_a(int n_fft, int hop, int kpad, int n_mels) 
 enum { kPlanCFft = 4 };
 
 __host__ __device__ inline int plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, int n_bands) {
-  if (fft_nfft(n_fft, n_fft) && n_fft >= kFftMinNfft && LayoutF(n_fft, hop, n_pow).bytes() <= kMaxSmem)
+  if (fft_fits(n_fft, n_fft) && n_fft >= kFftMinNfft && LayoutF(n_fft, hop, n_pow).bytes() <= kMaxSmem)
     return kPlanCFft;
   return LayoutC(hop, kpad, n_pow, n_frames, n_bands + 1).level;
 }
@@ -2051,22 +2129,60 @@ __device__ __noinline__ void fft_stage_prime_call(float2* buf, int total, int p,
 }
 
 // fft_stage_prime in launch C's instance for a prime factor past 11
-// (contrast_fft_kernel<11, true>): inlined (1) or called (2). Called, it
+// (contrast_fft_kernel<11, true, 0>): inlined (1) or called (2). Called, it
 // ran n_fft 1664 with contrast in 2.02 ms against 2.20 inlined, 650 in 2.06
 // against 2.26, 2704 in 2.13 against 2.14 (B = 1024, in turns,
 // tools/contrast_probe.py --primes); launch A inlines it: called, its 832
 // at 256 mels and odd 1365 ran 4-6% slower (tools/spectral_probe.py).
 constexpr int kPrimeC = 2;
 
+// Bluestein's stage's operands (LayoutF): the prime P past kFftMaxPrime,
+// the convolution's m points, the butterflies a pass and the warps that
+// run them, the scratch (group rows of m points, then a buffer of m points
+// a warp, in the span's place) and the tables staged in shared
+// memory after the twiddles: the chirp c_s = e^{-pi i s^2 / P} for s in
+// [0, P), B^ = FFT_m(b) / m of the wrapped conjugate chirp (b_t = conj
+// c_t and b_{m-t} = conj c_t for t in [0, P), zeros between), and the
+// twiddles e^{-2 pi i k / m} for k in [0, m / 2] (ops/frontend_kernel.py::
+// _bluestein_tables, float64 rounded once).
+struct Bluestein {
+  int P, m, group, warps;
+  float2* scratch;
+  const float2* chirp;  // then B^ and the m-point twiddles (two pointers fewer in registers)
+
+  __device__ Bluestein(const LayoutF& lay, float* base, const float2* tables, int n_fft)
+      : P(lay.bp), m(lay.bm), group(lay.group), warps(lay.warps), scratch(reinterpret_cast<float2*>(base + lay.span)),
+        chirp(tables + n_fft / 2 + 1) {}
+  __device__ const float2* bhat() const { return chirp + P; }
+  __device__ const float2* tw() const { return chirp + P + m; }
+};
+
+// Bluestein's stage in an instance: 0 none, 1 inlined, 2 called
+// (fft_stage_bluestein_call). Both launches inline it: called, launch A's
+// 2192 ran 1.66-1.67 ms against 1.36-1.42 inlined and launch C's
+// 3.69-3.70 against 3.11-3.23 (B = 1024, in turns, tools/*_probe.py
+// --primes; PERF.md).
+__device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int p, int n_fft, const float2* tw,
+                                                    const Bluestein& bl);
+__device__ __noinline__ void fft_stage_bluestein_call(float2* buf, int total, int p, int n_fft, const float2* tw,
+                                                      const Bluestein& bl);
+constexpr int kBluesteinA = 1;
+constexpr int kBluesteinC = 1;
+
 // fft_rows for p = 2^a 3^b 5^c 7^d 11^e P1 P2 ... (primes P_i > 11) that is
 // not a power of two: one of radix 2 when a is odd, then radix 4, then the
 // 3s, the 5s, the 7s, the 11s, then one fft_stage_prime for each larger
-// prime factor, smallest first, with multiplicity. kRadix, the instance's
-// largest odd radix in registers (7 or 11); kPrime, whether the instance
-// runs the primes past it by fft_stage_prime (0 not at all: p then has
-// none; 1 inlined; 2 called): see fft_rows.
-template <int kRadix, int kPrime>
-__device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, int n_fft, const float2* tw) {
+// prime factor, smallest first, with multiplicity, up to kFftMaxPrime,
+// and past it fft_stage_bluestein (then the last stage: a row has at most
+// one such prime, the largest). kRadix, the instance's largest odd radix
+// in registers (7 or 11); kPrime, whether the instance runs the primes
+// past it by fft_stage_prime (0 not at all: p then has none; 1 inlined; 2
+// called); kBluestein, whether it runs a prime past kFftMaxPrime by
+// Bluestein's stage (0 not at all; 1 inlined; 2 called; bl its operands):
+// see fft_rows.
+template <int kRadix, int kPrime, int kBluestein>
+__device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, int n_fft, const float2* tw,
+                                               const Bluestein* bl) {
   static_assert(kRadix == 7 || kRadix == 11, "an instance of radix 7 or 11");
   int twos = 0, threes = 0, sevens = 1, elevens = 1, rest = 1;  // 7^d, 11^e, and the primes past kRadix's product
   for (int r = p; r % 2 == 0; r /= 2) ++twos;
@@ -2095,6 +2211,14 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
       int f = 11;
       while (f * f <= rest && rest % f) f += 2;
       if (f * f > rest) f = rest;
+      if constexpr (kBluestein != 0)
+        if (f > kFftMaxPrime) {
+          if constexpr (kBluestein == 1)
+            fft_stage_bluestein(buf, total, p, n_fft, tw, *bl);
+          else
+            fft_stage_bluestein_call(buf, total, p, n_fft, tw, *bl);
+          break;
+        }
       if constexpr (kPrime == 1)
         fft_stage_prime(buf, total, p, ns, n_fft, tw, f);
       else
@@ -2128,11 +2252,12 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
 // 1323), in turns with the source before it (tools/contrast_probe.py
 // --primes);
 // compiled into launch A's one instance it moved its plans 0.4-2.4%.
-template <int kRadix, int kPrime>
-__device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft, const float2* tw) {
+template <int kRadix, int kPrime, int kBluestein = 0>
+__device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft, const float2* tw,
+                                         const Bluestein* bl = nullptr) {
   const int total = rows * p;
-  if (p & (p - 1)) {
-    fft_rows_mixed<kRadix, kPrime>(buf, total, p, n_fft, tw);
+  if (kBluestein != 0 || (p & (p - 1))) {  // (a prime past the cap: no power of two)
+    fft_rows_mixed<kRadix, kPrime, kBluestein>(buf, total, p, n_fft, tw, bl);
     return;
   }
   int ns = 1;
@@ -2141,6 +2266,134 @@ __device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft
     ns = 2;
   }
   for (; ns < p; ns *= 4) fft_stage<4, true>(buf, total, p, ns, n_fft, tw);
+}
+
+// One out-of-place Stockham stage of radix R over a row of m points by one
+// warp: butterfly j reads src[j + r m / R] (times pre[] and conjugated
+// where pre is given), times w_{ns R}^{r (j mod ns)} from the m-point
+// table, and writes output r to dst[(j - j mod ns) R + j mod ns + r ns]:
+// fft_stage's arithmetic with no block barrier, a butterfly in registers
+// at a time; then the warp meets at __syncwarp. The first stage (ns = 1:
+// its twiddles are 1, not multiplied) reads zeros from point `valid` on;
+// the last (ns R = m) writes only outputs under `keep`.
+template <int R>
+__device__ __forceinline__ void warp_stage(const float2* src, float2* dst, int m, int ns, const float2* tw,
+                                           const float2* pre, int valid, int keep, int lane) {
+  const int q = m / R, step = m / (ns * R);
+  const DivBy by_ns(ns);
+  if (ns > 1) valid = m;
+  if (ns * R < m) keep = m;
+  for (int j = lane; j < q; j += 32) {
+    const int k = j - by_ns(j) * ns;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = j + r * q;
+      v[r] = i < valid ? src[i] : make_float2(0.0f, 0.0f);
+      if (pre) {
+        const float2 z = cmul(v[r], pre[i]);
+        v[r] = make_float2(z.x, -z.y);
+      }
+    }
+    if (ns > 1)
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], twiddle(tw, r * k * step, m));
+    dft_points<R>(v);
+    float2* d = dst + (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((j - k) * R + k + r * ns < keep) d[r * ns] = v[r];
+  }
+  __syncwarp();
+}
+
+// The FFT of a row of odd 11-smooth m points by one warp, out of place
+// through `tmp` (m points), in the radix stages' order (3s, 5s, 7s, 11s:
+// fft_rows_mixed's for an odd count); pre, valid and keep as warp_stage's.
+// Returns where the result lies: row after an even count of stages, tmp
+// after an odd one.
+__device__ __forceinline__ float2* warp_fft(float2* row, float2* tmp, int m, const float2* tw, const float2* pre,
+                                            int valid, int keep, int lane) {
+  float2 *src = row, *dst = tmp;
+  int ns = 1;
+  for (; m % (ns * 3) == 0; ns *= 3, pre = nullptr) {
+    warp_stage<3>(src, dst, m, ns, tw, pre, valid, keep, lane);
+    float2* t = src; src = dst; dst = t;
+  }
+  for (; m % (ns * 5) == 0; ns *= 5, pre = nullptr) {
+    warp_stage<5>(src, dst, m, ns, tw, pre, valid, keep, lane);
+    float2* t = src; src = dst; dst = t;
+  }
+  for (; m % (ns * 7) == 0; ns *= 7, pre = nullptr) {
+    warp_stage<7>(src, dst, m, ns, tw, pre, valid, keep, lane);
+    float2* t = src; src = dst; dst = t;
+  }
+  for (; ns < m; ns *= 11, pre = nullptr) {
+    warp_stage<11>(src, dst, m, ns, tw, pre, valid, keep, lane);
+    float2* t = src; src = dst; dst = t;
+  }
+  return src;
+}
+
+// The last Stockham stage, of a prime radix P past kFftMaxPrime, by
+// Bluestein's chirp-z: the P-point DFT X_k = sum_s x_s w_P^{ks} is c_k
+// (a * b)_k with a_s = x_s c_s, b_t = conj c_t and c_s = e^{-pi i s^2 / P}
+// (k s = (k^2 + s^2 - (k - s)^2) / 2), the cyclic convolution of m >= 2P -
+// 1 points computed by FFTs of m points (m odd and 11-smooth: radix
+// stages, nothing recurses). The last stage (ns = p / P = q): butterfly j
+// of a row reads its points j + s q, times w_p^{s j} from the twiddle
+// table, and writes output k where it read point k, so a pass of
+// butterflies needs no other pass's reads. Each pass of `group`
+// butterflies, three block barriers:
+//  1. the block: a_s = x_s w_p^{s j} c_s into the butterfly's scratch row
+//     for s < P (consecutive threads on consecutive butterflies; m odd, so
+//     their rows fall in distinct banks); a barrier;
+//  2. each of `warps` warps takes rows w, w + warps, ...: FFT_m out of
+//     place through its own buffer (its first stage reads zeros from P
+//     on), then FFT_m again, its first stage reading each point times B^
+//     (1 / m in it) and conjugated, its last writing outputs under P, back
+//     into the row after an even count of stages: the conjugate of the
+//     convolution. Only __syncwarp between stages: the block's stage
+//     barriers cost the first design 1.5x (PERF.md); a barrier;
+//  3. the block: X_k = c_k conj(z_k) for k < P, to the butterfly's points;
+//     a barrier.
+// A stage costs two FFTs of m points, O(m log m), a butterfly, where
+// fft_stage_prime costs P / 2 + 1 multiply-add pairs a point.
+__device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int p, int n_fft, const float2* tw,
+                                                    const Bluestein& bl) {
+  const int P = bl.P, m = bl.m, q = p / P, nb = total / P, step = n_fft / p;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const DivBy by_q(q);
+  float2* tmp = bl.scratch + (bl.group + warp) * m;
+  for (int b0 = 0; b0 < nb; b0 += bl.group) {
+    const int g = min(bl.group, nb - b0);
+    const DivBy by_g(g);
+    for (int e = threadIdx.x; e < g * P; e += kThreadsA) {
+      const int s = by_g(e), i = e - s * g, j = b0 + i, row = by_q(j), k = j - row * q;
+      float2 v = buf[row * p + k + s * q];
+      if (s) v = cmul(v, twiddle(tw, s * k * step, n_fft));
+      bl.scratch[i * m + s] = cmul(v, bl.chirp[s]);
+    }
+    __syncthreads();
+    if (warp < bl.warps)
+      for (int i = warp; i < g; i += bl.warps) {
+        float2* row = bl.scratch + i * m;
+        float2* a = warp_fft(row, tmp, m, bl.tw(), nullptr, P, m, lane);
+        warp_fft(a, a == row ? tmp : row, m, bl.tw(), bl.bhat(), m, P, lane);
+      }
+    __syncthreads();
+    for (int e = threadIdx.x; e < g * P; e += kThreadsA) {
+      const int s = by_g(e), i = e - s * g, j = b0 + i, row = by_q(j), k = j - row * q;
+      const float2 z = bl.scratch[i * m + s];
+      buf[row * p + k + s * q] = cmul(make_float2(z.x, -z.y), bl.chirp[s]);
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __noinline__ void fft_stage_bluestein_call(float2* buf, int total, int p, int n_fft, const float2* tw,
+                                                      const Bluestein& bl) {
+  fft_stage_bluestein(buf, total, p, n_fft, tw, bl);
 }
 
 // One frame's contrast in one band of w <= 32 kK bins at pb, by a warp:
@@ -2214,30 +2467,44 @@ __device__ __forceinline__ void stage_flat(float* span, const WaveSrc& src, int 
 // and its frames [t0, t0 + frames) from t0 = (i % groups) * frames (LayoutF's
 // frames); window (n_fft) the padded win_length Hann; twiddles (n_fft / 2 +
 // 1 float2); fb_w the filters' nonzero weights, mel by mel, and fb_ranges
-// (n_mels x 3) per mel its first bin, bins and offset in fb_w. One
-// instance for every n_fft: its stages of radix 2 to 11 and of larger
-// primes (fft_rows), and on an odd n_fft two frames a row of n_fft points.
+// (n_mels x 3) per mel its first bin, bins and offset in fb_w; past the
+// twiddles, Bluestein's tables where the n_fft has a prime past
+// kFftMaxPrime (LayoutF's tables). One instance for every n_fft without
+// such a prime: its stages of radix 2 to 11 and of larger primes
+// (fft_rows), and on an odd n_fft two frames a row of n_fft points; and
+// one with Bluestein's stage (kBluestein, kBluesteinA) for those with one,
+// so that the others' plans keep their registers.
+template <int kBluestein>
 __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
-    const float* __restrict__ window, const float2* __restrict__ twiddles, int n_used,
+    const float* __restrict__ window, const float2* __restrict__ twiddles, const LayoutF lay, int n_used,
     const float* __restrict__ fb_w, const int* __restrict__ fb_ranges, int n_mels, int use_pre,
     float pre_coef, float* __restrict__ mel_out) {
   extern __shared__ float4 smem4[];
-  const LayoutF lay(n_fft, hop);
   float* base = reinterpret_cast<float*>(smem4);
   float2* buf = reinterpret_cast<float2*>(base);
   float* span = base + lay.span;
   float2* tw = reinterpret_cast<float2*>(base + lay.tw);
-  const int F = lay.frames, m = n_fft / 2, half = n_fft / 2;
+  const int m = n_fft / 2;
   const bool pairs = n_fft % 2;  // two frames a row (F is even)
   const int points = pairs ? n_fft : m;
-  const int groups = (n_frames + F - 1) / F;
+  const int groups = (n_frames + lay.frames - 1) / lay.frames;
+  // The instance with Bluestein's stage spreads a clip's frames evenly
+  // over its groups (n_fft 1048 at hop 262: 13 frames a block, not 15 and
+  // a last block of 2), so its blocks' stages run fewer rows; the other
+  // keeps LayoutF's frames.
+  int F = lay.frames;
+  if constexpr (kBluestein != 0) {
+    F = (n_frames + groups - 1) / groups;
+    F += pairs && F % 2;
+  }
+  const int rows = pairs ? F / 2 : F;
   const int b = blockIdx.x / groups, t0 = blockIdx.x % groups * F, frames = min(F, n_frames - t0);
   const int tid = threadIdx.x;
 
-  // 1. The twiddles, and the group's span: reflect padding and
+  // 1. The tables, and the group's span: reflect padding and
   // pre-emphasis, zeros past its last frame.
-  for (int i = tid; i <= half; i += kThreadsA) tw[i] = twiddles[i];
+  for (int i = tid; i < lay.tables; i += kThreadsA) tw[i] = twiddles[i];
   WaveSrc src;
   src.x = wave + (size_t)b * n_samples;
   src.n_samples = n_samples;
@@ -2253,7 +2520,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   // parts of row j's n_fft points, zeros for a frame past the clip's last.
   if (pairs) {
     const DivBy by_n(n_fft);
-    for (int e = tid; e < lay.rows * n_fft; e += kThreadsA) {
+    for (int e = tid; e < rows * n_fft; e += kThreadsA) {
       const int j = by_n(e), n = e - j * n_fft;
       const float* x = span + 2 * j * hop + n;
       const float wn = __ldg(window + n);
@@ -2270,7 +2537,8 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   __syncthreads();
 
   // 3. The FFT of each row's points.
-  fft_rows<11, 1>(buf, pairs ? lay.rows : F, points, n_fft, tw);
+  const Bluestein bl(lay, base, tw, n_fft);
+  fft_rows<11, 1, kBluestein>(buf, rows, points, n_fft, tw, &bl);
 
   // 4. The real FFT's bins [0, n_used), their power in registers, then in
   // place of the points: F rows of an odd stride, so that the mel's reads
@@ -2334,16 +2602,17 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
 // twiddles (n_fft / 2 + 1 float2); the power rows cover bins [pow_lo, pow_lo
 // + n_pow); freqs, bands and out as contrast_kernel's. kRadix: the
 // instance's largest odd radix in registers; kPrime: whether it runs the
-// prime factors past 11 by fft_stage_prime (fft_rows).
-template <int kRadix, bool kPrime>
+// prime factors past 11 by fft_stage_prime; kBluestein: whether it runs
+// one past kFftMaxPrime by Bluestein's stage, its tables past the
+// twiddles (fft_rows).
+template <int kRadix, bool kPrime, int kBluestein>
 __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
-    const float* __restrict__ windows, const float2* __restrict__ twiddles, int pow_lo, int n_pow,
-    const float* __restrict__ freqs, float half_sr, const int4* __restrict__ bands, int n_bands,
+    const float* __restrict__ windows, const float2* __restrict__ twiddles, const LayoutF lay, int pow_lo,
+    int n_pow, const float* __restrict__ freqs, float half_sr, const int4* __restrict__ bands, int n_bands,
     float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int n_rows = n_bands + 1, n = n_rows * n_frames, half = n_fft / 2;
-  const LayoutF lay(n_fft, hop, n_pow);
   float* base = reinterpret_cast<float*>(smem4);
   float2* buf = reinterpret_cast<float2*>(base);
   float* span = base + lay.span;
@@ -2356,7 +2625,8 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
   const int f_own = tid / tpf, l_own = tid - f_own * tpf;
   const DivBy by_n(n_fft);
 
-  for (int i = tid; i <= half; i += kThreadsA) tw[i] = twiddles[i];
+  for (int i = tid; i < lay.tables; i += kThreadsA) tw[i] = twiddles[i];
+  const Bluestein bl(lay, base, tw, n_fft);
   WaveSrc src;
   src.x = wave + (size_t)blockIdx.x * n_samples;
   src.n_samples = n_samples;
@@ -2378,7 +2648,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     __syncthreads();
 
     // 2. The FFT of each frame's n_fft points.
-    fft_rows<kRadix, kPrime ? kPrimeC : 0>(buf, F, n_fft, n_fft, tw);
+    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, n_fft, tw, &bl);
 
     // 3. The two spectra: the power rows over the bands' bins, the
     // magnitude into the frame's sums; tpf threads a frame.
@@ -2503,25 +2773,27 @@ int cdt_frontend_spectral(
 }
 
 // Launch A, FFT plan (spectral_fft_kernel). wave (B, n_samples); window
-// (n_fft); twiddles (n_fft / 2 + 1, 2); fb_w and fb_ranges (n_mels, 3) int32
-// (ops/frontend_kernel.py::_fft_constants); mel (B, n_mels, n_frames). All
-// contiguous, on one device. Takes any n_fft that fft_fits and LayoutF
-// take, whatever plan_a says (tools/spectral_probe.py times it on the
-// shipped config).
+// (n_fft); twiddles (LayoutF's tables, 2): the n_fft / 2 + 1 twiddles, then
+// Bluestein's tables for a prime factor past kFftMaxPrime; fb_w and
+// fb_ranges (n_mels, 3) int32 (ops/frontend_kernel.py::_fft_constants);
+// mel (B, n_mels, n_frames). All contiguous, on one device. Takes any
+// n_fft that fft_fits and LayoutF take, whatever plan_a says
+// (tools/spectral_probe.py times it on the shipped config); the instance
+// with Bluestein's stage for a prime past kFftMaxPrime.
 int cdt_frontend_spectral_fft(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
     const float* window, const float* twiddles, int n_used, const float* fb_w, const int* fb_ranges,
     int n_mels, int use_pre, float pre_coef, float* mel, cudaStream_t stream) {
-  const LayoutF lay(n_fft, hop);
+  LayoutF lay(n_fft, hop);
   if (!fft_fits(n_fft, fft_points_a(n_fft)) || hop < 1 || n_used < 1 || n_used > n_fft / 2 + 1 ||
       lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const void* fn = (const void*)spectral_fft_kernel;
+  const void* fn = lay.bp ? (const void*)spectral_fft_kernel<kBluesteinA> : (const void*)spectral_fft_kernel<0>;
   const int err = set_smem(fn, lay.bytes());
   if (err) return err;
   const long long blocks = (long long)((n_frames + lay.frames - 1) / lay.frames) * batch;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &window, &twiddles, &n_used,
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &window, &twiddles, &lay, &n_used,
                   &fb_w, &fb_ranges, &n_mels, &use_pre, &pre_coef, &mel};
   const cudaError_t launched = cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(kThreadsA), args, lay.bytes(), stream);
   return launched ? (int)launched : (int)cudaGetLastError();
@@ -2602,27 +2874,29 @@ int cdt_frontend_plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, i
 }
 
 // Launch C, FFT plan (contrast_fft_kernel). wave (B, n_samples); windows
-// (2, n_fft); twiddles (n_fft / 2 + 1, 2) (ops/frontend_kernel.py's
-// _fft_constants); freqs (n_fft / 2 + 1); bands as cdt_frontend_contrast's;
-// out (B, n_bands + 1, n_frames). All contiguous, on one device. Takes
-// any n_fft that fft_fits and LayoutF take, whatever plan_c says. The
-// instance by the n_fft's largest prime factor: radix 7 up to 7, radix 11
-// at 11, and past 11 radix 11 with fft_stage_prime.
+// (2, n_fft); twiddles (LayoutF's tables, 2), as cdt_frontend_spectral_fft's
+// (ops/frontend_kernel.py's _contrast_fft_constants); freqs (n_fft / 2 +
+// 1); bands as cdt_frontend_contrast's; out (B, n_bands + 1, n_frames).
+// All contiguous, on one device. Takes any n_fft that fft_fits and LayoutF
+// take, whatever plan_c says. The instance by the n_fft's largest prime
+// factor: radix 7 up to 7, radix 11 at 11, past 11 radix 11 with
+// fft_stage_prime, and past kFftMaxPrime that with Bluestein's stage.
 int cdt_frontend_contrast_fft(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
     const float* windows, const float* twiddles, int pow_lo, int n_pow, const float* freqs,
     float half_sr, const int* bands, int n_bands, float* out, cudaStream_t stream) {
-  const LayoutF lay(n_fft, hop, n_pow);
+  LayoutF lay(n_fft, hop, n_pow);
   if (!fft_fits(n_fft, n_fft) || hop < 1 || n_bands < 0 || n_pow < 0 || pow_lo < 0 ||
       pow_lo + n_pow > n_fft / 2 + 1 || lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const int lp = largest_prime(n_fft);
-  const void* fn = lp <= 7    ? (const void*)contrast_fft_kernel<7, false>
-                   : lp == 11 ? (const void*)contrast_fft_kernel<11, false>
-                              : (const void*)contrast_fft_kernel<11, true>;
+  const void* fn = lp <= 7              ? (const void*)contrast_fft_kernel<7, false, 0>
+                   : lp == 11           ? (const void*)contrast_fft_kernel<11, false, 0>
+                   : lp <= kFftMaxPrime ? (const void*)contrast_fft_kernel<11, true, 0>
+                                        : (const void*)contrast_fft_kernel<11, true, kBluesteinC>;
   const int err = set_smem(fn, lay.bytes());
   if (err) return err;
-  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &windows, &twiddles, &pow_lo, &n_pow,
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &windows, &twiddles, &lay, &pow_lo, &n_pow,
                   &freqs, &half_sr, &bands, &n_bands, &out};
   const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsA), args, lay.bytes(), stream);
   return launched ? (int)launched : (int)cudaGetLastError();

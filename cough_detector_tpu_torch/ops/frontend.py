@@ -142,8 +142,23 @@ def magnitude_spectrogram(
 
 
 def mel_spectrogram(waveform: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
-    """(B, S) → (B, frames, n_mels) power mel spectrogram (time-major)."""
-    spec = power_spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.win_length)
+    """(B, S) → (B, frames, n_mels) power mel spectrogram (time-major).
+
+    On a CPU tensor the power spectrogram runs in float64 and each bin is
+    rounded once to the input's dtype before the mel: a float32 FFT's
+    rounding in the bins a sine sweep leaves near zero, which dB and the
+    DCT lift into the MFCCs, put the float32 chain up to 8.0e-4 from a
+    float64 chain on some CPUs (tools/host_numerics_probe.py), past what
+    the 1e-3 parity budget leaves beside the JAX chain's own 6.9e-4. The
+    mel sums positive bins, with no cancellation, so it stays in float32
+    (in float64 too it moved a detection's printed confidence off the JAX
+    CLI's, tests/test_torch_cli.py). A CUDA tensor keeps the float32
+    chain: it is the card's plain version, and its times are the float32
+    chain's."""
+    if waveform.device.type == "cpu":
+        spec = power_spectrogram(waveform.double(), cfg.n_fft, cfg.hop_length, cfg.win_length).to(waveform.dtype)
+    else:
+        spec = power_spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.win_length)
     return spec @ _mel_fb(cfg, waveform.device)
 
 

@@ -40,11 +40,13 @@ running the plain chain. Every config the JAX launcher sends to its Pallas
 kernel (`kernel_supports`) runs the launches on the card: each launch picks,
 from the config alone, a plan that fits the card's 227 KB of shared memory
 a block. Launches A and C compute their spectra by FFT for an n_fft whose
-largest prime factor is at most 127 (`_FFT_MAX_PRIME`), odd or even, from
-640 on (launch A also past 128 mels): the FFT plans (`spectral_plan`,
-`contrast_level` 4), Stockham stages of radix 2, 4, 3, 5, 7 and 11 and one
-of each larger prime factor (on an odd n_fft launch A runs two frames
-through one FFT). At any other n_fft (a prime factor past the cap) launch
+rows, Bluestein scratch and tables fit a block, odd or even, from 640 on
+(launch A also past 128 mels): the FFT plans (`spectral_plan`,
+`contrast_level` 4), Stockham stages of radix 2, 4, 3, 5, 7 and 11, one of
+each larger prime factor up to `_FFT_MAX_PRIME`, and one of a prime past
+it by Bluestein's chirp-z (on an odd n_fft launch A runs two frames
+through one FFT). At any other n_fft (a prime factor past 1997, launch A
+past 16384, launch C past 8192) launch
 A takes more than 128 mels in groups of at most 128, each its own blocks
 (`mel_groups`), and gathers its frames from device memory where a
 128-frame tile's waveform span passes shared memory (`spectral_staged`);
@@ -116,7 +118,10 @@ _RED_C = 16  # floats of the contrast launch's reduction slots
 _FFT_POINTS = 8192  # the FFT plans: complex points a block holds (64 KB)
 _FFT_MAX_FRAMES = 32  # the FFT plans: frames a block takes at most
 _FFT_MIN_NFFT = 640  # the FFT plans: the least n_fft they take (launch A past 128 mels: any)
-_FFT_MAX_PRIME = 127  # the FFT plans: the largest prime factor of an n_fft they take
+_FFT_MAX_PRIME = 113  # the FFT plans: the largest prime of fft_stage_prime; past it Bluestein's stage
+_SMEM_TWO = _SMEM_SM // 2 - 1024  # bytes a block may use for two blocks an SM
+_BLUESTEIN_POINTS = 4096  # Bluestein's convolution: its m points at most
+_WARPS_A = 8  # launches A and C: warps a block (256 threads)
 
 # Launch A's plans (cdt_frontend_plan_a).
 PLAN_GEMM_UNSTAGED, PLAN_GEMM_STAGED, PLAN_FFT = 0, 1, 2
@@ -162,26 +167,57 @@ def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: boo
                 per_row: int = 1) -> tuple:
     """(frames, bytes): csrc/frontend_kernel.cu's LayoutF. In floats: the
     points (2 each, rows x points a row), the frames' waveform span, the
-    twiddles (n_fft + 2); for the contrast launch the group's power rows
-    (frames x n_pow) and the reduction slots (its contrast rows go to the
-    output). A row holds `per_row` frames: one, or two for launch A on an
-    odd n_fft (`_spectral_layout`). `rows` halves from the most a block
-    takes until the layout fits; the contrast launch's most is rounded
-    down to a power of two (its threads split evenly over the frames)."""
-    def up4(n):
-        return (n + 3) // 4 * 4
-
+    tables (n_fft + 2 for the twiddles, then for a prime past
+    _FFT_MAX_PRIME 2 (P + m + m // 2 + 1) for Bluestein's, `_fft_tables`);
+    for the contrast launch the group's power rows (frames x n_pow) and the
+    reduction slots (its contrast rows go to the output). A row holds
+    `per_row` frames: one, or two for launch A on an odd n_fft
+    (`_spectral_layout`). Bluestein's scratch, `_bluestein_rows`' rows of m
+    points and a buffer of m points a warp, takes the span's place and
+    grows it where it needs more.
+    `rows` halves from the most a block takes until the layout fits; the
+    contrast launch's most is rounded down to a power of two (its threads
+    split evenly over the frames)."""
+    bp = _bluestein_prime(n_fft)
+    m = _bluestein_points(bp) if bp else 0
+    twf = n_fft + 2 + 2 * (bp + m + m // 2 + 1 if bp else 0)
     rows = min(_FFT_POINTS // points, _FFT_MAX_FRAMES // per_row)
     if contrast and rows:
         rows = 1 << (rows.bit_length() - 1)
     while True:
         frames = rows * per_row
-        end = 2 * rows * points + up4((frames - 1) * hop + n_fft) + n_fft + 2
-        if contrast:
-            end += up4(frames * n_pow) + _RED_C
+        span = _up4((frames - 1) * hop + n_fft)
+        rest = 2 * rows * points + twf + (_up4(frames * n_pow) + _RED_C if contrast else 0)
+        if bp:
+            span = max(span, _up4(2 * sum(_bluestein_rows(rows * points, bp, m, span, rest)) * m))
+        end = rest + span
         if rows <= 1 or 4 * end <= _MAX_SMEM:
             return frames, 4 * end
         rows //= 2
+
+
+def _up4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _bluestein_rows(total: int, bp: int, m: int, span: int, rest: int) -> tuple:
+    """(group, warps): LayoutF's butterflies a pass of Bluestein's stage
+    and the warps that run them, each with a buffer of m points. Of the
+    rows of m points (2 floats a point) that fit the span's room grown
+    while two blocks still fit an SM (while one does, where the rest passes
+    that already), half go to warps' buffers, up to 8,
+    at least one, the rest to the pass's butterflies, at least one, in
+    whole rounds of the warps, the total // bp butterflies spread evenly
+    over the passes."""
+    nb = max(total // bp, 1)
+    most = _SMEM_TWO // 4 if rest + span <= _SMEM_TWO // 4 else _MAX_SMEM // 4
+    fit = max(most - rest, span) // (2 * m)
+    warps = min(max(fit // 2, 1), _WARPS_A)
+    g = min(max(fit - warps, 1), nb)
+    if g > warps:
+        g -= g % warps
+    group = -(-nb // -(-nb // g))
+    return group, min(warps, group)
 
 
 def _spectral_points(n_fft: int) -> int:
@@ -212,28 +248,52 @@ def _largest_prime(n: int) -> int:
     return max(_prime_factors(n), default=1)
 
 
-def _fft_nfft(n_fft: int, points: int) -> bool:
-    """Whether an n_fft takes an FFT plan at all (fft_nfft): an n_fft from
-    64, odd or even, whose largest prime factor is at most _FFT_MAX_PRIME
-    and whose row of `points` complex points fits a block."""
-    return n_fft >= 64 and _largest_prime(n_fft) <= _FFT_MAX_PRIME and points <= _FFT_POINTS
+def _smooth11(n: int) -> bool:
+    """Whether n's prime factors are all at most 11 (smooth11)."""
+    return max(_prime_factors(n), default=1) <= 11
+
+
+def _bluestein_prime(n_fft: int) -> int:
+    """The prime factor the FFT plans compute by Bluestein's stage
+    (bluestein_prime): the largest, where it passes _FFT_MAX_PRIME; else
+    0."""
+    p = _largest_prime(n_fft)
+    return p if p > _FFT_MAX_PRIME else 0
+
+
+def _bluestein_points(p: int) -> int:
+    """Bluestein's convolution length for the prime p (bluestein_points):
+    the smallest odd 11-smooth m >= 2p - 1."""
+    m = 2 * p - 1
+    while not _smooth11(m):
+        m += 2
+    return m
+
+
+def _fft_fits(n_fft: int, points: int) -> bool:
+    """Whether the FFT plans' kernels take an n_fft at all (fft_fits): from
+    64, odd or even, a row of `points` complex points that fits a block,
+    and for a prime past _FFT_MAX_PRIME Bluestein's m at most
+    _BLUESTEIN_POINTS."""
+    bp = _bluestein_prime(n_fft)
+    return n_fft >= 64 and points <= _FFT_POINTS and (not bp or _bluestein_points(bp) <= _BLUESTEIN_POINTS)
 
 
 def _spectral_fft(n_fft: int, hop: int, n_mels: int) -> bool:
     """Whether launch A takes its FFT plan (plan_a's first branch): an
-    n_fft `_fft_nfft` takes, from 640 on or past 128 mels, whose layout
+    n_fft `_fft_fits` takes, from 640 on or past 128 mels, whose layout
     fits."""
-    return (_fft_nfft(n_fft, _spectral_points(n_fft)) and (n_fft >= _FFT_MIN_NFFT or n_mels > 128)
+    return (_fft_fits(n_fft, _spectral_points(n_fft)) and (n_fft >= _FFT_MIN_NFFT or n_mels > 128)
             and _spectral_layout(n_fft, hop)[1] <= _MAX_SMEM)
 
 
 def spectral_plan(cfg: FeatureConfig) -> int:
     """Launch A's plan (plan_a, cdt_frontend_plan_a): PLAN_FFT for an n_fft
-    whose largest prime factor is at most _FFT_MAX_PRIME, odd or even
-    (`_spectral_fft`), from 640 on, or past 128 mels, where its layout
-    fits; else the GEMM, PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED
-    (`spectral_staged`). The shipped config (n_fft 512, 64 mels), and an
-    n_fft with a prime factor past the cap, take the GEMM."""
+    whose rows, Bluestein scratch and tables fit a block, odd or even
+    (`_spectral_fft`), from 640 on, or past 128 mels; else the GEMM,
+    PLAN_GEMM_STAGED or PLAN_GEMM_UNSTAGED (`spectral_staged`). The shipped
+    config (n_fft 512, 64 mels) takes the GEMM, and so does an n_fft that
+    nothing fits (a prime factor past 1997, or past 16384)."""
     if _spectral_fft(cfg.n_fft, cfg.hop_length, cfg.n_mels):
         return PLAN_FFT
     return PLAN_GEMM_STAGED if spectral_staged(cfg.hop_length, _support(cfg)[2]) else PLAN_GEMM_UNSTAGED
@@ -513,7 +573,7 @@ def power_mel_split_reference(
 # -- the FFT plans' constants and arithmetic -------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=48)
 def _twiddles(n_fft: int) -> np.ndarray:
     """(n_fft // 2 + 1, 2) float32: e^{-2 pi i k / n_fft} for k in [0, n_fft
     // 2] as (cos, -sin), computed in float64 and rounded once. The FFT
@@ -521,6 +581,33 @@ def _twiddles(n_fft: int) -> np.ndarray:
     an odd n_fft as for an even one."""
     ang = 2.0 * np.pi * np.arange(n_fft // 2 + 1, dtype=np.float64) / n_fft
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _bluestein_tables(p: int) -> np.ndarray:
+    """(p + m + m // 2 + 1, 2) float32, m = _bluestein_points(p), as
+    (re, im): Bluestein's chirp c_s = e^{-pi i s^2 / p} for s in [0, p)
+    (its angle from s^2 mod 2p in integers), B^ = FFT_m(b) / m of the
+    wrapped conjugate chirp (b_t = conj c_t and b_{m-t} = conj c_t for t
+    in [0, p), zeros between), and the m-point twiddles e^{-2 pi i k / m}
+    for k in [0, m // 2]; each computed in float64 and rounded once."""
+    m = _bluestein_points(p)
+    s = np.arange(p, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((s * s) % (2 * p)) / p)
+    b = np.zeros(m, np.complex128)
+    b[:p] = np.conj(chirp)
+    b[m - s[1:]] = np.conj(chirp[1:])
+    k = np.arange(m // 2 + 1)
+    z = np.concatenate([chirp, np.fft.fft(b) / m, np.exp(-2j * np.pi * k / m)])
+    return np.stack([z.real, z.imag], axis=1).astype(np.float32)
+
+
+def _fft_tables(n_fft: int) -> np.ndarray:
+    """The FFT plans' tables (LayoutF's tables, the kernels' `twiddles`):
+    `_twiddles`, then for a prime factor past _FFT_MAX_PRIME
+    `_bluestein_tables` of it."""
+    bp = _bluestein_prime(n_fft)
+    return np.concatenate([_twiddles(n_fft), _bluestein_tables(bp)]) if bp else _twiddles(n_fft)
 
 
 def _filter_ranges(fb: np.ndarray) -> tuple:
@@ -541,7 +628,7 @@ def _filter_ranges(fb: np.ndarray) -> tuple:
 
 class _FftConstants(NamedTuple):
     window: torch.Tensor     # (n_fft,) the padded win_length Hann
-    twiddles: torch.Tensor   # (n_fft // 2 + 1, 2), _twiddles
+    twiddles: torch.Tensor   # (LayoutF's tables, 2), _fft_tables: (n_fft // 2 + 1, 2) without Bluestein
     fb_w: torch.Tensor       # the filters' nonzero weights, mel by mel
     fb_ranges: torch.Tensor  # (n_mels, 3) int32: first bin, bins, offset in fb_w
     n_used: int              # bins that feed any mel band
@@ -549,8 +636,9 @@ class _FftConstants(NamedTuple):
 
 @functools.lru_cache(maxsize=16)
 def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
-    """Launch A's FFT plan's tables: the window, the twiddles and the
-    filterbank over its n_used bins, packed by `_filter_ranges`."""
+    """Launch A's FFT plan's tables: the window, the twiddles (with
+    Bluestein's tables, `_fft_tables`) and the filterbank over its n_used
+    bins, packed by `_filter_ranges`."""
     fb = filters.mel_filterbank(cfg.n_fft // 2 + 1, cfg.n_mels, cfg.sample_rate, cfg.f_min, cfg.f_max)
     n_used = int(np.max(np.nonzero(np.any(fb != 0, axis=1))[0])) + 1
     weights, ranges = _filter_ranges(fb[:n_used])
@@ -560,18 +648,22 @@ def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
 
     return _FftConstants(
         dev(filters.padded_window(cfg.win_length, cfg.n_fft).astype(np.float32)),
-        dev(_twiddles(cfg.n_fft)), dev(weights), dev(ranges), n_used,
+        dev(_fft_tables(cfg.n_fft)), dev(weights), dev(ranges), n_used,
     )
 
 
 def _fft_radices(points: int) -> list:
     """The FFT plans' Stockham stages for `points` (fft_rows): one of radix
     2 first when the count of 2s is odd, then radix 4, then the 3s, the 5s,
-    the 7s and the 11s, then one stage of each larger prime factor (of
-    fft_stage_prime), smallest first. Raises past _FFT_MAX_PRIME."""
+    the 7s and the 11s, then one stage of each larger prime factor,
+    smallest first (fft_stage_prime up to _FFT_MAX_PRIME, Bluestein's stage
+    past it). Raises where the kernels have no stages: more than one prime
+    factor past _FFT_MAX_PRIME, or Bluestein's m past _BLUESTEIN_POINTS."""
     factors = _prime_factors(points)
-    if max(factors, default=1) > _FFT_MAX_PRIME:
-        raise ValueError(f"the FFT plans take only points whose prime factors are at most {_FFT_MAX_PRIME}")
+    past = [f for f in factors if f > _FFT_MAX_PRIME]
+    if len(past) > 1 or (past and _bluestein_points(past[0]) > _BLUESTEIN_POINTS):
+        raise ValueError(f"the FFT plans take at most one prime factor past {_FFT_MAX_PRIME}, whose Bluestein "
+                         f"convolution fits {_BLUESTEIN_POINTS} points; got {points} = {factors}")
     twos = factors.count(2)
     return [2] * (twos % 2) + [4] * (twos // 2) + [f for f in factors if f > 2]
 
@@ -626,6 +718,28 @@ def _dft_prime(vr: list, vi: list, cos: torch.Tensor, sin: torch.Tensor) -> tupl
     lo_r, lo_i = (mr + ni).unbind(-2), (mi - nr).unbind(-2)  # m_k - i n_k
     hi_r, hi_i = (mr - ni).unbind(-2), (mi + nr).unbind(-2)  # m_k + i n_k
     return list(lo_r) + list(hi_r[1:][::-1]), list(lo_i) + list(hi_i[1:][::-1])
+
+
+def _bluestein(vr: list, vi: list) -> tuple:
+    """fft_stage_bluestein's P-point DFT (P = len(vr), a prime past
+    _FFT_MAX_PRIME) of the twiddled points (vr[s], vi[s]), with its order of
+    operations: a_s = v_s c_s, zero-padded to m points, its FFT by the
+    radix stages (`_stockham` with the m-point table), each point times B^
+    (1 / m in it) and conjugated, the FFT again, then output k is c_k times
+    the conjugate of point k (`_bluestein_tables`)."""
+    p = len(vr)
+    t = torch.from_numpy(_bluestein_tables(p)).to(vr[0].device)
+    m = _bluestein_points(p)
+    cr, ci = t[:p, 0], t[:p, 1]
+    br, bi = t[p : p + m, 0], t[p : p + m, 1]
+    xr, xi = torch.stack(vr, dim=-1), torch.stack(vi, dim=-1)
+    ar = F.pad(xr * cr - xi * ci, (0, m - p))
+    ai = F.pad(xr * ci + xi * cr, (0, m - p))
+    zr, zi = _stockham(ar, ai, t[p + m :], m)
+    zr, zi = zr * br - zi * bi, -(zr * bi + zi * br)
+    zr, zi = _stockham(zr, zi, t[p + m :], m)
+    yr, yi = zr[..., :p], -zi[..., :p]
+    return list((yr * cr - yi * ci).unbind(-1)), list((yr * ci + yi * cr).unbind(-1))
 
 
 def _dft_points(vr: list, vi: list) -> tuple:
@@ -701,8 +815,9 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) 
     point r > 0 by the table's entry r (j mod ns) n_fft / (ns R) (k past
     n_fft / 2: the conjugate of entry n_fft - k), takes the R-point DFT
     (`_dft_points`, or `_dft_prime` past 11 with w_R from the table's
-    entries k n_fft / R) and writes output r to (j - j mod ns) R + j mod ns
-    + r ns."""
+    entries k n_fft / R, or `_bluestein` past _FFT_MAX_PRIME) and writes
+    output r to (j - j mod ns) R + j mod ns + r ns. `tw` holds the table's
+    n_fft // 2 + 1 twiddles first (`_fft_tables` is such a table)."""
     p = re.shape[-1]
     half = n_fft // 2
 
@@ -721,7 +836,9 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) 
         for i in range(1, r):
             wr, wi = table(i * k * (n_fft // (ns * r)))
             vr[i], vi[i] = vr[i] * wr - vi[i] * wi, vr[i] * wi + vi[i] * wr
-        if r > 11:
+        if r > _FFT_MAX_PRIME:
+            yr, yi = _bluestein(vr, vi)
+        elif r > 11:
             kr = torch.arange(r // 2 + 1, device=re.device)[:, None] * torch.arange(1, r // 2 + 1, device=re.device)
             cos, msin = table(kr % r * (n_fft // r))
             yr, yi = _dft_prime(vr, vi, cos, -msin)
@@ -984,16 +1101,16 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
 
 def _contrast_fft(n_fft: int, hop: int, n_pow: int) -> tuple:
     """(takes it, bytes): whether the contrast launch takes its FFT plan
-    (plan_c's first branch: an n_fft `_fft_nfft` takes, from 640 on, whose
+    (plan_c's first branch: an n_fft `_fft_fits` takes, from 640 on, whose
     LayoutF fits) and LayoutF's bytes."""
     smem = _fft_layout(n_fft, n_fft, hop, n_pow, contrast=True)[1]
-    return _fft_nfft(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT and smem <= _MAX_SMEM, smem
+    return _fft_fits(n_fft, n_fft) and n_fft >= _FFT_MIN_NFFT and smem <= _MAX_SMEM, smem
 
 
 def _contrast_plan(cfg: FeatureConfig) -> tuple:
-    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an n_fft whose
-    largest prime factor is at most _FFT_MAX_PRIME, odd or even, from 640
-    on, CONTRAST_FFT where LayoutF fits (`_contrast_fft`); else the GEMM's
+    """(level, bytes): csrc/frontend_kernel.cu's plan_c. For an n_fft from
+    640 on, odd or even, that the FFT plans take (`_fft_fits`),
+    CONTRAST_FFT where LayoutF fits (`_contrast_fft`); else the GEMM's
     (`_contrast_gemm_plan`)."""
     fft, smem = _contrast_fft(cfg.n_fft, cfg.hop_length, _geometry(cfg).n_pow)
     return (CONTRAST_FFT, smem) if fft else _contrast_gemm_plan(cfg)
@@ -1021,8 +1138,8 @@ def _contrast_gemm_plan(cfg: FeatureConfig) -> tuple:
 
 def contrast_level(cfg: FeatureConfig) -> int:
     """The contrast launch's plan (cdt_frontend_plan_c): CONTRAST_FFT for an
-    n_fft whose largest prime factor is at most _FFT_MAX_PRIME, odd or
-    even, from 640 on where its layout fits; else
+    n_fft from 640 on, odd or even, whose rows, Bluestein scratch and
+    tables fit a block; else
     LayoutC's level, how much of the GEMM plan moves from shared memory to
     device memory (see _contrast_plan)."""
     return _contrast_plan(cfg)[0]
@@ -1127,11 +1244,11 @@ def spectral_contrast_split_reference(
 def _contrast_fft_constants(cfg: FeatureConfig, device: torch.device) -> tuple:
     """(windows, twiddles): the contrast launch's FFT plan's windows, (2,
     n_fft) the padded win_length Hann (the bands' power) then the n_fft
-    Hann (the centroid's magnitude), and its twiddles (`_twiddles`)."""
+    Hann (the centroid's magnitude), and its tables (`_fft_tables`)."""
     windows = np.stack([filters.padded_window(cfg.win_length, cfg.n_fft), filters.padded_window(cfg.n_fft, cfg.n_fft)])
     return (
         torch.from_numpy(windows.astype(np.float32)).to(device),
-        torch.from_numpy(_twiddles(cfg.n_fft)).to(device),
+        torch.from_numpy(_fft_tables(cfg.n_fft)).to(device),
     )
 
 

@@ -4,9 +4,11 @@ card route, on the CPU.
 The JAX launcher (cough_detector_tpu/ops/pallas/frontend_kernel.py) runs
 its kernel for every config with MFCCs at segment length, and appends the
 contrast rows for a contrast config. The port's three launches take the
-same set: more than 128 mels and an n_fft whose largest prime factor is at
-most the cap (kFftMaxPrime), odd or even, from 640 on by FFT (launches A and C's FFT plans), any other n_fft past
-shared memory with the waveform gathered from device memory, clips past 4 s over
+same set: more than 128 mels and an n_fft whose rows, Bluestein scratch
+and tables fit a block, odd or even, from 640 on by FFT (launches A and C's
+FFT plans: radix stages, a generic prime stage to kFftMaxPrime, Bluestein's
+past it), any other n_fft past shared memory with the waveform gathered
+from device memory, clips past 4 s over
 a thread-block cluster (or in device memory past 16 blocks), a hop of 4,
 and any contrast bands.
 The kernels run only on the card (chip_smoke.py holds them there); here
@@ -61,12 +63,15 @@ CONFIGS = {
 # contrast (1323), 50 ms with contrast (2205) and n_fft 1125 (57 frames, a
 # lone last one); n_fft with a prime factor of 13, on the FFT plans since
 # their generic prime stage (1664 and 2704 with contrast, 832 at 256 mels,
-# the odd 1365 at 44.1 kHz); since the FFT plans took every n_fft whose
-# prime factors are at most the cap, the GEMM plans' span from device
-# memory (launch A unstaged, the contrast launch's levels 1 and 3) and
-# launch A's GEMM plan over two mel groups, reached by an n_fft with a
-# prime factor past it (131 and 137 ms windows at 16 kHz with contrast,
-# 2096 and 2192; 1048 at 256 mels); two 10 s clips for launch B's
+# the odd 1365 at 44.1 kHz); n_fft with a prime factor past the generic
+# stage's cap, on the FFT plans since their Bluestein stage (131 and 137 ms
+# windows at 16 kHz with contrast, 2096 and 2192; 2192 and 1048 at 256
+# mels; the odd 1965 at 44.1 kHz on 256 mels); since the FFT plans took
+# every n_fft they fit, the GEMM plans' span from device memory (launch A
+# unstaged, the contrast launch's levels 1 and 3) and launch A's GEMM plan
+# over two mel groups, reached by a 25 ms hop with contrast (level 1) and
+# the prime n_fft 2129 on 256 mels with contrast, which no FFT layout
+# fits (two mel groups, level 3); two 10 s clips for launch B's
 # cluster route's other branches (PCEN with delta-deltas and its 32-MFCC
 # DCT; 36 MFCCs of 40 mels, the MFCC and delta tiles after the mel tile);
 # and a 120 s clip, past a cluster of 16: launch B in device memory.
@@ -96,7 +101,12 @@ EXTRA = {
     "sr44k_nfft1365": dict(SR44K, n_fft=1365, win_length=1365),
     "nfft2096_contrast": dict(n_fft=2096, win_length=2096, hop_length=524, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft2192_contrast": dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft2192_mels256": dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=256, f_max=8000.0),
     "nfft1048_mels256": dict(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0),
+    "sr44k_nfft1965_mels256": dict(SR44K, n_fft=1965, win_length=1965, n_mels=256),
+    "hop400_contrast": dict(hop_length=400, **CONTRAST),
+    "nfft2129_mels256_contrast": dict(n_fft=2129, win_length=2129, hop_length=532, n_mels=256, f_max=8000.0,
+                                      **CONTRAST),
     "clip10s_pcen_dd20": dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20),
     "clip10s_mels40_mfcc36_dd": dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
     "clip120s_128_pcen_dd": dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -143,9 +153,13 @@ PLANS_ON_CARD = {
     "nfft2704_contrast": (100056, 2, 20608, 1, 71528, 4),
     "nfft832_mels256": (84872, 2, 95360, 1, None, None),
     "sr44k_nfft1365": (95852, 2, 59520, 1, None, None),
-    "nfft2096_contrast": (32816, 0, 24192, 1, 231904, 1),
-    "nfft2192_contrast": (32816, 0, 23680, 1, 32880, 3),
-    "nfft1048_mels256": (174320, 1, 80000, 1, None, None),
+    "nfft2096_contrast": (106632, 2, 24192, 1, 102248, 4),
+    "nfft2192_contrast": (109752, 2, 23680, 1, 104328, 4),
+    "nfft2192_mels256": (109752, 2, 47232, 1, None, None),
+    "nfft1048_mels256": (106632, 2, 80000, 1, None, None),
+    "sr44k_nfft1965_mels256": (110300, 2, 118912, 1, None, None),
+    "hop400_contrast": (32816, 0, 14720, 1, 92912, 1),
+    "nfft2129_mels256_contrast": (32816, 0, 48256, 1, 32880, 3),
     "clip10s_pcen_dd20": (118096, 1, 75488, 4, None, None),
     "clip10s_mels40_mfcc36_dd": (118096, 1, 76576, 7, None, None),
     "clip120s_128_pcen_dd": (118096, 1, 128, 0, None, None),

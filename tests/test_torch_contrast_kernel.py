@@ -213,8 +213,10 @@ def test_smem_mirror_and_grid(name):
     (dict(n_contrast_bands=17), 0),  # the bands are read from device memory
     (dict(n_fft=2048), 4),           # a band of 239 bins, by FFT
     (dict(n_fft=1024, n_contrast_bands=8), 4),  # by FFT (the GEMM's span would pass shared memory)
-    (dict(n_fft=2096, win_length=2096, hop_length=524), 1),  # the GEMM's span past shared memory (a prime 131)
-    (dict(n_fft=2192, win_length=2192, hop_length=548), 3),  # and its power rows too (a prime 137)
+    (dict(n_fft=2096, win_length=2096, hop_length=524), 4),  # by FFT: Bluestein's stage (a prime 131)
+    (dict(n_fft=2192, win_length=2192, hop_length=548), 4),  # by FFT: Bluestein's stage (a prime 137)
+    (dict(hop_length=400), 1),  # the GEMM's span past shared memory (a 25 ms hop)
+    (dict(n_fft=2129, win_length=2129, hop_length=532), 3),  # and its power rows too (no FFT layout fits)
     (dict(n_fft=2000, win_length=2000, hop_length=500), 4),  # by FFT: radix-5 stages
     (dict(n_fft=3000, win_length=3000, hop_length=750), 4),  # by FFT: radix-3 and radix-5 stages
     (dict(n_fft=1792, win_length=1792, hop_length=448), 4),  # by FFT: radix-7 stages

@@ -8,10 +8,14 @@ packing, Stockham stages, twiddle table and post-twiddles in torch ops),
 are held against float64 `numpy.fft.rfft` of the same windowed frames,
 against the plain versions, and, through the whole feature stack, against
 the JAX package's Pallas kernel in interpret mode on the configs the plans
-take. Then the plan rule (the Python mirror, and the C rule itself built
-with g++ from the kernel source where g++ is found), the tables' layout and
-the custom ops' fakes at the FFT geometry. Inputs are made from a seed with
-numpy. Budget: 1e-3 max-relative (docs/PARITY.md).
+take. Bluestein's stage (a prime factor past the cap) against float64
+`numpy.fft.fft`, and the kernel's own FFT stages, built for the host with
+g++ from the kernel source and run by 256 threads that meet at a barrier
+as a block's do, against float64 `numpy.fft.fft` and the models. Then the
+plan rule (the Python mirror, and the C rule itself built with g++ from
+the kernel source where g++ is found), the tables' layout and the custom
+ops' fakes at the FFT geometry. Inputs are made from a seed with numpy.
+Budget: 1e-3 max-relative (docs/PARITY.md).
 """
 
 import dataclasses
@@ -82,10 +86,15 @@ COVERAGE = {
     "nfft832_mels256": (dict(n_fft=832, win_length=832, hop_length=208, n_mels=256, f_max=8000.0), 2, None),
     "sr44k_nfft1365": (dict(SR44K, n_fft=1365, win_length=1365), 2, None),
     "nfft2096_contrast": (dict(n_fft=2096, win_length=2096, hop_length=524, n_mels=128, f_max=8000.0, **CONTRAST),
-                          0, 1),
+                          2, 4),
     "nfft2192_contrast": (dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0, **CONTRAST),
-                          0, 3),
-    "nfft1048_mels256": (dict(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0), 1, None),
+                          2, 4),
+    "nfft2192_mels256": (dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=256, f_max=8000.0), 2, None),
+    "nfft1048_mels256": (dict(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0), 2, None),
+    "sr44k_nfft1965_mels256": (dict(SR44K, n_fft=1965, win_length=1965, n_mels=256), 2, None),
+    "hop400_contrast": (dict(hop_length=400, **CONTRAST), 0, 1),
+    "nfft2129_mels256_contrast": (dict(n_fft=2129, win_length=2129, hop_length=532, n_mels=256, f_max=8000.0,
+                                       **CONTRAST), 0, 3),
     "clip10s_pcen_dd20": (dict(segment_duration=10.0, use_pcen=True, use_delta_delta=True, n_mfcc=20), 1, None),
     "clip10s_mels40_mfcc36_dd": (dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True), 1, None),
     "clip120s_128_pcen_dd": (dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
@@ -95,10 +104,11 @@ COVERAGE = {
 }
 JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
              "nfft3000_contrast", "nfft768_mels256", "nfft1792_contrast", "nfft896_mels256", "sr44k_nfft1764_contrast",
-             "nfft880_mels256", "nfft1760_contrast", "nfft832_mels256", "sr44k_nfft1365")
+             "nfft880_mels256", "nfft1760_contrast", "nfft832_mels256", "sr44k_nfft1365", "nfft2192_mels256",
+             "nfft2192_contrast", "sr44k_nfft1965_mels256")
 # The JAX Pallas kernel refuses an odd n_fft whose hop divides the segment
 # (its frames are a sample short): these take the JAX jnp chain.
-JAX_CHAIN = ("sr44k_nfft1365",)
+JAX_CHAIN = ("sr44k_nfft1365", "sr44k_nfft1965_mels256")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -143,7 +153,7 @@ def _frames64(w: np.ndarray, cfg: FeatureConfig, pre: bool) -> np.ndarray:
     ("nfft4096_contrast", False), ("nfft2000_contrast", False), ("nfft3000_contrast", True), ("nfft768_mels256", False),
     ("nfft896_mels256", False), ("sr44k_nfft882", True), ("sr44k_nfft1764_contrast", False),
     ("nfft880_mels256", False), ("sr44k_nfft1323", True), ("nfft1125", False), ("nfft832_mels256", False),
-    ("sr44k_nfft1365", True),
+    ("sr44k_nfft1365", True), ("nfft2192_mels256", False), ("nfft1048_mels256", True), ("sr44k_nfft1965_mels256", False),
 ])
 def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     """Launch A's FFT plan's model against the float64 rfft power and mel
@@ -166,6 +176,7 @@ def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast",
     "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast", "nfft1760_contrast", "nfft2662_contrast",
     "sr44k_nfft1323_contrast", "sr44k_nfft2205_contrast", "nfft1664_contrast", "nfft2704_contrast",
+    "nfft2096_contrast", "nfft2192_contrast",
 ])
 def test_contrast_fft_model_vs_float64_rfft(name):
     """The contrast launch's FFT plan's model (both windows through one
@@ -250,17 +261,84 @@ def test_prime_stages_are_the_fft(n_fft, points):
     assert _rel(re.numpy() + 1j * im.numpy(), np.fft.fft(z, axis=-1)) < 1e-6
 
 
+# Bluestein's stage (fft_stage_bluestein): (n_fft, points) with a prime
+# factor past the cap, the four configs it takes from the GEMM among them
+# (2096 and 2192 for both launches, 1048 and the odd 1965 for launch A),
+# the first prime past the cap alone, and 509 (m = 1029 = 3 7^3).
+BLUESTEIN_POINTS = [
+    (262, 131), (274, 137), (1018, 509), (2096, 1048), (2096, 2096), (2192, 1096), (2192, 2192), (1048, 524),
+    (1965, 1965), (4112, 2056),
+]
+
+
+@pytest.mark.parametrize("n_fft, points", BLUESTEIN_POINTS)
+def test_bluestein_stage_is_the_fft(n_fft, points):
+    """With a prime factor P past the cap, the stages end in Bluestein's
+    (the twiddled points times the chirp, zero-padded to m, FFT_m, times
+    B^ and conjugated, FFT_m, the conjugate times the chirp), m the
+    smallest odd 11-smooth count from 2P - 1, and make the FFT of the
+    points against float64 `numpy.fft.fft`; so does the stage alone on P
+    points."""
+    rng = np.random.default_rng(points)
+    z = rng.standard_normal((3, points)) + 1j * rng.standard_normal((3, points))
+    tables = frontend_kernel._fft_tables(n_fft)
+    big = frontend_kernel._bluestein_prime(n_fft)
+    m = frontend_kernel._bluestein_points(big)
+    assert big > frontend_kernel._FFT_MAX_PRIME and m % 2 == 1 and m >= 2 * big - 1
+    assert frontend_kernel._smooth11(m) and not any(frontend_kernel._smooth11(k) for k in range(2 * big - 1, m, 2))
+    assert tables.shape == (n_fft // 2 + 1 + big + m + m // 2 + 1, 2)
+    radices = frontend_kernel._fft_radices(points)
+    assert radices[-1] == big and max(radices[:-1], default=1) <= frontend_kernel._FFT_MAX_PRIME
+    re, im = frontend_kernel._stockham(
+        torch.from_numpy(z.real.astype(np.float32)), torch.from_numpy(z.imag.astype(np.float32)),
+        torch.from_numpy(tables), n_fft,
+    )
+    assert _rel(re.numpy() + 1j * im.numpy(), np.fft.fft(z, axis=-1)) < 1e-6
+    x = z[:, :big]
+    yr, yi = frontend_kernel._bluestein(list(torch.from_numpy(x.real.astype(np.float32)).unbind(-1)),
+                                        list(torch.from_numpy(x.imag.astype(np.float32)).unbind(-1)))
+    got = torch.stack(yr, -1).numpy() + 1j * torch.stack(yi, -1).numpy()
+    assert _rel(got, np.fft.fft(x, axis=-1)) < 1e-6
+
+
+def test_bluestein_tables_layout():
+    """Bluestein's tables, after the twiddles: the chirp e^{-pi i s^2 / P}
+    (its angle from s^2 mod 2P), B^ = FFT_m(b) / m of the wrapped conjugate
+    chirp, and the m-point twiddles, each float64 rounded once; the
+    convolution they make is the DFT."""
+    for p in (131, 137, 509):
+        m = frontend_kernel._bluestein_points(p)
+        t = frontend_kernel._bluestein_tables(p).astype(np.float64)
+        c = t[:p, 0] + 1j * t[:p, 1]
+        s = np.arange(p)
+        np.testing.assert_allclose(c, np.exp(-1j * np.pi * s**2 / p), rtol=0, atol=1e-6)
+        b = np.zeros(m, complex)
+        b[:p], b[m - s[1:]] = np.conj(c), np.conj(c[1:])
+        np.testing.assert_allclose(t[p : p + m, 0] + 1j * t[p : p + m, 1], np.fft.fft(b) / m, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(t[p + m :], frontend_kernel._twiddles(m))
+        x = np.random.default_rng(p).standard_normal(p)
+        a = np.fft.fft(np.concatenate([x * c, np.zeros(m - p)]))
+        y = np.fft.ifft(a * (t[p : p + m, 0] + 1j * t[p : p + m, 1]) * m)[:p] * c
+        assert _rel(y, np.fft.fft(x)) < 1e-5
+
+
 def test_fft_radices_refuse_other_primes():
-    """A count of points with a prime factor past the cap (_FFT_MAX_PRIME,
-    the C source's kFftMaxPrime) has no stage list: the plan rule sends
-    such an n_fft to the GEMM. Every prime up to the cap has one."""
+    """The stage lists the kernels have: every prime up to the cap
+    (_FFT_MAX_PRIME, the C source's kFftMaxPrime) by fft_stage_prime, one
+    prime past it by Bluestein's stage; none for two primes past the cap
+    or a prime whose Bluestein convolution passes a pass of its scratch
+    (4096 points), and the plan rule sends such an n_fft to the GEMM."""
     cap = frontend_kernel._FFT_MAX_PRIME
     past = next(n for n in range(cap + 1, 2 * cap + 2) if frontend_kernel._prime_factors(n) == [n])
-    for points in (past, 2 * past, 3 * 5 * past, 4 * past * 2):
+    for p in (13, 17, 19, 23, cap, past, 509, 1997):
+        assert frontend_kernel._fft_radices(p) == [p] and frontend_kernel._fft_radices(2 * p) == [2, p]
+    assert frontend_kernel._bluestein_points(1997) == 3993 and frontend_kernel._bluestein_points(1999) == 4125
+    for points in (past * 137, 1999, 2 * 1999, 3 * 5 * 4099):
         with pytest.raises(ValueError):
             frontend_kernel._fft_radices(points)
-    for p in (13, 17, 19, 23, cap):
-        assert frontend_kernel._fft_radices(p) == [p] and frontend_kernel._fft_radices(8 * p) == [2, 4, p]
+    for n_fft in (1999, 2 * 1999, 4 * 1999, 2 * 4099):
+        assert not frontend_kernel._fft_fits(n_fft, frontend_kernel._spectral_points(n_fft))
+    assert frontend_kernel._fft_fits(2 * 1997, 1997)
 
 
 @pytest.mark.parametrize("name", JAX_STACK)
@@ -319,9 +397,12 @@ def test_plan_mirror(name):
 
 def test_shipped_config_keeps_its_gemm_plans():
     """The shipped config (n_fft 512, 64 mels) keeps its GEMM plans, staged,
-    and so does every n_fft with a prime factor past the cap
-    (_FFT_MAX_PRIME), odd or even: 131 ms at 16 kHz, 137 ms on 256 mels, an
-    odd 3 x 5 x 131 at 44.1 kHz."""
+    and so does an n_fft that the FFT plans do not fit: one with a prime
+    factor past 1997 (its Bluestein convolution passes a pass of the
+    scratch: 3821, 2 x 4049), or past a block's points (launch A past
+    16384, launch C past 8192). An n_fft with a prime factor past the cap (_FFT_MAX_PRIME)
+    that fits takes the FFT plans: 131 ms at 16 kHz, 137 ms on 256 mels,
+    an odd 3 x 5 x 131 at 44.1 kHz."""
     shipped = FeatureConfig()
     assert frontend_kernel.spectral_plan(shipped) == frontend_kernel.PLAN_GEMM_STAGED
     assert frontend_kernel.contrast_level(FeatureConfig(use_spectral_contrast=True)) == 0
@@ -329,8 +410,12 @@ def test_shipped_config_keeps_its_gemm_plans():
     for kw in (dict(n_fft=2096, win_length=2096, hop_length=524), dict(n_fft=2192, n_mels=256, f_max=8000.0),
                dict(n_fft=1965, win_length=1965, hop_length=441, sample_rate=44100, n_mels=256, f_max=8000.0)):
         cfg = FeatureConfig(use_spectral_contrast=True, **kw)
-        assert frontend_kernel.spectral_plan(cfg) != frontend_kernel.PLAN_FFT
-        assert frontend_kernel.contrast_level(cfg) < frontend_kernel.CONTRAST_FFT
+        assert frontend_kernel._bluestein_prime(cfg.n_fft) > frontend_kernel._FFT_MAX_PRIME
+        assert frontend_kernel.spectral_plan(cfg) == frontend_kernel.PLAN_FFT
+        assert frontend_kernel.contrast_level(cfg) == frontend_kernel.CONTRAST_FFT
+    for n_fft, fft_a in ((3821, False), (2 * 4049, False), (8200, True), (16400, False)):
+        assert frontend_kernel._spectral_fft(n_fft, n_fft // 4, 256) == fft_a, n_fft
+        assert not frontend_kernel._contrast_fft(n_fft, n_fft // 4, 0)[0], n_fft  # even with no power rows
 
 
 def _c_plan_rules():
@@ -398,7 +483,8 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
     (672 to 2744) or of 11 (704 to 2662), odd ones (675 to 2205), ones
     with a factor of 13 (832 to 2704, odd 1365), now on the FFT plans, and
     ones with a prime factor past the cap (1048, 2096, 2192 and the odd
-    1965: the GEMM), hops from 4 to past n_fft,
+    1965: Bluestein's stage), and the prime 2129, past what Bluestein's
+    scratch takes (the GEMM), hops from 4 to past n_fft,
     32 to 256 mels, 1 and 10 s clips, 6 and 17 bands; and so do LayoutF's
     frames a block for each launch, launch C's rounded down to a power of
     two (8 at n_fft 768, 4 at 1200), launch A's even on an odd n_fft (two
@@ -413,7 +499,8 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
                        (640, 640), (1000, 1000), (1200, 1200), (2000, 2000), (3000, 3000), (1792, 1792), (1125, 1125),
                        (896, 896), (1764, 1764), (2744, 2744), (672, 672), (1760, 1760), (880, 880), (2662, 2662),
                        (1323, 1323), (2205, 2205), (704, 704), (675, 675), (693, 693), (832, 832), (1365, 1365),
-                       (1664, 1664), (2704, 2704), (1048, 1048), (2096, 2096), (2192, 2192), (1965, 1965))
+                       (1664, 1664), (2704, 2704), (1048, 1048), (2096, 2096), (2192, 2192), (1965, 1965),
+                       (2129, 2129))
         for hop in (4, 160, 512, 3000) for mels in (32, 128, 256) for dur in (1.0, 10.0) for bands in (6, 17)
         if not (hop == 4 and dur == 10.0)
     ]
@@ -453,8 +540,9 @@ def test_plan_mirrors_equal_the_c_rules(tmp_path):
         assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
     for n_fft in (832, 1365, 1664, 2704):  # a factor of 13: fft_stage_prime
         assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
-    for n_fft in (1048, 2096, 2192, 1965):  # a prime factor past the cap: the GEMM
-        assert not {("a", 2, n_fft), ("c", 4, n_fft)} & seen
+    for n_fft in (1048, 2096, 2192, 1965):  # a prime factor past the cap: Bluestein's stage
+        assert ("a", 2, n_fft) in seen and ("c", 4, n_fft) in seen
+    assert not {("a", 2, 2129), ("c", 4, 2129)} & seen  # nothing fits: the GEMM
     assert max(frames_c[768]) == 8 and max(frames_c[1200]) == 4
 
 
@@ -463,9 +551,10 @@ def test_fft_plan_rule_over_every_n_fft(tmp_path):
     and 256 mels: the n_fft's largest prime factor, whether launches A and
     C take their FFT plans, and LayoutF's frames and bytes for each launch,
     from the Python mirrors, equal the kernel source's own rules (compiled
-    for the host); and no n_fft from 640 whose largest prime factor is at
-    most the cap (kFftMaxPrime, _FFT_MAX_PRIME) takes a GEMM plan, nor any
-    past the cap an FFT plan."""
+    for the host); no n_fft from 640 whose rows, Bluestein scratch and
+    tables fit a block takes a GEMM plan, and every one whose largest prime
+    factor is at most the cap (kFftMaxPrime, _FFT_MAX_PRIME), or past it
+    up to 1997, fits."""
     gxx, code = _c_plan_rules()
     (tmp_path / "plans.cpp").write_text(code)
     subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plans"), str(tmp_path / "plans.cpp")], check=True)
@@ -480,12 +569,165 @@ def test_fft_plan_rule_over_every_n_fft(tmp_path):
         want = (fk._largest_prime(n), int(fk._spectral_fft(n, hop, mels)), int(fk._contrast_fft(n, hop, n_pow)[0]),
                 *fa, *fc)
         assert got == want, (n, hop, mels, got, want)
+        fits = (fk._fft_fits(n, fk._spectral_points(n)) and got[4] <= 232448,
+                fk._fft_fits(n, n) and got[6] <= 232448)
+        if n >= 640 or mels > 128:
+            assert got[1] == int(fits[0]), (n, hop, mels, got)
         if n >= 640:
-            assert got[1] == got[2] == int(got[0] <= cap), (n, hop, mels, got)
+            assert got[2] == int(fits[1]), (n, hop, mels, got)
             taken += got[1]
-        elif mels > 128:
-            assert got[1] == int(got[0] <= cap), (n, hop, mels, got)
+        if got[0] <= 1997:
+            assert fits[0] and (fits[1] or n > 8192 or got[0] > cap), (n, hop, mels, got)
     assert len(out) >= len(cases) and taken > 0
+
+
+# The kernel source's FFT stages on the host: CUDA's names for g++, a
+# block's threads as std::threads, its barrier and each warp's as a
+# std::barrier.
+HOST_PRELUDE = """\
+#include <algorithm>
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <cstdio>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct Dim3 { unsigned x; };
+thread_local Dim3 threadIdx;
+std::barrier<>* block_barrier;
+std::barrier<>* warp_barriers[8];
+inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+inline void __syncwarp() { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
+inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+using std::min;
+"""
+# Step 3 of launch A ('a') or C ('c') on one block's rows, as the kernels
+# call fft_rows (the same instances), by kThreadsA threads: reads "kind
+# n_fft hop n_pow", LayoutF's tables and the rows' points; prints LayoutF's
+# Bluestein prime, m, group and end, then the points.
+HOST_MAIN = r"""
+int main() {
+  char kind;
+  int n_fft, hop, n_pow;
+  if (scanf(" %c %d %d %d", &kind, &n_fft, &hop, &n_pow) != 4) return 1;
+  const LayoutF lay = kind == 'a' ? LayoutF(n_fft, hop) : LayoutF(n_fft, hop, n_pow);
+  const int points = kind == 'a' ? fft_points_a(n_fft) : n_fft;
+  const int rows = kind == 'a' && n_fft % 2 ? lay.rows : lay.frames;
+  std::vector<float> smem(lay.end, -1e30f);
+  float* base = smem.data();
+  float2* buf = reinterpret_cast<float2*>(base);
+  float2* tw = reinterpret_cast<float2*>(base + lay.tw);
+  for (int i = 0; i < lay.tables; ++i)
+    if (scanf("%f %f", &tw[i].x, &tw[i].y) != 2) return 2;
+  for (int i = 0; i < rows * points; ++i)
+    if (scanf("%f %f", &buf[i].x, &buf[i].y) != 2) return 3;
+  std::barrier<> bar(kThreadsA);
+  block_barrier = &bar;
+  std::unique_ptr<std::barrier<>> warps[kWarpsA];
+  for (int w = 0; w < kWarpsA; ++w) {
+    warps[w] = std::make_unique<std::barrier<>>(32);
+    warp_barriers[w] = warps[w].get();
+  }
+  const int lp = largest_prime(n_fft);
+  std::vector<std::thread> threads;
+  for (int t = 0; t < kThreadsA; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx.x = t;
+      const Bluestein bl(lay, base, tw, n_fft);
+      if (kind == 'a') {
+        if (lay.bp)
+          fft_rows<11, 1, kBluesteinA>(buf, rows, points, n_fft, tw, &bl);
+        else
+          fft_rows<11, 1, 0>(buf, rows, points, n_fft, tw, &bl);
+      } else if (lp <= 7) {
+        fft_rows<7, 0, 0>(buf, rows, points, n_fft, tw, &bl);
+      } else if (lp == 11) {
+        fft_rows<11, 0, 0>(buf, rows, points, n_fft, tw, &bl);
+      } else if (lp <= kFftMaxPrime) {
+        fft_rows<11, kPrimeC, 0>(buf, rows, points, n_fft, tw, &bl);
+      } else {
+        fft_rows<11, kPrimeC, kBluesteinC>(buf, rows, points, n_fft, tw, &bl);
+      }
+    });
+  for (auto& th : threads) th.join();
+  printf("%d %d %d %d\n", lay.bp, lay.bm, lay.group, lay.end);
+  for (int i = 0; i < rows * points; ++i) printf("%.9g %.9g\n", buf[i].x, buf[i].y);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_stages(tmp_path_factory):
+    """The kernel source's FFT stages (fft_rows and every stage under it,
+    LayoutF, the Bluestein operands) built for the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
+
+    def between(a, b):
+        i = src.index(a)
+        return src[i : src.index(b, i)]
+
+    code = "\n".join([
+        HOST_PRELUDE,
+        between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
+        between("struct LayoutA {", "// x rounded to TF32"),
+        between("struct LayoutC {", "__device__ __forceinline__ float warp_sum"),
+        between("// The largest prime factor of n (n >= 1", "// One frame's contrast in one band"),
+        HOST_MAIN,
+    ])
+    d = tmp_path_factory.mktemp("host_stages")
+    (d / "stages.cpp").write_text(code)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", "-w", "-o", str(d / "stages"), str(d / "stages.cpp")],
+                   check=True)
+    return d / "stages"
+
+
+@pytest.mark.parametrize("kind, n_fft, hop", [
+    ("a", 2048, 512), ("a", 2000, 500), ("a", 1764, 441), ("a", 1323, 441), ("a", 832, 208), ("a", 1365, 441),
+    ("a", 2192, 548), ("a", 1048, 262), ("a", 1965, 441), ("a", 4112, 1028),
+    ("c", 2048, 512), ("c", 1792, 448), ("c", 2662, 665), ("c", 1664, 416), ("c", 2192, 548), ("c", 2096, 524),
+    ("c", 1965, 441), ("c", 6544, 1636),
+])
+def test_kernel_fft_stages_built_for_the_host(host_stages, kind, n_fft, hop):
+    """The kernels' own FFT step (fft_rows as launch A's instance and
+    launch C's by the n_fft's largest prime factor call it, on LayoutF's
+    rows, tables and Bluestein scratch in one block's shared memory),
+    built for the host and run by 256 threads meeting at a barrier, make
+    each row's FFT against float64 `numpy.fft.fft`, and equal the CPU
+    model (`_stockham`) but for the device's fused multiply-adds; LayoutF's
+    Bluestein prime, m and bytes equal the mirror's."""
+    n_pow = n_fft // 4 if kind == "c" else 0
+    frames, nbytes = (frontend_kernel._spectral_layout(n_fft, hop) if kind == "a"
+                      else frontend_kernel._fft_layout(n_fft, n_fft, hop, n_pow, contrast=True))
+    points = n_fft if kind == "c" or n_fft % 2 else n_fft // 2
+    rows = frames // 2 if kind == "a" and n_fft % 2 else frames
+    tables = frontend_kernel._fft_tables(n_fft)
+    rng = np.random.default_rng(n_fft)
+    z = (rng.standard_normal((rows, points)) + 1j * rng.standard_normal((rows, points))).astype(np.complex64)
+    text = "\n".join([f"{kind} {n_fft} {hop} {n_pow}", *(f"{a:.9g} {b:.9g}" for a, b in tables),
+                      *(f"{v.real:.9g} {v.imag:.9g}" for v in z.reshape(-1))])
+    out = subprocess.run([str(host_stages)], input=text, capture_output=True, text=True, check=True).stdout.split("\n")
+    bp, m, group, end = map(int, out[0].split())
+    assert bp == frontend_kernel._bluestein_prime(n_fft) and 4 * end == nbytes
+    assert m == (frontend_kernel._bluestein_points(bp) if bp else 0) and (group > 0) == (bp > 0)
+    got = np.array([line.split() for line in out[1 : 1 + rows * points]], dtype=np.float64)
+    got = (got[:, 0] + 1j * got[:, 1]).reshape(rows, points)
+    assert _rel(got, np.fft.fft(z.astype(np.complex128), axis=-1)) < 1e-6
+    re, im = frontend_kernel._stockham(torch.from_numpy(z.real.copy()), torch.from_numpy(z.imag.copy()),
+                                       torch.from_numpy(tables), n_fft)
+    assert _rel(got, re.numpy() + 1j * im.numpy()) < 1e-7
 
 
 def test_epilogue_plan_mirrors_equal_the_c_rules(tmp_path):

@@ -47,12 +47,15 @@ once beside its library call: the launch as its plan takes it
 = 1024. `--routes` builds the source as built alone and runs that section
 only. `--primes` builds the source as built and the baselines and runs:
 the FFT plan on n_fft 2048, 2000, 1792, 2662 and 44.1 kHz at the odd 1323
-in turns with the baselines; where the largest prime factor the plans
-take may lie (kFftMaxPrime): at B = 1024 on the 16 kHz window of p ms for
+in turns with the baselines; where the generic prime stage gives way to
+Bluestein's (kFftMaxPrime): at B = 1024 on the 16 kHz window of p ms for
 p in PRIMES (n_fft 16 p, hop n_fft / 4, contrast), the GEMM plan, the FFT
-plan and the fft rows in turns, the largest p at which the FFT plan beats
-both, and the primes at which it loses to either from kFftMinNfft on
-(under it the GEMM keeps the config whatever the cap); both plans near
+plan, the other prime stage and Bluestein's stage called (kBluesteinC;
+spectral_probe.py's cap_variants) and the fft rows in turns, the largest
+p at which the generic stage's plan beats the GEMM and the fft rows, the
+p at which Bluestein's beats the generic one, and the primes at which
+the plan as built loses to either from kFftMinNfft on (under it the GEMM
+keeps the config whatever the cap); both plans near
 kFftMinNfft on n_fft with a factor of 13 (650, 676 and the odd 715); and
 the routes section. In that mode the FFT plan is also timed with
 fft_stage_prime inlined, not called (prime_variants), in turns with the
@@ -90,7 +93,7 @@ BANDS = (
 )
 GEMM_TAILS = "        const float v = band_value(pw + r * n_pow, __ldg(bands + i), lane);\n"
 FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands + i), lane);\n"
-PRIMES = (13, 17, 23, 31, 43, 61, 89, 127)  # the cap's probe: a window of p ms at 16 kHz, n_fft 16 p
+PRIMES = (13, 17, 23, 31, 43, 61, 89, 101, 113, 127, 131, 137, 149, 173, 211, 257, 331, 409)  # the cap's probe: a window of p ms at 16 kHz, n_fft 16 p
 FFT_CONFIGS = {
     n_fft: FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
                          use_spectral_contrast=True)
@@ -128,8 +131,8 @@ for _n in (1764, 1323, 2205):
 
 # Configs users set whose plan is timed once beside its library call: 30
 # and 50 ms windows at 44.1 kHz (odd), n_fft with a prime factor of 13 (the
-# FFT plan's generic prime stage), and one past the cap (the GEMM, level
-# 3).
+# FFT plan's generic prime stage), and one past the cap (Bluestein's
+# stage; its GEMM until it).
 ROUTES = {
     "44.1 kHz, 1323 (30 ms, odd)": _sr44k(1323),
     "44.1 kHz, 2205 (50 ms, odd)": _sr44k(2205),
@@ -160,13 +163,15 @@ def variants(src: str) -> dict:
         "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
         "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
         "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
-        "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix, kPrime ? kPrimeC : 0>(buf, F, n_fft, n_fft, tw);\n", ""),
+        "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, n_fft, "
+                                             "tw, &bl);\n", ""),
         "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
         "FFT plan, DivBy for a power of two": edit(
             edit(src, "fft_stage<2, true>(", "fft_stage<2, false>("), "fft_stage<4, true>(", "fft_stage<4, false>("
         ),
-        ONE_INSTANCE: edit(edit(src, "lp <= 7    ? (const void*)contrast_fft_kernel<7, false>",
-                                "false      ? (const void*)contrast_fft_kernel<7, false>"), "lp == 11 ?", "lp <= 11 ?"),
+        ONE_INSTANCE: edit(edit(src, "lp <= 7              ? (const void*)contrast_fft_kernel<7, false, 0>",
+                                "false                ? (const void*)contrast_fft_kernel<7, false, 0>"),
+                           "lp == 11           ?", "lp <= 11           ?"),
         TWIDDLE_NEGATED: edit(src, TWIDDLE, TWIDDLE_NEGATED_RULE),
     }
 
@@ -176,8 +181,13 @@ PRIME_STAGE = "constexpr int kPrimeC = 2;"
 
 def prime_variants(src: str) -> dict:
     """Launch C's instance for a prime factor past 11 with fft_stage_prime
-    inlined, not called."""
-    return {"FFT plan, the prime stage inlined": edit(src, PRIME_STAGE, "constexpr int kPrimeC = 1;")}
+    inlined, not called; for the cap's probe, spectral_probe's cap_variants
+    (the generic stage for every prime, Bluestein's past LOW_CAP, and
+    Bluestein's stage called, kBluesteinC)."""
+    from spectral_probe import cap_variants
+
+    return {"FFT plan, the prime stage inlined": edit(src, PRIME_STAGE, "constexpr int kPrimeC = 1;"),
+            **cap_variants(src, "constexpr int kBluesteinC = 1;")}
 
 
 def build_all(sources: dict) -> dict:
@@ -284,9 +294,13 @@ def main() -> None:
     routes_section(libs["as built"], rng, dev)
 
 
-def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor):
+def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor, tables=None):
+    """The contrast launch's FFT plan through the C function of `lib`,
+    reading `tables` (numpy) in place of the plan's own where given."""
     g = frontend_kernel._geometry(cfg)
     windows, tw = frontend_kernel._contrast_fft_constants(cfg, w.device)
+    if tables is not None:
+        tw = torch.from_numpy(tables).to(w.device)
     freqs, bands = frontend_kernel._centroid_and_bands(cfg, w.device)
 
     def launch() -> None:
@@ -445,7 +459,7 @@ def primes_section(libs: dict, baselines: list, rng: np.random.Generator, dev: t
     the baselines; the cap's probe on PRIMES; both plans near kFftMinNfft
     on a factor of 13; the routes."""
     lib = libs["as built"]
-    variants = [name for name in libs if name.startswith("FFT plan")]
+    variants = ["FFT plan, the prime stage inlined"]
     for n_fft in (2048, 2000, 1792, 2662, "44.1 kHz, 1323", 1760, 1664, 2704, 650):
         cfg = FFT_CONFIGS[n_fft] if n_fft in FFT_CONFIGS else ROUTES_BY_NFFT[n_fft]
         w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
@@ -466,6 +480,8 @@ def primes_section(libs: dict, baselines: list, rng: np.random.Generator, dev: t
                   f"{'FFT plan as built' if name == 'as built' else name}: {t:.4f} ms, max-relative vs plain {err:.2e}",
                   flush=True)
 
+    from spectral_probe import BLUESTEIN_CALLED, GENERIC, LOW, cap_times, variant_tables
+
     wins = []
     for p in PRIMES:
         cfg = FFT_CONFIGS[16 * p]
@@ -475,29 +491,44 @@ def primes_section(libs: dict, baselines: list, rng: np.random.Generator, dev: t
         want = frontend_kernel.spectral_contrast_reference(w, cfg)
         runs = {"GEMM plan": gemm_launch(lib, w, cfg, out), "FFT plan": fft_launch(lib, w, cfg, out),
                 "fft rows": lambda: frontend.spectral_contrast(w, cfg, method="fft")}
-        for name in ("GEMM plan", "FFT plan"):
-            runs[name]()
+        variants = {n: fft_launch(libs[n], w, cfg, out, variant_tables(cfg.n_fft, n))
+                    for n in (GENERIC, LOW, BLUESTEIN_CALLED)}
+        for name, run in {**runs, **variants}.items():
+            if name == "fft rows":
+                continue
+            run()
             torch.cuda.synchronize()
             err = ((out - want).abs().max() / want.abs().max()).item()
             if err > 1e-3:
                 raise SystemExit(f"the contrast launch's {name} disagrees with plain at n_fft {cfg.n_fft}: {err:.2e}")
-        times = {name: [] for name in runs}
-        for name in ("GEMM plan", "FFT plan", "fft rows", "fft rows", "FFT plan", "GEMM plan"):
-            times[name].append(cuda_ms(runs[name], 5))
+
+        def order_in_turns(r):
+            times = {name: [] for name in r}
+            for name in tuple(r) + tuple(r)[::-1]:
+                times[name].append(cuda_ms(r[name], 5))
+            return times
+
+        times, generic, bluestein = cap_times(runs, variants, p, order_in_turns)
         fft = max(times["FFT plan"])
-        beats = (fft < min(times["GEMM plan"]), fft < min(times["fft rows"]))
+        beats = (fft < min(times["GEMM plan"]), fft < min(times["fft rows"]),
+                 generic < min(times["GEMM plan"]) and generic < min(times["fft rows"]),
+                 bluestein is not None and bluestein < generic)
         wins.append(beats)
+        stage = "Bluestein's stage" if p > frontend_kernel._FFT_MAX_PRIME else "the generic prime stage"
         print(f"contrast launch B=1024, a window of {p} ms at 16 kHz: n_fft {cfg.n_fft} + contrast, hop "
               f"{cfg.hop_length} (GEMM level {frontend_kernel._contrast_gemm_plan(cfg)[0]}; prime factors "
-              f"{frontend_kernel._prime_factors(cfg.n_fft)}), in turns: "
+              f"{frontend_kernel._prime_factors(cfg.n_fft)}; the FFT plan as built runs {stage}), in turns: "
               + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
-              + f"; the FFT plan beats the GEMM: {beats[0]}, the fft rows: {beats[1]}", flush=True)
-    both = [p for p, (gemm, library) in zip(PRIMES, wins) if gemm and library]
-    lost = [(p, "GEMM" if not gemm else "fft rows") for p, (gemm, library) in zip(PRIMES, wins)
+              + f"; the FFT plan beats the GEMM: {beats[0]}, the fft rows: {beats[1]}"
+              + (f"; Bluestein's stage beats the generic one: {beats[3]}" if bluestein is not None else ""), flush=True)
+    generic = [p for p, b in zip(PRIMES, wins) if b[2]]
+    bluestein = [p for p, b in zip(PRIMES, wins) if b[3]]
+    lost = [(p, "GEMM" if not gemm else "fft rows") for p, (gemm, library, _, _) in zip(PRIMES, wins)
             if (16 * p >= frontend_kernel._FFT_MIN_NFFT and not gemm) or not library]
-    print(f"launch C's cap: the largest probed prime at which the FFT plan beats the GEMM and the fft rows: "
-          f"{max(both, default=None)}; from n_fft {frontend_kernel._FFT_MIN_NFFT} it loses to (prime, call): {lost}",
-          flush=True)
+    print(f"launch C's cap: the largest probed prime at which the generic prime stage's FFT plan beats the GEMM and "
+          f"the fft rows: {max(generic, default=None)}; the probed primes at which Bluestein's stage beats it: "
+          f"{bluestein}; from n_fft {frontend_kernel._FFT_MIN_NFFT} the FFT plan as built loses to (prime, call): "
+          f"{lost}", flush=True)
     threshold_section(lib, rng, dev, (650, 676, 715))
     routes_section(lib, rng, dev)
 

@@ -12,8 +12,10 @@ versions, each stage's max-relative deviation from float64 (the power
 and mel as a share of their maxima, and as the largest share of any one
 mel value, which float32 FFT rounding dominates in the bins the sweeps
 leave near zero), and a SHA-256 digest of the chain's features: two hosts
-that print the same digest compute the same float32 features. Imports no
-JAX; runs on the CPU only.
+that print the same digest compute the same float32 features. On the CPU
+the chain's mel_spectrogram takes its power from a float64 FFT; the power
+stage printed is power_spectrogram's, in float32. Imports no JAX; runs on
+the CPU only.
 """
 
 from __future__ import annotations

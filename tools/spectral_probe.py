@@ -55,13 +55,17 @@ C function, and `torch.stft` + a mel matmul, in turns, at B = 1024.
 (PRIME_CALLED), and the baselines, and runs, after their cuobjdump lines:
 launch A's FFT plan on PRIME_KEEP (n_fft 2048, 2000, 1792, 2662, the odd
 1323, 832 at 256 mels and the odd 1365 at 44.1 kHz) in turns with the
-baselines; where its
-largest prime factor may lie (kFftMaxPrime): at B = 1024 on the 16 kHz
-window of p ms for p in PRIMES (n_fft 16 p, hop n_fft / 4, 128 mels), the
-GEMM plan, the FFT plan and `torch.stft` + mel in turns, the largest p
-at which the FFT plan beats both, and the primes at which it loses to
-either from kFftMinNfft on (under it the GEMM keeps 128 mels whatever
-the cap); both plans near kFftMinNfft on n_fft
+baselines; where the generic prime stage gives way to Bluestein's
+(kFftMaxPrime): at B = 1024 on the 16 kHz window of p ms for p in PRIMES
+(n_fft 16 p, hop n_fft / 4, 128 mels, 13 to 409), the GEMM plan, the FFT
+plan, the other prime stage (past the cap the generic one, from LOW_CAP
+to it Bluestein's: variants of kFftMaxPrime, each with its tables),
+Bluestein's stage called (kBluesteinA) past the cap, and `torch.stft` +
+mel, in turns; the largest p at which the generic stage's plan beats the
+GEMM and the library, the p at which Bluestein's beats the generic one,
+and the primes at which the plan as built loses to either from
+kFftMinNfft on (under it the GEMM keeps 128 mels whatever the cap); both
+plans near kFftMinNfft on n_fft
 with a factor of 13 (650, 676 and the odd 715) at B = 1024 and 4096; and
 the routes section. All builds run at once. Prints the card's name and power limit first.
 Needs a CUDA card and nvcc; imports no JAX.
@@ -260,7 +264,8 @@ def main() -> None:
         routes_section(build("spectral_probe_routes", src), np.random.default_rng(0), torch.device("cuda"))
         return
     if args.primes:
-        sources = {"FFT plan as built": src, PRIME_CALLED: edit(src, FFT_ROWS_A, FFT_ROWS_A.replace("<11, 1>", "<11, 2>"))}
+        sources = {"FFT plan as built": src, PRIME_CALLED: edit(src, FFT_ROWS_A, FFT_ROWS_A.replace("<11, 1,", "<11, 2,")),
+                   **cap_variants(src, "constexpr int kBluesteinA = 1;")}
         sources.update({f"baseline {path}": path.read_text() for path in args.baseline})
         with ThreadPoolExecutor(len(sources)) as pool:
             built = {name: pool.submit(build, f"spectral_probe_{n}", text) for n, (name, text) in enumerate(sources.items())}
@@ -402,8 +407,12 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, mel: torch.Tensor):
+def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, mel: torch.Tensor, tables=None):
+    """Launch A's FFT plan through the C function of `lib`, reading
+    `tables` (numpy) in place of the plan's own where given."""
     k = frontend_kernel._fft_constants(cfg, w.device)
+    if tables is not None:
+        k = k._replace(twiddles=torch.from_numpy(tables).to(w.device))
 
     def launch() -> None:
         err = lib.cdt_frontend_spectral_fft(
@@ -478,7 +487,8 @@ FFT_CONFIGS = {
 # Configs users set whose plan is timed once beside its library call:
 # n_fft with a prime factor of 13, 52 ms at 16 kHz on 256 mels and an odd
 # 31 ms at 44.1 kHz (the FFT plan's generic prime stage), and a prime past
-# the cap, 137 ms at 16 kHz on 256 mels (the GEMM).
+# the cap, 137 ms at 16 kHz on 256 mels (Bluestein's stage; the GEMM until
+# it).
 ROUTES = {
     "n_fft 832 (2^6 13), 256 mels": FeatureConfig(n_fft=832, win_length=832, hop_length=208, n_mels=256,
                                                   f_max=8000.0),
@@ -489,11 +499,55 @@ ROUTES = {
 }
 # Launch A's FFT stages as built (fft_stage_prime inlined) and, as the
 # variant PRIME_CALLED, with the prime stage called.
-FFT_ROWS_A = "  fft_rows<11, 1>(buf, pairs ? lay.rows : F, points, n_fft, tw);\n"
+FFT_ROWS_A = "  fft_rows<11, 1, kBluestein>(buf, rows, points, n_fft, tw, &bl);\n"
 PRIME_CALLED = "FFT plan, the prime stage called"
+# The cap's probe's variants: fft_stage_prime for every prime (kFftMaxPrime
+# past any row's), Bluestein's stage from the least cap a row allows
+# (LOW_CAP: kFftMaxPrime^2 must pass kFftPoints), and Bluestein's stage
+# called, not inlined (kBluesteinA).
+CAP = "constexpr int kFftMaxPrime = "
+LOW_CAP = 97
+GENERIC = "FFT plan, the generic prime stage past the cap"
+LOW = f"FFT plan, Bluestein's stage past {LOW_CAP}"
+BLUESTEIN_CALLED = "FFT plan, Bluestein's stage called"
+
+
+def cap_variants(src: str, called: str) -> dict:
+    """The source with the generic prime stage for every prime, with
+    Bluestein's stage past LOW_CAP, and with it called (the text `called`
+    edits)."""
+    line = src[src.index(CAP) : src.index(";", src.index(CAP)) + 1]
+    return {GENERIC: edit(src, line, CAP + "8191;"), LOW: edit(src, line, f"{CAP}{LOW_CAP};"),
+            BLUESTEIN_CALLED: edit(src, called, called.replace("= 1;", "= 2;"))}
+
+
+def variant_tables(n_fft: int, name: str) -> np.ndarray:
+    """The tables the variant `name` reads: for LOW, Bluestein's past
+    LOW_CAP; else the source's own (_fft_tables)."""
+    p = frontend_kernel._largest_prime(n_fft)
+    if name == LOW and LOW_CAP < p <= frontend_kernel._FFT_MAX_PRIME:
+        return np.concatenate([frontend_kernel._twiddles(n_fft), frontend_kernel._bluestein_tables(p)])
+    return frontend_kernel._fft_tables(n_fft)
+
+
+def cap_times(runs: dict, variant_runs: dict, p: int, order_in_turns) -> tuple:
+    """The cap's probe at prime p: runs holds the GEMM plan, the FFT plan as
+    built and the library call; variant_runs the variants that time the
+    other stage at p (GENERIC past the cap, LOW from LOW_CAP to it) and
+    Bluestein's stage called past the cap. Times all in turns; returns
+    (times, the generic stage's time, Bluestein's or None)."""
+    past = p > frontend_kernel._FFT_MAX_PRIME
+    other = GENERIC if past else LOW if p > LOW_CAP else None
+    names = [other] + ([BLUESTEIN_CALLED] if past else []) if other else []
+    allruns = {**runs, **{n: variant_runs[n] for n in names}}
+    times = order_in_turns(allruns)
+    fft = max(times["FFT plan"])
+    generic = max(times[GENERIC]) if past else fft
+    bluestein = fft if past else max(times[LOW]) if other else None
+    return times, generic, bluestein
 # The primes of the cap's probe (a window of p ms at 16 kHz: n_fft 16 p),
 # and the FFT plans an earlier source ran, timed against it (--baseline) in turns.
-PRIMES = (13, 17, 23, 31, 43, 61, 89, 127)
+PRIMES = (13, 17, 23, 31, 43, 61, 89, 101, 113, 127, 131, 137, 149, 173, 211, 257, 331, 409)
 PRIME_KEEP = {
     "n_fft 2048": n_fft_config(2048),
     "n_fft 2000": n_fft_config(2000),
@@ -663,27 +717,37 @@ def primes_section(libs: dict, baselines: list, rng: np.random.Generator, dev: t
         library = library_mel_fn(cfg, dev)
         runs = {"GEMM plan": gemm_launch(lib, w, cfg, mel), "FFT plan": fft_launch(lib, w, cfg, mel),
                 "torch.stft + mel": lambda: library(w)}
-        for name in ("GEMM plan", "FFT plan"):
-            runs[name]()
+        variants = {n: fft_launch(libs[n], w, cfg, mel, variant_tables(cfg.n_fft, n))
+                    for n in (GENERIC, LOW, BLUESTEIN_CALLED)}
+        for name, run in {**runs, **variants}.items():
+            if name == "torch.stft + mel":
+                continue
+            run()
             torch.cuda.synchronize()
             err = ((mel - want).abs().max() / want.abs().max()).item()
             if err > 1e-3:
                 raise SystemExit(f"the {name} disagrees with the plain version at n_fft {cfg.n_fft}: {err:.2e}")
-        times = in_turns(runs, ("GEMM plan", "FFT plan", "torch.stft + mel", "torch.stft + mel", "FFT plan",
-                                "GEMM plan"), 10)
+        times, generic, bluestein = cap_times(runs, variants, p, lambda r: in_turns(r, tuple(r) + tuple(r)[::-1], 10))
         fft = max(times["FFT plan"])
-        beats = (fft < min(times["GEMM plan"]), fft < min(times["torch.stft + mel"]))
+        beats = (fft < min(times["GEMM plan"]), fft < min(times["torch.stft + mel"]),
+                 generic < min(times["GEMM plan"]) and generic < min(times["torch.stft + mel"]),
+                 bluestein is not None and bluestein < generic)
         wins.append(beats)
+        stage = "Bluestein's stage" if p > frontend_kernel._FFT_MAX_PRIME else "the generic prime stage"
         print(f"spectral launch B=1024, a window of {p} ms at 16 kHz: n_fft {cfg.n_fft}, hop {cfg.hop_length}, 128 mels "
-              f"(points' prime factors {frontend_kernel._prime_factors(frontend_kernel._spectral_points(cfg.n_fft))}), "
-              "in turns: " + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
-              + f"; the FFT plan beats the GEMM: {beats[0]}, the library: {beats[1]}", flush=True)
-    both = [p for p, (gemm, library) in zip(PRIMES, wins) if gemm and library]
-    lost = [(p, "GEMM" if not gemm else "torch.stft + mel") for p, (gemm, library) in zip(PRIMES, wins)
+              f"(points' prime factors {frontend_kernel._prime_factors(frontend_kernel._spectral_points(cfg.n_fft))}; "
+              f"the FFT plan as built runs {stage}), in turns: "
+              + ", ".join(f"{n} {[round(t, 4) for t in v]} ms" for n, v in times.items())
+              + f"; the FFT plan beats the GEMM: {beats[0]}, the library: {beats[1]}"
+              + (f"; Bluestein's stage beats the generic one: {beats[3]}" if bluestein is not None else ""), flush=True)
+    generic = [p for p, b in zip(PRIMES, wins) if b[2]]
+    bluestein = [p for p, b in zip(PRIMES, wins) if b[3]]
+    lost = [(p, "GEMM" if not gemm else "torch.stft + mel") for p, (gemm, library, _, _) in zip(PRIMES, wins)
             if (16 * p >= frontend_kernel._FFT_MIN_NFFT and not gemm) or not library]
-    print(f"launch A's cap: the largest probed prime at which the FFT plan beats the GEMM and the torch.stft + mel: "
-          f"{max(both, default=None)}; from n_fft {frontend_kernel._FFT_MIN_NFFT} it loses to (prime, call): {lost}",
-          flush=True)
+    print(f"launch A's cap: the largest probed prime at which the generic prime stage's FFT plan beats the GEMM and "
+          f"the torch.stft + mel: {max(generic, default=None)}; the probed primes at which Bluestein's stage beats "
+          f"it: {bluestein}; from n_fft {frontend_kernel._FFT_MIN_NFFT} the FFT plan as built loses to (prime, "
+          f"call): {lost}", flush=True)
 
     for n_fft in (650, 676, 715):
         cfg = n_fft_config(n_fft)
