@@ -53,7 +53,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      2704 with contrast, 832 at 256 mels and the odd 1365 at 44.1 kHz, a
      prime factor past the generic stage's cap (the FFT plans' Bluestein
      stage) at n_fft 2096 and 2192 with contrast, 2192 and 1048 at 256
-     mels and the odd 1965 at 44.1 kHz, the GEMM plans' spans from device
+     mels and the odd 1965 at 44.1 kHz, the contrast launch's bands past
+     512 bins (block_tails) at n_fft 5296 and 6144, 4608 with 8 bands and
+     8192 at 44.1 kHz, the GEMM plans' spans from device
      memory, contrast levels 1 and 3 and mel groups where the FFT plans do
      not fit (a 25 ms hop with contrast; the prime n_fft 2129 at 256 mels
      with contrast), and 10 s clips with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
@@ -94,8 +96,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      44.1 kHz at the odd 1965 on 256 mels (Bluestein's stage), the
      contrast launch on n_fft 1024 (both plans), 2048, 4096, 2000, 3000,
      1792, 2744, 1760 and 2662, 44.1 kHz at 1764, 1323 and 2205, 1664 and
-     2704 (radix 13), and 2192 and 2096 (Bluestein's stage; the FFT), each
-     beside
+     2704 (radix 13), 2192 and 2096 (Bluestein's stage; the FFT), and
+     5296, 6144, 4608 with 8 bands and 8192 at 44.1 kHz (bands past 512
+     bins by block_tails), each beside
      its bound, its plain version and torch.stft + mel (the fft rows for
      contrast); the epilogue launch alone on its cluster route (5 s at 128
      mels, 10 s with PCEN, delta-deltas and 20 MFCCs at B = 1024, a hop of
@@ -3351,7 +3354,10 @@ def coverage_configs() -> dict:
     a prime factor past the generic stage's cap (kFftMaxPrime), the FFT
     plans' Bluestein stage: n_fft 2096 (2^4 131, a 131 ms window) and 2192
     (2^4 137) with contrast, 2192 and 1048 (2^3 131) on 256 mels and 1965
-    (3 5 131, odd) at 44.1 kHz on 256 mels. The GEMM plans where the FFT
+    (3 5 131, odd) at 44.1 kHz on 256 mels; bands past the FFT plan's
+    band_sorted (kWideBand), its block_tails: n_fft 5296 (2^4 331, a
+    581-bin band) and 6144 (666) with contrast, 4608 with 8 bands (563),
+    8192 at 44.1 kHz with contrast (868). The GEMM plans where the FFT
     plans do not fit: a 25 ms hop with contrast (the shipped window; launch
     A's span from device memory, the contrast launch's level 1), and the
     prime n_fft 2129 (133 ms; past Bluestein's 1997) on
@@ -3423,6 +3429,14 @@ def coverage_configs() -> dict:
                                             use_spectral_contrast=True), one),
         "nfft2192_contrast": (FeatureConfig(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
+        "nfft5296_contrast": (FeatureConfig(n_fft=5296, win_length=5296, hop_length=1324, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft6144_contrast": (FeatureConfig(n_fft=6144, win_length=6144, hop_length=1536, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "sr44k_nfft8192_contrast": (FeatureConfig(sample_rate=44100, n_fft=8192, win_length=8192, hop_length=2048,
+                                                  n_mels=128, f_max=22050.0, use_spectral_contrast=True), one),
+        "nfft4608_bands8_contrast": (FeatureConfig(n_fft=4608, win_length=4608, hop_length=1152, n_mels=128,
+                                                   f_max=8000.0, n_contrast_bands=8, use_spectral_contrast=True), one),
         "nfft2192_mels256": (FeatureConfig(n_fft=2192, win_length=2192, hop_length=548, n_mels=256, f_max=8000.0), one),
         "nfft1048_mels256": (FeatureConfig(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0), one),
         "sr44k_nfft1965_mels256": (FeatureConfig(sample_rate=44100, n_fft=1965, win_length=1965, hop_length=441,
@@ -4015,7 +4029,9 @@ def main() -> None:
     # 1664 and 2704; both FFT plans on a prime factor past the cap
     # (Bluestein's stage): launch A on 2192 and 1048 at 256 mels and 44.1
     # kHz at the odd 1965 on 256 mels, the contrast launch on 2192 and
-    # 2096. The GEMM plans these n_fft took until their FFT plans
+    # 2096; the contrast launch's bands by the block (block_tails) on n_fft
+    # 5296, 6144, 4608 with 8 bands and 8192 at 44.1 kHz. The GEMM plans
+    # these n_fft took until their FFT plans
     # are not timed here (PERF.md keeps their times; tools/spectral_probe.py
     # and tools/contrast_probe.py time the GEMM on n_fft past the FFT
     # plans' cap beside both).
@@ -4040,7 +4056,9 @@ def main() -> None:
                  "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast", "nfft1792_contrast", "nfft2744_contrast",
                  "sr44k_nfft1764_contrast", "nfft1760_contrast", "nfft2662_contrast", "sr44k_nfft1323_contrast",
                  "sr44k_nfft2205_contrast", "nfft1664_contrast", "nfft2704_contrast", "nfft2192_mels256",
-                 "nfft1048_mels256", "sr44k_nfft1965_mels256", "nfft2192_contrast", "nfft2096_contrast", *epilogue_only):
+                 "nfft1048_mels256", "sr44k_nfft1965_mels256", "nfft2192_contrast", "nfft2096_contrast",
+                 "nfft5296_contrast", "nfft6144_contrast", "sr44k_nfft8192_contrast", "nfft4608_bands8_contrast",
+                 *epilogue_only):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -4084,7 +4102,8 @@ def main() -> None:
             out = frontend_kernel.spectral_contrast_fused(w, cfg)
             rows["contrast"] = dict(
                 ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_fused(w, cfg), 5),
-                plain_ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_reference(w, cfg), 2, warmup=1),
+                # The gemm rows take 17-312 ms a call at B = 1024: one timed call.
+                plain_ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_reference(w, cfg), 1, warmup=1),
                 library_ms=cuda_ms(lambda: frontend.spectral_contrast(w, cfg, method="fft"), 2, warmup=1),
                 level=frontend_kernel.contrast_level(cfg),
                 plan=plan_name(frontend_kernel, "contrast", cfg),

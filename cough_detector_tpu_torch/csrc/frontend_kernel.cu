@@ -159,6 +159,7 @@ constexpr int kSmemSM = 233472;                     // shared memory of an SM, 1
 constexpr int kBlocksSM = 3;                        // launch B's cluster blocks an SM at most
 constexpr int kRedC = 16;                           // floats of launch C's reduction slots
 constexpr int kBandChunk = 128;                     // launch C: a band's bins a selection pass, 4 a lane
+constexpr int kWideBand = 512;                      // launch C's FFT plan: wider bands by the block (block_tails)
 constexpr int kFftPoints = 8192;                    // FFT plans: complex points a block holds (64 KB)
 constexpr int kFftMaxFrames = 32;                   // FFT plans: frames a block takes at most
 constexpr int kFftMinNfft = 640;                    // FFT plans: the least n_fft they take (past 128 mels any)
@@ -1762,15 +1763,19 @@ struct LayoutF {
       if (bp) {
         int nb = rows * points / bp;
         nb = nb < 1 ? 1 : nb;  // (rows 0: fft_fits refuses the n_fft)
-        const int most = rest + spanf <= kSmemTwo / 4 ? kSmemTwo / 4 : (int)(kMaxSmem / 4);
-        const int room = most - rest > spanf ? most - rest : spanf;
-        const int fit = room / (2 * bm);  // rows of m points
-        warps = fit / 2 < 1 ? 1 : fit / 2 < kWarpsA ? fit / 2 : kWarpsA;
-        int g = fit - warps < 1 ? 1 : fit - warps < nb ? fit - warps : nb;
-        if (g > warps) g -= g % warps;  // whole rounds of the warps
-        const int passes = (nb + g - 1) / g;
-        group = (nb + passes - 1) / passes;
-        warps = warps < group ? warps : group;
+        const bool two = rest + spanf <= kSmemTwo / 4;
+        bluestein_rows(nb, two ? kSmemTwo / 4 : (int)(kMaxSmem / 4), rest, spanf);
+        // Launch C at one frame a group: one block an SM where two would
+        // run Bluestein's rows on fewer warps an SM (n_fft 5296: 3 of 8
+        // warps a block, two blocks; PERF.md).
+        if (contrast && rows == 1 && two) {
+          const int g2 = group, w2 = warps;
+          bluestein_rows(nb, (int)(kMaxSmem / 4), rest, spanf);
+          if (2 * w2 >= warps) {
+            group = g2;
+            warps = w2;
+          }
+        }
         if (2 * (group + warps) * bm > region) region = (2 * (group + warps) * bm + 3) / 4 * 4;
       }
       span = 2 * rows * points;
@@ -1780,6 +1785,22 @@ struct LayoutF {
       end = contrast ? red + kRedC : pow;
       if (rows <= 1 || sizeof(float) * end <= kMaxSmem) break;
     }
+  }
+
+  // Bluestein's group and warps for nb butterflies in `most` floats of a
+  // block: of the rows of m points that fit the span's room, half go to
+  // warps' buffers (up to kWarpsA, at least one), the rest to a pass's
+  // butterflies (at least one) in whole rounds of the warps, spread evenly
+  // over the passes.
+  __host__ __device__ void bluestein_rows(int nb, int most, int rest, int spanf) {
+    const int room = most - rest > spanf ? most - rest : spanf;
+    const int fit = room / (2 * bm);  // rows of m points
+    warps = fit / 2 < 1 ? 1 : fit / 2 < kWarpsA ? fit / 2 : kWarpsA;
+    int g = fit - warps < 1 ? 1 : fit - warps < nb ? fit - warps : nb;
+    if (g > warps) g -= g % warps;  // whole rounds of the warps
+    const int passes = (nb + g - 1) / g;
+    group = (nb + passes - 1) / passes;
+    warps = warps < group ? warps : group;
   }
 
   __host__ __device__ size_t bytes() const { return sizeof(float) * end; }
@@ -2444,18 +2465,145 @@ __device__ __forceinline__ float band_sorted(const float* pb, int w, int n_top, 
   return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
 }
 
-// band_value for the FFT plan: bands of up to 512 bins by band_sorted,
-// wider ones by rank (band_value).
+// band_value for the FFT plan: bands of up to kWideBand bins by
+// band_sorted (wider ones take block_tails).
+static_assert(kWideBand <= 512, "band_sorted takes up to 512 bins");
 __device__ __forceinline__ float band_value_sorted(const float* pb, int4 bd, int lane) {
   const int w = bd.y, nt = bd.z, nb = bd.w;
   const float* b = pb + bd.x;
-  if (w > 512) return band_value(pb, bd, lane);
   if (w > 256) return band_sorted<16>(b, w, nt, nb, lane);
   if (w > 128) return band_sorted<8>(b, w, nt, nb, lane);
   if (w > 64) return band_sorted<4>(b, w, nt, nb, lane);
   if (w > 32) return band_sorted<2>(b, w, nt, nb, lane);
   if (w > 1) return band_sorted<1>(b, w, nt, nb, lane);
   return 0.0f;
+}
+
+// The digit (0-255) whose counter in h (256 counters in shared memory, the
+// values that share the bits fixed so far, by their next 8 bits) holds
+// ascending rank r, by a warp: lane l adds up counters [8 l, 8 l + 8), an
+// exclusive scan over the lanes (xor shuffles) finds the lane where the
+// counts pass r, which walks its 8. Returns the digit in d, the values
+// under it in below and its counter in eq, in every lane.
+__device__ __forceinline__ void digit_of_rank(const unsigned* h, unsigned r, int lane, int& d, unsigned& below,
+                                              unsigned& eq) {
+  const uint4 a = reinterpret_cast<const uint4*>(h)[2 * lane], b = reinterpret_cast<const uint4*>(h)[2 * lane + 1];
+  const unsigned c[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  unsigned s = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += c[i];
+  unsigned incl = s, total = s;  // the lanes' inclusive scan, by xor partners
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned y = __shfl_xor_sync(0xffffffffu, total, off);
+    if (lane & off) incl += y;
+    total += y;
+  }
+  const int src = __ffs(__ballot_sync(0xffffffffu, incl > r)) - 1;
+  unsigned acc = incl - s, at = 0;
+  int k = 0;
+  bool go = true;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool pass = go && acc + c[i] <= r;
+    at = go && !pass ? c[i] : at;  // the counter that holds r
+    go = pass;
+    acc += pass ? c[i] : 0;
+    k += pass;
+  }
+  d = 8 * src + __shfl_sync(0xffffffffu, k, src);
+  below = __shfl_sync(0xffffffffu, acc, src);
+  eq = __shfl_sync(0xffffffffu, at, src);
+}
+
+// The two tails' sums (top, bottom) of one frame's band of w bins at pb,
+// by the whole block, in every thread: an exact selection whose work
+// follows the bins over the block's warps, where ranking (band_tails) takes
+// w^2 compares on one warp and band_sorted holds at most 512 bins. The
+// n_top-th largest value t and the n_bot-th smallest b come from a radix
+// select over the values' bits (a power is never negative, so its bits
+// order as an unsigned integer's), 8 bits a pass from the top, both tails
+// at once: each pass counts the values that share the bits fixed so far by
+// their next 8 bits, in 256 counters in shared memory, and every warp then
+// finds the digit that holds the wanted rank (digit_of_rank). Then top =
+// the sum of x > t plus (n_top - |{x > t}|) t, and the bottom tail
+// likewise: as band_sorted's, independent of how ties are broken. hist: 3
+// x 512 counters, then 2 kWarpsA floats, in shared memory: pass q (five an
+// item: four digits, then the sums) counts into the q % 3 set and zeroes
+// the next before its one barrier; the q % 3 set is zero on entry.
+__device__ __forceinline__ float2 block_tails(const float* pb, int w, int n_top, int n_bot, unsigned* hist,
+                                              int& q) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned* x = reinterpret_cast<const unsigned*>(pb);
+  unsigned key[2] = {0u, 0u}, rank[2] = {(unsigned)(w - n_top), (unsigned)(n_bot - 1)}, eq[2];
+  for (int shift = 24; shift >= 0; shift -= 8, ++q) {
+    unsigned* h = hist + q % 3 * 512;
+    unsigned* next = hist + (q + 1) % 3 * 512;
+    const unsigned hi = shift == 24 ? 0u : ~0u << (shift + 8);  // the bits fixed so far
+    for (int e = tid; e < w; e += kThreadsA) {
+      const unsigned v = x[e], digit = v >> shift & 255u;
+      if ((v & hi) == key[0]) atomicAdd(h + digit, 1u);
+      if ((v & hi) == key[1]) atomicAdd(h + 256 + digit, 1u);
+    }
+    for (int i = tid; i < 512; i += kThreadsA) next[i] = 0u;
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      int d;
+      unsigned below;
+      digit_of_rank(h + 256 * t, rank[t], lane, d, below, eq[t]);
+      rank[t] -= below;
+      key[t] |= (unsigned)d << shift;
+    }
+  }
+  const float t = __uint_as_float(key[0]), b = __uint_as_float(key[1]);
+  float top = 0.0f, bot = 0.0f;
+  for (int e = tid; e < w; e += kThreadsA) {
+    const float v = pb[e];
+    top += v > t ? v : 0.0f;
+    bot += v < b ? v : 0.0f;
+  }
+  top = warp_sum(top);
+  bot = warp_sum(bot);
+  float* part = reinterpret_cast<float*>(hist + 3 * 512);
+  if (lane == 0) {
+    part[warp] = top;
+    part[kWarpsA + warp] = bot;
+  }
+  unsigned* next = hist + (q + 1) % 3 * 512;
+  for (int i = tid; i < 512; i += kThreadsA) next[i] = 0u;
+  __syncthreads();
+  ++q;
+  top = bot = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kWarpsA; ++i) {
+    top += part[i];
+    bot += part[kWarpsA + i];
+  }
+  // |{x > t}| = n_top + rank - eq (rank: t's among the values equal to it);
+  // |{x < b}| = n_bot - 1 - rank.
+  const int n_gt = n_top + (int)rank[0] - (int)eq[0], n_lt = n_bot - 1 - (int)rank[1];
+  return make_float2(top + (float)(n_top - n_gt) * t, bot + (float)(n_bot - n_lt) * b);
+}
+
+// Step 4 of the FFT plan for its bands past kWideBand bins: each (frame,
+// band) by the whole block (block_tails), one after another. pw: the
+// group's power rows (n_pow a frame); con: the clip's rows from the
+// group's first frame; hist: block_tails' scratch (the FFT rows' place).
+// Called by every thread, after the barrier that completes pw; a call,
+// so that the instances' other plans keep their registers.
+__device__ __noinline__ void wide_bands(const float* pw, int n_pow, const int4* bands, int n_bands, int frames,
+                                        float* con, int n_frames, unsigned* hist) {
+  for (int i = threadIdx.x; i < 512; i += kThreadsA) hist[i] = 0u;
+  __syncthreads();
+  int q = 0;
+  for (int f = 0; f < frames; ++f)
+    for (int i = 0; i < n_bands; ++i) {
+      const int4 bd = __ldg(bands + i);
+      if (bd.y <= kWideBand) continue;
+      const float2 s = block_tails(pw + f * n_pow + bd.x, bd.y, bd.z, bd.w, hist, q);
+      if (threadIdx.x == 0) con[i * n_frames + f] = log1pf(s.x / (float)bd.z) - log1pf(s.y / (float)bd.w);
+    }
 }
 
 // A group's span into shared memory: samples [0, len) of `src`.
@@ -2604,8 +2752,12 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
 // instance's largest odd radix in registers; kPrime: whether it runs the
 // prime factors past 11 by fft_stage_prime; kBluestein: whether it runs
 // one past kFftMaxPrime by Bluestein's stage, its tables past the
-// twiddles (fft_rows).
-template <int kRadix, bool kPrime, int kBluestein>
+// twiddles (fft_rows); kWide: whether it runs bands past kWideBand bins,
+// by the block (wide_bands), in instances of their own, so that the
+// others' plans keep their code (with the wider bands' path in every
+// instance, as a call taken where a band passes kWideBand, n_fft 2048,
+// 4096, 2704 and 1664 ran 1.6-5.1% slower than without it; PERF.md).
+template <int kRadix, bool kPrime, int kBluestein, bool kWide>
 __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop,
     const float* __restrict__ windows, const float2* __restrict__ twiddles, const LayoutF lay, int pow_lo,
@@ -2686,12 +2838,18 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     if (l_own == 0 && f_own < frames) con[n_bands * n_frames + t0 + f_own] = (ms > 0.0f ? fs / ms : 0.0f) / half_sr;
     __syncthreads();  // the group's power rows are in place
 
-    // 4. The bands' tails, a warp a (frame, band).
+    // 4. The bands' tails, a warp a (frame, band); in an instance for
+    // bands past kWideBand bins (kWide), the others so, then the wider ones
+    // by the block (wide_bands; the FFT rows are free for its scratch).
     for (int item = warp; item < frames * n_bands; item += kWarpsA) {
       const int f = item / n_bands, i = item - f * n_bands;
-      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands + i), lane);
+      const int4 bd = __ldg(bands + i);
+      if (kWide && bd.y > kWideBand) continue;
+      const float v = band_value_sorted(pw + f * n_pow, bd, lane);
       if (lane == 0) con[i * n_frames + t0 + f] = v;
     }
+    if constexpr (kWide)
+      wide_bands(pw, n_pow, bands, n_bands, frames, con + t0, n_frames, reinterpret_cast<unsigned*>(buf));
   }
   __syncthreads();  // the clip's rows are complete
 
@@ -2876,24 +3034,28 @@ int cdt_frontend_plan_c(int n_fft, int hop, int kpad, int n_pow, int n_frames, i
 // Launch C, FFT plan (contrast_fft_kernel). wave (B, n_samples); windows
 // (2, n_fft); twiddles (LayoutF's tables, 2), as cdt_frontend_spectral_fft's
 // (ops/frontend_kernel.py's _contrast_fft_constants); freqs (n_fft / 2 +
-// 1); bands as cdt_frontend_contrast's; out (B, n_bands + 1, n_frames).
-// All contiguous, on one device. Takes any n_fft that fft_fits and LayoutF
-// take, whatever plan_c says. The instance by the n_fft's largest prime
-// factor: radix 7 up to 7, radix 11 at 11, past 11 radix 11 with
-// fft_stage_prime, and past kFftMaxPrime that with Bluestein's stage.
+// 1); bands as cdt_frontend_contrast's, widest its widest band's bins;
+// out (B, n_bands + 1, n_frames). All contiguous, on one device. Takes any
+// n_fft that fft_fits and LayoutF take, whatever plan_c says. The instance
+// by the n_fft's largest prime factor: radix 7 up to 7, radix 11 at 11,
+// past 11 radix 11 with fft_stage_prime, and past kFftMaxPrime that with
+// Bluestein's stage; for a band past kWideBand bins, radix 7 up to 7, else
+// the last, each with wide_bands (kWide).
 int cdt_frontend_contrast_fft(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop,
     const float* windows, const float* twiddles, int pow_lo, int n_pow, const float* freqs,
-    float half_sr, const int* bands, int n_bands, float* out, cudaStream_t stream) {
+    float half_sr, const int* bands, int n_bands, int widest, float* out, cudaStream_t stream) {
   LayoutF lay(n_fft, hop, n_pow);
   if (!fft_fits(n_fft, n_fft) || hop < 1 || n_bands < 0 || n_pow < 0 || pow_lo < 0 ||
-      pow_lo + n_pow > n_fft / 2 + 1 || lay.bytes() > kMaxSmem)
+      pow_lo + n_pow > n_fft / 2 + 1 || widest < 0 || widest > n_pow || lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const int lp = largest_prime(n_fft);
-  const void* fn = lp <= 7              ? (const void*)contrast_fft_kernel<7, false, 0>
-                   : lp == 11           ? (const void*)contrast_fft_kernel<11, false, 0>
-                   : lp <= kFftMaxPrime ? (const void*)contrast_fft_kernel<11, true, 0>
-                                        : (const void*)contrast_fft_kernel<11, true, kBluesteinC>;
+  const void* fn = widest > kWideBand   ? lp <= 7 ? (const void*)contrast_fft_kernel<7, false, 0, true>
+                                                  : (const void*)contrast_fft_kernel<11, true, kBluesteinC, true>
+                   : lp <= 7            ? (const void*)contrast_fft_kernel<7, false, 0, false>
+                   : lp == 11           ? (const void*)contrast_fft_kernel<11, false, 0, false>
+                   : lp <= kFftMaxPrime ? (const void*)contrast_fft_kernel<11, true, 0, false>
+                                        : (const void*)contrast_fft_kernel<11, true, kBluesteinC, false>;
   const int err = set_smem(fn, lay.bytes());
   if (err) return err;
   void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &windows, &twiddles, &lay, &pow_lo, &n_pow,

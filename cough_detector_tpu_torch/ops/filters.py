@@ -81,7 +81,7 @@ def dct_matrix(n_mfcc: int, n_mels: int, dtype=np.float32) -> np.ndarray:
     return dct.astype(dtype)
 
 
-@functools.lru_cache(maxsize=32)  # chip_smoke.py's every-config checks use 23 (n_fft, win_length) pairs
+@functools.lru_cache(maxsize=64)  # chip_smoke.py's every-config checks use 32 (n_fft, win_length) pairs
 def dft_matrices(n_fft: int, win_length: int, dtype=np.dtype(np.float32)):
     """Real/imag DFT-as-matmul operators with the window folded in.
 

@@ -189,7 +189,8 @@ def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: boo
         span = _up4((frames - 1) * hop + n_fft)
         rest = 2 * rows * points + twf + (_up4(frames * n_pow) + _RED_C if contrast else 0)
         if bp:
-            span = max(span, _up4(2 * sum(_bluestein_rows(rows * points, bp, m, span, rest)) * m))
+            scratch = _bluestein_rows(rows * points, bp, m, span, rest, contrast and rows == 1)
+            span = max(span, _up4(2 * sum(scratch) * m))
         end = rest + span
         if rows <= 1 or 4 * end <= _MAX_SMEM:
             return frames, 4 * end
@@ -200,7 +201,7 @@ def _up4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def _bluestein_rows(total: int, bp: int, m: int, span: int, rest: int) -> tuple:
+def _bluestein_rows(total: int, bp: int, m: int, span: int, rest: int, one_frame_c: bool = False) -> tuple:
     """(group, warps): LayoutF's butterflies a pass of Bluestein's stage
     and the warps that run them, each with a buffer of m points. Of the
     rows of m points (2 floats a point) that fit the span's room grown
@@ -208,16 +209,26 @@ def _bluestein_rows(total: int, bp: int, m: int, span: int, rest: int) -> tuple:
     that already), half go to warps' buffers, up to 8,
     at least one, the rest to the pass's butterflies, at least one, in
     whole rounds of the warps, the total // bp butterflies spread evenly
-    over the passes."""
+    over the passes. For launch C at one frame a group (`one_frame_c`), the
+    room of one block an SM where two would leave fewer warps an SM."""
     nb = max(total // bp, 1)
-    most = _SMEM_TWO // 4 if rest + span <= _SMEM_TWO // 4 else _MAX_SMEM // 4
-    fit = max(most - rest, span) // (2 * m)
-    warps = min(max(fit // 2, 1), _WARPS_A)
-    g = min(max(fit - warps, 1), nb)
-    if g > warps:
-        g -= g % warps
-    group = -(-nb // -(-nb // g))
-    return group, min(warps, group)
+
+    def rows(most: int) -> tuple:
+        fit = max(most - rest, span) // (2 * m)
+        warps = min(max(fit // 2, 1), _WARPS_A)
+        g = min(max(fit - warps, 1), nb)
+        if g > warps:
+            g -= g % warps
+        group = -(-nb // -(-nb // g))
+        return group, min(warps, group)
+
+    two = rest + span <= _SMEM_TWO // 4
+    got = rows(_SMEM_TWO // 4 if two else _MAX_SMEM // 4)
+    if one_frame_c and two:
+        one = rows(_MAX_SMEM // 4)
+        if 2 * got[1] < one[1]:
+            return one
+    return got
 
 
 def _spectral_points(n_fft: int) -> int:
@@ -942,7 +953,7 @@ def build() -> ctypes.CDLL:
     lib.cdt_frontend_contrast.restype = i
     lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
     lib.cdt_frontend_spectral_fft.restype = i
-    lib.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i, p, p]
+    lib.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i, i, p, p]
     lib.cdt_frontend_contrast_fft.restype = i
     for name, n_args in (("a", 4), ("b", 5), ("c", 6)):
         getattr(lib, f"cdt_frontend_smem_{name}").argtypes = [i] * n_args
@@ -1307,7 +1318,7 @@ def spectral_contrast_fused(
             err = lib.cdt_frontend_contrast_fft(
                 waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
                 windows.data_ptr(), tw.data_ptr(), g.pow_lo, g.n_pow, freqs.data_ptr(), half_sr,
-                bands.data_ptr(), cfg.n_contrast_bands, out.data_ptr(), stream,
+                bands.data_ptr(), cfg.n_contrast_bands, max(g.widths, default=0), out.data_ptr(), stream,
             )
         else:
             k = _contrast_constants(cfg, waves.device)

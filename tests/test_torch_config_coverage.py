@@ -66,7 +66,9 @@ CONFIGS = {
 # the odd 1365 at 44.1 kHz); n_fft with a prime factor past the generic
 # stage's cap, on the FFT plans since their Bluestein stage (131 and 137 ms
 # windows at 16 kHz with contrast, 2096 and 2192; 2192 and 1048 at 256
-# mels; the odd 1965 at 44.1 kHz on 256 mels); since the FFT plans took
+# mels; the odd 1965 at 44.1 kHz on 256 mels); contrast bands past 512
+# bins, taken by the block (5296, 6144, 4608 with 8 bands, 8192 at 44.1
+# kHz); since the FFT plans took
 # every n_fft they fit, the GEMM plans' span from device memory (launch A
 # unstaged, the contrast launch's levels 1 and 3) and launch A's GEMM plan
 # over two mel groups, reached by a 25 ms hop with contrast (level 1) and
@@ -101,6 +103,11 @@ EXTRA = {
     "sr44k_nfft1365": dict(SR44K, n_fft=1365, win_length=1365),
     "nfft2096_contrast": dict(n_fft=2096, win_length=2096, hop_length=524, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft2192_contrast": dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft5296_contrast": dict(n_fft=5296, win_length=5296, hop_length=1324, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft6144_contrast": dict(n_fft=6144, win_length=6144, hop_length=1536, n_mels=128, f_max=8000.0, **CONTRAST),
+    "sr44k_nfft8192_contrast": dict(SR44K, n_fft=8192, win_length=8192, hop_length=2048, **CONTRAST),
+    "nfft4608_bands8_contrast": dict(n_fft=4608, win_length=4608, hop_length=1152, n_mels=128, f_max=8000.0,
+                                     n_contrast_bands=8, **CONTRAST),
     "nfft2192_mels256": dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=256, f_max=8000.0),
     "nfft1048_mels256": dict(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0),
     "sr44k_nfft1965_mels256": dict(SR44K, n_fft=1965, win_length=1965, n_mels=256),
@@ -155,6 +162,10 @@ PLANS_ON_CARD = {
     "sr44k_nfft1365": (95852, 2, 59520, 1, None, None),
     "nfft2096_contrast": (106632, 2, 24192, 1, 102248, 4),
     "nfft2192_contrast": (109752, 2, 23680, 1, 104328, 4),
+    "nfft5296_contrast": (203496, 2, 14976, 1, 207416, 4),
+    "nfft6144_contrast": (104456, 2, 13952, 1, 102280, 4),
+    "sr44k_nfft8192_contrast": (139272, 2, 19584, 1, 136136, 4),
+    "nfft4608_bands8_contrast": (101384, 2, 15488, 1, 77704, 4),
     "nfft2192_mels256": (109752, 2, 47232, 1, None, None),
     "nfft1048_mels256": (106632, 2, 80000, 1, None, None),
     "sr44k_nfft1965_mels256": (110300, 2, 118912, 1, None, None),

@@ -226,6 +226,10 @@ def test_smem_mirror_and_grid(name):
     (dict(n_fft=1125, win_length=1125, hop_length=281), 4),  # by FFT: an odd n_fft
     (dict(n_fft=1664, win_length=1664, hop_length=416), 4),  # by FFT: a radix-13 stage
     (dict(n_fft=2704, win_length=2704, hop_length=676), 4),  # by FFT: two radix-13 stages
+    (dict(n_fft=5296, win_length=5296, hop_length=1324), 4),  # by FFT: a 581-bin band by the block
+    (dict(n_fft=6144, win_length=6144, hop_length=1536), 4),  # by FFT: a 666-bin band by the block
+    (dict(n_fft=4608, win_length=4608, hop_length=1152, n_contrast_bands=8), 4),  # a 563-bin band by the block
+    (dict(sample_rate=44100, n_fft=8192, win_length=8192, hop_length=2048, n_mels=128, f_max=22050.0), 4),  # 868 bins
 ])
 def test_card_route_on_contrast_configs(kw, level):
     """The card route takes every contrast config the JAX launcher's hybrid
@@ -233,8 +237,8 @@ def test_card_route_on_contrast_configs(kw, level):
     that fits shared memory."""
     cfg = FeatureConfig(use_spectral_contrast=True, **kw)
     base = dataclasses.replace(cfg, use_spectral_contrast=False)
-    assert frontend_kernel.kernel_supports(base, 16000)
-    assert frontend_kernel.kernel_supports(cfg, 16000)
+    assert frontend_kernel.kernel_supports(base, cfg.segment_samples)
+    assert frontend_kernel.kernel_supports(cfg, cfg.segment_samples)
     assert frontend_kernel.contrast_level(cfg) == level
     assert frontend_kernel.contrast_smem_bytes(cfg) <= 232448
 

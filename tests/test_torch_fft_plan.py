@@ -11,7 +11,10 @@ the JAX package's Pallas kernel in interpret mode on the configs the plans
 take. Bluestein's stage (a prime factor past the cap) against float64
 `numpy.fft.fft`, and the kernel's own FFT stages, built for the host with
 g++ from the kernel source and run by 256 threads that meet at a barrier
-as a block's do, against float64 `numpy.fft.fft` and the models. Then the
+as a block's do, against float64 `numpy.fft.fft` and the models; the
+contrast plan's band stage (`band_sorted`, and `block_tails` for a band
+past `kWideBand`) built so too, warps' shuffles and ballots emulated,
+against the stable-rank tails. Then the
 plan rule (the Python mirror, and the C rule itself built with g++ from
 the kernel source where g++ is found), the tables' layout and the custom
 ops' fakes at the FFT geometry. Inputs are made from a seed with numpy.
@@ -89,6 +92,13 @@ COVERAGE = {
                           2, 4),
     "nfft2192_contrast": (dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0, **CONTRAST),
                           2, 4),
+    "nfft5296_contrast": (dict(n_fft=5296, win_length=5296, hop_length=1324, n_mels=128, f_max=8000.0, **CONTRAST),
+                          2, 4),
+    "nfft6144_contrast": (dict(n_fft=6144, win_length=6144, hop_length=1536, n_mels=128, f_max=8000.0, **CONTRAST),
+                          2, 4),
+    "sr44k_nfft8192_contrast": (dict(SR44K, n_fft=8192, win_length=8192, hop_length=2048, **CONTRAST), 2, 4),
+    "nfft4608_bands8_contrast": (dict(n_fft=4608, win_length=4608, hop_length=1152, n_mels=128, f_max=8000.0,
+                                      n_contrast_bands=8, **CONTRAST), 2, 4),
     "nfft2192_mels256": (dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=256, f_max=8000.0), 2, None),
     "nfft1048_mels256": (dict(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0), 2, None),
     "sr44k_nfft1965_mels256": (dict(SR44K, n_fft=1965, win_length=1965, n_mels=256), 2, None),
@@ -105,7 +115,10 @@ COVERAGE = {
 JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast",
              "nfft3000_contrast", "nfft768_mels256", "nfft1792_contrast", "nfft896_mels256", "sr44k_nfft1764_contrast",
              "nfft880_mels256", "nfft1760_contrast", "nfft832_mels256", "sr44k_nfft1365", "nfft2192_mels256",
-             "nfft2192_contrast", "sr44k_nfft1965_mels256")
+             "nfft2192_contrast", "sr44k_nfft1965_mels256", "nfft4608_bands8_contrast")
+# Launch A's FFT layout takes one block an SM on these (its frames and span
+# past half an SM's shared memory).
+ONE_BLOCK_A = ("nfft5296_contrast", "sr44k_nfft8192_contrast")
 # The JAX Pallas kernel refuses an odd n_fft whose hop divides the segment
 # (its frames are a sample short): these take the JAX jnp chain.
 JAX_CHAIN = ("sr44k_nfft1365", "sr44k_nfft1965_mels256")
@@ -176,7 +189,8 @@ def test_power_mel_fft_model_vs_float64_rfft(name, pre):
     "nfft1024_contrast", "nfft2048_contrast", "nfft4096_contrast", "nfft2000_contrast", "nfft3000_contrast",
     "nfft1792_contrast", "nfft2744_contrast", "sr44k_nfft1764_contrast", "nfft1760_contrast", "nfft2662_contrast",
     "sr44k_nfft1323_contrast", "sr44k_nfft2205_contrast", "nfft1664_contrast", "nfft2704_contrast",
-    "nfft2096_contrast", "nfft2192_contrast",
+    "nfft2096_contrast", "nfft2192_contrast", "nfft5296_contrast", "nfft6144_contrast", "sr44k_nfft8192_contrast",
+    "nfft4608_bands8_contrast",
 ])
 def test_contrast_fft_model_vs_float64_rfft(name):
     """The contrast launch's FFT plan's model (both windows through one
@@ -372,7 +386,8 @@ def test_plan_mirror(name):
     config and everything off an n_fft from 640 (or past 128 mels for
     launch A) whose largest prime factor is at most the cap on the GEMM,
     the rest on the FFT; the FFT layouts fit a
-    block, two blocks an SM, and launch C's frames a block are a power of
+    block, two blocks an SM (launch A one past n_fft 4096 where
+    ONE_BLOCK_A says so), and launch C's frames a block are a power of
     two."""
     cfg = _cfg(name)
     base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -381,7 +396,8 @@ def test_plan_mirror(name):
     smem = frontend_kernel.spectral_smem_bytes(base)
     if plan_a == frontend_kernel.PLAN_FFT:
         frames = frontend_kernel.spectral_fft_frames(base)
-        assert frames * cfg.n_fft // 2 <= 8192 and 2 * (smem + 1024) <= 233472
+        assert frames * cfg.n_fft // 2 <= 8192 and (name in ONE_BLOCK_A) == (2 * (smem + 1024) > 233472)
+        assert smem <= 232448
     else:
         assert smem == frontend_kernel._ring_bytes(
             frontend_kernel._span_floats(cfg.hop_length, frontend_kernel._support(cfg)[2]) if plan_a else 0
@@ -587,9 +603,11 @@ def test_fft_plan_rule_over_every_n_fft(tmp_path):
 HOST_PRELUDE = """\
 #include <algorithm>
 #include <barrier>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -610,6 +628,36 @@ inline void __syncwarp() { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
 inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 using std::min;
+// A warp's lanes exchange 4-byte values through its slots, between two of
+// its barriers: the shuffles, the ballot.
+struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
+unsigned warp_slots[8][32];
+template <class T> inline T lane_value(T v, int src) {
+  static_assert(sizeof(T) == 4, "4-byte lanes");
+  const int w = threadIdx.x / 32;
+  std::memcpy(&warp_slots[w][threadIdx.x % 32], &v, 4);
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &warp_slots[w][src], 4);
+  __syncwarp();
+  return r;
+}
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) { return lane_value(v, (threadIdx.x % 32) ^ m); }
+template <class T> inline T __shfl_sync(unsigned, T v, int src) { return lane_value(v, src); }
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int w = threadIdx.x / 32;
+  warp_slots[w][threadIdx.x % 32] = p != 0;
+  __syncwarp();
+  unsigned m = 0;
+  for (int j = 0; j < 32; ++j) m |= warp_slots[w][j] << j;
+  __syncwarp();
+  return m;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned atomicAdd(unsigned* a, unsigned v) { return __atomic_fetch_add(a, v, __ATOMIC_RELAXED); }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+template <class T> inline T __ldg(const T* p) { return *p; }
 """
 # Step 3 of launch A ('a') or C ('c') on one block's rows, as the kernels
 # call fft_rows (the same instances), by kThreadsA threads: reads "kind
@@ -698,7 +746,7 @@ def host_stages(tmp_path_factory):
     ("a", 2048, 512), ("a", 2000, 500), ("a", 1764, 441), ("a", 1323, 441), ("a", 832, 208), ("a", 1365, 441),
     ("a", 2192, 548), ("a", 1048, 262), ("a", 1965, 441), ("a", 4112, 1028),
     ("c", 2048, 512), ("c", 1792, 448), ("c", 2662, 665), ("c", 1664, 416), ("c", 2192, 548), ("c", 2096, 524),
-    ("c", 1965, 441), ("c", 6544, 1636),
+    ("c", 1965, 441), ("c", 6544, 1636), ("c", 5296, 1324),
 ])
 def test_kernel_fft_stages_built_for_the_host(host_stages, kind, n_fft, hop):
     """The kernels' own FFT step (fft_rows as launch A's instance and
@@ -728,6 +776,188 @@ def test_kernel_fft_stages_built_for_the_host(host_stages, kind, n_fft, hop):
     re, im = frontend_kernel._stockham(torch.from_numpy(z.real.copy()), torch.from_numpy(z.imag.copy()),
                                        torch.from_numpy(tables), n_fft)
     assert _rel(got, re.numpy() + 1j * im.numpy()) < 1e-7
+
+
+# Launch C's FFT plan's band stage on one block's power rows, by
+# kThreadsA threads: reads "frames n_pow n_bands", the bands (first bin,
+# bins, top and bottom tail lengths) and the rows; runs step 4 as
+# contrast_fft_kernel does (band_value_sorted a warp a (frame, band) to
+# kWideBand bins, then wide_bands), prints kWideBand, the (n_bands, frames)
+# rows, then each wide (frame, band)'s tails' sums by block_tails, called
+# one after another on one scratch.
+BAND_MAIN = r"""
+int main() {
+  int frames, n_pow, n_bands;
+  if (scanf("%d %d %d", &frames, &n_pow, &n_bands) != 3) return 1;
+  std::vector<int4> bands(n_bands);
+  for (auto& b : bands)
+    if (scanf("%d %d %d %d", &b.x, &b.y, &b.z, &b.w) != 4) return 2;
+  std::vector<float> pw(frames * n_pow), con(n_bands * frames, -1e30f);
+  for (auto& v : pw)
+    if (scanf("%f", &v) != 1) return 3;
+  std::vector<unsigned> scratch(3 * 512 + 2 * kWarpsA, 0xdeadbeefu), scratch2(scratch);
+  std::vector<float2> sums(n_bands * frames);
+  std::barrier<> bar(kThreadsA);
+  block_barrier = &bar;
+  std::unique_ptr<std::barrier<>> warps[kWarpsA];
+  for (int w = 0; w < kWarpsA; ++w) {
+    warps[w] = std::make_unique<std::barrier<>>(32);
+    warp_barriers[w] = warps[w].get();
+  }
+  std::vector<std::thread> threads;
+  for (int t = 0; t < kThreadsA; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx.x = t;
+      const int lane = t & 31, warp = t >> 5;
+      bool wide = false;
+      for (int i = 0; i < n_bands; ++i) wide |= __ldg(bands.data() + i).y > kWideBand;
+      for (int item = warp; item < frames * n_bands; item += kWarpsA) {
+        const int f = item / n_bands, i = item - f * n_bands;
+        const int4 bd = __ldg(bands.data() + i);
+        if (bd.y > kWideBand) continue;
+        const float v = band_value_sorted(pw.data() + f * n_pow, bd, lane);
+        if (lane == 0) con[i * frames + f] = v;
+      }
+      if (wide) wide_bands(pw.data(), n_pow, bands.data(), n_bands, frames, con.data(), frames, scratch.data());
+      __syncthreads();
+      for (int i = t; i < 512; i += kThreadsA) scratch2[i] = 0u;
+      __syncthreads();
+      int q = 0;
+      for (int f = 0; f < frames; ++f)
+        for (int i = 0; i < n_bands; ++i) {
+          const int4 bd = bands[i];
+          if (bd.y <= kWideBand) continue;
+          const float2 s = block_tails(pw.data() + f * n_pow + bd.x, bd.y, bd.z, bd.w, scratch2.data(), q);
+          if (t == 0) sums[i * frames + f] = s;
+        }
+    });
+  for (auto& th : threads) th.join();
+  printf("%d\n", kWideBand);
+  for (float v : con) printf("%.9g\n", v);
+  for (int f = 0; f < frames; ++f)
+    for (int i = 0; i < n_bands; ++i)
+      if (bands[i].y > kWideBand) printf("%.9g %.9g\n", sums[i * frames + f].x, sums[i * frames + f].y);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_bands(tmp_path_factory):
+    """The kernel source's band stage (band_sorted, block_tails, wide_bands
+    and the warp reductions under them) built for the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
+
+    def between(a, b):
+        i = src.index(a)
+        return src[i : src.index(b, i)]
+
+    code = "\n".join([
+        HOST_PRELUDE,
+        between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
+        between("__device__ __forceinline__ float warp_sum", "// The clip's z-norm"),
+        between("// One frame's contrast in one band of w <= 32 kK bins", "// A group's span into shared memory"),
+        BAND_MAIN,
+    ])
+    d = tmp_path_factory.mktemp("host_bands")
+    (d / "bands.cpp").write_text(code)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", "-w", "-o", str(d / "bands"), str(d / "bands.cpp")],
+                   check=True)
+    return d / "bands"
+
+
+def _band_rows(kind: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """n power values: "ties" small integers (exact sums, ranks full of
+    ties), "zeros" mostly zero, "flat" one value, "power" squared normals
+    over eight decades (a spectrum's spread)."""
+    if kind == "ties":
+        return rng.integers(0, 4, n).astype(np.float32)
+    if kind == "zeros":
+        return (rng.integers(0, 7, n) * (rng.random(n) < 0.1)).astype(np.float32)
+    if kind == "flat":
+        return np.full(n, 0.375, np.float32)
+    return (rng.standard_normal(n) ** 2 * 10.0 ** rng.uniform(-6, 2, n)).astype(np.float32)
+
+
+def _run_bands(exe, bands: list, rows: np.ndarray) -> tuple:
+    """Step 4 on the host over (frames, n_pow) power rows: kWideBand, the
+    contrast rows (n_bands, frames) and each wide (frame, band)'s tails'
+    sums."""
+    frames, n_pow = rows.shape
+    text = "\n".join([f"{frames} {n_pow} {len(bands)}", *(" ".join(map(str, b)) for b in bands),
+                      *(f"{v:.9g}" for v in rows.reshape(-1))])
+    out = subprocess.run([str(exe)], input=text, capture_output=True, text=True, check=True).stdout.split("\n")
+    n = len(bands) * frames
+    con = np.array(out[1 : 1 + n], dtype=np.float64).reshape(len(bands), frames)
+    sums = np.array([line.split() for line in out[1 + n :] if line], dtype=np.float64)
+    return int(out[0]), con, sums.reshape(-1, 2)
+
+
+def _rank_tails(band: np.ndarray, n_top: int, n_bot: int) -> tuple:
+    """The stable-rank tails' sums in float64 (frontend's rule)."""
+    top, bot = frontend._tail_sums_rank(torch.from_numpy(band.astype(np.float64)), n_top, n_bot)
+    return float(top), float(bot)
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros", "flat", "power"])
+def test_block_tails_built_for_the_host(host_bands, kind):
+    """The wide bands' selection (block_tails: a radix select by the block,
+    8 bits a pass), built for the host and run by 256 threads with warps'
+    shuffles and ballots emulated, one band after another on one scratch,
+    equals the stable-rank tails on widths from 33 to 2048, one-bin tails
+    and tails of all but one bin among them: exactly where the sums are
+    exact (small integers), else to float32 rounding; and step 4's rows,
+    by band_sorted to kWideBand bins and block_tails past it, equal the
+    rank tails' contrast."""
+    rng = np.random.default_rng(["ties", "zeros", "flat", "power"].index(kind))
+    widths = (33, 64, 100, 255, 256, 257, 511, 512, 513, 581, 705, 868, 1024, 1500, 2048)
+    bands, lo = [], 0
+    for i, w in enumerate(widths):
+        n_top, n_bot = ((1, 1), (w - 1, 1), (1, w - 1))[i % 3] if i % 2 else (
+            w - min(max(1, int(w * 0.8)), w - 1), max(1, int(w * 0.2)))
+        bands.append((lo, w, n_top, n_bot))
+        lo += w
+    rows = _band_rows(kind, 2 * lo, rng).reshape(2, lo)
+    wide_band, con, sums = _run_bands(host_bands, bands, rows)
+    wide = [b for b in bands if b[1] > wide_band]
+    assert 33 <= wide_band <= 512
+    assert sums.shape == (2 * len(wide), 2)
+    exact = kind != "power"
+    for f in range(2):
+        for j, (lo_b, w, n_top, n_bot) in enumerate(wide):
+            top, bot = _rank_tails(rows[f, lo_b : lo_b + w], n_top, n_bot)
+            got = sums[f * len(wide) + j]
+            if exact:
+                assert (got[0], got[1]) == (top, bot), (kind, w, n_top, n_bot)
+            else:
+                np.testing.assert_allclose(got, (top, bot), rtol=1e-6, atol=0)
+        for i, (lo_b, w, n_top, n_bot) in enumerate(bands):
+            top, bot = _rank_tails(rows[f, lo_b : lo_b + w], n_top, n_bot)
+            want = np.log1p(top / n_top) - np.log1p(bot / n_bot)
+            assert abs(con[i, f] - want) <= 1e-6 * max(1.0, abs(want)), (kind, w, n_top, n_bot)
+
+
+@pytest.mark.parametrize("name", ["nfft4096_contrast", "nfft5296_contrast", "nfft4608_bands8_contrast",
+                                  "sr44k_nfft8192_contrast"])
+def test_band_stage_built_for_the_host_on_config_bands(host_bands, name):
+    """Step 4 built for the host on a config's own bands and its frames a
+    group (LayoutF), on a float64 rfft power row of seeded audio: the rows
+    equal the contrast of the stable-rank tails."""
+    cfg = _cfg(name)
+    geo = frontend_kernel._geometry(cfg)
+    frames = frontend_kernel._fft_layout(cfg.n_fft, cfg.n_fft, cfg.hop_length, geo.n_pow, contrast=True)[0]
+    w = _waves(cfg, 1, seed=24)
+    spec = np.fft.rfft(_frames64(w, cfg, pre=False)[0, :frames] * filters.padded_window(cfg.win_length, cfg.n_fft))
+    rows = (spec.real**2 + spec.imag**2)[:, geo.pow_lo : geo.pow_lo + geo.n_pow].astype(np.float32)
+    bands = list(zip(geo.offsets, geo.widths, geo.tops, geo.bots))
+    _, con, _ = _run_bands(host_bands, bands, rows)
+    for f in range(frames):
+        for i, (lo, n, n_top, n_bot) in enumerate(bands):
+            top, bot = _rank_tails(rows[f, lo : lo + n], n_top, n_bot)
+            want = np.log1p(top / n_top) - np.log1p(bot / n_bot) if n > 1 else 0.0
+            assert abs(con[i, f] - want) <= 1e-6 * max(1.0, abs(want)), (name, f, i, n)
 
 
 def test_epilogue_plan_mirrors_equal_the_c_rules(tmp_path):

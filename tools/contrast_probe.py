@@ -1,6 +1,6 @@
 """Where the contrast launch's time goes, on one NVIDIA card.
 
-    python3 tools/contrast_probe.py [--baseline PATH ...] [--routes | --primes]
+    python3 tools/contrast_probe.py [--baseline PATH ...] [--routes | --primes | --wide]
 
 Times launch C of the front-end kernel (csrc/frontend_kernel.cu:
 contrast_kernel, the launcher's spectral-contrast rows) with CUDA events
@@ -59,7 +59,19 @@ keeps the config whatever the cap); both plans near
 kFftMinNfft on n_fft with a factor of 13 (650, 676 and the odd 715); and
 the routes section. In that mode the FFT plan is also timed with
 fft_stage_prime inlined, not called (prime_variants), in turns with the
-baselines, on those n_fft and on 1760, 1664, 2704 and 650. Prints the card's name and power limit first, and each build's
+baselines, on those n_fft and on 1760, 1664, 2704 and 650. `--bounds` prints
+launches A's and C's bounds at B = 1024 on the windows of PRIMES and WIDE
+(arithmetic on the shapes; no card, no build). `--wide` builds
+the source as built, its wide variants (wide_variants) and the baselines,
+prints every build's launch C instances' registers and stack (cuobjdump),
+and runs the wide-band section: the FFT plan on the windows of WIDE, whose
+widest band is 459 to 868 bins (n_fft 4112, 5296, 6144, 6544 and 5872
+with 6 bands and 4608 with 8, hop n_fft / 4 at 16 kHz; 8192 at 44.1 kHz,
+hop 2048), and on launch C's older FFT plans (WIDE_KEEP: 2048, 4096, 2192,
+2704, 1664), at B = 1024 in turns (the baselines, as built, the variants,
+as built, the baselines), then the fft rows, beside the bound (an FFT of
+each window at the FP32 peak, the tails as selections: chip_smoke.py's).
+Prints the card's name and power limit first, and each build's
 max-relative deviation from the plain version (the variants' rows are
 wrong by design). Needs a CUDA card and nvcc; imports no JAX.
 """
@@ -68,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -92,7 +105,16 @@ BANDS = (
     "  if (w > 1) return band_contrast<1>(pb, w, nt, nb, lane);\n"
 )
 GEMM_TAILS = "        const float v = band_value(pw + r * n_pow, __ldg(bands + i), lane);\n"
-FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, __ldg(bands + i), lane);\n"
+FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, bd, lane);\n"
+WIDE_TAILS = ("    if constexpr (kWide)\n      wide_bands(pw, n_pow, bands, n_bands, frames, con + t0, n_frames, "
+              "reinterpret_cast<unsigned*>(buf));\n")
+WIDE_RADIX7 = "lp <= 7 ? (const void*)contrast_fft_kernel<7, false, 0, true>"
+WIDE_CALL = "__device__ __noinline__ void wide_bands("
+ONE_BLOCK = "if (contrast && rows == 1 && two) {"
+BOUNDS_C = "__launch_bounds__(kThreadsA, 2) contrast_fft_kernel("
+WARP_LOOP = "  for (int j = lane; j < q; j += 32) {"
+WIDE_BAND = "constexpr int kWideBand = 512;"
+WIDE_FROM = (256, 128)  # kWideBand's variants: the width past which block_tails takes a band
 PRIMES = (13, 17, 23, 31, 43, 61, 89, 101, 113, 127, 131, 137, 149, 173, 211, 257, 331, 409)  # the cap's probe: a window of p ms at 16 kHz, n_fft 16 p
 FFT_CONFIGS = {
     n_fft: FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
@@ -145,6 +167,27 @@ ROUTES = {
 }
 
 
+def _wide(n_fft: int, bands: int = 6) -> FeatureConfig:
+    """A 16 kHz contrast window of n_fft at hop n_fft / 4, 128 mels."""
+    return FeatureConfig(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4, n_mels=128, f_max=8000.0,
+                         use_spectral_contrast=True, n_contrast_bands=bands)
+
+
+# The wide-band windows: the widest band past 512 bins but at 4112 (459).
+WIDE = {
+    "n_fft 4112 (2^4 257)": _wide(4112),
+    "n_fft 5296 (2^4 331)": _wide(5296),
+    "n_fft 6144 (2^11 3)": _wide(6144),
+    "n_fft 6544 (2^4 409)": _wide(6544),
+    "n_fft 5872 (2^4 367)": _wide(5872),
+    "n_fft 4608, 8 bands": _wide(4608, 8),
+    "44.1 kHz, n_fft 8192": FeatureConfig(sample_rate=44100, n_fft=8192, win_length=8192, hop_length=2048,
+                                          n_mels=128, f_max=22050.0, use_spectral_contrast=True),
+}
+WIDE_KEEP = (2048, 4096, 2192, 2704, 1664)  # launch C's older FFT plans, timed against the baselines
+from spectral_probe import PEAK_FP32_FLOPS, PEAK_HBM_BYTES  # noqa: E402
+
+
 ROUTES_BY_NFFT = {1664: ROUTES["n_fft 1664 (2^7 13)"], 2704: ROUTES["n_fft 2704 (2^4 13^2)"]}
 
 
@@ -169,8 +212,8 @@ def variants(src: str) -> dict:
         "FFT plan, DivBy for a power of two": edit(
             edit(src, "fft_stage<2, true>(", "fft_stage<2, false>("), "fft_stage<4, true>(", "fft_stage<4, false>("
         ),
-        ONE_INSTANCE: edit(edit(src, "lp <= 7              ? (const void*)contrast_fft_kernel<7, false, 0>",
-                                "false                ? (const void*)contrast_fft_kernel<7, false, 0>"),
+        ONE_INSTANCE: edit(edit(src, "lp <= 7            ? (const void*)contrast_fft_kernel<7, false, 0, false>",
+                                "false              ? (const void*)contrast_fft_kernel<7, false, 0, false>"),
                            "lp == 11           ?", "lp <= 11           ?"),
         TWIDDLE_NEGATED: edit(src, TWIDDLE, TWIDDLE_NEGATED_RULE),
     }
@@ -190,6 +233,64 @@ def prime_variants(src: str) -> dict:
             **cap_variants(src, "constexpr int kBluesteinC = 1;")}
 
 
+def wide_variants(src: str) -> dict:
+    """The FFT plan with its band stage left out (each (frame, band)'s row
+    takes one power value, no band by the block) and with its FFT stages
+    left out: the wide-band section's split; with block_tails taking every
+    band past each of WIDE_FROM bins (kWideBand), where band_sorted gives
+    way; with the wide bands' n_fft of radix 7 in the general wide instance
+    (of radix 11, the prime and Bluestein's stages); with wide_bands
+    inlined; with LayoutF's Bluestein rows on two blocks an SM at one
+    frame a group, as before they took one where two ran fewer warps; and
+    with the wide instances' launch bounds at one block an SM (255
+    registers a thread, where two blocks cap them at 128); and with
+    Bluestein's warp stages' loop unrolled 2 and 4 (every instance with
+    Bluestein's stage)."""
+    return {"FFT plan, no band tails": edit(edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
+                                            WIDE_TAILS, ""),
+            "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, "
+                                                 "n_fft, tw, &bl);\n", ""),
+            **{f"FFT plan, block_tails past {n} bins": edit(src, WIDE_BAND, f"constexpr int kWideBand = {n};")
+               for n in WIDE_FROM},
+            "FFT plan, wide bands in one instance": edit(
+                src, WIDE_RADIX7, WIDE_RADIX7.replace("<7, false, 0, true>", "<11, true, kBluesteinC, true>")),
+            "FFT plan, wide_bands inlined": edit(src, WIDE_CALL, "__device__ __forceinline__ void wide_bands("),
+            "FFT plan, two blocks an SM at one frame a group": edit(src, ONE_BLOCK, "if (false) {"),
+            "FFT plan, the wide instances bounded for one block an SM": edit(
+                src, BOUNDS_C, "__launch_bounds__(kThreadsA, kWide ? 1 : 2) contrast_fft_kernel("),
+            **{f"FFT plan, Bluestein's warp stages unrolled {n}": edit(
+                src, WARP_LOOP, f"#pragma unroll {n}\n" + WARP_LOOP) for n in (2, 4)}}
+
+
+def contrast_bound(cfg: FeatureConfig, b: int) -> tuple:
+    """The contrast launch's least time for b clips, ms, and what bounds it
+    (chip_smoke.py's contrast_work): an FFT of each window at the FP32 peak
+    after the window's multiplies, 3 operations an element for the bands'
+    power, 6 for the magnitude and centroid, each tail as a selection, 5 a
+    value for the z-norm; the waveform read and the rows written once."""
+    geo = frontend_kernel._geometry(cfg)
+    rows = cfg.n_contrast_bands + 1
+    fft = 2 * (2.5 * cfg.n_fft * np.log2(cfg.n_fft) + cfg.n_fft)
+    tails = sum(2 * n + top + bot for n, top, bot in zip(geo.widths, geo.tops, geo.bots))
+    flops = b * cfg.num_frames * (fft + 3 * geo.n_pow + 6 * geo.n_freqs + tails + 5 * rows)
+    nbytes = 4 * b * (cfg.segment_samples + rows * cfg.num_frames)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bounds() -> None:
+    """Launch A's and launch C's bounds at B = 1024 on the cap's windows
+    (PRIMES, 128 mels, hop n_fft / 4) and on WIDE: arithmetic over the
+    config's shapes, on any host."""
+    from spectral_probe import spectral_bound
+
+    windows = {f"{p} ms (n_fft {16 * p})": FFT_CONFIGS[16 * p] for p in PRIMES}
+    for label, cfg in {**windows, **WIDE}.items():
+        base = dataclasses.replace(cfg, use_spectral_contrast=False)
+        (a, a_by), (c, c_by) = spectral_bound(base, 1024), contrast_bound(cfg, 1024)
+        print(f"bound at B=1024, {label}: launch A {a:.4f} ms by {a_by}, launch C {c:.4f} ms by {c_by}", flush=True)
+
+
 def build_all(sources: dict) -> dict:
     kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
@@ -207,7 +308,10 @@ def build_all(sources: dict) -> dict:
         handle.cdt_frontend_contrast.argtypes = [
             p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
         ]
-        handle.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i, p, p]
+        # A source before the wide bands' instances takes no widest band.
+        handle.widest = "int n_bands, int widest," in text
+        handle.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i,
+                                                     *([i] if handle.widest else []), p, p]
         return name, handle
 
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -222,7 +326,13 @@ def main() -> None:
     )
     parser.add_argument("--routes", action="store_true", help="the routes section alone (ROUTES)")
     parser.add_argument("--primes", action="store_true", help="the prime stage's sections alone (see above)")
+    parser.add_argument("--wide", action="store_true", help="the wide-band section alone (see above)")
+    parser.add_argument("--bounds", action="store_true",
+                        help="print the bounds of launches A and C on PRIMES' and WIDE's windows (no card)")
     args = parser.parse_args()
+    if args.bounds:
+        bounds()
+        return
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     print(subprocess.run(
@@ -243,6 +353,16 @@ def main() -> None:
         for n, name in enumerate(sources):
             resource_usage(f"contrast_probe_{n}", name)
         primes_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"))
+        return
+    if args.wide:
+        baselines = {f"baseline {path}": path.read_text() for path in args.baseline}
+        sources = {"as built": src, **wide_variants(src), **baselines}
+        libs = build_all(sources)
+        from spectral_probe import resource_usage
+
+        for n, name in enumerate(sources):
+            resource_usage(f"contrast_probe_{n}", name)
+        wide_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"))
         return
     sources = variants(src)
     baselines = [f"baseline {path}" for path in args.baseline]
@@ -302,12 +422,13 @@ def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch
     if tables is not None:
         tw = torch.from_numpy(tables).to(w.device)
     freqs, bands = frontend_kernel._centroid_and_bands(cfg, w.device)
+    widest = [max(g.widths, default=0)] if lib.widest else []
 
     def launch() -> None:
         err = lib.cdt_frontend_contrast_fft(
             w.data_ptr(), w.shape[0], cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
             windows.data_ptr(), tw.data_ptr(), g.pow_lo, g.n_pow, freqs.data_ptr(),
-            float(cfg.sample_rate / 2.0), bands.data_ptr(), cfg.n_contrast_bands, out.data_ptr(),
+            float(cfg.sample_rate / 2.0), bands.data_ptr(), cfg.n_contrast_bands, *widest, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
         if err:
@@ -452,6 +573,57 @@ def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torc
                 f"max-relative vs plain {err:.2e}",
                 flush=True,
             )
+
+
+def wide_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
+    """The FFT plan on WIDE and WIDE_KEEP as built, its variants and the
+    baselines in turns, then the fft rows, beside the bound, at B = 1024.
+    Each build's rows but the variants' are held to the plain version
+    (1e-3): those that move kWideBand too."""
+    variants = [v for v in libs if v != "as built" and v not in baselines]
+
+    def one(label: str, cfg: FeatureConfig, names: list) -> dict:
+        geo = frontend_kernel._geometry(cfg)
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        out = torch.empty((1024, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        group = frontend_kernel._fft_layout(cfg.n_fft, cfg.n_fft, cfg.hop_length, geo.n_pow, contrast=True)[0]
+        times = {}
+        for name in names:
+            launch = fft_launch(libs[name], w, cfg, out)
+            try:
+                launch()
+            except RuntimeError:
+                if name in baselines:  # a source before this n_fft's stages
+                    continue
+                raise
+            t = cuda_ms(launch, 10)
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            if err > 1e-3 and ("block_tails" in name or name not in variants):
+                raise SystemExit(f"the contrast launch's {name} disagrees with plain on {label}: {err:.2e}")
+            times.setdefault(name, []).append(t)
+            print(f"contrast launch B=1024, {label} + contrast ({cfg.n_contrast_bands} bands, widest "
+                  f"{max(geo.widths)} bins, {cfg.num_frames} frames, {group} a group), "
+                  f"{'FFT plan as built' if name == 'as built' else name}: {t:.4f} ms, max-relative vs plain {err:.2e}",
+                  flush=True)
+        return times
+
+    keep = {f"n_fft {n} (an older plan)": FFT_CONFIGS[n] if n in FFT_CONFIGS else ROUTES_BY_NFFT[n] for n in WIDE_KEEP}
+    for label, cfg in {**WIDE, **keep}.items():
+        assert frontend_kernel.contrast_level(cfg) == frontend_kernel.CONTRAST_FFT, label
+        times = one(label, cfg, baselines + ["as built"] + variants + ["as built"] + baselines)
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        rows = [cuda_ms(lambda: frontend.spectral_contrast(w, cfg, method="fft"), 5) for _ in range(2)]
+        bound, by = contrast_bound(cfg, 1024)
+        built = times["as built"]
+        split = ", ".join(f"{v.removeprefix('FFT plan, ')} {max(built) - max(times[v]):.4f}"
+                          for v in variants if v in times)
+        print(f"contrast launch B=1024, {label}: FFT plan as built {min(built):.4f}-{max(built):.4f} ms, "
+              + "".join(f"{b} {min(times[b]):.4f}-{max(times[b]):.4f} ms, " for b in baselines if b in times)
+              + f"fft rows {min(rows):.4f}-{max(rows):.4f} ms, bound {bound:.4f} ms by {by}; the variants' "
+              f"savings (ms, the slower as built less the slower variant): {split}", flush=True)
 
 
 def primes_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:

@@ -206,6 +206,28 @@ def build(name: str, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+PEAK_FP32_FLOPS = 67e12  # chip_smoke.py's peaks: FP32 on the CUDA cores, HBM
+PEAK_HBM_BYTES = 3.35e12
+
+
+def spectral_bound(cfg: FeatureConfig, b: int) -> tuple:
+    """Launch A's least time for b clips, ms, and what bounds it
+    (chip_smoke.py's spectral_work): a real FFT of n_fft points a frame (2.5
+    n log2 n at the FP32 peak), the window's multiplies over its nonzero
+    taps, the power of the bins a mel band reads (3 a bin) and the mel over
+    the filterbank's nonzero entries (a multiply-add each); the waveform
+    read and the power mel written once."""
+    from cough_detector_tpu_torch.ops import filters
+
+    k = frontend_kernel._constants(cfg, torch.device("cpu"))
+    nnz = int(torch.count_nonzero(k.fb))
+    taps = int(np.count_nonzero(filters.padded_window(cfg.win_length, cfg.n_fft)))
+    frame = 2.5 * cfg.n_fft * np.log2(cfg.n_fft) + taps + 3 * k.n_used + 2 * nnz
+    t_ops = b * cfg.num_frames * frame / PEAK_FP32_FLOPS
+    t_bytes = 4 * b * (cfg.segment_samples + cfg.n_mels * cfg.num_frames) / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def resource_usage(name: str, label: str) -> None:
     """Print the FFT plans' kernels' registers and stack frame (where
     spills go), each instance, in build `name`, from cuobjdump beside
