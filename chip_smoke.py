@@ -55,7 +55,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      stage) at n_fft 2096 and 2192 with contrast, 2192 and 1048 at 256
      mels and the odd 1965 at 44.1 kHz, the contrast launch's bands past
      512 bins (block_tails) at n_fft 5296 and 6144, 4608 with 8 bands and
-     8192 at 44.1 kHz, the GEMM plans' spans from device
+     8192 at 44.1 kHz, Bluestein's rows over two and four warps (n_fft
+     6544 and the prime 1987 with contrast), the GEMM plans' spans from device
      memory, contrast levels 1 and 3 and mel groups where the FFT plans do
      not fit (a 25 ms hop with contrast; the prime n_fft 2129 at 256 mels
      with contrast), and 10 s clips with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
@@ -93,12 +94,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      1792, 2744 and 44.1 kHz at 1764 and 882 (radix 7), 880 at 256 mels
      (radix 11) and 44.1 kHz at the odd 1323, 832 at 256 mels and 44.1 kHz
      at the odd 1365 (a radix-13 stage), 2192 and 1048 at 256 mels and
-     44.1 kHz at the odd 1965 on 256 mels (Bluestein's stage), the
+     44.1 kHz at the odd 1965 on 256 mels, 5296 and 6544 (Bluestein's stage), the
      contrast launch on n_fft 1024 (both plans), 2048, 4096, 2000, 3000,
      1792, 2744, 1760 and 2662, 44.1 kHz at 1764, 1323 and 2205, 1664 and
      2704 (radix 13), 2192 and 2096 (Bluestein's stage; the FFT), and
      5296, 6144, 4608 with 8 bands and 8192 at 44.1 kHz (bands past 512
-     bins by block_tails), each beside
+     bins by block_tails) and 6544 (Bluestein's stage), each beside
      its bound, its plain version and torch.stft + mel (the fft rows for
      contrast); the epilogue launch alone on its cluster route (5 s at 128
      mels, 10 s with PCEN, delta-deltas and 20 MFCCs at B = 1024, a hop of
@@ -336,6 +337,7 @@ import concurrent.futures  # noqa: E402
 import contextlib  # noqa: E402
 import copy  # noqa: E402
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import gc  # noqa: E402
 import io  # noqa: E402
 import itertools  # noqa: E402
@@ -543,6 +545,20 @@ def coverage_tables() -> None:
         filters.dft_matrices(cfg.n_fft, cfg.win_length)
         if cfg.use_spectral_contrast:
             filters.dft_matrices(cfg.n_fft, cfg.n_fft)
+
+
+def keep_config_tables() -> None:
+    """Phases 3 and 4 run the launches on more configs than a serving
+    process holds tables for: the launchers' per-config caches of device
+    tables (ops/frontend_kernel.py, 16 to 48 entries, least recently used
+    out) are rebuilt here at 128 entries for this run, so that phase 4
+    reuses the tables phase 3 built instead of building each again. The
+    tables, and so every result, are the same."""
+    from cough_detector_tpu_torch.ops import frontend_kernel
+
+    for name in ("_constants", "_fft_constants", "_geometry", "_contrast_constants", "_centroid_and_bands",
+                 "_contrast_fft_constants"):
+        setattr(frontend_kernel, name, functools.lru_cache(maxsize=128)(getattr(frontend_kernel, name).__wrapped__))
 
 
 def start_profiler() -> None:
@@ -3357,7 +3373,9 @@ def coverage_configs() -> dict:
     (3 5 131, odd) at 44.1 kHz on 256 mels; bands past the FFT plan's
     band_sorted (kWideBand), its block_tails: n_fft 5296 (2^4 331, a
     581-bin band) and 6144 (666) with contrast, 4608 with 8 bands (563),
-    8192 at 44.1 kHz with contrast (868). The GEMM plans where the FFT
+    8192 at 44.1 kHz with contrast (868); Bluestein's rows over two and
+    four warps of a block: n_fft 6544 (2^4 409, m 825) and the prime 1987
+    at hop 496 (m 3993, the widest) with contrast. The GEMM plans where the FFT
     plans do not fit: a 25 ms hop with contrast (the shipped window; launch
     A's span from device memory, the contrast launch's level 1), and the
     prime n_fft 2129 (133 ms; past Bluestein's 1997) on
@@ -3432,6 +3450,10 @@ def coverage_configs() -> dict:
         "nfft5296_contrast": (FeatureConfig(n_fft=5296, win_length=5296, hop_length=1324, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
         "nfft6144_contrast": (FeatureConfig(n_fft=6144, win_length=6144, hop_length=1536, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft6544_contrast": (FeatureConfig(n_fft=6544, win_length=6544, hop_length=1636, n_mels=128, f_max=8000.0,
+                                            use_spectral_contrast=True), one),
+        "nfft1987_contrast": (FeatureConfig(n_fft=1987, win_length=1987, hop_length=496, n_mels=128, f_max=8000.0,
                                             use_spectral_contrast=True), one),
         "sr44k_nfft8192_contrast": (FeatureConfig(sample_rate=44100, n_fft=8192, win_length=8192, hop_length=2048,
                                                   n_mels=128, f_max=22050.0, use_spectral_contrast=True), one),
@@ -3710,6 +3732,7 @@ def main() -> None:
         return torch.from_numpy(make_audio(rng, b, shipped.segment_samples)).to(dev)
 
     phase("3 kernels vs plain")
+    keep_config_tables()
     # -- 3. kernels vs plain versions --------------------------------------
     # Each launch on its own against its plain version on the same input
     # (launch B is fed the plain power mel), then the pair end to end.
@@ -4030,7 +4053,9 @@ def main() -> None:
     # (Bluestein's stage): launch A on 2192 and 1048 at 256 mels and 44.1
     # kHz at the odd 1965 on 256 mels, the contrast launch on 2192 and
     # 2096; the contrast launch's bands by the block (block_tails) on n_fft
-    # 5296, 6144, 4608 with 8 bands and 8192 at 44.1 kHz. The GEMM plans
+    # 5296, 6144, 4608 with 8 bands and 8192 at 44.1 kHz; Bluestein's
+    # widest windows at 16 kHz: launch A on n_fft 5296 and 6544, the
+    # contrast launch on 6544. The GEMM plans
     # these n_fft took until their FFT plans
     # are not timed here (PERF.md keeps their times; tools/spectral_probe.py
     # and tools/contrast_probe.py time the GEMM on n_fft past the FFT
@@ -4045,11 +4070,18 @@ def main() -> None:
     t0 = time.perf_counter()
     coverage_timing = {}
     covered_cfgs = dict(coverage_configs())
-    for name in ("nfft1024", "nfft2000", "nfft3000", "nfft1792", "nfft2744", "sr44k_nfft1764"):
+    for name in ("nfft1024", "nfft2000", "nfft3000", "nfft1792", "nfft2744", "sr44k_nfft1764", "nfft5296", "nfft6544"):
         cfg = covered_cfgs[f"{name}_contrast"][0]
         covered_cfgs[name] = (dataclasses.replace(cfg, use_spectral_contrast=False), ())
     epilogue_only = {"clip5s_128": 1024, "clip10s_pcen_dd20": 1024, "hop4": 256, "clip60s_128_all_flags": 64,
                      "clip120s_128_pcen_dd": 32}
+    # Launch A's widest Bluestein windows, and launch C's and its widest
+    # bands': the launch and its library call alone (their plain versions,
+    # 54-312 ms a call at B = 1024, and A's epilogue, PERF.md keeps; phase 3
+    # holds each against its plain version).
+    spectral_only = ("nfft5296", "nfft6544")
+    no_plain = (*spectral_only, "nfft6544_contrast", "nfft5296_contrast", "nfft6144_contrast",
+                "sr44k_nfft8192_contrast", "nfft4608_bands8_contrast")
     for name in ("mels256", "nfft2048", "librosa22k", "nfft1024", "clip10s", "nfft2000", "nfft3000", "nfft768_mels256",
                  "nfft896_mels256", "nfft1792", "nfft2744", "sr44k_nfft1764", "sr44k_nfft882", "nfft880_mels256",
                  "sr44k_nfft1323", "nfft832_mels256", "sr44k_nfft1365", "nfft1024_contrast", "nfft2048_contrast",
@@ -4058,7 +4090,7 @@ def main() -> None:
                  "sr44k_nfft2205_contrast", "nfft1664_contrast", "nfft2704_contrast", "nfft2192_mels256",
                  "nfft1048_mels256", "sr44k_nfft1965_mels256", "nfft2192_contrast", "nfft2096_contrast",
                  "nfft5296_contrast", "nfft6144_contrast", "sr44k_nfft8192_contrast", "nfft4608_bands8_contrast",
-                 *epilogue_only):
+                 "nfft5296", "nfft6544", "nfft6544_contrast", *epilogue_only):
         t_cfg = time.perf_counter()
         cfg = covered_cfgs[name][0]
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
@@ -4074,7 +4106,8 @@ def main() -> None:
             lib_mel = library_mel_fn(cfg)
             rows["spectral"] = dict(
                 ms=cuda_ms(lambda: frontend_kernel.power_mel_fused(w, base), 5),
-                plain_ms=cuda_ms(lambda: frontend_kernel.power_mel_reference(w, base), 2, warmup=1),
+                plain_ms=None if name in no_plain else cuda_ms(
+                    lambda: frontend_kernel.power_mel_reference(w, base), 2, warmup=1),
                 library_ms=cuda_ms(lambda: lib_mel(w), 5),
                 **bound(*spectral_work(base, 1024)),
                 plan=plan_name(frontend_kernel, "spectral", base),
@@ -4103,7 +4136,8 @@ def main() -> None:
             rows["contrast"] = dict(
                 ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_fused(w, cfg), 5),
                 # The gemm rows take 17-312 ms a call at B = 1024: one timed call.
-                plain_ms=cuda_ms(lambda: frontend_kernel.spectral_contrast_reference(w, cfg), 1, warmup=1),
+                plain_ms=None if name in no_plain else cuda_ms(
+                    lambda: frontend_kernel.spectral_contrast_reference(w, cfg), 1, warmup=1),
                 library_ms=cuda_ms(lambda: frontend.spectral_contrast(w, cfg, method="fft"), 2, warmup=1),
                 level=frontend_kernel.contrast_level(cfg),
                 plan=plan_name(frontend_kernel, "contrast", cfg),
@@ -4130,7 +4164,7 @@ def main() -> None:
                 rows["contrast"]["gemm_plan_ms"] = cuda_ms(gemm_plan, 3, warmup=1)
                 if not rel_err(gemm_out, out) <= TOL:
                     fail(f"the contrast launch's two plans disagree on {name}: {rel_err(gemm_out, out):.3e}")
-        if not cfg.use_spectral_contrast or name in epilogue_only:
+        if (not cfg.use_spectral_contrast and name not in spectral_only) or name in epilogue_only:
             rows["epilogue"] = dict(
                 ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, base), 5),
                 plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, base), 2, warmup=1),
@@ -4155,7 +4189,8 @@ def main() -> None:
                 plan = "device memory" if n == 0 else "one block" if n == 1 else f"a cluster of {n} blocks"
             print(
                 f"[{smi}] times {part} B={batch} [{name}, {plan} plan]: kernel {tm['ms']:.4f} ms, "
-                f"plain {tm['plain_ms']:.4f} ms, library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
+                f"plain {'not timed' if tm['plain_ms'] is None else format(tm['plain_ms'], '.4f') + ' ms'}, "
+                f"library {lib_ms}; bound {tm['bound_ms']:.4f} ms by {tm['bound_by']}; "
                 f"kernel at {100 * tm['bound_ms'] / tm['ms']:.1f}% of bound{gemm}; {time.perf_counter() - t_cfg:.3f} s "
                 "into the config",
                 flush=True,

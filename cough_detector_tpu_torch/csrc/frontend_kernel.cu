@@ -1619,12 +1619,12 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    complex points a block, at most kFftMaxFrames frames) and stages their
 //    span once in shared memory by WaveSrc (reflect pad, pre-emphasis),
 //    then packs each windowed frame into complex points, in shared memory.
-//  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (one of
-//    radix 2 first when the points hold an odd power of two, then radix 4,
-//    then radix 3, 5, 7 and 11, each R-point DFT in registers, then one
-//    stage of each larger prime factor up to kFftMaxPrime, fft_stage_prime,
-//    and last one of a prime past it by Bluestein's chirp-z,
-//    fft_stage_bluestein), every frame of
+//  * The FFT, FP32 on the CUDA cores: Stockham autosort stages (first one
+//    of a prime past kFftMaxPrime by Bluestein's chirp-z,
+//    fft_stage_bluestein, then one of radix 2 when the points hold an odd
+//    power of two, then radix 4, then radix 3, 5, 7 and 11, each R-point
+//    DFT in registers, then one stage of each larger prime factor up to
+//    kFftMaxPrime, fft_stage_prime), every frame of
 //    the block at once, each stage in place: a thread reads its
 //    butterflies' points into registers, the block meets at a barrier,
 //    then it writes their outputs. Rows and butterfly indices come by
@@ -1719,26 +1719,37 @@ __host__ __device__ inline int fft_points_a(int n_fft) { return n_fft % 2 ? n_ff
 // The FFT plans' shared memory, in floats: the points (2 floats each,
 // rows x points a row), the frames' waveform span, the tables (n_fft / 2 +
 // 1 float2 of twiddles, then for a prime past kFftMaxPrime Bluestein's
-// chirp, B^ and m-point twiddles: P + m + m / 2 + 1 float2), then for
-// launch C the group's power rows (frames x n_pow) and the reduction slots
-// (its contrast rows go to the output and are z-normed there in place). A
-// row holds a frame, or two for launch A on an odd n_fft. Bluestein's
-// scratch takes the span's place (the span is read before the FFT) and
-// grows it where it needs more room: `group` rows of m points, a
-// butterfly's each, then a buffer of m points for each of `warps` warps.
-// Of the rows that fit while two blocks still fit an SM (kSmemTwo; a block
-// an SM's kMaxSmem where the rest passes that already), half go to warps'
-// buffers, up to kWarpsA, at least one, and the rest to the butterflies,
-// at least one, in whole rounds of the warps (with 10 rows to 8 warps a
-// pass took two rounds), then spread evenly over the passes.
+// chirp, B^ and m-point stage twiddles: P + m + m - 1 float2, the last
+// from `blue`),
+// then for launch C the group's power rows (frames x n_pow) and the
+// reduction slots (its contrast rows go to the output and are z-normed
+// there in place). A row holds a frame, or two for launch A on an odd
+// n_fft. Bluestein's scratch takes the span's place (the span is read
+// before the FFT) and grows it where it needs more room: two rows of m
+// points for each group of `gw` warps (kWarpsA / gw groups; gw a power of
+// two). Of gw from 1 up, the tables staged and then all but the FFT_m
+// stages' twiddles read from device memory through L1 (`twl1`: the n_fft
+// twiddles and the chirp and B^, these two read in consecutive words; the
+// stages' twiddles, read R - 1 to a butterfly, stay in shared memory), the
+// first layout that lets two blocks on an SM (kSmemTwo) is taken; where
+// none does, the first in that order that fits a block (else 8 warps,
+// through L1).
 // `rows` halves from its most until the layout fits; launch C's most is
 // rounded down to a power of two, since its threads split evenly over the
 // frames (tpf). The host builds it and the kernels take it as an
 // argument: no thread computes it, nor searches for the prime (a prime
 // search in every thread cost the older plans 1.6-4.8%, PERF.md).
 struct LayoutF {
+  // The fields that the instances without Bluestein's stage read keep the
+  // offsets they had before it, so that those instances keep their code
+  // (tools/spectral_probe.py --turns compares it with an older source's).
+  // blue: where Bluestein's FFT_m stages' twiddles start.
   int rows, frames, span, tw, pow, red, end;
-  int bp, bm, group, warps, tables;  // Bluestein's prime (0: none), its m, butterflies a pass, warps; tables' float2
+  int bp, bm, gw, blue, tables;  // Bluestein's prime (0: none), its m, warps a group (0: none); tables' float2
+
+  // The tables but the FFT_m stages' twiddles read through L1, not staged
+  // (those twiddles then start the staged tables).
+  __host__ __device__ bool twl1() const { return bp && blue == tw; }
 
   // Launch A (fft_points_a a row; no power rows).
   __host__ __device__ LayoutF(int n_fft, int hop) { fit(fft_points_a(n_fft), 1 + n_fft % 2, n_fft, hop, 0, false); }
@@ -1749,58 +1760,49 @@ struct LayoutF {
   __host__ __device__ void fit(int points, int per_row, int n_fft, int hop, int n_pow, bool contrast) {
     bp = bluestein_prime(n_fft);
     bm = bp ? bluestein_points(bp) : 0;
-    tables = n_fft / 2 + 1 + (bp ? bp + bm + bm / 2 + 1 : 0);
-    const int twf = n_fft + 2 + 2 * (tables - n_fft / 2 - 1);
+    tables = n_fft / 2 + 1 + (bp ? bp + 2 * bm - 1 : 0);
+    // Floats of the n_fft twiddles, of Bluestein's tables, of its FFT_m stages' twiddles.
+    const int twn = n_fft + 2, twb = 2 * (tables - n_fft / 2 - 1), twm = bp ? 2 * (bm - 1) : 0;
     rows = kFftPoints / points < kFftMaxFrames / per_row ? kFftPoints / points : kFftMaxFrames / per_row;
     if (contrast)
       while (rows & (rows - 1)) rows &= rows - 1;
     for (;; rows /= 2) {
       frames = rows * per_row;
       const int spanf = ((frames - 1) * hop + n_fft + 3) / 4 * 4;
-      const int rest = 2 * rows * points + twf + (contrast ? (frames * n_pow + 3) / 4 * 4 + kRedC : 0);
+      const int rest = 2 * rows * points + (contrast ? (frames * n_pow + 3) / 4 * 4 + kRedC : 0);
       int region = spanf;
-      group = warps = 0;
+      bool l1 = false;
+      gw = 0;
       if (bp) {
-        int nb = rows * points / bp;
-        nb = nb < 1 ? 1 : nb;  // (rows 0: fft_fits refuses the n_fft)
-        const bool two = rest + spanf <= kSmemTwo / 4;
-        bluestein_rows(nb, two ? kSmemTwo / 4 : (int)(kMaxSmem / 4), rest, spanf);
-        // Launch C at one frame a group: one block an SM where two would
-        // run Bluestein's rows on fewer warps an SM (n_fft 5296: 3 of 8
-        // warps a block, two blocks; PERF.md).
-        if (contrast && rows == 1 && two) {
-          const int g2 = group, w2 = warps;
-          bluestein_rows(nb, (int)(kMaxSmem / 4), rest, spanf);
-          if (2 * w2 >= warps) {
-            group = g2;
-            warps = w2;
-          }
+        const int most[2] = {kSmemTwo / 4, (int)(kMaxSmem / 4)};  // floats: two blocks an SM, else one
+        for (int i = 0; i < 2 && !gw; ++i)
+          for (int g = 1; g <= kWarpsA && !gw; g *= 2)
+            for (int l = 0; l < 2 && !gw; ++l)
+              if (rest + scratch(g, spanf) + (l ? twm : twn + twb) <= most[i]) {
+                gw = g;
+                l1 = l;
+              }
+        if (!gw) {
+          gw = kWarpsA;
+          l1 = true;
         }
-        if (2 * (group + warps) * bm > region) region = (2 * (group + warps) * bm + 3) / 4 * 4;
+        region = scratch(gw, spanf);
       }
       span = 2 * rows * points;
       tw = span + region;
-      pow = tw + twf;
+      blue = tw + (l1 ? 0 : 2 * (n_fft / 2 + 1 + bp + bm));  // (twn: one float more on an odd n_fft)
+      pow = tw + (l1 ? twm : twn + twb);
       red = pow + (frames * n_pow + 3) / 4 * 4;
       end = contrast ? red + kRedC : pow;
       if (rows <= 1 || sizeof(float) * end <= kMaxSmem) break;
     }
   }
 
-  // Bluestein's group and warps for nb butterflies in `most` floats of a
-  // block: of the rows of m points that fit the span's room, half go to
-  // warps' buffers (up to kWarpsA, at least one), the rest to a pass's
-  // butterflies (at least one) in whole rounds of the warps, spread evenly
-  // over the passes.
-  __host__ __device__ void bluestein_rows(int nb, int most, int rest, int spanf) {
-    const int room = most - rest > spanf ? most - rest : spanf;
-    const int fit = room / (2 * bm);  // rows of m points
-    warps = fit / 2 < 1 ? 1 : fit / 2 < kWarpsA ? fit / 2 : kWarpsA;
-    int g = fit - warps < 1 ? 1 : fit - warps < nb ? fit - warps : nb;
-    if (g > warps) g -= g % warps;  // whole rounds of the warps
-    const int passes = (nb + g - 1) / g;
-    group = (nb + passes - 1) / passes;
-    warps = warps < group ? warps : group;
+  // The span's region with Bluestein's scratch in it: two rows of m points
+  // for each group of g warps.
+  __host__ __device__ int scratch(int g, int spanf) const {
+    const int rowsf = 4 * (kWarpsA / g) * bm;
+    return rowsf > spanf ? (rowsf + 3) / 4 * 4 : spanf;
   }
 
   __host__ __device__ size_t bytes() const { return sizeof(float) * end; }
@@ -1837,31 +1839,32 @@ __host__ __device__ inline bool fft_fits(int n_fft, int points_a_row) {
 // turns with the library call (launch A: torch.stft + mel; C: the fft
 // rows) and the other prime stage (generic to the cap, Bluestein's past
 // it: variants of kFftMaxPrime), the slower of two reads, ms (H100 at
-// 700 W; PERF.md):
+// 700 W; Bluestein's stage as redesigned, rows of a warp group; PERF.md):
 //     p  n_fft   A: generic Bluestein  GEMM  library   C: generic Bluestein  GEMM  fft rows
-//    13    208         1.01         -  0.51     1.29         2.32         -  1.89      6.06
-//    43    688         1.12         -  1.06     1.70         2.20         -  2.34      6.03
-//    89   1424         1.55         -  6.69     1.78         3.02         -  9.53      5.99
-//   101   1616         1.42      1.88  8.79     1.90         3.04      4.07 11.66      5.90
-//   113   1808         1.56      1.74 10.91     1.96         3.25      3.81 16.95      5.99
-//   127   2032         1.63      1.45 12.27     2.02         3.39      3.60 20.44      6.17
-//   131   2096         1.94      1.61 14.18     1.56         3.94      3.38 22.66      5.06
-//   137   2192         2.11      1.42 14.84     1.69         3.87      3.23 15.66      5.27
-//   173   2768         2.26      1.86 22.60     1.61         4.59      3.90 23.72      5.05
-//   257   4112         3.40      2.01 49.91     1.77         6.65      4.30 49.67      5.28
-//   409   6544         4.29      2.23 123.6     1.53        17.99     22.65 119.0      4.90
+//    13    208         1.00         -  0.51     1.30         2.33         -  1.90      6.08
+//    43    688         1.11         -  1.07     1.72         2.19         -  2.34      6.03
+//    89   1424         1.54         -  6.73     1.80         3.00         -  9.52      5.97
+//   101   1616         1.37      1.41  8.81     1.87         3.04      3.18 11.54      5.91
+//   113   1808         1.51      1.32 10.95     1.98         3.22      2.92 16.87      5.98
+//   127   2032         1.55      1.37 12.23     2.04         3.40      3.27 20.38      6.16
+//   131   2096         1.83      1.49 14.14     1.55         3.88      3.21 22.50      5.01
+//   137   2192         2.00      1.33 14.96     1.68         3.84      3.10 15.65      5.26
+//   173   2768         2.20      1.70 22.46     1.62         4.62      3.71 23.68      5.10
+//   257   4112         3.20      1.77 49.60     1.75         6.55      3.67 49.37      5.25
+//   409   6544         4.05      1.56 122.8     1.51        10.77      4.36 117.3      4.88
 // (tools/spectral_probe.py, tools/contrast_probe.py --primes, PERF.md has
 // every probed prime). The generic stage costs P / 2 + 1 multiply-add
 // pairs a point, Bluestein's two FFTs of m ~ 2P points a butterfly: the
 // generic stage's plans beat the GEMM and the library to 127 (launch A
 // loses to its library from 131), and Bluestein's plans beat the generic
-// ones from 127 on launch A (from 131 on launch C, 4-7% slower at 127).
-// The cap is where Bluestein's stage starts to win: 113, the largest
-// probed prime under 127. Bluestein's launch A still loses to its library
-// from 131 but at 137 (2192); its launch C beats the fft rows to 257. The
-// threshold held on a factor of 13 at 676 and 715 for both launches and
-// at 650 for launch A; at 650 launch C's FFT plan ran 1.99-2.07 against
-// the GEMM's 1.95-1.97 ms.
+// ones from 113 on (both launches) but not at 101. The cap is 113, set
+// where the first design's Bluestein stage started to win (127); the
+// redesigned stage wins at 113 too, not at 101, and 103 to 109 are
+// unprobed. Launch A's Bluestein plans lose to their library at 173, 257
+// and past (331: 1.80 against 1.67, 409: 1.56 against 1.51); launch C's
+// beat the fft rows at every probed prime. The threshold held on a factor
+// of 13 at 676 and 715 for both launches and at 650 for launch A; at 650
+// launch C's FFT plan ran 1.99-2.07 against the GEMM's 1.95-1.97 ms.
 // Launch A's plan: the FFT, else the GEMM with its span staged or not.
 enum { kPlanGemmUnstaged = 0, kPlanGemmStaged = 1, kPlanFft = 2 };
 
@@ -1922,6 +1925,24 @@ constexpr float kCos11c = -0.142314838273285, kSin11c = 0.9898214418809328;
 constexpr float kCos11d = -0.65486073394528499, kSin11d = 0.75574957435425827;
 constexpr float kCos11e = -0.95949297361449737, kSin11e = 0.28173255684142967;
 
+// e^{-2 pi i j / R} for Bluestein's composite radices (blue_stage): R 9 at
+// j 1, 2 and 4, R 15 at j 1-4, 6 and 8, from float64 values rounded once (j
+// a constant once the loops unroll).
+template <int R>
+__device__ __forceinline__ float2 w_composite(int j) {
+  if constexpr (R == 9)
+    return j == 1 ? make_float2(0.766044443118978f, -0.6427876096865393f)
+         : j == 2 ? make_float2(0.17364817766693041f, -0.984807753012208f)
+                  : make_float2(-0.9396926207859083f, -0.3420201433256689f);
+  else
+    return j == 1 ? make_float2(0.9135454576426009f, -0.40673664307580015f)
+         : j == 2 ? make_float2(0.6691306063588582f, -0.7431448254773941f)
+         : j == 3 ? make_float2(0.30901699437494745f, -0.9510565162951535f)
+         : j == 4 ? make_float2(-0.10452846326765333f, -0.9945218953682734f)
+         : j == 6 ? make_float2(-0.8090169943749473f, -0.5877852522924732f)
+                  : make_float2(-0.9781476007338057f, 0.20791169081775907f);
+}
+
 // cos and sin of 2 pi j / 11 for j in [1, 11), from the five above (the
 // radix-11 DFT's j is a constant once its loops unroll).
 __device__ __forceinline__ constexpr float cos11(int j) {
@@ -1937,7 +1958,8 @@ __device__ __forceinline__ constexpr float sin11(int j) {
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
 
-// The R-point DFT (w = e^{-2 pi i / R}) of v, in place.
+// The R-point DFT (w = e^{-2 pi i / R}) of v, in place (R 9 and 15 for
+// Bluestein's FFT_m alone).
 template <int R>
 __device__ __forceinline__ void dft_points(float2 (&v)[R]) {
   if constexpr (R == 2) {
@@ -1998,8 +2020,27 @@ __device__ __forceinline__ void dft_points(float2 (&v)[R]) {
       v[11 - k] = make_float2(m.x - n.y, m.y + n.x);  // m_k + i n_k
     }
     v[0] = cadd(cadd(cadd(cadd(cadd(v0, a[0]), a[1]), a[2]), a[3]), a[4]);
+  } else if constexpr (R == 9 || R == 15) {
+    // R = 3 R2 (R2 = 3 or 5): point n = R2 n1 + n2; for each n2 the 3-point
+    // DFT over n1 (output k1) times w_R^{n2 k1}, then for each k1 the
+    // R2-point DFT over n2, output k2 to k1 + 3 k2.
+    constexpr int R2 = R / 3;
+    float2 y[3][R2];
+#pragma unroll
+    for (int n2 = 0; n2 < R2; ++n2) {
+      float2 t[3] = {v[n2], v[R2 + n2], v[2 * R2 + n2]};
+      dft_points<3>(t);
+#pragma unroll
+      for (int k1 = 0; k1 < 3; ++k1) y[k1][n2] = n2 * k1 ? cmul(t[k1], w_composite<R>(n2 * k1)) : t[k1];
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < 3; ++k1) {
+      dft_points<R2>(y[k1]);
+#pragma unroll
+      for (int k2 = 0; k2 < R2; ++k2) v[k1 + 3 * k2] = y[k1][k2];
+    }
   } else {
-    static_assert(R == 7, "radix 2, 3, 4, 5, 7 or 11");
+    static_assert(R == 7, "radix 2, 3, 4, 5, 7, 9, 11 or 15");
     // Pairs a_r = v_r + v_{7-r}, b_r = v_r - v_{7-r}; output k in 1-3 is
     // m_k - i n_k and output 7 - k is m_k + i n_k, with m_k = v0 + sum_r
     // cos(2 pi r k / 7) a_r and n_k = sum_r sin(2 pi r k / 7) b_r.
@@ -2143,9 +2184,26 @@ __device__ __forceinline__ void fft_stage_prime(float2* buf, int total, int p, i
   __syncthreads();
 }
 
-// fft_stage_prime as a call, not inlined.
+// fft_stage_prime as a call, not inlined, for the instances whose n_fft
+// twiddles lie in shared memory: tw is taken again from the block's shared
+// array, so that the call reads them with shared-memory loads whatever the
+// compiler infers of its argument (left to infer it, it read them with
+// generic loads, launch C's 2704 3% slower: PERF.md).
 __device__ __noinline__ void fft_stage_prime_call(float2* buf, int total, int p, int ns, int n_fft, const float2* tw,
                                                   int P) {
+#ifdef __CUDACC__
+  extern __shared__ float4 smem4[];
+  const char* smem = reinterpret_cast<const char*>(smem4);
+  tw = reinterpret_cast<const float2*>(smem + (__cvta_generic_to_shared(tw) - __cvta_generic_to_shared(smem)));
+#endif
+  fft_stage_prime(buf, total, p, ns, n_fft, tw, P);
+}
+
+// The same for the instances with Bluestein's stage, whose n_fft twiddles
+// may lie in device memory (LayoutF's twl1), which the call above must not
+// take (its signature its own, so that the compiler keeps the two apart).
+__device__ __noinline__ void fft_stage_prime_call_any(const float2* tw, float2* buf, int total, int p, int ns,
+                                                      int n_fft, int P) {
   fft_stage_prime(buf, total, p, ns, n_fft, tw, P);
 }
 
@@ -2157,36 +2215,56 @@ __device__ __noinline__ void fft_stage_prime_call(float2* buf, int total, int p,
 // at 256 mels and odd 1365 ran 4-6% slower (tools/spectral_probe.py).
 constexpr int kPrimeC = 2;
 
+// Bluestein's stage of radix R at ns: of m / ns, 15 where it divides it,
+// else 9, else its least prime factor (3, 5, 7 or 11); so 675 = 15 15 3
+// points take three stages, not five (3 3 3 5 5), 825 = 15 5 11 three, not
+// four (ops/frontend_kernel.py::_blue_radices).
+__device__ __forceinline__ int blue_radix(int m, int ns) {
+  const int r = m / ns;
+  return r % 15 == 0 ? 15 : r % 9 == 0 ? 9 : r % 3 == 0 ? 3 : r % 5 == 0 ? 5 : r % 7 == 0 ? 7 : 11;
+}
+
 // Bluestein's stage's operands (LayoutF): the prime P past kFftMaxPrime,
-// the convolution's m points, the butterflies a pass and the warps that
-// run them, the scratch (group rows of m points, then a buffer of m points
-// a warp, in the span's place) and the tables staged in shared
-// memory after the twiddles: the chirp c_s = e^{-pi i s^2 / P} for s in
-// [0, P), B^ = FFT_m(b) / m of the wrapped conjugate chirp (b_t = conj
-// c_t and b_{m-t} = conj c_t for t in [0, P), zeros between), and the
-// twiddles e^{-2 pi i k / m} for k in [0, m / 2] (ops/frontend_kernel.py::
-// _bluestein_tables, float64 rounded once).
+// the convolution's m points, the warps of a row's group (gw), the scratch
+// (two rows of m points for each group, in the span's place) and the tables
+// after the n_fft twiddles (ops/frontend_kernel.py::_bluestein_tables,
+// float64 rounded once): the chirp c_s = e^{-pi i s^2 / P} for s in [0,
+// P), then B^ = FFT_m(b) / m of the wrapped conjugate chirp (b_t = conj c_t
+// and b_{m-t} = conj c_t for t in [0, P), zeros between), staged or in
+// device memory (LayoutF's twl1), and the FFT_m stages' twiddles, staged
+// (LayoutF's blue): for each stage of radix R at ns, from the first, its
+// ns (R - 1) twiddles w_{ns R}^{r k} at k (R - 1) + r - 1 for k < ns and r
+// in [1, R), m - 1 in all, so a butterfly reads its R - 1 in a row and no
+// index is reduced past m / 2.
 struct Bluestein {
-  int P, m, group, warps;
+  int P, m, gw;
   float2* scratch;
-  const float2* chirp;  // then B^ and the m-point twiddles (two pointers fewer in registers)
+  const float2* chirp;  // then B^
+  const float2* tw;
 
   __device__ Bluestein(const LayoutF& lay, float* base, const float2* tables, int n_fft)
-      : P(lay.bp), m(lay.bm), group(lay.group), warps(lay.warps), scratch(reinterpret_cast<float2*>(base + lay.span)),
-        chirp(tables + n_fft / 2 + 1) {}
+      : P(lay.bp), m(lay.bm), gw(lay.gw), scratch(reinterpret_cast<float2*>(base + lay.span)),
+        chirp((lay.twl1() ? tables : reinterpret_cast<const float2*>(base + lay.tw)) + n_fft / 2 + 1),
+        tw(reinterpret_cast<const float2*>(base + lay.blue)) {}
   __device__ const float2* bhat() const { return chirp + P; }
-  __device__ const float2* tw() const { return chirp + P + m; }
 };
 
-// Bluestein's stage in an instance: 0 none, 1 inlined, 2 called
-// (fft_stage_bluestein_call). Both launches inline it: called, launch A's
-// 2192 ran 1.66-1.67 ms against 1.36-1.42 inlined and launch C's
-// 3.69-3.70 against 3.11-3.23 (B = 1024, in turns, tools/*_probe.py
-// --primes; PERF.md).
-__device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int p, int n_fft, const float2* tw,
-                                                    const Bluestein& bl);
-__device__ __noinline__ void fft_stage_bluestein_call(float2* buf, int total, int p, int n_fft, const float2* tw,
-                                                      const Bluestein& bl);
+// The FFT_m stages of both of Bluestein's transforms (count) and the last
+// one's radix, counted where the stage runs, not in Bluestein's
+// constructor, which the instances without the stage build too.
+struct BlueStages {
+  int count = 0, last = 1;
+  __device__ explicit BlueStages(int m) {
+    for (int ns = 1; ns < m; ns *= last, count += 2) last = blue_radix(m, ns);
+  }
+};
+
+// Bluestein's stage in an instance: 0 none, 1 inlined. Both launches
+// inline it: called (a __noinline__ wrapper; the probes' variant), launch
+// A's 2192 ran 1.52 ms against 1.30-1.33 inlined and launch C's 3.72-3.73
+// against 3.00-3.10 (B = 1024, in turns, tools/*_probe.py --primes;
+// PERF.md).
+__device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int p, const Bluestein& bl);
 constexpr int kBluesteinA = 1;
 constexpr int kBluesteinC = 1;
 
@@ -2194,17 +2272,19 @@ constexpr int kBluesteinC = 1;
 // not a power of two: one of radix 2 when a is odd, then radix 4, then the
 // 3s, the 5s, the 7s, the 11s, then one fft_stage_prime for each larger
 // prime factor, smallest first, with multiplicity, up to kFftMaxPrime,
-// and past it fft_stage_bluestein (then the last stage: a row has at most
-// one such prime, the largest). kRadix, the instance's largest odd radix
+// and past it fft_stage_bluestein, first (ns = 1, on rows that BlueOrder
+// packed: a row has at most one such prime, the largest). kRadix, the
+// instance's largest odd radix
 // in registers (7 or 11); kPrime, whether the instance runs the primes
 // past it by fft_stage_prime (0 not at all: p then has none; 1 inlined; 2
 // called); kBluestein, whether it runs a prime past kFftMaxPrime by
-// Bluestein's stage (0 not at all; 1 inlined; 2 called; bl its operands):
+// Bluestein's stage (0 not at all; 1 inlined; bl its operands):
 // see fft_rows.
 template <int kRadix, int kPrime, int kBluestein>
 __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, int n_fft, const float2* tw,
                                                const Bluestein* bl) {
   static_assert(kRadix == 7 || kRadix == 11, "an instance of radix 7 or 11");
+  static_assert(kBluestein == 0 || kPrime != 0, "Bluestein's stage in an instance of the prime stage");
   int twos = 0, threes = 0, sevens = 1, elevens = 1, rest = 1;  // 7^d, 11^e, and the primes past kRadix's product
   for (int r = p; r % 2 == 0; r /= 2) ++twos;
   for (int r = p >> twos; r % 3 == 0; r /= 3) ++threes;
@@ -2217,9 +2297,15 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
     rest /= sevens * elevens;
   }
   int ns = 1;
+  if constexpr (kBluestein != 0)
+    if (bl->P) {
+      fft_stage_bluestein(buf, total, p, *bl);
+      ns = bl->P;
+      rest /= bl->P;
+    }
   if (twos & 1) {
     fft_stage<2, false>(buf, total, p, ns, n_fft, tw);
-    ns = 2;
+    ns *= 2;
   }
   for (int i = 0; i < twos / 2; ++i, ns *= 4) fft_stage<4, false>(buf, total, p, ns, n_fft, tw);
   for (int i = 0; i < threes; ++i, ns *= 3) fft_stage<3, false>(buf, total, p, ns, n_fft, tw);
@@ -2232,16 +2318,10 @@ __device__ __forceinline__ void fft_rows_mixed(float2* buf, int total, int p, in
       int f = 11;
       while (f * f <= rest && rest % f) f += 2;
       if (f * f > rest) f = rest;
-      if constexpr (kBluestein != 0)
-        if (f > kFftMaxPrime) {
-          if constexpr (kBluestein == 1)
-            fft_stage_bluestein(buf, total, p, n_fft, tw, *bl);
-          else
-            fft_stage_bluestein_call(buf, total, p, n_fft, tw, *bl);
-          break;
-        }
       if constexpr (kPrime == 1)
         fft_stage_prime(buf, total, p, ns, n_fft, tw, f);
+      else if constexpr (kBluestein != 0)
+        fft_stage_prime_call_any(tw, buf, total, p, ns, n_fft, f);
       else
         fft_stage_prime_call(buf, total, p, ns, n_fft, tw, f);
       ns *= f;
@@ -2289,132 +2369,180 @@ __device__ __forceinline__ void fft_rows(float2* buf, int rows, int p, int n_fft
   for (; ns < p; ns *= 4) fft_stage<4, true>(buf, total, p, ns, n_fft, tw);
 }
 
-// One out-of-place Stockham stage of radix R over a row of m points by one
-// warp: butterfly j reads src[j + r m / R] (times pre[] and conjugated
-// where pre is given), times w_{ns R}^{r (j mod ns)} from the m-point
-// table, and writes output r to dst[(j - j mod ns) R + j mod ns + r ns]:
-// fft_stage's arithmetic with no block barrier, a butterfly in registers
-// at a time; then the warp meets at __syncwarp. The first stage (ns = 1:
-// its twiddles are 1, not multiplied) reads zeros from point `valid` on;
-// the last (ns R = m) writes only outputs under `keep`.
+// The threads of a group of warps meet at named barrier `id` (1 to 15;
+// __syncthreads takes 0).
+#ifdef __CUDACC__
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+#endif
+
+// The threads of Bluestein's row group meet: its warp, or its gw warps at
+// its named barrier.
+__device__ __forceinline__ void group_sync(int gw, int id) {
+  if (gw == 1)
+    __syncwarp();
+  else
+    bar_sync(id, 32 * gw);
+}
+
+// What a stage of Bluestein's rows reads and writes besides its rows: the
+// first stage of the first FFT_m gathers its points from the butterfly's
+// in buf (kGather), the first of the second reads its row times B^,
+// conjugated (kBhat), the last of the second scatters to the butterfly's
+// points (kScatter); the others read and write the rows alone (kRow).
+enum { kRow = 0, kGather = 1, kBhat = 2, kScatter = 3 };
+
+// Where a row of p = q P points lies in buf for Bluestein's stage, which
+// runs first (ns = 1): butterfly j reads points j + s q and writes output
+// k to j P + k, so the rows are packed with point j + s q at j P + s, each
+// butterfly's P points in consecutive words (point e of the row at
+// BlueOrder(e)). Read in natural order (consecutive threads on consecutive
+// points of a butterfly, every q-th of the row), n_fft 5296's q = 8 put 16
+// of a warp's float2 reads in one bank pair. kOn: whether the instance runs
+// Bluestein's stage (else natural order, the instance's code as without
+// it); its P 0 where the n_fft has no prime past kFftMaxPrime (launch C's
+// wide instance of radix 11 takes those too).
+template <bool kOn>
+struct BlueOrder {
+  int q, P;
+  DivBy by_q;
+  __device__ BlueOrder(int p, int P_) : q(P_ ? p / P_ : 1), P(P_), by_q(q) {}
+  __device__ int operator()(int e) const {
+    if (!P) return e;
+    const int s = by_q(e);
+    return (e - s * q) * P + s;
+  }
+};
+
+template <>
+struct BlueOrder<false> {
+  __device__ BlueOrder(int, int) {}
+  __device__ int operator()(int e) const { return e; }
+};
+
+// One out-of-place Stockham stage of radix R over a group's row of m
+// points (gw warps, 32 gw lanes; `lane` the thread's place in the group),
+// from src to dst: butterfly j reads points j + r m / R, multiplies point r
+// by w_{ns R}^{r (j mod ns)} from the stage's twiddles (tw), takes their
+// R-point DFT and writes output r to (j - j mod ns) R + j mod ns + r ns:
+// fft_stage's arithmetic, a lane's butterflies one at a time, then the
+// group meets, and no block barrier. The modes, each a few warp-uniform
+// tests in one body (a body a mode took the build of launch C's Bluestein
+// instances from ~31 to ~49 s):
+//  - kGather (the first stage, ns = 1: no twiddles): point s < P is x_s
+//    c_s, x the butterfly's points in buf (BlueOrder: x[s]), zeros from P
+//    on;
+//  - kBhat: each point times B^ (1 / m in it), conjugated;
+//  - kScatter (the last stage, ns R = m: output r of butterfly j is point j
+//    + r ns): X_k = c_k conj(z_k) for k < P, to x[k].
 template <int R>
-__device__ __forceinline__ void warp_stage(const float2* src, float2* dst, int m, int ns, const float2* tw,
-                                           const float2* pre, int valid, int keep, int lane) {
-  const int q = m / R, step = m / (ns * R);
+__device__ __forceinline__ void blue_stage(const float2* src, float2* dst, int ns, int mode, const Bluestein& bl,
+                                           const float2* tw, float2* x, int lane, int bar) {
+  const int m = bl.m, q = m / R, lanes = 32 * bl.gw;
   const DivBy by_ns(ns);
-  if (ns > 1) valid = m;
-  if (ns * R < m) keep = m;
-  for (int j = lane; j < q; j += 32) {
+  const float2* in = mode == kGather ? x : src;
+  const int in_lim = mode == kGather ? bl.P : m, out_lim = mode == kScatter ? bl.P : m;
+  const float2* pre = mode == kGather ? bl.chirp : mode == kBhat ? bl.bhat() : nullptr;
+  float2* out = mode == kScatter ? x : dst;
+  for (int j = lane; j < q; j += lanes) {
     const int k = j - by_ns(j) * ns;
     float2 v[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = j + r * q;
-      v[r] = i < valid ? src[i] : make_float2(0.0f, 0.0f);
+      v[r] = i < in_lim ? in[i] : make_float2(0.0f, 0.0f);
       if (pre) {
         const float2 z = cmul(v[r], pre[i]);
-        v[r] = make_float2(z.x, -z.y);
+        v[r] = make_float2(z.x, mode == kBhat ? -z.y : z.y);
       }
     }
-    if (ns > 1)
+    if (ns > 1) {
+      const float2* t = tw + k * (R - 1);
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], twiddle(tw, r * k * step, m));
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], t[r - 1]);
+    }
     dft_points<R>(v);
-    float2* d = dst + (j - k) * R + k;
+    const int d = (j - k) * R + k;  // (j + r ns in the last stage, k = j)
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if ((j - k) * R + k + r * ns < keep) d[r * ns] = v[r];
+      if (d + r * ns < out_lim)
+        out[d + r * ns] = mode == kScatter ? cmul(make_float2(v[r].x, -v[r].y), bl.chirp[d + r * ns]) : v[r];
   }
-  __syncwarp();
+  group_sync(bl.gw, bar);  // every write before the next stage's reads, every read before its writes
 }
 
-// The FFT of a row of odd 11-smooth m points by one warp, out of place
-// through `tmp` (m points), in the radix stages' order (3s, 5s, 7s, 11s:
-// fft_rows_mixed's for an odd count); pre, valid and keep as warp_stage's.
-// Returns where the result lies: row after an even count of stages, tmp
-// after an odd one.
-__device__ __forceinline__ float2* warp_fft(float2* row, float2* tmp, int m, const float2* tw, const float2* pre,
-                                            int valid, int keep, int lane) {
-  float2 *src = row, *dst = tmp;
-  int ns = 1;
-  for (; m % (ns * 3) == 0; ns *= 3, pre = nullptr) {
-    warp_stage<3>(src, dst, m, ns, tw, pre, valid, keep, lane);
-    float2* t = src; src = dst; dst = t;
+__device__ __forceinline__ void blue_stage_at(const float2* src, float2* dst, int ns, int mode, const Bluestein& bl,
+                                              const float2* tw, float2* x, int lane, int bar) {
+  switch (blue_radix(bl.m, ns)) {
+    case 3: blue_stage<3>(src, dst, ns, mode, bl, tw, x, lane, bar); break;
+    case 5: blue_stage<5>(src, dst, ns, mode, bl, tw, x, lane, bar); break;
+    case 9: blue_stage<9>(src, dst, ns, mode, bl, tw, x, lane, bar); break;
+    case 15: blue_stage<15>(src, dst, ns, mode, bl, tw, x, lane, bar); break;
+    case 7: blue_stage<7>(src, dst, ns, mode, bl, tw, x, lane, bar); break;
+    default: blue_stage<11>(src, dst, ns, mode, bl, tw, x, lane, bar);
   }
-  for (; m % (ns * 5) == 0; ns *= 5, pre = nullptr) {
-    warp_stage<5>(src, dst, m, ns, tw, pre, valid, keep, lane);
-    float2* t = src; src = dst; dst = t;
-  }
-  for (; m % (ns * 7) == 0; ns *= 7, pre = nullptr) {
-    warp_stage<7>(src, dst, m, ns, tw, pre, valid, keep, lane);
-    float2* t = src; src = dst; dst = t;
-  }
-  for (; ns < m; ns *= 11, pre = nullptr) {
-    warp_stage<11>(src, dst, m, ns, tw, pre, valid, keep, lane);
-    float2* t = src; src = dst; dst = t;
-  }
-  return src;
 }
 
-// The last Stockham stage, of a prime radix P past kFftMaxPrime, by
+// The first Stockham stage, of a prime radix P past kFftMaxPrime, by
 // Bluestein's chirp-z: the P-point DFT X_k = sum_s x_s w_P^{ks} is c_k
 // (a * b)_k with a_s = x_s c_s, b_t = conj c_t and c_s = e^{-pi i s^2 / P}
 // (k s = (k^2 + s^2 - (k - s)^2) / 2), the cyclic convolution of m >= 2P -
 // 1 points computed by FFTs of m points (m odd and 11-smooth: radix
-// stages, nothing recurses). The last stage (ns = p / P = q): butterfly j
-// of a row reads its points j + s q, times w_p^{s j} from the twiddle
-// table, and writes output k where it read point k, so a pass of
-// butterflies needs no other pass's reads. Each pass of `group`
-// butterflies, three block barriers:
-//  1. the block: a_s = x_s w_p^{s j} c_s into the butterfly's scratch row
-//     for s < P (consecutive threads on consecutive butterflies; m odd, so
-//     their rows fall in distinct banks); a barrier;
-//  2. each of `warps` warps takes rows w, w + warps, ...: FFT_m out of
-//     place through its own buffer (its first stage reads zeros from P
-//     on), then FFT_m again, its first stage reading each point times B^
-//     (1 / m in it) and conjugated, its last writing outputs under P, back
-//     into the row after an even count of stages: the conjugate of the
-//     convolution. Only __syncwarp between stages: the block's stage
-//     barriers cost the first design 1.5x (PERF.md); a barrier;
-//  3. the block: X_k = c_k conj(z_k) for k < P, to the butterfly's points;
-//     a barrier.
+// stages, nothing recurses). The first stage (ns = 1: no twiddles):
+// butterfly j of a row reads its points j + s q (q = p / P) and writes
+// output k to j P + k, both at j P + s in a row that BlueOrder packed, so
+// no butterfly reads another's points and each reads and writes
+// consecutive words. Each group of gw warps (LayoutF) takes butterflies g,
+// g + groups, ... on its own, through its own two rows of m points in the
+// scratch, every warp of the block so busy: FFT_m (blue_stage, out of
+// place from one row to the other), its first stage gathering a_s from the
+// butterfly's points, then FFT_m again, its first stage reading each point
+// times B^ and conjugated, its last writing c_k conj(z_k) for k < P back to
+// the butterfly's points (the conjugate of the convolution's conjugate).
+// The group meets at its warp's __syncwarp or its named barrier once a
+// stage; the block meets once, after the stage (the packing before ends at
+// a barrier). The first design (the stage last; the block gathering into
+// scratch rows, two out-of-place warp FFTs a row on up to 8 warps, the
+// block scattering; three block barriers a pass) ran launch A at n_fft 5296
+// in 3.09 ms, its warp FFTs 1.88 of it, against torch.stft + mel's 1.66; a
+// stage held in a lane's registers, in place (all of a lane's butterflies
+// loaded, the group meeting, then stored), spilled and ran 2-4x slower;
+// gathering and scattering the stage last, at a stride of q points, cost
+// 0.49 of 2.62 ms there (PERF.md).
 // A stage costs two FFTs of m points, O(m log m), a butterfly, where
 // fft_stage_prime costs P / 2 + 1 multiply-add pairs a point.
-__device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int p, int n_fft, const float2* tw,
-                                                    const Bluestein& bl) {
-  const int P = bl.P, m = bl.m, q = p / P, nb = total / P, step = n_fft / p;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int p, const Bluestein& bl) {
+  const int q = p / bl.P, nb = total / bl.P;
+  const int group = (threadIdx.x >> 5) / bl.gw, groups = kWarpsA / bl.gw;
+  const int lane = threadIdx.x - 32 * bl.gw * group, bar = 1 + group;
+  float2* a = bl.scratch + 2 * group * bl.m;
+  float2* b = a + bl.m;
   const DivBy by_q(q);
-  float2* tmp = bl.scratch + (bl.group + warp) * m;
-  for (int b0 = 0; b0 < nb; b0 += bl.group) {
-    const int g = min(bl.group, nb - b0);
-    const DivBy by_g(g);
-    for (int e = threadIdx.x; e < g * P; e += kThreadsA) {
-      const int s = by_g(e), i = e - s * g, j = b0 + i, row = by_q(j), k = j - row * q;
-      float2 v = buf[row * p + k + s * q];
-      if (s) v = cmul(v, twiddle(tw, s * k * step, n_fft));
-      bl.scratch[i * m + s] = cmul(v, bl.chirp[s]);
-    }
-    __syncthreads();
-    if (warp < bl.warps)
-      for (int i = warp; i < g; i += bl.warps) {
-        float2* row = bl.scratch + i * m;
-        float2* a = warp_fft(row, tmp, m, bl.tw(), nullptr, P, m, lane);
-        warp_fft(a, a == row ? tmp : row, m, bl.tw(), bl.bhat(), m, P, lane);
+  const BlueStages stages(bl.m);
+  for (int c = group; c < nb; c += groups) {
+    const int r = by_q(c);
+    float2* x = buf + r * p + (c - r * q) * bl.P;
+    blue_stage_at(nullptr, a, 1, kGather, bl, bl.tw, x, lane, bar);
+    int ns = blue_radix(bl.m, 1);
+    const float2* tw = bl.tw + ns - 1;  // the stage's twiddles (past the first stage's, all 1)
+    for (int s = 1; s + 1 < stages.count; ++s) {
+      const int first = ns == bl.m;  // the second FFT's first stage
+      if (first) {
+        ns = 1;
+        tw = bl.tw;
       }
-    __syncthreads();
-    for (int e = threadIdx.x; e < g * P; e += kThreadsA) {
-      const int s = by_g(e), i = e - s * g, j = b0 + i, row = by_q(j), k = j - row * q;
-      const float2 z = bl.scratch[i * m + s];
-      buf[row * p + k + s * q] = cmul(make_float2(z.x, -z.y), bl.chirp[s]);
+      const int r = blue_radix(bl.m, ns);
+      blue_stage_at(a, b, ns, first ? kBhat : kRow, bl, tw, x, lane, bar);
+      float2* t = a;
+      a = b;
+      b = t;
+      tw += ns * (r - 1);
+      ns *= r;
     }
-    __syncthreads();
+    blue_stage_at(a, nullptr, bl.m / stages.last, kScatter, bl, tw, x, lane, bar);
   }
-}
-
-__device__ __noinline__ void fft_stage_bluestein_call(float2* buf, int total, int p, int n_fft, const float2* tw,
-                                                      const Bluestein& bl) {
-  fft_stage_bluestein(buf, total, p, n_fft, tw, bl);
+  __syncthreads();
 }
 
 // One frame's contrast in one band of w <= 32 kK bins at pb, by a warp:
@@ -2611,6 +2739,15 @@ __device__ __forceinline__ void stage_flat(float* span, const WaveSrc& src, int 
   for (int i = threadIdx.x; i < len; i += kThreadsA) span[i] = src.at(i);
 }
 
+// LayoutF's tables into shared memory from lay.tw: all of them, or, where
+// the others are read through L1 (l1), Bluestein's FFT_m stages' twiddles alone.
+__device__ __forceinline__ void stage_tables(float* base, const float2* tables, const LayoutF& lay, bool l1,
+                                             int n_fft) {
+  const int skip = l1 ? n_fft / 2 + 1 + lay.bp + lay.bm : 0;
+  float2* dst = reinterpret_cast<float2*>(base + lay.tw);
+  for (int i = skip + threadIdx.x; i < lay.tables; i += kThreadsA) dst[i - skip] = tables[i];
+}
+
 // Launch A, FFT plan. grid (batch x groups): block i takes clip i / groups
 // and its frames [t0, t0 + frames) from t0 = (i % groups) * frames (LayoutF's
 // frames); window (n_fft) the padded win_length Hann; twiddles (n_fft / 2 +
@@ -2632,7 +2769,12 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   float* base = reinterpret_cast<float*>(smem4);
   float2* buf = reinterpret_cast<float2*>(base);
   float* span = base + lay.span;
-  float2* tw = reinterpret_cast<float2*>(base + lay.tw);
+  // The n_fft twiddles: staged, or through L1 where LayoutF says so (in
+  // the instance with Bluestein's stage; twl1).
+  const bool l1 = kBluestein != 0 && lay.twl1();
+  const float2* tw = reinterpret_cast<const float2*>(base + lay.tw);
+  if constexpr (kBluestein != 0)
+    if (l1) tw = twiddles;
   const int m = n_fft / 2;
   const bool pairs = n_fft % 2;  // two frames a row (F is even)
   const int points = pairs ? n_fft : m;
@@ -2652,7 +2794,7 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
 
   // 1. The tables, and the group's span: reflect padding and
   // pre-emphasis, zeros past its last frame.
-  for (int i = tid; i < lay.tables; i += kThreadsA) tw[i] = twiddles[i];
+  stage_tables(base, twiddles, lay, l1, n_fft);
   WaveSrc src;
   src.x = wave + (size_t)b * n_samples;
   src.n_samples = n_samples;
@@ -2666,26 +2808,29 @@ __global__ void __launch_bounds__(kThreadsA, 2) spectral_fft_kernel(
   // 2. Each windowed frame's n_fft reals as m complex points; on an odd
   // n_fft, frames 2j and 2j + 1 of the group as the real and imaginary
   // parts of row j's n_fft points, zeros for a frame past the clip's last.
+  // A row's points in BlueOrder where Bluestein's stage runs first.
+  const BlueOrder<kBluestein != 0> order(points, lay.bp);
   if (pairs) {
     const DivBy by_n(n_fft);
     for (int e = tid; e < rows * n_fft; e += kThreadsA) {
       const int j = by_n(e), n = e - j * n_fft;
       const float* x = span + 2 * j * hop + n;
       const float wn = __ldg(window + n);
-      buf[e] = make_float2(2 * j < frames ? x[0] * wn : 0.0f, 2 * j + 1 < frames ? x[hop] * wn : 0.0f);
+      buf[j * n_fft + order(n)] =
+          make_float2(2 * j < frames ? x[0] * wn : 0.0f, 2 * j + 1 < frames ? x[hop] * wn : 0.0f);
     }
   } else {
     const DivBy by_m(m);
     for (int e = tid; e < F * m; e += kThreadsA) {
       const int f = by_m(e), n = 2 * (e - f * m);
       const float* x = span + f * hop + n;
-      buf[e] = make_float2(x[0] * __ldg(window + n), x[1] * __ldg(window + n + 1));
+      buf[f * m + order(e - f * m)] = make_float2(x[0] * __ldg(window + n), x[1] * __ldg(window + n + 1));
     }
   }
   __syncthreads();
 
   // 3. The FFT of each row's points.
-  const Bluestein bl(lay, base, tw, n_fft);
+  const Bluestein bl(lay, base, twiddles, n_fft);
   fft_rows<11, 1, kBluestein>(buf, rows, points, n_fft, tw, &bl);
 
   // 4. The real FFT's bins [0, n_used), their power in registers, then in
@@ -2777,15 +2922,27 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
   const int f_own = tid / tpf, l_own = tid - f_own * tpf;
   const DivBy by_n(n_fft);
 
-  for (int i = tid; i < lay.tables; i += kThreadsA) tw[i] = twiddles[i];
-  const Bluestein bl(lay, base, tw, n_fft);
+  // The tables; the n_fft twiddles the FFT reads (twr), staged, or through
+  // L1 where LayoutF says so. The instances without Bluestein's stage keep
+  // the code they had before it, line for line (their instructions, by
+  // tools/spectral_probe.py --turns, as an older source's).
+  const float2* twr = tw;
+  if constexpr (kBluestein != 0) {
+    stage_tables(base, twiddles, lay, lay.twl1(), n_fft);
+    if (lay.twl1()) twr = twiddles;
+  } else {
+    for (int i = tid; i < lay.tables; i += kThreadsA) tw[i] = twiddles[i];
+  }
+  const Bluestein bl(lay, base, twiddles, n_fft);
+  const BlueOrder<kBluestein != 0> order(n_fft, lay.bp);
   WaveSrc src;
   src.x = wave + (size_t)blockIdx.x * n_samples;
   src.n_samples = n_samples;
   src.use_pre = 0;
   src.pre_coef = 0.0f;
   for (int t0 = 0; t0 < n_frames; t0 += F) {
-    // 1. The group's span, then its frames through both windows.
+    // 1. The group's span, then its frames through both windows (a row in
+    // BlueOrder where Bluestein's stage runs first).
     const int frames = min(F, n_frames - t0);
     __syncthreads();  // the twiddles are in place; the last group's rows are read
     src.base = t0 * hop - half;
@@ -2795,12 +2952,13 @@ __global__ void __launch_bounds__(kThreadsA, 2) contrast_fft_kernel(
     for (int e = tid; e < F * n_fft; e += kThreadsA) {
       const int f = by_n(e), k = e - f * n_fft;
       const float x = span[f * hop + k];
-      buf[e] = make_float2(__ldg(windows + k) * x, __ldg(windows + n_fft + k) * x);
+      buf[kBluestein != 0 ? f * n_fft + order(k) : e] =
+          make_float2(__ldg(windows + k) * x, __ldg(windows + n_fft + k) * x);
     }
     __syncthreads();
 
     // 2. The FFT of each frame's n_fft points.
-    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, n_fft, tw, &bl);
+    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, n_fft, twr, &bl);
 
     // 3. The two spectra: the power rows over the bands' bins, the
     // magnitude into the frame's sums; tpf threads a frame.

@@ -168,30 +168,33 @@ def _fft_layout(points: int, n_fft: int, hop: int, n_pow: int = 0, contrast: boo
     """(frames, bytes): csrc/frontend_kernel.cu's LayoutF. In floats: the
     points (2 each, rows x points a row), the frames' waveform span, the
     tables (n_fft + 2 for the twiddles, then for a prime past
-    _FFT_MAX_PRIME 2 (P + m + m // 2 + 1) for Bluestein's, `_fft_tables`);
+    _FFT_MAX_PRIME 2 (P + 2 m - 1) for Bluestein's, `_fft_tables`);
     for the contrast launch the group's power rows (frames x n_pow) and the
     reduction slots (its contrast rows go to the output). A row holds
     `per_row` frames: one, or two for launch A on an odd n_fft
-    (`_spectral_layout`). Bluestein's scratch, `_bluestein_rows`' rows of m
-    points and a buffer of m points a warp, takes the span's place and
-    grows it where it needs more.
+    (`_spectral_layout`). Bluestein's scratch, two rows of m points for
+    each group of `_bluestein_rows`' warps, takes the span's place and
+    grows it where it needs more; where `_bluestein_rows` says so, the
+    tables but Bluestein's FFT_m stages' twiddles are read through L1, not
+    staged.
     `rows` halves from the most a block takes until the layout fits; the
     contrast launch's most is rounded down to a power of two (its threads
     split evenly over the frames)."""
     bp = _bluestein_prime(n_fft)
     m = _bluestein_points(bp) if bp else 0
-    twf = n_fft + 2 + 2 * (bp + m + m // 2 + 1 if bp else 0)
+    staged = n_fft + 2 + 2 * (bp + 2 * m - 1 if bp else 0)  # floats of the tables
     rows = min(_FFT_POINTS // points, _FFT_MAX_FRAMES // per_row)
     if contrast and rows:
         rows = 1 << (rows.bit_length() - 1)
     while True:
         frames = rows * per_row
         span = _up4((frames - 1) * hop + n_fft)
-        rest = 2 * rows * points + twf + (_up4(frames * n_pow) + _RED_C if contrast else 0)
+        rest = 2 * rows * points + (_up4(frames * n_pow) + _RED_C if contrast else 0)
+        tw = staged
         if bp:
-            scratch = _bluestein_rows(rows * points, bp, m, span, rest, contrast and rows == 1)
-            span = max(span, _up4(2 * sum(scratch) * m))
-        end = rest + span
+            gw, l1 = _bluestein_rows(m, span, rest, staged)
+            span, tw = _bluestein_region(m, gw, span), 2 * (m - 1) if l1 else staged
+        end = rest + span + tw
         if rows <= 1 or 4 * end <= _MAX_SMEM:
             return frames, 4 * end
         rows //= 2
@@ -201,34 +204,27 @@ def _up4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def _bluestein_rows(total: int, bp: int, m: int, span: int, rest: int, one_frame_c: bool = False) -> tuple:
-    """(group, warps): LayoutF's butterflies a pass of Bluestein's stage
-    and the warps that run them, each with a buffer of m points. Of the
-    rows of m points (2 floats a point) that fit the span's room grown
-    while two blocks still fit an SM (while one does, where the rest passes
-    that already), half go to warps' buffers, up to 8,
-    at least one, the rest to the pass's butterflies, at least one, in
-    whole rounds of the warps, the total // bp butterflies spread evenly
-    over the passes. For launch C at one frame a group (`one_frame_c`), the
-    room of one block an SM where two would leave fewer warps an SM."""
-    nb = max(total // bp, 1)
+def _bluestein_region(m: int, gw: int, span: int) -> int:
+    """LayoutF::scratch: the span's region, in floats, with Bluestein's
+    scratch in it, two rows of m points for each group of gw warps."""
+    return max(span, _up4(4 * (_WARPS_A // gw) * m))
 
-    def rows(most: int) -> tuple:
-        fit = max(most - rest, span) // (2 * m)
-        warps = min(max(fit // 2, 1), _WARPS_A)
-        g = min(max(fit - warps, 1), nb)
-        if g > warps:
-            g -= g % warps
-        group = -(-nb // -(-nb // g))
-        return group, min(warps, group)
 
-    two = rest + span <= _SMEM_TWO // 4
-    got = rows(_SMEM_TWO // 4 if two else _MAX_SMEM // 4)
-    if one_frame_c and two:
-        one = rows(_MAX_SMEM // 4)
-        if 2 * got[1] < one[1]:
-            return one
-    return got
+def _bluestein_rows(m: int, span: int, rest: int, staged: int) -> tuple:
+    """(gw, twl1): LayoutF's warps a group of Bluestein's stage (each group
+    of gw warps runs its butterflies' FFTs of m points through its own two
+    rows) and whether the tables (`staged` floats) but the FFT_m stages'
+    twiddles are read through L1, not staged: of gw from 1 up (powers of
+    two to 8), all staged and then through L1, the first that lets two
+    blocks on an SM; where none does, the first in that order that fits a
+    block (else 8, through L1). `rest` is the layout's floats but the
+    span's region and the tables."""
+    for most in (_SMEM_TWO // 4, _MAX_SMEM // 4):
+        for g in (1, 2, 4, 8):
+            for l1 in (False, True):
+                if rest + _bluestein_region(m, g, span) + (2 * (m - 1) if l1 else staged) <= most:
+                    return g, l1
+    return _WARPS_A, True
 
 
 def _spectral_points(n_fft: int) -> int:
@@ -596,21 +592,38 @@ def _twiddles(n_fft: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _bluestein_tables(p: int) -> np.ndarray:
-    """(p + m + m // 2 + 1, 2) float32, m = _bluestein_points(p), as
-    (re, im): Bluestein's chirp c_s = e^{-pi i s^2 / p} for s in [0, p)
-    (its angle from s^2 mod 2p in integers), B^ = FFT_m(b) / m of the
-    wrapped conjugate chirp (b_t = conj c_t and b_{m-t} = conj c_t for t
-    in [0, p), zeros between), and the m-point twiddles e^{-2 pi i k / m}
-    for k in [0, m // 2]; each computed in float64 and rounded once."""
+    """(p + 2 m - 1, 2) float32, m = _bluestein_points(p), as (re, im):
+    Bluestein's chirp c_s = e^{-pi i s^2 / p} for s in [0, p) (its angle
+    from s^2 mod 2p in integers), B^ = FFT_m(b) / m of the wrapped
+    conjugate chirp (b_t = conj c_t and b_{m-t} = conj c_t for t in [0,
+    p), zeros between), each computed in float64 and rounded once; then
+    `_bluestein_stage_twiddles(m)`."""
     m = _bluestein_points(p)
     s = np.arange(p, dtype=np.int64)
     chirp = np.exp(-1j * np.pi * ((s * s) % (2 * p)) / p)
     b = np.zeros(m, np.complex128)
     b[:p] = np.conj(chirp)
     b[m - s[1:]] = np.conj(chirp[1:])
-    k = np.arange(m // 2 + 1)
-    z = np.concatenate([chirp, np.fft.fft(b) / m, np.exp(-2j * np.pi * k / m)])
-    return np.stack([z.real, z.imag], axis=1).astype(np.float32)
+    z = np.concatenate([chirp, np.fft.fft(b) / m])
+    return np.concatenate([np.stack([z.real, z.imag], axis=1).astype(np.float32), _bluestein_stage_twiddles(m)])
+
+
+def _bluestein_stage_twiddles(m: int) -> np.ndarray:
+    """(m - 1, 2) float32: Bluestein's FFT_m stages' twiddles as the
+    kernel reads them (blue_stage), stage by stage (`_blue_radices(m)`),
+    for the stage of radix R at ns its w_{ns R}^{r k} at k (R - 1) + r - 1
+    for k < ns and r in [1, R): the `_twiddles(m)` entry r k m / (ns R),
+    past m / 2 the conjugate of entry m - that, the values `_stockham`
+    reads."""
+    half = _twiddles(m)
+    out, ns = [], 1
+    for r in _blue_radices(m):
+        idx = (np.arange(ns)[:, None] * np.arange(1, r)[None, :] * (m // (ns * r))).reshape(-1)
+        low = 2 * idx <= m
+        t = half[np.where(low, idx, m - idx)]
+        out.append(np.stack([t[:, 0], np.where(low, t[:, 1], -t[:, 1])], axis=1))
+        ns *= r
+    return np.concatenate(out).astype(np.float32)
 
 
 def _fft_tables(n_fft: int) -> np.ndarray:
@@ -664,19 +677,22 @@ def _fft_constants(cfg: FeatureConfig, device: torch.device) -> _FftConstants:
 
 
 def _fft_radices(points: int) -> list:
-    """The FFT plans' Stockham stages for `points` (fft_rows): one of radix
-    2 first when the count of 2s is odd, then radix 4, then the 3s, the 5s,
-    the 7s and the 11s, then one stage of each larger prime factor,
-    smallest first (fft_stage_prime up to _FFT_MAX_PRIME, Bluestein's stage
-    past it). Raises where the kernels have no stages: more than one prime
-    factor past _FFT_MAX_PRIME, or Bluestein's m past _BLUESTEIN_POINTS."""
+    """The FFT plans' Stockham stages for `points` (fft_rows): Bluestein's
+    stage first for a prime factor past _FFT_MAX_PRIME (on rows packed
+    per butterfly, `BlueOrder` in the kernel: only the layout, not the
+    arithmetic, differs), then one of radix 2 when the count of 2s is odd,
+    then radix 4, then the 3s, the 5s, the 7s and the 11s, then one stage
+    of each larger prime factor up to _FFT_MAX_PRIME (fft_stage_prime),
+    smallest first. Raises where the kernels have no stages: more than one
+    prime factor past _FFT_MAX_PRIME, or Bluestein's m past
+    _BLUESTEIN_POINTS."""
     factors = _prime_factors(points)
     past = [f for f in factors if f > _FFT_MAX_PRIME]
     if len(past) > 1 or (past and _bluestein_points(past[0]) > _BLUESTEIN_POINTS):
         raise ValueError(f"the FFT plans take at most one prime factor past {_FFT_MAX_PRIME}, whose Bluestein "
                          f"convolution fits {_BLUESTEIN_POINTS} points; got {points} = {factors}")
     twos = factors.count(2)
-    return [2] * (twos % 2) + [4] * (twos // 2) + [f for f in factors if f > 2]
+    return past + [2] * (twos % 2) + [4] * (twos // 2) + [f for f in factors if 2 < f <= _FFT_MAX_PRIME]
 
 
 # The radix-3, radix-5, radix-7 and radix-11 butterflies' constants, as the
@@ -735,9 +751,10 @@ def _bluestein(vr: list, vi: list) -> tuple:
     """fft_stage_bluestein's P-point DFT (P = len(vr), a prime past
     _FFT_MAX_PRIME) of the twiddled points (vr[s], vi[s]), with its order of
     operations: a_s = v_s c_s, zero-padded to m points, its FFT by the
-    radix stages (`_stockham` with the m-point table), each point times B^
-    (1 / m in it) and conjugated, the FFT again, then output k is c_k times
-    the conjugate of point k (`_bluestein_tables`)."""
+    radix stages (`_stockham` with the m-point table's values and the
+    stages of `_blue_radices`), each point times B^ (1 / m in it) and
+    conjugated, the FFT again, then output k is c_k times the conjugate of
+    point k (`_bluestein_tables`)."""
     p = len(vr)
     t = torch.from_numpy(_bluestein_tables(p)).to(vr[0].device)
     m = _bluestein_points(p)
@@ -746,17 +763,57 @@ def _bluestein(vr: list, vi: list) -> tuple:
     xr, xi = torch.stack(vr, dim=-1), torch.stack(vi, dim=-1)
     ar = F.pad(xr * cr - xi * ci, (0, m - p))
     ai = F.pad(xr * ci + xi * cr, (0, m - p))
-    zr, zi = _stockham(ar, ai, t[p + m :], m)
+    tw = torch.from_numpy(_twiddles(m)).to(vr[0].device)
+    zr, zi = _stockham(ar, ai, tw, m, _blue_radices(m))
     zr, zi = zr * br - zi * bi, -(zr * bi + zi * br)
-    zr, zi = _stockham(zr, zi, t[p + m :], m)
+    zr, zi = _stockham(zr, zi, tw, m, _blue_radices(m))
     yr, yi = zr[..., :p], -zi[..., :p]
     return list((yr * cr - yi * ci).unbind(-1)), list((yr * ci + yi * cr).unbind(-1))
 
 
+# e^{-2 pi i j / R} for Bluestein's composite radices 9 and 15 (the
+# kernel's w_composite), float64 values rounded once: j -> (cos, -sin).
+_W_COMPOSITE = {
+    9: {1: (0.766044443118978, -0.6427876096865393), 2: (0.17364817766693041, -0.984807753012208),
+        4: (-0.9396926207859083, -0.3420201433256689)},
+    15: {1: (0.9135454576426009, -0.40673664307580015), 2: (0.6691306063588582, -0.7431448254773941),
+         3: (0.30901699437494745, -0.9510565162951535), 4: (-0.10452846326765333, -0.9945218953682734),
+         6: (-0.8090169943749473, -0.5877852522924732), 8: (-0.9781476007338057, 0.20791169081775907)},
+}
+_W_COMPOSITE = {r: {j: tuple(float(np.float32(v)) for v in w) for j, w in t.items()} for r, t in _W_COMPOSITE.items()}
+
+
+def _blue_radices(m: int) -> list:
+    """Bluestein's FFT_m stages (the kernel's blue_radix): of what is left
+    of m, 15 where it divides it, else 9, else its least prime factor."""
+    out = []
+    while m > 1:
+        r = next(f for f in (15, 9, 3, 5, 7, 11) if m % f == 0)
+        out.append(r)
+        m //= r
+    return out
+
+
 def _dft_points(vr: list, vi: list) -> tuple:
-    """The kernel's R-point DFT (dft_points, R = len(vr): 2, 3, 4, 5, 7 or
-    11) of the points (vr[r], vi[r]), with its order of operations."""
+    """The kernel's R-point DFT (dft_points, R = len(vr): 2, 3, 4, 5, 7, 9,
+    11 or 15) of the points (vr[r], vi[r]), with its order of operations."""
     r = len(vr)
+    if r in (9, 15):  # point n = r2 n1 + n2: 3-point DFTs over n1, times w_r^{n2 k1}, r2-point DFTs over n2
+        r2 = r // 3
+        yr, yi = [[None] * r2 for _ in range(3)], [[None] * r2 for _ in range(3)]
+        for n2 in range(r2):
+            tr, ti = _dft_points([vr[n2], vr[r2 + n2], vr[2 * r2 + n2]], [vi[n2], vi[r2 + n2], vi[2 * r2 + n2]])
+            for k1 in range(3):
+                if n2 * k1:
+                    c, ms = _W_COMPOSITE[r][n2 * k1]
+                    tr[k1], ti[k1] = tr[k1] * c - ti[k1] * ms, tr[k1] * ms + ti[k1] * c
+                yr[k1][n2], yi[k1][n2] = tr[k1], ti[k1]
+        out_r, out_i = [None] * r, [None] * r
+        for k1 in range(3):
+            br, bi = _dft_points(yr[k1], yi[k1])
+            for k2 in range(r2):
+                out_r[k1 + 3 * k2], out_i[k1 + 3 * k2] = br[k2], bi[k2]
+        return out_r, out_i
     if r == 11:  # pairs a = v_r + v_{11-r}, b = v_r - v_{11-r}; outputs k and 11 - k are m_k -+ i n_k
         ar = [vr[j] + vr[11 - j] for j in range(1, 6)]
         ai = [vi[j] + vi[11 - j] for j in range(1, 6)]
@@ -819,7 +876,7 @@ def _dft_points(vr: list, vi: list) -> tuple:
     )
 
 
-def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) -> tuple:
+def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int, radices: list = None) -> tuple:
     """The FFT plans' FFT along the last axis in float32, as
     csrc/frontend_kernel.cu's fft_rows runs it: stage by stage
     (`_fft_radices`), butterfly j reads points j + r p / R, multiplies
@@ -828,7 +885,8 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) 
     (`_dft_points`, or `_dft_prime` past 11 with w_R from the table's
     entries k n_fft / R, or `_bluestein` past _FFT_MAX_PRIME) and writes
     output r to (j - j mod ns) R + j mod ns + r ns. `tw` holds the table's
-    n_fft // 2 + 1 twiddles first (`_fft_tables` is such a table)."""
+    n_fft // 2 + 1 twiddles first (`_fft_tables` is such a table);
+    `radices` replaces `_fft_radices` (Bluestein's FFT_m: `_blue_radices`)."""
     p = re.shape[-1]
     half = n_fft // 2
 
@@ -838,24 +896,24 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, n_fft: int) 
         return t[..., 0], torch.where(low, t[..., 1], -t[..., 1])
 
     ns = 1
-    for r in _fft_radices(p):
+    for r in radices or _fft_radices(p):
         q = p // r
         j = torch.arange(q, device=re.device)
         k = j % ns
         vr = list(re.reshape(*re.shape[:-1], r, q).unbind(-2))
         vi = list(im.reshape(*im.shape[:-1], r, q).unbind(-2))
-        for i in range(1, r):
+        for i in range(1, r if ns > 1 else 1):  # (the first stage's twiddles are 1: the kernels skip them)
             wr, wi = table(i * k * (n_fft // (ns * r)))
             vr[i], vi[i] = vr[i] * wr - vi[i] * wi, vr[i] * wi + vi[i] * wr
         if r > _FFT_MAX_PRIME:
             yr, yi = _bluestein(vr, vi)
-        elif r > 11:
+        elif r > 11 and r != 15:  # (15: Bluestein's composite radix, in _dft_points)
             kr = torch.arange(r // 2 + 1, device=re.device)[:, None] * torch.arange(1, r // 2 + 1, device=re.device)
             cos, msin = table(kr % r * (n_fft // r))
             yr, yi = _dft_prime(vr, vi, cos, -msin)
         else:
             yr, yi = _dft_points(vr, vi)
-        dst = torch.stack([(j - k) * r + k + i * ns for i in range(r)])  # (r, q)
+        dst = (j - k) * r + k + ns * torch.arange(r, device=re.device)[:, None]  # (r, q)
         re, im = torch.empty_like(re), torch.empty_like(im)
         re[..., dst] = torch.stack(yr, dim=-2)
         im[..., dst] = torch.stack(yi, dim=-2)

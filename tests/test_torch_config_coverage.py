@@ -68,7 +68,9 @@ CONFIGS = {
 # windows at 16 kHz with contrast, 2096 and 2192; 2192 and 1048 at 256
 # mels; the odd 1965 at 44.1 kHz on 256 mels); contrast bands past 512
 # bins, taken by the block (5296, 6144, 4608 with 8 bands, 8192 at 44.1
-# kHz); since the FFT plans took
+# kHz); the widest Bluestein convolutions, rows over two and four warps
+# (6544, a prime 409: m 825; the prime n_fft 1987: m 3993); since the FFT
+# plans took
 # every n_fft they fit, the GEMM plans' span from device memory (launch A
 # unstaged, the contrast launch's levels 1 and 3) and launch A's GEMM plan
 # over two mel groups, reached by a 25 ms hop with contrast (level 1) and
@@ -105,6 +107,8 @@ EXTRA = {
     "nfft2192_contrast": dict(n_fft=2192, win_length=2192, hop_length=548, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft5296_contrast": dict(n_fft=5296, win_length=5296, hop_length=1324, n_mels=128, f_max=8000.0, **CONTRAST),
     "nfft6144_contrast": dict(n_fft=6144, win_length=6144, hop_length=1536, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft6544_contrast": dict(n_fft=6544, win_length=6544, hop_length=1636, n_mels=128, f_max=8000.0, **CONTRAST),
+    "nfft1987_contrast": dict(n_fft=1987, win_length=1987, hop_length=496, n_mels=128, f_max=8000.0, **CONTRAST),
     "sr44k_nfft8192_contrast": dict(SR44K, n_fft=8192, win_length=8192, hop_length=2048, **CONTRAST),
     "nfft4608_bands8_contrast": dict(n_fft=4608, win_length=4608, hop_length=1152, n_mels=128, f_max=8000.0,
                                      n_contrast_bands=8, **CONTRAST),
@@ -160,15 +164,17 @@ PLANS_ON_CARD = {
     "nfft2704_contrast": (100056, 2, 20608, 1, 71528, 4),
     "nfft832_mels256": (84872, 2, 95360, 1, None, None),
     "sr44k_nfft1365": (95852, 2, 59520, 1, None, None),
-    "nfft2096_contrast": (106632, 2, 24192, 1, 102248, 4),
-    "nfft2192_contrast": (109752, 2, 23680, 1, 104328, 4),
-    "nfft5296_contrast": (203496, 2, 14976, 1, 207416, 4),
+    "nfft2096_contrast": (107720, 2, 24192, 1, 85736, 4),
+    "nfft2192_contrast": (110840, 2, 23680, 1, 87816, 4),
+    "nfft5296_contrast": (112144, 2, 14976, 1, 94464, 4),
     "nfft6144_contrast": (104456, 2, 13952, 1, 102280, 4),
+    "nfft6544_contrast": (111744, 2, 13440, 1, 89520, 4),
+    "nfft1987_contrast": (223296, 2, 25216, 1, 229264, 4),
     "sr44k_nfft8192_contrast": (139272, 2, 19584, 1, 136136, 4),
     "nfft4608_bands8_contrast": (101384, 2, 15488, 1, 77704, 4),
-    "nfft2192_mels256": (109752, 2, 47232, 1, None, None),
-    "nfft1048_mels256": (106632, 2, 80000, 1, None, None),
-    "sr44k_nfft1965_mels256": (110300, 2, 118912, 1, None, None),
+    "nfft2192_mels256": (110840, 2, 47232, 1, None, None),
+    "nfft1048_mels256": (107720, 2, 80000, 1, None, None),
+    "sr44k_nfft1965_mels256": (111388, 2, 118912, 1, None, None),
     "hop400_contrast": (32816, 0, 14720, 1, 92912, 1),
     "nfft2129_mels256_contrast": (32816, 0, 48256, 1, 32880, 3),
     "clip10s_pcen_dd20": (118096, 1, 75488, 4, None, None),

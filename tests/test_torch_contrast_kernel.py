@@ -228,6 +228,8 @@ def test_smem_mirror_and_grid(name):
     (dict(n_fft=2704, win_length=2704, hop_length=676), 4),  # by FFT: two radix-13 stages
     (dict(n_fft=5296, win_length=5296, hop_length=1324), 4),  # by FFT: a 581-bin band by the block
     (dict(n_fft=6144, win_length=6144, hop_length=1536), 4),  # by FFT: a 666-bin band by the block
+    (dict(n_fft=6544, win_length=6544, hop_length=1636), 4),  # by FFT: Bluestein's rows of 825 points, four warps each
+    (dict(n_fft=1987, win_length=1987, hop_length=496), 4),  # by FFT: the prime itself, rows of 3993 points
     (dict(n_fft=4608, win_length=4608, hop_length=1152, n_contrast_bands=8), 4),  # a 563-bin band by the block
     (dict(sample_rate=44100, n_fft=8192, win_length=8192, hop_length=2048, n_mels=128, f_max=22050.0), 4),  # 868 bins
 ])

@@ -96,6 +96,10 @@ COVERAGE = {
                           2, 4),
     "nfft6144_contrast": (dict(n_fft=6144, win_length=6144, hop_length=1536, n_mels=128, f_max=8000.0, **CONTRAST),
                           2, 4),
+    "nfft6544_contrast": (dict(n_fft=6544, win_length=6544, hop_length=1636, n_mels=128, f_max=8000.0, **CONTRAST),
+                          2, 4),
+    "nfft1987_contrast": (dict(n_fft=1987, win_length=1987, hop_length=496, n_mels=128, f_max=8000.0, **CONTRAST),
+                          2, 4),
     "sr44k_nfft8192_contrast": (dict(SR44K, n_fft=8192, win_length=8192, hop_length=2048, **CONTRAST), 2, 4),
     "nfft4608_bands8_contrast": (dict(n_fft=4608, win_length=4608, hop_length=1152, n_mels=128, f_max=8000.0,
                                       n_contrast_bands=8, **CONTRAST), 2, 4),
@@ -116,9 +120,10 @@ JAX_STACK = ("nfft2048", "librosa22k", "nfft2048_contrast", "nfft4096_contrast",
              "nfft3000_contrast", "nfft768_mels256", "nfft1792_contrast", "nfft896_mels256", "sr44k_nfft1764_contrast",
              "nfft880_mels256", "nfft1760_contrast", "nfft832_mels256", "sr44k_nfft1365", "nfft2192_mels256",
              "nfft2192_contrast", "sr44k_nfft1965_mels256", "nfft4608_bands8_contrast")
-# Launch A's FFT layout takes one block an SM on these (its frames and span
-# past half an SM's shared memory).
-ONE_BLOCK_A = ("nfft5296_contrast", "sr44k_nfft8192_contrast")
+# Launch A's FFT layout takes one block an SM on these (its frames and span,
+# or Bluestein's tables and rows of 3993 points, past half an SM's shared
+# memory).
+ONE_BLOCK_A = ("sr44k_nfft8192_contrast", "nfft1987_contrast")
 # The JAX Pallas kernel refuses an odd n_fft whose hop divides the segment
 # (its frames are a sample short): these take the JAX jnp chain.
 JAX_CHAIN = ("sr44k_nfft1365", "sr44k_nfft1965_mels256")
@@ -287,8 +292,8 @@ BLUESTEIN_POINTS = [
 
 @pytest.mark.parametrize("n_fft, points", BLUESTEIN_POINTS)
 def test_bluestein_stage_is_the_fft(n_fft, points):
-    """With a prime factor P past the cap, the stages end in Bluestein's
-    (the twiddled points times the chirp, zero-padded to m, FFT_m, times
+    """With a prime factor P past the cap, the stages begin with Bluestein's
+    (the points times the chirp, zero-padded to m, FFT_m, times
     B^ and conjugated, FFT_m, the conjugate times the chirp), m the
     smallest odd 11-smooth count from 2P - 1, and make the FFT of the
     points against float64 `numpy.fft.fft`; so does the stage alone on P
@@ -300,9 +305,9 @@ def test_bluestein_stage_is_the_fft(n_fft, points):
     m = frontend_kernel._bluestein_points(big)
     assert big > frontend_kernel._FFT_MAX_PRIME and m % 2 == 1 and m >= 2 * big - 1
     assert frontend_kernel._smooth11(m) and not any(frontend_kernel._smooth11(k) for k in range(2 * big - 1, m, 2))
-    assert tables.shape == (n_fft // 2 + 1 + big + m + m // 2 + 1, 2)
+    assert tables.shape == (n_fft // 2 + 1 + big + 2 * m - 1, 2)
     radices = frontend_kernel._fft_radices(points)
-    assert radices[-1] == big and max(radices[:-1], default=1) <= frontend_kernel._FFT_MAX_PRIME
+    assert radices[0] == big and max(radices[1:], default=1) <= frontend_kernel._FFT_MAX_PRIME
     re, im = frontend_kernel._stockham(
         torch.from_numpy(z.real.astype(np.float32)), torch.from_numpy(z.imag.astype(np.float32)),
         torch.from_numpy(tables), n_fft,
@@ -318,7 +323,9 @@ def test_bluestein_stage_is_the_fft(n_fft, points):
 def test_bluestein_tables_layout():
     """Bluestein's tables, after the twiddles: the chirp e^{-pi i s^2 / P}
     (its angle from s^2 mod 2P), B^ = FFT_m(b) / m of the wrapped conjugate
-    chirp, and the m-point twiddles, each float64 rounded once; the
+    chirp, each float64 rounded once, and the FFT_m stages' twiddles
+    (`_blue_radices`; m - 1: for the stage of radix R at ns, w_{ns R}^{r k}
+    at k (R - 1) + r - 1), each the m-point table's entry that `_stockham` reads; the
     convolution they make is the DFT."""
     for p in (131, 137, 509):
         m = frontend_kernel._bluestein_points(p)
@@ -329,7 +336,17 @@ def test_bluestein_tables_layout():
         b = np.zeros(m, complex)
         b[:p], b[m - s[1:]] = np.conj(c), np.conj(c[1:])
         np.testing.assert_allclose(t[p : p + m, 0] + 1j * t[p : p + m, 1], np.fft.fft(b) / m, rtol=0, atol=1e-6)
-        np.testing.assert_array_equal(t[p + m :], frontend_kernel._twiddles(m))
+        half, at, ns = frontend_kernel._twiddles(m), p + m, 1
+        assert t.shape == (p + 2 * m - 1, 2)
+        for r in frontend_kernel._blue_radices(m):
+            for k in range(ns):
+                for j in range(1, r):
+                    idx = j * k * (m // (ns * r))
+                    want = half[idx] if 2 * idx <= m else half[m - idx] * np.array([1, -1], np.float32)
+                    np.testing.assert_array_equal(t[at + k * (r - 1) + j - 1], want)
+                    assert abs(complex(*t[at + k * (r - 1) + j - 1]) - np.exp(-2j * np.pi * idx / m)) < 1e-6
+            at, ns = at + ns * (r - 1), ns * r
+        assert at == t.shape[0] and ns == m
         x = np.random.default_rng(p).standard_normal(p)
         a = np.fft.fft(np.concatenate([x * c, np.zeros(m - p)]))
         y = np.fft.ifft(a * (t[p : p + m, 0] + 1j * t[p : p + m, 1]) * m)[:p] * c
@@ -339,13 +356,14 @@ def test_bluestein_tables_layout():
 def test_fft_radices_refuse_other_primes():
     """The stage lists the kernels have: every prime up to the cap
     (_FFT_MAX_PRIME, the C source's kFftMaxPrime) by fft_stage_prime, one
-    prime past it by Bluestein's stage; none for two primes past the cap
+    prime past it by Bluestein's stage, first; none for two primes past the cap
     or a prime whose Bluestein convolution passes a pass of its scratch
     (4096 points), and the plan rule sends such an n_fft to the GEMM."""
     cap = frontend_kernel._FFT_MAX_PRIME
     past = next(n for n in range(cap + 1, 2 * cap + 2) if frontend_kernel._prime_factors(n) == [n])
     for p in (13, 17, 19, 23, cap, past, 509, 1997):
-        assert frontend_kernel._fft_radices(p) == [p] and frontend_kernel._fft_radices(2 * p) == [2, p]
+        assert frontend_kernel._fft_radices(p) == [p]
+        assert frontend_kernel._fft_radices(2 * p) == ([p, 2] if p > cap else [2, p])
     assert frontend_kernel._bluestein_points(1997) == 3993 and frontend_kernel._bluestein_points(1999) == 4125
     for points in (past * 137, 1999, 2 * 1999, 3 * 5 * 4099):
         with pytest.raises(ValueError):
@@ -625,6 +643,8 @@ std::barrier<>* block_barrier;
 std::barrier<>* warp_barriers[8];
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 inline void __syncwarp() { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
+std::barrier<>* named_barriers[16];
+inline void bar_sync(int id, int) { named_barriers[id]->arrive_and_wait(); }
 inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 using std::min;
@@ -661,8 +681,12 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 """
 # Step 3 of launch A ('a') or C ('c') on one block's rows, as the kernels
 # call fft_rows (the same instances), by kThreadsA threads: reads "kind
-# n_fft hop n_pow", LayoutF's tables and the rows' points; prints LayoutF's
-# Bluestein prime, m, group and end, then the points.
+# n_fft hop n_pow", LayoutF's tables and the rows' points (packed in
+# BlueOrder, as the kernels pack them for Bluestein's stage); stages the
+# tables as stage_tables does (the n_fft twiddles apart where LayoutF reads
+# them through L1), a named barrier for each group of Bluestein's gw
+# warps; prints LayoutF's Bluestein prime, m, gw, end and twl1, then the
+# points.
 HOST_MAIN = r"""
 int main() {
   char kind;
@@ -674,24 +698,32 @@ int main() {
   std::vector<float> smem(lay.end, -1e30f);
   float* base = smem.data();
   float2* buf = reinterpret_cast<float2*>(base);
-  float2* tw = reinterpret_cast<float2*>(base + lay.tw);
-  for (int i = 0; i < lay.tables; ++i)
-    if (scanf("%f %f", &tw[i].x, &tw[i].y) != 2) return 2;
-  for (int i = 0; i < rows * points; ++i)
-    if (scanf("%f %f", &buf[i].x, &buf[i].y) != 2) return 3;
+  std::vector<float2> tables(lay.tables);
+  for (auto& t : tables)
+    if (scanf("%f %f", &t.x, &t.y) != 2) return 2;
+  const int skip = lay.twl1() ? n_fft / 2 + 1 + lay.bp + lay.bm : 0;
+  std::copy(tables.begin() + skip, tables.end(), reinterpret_cast<float2*>(base + lay.tw));
+  const float2* tw = lay.twl1() ? tables.data() : reinterpret_cast<const float2*>(base + lay.tw);
+  const BlueOrder<true> order(points, lay.bp);  // the kernels' packing, where Bluestein's stage runs first
+  for (int i = 0; i < rows * points; ++i) {
+    float2& v = buf[i / points * points + order(i % points)];
+    if (scanf("%f %f", &v.x, &v.y) != 2) return 3;
+  }
   std::barrier<> bar(kThreadsA);
   block_barrier = &bar;
-  std::unique_ptr<std::barrier<>> warps[kWarpsA];
+  std::unique_ptr<std::barrier<>> warps[kWarpsA], groups[kWarpsA];
   for (int w = 0; w < kWarpsA; ++w) {
     warps[w] = std::make_unique<std::barrier<>>(32);
     warp_barriers[w] = warps[w].get();
+    groups[w] = std::make_unique<std::barrier<>>(32 * std::max(lay.gw, 1));
+    named_barriers[1 + w] = groups[w].get();
   }
   const int lp = largest_prime(n_fft);
   std::vector<std::thread> threads;
   for (int t = 0; t < kThreadsA; ++t)
     threads.emplace_back([&, t] {
       threadIdx.x = t;
-      const Bluestein bl(lay, base, tw, n_fft);
+      const Bluestein bl(lay, base, tables.data(), n_fft);
       if (kind == 'a') {
         if (lay.bp)
           fft_rows<11, 1, kBluesteinA>(buf, rows, points, n_fft, tw, &bl);
@@ -708,7 +740,7 @@ int main() {
       }
     });
   for (auto& th : threads) th.join();
-  printf("%d %d %d %d\n", lay.bp, lay.bm, lay.group, lay.end);
+  printf("%d %d %d %d %d\n", lay.bp, lay.bm, lay.gw, lay.end, (int)lay.twl1());
   for (int i = 0; i < rows * points; ++i) printf("%.9g %.9g\n", buf[i].x, buf[i].y);
 }
 """
@@ -744,9 +776,10 @@ def host_stages(tmp_path_factory):
 
 @pytest.mark.parametrize("kind, n_fft, hop", [
     ("a", 2048, 512), ("a", 2000, 500), ("a", 1764, 441), ("a", 1323, 441), ("a", 832, 208), ("a", 1365, 441),
-    ("a", 2192, 548), ("a", 1048, 262), ("a", 1965, 441), ("a", 4112, 1028),
+    ("a", 2192, 548), ("a", 1048, 262), ("a", 1965, 441), ("a", 4112, 1028), ("a", 5296, 1324), ("a", 6544, 1636),
+    ("a", 5872, 1468), ("a", 3376, 844), ("a", 1987, 496),
     ("c", 2048, 512), ("c", 1792, 448), ("c", 2662, 665), ("c", 1664, 416), ("c", 2192, 548), ("c", 2096, 524),
-    ("c", 1965, 441), ("c", 6544, 1636), ("c", 5296, 1324),
+    ("c", 1965, 441), ("c", 6544, 1636), ("c", 5296, 1324), ("c", 5872, 1468), ("c", 1987, 496),
 ])
 def test_kernel_fft_stages_built_for_the_host(host_stages, kind, n_fft, hop):
     """The kernels' own FFT step (fft_rows as launch A's instance and
@@ -767,9 +800,9 @@ def test_kernel_fft_stages_built_for_the_host(host_stages, kind, n_fft, hop):
     text = "\n".join([f"{kind} {n_fft} {hop} {n_pow}", *(f"{a:.9g} {b:.9g}" for a, b in tables),
                       *(f"{v.real:.9g} {v.imag:.9g}" for v in z.reshape(-1))])
     out = subprocess.run([str(host_stages)], input=text, capture_output=True, text=True, check=True).stdout.split("\n")
-    bp, m, group, end = map(int, out[0].split())
+    bp, m, gw, end, _ = map(int, out[0].split())
     assert bp == frontend_kernel._bluestein_prime(n_fft) and 4 * end == nbytes
-    assert m == (frontend_kernel._bluestein_points(bp) if bp else 0) and (group > 0) == (bp > 0)
+    assert m == (frontend_kernel._bluestein_points(bp) if bp else 0) and (gw > 0) == (bp > 0)
     got = np.array([line.split() for line in out[1 : 1 + rows * points]], dtype=np.float64)
     got = (got[:, 0] + 1j * got[:, 1]).reshape(rows, points)
     assert _rel(got, np.fft.fft(z.astype(np.complex128), axis=-1)) < 1e-6
@@ -777,6 +810,139 @@ def test_kernel_fft_stages_built_for_the_host(host_stages, kind, n_fft, hop):
                                        torch.from_numpy(tables), n_fft)
     assert _rel(got, re.numpy() + 1j * im.numpy()) < 1e-7
 
+
+# Bluestein's FFT of m points alone (blue_stage in its row mode, the
+# stages fft_stage_bluestein runs for one transform), by kThreadsA threads
+# in groups of gw warps, each group through its own two rows of the
+# scratch, meeting at its warp's barrier or its named one: reads "P gw"
+# lines, then for each the stages' twiddles and the groups' rows (float32
+# pairs) from the binary file argv[1]; writes the rows after the transform
+# to argv[2]; prints m, the stages of both transforms and the last radix a
+# line.
+ROW_MAIN = r"""
+int main(int argc, char** argv) {
+  FILE* in = fopen(argv[1], "rb");
+  FILE* out = fopen(argv[2], "wb");
+  int P, gw;
+  while (scanf("%d %d", &P, &gw) == 2) {
+    LayoutF lay(P, P);  // launch A on the prime n_fft P: Bluestein's m
+    const int m = lay.bm, groups = kWarpsA / gw;
+    lay.gw = gw;
+    lay.span = 0;
+    lay.blue = lay.tw = 4 * groups * m;  // the stages' twiddles past the rows (twl1: the chirp and B^ unread)
+    std::vector<float> smem(lay.blue + 2 * (m - 1), -1e30f);
+    float* base = smem.data();
+    float2* rows_at = reinterpret_cast<float2*>(base);
+    if (fread(base + lay.blue, 8, m - 1, in) != (size_t)(m - 1)) return 2;
+    for (int g = 0; g < groups; ++g)
+      if (fread(rows_at + 2 * g * m, 8, m, in) != (size_t)m) return 3;
+    std::vector<float2*> result(groups);
+    std::barrier<> bar(kThreadsA);
+    block_barrier = &bar;
+    std::unique_ptr<std::barrier<>> warps[kWarpsA], rows[kWarpsA];
+    for (int w = 0; w < kWarpsA; ++w) {
+      warps[w] = std::make_unique<std::barrier<>>(32);
+      warp_barriers[w] = warps[w].get();
+      rows[w] = std::make_unique<std::barrier<>>(32 * gw);
+      named_barriers[1 + w] = rows[w].get();
+    }
+    std::vector<std::thread> threads;
+    for (int t = 0; t < kThreadsA; ++t)
+      threads.emplace_back([&, t] {
+        threadIdx.x = t;
+        const Bluestein bl(lay, base, rows_at, P);
+        const int group = (t >> 5) / gw, lane = t - 32 * gw * group;
+        float2 *a = bl.scratch + 2 * group * m, *b = a + m;
+        const float2* tw = bl.tw;
+        const BlueStages stages(m);
+        for (int s = 0, ns = 1; s < stages.count / 2; ++s) {
+          const int r = blue_radix(m, ns);
+          blue_stage_at(a, b, ns, kRow, bl, tw, nullptr, lane, 1 + group);
+          std::swap(a, b);
+          tw += ns * (r - 1);
+          ns *= r;
+        }
+        if (lane == 0) result[group] = a;
+        if (t == 0) printf("%d %d %d\n", bl.m, stages.count, stages.last);
+      });
+    for (auto& th : threads) th.join();
+    for (int g = 0; g < groups; ++g) fwrite(result[g], 8, m, out);
+  }
+  fclose(out);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_rows(tmp_path_factory):
+    """The kernel source's Bluestein row stages (blue_stage and the radix
+    DFTs, LayoutF, the Bluestein operands) built for the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    src = (kernel_build._CSRC / "frontend_kernel.cu").read_text()
+
+    def between(a, b):
+        i = src.index(a)
+        return src[i : src.index(b, i)]
+
+    code = "\n".join([
+        HOST_PRELUDE,
+        between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
+        between("struct LayoutA {", "// x rounded to TF32"),
+        between("struct LayoutC {", "__device__ __forceinline__ float warp_sum"),
+        between("// The largest prime factor of n (n >= 1", "// One frame's contrast in one band"),
+        ROW_MAIN,
+    ])
+    d = tmp_path_factory.mktemp("host_rows")
+    (d / "rows.cpp").write_text(code)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", "-w", "-o", str(d / "rows"), str(d / "rows.cpp")],
+                   check=True)
+    return d / "rows"
+
+
+def test_bluestein_row_fft_built_for_the_host(host_rows, tmp_path):
+    """Bluestein's FFT of m points, as each group of warps runs it through
+    its own two rows (the kernel's blue_stage, built for the host and run
+    by 256 threads), for every m that _bluestein_points gives for the
+    primes from 127 to 1997 (275 to 3993), in groups of 1, 2, 4 and 8
+    warps (the wide m's rows take the larger groups in LayoutF): each
+    group's row is the FFT of its input against float64 `numpy.fft.fft`
+    (1e-6, a float32 FFT's rounding), and equals the CPU model (`_stockham`
+    with the m-point table, whose entries the stages' twiddles hold) but
+    for the device's fused multiply-adds (1e-7); the stages are both
+    transforms' (radix 15, else 9, else m's least prime factor:
+    `_blue_radices`) and the last radix that list's last."""
+    fk = frontend_kernel
+    sizes = {}
+    for p in range(127, 1998):
+        if fk._prime_factors(p) == [p]:
+            sizes.setdefault(fk._bluestein_points(p), p)
+    cases, rows_in = [], []
+    rng = np.random.default_rng(1997)
+    for m, p in sorted(sizes.items()):
+        for gw in (1, 2, 4, 8):
+            z = (rng.standard_normal((8 // gw, m)) + 1j * rng.standard_normal((8 // gw, m))).astype(np.complex64)
+            cases.append((m, p, gw, z))
+            rows_in += [fk._bluestein_tables(p)[p + m :].reshape(-1), z.view(np.float32).reshape(-1)]
+    assert all(fk._bluestein_tables(p).shape == (p + 2 * m - 1, 2) for m, p in sizes.items())
+    assert [m for m, _ in sorted(sizes.items())][:: len(sizes) - 1] == [275, 3993] and len(cases) == 4 * len(sizes)
+    np.concatenate(rows_in).astype(np.float32).tofile(tmp_path / "in.bin")
+    out = subprocess.run([str(host_rows), str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+                         input="\n".join(f"{p} {gw}" for _, p, gw, _ in cases), capture_output=True, text=True,
+                         check=True).stdout.split("\n")
+    got_all = np.fromfile(tmp_path / "out.bin", dtype=np.complex64)
+    at = 0
+    for (m, p, gw, z), line in zip(cases, out):
+        radices = fk._blue_radices(m)
+        assert tuple(map(int, line.split())) == (m, 2 * len(radices), radices[-1]), (m, gw, line)
+        got = got_all[at : at + z.size].reshape(z.shape).astype(np.complex128)
+        at += z.size
+        assert _rel(got, np.fft.fft(z.astype(np.complex128), axis=-1)) < 1e-6, (m, gw)
+        re, im = fk._stockham(torch.from_numpy(z.real.copy()), torch.from_numpy(z.imag.copy()),
+                              torch.from_numpy(fk._twiddles(m)), m, radices)
+        assert _rel(got, re.numpy() + 1j * im.numpy()) < 1e-7, (m, gw)
+    assert at == got_all.size
 
 # Launch C's FFT plan's band stage on one block's power rows, by
 # kThreadsA threads: reads "frames n_pow n_bands", the bands (first bin,

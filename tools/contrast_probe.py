@@ -1,6 +1,6 @@
 """Where the contrast launch's time goes, on one NVIDIA card.
 
-    python3 tools/contrast_probe.py [--baseline PATH ...] [--routes | --primes | --wide]
+    python3 tools/contrast_probe.py [--baseline PATH ...] [--routes | --primes | --wide | --bluestein]
 
 Times launch C of the front-end kernel (csrc/frontend_kernel.cu:
 contrast_kernel, the launcher's spectral-contrast rows) with CUDA events
@@ -50,8 +50,8 @@ the FFT plan on n_fft 2048, 2000, 1792, 2662 and 44.1 kHz at the odd 1323
 in turns with the baselines; where the generic prime stage gives way to
 Bluestein's (kFftMaxPrime): at B = 1024 on the 16 kHz window of p ms for
 p in PRIMES (n_fft 16 p, hop n_fft / 4, contrast), the GEMM plan, the FFT
-plan, the other prime stage and Bluestein's stage called (kBluesteinC;
-spectral_probe.py's cap_variants) and the fft rows in turns, the largest
+plan, the other prime stage and Bluestein's stage called (a __noinline__
+wrapper; spectral_probe.py's cap_variants) and the fft rows in turns, the largest
 p at which the generic stage's plan beats the GEMM and the fft rows, the
 p at which Bluestein's beats the generic one, and the primes at which
 the plan as built loses to either from kFftMinNfft on (under it the GEMM
@@ -71,6 +71,13 @@ hop 2048), and on launch C's older FFT plans (WIDE_KEEP: 2048, 4096, 2192,
 2704, 1664), at B = 1024 in turns (the baselines, as built, the variants,
 as built, the baselines), then the fft rows, beside the bound (an FFT of
 each window at the FP32 peak, the tails as selections: chip_smoke.py's).
+`--bluestein` builds the source as built,
+spectral_probe.py's Bluestein variants (Bluestein's stage left out; its
+gather and scatter only; the radix stages left out) and the baselines,
+prints their cuobjdump lines, and splits launch C's Bluestein plans
+(BLUESTEIN: n_fft 2096, 2192, 4112, 5296, 5872 and 6544 with 6 bands, hop
+n_fft / 4) and its plans with no Bluestein prime (2048, 4096, 2704 and
+1664) at B = 1024 the same way, beside the fft rows and the bound.
 Prints the card's name and power limit first, and each build's
 max-relative deviation from the plain version (the variants' rows are
 wrong by design). Needs a CUDA card and nvcc; imports no JAX.
@@ -110,9 +117,7 @@ WIDE_TAILS = ("    if constexpr (kWide)\n      wide_bands(pw, n_pow, bands, n_ba
               "reinterpret_cast<unsigned*>(buf));\n")
 WIDE_RADIX7 = "lp <= 7 ? (const void*)contrast_fft_kernel<7, false, 0, true>"
 WIDE_CALL = "__device__ __noinline__ void wide_bands("
-ONE_BLOCK = "if (contrast && rows == 1 && two) {"
 BOUNDS_C = "__launch_bounds__(kThreadsA, 2) contrast_fft_kernel("
-WARP_LOOP = "  for (int j = lane; j < q; j += 32) {"
 WIDE_BAND = "constexpr int kWideBand = 512;"
 WIDE_FROM = (256, 128)  # kWideBand's variants: the width past which block_tails takes a band
 PRIMES = (13, 17, 23, 31, 43, 61, 89, 101, 113, 127, 131, 137, 149, 173, 211, 257, 331, 409)  # the cap's probe: a window of p ms at 16 kHz, n_fft 16 p
@@ -184,11 +189,20 @@ WIDE = {
     "44.1 kHz, n_fft 8192": FeatureConfig(sample_rate=44100, n_fft=8192, win_length=8192, hop_length=2048,
                                           n_mels=128, f_max=22050.0, use_spectral_contrast=True),
 }
-WIDE_KEEP = (2048, 4096, 2192, 2704, 1664)  # launch C's older FFT plans, timed against the baselines
-from spectral_probe import PEAK_FP32_FLOPS, PEAK_HBM_BYTES  # noqa: E402
+WIDE_KEEP = (2048, 4096, 2192, 2704, 1664)
+# Launch C's Bluestein plans (--bluestein): a prime past the cap (131, 137,
+# 257, 331, 367 and 409 ms at 16 kHz).
+BLUESTEIN = {f"n_fft {n}": _wide(n) for n in (2096, 2192, 4112, 5296, 5872, 6544)}
+# and launch C's plans with no Bluestein prime, timed beside them.
+BLUESTEIN_KEEP = {f"n_fft {n} (no Bluestein prime)": _wide(n) for n in (2048, 4096, 2704, 1664)}  # launch C's older FFT plans, timed against the baselines
+from spectral_probe import BLUESTEIN_LAYOUTS, HALF_TWIDDLES, PEAK_FP32_FLOPS, PEAK_HBM_BYTES, legacy_tables  # noqa: E402
 
 
 ROUTES_BY_NFFT = {1664: ROUTES["n_fft 1664 (2^7 13)"], 2704: ROUTES["n_fft 2704 (2^4 13^2)"]}
+
+
+# Launch C's FFT stages, the call the variants without them leave out.
+FFT_ROWS_C = "    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, n_fft, twr, &bl);\n"
 
 
 def edit(src: str, old: str, new: str) -> str:
@@ -206,8 +220,7 @@ def variants(src: str) -> dict:
         "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
         "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
         "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
-        "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, n_fft, "
-                                             "tw, &bl);\n", ""),
+        "FFT plan, no FFT stages": edit(src, FFT_ROWS_C, ""),
         "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
         "FFT plan, DivBy for a power of two": edit(
             edit(src, "fft_stage<2, true>(", "fft_stage<2, false>("), "fft_stage<4, true>(", "fft_stage<4, false>("
@@ -226,11 +239,11 @@ def prime_variants(src: str) -> dict:
     """Launch C's instance for a prime factor past 11 with fft_stage_prime
     inlined, not called; for the cap's probe, spectral_probe's cap_variants
     (the generic stage for every prime, Bluestein's past LOW_CAP, and
-    Bluestein's stage called, kBluesteinC)."""
+    Bluestein's stage called)."""
     from spectral_probe import cap_variants
 
     return {"FFT plan, the prime stage inlined": edit(src, PRIME_STAGE, "constexpr int kPrimeC = 1;"),
-            **cap_variants(src, "constexpr int kBluesteinC = 1;")}
+            **cap_variants(src)}
 
 
 def wide_variants(src: str) -> dict:
@@ -240,26 +253,18 @@ def wide_variants(src: str) -> dict:
     band past each of WIDE_FROM bins (kWideBand), where band_sorted gives
     way; with the wide bands' n_fft of radix 7 in the general wide instance
     (of radix 11, the prime and Bluestein's stages); with wide_bands
-    inlined; with LayoutF's Bluestein rows on two blocks an SM at one
-    frame a group, as before they took one where two ran fewer warps; and
-    with the wide instances' launch bounds at one block an SM (255
-    registers a thread, where two blocks cap them at 128); and with
-    Bluestein's warp stages' loop unrolled 2 and 4 (every instance with
-    Bluestein's stage)."""
+    inlined; and with the wide instances' launch bounds at one block an SM
+    (255 registers a thread, where two blocks cap them at 128)."""
     return {"FFT plan, no band tails": edit(edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
                                             WIDE_TAILS, ""),
-            "FFT plan, no FFT stages": edit(src, "    fft_rows<kRadix, kPrime ? kPrimeC : 0, kBluestein>(buf, F, n_fft, "
-                                                 "n_fft, tw, &bl);\n", ""),
+            "FFT plan, no FFT stages": edit(src, FFT_ROWS_C, ""),
             **{f"FFT plan, block_tails past {n} bins": edit(src, WIDE_BAND, f"constexpr int kWideBand = {n};")
                for n in WIDE_FROM},
             "FFT plan, wide bands in one instance": edit(
                 src, WIDE_RADIX7, WIDE_RADIX7.replace("<7, false, 0, true>", "<11, true, kBluesteinC, true>")),
             "FFT plan, wide_bands inlined": edit(src, WIDE_CALL, "__device__ __forceinline__ void wide_bands("),
-            "FFT plan, two blocks an SM at one frame a group": edit(src, ONE_BLOCK, "if (false) {"),
             "FFT plan, the wide instances bounded for one block an SM": edit(
-                src, BOUNDS_C, "__launch_bounds__(kThreadsA, kWide ? 1 : 2) contrast_fft_kernel("),
-            **{f"FFT plan, Bluestein's warp stages unrolled {n}": edit(
-                src, WARP_LOOP, f"#pragma unroll {n}\n" + WARP_LOOP) for n in (2, 4)}}
+                src, BOUNDS_C, "__launch_bounds__(kThreadsA, kWide ? 1 : 2) contrast_fft_kernel(")}
 
 
 def contrast_bound(cfg: FeatureConfig, b: int) -> tuple:
@@ -303,19 +308,24 @@ def build_all(sources: dict) -> dict:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
-        handle = ctypes.CDLL(str(lib))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        handle.cdt_frontend_contrast.argtypes = [
-            p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
-        ]
-        # A source before the wide bands' instances takes no widest band.
-        handle.widest = "int n_bands, int widest," in text
-        handle.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i,
-                                                     *([i] if handle.widest else []), p, p]
-        return name, handle
+        return name, typed(ctypes.CDLL(str(lib)), text)
 
     with ThreadPoolExecutor(len(sources)) as pool:
         return dict(pool.map(one, enumerate(sources.items())))
+
+
+def typed(handle: ctypes.CDLL, text: str) -> ctypes.CDLL:
+    """The contrast launch's C entry points of a build of `text`, typed."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    handle.cdt_frontend_contrast.argtypes = [
+        p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
+    ]
+    # A source before the wide bands' instances takes no widest band.
+    handle.widest = "int n_bands, int widest," in text
+    handle.half_twiddles = HALF_TWIDDLES in text
+    handle.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i,
+                                                 *([i] if handle.widest else []), p, p]
+    return handle
 
 
 def main() -> None:
@@ -327,6 +337,7 @@ def main() -> None:
     parser.add_argument("--routes", action="store_true", help="the routes section alone (ROUTES)")
     parser.add_argument("--primes", action="store_true", help="the prime stage's sections alone (see above)")
     parser.add_argument("--wide", action="store_true", help="the wide-band section alone (see above)")
+    parser.add_argument("--bluestein", action="store_true", help="the Bluestein split alone (see above)")
     parser.add_argument("--bounds", action="store_true",
                         help="print the bounds of launches A and C on PRIMES' and WIDE's windows (no card)")
     args = parser.parse_args()
@@ -354,15 +365,18 @@ def main() -> None:
             resource_usage(f"contrast_probe_{n}", name)
         primes_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"))
         return
-    if args.wide:
+    if args.wide or args.bluestein:
+        from spectral_probe import bluestein_variants
+
         baselines = {f"baseline {path}": path.read_text() for path in args.baseline}
-        sources = {"as built": src, **wide_variants(src), **baselines}
+        sources = {"as built": src, **(bluestein_variants(src) if args.bluestein else wide_variants(src)), **baselines}
         libs = build_all(sources)
         from spectral_probe import resource_usage
 
         for n, name in enumerate(sources):
             resource_usage(f"contrast_probe_{n}", name)
-        wide_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"))
+        wide_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"),
+                     {**BLUESTEIN, **BLUESTEIN_KEEP} if args.bluestein else None)
         return
     sources = variants(src)
     baselines = [f"baseline {path}" for path in args.baseline]
@@ -416,9 +430,12 @@ def main() -> None:
 
 def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor, tables=None):
     """The contrast launch's FFT plan through the C function of `lib`,
-    reading `tables` (numpy) in place of the plan's own where given."""
+    reading `tables` (numpy) in place of the plan's own where given (a
+    source with HALF_TWIDDLES: legacy_tables)."""
     g = frontend_kernel._geometry(cfg)
     windows, tw = frontend_kernel._contrast_fft_constants(cfg, w.device)
+    if tables is None and getattr(lib, "half_twiddles", False):
+        tables = legacy_tables(cfg.n_fft)
     if tables is not None:
         tw = torch.from_numpy(tables).to(w.device)
     freqs, bands = frontend_kernel._centroid_and_bands(cfg, w.device)
@@ -575,11 +592,12 @@ def fft_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torc
             )
 
 
-def wide_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
-    """The FFT plan on WIDE and WIDE_KEEP as built, its variants and the
-    baselines in turns, then the fft rows, beside the bound, at B = 1024.
-    Each build's rows but the variants' are held to the plain version
-    (1e-3): those that move kWideBand too."""
+def wide_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device,
+                 configs: dict | None = None) -> None:
+    """The FFT plan on `configs` (by default WIDE and WIDE_KEEP) as built,
+    its variants and the baselines in turns, then the fft rows, beside the
+    bound, at B = 1024. Each build's rows but the variants' are held to the
+    plain version (1e-3): those that move kWideBand too."""
     variants = [v for v in libs if v != "as built" and v not in baselines]
 
     def one(label: str, cfg: FeatureConfig, names: list) -> dict:
@@ -600,7 +618,7 @@ def wide_section(libs: dict, baselines: list, rng: np.random.Generator, dev: tor
                 raise
             t = cuda_ms(launch, 10)
             err = ((out - want).abs().max() / want.abs().max()).item()
-            if err > 1e-3 and ("block_tails" in name or name not in variants):
+            if err > 1e-3 and ("block_tails" in name or name in BLUESTEIN_LAYOUTS or name not in variants):
                 raise SystemExit(f"the contrast launch's {name} disagrees with plain on {label}: {err:.2e}")
             times.setdefault(name, []).append(t)
             print(f"contrast launch B=1024, {label} + contrast ({cfg.n_contrast_bands} bands, widest "
@@ -609,8 +627,11 @@ def wide_section(libs: dict, baselines: list, rng: np.random.Generator, dev: tor
                   flush=True)
         return times
 
-    keep = {f"n_fft {n} (an older plan)": FFT_CONFIGS[n] if n in FFT_CONFIGS else ROUTES_BY_NFFT[n] for n in WIDE_KEEP}
-    for label, cfg in {**WIDE, **keep}.items():
+    if configs is None:
+        keep = {f"n_fft {n} (an older plan)": FFT_CONFIGS[n] if n in FFT_CONFIGS else ROUTES_BY_NFFT[n]
+                for n in WIDE_KEEP}
+        configs = {**WIDE, **keep}
+    for label, cfg in configs.items():
         assert frontend_kernel.contrast_level(cfg) == frontend_kernel.CONTRAST_FFT, label
         times = one(label, cfg, baselines + ["as built"] + variants + ["as built"] + baselines)
         w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)

@@ -1,6 +1,6 @@
 """Where the spectral launch's time goes, on one NVIDIA card.
 
-    python3 tools/spectral_probe.py [--baseline PATH ...] [--routes | --primes]
+    python3 tools/spectral_probe.py [--baseline PATH ...] [--routes | --primes | --bluestein | --turns]
 
 Times launch A of the front-end kernel (csrc/frontend_kernel.cu) with CUDA
 events at B = 4096 on the shipped config, as built and in variants, each a
@@ -60,14 +60,31 @@ baselines; where the generic prime stage gives way to Bluestein's
 (n_fft 16 p, hop n_fft / 4, 128 mels, 13 to 409), the GEMM plan, the FFT
 plan, the other prime stage (past the cap the generic one, from LOW_CAP
 to it Bluestein's: variants of kFftMaxPrime, each with its tables),
-Bluestein's stage called (kBluesteinA) past the cap, and `torch.stft` +
+Bluestein's stage called (a __noinline__ wrapper) past the cap, and `torch.stft` +
 mel, in turns; the largest p at which the generic stage's plan beats the
 GEMM and the library, the p at which Bluestein's beats the generic one,
 and the primes at which the plan as built loses to either from
 kFftMinNfft on (under it the GEMM keeps 128 mels whatever the cap); both
 plans near kFftMinNfft on n_fft
 with a factor of 13 (650, 676 and the odd 715) at B = 1024 and 4096; and
-the routes section. All builds run at once. Prints the card's name and power limit first.
+the routes section. `--bluestein` builds the source as built, its
+Bluestein variants (bluestein_variants: Bluestein's stage left out, its
+warp FFTs left out so that only its gather and scatter run, the radix
+stages before it left out) and the baselines, prints their cuobjdump
+lines, and splits launch A's Bluestein plans (BLUESTEIN_CONFIGS: n_fft
+2192 to 6544 at 128 mels, 2192 and 1048 at 256 mels, the odd 1965 at 44.1
+kHz) at B = 1024 in turns (the baselines, as built, the variants, as
+built, the baselines), then `torch.stft` + mel and the bound beside them.
+`--turns` builds the source as built and the baselines and prints, for
+every kernel of the library, whether its SASS (cuobjdump -sass, addresses,
+constants and the build's names masked) equals each baseline's and the
+instruction counts; then at B = 1024, in turns with the baselines (the
+baselines, as built, as built, the baselines, twice), launch A on the plans
+with no Bluestein prime (BLUESTEIN_KEEP and the shipped config's GEMM
+plan) and on TURNS_A, and launch C on contrast_probe.py's BLUESTEIN_KEEP
+and on TURNS_C, each beside its library call (`torch.stft` + mel; the fft
+rows) and its bound, each build's output held to the plain version.
+All builds run at once. Prints the card's name and power limit first.
 Needs a CUDA card and nvcc; imports no JAX.
 """
 
@@ -75,8 +92,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import difflib
+import re
 import subprocess
 import sys
+import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -194,6 +215,23 @@ def wgmma_macro() -> str:
     )
 
 
+# A source whose Bluestein tables end in the m-point half table (before
+# the FFT_m stages' own twiddles): it reads the tables of legacy_tables.
+HALF_TWIDDLES = "bp + bm + bm / 2 + 1"
+
+
+def legacy_tables(n_fft: int) -> np.ndarray:
+    """The FFT plans' tables as a source with HALF_TWIDDLES reads them: the
+    n_fft twiddles, the chirp, B^ and the m-point twiddles for k in [0, m /
+    2]."""
+    p = frontend_kernel._bluestein_prime(n_fft)
+    if not p:
+        return frontend_kernel._fft_tables(n_fft)
+    m = frontend_kernel._bluestein_points(p)
+    return np.concatenate([frontend_kernel._twiddles(n_fft), frontend_kernel._bluestein_tables(p)[: p + m],
+                           frontend_kernel._twiddles(m)])
+
+
 def build(name: str, source: str) -> ctypes.CDLL:
     path = kernel_build.BUILD_DIR / f"{name}.cu"
     kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -203,7 +241,9 @@ def build(name: str, source: str) -> ctypes.CDLL:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(lib))
+    handle = ctypes.CDLL(str(lib))
+    handle.half_twiddles = HALF_TWIDDLES in source
+    return handle
 
 
 PEAK_FP32_FLOPS = 67e12  # chip_smoke.py's peaks: FP32 on the CUDA cores, HBM
@@ -273,6 +313,9 @@ def main() -> None:
     )
     parser.add_argument("--routes", action="store_true", help="the routes section alone (ROUTES)")
     parser.add_argument("--primes", action="store_true", help="the prime stage's sections alone (see above)")
+    parser.add_argument("--bluestein", action="store_true", help="the Bluestein split alone (see above)")
+    parser.add_argument("--turns", action="store_true",
+                        help="the SASS of every kernel beside the baselines', then plans in turns (see above)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -285,17 +328,29 @@ def main() -> None:
     if args.routes:
         routes_section(build("spectral_probe_routes", src), np.random.default_rng(0), torch.device("cuda"))
         return
+    if args.turns:
+        baselines = {f"baseline {path}": path.read_text() for path in args.baseline}
+        sources = {"FFT plan as built": src, **baselines}
+        libs = build_parallel(sources)
+        for n, name in enumerate(sources):
+            resource_usage(f"spectral_probe_{n}", name)
+        sass_section({name: f"spectral_probe_{n}" for n, name in enumerate(sources)}, list(baselines))
+        turns_section(libs, sources, list(baselines), np.random.default_rng(0), torch.device("cuda"))
+        return
+    if args.bluestein:
+        baselines = {f"baseline {path}": path.read_text() for path in args.baseline}
+        sources = {"FFT plan as built": src, **bluestein_variants(src), **baselines}
+        libs = build_parallel(sources)
+        for n, name in enumerate(sources):
+            resource_usage(f"spectral_probe_{n}", name)
+        bluestein_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"))
+        return
     if args.primes:
         sources = {"FFT plan as built": src, PRIME_CALLED: edit(src, FFT_ROWS_A, FFT_ROWS_A.replace("<11, 1,", "<11, 2,")),
-                   **cap_variants(src, "constexpr int kBluesteinA = 1;")}
+                   **cap_variants(src)}
         sources.update({f"baseline {path}": path.read_text() for path in args.baseline})
-        with ThreadPoolExecutor(len(sources)) as pool:
-            built = {name: pool.submit(build, f"spectral_probe_{n}", text) for n, (name, text) in enumerate(sources.items())}
-            libs = {name: f.result() for name, f in built.items()}
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for n, (name, lib) in enumerate(libs.items()):
-            lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p]
-            lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
+        libs = build_parallel(sources)
+        for n, name in enumerate(libs):
             resource_usage(f"spectral_probe_{n}", name)
         primes_section(libs, [name for name in libs if name.startswith("baseline")], np.random.default_rng(0),
                        torch.device("cuda"))
@@ -431,8 +486,11 @@ def cuda_ms(fn, iters: int) -> float:
 
 def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, mel: torch.Tensor, tables=None):
     """Launch A's FFT plan through the C function of `lib`, reading
-    `tables` (numpy) in place of the plan's own where given."""
+    `tables` (numpy) in place of the plan's own where given (a source with
+    HALF_TWIDDLES: legacy_tables)."""
     k = frontend_kernel._fft_constants(cfg, w.device)
+    if tables is None and getattr(lib, "half_twiddles", False):
+        tables = legacy_tables(cfg.n_fft)
     if tables is not None:
         k = k._replace(twiddles=torch.from_numpy(tables).to(w.device))
 
@@ -526,21 +584,30 @@ PRIME_CALLED = "FFT plan, the prime stage called"
 # The cap's probe's variants: fft_stage_prime for every prime (kFftMaxPrime
 # past any row's), Bluestein's stage from the least cap a row allows
 # (LOW_CAP: kFftMaxPrime^2 must pass kFftPoints), and Bluestein's stage
-# called, not inlined (kBluesteinA).
+# called, not inlined (a __noinline__ wrapper the variant adds, BLUESTEIN_CALL
+# taking it in both launches' instances).
 CAP = "constexpr int kFftMaxPrime = "
 LOW_CAP = 97
 GENERIC = "FFT plan, the generic prime stage past the cap"
 LOW = f"FFT plan, Bluestein's stage past {LOW_CAP}"
 BLUESTEIN_CALLED = "FFT plan, Bluestein's stage called"
+BLUESTEIN_DECL = "__device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int p, const Bluestein& bl);\n"
+BLUESTEIN_CALL = "      fft_stage_bluestein(buf, total, p, *bl);\n"
+BLUESTEIN_AFTER = "// One frame's contrast in one band of w <= 32 kK bins at pb, by a warp:"
+CALLED_SIGNATURE = "__device__ __noinline__ void fft_stage_bluestein_call(float2* buf, int total, int p, const Bluestein& bl)"
 
 
-def cap_variants(src: str, called: str) -> dict:
+def cap_variants(src: str) -> dict:
     """The source with the generic prime stage for every prime, with
-    Bluestein's stage past LOW_CAP, and with it called (the text `called`
-    edits)."""
+    Bluestein's stage past LOW_CAP, and with it called through a
+    __noinline__ wrapper."""
     line = src[src.index(CAP) : src.index(";", src.index(CAP)) + 1]
+    called = edit(src, BLUESTEIN_DECL, BLUESTEIN_DECL + CALLED_SIGNATURE + ";\n")
+    called = edit(called, BLUESTEIN_CALL, BLUESTEIN_CALL.replace("bluestein(", "bluestein_call("))
+    called = edit(called, BLUESTEIN_AFTER, CALLED_SIGNATURE + " {\n  fft_stage_bluestein(buf, total, p, bl);\n}\n\n"
+                  + BLUESTEIN_AFTER)
     return {GENERIC: edit(src, line, CAP + "8191;"), LOW: edit(src, line, f"{CAP}{LOW_CAP};"),
-            BLUESTEIN_CALLED: edit(src, called, called.replace("= 1;", "= 2;"))}
+            BLUESTEIN_CALLED: called}
 
 
 def variant_tables(n_fft: int, name: str) -> np.ndarray:
@@ -578,6 +645,255 @@ PRIME_KEEP = {
     "44.1 kHz, n_fft 1323": FFT_CONFIGS["44.1 kHz, n_fft 1323"],
     **{label: ROUTES[label] for label in ("n_fft 832 (2^6 13), 256 mels", "44.1 kHz, n_fft 1365 (3 5 7 13, odd)")},
 }
+
+
+# Launch A's Bluestein plans, split (--bluestein): 16 kHz windows of a prime
+# p ms past the cap at hop n_fft / 4 and 128 mels (n_fft 16 p), 137 and 131
+# ms on 256 mels, and 44.1 kHz at the odd 1965 (3 5 131) on 256 mels.
+BLUESTEIN_CONFIGS = {
+    **{f"n_fft {n}": n_fft_config(n) for n in (2192, 2384, 2768, 3376, 4112, 5296, 5872, 6544)},
+    "n_fft 2192, 256 mels": ROUTES["n_fft 2192 (2^4 137), 256 mels"],
+    "n_fft 1048, 256 mels": FeatureConfig(n_fft=1048, win_length=1048, hop_length=262, n_mels=256, f_max=8000.0),
+    "44.1 kHz, n_fft 1965, 256 mels": FeatureConfig(sample_rate=44100, n_fft=1965, win_length=1965, hop_length=441,
+                                                    n_mels=256, f_max=22050.0),
+}
+# Plans with no Bluestein prime, timed as built and beside the baselines
+# alone (the shipped n_fft 512 through its GEMM plan).
+BLUESTEIN_KEEP = {f"n_fft {n}": n_fft_config(n) for n in (2048, 4096, 2704, 1664)}
+NO_BLUESTEIN = "FFT plan, no Bluestein stage"
+NO_WARP_FFTS = "FFT plan, Bluestein's gather and scatter only"
+NO_RADIX = "FFT plan, no radix stages"
+# Bluestein's FFT_m of prime radices alone (no 15 or 9): wrong numbers (its
+# stages' twiddles are laid out for the composite ones), the same work.
+PRIME_RADICES = "FFT plan, Bluestein's radices 3, 5, 7 and 11 alone"
+COMPOSITE = "r % 15 == 0 ? 15 : r % 9 == 0 ? 9 : "
+# Bluestein's warp FFTs: the first design's (a block gather into scratch
+# rows, two out-of-place warp FFTs a row, a block scatter), and the rows of
+# a warp group's since (the first stage gathers, the last scatters: the
+# stages between them skipped at BLUESTEIN_MIDDLE, the loop's call).
+BLUESTEIN_WARP_FFTS = """\
+        float2* a = warp_fft(row, tmp, m, bl.tw(), nullptr, P, m, lane);
+        warp_fft(a, a == row ? tmp : row, m, bl.tw(), bl.bhat(), m, P, lane);
+"""
+BLUESTEIN_MIDDLE = "      blue_stage_at(a, b, ns, mode, bl, tw, x, lane, bar);\n"
+# LayoutF's choices for Bluestein's rows, each variant's edit: the tables
+# always staged; a warp a group where a block fits (no wider groups for two
+# blocks an SM); and one row a block (a frame, or two on an odd n_fft, for
+# launch A), for smaller groups where rows fill the block.
+BLUESTEIN_LAYOUTS = {
+    "FFT plan, LayoutF: one row a block": (
+        "    if (contrast)\n      while (rows & (rows - 1)) rows &= rows - 1;\n",
+        "    if (contrast)\n      while (rows & (rows - 1)) rows &= rows - 1;\n    if (bp) rows = 1;\n"),
+    "FFT plan, LayoutF: the tables staged": ("for (int l = 0; l < 2 && !gw; ++l)", "for (int l = 0; l < 1 && !gw; ++l)"),
+    "FFT plan, LayoutF: a warp a group": ("for (int g = 1; g <= kWarpsA && !gw; g *= 2)",
+                                          "for (int g = 1; g <= (i ? kWarpsA : 1) && !gw; g *= 2)"),
+}
+
+
+def body_start(src: str, signature: str) -> int:
+    """Where the body of the function defined with `signature` starts (past
+    its opening brace): its definition, not a declaration."""
+    i = src.index(signature)
+    while src[src.index(")", i) : src.index(")", i) + 3] != ") {":
+        i = src.index(signature, i + 1)
+    return src.index("{", i) + 1
+
+
+def bluestein_variants(src: str) -> dict:
+    """The source with Bluestein's stage left out; with its warp FFTs left
+    out, so that only its gather and scatter run (the first design: the
+    block gathers and scatters, no warp FFT; since: the first stage gathers
+    and the last scatters, the stages between left out); and with the
+    radix stages (fft_stage) left out. They compute wrong numbers and are
+    timed only. On a source with LayoutF's choices for Bluestein's rows,
+    also BLUESTEIN_LAYOUTS (right numbers, other layouts), and with its
+    composite radices, PRIME_RADICES (their work without them)."""
+    def returns(text: str, signature: str) -> str:
+        i = body_start(text, signature)
+        return text[:i] + "\n  return;" + text[i:]
+
+    warp = (edit(src, BLUESTEIN_WARP_FFTS, "") if BLUESTEIN_WARP_FFTS in src
+            else edit(src, BLUESTEIN_MIDDLE, "      if (mode == kGather || mode == kScatter)\n  " + BLUESTEIN_MIDDLE))
+    layouts = {name: edit(src, old, new) for name, (old, new) in BLUESTEIN_LAYOUTS.items()
+               if BLUESTEIN_MIDDLE in src}
+    if COMPOSITE in src:
+        layouts[PRIME_RADICES] = edit(src, COMPOSITE, "")
+    return {NO_BLUESTEIN: returns(src, "void fft_stage_bluestein("), NO_WARP_FFTS: warp,
+            NO_RADIX: returns(src, "void fft_stage("), **layouts}
+
+
+def build_parallel(sources: dict) -> dict:
+    """Each source built as spectral_probe_<n> at once, its C entry points
+    typed; prints each build's seconds (nvcc's, the builds side by side)."""
+    def timed(n: int, name: str, text: str) -> ctypes.CDLL:
+        t0 = time.perf_counter()
+        lib = build(f"spectral_probe_{n}", text)
+        print(f"built {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return lib
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = {name: pool.submit(timed, n, name, text) for n, (name, text) in enumerate(sources.items())}
+        libs = {name: f.result() for name, f in built.items()}
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for lib in libs.values():
+        lib.cdt_frontend_spectral.argtypes = [p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p]
+        lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
+    return libs
+
+
+def bluestein_section(libs: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
+    """Launch A's FFT plan on BLUESTEIN_CONFIGS as built, its Bluestein
+    variants and the baselines in turns at B = 1024, each build's mel but
+    the variants' held to the plain version (1e-3); then `torch.stft` + mel
+    twice and the bound; and the variants' savings (the slower as built
+    less the slower variant). Then BLUESTEIN_KEEP and the shipped config
+    (its GEMM plan), as built and the baselines alone, in turns."""
+    variants = [n for n in libs if n != "FFT plan as built" and n not in baselines]
+    for label, cfg in BLUESTEIN_CONFIGS.items():
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+        want = frontend_kernel.power_mel_reference(w, cfg)
+        frames, nbytes = frontend_kernel._spectral_layout(cfg.n_fft, cfg.hop_length)
+        p = frontend_kernel._bluestein_prime(cfg.n_fft)
+        times = {}
+        for name in baselines + ["FFT plan as built"] + variants + ["FFT plan as built"] + baselines:
+            launch = fft_launch(libs[name], w, cfg, mel)
+            launch()
+            torch.cuda.synchronize()
+            err = ((mel - want).abs().max() / want.abs().max()).item()
+            if err > 1e-3 and (name not in variants or name in BLUESTEIN_LAYOUTS):
+                raise SystemExit(f"launch A's {name} disagrees with plain on {label}: {err:.2e}")
+            t = cuda_ms(launch, 20)
+            times.setdefault(name, []).append(t)
+            print(f"spectral launch B=1024, {label} (P {p}, m {frontend_kernel._bluestein_points(p)}, {frames} frames "
+                  f"a block, {nbytes} B), {name}: {t:.4f} ms, max-relative vs plain {err:.2e}", flush=True)
+        library = library_mel_fn(cfg, dev)
+        lib_ms = [cuda_ms(lambda: library(w), 20) for _ in range(2)]
+        bound, by = spectral_bound(cfg, 1024)
+        built = times["FFT plan as built"]
+        split = ", ".join(f"{v.removeprefix('FFT plan, ')} {max(built) - max(times[v]):.4f}" for v in variants)
+        print(f"spectral launch B=1024, {label}: FFT plan as built {min(built):.4f}-{max(built):.4f} ms, "
+              + "".join(f"{b} {min(times[b]):.4f}-{max(times[b]):.4f} ms, " for b in baselines)
+              + f"torch.stft + mel {min(lib_ms):.4f}-{max(lib_ms):.4f} ms, bound {bound:.4f} ms by {by}; the "
+              f"variants' savings (ms, the slower as built less the slower variant): {split}", flush=True)
+    order = baselines + ["FFT plan as built", "FFT plan as built"] + baselines
+    for label, cfg in {**BLUESTEIN_KEEP, "shipped (GEMM plan)": FeatureConfig()}.items():
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        mel = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+        make = fft_launch if frontend_kernel.spectral_plan(cfg) == frontend_kernel.PLAN_FFT else gemm_launch
+        times = in_turns({name: make(libs[name], w, cfg, mel) for name in set(order)}, order, 20)
+        print(f"spectral launch B=1024, {label} (no Bluestein prime), in turns: "
+              + ", ".join(f"{n} {min(v):.4f}-{max(v):.4f} ms" for n, v in times.items()), flush=True)
+
+
+# Launch A's and launch C's Bluestein plans timed in turns (--turns).
+TURNS_A = (5296, 6544)
+TURNS_C = (5296, 5872, 6544)
+
+
+def sass_of(build_name: str) -> dict:
+    """kernel -> its instructions in build `build_name` (cuobjdump -sass),
+    with addresses, constants and the build's own names masked."""
+    cuobjdump = Path(kernel_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(kernel_build.BUILD_DIR / f"{build_name}.so")],
+                          check=True, capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            cur = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "NS", m.group(1))
+            funcs[cur] = []
+        elif cur and "/*" in line:
+            ins = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split(";")[0].strip()
+            funcs[cur].append(re.sub(r"0x[0-9a-f]+", "X", ins))
+    return funcs
+
+
+def sass_section(builds: dict, baselines: list) -> None:
+    """For every kernel of the library as built: its instruction count and,
+    beside each baseline's, whether the two are the same instructions; where
+    it differs from the first baseline's, the opcodes whose counts differ
+    (as built less the baseline) and the first lines that differ."""
+    built = sass_of(builds["FFT plan as built"])
+    others = {b: sass_of(builds[b]) for b in baselines}
+    for kernel, code in sorted(built.items()):
+        print(f"SASS {kernel}: as built {len(code)} instructions; "
+              + "; ".join(f"{b} {len(o[kernel])}, identical {o[kernel] == code}" if kernel in o else f"not in {b}"
+                          for b, o in others.items()), flush=True)
+        first = others[baselines[0]].get(kernel) if baselines else None
+        if first is None or first == code:
+            continue
+
+        def ops(lines: list) -> Counter:
+            return Counter(line.split()[1] if line.startswith("@") else line.split()[0] for line in lines if line)
+
+        a, b = ops(code), ops(first)
+        moved = {op: a[op] - b[op] for op in a.keys() | b.keys() if a[op] != b[op]}
+        changed = [line for line in difflib.unified_diff(first, code, n=0, lineterm="")
+                   if line[:1] in "+-" and not line.startswith(("+++", "---"))]
+        print(f"  opcodes as built less {baselines[0]}: "
+              + ", ".join(f"{op} {n:+d}" for op, n in sorted(moved.items(), key=lambda kv: -abs(kv[1])))
+              + f"; {len(changed)} lines differ, the first: " + " | ".join(changed[:6]), flush=True)
+
+
+def turns_section(libs: dict, sources: dict, baselines: list, rng: np.random.Generator, dev: torch.device) -> None:
+    """Launch A and launch C as built and in the baselines, in turns (the
+    baselines, as built, as built, the baselines, twice), on the plans with
+    no Bluestein prime and on TURNS_A / TURNS_C, at B = 1024; each build's
+    output held to the plain version (1e-3); then the library call twice
+    and the bound."""
+    import contrast_probe as cp
+    from cough_detector_tpu_torch.ops import frontend
+
+    order = (baselines + ["FFT plan as built"] * 2 + baselines) * 2
+    launch_a = {**BLUESTEIN_KEEP, "shipped (GEMM plan)": FeatureConfig(),
+                **{f"n_fft {n} (Bluestein)": n_fft_config(n) for n in TURNS_A}}
+    for label, cfg in launch_a.items():
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        want = frontend_kernel.power_mel_reference(w, cfg)
+        make = fft_launch if frontend_kernel.spectral_plan(cfg) == frontend_kernel.PLAN_FFT else gemm_launch
+        runs, outs = {}, {}
+        for name in libs:
+            outs[name] = torch.empty((1024, cfg.n_mels, cfg.num_frames), device=dev)
+            runs[name] = make(libs[name], w, cfg, outs[name])
+            runs[name]()
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            if err > 1e-3:
+                raise SystemExit(f"launch A's {name} disagrees with plain on {label}: {err:.2e}")
+        times = in_turns(runs, order, 20)
+        library = library_mel_fn(cfg, dev)
+        lib_ms = [cuda_ms(lambda: library(w), 20) for _ in range(2)]
+        bound, by = spectral_bound(cfg, 1024)
+        print(f"spectral launch B=1024, {label}, in turns: "
+              + ", ".join(f"{n} {min(v):.4f}-{max(v):.4f} ms" for n, v in times.items())
+              + f"; torch.stft + mel {min(lib_ms):.4f}-{max(lib_ms):.4f} ms, bound {bound:.4f} ms by {by}", flush=True)
+    clibs = {name: cp.typed(lib, sources[name]) for name, lib in libs.items()}
+    launch_c = {**cp.BLUESTEIN_KEEP, **{f"n_fft {n} (Bluestein)": cp._wide(n) for n in TURNS_C}}
+    for label, cfg in launch_c.items():
+        w = torch.from_numpy((rng.standard_normal((64, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        w = w.repeat(16, 1)
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        runs, outs = {}, {}
+        for name in clibs:
+            outs[name] = torch.empty((1024, cfg.n_contrast_bands + 1, cfg.num_frames), device=dev)
+            runs[name] = cp.fft_launch(clibs[name], w, cfg, outs[name])
+            runs[name]()
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            if err > 1e-3:
+                raise SystemExit(f"launch C's {name} disagrees with plain on {label}: {err:.2e}")
+        times = in_turns(runs, order, 10)
+        rows = [cuda_ms(lambda: frontend.spectral_contrast(w, cfg, method="fft"), 5) for _ in range(2)]
+        bound, by = cp.contrast_bound(cfg, 1024)
+        print(f"contrast launch B=1024, {label}, in turns: "
+              + ", ".join(f"{n} {min(v):.4f}-{max(v):.4f} ms" for n, v in times.items())
+              + f"; fft rows {min(rows):.4f}-{max(rows):.4f} ms, bound {bound:.4f} ms by {by}", flush=True)
 
 
 def library_mel_fn(cfg: FeatureConfig, dev: torch.device):
