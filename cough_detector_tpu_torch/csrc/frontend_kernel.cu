@@ -158,6 +158,12 @@ constexpr int kRedBC = kRanksBC + 5 * kMaxCluster;  // 120 floats of reduction s
 constexpr int kSmemSM = 233472;                     // shared memory of an SM, 1 KB of it reserved a block
 constexpr int kBlocksSM = 3;                        // launch B's cluster blocks an SM at most
 constexpr int kRedC = 16;                           // floats of launch C's reduction slots
+constexpr int kBandWarps = 4;                       // launch C's GEMM plan: a warpgroup of band warps
+constexpr int kThreadsC = kThreadsA + 32 * kBandWarps;  // beside its two MMA warpgroups: 384
+constexpr int kRegMma = 208;                        // its registers a thread by setmaxnreg: 2 x 128 x 208
+constexpr int kRegBand = 88;                        // + 128 x 88 = 384 x 168, __launch_bounds__(384, 1)'s
+constexpr int kBandFrames = 4;                      // its band items: frames of a band a warp takes at once
+constexpr int kSortedBand = 128;                    // its bands sorted in registers (band_values); wider, ranked
 constexpr int kBandChunk = 128;                     // launch C: a band's bins a selection pass, 4 a lane
 constexpr int kWideBand = 512;                      // launch C's FFT plan: wider bands by the block (block_tails)
 constexpr int kFftPoints = 8192;                    // FFT plans: complex points a block holds (64 KB)
@@ -497,6 +503,45 @@ struct Ring {
   }
 };
 
+// Launch C's ring (its GEMM plan): a row tile's `per` chunks, the same for
+// every tile, run on from one tile to the next. q counts the tile's own
+// chunks; the slots and their parities run on across tiles. The release of
+// chunk q refills its slot with chunk q + n_slots of this tile or, past
+// its last (`more`: another tile follows), with the next tile's chunk q +
+// n_slots - per, so that the next tile's first chunks land while this one
+// ends (n_slots <= per). The ring serves the MMA warps alone (kWarpsA of
+// them): the band warps never touch it.
+struct RingC : Ring {
+  int per;
+  bool more;
+
+  __device__ __forceinline__ void release(int q, int slot, bool live = true) const {
+    __syncwarp();
+    const int r = q + n_slots, wrap = r >= per;
+    const int bytes = !wrap || more ? 4 * kSlotFloats : 0;
+    const uint32_t bar = smem_addr(full + slot);
+    asm volatile(
+        "{\n"
+        " .reg .pred p, last, go;\n"
+        " .reg .u32 old;\n"
+        " setp.ne.u32 p, %0, 0;\n"
+        " @p membar.cta;\n"
+        " @p atom.shared.add.u32 old, [%1], 1;\n"
+        " setp.eq.and.u32 last, old, %6, p;\n"
+        " @last atom.shared.exch.b32 old, [%1], 0;\n"
+        " @last fence.proxy.async.shared::cta;\n"
+        " setp.ne.and.u32 go, %5, 0, last;\n"
+        " @go mbarrier.arrive.expect_tx.shared::cta.b64 _, [%2], %5;\n"
+        " @go cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%3], [%4], %5, [%2];\n"
+        "}\n" ::"r"((uint32_t)(live && (threadIdx.x & 31) == 0)),
+        "r"(smem_addr(released + slot)), "r"(bar),
+        "r"(smem_addr(slots + slot * kSlotFloats)), "l"(table + (size_t)(wrap ? r - per : r) * kSlotFloats),
+        "r"(bytes), "r"(kWarpsA - 1)
+        : "memory");
+  }
+};
+
 // Launch B's reductions over its block of 4 warps: warp_partial folds v
 // across the warp by shuffles and lane 0 leaves it in slot[warp]; after a
 // barrier, gather4 folds the four slots, in the same order in every
@@ -588,10 +633,11 @@ __device__ void stage_span(float* span, const LayoutA& lay, const WaveSrc& src, 
 // columns of the table are zeros. kStaged false: no span; the fragment's
 // four values are gathered from `src` at row * hop + tap (row g, and g + 8
 // at 8 hops on), and the loads of step s + 1 are in flight with step s's
-// MMAs like the span's.
-template <bool kStaged>
+// MMAs like the span's. R: the ring (launch C's GEMM plan: RingC), whose
+// passes may start at a later k-step (run_from).
+template <bool kStaged, class R = Ring>
 struct DftPass {
-  const Ring& ring;
+  const R& ring;
   const LayoutA& lay;
   const float* r0;  // the thread's row g in the span (kStaged)
   WaveSrc src;      // the tile's waveform (not kStaged)
@@ -600,10 +646,12 @@ struct DftPass {
   float acc[128];
   uint32_t a_hi[2][4], a_lo[2][4];
 
-  __device__ DftPass(const Ring& ring_, const LayoutA& lay_, const float* r0_, int hop_)
+  __device__ DftPass(const R& ring_, const LayoutA& lay_, const float* r0_, int hop_)
       : ring(ring_), lay(lay_), r0(r0_), hop(hop_) {}
 
-  template <int kBuf, bool kStart>
+  // kFrom: a pass from a later k-step (run_from), whose first step is
+  // kStart (run's first step is s = 0).
+  template <int kBuf, bool kStart, bool kFrom = false>
   __device__ __forceinline__ void step(int s, int& q, int& slot, int& parity) {
     if constexpr (kStaged) {
       split_tf32(r0[k0], a_hi[kBuf][0], a_lo[kBuf][0]);
@@ -626,7 +674,7 @@ struct DftPass {
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     fence_acc(acc);
-    ring.release(q - 1, prev_slot, s > 0);  // step s - 1's group is done
+    ring.release(q - 1, prev_slot, kFrom ? !kStart : s > 0);  // step s - 1's group is done
     prev_slot = slot;
     Ring::next(q, slot, parity, ring.n_slots);
     if constexpr (kStaged) {
@@ -649,6 +697,25 @@ struct DftPass {
     for (int s = 2; s < n_ksteps; s += 2) {  // n_ksteps is even
       step<0, false>(s, q, slot, parity);
       step<1, false>(s + 1, q, slot, parity);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    ring.release(q - 1, prev_slot);
+  }
+
+  // A pass over k-steps [s0, s0 + n_ksteps) (n_ksteps even): run's, its
+  // span offsets starting at tap 8 s0 + t.
+  __device__ void run_from(int& q, int& slot, int& parity, int s0, int n_ksteps) {
+    const int a = 8 * s0 + (threadIdx.x & 3), b = a + 4;
+    k0 = a + a / hop * lay.skew;
+    k1 = b + b / hop * lay.skew;
+    next0 = (a / hop + 1) * hop;
+    next1 = (b / hop + 1) * hop;
+    step<0, true, true>(s0, q, slot, parity);
+    step<1, false, true>(s0 + 1, q, slot, parity);
+    for (int s = s0 + 2; s < s0 + n_ksteps; s += 2) {
+      step<0, false, true>(s, q, slot, parity);
+      step<1, false, true>(s + 1, q, slot, parity);
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc(acc);
@@ -1332,8 +1399,8 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
 // JAX package appends to the Pallas kernel's rows in jnp
 // (cough_detector_tpu/ops/pallas/frontend_kernel.py:326-348, computing
 // ops/frontend.py::spectral_contrast with method="gemm"). This note is its
-// GEMM plan's; an even 5-smooth n_fft from 640 on takes its FFT plan
-// (contrast_fft_kernel, plan_c; its note with the FFT plans below): at
+// GEMM plan's; an n_fft from 640 on that the FFT plans fit takes its FFT
+// plan (contrast_fft_kernel, plan_c; its note with the FFT plans below): at
 // n_fft 2048 this design ran 20.4-20.6 ms at B = 1024 against cuFFT's
 // 4.2.
 //  * Function. Per clip, from the waveform (not pre-emphasized): frames
@@ -1347,33 +1414,48 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
 //    is 2 * 101 * (399 * 230 + 511 * 514) = 71.6 MFLOP of DFT against 67 KB
 //    of bytes: 0.148 ms at B = 1024 at the TF32 tensor-core peak, 20 us for
 //    the bytes.
-//  * The DFT is one GEMM, as launch A's: M the clip's frames in 128-row
-//    tiles (two warpgroups), K the union of both windows' supports (511
-//    taps, 64 k-steps), N the power bins' cos and -sin columns (bins 1-115,
-//    230 columns) then every bin's for the magnitude (514), interleaved bin
-//    by bin: 744 columns in three passes of m64n256k8. It reuses launch A's
-//    machinery as it is: the span staged with its bank skew (LayoutA), the
-//    hi/lo TF32 tables streamed through the Ring of 16 KB chunks, DftPass's
-//    3xTF32 issue loop (one TF32 pass is modelled on the CPU by
+//  * The DFT is a GEMM, as launch A's: M the clip's frames in 128-row tiles
+//    (two MMA warpgroups), N column pairs in passes of 256 columns
+//    (m64n256k8), K taps in k-steps of 8. First the power passes: the
+//    bands' power bins' cos and -sin columns (bins 1-115 at the shipped
+//    config: one pass) over the win_length window's own k-steps (50 of 8
+//    taps); then the magnitude passes over both windows' support (j0,
+//    kpad: 64 k-steps), a bin a pair, an even n_fft's DC and Nyquist cosines
+//    in one pair (both sines are zero): 512 columns, two passes, at the
+//    shipped config. It reuses launch A's machinery as it is: the span staged with its bank skew
+//    (LayoutA), the hi/lo TF32 tables streamed through a ring of 16 KB
+//    chunks (RingC: it runs on across a clip's row tiles), DftPass's 3xTF32
+//    issue loop (modelled on the CPU by
 //    ops/frontend_kernel.py::spectral_contrast_split_reference; PERF.md
-//    gives the choice). Three passes of a 128-row tile for 101 frames put
-//    the reachable ceiling near 3.8x the bound.
-//  * After each pass, in registers: a thread holds re and im of one bin of
-//    rows g and g + 8 side by side. A power bin goes to the tile's power
-//    rows in shared memory (128 x n_pow); a magnitude bin is folded, after
-//    its sqrt, into the thread's running sums |X| and f|X|, which the quad
-//    adds up after the last pass: the magnitude never leaves registers.
-//  * Band tails: a warp a frame, a band at a time, by stable rank (element
-//    a's rank counts the bins above it and the equal ones before it, the
-//    formulation of ops/frontend.py::_tail_sums_rank): lane l holds bins
-//    l, l + 32, ... (as many as the band needs, band_contrast) and counts
-//    over the band read from shared memory by broadcast; the tails' sums
-//    are two warp reductions. Exact selections: the means do not depend on
-//    how ties are broken.
+//    gives the choice). A 128-row tile for 101 frames pads 21% of the
+//    products.
+//  * Warp roles. 384 threads: the two MMA warpgroups, and a warpgroup of
+//    band warps. setmaxnreg gives the MMA warps 208 registers a thread (the
+//    128 accumulator floats of a pass and the A fragments) and the band
+//    warps 88 (PERF.md gives the splits tried). After a tile's power
+//    passes, where a thread holds re and im of one bin of rows g and g + 8
+//    side by side, the MMA warps write the power to the tile's power rows
+//    in shared memory (128 x n_pow) and arrive on a named barrier; the
+//    band warps, waiting on it, draw the tile's band items from a counter
+//    in shared memory while the MMA warps run the magnitude passes, and the
+//    MMA warps, done with those, draw the items left. A magnitude bin is
+//    folded, after its sqrt, into the thread's running sums |X| and f|X|,
+//    which the quad adds up after the last pass: the magnitude never
+//    leaves registers.
+//  * Band tails: an item is one band of kBandFrames frames, the widest
+//    bands drawn first, by a warp, each frame's band sorted in registers by
+//    a bitonic network of 32, 64 or 128 bins (band_sorted_frames; up to
+//    kSortedBand bins), the frames' networks interleaved, so that a band
+//    warp, alone with two MMA warps on its SM sub-partition, keeps
+//    independent shuffles in flight; a wider band is ranked (band_ranked:
+//    element a's rank counts the bins above it and the equal ones before
+//    it, the formulation of ops/frontend.py::_tail_sums_rank). The tails'
+//    sums are warp reductions. Exact selections: the means do not depend
+//    on how ties are broken.
 //  * One block a clip (the z-norm spans every frame), looping over its row
-//    tiles; the ring restarts at each tile's first chunk (its chunk count a
-//    multiple of its slots). The clip's rows stay in shared memory until
-//    the z-norm writes them.
+//    tiles; the band warps free the power rows on a second named barrier
+//    before the next tile's power passes write them. The clip's rows stay
+//    in shared memory until the MMA warps z-norm them.
 // Launch C's shared memory, in floats after the ring's slots: the span
 // (LayoutA's), the tile's power (128 rows of n_pow bins), the clip's
 // contrast rows (n_rows x T), the reduction slots, then the ring's
@@ -1403,77 +1485,193 @@ struct LayoutC {
   }
 };
 
+// Launch C's GEMM plan: a row tile's chunks (its power passes of pow_ks
+// k-steps, its magnitude passes of kpad / 8; an even n_fft's Nyquist bin
+// shares the DC bin's pair), and its ring's slots: as many as shared memory
+// holds, up to kMaxSlots and the tile's chunks, at least 2.
+__host__ __device__ inline int chunks_c(int n_fft, int kpad, int pow_ks, int n_pow) {
+  const int n_mag = n_fft / 2 + 1 - (n_fft % 2 == 0);
+  return (2 * n_pow + kPassCols - 1) / kPassCols * pow_ks + (2 * n_mag + kPassCols - 1) / kPassCols * (kpad / 8);
+}
+
+__host__ __device__ inline int slots_c(const LayoutC& lay, int chunks) {
+  int n_slots = chunks < kMaxSlots ? chunks : kMaxSlots;
+  while (n_slots > 2 && lay.bytes(n_slots) > kMaxSmem) --n_slots;
+  return n_slots;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// The tails of one frame's band of w bins at pb, by a warp: lane l ranks
-// bins c0 + l, c0 + l + 32, ... (kK of them) against the whole band, read
-// by broadcast, and adds those in the top and bottom tails to its sums.
-template <int kK>
-__device__ __forceinline__ void band_tails(const float* pb, int w, int n_top, int n_bot, int lane,
-                                           int c0, float& top, float& bot) {
-  float xs[kK];
-  int rank[kK];
+// The tails of kF frames' band of w bins, the first frame's at pb and each
+// next one's stride floats on, by a warp: lane l ranks bins c0 + l, c0 + l
+// + 32, ... (kK of them) of each frame against that frame's whole band,
+// read by broadcast, and adds those in the top and bottom tails to the
+// frame's sums. The frames' loads and compares are independent, so the
+// warp keeps kF chains in flight.
+template <int kK, int kF>
+__device__ __forceinline__ void band_tails(const float* pb, int stride, int w, int n_top, int n_bot, int lane,
+                                           int c0, float (&top)[kF], float (&bot)[kF]) {
+  float xs[kF][kK];
+  int rank[kF][kK];
 #pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    const int e = c0 + lane + 32 * k;
-    xs[k] = e < w ? pb[e] : 0.0f;
-    rank[k] = 0;
+  for (int f = 0; f < kF; ++f)
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int e = c0 + lane + 32 * k;
+      xs[f][k] = e < w ? pb[f * stride + e] : 0.0f;
+      rank[f][k] = 0;
+    }
+#pragma unroll 1
+  for (int b = 0; b < w; ++b) {  // not unrolled: a short build (it ranks bands past kSortedBand bins alone)
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      const float y = pb[f * stride + b];
+#pragma unroll
+      for (int k = 0; k < kK; ++k)
+        rank[f][k] += (y > xs[f][k]) | ((y == xs[f][k]) & (b < c0 + lane + 32 * k));
+    }
   }
-  for (int b = 0; b < w; ++b) {
-    const float y = pb[b];
 #pragma unroll
-    for (int k = 0; k < kK; ++k) rank[k] += (y > xs[k]) | ((y == xs[k]) & (b < c0 + lane + 32 * k));
+  for (int f = 0; f < kF; ++f)
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const bool in = c0 + lane + 32 * k < w;
+      top[f] += in && rank[f][k] < n_top ? xs[f][k] : 0.0f;
+      bot[f] += in && rank[f][k] >= w - n_bot ? xs[f][k] : 0.0f;
+    }
+}
+
+// kF frames' contrast in one band of w bins, ranked: lane l ranks bins l,
+// l + 32, ... of each frame in passes of kBandChunk (band_tails), then the
+// two tails' sums are warp reductions; the first frame's band at pb, each
+// next one's stride floats on.
+template <int kF>
+__device__ __forceinline__ void band_ranked(const float* pb, int stride, int w, int n_top, int n_bot, int lane,
+                                            float (&v)[kF]) {
+  float top[kF], bot[kF];
+#pragma unroll
+  for (int f = 0; f < kF; ++f) top[f] = bot[f] = 0.0f;
+  for (int c0 = 0; c0 < w; c0 += kBandChunk)
+    band_tails<kBandChunk / 32, kF>(pb, stride, w, n_top, n_bot, lane, c0, top, bot);
+#pragma unroll
+  for (int f = 0; f < kF; ++f)
+    v[f] = log1pf(warp_sum(top[f]) / (float)n_top) - log1pf(warp_sum(bot[f]) / (float)n_bot);
+}
+
+// kF frames' contrast in one band of w <= kN bins (kN a power of two from
+// 32), by a warp: each frame's band sorted in registers, descending, by a
+// bitonic network of kN (element i = 32 r + lane in v[f][r], -1 past w: a
+// power is never negative), the frames' networks interleaved so that their
+// shuffles are independent; then the top tail is elements [0, n_top) and
+// the bottom tail [w - n_bot, w). An exact selection, as ranking's: the
+// tails' values do not depend on how ties are broken. kN log2(kN)^2 / 4
+// compare-exchanges a frame, where ranking takes w^2 compares.
+template <int kN, int kF>
+__device__ __forceinline__ void band_sorted_frames(const float* pb, int stride, int w, int n_top, int n_bot,
+                                                   int lane, float (&out)[kF]) {
+  static_assert(kN >= 32 && (kN & (kN - 1)) == 0, "a network of 32, 64, ... bins");
+  constexpr int kK = kN / 32;
+  float v[kF][kK];
+#pragma unroll
+  for (int f = 0; f < kF; ++f)
+#pragma unroll
+    for (int r = 0; r < kK; ++r) v[f][r] = 32 * r + lane < w ? pb[f * stride + 32 * r + lane] : -1.0f;
+#pragma unroll
+  for (int k = 2; k <= kN; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j >= 32; j >>= 1)  // the partner is register r ^ (j / 32) of this lane
+#pragma unroll
+      for (int f = 0; f < kF; ++f)
+#pragma unroll
+        for (int r = 0; r < kK; ++r) {
+          const int q = r ^ (j >> 5);
+          if (q < r) continue;
+          const bool desc = ((32 * r) & k) == 0;
+          const float a = v[f][r], b = v[f][q];
+          v[f][r] = desc ? fmaxf(a, b) : fminf(a, b);
+          v[f][q] = desc ? fminf(a, b) : fmaxf(a, b);
+        }
+    // The partner is lane ^ j: a loop, not unrolled, keeps the code small.
+#pragma unroll 1
+    for (int j = (k >> 1) < 16 ? k >> 1 : 16; j > 0; j >>= 1)
+#pragma unroll
+      for (int f = 0; f < kF; ++f)
+#pragma unroll
+        for (int r = 0; r < kK; ++r) {
+          const bool desc = ((32 * r + lane) & k) == 0;
+          const float y = __shfl_xor_sync(0xffffffffu, v[f][r], j);
+          v[f][r] = desc == ((lane & j) == 0) ? fmaxf(v[f][r], y) : fminf(v[f][r], y);
+        }
   }
 #pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    const bool in = c0 + lane + 32 * k < w;
-    top += in && rank[k] < n_top ? xs[k] : 0.0f;
-    bot += in && rank[k] >= w - n_bot ? xs[k] : 0.0f;
+  for (int f = 0; f < kF; ++f) {
+    float top = 0.0f, bot = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kK; ++r) {
+      const int i = 32 * r + lane;
+      top += i < n_top ? v[f][r] : 0.0f;
+      bot += i >= w - n_bot && i < w ? v[f][r] : 0.0f;
+    }
+    out[f] = log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
   }
 }
 
-// One frame's contrast in one band of w bins: lane l ranks bins l, l + 32,
-// ... (kK = ceil(w / 32) of them, up to kBandChunk bins; a wider band in
-// passes of kBandChunk), then the two tails' sums are warp reductions.
-template <int kK>
-__device__ __forceinline__ float band_contrast(const float* pb, int w, int n_top, int n_bot, int lane) {
-  float top = 0.0f, bot = 0.0f;
-  if (kK * 32 >= w) {
-    band_tails<kK>(pb, w, n_top, n_bot, lane, 0, top, bot);
-  } else {
-    for (int c0 = 0; c0 < w; c0 += kBandChunk)
-      band_tails<kBandChunk / 32>(pb, w, n_top, n_bot, lane, c0, top, bot);
-  }
-  return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
-}
-
-// One frame's contrast in one band, by a warp: pb the frame's power rows
-// from the first power bin, bd the band (first bin from pb, bins, top and
-// bottom tail lengths). A one-bin band's is 0.
-__device__ __forceinline__ float band_value(const float* pb, int4 bd, int lane) {
+// kF frames' contrast in one band, by a warp, in launch C's GEMM plan: pb
+// the first frame's power row from the first power bin, stride floats to
+// the next frame's, bd the band (first bin from pb, bins, top and bottom
+// tail lengths); bands of up to kSortedBand bins sorted
+// (band_sorted_frames), wider ones ranked (band_ranked). A one-bin band's
+// is 0.
+template <int kF>
+__device__ __forceinline__ void band_values(const float* pb, int stride, int4 bd, int lane, float (&v)[kF]) {
   const int w = bd.y, nt = bd.z, nb = bd.w;
   pb += bd.x;
-  if (w > 96) return band_contrast<4>(pb, w, nt, nb, lane);
-  if (w > 64) return band_contrast<3>(pb, w, nt, nb, lane);
-  if (w > 32) return band_contrast<2>(pb, w, nt, nb, lane);
-  if (w > 1) return band_contrast<1>(pb, w, nt, nb, lane);
-  return 0.0f;
+  if (w <= 1) {
+#pragma unroll
+    for (int f = 0; f < kF; ++f) v[f] = 0.0f;
+  } else if (w > kSortedBand)
+    band_ranked<kF>(pb, stride, w, nt, nb, lane, v);
+  else if (w > 64)
+    band_sorted_frames<128, kF>(pb, stride, w, nt, nb, lane, v);
+  else if (w > 32)
+    band_sorted_frames<64, kF>(pb, stride, w, nt, nb, lane, v);
+  else
+    band_sorted_frames<32, kF>(pb, stride, w, nt, nb, lane, v);
+}
+
+// Named barrier kId over kCount threads (a multiple of 32): wait for them,
+// or arrive and go on. Either orders the caller's memory accesses before
+// the barrier for the threads that wait on it.
+template <int kId, int kCount>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "n"(kCount) : "memory");
+}
+
+template <int kId, int kCount>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(kId), "n"(kCount) : "memory");
 }
 
 // The clip's z-norm (unbiased std) of its n contrast values `con` (shared
 // or device memory), written to o; red: 2 * kWarpsA floats of shared memory.
-// Called by every thread of the block, after the barrier that completes con.
+// Called by every thread of the block (kBar 0), or by the first kThreadsA
+// threads, which meet at named barrier kBar, after the barrier that
+// completes con.
+template <int kBar = 0>
 __device__ void znorm_rows(const float* con, int n, float* red, float* o) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float s = 0.0f;
   for (int i = tid; i < n; i += kThreadsA) s += con[i];
   s = warp_sum(s);
   if (lane == 0) red[warp] = s;
-  __syncthreads();
+  if constexpr (kBar != 0)
+    named_sync<kBar, kThreadsA>();
+  else
+    __syncthreads();
   float total = 0.0f;
 #pragma unroll
   for (int w = 0; w < kWarpsA; ++w) total += red[w];
@@ -1485,7 +1683,10 @@ __device__ void znorm_rows(const float* con, int n, float* red, float* o) {
   }
   sq = warp_sum(sq);
   if (lane == 0) red[kWarpsA + warp] = sq;
-  __syncthreads();
+  if constexpr (kBar != 0)
+    named_sync<kBar, kThreadsA>();
+  else
+    __syncthreads();
   float var = 0.0f;
 #pragma unroll
   for (int w = 0; w < kWarpsA; ++w) var += red[kWarpsA + w];
@@ -1493,20 +1694,52 @@ __device__ void znorm_rows(const float* con, int n, float* red, float* o) {
   for (int i = tid; i < n; i += kThreadsA) o[i] = (con[i] - mean) / denom;
 }
 
-// Launch C. grid (batch): block b takes clip b; kThreadsA threads,
-// LayoutC's shared memory with n_slots ring slots (a divisor of the
-// tile's n_passes * kpad / 8 chunks). table: the chunk stream
-// (ops/frontend_kernel.py::_contrast_constants), n_passes passes of kpad / 8
-// chunks, the first n_pow column pairs the bands' power bins from their
-// first, the next n_freqs the magnitude's; freqs the centroid's bin
+// Launch C's named barriers: the MMA warps alone; the tile's power rows in
+// place; the band warps done with them; the clip's band rows complete.
+enum { kBarMma = 1, kBarPower = 2, kBarFree = 3, kBarRows = 4 };
+
+// A row tile's band items, by the calling warp, until none is left: item
+// j, drawn from the tile's counter `next` (shared memory), is band
+// n_bands - 1 - j / groups (the widest bands first: the last items drawn
+// are the cheapest) of frames kBandFrames (j % groups) on. The band warps
+// draw from the power rows' barrier on, the MMA warps once their
+// magnitude passes are done; each item's arithmetic is the same whoever
+// draws it.
+__device__ __forceinline__ void band_items(int* next, const float* pw, int n_pow, const int4* bands, int n_bands,
+                                           int frames, float* con, int n_frames, int lane) {
+  const int groups = (frames + kBandFrames - 1) / kBandFrames;  // the tile's 128 power rows hold them all
+  for (;;) {
+    int j = 0;
+    if (lane == 0) j = atomicAdd(next, 1);
+    j = __shfl_sync(0xffffffffu, j, 0);
+    if (j >= groups * n_bands) return;
+    const int i = n_bands - 1 - j / groups, f0 = kBandFrames * (j % groups);
+    float v[kBandFrames];
+    band_values<kBandFrames>(pw + f0 * n_pow, n_pow, __ldg(bands + i), lane, v);
+    if (lane == 0)
+#pragma unroll
+      for (int f = 0; f < kBandFrames; ++f)
+        if (f0 + f < frames) con[i * n_frames + f0 + f] = v[f];
+  }
+}
+
+// Launch C. grid (batch): block b takes clip b; kThreadsC threads (warps
+// 0-7 the MMA warps, 8-11 the band warps), LayoutC's shared memory with
+// n_slots ring slots (2 to kMaxSlots, at most a tile's chunks). table: the
+// chunk stream (ops/frontend_kernel.py::_contrast_constants), a row tile's
+// chunks: its power passes (ceil(2 n_pow / 256)) of pow_ks chunks, the
+// k-steps [pow_k0, pow_k0 + pow_ks) from j0, the bands' power bins' column
+// pairs from their first; then its magnitude passes (ceil(2 n_mag / 256))
+// of kpad / 8 chunks, n_mag pairs (n_freqs, less one for an even n_fft:
+// pair 0 holds the DC and Nyquist cosines); freqs the centroid's bin
 // frequencies; bands (n_bands x 4 ints in device memory): per band its
 // first bin (from the first power bin), bins, top and bottom tail lengths.
 // kStaged: LayoutC's level 0; else levels 1-3, the power rows in `scratch`
 // at level 3.
 template <bool kStaged>
-__global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
+__global__ void __launch_bounds__(kThreadsC, 1) contrast_kernel(
     const float* __restrict__ wave, int n_samples, int n_frames, int n_fft, int hop, int j0,
-    int kpad, const float* __restrict__ table, int n_passes, int n_pow, int n_freqs,
+    int kpad, int pow_k0, int pow_ks, const float* __restrict__ table, int n_pow, int n_freqs,
     const float* __restrict__ freqs, float half_sr, const int4* __restrict__ bands, int n_bands,
     int n_slots, float* __restrict__ scratch, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
@@ -1517,70 +1750,114 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
   float* pw = kStaged || lay.level < 3 ? span + lay.pow : scratch + (size_t)blockIdx.x * kRows * n_pow;
   float* con = kStaged || lay.level < 2 ? span + lay.con : out + (size_t)blockIdx.x * n;
   float* red = span + lay.red;
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // A tile's band items are drawn from counters[tile % 2] (the reduction
+  // slots', free until the z-norm): zero for the first two tiles here, and
+  // for tile t + 1 once every warp is done with tile t - 1's (step 2).
+  int* counters = reinterpret_cast<int*>(red);
+  if (tid == 0) counters[0] = counters[1] = 0;
+
+  // The band warps: each tile's band items, once its power rows are in
+  // place, while the MMA warps run its magnitude passes.
+  if (warp >= kWarpsA) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegBand));
+    for (int t0 = 0; t0 < n_frames; t0 += kRows) {
+      named_sync<kBarPower, kThreadsC>();
+      band_items(counters + t0 / kRows % 2, pw, n_pow, bands, n_bands, min(n_frames - t0, kRows), con + t0,
+                 n_frames, lane);
+      if (t0 + kRows < n_frames) named_arrive<kBarFree, kThreadsC>();
+    }
+    named_arrive<kBarRows, kThreadsC>();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegMma));
+
   const int g = lane >> 2, t = lane & 3;
-  const int n_ksteps = kpad / 8;
-  Ring ring;
+  const int mag_ks = kpad / 8, n_mag = n_freqs - (n_fft % 2 == 0);
+  const int pow_passes = (2 * n_pow + kPassCols - 1) / kPassCols;
+  const int mag_passes = (2 * n_mag + kPassCols - 1) / kPassCols;
+  RingC ring;
   ring.slots = slots;
   ring.full = reinterpret_cast<uint64_t*>(span + lay.end);
   ring.released = reinterpret_cast<int*>(ring.full + kMaxSlots);
   ring.table = table;
   ring.n_slots = n_slots;
-  ring.n = n_passes * n_ksteps;
-  if (tid == 0) {
+  ring.per = ring.n = pow_passes * pow_ks + mag_passes * mag_ks;
+  if (tid == 0) {  // the first tile's first chunks; the releases fill the rest
     for (int i = 0; i < n_slots; ++i) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(ring.full + i))
                    : "memory");
       ring.released[i] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int q = 0; q < n_slots; ++q) ring.fill(q);
   }
 
   const int row = 64 * (warp / 4) + 16 * (warp & 3) + g;  // and row + 8
   int slot = 0, parity = 0;  // the ring's next slot and its parity
-  DftPass<kStaged> dft(ring, lay.a, span + row * lay.a.rs, hop);
+  DftPass<kStaged, RingC> dft(ring, lay.a, span + row * lay.a.rs, hop);
   dft.src.x = wave + (size_t)blockIdx.x * n_samples;
   dft.src.n_samples = n_samples;
   dft.src.use_pre = 0;
   dft.src.pre_coef = 0.0f;
   dft.i0 = row * hop;
   for (int t0 = 0; t0 < n_frames; t0 += kRows) {
-    // 1. Start the tile's chunks, then stage its span while they land.
-    if (t0 > 0) __syncthreads();  // every warp is done with the last tile
-    if (tid == 0)
-      for (int q = 0; q < n_slots; ++q) ring.fill(q);
+    // 1. Stage the tile's span (its chunks are landing).
+    if (t0 > 0) named_sync<kBarMma, kThreadsA>();  // every MMA warp is done with the last tile's span
+    ring.more = t0 + kRows < n_frames;
     const int frames = min(n_frames - t0, kRows);
     dft.src.base = t0 * hop + j0 - n_fft / 2;
     dft.src.live = (frames - 1) * hop + kpad;
     if (kStaged) stage_span(span, lay.a, dft.src, (kRows - 1) * hop + kpad, hop);
-    __syncthreads();
+    named_sync<kBarMma, kThreadsA>();  // the span and the ring's barriers are ready
 
-    // 2. The DFT pass by pass; power bins to the power rows, magnitude bins
-    // into the running sums.
-    float msum[2] = {0.0f, 0.0f}, fsum[2] = {0.0f, 0.0f};
+    // 2. The power passes, to the power rows; then the band warps take them.
     int q = 0;
-    for (int p = 0; p < n_passes; ++p) {
-      dft.run(q, slot, parity, n_ksteps);
+    for (int p = 0; p < pow_passes; ++p) {
+      dft.run_from(q, slot, parity, pow_k0, pow_ks);
+      if (p == 0 && t0 > 0) {
+        named_sync<kBarFree, kThreadsC>();  // the band warps are done with the last tile's
+        if (tid == 0) counters[(t0 / kRows + 1) % 2] = 0;  // the next tile's counter: tile t - 1's is free
+      }
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int bin = 128 * p + 4 * j + t;  // column pair
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float re = dft.acc[4 * j + 2 * h], im = dft.acc[4 * j + 2 * h + 1];
-          const float sq = re * re + im * im;
-          if (bin < n_pow) {
-            pw[(row + 8 * h) * n_pow + bin] = sq;
-          } else if (bin < n_pow + n_freqs) {
-            const float m = sqrtf(sq);
+          if (bin < n_pow) pw[(row + 8 * h) * n_pow + bin] = re * re + im * im;
+        }
+      }
+    }
+    named_arrive<kBarPower, kThreadsC>();
+
+    // 3. The magnitude passes, into the running sums.
+    float msum[2] = {0.0f, 0.0f}, fsum[2] = {0.0f, 0.0f};
+    for (int p = 0; p < mag_passes; ++p) {
+      dft.run(q, slot, parity, mag_ks);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int i = 128 * p + 4 * j + t;  // column pair: bin i, and pair 0 the Nyquist bin's too
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float re = dft.acc[4 * j + 2 * h], im = dft.acc[4 * j + 2 * h + 1];
+          if (i < n_mag) {
+            const bool two = i == 0 && n_mag < n_freqs;  // the DC and Nyquist cosines
+            const float m = sqrtf(two ? re * re : re * re + im * im);
             msum[h] += m;
-            fsum[h] += __ldg(freqs + bin - n_pow) * m;
+            fsum[h] += __ldg(freqs + i) * m;
+            if (two) {
+              const float mn = sqrtf(im * im);
+              msum[h] += mn;
+              fsum[h] += __ldg(freqs + n_freqs - 1) * mn;
+            }
           }
         }
       }
     }
 
-    // 3. The centroid of rows row and row + 8: the quad's four sums.
+    // 4. The centroid of rows row and row + 8: the quad's four sums.
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float ms = msum[h], fs = fsum[h];
@@ -1591,19 +1868,14 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
       const int r = row + 8 * h;
       if (t == 0 && r < frames) con[n_bands * n_frames + t0 + r] = (ms > 0.0f ? fs / ms : 0.0f) / half_sr;
     }
-    __syncthreads();  // the tile's power rows are in place
 
-    // 4. The bands' tails, a warp a frame.
-    for (int r = warp; r < frames; r += kWarpsA)
-      for (int i = 0; i < n_bands; ++i) {
-        const float v = band_value(pw + r * n_pow, __ldg(bands + i), lane);
-        if (lane == 0) con[i * n_frames + t0 + r] = v;
-      }
+    // 5. The tile's band items the band warps have not drawn yet.
+    band_items(counters + t0 / kRows % 2, pw, n_pow, bands, n_bands, frames, con + t0, n_frames, lane);
   }
-  __syncthreads();  // the clip's rows are complete
+  named_sync<kBarRows, kThreadsC>();  // the band warps' rows are complete
 
-  // 5. The clip's z-norm, written as (n_rows, n_frames).
-  znorm_rows(con, n, red, out + (size_t)blockIdx.x * n);
+  // 6. The clip's z-norm, written as (n_rows, n_frames), by the MMA warps.
+  znorm_rows<kBarMma>(con, n, red, out + (size_t)blockIdx.x * n);
 }
 
 // -- The FFT plans of launches A and C ------------------------------------------
@@ -1655,8 +1927,8 @@ __global__ void __launch_bounds__(kThreadsA, 1) contrast_kernel(
 //    magnitude into the frame's centroid sums), for an odd n_fft as for an
 //    even one. One block a clip loops
 //    over its frame groups; a warp takes a (frame, band) and sorts the
-//    band in registers (band_sorted: ranking the 239-bin band of n_fft
-//    2048 by band_value took 48% of the launch, 1.10 of 2.29 ms at B =
+//    band in registers (band_value_sorted: ranking the 239-bin band of n_fft
+//    2048 by stable rank took 48% of the launch, 1.10 of 2.29 ms at B =
 //    1024; sorted, the band stage takes 0.24 of 1.41, tools/contrast_probe.py);
 //    the centroid and the z-norm are the GEMM plan's (znorm_rows). The
 //    clip's contrast rows go to the output and are z-normed there in
@@ -2545,66 +2817,25 @@ __device__ __forceinline__ void fft_stage_bluestein(float2* buf, int total, int 
   __syncthreads();
 }
 
-// One frame's contrast in one band of w <= 32 kK bins at pb, by a warp:
-// the band sorted in registers, descending, by a bitonic network (element
-// i = 32 r + lane in v[r], -1 past w: a power is never negative), then the
-// top tail is elements [0, n_top) and the bottom tail [w - n_bot, w). An
-// exact selection: the tails' values do not depend on how ties are broken.
-// 32 kK log2(32 kK)^2 / 4 compare-exchanges, where ranking takes w^2
-// compares (band_tails).
-template <int kK>
-__device__ __forceinline__ float band_sorted(const float* pb, int w, int n_top, int n_bot, int lane) {
-  constexpr int kN = 32 * kK;
-  float v[kK];
-#pragma unroll
-  for (int r = 0; r < kK; ++r) v[r] = 32 * r + lane < w ? pb[32 * r + lane] : -1.0f;
-#pragma unroll
-  for (int k = 2; k <= kN; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j >= 32; j >>= 1) {  // the partner is register r ^ (j / 32) of this lane
-#pragma unroll
-      for (int r = 0; r < kK; ++r) {
-        const int p = r ^ (j >> 5);
-        if (p < r) continue;
-        const bool desc = ((32 * r) & k) == 0;  // this block of k sorts descending
-        const float a = v[r], b = v[p];
-        v[r] = desc ? fmaxf(a, b) : fminf(a, b);
-        v[p] = desc ? fminf(a, b) : fmaxf(a, b);
-      }
-    }
-    // The partner is lane ^ j: a loop, not unrolled, keeps the code small.
-#pragma unroll 1
-    for (int j = (k >> 1) < 16 ? k >> 1 : 16; j > 0; j >>= 1) {
-#pragma unroll
-      for (int r = 0; r < kK; ++r) {
-        const bool desc = ((32 * r + lane) & k) == 0;
-        const float y = __shfl_xor_sync(0xffffffffu, v[r], j);
-        v[r] = desc == ((lane & j) == 0) ? fmaxf(v[r], y) : fminf(v[r], y);
-      }
-    }
-  }
-  float top = 0.0f, bot = 0.0f;
-#pragma unroll
-  for (int r = 0; r < kK; ++r) {
-    const int i = 32 * r + lane;
-    top += i < n_top ? v[r] : 0.0f;
-    bot += i >= w - n_bot && i < w ? v[r] : 0.0f;
-  }
-  return log1pf(warp_sum(top) / (float)n_top) - log1pf(warp_sum(bot) / (float)n_bot);
-}
-
-// band_value for the FFT plan: bands of up to kWideBand bins by
-// band_sorted (wider ones take block_tails).
-static_assert(kWideBand <= 512, "band_sorted takes up to 512 bins");
+// One frame's contrast in one band, by a warp, for the FFT plan: bands of
+// up to kWideBand bins sorted in registers (band_sorted_frames, one frame;
+// wider ones take block_tails).
+static_assert(kWideBand <= 512, "band_value_sorted sorts up to 512 bins");
 __device__ __forceinline__ float band_value_sorted(const float* pb, int4 bd, int lane) {
   const int w = bd.y, nt = bd.z, nb = bd.w;
   const float* b = pb + bd.x;
-  if (w > 256) return band_sorted<16>(b, w, nt, nb, lane);
-  if (w > 128) return band_sorted<8>(b, w, nt, nb, lane);
-  if (w > 64) return band_sorted<4>(b, w, nt, nb, lane);
-  if (w > 32) return band_sorted<2>(b, w, nt, nb, lane);
-  if (w > 1) return band_sorted<1>(b, w, nt, nb, lane);
-  return 0.0f;
+  float v[1] = {0.0f};
+  if (w > 256)
+    band_sorted_frames<512, 1>(b, 0, w, nt, nb, lane, v);
+  else if (w > 128)
+    band_sorted_frames<256, 1>(b, 0, w, nt, nb, lane, v);
+  else if (w > 64)
+    band_sorted_frames<128, 1>(b, 0, w, nt, nb, lane, v);
+  else if (w > 32)
+    band_sorted_frames<64, 1>(b, 0, w, nt, nb, lane, v);
+  else if (w > 1)
+    band_sorted_frames<32, 1>(b, 0, w, nt, nb, lane, v);
+  return v[0];
 }
 
 // The digit (0-255) whose counter in h (256 counters in shared memory, the
@@ -2647,7 +2878,7 @@ __device__ __forceinline__ void digit_of_rank(const unsigned* h, unsigned r, int
 // The two tails' sums (top, bottom) of one frame's band of w bins at pb,
 // by the whole block, in every thread: an exact selection whose work
 // follows the bins over the block's warps, where ranking (band_tails) takes
-// w^2 compares on one warp and band_sorted holds at most 512 bins. The
+// w^2 compares on one warp and band_value_sorted sorts at most 512 bins. The
 // n_top-th largest value t and the n_bot-th smallest b come from a radix
 // select over the values' bits (a power is never negative, so its bits
 // order as an unsigned integer's), 8 bits a pass from the top, both tails
@@ -2655,7 +2886,7 @@ __device__ __forceinline__ void digit_of_rank(const unsigned* h, unsigned r, int
 // their next 8 bits, in 256 counters in shared memory, and every warp then
 // finds the digit that holds the wanted rank (digit_of_rank). Then top =
 // the sum of x > t plus (n_top - |{x > t}|) t, and the bottom tail
-// likewise: as band_sorted's, independent of how ties are broken. hist: 3
+// likewise: as band_value_sorted's, independent of how ties are broken. hist: 3
 // x 512 counters, then 2 kWarpsA floats, in shared memory: pass q (five an
 // item: four digits, then the sums) counts into the q % 3 set and zeroes
 // the next before its one barrier; the q % 3 set is zero on entry.
@@ -3223,33 +3454,33 @@ int cdt_frontend_contrast_fft(
 }
 
 // Launch C. wave (B, n_samples); table: the chunk stream its ring reads
-// (ops/frontend_kernel.py::_contrast_constants), n_passes passes of kpad / 8
-// chunks; freqs (n_freqs,); bands (n_bands, 4) int32: per band its first
-// bin (from the first power bin), bins, top and bottom tail lengths;
-// scratch (B, 128, n_pow) at LayoutC's level 3, else unused (may be null);
-// out (B, n_bands + 1, n_frames). All device buffers contiguous, on one
-// device. The ring gets as many slots (up to four) as shared memory holds
-// and the tile's chunk count divides by.
+// (ops/frontend_kernel.py::_contrast_constants): a row tile's power passes
+// of pow_ks chunks (k-steps [pow_k0, pow_k0 + pow_ks) from j0), then its
+// magnitude passes of kpad / 8 chunks; freqs (n_freqs = n_fft / 2 + 1,);
+// bands (n_bands, 4) int32: per band its first bin (from the first power
+// bin), bins, top and bottom tail lengths; scratch (B, 128, n_pow) at
+// LayoutC's level 3, else unused (may be null); out (B, n_bands + 1,
+// n_frames). All device buffers contiguous, on one device. The ring gets
+// as many slots (up to kMaxSlots, at most a tile's chunks) as shared
+// memory holds.
 int cdt_frontend_contrast(
     const float* wave, int batch, int n_samples, int n_frames, int n_fft, int hop, int j0,
-    int kpad, const float* table, int n_passes, int n_pow, int n_freqs, const float* freqs,
+    int kpad, int pow_k0, int pow_ks, const float* table, int n_pow, int n_freqs, const float* freqs,
     float half_sr, const int* bands, int n_bands, float* scratch, float* out, cudaStream_t stream) {
-  if (kpad % 16 || hop < 1 || n_bands < 0 || n_pow < 0 || n_passes < 1 ||
-      2 * (n_pow + n_freqs) > n_passes * kPassCols)
+  if (kpad % 16 || hop < 1 || n_bands < 1 || n_pow < 1 || n_freqs != n_fft / 2 + 1 || pow_k0 < 0 ||
+      pow_ks < 2 || pow_ks % 2 || 8 * (pow_k0 + pow_ks) > kpad)
     return (int)cudaErrorInvalidValue;
   const LayoutC lay(hop, kpad, n_pow, n_frames, n_bands + 1);
   if (lay.level == 3 && !scratch) return (int)cudaErrorInvalidValue;
-  const int chunks = n_passes * (kpad / 8);
-  int n_slots = kMaxSlots;
-  while (n_slots > 2 && (lay.bytes(n_slots) > kMaxSmem || chunks % n_slots)) --n_slots;
+  int n_slots = slots_c(lay, chunks_c(n_fft, kpad, pow_ks, n_pow));
   const size_t smem = lay.bytes(n_slots);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const void* fn = lay.level == 0 ? (const void*)contrast_kernel<true> : (const void*)contrast_kernel<false>;
   const int err = set_smem(fn, smem);
   if (err) return err;
-  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &table, &n_passes,
-                  &n_pow, &n_freqs, &freqs, &half_sr, &bands, &n_bands, &n_slots, &scratch, &out};
-  const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsA), args, smem, stream);
+  void* args[] = {&wave, &n_samples, &n_frames, &n_fft, &hop, &j0, &kpad, &pow_k0, &pow_ks, &table, &n_pow,
+                  &n_freqs, &freqs, &half_sr, &bands, &n_bands, &n_slots, &scratch, &out};
+  const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(kThreadsC), args, smem, stream);
   return launched ? (int)launched : (int)cudaGetLastError();
 }
 

@@ -122,6 +122,7 @@ _FFT_MAX_PRIME = 113  # the FFT plans: the largest prime of fft_stage_prime; pas
 _SMEM_TWO = _SMEM_SM // 2 - 1024  # bytes a block may use for two blocks an SM
 _BLUESTEIN_POINTS = 4096  # Bluestein's convolution: its m points at most
 _WARPS_A = 8  # launches A and C: warps a block (256 threads)
+_THREADS_C = 384  # the contrast launch's GEMM plan: two MMA warpgroups and a warpgroup of band warps
 
 # Launch A's plans (cdt_frontend_plan_a).
 PLAN_GEMM_UNSTAGED, PLAN_GEMM_STAGED, PLAN_FFT = 0, 1, 2
@@ -1006,7 +1007,7 @@ def build() -> ctypes.CDLL:
     lib.cdt_frontend_epilogue.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
     lib.cdt_frontend_epilogue.restype = i
     lib.cdt_frontend_contrast.argtypes = [
-        p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
+        p, i, i, i, i, i, i, i, i, i, p, i, i, p, f, p, i, p, p, p,
     ]
     lib.cdt_frontend_contrast.restype = i
     lib.cdt_frontend_spectral_fft.argtypes = [p, i, i, i, i, i, p, p, i, p, p, i, i, f, p, p]
@@ -1131,7 +1132,11 @@ class _ContrastGeometry(NamedTuple):
     pow_lo: int      # the bands read power bins [pow_lo, pow_lo + n_pow)
     n_pow: int
     n_freqs: int     # magnitude bins, all of them, for the centroid
-    n_passes: int    # DFT passes of 256 columns: power pairs, then magnitude pairs
+    pow_k0: int      # the power passes' first k-step of 8 taps from j0,
+    pow_ks: int      # and their k-steps: the win_length window's support, an even count
+    n_mag: int       # magnitude column pairs: one a bin, an even n_fft's Nyquist cosine in the DC bin's sine slot
+    pow_passes: int  # DFT passes of 256 columns over the power pairs,
+    n_passes: int    # and those and the magnitude's passes
     offsets: tuple   # per band: first bin, from pow_lo
     widths: tuple    # per band: bins
     tops: tuple      # per band: bins in the top tail
@@ -1143,7 +1148,9 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
     """The contrast launch's shapes, from the bands of
     ops/frontend.py::contrast_from_spectra and the supports of its two
     windows (the win_length Hann for the bands' power, the n_fft Hann for
-    the centroid's magnitude)."""
+    the centroid's magnitude). The GEMM plan's power passes run over the
+    win_length window's k-steps alone, its magnitude passes over both
+    windows' (kpad): csrc/frontend_kernel.cu's contrast_kernel."""
     n_freqs = cfg.n_fft // 2 + 1
     edges = contrast_band_edges(n_freqs, cfg.n_contrast_bands)
     lows, widths, tops, bots = [], [], [], []
@@ -1159,11 +1166,18 @@ def _geometry(cfg: FeatureConfig) -> _ContrastGeometry:
     n_pow = max((lo + n for lo, n in zip(lows, widths)), default=pow_lo) - pow_lo
     c4, _ = filters.dft_matrices(cfg.n_fft, cfg.win_length)
     c5, _ = filters.dft_matrices(cfg.n_fft, cfg.n_fft)
+    power = np.nonzero(np.any(c4 != 0, axis=1))[0]
     support = np.nonzero(np.any(c4 != 0, axis=1) | np.any(c5 != 0, axis=1))[0]
     j0, j1 = int(support[0]), int(support[-1]) + 1
+    kpad = -(-(j1 - j0) // 16) * 16
+    pow_k0 = (int(power[0]) - j0) // 8
+    pow_ks = -(-(int(power[-1]) + 1 - j0 - 8 * pow_k0) // 16) * 2
+    pow_k0 = min(pow_k0, kpad // 8 - pow_ks)  # the k-steps stay inside [0, kpad)
+    n_mag = n_freqs - (cfg.n_fft % 2 == 0)
+    pow_passes = -(-2 * n_pow // _PASS_COLS)
     return _ContrastGeometry(
-        j0, j1, -(-(j1 - j0) // 16) * 16, pow_lo, n_pow, n_freqs,
-        -(-2 * (n_pow + n_freqs) // _PASS_COLS), tuple(lo - pow_lo for lo in lows),
+        j0, j1, kpad, pow_lo, n_pow, n_freqs, pow_k0, pow_ks, n_mag, pow_passes,
+        pow_passes - (-2 * n_mag // _PASS_COLS), tuple(lo - pow_lo for lo in lows),
         tuple(widths), tuple(tops), tuple(bots),
     )
 
@@ -1205,6 +1219,28 @@ def _contrast_gemm_plan(cfg: FeatureConfig) -> tuple:
             return level, smem
 
 
+def contrast_ring(cfg: FeatureConfig) -> tuple:
+    """(chunks, slots) of the GEMM plan's ring, csrc/frontend_kernel.cu's
+    chunks_c and slots_c: a row tile's chunks (its power passes of pow_ks,
+    its magnitude passes of kpad / 8), and the slots, as many as shared
+    memory holds at its LayoutC level, up to 4 (kMaxSlots) and the
+    chunks, at least 2."""
+    g = _geometry(cfg)
+    chunks = g.pow_passes * g.pow_ks + (g.n_passes - g.pow_passes) * (g.kpad // 8)
+    level, smem = _contrast_gemm_plan(cfg)
+    slots = min(chunks, 4)
+    while slots > 2 and smem + 4 * (slots - _SLOTS_A) * _CHUNK > _MAX_SMEM:
+        slots -= 1
+    return chunks, slots
+
+
+def contrast_threads(cfg: FeatureConfig) -> int:
+    """The contrast launch's threads a block: its FFT plan's 256, or its
+    GEMM plan's 384 (two MMA warpgroups and a warpgroup of band warps;
+    csrc/frontend_kernel.cu's kThreadsA and kThreadsC)."""
+    return _WARPS_A * 32 if contrast_level(cfg) == CONTRAST_FFT else _THREADS_C
+
+
 def contrast_level(cfg: FeatureConfig) -> int:
     """The contrast launch's plan (cdt_frontend_plan_c): CONTRAST_FFT for an
     n_fft from 640 on, odd or even, whose rows, Bluestein scratch and
@@ -1221,35 +1257,51 @@ def contrast_smem_bytes(cfg: FeatureConfig) -> int:
 
 
 class _ContrastConstants(NamedTuple):
-    cols: torch.Tensor   # (j1 - j0, 2 (n_pow + n_freqs)): the DFT columns
-    table: torch.Tensor  # the chunk stream the contrast launch's ring reads
-    freqs: torch.Tensor  # (n_freqs,): the centroid's bin frequencies
-    bands: torch.Tensor  # (n_bands, 4) int32: offset, width, top, bottom a band
+    pow_cols: torch.Tensor  # (taps, 2 n_pow): the power passes' DFT columns over their taps
+    mag_cols: torch.Tensor  # (j1 - j0, 2 n_mag): the magnitude passes' DFT columns
+    table: torch.Tensor     # the chunk stream the contrast launch's ring reads
+    freqs: torch.Tensor     # (n_freqs,): the centroid's bin frequencies
+    bands: torch.Tensor     # (n_bands, 4) int32: offset, width, top, bottom a band
 
 
 @functools.lru_cache(maxsize=16)
 def _contrast_constants(cfg: FeatureConfig, device: torch.device) -> _ContrastConstants:
-    """The contrast launch's DFT over both windows' support [j0, j1): per
-    power bin of the bands (win_length window) its cos and -sin columns,
-    interleaved, then the same for every bin of the n_fft window, zero
-    past them. Split into hi/lo TF32 here, once per config, and laid out
-    as launch A's tables are (`_tiles`): per pass of 256 columns, one 16 KB
-    chunk per k-step of 8 taps over [j0, j0 + kpad)."""
+    """The contrast launch's DFT columns, split into hi/lo TF32 here, once
+    per config, and laid out as launch A's tables are (`_tiles`): first
+    the power passes, per pass of 256 columns one 16 KB chunk per k-step of
+    8 taps over the win_length window's k-steps [pow_k0, pow_k0 + pow_ks)
+    from j0, each power bin of the bands its cos and -sin columns
+    interleaved; then the magnitude passes, one chunk per k-step over [j0,
+    j0 + kpad), a bin's pair a bin of the n_fft window, but for an even
+    n_fft the DC bin's pair: its cosine, then the Nyquist bin's cosine,
+    the two sines being zero (the Nyquist one up to float64 rounding,
+    1.2e-13 at n_fft 512). Zero past them and past the taps."""
     g = _geometry(cfg)
     c4, s4 = filters.dft_matrices(cfg.n_fft, cfg.win_length)
     c5, s5 = filters.dft_matrices(cfg.n_fft, cfg.n_fft)
-    taps, bins, p2 = slice(g.j0, g.j1), slice(g.pow_lo, g.pow_lo + g.n_pow), 2 * g.n_pow
-    table = np.zeros((g.kpad, g.n_passes * _PASS_COLS), np.float32)
-    table[: g.j1 - g.j0, 0:p2:2] = c4[taps, bins]
-    table[: g.j1 - g.j0, 1:p2:2] = s4[taps, bins]
-    table[: g.j1 - g.j0, p2 : p2 + 2 * g.n_freqs : 2] = c5[taps]
-    table[: g.j1 - g.j0, p2 + 1 : p2 + 2 * g.n_freqs : 2] = s5[taps]
-    stream = torch.cat([
-        _tiles(table[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]) for p in range(g.n_passes)
-    ])
-    cols = table[: g.j1 - g.j0, : 2 * (g.n_pow + g.n_freqs)]
+    t0 = g.j0 + 8 * g.pow_k0
+    taps, bins, p2 = slice(t0, min(t0 + 8 * g.pow_ks, g.j1)), slice(g.pow_lo, g.pow_lo + g.n_pow), 2 * g.n_pow
+    power = np.zeros((8 * g.pow_ks, g.pow_passes * _PASS_COLS), np.float32)
+    n = taps.stop - taps.start
+    power[:n, 0:p2:2] = c4[taps, bins]
+    power[:n, 1:p2:2] = s4[taps, bins]
+    mag = np.zeros((g.kpad, (g.n_passes - g.pow_passes) * _PASS_COLS), np.float32)
+    m, rows = g.j1 - g.j0, slice(g.j0, g.j1)
+    if cfg.n_fft % 2 == 0:
+        half = cfg.n_fft // 2
+        mag[:m, 0], mag[:m, 1] = c5[rows, 0], c5[rows, half]
+        mag[:m, 2 : 2 * g.n_mag : 2] = c5[rows, 1:half]
+        mag[:m, 3 : 2 * g.n_mag : 2] = s5[rows, 1:half]
+    else:
+        mag[:m, 0 : 2 * g.n_mag : 2] = c5[rows]
+        mag[:m, 1 : 2 * g.n_mag : 2] = s5[rows]
+    stream = torch.cat(
+        [_tiles(power[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]) for p in range(g.pow_passes)]
+        + [_tiles(mag[:, p * _PASS_COLS : (p + 1) * _PASS_COLS]) for p in range(g.n_passes - g.pow_passes)]
+    )
     return _ContrastConstants(
-        torch.from_numpy(np.ascontiguousarray(cols)).to(device),
+        torch.from_numpy(np.ascontiguousarray(power[:n, :p2])).to(device),
+        torch.from_numpy(np.ascontiguousarray(mag[:m, : 2 * g.n_mag])).to(device),
         stream.reshape(-1).to(device), *_centroid_and_bands(cfg, device),
     )
 
@@ -1290,22 +1342,30 @@ def spectral_contrast_split_reference(
     passes: int = 3,
 ) -> torch.Tensor:
     """The contrast launch's arithmetic in plain torch ops: (B,
-    segment_samples) → (B, n_contrast_bands + 1, num_frames), its DFT with
-    TF32 operands over both windows' support (passes=3: the kernel's
-    3xTF32, as `power_mel_split_reference` models launch A's; passes=1: one
-    TF32 product), its tails by stable rank as the kernel selects them.
-    For tests and chip_smoke.py; nothing on the main path calls it."""
+    segment_samples) → (B, n_contrast_bands + 1, num_frames). Its DFT with
+    TF32 operands (passes=3: the kernel's 3xTF32, as
+    `power_mel_split_reference` models launch A's; passes=1: one TF32
+    product) as the GEMM plan lays it out (`_contrast_constants`): the
+    power pairs over the win_length window's k-steps, the magnitude pairs
+    over both windows' support, an even n_fft's DC and Nyquist cosines in
+    one pair; its tails by stable rank as the kernel selects them. For
+    tests and chip_smoke.py; nothing on the main path calls it."""
     _check_contrast(cfg, waves.shape[-1])
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     g = _geometry(cfg)
     k = _contrast_constants(cfg, waves.device)
-    frames = frame_signal(waves, cfg.n_fft, cfg.hop_length)[..., g.j0 : g.j1]
-    out = _split_matmul(frames, k.cols, passes)
-    sq = out[..., 0::2] ** 2 + out[..., 1::2] ** 2
-    spec = torch.zeros(sq.shape[:2] + (g.n_freqs,), dtype=sq.dtype, device=sq.device)
-    spec[..., g.pow_lo : g.pow_lo + g.n_pow] = sq[..., : g.n_pow]
-    mag = torch.sqrt(sq[..., g.n_pow :])
+    frames = frame_signal(waves, cfg.n_fft, cfg.hop_length)
+    t0 = g.j0 + 8 * g.pow_k0
+    pw = _split_matmul(frames[..., t0 : t0 + k.pow_cols.shape[0]], k.pow_cols, passes)
+    spec = torch.zeros(pw.shape[:2] + (g.n_freqs,), dtype=pw.dtype, device=pw.device)
+    spec[..., g.pow_lo : g.pow_lo + g.n_pow] = pw[..., 0::2] ** 2 + pw[..., 1::2] ** 2
+    out = _split_matmul(frames[..., g.j0 : g.j1], k.mag_cols, passes)
+    re, im = out[..., 0::2], out[..., 1::2]
+    if cfg.n_fft % 2 == 0:  # DC's cosine and Nyquist's, then bins 1 to n_fft / 2 - 1
+        mag = torch.sqrt(torch.cat([re[..., :1] ** 2, re[..., 1:] ** 2 + im[..., 1:] ** 2, im[..., :1] ** 2], -1))
+    else:
+        mag = torch.sqrt(re**2 + im**2)
     return contrast_from_spectra(spec, mag, cfg, tails="rank").transpose(1, 2)
 
 
@@ -1385,7 +1445,7 @@ def spectral_contrast_fused(
                 scratch = torch.empty((b, _ROWS_A, g.n_pow), dtype=torch.float32, device=waves.device)
             err = lib.cdt_frontend_contrast(
                 waves.data_ptr(), b, waves.shape[1], t, cfg.n_fft, cfg.hop_length,
-                g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs,
+                g.j0, g.kpad, g.pow_k0, g.pow_ks, k.table.data_ptr(), g.n_pow, g.n_freqs,
                 k.freqs.data_ptr(), half_sr, k.bands.data_ptr(),
                 cfg.n_contrast_bands, None if scratch is None else scratch.data_ptr(),
                 out.data_ptr(), stream,

@@ -12,7 +12,7 @@ take. Bluestein's stage (a prime factor past the cap) against float64
 `numpy.fft.fft`, and the kernel's own FFT stages, built for the host with
 g++ from the kernel source and run by 256 threads that meet at a barrier
 as a block's do, against float64 `numpy.fft.fft` and the models; the
-contrast plan's band stage (`band_sorted`, and `block_tails` for a band
+contrast plan's band stage (`band_value_sorted`, and `block_tails` for a band
 past `kWideBand`) built so too, warps' shuffles and ballots emulated,
 against the stable-rank tails. Then the
 plan rule (the Python mirror, and the C rule itself built with g++ from
@@ -1009,7 +1009,7 @@ int main() {
 
 @pytest.fixture(scope="module")
 def host_bands(tmp_path_factory):
-    """The kernel source's band stage (band_sorted, block_tails, wide_bands
+    """The kernel source's band stage (band_value_sorted, block_tails, wide_bands
     and the warp reductions under them) built for the host with g++."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -1024,7 +1024,7 @@ def host_bands(tmp_path_factory):
         HOST_PRELUDE,
         between("constexpr int kWarpsA", "// Launch A's shared memory, in floats"),
         between("__device__ __forceinline__ float warp_sum", "// The clip's z-norm"),
-        between("// One frame's contrast in one band of w <= 32 kK bins", "// A group's span into shared memory"),
+        between("// One frame's contrast in one band, by a warp, for the FFT plan", "// A group's span into shared memory"),
         BAND_MAIN,
     ])
     d = tmp_path_factory.mktemp("host_bands")
@@ -1075,7 +1075,7 @@ def test_block_tails_built_for_the_host(host_bands, kind):
     equals the stable-rank tails on widths from 33 to 2048, one-bin tails
     and tails of all but one bin among them: exactly where the sums are
     exact (small integers), else to float32 rounding; and step 4's rows,
-    by band_sorted to kWideBand bins and block_tails past it, equal the
+    by band_value_sorted to kWideBand bins and block_tails past it, equal the
     rank tails' contrast."""
     rng = np.random.default_rng(["ties", "zeros", "flat", "power"].index(kind))
     widths = (33, 64, 100, 255, 256, 257, 511, 512, 513, 581, 705, 868, 1024, 1500, 2048)

@@ -1,23 +1,24 @@
 """Where the contrast launch's time goes, on one NVIDIA card.
 
-    python3 tools/contrast_probe.py [--baseline PATH ...] [--routes | --primes | --wide | --bluestein]
+    python3 tools/contrast_probe.py [--baseline PATH ...] [--gemm | --routes | --primes | --wide | --bluestein]
 
 Times launch C of the front-end kernel (csrc/frontend_kernel.cu:
-contrast_kernel, the launcher's spectral-contrast rows) with CUDA events
-at B = 1024 and 4096 on the shipped config with contrast, as built and in
-variants, each a string edit of the source built with the same nvcc flags
-into build/kernels/ (all builds run at once):
-  - 4 bins a lane: every band ranked with four bins a lane, as the
-    launch's first design did (the same rows);
-  - no band tails: the band stage left out (its inputs still taken by an
-    empty asm), so the rows are wrong and the time is what the rest costs;
-  - one DFT pass: the tile's DFT stops after its first pass of 256
-    columns (the shipped config's clips are one row tile, so the ring is
-    never restarted), which measures a pass's share.
-Each --baseline is another copy of the source (the same C interface for
-launch C and its FFT plan) timed in turns with this one: the baselines,
-as built, the variants, as built, the baselines.
-
+contrast_kernel, the launcher's spectral-contrast rows, its GEMM plan)
+with CUDA events at B = 256, 1024 and 4096 on the shipped config with
+contrast, as built and in variants (gemm_variants), each a string edit of
+the source built with the same nvcc flags into build/kernels/ (all builds
+run at once): the band stage left out, the centroid and z-norm left out,
+and by design its passes cut or its ring's depth changed. Each --baseline
+is another copy of the source timed in turns with this one through the C
+interface and tables of its own design (an older GEMM plan's by
+legacy_table: the LEGACY_* texts and legacy_table serve a source whose
+contrast_kernel still takes n_passes, the design before the band warps,
+which PERF.md's split and turns of the band warps' design were taken
+against; they can go once no comparison with such a source is wanted).
+`--gemm` runs that split alone, every build (the
+baselines too) with its own design's variants, after printing each
+build's contrast_kernel registers and stack (cuobjdump): each build, its
+variants, the build again, then the builds once more in reverse.
 Then launch C's FFT plan (contrast_fft_kernel) at B = 1024 on n_fft 2048,
 4096, 2000, 3000, 1792, 2744, 1760 and 2662 with contrast (hop n_fft / 4,
 6 bands; the frames of 64 clips repeated; 2000 runs radix-4 and radix-5
@@ -28,8 +29,8 @@ instance of radix 11, with the twiddle rule before an odd n_fft on an
 even one (past n_fft / 2 the negated entry of k - n_fft / 2, not the
 conjugate of entry n_fft - k), and, on 2048, 4096 and 2000, in variants
 that split its time:
-  - ranked tails: the bands' tails by stable rank (band_value, the GEMM
-    plan's) instead of the sort in registers;
+  - ranked tails: the bands' tails by stable rank (band_ranked, the GEMM
+    plan's past 128 bins) instead of the sort in registers;
   - no band tails: each (frame, band)'s row takes one power value;
   - no FFT stages; no staging (the span left as it was);
   - DivBy for a power of two: the power-of-two stages index their
@@ -104,13 +105,8 @@ from cough_detector_tpu_torch.ops import frontend, frontend_kernel  # noqa: E402
 from cough_detector_tpu_torch.utils import kernel_build  # noqa: E402
 
 ITERS = {1024: 20, 4096: 10}
+GEMM_ITERS = {256: 40, 1024: 20, 4096: 10}
 
-BANDS = (
-    "  if (w > 96) return band_contrast<4>(pb, w, nt, nb, lane);\n"
-    "  if (w > 64) return band_contrast<3>(pb, w, nt, nb, lane);\n"
-    "  if (w > 32) return band_contrast<2>(pb, w, nt, nb, lane);\n"
-    "  if (w > 1) return band_contrast<1>(pb, w, nt, nb, lane);\n"
-)
 GEMM_TAILS = "        const float v = band_value(pw + r * n_pow, __ldg(bands + i), lane);\n"
 FFT_TAILS = "      const float v = band_value_sorted(pw + f * n_pow, bd, lane);\n"
 WIDE_TAILS = ("    if constexpr (kWide)\n      wide_bands(pw, n_pow, bands, n_bands, frames, con + t0, n_frames, "
@@ -212,13 +208,11 @@ def edit(src: str, old: str, new: str) -> str:
 
 
 def variants(src: str) -> dict:
-    one_pass = edit(src, "ring.n = n_passes * n_ksteps;", "ring.n = n_ksteps;")
     return {
         "as built": src,
-        "4 bins a lane": edit(src, BANDS, "  if (w > 1) return band_contrast<4>(pb, w, nt, nb, lane);\n"),
-        "no band tails": edit(src, GEMM_TAILS, "        const float v = pw[r * n_pow + lane];\n"),
-        "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
-        "FFT plan, ranked tails": edit(src, FFT_TAILS, FFT_TAILS.replace("band_value_sorted", "band_value")),
+        **gemm_variants(src),
+        "FFT plan, ranked tails": edit(src, FFT_TAILS, "      float v1[1];\n      band_ranked<1>(pw + f * n_pow + bd.x, 0, bd.y, bd.z,"
+                                                       " bd.w, lane, v1);\n      const float v = bd.y > 1 ? v1[0] : 0.0f;\n"),
         "FFT plan, no band tails": edit(src, FFT_TAILS, "      const float v = pw[f * n_pow + lane];\n"),
         "FFT plan, no FFT stages": edit(src, FFT_ROWS_C, ""),
         "FFT plan, no staging": edit(src, "    stage_flat(span, src, (F - 1) * hop + n_fft);\n", ""),
@@ -229,6 +223,112 @@ def variants(src: str) -> dict:
                                 "false              ? (const void*)contrast_fft_kernel<7, false, 0, false>"),
                            "lp == 11           ?", "lp <= 11           ?"),
         TWIDDLE_NEGATED: edit(src, TWIDDLE, TWIDDLE_NEGATED_RULE),
+    }
+
+
+# The GEMM plan before its power and magnitude passes were split (one
+# ring of n_passes passes of kpad / 8 chunks, the power pairs first, the
+# band stage after the last pass on all 8 warps): a source whose
+# contrast_kernel takes n_passes (LEGACY_GEMM) takes that design's C
+# interface, tables and variants.
+LEGACY_GEMM = "int kpad, const float* __restrict__ table, int n_passes, int n_pow, int n_freqs,"
+LEGACY_RING = "  ring.n = n_passes * n_ksteps;\n"
+LEGACY_CENTROID = """            const float m = sqrtf(sq);
+            msum[h] += m;
+            fsum[h] += __ldg(freqs + bin - n_pow) * m;
+"""
+LEGACY_ZNORM = """  znorm_rows(con, n, red, out + (size_t)blockIdx.x * n);
+}
+
+// -- The FFT plans"""
+LEGACY_KSTEPS = "  const int n_ksteps = kpad / 8;\n  Ring ring;\n"
+LEGACY_SLOTS = "  int n_slots = kMaxSlots;\n  while (n_slots > 2 && (lay.bytes(n_slots) > kMaxSmem || chunks % n_slots)) --n_slots;\n"
+
+# The GEMM plan's texts its variants edit (its band warps' call, the
+# magnitude's sums, the z-norm, the passes' loops and a tile's chunks).
+BAND_WARPS = "    band_values<kBandFrames>(pw + f0 * n_pow, n_pow, __ldg(bands + i), lane, v);\n"
+MMA_ITEMS = "    band_items(counters + t0 / kRows % 2, pw, n_pow, bands, n_bands, frames, con + t0, n_frames, lane);\n"
+BAND_FRAMES = "constexpr int kBandFrames = 4;"
+CENTROID = """            const bool two = i == 0 && n_mag < n_freqs;  // the DC and Nyquist cosines
+            const float m = sqrtf(two ? re * re : re * re + im * im);
+            msum[h] += m;
+            fsum[h] += __ldg(freqs + i) * m;
+            if (two) {
+              const float mn = sqrtf(im * im);
+              msum[h] += mn;
+              fsum[h] += __ldg(freqs + n_freqs - 1) * mn;
+            }
+"""
+ZNORM = "  znorm_rows<kBarMma>(con, n, red, out + (size_t)blockIdx.x * n);\n}\n"
+MAG_PASSES = "    for (int p = 0; p < mag_passes; ++p) {\n      dft.run(q, slot, parity, mag_ks);\n"
+POW_PASSES = "    for (int p = 0; p < pow_passes; ++p) {\n      dft.run_from(q, slot, parity, pow_k0, pow_ks);\n"
+TILE_CHUNKS = "  ring.per = ring.n = pow_passes * pow_ks + mag_passes * mag_ks;\n"
+MAX_SLOTS = "constexpr int kMaxSlots = 4;"
+REGISTERS = ("constexpr int kRegMma = 208;", "constexpr int kRegBand = 88;")
+RANK_UNROLL = "#pragma unroll 1\n  for (int b = 0; b < w; ++b) {"
+SORTED_BAND = "constexpr int kSortedBand = 128;"
+
+
+def power_ksteps(cfg: FeatureConfig) -> int:
+    """k-steps of 8 taps over the win_length window's nonzero taps (the
+    power columns' support), rounded up to an even count."""
+    from cough_detector_tpu_torch.ops import filters
+
+    c4, _ = filters.dft_matrices(cfg.n_fft, cfg.win_length)
+    support = np.nonzero(np.any(c4 != 0, axis=1))[0]
+    return -(-(int(support[-1]) + 1 - int(support[0])) // 16) * 2
+
+
+def gemm_variants(src: str) -> dict:
+    """The GEMM plan (contrast_kernel) with a part of it left out or
+    changed, by the design `src` holds; the rows are wrong by design but
+    for the ring's depth. Both designs: no band tails (each (frame,
+    band)'s row takes one power value); no centroid or z-norm (the
+    magnitude's sums take the squares, no sqrt or frequency loads, and the
+    rows are copied out unnormalized). The design before the split passes
+    (LEGACY_GEMM): one DFT pass (the tile stops after its first pass of
+    256 columns); every pass over the power window's support (50 k-steps
+    of 8 taps on the shipped config, where each runs 64); the ring at two
+    and three slots (four as built). The design with band warps: the
+    band items on the band warps alone (the MMA warps draw none after
+    their magnitude passes); one or two frames of a band an item (four as
+    built); no
+    magnitude passes, or no power passes (the ring reads the others'
+    chunks alone: the shipped config's clips are one row tile); the ring
+    at two and three slots (four as built); setmaxnreg's 216 / 72 and
+    200 / 104 registers (208 / 88 as built); every band ranked, 4 bins a lane (those
+    to 128 bins sorted as built); the rank loop unrolled by 4 (not as built)."""
+    if LEGACY_GEMM in src:
+        one_pass = edit(src, LEGACY_RING, "  ring.n = n_ksteps;\n")
+        copy = ("  for (int i = tid; i < n; i += kThreadsA) out[(size_t)blockIdx.x * n + i] = con[i];\n}\n\n"
+                "// -- The FFT plans")
+        return {
+            "no band tails": edit(src, GEMM_TAILS, "        const float v = pw[r * n_pow + lane];\n"),
+            "no centroid or z-norm": edit(edit(src, LEGACY_CENTROID, "            msum[h] += sq;\n"),
+                                          LEGACY_ZNORM, copy),
+            "one DFT pass": edit(one_pass, "for (int p = 0; p < n_passes; ++p) {", "for (int p = 0; p < 1; ++p) {"),
+            "passes over the power window's support": edit(
+                src, LEGACY_KSTEPS, LEGACY_KSTEPS.replace("kpad / 8", str(power_ksteps(FeatureConfig())))),
+            **{f"{k} ring slots": edit(src, LEGACY_SLOTS, LEGACY_SLOTS.replace("kMaxSlots;", f"{k};"))
+               for k in (2, 3)},
+        }
+    copy = "  for (int i = tid; i < n; i += kThreadsA) out[(size_t)blockIdx.x * n + i] = con[i];\n}\n"
+    return {
+        "no band tails": edit(src, BAND_WARPS, "    for (int f = 0; f < kBandFrames; ++f) v[f] = pw[(f0 + f) * n_pow + lane];\n"),
+        "the band warps alone": edit(src, MMA_ITEMS, ""),
+        **{f"{k} frame{'s' * (k > 1)} a band item": edit(src, BAND_FRAMES, f"constexpr int kBandFrames = {k};")
+           for k in (1, 2)},
+        "no centroid or z-norm": edit(edit(src, CENTROID, "            msum[h] += re * re + im * im;\n"),
+                                      ZNORM, copy),
+        "no magnitude passes": edit(edit(src, MAG_PASSES, MAG_PASSES.replace("p < mag_passes", "p < 0")),
+                                    TILE_CHUNKS, "  ring.per = ring.n = pow_passes * pow_ks;\n"),
+        "no power passes": edit(edit(src, POW_PASSES, POW_PASSES.replace("p < pow_passes", "p < 0")),
+                                TILE_CHUNKS, "  ring.per = ring.n = mag_passes * mag_ks;\n"),
+        **{f"{k} ring slots": edit(src, MAX_SLOTS, f"constexpr int kMaxSlots = {k};") for k in (2, 3)},
+        **{f"registers {m} / {b}": edit(edit(src, REGISTERS[0], f"constexpr int kRegMma = {m};"),
+                                        REGISTERS[1], f"constexpr int kRegBand = {b};") for m, b in ((216, 72), (200, 104))},
+        "the bands ranked, none sorted": edit(src, SORTED_BAND, "constexpr int kSortedBand = 1;"),
+        "the rank loop unrolled by 4": edit(src, RANK_UNROLL, RANK_UNROLL.replace("#pragma unroll 1", "#pragma unroll 4")),
     }
 
 
@@ -250,7 +350,7 @@ def wide_variants(src: str) -> dict:
     """The FFT plan with its band stage left out (each (frame, band)'s row
     takes one power value, no band by the block) and with its FFT stages
     left out: the wide-band section's split; with block_tails taking every
-    band past each of WIDE_FROM bins (kWideBand), where band_sorted gives
+    band past each of WIDE_FROM bins (kWideBand), where band_value_sorted gives
     way; with the wide bands' n_fft of radix 7 in the general wide instance
     (of radix 11, the prime and Bluestein's stages); with wide_bands
     inlined; and with the wide instances' launch bounds at one block an SM
@@ -317,9 +417,11 @@ def build_all(sources: dict) -> dict:
 def typed(handle: ctypes.CDLL, text: str) -> ctypes.CDLL:
     """The contrast launch's C entry points of a build of `text`, typed."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    handle.cdt_frontend_contrast.argtypes = [
-        p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p,
-    ]
+    handle.legacy_gemm = LEGACY_GEMM in text
+    handle.cdt_frontend_contrast.argtypes = (
+        [p, i, i, i, i, i, i, i, p, i, i, i, p, f, p, i, p, p, p] if handle.legacy_gemm
+        else [p, i, i, i, i, i, i, i, i, i, p, i, i, p, f, p, i, p, p, p]
+    )
     # A source before the wide bands' instances takes no widest band.
     handle.widest = "int n_bands, int widest," in text
     handle.half_twiddles = HALF_TWIDDLES in text
@@ -338,6 +440,8 @@ def main() -> None:
     parser.add_argument("--primes", action="store_true", help="the prime stage's sections alone (see above)")
     parser.add_argument("--wide", action="store_true", help="the wide-band section alone (see above)")
     parser.add_argument("--bluestein", action="store_true", help="the Bluestein split alone (see above)")
+    parser.add_argument("--gemm", action="store_true",
+                        help="the GEMM plan's split alone, every build with its variants (see above)")
     parser.add_argument("--bounds", action="store_true",
                         help="print the bounds of launches A and C on PRIMES' and WIDE's windows (no card)")
     args = parser.parse_args()
@@ -365,6 +469,18 @@ def main() -> None:
             resource_usage(f"contrast_probe_{n}", name)
         primes_section(libs, list(baselines), np.random.default_rng(0), torch.device("cuda"))
         return
+    if args.gemm:
+        baselines = {f"baseline {path}": path.read_text() for path in args.baseline}
+        sources, owners = {}, {}
+        for owner, text in {**baselines, "as built": src}.items():
+            sources[owner] = text
+            owners[owner] = [f"{owner}, {v}" for v in gemm_variants(text)]
+            sources.update({f"{owner}, {v}": t for v, t in gemm_variants(text).items()})
+        libs = build_all(sources)
+        for n, name in enumerate(sources):
+            gemm_resources(f"contrast_probe_{n}", name)
+        gemm_section(libs, owners, np.random.default_rng(0), torch.device("cuda"))
+        return
     if args.wide or args.bluestein:
         from spectral_probe import bluestein_variants
 
@@ -384,45 +500,8 @@ def main() -> None:
         sources[name] = path.read_text()
     libs = build_all(sources)
     dev = torch.device("cuda")
-    cfg = FeatureConfig(use_spectral_contrast=True)
-    g = frontend_kernel._geometry(cfg)
-    k = frontend_kernel._contrast_constants(cfg, dev)
-    n = cfg.n_contrast_bands
     rng = np.random.default_rng(0)
-    gemm = [v for v in libs if v not in baselines and v != "as built" and not v.startswith("FFT plan")]
-    order = baselines + ["as built"] + gemm + ["as built"] + baselines
-    for b, iters in ITERS.items():
-        w = torch.from_numpy((rng.standard_normal((b, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
-        out = torch.empty((b, n + 1, cfg.num_frames), device=dev)
-        want = frontend_kernel.spectral_contrast_reference(w, cfg)
-        for name in order:
-            lib = libs[name]
-
-            def launch() -> None:
-                err = lib.cdt_frontend_contrast(
-                    w.data_ptr(), b, cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
-                    g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs, k.freqs.data_ptr(),
-                    float(cfg.sample_rate / 2.0), k.bands.data_ptr(), n, None, out.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream,
-                )
-                if err:
-                    raise RuntimeError(f"launch failed: cudaError {err}")
-
-            for _ in range(3):
-                launch()
-            torch.cuda.synchronize()
-            err = ((out - want).abs().max() / want.abs().max()).item()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                launch()
-            end.record()
-            torch.cuda.synchronize()
-            print(
-                f"contrast launch B={b}, shipped + contrast, {name}: {start.elapsed_time(end) / iters:.4f} ms, "
-                f"max-relative vs plain {err:.2e}",
-                flush=True,
-            )
+    gemm_section(libs, {**{b: [] for b in baselines}, "as built": list(gemm_variants(src))}, rng, dev)
     fft_section(libs, baselines, rng, dev)
     threshold_section(libs["as built"], rng, dev)
     routes_section(libs["as built"], rng, dev)
@@ -454,25 +533,97 @@ def fft_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch
     return launch
 
 
+def legacy_table(cfg: FeatureConfig, dev: torch.device) -> tuple:
+    """(table, n_passes): the chunk stream of the GEMM plan before its
+    power and magnitude passes were split (LEGACY_GEMM): per pass of 256
+    columns over [j0, j0 + kpad), kpad / 8 chunks, the bands' power pairs
+    then every bin's magnitude pair."""
+    from cough_detector_tpu_torch.ops import filters
+
+    g = frontend_kernel._geometry(cfg)
+    c4, s4 = filters.dft_matrices(cfg.n_fft, cfg.win_length)
+    c5, s5 = filters.dft_matrices(cfg.n_fft, cfg.n_fft)
+    n_passes = -(-2 * (g.n_pow + g.n_freqs) // 256)
+    taps, bins, p2 = slice(g.j0, g.j1), slice(g.pow_lo, g.pow_lo + g.n_pow), 2 * g.n_pow
+    table = np.zeros((g.kpad, n_passes * 256), np.float32)
+    table[: g.j1 - g.j0, 0:p2:2] = c4[taps, bins]
+    table[: g.j1 - g.j0, 1:p2:2] = s4[taps, bins]
+    table[: g.j1 - g.j0, p2 : p2 + 2 * g.n_freqs : 2] = c5[taps]
+    table[: g.j1 - g.j0, p2 + 1 : p2 + 2 * g.n_freqs : 2] = s5[taps]
+    stream = torch.cat([frontend_kernel._tiles(table[:, q * 256 : (q + 1) * 256]) for q in range(n_passes)])
+    return stream.reshape(-1).to(dev), n_passes
+
+
 def gemm_launch(lib: ctypes.CDLL, w: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor):
     """The GEMM plan through its C function, at LayoutC's level (a scratch
-    buffer for the power rows at level 3)."""
+    buffer for the power rows at level 3), with the tables and interface
+    of the design the library was built from (typed)."""
     g = frontend_kernel._geometry(cfg)
     k = frontend_kernel._contrast_constants(cfg, w.device)
     level = frontend_kernel._contrast_gemm_plan(cfg)[0]
     scratch = torch.empty((w.shape[0], 128, g.n_pow), device=w.device) if level == 3 else None
+    head = (w.data_ptr(), w.shape[0], cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length, g.j0, g.kpad)
+    if getattr(lib, "legacy_gemm", False):
+        table, n_passes = legacy_table(cfg, w.device)
+        geometry = (table.data_ptr(), n_passes, g.n_pow, g.n_freqs)
+    else:
+        table = k.table
+        geometry = (g.pow_k0, g.pow_ks, table.data_ptr(), g.n_pow, g.n_freqs)
+    tail = (k.freqs.data_ptr(), float(cfg.sample_rate / 2.0), k.bands.data_ptr(), cfg.n_contrast_bands,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr())
+    keep = (table, scratch)
 
     def launch() -> None:
-        err = lib.cdt_frontend_contrast(
-            w.data_ptr(), w.shape[0], cfg.segment_samples, cfg.num_frames, cfg.n_fft, cfg.hop_length,
-            g.j0, g.kpad, k.table.data_ptr(), g.n_passes, g.n_pow, g.n_freqs, k.freqs.data_ptr(),
-            float(cfg.sample_rate / 2.0), k.bands.data_ptr(), cfg.n_contrast_bands,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
+        assert keep  # the closure holds the buffers its pointers read
+        err = lib.cdt_frontend_contrast(*head, *geometry, *tail, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
     return launch
+
+
+def gemm_resources(build_name: str, label: str) -> None:
+    """contrast_kernel's instances' registers and stack frame (where
+    spills go) in build `build_name`, from cuobjdump."""
+    cuobjdump = Path(kernel_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(kernel_build.BUILD_DIR / f"{build_name}.so")],
+                         check=True, capture_output=True, text=True).stdout.splitlines()
+    for i, line in enumerate(out):
+        if "Function" in line and "contrast_kernel" in line:
+            symbol = line.split("Function", 1)[1].strip(" :")
+            print(f"contrast_kernel ({symbol}) {label}: {' '.join(out[i + 1].split()[:3])} (cuobjdump "
+                  f"--dump-resource-usage)", flush=True)
+
+
+def gemm_section(libs: dict, owners: dict, rng: np.random.Generator, dev: torch.device) -> None:
+    """The GEMM plan on the shipped config with contrast at each B of
+    GEMM_ITERS: the builds of `owners` (name -> its variants' names), in
+    turns (each owner, its variants, the owner again), then each owner
+    once more in reverse. Each owner's rows (not the variants') held to the
+    plain version (1e-3). Prints each run, then each owner's time range and
+    each variant's saving (the owner's slower run less the variant's)."""
+    cfg = FeatureConfig(use_spectral_contrast=True)
+    for b, iters in GEMM_ITERS.items():
+        w = torch.from_numpy((rng.standard_normal((b, cfg.segment_samples)) * 0.3).astype(np.float32)).to(dev)
+        want = frontend_kernel.spectral_contrast_reference(w, cfg)
+        out = torch.empty(want.shape, device=dev)  # contiguous: the kernel's layout
+        order = [n for owner, vs in owners.items() for n in (owner, *vs, owner)] + list(owners)[::-1]
+        times = {}
+        for name in order:
+            launch = gemm_launch(libs[name], w, cfg, out)
+            t = cuda_ms(launch, iters)
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            if name in owners and err > 1e-3:
+                raise SystemExit(f"the contrast launch's {name} disagrees with plain at B={b}: {err:.2e}")
+            times.setdefault(name, []).append(t)
+            print(f"contrast launch B={b}, shipped + contrast, {name}: {t:.4f} ms, max-relative vs plain {err:.2e}",
+                  flush=True)
+        for owner, vs in owners.items():
+            own = times[owner]
+            print(f"contrast launch B={b}, shipped + contrast: {owner} {min(own):.4f}-{max(own):.4f} ms; savings "
+                  "(ms, its slower run less the variant's): "
+                  + ", ".join(f"{v.removeprefix(owner + ', ')} {max(own) - max(times[v]):.4f}" for v in vs),
+                  flush=True)
 
 
 def threshold_section(lib: ctypes.CDLL, rng: np.random.Generator, dev: torch.device,
