@@ -60,21 +60,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      memory, contrast levels 1 and 3 and mel groups where the FFT plans do
      not fit (a 25 ms hop with contrast; the prime n_fft 2129 at 256 mels
      with contrast), and 10 s clips with PCEN, delta-deltas and 20 MFCCs and with 36 MFCCs of 40 mels
-     (launch B's cluster route's other branches), 120 s at 128 mels (launch
-     B in device memory), for the plans no other config reaches) through
+     (launch B's span route's 20-MFCC and two-pass DCT branches), 120 s
+     at 128 mels with PCEN and delta-deltas and 150 s of the shipped
+     config (launch B's span route past a cluster of 16, its PCEN and dB
+     branches), for the plans no other config reaches) through
      extract_features_fast: every launch it needs once a call (the FFT
-     plans' kernels counted on their own too), the
+     plans' kernels and launch B's span route counted on their own too), the
      features within 1e-3 of the plain versions and of the torch chain,
      each launch alone within 1e-3 of its plain version and of the CPU
      model of its plan (FFT_TOL for the FFT plans' models, SPLIT_TOL for
-     the 3xTF32 models), each launch's shared memory and plan (the FFT or
-     the GEMM's span staged or not, blocks a clip, LayoutC's level or the
-     FFT) equal to its Python mirror; and the main path on 160 mels, 10 s
+     the 3xTF32 models, SPAN_TOL for the span route's), each launch's
+     shared memory and plan (the FFT or the GEMM's span staged or not,
+     launch B's plan and blocks a clip, LayoutC's level or the FFT) equal
+     to its Python mirror; and the main path on 160 mels, 10 s
      clips, n_fft 2048, n_fft 2048 with contrast, 44.1 kHz at n_fft 1764
      with contrast (radix-7 stages in both FFT plans), at the odd 1323
      with contrast (launch A's two frames a row, launch C's odd FFT),
      n_fft 2704 with contrast (two radix-13 stages in both FFT plans) and
-     2192 with contrast (Bluestein's stage in both),
+     2192 with contrast (Bluestein's stage in both), and at B = 4 on 120 s
+     at 128 mels with PCEN and delta-deltas (launch B's span route),
      features into the
      residual model through a captured graphs.Programs program (one eager
      call, two replays, launches counted through them, logits within 1e-3
@@ -102,10 +106,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      bins by block_tails) and 6544 (Bluestein's stage), each beside
      its bound, its plain version and torch.stft + mel (the fft rows for
      contrast); the epilogue launch alone on its cluster route (5 s at 128
-     mels, 10 s with PCEN, delta-deltas and 20 MFCCs at B = 1024, a hop of
-     4 at B = 256, 60 s at 128 mels with every flag at B = 64) and in
-     device memory (120 s at 128 mels, B = 32), beside its bound and plain
-     version; the epilogue launch
+     mels at B = 1024, a hop of 4 at B = 256) and on its span route (10 s
+     with PCEN, delta-deltas and 20 MFCCs at B = 1024, 60 s at 128 mels
+     with every flag at B = 64, 120 s at 128 mels with PCEN and
+     delta-deltas at B = 32 and 1, 150 s of the shipped config at B = 32;
+     each call timed whole, its three kernels, held to the plain version
+     and the span model),
+     beside its bound and plain version; the epilogue launch
      at B = 4096 at n_fft 256 and with PCEN, beside its bound; the contrast
      launch at B = 32, 256, 1024 and 4096 (device time at 256 and 1024),
      held to its plain version (1e-3) at each, beside its bound (an FFT of
@@ -363,6 +370,10 @@ SPLIT_TOL = 1e-4
 # spectral_contrast_fft_reference), which round each multiply and add where
 # the kernels may fuse them: the card read 6.1e-8 to 3.5e-7 (NVIDIA H100).
 FFT_TOL = 1e-5
+# Launch B's span route against its CPU model (mel_epilogue_span_reference:
+# the spans' partials folded in the kernels' order), which sums each
+# span's partial in another order than the kernels' warps.
+SPAN_TOL = 1e-5
 SR = 16000
 CHUNK = 1600
 
@@ -3364,9 +3375,9 @@ def coverage_configs() -> dict:
     past 4 s (launch B's tile past one block), a hop of 4, and contrast
     configs past the contrast launch's old limits (its FFT plan at n_fft
     1024 and 2048); each at B = 17 and 256. Then, at B = 17, those that
-    reach what no config above does: launch B on a non-portable cluster
-    (15 blocks, one an SM) with PCEN and delta-deltas, and the contrast
-    launch's level 2 (its rows in the output), in one 60 s config; the
+    reach what no config above does: launch B's span route with PCEN,
+    pre-emphasis and delta-deltas (49 spans), and the contrast launch's
+    level 2 (its rows in the output), in one 60 s config; the
     contrast launch at a hop of 4; its FFT plan at n_fft 4096 (458-bin bands); the FFT plans'
     radix-3 and radix-5 stages at n_fft 2000 and 3000 with contrast and at
     n_fft 768 on 256 mels; their radix-7 stages at n_fft 1792 and 2744 with
@@ -3395,11 +3406,12 @@ def coverage_configs() -> dict:
     256 mels with contrast (launch A's span from device memory over two
     mel groups, the contrast launch's level 3, its power rows in device
     memory). Last, two
-    10 s clips for launch B's cluster route's other branches: PCEN with
-    delta-deltas and 20 MFCCs (its 32-MFCC DCT), and 36 MFCCs of 40 mels
-    with delta-deltas (two DCT passes, the MFCC and delta tiles after the
-    mel tile); and a 120 s clip at 128 mels with PCEN and
-    delta-deltas, past a cluster of 16: launch B in device memory."""
+    10 s clips for launch B's span route's other branches: PCEN with
+    delta-deltas and 20 MFCCs (three DCT passes of 8), and 36 MFCCs of 40
+    mels with delta-deltas (five, the MFCC and delta tiles after the mel
+    tile); and past a cluster of 16, where an earlier route worked in
+    device memory: a 120 s clip at 128 mels with PCEN and delta-deltas, and a 150
+    s clip of the shipped config (the dB branch without delta-deltas)."""
     from cough_detector_tpu_torch.config import FeatureConfig
 
     both, one = (17, 256), (17,)
@@ -3484,6 +3496,7 @@ def coverage_configs() -> dict:
                                      one),
         "clip120s_128_pcen_dd": (FeatureConfig(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
                                                use_delta_delta=True), one),
+        "clip150s_64": (FeatureConfig(segment_duration=150.0), one),
     }
 
 
@@ -3500,6 +3513,20 @@ def contrast_model(fk, w: torch.Tensor, cfg) -> tuple:
     if fk.contrast_level(cfg) == fk.CONTRAST_FFT:
         return fk.spectral_contrast_fft_reference(w, cfg), FFT_TOL, "FFT model"
     return fk.spectral_contrast_split_reference(w, cfg), SPLIT_TOL, "3xTF32 model"
+
+
+def epilogue_model(fk, mel: torch.Tensor, cfg):
+    """Launch B's CPU model where its plan has one: the span route's
+    (mel_epilogue_span_reference, SPAN_TOL); None on the other routes."""
+    if fk.epilogue_plan(cfg) == 0:
+        return fk.mel_epilogue_span_reference(mel, cfg), SPAN_TOL, "span model"
+    return None
+
+
+def epilogue_route(fk, cfg) -> str:
+    """Launch B's route as a key suffix: "" one block, "_cluster", "_span"."""
+    plan = fk.epilogue_plan(cfg)
+    return "" if plan == 1 else "_cluster" if plan else "_span"
 
 
 def plan_name(fk, part: str, cfg) -> str:
@@ -3541,9 +3568,9 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             setattr(fk, c, 0)
 
     # Keyed by launch and plan: "spectral" (the GEMM) and "spectral_fft".
-    max_abs = {"spectral": 0.0, "spectral_fft": 0.0, "epilogue": 0.0, "epilogue_cluster": 0.0, "contrast": 0.0,
-               "contrast_fft": 0.0}
-    model_err = {"spectral": 0.0, "spectral_fft": 0.0, "contrast": 0.0, "contrast_fft": 0.0}
+    max_abs = {"spectral": 0.0, "spectral_fft": 0.0, "epilogue": 0.0, "epilogue_cluster": 0.0, "epilogue_span": 0.0,
+               "contrast": 0.0, "contrast_fft": 0.0}
+    model_err = {"spectral": 0.0, "spectral_fft": 0.0, "epilogue_span": 0.0, "contrast": 0.0, "contrast_fft": 0.0}
     launches, plans = {}, {}
     for name, (cfg, batches) in coverage_configs().items():
         t_cfg = time.perf_counter()
@@ -3556,7 +3583,8 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             "spectral smem": (lib.cdt_frontend_smem_a(*a_args), fk.spectral_smem_bytes(base)),
             "spectral plan": (lib.cdt_frontend_plan_a(*a_args), fk.spectral_plan(base)),
             "epilogue smem": (lib.cdt_frontend_smem_b(*b_args), fk.epilogue_smem_bytes(cfg)),
-            "epilogue blocks": (lib.cdt_frontend_plan_b(*b_args), fk.epilogue_blocks(cfg)),
+            "epilogue plan": (lib.cdt_frontend_plan_b(*b_args), fk.epilogue_plan(cfg)),
+            "epilogue blocks": (lib.cdt_frontend_blocks_b(*b_args), fk.epilogue_blocks(cfg)),
         }
         if cfg.use_spectral_contrast:
             geo = fk._geometry(cfg)
@@ -3567,11 +3595,13 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             fail(f"a launch's plan disagrees with its Python mirror on {name}: {mirrors}")
         plans[name] = {k: v[0] for k, v in mirrors.items()}
         keys = {"spectral": "spectral" + ("_fft" if plan_name(fk, "spectral", base) == "fft" else ""),
-                "epilogue": "epilogue" + ("_cluster" if fk.epilogue_blocks(cfg) >= 2 else ""),
+                "epilogue": "epilogue" + epilogue_route(fk, cfg),
                 "contrast": "contrast" + ("_fft" if cfg.use_spectral_contrast and plan_name(fk, "contrast", cfg) == "fft" else "")}
         want_moved = (1, 1, int(cfg.use_spectral_contrast))
-        # The FFT plans' kernels among them (fk.PLAN_COUNTERS).
-        want_fft = (int(keys["spectral"] == "spectral_fft"), int(keys["contrast"] == "contrast_fft"))
+        # The FFT plans' kernels and launch B's span route among them
+        # (fk.PLAN_COUNTERS).
+        want_fft = (int(keys["spectral"] == "spectral_fft"), int(keys["contrast"] == "contrast_fft"),
+                    int(keys["epilogue"] == "epilogue_span"))
         for b in batches:
             w = make_audio_bulk(rng, b, cfg.segment_samples, dev)
             before, before_fft = counts(), counts(fk.PLAN_COUNTERS)
@@ -3589,7 +3619,7 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
             parts = {
                 "spectral": (fk.power_mel_fused(w, base), mel_want, spectral_model(fk, w, base)),
                 "epilogue": (fk.mel_epilogue_fused(mel_want.contiguous(), base),
-                             fk.mel_epilogue_reference(mel_want, base), None),
+                             fk.mel_epilogue_reference(mel_want, base), epilogue_model(fk, mel_want, base)),
             }
             if cfg.use_spectral_contrast:
                 parts["contrast"] = (fk.spectral_contrast_fused(w, cfg), con_want, contrast_model(fk, w, cfg))
@@ -3615,7 +3645,7 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
                 flush=True,
             )
             if not ok:
-                fail(f"config {name} B={b}: launches {moved} (want {want_moved}), FFT plans' {moved_fft} (want "
+                fail(f"config {name} B={b}: launches {moved} (want {want_moved}), plans' {moved_fft} (want "
                      f"{want_fft}) or errors {errs} off")
             launches[(name, b)] = moved
 
@@ -3627,9 +3657,10 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
     model = place_model(model, dev)
     main_path = {}
     for name in ("mels160", "clip10s", "nfft2048", "nfft2048_contrast", "sr44k_nfft1764_contrast",
-                 "sr44k_nfft1323_contrast", "nfft2704_contrast", "nfft2192_contrast"):
+                 "sr44k_nfft1323_contrast", "nfft2704_contrast", "nfft2192_contrast", "clip120s_128_pcen_dd"):
         cfg = coverage_configs()[name][0]
-        w = make_audio_bulk(rng, 256, cfg.segment_samples, dev)
+        # 2-minute clips at B = 4: the model's activations of 256 would pass the card's memory.
+        w = make_audio_bulk(rng, 4 if name == "clip120s_128_pcen_dd" else 256, cfg.segment_samples, dev)
 
         def score(static, cfg=cfg):
             return (model(frontend.extract_features_fast(static["waves"], cfg, device=dev)),)
@@ -3645,7 +3676,7 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
         err = rel_err(logits, eager)
         main_path[name] = dict(zip(counters + fk.PLAN_COUNTERS, counted + counted_fft))
         print(
-            f"[{smi}] main path {name}: residual logits (256, {cfg.num_features}, {cfg.num_frames}) features through "
+            f"[{smi}] main path {name}: residual logits ({w.shape[0]}, {cfg.num_features}, {cfg.num_frames}) features through "
             f"a captured program, 1 eager call + {progs.replays()[name]} replays: launches {main_path[name]}; logits "
             f"vs eager max-relative {err:.3e}",
             flush=True,
@@ -3653,10 +3684,11 @@ def coverage_phase(smi: str, rng: np.random.Generator) -> dict:
         want = (3, 3, 3 if cfg.use_spectral_contrast else 0)
         base = dataclasses.replace(cfg, use_spectral_contrast=False)
         want_fft = (3 * (plan_name(fk, "spectral", base) == "fft"),
-                    3 * (cfg.use_spectral_contrast and plan_name(fk, "contrast", cfg) == "fft"))
+                    3 * (cfg.use_spectral_contrast and plan_name(fk, "contrast", cfg) == "fft"),
+                    3 * (fk.epilogue_plan(base) == 0))
         if (counted != want or counted_fft != want_fft or progs.replays()[name] != 2 or not err <= TOL
                 or not bool(torch.isfinite(logits).all())):
-            fail(f"the main path on {name}: launches {counted} (want {want}), FFT plans' {counted_fft} (want "
+            fail(f"the main path on {name}: launches {counted} (want {want}), plans' {counted_fft} (want "
                  f"{want_fft}), logits vs eager {err:.3e}")
     print(f"every-config checks: {time.perf_counter() - t_phase:.3f} s (budget 15 s)", flush=True)
     return dict(max_abs=max_abs, model_err=model_err, launches=launches, main_path=main_path, plans=plans)
@@ -4077,17 +4109,19 @@ def main() -> None:
     # 1024, 256 mels), the GEMM plan too, called through its C function.
     # A contrast config's pair is its base's: only its contrast launch is
     # timed. Launch B alone on the other configs its cluster route takes (5 s
-    # at 128 mels, 10 s with PCEN, delta-deltas and 20 MFCCs; a hop of 4 at
-    # B = 256 and 60 s at 128 mels with every flag at B = 64, on
-    # non-portable clusters) and in device memory (120 s, B = 32).
+    # at 128 mels; a hop of 4 at B = 256, a non-portable cluster) and its
+    # span route (10 s with PCEN, delta-deltas and 20 MFCCs; 60 s at 128
+    # mels with every flag at B = 64; 120 s at 128 mels at B = 32 and 1; 150
+    # s of the shipped config at B = 32).
     t0 = time.perf_counter()
     coverage_timing = {}
     covered_cfgs = dict(coverage_configs())
     for name in ("nfft1024", "nfft2000", "nfft3000", "nfft1792", "nfft2744", "sr44k_nfft1764", "nfft5296", "nfft6544"):
         cfg = covered_cfgs[f"{name}_contrast"][0]
         covered_cfgs[name] = (dataclasses.replace(cfg, use_spectral_contrast=False), ())
+    covered_cfgs["clip120s_128_pcen_dd_b1"] = covered_cfgs["clip120s_128_pcen_dd"]
     epilogue_only = {"clip5s_128": 1024, "clip10s_pcen_dd20": 1024, "hop4": 256, "clip60s_128_all_flags": 64,
-                     "clip120s_128_pcen_dd": 32}
+                     "clip120s_128_pcen_dd": 32, "clip120s_128_pcen_dd_b1": 1, "clip150s_64": 32}
     # Launch A's widest Bluestein windows, and launch C's and its widest
     # bands': the launch and its library call alone (their plain versions,
     # 54-312 ms a call at B = 1024, and A's epilogue, PERF.md keeps; phase 3
@@ -4182,13 +4216,23 @@ def main() -> None:
                 ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_fused(mel, base), 5),
                 plain_ms=cuda_ms(lambda: frontend_kernel.mel_epilogue_reference(mel, base), 2, warmup=1),
                 library_ms=None,
+                plan=frontend_kernel.epilogue_plan(base),
                 blocks_a_clip=frontend_kernel.epilogue_blocks(base),
                 batch=batch,
                 **bound(*epilogue_work(base, batch)),
             )
-            if not rel_err(frontend_kernel.mel_epilogue_fused(mel, base),
-                           frontend_kernel.mel_epilogue_reference(mel, base)) <= TOL:
+            got = frontend_kernel.mel_epilogue_fused(mel, base)
+            rows["epilogue"]["max_rel_vs_plain"] = rel_err(got, frontend_kernel.mel_epilogue_reference(mel, base))
+            if not rows["epilogue"]["max_rel_vs_plain"] <= TOL:
                 fail(f"launch B disagrees with its plain version on {name} B={batch}")
+            model = epilogue_model(frontend_kernel, mel, base)
+            if model is not None:  # the span route: its CPU model too
+                rows["epilogue"]["max_rel_vs_span_model"] = rel_err(got, model[0])
+                rows["epilogue"]["max_abs_err"] = (got - frontend_kernel.mel_epilogue_reference(mel, base)).abs().max().item()
+                if not (rows["epilogue"]["max_rel_vs_span_model"] <= SPAN_TOL and bool(torch.isfinite(got).all())):
+                    fail(f"launch B's span route disagrees with its model on {name} B={batch}: "
+                         f"{rows['epilogue']['max_rel_vs_span_model']:.3e}")
+            del got
         coverage_timing[name] = rows
         for part, tm in rows.items():
             lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
@@ -4199,7 +4243,11 @@ def main() -> None:
             plan = tm.get("plan", "one")
             if part == "epilogue":
                 n = tm["blocks_a_clip"]
-                plan = "device memory" if n == 0 else "one block" if n == 1 else f"a cluster of {n} blocks"
+                plan = ("one block" if tm["plan"] == 1 else f"a cluster of {n} blocks" if tm["plan"]
+                        else f"the span route over {n} blocks")
+                if "max_rel_vs_span_model" in tm:
+                    plan += (f"; max-relative vs plain {tm['max_rel_vs_plain']:.3e}, vs the span model "
+                             f"{tm['max_rel_vs_span_model']:.3e} (limit {SPAN_TOL:g})")
             print(
                 f"[{smi}] times {part} B={batch} [{name}, {plan} plan]: kernel {tm['ms']:.4f} ms, "
                 f"plain {'not timed' if tm['plain_ms'] is None else format(tm['plain_ms'], '.4f') + ' ms'}, "
@@ -4651,9 +4699,33 @@ def main() -> None:
         "config": "clip10s",
         **{k: row[k] for k in ("batch", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "blocks_a_clip")},
         "coverage_launches_a_call": {f"{name} B={b}": n[1] for (name, b), n in covered["launches"].items()
-                                     if covered["plans"][name]["epilogue blocks"] >= 2},
+                                     if covered["plans"][name]["epilogue plan"] >= 2},
         "coverage_times": {name: rows["epilogue"] for name, rows in coverage_timing.items()
-                           if rows.get("epilogue", {}).get("blocks_a_clip", 1) != 1},
+                           if rows.get("epilogue", {}).get("plan", 1) >= 2},
+    })
+    # Launch B's span route (span_mfcc_kernel, span_var_kernel,
+    # span_rows_kernel: three launches a call, counted once): its main path
+    # is the captured one of phase 3 on 120 s clips at 128 mels with PCEN
+    # and delta-deltas, the counters set to 0 just before; its time phase
+    # 4's at B = 32 on that config, the whole call by CUDA events.
+    row = coverage_timing["clip120s_128_pcen_dd"]["epilogue"]
+    kernels.append({
+        "name": "frontend_epilogue_span",
+        "route": "cuda",
+        "source": "cough_detector_tpu_torch/csrc/frontend_kernel.cu (span_mfcc_kernel, span_var_kernel, "
+                  "span_rows_kernel)",
+        "replaces": "cough_detector_tpu/ops/pallas/frontend_kernel.py:278",
+        "launches": covered["main_path"]["clip120s_128_pcen_dd"]["EPILOGUE_SPAN_LAUNCHES"],
+        "main_path": "coverage clip120s_128_pcen_dd at B = 4, captured: 1 eager call + 2 replays",
+        "max_abs_err": max(covered["max_abs"]["epilogue_span"], row["max_abs_err"]),
+        "max_rel_vs_span_model": max(covered["model_err"]["epilogue_span"], row["max_rel_vs_span_model"]),
+        "span_model_tol": SPAN_TOL,
+        "config": "clip120s_128_pcen_dd",
+        **{k: row[k] for k in ("batch", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "blocks_a_clip")},
+        "coverage_launches_a_call": {f"{name} B={b}": n[1] for (name, b), n in covered["launches"].items()
+                                     if covered["plans"][name]["epilogue plan"] == 0},
+        "coverage_times": {name: rows["epilogue"] for name, rows in coverage_timing.items()
+                           if rows.get("epilogue", {}).get("plan", 1) == 0},
     })
     phase("end")
     print("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(starts, starts[1:]))

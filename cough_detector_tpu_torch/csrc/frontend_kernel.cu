@@ -113,16 +113,24 @@
 // cores, bound by bytes (0.17 MFLOP of DCT on 62 KB a clip). The clip sits
 // in one shared tile; the DCT runs frames across threads into registers.
 // It writes (B, F, T), the reference layout (the note above
-// epilogue_kernel). A clip whose tile passes one block (past 4.3 s at
-// 128 mels, 8.9 s at 64) runs on a thread-block cluster
-// (epilogue_cluster_kernel, its note): the fewest blocks of 256 threads
-// (up to 16) whose share of the frames, with a few frames more on each
-// side loaded from device memory, fits three blocks an SM (else two, else
-// one), so that only the reductions cross the blocks, in distributed
-// shared memory, 2-3 cluster barriers a clip. On an H100, 10 s clips read
-// 43% of their bytes bound at B = 1024 (0.43 ms; the first cluster design
-// 1.72; tools/epilogue_probe.py). Past a cluster of 16, one block a clip
-// works in device memory (plan_b), at 0.6% of its bound on 120 s clips.
+// epilogue_kernel). A clip of the dB branch with at most 16 MFCCs whose
+// tile passes one block (past 4.3 s at 128 mels, 8.9 s at 64) runs on a
+// thread-block cluster (epilogue_cluster_kernel, its note): the fewest
+// blocks of 256 threads (up to 16) whose share of the frames, with a few
+// frames more on each side loaded from device memory, fits three blocks
+// an SM (else two), so that only the reductions cross the blocks, in
+// distributed shared memory, 3 cluster barriers a clip. On an H100, 10 s
+// clips read 43% of their bytes bound at B = 1024 (0.43 ms; the first
+// cluster design 1.72; tools/epilogue_probe.py). Every other clip past
+// one block (PCEN; more than 16 MFCCs; the dB branch with no cluster of
+// two blocks an SM, from 33 s at 128 mels, 69 s at 64, 112 s at 40)
+// takes the span route (span_mfcc_kernel, its note): a grid of
+// blocks of up to 128 frames a clip, held with their halo in shared
+// memory as a cluster block's; the clip's reductions pass between three
+// launches through a buffer of partials in device memory. Past a cluster
+// of 16 it replaced one block a clip working in device memory (the
+// earlier design: 21.4-22.1 ms on 120 s clips at B = 32, 0.6% of their
+// bound).
 //
 // Interface: plain C, loaded with ctypes, one function per launch, and one
 // per launch for its shared memory and its plan (the Python mirrors' check).
@@ -156,7 +164,12 @@ constexpr int kWarpsBC = kThreadsBC / 32;
 constexpr int kRanksBC = 5 * kWarpsBC;              // its slots: 5 reductions' warp partials, then their ranks'
 constexpr int kRedBC = kRanksBC + 5 * kMaxCluster;  // 120 floats of reduction slots
 constexpr int kSmemSM = 233472;                     // shared memory of an SM, 1 KB of it reserved a block
-constexpr int kBlocksSM = 3;                        // launch B's cluster blocks an SM at most
+constexpr int kBlocksSM = 3;                        // launch B's cluster and span blocks an SM at most
+constexpr int kMinClusterSM = 2;                    // launch B's cluster blocks an SM at least (else the span route)
+constexpr int kMaxClusterMfcc = 16;                 // its MFCCs at most, and the dB branch only (else the span route)
+constexpr int kMaxSpan = 128;                       // launch B's span route: frames a span at most
+constexpr int kMinSpan = 64;                        // its spans of fewer frames take fewer blocks an SM
+constexpr int kPartsB = 4;                          // its partials a span: max or min, max, sum, squares
 constexpr int kRedC = 16;                           // floats of launch C's reduction slots
 constexpr int kBandWarps = 4;                       // launch C's GEMM plan: a warpgroup of band warps
 constexpr int kThreadsC = kThreadsA + 32 * kBandWarps;  // beside its two MMA warpgroups: 384
@@ -241,31 +254,62 @@ __host__ __device__ inline size_t cluster_bytes_b(int T, int M, int C, int use_p
   return sizeof(float) * lay.floats;
 }
 
+// The most frames a span of launch B's span route holds: for k =
+// kBlocksSM, then fewer, the most (up to kMaxSpan) whose LayoutB, with
+// halo_b's halo, fits k blocks an SM, taken once they reach kMinSpan (at
+// one an SM, whatever fits); 0 if not one frame fits a block.
+__host__ __device__ inline int span_frames_b(int M, int C, int use_pcen, int delta_delta) {
+  int f = 0;
+  for (int k = kBlocksSM; k >= 1; --k) {
+    const size_t share = (size_t)(kSmemSM / k - 1024);
+    for (f = kMaxSpan; f > 0; --f)
+      if (sizeof(float) * LayoutB(f, M, C, delta_delta, halo_b(use_pcen, delta_delta), kRedBC).floats <= share) break;
+    if (f >= kMinSpan) return f;
+  }
+  return f;
+}
+
+// The span route's spans a clip of T frames: the fewest of at most
+// span_frames_b frames, each then holding ceil(T / n) (0: none fits).
+__host__ __device__ inline int spans_b(int T, int M, int C, int use_pcen, int delta_delta) {
+  const int f = span_frames_b(M, C, use_pcen, delta_delta);
+  return f ? (T + f - 1) / f : 0;
+}
+
 // Launch B's plan for a clip of T frames: 1, one block holds the clip
-// (epilogue_kernel's design); 2 to kMaxCluster, a thread-block cluster of
-// that many blocks, each holding ceil(T / n) of its frames
-// (epilogue_cluster_kernel): for k = kBlocksSM, then fewer, the fewest
-// blocks that fit k an SM; 0, not even one an SM fits, and one block a
-// clip works in device memory (epilogue_kernel<..., true>).
+// (epilogue_kernel's design); 2 to kMaxCluster, the dB branch with at most
+// kMaxClusterMfcc MFCCs on a thread-block cluster of that many blocks,
+// each holding ceil(T / n) of its frames (epilogue_cluster_kernel): for k
+// = kBlocksSM down to kMinClusterSM, the fewest blocks that fit k an SM;
+// 0, the span route over spans_b blocks (span_mfcc_kernel, its note),
+// which beat the cluster on the rest (epilogue_cluster_kernel's note).
 __host__ __device__ inline int plan_b(int T, int M, int C, int use_pcen, int delta_delta) {
   if (sizeof(float) * LayoutB(T, M, C, delta_delta).floats <= kMaxSmem) return 1;
-  for (int k = kBlocksSM; k >= 1; --k)
-    for (int n = 2; n <= kMaxCluster; ++n)
-      if (cluster_bytes_b(T, M, C, use_pcen, delta_delta, n) <= (size_t)(kSmemSM / k - 1024)) return n;
+  if (!use_pcen && C <= kMaxClusterMfcc)
+    for (int k = kBlocksSM; k >= kMinClusterSM; --k)
+      for (int n = 2; n <= kMaxCluster; ++n)
+        if (cluster_bytes_b(T, M, C, use_pcen, delta_delta, n) <= (size_t)(kSmemSM / k - 1024)) return n;
   return 0;
 }
 
-// Launch B's shared memory a block under its plan: LayoutB at the clip's
-// frames, a cluster block's, or the reduction slots alone in device memory.
-__host__ __device__ inline size_t smem_b(int T, int M, int C, int use_pcen, int delta_delta) {
+// Launch B's blocks a clip under its plan: 1, the cluster's n, or the span
+// route's spans.
+__host__ __device__ inline int blocks_b(int T, int M, int C, int use_pcen, int delta_delta) {
   const int n = plan_b(T, M, C, use_pcen, delta_delta);
-  if (n == 0) return sizeof(float) * kRedB;
-  if (n == 1) return sizeof(float) * LayoutB(T, M, C, delta_delta).floats;
-  return cluster_bytes_b(T, M, C, use_pcen, delta_delta, n);
+  return n ? n : spans_b(T, M, C, use_pcen, delta_delta);
+}
+
+// Launch B's shared memory a block under its plan: LayoutB at the clip's
+// frames, or a cluster block's or a span's (the span route's passes (a)
+// and (c); pass (b) takes its reduction slots alone).
+__host__ __device__ inline size_t smem_b(int T, int M, int C, int use_pcen, int delta_delta) {
+  if (plan_b(T, M, C, use_pcen, delta_delta) == 1) return sizeof(float) * LayoutB(T, M, C, delta_delta).floats;
+  const int n = blocks_b(T, M, C, use_pcen, delta_delta);
+  return n ? cluster_bytes_b(T, M, C, use_pcen, delta_delta, n) : 0;
 }
 
 // Launch B's threads a block under plan n.
-__host__ __device__ inline int threads_b(int n) { return n >= 2 ? kThreadsBC : kThreadsB; }
+__host__ __device__ inline int threads_b(int n) { return n == 1 ? kThreadsB : kThreadsBC; }
 
 // x rounded to TF32, to nearest with ties away from zero: the bits of
 // cvt.rna.tf32.f32 for every finite x, in two integer instructions (the
@@ -913,12 +957,9 @@ __global__ void __launch_bounds__(kThreadsA, 1) spectral_kernel(
 //  * Numerics as the reference's, except (db + 80) / 80, taken as a
 //    multiply by 1/80: a unit in the last place at most.
 //  * A clip whose tile passes one block's shared memory runs as a cluster
-//    (epilogue_cluster_kernel, plan_b). Past a cluster of kMaxCluster
-//    blocks, kGlobal: the same steps with nothing of the clip in shared
-//    memory. The tile is the power mel where it lies in device memory (the
-//    log taken where it is read, twice in the dB branch), the MFCC and
-//    delta tiles are their own rows of the output, rewritten in place.
-template <bool kPcen, int kC, bool kGlobal>
+//    (epilogue_cluster_kernel, plan_b), and past a cluster of kMaxCluster
+//    blocks as a grid of frame spans (the span route, its note).
+template <bool kPcen, int kC>
 __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
     const float* __restrict__ mel, int n_frames, int n_mels,
     const float* __restrict__ dct, int n_mfcc, int delta_delta,
@@ -932,45 +973,35 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
   float* o = out + (size_t)blockIdx.x * n_features * T;
   float* dct_s = red + kRedB;                    // (M, cp)
   float* tile = red + lay.tile;                  // (M, T): the power mel; in the dB branch its log
-  float* mf_s = kGlobal ? o + nm : red + lay.mf;       // (C, T)
-  float* d1_s = kGlobal ? o + nm + nc : red + lay.d1;  // (C, T), with delta-deltas
-  // The log-mel at flat index i of the clip, from the tile or (kGlobal) the power mel.
-  auto log_mel = [&](int i) {
-    if constexpr (kGlobal)
-      return kDbScale * logf(fmaxf(__ldg(src + i), kAmin));
-    else
-      return kPcen ? kDbScale * logf(fmaxf(tile[i], kAmin)) : tile[i];
-  };
+  float* mf_s = red + lay.mf;                    // (C, T)
+  float* d1_s = red + lay.d1;                    // (C, T), with delta-deltas
+  // The log-mel at flat index i of the clip, from the tile.
+  auto log_mel = [&](int i) { return kPcen ? kDbScale * logf(fmaxf(tile[i], kAmin)) : tile[i]; };
 
   // 1. The DCT table, and the clip into the tile, flat; in the dB branch
   // as its log-mel, with the clip's max.
   float mx = -INFINITY;
-  if constexpr (kGlobal) {
-    if (!kPcen)
-      for (int i = tid; i < nm; i += kThreadsB) mx = fmaxf(mx, log_mel(i));
-  } else {
-    for (int i = tid; i < M * lay.cp; i += kThreadsB) {
-      const int m = i / lay.cp, c = i % lay.cp;
-      dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
+  for (int i = tid; i < M * lay.cp; i += kThreadsB) {
+    const int m = i / lay.cp, c = i % lay.cp;
+    dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
+  }
+  for (int i0 = tid; i0 < nm; i0 += kLoadB * kThreadsB) {
+    float v[kLoadB];
+#pragma unroll
+    for (int u = 0; u < kLoadB; ++u) {
+      const int i = i0 + u * kThreadsB;
+      v[u] = i < nm ? __ldg(src + i) : 1.0f;
     }
-    for (int i0 = tid; i0 < nm; i0 += kLoadB * kThreadsB) {
-      float v[kLoadB];
 #pragma unroll
-      for (int u = 0; u < kLoadB; ++u) {
-        const int i = i0 + u * kThreadsB;
-        v[u] = i < nm ? __ldg(src + i) : 1.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadB; ++u) {
-        const int i = i0 + u * kThreadsB;
-        if (i >= nm) break;
-        if (kPcen) {
-          tile[i] = v[u];
-        } else {
-          const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
-          tile[i] = lm;
-          mx = fmaxf(mx, lm);
-        }
+    for (int u = 0; u < kLoadB; ++u) {
+      const int i = i0 + u * kThreadsB;
+      if (i >= nm) break;
+      if (kPcen) {
+        tile[i] = v[u];
+      } else {
+        const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
+        tile[i] = lm;
+        mx = fmaxf(mx, lm);
       }
     }
   }
@@ -988,10 +1019,9 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
       put(o + i, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
     }
   } else {
-    const float* raw = kGlobal ? src : tile;
     for (int t = tid; t < T; t += kThreadsB) {
       for (int m = 0; m < M; ++m) {
-        const float* row = raw + m * T;
+        const float* row = tile + m * T;
         float s = 0.0f;
 #pragma unroll
         for (int d = 0; d < 10; ++d) {
@@ -1017,26 +1047,17 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
       float acc[kC];
 #pragma unroll
       for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
-      if constexpr (kGlobal) {
-        for (int m = 0; m < M; ++m) {
-          const float lm = log_mel(m * T + t);
-#pragma unroll
-          for (int c = 0; c < kC; ++c)
-            if (c0 + c < C) acc[c] = fmaf(lm, __ldg(dct + m * C + c0 + c), acc[c]);
-        }
-      } else {
 #pragma unroll 4
-        for (int m = 0; m < M; ++m) {
-          const float lm = log_mel(m * T + t);
-          const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
+      for (int m = 0; m < M; ++m) {
+        const float lm = log_mel(m * T + t);
+        const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
 #pragma unroll
-          for (int q = 0; q < kC / 4; ++q) {
-            const float4 d = w[q];
-            acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
-            acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
-          }
+        for (int q = 0; q < kC / 4; ++q) {
+          const float4 d = w[q];
+          acc[4 * q] = fmaf(lm, d.x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(lm, d.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(lm, d.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(lm, d.w, acc[4 * q + 3]);
         }
       }
 #pragma unroll
@@ -1085,7 +1106,7 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
     const float* row = mf_s + c * T;
     const float d = (row[min(t + 1, T - 1)] - row[max(t - 1, 0)]) / 2.0f;
     put(o_mf + nc + i, d);
-    if (delta_delta && !kGlobal) d1_s[i] = d;
+    if (delta_delta) d1_s[i] = d;
     for (t += kThreadsB; t >= T; t -= T) ++c;
   }
   if (delta_delta) {
@@ -1098,10 +1119,12 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
   }
 }
 
-// Launch B over a thread-block cluster, for a clip whose M x T tile passes
-// one block's shared memory (5 s at 128 mels: 265 KB; 10 s at 64 mels;
-// hop 4: 1 MB). The steps and numerics are epilogue_kernel's; only the
-// per-clip reductions cross the blocks.
+// Launch B over a thread-block cluster, for a clip of the dB branch with
+// at most 16 MFCCs whose M x T tile passes one block's shared memory (5 s
+// at 128 mels: 265 KB; 10 s at 64 mels; hop 4: 1 MB) and whose cluster's
+// blocks fit at least two an SM (plan_b; the span route takes the rest).
+// The steps and numerics are epilogue_kernel's; only the per-clip
+// reductions cross the blocks.
 //  * Bound: bytes, as one block's (the power mel read once, the features
 //    written once): 0.1885 ms for 10 s clips at B = 1024, 0.1727 for 5 s
 //    at 128 mels (3.35 TB/s). The DCT is 2.1 GFLOP there, 0.03 ms at the
@@ -1111,19 +1134,25 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
 //    4-warp block an SM, one load in flight a thread, a division an
 //    element, 5-7 cluster barriers a clip with nothing beside them to fill
 //    the wait, and every delta's neighbours read through a rank test.
-//  * Occupancy. plan_b takes, for k = kBlocksSM (3), then 2, then 1, the
-//    fewest blocks (2 to kMaxCluster) whose share fits k blocks an SM: at
-//    10 s 4 blocks of 251 frames, 69 KB each, 24 warps an SM; blocks of
-//    256 threads (kThreadsBC). Past 8 blocks the cluster is non-portable
-//    (cudaFuncAttributeNonPortableClusterSizeAllowed; an H100 takes 16): a
-//    hop of 4 runs 15 blocks three an SM, 0.53 ms at B = 256 against 0.74
-//    on 5 blocks one an SM; 60 s at 128 mels with PCEN 15 blocks one an SM,
-//    1.56 ms at B = 64 against 10.8 in device memory. At most two blocks
-//    an SM read 0.52 ms at 10 s, four (registers capped at 64) 0.45, three
-//    0.43 (tools/epilogue_probe.py, NVIDIA H100).
+//  * Occupancy. plan_b takes, for k = kBlocksSM (3), then kMinClusterSM
+//    (2), the fewest blocks (2 to kMaxCluster) whose share fits k blocks
+//    an SM: at 10 s 4 blocks of 251 frames, 69 KB each, 24 warps an SM;
+//    blocks of 256 threads (kThreadsBC). Past 8 blocks the cluster is
+//    non-portable (cudaFuncAttributeNonPortableClusterSizeAllowed; an H100
+//    takes 16): a hop of 4 runs 15 blocks three an SM, 0.53 ms at B = 256
+//    against 0.74 on 5 blocks one an SM. At most two blocks an SM read
+//    0.52 ms at 10 s, four (registers capped at 64) 0.45, three 0.43
+//    (tools/epilogue_probe.py, NVIDIA H100).
+//  * Where the span route wins (plan_b's probed rule; tools/epilogue_probe.py
+//    in turns, NVIDIA H100; the cluster's ms, then the span route's):
+//    clusters of one block an SM (40 s at 128 mels, B = 96: 0.81, 0.43; 60
+//    s at 128 mels with PCEN, B = 64: 1.57, 0.79), PCEN (10 s, B = 1024:
+//    1.29, 1.18; 30 s at 128 mels, two an SM, B = 128: 0.93, 0.81) and 36
+//    MFCCs (10 s, B = 1024: 0.94, 0.87). So the cluster takes none of
+//    those: it runs the dB branch alone, a DCT of 8 or 16 MFCCs a pass.
 //  * Halo. Rank r holds frames [r Tb, r Tb + Tb) and `halo` frames
 //    (halo_b) more on each side, loaded from device memory as its own are
-//    (zeros past the clip). So PCEN's smoother, the deltas and the
+//    (zeros past the clip). So the deltas and the
 //    delta-deltas read only the block's own tile: the block runs the DCT
 //    and the z-norm over the hd = 1 + delta_delta frames beside its own
 //    too (the same arithmetic as the rank that owns them, so the same
@@ -1138,11 +1167,9 @@ __global__ void __launch_bounds__(kThreadsB, 7) epilogue_kernel(
 //    partials and writes the block's into rank k's slots (distributed
 //    shared memory); after one cluster barrier every thread folds the n
 //    ranks' partials, rank by rank, so every rank holds the same value.
-//    The dB branch takes the clip max, then the MFCCs' sum, then their
-//    squared deviations: 3 cluster barriers a clip. PCEN's min and max go
-//    with the sum (its log-mel is taken in the DCT, its outputs rescaled
-//    after): 2. Three blocks an SM fill one block's wait. Nothing is read
-//    from another rank, and every write into one comes before a barrier
+//    The clip max, then the MFCCs' sum, then their squared deviations: 3
+//    cluster barriers a clip. Three blocks an SM fill one block's wait.
+//    Nothing is read from another rank, and every write into one comes before a barrier
 //    its owner waits at, so a block exits after its last barrier with no
 //    barrier at its end; an arrive at the start, waited on before the
 //    first write, makes sure every rank has started.
@@ -1200,7 +1227,7 @@ __device__ __forceinline__ float total_b(const float* red, int q, int n) {
   return v;
 }
 
-template <bool kPcen, int kC>
+template <int kC>
 __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
     const float* __restrict__ mel, int n_frames, int n_mels,
     const float* __restrict__ dct, int n_mfcc, int delta_delta,
@@ -1212,7 +1239,7 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
   const int n = (int)cooperative_groups::this_cluster().num_blocks();
   const int rank = (int)cooperative_groups::this_cluster().block_rank();
   const int T = n_frames, M = n_mels, C = n_mfcc, nc = C * T;
-  const int H = halo_b(kPcen, delta_delta), hd = 1 + delta_delta;
+  const int H = halo_b(0, delta_delta), hd = 1 + delta_delta;
   const int Tb = (T + n - 1) / n, f0 = rank * Tb, nf = max(0, min(T - f0, Tb));
   const LayoutB lay(Tb, M, C, delta_delta, H, kRedBC);
   const int W = lay.cols, g0 = f0 - H;  // tile column j holds frame g0 + j
@@ -1220,9 +1247,9 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
   // hd more each side within the clip, [e0, e1).
   const int a0 = H, a1 = H + nf;
   const int e0 = max(a0 - hd, -g0), e1 = min(a1 + hd, T - g0);
-  float* red = reinterpret_cast<float*>(smem4);  // warp slots: 0 max, 1 min, 2 max, 3 sum, 4 squares
+  float* red = reinterpret_cast<float*>(smem4);  // warp slots: 0 max, 3 sum, 4 squares
   float* dct_s = red + kRedBC;                   // (M, cp)
-  float* tile = red + lay.tile;                  // (M, W): the power mel; in the dB branch its log
+  float* tile = red + lay.tile;                  // (M, W): the log-mel
   float* mf_s = red + lay.mf;                    // (C, W)
   float* d1_s = red + lay.d1;                    // (C, W), with delta-deltas
   const int tid = threadIdx.x;
@@ -1231,10 +1258,10 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
   float* o = out + (size_t)clip * n_features * T;
   float* o_mf = o + (size_t)M * T;
 
-  // 1. The DCT table, and the block's columns into the tile; in the dB
-  // branch as their log-mel, with their max. The halo's frames are the
-  // clip's too, and a column past the clip holds the log of kAmin, the
-  // least a log-mel can be: neither moves the clip's max.
+  // 1. The DCT table, and the block's columns into the tile as their
+  // log-mel, with their max. The halo's frames are the clip's too, and a
+  // column past the clip holds the log of kAmin, the least a log-mel can
+  // be: neither moves the clip's max.
   for (int i = tid; i < M * lay.cp; i += kThreadsBC) {
     const int m = i / lay.cp, c = i % lay.cp;
     dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
@@ -1261,47 +1288,23 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
 #pragma unroll
       for (int u = 0; u < kLoadB; ++u) {
         if (at[u] < 0) break;
-        if (kPcen) {
-          tile[at[u]] = v[u];
-        } else {
-          const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
-          tile[at[u]] = lm;
-          mx = fmaxf(mx, lm);
-        }
+        const float lm = kDbScale * logf(fmaxf(v[u], kAmin));
+        tile[at[u]] = lm;
+        mx = fmaxf(mx, lm);
       }
     }
   }
-  float lo = INFINITY, hi = -INFINITY;
-  if (!kPcen) {
-    warp_partial<kMax>(mx, red);
-    __syncthreads();
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    push_b<kMax>(red, 0, n, rank);
-    cluster_sync_b();
-    // 2. The dB rows of the block's frames.
-    const float floor_db = total_b<kMax>(red, 0, n) - 80.0f;
-    each_b(M, a0, a1, [&](int m, int j) {
-      const float db = fmaxf(tile[m * W + j], floor_db);
-      put(o + (size_t)m * T + g0 + j, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
-    });
-  } else {
-    __syncthreads();
-    // 2. PCEN of the block's frames: the smoother's ten taps in the order
-    // the JAX kernel adds them, a tap past the clip a zero column.
-    each_b(M, a0, a1, [&](int m, int j) {
-      const float* row = tile + m * W + j - 5;
-      float s = 0.0f;
-#pragma unroll
-      for (int d = 0; d < 10; ++d) s += row[d];
-      s = s / 10.0f;
-      const float p = sqrtf(row[5] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
-      put(o + (size_t)m * T + g0 + j, p);
-      lo = fminf(lo, p);
-      hi = fmaxf(hi, p);
-    });
-    warp_partial<kMin>(lo, red + kWarpsBC);
-    warp_partial<kMax>(hi, red + 2 * kWarpsBC);
-  }
+  warp_partial<kMax>(mx, red);
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  push_b<kMax>(red, 0, n, rank);
+  cluster_sync_b();
+  // 2. The dB rows of the block's frames.
+  const float floor_db = total_b<kMax>(red, 0, n) - 80.0f;
+  each_b(M, a0, a1, [&](int m, int j) {
+    const float db = fmaxf(tile[m * W + j], floor_db);
+    put(o + (size_t)m * T + g0 + j, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
+  });
   __syncthreads();  // no thread reads another's column of the tile after this
 
   // 3. The DCT, a column a thread, over the block's frames and hd beside
@@ -1315,8 +1318,7 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
       for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
 #pragma unroll 4
       for (int m = 0; m < M; ++m) {
-        const float v = tile[m * W + j];
-        const float lm = kPcen ? kDbScale * logf(fmaxf(v, kAmin)) : v;
+        const float lm = tile[m * W + j];
         const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + c0);
 #pragma unroll
         for (int q = 0; q < kC / 4; ++q) {
@@ -1338,23 +1340,9 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
   }
   warp_partial<kSum>(sum, red + 3 * kWarpsBC);
   __syncthreads();
-  if (kPcen) {
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    push_b<kMin>(red, 1, n, rank);
-    push_b<kMax>(red, 2, n, rank);
-  }
   push_b<kSum>(red, 3, n, rank);
   cluster_sync_b();
   const float mean = total_b<kSum>(red, 3, n) / (float)nc;
-
-  if (kPcen) {  // rescale the block's PCEN values
-    lo = total_b<kMin>(red, 1, n);
-    hi = total_b<kMax>(red, 2, n);
-    each_b(M, a0, a1, [&](int m, int j) {
-      float* p = o + (size_t)m * T + g0 + j;
-      put(p, (*p - lo) / (hi - lo + 1e-8f));
-    });
-  }
 
   // 4. The MFCCs' z-norm (unbiased) over the clip.
   float sq = 0.0f;
@@ -1375,6 +1363,331 @@ __global__ void __launch_bounds__(kThreadsBC, 3) epilogue_cluster_kernel(
   __syncthreads();
 
   // 5. Deltas of the block's frames (and, with delta-deltas, of the frame
+  // beside each edge), then delta-deltas: replicate-padded central
+  // differences along time, a neighbour past the clip's edge clamped to it.
+  const int dd = delta_delta;
+  each_b(C, max(a0 - dd, -g0), min(a1 + dd, T - g0), [&](int c, int j) {
+    const int t = g0 + j;
+    const float* row = mf_s + c * W;
+    const float d = (row[min(t + 1, T - 1) - g0] - row[max(t - 1, 0) - g0]) / 2.0f;
+    if (j >= a0 && j < a1) put(o_mf + nc + (size_t)c * T + t, d);
+    if (dd) d1_s[c * W + j] = d;
+  });
+  if (dd) {
+    __syncthreads();
+    each_b(C, a0, a1, [&](int c, int j) {
+      const int t = g0 + j;
+      const float* row = d1_s + c * W;
+      put(o_mf + 2 * nc + (size_t)c * T + t, (row[min(t + 1, T - 1) - g0] - row[max(t - 1, 0) - g0]) / 2.0f);
+    });
+  }
+}
+
+// Launch B where no cluster takes the clip (plan_b 0: PCEN, more than 16
+// MFCCs, no cluster of two blocks an SM: the dB branch from 33 s at 128
+// mels, 69 s at 64): the span route, a grid of frame spans a clip. The
+// steps and numerics are epilogue_kernel's; the clip's reductions (the dB
+// branch's max, PCEN's min and max, the MFCCs' sum, then their squared
+// deviations) pass between three launches on the stream through a buffer
+// of partials, kPartsB floats a span.
+//  * Bound: bytes, as the other routes': 0.1353 ms for 120 s clips at 128
+//    mels with PCEN and delta-deltas at B = 32 (6.14 MB of power mel in and
+//    8.02 MB of features out a clip, at 3.35 TB/s). The design it
+//    replaced (one block of 4 warps a clip, nothing of the clip in shared
+//    memory, every read a dependent load from device memory) took
+//    21.4-22.1 ms there.
+//  * Spans. A block of 256 threads (kThreadsBC) owns ceil(T / n) frames of
+//    one clip and holds them, with halo_b's halo on each side, in
+//    LayoutB's tile, as a cluster block does: n (spans_b) is the fewest
+//    spans of at most span_frames_b frames, the most (up to kMaxSpan)
+//    whose LayoutB fits three blocks an SM (two at 256 mels). At 128
+//    mels with PCEN 98 spans of 123 frames a 120 s clip, 3,136 blocks at
+//    B = 32; a 2-minute clip alone fills 98 SMs.
+//  * (a) span_mfcc_kernel: the DCT table and the span's mel into shared
+//    memory (flat, kLoadB coalesced loads in flight a thread); the dB
+//    branch's log-mel and its max, or PCEN's values (written to rows
+//    [0, M)) and their min and max, then the tile's log; the DCT, a
+//    thread an item of (frame, 8 coefficients), the table broadcast from
+//    shared memory; the raw MFCCs into the scratch rows (B, C, T), and
+//    their sum.
+//    (b) span_var_kernel: the mean, then the squared deviations of the
+//    span's raw MFCCs (the reference's two-pass unbiased form).
+//    (c) span_rows_kernel: every partial folded; rows [0, M): the dB rows
+//    from the mel read again, or PCEN's values rescaled where (a) wrote
+//    them; the MFCCs' z-norm over the span's frames and hd = 1 +
+//    delta_delta beside them (each a raw MFCC of the clip, z-normed by the
+//    clip's mean and deviation), the deltas and delta-deltas in shared
+//    memory, padded by replication at the clip's ends only.
+//  * On an H100 (tools/epilogue_probe.py): 0.79 ms at 120 s, B = 32 (17%
+//    of the bound; the design it replaced 21.5), 0.058 ms at B = 1; 0.31 ms for
+//    150 s of the shipped config at B = 32 (28% of 0.0883).
+//  * Traffic: the mel twice (PCEN: the mel, then its values), the raw
+//    MFCCs four times (written, then read by (b) and (c)), with PCEN rows
+//    [0, M) twice: ~22 MB a clip at 128 mels with dB rows, ~28 MB with
+//    PCEN's, against the 14.16 MB bound. Recomputing PCEN in (c) from the
+//    mel (the same arithmetic as (a), the same values) moves an M x T
+//    write less but runs PCEN's pow, divisions and sqrt twice an element,
+//    and the passes are bound by instructions, not bytes: at 120 s and B = 32
+//    that took 0.93-0.94 ms against 0.79, the PCEN formula 0.29 of it
+//    (tools/epilogue_probe.py's variant, NVIDIA H100).
+//  * Folds. A span's partial: a warp's by shuffles, the block's warps in
+//    order. A clip's: in every warp of every block of (b) and (c), lane l
+//    folds spans l, l + 32, ... in order, then a butterfly over the lanes,
+//    so every block gets the same value, with no atomics and the same bits
+//    from run to run; within float rounding of one block's sums.
+
+// Calls f(r, c, v) for every r in [0, rows), c in [c0, c1) (rows under
+// 32,768, columns under 65,536) that this thread of a kThreadsBC-thread
+// block takes, v the value at row r, frame g0 + c of the rows of T frames
+// at src (0 past the clip): flat, the block's threads on consecutive
+// columns, kLoadB loads in flight a thread; through the non-coherent path
+// (kNc) where nothing writes src while the kernel runs.
+template <bool kNc = true, class F>
+__device__ __forceinline__ void load_b(const float* src, int rows, int T, int g0, int c0, int c1, F f) {
+  const int cols = c1 - c0;
+  if (cols <= 0) return;
+  int r = (int)threadIdx.x / cols, c = (int)threadIdx.x - r * cols;
+  const int dr = kThreadsBC / cols, dc = kThreadsBC - dr * cols;
+  while (r < rows) {
+    float v[kLoadB];
+    int at[kLoadB];  // (row << 16) | column, -1 past the rows
+#pragma unroll
+    for (int u = 0; u < kLoadB; ++u) {
+      const int t = g0 + c0 + c;
+      at[u] = r < rows ? (r << 16) | (c0 + c) : -1;
+      const float* at_src = src + (size_t)r * T + t;
+      v[u] = r < rows && t >= 0 && t < T ? (kNc ? __ldg(at_src) : *at_src) : 0.0f;
+      r += dr;
+      c += dc;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadB; ++u) {
+      if (at[u] < 0) break;
+      f(at[u] >> 16, at[u] & 0xFFFF, v[u]);
+    }
+  }
+}
+
+// PCEN of the frame at row[5]: the smoother's ten taps row[0..9] in the
+// order the JAX kernel adds them, then the compressive formula.
+__device__ __forceinline__ float pcen_b(const float* row) {
+  float s = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 10; ++d) s += row[d];
+  s = s / 10.0f;
+  return sqrtf(row[5] / powf(1e-6f + s, 0.98f) + 2.0f) - 1.41421356237f;
+}
+
+// The clip's value of a reduction: the n spans' partials at p[0],
+// p[kPartsB], ..., folded by every warp the same way (lane l takes spans
+// l, l + 32, ... in order, then a butterfly), returned to every thread.
+template <int kOp>
+__device__ __forceinline__ float fold_spans(const float* p, int n) {
+  const int lane = (int)threadIdx.x & 31;
+  float v = kOp == kSum ? 0.0f : (kOp == kMax ? -INFINITY : INFINITY);
+  for (int k = lane; k < n; k += 32) v = fold<kOp>(v, p[(size_t)kPartsB * k]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fold<kOp>(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The block's partial of reduction q from the warp slots red[kWarpsBC q ...],
+// folded in warp order by thread `who` into slot q of its span. After a
+// block barrier.
+template <int kOp>
+__device__ __forceinline__ void put_part(const float* red, int q, float* span_part, int who) {
+  if ((int)threadIdx.x == who) {
+    const float* w = red + kWarpsBC * q;
+    float v = w[0];
+#pragma unroll
+    for (int i = 1; i < kWarpsBC; ++i) v = fold<kOp>(v, w[i]);
+    span_part[q] = v;
+  }
+}
+
+// The span's place: clip, span s of n, its frames [f0, f0 + nf), the tile's
+// first frame g0 (column j holds frame g0 + j), its own columns [a0, a1)
+// and, with the hd frames beside them within the clip, [e0, e1).
+struct SpanB {
+  int clip, s, f0, nf, g0, a0, a1, e0, e1;
+  LayoutB lay;
+
+  __device__ SpanB(int T, int M, int C, int delta_delta, int n, int H)
+      : lay((T + n - 1) / n, M, C, delta_delta, H, kRedBC) {
+    const int Tb = (T + n - 1) / n, hd = 1 + delta_delta;
+    clip = (int)blockIdx.x / n;
+    s = (int)blockIdx.x - clip * n;
+    f0 = s * Tb;
+    nf = max(0, min(T - f0, Tb));
+    g0 = f0 - H;
+    a0 = H;
+    a1 = H + nf;
+    e0 = max(a0 - hd, -g0);
+    e1 = min(a1 + hd, T - g0);
+  }
+};
+
+// (a): the span's raw MFCCs and its partials (0: the dB max or PCEN's min,
+// 1: PCEN's max, 2: the MFCCs' sum); PCEN's values into rows [0, M) of
+// its frames.
+template <bool kPcen>
+__global__ void __launch_bounds__(kThreadsBC, 3) span_mfcc_kernel(
+    const float* __restrict__ mel, int n_frames, int n_mels, const float* __restrict__ dct, int n_mfcc,
+    int delta_delta, int n_features, int n, float* __restrict__ raw, float* __restrict__ part,
+    float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int T = n_frames, M = n_mels, C = n_mfcc, tid = threadIdx.x;
+  const SpanB sp(T, M, C, delta_delta, n, halo_b(kPcen, delta_delta));
+  const LayoutB& lay = sp.lay;
+  const int W = lay.cols;
+  float* red = reinterpret_cast<float*>(smem4);  // warp slots: 0 max or min, 1 max, 2 sum
+  float* dct_s = red + kRedBC;                   // (M, cp)
+  float* tile = red + lay.tile;                  // (M, W): the power mel, then its log
+  const float* src = mel + (size_t)sp.clip * M * T;
+
+  for (int i = tid; i < M * lay.cp; i += kThreadsBC) {
+    const int m = i / lay.cp, c = i % lay.cp;
+    dct_s[i] = c < C ? __ldg(dct + m * C + c) : 0.0f;
+  }
+  // The span's columns (PCEN: with the smoother's halo, zeros past the
+  // clip); in the dB branch as their log-mel, with their max.
+  float mx = -INFINITY, lo = INFINITY, hi = -INFINITY;
+  if (kPcen) {
+    load_b(src, M, T, sp.g0, 0, W, [&](int m, int j, float v) { tile[m * W + j] = v; });
+    __syncthreads();
+    float* o = out + (size_t)sp.clip * n_features * T + sp.g0;
+    each_b(M, sp.a0, sp.a1, [&](int m, int j) {
+      const float p = pcen_b(tile + m * W + j - 5);
+      put(o + (size_t)m * T + j, p);
+      lo = fminf(lo, p);
+      hi = fmaxf(hi, p);
+    });
+    warp_partial<kMin>(lo, red);
+    warp_partial<kMax>(hi, red + kWarpsBC);
+    __syncthreads();  // the smoother's reads are done: the tile becomes its log
+    each_b(M, sp.a0, sp.a1, [&](int m, int j) { tile[m * W + j] = kDbScale * logf(fmaxf(tile[m * W + j], kAmin)); });
+  } else {
+    load_b(src, M, T, sp.g0, sp.a0, sp.a1, [&](int m, int j, float v) {
+      const float lm = kDbScale * logf(fmaxf(v, kAmin));
+      tile[m * W + j] = lm;
+      mx = fmaxf(mx, lm);
+    });
+    warp_partial<kMax>(mx, red);
+  }
+  __syncthreads();
+
+  // The DCT, a thread an item of (frame, 8 coefficients): each coefficient
+  // the same chain of FMAs over the mels as the other routes'.
+  const int passes = (C + 7) / 8, items = passes * sp.nf;
+  float sum = 0.0f;
+  for (int it = tid; it < items; it += kThreadsBC) {
+    const int q = it / sp.nf, j = sp.a0 + it - q * sp.nf;
+    float acc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = 0.0f;
+#pragma unroll 4
+    for (int m = 0; m < M; ++m) {
+      const float lm = tile[m * W + j];
+      const float4* w = reinterpret_cast<const float4*>(dct_s + m * lay.cp + 8 * q);
+      const float4 d0 = w[0], d1 = w[1];
+      acc[0] = fmaf(lm, d0.x, acc[0]);
+      acc[1] = fmaf(lm, d0.y, acc[1]);
+      acc[2] = fmaf(lm, d0.z, acc[2]);
+      acc[3] = fmaf(lm, d0.w, acc[3]);
+      acc[4] = fmaf(lm, d1.x, acc[4]);
+      acc[5] = fmaf(lm, d1.y, acc[5]);
+      acc[6] = fmaf(lm, d1.z, acc[6]);
+      acc[7] = fmaf(lm, d1.w, acc[7]);
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if (8 * q + c < C) {
+        raw[((size_t)sp.clip * C + 8 * q + c) * T + sp.g0 + j] = acc[c];
+        sum += acc[c];
+      }
+    }
+  }
+  warp_partial<kSum>(sum, red + 2 * kWarpsBC);
+  __syncthreads();
+  float* span_part = part + ((size_t)sp.clip * n + sp.s) * kPartsB;
+  if (kPcen) {
+    put_part<kMin>(red, 0, span_part, 0);
+    put_part<kMax>(red, 1, span_part, 32);
+  } else {
+    put_part<kMax>(red, 0, span_part, 0);
+  }
+  put_part<kSum>(red, 2, span_part, 64);
+}
+
+// (b): the clip's mean, then the span's partial 3, the squared deviations
+// of its raw MFCCs.
+__global__ void __launch_bounds__(kThreadsBC) span_var_kernel(
+    int n_frames, int n_mfcc, int n, const float* __restrict__ raw, float* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);  // kWarpsBC warp slots
+  const int T = n_frames, C = n_mfcc;
+  const int Tb = (T + n - 1) / n, clip = (int)blockIdx.x / n, s = (int)blockIdx.x - clip * n;
+  const int f0 = s * Tb, nf = max(0, min(T - f0, Tb));
+  float* clip_part = part + (size_t)clip * n * kPartsB;
+  const float mean = fold_spans<kSum>(clip_part + 2, n) / (float)(C * T);
+  float sq = 0.0f;
+  each_b(C, 0, nf, [&](int c, int j) {
+    const float dv = __ldg(raw + ((size_t)clip * C + c) * T + f0 + j) - mean;
+    sq += dv * dv;
+  });
+  warp_partial<kSum>(sq, red);
+  __syncthreads();
+  put_part<kSum>(red, 0, clip_part + (size_t)s * kPartsB + 3, 0);
+}
+
+// (c): the span's features, rows [0, M) and the MFCC rows, from the clip's
+// folded partials.
+template <bool kPcen>
+__global__ void __launch_bounds__(kThreadsBC, 3) span_rows_kernel(
+    const float* __restrict__ mel, int n_frames, int n_mels, int n_mfcc, int delta_delta, int n_features, int n,
+    const float* __restrict__ raw, const float* __restrict__ part, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int T = n_frames, M = n_mels, C = n_mfcc, nc = C * T;
+  const SpanB sp(T, M, C, delta_delta, n, halo_b(kPcen, delta_delta));
+  const LayoutB& lay = sp.lay;
+  const int W = lay.cols, g0 = sp.g0, a0 = sp.a0, a1 = sp.a1;
+  float* red = reinterpret_cast<float*>(smem4);
+  float* mf_s = red + lay.mf;    // (C, W)
+  float* d1_s = red + lay.d1;    // (C, W), with delta-deltas
+  const float* src = mel + (size_t)sp.clip * M * T;
+  const float* clip_part = part + (size_t)sp.clip * n * kPartsB;
+  float* o = out + (size_t)sp.clip * n_features * T;
+  float* o_mf = o + (size_t)M * T;
+  const float mean = fold_spans<kSum>(clip_part + 2, n) / (float)nc;
+  const float denom = sqrtf(fold_spans<kSum>(clip_part + 3, n) / (float)(nc - 1)) + 1e-8f;
+
+  // Rows [0, M) of the span's frames.
+  if (kPcen) {  // rescaled where (a) wrote them
+    const float lo = fold_spans<kMin>(clip_part, n), hi = fold_spans<kMax>(clip_part + 1, n);
+    load_b<false>(o, M, T, g0, a0, a1, [&](int m, int j, float v) {
+      put(o + (size_t)m * T + g0 + j, (v - lo) / (hi - lo + 1e-8f));
+    });
+  } else {
+    const float floor_db = fold_spans<kMax>(clip_part, n) - 80.0f;
+    load_b(src, M, T, g0, a0, a1, [&](int m, int j, float v) {
+      const float db = fmaxf(kDbScale * logf(fmaxf(v, kAmin)), floor_db);
+      put(o + (size_t)m * T + g0 + j, fminf(fmaxf((db + 80.0f) * 0.0125f, 0.0f), 1.0f));
+    });
+  }
+
+  // The MFCCs' z-norm over the span's frames and hd beside them.
+  load_b(raw + (size_t)sp.clip * nc, C, T, g0, sp.e0, sp.e1, [&](int c, int j, float v) {
+    const float z = (v - mean) / denom;
+    mf_s[c * W + j] = z;
+    if (j >= a0 && j < a1) put(o_mf + (size_t)c * T + g0 + j, z);
+  });
+  __syncthreads();
+
+  // Deltas of the span's frames (and, with delta-deltas, of the frame
   // beside each edge), then delta-deltas: replicate-padded central
   // differences along time, a neighbour past the clip's edge clamped to it.
   const int dd = delta_delta;
@@ -3252,6 +3565,35 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Launch B's span route: passes (a), (b) and (c) over spans_b blocks a
+// clip, in stream order, each checked as it is launched.
+int span_route(const float* mel, int batch, int n_frames, int n_mels, const float* dct, int n_mfcc, int use_pcen,
+               int delta_delta, int n_features, float* scratch, float* out, cudaStream_t stream) {
+  int n = spans_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
+  const long long blocks = (long long)batch * n;
+  if (n == 0 || !scratch || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
+  const void* fa = use_pcen ? (const void*)span_mfcc_kernel<true> : (const void*)span_mfcc_kernel<false>;
+  const void* fc = use_pcen ? (const void*)span_rows_kernel<true> : (const void*)span_rows_kernel<false>;
+  int err = set_smem(fa, smem);
+  if (!err) err = set_smem(fc, smem);
+  if (err) return err;
+  float* raw = scratch;
+  float* part = scratch + (size_t)batch * n_mfcc * n_frames;
+  const dim3 grid((unsigned)blocks), threads(kThreadsBC);
+  void* args_a[] = {&mel, &n_frames, &n_mels, &dct, &n_mfcc, &delta_delta, &n_features, &n, &raw, &part, &out};
+  cudaError_t launched = cudaLaunchKernel(fa, grid, threads, args_a, smem, stream);
+  if (!launched) launched = cudaGetLastError();
+  if (launched) return (int)launched;
+  void* args_b[] = {&n_frames, &n_mfcc, &n, &raw, &part};
+  launched = cudaLaunchKernel((const void*)span_var_kernel, grid, threads, args_b, sizeof(float) * kWarpsBC, stream);
+  if (!launched) launched = cudaGetLastError();
+  if (launched) return (int)launched;
+  void* args_c[] = {&mel, &n_frames, &n_mels, &n_mfcc, &delta_delta, &n_features, &n, &raw, &part, &out};
+  launched = cudaLaunchKernel(fc, grid, threads, args_c, smem, stream);
+  return launched ? (int)launched : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -3278,6 +3620,10 @@ size_t cdt_frontend_smem_b(int n_frames, int n_mels, int n_mfcc, int use_pcen, i
 
 int cdt_frontend_plan_b(int n_frames, int n_mels, int n_mfcc, int use_pcen, int delta_delta) {
   return plan_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
+}
+
+int cdt_frontend_blocks_b(int n_frames, int n_mels, int n_mfcc, int use_pcen, int delta_delta) {
+  return blocks_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
 }
 
 // Launch A. wave (B, n_samples); table: the chunk stream its ring reads
@@ -3346,45 +3692,38 @@ int cdt_frontend_spectral_fft(
   return launched ? (int)launched : (int)cudaGetLastError();
 }
 
-// Launch B. mel (B, n_mels, n_frames); dct (n_mels, n_mfcc);
-// out (B, n_features, n_frames). All float32, contiguous, on one device.
-// plan_b: one block a clip, a cluster of n blocks of kThreadsBC threads a
-// clip (launched through cudaLaunchKernelEx with the cluster's dimension,
-// allowed past the portable 8 by the kernel's attribute), or one block a
-// clip in device memory.
+// Launch B. mel (B, n_mels, n_frames); dct (n_mels, n_mfcc); scratch, on
+// the span route (plan_b 0), B (n_mfcc n_frames + kPartsB spans_b)
+// floats: the raw MFCCs (B, n_mfcc, n_frames), then the partials (B,
+// spans, kPartsB), else unused (may be null); out (B, n_features,
+// n_frames). All float32, contiguous, on one device. plan_b: one block a
+// clip, a cluster of n blocks of kThreadsBC threads a clip (launched
+// through cudaLaunchKernelEx with the cluster's dimension, allowed past
+// the portable 8 by the kernel's attribute), or the span route's three
+// launches over spans_b blocks a clip.
 int cdt_frontend_epilogue(
     const float* mel, int batch, int n_frames, int n_mels, const float* dct,
-    int n_mfcc, int use_pcen, int delta_delta, int n_features, float* out,
+    int n_mfcc, int use_pcen, int delta_delta, int n_features, float* scratch, float* out,
     cudaStream_t stream) {
   const int n = plan_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
+  if (n == 0) return span_route(mel, batch, n_frames, n_mels, dct, n_mfcc, use_pcen, delta_delta, n_features,
+                                scratch, out, stream);
   const int kc = LayoutB(n_frames, n_mels, n_mfcc, delta_delta).kc;
   const void* fn;
   if (n == 1)
-    fn = use_pcen ? (kc == 8    ? (const void*)epilogue_kernel<true, 8, false>
-                     : kc == 16 ? (const void*)epilogue_kernel<true, 16, false>
-                                : (const void*)epilogue_kernel<true, 32, false>)
-                  : (kc == 8    ? (const void*)epilogue_kernel<false, 8, false>
-                     : kc == 16 ? (const void*)epilogue_kernel<false, 16, false>
-                                : (const void*)epilogue_kernel<false, 32, false>);
-  else if (n == 0)
-    fn = use_pcen ? (kc == 8    ? (const void*)epilogue_kernel<true, 8, true>
-                     : kc == 16 ? (const void*)epilogue_kernel<true, 16, true>
-                                : (const void*)epilogue_kernel<true, 32, true>)
-                  : (kc == 8    ? (const void*)epilogue_kernel<false, 8, true>
-                     : kc == 16 ? (const void*)epilogue_kernel<false, 16, true>
-                                : (const void*)epilogue_kernel<false, 32, true>);
-  else
-    fn = use_pcen ? (kc == 8    ? (const void*)epilogue_cluster_kernel<true, 8>
-                     : kc == 16 ? (const void*)epilogue_cluster_kernel<true, 16>
-                                : (const void*)epilogue_cluster_kernel<true, 32>)
-                  : (kc == 8    ? (const void*)epilogue_cluster_kernel<false, 8>
-                     : kc == 16 ? (const void*)epilogue_cluster_kernel<false, 16>
-                                : (const void*)epilogue_cluster_kernel<false, 32>);
+    fn = use_pcen ? (kc == 8    ? (const void*)epilogue_kernel<true, 8>
+                     : kc == 16 ? (const void*)epilogue_kernel<true, 16>
+                                : (const void*)epilogue_kernel<true, 32>)
+                  : (kc == 8    ? (const void*)epilogue_kernel<false, 8>
+                     : kc == 16 ? (const void*)epilogue_kernel<false, 16>
+                                : (const void*)epilogue_kernel<false, 32>);
+  else  // plan_b gives a cluster the dB branch alone, at most 16 MFCCs
+    fn = kc == 8 ? (const void*)epilogue_cluster_kernel<8> : (const void*)epilogue_cluster_kernel<16>;
   const size_t smem = smem_b(n_frames, n_mels, n_mfcc, use_pcen, delta_delta);
   const int err = set_smem(fn, smem);
   if (err) return err;
   void* args[] = {&mel, &n_frames, &n_mels, &dct, &n_mfcc, &delta_delta, &n_features, &out};
-  if (n <= 1) {
+  if (n == 1) {
     const cudaError_t launched = cudaLaunchKernel(fn, dim3(batch), dim3(threads_b(n)), args, smem, stream);
     return launched ? (int)launched : (int)cudaGetLastError();
   }

@@ -51,8 +51,12 @@ A takes more than 128 mels in groups of at most 128, each its own blocks
 (`mel_groups`), and gathers its frames from device memory where a
 128-frame tile's waveform span passes shared memory (`spectral_staged`);
 launch B holds a clip in one block, across a thread-block cluster of up
-to 16 (`epilogue_blocks`: the fewest whose blocks fit three an SM, else
-two, else one), or past that works in device memory; the
+to 16 (`epilogue_plan`: the fewest whose blocks fit three an SM, else
+two, else one), or past that on its span route, a grid of blocks of up
+to 128 frames a clip (`epilogue_spans`) in three launches that fold the
+clip's reductions through a scratch buffer of partials
+(`epilogue_scratch_floats`; model `mel_epilogue_span_reference`,
+counter `EPILOGUE_SPAN_LAUNCHES`); the
 contrast launch moves its span, its contrast rows and its power rows out
 of shared memory in that order (`contrast_level`), and takes any number
 of bands of any width. The
@@ -74,6 +78,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -83,22 +88,26 @@ import torch.nn.functional as F
 from ..config import FeatureConfig
 from . import filters
 from .frontend import (
-    contrast_band_edges, contrast_from_spectra, frame_signal, pre_emphasis,
+    _AMIN, _DB_SCALE, contrast_band_edges, contrast_from_spectra, frame_signal, pre_emphasis,
     spectral_contrast, stack_features,
 )
 
 # Launches of each kernel since import (or since a caller last set it to 0),
 # replays of captured programs included (utils/graphs.py adds a graph's
-# captured launches on every replay).
+# captured launches on every replay). EPILOGUE_LAUNCHES counts a call of
+# launch B once, whatever its route runs (the span route: three kernels).
 SPECTRAL_LAUNCHES = 0
 EPILOGUE_LAUNCHES = 0
 CONTRAST_LAUNCHES = 0
 LAUNCH_COUNTERS = ("SPECTRAL_LAUNCHES", "EPILOGUE_LAUNCHES", "CONTRAST_LAUNCHES")
 # Of those, the launches of the FFT plans' kernels (spectral_fft_kernel,
-# contrast_fft_kernel), counted the same way.
+# contrast_fft_kernel) and the calls of launch B that took its span route
+# (span_mfcc_kernel, span_var_kernel, span_rows_kernel), counted the same
+# way.
 SPECTRAL_FFT_LAUNCHES = 0
 CONTRAST_FFT_LAUNCHES = 0
-PLAN_COUNTERS = ("SPECTRAL_FFT_LAUNCHES", "CONTRAST_FFT_LAUNCHES")
+EPILOGUE_SPAN_LAUNCHES = 0
+PLAN_COUNTERS = ("SPECTRAL_FFT_LAUNCHES", "CONTRAST_FFT_LAUNCHES", "EPILOGUE_SPAN_LAUNCHES")
 
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _MAX_BLOCKS = 2**31 - 1  # a launch's grid x; launch A folds the clip into it
@@ -113,7 +122,11 @@ _MAX_CLUSTER = 16  # launch B's largest cluster: blocks a clip (past 8, non-port
 _THREADS_B, _THREADS_BC = 128, 256  # launch B's threads a block: one block a clip, a cluster's block
 _RED_BC = 120  # floats of launch B's cluster blocks' reduction slots
 _SMEM_SM = 233472  # shared memory of an SM, 1 KB of it reserved a block
-_BLOCKS_SM = 3  # launch B's cluster blocks an SM at most
+_BLOCKS_SM = 3  # launch B's cluster and span blocks an SM at most
+_MIN_CLUSTER_SM = 2  # launch B's cluster blocks an SM at least (else the span route)
+_MAX_CLUSTER_MFCC = 16  # its MFCCs at most, the dB branch only (else the span route)
+_MAX_SPAN, _MIN_SPAN = 128, 64  # launch B's span route: frames a span at most; fewer take fewer blocks an SM
+_PARTS_B = 4  # its partials a span (max or min, max, sum, squares)
 _RED_C = 16  # floats of the contrast launch's reduction slots
 _FFT_POINTS = 8192  # the FFT plans: complex points a block holds (64 KB)
 _FFT_MAX_FRAMES = 32  # the FFT plans: frames a block takes at most
@@ -358,38 +371,76 @@ def _cluster_bytes(cfg: FeatureConfig, n: int) -> int:
     return 4 * _layout_b_floats(-(-cfg.num_frames // n), cfg.n_mels, cfg.n_mfcc, dd, halo, _RED_BC)
 
 
-def epilogue_blocks(cfg: FeatureConfig) -> int:
+def epilogue_plan(cfg: FeatureConfig) -> int:
     """Launch B's plan (plan_b, cdt_frontend_plan_b): 1, one block holds a
-    clip; 2 to 16, a cluster of that many blocks holds it, ceil(T / n)
-    frames each: for k = 3, 2, 1, the fewest whose blocks fit k an SM; 0,
-    not even 16 do, and one block a clip works in device memory."""
+    clip; 2 to 16, the dB branch with at most 16 MFCCs on a cluster of
+    that many blocks, ceil(T / n) frames each: for k = 3, 2, the fewest
+    whose blocks fit k an SM; 0, the span route takes the clip
+    (epilogue_spans): PCEN, more MFCCs, or no cluster of two an SM."""
     t, m, c, dd = cfg.num_frames, cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta
     if 4 * _layout_b_floats(t, m, c, dd) <= _MAX_SMEM:
         return 1
-    for k in range(_BLOCKS_SM, 0, -1):
-        for n in range(2, _MAX_CLUSTER + 1):
-            if _cluster_bytes(cfg, n) <= _SMEM_SM // k - 1024:
-                return n
+    if not cfg.use_pcen and c <= _MAX_CLUSTER_MFCC:
+        for k in range(_BLOCKS_SM, _MIN_CLUSTER_SM - 1, -1):
+            for n in range(2, _MAX_CLUSTER + 1):
+                if _cluster_bytes(cfg, n) <= _SMEM_SM // k - 1024:
+                    return n
     return 0
+
+
+@functools.lru_cache(maxsize=64)
+def _span_frames(m: int, c: int, pcen: bool, dd: bool) -> int:
+    """span_frames_b: for k = 3, 2, 1 blocks an SM, the most frames (up to
+    128) whose LayoutB, with its halo, fits k an SM, taken once they reach
+    64 (at one an SM, whatever fits); 0 if not one frame fits."""
+    halo = 5 if pcen else 1 + int(dd)
+    f = 0
+    for k in range(_BLOCKS_SM, 0, -1):
+        f = next((f for f in range(_MAX_SPAN, 0, -1)
+                  if 4 * _layout_b_floats(f, m, c, dd, halo, _RED_BC) <= _SMEM_SM // k - 1024), 0)
+        if f >= _MIN_SPAN:
+            return f
+    return f
+
+
+def epilogue_spans(cfg: FeatureConfig) -> int:
+    """The span route's spans a clip (spans_b): the fewest of at most
+    _span_frames frames, each then ceil(T / n) frames; 0 if none fits.
+    Counted whatever the plan."""
+    f = _span_frames(cfg.n_mels, cfg.n_mfcc, cfg.use_pcen, cfg.use_delta_delta)
+    return -(-cfg.num_frames // f) if f else 0
+
+
+def epilogue_blocks(cfg: FeatureConfig) -> int:
+    """Launch B's blocks a clip (blocks_b, cdt_frontend_blocks_b): 1, the
+    cluster's blocks, or the span route's spans."""
+    return epilogue_plan(cfg) or epilogue_spans(cfg)
 
 
 def epilogue_smem_bytes(cfg: FeatureConfig) -> int:
     """Launch B's shared memory a block under its plan, as
     csrc/frontend_kernel.cu counts it (cdt_frontend_smem_b): LayoutB at the
-    clip's frames, a cluster block's, or the reduction slots alone in
-    device memory."""
-    n = epilogue_blocks(cfg)
-    if n == 0:
-        return 4 * _RED_B
-    if n == 1:
+    clip's frames, or a cluster block's or a span's (LayoutB at ceil(T /
+    n) frames with its halo)."""
+    if epilogue_plan(cfg) == 1:
         return 4 * _layout_b_floats(cfg.num_frames, cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta)
-    return _cluster_bytes(cfg, n)
+    n = epilogue_blocks(cfg)
+    return _cluster_bytes(cfg, n) if n else 0
 
 
 def epilogue_threads(cfg: FeatureConfig) -> int:
     """Launch B's threads a block under its plan (threads_b): 128 for one
-    block a clip or device memory, 256 for a cluster's blocks."""
-    return _THREADS_BC if epilogue_blocks(cfg) >= 2 else _THREADS_B
+    block a clip, 256 for a cluster's blocks and the span route's."""
+    return _THREADS_B if epilogue_plan(cfg) == 1 else _THREADS_BC
+
+
+def epilogue_scratch_floats(cfg: FeatureConfig) -> int:
+    """Floats of device memory a clip the span route takes beside its
+    output: the raw MFCCs (n_mfcc x T), then _PARTS_B partials a span; 0 on
+    the other routes."""
+    if epilogue_plan(cfg):
+        return 0
+    return cfg.n_mfcc * cfg.num_frames + _PARTS_B * epilogue_spans(cfg)
 
 
 def spectral_grid(batch: int, n_frames: int, n_groups: int = 1) -> int:
@@ -984,6 +1035,104 @@ def mel_epilogue_reference(
     return stack_features(mel.transpose(1, 2), cfg)
 
 
+def _fold_spans(parts: torch.Tensor, op) -> torch.Tensor:
+    """(B, n) partials → (B,): the span route's fold_spans, as every warp
+    runs it: lane l folds spans l, l + 32, ... in order from the
+    identity, then a butterfly over the 32 lanes."""
+    ident = {torch.add: 0.0, torch.maximum: -math.inf, torch.minimum: math.inf}[op]
+    lanes = torch.full((parts.shape[0], 32), ident, dtype=parts.dtype, device=parts.device)
+    for k in range(parts.shape[1]):
+        lanes[:, k % 32] = op(lanes[:, k % 32], parts[:, k])
+    idx = torch.arange(32, device=parts.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = op(lanes, lanes[:, idx ^ off])
+    return lanes[:, 0]
+
+
+def mel_epilogue_span_reference(
+    mel: torch.Tensor, cfg: FeatureConfig = FeatureConfig(), frames: int = 0
+) -> torch.Tensor:
+    """Launch B's span route in plain torch ops: power mel (B, n_mels,
+    num_frames) → (B, num_features, num_frames). The clip in n spans of
+    ceil(T / n) frames, n the fewest of at most `frames` (0: the route's
+    own, _span_frames), each with its halo (PCEN's smoother 5 frames a
+    side, zeros past the clip; the MFCCs 1 + delta_delta frames a side
+    within the clip); a partial a span, folded as the kernels fold them
+    (_fold_spans); the dB rows scaled by 1/80 as the kernels do. Any
+    config, whatever its plan."""
+    _check_mel(cfg, mel)
+    b, m, t = mel.shape
+    c, dd = cfg.n_mfcc, int(cfg.use_delta_delta)
+    frames = frames or _span_frames(m, c, cfg.use_pcen, cfg.use_delta_delta)
+    n = -(-t // frames)
+    tb = -(-t // n)
+    bounds = [(min(t, s * tb), min(t, s * tb + tb)) for s in range(n)]
+    nc = c * t
+    dct = _dct(c, m, mel.device)
+    halo = 5 if cfg.use_pcen else 0
+    padded = F.pad(mel, (halo, halo + tb))  # each span's tile, zeros past the clip
+
+    def log_mel(x):
+        return _DB_SCALE * torch.log(torch.clamp(x, min=_AMIN))
+
+    def pcen_of(f0, f1):  # PCEN of frames [f0, f1) from the span's tile with its halo
+        tile = padded[:, :, f0 : f1 + 2 * halo]
+        s = tile[:, :, 0 : f1 - f0]
+        for d in range(1, 10):
+            s = s + tile[:, :, d : d + f1 - f0]
+        s = s / 10.0
+        return torch.sqrt(tile[:, :, 5 : 5 + f1 - f0] / torch.pow(1e-6 + s, 0.98) + 2.0) - math.sqrt(2.0)
+
+    # (a): the raw MFCCs and a span's partials.
+    lo, hi, sums, raw = [], [], [], []
+    for f0, f1 in bounds:
+        x = mel[:, :, f0:f1]
+        if cfg.use_pcen:
+            p = pcen_of(f0, f1)
+            lo.append(p.amin(dim=(1, 2)) if f1 > f0 else torch.full((b,), math.inf))
+            hi.append(p.amax(dim=(1, 2)) if f1 > f0 else torch.full((b,), -math.inf))
+        else:
+            hi.append(log_mel(x).amax(dim=(1, 2)) if f1 > f0 else torch.full((b,), -math.inf))
+        r = (log_mel(x).transpose(1, 2) @ dct).transpose(1, 2)  # (B, C, frames)
+        raw.append(r)
+        sums.append(r.sum(dim=(1, 2)))
+    raw = torch.cat(raw, dim=2)
+    mean = _fold_spans(torch.stack(sums, 1), torch.add) / nc
+    # (b): the squared deviations.
+    sq = torch.stack([((raw[:, :, f0:f1] - mean[:, None, None]) ** 2).sum(dim=(1, 2)) for f0, f1 in bounds], 1)
+    denom = torch.sqrt(_fold_spans(sq, torch.add) / (nc - 1)) + 1e-8
+    # (c): the rows.
+    hi = _fold_spans(torch.stack(hi, 1), torch.maximum)[:, None, None]
+    if cfg.use_pcen:
+        lo = _fold_spans(torch.stack(lo, 1), torch.minimum)[:, None, None]
+    out = torch.empty((b, cfg.num_features, t), dtype=mel.dtype, device=mel.device)
+    hd = 1 + dd
+    for f0, f1 in bounds:
+        if f1 == f0:
+            continue
+        if cfg.use_pcen:
+            out[:, :m, f0:f1] = (pcen_of(f0, f1) - lo) / (hi - lo + 1e-8)
+        else:
+            db = torch.maximum(log_mel(mel[:, :, f0:f1]), hi - 80.0)
+            out[:, :m, f0:f1] = torch.clamp((db + 80.0) * 0.0125, 0.0, 1.0)
+        e0, e1 = max(f0 - hd, 0), min(f1 + hd, t)
+        z = (raw[:, :, e0:e1] - mean[:, None, None]) / denom[:, None, None]
+        out[:, m : m + c, f0:f1] = z[:, :, f0 - e0 : f1 - e0]
+        # Deltas of frames [f0 - dd, f1 + dd) within the clip, then
+        # delta-deltas of the span's own: neighbours clamped to the clip.
+        tt = torch.arange(max(f0 - dd, 0), min(f1 + dd, t), device=mel.device)
+        d1 = (z[:, :, (tt + 1).clamp(max=t - 1) - e0] - z[:, :, (tt - 1).clamp(min=0) - e0]) / 2.0
+        own = slice(f0 - int(tt[0]), f0 - int(tt[0]) + f1 - f0)
+        out[:, m + c : m + 2 * c, f0:f1] = d1[:, :, own]
+        if dd:
+            tt2 = torch.arange(f0, f1, device=mel.device)
+            g = int(tt[0])
+            out[:, m + 2 * c :, f0:f1] = (
+                d1[:, :, (tt2 + 1).clamp(max=t - 1) - g] - d1[:, :, (tt2 - 1).clamp(min=0) - g]
+            ) / 2.0
+    return out
+
+
 def frontend_kernel_reference(
     waves: torch.Tensor, cfg: FeatureConfig = FeatureConfig()
 ) -> torch.Tensor:
@@ -1004,7 +1153,7 @@ def build() -> ctypes.CDLL:
         p, i, i, i, i, i, i, i, p, i, i, i, i, i, f, p, p,
     ]
     lib.cdt_frontend_spectral.restype = i
-    lib.cdt_frontend_epilogue.argtypes = [p, i, i, i, p, i, i, i, i, p, p]
+    lib.cdt_frontend_epilogue.argtypes = [p, i, i, i, p, i, i, i, i, p, p, p]
     lib.cdt_frontend_epilogue.restype = i
     lib.cdt_frontend_contrast.argtypes = [
         p, i, i, i, i, i, i, i, i, i, p, i, i, p, f, p, i, p, p, p,
@@ -1014,6 +1163,8 @@ def build() -> ctypes.CDLL:
     lib.cdt_frontend_spectral_fft.restype = i
     lib.cdt_frontend_contrast_fft.argtypes = [p, i, i, i, i, i, p, p, i, i, p, f, p, i, i, p, p]
     lib.cdt_frontend_contrast_fft.restype = i
+    lib.cdt_frontend_blocks_b.argtypes = [i] * 5
+    lib.cdt_frontend_blocks_b.restype = i
     for name, n_args in (("a", 4), ("b", 5), ("c", 6)):
         getattr(lib, f"cdt_frontend_smem_{name}").argtypes = [i] * n_args
         getattr(lib, f"cdt_frontend_smem_{name}").restype = ctypes.c_size_t
@@ -1096,29 +1247,35 @@ def mel_epilogue_fused(
 ) -> torch.Tensor:
     """Launch B: power mel (B, n_mels, num_frames) float32 →
     (B, num_features, num_frames). CUDA tensors launch the kernel on the
-    current stream (no synchronise); CPU tensors run
+    current stream (no synchronise), on the span route its three kernels
+    with their scratch (raw MFCCs and partials, epilogue_scratch_floats a
+    clip) from the caching allocator; CPU tensors run
     mel_epilogue_reference."""
-    global EPILOGUE_LAUNCHES
+    global EPILOGUE_LAUNCHES, EPILOGUE_SPAN_LAUNCHES
     _check_mel(cfg, mel)
     if mel.device.type == "cpu":
         return mel_epilogue_reference(mel, cfg)
     _check_cuda(mel, 3, "mel")
     b, t = mel.shape[0], cfg.num_frames
-    if b * max(epilogue_blocks(cfg), 1) > _MAX_BLOCKS:
+    if b * epilogue_blocks(cfg) > _MAX_BLOCKS:
         raise ValueError(f"batch {b} needs more than the epilogue kernel's {_MAX_BLOCKS} blocks")
     out = torch.empty((b, cfg.num_features, t), dtype=torch.float32, device=mel.device)
     if b == 0:
         return out
     lib = build()
     dct = _dct(cfg.n_mfcc, cfg.n_mels, mel.device)
+    span = epilogue_plan(cfg) == 0
+    scratch = torch.empty(b * epilogue_scratch_floats(cfg), dtype=torch.float32, device=mel.device) if span else None
     with torch.cuda.device(mel.device):
         err = lib.cdt_frontend_epilogue(
             mel.data_ptr(), b, t, cfg.n_mels, dct.data_ptr(), cfg.n_mfcc,
             int(cfg.use_pcen), int(cfg.use_delta_delta), cfg.num_features,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, lib, "epilogue")
     EPILOGUE_LAUNCHES += 1
+    EPILOGUE_SPAN_LAUNCHES += span
     return out
 
 

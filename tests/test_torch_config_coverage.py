@@ -78,7 +78,9 @@ CONFIGS = {
 # fits (two mel groups, level 3); two 10 s clips for launch B's
 # cluster route's other branches (PCEN with delta-deltas and its 32-MFCC
 # DCT; 36 MFCCs of 40 mels, the MFCC and delta tiles after the mel tile);
-# and a 120 s clip, past a cluster of 16: launch B in device memory.
+# and, past a cluster of 16, launch B's span route: a 120 s clip at 128
+# mels with PCEN and delta-deltas, and a 150 s clip of the shipped config
+# (its dB branch without delta-deltas).
 EXTRA = {
     "clip60s_128_all_flags": dict(segment_duration=60.0, n_mels=128, f_max=8000.0, use_pcen=True,
                                   use_pre_emphasis=True, use_delta_delta=True, **CONTRAST),
@@ -122,15 +124,23 @@ EXTRA = {
     "clip10s_mels40_mfcc36_dd": dict(segment_duration=10.0, n_mels=40, n_mfcc=36, use_delta_delta=True),
     "clip120s_128_pcen_dd": dict(segment_duration=120.0, n_mels=128, f_max=8000.0, use_pcen=True,
                                  use_delta_delta=True),
+    "clip150s_64": dict(segment_duration=150.0),
+}
+# Clusters of the dB branch at two and three blocks an SM, for the
+# cluster's plan rule alone (chip_smoke.py does not run them).
+CLUSTER_ONLY = {
+    "clip60s_64": dict(segment_duration=60.0),
+    "clip30s_128": dict(segment_duration=30.0, n_mels=128, f_max=8000.0),
+    "clip20s_128": dict(segment_duration=20.0, n_mels=128, f_max=8000.0),
 }
 JNP = ("clip10s", "hop4")  # too long in interpret mode: the JAX jnp chain instead
 
 # What the card's library returned for each config (chip_smoke.py's
 # every-config checks, NVIDIA H100 80GB HBM3): launch A's shared memory and
 # its plan (0 the GEMM with its span from device memory, 1 staged, 2 the
-# FFT); launch B's shared memory a block and its blocks a clip (0: device
-# memory); the contrast launch's shared memory and plan (LayoutC's level
-# 0-3, 4 the FFT).
+# FFT); launch B's shared memory a block and its blocks a clip (1 one
+# block, a cluster's blocks, or the span route's spans); the contrast
+# launch's shared memory and plan (LayoutC's level 0-3, 4 the FFT).
 PLANS_ON_CARD = {
     "mels160": (89480, 2, 75008, 1, None, None),
     "mels256": (89480, 2, 119936, 1, None, None),
@@ -142,7 +152,7 @@ PLANS_ON_CARD = {
     "nfft1024_contrast": (89096, 2, 40576, 1, 87656, 4),
     "nfft2048_contrast": (96264, 2, 24704, 1, 94200, 4),
     "bands17": (118096, 1, 30080, 1, 221840, 0),
-    "clip60s_128_all_flags": (118096, 1, 219104, 15, 91760, 2),
+    "clip60s_128_all_flags": (118096, 1, 76768, 49, 91760, 2),
     "hop4_contrast": (36464, 1, 73440, 15, 207888, 0),
     "nfft4096_contrast": (110600, 2, 16512, 1, 107976, 4),
     "nfft2000_contrast": (94008, 2, 25216, 1, 92024, 4),
@@ -177,15 +187,16 @@ PLANS_ON_CARD = {
     "sr44k_nfft1965_mels256": (111388, 2, 118912, 1, None, None),
     "hop400_contrast": (32816, 0, 14720, 1, 92912, 1),
     "nfft2129_mels256_contrast": (32816, 0, 48256, 1, 32880, 3),
-    "clip10s_pcen_dd20": (118096, 1, 75488, 4, None, None),
-    "clip10s_mels40_mfcc36_dd": (118096, 1, 76576, 7, None, None),
-    "clip120s_128_pcen_dd": (118096, 1, 128, 0, None, None),
+    "clip10s_pcen_dd20": (118096, 1, 43488, 8, None, None),
+    "clip10s_mels40_mfcc36_dd": (118096, 1, 68960, 8, None, None),
+    "clip120s_128_pcen_dd": (118096, 1, 76768, 98, None, None),
+    "clip150s_64": (118096, 1, 37856, 118, None, None),
 }
 SMEM = 232448  # bytes of shared memory a block may use on sm_90
 
 
 def _cfg(name: str) -> FeatureConfig:
-    return FeatureConfig(**{**CONFIGS, **EXTRA}[name])
+    return FeatureConfig(**{**CONFIGS, **EXTRA, **CLUSTER_ONLY}[name])
 
 
 def _waves(cfg: FeatureConfig, n: int, seed: int) -> np.ndarray:
@@ -352,15 +363,15 @@ def test_spectral_grid_with_mel_groups(batch, n_frames, groups):
 
 
 @pytest.mark.parametrize("name, blocks, frames, per_sm", [
-    ("clip5s_128", 4, 126, 3), ("clip10s", 4, 251, 3), ("clip10s_pcen_dd20", 4, 251, 3),
-    ("clip10s_mels40_mfcc36_dd", 7, 143, 3), ("hop4", 15, 267, 3), ("clip60s_128_all_flags", 15, 401, 1),
+    ("clip5s_128", 4, 126, 3), ("clip10s", 4, 251, 3), ("clip20s_128", 16, 126, 3),
+    ("clip30s_128", 15, 201, 2), ("hop4", 15, 267, 3), ("clip60s_64", 14, 429, 2),
 ])
 def test_epilogue_cluster_takes_the_fewest_blocks(name, blocks, frames, per_sm):
-    """Launch B's cluster: for per_sm = 3, 2, 1 blocks an SM (233,472 B an
-    SM, 1 KB reserved a block), the fewest blocks (up to 16) whose share of
-    the clip's frames, with its halo (5 frames a side with PCEN, else 1 +
-    delta_delta), fits per_sm an SM. One block fewer would not, and no
-    cluster of 16 fits more an SM. 256 threads a block."""
+    """Launch B's cluster (the dB branch, at most 16 MFCCs): for per_sm =
+    3, 2 blocks an SM (233,472 B an SM, 1 KB reserved a block), the fewest
+    blocks (up to 16) whose share of the clip's frames, with its halo (1 +
+    delta_delta frames a side), fits per_sm an SM. One block fewer would
+    not, and no cluster of 16 fits more an SM. 256 threads a block."""
     cfg = _cfg(name)
     assert frontend_kernel.epilogue_blocks(cfg) == blocks
     assert frontend_kernel.epilogue_threads(cfg) == 256
@@ -376,6 +387,38 @@ def test_epilogue_cluster_takes_the_fewest_blocks(name, blocks, frames, per_sm):
     assert smem <= share(per_sm) and frontend_kernel._cluster_bytes(cfg, blocks - 1) > share(per_sm)
     if per_sm < 3:
         assert frontend_kernel._cluster_bytes(cfg, 16) > share(per_sm + 1)
+
+
+@pytest.mark.parametrize("name, spans, frames, per_sm", [
+    ("clip120s_128_pcen_dd", 98, 123, 3), ("clip150s_64", 118, 128, 3), ("clip10s_pcen_dd20", 8, 126, 3),
+    ("clip10s_mels40_mfcc36_dd", 8, 126, 3), ("clip60s_128_all_flags", 49, 123, 3),
+])
+def test_epilogue_span_route_takes_the_fewest_spans(name, spans, frames, per_sm):
+    """Launch B's span route, past one block's tile where a cluster does not
+    take the clip (PCEN, more than 16 MFCCs, no cluster of two blocks an
+    SM: past 16 blocks at 120 and 150 s): the fewest spans of at most the
+    most frames (up to 128) whose LayoutB, with its halo (5 frames a side
+    with PCEN, else 1 + delta_delta), fits three blocks an SM; 256 threads
+    a block; its scratch the raw MFCCs and 4 partials a span."""
+    cfg = _cfg(name)
+    assert cfg.use_pcen or cfg.n_mfcc > 16 or frontend_kernel._cluster_bytes(cfg, 16) > 233472 // 2 - 1024
+    assert name not in ("clip120s_128_pcen_dd", "clip150s_64") or frontend_kernel._cluster_bytes(cfg, 16) > 232448
+    assert frontend_kernel.epilogue_plan(cfg) == 0
+    assert frontend_kernel.epilogue_spans(cfg) == frontend_kernel.epilogue_blocks(cfg) == spans
+    assert frontend_kernel.epilogue_threads(cfg) == 256
+    m, c, dd = cfg.n_mels, cfg.n_mfcc, cfg.use_delta_delta
+    halo = 5 if cfg.use_pcen else 1 + int(dd)
+    most = frontend_kernel._span_frames(m, c, cfg.use_pcen, dd)
+    assert -(-cfg.num_frames // spans) == frames <= most < -(-cfg.num_frames // (spans - 1))
+
+    def share(k):
+        return 233472 // k - 1024
+
+    assert 4 * frontend_kernel._layout_b_floats(most, m, c, dd, halo, frontend_kernel._RED_BC) <= share(per_sm)
+    assert most == 128 or 4 * frontend_kernel._layout_b_floats(most + 1, m, c, dd, halo,
+                                                                frontend_kernel._RED_BC) > share(per_sm)
+    assert frontend_kernel.epilogue_smem_bytes(cfg) == frontend_kernel._cluster_bytes(cfg, spans) <= share(per_sm)
+    assert frontend_kernel.epilogue_scratch_floats(cfg) == c * cfg.num_frames + 4 * spans
 
 
 @pytest.mark.parametrize("name", ["clip10s_pcen_dd20", "clip10s_mels40_mfcc36_dd"])

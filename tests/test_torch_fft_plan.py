@@ -459,7 +459,8 @@ def _c_plan_rules():
     plan_a, its shared memory, plan_c, its shared memory, and LayoutF's
     frames for each launch; "b n_frames n_mels n_mfcc use_pcen
     delta_delta" lines, for which it prints launch B's plan_b, its shared
-    memory a block and its threads a block; and "f n_fft hop n_mels n_pow"
+    memory a block, its threads a block, its blocks a clip (blocks_b) and
+    the span route's spans (spans_b); and "f n_fft hop n_mels n_pow"
     lines, for which it prints the n_fft's largest prime factor, whether
     plan_a and plan_c take their FFT plans, and LayoutF's frames and bytes
     for each launch."""
@@ -494,7 +495,8 @@ def _c_plan_rules():
       int T, M, C, pcen, dd;
       if (scanf("%d %d %d %d %d", &T, &M, &C, &pcen, &dd) != 5) return 1;
       const int n = plan_b(T, M, C, pcen, dd);
-      printf("%d %zu %d\n", n, smem_b(T, M, C, pcen, dd), threads_b(n));
+      printf("%d %zu %d %d %d\n", n, smem_b(T, M, C, pcen, dd), threads_b(n), blocks_b(T, M, C, pcen, dd),
+             spans_b(T, M, C, pcen, dd));
       continue;
     }
     if (scanf("%d %d %d %d %d %d %d", &n_fft, &hop, &kpad, &n_mels, &n_pow, &n_frames, &n_bands) != 7) return 1;
@@ -1127,13 +1129,16 @@ def test_band_stage_built_for_the_host_on_config_bands(host_bands, name):
 
 
 def test_epilogue_plan_mirrors_equal_the_c_rules(tmp_path):
-    """Launch B's plan (blocks a clip), shared memory a block and threads a
-    block, from the Python mirrors, equal the kernel source's own rules
-    (compiled for the host) over a grid of configs: clips of 1 to 60 s at
-    hops of 160 and 4, 32 to 256 mels, 8 to 36 MFCCs, PCEN and
-    delta-deltas. The grid reaches every plan: one block, portable and
-    non-portable clusters (blocks that fit three, two and one an SM),
-    device memory."""
+    """Launch B's plan, shared memory a block, threads a block, blocks a
+    clip and the span route's spans, from the Python mirrors, equal the
+    kernel source's own rules (compiled for the host) over a grid of
+    configs: clips of 1 to 300 s at hops of 160 and 4, 32 to 256 mels, 8
+    to 36 MFCCs, PCEN and delta-deltas. The grid reaches every plan: one
+    block, portable and non-portable clusters of the dB branch with up to
+    16 MFCCs (blocks that fit three and two an SM), and the span route for
+    the rest (PCEN, more MFCCs, no cluster of two an SM; 70 to 300 s clips
+    past any cluster: more than 16 spans a clip), spans of up to 128
+    frames, their blocks three an SM at 64 and 128 mels, two at 256."""
     gxx, code = _c_plan_rules()
     (tmp_path / "plans.cpp").write_text(code)
     subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(tmp_path / "plans"), str(tmp_path / "plans.cpp")], check=True)
@@ -1141,21 +1146,34 @@ def test_epilogue_plan_mirrors_equal_the_c_rules(tmp_path):
         FeatureConfig(segment_duration=dur, hop_length=hop, n_mels=mels, f_max=8000.0, n_mfcc=c, use_pcen=pcen,
                       use_delta_delta=dd)
         for dur, hop in ((1.0, 160), (2.0, 160), (3.0, 160), (4.5, 160), (5.0, 160), (10.0, 160), (20.0, 160),
-                         (30.0, 160), (60.0, 160), (1.0, 4))
+                         (30.0, 160), (60.0, 160), (1.0, 4), (70.0, 160), (120.0, 160), (150.0, 160), (300.0, 160))
         for mels in (32, 40, 64, 128, 256) for c in (8, 13, 20, 36) for pcen in (False, True) for dd in (False, True)
     ]
     lines = [f"b {c.num_frames} {c.n_mels} {c.n_mfcc} {int(c.use_pcen)} {int(c.use_delta_delta)}" for c in cfgs]
     out = subprocess.run([str(tmp_path / "plans")], input="\n".join(lines), capture_output=True, text=True,
                          check=True).stdout.split("\n")
-    seen = set()
+    seen, spans_seen = set(), set()
     for i, c in enumerate(cfgs):
-        n, smem, threads = map(int, out[i].split())
-        assert (n, smem, threads) == (frontend_kernel.epilogue_blocks(c), frontend_kernel.epilogue_smem_bytes(c),
-                                      frontend_kernel.epilogue_threads(c)), c
-        assert smem <= 232448, c
-        seen.add((n, max(k for k in (1, 2, 3) if smem <= 233472 // k - 1024)))
+        n, smem, threads, blocks, spans = map(int, out[i].split())
+        assert (n, smem, threads, blocks, spans) == (
+            frontend_kernel.epilogue_plan(c), frontend_kernel.epilogue_smem_bytes(c),
+            frontend_kernel.epilogue_threads(c), frontend_kernel.epilogue_blocks(c),
+            frontend_kernel.epilogue_spans(c)), c
+        assert 0 < smem <= 232448, c
+        per_sm = max(k for k in (1, 2, 3) if smem <= 233472 // k - 1024)
+        seen.add((n, per_sm))
+        if n == 0:  # the span route, each span up to 128 frames
+            assert blocks == spans >= 1 and -(-c.num_frames // spans) <= 128, c
+            assert c.use_pcen or c.n_mfcc > 16 or frontend_kernel._cluster_bytes(c, 16) > 233472 // 2 - 1024, c
+            assert spans > 16 or c.segment_duration < 70, c
+            assert threads == 256 and smem == frontend_kernel._cluster_bytes(c, spans), c
+            assert frontend_kernel.epilogue_scratch_floats(c) == c.n_mfcc * c.num_frames + 4 * spans, c
+            spans_seen.add((c.n_mels, per_sm))
+        else:
+            assert blocks == n and frontend_kernel.epilogue_scratch_floats(c) == 0, c
     assert {0, 1, 4, 8, 9, 16} <= {n for n, _ in seen}
-    assert {k for n, k in seen if n >= 2} == {1, 2, 3}
+    assert {k for n, k in seen if n >= 2} == {2, 3}
+    assert {(64, 3), (128, 3), (256, 2)} <= spans_seen
 
 
 def test_twiddle_table_layout():
@@ -1212,18 +1230,20 @@ def test_wrappers_on_cpu_run_the_plain_versions(name):
 
 def test_graph_replays_count_the_fft_plans(monkeypatch):
     """A captured program's replay adds its captured launches to every
-    counter, the FFT plans' own (PLAN_COUNTERS) among them, so a main path
-    through a graph shows which plan's kernel ran."""
+    counter, the plans' own (PLAN_COUNTERS: the FFT plans' kernels, launch
+    B's span route) among them, so a main path through a graph shows which
+    plan's kernel ran."""
     from cough_detector_tpu_torch.utils import graphs
 
     names = frontend_kernel.LAUNCH_COUNTERS + frontend_kernel.PLAN_COUNTERS
-    assert frontend_kernel.PLAN_COUNTERS == ("SPECTRAL_FFT_LAUNCHES", "CONTRAST_FFT_LAUNCHES")
+    assert frontend_kernel.PLAN_COUNTERS == ("SPECTRAL_FFT_LAUNCHES", "CONTRAST_FFT_LAUNCHES", "EPILOGUE_SPAN_LAUNCHES")
     for n in names:
         monkeypatch.setattr(frontend_kernel, n, 0)
-    graphs._add_launches((1, 1, 1, 1, 1))
-    graphs._add_launches((1, 1, 0, 0, 0))
-    assert graphs._launches() == (2, 2, 1, 1, 1)
-    assert (frontend_kernel.SPECTRAL_FFT_LAUNCHES, frontend_kernel.CONTRAST_FFT_LAUNCHES) == (1, 1)
+    graphs._add_launches((1, 1, 1, 1, 1, 1))
+    graphs._add_launches((1, 1, 0, 0, 0, 0))
+    assert graphs._launches() == (2, 2, 1, 1, 1, 1)
+    assert (frontend_kernel.SPECTRAL_FFT_LAUNCHES, frontend_kernel.CONTRAST_FFT_LAUNCHES,
+            frontend_kernel.EPILOGUE_SPAN_LAUNCHES) == (1, 1, 1)
 
 
 @pytest.mark.parametrize("name", ["nfft2048", "nfft2048_contrast"])
